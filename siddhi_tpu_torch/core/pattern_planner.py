@@ -1,0 +1,440 @@
+"""Planner for pattern queries (PyTorch port of
+`siddhi_tpu/core/pattern_planner.py`).
+
+Each pattern query compiles to one step per input stream.  The host groups
+incoming events by partition key into a [Kb, E] selection, and the step does
+the sequential-per-key NFA advance over the packed state blobs.
+
+On a CUDA device the step is the hand-written kernel of
+`siddhi_tpu_torch/kernels/pattern_step.py`; a plan outside the kernel's
+subset raises there.  On the CPU the step is the plain PyTorch function
+`make_step` below, which is also the kernel's reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..query_api.definition import StreamDefinition
+from ..query_api.expression import Variable, walk
+from ..query_api.query import Query, StateInputStream
+from . import event as ev
+from .executor import CompileError
+from .pattern import PatternExec, PatternSpec, PatternState, last_filled, \
+    linearize, oh_take
+from .selector import SelectorExec
+from .window import NO_WAKEUP, UNCAPPED_SENTINEL, Rows
+
+
+def state_leaves(st: PatternState) -> List[torch.Tensor]:
+    """PatternState leaves in the reference's pytree order: the named fields
+    in order, then the captures by sorted key, each as (ts, *cols)."""
+    out = [st.active, st.pos, st.count, st.lmask, st.start_ts, st.entry_ts,
+           st.seed_on, st.done, st.dropped]
+    for ck in sorted(st.caps):
+        ts, cols = st.caps[ck]
+        out.append(ts)
+        out.extend(cols)
+    return out
+
+
+class StatePacker:
+    """Pack the per-key state into two blobs, one int32 (int32, float32
+    bit-cast and bool leaves) and one int64, stored [W, K] with the key axis
+    MINOR, plus the scalar leaves.  The row layout is the reference's, so a
+    state blob moves between the two packages unchanged."""
+
+    def __init__(self, example: PatternState):
+        self._caps_layout = [(ck, len(example.caps[ck][1]))
+                             for ck in sorted(example.caps)]
+        self.recs = []   # (kind, dtype, head shape, offset, width)
+        self.w32 = 0
+        self.w64 = 0
+        self.n_scalars = 0
+        for leaf in state_leaves(example):
+            if leaf.dim() == 0:
+                self.recs.append(("scalar", leaf.dtype, (), self.n_scalars, 0))
+                self.n_scalars += 1
+                continue
+            head = tuple(leaf.shape[:-1])
+            width = 1
+            for d in head:
+                width *= d
+            if leaf.dtype == torch.int64:
+                self.recs.append(("i64", leaf.dtype, head, self.w64, width))
+                self.w64 += width
+            else:
+                self.recs.append(("i32", leaf.dtype, head, self.w32, width))
+                self.w32 += width
+
+    def pack(self, state: PatternState):
+        parts32, parts64, scal = [], [], []
+        K = state.active.shape[-1]
+        for leaf, (kind, dtype, head, off, width) in zip(
+                state_leaves(state), self.recs):
+            if kind == "scalar":
+                scal.append(leaf)
+                continue
+            flat = leaf.reshape(width, K)
+            if kind == "i64":
+                parts64.append(flat)
+            elif dtype == torch.float32:
+                parts32.append(flat.contiguous().view(torch.int32))
+            else:
+                parts32.append(flat.to(torch.int32))
+        dev = state.active.device
+        b32 = torch.cat(parts32, dim=0) if parts32 else \
+            torch.zeros((0, K), dtype=torch.int32, device=dev)
+        b64 = torch.cat(parts64, dim=0) if parts64 else \
+            torch.zeros((0, K), dtype=torch.int64, device=dev)
+        return b32, b64, tuple(scal)
+
+    def unpack(self, b32, b64, scalars) -> PatternState:
+        leaves = []
+        K = b32.shape[1]
+        for kind, dtype, head, off, width in self.recs:
+            if kind == "scalar":
+                leaves.append(scalars[off])
+                continue
+            if kind == "i64":
+                leaf = b64[off:off + width].reshape(head + (K,))
+            else:
+                flat = b32[off:off + width]
+                if dtype == torch.float32:
+                    flat = flat.contiguous().view(torch.float32)
+                leaf = flat.reshape(head + (K,))
+                if dtype == torch.bool:
+                    leaf = leaf != 0
+                elif dtype != torch.float32:
+                    leaf = leaf.to(dtype)
+            leaves.append(leaf)
+        it = iter(leaves)
+        fields = [next(it) for _ in range(9)]
+        caps = {}
+        for ck, ncols in self._caps_layout:
+            ts = next(it)
+            caps[ck] = (ts, tuple(next(it) for _ in range(ncols)))
+        return PatternState(*fields, caps=caps)
+
+
+@dataclasses.dataclass
+class PlannedPatternQuery:
+    name: str
+    spec: PatternSpec
+    exec: PatternExec
+    in_schemas: Dict[str, ev.Schema]
+    out_schema: ev.Schema
+    output_target: str
+    output_event_type: str
+    # stream_id -> step; the four names mirror the reference's dispatch
+    # table (gather/dense slot access x raw-i64/ts-delta wire)
+    steps: Dict[str, Callable]
+    init_state: Callable                # (K) -> (packed state, sel_state)
+    key_capacity: int
+    slots: int
+    packer: StatePacker
+    partition_positions: Optional[Dict[str, List[int]]] = None
+    dense_steps: Optional[Dict[str, Callable]] = None
+    steps_w: Optional[Dict[str, Callable]] = None
+    dense_steps_w: Optional[Dict[str, Callable]] = None
+    # False when the per-key emission cap is an implicit default: overflow
+    # then grows the cap instead of dropping rows
+    emit_explicit: bool = True
+    selector_exec: Any = None
+    compact_rows: int = 8
+    device: Any = None
+
+
+def plan_pattern_query(
+    query: Query,
+    name: str,
+    schemas: Dict[str, ev.Schema],
+    interner: ev.StringInterner,
+    key_capacity: int = 1,
+    slots: int = 8,
+    count_cap: int = 8,
+    partition_positions: Optional[Dict[str, List[int]]] = None,
+    compact_rows_override: Optional[int] = None,
+    device: Optional[torch.device] = None,
+) -> PlannedPatternQuery:
+    from ..kernels.pattern_step import KernelPlan, PatternStep
+
+    device = device if device is not None else torch.device("cpu")
+    sis = query.input_stream
+    if not isinstance(sis, StateInputStream):
+        raise CompileError(f"query {name!r} is not a pattern query")
+    # per-key emission row cap; only partitioned queries compact by default
+    compact_rows = compact_rows_override or (
+        8 if partition_positions else UNCAPPED_SENTINEL)
+    emit_explicit = False
+    for ann in query.annotations:
+        if ann.name.lower() == "emit":
+            compact_rows = int(ann.element("rows", compact_rows))
+            emit_explicit = True
+    spec = linearize(sis, count_cap=count_cap)
+    for sid in spec.stream_ids:
+        if sid not in schemas:
+            raise CompileError(f"undefined stream {sid!r} in pattern")
+    if partition_positions is None and block_eligible(spec):
+        raise NotImplementedError(
+            f"query {name!r}: a non-partitioned simple-chain pattern runs "
+            f"on the block NFA, which is not yet ported (ROADMAP B6)")
+    if device.type == "cuda":
+        unsupported = kernel_subset_violation(spec, partition_positions)
+        if unsupported is not None:
+            raise NotImplementedError(
+                f"query {name!r} is outside the CUDA pattern_step kernel's "
+                f"subset: {unsupported}")
+    pexec = PatternExec(spec, schemas, interner, slots=slots,
+                        emit_refs=_used_refs(query, spec), device=device)
+
+    out_target = query.output_stream.target_id if query.output_stream else ""
+    sel = SelectorExec(query.selector, pexec.scope,
+                       schemas[spec.stream_ids[0]])
+
+    out_def = StreamDefinition(out_target or f"#{name}.out")
+    for n, t in zip(sel.out_names, sel.out_types):
+        out_def.attribute(n, t)
+    out_schema = ev.Schema(out_def, interner)
+
+    packer = StatePacker(PatternExec(
+        spec, schemas, interner, slots=slots).init_state(1))
+
+    def make_step(stream_id: str, dense: bool = False):
+        schema = schemas[stream_id]
+
+        def step(packed, sel_state, raw_cols, raw_ts, sel_idx, key_ref, now):
+            # raw_cols/raw_ts are the UNGROUPED batch [B]; sel_idx [Kb,E]
+            # holds batch indices (-1 = padding).  The blobs update in place.
+            b32, b64, scalars = packed
+            B = raw_ts.shape[0]
+            K = b32.shape[1]
+            csel = torch.clamp(sel_idx, 0, B - 1).long()
+            cols = tuple(c[csel].to(d)
+                         for c, d in zip(raw_cols, schema.dtypes))
+            ts = raw_ts[csel]
+            valid = sel_idx >= 0
+            ord_ = csel
+            Kb, E = ts.shape
+            if dense:
+                # the batch's slots are the contiguous range
+                # [key_lo, key_lo+Kb); the runtime guarantees it fits
+                key_lo = int(key_ref)
+                if key_lo < 0 or key_lo + Kb > K:
+                    raise ValueError(
+                        f"dense step range [{key_lo}, {key_lo + Kb}) "
+                        f"exceeds key capacity {K}")
+                key_idx = key_lo + torch.arange(Kb, dtype=torch.int32,
+                                                device=b32.device)
+                sub32 = b32[:, key_lo:key_lo + Kb]
+                sub64 = b64[:, key_lo:key_lo + Kb]
+            else:
+                # padding rows (index >= K) read the last column, as a
+                # clamped gather does, and are masked out on write
+                key_idx = key_ref
+                gi = torch.clamp(key_idx, 0, K - 1).long()
+                sub32, sub64 = b32[:, gi], b64[:, gi]
+            sub = packer.unpack(sub32, sub64, scalars)
+
+            emits = []
+            for e in range(E):
+                now_k = torch.where(valid[:, e], ts[:, e], now)
+                sub, emit = pexec.tick(sub, stream_id,
+                                       tuple(c[:, e] for c in cols),
+                                       ts[:, e], valid[:, e], now_k)
+                emits.append(emit)
+            emits = _stack_emits(emits)
+
+            nb32, nb64, nscal = packer.pack(sub)
+            if dense:
+                b32[:, key_lo:key_lo + Kb] = nb32
+                b64[:, key_lo:key_lo + Kb] = nb64
+            else:
+                keep = (key_idx >= 0) & (key_idx < K)
+                wi = key_idx[keep].long()
+                b32[:, wi] = nb32[:, keep]
+                b64[:, wi] = nb64[:, keep]
+
+            sel_state, out, wake = _emit_matches(
+                sel, spec, emits, ord_, sel_state, now,
+                key_idx=key_idx, compact_rows=compact_rows)
+            return (b32, b64, nscal), sel_state, out, wake
+
+        return step
+
+    def wire_ts(body):
+        """ts-delta wire variant: the host ships (base i64 scalar, delta i32
+        [B]) instead of an 8-byte-per-event timestamp column."""
+        def wrapped(packed, sel_state, raw_cols, ts_base, ts_delta,
+                    sel_idx, key_ref, now):
+            raw_ts = int(ts_base) + ts_delta.to(torch.int64)
+            return body(packed, sel_state, raw_cols, raw_ts, sel_idx,
+                        key_ref, now)
+        return wrapped
+
+    kernel_plans = {}
+    if device.type == "cuda":
+        kernel_plans = {sid: KernelPlan(pexec, sel, packer, sid,
+                                        compact_rows)
+                        for sid in spec.stream_ids}
+
+    def variant(dense: bool, wire: bool):
+        return {sid: PatternStep(
+            (wire_ts if wire else (lambda b: b))(make_step(sid, dense)),
+            kernel_plans.get(sid), dense=dense, wire=wire)
+            for sid in spec.stream_ids}
+
+    def init_state(K: int):
+        return packer.pack(pexec.init_state(K)), sel.init_state()
+
+    return PlannedPatternQuery(
+        name=name, spec=spec, exec=pexec,
+        in_schemas={sid: schemas[sid] for sid in spec.stream_ids},
+        out_schema=out_schema,
+        output_target=out_target,
+        output_event_type=(query.output_stream.output_event_type
+                           if query.output_stream and
+                           query.output_stream.output_event_type
+                           else "CURRENT_EVENTS"),
+        steps=variant(False, False), dense_steps=variant(True, False),
+        steps_w=variant(False, True), dense_steps_w=variant(True, True),
+        init_state=init_state, key_capacity=key_capacity, slots=slots,
+        packer=packer, partition_positions=partition_positions,
+        emit_explicit=emit_explicit, selector_exec=sel,
+        compact_rows=compact_rows, device=device)
+
+
+def block_eligible(spec: PatternSpec) -> bool:
+    """Simple chains: single-count atoms, no logical pairs, capture depth 1
+    (the reference routes these to its block NFA when not partitioned)."""
+    for a in spec.atoms:
+        if a.partner is not None or a.is_count:
+            return False
+        if a.capture_depth != 1:
+            return False
+    return spec.state_type in ("PATTERN", "SEQUENCE")
+
+
+def kernel_subset_violation(spec: PatternSpec,
+                            partition_positions) -> Optional[str]:
+    """Why a plan is outside the CUDA kernel's subset (None when inside):
+    partitioned stream atoms, `every`, `->`, `within`, capture depth 1."""
+    if not partition_positions:
+        return "non-partitioned patterns (ROADMAP B6)"
+    if spec.state_type != "PATTERN":
+        return "sequences (ROADMAP B3 kernel subset)"
+    for a in spec.atoms:
+        if a.partner is not None:
+            return "logical and/or atoms (ROADMAP B3 kernel subset)"
+        if a.is_count or a.capture_depth != 1:
+            return "count atoms (ROADMAP B3 kernel subset)"
+    return None
+
+
+def _stack_emits(emits: List[Dict[str, Any]]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in emits[0].items():
+        if isinstance(v, tuple):
+            ts = torch.stack([e[k][0] for e in emits])
+            cols = tuple(torch.stack([e[k][1][j] for e in emits])
+                         for j in range(len(v[1])))
+            out[k] = (ts, cols)
+        else:
+            out[k] = torch.stack([e[k] for e in emits])
+    return out
+
+
+def _used_refs(query: Query, spec: PatternSpec) -> set:
+    """Refs whose captures the selector can touch (emission pruning)."""
+    refs = {a.ref for a in spec.all_atoms()}
+    sel = query.selector
+    if sel.is_select_all:
+        return refs      # select * touches everything
+    used = set()
+    exprs = [oa.expression for oa in sel.selection_list]
+    if sel.having_expression is not None:
+        exprs.append(sel.having_expression)
+    exprs.extend(sel.group_by_list)
+    exprs.extend(ob.variable for ob in sel.order_by_list)
+    unqualified = False
+    for e in exprs:
+        for node in walk(e):
+            if isinstance(node, Variable):
+                if node.stream_id is not None and node.stream_id in refs:
+                    used.add(node.stream_id)
+                elif node.stream_id is None:
+                    unqualified = True
+    if unqualified:
+        return refs
+    return used
+
+
+def _emit_matches(sel: SelectorExec, spec: PatternSpec, emits, ord_,
+                  sel_state, now, key_idx=None, compact_rows: int = 8):
+    """Flatten the emissions [E,P+1,K] into selector Rows + env, project,
+    then compact the selector's OUTPUT rows per key to [R,K] by rank
+    (a one-hot contraction over the EP axis).  Valid rows beyond R matches
+    per key per batch are counted in the out[1] dropped scalar."""
+    mask = emits["mask"]                       # [E,P+1,K]
+    E, P1, K = mask.shape
+    EP = E * P1
+    B = EP * K
+    dev = mask.device
+
+    def flat(x):
+        return x.reshape(B)
+
+    rows_ts = flat(emits["ts"])
+    slot_rank = torch.arange(P1, dtype=torch.int64, device=dev)[None, :, None]
+    seq = flat(ord_.T[:, None, :].to(torch.int64) * (P1 + 1) + slot_rank)
+
+    env: Dict[str, Any] = {"__ts__": rows_ts, "__now__": now}
+    for a in spec.all_atoms():
+        if a.ckey not in emits:
+            continue
+        cap_ts, cap_cols = emits[a.ckey]       # [E,P+1,D,K]
+        D = cap_ts.shape[2]
+        env[a.ref] = tuple(c[:, :, 0, :].reshape(B) for c in cap_cols)
+        for i in range(D):
+            env[f"{a.ref}@{i}"] = tuple(
+                c[:, :, i, :].reshape(B) for c in cap_cols)
+        last_oh = last_filled(cap_ts, 2)                    # [E,P+1,D,K]
+        env[f"{a.ref}@-1"] = tuple(
+            flat(oh_take(c, last_oh, 2)) for c in cap_cols)
+
+    if key_idx is not None:
+        gslot = flat(torch.broadcast_to(key_idx[None, None, :].to(
+            torch.int32), mask.shape)).clamp(min=0)
+    else:
+        gslot = torch.zeros((B,), dtype=torch.int32, device=dev)
+    rows = Rows(ts=rows_ts,
+                kind=torch.full((B,), ev.CURRENT, dtype=torch.int32,
+                                device=dev),
+                valid=flat(mask), seq=seq, gslot=gslot, cols=())
+    sel_state, out = sel.process(sel_state, rows, env)
+
+    ots, okind, ovalid, ocols = out
+    R = min(compact_rows, EP)
+    if R < EP:
+        v2 = ovalid.reshape(EP, K)
+        rank = torch.cumsum(v2.to(torch.int32), dim=0,
+                            dtype=torch.int32) - 1
+        keep_oh = (torch.arange(R, dtype=torch.int32, device=dev)
+                   [:, None, None] == rank[None]) & v2[None]  # [R,EP,K]
+        cmask = torch.any(keep_oh, dim=1)      # [R,K]
+        n_valid = torch.sum(cmask.to(torch.int64))
+        n_dropped = torch.sum(v2.to(torch.int64)) - n_valid
+
+        def cmp(x):                            # [B] -> [R*K]
+            return oh_take(x.reshape(EP, K)[None], keep_oh, 1).reshape(R * K)
+
+        out = (cmp(ots), cmp(okind), cmask.reshape(R * K),
+               tuple(cmp(c) for c in ocols))
+    else:
+        n_valid = torch.sum(ovalid.to(torch.int64))
+        n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    # leading scalars: valid-row count and overflow count
+    out = (n_valid, n_dropped) + out
+    return sel_state, out, NO_WAKEUP

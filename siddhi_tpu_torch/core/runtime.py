@@ -1,0 +1,714 @@
+"""App runtime (port of the pattern-query subset of
+`siddhi_tpu/core/runtime.py`): manager, junctions, input handlers,
+callbacks.
+
+A send stages the micro-batch into numpy once; each subscribed pattern query
+resolves partition keys to dense slots on the host (`core/keyslots.py`,
+C pass in `native/staging.c`), ships the batch and the [Kb, E] selection to
+its device, runs one step, and fetches only the two-count emission header.
+Rows transfer when a consumer reads them.
+
+Ported: stream definitions, `@app:playback`, value partitions (`partition
+with (attr of Stream)`) around pattern queries, top-level pattern queries,
+`InputHandler.send` / `send_columns`, synchronous junctions, the three
+callback kinds, emission-cap growth, `flush` and `shutdown`.  Everything
+else raises `CompileError` naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..exceptions import (DefinitionNotExistError, MatchOverflowError,
+                          QueryNotExistError)
+from ..query_api.app import SiddhiApp
+from ..query_api.definition import StreamDefinition
+from ..query_api.expression import Variable
+from ..query_api.query import (Partition, Query, StateInputStream,
+                               ValuePartitionType)
+from . import event as ev
+from .executor import CompileError
+from .keyslots import SlotAllocator
+from .pattern_planner import plan_pattern_query
+
+_log = logging.getLogger("siddhi_tpu_torch")
+
+# annotations whose machinery is not ported yet -> ROADMAP item
+_UNPORTED_ANNOTATIONS = {
+    "async": "A12", "pipeline": "A12", "serve": "A12", "fuse": "A12",
+    "purge": "A11", "source": "A15", "sink": "A15", "store": "A10",
+    "app:statistics": "A15", "app:errorstore": "A15",
+}
+
+
+def current_millis() -> int:
+    return int(time.time() * 1000)
+
+
+class StreamCallback:
+    """Subscribe to all events of a stream (reference:
+    CORE/stream/output/StreamCallback.java:38)."""
+
+    def receive(self, events: List[ev.Event]) -> None:
+        raise NotImplementedError
+
+
+class QueryCallback:
+    """Per-query output callback: receive(timestamp, current_events,
+    expired_events)."""
+
+    def receive(self, timestamp: int, in_events: Optional[List[ev.Event]],
+                out_events: Optional[List[ev.Event]]) -> None:
+        raise NotImplementedError
+
+
+def _wrap_stream_callback(cb) -> Callable[[List[ev.Event]], None]:
+    return cb.receive if isinstance(cb, StreamCallback) else cb
+
+
+def _wrap_query_callback(cb) -> Callable:
+    return cb.receive if isinstance(cb, QueryCallback) else cb
+
+
+def _check_annotations(annotations, where: str) -> None:
+    for ann in annotations:
+        item = _UNPORTED_ANNOTATIONS.get(ann.name.lower())
+        if item is not None:
+            raise CompileError(
+                f"@{ann.name} on {where} is not yet ported (ROADMAP {item})")
+        if ann.name.lower() == "onerror" and \
+                str(ann.element("action") or "LOG").upper() != "LOG":
+            raise CompileError(
+                f"@OnError(action='{ann.element('action')}') on {where} is "
+                f"not yet ported (ROADMAP A15)")
+
+
+class InputHandler:
+    """reference: CORE/stream/input/InputHandler.java:50"""
+
+    def __init__(self, stream_id: str, runtime: "SiddhiAppRuntime"):
+        self.stream_id = stream_id
+        self._runtime = runtime
+
+    def send(self, data, timestamp: Optional[int] = None) -> None:
+        """Accepts one event's data list/tuple, an Event, or a list of
+        those."""
+        self._runtime._route(self.stream_id, self._to_events(data, timestamp))
+
+    def _to_events(self, data, timestamp) -> List[ev.Event]:
+        now = timestamp if timestamp is not None \
+            else self._runtime.timestamp_millis()
+        if isinstance(data, ev.Event):
+            return [data]
+        if isinstance(data, (list, tuple)) and data and isinstance(
+                data[0], (list, tuple, ev.Event)):
+            return [d if isinstance(d, ev.Event) else ev.Event(now, d)
+                    for d in data]
+        return [ev.Event(now, list(data))]
+
+    def send_columns(self, cols: Sequence, timestamps=None) -> None:
+        """Columnar ingestion: `cols` is one numpy array per attribute (equal
+        lengths; strings pre-encoded as interner ids).  Arrays that exactly
+        fill the staging bucket are adopted, not copied: the caller must not
+        mutate them after the send."""
+        self._runtime._route_columns(self.stream_id, cols, timestamps)
+
+
+def _h2d(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class PatternQueryRuntime:
+    """Host wrapper for a pattern query: groups events per key into the
+    [Kb, E] layout and drives the per-stream steps."""
+
+    _EMIT_CAP_MAX = 512
+
+    def __init__(self, planned, app: "SiddhiAppRuntime",
+                 slot_allocator=None):
+        self.planned = planned
+        self.app = app
+        self.state = planned.init_state(planned.key_capacity)
+        self.callbacks: List[Callable] = []
+        self.batch_callbacks: List[Callable] = []
+        self.slot_allocator = slot_allocator  # shared per partition
+        self._qlock = threading.RLock()
+        # set at wiring time: fn(new_cap) -> plan with a larger emission cap
+        self._replan = None
+        # steady-state block memo for _grouped_slots: (k0, n) ->
+        # (allocator version, key_idx, sel, keys copy)
+        self._block_cache: Dict = {}
+
+    @property
+    def name(self):
+        return self.planned.name
+
+    def _grow_emission_cap(self, n_dropped: int, n_valid: int = 0) -> bool:
+        """Size the implicit per-key emission cap to the observed demand
+        (next power of two) in one jump.  State shapes do not depend on the
+        cap, so the live slab carries over.  Returns False once growth is
+        exhausted."""
+        if self._replan is None:
+            return False
+        cap = self.planned.compact_rows
+        need = max(n_valid + n_dropped, cap * 2)
+        new_cap = min(1 << (need - 1).bit_length(), self._EMIT_CAP_MAX)
+        if new_cap <= cap:
+            return False
+        _log.warning(
+            "%s: %d pattern match rows dropped at emission capacity %d; "
+            "growing the cap to %d (set @emit(rows='N') to pre-size and "
+            "silence this)", self.name, n_dropped, cap, new_cap)
+        self.planned = self._replan(new_cap)
+        return True
+
+    def _grouped_slots(self, key_cols, valid, p):
+        """Slot resolution + [Kb, E] grouping with a steady-state block memo:
+        when the allocator's bindings are unchanged since a key block was
+        last resolved and the keys compare equal, the grouping replays from
+        cache."""
+        alloc = self.slot_allocator
+        keys = key_cols[0] if len(key_cols) == 1 else None
+        cacheable = (keys is not None and keys.dtype.kind in "iu" and
+                     keys.shape[0] >= 1024 and bool(valid.all()))
+        if cacheable:
+            blk = (int(keys[0]), keys.shape[0])
+            ent = self._block_cache.get(blk)
+            if ent is not None and ent[0] == alloc.version and \
+                    np.array_equal(keys, ent[3]):
+                return ent[1], ent[2]
+        _, key_idx, sel = alloc.slots_and_group(key_cols, valid,
+                                                pad=p.key_capacity)
+        if cacheable:
+            if len(self._block_cache) >= 64:
+                self._block_cache.clear()
+            self._block_cache[blk] = (alloc.version, key_idx, sel,
+                                      keys.copy())
+        return key_idx, sel
+
+    def process_staged(self, stream_id: str, staged: ev.StagedBatch,
+                       now: int) -> None:
+        p = self.planned
+        dev = p.device
+        B = staged.ts.shape[0]
+        raw_cols = tuple(_h2d(c, dev) for c in staged.cols)
+        # ts-delta wire: (base, i32 delta) instead of an i64 column when the
+        # batch's span fits i32 (fit-checked over the real rows only)
+        ts_wire = None
+        if staged.n:
+            tsn = staged.ts[:staged.n]
+            base = int(tsn[0])
+            dmax = int(tsn.max()) - base
+            dmin = int(tsn.min()) - base
+            if dmax < 2**31 and dmin >= -(2**31):
+                delta32 = np.zeros(staged.ts.shape, np.int32)
+                delta32[:staged.n] = tsn - base
+                ts_wire = (base, _h2d(delta32, dev))
+        raw_ts = _h2d(staged.ts, dev) if ts_wire is None else None
+        if p.partition_positions:
+            pos = p.partition_positions[stream_id]
+            key_cols = [staged.cols[i] for i in pos]
+            key_idx_np, sel = self._grouped_slots(key_cols, staged.valid, p)
+            sel_d = _h2d(sel, dev)
+            Kb = key_idx_np.shape[0]
+            nuniq = int((key_idx_np < p.key_capacity).sum())
+            # contiguous-slot fast path; the guard keeps the dense range
+            # inside the slab, and nuniq > 1 keeps both packages on the same
+            # step kind for every send
+            if (nuniq > 1 and int(key_idx_np[0]) + Kb <= p.key_capacity and
+                    int(key_idx_np[nuniq - 1]) ==
+                    int(key_idx_np[0]) + nuniq - 1):
+                key_ref = int(key_idx_np[0])
+                steps = p.dense_steps_w if ts_wire else p.dense_steps
+            else:
+                key_ref = _h2d(key_idx_np, dev)
+                steps = p.steps_w if ts_wire else p.steps
+        else:
+            if staged.valid.all():
+                sel_np = np.arange(B, dtype=np.int32)[None, :]
+            else:
+                sel_np = np.where(staged.valid,
+                                  np.arange(B, dtype=np.int32), -1)[None, :]
+            sel_d = _h2d(sel_np, dev)
+            key_ref = torch.zeros((1,), dtype=torch.int32, device=dev)
+            steps = p.steps_w if ts_wire else p.steps
+        pstate, sel_state = self.state
+        ts_args = ts_wire if ts_wire else (raw_ts,)
+        pstate, sel_state, out, _wake = steps[stream_id](
+            pstate, sel_state, raw_cols, *ts_args, sel_d, key_ref, now)
+        self.state = (pstate, sel_state)
+        _emit_output(self, out, now)
+
+
+def _target_live(qr) -> bool:
+    tgt = qr.planned.output_target
+    if not tgt:
+        return False
+    j = qr.app.junctions.get(tgt)
+    return j is not None and bool(j.queries or j.stream_callbacks)
+
+
+def _emit_output(qr, out, now: int) -> None:
+    """Deliver one step's output: fetch the two-count header (one device
+    sync), fan out to batch callbacks, and decode rows to events only when
+    an event consumer exists."""
+    if not (qr.callbacks or qr.batch_callbacks or _target_live(qr)):
+        return
+    n_valid, n_dropped, ots, okind, ovalid, ocols = out
+    nv, nd = torch.stack([n_valid, n_dropped]).tolist()
+    overflow_exc = None
+    if nd:
+        if not qr.planned.emit_explicit:
+            # an implicit cap must not lose matches silently: grow it for
+            # the next batches; once growth is exhausted the loss surfaces
+            # as an error, raised after this batch's rows are delivered
+            if not qr._grow_emission_cap(nd, nv):
+                overflow_exc = MatchOverflowError(
+                    f"{qr.name}: {nd} pattern match rows exceeded the "
+                    f"per-key emission capacity this batch; set "
+                    f"@emit(rows='N') on the query to raise the cap or "
+                    f"accept capped delivery")
+        else:
+            _log.warning("%s: %d pattern match rows exceeded the per-key "
+                         "emission capacity this batch and were dropped",
+                         qr.name, nd)
+    try:
+        if nv:
+            _deliver(qr, nv, nd, ots, okind, ovalid, ocols, now)
+    finally:
+        if overflow_exc is not None:
+            raise overflow_exc
+
+
+def _deliver(qr, nv, nd, ots, okind, ovalid, ocols, now: int) -> None:
+    p = qr.planned
+    if qr.batch_callbacks:
+        counts = {"n_valid": nv, "n_current": nv, "n_expired": 0,
+                  "n_dropped": nd}
+        payload = _LazyBatchPayload(p.out_schema.names, ots, okind, ovalid,
+                                    ocols, counts)
+        for bcb in qr.batch_callbacks:
+            bcb(now, payload)
+    if not qr.callbacks and not _target_live(qr):
+        return
+    # compacted rows are rank-major; restore timestamp order for event
+    # delivery with a host-side stable sort of just the valid rows
+    ts_np, okind_np, ovalid_np = (x.cpu().numpy() for x in
+                                  (ots, okind, ovalid))
+    idxv = np.nonzero(ovalid_np)[0]
+    order = idxv[np.argsort(ts_np[idxv], kind="stable")]
+    batch = ev.EventBatch(ts_np[order], okind_np[order],
+                          np.ones(order.shape[0], np.bool_),
+                          tuple(c.cpu().numpy()[order] for c in ocols))
+    pairs = ev.unpack(p.out_schema, batch,
+                      want_kinds=(ev.CURRENT, ev.EXPIRED))
+    if pairs:
+        _deliver_pairs(qr, pairs, now)
+
+
+class _LazyBatchPayload(dict):
+    """Batch-callback payload: the counts ride the header fetch; bulk rows
+    move device->host on first access ('ts', 'kind', 'valid' together,
+    'cols' as a dict of numpy columns)."""
+
+    _LAZY = ("ts", "kind", "valid", "cols")
+    _COUNTS = ("n_valid", "n_current", "n_expired", "n_dropped")
+
+    def __init__(self, names, ots, okind, ovalid, ocols, counts):
+        super().__init__()
+        self._names = names
+        self._ots, self._okind = ots, okind
+        self._ovalid, self._ocols = ovalid, ocols
+        for k, v in counts.items():
+            dict.__setitem__(self, k, v)
+
+    def __missing__(self, k):
+        if k in ("ts", "kind", "valid"):
+            dict.__setitem__(self, "ts", self._ots.cpu().numpy())
+            dict.__setitem__(self, "kind", self._okind.cpu().numpy())
+            dict.__setitem__(self, "valid", self._ovalid.cpu().numpy())
+            return dict.__getitem__(self, k)
+        if k == "cols":
+            v = dict(zip(self._names, (c.cpu().numpy() for c in self._ocols)))
+            dict.__setitem__(self, k, v)
+            return v
+        raise KeyError(k)
+
+    def _materialize(self):
+        for k in self._LAZY:
+            if not dict.__contains__(self, k):
+                self[k]
+        return self
+
+    def get(self, k, default=None):
+        try:
+            return self[k]
+        except KeyError:
+            return default
+
+    def __contains__(self, k):
+        return k in self._LAZY or dict.__contains__(self, k)
+
+    def __iter__(self):
+        return iter(dict.keys(self._materialize()))
+
+    def keys(self):
+        return dict.keys(self._materialize())
+
+    def items(self):
+        return dict.items(self._materialize())
+
+    def values(self):
+        return dict.values(self._materialize())
+
+    def __len__(self):
+        extra = sum(1 for k in dict.keys(self)
+                    if k not in self._LAZY and k not in self._COUNTS)
+        return len(self._LAZY) + len(self._COUNTS) + extra
+
+
+def _deliver_pairs(qr, pairs, now: int) -> None:
+    """Query callbacks, then routing into the output stream."""
+    p = qr.planned
+    current = [e for k, e in pairs if k == ev.CURRENT]
+    expired = [e for k, e in pairs if k == ev.EXPIRED]
+    for cb in qr.callbacks:
+        cb(now, current or None, expired or None)
+    if p.output_target:
+        sel = p.output_event_type
+        if sel == "CURRENT_EVENTS":
+            routed = current
+        elif sel == "EXPIRED_EVENTS":
+            routed = expired
+        else:
+            routed = [e for _, e in pairs]
+        if routed:
+            qr.app._route(p.output_target, routed)
+
+
+class _Sub:
+    """A pattern query's subscription to one of its input streams."""
+
+    def __init__(self, qr: PatternQueryRuntime, stream: str):
+        self._qr, self._sid = qr, stream
+
+    def process_staged(self, staged, now):
+        with self._qr._qlock:
+            self._qr.process_staged(self._sid, staged, now)
+
+
+class StreamJunction:
+    """Per-stream pub/sub hub (reference: CORE/stream/StreamJunction.java:61),
+    synchronous.  A subscriber's failure is logged and the batch dropped for
+    it (the reference's default @OnError action, LOG)."""
+
+    def __init__(self, schema: ev.Schema, stream_id: str = ""):
+        self.schema = schema
+        self.stream_id = stream_id
+        self.queries: List[_Sub] = []
+        self.stream_callbacks: List[Callable] = []
+
+    def subscribe_query(self, q) -> None:
+        self.queries.append(q)
+
+    def subscribe_callback(self, cb: Callable) -> None:
+        self.stream_callbacks.append(cb)
+
+    def dispatch_staged(self, staged: ev.StagedBatch, now: int) -> None:
+        for q in self.queries:
+            try:
+                q.process_staged(staged, now)
+            except Exception:  # noqa: BLE001 — @OnError LOG semantics
+                _log.exception("stream %s: processing failed; batch of %d "
+                               "events dropped", self.stream_id, staged.n)
+
+    def publish(self, events: List[ev.Event], now: int) -> None:
+        for cb in self.stream_callbacks:
+            cb(events)
+        if self.queries:
+            self.dispatch_staged(ev.pack_np(self.schema, events), now)
+
+
+class SiddhiAppRuntime:
+    """reference: CORE/SiddhiAppRuntimeImpl.java:99"""
+
+    def __init__(self, app: SiddhiApp, manager: "SiddhiManager",
+                 name: Optional[str] = None):
+        self.app = app
+        self.manager = manager
+        self.device = manager.device
+        self.name = name or app.name or "SiddhiApp"
+        self.interner = manager.interner
+        self._lock = threading.RLock()
+        self._started = False
+        pb = app.get_annotation("app:playback")
+        self.playback = pb is not None
+        if pb is not None and pb.element("idle.time") is not None:
+            raise CompileError("@app:playback(idle.time) is not yet ported "
+                               "(ROADMAP A8)")
+        self._playback_time = 0
+        _check_annotations(
+            [a for a in app.annotations
+             if a.name.lower() not in ("app:playback",)], "the app")
+        for what, defs, item in (
+                ("tables", app.table_definition_map, "A10"),
+                ("windows", getattr(app, "window_definition_map", {}), "A11"),
+                ("aggregations", app.aggregation_definition_map, "A11"),
+                ("triggers", app.trigger_definition_map, "A11"),
+                ("functions", app.function_definition_map, "A4")):
+            if defs:
+                raise CompileError(f"{what} are not yet ported "
+                                   f"(ROADMAP {item})")
+
+        self.schemas: Dict[str, ev.Schema] = {}
+        self.junctions: Dict[str, StreamJunction] = {}
+        for sdef in list(app.stream_definition_map.values()):
+            _check_annotations(sdef.annotations, f"stream {sdef.id!r}")
+            self._define_stream_runtime(sdef)
+
+        self.query_runtimes: Dict[str, PatternQueryRuntime] = {}
+        qi = 0
+        for element in app.execution_element_list:
+            if isinstance(element, Query):
+                qname = self._query_name(element, qi)
+                qi += 1
+                self._add_pattern_query(element, qname)
+            elif isinstance(element, Partition):
+                qi = self._add_partition(element, qi)
+
+    # -- construction ---------------------------------------------------------
+    def _define_stream_runtime(self, sdef: StreamDefinition):
+        schema = ev.Schema(sdef, self.interner)
+        self.schemas[sdef.id] = schema
+        self.junctions[sdef.id] = StreamJunction(schema, stream_id=sdef.id)
+
+    def _query_name(self, q: Query, i: int) -> str:
+        info = q.get_annotation("info")
+        if info:
+            n = info.element("name")
+            if n:
+                return n
+        return f"query{i + 1}"
+
+    def _add_pattern_query(self, q: Query, name: str, key_capacity: int = 1,
+                           slots: Optional[int] = None, positions=None,
+                           allocator=None) -> None:
+        if not isinstance(q.input_stream, StateInputStream):
+            raise CompileError(
+                f"query {name!r}: only pattern queries are ported so far "
+                f"(plain queries: ROADMAP A5, joins: ROADMAP A10)")
+        _check_annotations(q.annotations, f"query {name!r}")
+        if slots is None:
+            slots = 8
+            cap_ann = q.get_annotation("capacity")
+            if cap_ann is not None:
+                slots = int(cap_ann.element("slots", slots))
+
+        def plan(cap=None):
+            return plan_pattern_query(
+                q, name, self.schemas, self.interner,
+                key_capacity=key_capacity, slots=slots,
+                partition_positions=positions, compact_rows_override=cap,
+                device=self.device)
+
+        planned = plan()
+        runtime = PatternQueryRuntime(planned, self, slot_allocator=allocator)
+        # the SAME closure replans on emission-cap growth
+        runtime._replan = plan
+        self.query_runtimes[name] = runtime
+        for sid in planned.spec.stream_ids:
+            self.junctions[sid].subscribe_query(_Sub(runtime, sid))
+        self._define_output_for(planned, name)
+
+    def _add_partition(self, part: Partition, qi: int) -> int:
+        """Partitions: the partition key becomes an explicit key axis of the
+        pattern state (reference: CORE/partition/PartitionRuntimeImpl.java)."""
+        _check_annotations(part.annotations, "a partition")
+        positions: Dict[str, List[int]] = {}
+        for sid, pt in part.partition_type_map.items():
+            schema = self.schemas.get(sid)
+            if schema is None:
+                raise CompileError(f"undefined partitioned stream {sid!r}")
+            if not isinstance(pt, ValuePartitionType):
+                raise CompileError("range partitions are not yet ported "
+                                   "(ROADMAP A11)")
+            if not isinstance(pt.expression, Variable):
+                raise CompileError(
+                    "partition-by expression must be a plain attribute in "
+                    "this build")
+            positions[sid] = [schema.position(pt.expression.attribute_name)]
+
+        keys_cap, nfa_slots = 4096, 8
+        all_anns = list(part.annotations)
+        for q in part.query_list:
+            all_anns.extend(q.annotations)
+        for ann in all_anns:
+            if ann.name.lower() == "capacity":
+                keys_cap = int(ann.element("keys", keys_cap))
+                nfa_slots = int(ann.element("slots", nfa_slots))
+        shared_allocator = SlotAllocator(keys_cap, name="partition")
+        for q in part.query_list:
+            qname = self._query_name(q, qi)
+            qi += 1
+            if not isinstance(q.input_stream, StateInputStream):
+                raise CompileError(
+                    f"query {qname!r}: only pattern queries are ported "
+                    f"inside partitions so far (ROADMAP A5/A10)")
+            ppos = {}
+            for sid in q.input_stream.all_stream_ids:
+                if sid not in positions:
+                    raise CompileError(
+                        f"pattern stream {sid!r} has no partition key")
+                ppos[sid] = positions[sid]
+            self._add_pattern_query(q, qname, key_capacity=keys_cap,
+                                    slots=nfa_slots, positions=ppos,
+                                    allocator=shared_allocator)
+        return qi
+
+    def _define_output_for(self, planned, name: str):
+        tgt = planned.output_target
+        if tgt and tgt not in self.junctions:
+            sdef = StreamDefinition(tgt)
+            for a in planned.out_schema.definition.attribute_list:
+                sdef.attribute(a.name, a.type)
+            self.app.stream_definition_map[tgt] = sdef
+            self._define_stream_runtime(sdef)
+        elif tgt:
+            tdef = self.app.stream_definition_map.get(tgt)
+            if tdef is not None and len(tdef.attribute_list) != len(
+                    planned.out_schema.names):
+                raise CompileError(
+                    f"query {name!r} output arity does not match stream "
+                    f"{tgt!r}")
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self) -> None:
+        self._started = True
+
+    def shutdown(self) -> None:
+        self.flush()
+        self._started = False
+
+    def flush(self) -> None:
+        """Wait until the device has finished every dispatched step.  Every
+        emission is delivered inline, so nothing else is pending."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def timestamp_millis(self) -> int:
+        if self.playback:
+            return self._playback_time
+        return current_millis()
+
+    # -- I/O ------------------------------------------------------------------
+    def get_input_handler(self, stream_id: str) -> InputHandler:
+        if stream_id not in self.junctions:
+            raise DefinitionNotExistError(f"undefined stream {stream_id!r}")
+        return InputHandler(stream_id, self)
+
+    def add_batch_callback(self, query_name: str, cb) -> None:
+        """Columnar query callback receiving (timestamp, payload) where the
+        payload holds the counts and, on access, numpy rows."""
+        if query_name not in self.query_runtimes:
+            raise QueryNotExistError(f"no query named {query_name!r}")
+        self.query_runtimes[query_name].batch_callbacks.append(cb)
+
+    def add_callback(self, name: str, cb) -> None:
+        """Stream name -> StreamCallback; query name -> QueryCallback."""
+        if name in self.junctions and name not in self.query_runtimes:
+            self.junctions[name].subscribe_callback(_wrap_stream_callback(cb))
+        elif name in self.query_runtimes:
+            self.query_runtimes[name].callbacks.append(
+                _wrap_query_callback(cb))
+        else:
+            raise QueryNotExistError(f"no stream or query named {name!r}")
+
+    def _advance_playback(self, max_ts: int) -> None:
+        if self.playback:
+            with self._lock:
+                self._playback_time = max(self._playback_time, max_ts)
+
+    def _route_columns(self, stream_id: str, cols, timestamps) -> None:
+        junction = self.junctions.get(stream_id)
+        if junction is None:
+            raise DefinitionNotExistError(f"undefined stream {stream_id!r}")
+        n = len(cols[0])
+        cap = ev.bucket_size(max(n, 1))
+        schema = junction.schema
+        if timestamps is None:
+            ts = np.full((cap,), self.timestamp_millis(), np.int64)
+        elif n == cap and isinstance(timestamps, np.ndarray) and \
+                timestamps.dtype == np.int64 and timestamps.flags.c_contiguous:
+            ts = timestamps          # full bucket: adopt the caller's buffer
+        else:
+            ts = np.zeros((cap,), np.int64)
+            ts[:n] = timestamps
+        valid = np.zeros((cap,), np.bool_)
+        valid[:n] = True
+        kind = np.zeros((cap,), np.int32)
+        padded = []
+        for c, t in zip(cols, schema.types):
+            d = ev.np_dtype(t)
+            if n == cap and isinstance(c, np.ndarray) and c.dtype == d \
+                    and c.flags.c_contiguous:
+                padded.append(c)
+                continue
+            a = np.zeros((cap,), d)
+            a[:n] = c
+            padded.append(a)
+        staged = ev.StagedBatch(ts, kind, valid, padded, n)
+        if n:
+            self._advance_playback(int(ts[:n].max()))
+        junction.dispatch_staged(staged, self.timestamp_millis())
+
+    def _route(self, stream_id: str, events: List[ev.Event]) -> None:
+        junction = self.junctions.get(stream_id)
+        if junction is None:
+            raise DefinitionNotExistError(f"undefined stream {stream_id!r}")
+        if events:
+            self._advance_playback(max(e.timestamp for e in events))
+        junction.publish(events, self.timestamp_millis())
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The device an app runs on: CUDA unless the caller asks for the CPU.
+    Without a CUDA device and without an explicit `device='cpu'` this
+    raises; it never continues on the CPU quietly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "siddhi_tpu_torch runs on a CUDA device and none is "
+                "available; pass SiddhiManager(device='cpu') to run on the "
+                "CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class SiddhiManager:
+    """reference: CORE/SiddhiManager.java:49"""
+
+    def __init__(self, device: Union[str, torch.device, None] = None):
+        self.device = resolve_device(device)
+        self.interner = ev.StringInterner()
+        self.runtimes: Dict[str, SiddhiAppRuntime] = {}
+
+    def create_siddhi_app_runtime(
+            self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:
+        if isinstance(app, str):
+            from ..compiler import SiddhiCompiler
+            app = SiddhiCompiler.parse(app)
+        runtime = SiddhiAppRuntime(app, self)
+        self.runtimes[runtime.name] = runtime
+        return runtime
+
+    def shutdown(self) -> None:
+        for rt in self.runtimes.values():
+            rt.shutdown()

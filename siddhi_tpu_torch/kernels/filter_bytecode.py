@@ -1,0 +1,290 @@
+"""Pattern filters as a small typed postfix bytecode for the CUDA kernel.
+
+The kernel in `csrc/pattern_step.cu` is built once, not once per query, so a
+query's filters reach it as data: a list of int32 words that each thread
+interprets with a small stack.  `compile_filter` produces the words from the
+`query_api` expression tree at plan time; `interpret` is a plain PyTorch
+interpreter of the same words, vectorised over keys, so the CPU tests can
+hold the bytecode against `core.executor.compile_expression`.
+
+Values on the stack are typed (int32, int64, float32 or bool).  The typing,
+promotion and in-band null rules are the executor's:
+  * arithmetic casts both sides to the Siddhi-promoted type; a null operand
+    gives the null of the result type; integer division truncates toward
+    zero and a zero divisor gives 0;
+  * comparisons cast both sides to the wider operand dtype and are false
+    when a (non-constant) operand is null;
+  * `is null` reads the in-band null of its operand's type.
+
+Subset: constants, event-column and capture-column loads, `+ - * /`, the six
+comparisons, and/or/not, `is null`.  Anything else raises CompileError.
+
+Word layout (operands follow the opcode):
+  LOAD_EV col | LOAD_CAP atom col | CONST lo hi | ARITH op t lt rt lnk rnk |
+  CMP op ct lt rt lnk rnk | AND | OR | NOT | ISNULL nk
+Type codes: 0 int32, 1 int64, 2 float32, 3 bool.  Null kinds: 0 never null,
+1 INT_MIN, 2 LONG_MIN, 3 NaN, 4 the string/object id -1.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from ..core import event as ev
+from ..core.executor import CompileError, Scope, compare_dtype, maybe_null, \
+    promote, CompiledExpr
+from ..query_api.expression import (
+    Add,
+    And,
+    Compare,
+    Constant,
+    Divide,
+    IsNull,
+    Multiply,
+    Not,
+    Or,
+    Subtract,
+    Variable,
+)
+
+LOAD_EV, LOAD_CAP, CONST, ARITH, CMP, AND, OR, NOT, ISNULL = range(1, 10)
+T_I32, T_I64, T_F32, T_BOOL = range(4)
+N_NONE, N_INT, N_LONG, N_NAN, N_ID = range(5)
+
+_ARITH_OPS = {Add: 0, Subtract: 1, Multiply: 2, Divide: 3}
+_CMP_OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
+_DTYPE_CODE = {torch.int32: T_I32, torch.int64: T_I64,
+               torch.float32: T_F32, torch.bool: T_BOOL}
+CODE_DTYPE = {v: k for k, v in _DTYPE_CODE.items()}
+
+
+def type_code(attr_type: str) -> int:
+    return _DTYPE_CODE[ev.dtype_of(attr_type)]
+
+
+def null_kind(attr_type: str) -> int:
+    t = attr_type.upper()
+    return {"INT": N_INT, "LONG": N_LONG, "FLOAT": N_NAN, "DOUBLE": N_NAN,
+            "STRING": N_ID, "OBJECT": N_ID}.get(t, N_NONE)
+
+
+def _words(value, attr_type: str) -> Tuple[int, int]:
+    """A constant as two int32 words (low, high) of its 64-bit slot."""
+    code = type_code(attr_type)
+    if code == T_F32:
+        bits = struct.unpack("<i", struct.pack("<f", float(value)))[0]
+        return bits, -1 if bits < 0 else 0
+    v = int(value)
+    if code == T_I32:
+        v = struct.unpack("<i", struct.pack("<I", v & 0xFFFFFFFF))[0]
+    lo = struct.unpack("<i", struct.pack("<I", v & 0xFFFFFFFF))[0]
+    hi = struct.unpack("<i", struct.pack("<I", (v >> 32) & 0xFFFFFFFF))[0]
+    return lo, hi
+
+
+def compile_filter(expr, scope: Scope, own_ref: str,
+                   atom_of_ref: Dict[str, int]) -> List[int]:
+    """Bytecode of one pattern atom's filter.  `scope` is the atom's filter
+    scope (unqualified names bind to the atom's own stream); `own_ref`
+    loads come from the incoming event, every other ref from that atom's
+    capture in the slot under evaluation (`atom_of_ref`: ref -> atom)."""
+    code: List[int] = []
+    t = _emit(expr, scope, own_ref, atom_of_ref, code)
+    if t.type != "BOOL":
+        raise CompileError("pattern filter must be boolean")
+    return code
+
+
+def _emit(expr, scope, own_ref, atom_of_ref, code) -> CompiledExpr:
+    """Append expr's words; returns a CompiledExpr carrying its static type
+    (and constness) for the caller's typing decisions."""
+    if isinstance(expr, Constant):
+        if expr.type == "STRING":
+            value = scope.interner.intern(expr.value)
+        else:
+            value = expr.value
+        if expr.type.upper() == "OBJECT":
+            raise CompileError("object constants are outside the kernel "
+                               "filter subset")
+        code += [CONST, *_words(value, expr.type)]
+        return CompiledExpr(None, expr.type, True, expr.value)
+
+    if isinstance(expr, Variable):
+        key, pos, t = scope.resolve(expr)
+        if expr.stream_index not in (None, 0, -1):
+            raise CompileError("capture index beyond depth 1 is outside the "
+                               "kernel filter subset")
+        if key == own_ref and expr.stream_index is None:
+            code += [LOAD_EV, pos]
+        else:
+            code += [LOAD_CAP, atom_of_ref[key], pos]
+        return CompiledExpr(None, t)
+
+    if isinstance(expr, (Add, Subtract, Multiply, Divide)):
+        l = _emit(expr.left, scope, own_ref, atom_of_ref, code)
+        r = _emit(expr.right, scope, own_ref, atom_of_ref, code)
+        t = promote(l.type, r.type)
+        code += [ARITH, _ARITH_OPS[type(expr)], type_code(t),
+                 type_code(l.type), type_code(r.type),
+                 null_kind(l.type) if maybe_null(l) else N_NONE,
+                 null_kind(r.type) if maybe_null(r) else N_NONE]
+        return CompiledExpr(None, t)
+
+    if isinstance(expr, Compare):
+        l = _emit(expr.left, scope, own_ref, atom_of_ref, code)
+        r = _emit(expr.right, scope, own_ref, atom_of_ref, code)
+        if l.type == "STRING" and r.type == "STRING":
+            if expr.operator not in ("==", "!="):
+                raise CompileError(
+                    "string ordering comparisons are not supported on device")
+        elif l.type != "BOOL" and r.type != "BOOL":
+            promote(l.type, r.type)
+        cd = compare_dtype(ev.dtype_of(l.type), ev.dtype_of(r.type))
+        code += [CMP, _CMP_OPS[expr.operator], _DTYPE_CODE[cd],
+                 type_code(l.type), type_code(r.type),
+                 null_kind(l.type) if maybe_null(l) else N_NONE,
+                 null_kind(r.type) if maybe_null(r) else N_NONE]
+        return CompiledExpr(None, "BOOL")
+
+    if isinstance(expr, (And, Or)):
+        _emit(expr.left, scope, own_ref, atom_of_ref, code)
+        _emit(expr.right, scope, own_ref, atom_of_ref, code)
+        code.append(AND if isinstance(expr, And) else OR)
+        return CompiledExpr(None, "BOOL")
+
+    if isinstance(expr, Not):
+        _emit(expr.expression, scope, own_ref, atom_of_ref, code)
+        code.append(NOT)
+        return CompiledExpr(None, "BOOL")
+
+    if isinstance(expr, IsNull) and expr.expression is not None:
+        inner = _emit(expr.expression, scope, own_ref, atom_of_ref, code)
+        code += [ISNULL, null_kind(inner.type) if maybe_null(inner)
+                 else N_NONE]
+        return CompiledExpr(None, "BOOL")
+
+    raise CompileError(
+        f"{type(expr).__name__} is outside the kernel filter subset")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch interpreter (the bytecode's reference)
+# ---------------------------------------------------------------------------
+
+def _is_null(v, nk: int):
+    if nk == N_INT:
+        return v == ev.NULL_INT
+    if nk == N_LONG:
+        return v == ev.NULL_LONG
+    if nk == N_NAN:
+        return torch.isnan(v)
+    if nk == N_ID:
+        return v == ev.NULL_ID
+    return torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+
+
+def _int_div(a, b):
+    zero = b == 0
+    q = torch.where(zero, torch.zeros_like(a), a)
+    b = torch.where(zero, torch.ones_like(b), b)
+    return torch.sign(q) * torch.sign(b) * (torch.abs(q) // torch.abs(b))
+
+
+_NULL_OF = {T_I32: ev.NULL_INT, T_I64: ev.NULL_LONG, T_F32: float("nan")}
+_CMP_FNS = (torch.lt, torch.le, torch.gt, torch.ge, torch.eq, torch.ne)
+
+
+_OP_LEN = {LOAD_EV: 2, LOAD_CAP: 3, CONST: 3, ARITH: 7, CMP: 7, AND: 1,
+           OR: 1, NOT: 1, ISNULL: 2}
+
+
+def cap_loads(code: List[int]) -> List[Tuple[int, int]]:
+    """The distinct (atom, column) capture words the bytecode reads, in
+    order of first load."""
+    out: List[Tuple[int, int]] = []
+    pc = 0
+    while pc < len(code):
+        if code[pc] == LOAD_CAP and (code[pc + 1], code[pc + 2]) not in out:
+            out.append((code[pc + 1], code[pc + 2]))
+        pc += _OP_LEN[code[pc]]
+    return out
+
+
+def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
+              load_cap: Callable[[int, int], torch.Tensor]) -> torch.Tensor:
+    """Run bytecode over whole columns: `load_ev(col)` and
+    `load_cap(atom, col)` return tensors of one shape (the keys).
+    Returns the bool column."""
+    stack: List[torch.Tensor] = []
+    pc = 0
+    while pc < len(code):
+        op = code[pc]
+        if op == LOAD_EV:
+            stack.append(load_ev(code[pc + 1]))
+            pc += 2
+        elif op == LOAD_CAP:
+            stack.append(load_cap(code[pc + 1], code[pc + 2]))
+            pc += 3
+        elif op == CONST:
+            lo, hi = code[pc + 1], code[pc + 2]
+            v = (hi << 32) | (lo & 0xFFFFFFFF)
+            stack.append(torch.tensor(v, dtype=torch.int64))
+            pc += 3
+        elif op in (ARITH, CMP):
+            sub, t, lt, rt, lnk, rnk = code[pc + 1:pc + 7]
+            b, a = _typed(stack.pop(), rt), _typed(stack.pop(), lt)
+            d = CODE_DTYPE[t]
+            x, y = a.to(d), b.to(d)
+            if op == ARITH:
+                if sub == 3:
+                    out = _int_div(x, y) if t != T_F32 else torch.div(x, y)
+                else:
+                    out = (torch.add, torch.sub, torch.mul)[sub](x, y)
+                n = _is_null(a, lnk) | _is_null(b, rnk)
+                out = torch.where(n, torch.tensor(_NULL_OF[t], dtype=d), out)
+            else:
+                out = _CMP_FNS[sub](x, y) & ~_is_null(a, lnk) & \
+                    ~_is_null(b, rnk)
+            stack.append(out)
+            pc += 7
+        elif op in (AND, OR):
+            b, a = stack.pop().bool(), stack.pop().bool()
+            stack.append(a & b if op == AND else a | b)
+            pc += 1
+        elif op == NOT:
+            stack.append(~stack.pop().bool())
+            pc += 1
+        elif op == ISNULL:
+            v = stack.pop()
+            stack.append(_is_null(v, code[pc + 1]))
+            pc += 2
+        else:
+            raise ValueError(f"bad opcode {op} at {pc}")
+    if len(stack) != 1:
+        raise ValueError("bytecode left an unbalanced stack")
+    return stack[0].bool()
+
+
+def _typed(v: torch.Tensor, t: int) -> torch.Tensor:
+    """A stack value in its static type (constants arrive as int64 slots
+    holding the constant's bits)."""
+    d = CODE_DTYPE[t]
+    if v.dtype == d:
+        return v
+    if v.dim() == 0 and v.dtype == torch.int64:
+        raw = int(v)
+        if t == T_F32:
+            bits = raw & 0xFFFFFFFF
+            return torch.tensor(
+                struct.unpack("<f", struct.pack("<I", bits))[0],
+                dtype=torch.float32)
+        if t == T_I32:
+            return torch.tensor(
+                struct.unpack("<i", struct.pack("<I", raw & 0xFFFFFFFF))[0],
+                dtype=torch.int32)
+        if t == T_BOOL:
+            return torch.tensor(bool(raw & 1))
+        return v
+    return v.to(d)

@@ -1,0 +1,92 @@
+"""ctypes loader for the native host-staging library.
+
+Compiles `staging.c` with the system gcc on first import (cached as
+`_staging_<mtime>.so` next to the source); falls back to None so callers
+keep the pure-numpy path when no toolchain is available.
+"""
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import subprocess
+import time
+
+_dir = os.path.dirname(__file__)
+_src = os.path.join(_dir, "staging.c")
+
+
+def _build():
+    if not os.path.exists(_src):
+        return None
+    tag = int(os.stat(_src).st_mtime)
+    so = os.path.join(_dir, f"_staging_{tag}.so")
+    if not os.path.exists(so):
+        now = time.time()
+        for old in os.listdir(_dir):
+            if not old.startswith("_staging_"):
+                continue
+            p = os.path.join(_dir, old)
+            try:
+                # stale .so from an older source; orphaned .tmp only when
+                # old enough that no concurrent gcc can still be writing it
+                if old.endswith(".so") or now - os.stat(p).st_mtime > 600:
+                    os.unlink(p)
+            except OSError:
+                pass
+        # per-process temp name: concurrent importers must not interleave
+        # writes to one file and publish a corrupt .so via os.replace
+        tmp = f"{so}.tmp{os.getpid()}"
+        cmd = ["gcc", "-O3", "-shared", "-fPIC", "-o", tmp, _src]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+            os.replace(tmp, so)
+        except (OSError, subprocess.SubprocessError) as exc:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            # a concurrent importer may have published the .so meanwhile
+            if not os.path.exists(so):
+                logging.getLogger("siddhi_tpu_torch").warning(
+                    "native staging build failed (%s); using numpy fallback",
+                    exc)
+                return None
+    try:
+        return ctypes.CDLL(so)
+    except OSError as exc:
+        logging.getLogger("siddhi_tpu_torch").warning(
+            "native staging load failed (%s); using numpy fallback", exc)
+        return None
+
+
+def _bind(lib):
+    c = ctypes
+    p = c.POINTER
+    u64p, i64p = p(c.c_uint64), p(c.c_int64)
+    i32p, u8p = p(c.c_int32), p(c.c_uint8)
+    lib.sg_slots_for.restype = c.c_int64
+    lib.sg_slots_for.argtypes = [
+        u64p, c.c_int64, c.c_int64, u8p,
+        u64p, c.c_int64,
+        i64p, u8p, i32p, i32p, u8p, i64p, c.c_int32, i32p,
+        i32p, i32p, i64p, u64p, c.c_int64]
+    lib.sg_rebuild.restype = None
+    lib.sg_rebuild.argtypes = [
+        u64p, c.c_int64, i64p, u8p, c.c_int64, u8p, c.c_int64]
+    lib.sg_group_count.restype = c.c_int64
+    lib.sg_group_count.argtypes = [i32p, u8p, c.c_int64, i32p, i32p, i64p]
+    lib.sg_group_fill.restype = c.c_int32
+    lib.sg_group_fill.argtypes = [
+        i32p, u8p, c.c_int64, i32p, i32p, i32p,
+        c.c_int64, c.c_int64, c.c_int64, c.c_int32, i32p, i32p]
+    return lib
+
+
+LIB = _build()
+if LIB is not None:
+    LIB = _bind(LIB)
+
+
+def ptr(a, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
