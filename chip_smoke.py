@@ -6,16 +6,17 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the pattern_step kernel from
-     siddhi_tpu_torch/csrc/pattern_step.cu with nvcc;
-  3. kernel vs plain: the kernel against its plain PyTorch version on the
-     card from the same state, on seeded random traffic: the flagship query
-     at its step's shapes (2^20-key state, 131,072 keys per send, 4 events
-     per key, and one send of 1 event per key), a within / bool / string
-     query and a two-stream query without `every` at 65,536 keys; dense and
-     gather steps, ts-delta and raw-ts wires, compacted and uncompacted
-     rows.  State blobs, overflow counter, header and the valid output rows
-     must be equal (floats: NaN equals NaN, +0 equals -0, otherwise exact);
+  2. build: compiles the five kernels of siddhi_tpu_torch/csrc/ with
+     nvcc, one process each, all started together;
+  3. pattern_step vs plain: the kernel against its plain PyTorch version
+     on the card from the same state, on seeded random traffic: the
+     flagship query at its step's shapes (2^20-key state, 131,072 keys per
+     send, 4 events per key, and one send of 1 event per key), a within /
+     bool / string query and a two-stream query without `every` at 65,536
+     keys; dense and gather steps, ts-delta and raw-ts wires, compacted and
+     uncompacted rows.  State blobs, overflow counter, header and the
+     valid output rows must be equal (floats: NaN equals NaN, +0 equals
+     -0, otherwise exact);
   4. timing at the flagship step's shapes, on the flagship's own traffic
      and on random traffic: the kernel (CUDA events) beside its plain
      version and the bound of the bytes and operations these inputs need;
@@ -24,7 +25,30 @@ Phases (any failure exits nonzero):
      the match count must be 4 x 2^20 with the kernel launched and the
      plain step never called, and sampled match rows must hold the values
      the traffic implies.  Per-send p50 / p99 are over the 32 timed sends,
-     so p99 is close to the slowest send.
+     so p99 is close to the slowest send;
+  6. the single-stream kernels filter_compact, time_window, length_batch
+     and group_agg against their plain versions on the card from the same
+     state (exact: every row, state word and float equal, NaN equal to
+     NaN): all-pass, all-drop, partial and empty batches; in-order, equal
+     and out-of-order timestamps, TIMER-only steps, an overflowing ring, a
+     step that expires the whole window and TIMER steps sized by a
+     deliberately short expire bound (both versions must leave the ring
+     as it was and report the missed rows); sends with no, one and 131
+     flushes; add / min / max on each dtype with RESET epochs and rows
+     without a group slot;
+  7. three configurations through SiddhiManager, 32 timed sends of
+     131,072 events each: bench.py's config_time_groupby_having with a
+     2^24-row window (13,107,200 rows alive: each send one TIMER step that
+     expires 131,072 rows and one data step that appends 131,072), its
+     config_length_batch (about 131 flushes per send) and the
+     simple_filter sample (about half the rows pass); each with its
+     closed-form checks against numpy (config 1: count, avg and the f32
+     sum of every symbol), every kernel of its path launched
+     and no plain version called;
+  8. per-kernel times on the configurations' own traffic (CUDA-graph
+     replays between CUDA events), the plain versions' times and the bound
+     of the bytes the inputs need;
+  9. a profiled sweep of config 1: device busy time, idle share, top ops.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -428,16 +452,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- build ---------------------------------------------------------------
+    # -- build: every kernel, one nvcc each, all started together ----------
+    from siddhi_tpu_torch.kernels import _nvcc
     t0 = time.perf_counter()
+    _nvcc.build_all()
     ps.build()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in ps.ptxas_report().splitlines()
-             if "pattern_step_kernel" in ln or "registers" in ln or
-             "spill" in ln]
-    print(f"build: {build_s:.2f} s ({ps.library_path()})")
-    for ln in ptxas:
-        print(f"ptxas: {ln}")
+    print(f"build: {len(_nvcc.SOURCES)} kernels in {build_s:.2f} s")
+    for name in _nvcc.SOURCES:
+        for ln in _nvcc.ptxas_report(name).splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"ptxas {name}: {ln.strip()}")
 
     ql = FLAGSHIP_QL.format(n_keys=N_KEYS)
 
@@ -589,18 +614,925 @@ def main() -> None:
               + "; ".join(f"{n} {t:.3f} ms over {c} calls"
                           for n, t, c in profile["top"]))
 
+    records = single_stream_phases(torch, np, dev)
+
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
         "source": "siddhi_tpu_torch/csrc/pattern_step.cu",
         "replaces": "siddhi_tpu/core/pattern_planner.py:268",
         "launches": launches, "max_abs_err": max_err, "ms": flag["ms"],
         "plain_ms": flag["plain_ms"], "bound_ms": flag["bound_ms"],
-        "bound_by": flag["bound_by"], "library_ms": None}]}
+        "bound_by": flag["bound_by"], "library_ms": None}] + records}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# ---------------------------------------------------------------------------
+# single-stream queries: kernels K1-K4 (filter_compact, time_window,
+# length_batch, group_agg)
+# ---------------------------------------------------------------------------
+
+B1 = 1 << 17              # events per send in the three configurations
+N_SYM = 256               # config 1's symbols
+WINDOW = 1 << 24          # config 1's @capacity(window=...)
+FILL = 100                # sends that fill config 1's 1-second window
+TIMED = 32                # timed sends per configuration
+ROW_OUT = 8 + 4 + 1 + 8 + 4   # an output row's ts, kind, valid, seq, slot
+
+
+def single_modules():
+    from siddhi_tpu_torch.kernels import filter_compact, group_agg, \
+        length_batch, time_window
+    return {"filter_compact": filter_compact, "time_window": time_window,
+            "length_batch": length_batch, "group_agg": group_agg}
+
+
+def float_err(torch, a, b, what):
+    """Largest |a - b| over two equal-shaped columns, which must be equal:
+    the kernels and their plain versions walk every row in the same order,
+    so the stated tolerance is 0 for floats too (NaN equal to NaN)."""
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape:
+        fail(f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    same = (a == b) | (a != a) & (b != b)
+    err = 0.0
+    if a.dtype.is_floating_point and a.numel():
+        err = float(torch.where(same, 0.0, (a - b).abs().nan_to_num(
+            float("inf"))).max())
+    try:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    except AssertionError:
+        d = torch.nonzero(~same).flatten()[:5].tolist()
+        fail(f"{what}: differ (max |a - b| {err}) at rows {d}: "
+             f"{a[d].tolist()} vs {b[d].tolist()}")
+    return err
+
+
+def rows_err(torch, ra, rb, what, full=False):
+    """Two window outputs agree: the valid flags everywhere, every field
+    on the valid rows (on all rows with `full`)."""
+    err = float_err(torch, ra.valid, rb.valid, f"{what} valid")
+    m = slice(None) if full else ra.valid
+    for f in ("ts", "kind", "seq", "gslot"):
+        err = max(err, float_err(torch, getattr(ra, f)[m],
+                                 getattr(rb, f)[m], f"{what} {f}"))
+    for j, (x, y) in enumerate(zip(ra.cols, rb.cols)):
+        err = max(err, float_err(torch, x[m], y[m], f"{what} col {j}"))
+    return err
+
+
+def ring_err(torch, a, b, what):
+    err = float_err(torch, a.meta[:3], b.meta[:3], f"{what} meta")
+    pos = a.live()[3]
+    for x, y in ((a.ts, b.ts), (a.add_seq, b.add_seq),
+                 (a.expire_ts, b.expire_ts), (a.gslot, b.gslot),
+                 *zip(a.cols, b.cols)):
+        err = max(err, float_err(torch, x[pos], y[pos], f"{what} ring"))
+    return err
+
+
+def batch_state_err(torch, a, b, what):
+    err = float_err(torch, a.meta, b.meta, f"{what} meta")
+    fill, pc = int(a.meta[0]), int(a.meta[1])
+    for x, y, n in ((a.p_ts, b.p_ts, fill), (a.p_gslot, b.p_gslot, fill),
+                    *((x, y, fill) for x, y in zip(a.p_cols, b.p_cols)),
+                    (a.q_ts, b.q_ts, pc), (a.q_gslot, b.q_gslot, pc),
+                    *((x, y, pc) for x, y in zip(a.q_cols, b.q_cols))):
+        err = max(err, float_err(torch, x[:n], y[:n], f"{what} state"))
+    return err
+
+
+def staged_rows(torch, np, dev, types, ts, n, kind=0, seed=0, cols=None):
+    """One staged batch on the card: capacity len(ts), rows [0, n) valid,
+    random columns by attribute type unless given."""
+    rng = np.random.default_rng(seed)
+    B = len(ts)
+    mk = {"LONG": lambda: rng.integers(0, N_SYM, B).astype(np.int64),
+          "INT": lambda: rng.integers(0, 9, B).astype(np.int32),
+          "FLOAT": lambda: rng.random(B, dtype=np.float32),
+          "DOUBLE": lambda: rng.random(B, dtype=np.float32),
+          "STRING": lambda: rng.integers(-1, 16, B).astype(np.int32)}
+    cols = cols or [mk[t]() for t in types]
+    valid = np.zeros(B, np.bool_)
+    valid[:n] = True
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(np.asarray(ts, np.int64)), t(np.full(B, kind, np.int32)),
+            t(valid), t(rng.integers(0, 64, B).astype(np.int32)),
+            tuple(t(c) for c in cols))
+
+
+def compare_filter(torch, np, dev, spec, types):
+    """K1 against its plain version at B = 131,072: all rows pass, none
+    pass, a partial bucket, a random mix; every row of the stable
+    partition, the count and the seq counter compared."""
+    fc = single_modules()["filter_compact"]
+    rng = np.random.default_rng(31)
+    ids = rng.integers(0, 16, B1).astype(np.int32)
+    cases = {
+        "all pass": [ids, np.full(B1, 75.0, np.float32),
+                     np.full(B1, 150, np.int64)],
+        "none pass": [ids, np.full(B1, 75.0, np.float32),
+                      np.zeros(B1, np.int64)],
+        "random": [ids, (25 + 75 * rng.random(B1)).astype(np.float32),
+                   rng.integers(50, 250, B1).astype(np.int64)]}
+    err, n = 0.0, 0
+    # an empty bucket queues no kernel: the count is 0 and seq unmoved
+    ts, kind, valid, gslot, dcols = staged_rows(
+        torch, np, dev, types, np.zeros(0, np.int64), 0,
+        cols=[c[:0] for c in cases["random"]])
+    s1 = torch.tensor([7], dtype=torch.int64, device=dev)
+    ra, ca = fc.launch(spec, ts, kind, valid, gslot, dcols, s1)
+    rb, cb = fc.plain(spec, ts, kind, valid, gslot, dcols, 0, s1.clone())
+    torch.cuda.synchronize()
+    if int(ca) != 0 or int(s1) != 7 or int(cb) != 0:
+        fail(f"K1 empty bucket: count {int(ca)}, seq {int(s1)}")
+    err = max(err, rows_err(torch, ra, rb, "K1 empty", full=True))
+    print("compare: filter_compact empty bucket: count 0, seq unmoved")
+    n += 1
+    for name, cols in cases.items():
+        for valid_n in (B1, 3 * B1 // 4 + 1):
+            ts, kind, valid, gslot, dcols = staged_rows(
+                torch, np, dev, types, 1000 + np.arange(B1), valid_n,
+                cols=cols)
+            s1 = torch.tensor([7], dtype=torch.int64, device=dev)
+            s2 = s1.clone()
+            ra, ca = fc.launch(spec, ts, kind, valid, gslot, dcols, s1)
+            rb, cb = fc.plain(spec, ts, kind, valid, gslot, dcols, 0, s2)
+            torch.cuda.synchronize()
+            err = max(err, rows_err(torch, ra, rb, f"K1 {name}", full=True),
+                      float_err(torch, ca, cb, "K1 count"),
+                      float_err(torch, s1, s2, "K1 seq"))
+            n += 1
+            print(f"compare: filter_compact {name}, {valid_n} of {B1} rows "
+                  f"valid: equal ({int(ca)} kept)")
+    return err, n
+
+
+def ring_step(torch, np, tw, fc, spec, types, ka, kb, B, ts, n, now, t,
+              kind=0, seed=0):
+    """One K2 step from two equal rings: kernel on `ka`, plain on `kb`;
+    host facts as the runtime keeps them."""
+    dev = ka.ts.device
+    ts_d, kind_d, valid, gslot, cols = staged_rows(
+        torch, np, dev, types, ts, n, kind=kind, seed=seed)
+    arr, na = fc.plain(spec, ts_d, kind_d, valid, gslot, cols, now)
+    cur = np.asarray(ts[:n] if kind == 0 else ts[:0], np.int64)
+    f = ka.facts
+    e_bound = f.expire_bound(now)
+    kb.facts.expire_bound(now)
+    cap = e_bound + cur.shape[0]
+    a_sorted = cur.shape[0] < 2 or bool(np.all(cur[1:] >= cur[:-1]))
+    ra, wa = tw.launch(ka, arr, na, now, t, B, cap, e_bound, f.sorted,
+                       a_sorted)
+    rb, wb = tw.plain(kb, arr, na, now, t, B, cap, e_bound)
+    torch.cuda.synchronize()
+    ka.facts.after_step(cur, now, t)
+    kb.facts.after_step(cur, now, t)
+    return ra, rb, wa, wb, (e_bound, cap, f.sorted, a_sorted)
+
+
+def short_bound_case(torch, np, tw, fc, spec, types, ka, kb, now, t):
+    """A TIMER step at `now` sized by a deliberately short expire bound of
+    one row: kernel and plain must both leave the ring as it was, emit no
+    valid row and report the same number of missed rows."""
+    snap = ka.clone()
+    ts_d, kind_d, valid, gslot, cols = staged_rows(
+        torch, np, ka.ts.device, types, np.full(8, now), 1, kind=2)
+    arr, na = fc.plain(spec, ts_d, kind_d, valid, gslot, cols, now)
+    ra, wa = tw.launch(ka, arr, na, now, t, 8, 1, 1, ka.facts.sorted, True)
+    rb, wb = tw.plain(kb, arr, na, now, t, 8, 1, 1)
+    torch.cuda.synchronize()
+    missed = int(wa[1])
+    if missed <= 0 or bool(ra.valid.any()) or bool(rb.valid.any()):
+        fail(f"K2 short bound at {now}: missed {missed}, valid rows "
+             f"{int(ra.valid.sum())} / {int(rb.valid.sum())}")
+    err = max(float_err(torch, wa, wb, "K2 short bound wake"),
+              ring_err(torch, ka, snap, "K2 short bound kernel ring"),
+              ring_err(torch, kb, snap, "K2 short bound plain ring"))
+    print(f"compare: time_window TIMER step at {now} with an expire bound "
+          f"of 1 row (ring in expiry order {ka.facts.sorted}): both "
+          f"versions leave the ring as it was and report {missed} missed "
+          f"rows")
+    return err
+
+
+def compare_time_window(torch, np, dev, spec, types, schema):
+    """K2 against its plain version on a ring of 8 sends (2^20 rows at
+    131,072-row sends): in-order sends with equal timestamps, out-of-order and jittered
+    ones, TIMER-only steps, an overflowing ring, a step that expires the
+    whole window."""
+    mods = single_modules()
+    tw, fc = mods["time_window"], mods["filter_compact"]
+    C, t = 8 * B1, 1000
+    ka = tw.TimeRing.empty(schema, C, dev)
+    kb = ka.clone()
+    rng = np.random.default_rng(32)
+    plan = []                      # (what, ts array or None for TIMER, now)
+    for i in range(5):
+        plan.append(("in order, equal ts", np.full(B1, 1000 + 100 * i), None))
+    plan.append(("TIMER", None, 2150))
+    plan.append(("out of order", 1400 + rng.integers(-300, 300, B1), None))
+    plan.append(("sorted within", np.sort(1500 + rng.integers(0, 90, B1)),
+                 None))
+    for i in range(4):             # 2^20 rows: the ring overflows
+        plan.append(("overflow", np.full(B1, 1600 + 10 * i), None))
+    plan.append(("TIMER", None, 2500))
+    plan.append(("whole window expires", np.full(B1, 9000), None))
+    err = 0.0
+    for it, (what, ts, now) in enumerate(plan):
+        if ts is None:
+            ts_arr, n, kind = np.full(8, now), 1, 2
+            err = max(err, short_bound_case(torch, np, tw, fc, spec, types,
+                                            ka, kb, now, t))
+        else:
+            ts_arr, n, kind, now = ts, B1, 0, int(ts.max())
+        ra, rb, wa, wb, info = ring_step(torch, np, tw, fc, spec, types, ka,
+                                         kb, len(ts_arr), ts_arr, n, now, t,
+                                         kind=kind, seed=100 + it)
+        err = max(err, rows_err(torch, ra, rb, f"K2 step {it} {what}"),
+                  float_err(torch, wa, wb, f"K2 step {it} wake"),
+                  ring_err(torch, ka, kb, f"K2 step {it}"))
+        print(f"compare: time_window step {it} ({what}; expire bound "
+              f"{info[0]}, rows out <= {info[1]}, prefix {info[2]}, "
+              f"arrivals in order {info[3]}): equal, "
+              f"{int(ra.valid.sum())} rows, wake {int(wa[0])}")
+    return err, len(plan)
+
+
+def compare_length_batch(torch, np, dev, spec, types, schema):
+    """K3 against its plain version at n = 1000: sends that complete no
+    batch, one, and many (131,072 rows: 131 or 132 flushes)."""
+    mods = single_modules()
+    lb, fc = mods["length_batch"], mods["filter_compact"]
+    ka = lb.BatchState.empty(schema, 1000, dev)
+    kb = ka.clone()
+    err = 0.0
+    sizes = [(8, 0), (512, 500), (1024, 700), (B1, B1), (8, 0),
+             (B1, 3 * B1 // 4 - 1), (2048, 1999), (B1, B1)]
+    for it, (B, n) in enumerate(sizes):
+        ts_d, kind_d, valid, gslot, cols = staged_rows(
+            torch, np, dev, types, np.full(B, 1000 + it), n, seed=200 + it)
+        arr, na = fc.plain(spec, ts_d, kind_d, valid, gslot, cols, 0)
+        cap = lb.out_capacity(1000, n)
+        ra = lb.launch(ka, arr, na, 1000 + it, cap)
+        rb = lb.plain(kb, arr, na, 1000 + it, cap)
+        torch.cuda.synchronize()
+        err = max(err, rows_err(torch, ra, rb, f"K3 send {it}"),
+                  batch_state_err(torch, ka, kb, f"K3 send {it}"))
+        print(f"compare: length_batch send {it} ({n} arrivals): equal, "
+              f"{int((ra.kind[ra.valid] == 3).sum())} flushes")
+    return err, len(sizes)
+
+
+def agg_specs(torch):
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    return [ga.ScanSpec(ga.OP_ADD, i64, 0), ga.ScanSpec(ga.OP_ADD, f32, 0.0),
+            ga.ScanSpec(ga.OP_MIN, i32, 2 ** 31 - 1),
+            ga.ScanSpec(ga.OP_MAX, i32, -2 ** 31),
+            ga.ScanSpec(ga.OP_MIN, i64, 2 ** 63 - 1),
+            ga.ScanSpec(ga.OP_MAX, i64, -2 ** 63),
+            ga.ScanSpec(ga.OP_MIN, f32, float("inf")),
+            ga.ScanSpec(ga.OP_MAX, f32, float("-inf"))]
+
+
+def compare_group_agg(torch, np, dev):
+    """K4 against its plain version on 262,144 rows (two sends) and 4096
+    slots: add,
+    min and max on each dtype, RESET epochs, rows without a slot (-1),
+    non-contributing rows, carry states."""
+    ga = single_modules()["group_agg"]
+    specs = agg_specs(torch)
+    rng = np.random.default_rng(34)
+    K, err = 4096, 0.0
+    for trial, (B, n_slots, p_reset) in enumerate(
+            ((2 * B1, 4096, 0.0005), (2 * B1, 1, 0.001),
+             (3 * B1 // 4, 300, 0.0))):
+        kind = rng.choice([0, 1, 3, 2], B,
+                          p=[0.55 - p_reset, 0.35, p_reset, 0.1])
+        kind_d = torch.from_numpy(kind.astype(np.int32)).to(dev)
+        valid = torch.from_numpy(rng.random(B) < 0.95).to(dev)
+        sign = ((valid & (kind_d == 0)).to(torch.int32) -
+                (valid & (kind_d == 1)).to(torch.int32))
+        gslot = torch.from_numpy(
+            rng.integers(-1, n_slots, B).astype(np.int32)).to(dev)
+        vals, state = [], []
+        for s in specs:
+            if s.dtype == torch.float32:
+                v = rng.random(B, dtype=np.float32) * 8 - 4
+                st = rng.random(K, dtype=np.float32) * 64
+            else:
+                v = rng.integers(-10 ** 6, 10 ** 6, B)
+                st = rng.integers(-10 ** 6, 10 ** 6, K)
+            v = torch.from_numpy(v).to(device=dev, dtype=s.dtype)
+            vals.append(torch.where(sign != 0, v, torch.full_like(v, s.init)))
+            state.append(torch.from_numpy(st).to(device=dev, dtype=s.dtype))
+        na, ra = ga.launch(specs, state, vals, sign, kind_d, valid, gslot)
+        nb, rb = ga.plain(specs, state, vals, sign, kind_d, valid, gslot)
+        torch.cuda.synchronize()
+        for j in range(len(specs)):
+            err = max(err, float_err(torch, na[j], nb[j], f"K4 state {j}"),
+                      float_err(torch, ra[j], rb[j], f"K4 rows {j}"))
+        print(f"compare: group_agg {B} rows, {n_slots} slots, "
+              f"{int((valid & (kind_d == 3)).sum())} RESET rows, "
+              f"{len(specs)} specs: equal")
+    return err, 3
+
+
+def event_timer(torch, fn, reps, before=None):
+    """Mean device ms of fn() over `reps` calls, each timed by CUDA events
+    (`before()` runs outside the events)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if before is not None:
+            before()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def graph_ms(torch, fn, reps, before=None):
+    """Device ms of the kernels fn() launches: captured once in a CUDA
+    graph (host launch costs left out) and replayed `reps` times between
+    CUDA events, `before()` running outside the events."""
+    if before is not None:
+        before()
+    fn()                       # warm: builds and loads the library
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return event_timer(torch, g.replay, reps, before)
+
+
+def bound(nbytes, ops=0):
+    b_ms = nbytes / H100_BYTES_PER_S * 1e3
+    o_ms = ops / H100_FP32_PER_S * 1e3
+    return {"bytes": int(nbytes), "ops": int(ops),
+            "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def col_bytes(cols):
+    return sum(c.element_size() for c in cols)
+
+
+def time_filter(torch, np, dev, spec, types):
+    """K1 at config 3's traffic, about half the rows passing."""
+    fc = single_modules()["filter_compact"]
+    rng = np.random.default_rng(35)
+    cols = [rng.integers(0, 16, B1).astype(np.int32),
+            (25 + 75 * rng.random(B1)).astype(np.float32),
+            rng.integers(50, 250, B1).astype(np.int64)]
+    ts, kind, valid, gslot, dcols = staged_rows(
+        torch, np, dev, types, 1000 + np.arange(B1), B1, cols=cols)
+    seq = torch.zeros(1, dtype=torch.int64, device=dev)
+    args = (spec, ts, kind, valid, gslot, dcols)
+    res = {"ms": graph_ms(torch, lambda: fc.launch(*args, seq), 20),
+           "plain_ms": event_timer(torch, lambda: fc.plain(*args, 0, seq),
+                                   5)}
+    row_in = 8 + 4 + 1 + 4 + col_bytes(dcols)
+    row_out = ROW_OUT + col_bytes(dcols)
+    res.update(bound(B1 * (row_in + row_out) + 16,
+                     B1 * len(spec.bytecode)))
+    return res
+
+
+def config_rows(np, rng):
+    """One send of config 1 (bench.py config_time_groupby_having)."""
+    return [rng.integers(0, N_SYM, B1).astype(np.int64),
+            rng.random(B1, dtype=np.float32), np.ones(B1, np.int32)]
+
+
+def drive(torch, np, rt, qname, stream, sends, warm, mods, last=None):
+    """`warm` untimed sends, TIMED timed ones, then the rest untimed;
+    `last(i)` runs before send i.  Kernel and plain-version counts from
+    just before the first send to just after the last.  Returns (per-send
+    host seconds of the timed sends, per-send (n_current, n_expired),
+    launches, plain calls, wall seconds of the timed sends)."""
+    counts = []
+
+    def on_batch(ts, b):
+        counts[-1][0] += b["n_current"]
+        counts[-1][1] += b["n_expired"]
+    rt.add_batch_callback(qname, on_batch)
+    h = rt.get_input_handler(stream)
+    for m in mods.values():
+        m.reset_counts()
+    lat = []
+    for i, (cols, ts) in enumerate(sends):
+        if i == warm:
+            rt.flush()
+            t_start = time.perf_counter()
+        if i == warm + TIMED:
+            rt.flush()
+            wall = time.perf_counter() - t_start
+        if last is not None:
+            last(i)
+        counts.append([0, 0])
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if warm <= i < warm + TIMED:
+            lat.append(time.perf_counter() - tb)
+    rt.flush()
+    launches = {k: m.launches for k, m in mods.items()}
+    plain = {k: m.plain_calls for k, m in mods.items()}
+    return lat, [tuple(c) for c in counts], launches, plain, wall
+
+
+def lat_line(np, name, lat, wall, n_events, h2d):
+    ms = np.array(lat) * 1e3
+    print(f"{name}: {n_events} events in {wall:.3f} s -> "
+          f"{n_events / wall:.0f} ev/s; per-send p50 "
+          f"{float(np.percentile(ms, 50)):.3f} ms, p99 "
+          f"{float(np.percentile(ms, 99)):.3f} ms (over {len(lat)} sends, "
+          f"so p99 is close to the slowest); host-to-device {h2d} bytes per "
+          f"send")
+
+
+def check_launched(name, launches, plain, which):
+    for k in which:
+        if launches[k] <= 0:
+            fail(f"{name}: kernel {k} was never launched")
+    if any(plain.values()):
+        fail(f"{name}: plain versions called {plain}")
+    print(f"{name}: kernel launches {launches}, plain-version calls "
+          f"{plain}")
+
+
+def check_sum_price(np, sends, last, syms, fetched):
+    """Config 1's sum(price) on the last send against numpy: each symbol's
+    last EXPIRED row holds its sum over the window after the expiry, its
+    last CURRENT row the sum after the send.  The running float32 sum has
+    taken one rounding per add or subtract since the first send, each at
+    most 2^-24 of a value below the symbol's largest window count (prices
+    lie in [0, 1)): the stated n_seg * 2^-23 * max|running value| bound.
+    Returns the worst |sp - exact| as a share of its bound."""
+    prices = np.stack([s[0][1] for s in sends]).astype(np.float64)
+    per_send = np.stack([np.bincount(r, minlength=N_SYM) for r in syms])
+    wmax = max(per_send[i:i + FILL].sum(0).max()
+               for i in range(0, last + 1 - FILL + 1))
+    ops = 2 * per_send[:last + 1].sum(0)           # adds + subtracts
+    worst = 0.0
+    first = last - FILL + 1
+    for kinds, cols in fetched:
+        hi = last if kinds[0] == 1 else last + 1   # the expiry or the send
+        exact = np.bincount(syms[first:hi].ravel(),
+                            weights=prices[first:hi].ravel(),
+                            minlength=N_SYM)
+        sym = cols["symbol"]
+        rev = np.unique(sym[::-1], return_index=True)
+        s_last = rev[0]
+        got = cols["sp"][len(sym) - 1 - rev[1]].astype(np.float64)
+        tol = ops[s_last] * 2.0 ** -23 * wmax
+        d = np.abs(got - exact[s_last])
+        if len(s_last) < N_SYM // 2 or np.any(d > tol):
+            bad = s_last[d > tol][:4]
+            fail(f"config 1: sum(price) of symbols {bad} is "
+                 f"{got[d > tol][:4]}, numpy {exact[bad]} (bound "
+                 f"{tol[d > tol][:4]})")
+        worst = max(worst, float((d / tol).max()))
+    return worst
+
+
+def run_config1(torch, np, dev, mods):
+    """Config 1 at full size: the 1-second window of 13,107,200 rows.
+    Fills with 100 sends, then 32 timed sends, each a TIMER step that
+    expires 131,072 rows and a data step that appends 131,072."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(CONFIG1_QL)
+    qr = rt.query_runtimes["q"]
+    rng = np.random.default_rng(2)
+    # fill, timed, and one more whose rows are fetched for the checks
+    sends = [(config_rows(np, rng), np.full(B1, 1000 + 10 * i, np.int64))
+             for i in range(FILL + TIMED + 1)]
+    last = len(sends) - 1
+    fetch = []
+    rt.add_batch_callback("q", lambda ts, b: fetch and fetch[-1].append(
+        (b["kind"][b["valid"]], {k: v[b["valid"]] for k, v in
+                                 b["cols"].items()})))
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "q", "S", sends, FILL, mods,
+        last=lambda i: i == last and fetch.append([]))
+    check_launched("config 1", launches, plain,
+                   ("filter_compact", "time_window", "group_agg"))
+    steady = counts[FILL:]
+    if any(c != (B1, B1) for c in steady):
+        fail(f"config 1: steady-state (n_current, n_expired) per send "
+             f"{steady[:4]}..., expected ({B1}, {B1})")
+    # the last send expires send last-100 and appends send `last`
+    syms = np.stack([s[0][0] for s in sends])
+    (k_exp, c_exp), (k_cur, c_cur) = fetch[-1]
+    if not (np.all(k_exp == 1) and np.all(k_cur == 0)):
+        fail("config 1: the TIMER step must emit EXPIRED rows only and the "
+             "data step CURRENT rows only")
+    win_after = np.bincount(syms[last - FILL + 1:last + 1].ravel(),
+                            minlength=N_SYM)
+    win_mid = np.bincount(syms[last - FILL + 1:last].ravel(),
+                          minlength=N_SYM)
+    for what, cols, want, pick, init in (
+            ("after the send", c_cur, win_after, np.maximum, -1),
+            ("after the expiry", c_exp, win_mid, np.minimum, 1 << 62)):
+        got = np.full(N_SYM, init, np.int64)
+        pick.at(got, cols["symbol"], cols["c"])
+        seen = np.bincount(cols["symbol"], minlength=N_SYM) > 0
+        if seen.sum() < N_SYM // 2 or \
+                not np.array_equal(got[seen], want[seen]):
+            bad = np.nonzero(seen & (got != want))[0][:4]
+            fail(f"config 1: count per symbol {what}: symbols {bad} have "
+                 f"{got[bad]}, numpy {want[bad]}")
+        if not np.all(cols["av"] == 1.0):
+            fail("config 1: avg(volume) != 1.0")
+    sp_worst = check_sum_price(np, sends, last, syms, fetch[-1])
+    fetch.clear()               # the sends below fetch no rows
+    print(f"config 1 check: {len(steady)} steady sends with n_current = "
+          f"n_expired = {B1}; last send: c of every symbol equals numpy's "
+          f"count over the window after the expiry ({int(win_mid.sum())} "
+          f"rows) and after the send ({int(win_after.sum())} rows); "
+          f"av = 1.0; sp of every symbol within {sp_worst:.3g} of its "
+          f"window's float64 sum (the bound's share)")
+    h2d = B1 * (8 + 4 + 1 + 4 + 8 + 4 + 4) + 8 * (8 + 4 + 1 + 4 + 8 + 4 + 4)
+    lat_line(np, "config 1 (time window group-by having, 2^24-row window)",
+             lat, wall, TIMED * B1, h2d)
+    clock = [1000 + 10 * len(sends)]
+
+    def send(_):
+        rt.get_input_handler("S").send_columns(
+            config_rows(np, rng), timestamps=np.full(B1, clock[0], np.int64))
+        clock[0] += 10
+    profile = device_profile(torch, rt, 8, send)
+    return mgr, rt, qr, launches, profile, clock
+
+
+def time_config1_kernels(torch, np, dev, qr, clock):
+    """K2 and K4 at config 1's steady state, from the end-to-end run's
+    state: one TIMER step (131,072 rows expire) and one data step (131,072
+    arrive), each from restored counters; the plain versions on the same
+    state; the K2 pair compared with its plain version."""
+    mods = single_modules()
+    tw, fc, ga = mods["time_window"], mods["filter_compact"], \
+        mods["group_agg"]
+    p = qr.planned
+    wstate, astate = qr.state
+    spec, t = p.filter_spec, p.window.time_ms
+    types = p.in_schema.types
+    now1 = clock[0]
+    rng = np.random.default_rng(36)
+    timer = staged_rows(torch, np, dev, types, np.full(8, now1), 1, kind=2)
+    cols = config_rows(np, rng)
+    data = staged_rows(torch, np, dev, types, np.full(B1, now1), B1,
+                       cols=cols)
+    # the group slots the runtime gives these symbols, as on the main path
+    slots = p.slot_allocator.slots_for([cols[0]], np.ones(B1, np.bool_))
+    data = data[:3] + (torch.from_numpy(slots).to(dev),) + data[4:]
+    meta0, facts0 = wstate.meta.clone(), wstate.facts.copy()
+
+    def restore():
+        wstate.meta.copy_(meta0)
+        wstate.facts = facts0.copy()
+
+    def one(batch, kernel):
+        arr, na = fc.plain(spec, *batch, now1)
+        cur = (batch[0][:B1].cpu().numpy() if batch is data else
+               np.zeros(0, np.int64))
+        f = wstate.facts
+        eb = f.expire_bound(now1)
+        cap = eb + cur.shape[0]
+        B = batch[0].shape[0]
+        if kernel:
+            out = tw.launch(wstate, arr, na, now1, t, B, cap, eb, f.sorted,
+                            cur.shape[0] < 2 or bool(np.all(
+                                cur[1:] >= cur[:-1])))
+        else:
+            out = tw.plain(wstate, arr, na, now1, t, B, cap, eb)
+        f.after_step(cur, now1, t)
+        return out, arr, na
+
+    def pair(kernel):
+        return one(timer, kernel), one(data, kernel)
+
+    restore()
+    (kt, _, _), (kd, arr_d, na_d) = pair(True)
+    torch.cuda.synchronize()
+    meta_k = wstate.meta.clone()
+    restore()
+    (pt, _, _), (pd, _, _) = pair(False)
+    torch.cuda.synchronize()
+    err = max(rows_err(torch, kt[0], pt[0], "K2 full-size TIMER step"),
+              rows_err(torch, kd[0], pd[0], "K2 full-size data step"),
+              float_err(torch, kd[1], pd[1], "K2 full-size wake"),
+              float_err(torch, meta_k, wstate.meta, "K2 full-size meta"))
+    e = int(kt[0].valid.sum())
+    print(f"compare: time_window at config 1's full size (2^24-row ring, "
+          f"{e} rows expire, {B1} arrive): kernel == plain")
+    # times: the pair from restored counters (the data step rewrites only
+    # the ring rows past the tail, which are dead before it)
+    fc_pre = [fc.plain(spec, *b, now1) for b in (timer, data)]
+    curs = [np.zeros(0, np.int64), data[0].cpu().numpy()]
+
+    def run_pair(kernel):
+        for (arr, na), batch, cur in zip(fc_pre, (timer, data), curs):
+            f = wstate.facts
+            eb = f.expire_bound(now1)
+            cap = eb + cur.shape[0]
+            if kernel:
+                tw.launch(wstate, arr, na, now1, t, batch[0].shape[0], cap,
+                          eb, True, True)
+            else:
+                tw.plain(wstate, arr, na, now1, t, batch[0].shape[0], cap,
+                         eb)
+    tw_ms = graph_ms(torch, lambda: run_pair(True), 10, restore) / 2
+    tw_plain = event_timer(torch, lambda: run_pair(False), 2, restore) / 2
+    restore()
+    cb = col_bytes(data[4])
+    # per step: the expiring rows read (expire_ts, slot, columns) and
+    # emitted; the arrivals read, emitted and written to the ring; counters
+    nbytes = (e * (8 + 4 + cb + ROW_OUT + cb) +
+              B1 * (8 + 4 + cb + ROW_OUT + cb + 8 + 8 + 8 + 4 + cb) +
+              4 * 64) / 2
+    res_tw = {"ms": tw_ms, "plain_ms": tw_plain, **bound(nbytes)}
+    # K4 on the data step's rows, as the selector feeds it
+    sel = p.selector_exec
+    rows = kd[0]
+    cur = torch.logical_and(rows.valid, rows.kind == 0)
+    exp = torch.logical_and(rows.valid, rows.kind == 1)
+    sign = cur.to(torch.int32) - exp.to(torch.int32)
+    env = {p.input_stream_id: rows.cols, "__ts__": rows.ts,
+           "__now__": now1, "__kind__": rows.kind}
+    specs = [ga.ScanSpec(s.op, s.dtype, s.init) for s in sel.bank.specs]
+    vals = [torch.where(sign != 0, s.vals_fn(env, sign).to(s.dtype),
+                        torch.full(sign.shape, s.init, dtype=s.dtype,
+                                   device=dev))
+            for s in sel.bank.specs]
+    args = (specs, astate, vals, sign, rows.kind, rows.valid, rows.gslot)
+    na_, ra_ = ga.launch(*args)
+    nb_, rb_ = ga.plain(*args)
+    torch.cuda.synchronize()
+    err_ga = 0.0
+    for j in range(len(specs)):
+        err_ga = max(err_ga, float_err(torch, na_[j], nb_[j], "K4 state"),
+                     float_err(torch, ra_[j], rb_[j], "K4 rows"))
+    print(f"compare: group_agg on config 1's data step ({rows.ts.shape[0]} "
+          f"rows, {len(specs)} specs): kernel == plain")
+    R = rows.ts.shape[0]
+    vb = sum(v.element_size() for v in vals)
+    K = astate[0].shape[0]
+    res_ga = {"ms": graph_ms(torch, lambda: ga.launch(*args), 20),
+              "plain_ms": event_timer(torch, lambda: ga.plain(*args), 2),
+              **bound(R * (4 + 4 + 1 + 4 + 2 * vb) + 2 * K * vb)}
+    return res_tw, res_ga, err, err_ga
+
+
+def run_config2(torch, np, dev, mods):
+    """Config 2 (bench.py config_length_batch): lengthBatch(1000) +
+    avg(price), 131,072 events per send, about 131 flushes per send."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(CONFIG2_QL)
+    rng = np.random.default_rng(1)
+    warm = 4
+    sends = [([np.zeros(B1, np.int64), rng.random(B1, dtype=np.float32),
+               np.ones(B1, np.int32)], np.full(B1, 1000 + i, np.int64))
+             for i in range(warm + TIMED + 1)]
+    last = len(sends) - 1
+    fetch = []
+    rt.add_batch_callback("q", lambda ts, b: fetch and fetch.append(
+        (b["kind"][b["valid"]], b["cols"]["ap"][b["valid"]])))
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "q", "StockStream", sends, warm, mods,
+        last=lambda i: i == last and fetch.append(None))
+    check_launched("config 2", launches, plain,
+                   ("filter_compact", "length_batch", "group_agg"))
+    sent = 0
+    for i, c in enumerate(counts):
+        flushes = (sent + B1) // 1000 - sent // 1000
+        if c[0] != 1000 * flushes or (i and c[1] != 1000 * flushes):
+            fail(f"config 2 send {i}: (n_current, n_expired) {c}, "
+                 f"expected {1000 * flushes} each")
+        sent += B1
+    # the last send: each flushed batch's last CURRENT row holds its mean
+    prices = np.concatenate([s[0][1] for s in sends]).astype(np.float64)
+    kind, ap = fetch[1]
+    cur_ap = ap[kind == 0]
+    b0 = (B1 * last) // 1000
+    flushes = (B1 * (last + 1)) // 1000 - b0
+    worst = 0.0
+    for f in range(flushes):
+        want = prices[(b0 + f) * 1000:(b0 + f + 1) * 1000].mean()
+        worst = max(worst, abs(float(cur_ap[(f + 1) * 1000 - 1]) - want))
+    # float32 running sum of 1000 prices below 1: within 1000 * 2^-23 * 1000
+    # of the exact sum, so the mean within 2^-23 * 1000
+    if worst > 2 ** -23 * 1000:
+        fail(f"config 2: a batch's avg(price) is {worst} from numpy's mean")
+    print(f"config 2 check: n_current = n_expired = 1000 x flushes on all "
+          f"{len(counts)} sends; on the last, avg(price) of each of its "
+          f"{flushes} batches within {worst:.3g} of numpy's mean")
+    h2d = B1 * (8 + 4 + 1 + 4 + 8 + 4 + 4)
+    lat_line(np, "config 2 (lengthBatch(1000) avg)", lat, wall, TIMED * B1,
+             h2d)
+    return mgr, rt, launches
+
+
+def time_length_batch(torch, np, dev, qr):
+    """K3 at config 2's traffic: one 131,072-row send from the end-to-end
+    run's state, from restored state each time."""
+    mods = single_modules()
+    lb, fc = mods["length_batch"], mods["filter_compact"]
+    p = qr.planned
+    st = qr.state[0]
+    snap = st.clone()
+    rng = np.random.default_rng(37)
+    batch = staged_rows(torch, np, dev, p.in_schema.types,
+                        np.full(B1, 5000), B1,
+                        cols=[np.zeros(B1, np.int64),
+                              rng.random(B1, dtype=np.float32),
+                              np.ones(B1, np.int32)])
+    arr, na = fc.plain(p.filter_spec, *batch, 5000)
+    cap = lb.out_capacity(1000, B1)
+
+    def restore():
+        for a, b in ((st.p_ts, snap.p_ts), (st.q_ts, snap.q_ts),
+                     (st.p_gslot, snap.p_gslot), (st.q_gslot, snap.q_gslot),
+                     (st.meta, snap.meta), *zip(st.p_cols, snap.p_cols),
+                     *zip(st.q_cols, snap.q_cols)):
+            a.copy_(b)
+    restore()
+    out = lb.launch(st, arr, na, 5000, cap)
+    torch.cuda.synchronize()
+    n_out = int(out.valid.sum())
+    cb = col_bytes(arr.cols)
+    res = {"ms": graph_ms(torch, lambda: lb.launch(st, arr, na, 5000,
+                                                   cap), 20, restore),
+           "plain_ms": event_timer(torch, lambda: lb.plain(
+               st, arr, na, 5000, cap), 3, restore),
+           # each emitted row read once (ts, slot, columns) and written;
+           # the previous and pending batches rewritten
+           **bound(n_out * (8 + 4 + cb + ROW_OUT + cb) +
+                   2 * 1000 * (8 + 4 + cb) + 3 * 8)}
+    restore()
+    return res
+
+
+def run_config3(torch, np, dev, mods):
+    """Config 3: the simple_filter sample at 131,072 events per send,
+    about half the rows passing."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager()
+    with open("samples/apps/simple_filter.siddhi") as fh:
+        rt = mgr.create_siddhi_app_runtime(fh.read())
+    ids = np.array([rt.interner.intern(f"S{i}") for i in range(16)],
+                   np.int32)
+    rng = np.random.default_rng(3)
+    warm = 2
+    sends = [([ids[rng.integers(0, 16, B1)],
+               (25 + 75 * rng.random(B1)).astype(np.float32),
+               rng.integers(50, 250, B1).astype(np.int64)],
+              np.full(B1, 1000 + i, np.int64))
+             for i in range(warm + TIMED + 1)]
+    last = len(sends) - 1
+    fetch = []
+    rt.add_batch_callback("filterQuery", lambda ts, b: fetch and fetch.append(
+        {k: v[b["valid"]] for k, v in b["cols"].items()}))
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "filterQuery", "StockStream", sends, warm, mods,
+        last=lambda i: i == last and fetch.append(None))
+    check_launched("config 3", launches, plain, ("filter_compact",))
+    for i, ((sym, price, vol), _) in enumerate(sends):
+        keep = (vol > 100) & (price >= 50.0)
+        if counts[i][0] != int(keep.sum()):
+            fail(f"config 3 send {i}: {counts[i][0]} rows, numpy "
+                 f"{int(keep.sum())}")
+    sym, price, vol = sends[last][0]
+    keep = (vol > 100) & (price >= 50.0)
+    got = fetch[1]
+    if not (np.array_equal(got["symbol"], sym[keep]) and
+            np.array_equal(got["price"], price[keep])):
+        fail("config 3: the last send's rows are not the sent ones")
+    print(f"config 3 check: on all {len(sends)} sends the count equals "
+          f"numpy's ({counts[-1][0]} of {B1} on the last), and the last "
+          f"send's rows are the sent ones, in order")
+    h2d = B1 * (8 + 4 + 1 + 4 + 4 + 4 + 8)
+    lat_line(np, "config 3 (simple_filter)", lat, wall, TIMED * B1, h2d)
+    return mgr, rt, launches
+
+
+def single_stream_phases(torch, np, dev):
+    """Phases 6-9: K1-K4 against their plain versions, the three
+    configurations end to end, per-kernel times at full-size traffic, a
+    profiled sweep of config 1.  Returns the four kernel records."""
+    from siddhi_tpu_torch import SiddhiManager
+    mods = single_modules()
+    # -- kernel vs plain ----------------------------------------------------
+    crt = SiddhiManager(device=dev).create_siddhi_app_runtime(CONFIG1_QL)
+    c1 = crt.query_runtimes["q"].planned
+    frt = SiddhiManager(device=dev)
+    with open("samples/apps/simple_filter.siddhi") as fh:
+        frt = frt.create_siddhi_app_runtime(fh.read())
+    c3 = frt.query_runtimes["filterQuery"].planned
+    err = {}
+    err["filter_compact"], n1 = compare_filter(torch, np, dev,
+                                               c3.filter_spec,
+                                               c3.in_schema.types)
+    err["time_window"], n2 = compare_time_window(
+        torch, np, dev, c1.filter_spec, c1.in_schema.types, c1.in_schema)
+    err["length_batch"], n3 = compare_length_batch(
+        torch, np, dev, c1.filter_spec, c1.in_schema.types, c1.in_schema)
+    err["group_agg"], n4 = compare_group_agg(torch, np, dev)
+    print(f"compare: K1-K4 == plain over {n1 + n2 + n3 + n4} steps")
+    times = {"filter_compact": time_filter(torch, np, dev, c3.filter_spec,
+                                           c3.in_schema.types)}
+    del crt, frt
+    # -- the three configurations end to end ---------------------------------
+    launches = {k: 0 for k in mods}
+    mgr, rt, qr, l1, profile, clock = run_config1(torch, np, dev, mods)
+    times["time_window"], times["group_agg"], e2, e4 = \
+        time_config1_kernels(torch, np, dev, qr, clock)
+    err["time_window"] = max(err["time_window"], e2)
+    err["group_agg"] = max(err["group_agg"], e4)
+    mgr.shutdown()
+    del mgr, rt, qr
+    torch.cuda.empty_cache()
+    mgr, rt, l2 = run_config2(torch, np, dev, mods)
+    times["length_batch"] = time_length_batch(torch, np, dev,
+                                              rt.query_runtimes["q"])
+    mgr.shutdown()
+    mgr, rt, l3 = run_config3(torch, np, dev, mods)
+    mgr.shutdown()
+    for lx in (l1, l2, l3):
+        for k, v in lx.items():
+            launches[k] += v
+    if profile["device_ms"] is None:
+        print(f"profile (config 1, 8 more sends): wall "
+              f"{profile['wall_ms']:.3f} ms, device time not measured")
+    else:
+        print(f"profile (config 1, 8 more sends): wall "
+              f"{profile['wall_ms']:.3f} ms, device busy "
+              f"{profile['device_ms']:.3f} ms (idle share "
+              f"{profile['idle_share']:.4f}); top device ops: "
+              + "; ".join(f"{n} {t:.3f} ms over {c} calls"
+                          for n, t, c in profile["top"]))
+    reasons = {
+        "filter_compact": "no single torch call filters and stably "
+                          "partitions every column with seq numbers",
+        "time_window": "no single torch call runs a window's expiry and "
+                       "append",
+        "length_batch": "no single torch call runs a batch window's "
+                        "flushes",
+        "group_agg": "no single torch call computes a segmented scan "
+                     "with carry state"}
+    records = []
+    for k, src, rep in (
+            ("filter_compact", "filter_compact.cu",
+             "siddhi_tpu/core/planner.py:124"),
+            ("time_window", "time_window.cu", "siddhi_tpu/core/window.py:346"),
+            ("length_batch", "length_batch.cu",
+             "siddhi_tpu/core/window.py:447"),
+            ("group_agg", "group_agg.cu", "siddhi_tpu/core/selector.py:320")):
+        t = times[k]
+        print(f"timing {k}: kernel {t['ms']:.4f} ms/launch, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms by "
+              f"{t['bound_by']} ({t['bytes']} bytes, {t['ops']} ops), "
+              f"launches on the main path {launches[k]}; library_ms null: "
+              f"{reasons[k]}")
+        records.append({
+            "name": k, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches[k], "max_abs_err": err[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    return records
+
+
+# bench.py:241 config_time_groupby_having with the window sized to hold
+# the whole second (13,107,200 rows at its traffic)
+CONFIG1_QL = """
+@app:playback
+define stream S (symbol long, price float, volume int);
+@capacity(window='16777216')
+@info(name='q') from S#window.time(1 sec)
+select symbol, sum(price) as sp, count() as c, avg(volume) as av
+group by symbol having sp > 0.0
+insert into Out;
+"""
+
+# bench.py:224 config_length_batch
+CONFIG2_QL = """
+@app:playback
+define stream StockStream (symbol long, price float, volume int);
+@info(name='q') from StockStream#window.lengthBatch(1000)
+select avg(price) as ap insert into OutputStream;
+"""
 
 
 # the flagship query (siddhi_tpu/analysis/corpus.py FLAGSHIP_QL_TEMPLATE

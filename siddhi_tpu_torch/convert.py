@@ -1,9 +1,21 @@
-"""Carry a pattern query's state across from the JAX package.
+"""Carry query state across from the JAX package.
 
-The JAX runtime's `PatternQueryRuntime.state` is `((b32, b64, scalars),
-sel_state)`.  Its blobs are [W, K] with the key axis minor, and the port's
-`StatePacker` lays its rows out identically, so the state converts leaf for
-leaf: both packages can then continue from the same mid-stream state.
+Pattern queries: the JAX runtime's `PatternQueryRuntime.state` is
+`((b32, b64, scalars), sel_state)`.  Its blobs are [W, K] with the key axis
+minor, and the port's `StatePacker` lays its rows out identically, so the
+state converts leaf for leaf.
+
+Single-stream queries: the JAX runtime's `QueryRuntime.state` is
+`(window_state, selector_state)`.  The selector's state is one [K] array
+per accumulator column, in the same order in both packages.  The window
+state converts per window kind:
+  * none: the seq counter;
+  * `time`: (Buffer, seq), the buffer compacted in add_seq order, becomes
+    the port's ring (`kernels/time_window.py` TimeRing) with the alive rows
+    at [0, L); `ring_to_jax` goes back;
+  * `lengthBatch`: (pending Buffer, previous Buffer, seq), each a compact
+    prefix, becomes the port's BatchState.
+Both packages can then continue from the same mid-stream state.
 """
 from __future__ import annotations
 
@@ -12,19 +24,120 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .core import event as ev
+
+
+def _t(x, device, dtype=None) -> torch.Tensor:
+    a = np.array(x, copy=True)
+    t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype) if dtype is not None \
+        else t.to(device)
+
+
+def _dev(device) -> torch.device:
+    return torch.device(device) if device is not None \
+        else torch.device("cpu")
+
+
+def selector_state_from_jax(sel_state: Sequence, device=None) -> tuple:
+    """The selector's per-slot accumulator columns, leaf for leaf."""
+    return tuple(_t(s, _dev(device)) for s in sel_state)
+
 
 def state_from_jax(b32, b64, scalars: Sequence, sel_state=(),
                    device=None) -> Tuple[tuple, tuple]:
     """numpy (or array-like) blobs of the JAX runtime -> the port's
-    ((b32, b64, scalars), sel_state) on `device`.  Only projection
-    selectors are ported, so `sel_state` must be empty."""
-    if len(tuple(sel_state)) != 0:
-        raise NotImplementedError(
-            "selector state (aggregations) is not yet ported (ROADMAP B14)")
-    device = torch.device(device) if device is not None \
-        else torch.device("cpu")
-    t32 = torch.from_numpy(np.array(b32, dtype=np.int32, copy=True))
-    t64 = torch.from_numpy(np.array(b64, dtype=np.int64, copy=True))
-    scal = tuple(torch.from_numpy(np.array(s, copy=True)).to(device)
-                 for s in scalars)
-    return (t32.to(device), t64.to(device), scal), ()
+    ((b32, b64, scalars), sel_state) on `device`."""
+    device = _dev(device)
+    t32 = _t(b32, device, torch.int32)
+    t64 = _t(b64, device, torch.int64)
+    scal = tuple(_t(s, device) for s in scalars)
+    return (t32, t64, scal), selector_state_from_jax(sel_state, device)
+
+
+def time_ring_from_jax(buf, seq, schema: ev.Schema, device=None):
+    """A JAX TimeWindow state (Buffer, seq) -> the port's TimeRing of the
+    same capacity, with the host facts the ring's rows imply."""
+    from .kernels.time_window import RingFacts, TimeRing
+    device = _dev(device)
+    alive = np.asarray(buf.alive)
+    L = int(alive.sum())
+    if not alive[:L].all():
+        raise ValueError("the JAX buffer is not a compact prefix")
+    C = alive.shape[0]
+    ring = TimeRing.empty(schema, C, device)
+    for dst, src in ((ring.ts, buf.ts), (ring.add_seq, buf.add_seq),
+                     (ring.expire_ts, buf.expire_ts),
+                     (ring.gslot, buf.gslot), *zip(ring.cols, buf.cols)):
+        dst.copy_(_t(src, device, dst.dtype))
+    ring.meta.copy_(torch.tensor([0, L, int(seq), 0], dtype=torch.int64))
+    exp = np.asarray(buf.expire_ts)[:L]
+    f = RingFacts(C)
+    if L:
+        f.hmax = int(exp.max())
+        f.sorted = bool(np.all(exp[1:] >= exp[:-1]))
+        if not f.sorted:
+            f.dis_until = f.hmax
+        f.entries = [[int(exp.min()), f.hmax, L]]
+    ring.facts = f
+    return ring
+
+
+def ring_to_jax(ring) -> Tuple["Buffer", int]:
+    """The port's TimeRing -> the JAX TimeWindow layout: a Buffer of numpy
+    columns (alive rows first, in add_seq order) and the seq counter."""
+    from .core.window import BIG_SEQ, Buffer
+    head, tail, seq, pos = ring.live()
+    C, L = ring.C, tail - head
+    p = pos.cpu().numpy()
+
+    def col(x, fill):
+        a = np.full(C, fill, dtype=x.cpu().numpy().dtype)
+        a[:L] = x.cpu().numpy()[p]
+        return a
+    return Buffer(ts=col(ring.ts, 0), add_seq=col(ring.add_seq, BIG_SEQ),
+                  expire_seq=np.full(C, BIG_SEQ, np.int64),
+                  expire_ts=col(ring.expire_ts, BIG_SEQ),
+                  alive=np.arange(C) < L, gslot=col(ring.gslot, -1),
+                  cols=tuple(col(c, 0) for c in ring.cols)), seq
+
+
+def batch_state_from_jax(pend, prev, seq, schema: ev.Schema, n: int,
+                         device=None):
+    """A JAX LengthBatchWindow state (pending Buffer, previous Buffer,
+    seq) -> the port's BatchState."""
+    from .kernels.length_batch import BatchState
+    device = _dev(device)
+    st = BatchState.empty(schema, n, device)
+    for (ts, gs, cols), buf in (((st.p_ts, st.p_gslot, st.p_cols), pend),
+                                ((st.q_ts, st.q_gslot, st.q_cols), prev)):
+        for dst, src in ((ts, buf.ts), (gs, buf.gslot),
+                         *zip(cols, buf.cols)):
+            dst.copy_(_t(src, device, dst.dtype))
+    st.meta.copy_(torch.tensor(
+        [int(np.asarray(pend.alive).sum()), int(np.asarray(prev.alive).sum()),
+         int(seq)], dtype=torch.int64))
+    return st
+
+
+def query_state_from_jax(planned, jax_state, device=None):
+    """A JAX single-stream QueryRuntime.state (window_state,
+    selector_state) -> the port's, for the port's plan of the same
+    query."""
+    from .core.window import LengthBatchWindow, NoWindow, TimeWindow
+    wstate, sel_state = jax_state
+    w = planned.window
+    device = _dev(device)
+    if isinstance(w, NoWindow):
+        port_w = torch.tensor([int(np.asarray(wstate))], dtype=torch.int64,
+                              device=device)
+    elif isinstance(w, TimeWindow):
+        port_w = time_ring_from_jax(wstate[0], np.asarray(wstate[1]),
+                                    planned.in_schema, device)
+    elif isinstance(w, LengthBatchWindow):
+        port_w = batch_state_from_jax(wstate[0], wstate[1],
+                                      np.asarray(wstate[2]),
+                                      planned.in_schema, w.length, device)
+    else:
+        raise NotImplementedError(f"no state conversion for {w.name}")
+    return port_w, selector_state_from_jax(sel_state, device)

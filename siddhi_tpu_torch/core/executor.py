@@ -93,6 +93,8 @@ class Scope:
         self.default_keys: List[str] = []
         self.interner = None
         self.device = device if device is not None else torch.device("cpu")
+        # pseudo-columns bound by the selector (aggregator outputs)
+        self._bound: Dict[str, CompiledExpr] = {}
 
     def add_source(self, key: str, schema: "ev.Schema",
                    alias: Optional[str] = None, default: bool = True) -> None:
@@ -102,11 +104,18 @@ class Scope:
         if default:
             self.default_keys.append(key)
 
+    def bind(self, name: str, compiled: CompiledExpr) -> None:
+        self._bound[name] = compiled
+
+    @property
+    def bound_names(self) -> Dict[str, CompiledExpr]:
+        return self._bound
+
     def schema(self, key: str) -> "ev.Schema":
         key = self._aliases.get(key, key)
         return self._sources[key]
 
-    def resolve(self, var: Variable) -> Tuple[str, int, str]:
+    def resolve(self, var: Variable) -> Tuple[Optional[str], int, str]:
         if var.stream_id is not None:
             key = self._aliases.get(var.stream_id, var.stream_id)
             if key not in self._sources:
@@ -116,6 +125,8 @@ class Scope:
             schema = self._sources[key]
             pos = schema.position(var.attribute_name)
             return key, pos, schema.types[pos]
+        if var.attribute_name in self._bound:
+            return None, -1, self._bound[var.attribute_name].type
         hits = []
         for key in self.default_keys:
             schema = self._sources[key]
@@ -181,6 +192,9 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
 
     if isinstance(expr, Variable):
         key, pos, t = scope.resolve(expr)
+        if key is None:  # bound pseudo-column (aggregator output)
+            inner = scope.bound_names[expr.attribute_name]
+            return CompiledExpr(inner.fn, inner.type)
         if expr.stream_index is not None:
             # pattern count-state index: e1[2].attr / e1[last].attr resolve
             # through per-depth env entries provided by the pattern runtime

@@ -1,0 +1,227 @@
+"""Single-stream query planner (port of `siddhi_tpu/core/planner.py`):
+query_api AST -> one step function
+
+    step(state, batch, gslot, now, facts) -> (state', out, header)
+
+over a staged micro-batch: the pre-window filters and the window
+(`stage_body`: kernels K1-K3), then the post-window filters and the
+selector (`select_body`: kernel K4 for aggregations, torch ops for the
+projection and having).  `out` is (ts, kind, valid, cols) with the valid
+rows in seq order; `header` is i64[4] = [n_valid, n_current, wake, rows
+the time window's expire bound missed], the one scalar block the runtime
+fetches per step.
+
+Ported: filters, the `time` and `lengthBatch` windows or none, group by,
+having, the built-in aggregators.  Stream functions, the other windows,
+keyed windows (windows inside partitions), range partitions, `in Table`
+probes, named-window input and distinctCount pair slots raise
+`CompileError` naming their ROADMAP item.  On CUDA a query must also fit
+the kernels (`kernel_subset_violation`) and have no filter after its
+window (no kernel evaluates one yet, ROADMAP B10); one that does not
+raises NotImplementedError here, at plan time.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from ..query_api.definition import StreamDefinition
+from ..query_api.query import (Filter, Query, SingleInputStream,
+                               StreamFunction, Window)
+from . import event as ev
+from .executor import CompileError, Scope, compile_expression
+from .keyslots import SlotAllocator
+from .selector import SelectorExec
+from .window import NO_WAKEUP, NoWindow, Rows, WindowProcessor, \
+    create_window
+
+
+@dataclasses.dataclass
+class PlannedQuery:
+    """Compiled single-input query."""
+
+    name: str
+    input_stream_id: str
+    in_schema: ev.Schema
+    out_schema: ev.Schema
+    output_target: str                 # target stream id ('' => return)
+    output_event_type: str             # CURRENT_EVENTS/EXPIRED_EVENTS/ALL
+    window: WindowProcessor
+    group_by_positions: List[int]
+    selector_exec: SelectorExec
+    step: Callable
+    init_state: Callable
+    slot_allocator: Optional[SlotAllocator]
+    batch_capacity: int
+    needs_timer: bool
+    device: torch.device
+    filter_spec: Any = None            # kernels.filter_compact.FilterSpec
+    stage_body: Optional[Callable] = None
+    select_body: Optional[Callable] = None
+
+
+def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
+    return {scope_key: tuple(cols), "__ts__": ts, "__now__": now,
+            "__kind__": kind}
+
+
+def _apply_chain(chain, env, keep, data_row):
+    """Run a filter chain over columnar rows.  Filters only gate
+    `data_row` rows (TIMER/RESET pass through untouched)."""
+    for c in chain:
+        keep = torch.logical_and(
+            keep, torch.logical_or(torch.logical_not(data_row), c.fn(env)))
+    return keep
+
+
+def kernel_subset_violation(in_schema: ev.Schema,
+                            sel: Optional[SelectorExec] = None
+                            ) -> Optional[str]:
+    """Why a query cannot run on the CUDA kernels, or None.  The stream is
+    checked first, before anything is compiled for the device; the
+    selector once it is compiled."""
+    from ..kernels import filter_compact, group_agg
+    if len(in_schema.types) > filter_compact.MAX_COLS:
+        return (f"{len(in_schema.types)} columns (the kernels take "
+                f"{filter_compact.MAX_COLS})")
+    if sel is not None and len(sel.bank.specs) > group_agg.MAX_SPECS:
+        return (f"{len(sel.bank.specs)} accumulator columns (group_agg "
+                f"takes {group_agg.MAX_SPECS})")
+    if sel is not None and sel.bank.K > group_agg.MAX_SLOTS:
+        return (f"{sel.bank.K} group slots (group_agg takes "
+                f"{group_agg.MAX_SLOTS})")
+    return None
+
+
+def _check_subset(name: str, in_schema: ev.Schema, sel=None) -> None:
+    unsupported = kernel_subset_violation(in_schema, sel)
+    if unsupported is not None:
+        raise NotImplementedError(
+            f"query {name!r} is outside the CUDA kernels' subset: "
+            f"{unsupported}")
+
+
+def plan_single_query(
+        query: Query, name: str, schemas: Dict[str, ev.Schema], interner,
+        batch_capacity: int = 512, group_slots: int = 4096,
+        window_capacity_hint: int = 2048,
+        device: Optional[torch.device] = None) -> PlannedQuery:
+    from ..kernels.filter_bytecode import AND, compile_filter
+    from ..kernels.filter_compact import FilterSpec
+    device = torch.device(device) if device is not None \
+        else torch.device("cpu")
+    ist = query.input_stream
+    if not isinstance(ist, SingleInputStream):
+        raise CompileError(f"query {name!r}: joins are not yet ported "
+                           f"(ROADMAP A10)")
+    sid = ist.unique_stream_id
+    if sid not in schemas:
+        raise CompileError(f"undefined stream {sid!r}")
+    in_schema = schemas[sid]
+    if device.type == "cuda":
+        _check_subset(name, in_schema)
+    scope = Scope(device)
+    scope.interner = interner
+    scope.add_source(sid, in_schema, alias=ist.stream_reference_id)
+
+    # ---- handlers: filters before/after the window -------------------------
+    pre_chain, post_chain, pre_exprs = [], [], []
+    window_proc: WindowProcessor = NoWindow(in_schema, [], batch_capacity)
+    seen_window = False
+    for h in ist.stream_handlers:
+        if isinstance(h, Filter):
+            if seen_window and device.type == "cuda":
+                raise NotImplementedError(
+                    f"query {name!r} is outside the CUDA kernels' subset: "
+                    f"a filter after the window (ROADMAP B10)")
+            c = compile_expression(h.expression, scope)
+            if c.type != "BOOL":
+                raise CompileError("filter expression must be boolean")
+            if seen_window:
+                post_chain.append(c)
+            else:
+                pre_chain.append(c)
+                pre_exprs.append(h.expression)
+        elif isinstance(h, Window):
+            if seen_window:
+                raise CompileError("only one window per input stream")
+            seen_window = True
+            window_proc = create_window(
+                (h.namespace + ":" if h.namespace else "") + h.name,
+                in_schema, h.parameters, batch_capacity,
+                capacity_hint=window_capacity_hint)
+        elif isinstance(h, StreamFunction):
+            raise CompileError(
+                f"stream function {h.name!r} is not yet ported (ROADMAP A4)")
+
+    # ---- selector -----------------------------------------------------------
+    out_target = query.output_stream.target_id if query.output_stream \
+        else ""
+    sel = SelectorExec(query.selector, scope, in_schema, group_slots,
+                       out_target or name, aggregate=True)
+    out_def = StreamDefinition(out_target or f"#{name}.out")
+    for n, t in zip(sel.out_names, sel.out_types):
+        out_def.attribute(n, t)
+    out_schema = ev.Schema(out_def, interner)
+    gpos = list(sel.group_by_positions)
+    allocator = SlotAllocator(group_slots, name=f"{name}:groupby") \
+        if gpos else None
+    out_event_type = (query.output_stream.output_event_type
+                      if query.output_stream and
+                      query.output_stream.output_event_type
+                      else "CURRENT_EVENTS")
+
+    bytecode = None
+    if device.type == "cuda":
+        _check_subset(name, in_schema, sel)
+        bytecode = []
+        for i, e in enumerate(pre_exprs):
+            bytecode += compile_filter(e, scope, sid, {})
+            if i:
+                bytecode.append(AND)
+    fspec = FilterSpec(in_schema.types, pre_chain, bytecode, sid)
+    wproc = window_proc
+
+    def stage_body(wstate, batch, gslot, now: int, facts):
+        """Pre-window filters + window advance."""
+        rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid,
+                    seq=None, gslot=gslot, cols=batch.cols)
+        wstate, wout = wproc.process(wstate, rows, fspec, now, facts)
+        return wstate, wout.rows, wout.next_wakeup
+
+    def select_body(astate, orows: Rows, now: int):
+        """Post-window filters + selector over the window's rows."""
+        env = _env_for(sid, orows.cols, orows.ts, now, orows.kind)
+        if post_chain:
+            data_row = torch.logical_or(orows.kind == ev.CURRENT,
+                                        orows.kind == ev.EXPIRED)
+            orows = orows._replace(valid=_apply_chain(
+                post_chain, env, orows.valid, data_row))
+        return sel.process(astate, orows, env)
+
+    def step(state, batch, gslot, now: int, facts):
+        wstate, astate = state
+        wstate, orows, wake = stage_body(wstate, batch, gslot, now, facts)
+        astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
+                                                          now)
+        cur = torch.logical_and(ovalid, okind == ev.CURRENT)
+        if wake is None:
+            wake = torch.tensor([NO_WAKEUP, 0], dtype=torch.int64,
+                                device=ots.device)
+        header = torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake])
+        return (wstate, astate), (ots, okind, ovalid, ocols), header
+
+    def init_state():
+        return (wproc.init_state(device), sel.init_state())
+
+    return PlannedQuery(
+        name=name, input_stream_id=sid, in_schema=in_schema,
+        out_schema=out_schema, output_target=out_target,
+        output_event_type=out_event_type, window=wproc,
+        group_by_positions=gpos, selector_exec=sel, step=step,
+        init_state=init_state, slot_allocator=allocator,
+        batch_capacity=batch_capacity, needs_timer=wproc.needs_timer,
+        device=device, filter_spec=fspec, stage_body=stage_body,
+        select_body=select_body)

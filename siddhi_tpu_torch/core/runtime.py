@@ -1,21 +1,28 @@
-"""App runtime (port of the pattern-query subset of
+"""App runtime (port of the pattern-query and single-stream-query subset of
 `siddhi_tpu/core/runtime.py`): manager, junctions, input handlers,
-callbacks.
+callbacks, the timer scheduler.
 
-A send stages the micro-batch into numpy once; each subscribed pattern query
-resolves partition keys to dense slots on the host (`core/keyslots.py`,
-C pass in `native/staging.c`), ships the batch and the [Kb, E] selection to
-its device, runs one step, and fetches only the two-count emission header.
-Rows transfer when a consumer reads them.
+A send stages the micro-batch into numpy once.  Each subscribed pattern
+query resolves partition keys to dense slots on the host
+(`core/keyslots.py`, C pass in `native/staging.c`), ships the batch and the
+[Kb, E] selection to its device, runs one step, and fetches only the
+two-count emission header.  Each single-stream query resolves its group-by
+slots on the host, ships the batch, runs one step (filters, window,
+aggregation, having, projection) and fetches its [n_valid, n_current, wake,
+missed] header in one sync.  Rows transfer when a consumer reads them.
 
 Ported: stream definitions, `@app:playback`, value partitions (`partition
 with (attr of Stream)`) around pattern queries, top-level pattern queries,
-`InputHandler.send` / `send_columns`, synchronous junctions, the three
-callback kinds, emission-cap growth, `flush` and `shutdown`.  Everything
-else raises `CompileError` naming its ROADMAP item.
+top-level single-stream queries (filters, `time` / `lengthBatch` windows,
+group by, having, `@capacity(window='N')`), the timer scheduler (playback
+drain and wall-clock thread), `InputHandler.send` / `send_columns`,
+synchronous junctions, the three callback kinds, emission-cap growth,
+`flush` and `shutdown`.  Everything else raises `CompileError` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
+import heapq
 import logging
 import threading
 import time
@@ -29,12 +36,14 @@ from ..exceptions import (DefinitionNotExistError, MatchOverflowError,
 from ..query_api.app import SiddhiApp
 from ..query_api.definition import StreamDefinition
 from ..query_api.expression import Variable
-from ..query_api.query import (Partition, Query, StateInputStream,
-                               ValuePartitionType)
+from ..query_api.query import (Partition, Query, SingleInputStream,
+                               StateInputStream, ValuePartitionType)
 from . import event as ev
 from .executor import CompileError
 from .keyslots import SlotAllocator
 from .pattern_planner import plan_pattern_query
+from .planner import plan_single_query
+from .window import NO_WAKEUP
 
 _log = logging.getLogger("siddhi_tpu_torch")
 
@@ -391,6 +400,17 @@ def _deliver_pairs(qr, pairs, now: int) -> None:
             qr.app._route(p.output_target, routed)
 
 
+class _QSub:
+    """A single-stream query's subscription to its input stream."""
+
+    def __init__(self, qr: "QueryRuntime"):
+        self._qr = qr
+
+    def process_staged(self, staged, now):
+        with self._qr._qlock:
+            self._qr.process_staged(staged, now)
+
+
 class _Sub:
     """A pattern query's subscription to one of its input streams."""
 
@@ -400,6 +420,194 @@ class _Sub:
     def process_staged(self, staged, now):
         with self._qr._qlock:
             self._qr.process_staged(self._sid, staged, now)
+
+
+_ZERO_SLOTS: Dict[int, np.ndarray] = {}
+
+
+def _zero_slots(cap: int) -> np.ndarray:
+    """[cap] all-zero int32 group-slot column, cached read-only per size
+    (queries without group by put every row in slot 0)."""
+    z = _ZERO_SLOTS.get(cap)
+    if z is None:
+        z = _ZERO_SLOTS[cap] = np.zeros((cap,), np.int32)
+    return z
+
+
+class QueryRuntime:
+    """Host wrapper around one planned single-stream query: group slots,
+    the device step, wake scheduling, delivery (reference:
+    `siddhi_tpu/core/runtime.py` QueryRuntime)."""
+
+    def __init__(self, planned, app: "SiddhiAppRuntime"):
+        self.planned = planned
+        self.app = app
+        self.state = planned.init_state()
+        self.callbacks: List[Callable] = []
+        self.batch_callbacks: List[Callable] = []
+        self.next_wakeup: int = NO_WAKEUP
+        self._qlock = threading.RLock()
+
+    @property
+    def name(self):
+        return self.planned.name
+
+    def _slots_for_batch(self, staged: ev.StagedBatch) -> np.ndarray:
+        """Group slots of the batch's rows (host side: binds new keys)."""
+        p = self.planned
+        if p.group_by_positions and p.slot_allocator is not None:
+            return p.slot_allocator.slots_for(
+                [staged.cols[i] for i in p.group_by_positions],
+                staged.valid)
+        return _zero_slots(staged.ts.shape[0])
+
+    def process_staged(self, staged: ev.StagedBatch, now: int) -> None:
+        from .window import BatchFacts
+        p = self.planned
+        gslot = self._slots_for_batch(staged)
+        batch = staged.to_device(p.in_schema, p.device)
+        cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
+        facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
+        self.state, out, header = p.step(
+            self.state, batch, _h2d(gslot, p.device), now, facts)
+        _emit_plain(self, out, header, now)
+
+    def on_timer(self, now: int) -> None:
+        staged = ev.pack_np(self.planned.in_schema, [], capacity=8)
+        staged.ts[0] = now
+        staged.kind[0] = ev.TIMER
+        staged.valid[0] = True
+        self.process_staged(staged, now)
+
+    def _apply_wake(self, w: int) -> None:
+        self.next_wakeup = w
+        if w < NO_WAKEUP:
+            self.app._scheduler.notify_at(w, self)
+
+
+def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
+    """Deliver one plain step's output.  The header [n_valid, n_current,
+    wake, missed] is the step's one device fetch.  A time window step whose
+    expire bound missed rows left the window and the aggregates as they
+    were and raises here.  The wake is applied before delivery, and rows
+    move to the host only for an event consumer, valid ones in row (seq)
+    order."""
+    live = bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
+    if not live and not qr.planned.needs_timer:
+        return
+    nv, ncur, wake, missed = header.tolist()
+    if missed:
+        raise RuntimeError(
+            f"query {qr.name!r}: {missed} more rows expired than the time "
+            f"window's expire bound allowed; the window and the aggregates "
+            f"were left as they were")
+    if qr.planned.needs_timer:
+        qr._apply_wake(wake)
+    if not live or not nv:
+        return
+    p = qr.planned
+    ots, okind, ovalid, ocols = out
+    if qr.batch_callbacks:
+        counts = {"n_valid": nv, "n_current": ncur, "n_expired": nv - ncur,
+                  "n_dropped": 0}
+        payload = _LazyBatchPayload(p.out_schema.names, ots, okind, ovalid,
+                                    ocols, counts)
+        for bcb in qr.batch_callbacks:
+            bcb(now, payload)
+    if not qr.callbacks and not _target_live(qr):
+        return
+    batch = ev.EventBatch(ots.cpu().numpy(), okind.cpu().numpy(),
+                          ovalid.cpu().numpy(),
+                          tuple(c.cpu().numpy() for c in ocols))
+    pairs = ev.unpack(p.out_schema, batch,
+                      want_kinds=(ev.CURRENT, ev.EXPIRED))
+    if pairs:
+        _deliver_pairs(qr, pairs, now)
+
+
+class _Scheduler:
+    """Timer queue injecting TIMER batches (reference:
+    CORE/util/Scheduler.java:48).  In playback, due timers fire from the
+    send path before the batch is dispatched (`drain_playback`); otherwise
+    a thread fires them on the wall clock.  One entry per (time, query):
+    the reference package pushes one per step, and its drain then runs a
+    TIMER step per duplicate, each one expiring nothing."""
+
+    def __init__(self, app: "SiddhiAppRuntime"):
+        self.app = app
+        self._heap: List = []
+        self._pending = set()
+        self._cv = threading.Condition()
+        self._counter = 0
+        self._running = False
+        self._draining = False
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        if self.app.playback or self._running:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="siddhi-torch-scheduler")
+        self._thread.start()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._running = False
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+
+    def notify_at(self, ts: int, q) -> None:
+        with self._cv:
+            key = (ts, id(q))
+            if key in self._pending:
+                return
+            self._pending.add(key)
+            self._counter += 1
+            heapq.heappush(self._heap, (ts, self._counter, q))
+            self._cv.notify_all()
+
+    def _pop(self):
+        ts, _, q = heapq.heappop(self._heap)
+        self._pending.discard((ts, id(q)))
+        return ts, q
+
+    def drain_playback(self, now: int) -> None:
+        if self._draining:
+            return
+        self._draining = True
+        try:
+            while True:
+                with self._cv:
+                    if not self._heap or self._heap[0][0] > now:
+                        return
+                    ts, q = self._pop()
+                with q._qlock:
+                    q.on_timer(ts)
+        finally:
+            self._draining = False
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                if not self._running:
+                    return
+                if not self._heap:
+                    self._cv.wait(timeout=0.2)
+                    continue
+                ts = self._heap[0][0]
+                now = self.app.timestamp_millis()
+                if ts > now:
+                    self._cv.wait(timeout=min((ts - now) / 1000.0, 0.2))
+                    continue
+                ts, q = self._pop()
+            try:
+                with q._qlock:
+                    q.on_timer(max(ts, self.app.timestamp_millis()))
+            except Exception:  # noqa: BLE001 — the scheduler must survive
+                _log.exception("timer of query %s failed", q.name)
 
 
 class StreamJunction:
@@ -452,6 +660,7 @@ class SiddhiAppRuntime:
             raise CompileError("@app:playback(idle.time) is not yet ported "
                                "(ROADMAP A8)")
         self._playback_time = 0
+        self._scheduler = _Scheduler(self)
         _check_annotations(
             [a for a in app.annotations
              if a.name.lower() not in ("app:playback",)], "the app")
@@ -471,13 +680,17 @@ class SiddhiAppRuntime:
             _check_annotations(sdef.annotations, f"stream {sdef.id!r}")
             self._define_stream_runtime(sdef)
 
-        self.query_runtimes: Dict[str, PatternQueryRuntime] = {}
+        self.query_runtimes: Dict[str, Union[PatternQueryRuntime,
+                                             QueryRuntime]] = {}
         qi = 0
         for element in app.execution_element_list:
             if isinstance(element, Query):
                 qname = self._query_name(element, qi)
                 qi += 1
-                self._add_pattern_query(element, qname)
+                if isinstance(element.input_stream, SingleInputStream):
+                    self._add_query(element, qname)
+                else:
+                    self._add_pattern_query(element, qname)
             elif isinstance(element, Partition):
                 qi = self._add_partition(element, qi)
 
@@ -495,13 +708,29 @@ class SiddhiAppRuntime:
                 return n
         return f"query{i + 1}"
 
+    def _add_query(self, q: Query, name: str) -> None:
+        """A top-level single-stream query (filters, window, group by,
+        having).  `@capacity(window='N')` sizes the window's buffer."""
+        _check_annotations(q.annotations, f"query {name!r}")
+        wch = 2048
+        cap_ann = q.get_annotation("capacity")
+        if cap_ann is not None and cap_ann.element("window"):
+            wch = int(cap_ann.element("window"))
+        planned = plan_single_query(q, name, self.schemas, self.interner,
+                                    window_capacity_hint=wch,
+                                    device=self.device)
+        runtime = QueryRuntime(planned, self)
+        self.query_runtimes[name] = runtime
+        self.junctions[planned.input_stream_id].subscribe_query(
+            _QSub(runtime))
+        self._define_output_for(planned, name)
+
     def _add_pattern_query(self, q: Query, name: str, key_capacity: int = 1,
                            slots: Optional[int] = None, positions=None,
                            allocator=None) -> None:
         if not isinstance(q.input_stream, StateInputStream):
             raise CompileError(
-                f"query {name!r}: only pattern queries are ported so far "
-                f"(plain queries: ROADMAP A5, joins: ROADMAP A10)")
+                f"query {name!r}: joins are not yet ported (ROADMAP A10)")
         _check_annotations(q.annotations, f"query {name!r}")
         if slots is None:
             slots = 8
@@ -558,7 +787,8 @@ class SiddhiAppRuntime:
             if not isinstance(q.input_stream, StateInputStream):
                 raise CompileError(
                     f"query {qname!r}: only pattern queries are ported "
-                    f"inside partitions so far (ROADMAP A5/A10)")
+                    f"inside partitions so far (keyed windows and "
+                    f"partitioned plain queries: ROADMAP B10)")
             ppos = {}
             for sid in q.input_stream.all_stream_ids:
                 if sid not in positions:
@@ -589,8 +819,10 @@ class SiddhiAppRuntime:
     # -- lifecycle ------------------------------------------------------------
     def start(self) -> None:
         self._started = True
+        self._scheduler.start()
 
     def shutdown(self) -> None:
+        self._scheduler.stop()
         self.flush()
         self._started = False
 
@@ -664,7 +896,12 @@ class SiddhiAppRuntime:
         staged = ev.StagedBatch(ts, kind, valid, padded, n)
         if n:
             self._advance_playback(int(ts[:n].max()))
-        junction.dispatch_staged(staged, self.timestamp_millis())
+        now = self.timestamp_millis()
+        # the playback clock moves first and due timers fire before the
+        # batch is dispatched
+        if self.playback:
+            self._scheduler.drain_playback(now)
+        junction.dispatch_staged(staged, now)
 
     def _route(self, stream_id: str, events: List[ev.Event]) -> None:
         junction = self.junctions.get(stream_id)
@@ -672,7 +909,10 @@ class SiddhiAppRuntime:
             raise DefinitionNotExistError(f"undefined stream {stream_id!r}")
         if events:
             self._advance_playback(max(e.timestamp for e in events))
-        junction.publish(events, self.timestamp_millis())
+        now = self.timestamp_millis()
+        if self.playback:
+            self._scheduler.drain_playback(now)
+        junction.publish(events, now)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:

@@ -1,21 +1,44 @@
-"""The few window-module names the pattern path uses (port of parts of
-`siddhi_tpu/core/window.py` and `siddhi_tpu/core/plan_facts.py`).
+"""Window processors (port of `siddhi_tpu/core/window.py`).
 
-The window processors themselves are not ported yet (ROADMAP B11-B13).
+Every event a window admits gets a monotone sequence number `add_seq`; one
+`process` call consumes a whole micro-batch and emits `Rows` that carry
+their own sequence numbers, valid rows first in seq order, so the selector
+recovers the exact per-event order (expired-before-current interleavings
+included).
+
+Ported: `NoWindow` (pass-through), `TimeWindow` (`time`) and
+`LengthBatchWindow` (`lengthBatch`).  Their steps are the CUDA kernels
+under `kernels/` (`filter_compact`, `time_window`, `length_batch`), each
+with its plain PyTorch version, which runs on the CPU.  Unlike the
+reference, whose output capacity is the window's worst case (B + C rows
+for a time window), a step's output here is sized from what the host knows
+about the rows that can expire or flush, and only valid rows are defined.
+
+The time window keeps its buffer as a ring in add_seq order, so a step
+reads only the rows that expire and writes only the rows that arrive;
+`convert.py` turns the reference's compacted buffer into the ring and back.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Tuple
 
-# "no timer wanted": a quarter of the int64 range, as the reference defines it
-NO_WAKEUP = (2 ** 63 - 1) // 4
+import torch
+
+from ..exceptions import CompileError
+from ..query_api.expression import Constant
+from . import event as ev
+
+# "never expired" / "no timer wanted": a quarter of the int64 range, as the
+# reference defines them
+BIG_SEQ = (2 ** 63 - 1) // 4
+NO_WAKEUP = BIG_SEQ
 
 # emission cap meaning "effectively uncapped" (non-partitioned patterns)
 UNCAPPED_SENTINEL = 1 << 30
 
 
 class Rows(NamedTuple):
-    """Ordered operator rows flowing into the selector."""
+    """Ordered operator rows flowing between window -> selector -> output."""
 
     ts: Any     # i64[B]
     kind: Any   # i32[B] CURRENT/EXPIRED/TIMER/RESET
@@ -23,3 +46,208 @@ class Rows(NamedTuple):
     seq: Any    # i64[B] global order
     gslot: Any  # i32[B] group-by slot (-1 none)
     cols: Tuple[Any, ...]
+
+
+class Buffer(NamedTuple):
+    """Columnar window contents in the reference's layout."""
+
+    ts: Any          # i64[C] original event ts
+    add_seq: Any     # i64[C]
+    expire_seq: Any  # i64[C] BIG_SEQ if still in window
+    expire_ts: Any   # i64[C] scheduled wall expiry (time windows) else BIG
+    alive: Any       # bool[C]
+    gslot: Any       # i32[C]
+    cols: Tuple[Any, ...]
+
+
+def empty_buffer(schema: ev.Schema, capacity: int,
+                 device=None) -> Buffer:
+    cols = tuple(
+        torch.full((capacity,), ev.default_value(t), dtype=d, device=device)
+        for t, d in zip(schema.types, schema.dtypes))
+
+    def big():
+        return torch.full((capacity,), BIG_SEQ, dtype=torch.int64,
+                          device=device)
+    return Buffer(
+        ts=torch.zeros((capacity,), dtype=torch.int64, device=device),
+        add_seq=big(), expire_seq=big(), expire_ts=big(),
+        alive=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        gslot=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        cols=cols)
+
+
+def _gather_rows(rows: Rows, idx, valid) -> Rows:
+    return Rows(ts=rows.ts[idx], kind=rows.kind[idx],
+                valid=torch.logical_and(rows.valid[idx], valid),
+                seq=rows.seq[idx], gslot=rows.gslot[idx],
+                cols=tuple(c[idx] for c in rows.cols))
+
+
+def sort_rows(rows: Rows) -> Rows:
+    """Stable order by (valid desc, seq asc): invalid rows pushed to the
+    end."""
+    key = torch.where(rows.valid, rows.seq,
+                      torch.full_like(rows.seq, BIG_SEQ))
+    idx = torch.argsort(key, stable=True)
+    return _gather_rows(rows, idx, torch.ones_like(rows.valid))
+
+
+def concat_rows(a: Rows, b: Rows) -> Rows:
+    return Rows(ts=torch.cat([a.ts, b.ts]), kind=torch.cat([a.kind, b.kind]),
+                valid=torch.cat([a.valid, b.valid]),
+                seq=torch.cat([a.seq, b.seq]),
+                gslot=torch.cat([a.gslot, b.gslot]),
+                cols=tuple(torch.cat([x, y])
+                           for x, y in zip(a.cols, b.cols)))
+
+
+class WindowOutput(NamedTuple):
+    rows: Rows
+    # i64[2] tensor [earliest pending expiry (NO_WAKEUP if none), rows
+    # the step's expire bound missed (0 when the step was applied)], or
+    # None for a window without timers
+    next_wakeup: Any
+
+
+# ---------------------------------------------------------------------------
+
+
+class WindowProcessor:
+    """Base.  `process(state, staged_rows, spec, now, host)` takes the
+    batch's rows, the query's filter plan and the host facts of the batch
+    (`BatchFacts`), and returns (state', WindowOutput)."""
+
+    name = "?"
+    needs_timer = False
+    # batch windows that emit RESET rows (epoch flushes)
+    emits_reset = False
+
+    def __init__(self, schema: ev.Schema, params: List[Constant],
+                 batch_capacity: int, capacity_hint: int = 1024):
+        self.schema = schema
+        self.batch_capacity = batch_capacity
+
+    def init_state(self, device):
+        raise NotImplementedError
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        raise NotImplementedError
+
+
+class BatchFacts(NamedTuple):
+    """What the host knows about a batch before its step: the timestamps of
+    its valid CURRENT rows (a superset of the rows its filters keep) and
+    its capacity.  Window steps size their outputs from it."""
+
+    cur_ts: Any        # numpy i64[n]
+    capacity: int
+
+
+def _param_int(params, i, default=None):
+    if i >= len(params):
+        if default is not None:
+            return default
+        raise CompileError("missing window parameter")
+    p = params[i]
+    if not isinstance(p, Constant):
+        raise CompileError("window parameters must be constants")
+    return int(p.value)
+
+
+def _arrivals(rows: Rows, fspec, now: int, seq=None):
+    from ..kernels.filter_compact import filter_compact
+    return filter_compact(fspec, rows.ts, rows.kind, rows.valid, rows.gslot,
+                          rows.cols, now, seq)
+
+
+class NoWindow(WindowProcessor):
+    """Pass-through when the query has no window handler: valid CURRENT
+    rows that pass the filters, compacted to the front in input order and
+    numbered from the seq counter (kernel K1)."""
+
+    name = "(none)"
+
+    def init_state(self, device):
+        return torch.zeros(1, dtype=torch.int64, device=device)
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        out, _ = _arrivals(rows, fspec, now, seq=state)
+        return state, WindowOutput(out, None)
+
+
+class TimeWindow(WindowProcessor):
+    """Sliding time window (reference: TimeWindowProcessor.java:86).
+
+    Entries expire `t` ms after arrival; EXPIRED rows carry ts = expiry
+    time.  Expiry is driven both by arrivals and by TIMER rows;
+    `next_wakeup` reports the earliest pending expiry for the host
+    scheduler.  The step is kernel K2 (`kernels/time_window.py`)."""
+
+    name = "time"
+    needs_timer = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=2048):
+        super().__init__(schema, params, batch_capacity)
+        self.time_ms = _param_int(params, 0)
+        self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def init_state(self, device):
+        from ..kernels.time_window import TimeRing
+        return TimeRing.empty(self.schema, self.capacity, device)
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        from ..kernels.time_window import time_window_step
+        arr, n_arr = _arrivals(rows, fspec, now)
+        out, wake = time_window_step(state, arr, n_arr, now, self.time_ms,
+                                     facts)
+        return state, WindowOutput(out, wake)
+
+
+class LengthBatchWindow(WindowProcessor):
+    """Tumbling length batch (reference: LengthBatchWindowProcessor).
+
+    Arrivals accumulate silently; when `n` have gathered the whole batch is
+    emitted as CURRENT, preceded by the previous batch as EXPIRED and a
+    RESET row separating them.  The step is kernel K3
+    (`kernels/length_batch.py`)."""
+
+    name = "lengthBatch"
+    emits_reset = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=1024):
+        super().__init__(schema, params, batch_capacity)
+        self.length = _param_int(params, 0)
+        if self.length <= 0:
+            raise CompileError("lengthBatch length must be positive")
+
+    def init_state(self, device):
+        from ..kernels.length_batch import BatchState
+        return BatchState.empty(self.schema, self.length, device)
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        from ..kernels.length_batch import length_batch_step
+        arr, n_arr = _arrivals(rows, fspec, now)
+        out = length_batch_step(state, arr, n_arr, now, facts)
+        return state, WindowOutput(out, None)
+
+
+# ---------------------------------------------------------------------------
+
+WINDOW_TYPES = {
+    "time": TimeWindow,
+    "lengthBatch": LengthBatchWindow,
+}
+
+# reference window kinds that are not ported yet -> ROADMAP item
+_UNPORTED_WINDOWS = {"length": "B11", "timeBatch": "B11"}
+
+
+def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
+                  capacity_hint: int = 2048) -> WindowProcessor:
+    if name not in WINDOW_TYPES:
+        item = _UNPORTED_WINDOWS.get(name, "B12/B13")
+        raise CompileError(f"window {name!r} is not yet ported "
+                           f"(ROADMAP {item})")
+    return WINDOW_TYPES[name](schema, params, batch_capacity,
+                              capacity_hint=capacity_hint)

@@ -43,20 +43,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bytecode.cuh"
+
+using namespace siddhi;
+
 namespace {
 
 constexpr int MAX_ATOMS = 8;
 constexpr int MAX_COLS = 8;
 constexpr int MAX_EMIT = 24;
 constexpr int MAX_CODE = 192;
-constexpr int MAX_STACK = 16;
-
-enum : int { T_I32 = 0, T_I64 = 1, T_F32 = 2, T_BOOL = 3 };
-enum : int { N_NONE = 0, N_INT = 1, N_LONG = 2, N_NAN = 3, N_ID = 4 };
-enum : int {
-  OP_LOAD_EV = 1, OP_LOAD_CAP, OP_CONST, OP_ARITH, OP_CMP, OP_AND, OP_OR,
-  OP_NOT, OP_ISNULL
-};
 
 }  // namespace
 
@@ -119,137 +115,14 @@ struct Key {
   }
 };
 
-__device__ __forceinline__ float as_f(long long v) { return __int_as_float((int)v); }
-__device__ __forceinline__ long long from_f(float f) { return (long long)__float_as_int(f); }
-
-__device__ bool is_null(long long v, int nk) {
-  switch (nk) {
-    case N_INT: return (int)v == INT32_MIN;
-    case N_LONG: return v == INT64_MIN;
-    case N_NAN: { float f = as_f(v); return f != f; }
-    case N_ID: return (int)v == -1;
-    default: return false;
-  }
-}
-
-// plain astype between the stack's value types (no null mapping)
-__device__ long long cast(long long v, int from, int to) {
-  if (from == to) return v;
-  if (to == T_F32) {
-    if (from == T_I64) return from_f(__ll2float_rn(v));
-    return from_f(__int2float_rn((int)v));  // int32 and bool
-  }
-  if (to == T_I64) return v;                // int32 and bool are sign-extended
-  return (long long)(int)v;                 // to int32
-}
-
-// floor division of b != 0 (Python // on integers)
-__device__ long long floordiv64(long long a, long long b) {
-  long long q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
-  return q;
-}
-
-// Java integer division as the reference computes it:
-// sign(a) * sign(b) * (|a| // |b|), wrapping, with a zero divisor giving 0
-__device__ long long int_div(long long a, long long b, bool is32) {
-  if (b == 0) return 0;
-  long long aa, ab;
-  if (is32) {
-    int a32 = (int)a, b32 = (int)b;
-    aa = (a32 == INT32_MIN) ? (long long)INT32_MIN : (long long)(a32 < 0 ? -a32 : a32);
-    ab = (b32 == INT32_MIN) ? (long long)INT32_MIN : (long long)(b32 < 0 ? -b32 : b32);
-  } else {
-    aa = (a == INT64_MIN) ? INT64_MIN : (a < 0 ? -a : a);
-    ab = (b == INT64_MIN) ? INT64_MIN : (b < 0 ? -b : b);
-  }
-  long long r = floordiv64(aa, ab);
-  int s = ((a > 0) - (a < 0)) * ((b > 0) - (b < 0));
-  unsigned long long ur = (unsigned long long)r;
-  if (s == 0) return 0;
-  if (s < 0) ur = 0ull - ur;
-  return is32 ? (long long)(int)(unsigned int)ur : (long long)ur;
-}
-
-__device__ long long arith(int op, int t, long long x, long long y) {
-  if (t == T_F32) {
-    float a = as_f(x), b = as_f(y);
-    float r = op == 0 ? __fadd_rn(a, b) : op == 1 ? __fsub_rn(a, b)
-            : op == 2 ? __fmul_rn(a, b) : __fdiv_rn(a, b);
-    return from_f(r);
-  }
-  bool is32 = (t == T_I32);
-  if (op == 3) return int_div(x, y, is32);
-  unsigned long long a = (unsigned long long)x, b = (unsigned long long)y;
-  unsigned long long r = op == 0 ? a + b : op == 1 ? a - b : a * b;
-  return is32 ? (long long)(int)(unsigned int)r : (long long)r;
-}
-
-__device__ bool compare(int op, int t, long long x, long long y) {
-  if (t == T_F32) {
-    float a = as_f(x), b = as_f(y);
-    switch (op) {
-      case 0: return a < b; case 1: return a <= b; case 2: return a > b;
-      case 3: return a >= b; case 4: return a == b; default: return a != b;
-    }
-  }
-  if (t == T_I64) {
-    switch (op) {
-      case 0: return x < y; case 1: return x <= y; case 2: return x > y;
-      case 3: return x >= y; case 4: return x == y; default: return x != y;
-    }
-  }
-  int a = (int)x, b = (int)y;
-  switch (op) {
-    case 0: return a < b; case 1: return a <= b; case 2: return a > b;
-    case 3: return a >= b; case 4: return a == b; default: return a != b;
-  }
-}
-
 // One atom's filter for the slot `p`: the incoming event under the atom's
 // own ref, every other ref from slot p's (pre-capture) captures.
 __device__ bool eval_filter(const Key& key, int atom, int p, const long long* ev) {
   const StepPlan& pl = key.pl;
-  int len = pl.code_len[atom];
-  if (len == 0) return true;
-  long long stk[MAX_STACK];
-  int sp = 0;
-  const int* code = pl.code + pl.code_start[atom];
-  for (int pc = 0; pc < len;) {
-    switch (code[pc]) {
-      case OP_LOAD_EV: stk[sp++] = ev[code[pc + 1]]; pc += 2; break;
-      case OP_LOAD_CAP: stk[sp++] = key.cap(code[pc + 1], code[pc + 2], p); pc += 3; break;
-      case OP_CONST:
-        stk[sp++] = ((long long)code[pc + 2] << 32) | (unsigned int)code[pc + 1];
-        pc += 3;
-        break;
-      case OP_ARITH:
-      case OP_CMP: {
-        int op = code[pc + 1], t = code[pc + 2], lt = code[pc + 3], rt = code[pc + 4];
-        int lnk = code[pc + 5], rnk = code[pc + 6];
-        long long b = stk[--sp], a = stk[--sp];
-        long long x = cast(a, lt, t), y = cast(b, rt, t);
-        bool nul = is_null(a, lnk) || is_null(b, rnk);
-        long long r;
-        if (code[pc] == OP_ARITH) {
-          r = nul ? (t == T_I32 ? (long long)INT32_MIN : t == T_I64 ? INT64_MIN
-                                                          : (long long)0x7fc00000)
-                  : arith(op, t, x, y);
-        } else {
-          r = (!nul && compare(op, t, x, y)) ? 1 : 0;
-        }
-        stk[sp++] = r;
-        pc += 7;
-        break;
-      }
-      case OP_AND: { long long b = stk[--sp]; stk[sp - 1] = (stk[sp - 1] != 0) && (b != 0); pc += 1; break; }
-      case OP_OR: { long long b = stk[--sp]; stk[sp - 1] = (stk[sp - 1] != 0) || (b != 0); pc += 1; break; }
-      case OP_NOT: stk[sp - 1] = (stk[sp - 1] == 0); pc += 1; break;
-      case OP_ISNULL: stk[sp - 1] = is_null(stk[sp - 1], code[pc + 1]) ? 1 : 0; pc += 2; break;
-      default: return false;
-    }
-  }
-  return stk[0] != 0;
+  return eval_bytecode(
+      pl.code + pl.code_start[atom], pl.code_len[atom],
+      [&](int c) { return ev[c]; },
+      [&](int a, int c) { return key.cap(a, c, p); });
 }
 
 __device__ void store_row(const StepPlan& pl, long long row, bool valid, long long ts,

@@ -13,9 +13,8 @@ plain step.  The kernel updates the state blobs IN PLACE (the JAX step
 donated them), so callers must not keep the old blobs expecting the old
 values.
 
-The kernel builds from the repository's source at first use: `nvcc` into a
-shared library with a plain C interface, named by a hash of the source and
-flags, under `kernels/_build/`, loaded with `ctypes`.
+The kernel builds from the repository's source at first use
+(`kernels/_nvcc.py`).
 
 `launches` counts kernel launches and `plain_calls` calls of the plain
 version; `reset_counts()` sets both to 0.
@@ -23,17 +22,13 @@ version; `reset_counts()` sets both to 0.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from ..core import event as ev
 from ..core.window import NO_WAKEUP, Rows
+from . import _nvcc
 from .filter_bytecode import compile_filter, type_code
 
 launches = 0
@@ -50,51 +45,14 @@ def reset_counts() -> None:
 # build
 # ---------------------------------------------------------------------------
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "pattern_step.cu")
-BUILD_DIR = os.path.join(_PKG, "kernels", "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or \
-        "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
 def library_path() -> str:
-    with open(SOURCE, "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"pattern_step_{h.hexdigest()[:16]}.so")
+    return _nvcc.library_path("pattern_step")
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-            with open(so + ".ptxas.txt", "w") as fh:
-                fh.write(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+    lib = _nvcc.build("pattern_step")
+    if not getattr(lib, "_siddhi_checked", False):
         lib.siddhi_pattern_step.restype = ctypes.c_int
         lib.siddhi_pattern_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.siddhi_pattern_step_plan_size.restype = ctypes.c_int
@@ -104,15 +62,14 @@ def build() -> ctypes.CDLL:
             raise RuntimeError(
                 f"StepPlan layout mismatch: kernel {size} bytes, wrapper "
                 f"{ctypes.sizeof(StepPlan)} bytes")
-        _lib = lib
-        return lib
+        lib._siddhi_checked = True
+    return lib
 
 
 def ptxas_report() -> str:
     """What `nvcc -Xptxas -v` said about the built kernel (registers,
     local memory, spill bytes)."""
-    with open(library_path() + ".ptxas.txt") as fh:
-        return fh.read()
+    return _nvcc.ptxas_report("pattern_step")
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +293,8 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
 
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.siddhi_pattern_step(ctypes.byref(pl), stream)
-    if err != 0:
-        raise RuntimeError(f"pattern_step launch failed: cudaError {err}")
+    _nvcc.check_launch(lib.siddhi_pattern_step(ctypes.byref(pl), stream),
+                       "pattern_step")
     launches += 1
     del converted
     return (b32, b64, scalars), (header, out_ts, out_kind, out_valid,
