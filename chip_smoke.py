@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the five kernels of siddhi_tpu_torch/csrc/ with
+  2. build: compiles the eight kernels of siddhi_tpu_torch/csrc/ with
      nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -48,7 +48,26 @@ Phases (any failure exits nonzero):
   8. per-kernel times on the configurations' own traffic (CUDA-graph
      replays between CUDA events), the plain versions' times and the bound
      of the bytes the inputs need;
-  9. a profiled sweep of config 1: device busy time, idle share, top ops.
+  9. a profiled sweep of config 1: device busy time, idle share, top ops;
+ 10. the join kernels length_window (K5), join_lanes (K6) and join_probe
+     (K7), with filter_compact and time_window on the join sides, against
+     their plain versions stage by stage (exact): at J1's shape (bench.py's
+     windowed join, length(128) windows, 8192 rows a side), at J2's shape
+     (2^20-row windows filled over 8 sends of 131,072 rows, then a steady
+     send), on small joins (full / left / right outer, the grid path with
+     a side filter and a non-equi ON, time sides with TIMER steps, having,
+     batches longer than their windows), and a lane table with a forced
+     overflow that both versions must report, as numpy counts it;
+ 11. per-kernel times of K5-K7 at J1's and J2's shapes (CUDA-graph
+     replays) beside their plain versions and bounds;
+ 12. J1 (bench.py config_windowed_join: 1 warm and 16 timed sends) and J2
+     (the enrichment join, 2^20-row windows, 131,072 Orders and 131,072
+     Fills a send: 8 filling sends, 32 timed, one more whose Orders rows
+     are held in full to numpy) through SiddhiManager, every step's
+     [n_valid, n_current, n_dropped] held to a numpy recount, ev/s and
+     per-send p50 / p99, then a profiled sweep of J2;
+ 13. J3: the two join samples whole (16,384 events a side a send, 16
+     sends), with the recount and the outer-join sample's second query.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -615,6 +634,7 @@ def main() -> None:
                           for n, t, c in profile["top"]))
 
     records = single_stream_phases(torch, np, dev)
+    records += join_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -1512,6 +1532,767 @@ def single_stream_phases(torch, np, dev):
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
     return records
+
+
+# ---------------------------------------------------------------------------
+# stream-stream joins: kernels K5-K7 (length_window, join_lanes,
+# join_probe) and the join path through SiddhiManager (J1-J3)
+# ---------------------------------------------------------------------------
+
+J1_B, J1_SYM, J1_TIMED = 1 << 13, 64, 16
+J2_B, J2_IDS, J2_FILL, J2_TIMED = 1 << 17, 1 << 20, 8, 32
+J3_B, J3_KEYS, J3_SENDS = 1 << 14, 256, 16
+
+
+def join_modules():
+    from siddhi_tpu_torch.kernels import filter_compact, join_lanes, \
+        join_probe, length_window, time_window
+    return {"filter_compact": filter_compact, "time_window": time_window,
+            "length_window": length_window, "join_lanes": join_lanes,
+            "join_probe": join_probe}
+
+
+def stage(np, ev, cols, ts, kind=0):
+    """A send staged as the runtime stages it: padded to its bucket."""
+    n = len(cols[0])
+    cap = ev.bucket_size(max(n, 1))
+
+    def pad(a, d):
+        out = np.zeros(cap, d)
+        out[:n] = a
+        return out
+    return ev.StagedBatch(pad(ts, np.int64), pad(np.full(n, kind), np.int32),
+                          pad(np.ones(n, np.bool_), np.bool_),
+                          [pad(c, np.asarray(c).dtype) for c in cols], n)
+
+
+def ring_state_err(torch, a, b, what):
+    """Two rings (length or time) hold the same live rows and counters."""
+    err = float_err(torch, a.meta[:3], b.meta[:3], f"{what} meta")
+    pos = a.live()[3]
+    for x, y in ((a.ts, b.ts), (a.gslot, b.gslot), *zip(a.cols, b.cols)):
+        err = max(err, float_err(torch, x[pos], y[pos], f"{what} ring"))
+    return err
+
+
+def join_pair_step(torch, np, qr, is_left, staged, now, ka, kb, stats):
+    """One side step with every kernel on state `ka` and every plain
+    version on `kb` (equal before the step), each stage compared: K1's
+    arrivals, the window's rows and ring (K5 or K2), the other side's lane
+    table (K6), the probe's index rows and header (K7).  Returns the
+    largest float difference (0: equal) and the step's inputs for
+    timing."""
+    from siddhi_tpu_torch.core import join as jn
+    from siddhi_tpu_torch.core import event as ev
+    m = join_modules()
+    fc, lw, tw, jl, jp = (m[k] for k in ("filter_compact", "length_window",
+                                         "time_window", "join_lanes",
+                                         "join_probe"))
+    p = qr.planned
+    dev = p.device
+    side, other = (p.left, p.right) if is_left else (p.right, p.left)
+    spec = p.probe_specs[0 if is_left else 1]
+    i, o = (0, 1) if is_left else (1, 0)
+    batch = staged.to_device(side.schema, dev)
+    B = staged.ts.shape[0]
+    gslot = torch.zeros(B, dtype=torch.int32, device=dev)
+    cols = tuple(batch.cols)
+    if p.fastpath == "bucket":
+        probe = qr._join_key_probe(is_left, staged)
+        cols += (torch.from_numpy(probe).to(dev),)
+    ra, ca = fc.launch(side.fspec, batch.ts, batch.kind, batch.valid, gslot,
+                       cols)
+    arr, na = fc.plain(side.fspec, batch.ts, batch.kind, batch.valid, gslot,
+                       cols, now)
+    torch.cuda.synchronize()
+    err = max(rows_err(torch, ra, arr, "K1 (join side)", full=True),
+              float_err(torch, ca, na, "K1 count"))
+    if side.window.name == "length":
+        wa = lw.launch(ka[i], arr, na)
+        wb = lw.plain(kb[i], arr, na)
+        wake = None
+    else:
+        cur = staged.ts[staged.valid & (staged.kind == 0)]
+        f = ka[i].facts
+        eb = f.expire_bound(now)
+        kb[i].facts.expire_bound(now)
+        cap_out = eb + cur.shape[0]
+        a_sorted = cur.shape[0] < 2 or bool(np.all(cur[1:] >= cur[:-1]))
+        t = side.window.time_ms
+        wa, wake = tw.launch(ka[i], arr, na, now, t, B, cap_out, eb,
+                             f.sorted, a_sorted)
+        wb, wake_b = tw.plain(kb[i], arr, na, now, t, B, cap_out, eb)
+        ka[i].facts.after_step(cur, now, t)
+        kb[i].facts.after_step(cur, now, t)
+        torch.cuda.synchronize()
+        err = max(err, float_err(torch, wake, wake_b, "K2 wake (join)"))
+    torch.cuda.synchronize()
+    wname = "K5" if side.window.name == "length" else "K2"
+    err = max(err, rows_err(torch, wa, wb, f"{wname} rows"),
+              ring_state_err(torch, ka[i], kb[i], f"{wname} ring"))
+    stats["steps"] += 1
+    if spec is None:
+        return err, None
+    trig = wb
+    nbl = (p.lane_buckets[o]) if p.fastpath == "bucket" else 0
+    R = jn._reference_rows(side.window, B)
+    Q = p.lane_k if p.fastpath == "bucket" else jn._retention_rows(
+        other.window)
+    N = R * Q + (R if spec.emit_unmatched else 0)
+    cap = min(N, p.compact_rows if p.compact_rows is not None
+              else max(2 * R, 1024))
+    la = lb = None
+    if p.fastpath == "bucket":
+        oa = torch.zeros(1, dtype=torch.int64, device=dev)
+        ob = torch.zeros(1, dtype=torch.int64, device=dev)
+        la = jl.launch(ka[o].cols[-1], ka[o].meta, nbl, p.lane_k, oa)
+        lb = jl.plain(kb[o].cols[-1], kb[o].meta, nbl, p.lane_k, ob)
+        torch.cuda.synchronize()
+        err = max(err, float_err(torch, la, lb, "K6 lanes"),
+                  float_err(torch, oa, ob, "K6 overflow"))
+        if int(oa):
+            fail(f"K6: {int(oa)} rows past the lane width on the main path")
+        stats["lanes"] += 1
+    if trig.ts.shape[0] == 0:
+        return err, None
+    ha = torch.zeros(3, dtype=torch.int64, device=dev)
+    hb = torch.zeros(3, dtype=torch.int64, device=dev)
+    outa = jp.launch(spec, trig, ka[o].cols, ka[o].meta, la, nbl, cap, ha)
+    outb = jp.plain(spec, trig, kb[o].cols, kb[o].meta, lb, nbl, cap, hb)
+    torch.cuda.synchronize()
+    for what, x, y in zip(("li", "ri", "null", "valid"), outa, outb):
+        err = max(err, float_err(torch, x, y, f"K7 {what}"))
+    err = max(err, float_err(torch, ha, hb, "K7 header"))
+    stats["probes"] += 1
+    stats["rows"] += int(ha[0])
+    # the other ring as this probe saw it: a later step of the other side
+    # moves it in place, and a probe timed against the moved ring would
+    # find other rows than the lanes name
+    return err, {"spec": spec, "trig": trig, "o": kb[o].clone(),
+                 "lanes": lb, "hdr": hb.clone(),
+                 "nbl": nbl, "cap": cap, "arr": arr, "na": na, "ring": kb[i],
+                 "side": side}
+
+
+def shadow_run(torch, np, rt, qname, sends, stats, timers=()):
+    """A join's sends through join_pair_step from two equal empty states;
+    `timers` = {send index: TIMER time} runs a TIMER step on every time
+    side before that send.  Returns (largest difference, the last probe's
+    inputs per side)."""
+    from siddhi_tpu_torch.core import event as ev
+    qr = rt.query_runtimes[qname]
+    p = qr.planned
+    ka = p.init_state()
+    kb = tuple(r.clone() for r in ka)
+    err, last = 0.0, {}
+    for n, (stream, cols, ts) in enumerate(sends):
+        if n in timers:
+            for is_left, side in ((True, p.left), (False, p.right)):
+                if side.window.needs_timer:
+                    tst = stage(np, ev, [np.zeros(1, d) for d in
+                                         (ev.np_dtype(t) for t in
+                                          side.schema.types)],
+                                np.full(1, timers[n]), kind=ev.TIMER)
+                    e, _ = join_pair_step(torch, np, qr, is_left, tst,
+                                          timers[n], ka, kb, stats)
+                    err = max(err, e)
+        is_left = stream == p.left.stream_id
+        staged = stage(np, ev, cols, ts)
+        e, info = join_pair_step(torch, np, qr, is_left, staged,
+                                 int(np.max(ts)), ka, kb, stats)
+        err = max(err, e)
+        if info is not None:
+            last[is_left] = info
+    return err, last
+
+
+def j1_sends(np, rng, n):
+    """bench.py config_windowed_join: 8192 events a side a send, 64
+    symbols, ts = 1000 + i on both sides."""
+    out = []
+    for i in range(n):
+        ts = np.full(J1_B, 1000 + i, np.int64)
+        out.append(("L", [rng.integers(0, J1_SYM, J1_B).astype(np.int64),
+                          rng.random(J1_B, np.float32)], ts))
+        out.append(("R", [rng.integers(0, J1_SYM, J1_B).astype(np.int64),
+                          rng.integers(1, 9, J1_B).astype(np.int32)], ts))
+    return out
+
+
+def j2_sends(np, rng, n, first=0):
+    """The enrichment join: 131,072 Orders then 131,072 Fills a send, ids
+    uniform over 2^20, ts = 1000 + 10 i on both sides."""
+    out = []
+    for i in range(first, first + n):
+        ts = np.full(J2_B, 1000 + 10 * i, np.int64)
+        out.append(("Orders", [rng.integers(0, J2_IDS, J2_B).astype(np.int64),
+                               rng.random(J2_B, dtype=np.float32)], ts))
+        out.append(("Fills", [rng.integers(0, J2_IDS, J2_B).astype(np.int64),
+                              rng.integers(1, 9, J2_B).astype(np.int32)], ts))
+    return out
+
+
+def compare_join_kernels(torch, np, dev):
+    """K5, K6 and K7 (with K1 and K2 on the join sides) against their plain
+    versions, stage by stage: J1's and J2's shapes, small joins (outer,
+    grid, time sides with TIMER steps, having, a batch longer than its
+    window), and a forced lane overflow.  Returns the largest difference,
+    the probe inputs of J1 and J2 for timing, and counts."""
+    from siddhi_tpu_torch import SiddhiManager
+    m = join_modules()
+    stats = {"steps": 0, "lanes": 0, "probes": 0, "rows": 0}
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(J1_QL)
+    err, j1_last = shadow_run(torch, np, rt, "q",
+                              j1_sends(np, np.random.default_rng(41), 2),
+                              stats)
+    print(f"compare: J1's shape (length(128) sides, {J1_B} rows a side, "
+          f"the bucket path, lane width "
+          f"{rt.query_runtimes['q'].planned.lane_k}): kernels == plain")
+    # a forced lane overflow on J1's ring: both versions report it
+    o = j1_last[True]["o"]
+    js = o.cols[-1]
+    oa = torch.zeros(1, dtype=torch.int64, device=dev)
+    ob = torch.zeros(1, dtype=torch.int64, device=dev)
+    la = m["join_lanes"].launch(js, o.meta, 256, 1, oa)
+    lb = m["join_lanes"].plain(js, o.meta, 256, 1, ob)
+    torch.cuda.synchronize()
+    err = max(err, float_err(torch, la, lb, "K6 forced overflow lanes"),
+              float_err(torch, oa, ob, "K6 forced overflow count"))
+    live = int(o.meta[1] - o.meta[0])
+    want = int(np.maximum(np.bincount(
+        (js[o.live()[3]].cpu().numpy() % 256), minlength=256) - 1, 0).sum())
+    if int(oa) <= 0 or int(oa) != want:
+        fail(f"K6 forced overflow: reported {int(oa)}, numpy {want}")
+    print(f"compare: join_lanes with lane width 1 on J1's ring ({live} "
+          f"rows): both versions report {int(oa)} rows past the lane "
+          f"(numpy recount {want})")
+    # small joins: outer / grid / time sides with TIMER steps / having /
+    # a batch longer than its window
+    rng = np.random.default_rng(42)
+    for what, ql, timers in SMALL_JOINS:
+        srt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+        sends = []
+        for i in range(6):
+            B = [16, 300, 2048][i % 3]
+            ts = 1000 + 700 * i + np.sort(rng.integers(0, 50, B))
+            sends.append(("L", [rng.integers(0, 40, B).astype(np.int64),
+                                rng.random(B, np.float32),
+                                rng.random(B) < 0.5], ts))
+            sends.append(("R", [rng.integers(0, 40, B).astype(np.int64),
+                                rng.integers(1, 9, B).astype(np.int32)],
+                          ts + 3))
+        e, _ = shadow_run(torch, np, srt, "q", sends, stats, timers)
+        err = max(err, e)
+        p = srt.query_runtimes["q"].planned
+        print(f"compare: small join ({what}; path {p.fastpath or 'grid'}): "
+              f"kernels == plain")
+    # J2's shape: the windows fill over 8 sends, the 9th is steady
+    rt2 = mgr.create_siddhi_app_runtime(J2_QL)
+    e, j2_last = shadow_run(torch, np, rt2, "enrich",
+                            j2_sends(np, np.random.default_rng(43),
+                                     J2_FILL + 1), stats)
+    err = max(err, e)
+    p2 = rt2.query_runtimes["enrich"].planned
+    print(f"compare: J2's shape (length({p2.ring_caps[0]}) sides, {J2_B} "
+          f"rows a side, {p2.lane_buckets[0]} lane buckets, lane width "
+          f"{p2.lane_k}): kernels == plain")
+    print(f"compare: K5-K7 == plain over {stats['steps']} window steps, "
+          f"{stats['lanes']} lane tables, {stats['probes']} probes "
+          f"({stats['rows']} joined rows), max_abs_err {err}")
+    mgr.shutdown()
+    return err, j1_last, j2_last
+
+
+class JoinRecount:
+    """numpy's view of two length windows and of what each step must emit:
+    per trigger row (EXPIRED k before CURRENT k, as the window emits them)
+    the number of equal-id rows on the other side, the pairs, the
+    unmatched rows of an outer side, the cut to the cap and the CURRENT
+    rows inside it."""
+
+    def __init__(self, np, C, outer_left, outer_right, explicit_cap=None):
+        self.np, self.C = np, C
+        self.win = {True: np.zeros(0, np.int64), False: np.zeros(0, np.int64)}
+        self.aux = {True: np.zeros(0), False: np.zeros(0)}
+        self.outer = {True: outer_left, False: outer_right}
+        self.cap = explicit_cap
+
+    def step(self, is_left, ids, aux, B):
+        np = self.np
+        w, a = self.win[is_left], self.aux[is_left]
+        C = self.C
+        count0, n = w.shape[0], ids.shape[0]
+        k0 = max(0, C - count0)
+        virt = np.concatenate([w, ids])
+        vaux = np.concatenate([a, aux])
+        k = np.arange(n)
+        ek = k[k >= k0]
+        trig = np.empty(n + ek.shape[0], np.int64)
+        kind = np.zeros(trig.shape[0], np.int32)
+        taux = np.empty(trig.shape[0], vaux.dtype)
+        cpos = np.where(k < k0, k, k0 + 2 * (k - k0) + 1)
+        epos = k0 + 2 * (ek - k0)
+        trig[cpos], taux[cpos] = ids, aux
+        trig[epos], taux[epos] = virt[count0 + ek - C], vaux[count0 + ek - C]
+        kind[epos] = 1
+        other = self.win[not is_left]
+        self.win[is_left], self.aux[is_left] = virt[-C:], vaux[-C:]
+        srt = np.sort(other)
+        cnt = (np.searchsorted(srt, trig, "right") -
+               np.searchsorted(srt, trig, "left"))
+        pairs = int(cnt.sum())
+        un = (cnt == 0) if self.outer[is_left] else np.zeros_like(cnt, bool)
+        total = pairs + int(un.sum())
+        R = 2 * B
+        cap = self.cap if self.cap is not None else max(2 * R, 1024)
+        start = np.cumsum(cnt) - cnt
+        kept = np.clip(cap - start, 0, cnt)
+        rem = max(0, cap - pairs)
+        un_cur = np.nonzero(un)[0][:rem]
+        n_cur = int(kept[kind == 0].sum()) + int((kind[un_cur] == 0).sum())
+        nv = min(total, cap)
+        return {"n_valid": nv, "n_current": n_cur, "n_dropped": total - nv,
+                "pairs": pairs, "unmatched": int(un.sum()), "trig": trig,
+                "taux": taux, "cnt": cnt, "kind": kind}
+
+
+def drive_join(torch, np, rt, qname, sends, warm, timed, mods, recount,
+               checks=None, keep=()):
+    """Sends through the runtime: `warm` untimed, `timed` timed, the rest
+    untimed, each send one batch per side.  Afterwards (outside the
+    timing) every step's header counts are held to the numpy recount, and
+    `checks(i, step, payload)` runs with the payloads of the steps in
+    `keep`.  Counts of every kernel and plain version from just before the
+    first send to just after the last."""
+    got = []
+    rt.add_batch_callback(qname, lambda ts, b: got.append(b))
+    for mo in mods.values():
+        mo.reset_counts()
+    p = rt.query_runtimes[qname].planned
+    lat, wall, t0 = [], 0.0, None
+    heads, kept = [], {}
+    for i, (stream, cols, ts) in enumerate(sends):
+        if i == 2 * warm:
+            rt.flush()
+            t0 = time.perf_counter()
+        if i == 2 * (warm + timed) and timed:
+            rt.flush()
+            wall = time.perf_counter() - t0
+        n0 = len(got)
+        tb = time.perf_counter()
+        rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+        if 2 * warm <= i < 2 * (warm + timed):
+            if stream == p.left.stream_id:
+                lat.append(time.perf_counter() - tb)
+            else:
+                lat[-1] += time.perf_counter() - tb
+        b = got[n0] if len(got) > n0 else None
+        heads.append((b["n_valid"], b["n_current"], b["n_dropped"])
+                     if b is not None else (0, 0, 0))
+        if i in keep:
+            kept[i] = b
+        got.clear()
+    rt.flush()
+    if timed and wall == 0.0:       # the timed sends were the last ones
+        wall = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    for i, (stream, cols, ts) in enumerate(sends):
+        want = recount.step(stream == p.left.stream_id,
+                            cols[0].astype(np.int64), cols[1], len(cols[0]))
+        if heads[i] != (want["n_valid"], want["n_current"],
+                        want["n_dropped"]):
+            fail(f"{qname} send {i // 2} ({stream}): header {heads[i]}, "
+                 f"numpy recount ({want['n_valid']}, {want['n_current']}, "
+                 f"{want['n_dropped']})")
+        if checks is not None:
+            checks(i, want, kept.get(i))
+    return lat, wall, launches, plain
+
+
+def run_j1(torch, np, dev, mods):
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(J1_QL)
+    rt.start()
+    rec = JoinRecount(np, 128, False, False, explicit_cap=65536)
+    lat, wall, launches, plain = drive_join(
+        torch, np, rt, "q", j1_sends(np, np.random.default_rng(3),
+                                     1 + J1_TIMED), 1, J1_TIMED, mods, rec)
+    p = rt.query_runtimes["q"].planned
+    check_launched("J1", launches, plain, ("filter_compact", "length_window",
+                                          "join_lanes", "join_probe"))
+    print(f"J1 plan: path {p.fastpath}, lane buckets {p.lane_buckets}, lane "
+          f"width {p.lane_k}; every step's [n_valid, n_current, n_dropped] "
+          f"equals the numpy recount")
+    h2d = 2 * J1_B * (8 + 4 + 1 + 8 + 4 + 4) + 2 * 48
+    lat_line(np, "J1 (bench.py windowed join)", lat, wall,
+             2 * J1_B * J1_TIMED, h2d)
+    mgr.shutdown()
+    return launches
+
+
+def run_j2(torch, np, dev, mods):
+    """The enrichment join at full size: 8 sends fill both 2^20-row
+    windows, 32 timed sends, one more whose Orders rows are fetched and
+    held in full to numpy, then a profiled sweep."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager()
+    rt = mgr.create_siddhi_app_runtime(J2_QL)
+    rt.start()
+    rec = JoinRecount(np, J2_IDS, True, False)
+    rng = np.random.default_rng(5)
+    n_sends = J2_FILL + J2_TIMED + 1
+    sends = j2_sends(np, rng, n_sends)
+    full = {}
+
+    def checks(i, want, b):
+        if b is None:                      # the last Orders step is kept
+            return
+        v = b["valid"]
+        cols = {k: np.asarray(c)[v] for k, c in b["cols"].items()}
+        full["got"] = cols
+        full["want"] = want
+        full["fills"] = (rec.win[False].copy(), rec.aux[False].copy())
+    qr = rt.query_runtimes["enrich"]
+    track, spent = qr._jk.track, [0.0, 0]
+
+    def timed_track(*a):
+        t = time.perf_counter()
+        out = track(*a)
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return out
+    qr._jk.track = timed_track
+    lat, wall, launches, plain = drive_join(
+        torch, np, rt, "enrich", sends, J2_FILL, J2_TIMED, mods, rec,
+        checks, keep={2 * (n_sends - 1)})
+    p = qr.planned
+    check_launched("J2", launches, plain, ("filter_compact", "length_window",
+                                          "join_lanes", "join_probe"))
+    # the full check: the multiset of (id, price, qty) of the last Orders
+    # step against numpy (pairs: the trigger row's price with each equal-id
+    # Fills row's qty; unmatched rows: qty null)
+    want = full["want"]
+    fids, fqty = full["fills"]
+    order = np.argsort(fids, kind="stable")
+    fs, fq = fids[order], fqty[order]
+    lo = np.searchsorted(fs, want["trig"], "left")
+    cnt = want["cnt"]
+    rep = np.repeat(np.arange(want["trig"].shape[0]), cnt)
+    within = np.arange(rep.shape[0]) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    w_id = np.concatenate([want["trig"][rep], want["trig"][cnt == 0]])
+    w_price = np.concatenate([want["taux"][rep], want["taux"][cnt == 0]])
+    w_qty = np.concatenate([fq[lo[rep] + within].astype(np.int32),
+                            np.full(int((cnt == 0).sum()),
+                                    np.iinfo(np.int32).min, np.int32)])
+    got = full["got"]
+
+    def key(i, pr, q):
+        return np.sort(np.rec.fromarrays(
+            [i.astype(np.int64), pr.astype(np.float32).view(np.int32),
+             q.astype(np.int32)]), order=["f0", "f1", "f2"])
+    if not np.array_equal(key(w_id, w_price, w_qty),
+                          key(got["id"], got["price"], got["qty"])):
+        fail("J2: the last Orders step's rows are not numpy's (id, price, "
+             "qty) multiset")
+    print(f"J2 check: every step's [n_valid, n_current, n_dropped] equals "
+          f"the numpy recount; the last Orders step's {got['id'].shape[0]} "
+          f"rows ({want['pairs']} pairs, {want['unmatched']} with a null "
+          f"qty) equal numpy's (id, price, qty) multiset; path "
+          f"{p.fastpath}, lane buckets {p.lane_buckets[0]}, lane width the "
+          f"tracker chose {p.lane_k}, emission cap "
+          f"{p.compact_rows or max(4 * J2_B, 1024)} (implicit: max(2R, "
+          f"1024), R = 2B)")
+    h2d = 2 * J2_B * (8 + 4 + 1 + 8 + 4 + 4) + 2 * 48
+    lat_line(np, "J2 (enrichment join, 2^20-row windows)", lat, wall,
+             2 * J2_B * J2_TIMED, h2d)
+    per_step = spent[0] * 1e3 / max(spent[1], 1)
+    p50 = float(np.percentile(np.array(lat) * 1e3, 50))
+    print(f"J2 host: JoinKeyTracker.track (numpy and Python, copied from "
+          f"the reference) {per_step:.3f} ms a step over all {spent[1]} "
+          f"steps, {2 * per_step:.3f} ms a send against the per-send p50 "
+          f"{p50:.3f} ms")
+    extra = j2_sends(np, rng, 8, first=n_sends)
+
+    def send(b):
+        for stream, cols, ts in extra[2 * b:2 * b + 2]:
+            rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+    qr.batch_callbacks.clear()
+    rt.add_batch_callback("enrich", lambda ts, b: None)
+    profile = device_profile(torch, rt, 8, send)
+    if profile["device_ms"] is None:
+        print(f"profile (J2, 8 more sends): wall {profile['wall_ms']:.3f} "
+              f"ms, device time not measured")
+    else:
+        print(f"profile (J2, 8 more sends): wall {profile['wall_ms']:.3f} "
+              f"ms, device busy {profile['device_ms']:.3f} ms (idle share "
+              f"{profile['idle_share']:.4f}); top device ops: "
+              + "; ".join(f"{n} {t:.3f} ms over {c} calls"
+                          for n, t, c in profile["top"]))
+    mgr.shutdown()
+    return launches
+
+
+def run_j3(torch, np, dev, mods):
+    """The two join samples, whole: 16,384 events a side a send, keys
+    uniform over 0..255, 16 sends; header counts held to the numpy
+    recount, and the outer-join sample's second query (coalesce over the
+    join's output, null rows included) counted against numpy."""
+    from siddhi_tpu_torch import SiddhiManager
+    total = {k: 0 for k in mods}
+    rng = np.random.default_rng(6)
+    for name, qname, C, outer, mk in (
+            ("join_streams.siddhi", "joinQuery", 10, False,
+             lambda B: (rng.random(B) * 40).astype(np.float32)),
+            ("outer_join_enrichment.siddhi", "enrich", 32, True,
+             lambda B: (rng.random(B) * 100).astype(np.float32))):
+        with open(f"samples/apps/{name}") as fh:
+            ql = fh.read()
+        mgr = SiddhiManager()
+        rt = mgr.create_siddhi_app_runtime(ql)
+        p = rt.query_runtimes[qname].planned
+        ls, rs = p.left.stream_id, p.right.stream_id
+        sends = []
+        for i in range(J3_SENDS):
+            ts = np.full(J3_B, 1000 + i, np.int64)
+            sends.append((ls, [rng.integers(0, J3_KEYS, J3_B).astype(
+                np.int32), mk(J3_B)], ts))
+            rb = rng.random(J3_B) < 0.5 if rs == "RegulatorStream" else \
+                rng.integers(1, 9, J3_B).astype(np.int32)
+            sends.append((rs, [rng.integers(0, J3_KEYS, J3_B).astype(
+                np.int32), rb], ts))
+        big = [0]
+        want_big = [0]
+        if qname == "enrich":
+            rt.add_batch_callback("bigFills", lambda ts, b: big.__setitem__(
+                0, big[0] + b["n_current"]))
+        rec = JoinRecount(np, C, outer, False)
+
+        def checks(i, want, b, _rec=rec):
+            if qname != "enrich":
+                return
+            # bigFills counts joined CURRENT rows whose qty > 5
+            is_left = i % 2 == 0
+            cur = want["kind"] == 0
+            if is_left:
+                fids, fq = _rec.win[False], _rec.aux[False]
+                fsel = np.sort(fids[fq > 5])
+                c5 = (np.searchsorted(fsel, want["trig"], "right") -
+                      np.searchsorted(fsel, want["trig"], "left"))
+                want_big[0] += int(c5[cur].sum())
+            else:
+                want_big[0] += int(want["cnt"][cur & (want["taux"] > 5)]
+                                   .sum())
+        rt.start()
+        _, _, launches, plain = drive_join(torch, np, rt, qname, sends, 0, 0,
+                                           mods, rec, checks)
+        check_launched(f"J3 {name}", launches, plain,
+                       ("filter_compact", "length_window", "join_lanes",
+                        "join_probe"))
+        if qname == "enrich" and big[0] != want_big[0]:
+            fail(f"J3 {name}: bigFills delivered {big[0]} rows, numpy "
+                 f"{want_big[0]}")
+        print(f"J3 {name}: {J3_SENDS} sends of {J3_B} events a side; every "
+              f"step's header equals the numpy recount"
+              + (f"; bigFills (coalesce(qty, 0) > 5 over the join's "
+                 f"output) delivered {big[0]} rows, numpy {want_big[0]}"
+                 if qname == "enrich" else ""))
+        for k, v in launches.items():
+            total[k] += v
+        mgr.shutdown()
+    return total
+
+
+def time_join_kernels(torch, np, dev, last, label):
+    """K5, K6 and K7 per launch at one configuration's shapes (the last
+    probe inputs of the comparison run), CUDA-graph replays between CUDA
+    events, beside their plain versions and the bound of the bytes the
+    inputs need."""
+    m = join_modules()
+    lw, jl, jp = m["length_window"], m["join_lanes"], m["join_probe"]
+    info = last[True]
+    res = {}
+    ring, arr, na = info["ring"], info["arr"], info["na"]
+    meta0 = ring.meta.clone()
+
+    def restore():
+        ring.meta.copy_(meta0)
+    # K5: from the restored counters (the arrivals overwrite the rows they
+    # evict, so each replay does the same work)
+    C = ring.C
+    n = int(na)
+    B = arr.ts.shape[0]
+    count0 = int(meta0[1] - meta0[0])
+    e = max(0, n - max(0, C - count0))
+    cb = col_bytes(arr.cols)
+    res["length_window"] = {
+        "ms": graph_ms(torch, lambda: lw.launch(ring, arr, na), 20, restore),
+        "plain_ms": event_timer(torch, lambda: lw.plain(ring, arr, na), 3,
+                                restore),
+        **bound(n * (12 + cb) + (n + e) * (ROW_OUT + cb) + e * (12 + cb) +
+                min(n, C) * (12 + cb) + (2 * B - n - e) + 64)}
+    restore()
+    o, spec = info["o"], info["spec"]
+    nbl, cap, trig = info["nbl"], info["cap"], info["trig"]
+    ov = torch.zeros(1, dtype=torch.int64, device=dev)
+    live = int(o.meta[1] - o.meta[0])
+    k = info["lanes"].shape[1]
+    res["join_lanes"] = {
+        "ms": graph_ms(torch, lambda: jl.launch(o.cols[-1], o.meta, nbl, k,
+                                                ov), 20),
+        "plain_ms": event_timer(torch, lambda: jl.plain(o.cols[-1], o.meta,
+                                                        nbl, k, ov), 3),
+        **bound(4 * live + 4 * nbl * k + 8 + 32)}
+    lanes = info["lanes"]
+    hd = torch.zeros(3, dtype=torch.int64, device=dev)
+    # what the probe must read: the trigger rows (kind, valid, the columns
+    # the ON reads, the key slot); of each lane its trigger rows touch, the
+    # occupied entries and the empty one that ends the walk, in 32-byte
+    # sectors; the other ring's columns the ON reads, once for each row in
+    # those lanes.  What it must write: n_valid index rows (li, ri, null,
+    # valid), the valid flag of the rows past them, the header.
+    data = trig.valid & ((trig.kind == 0) | (trig.kind == 1))
+    R = int(data.sum())
+    buckets = torch.unique(torch.remainder(
+        trig.cols[-1][data].to(torch.int64), nbl))
+    touched = int(buckets.shape[0])
+    occ = (lanes[buckets] < o.C).sum(dim=1)
+    lane_bytes = int(torch.minimum(
+        torch.div(torch.minimum(occ + 1, torch.full_like(occ, k)) * 4 + 31,
+                  32, rounding_mode="floor") * 32,
+        torch.full_like(occ, k * 4)).sum())
+    from siddhi_tpu_torch.kernels.filter_bytecode import LOAD_EV, LOAD_OTHER
+    code = spec.on_code
+    ev_cols = {code[j + 1] for j in range(len(code) - 1)
+               if code[j] == LOAD_EV}
+    ot_cols = {code[j + 1] for j in range(len(code) - 1)
+               if code[j] == LOAD_OTHER}
+    t_bytes = sum(trig.cols[c].element_size() for c in ev_cols)
+    o_bytes = sum(o.cols[c].element_size() for c in ot_cols)
+    cand = int((lanes[torch.remainder(trig.cols[-1][data].to(torch.int64),
+                                      nbl)] < o.C).sum())
+    jp.launch(spec, trig, o.cols, o.meta, lanes, nbl, cap, hd)
+    if hd.tolist() != info["hdr"].tolist():
+        fail(f"join_probe ({label}): the timed inputs give header "
+             f"{hd.tolist()}, the compared step {info['hdr'].tolist()}")
+    n_valid = int(hd[0])
+    res["join_probe"] = {
+        "ms": graph_ms(torch, lambda: jp.launch(spec, trig, o.cols, o.meta,
+                                                lanes, nbl, cap, hd), 20),
+        "plain_ms": event_timer(torch, lambda: jp.plain(
+            spec, trig, o.cols, o.meta, lanes, nbl, cap, hd), 3),
+        **bound(R * (4 + 1 + 4 + t_bytes) + lane_bytes +
+                int(occ.sum()) * o_bytes + n_valid * 10 + (cap - n_valid) +
+                24, cand * len(code))}
+    for kname, t in res.items():
+        print(f"timing {kname} ({label}): kernel {t['ms']:.4f} ms/launch, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+              f"by {t['bound_by']} ({t['bytes']} bytes, {t['ops']} ops)")
+    print(f"timing join_probe ({label}): {R} trigger rows, {cand} "
+          f"candidates, {touched} lane buckets touched ({lane_bytes} lane "
+          f"bytes, {int(occ.sum())} ring rows in them), n_valid {n_valid} "
+          f"of cap {cap}")
+    return res
+
+
+def join_phases(torch, np, dev):
+    """Phases 10-13: K5-K7 against their plain versions, J1-J3 through
+    SiddhiManager with their recounts, per-kernel times at J1's and J2's
+    shapes.  Returns the three kernel records."""
+    mods = join_modules()
+    err, j1_last, j2_last = compare_join_kernels(torch, np, dev)
+    t1 = time_join_kernels(torch, np, dev, j1_last, "J1's shape")
+    t2 = time_join_kernels(torch, np, dev, j2_last, "J2's shape")
+    del j1_last, j2_last
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k in mods}
+    for run in (run_j1, run_j2, run_j3):
+        for k, v in run(torch, np, dev, mods).items():
+            launches[k] += v
+    torch.cuda.empty_cache()
+    reasons = {
+        "length_window": "no single torch call runs a sliding window's "
+                         "eviction and append",
+        "join_lanes": "torch.sort gives the bucket order but not the "
+                      "[buckets, width] table with its overflow count",
+        "join_probe": "no single torch call probes candidate lanes with a "
+                      "bytecode condition and compacts pairs and unmatched "
+                      "rows"}
+    records = []
+    for k, src, rep in (
+            ("length_window", "length_window.cu",
+             "siddhi_tpu/core/window.py:249"),
+            ("join_lanes", "join_lanes.cu", "siddhi_tpu/core/join.py:775"),
+            ("join_probe", "join_probe.cu", "siddhi_tpu/core/join.py:445")):
+        print(f"kernel {k}: J1's shape {t1[k]['ms']:.4f} ms (bound "
+              f"{t1[k]['bound_ms']:.5f}), J2's shape {t2[k]['ms']:.4f} ms "
+              f"(bound {t2[k]['bound_ms']:.5f}), plain {t2[k]['plain_ms']:.4f}"
+              f" ms at J2's shape, launches on the main path {launches[k]}; "
+              f"library_ms null: {reasons[k]}")
+        records.append({
+            "name": k, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches[k], "max_abs_err": err, "ms": t2[k]["ms"],
+            "plain_ms": t2[k]["plain_ms"], "bound_ms": t2[k]["bound_ms"],
+            "bound_by": t2[k]["bound_by"], "library_ms": None})
+    return records
+
+
+# bench.py:261 config_windowed_join (siddhi_tpu/analysis/corpus.py
+# WINDOWED_JOIN_QL)
+J1_QL = """
+@app:playback
+define stream L (symbol long, price float);
+define stream R (symbol long, qty int);
+@emit(rows='65536')
+@info(name='q')
+from L#window.length(128) join R#window.length(128)
+  on L.symbol == R.symbol
+select L.symbol as s, L.price as p, R.qty as v
+insert into Out;
+"""
+
+# samples/apps/outer_join_enrichment.siddhi's first query with 2^20-row
+# windows and long ids
+J2_QL = """
+@app:playback
+define stream Orders (id long, price float);
+define stream Fills (id long, qty int);
+@info(name='enrich')
+from Orders#window.length(1048576) left outer join Fills#window.length(1048576)
+  on Orders.id == Fills.id
+select Orders.id as id, price, qty
+insert into Enriched;
+"""
+
+# small joins for the kernel comparison: (what, query, {send: TIMER time})
+_SMALL = """
+@app:playback
+define stream L (symbol long, price float, flag bool);
+define stream R (symbol long, qty int);
+@info(name='q')
+from L{fl}#window.{wl} {jt} R#window.{wr}
+  on {on}
+select L.symbol as s, price, qty {having} insert into Out;
+"""
+SMALL_JOINS = [
+    ("full outer, time(1 sec) against length(64), TIMER steps, having",
+     _SMALL.format(fl="", wl="time(1 sec)", jt="full outer join",
+                   wr="length(64)", on="L.symbol == R.symbol",
+                   having="having coalesce(qty, 0) > 2 or price > 0.5"),
+     {4: 2390, 10: 4490}),
+    ("left outer, side filter (grid), batches longer than the windows",
+     _SMALL.format(fl="[price > 0.2 and not flag]", wl="length(100)",
+                   jt="left outer join", wr="length(50)",
+                   on="L.symbol == R.symbol and price < 0.9", having=""),
+     {}),
+    ("right outer, non-equi ON (grid), time sides",
+     _SMALL.format(fl="", wl="time(800)", jt="right outer join",
+                   wr="time(1 sec)", on="L.symbol < R.symbol - 30",
+                   having=""), {8: 3790}),
+]
 
 
 # bench.py:241 config_time_groupby_having with the window sized to hold

@@ -252,11 +252,16 @@ class StagedBatch:
     """Host (numpy) staging of a batch, used for partition-key slot
     computation before the single host->device transfer."""
 
-    __slots__ = ("ts", "kind", "valid", "cols", "n")
+    __slots__ = ("ts", "kind", "valid", "cols", "n", "jprobe")
 
     def __init__(self, ts, kind, valid, cols, n):
         self.ts, self.kind, self.valid, self.cols, self.n = \
             ts, kind, valid, cols, n
+        # equi-join key slots of this batch, per (join runtime, side): a
+        # junction hands one staged batch to every subscriber, and a
+        # self-join sees it on both sides (reference
+        # siddhi_tpu/core/event.py:353-360)
+        self.jprobe = None
 
     def to_device(self, schema: Schema, device: torch.device) -> EventBatch:
         cols = tuple(torch.as_tensor(c).to(device=device, dtype=d)

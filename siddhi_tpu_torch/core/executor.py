@@ -13,8 +13,9 @@ Semantics kept from the reference package, operator by operator:
     operand makes the comparison false;
   * constants are never null.
 
-Function calls (built-ins, the extension SPI, script functions) and `in
-Table` are not ported yet and raise `CompileError`.
+Of the function calls only `coalesce` is ported (reference:
+`siddhi_tpu/core/executor.py:377`); the other built-ins, the extension
+SPI, script functions and `in Table` raise `CompileError`.
 """
 from __future__ import annotations
 
@@ -284,6 +285,10 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
         raise CompileError(
             "'in Table' conditions are not yet ported (ROADMAP A10)")
 
+    if isinstance(expr, AttributeFunction) and not expr.namespace and \
+            expr.name == "coalesce" and expr.parameters:
+        return _compile_coalesce(expr, scope)
+
     if isinstance(expr, AttributeFunction):
         full = f"{expr.namespace}:{expr.name}" if expr.namespace \
             else expr.name
@@ -291,3 +296,40 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
             f"function {full!r} is not yet ported (ROADMAP A4)")
 
     raise CompileError(f"cannot compile expression node {type(expr).__name__}")
+
+
+def _null_cast(x, from_t: str, to_t: str):
+    """astype that maps from_t's null onto to_t's (an int null cast to
+    float becomes NaN, not -2.1e9)."""
+    d = ev.dtype_of(to_t)
+    out = x.to(d)
+    if from_t == to_t or from_t not in NUMERIC_TYPES or \
+            to_t not in NUMERIC_TYPES:
+        return out
+    return torch.where(ev.null_mask(x, from_t),
+                       torch.tensor(ev.null_value(to_t), dtype=d,
+                                    device=x.device), out)
+
+
+def _compile_coalesce(expr: AttributeFunction, scope: Scope) -> CompiledExpr:
+    """coalesce(a, b, ...): the first argument that is not null
+    (reference: siddhi_tpu/core/executor.py:377)."""
+    compiled = [compile_expression(a, scope) for a in expr.parameters]
+    t = compiled[0].type
+    if t in ("STRING", "OBJECT"):
+        def sfn(env, _c=compiled):
+            out = _c[0].fn(env)
+            for c in _c[1:]:
+                out = torch.where(out == ev.NULL_ID, c.fn(env), out)
+            return out
+        return CompiledExpr(sfn, t)
+    for c in compiled[1:]:
+        t = promote(t, c.type)
+
+    def fn(env, _c=compiled, _t=t):
+        out = _null_cast(_c[0].fn(env), _c[0].type, _t)
+        for c in _c[1:]:
+            out = torch.where(ev.null_mask(out, _t),
+                              _null_cast(c.fn(env), c.type, _t), out)
+        return out
+    return CompiledExpr(fn, t)

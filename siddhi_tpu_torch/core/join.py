@@ -1,0 +1,661 @@
+"""Stream-stream join queries (port of `siddhi_tpu/core/join.py`).
+
+Reference behaviour (what): each CURRENT or EXPIRED row one side's window
+emits probes the other side's window; matched pairs are emitted, and for
+the outer side(s) of a left / right / full outer join the rows that match
+nothing are emitted with the other side null; `unidirectional` restricts
+which side triggers.
+
+How the port runs a step (a batch arriving on side X), on CUDA one kernel
+per stage and on the CPU each kernel's plain version:
+  1. X's filters (before its window) and the compaction of its arrivals:
+     K1 `filter_compact`;
+  2. X's window: K5 `length_window` or K2 `time_window`, each a ring in
+     add_seq order (a bucketed side's ring carries the key-slot column
+     last);
+  3. on the bucket path (an equality conjunct and no side filters), the
+     other side's lane table: K6 `join_lanes`;
+  4. the probe, the ON and having conditions and the cut to the emission
+     cap: K7 `join_probe`, which writes the index rows and [n_valid,
+     n_current, n_dropped];
+  5. the torch projection: gathers of the columns by the index rows, the
+     in-band nulls of unmatched rows, the select expressions.
+The step returns the output rows and one header, i64[6] = [n_valid,
+n_current, n_dropped, lane overflow, wake, rows a time side's expire bound
+missed], which the runtime fetches once.
+
+Ported from the reference (line numbers of `siddhi_tpu/core/join.py`):
+`JoinSide`, `PlannedJoinQuery`, `_mk_side`, `plan_join_query`
+(:34-705), `make_step` (:445) and `_make_feed_only` (:708),
+`_retention_rows`, `_lane_bucket_count`, `_conjunct_count`,
+`_norm_key_cols` (:748-805), `_TrackSide` and `JoinKeyTracker`
+(:808-922, host numpy, copied); `_bucket_lanes` (:775) is K6.  The join
+parts of `siddhi_tpu/core/plan_facts.py` are copied here, where only the
+join uses them: `window_handler` (:133), `join_equi_pairs` (:351),
+`JOIN_LANE_K_MIN` (:396) and `join_fastpath` (:399, its stream-stream
+branch; the table branch and `table_probe_attrs_of` (:468) come with the
+tables slice).
+
+Not ported, raising at plan time: table sides and the table fast path
+(ROADMAP A10, B16), named-window and aggregation sides (A11), group by
+and aggregators in a join (A10), `@fuse` / `@async` / `@pipeline` /
+`@serve` (A12, raised by the runtime), mesh placement (A14) and the
+restore path (A13).  On CUDA a join whose conditions or columns do not fit
+the kernels raises NotImplementedError here.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..query_api.definition import StreamDefinition
+from ..query_api.expression import AttributeFunction, walk
+from ..query_api.query import Filter, JoinInputStream, Query, \
+    SingleInputStream, Window
+from . import event as ev
+from .executor import AGGREGATOR_NAMES, CompileError, CompiledExpr, Scope, \
+    compile_expression
+from .keyslots import SlotAllocator
+from .selector import SelectorExec, _substitute_aliases
+from .window import NO_WAKEUP, Rows, WindowProcessor, create_window
+
+# A-B kill switch: the parity tests plan one runtime with the fast path
+# off to hold the bucket path against the grid path.  Consulted once at
+# plan time; never flipped on a live runtime.
+FASTPATH_ENABLED = True
+
+JSLOT_COL = "#jslot"
+
+# lane width floor for the bucketed join probe; host occupancy tracking
+# grows it in power-of-two steps (JoinKeyTracker)
+JOIN_LANE_K_MIN = 8
+
+
+# ---------------------------------------------------------------------------
+# plan facts (siddhi_tpu/core/plan_facts.py)
+# ---------------------------------------------------------------------------
+
+def window_handler(sis) -> Optional[Window]:
+    for h in getattr(sis, "stream_handlers", ()):
+        if isinstance(h, Window):
+            return h
+    return None
+
+
+def join_equi_pairs(jis) -> List[Tuple[object, object, object]]:
+    """Top-level `==` conjuncts of a join ON-condition comparing one
+    side-qualified attribute from each side: [(Compare node, left
+    Variable, right Variable)], the left side's variable first whatever
+    the written order."""
+    from ..query_api import expression as ex
+    on = getattr(jis, "on_compare", None)
+    if on is None:
+        return []
+    ls, rs = jis.left_input_stream, jis.right_input_stream
+    left_keys = {ls.stream_reference_id or ls.stream_id, ls.stream_id}
+    right_keys = {rs.stream_reference_id or rs.stream_id, rs.stream_id}
+
+    def conjuncts(e):
+        if isinstance(e, ex.And):
+            yield from conjuncts(e.left)
+            yield from conjuncts(e.right)
+        else:
+            yield e
+
+    def side_of(v):
+        if v.stream_id in left_keys:
+            return "left"
+        if v.stream_id in right_keys:
+            return "right"
+        return None
+
+    out: List[Tuple[object, object, object]] = []
+    for c in conjuncts(on):
+        if not isinstance(c, ex.Compare) or c.operator != "==":
+            continue
+        if not (isinstance(c.left, ex.Variable) and
+                isinstance(c.right, ex.Variable)):
+            continue
+        sides = (side_of(c.left), side_of(c.right))
+        if sides == ("left", "right"):
+            out.append((c, c.left, c.right))
+        elif sides == ("right", "left"):
+            out.append((c, c.right, c.left))
+    return out
+
+
+def join_fastpath(jis) -> Tuple[Optional[str], List, Optional[str]]:
+    """Equi-join fast-path decision for two stream sides: (mode, pairs,
+    reason).  'bucket' when both sides are stream windows without
+    filters; None with a reason when an equality conjunct exists but the
+    fast path cannot apply; None, [], None without an equality conjunct.
+    The reference's table and named-window branches come with the slices
+    that port those sides (ROADMAP A10, A11)."""
+    pairs = join_equi_pairs(jis)
+    if not pairs:
+        return None, [], None
+    for label, sis in (("left", jis.left_input_stream),
+                       ("right", jis.right_input_stream)):
+        if any(isinstance(h, Filter) for h in sis.stream_handlers):
+            return None, pairs, (
+                f"{label} side {sis.stream_id!r} has a stream filter "
+                f"— host key-retention tracking would under-count "
+                f"the window and could free live key buckets")
+    return "bucket", pairs, None
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class JoinSide:
+    stream_id: str
+    key: str                      # scope key (alias or stream id)
+    schema: ev.Schema             # the stream's columns
+    window: WindowProcessor       # over win_schema
+    win_schema: ev.Schema         # + the key-slot column on the bucket path
+    pre_filters: List[CompiledExpr] = dataclasses.field(default_factory=list)
+    fspec: Any = None             # kernels.filter_compact.FilterSpec
+
+
+@dataclasses.dataclass
+class PlannedJoinQuery:
+    name: str
+    left: JoinSide
+    right: JoinSide
+    join_type: str
+    trigger: str
+    out_schema: ev.Schema
+    output_target: str
+    output_event_type: str
+    selector_exec: SelectorExec
+    step_left: Optional[Callable]
+    step_right: Optional[Callable]
+    init_state: Callable
+    needs_timer: bool
+    device: torch.device
+    # emission cap: None = the reference's per-step default max(2R, 1024);
+    # grows (runtime) unless the user's @emit(rows='N') set it
+    compact_rows: Optional[int] = None
+    emit_explicit: bool = False
+    # equi-join fast path
+    fastpath: Optional[str] = None
+    fastpath_reason: Optional[str] = None
+    key_left: List[int] = dataclasses.field(default_factory=list)
+    key_right: List[int] = dataclasses.field(default_factory=list)
+    key_dtypes: List[Any] = dataclasses.field(default_factory=list)
+    residual: bool = False
+    lane_k: int = 0              # candidate lane width (bucket mode)
+    lane_buckets: Tuple[int, int] = (0, 0)
+    ring_caps: Tuple[int, int] = (0, 0)
+    join_key_allocator: Optional[SlotAllocator] = None
+    # (left, right) kernels.join_probe.ProbeSpec of each triggering side
+    probe_specs: Tuple[Any, Any] = (None, None)
+
+
+def _probe_schema(schema: ev.Schema) -> ev.Schema:
+    """A bucketed side's window schema: the stream's columns plus one INT
+    column carrying the key's bucket slot, which rides the ring, so an
+    EXPIRED row keeps the slot it was bucketed under at arrival."""
+    d = StreamDefinition(f"{schema.id}{JSLOT_COL}")
+    for n, t in zip(schema.names, schema.types):
+        d.attribute(n, t)
+    d.attribute(JSLOT_COL, "INT")
+    return ev.Schema(d, schema.interner)
+
+
+def _mk_side(sis: SingleInputStream, schemas, batch_capacity, scope: Scope,
+             window_capacity_hint: int, probe_col: bool) -> JoinSide:
+    sid = sis.stream_id
+    key = sis.stream_reference_id or sid
+    if sid not in schemas:
+        raise CompileError(f"undefined stream {sid!r}")
+    schema = schemas[sid]
+    scope.add_source(key, schema, alias=None)
+    win_schema = _probe_schema(schema) if probe_col else schema
+    wh = window_handler(sis)
+    if wh is None:
+        raise CompileError("stream-stream joins need a window on each side")
+    win = create_window((wh.namespace + ":" if wh.namespace else "") +
+                        wh.name, win_schema, wh.parameters, batch_capacity,
+                        capacity_hint=window_capacity_hint)
+    if win.name not in ("length", "time"):
+        raise CompileError(f"join windows must be sliding (length/time), "
+                           f"got {win.name!r}")
+    return JoinSide(sid, key, schema, win, win_schema)
+
+
+def _retention_rows(win: Optional[WindowProcessor]) -> int:
+    """Upper bound on rows a join window retains: length windows keep
+    exactly `length`; time windows drop-oldest above `capacity`."""
+    if win is None:
+        return 0
+    n = getattr(win, "length", None)
+    if n is None:
+        n = getattr(win, "capacity", None)
+    return int(n if n is not None else win.batch_capacity)
+
+
+def _lane_bucket_count(ring: int) -> int:
+    """Power-of-two lane-table rows for a buffer bound: about 2 buckets per
+    resident row."""
+    return max(64, min(1 << 17, 1 << (2 * max(ring, 1) - 1).bit_length()))
+
+
+def _conjunct_count(on) -> int:
+    from ..query_api.expression import And
+    if on is None:
+        return 0
+    if isinstance(on, And):
+        return _conjunct_count(on.left) + _conjunct_count(on.right)
+    return 1
+
+
+def _reference_rows(win: WindowProcessor, B: int) -> int:
+    """The reference's window output size R for a batch of capacity B:
+    2B for a length window, B + C for a time window of capacity C.  The
+    implicit emission cap max(2R, 1024) is computed from it."""
+    if win.name == "length":
+        return 2 * B
+    return B + win.capacity
+
+
+def _kernel_subset(name: str, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"query {name!r} is outside the CUDA kernels' subset: {why}")
+
+
+def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
+                    interner, batch_capacity: int = 512,
+                    window_capacity_hint: int = 512,
+                    device: Optional[torch.device] = None
+                    ) -> PlannedJoinQuery:
+    from ..kernels.filter_bytecode import AND, compile_filter
+    from ..kernels.filter_compact import FilterSpec
+    from ..kernels.join_probe import ProbeSpec
+    device = torch.device(device) if device is not None \
+        else torch.device("cpu")
+    cuda = device.type == "cuda"
+    jis = query.input_stream
+    if not isinstance(jis, JoinInputStream):
+        raise CompileError(f"query {name!r} is not a join")
+    if jis.within is not None or jis.per is not None:
+        raise CompileError("joins with aggregations are not yet ported "
+                           "(ROADMAP A11)")
+
+    fp_mode, fp_pairs, fp_reason = join_fastpath(jis)
+    if not FASTPATH_ENABLED and fp_mode is not None:
+        fp_mode, fp_reason = None, "fast path disabled (A-B comparison)"
+    bucket = fp_mode == "bucket"
+
+    scope = Scope(device)
+    scope.interner = interner
+    left = _mk_side(jis.left_input_stream, schemas, batch_capacity, scope,
+                    window_capacity_hint, bucket)
+    right = _mk_side(jis.right_input_stream, schemas, batch_capacity, scope,
+                     window_capacity_hint, bucket)
+    if cuda:
+        from ..kernels.filter_compact import MAX_COLS
+        for s in (left, right):
+            if len(s.win_schema.types) > MAX_COLS:
+                raise _kernel_subset(name, f"side {s.stream_id!r} has "
+                                     f"{len(s.win_schema.types)} columns "
+                                     f"(the kernels take {MAX_COLS})")
+
+    # side filters (before the window): K1
+    for side, sis in ((left, jis.left_input_stream),
+                      (right, jis.right_input_stream)):
+        fscope = Scope(device)
+        fscope.interner = interner
+        fscope.add_source(side.key, side.schema)
+        code = [] if cuda else None
+        for h in sis.stream_handlers:
+            if isinstance(h, Filter):
+                c = compile_expression(h.expression, fscope)
+                if c.type != "BOOL":
+                    raise CompileError("filter expression must be boolean")
+                side.pre_filters.append(c)
+                if cuda:
+                    try:
+                        code += compile_filter(h.expression, fscope,
+                                               side.key, {})
+                    except CompileError as exc:
+                        raise _kernel_subset(name, str(exc)) from exc
+                    if len(side.pre_filters) > 1:
+                        code.append(AND)
+        side.fspec = FilterSpec(side.win_schema.types, side.pre_filters,
+                                code, side.key)
+
+    on = None
+    if jis.on_compare is not None:
+        on = compile_expression(jis.on_compare, scope)
+        if on.type != "BOOL":
+            raise CompileError("join condition must be boolean")
+
+    # ---- equi-join fast-path plan details ----------------------------------
+    key_left: List[int] = []
+    key_right: List[int] = []
+    key_dtypes: List[Any] = []
+    lane_k = 0
+    lane_buckets = (0, 0)
+    ring_caps = (0, 0)
+    jk_alloc = None
+    if bucket:
+        for _c, lv, rv in fp_pairs:
+            lp = left.schema.position(lv.attribute_name)
+            rp = right.schema.position(rv.attribute_name)
+            key_left.append(lp)
+            key_right.append(rp)
+            # both sides hash the promoted encoding, so any two values the
+            # compiled `==` calls equal land in one bucket
+            key_dtypes.append(np.promote_types(
+                ev.np_dtype(left.schema.types[lp]),
+                ev.np_dtype(right.schema.types[rp])))
+        ring_caps = (_retention_rows(left.window),
+                     _retention_rows(right.window))
+        lane_buckets = (_lane_bucket_count(ring_caps[0]),
+                        _lane_bucket_count(ring_caps[1]))
+        auto_k = 1 << (max(1, min(max(ring_caps), 16)) - 1).bit_length()
+        lane_k = max(JOIN_LANE_K_MIN, auto_k)
+        jk_alloc = SlotAllocator(
+            ring_caps[0] + ring_caps[1] + 2 * max(batch_capacity, 8192),
+            name=f"{name}:joinkey")
+    n_conj = _conjunct_count(jis.on_compare)
+    fp_residual = fp_mode is not None and n_conj > len(key_left)
+
+    # ---- selector: projection and having -----------------------------------
+    selector = query.selector
+    uses_agg = any(
+        isinstance(n, AttributeFunction) and not n.namespace and
+        n.name in AGGREGATOR_NAMES
+        for e in [oa.expression for oa in selector.selection_list] +
+        ([selector.having_expression]
+         if selector.having_expression is not None else [])
+        for n in walk(e))
+    if selector.group_by_list or uses_agg:
+        raise NotImplementedError(
+            f"query {name!r}: group by and aggregators in a join are not "
+            f"yet ported (ROADMAP A10)")
+    having = having_expr = None
+    if selector.having_expression is not None:
+        # having may name select aliases: substitute the projected
+        # expressions (as the selector does) into a copy
+        alias_map = {oa.rename: oa.expression
+                     for oa in selector.selection_list if oa.rename}
+        having_expr = _substitute_aliases(
+            copy.deepcopy(selector.having_expression), alias_map, scope)
+        having = compile_expression(having_expr, scope)
+        if having.type != "BOOL":
+            raise CompileError("having expression must be boolean")
+    proj_selector = copy.copy(selector)
+    proj_selector.having_expression = None
+    out_target = query.output_stream.target_id if query.output_stream \
+        else ""
+    sel = SelectorExec(proj_selector, scope, left.schema, 64,
+                       out_target or name, aggregate=True)
+    out_def = StreamDefinition(out_target or f"#{name}.out")
+    for n, t in zip(sel.out_names, sel.out_types):
+        out_def.attribute(n, t)
+    out_schema = ev.Schema(out_def, interner)
+
+    jt = jis.type
+    trigger = jis.trigger
+    emit_ann = query.get_annotation("emit")
+    emit_explicit = emit_ann is not None
+    emit_rows = int(emit_ann.element("rows", 0)) or None \
+        if emit_explicit else None
+
+    plan = PlannedJoinQuery(
+        name=name, left=left, right=right, join_type=jt, trigger=trigger,
+        out_schema=out_schema, output_target=out_target,
+        output_event_type=(query.output_stream.output_event_type
+                           if query.output_stream and
+                           query.output_stream.output_event_type
+                           else "CURRENT_EVENTS"),
+        selector_exec=sel, step_left=None, step_right=None,
+        init_state=lambda: (left.window.init_state(device),
+                            right.window.init_state(device)),
+        needs_timer=left.window.needs_timer or right.window.needs_timer,
+        device=device, compact_rows=emit_rows, emit_explicit=emit_explicit,
+        fastpath=fp_mode, fastpath_reason=fp_reason, key_left=key_left, key_right=key_right, key_dtypes=key_dtypes,
+        residual=fp_residual, lane_k=lane_k, lane_buckets=lane_buckets,
+        ring_caps=ring_caps, join_key_allocator=jk_alloc)
+
+    def probe_spec(this: JoinSide, other: JoinSide, this_is_left: bool):
+        emit_unmatched = (
+            (jt == "LEFT_OUTER_JOIN" and this_is_left) or
+            (jt == "RIGHT_OUTER_JOIN" and not this_is_left) or
+            jt == "FULL_OUTER_JOIN")
+        on_code = having_code = None
+        if cuda:
+            try:
+                on_code = [] if jis.on_compare is None else compile_filter(
+                    jis.on_compare, scope, this.key, {}, other.key)
+                if having_expr is not None:
+                    having_code = compile_filter(having_expr, scope,
+                                                 this.key, {}, other.key)
+            except CompileError as exc:
+                raise _kernel_subset(name, str(exc)) from exc
+        return ProbeSpec(this.key, other.key, this.win_schema.types,
+                         other.win_schema.types, on, having, on_code,
+                         having_code, emit_unmatched, bucket)
+
+    specs = (probe_spec(left, right, True)
+             if trigger in ("ALL_EVENTS", "LEFT") else None,
+             probe_spec(right, left, False)
+             if trigger in ("ALL_EVENTS", "RIGHT") else None)
+    plan.probe_specs = specs
+    plan.step_left = _make_step(plan, left, right, True, specs[0]) \
+        if specs[0] is not None else _make_feed_only(plan, left, True)
+    plan.step_right = _make_step(plan, right, left, False, specs[1]) \
+        if specs[1] is not None else _make_feed_only(plan, right, False)
+    return plan
+
+
+def _header(wake, dev) -> torch.Tensor:
+    """[0, 0, 0, 0, wake, missed]: the probe writes words 0-2, the lane
+    build word 3, a time window the last two."""
+    if wake is None:
+        return torch.tensor([0, 0, 0, 0, NO_WAKEUP, 0], dtype=torch.int64,
+                            device=dev)
+    h = torch.zeros(6, dtype=torch.int64, device=dev)
+    h[4:6].copy_(wake)
+    return h
+
+
+def _advance(side: JoinSide, state, batch, gslot, probe, now: int, facts):
+    """The side's filters and window over one batch (K1, then K5 or K2);
+    the key-slot column rides the window on the bucket path."""
+    cols = tuple(batch.cols) + ((probe,) if probe is not None else ())
+    rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid, seq=None,
+                gslot=gslot, cols=cols)
+    _, wout = side.window.process(state, rows, side.fspec, now, facts)
+    return wout
+
+
+def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
+               this_is_left: bool, spec):
+    """Step for a batch arriving on `this` side (reference `make_step`,
+    `siddhi_tpu/core/join.py:445`)."""
+    from ..kernels.join_lanes import join_lanes
+    from ..kernels.join_probe import join_probe
+    bucket = plan.fastpath == "bucket"
+    nbl_other = (plan.lane_buckets[1] if this_is_left
+                 else plan.lane_buckets[0]) if bucket else 0
+    Q_grid = _retention_rows(other.window)
+    sel = plan.selector_exec
+    used = sel.used_columns()
+    o_types = other.schema.types
+
+    def step(state, batch, gslot, probe, now: int, facts):
+        this_state = state[0 if this_is_left else 1]
+        other_state = state[1 if this_is_left else 0]
+        wout = _advance(this, this_state, batch, gslot, probe, now, facts)
+        trig = wout.rows
+        dev = trig.ts.device
+        header = _header(wout.next_wakeup, dev)
+        B = batch.ts.shape[0]
+        R = _reference_rows(this.window, B)
+        Q = plan.lane_k if bucket else Q_grid
+        N = R * Q + (R if spec.emit_unmatched else 0)
+        cap = min(N, plan.compact_rows if plan.compact_rows is not None
+                  else max(2 * R, 1024))
+        if trig.ts.shape[0] == 0:
+            # a TIMER step that expired nothing: no trigger rows
+            return _no_rows(sel, cap, dev), header
+        lanes = None
+        if bucket:
+            lanes = join_lanes(other_state.cols[-1], other_state.meta,
+                               nbl_other, plan.lane_k, header[3:4])
+        li, ri, onull, ovalid = join_probe(
+            spec, trig, other_state.cols, other_state.meta, lanes,
+            nbl_other, cap, header[0:3])
+        # the torch projection: gathers by the index rows, the in-band null
+        # of unmatched rows, the select expressions
+        lil, ril = li.to(torch.int64), ri.to(torch.int64)
+        this_cols = tuple(
+            c[lil] if (this.key, j) in used else None
+            for j, c in enumerate(trig.cols[:len(this.schema.types)]))
+        other_cols = tuple(
+            torch.where(onull, ev.null_value(t), c[ril])
+            if (other.key, j) in used else None
+            for j, (c, t) in enumerate(zip(other_state.cols, o_types)))
+        ts, kind = trig.ts[lil], trig.kind[lil]
+        env = {this.key: this_cols, other.key: other_cols, "__ts__": ts,
+               "__now__": now, "__kind__": kind}
+        _, out = sel.process((), Rows(ts=ts, kind=kind, valid=ovalid,
+                                      seq=None, gslot=None, cols=()), env)
+        return out, header
+
+    return step
+
+
+def _no_rows(sel: SelectorExec, cap: int, dev):
+    """An output block of `cap` rows none of which is valid."""
+    def z(d):
+        return torch.zeros(cap, dtype=d, device=dev)
+    return (z(torch.int64), z(torch.int32), z(torch.bool),
+            tuple(z(ev.dtype_of(t)) for t in sel.out_types))
+
+
+def _make_feed_only(plan: PlannedJoinQuery, side: JoinSide, is_left: bool):
+    """A side that does not trigger (`unidirectional` on the other side)
+    still keeps its window (reference `_make_feed_only`,
+    `siddhi_tpu/core/join.py:708`): K1 and K5 / K2, no probe."""
+
+    def step(state, batch, gslot, probe, now: int, facts):
+        wout = _advance(side, state[0 if is_left else 1], batch, gslot,
+                        probe, now, facts)
+        return None, _header(wout.next_wakeup, batch.ts.device)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the host's key-retention mirror (equi-join fast path)
+# ---------------------------------------------------------------------------
+
+def _norm_key_cols(staged_cols, positions, dtypes) -> List[np.ndarray]:
+    """Key columns normalized to the promoted compare dtype so both sides
+    of `L.a == R.b` hash identically (float -0.0 folds into +0.0)."""
+    out = []
+    for pos, dt in zip(positions, dtypes):
+        c = np.asarray(staged_cols[pos]).astype(dt, copy=False)
+        if np.issubdtype(dt, np.floating):
+            c = c + np.dtype(dt).type(0.0)
+        out.append(np.ascontiguousarray(c))
+    return out
+
+
+class _TrackSide:
+    """One side's retention ring: slot ids of the last `cap` admitted
+    arrivals, plus per-lane (slot % nbl) occupancy counts."""
+
+    __slots__ = ("cap", "nbl", "ring", "head", "n", "lane")
+
+    def __init__(self, cap: int, nbl: int):
+        self.cap = max(1, int(cap))
+        self.nbl = max(1, int(nbl))
+        self.ring = np.full(self.cap, -1, np.int64)
+        self.head = 0
+        self.n = 0
+        self.lane = np.zeros(self.nbl, np.int64)
+
+    def oldest(self, k: int) -> np.ndarray:
+        idx = (self.head + np.arange(k)) % self.cap
+        return self.ring[idx]
+
+    def pop(self, k: int) -> None:
+        self.head = (self.head + k) % self.cap
+        self.n -= k
+
+    def push(self, arr: np.ndarray) -> None:
+        idx = (self.head + self.n + np.arange(arr.size)) % self.cap
+        self.ring[idx] = arr
+        self.n += arr.size
+
+
+class JoinKeyTracker:
+    """Host mirror of per-key window retention for the bucketed equi-join
+    fast path (reference `siddhi_tpu/core/join.py:832`).
+
+    Each side's ring holds the key slots of the last `cap` admitted
+    arrivals, a superset of the rows alive in that side's window.  So the
+    largest same-lane occupancy across both rings never under-counts the
+    windows (the planned lane width covers every candidate), and a key
+    slot recycles only when neither ring retains it."""
+
+    def __init__(self, alloc: SlotAllocator, ring_caps, lane_buckets):
+        self.alloc = alloc
+        self.sides = (
+            _TrackSide(ring_caps[0], lane_buckets[0]),
+            _TrackSide(ring_caps[1], lane_buckets[1]),
+        )
+        self.refs = np.zeros(alloc.capacity, np.int64)
+
+    def needed_k(self) -> int:
+        return max(int(s.lane.max(initial=0)) for s in self.sides)
+
+    def _evict(self, s: _TrackSide, incoming: int, dead: set) -> None:
+        k = min(max(s.n + incoming - s.cap, 0), s.n)
+        if k <= 0:
+            return
+        old = s.oldest(k)
+        s.pop(k)
+        np.subtract.at(self.refs, old, 1)
+        np.subtract.at(s.lane, old % s.nbl, 1)
+        for sl in np.unique(old):
+            if self.refs[sl] <= 0:
+                dead.add(int(sl))
+
+    def track(self, is_left: bool, key_cols, valid) -> np.ndarray:
+        """Allocate bucket slots for one batch and fold it into the side's
+        ring.  Evicts before allocating so the allocator's capacity bound
+        holds transiently, and purges any slot neither ring retains."""
+        s = self.sides[0 if is_left else 1]
+        nv = int(valid.sum())
+        dead: set = set()
+        if nv:
+            self._evict(s, min(nv, s.cap), dead)
+        slots = self.alloc.slots_for(key_cols, valid)
+        ins = slots[valid].astype(np.int64)
+        skipped = None
+        if ins.size > s.cap:
+            # a batch larger than the window: only its last `cap` rows
+            # survive the step's own eviction
+            skipped, ins = ins[:-s.cap], ins[-s.cap:]
+        if ins.size:
+            np.add.at(self.refs, ins, 1)
+            np.add.at(s.lane, ins % s.nbl, 1)
+            s.push(ins)
+        if skipped is not None:
+            dead.update(int(x) for x in np.unique(skipped))
+        gone = [d for d in dead if self.refs[d] <= 0]
+        if gone:
+            self.alloc.purge(gone)
+        return slots

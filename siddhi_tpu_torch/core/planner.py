@@ -114,8 +114,9 @@ def plan_single_query(
         else torch.device("cpu")
     ist = query.input_stream
     if not isinstance(ist, SingleInputStream):
-        raise CompileError(f"query {name!r}: joins are not yet ported "
-                           f"(ROADMAP A10)")
+        raise CompileError(f"query {name!r} has no single input stream; "
+                           f"joins plan through core/join.py "
+                           f"plan_join_query")
     sid = ist.unique_stream_id
     if sid not in schemas:
         raise CompileError(f"undefined stream {sid!r}")

@@ -9,12 +9,19 @@ query resolves partition keys to dense slots on the host
 two-count emission header.  Each single-stream query resolves its group-by
 slots on the host, ships the batch, runs one step (filters, window,
 aggregation, having, projection) and fetches its [n_valid, n_current, wake,
-missed] header in one sync.  Rows transfer when a consumer reads them.
+missed] header in one sync.  Each join query subscribes to both sides'
+streams; a batch on one side binds its equi-join key slots on the host,
+runs that side's step (filters, window, lane table, probe, projection) and
+fetches its [n_valid, n_current, n_dropped, lane overflow, wake, missed]
+header in one sync.  Rows transfer when a consumer reads them.
 
 Ported: stream definitions, `@app:playback`, value partitions (`partition
 with (attr of Stream)`) around pattern queries, top-level pattern queries,
-top-level single-stream queries (filters, `time` / `lengthBatch` windows,
-group by, having, `@capacity(window='N')`), the timer scheduler (playback
+top-level single-stream queries (filters, `length` / `time` /
+`lengthBatch` windows, group by, having, `@capacity(window='N')`),
+stream-stream joins (`length` / `time` windows, inner and outer,
+`unidirectional`, the equi-join bucket path and the grid path, having),
+the timer scheduler (playback
 drain and wall-clock thread), `InputHandler.send` / `send_columns`,
 synchronous junctions, the three callback kinds, emission-cap growth,
 `flush` and `shutdown`.  Everything else raises `CompileError` naming its
@@ -36,14 +43,15 @@ from ..exceptions import (DefinitionNotExistError, MatchOverflowError,
 from ..query_api.app import SiddhiApp
 from ..query_api.definition import StreamDefinition
 from ..query_api.expression import Variable
-from ..query_api.query import (Partition, Query, SingleInputStream,
-                               StateInputStream, ValuePartitionType)
+from ..query_api.query import (JoinInputStream, Partition, Query,
+                               SingleInputStream, StateInputStream,
+                               ValuePartitionType)
 from . import event as ev
 from .executor import CompileError
 from .keyslots import SlotAllocator
 from .pattern_planner import plan_pattern_query
 from .planner import plan_single_query
-from .window import NO_WAKEUP
+from .window import NO_WAKEUP, BatchFacts
 
 _log = logging.getLogger("siddhi_tpu_torch")
 
@@ -165,14 +173,11 @@ class PatternQueryRuntime:
         if self._replan is None:
             return False
         cap = self.planned.compact_rows
-        need = max(n_valid + n_dropped, cap * 2)
-        new_cap = min(1 << (need - 1).bit_length(), self._EMIT_CAP_MAX)
-        if new_cap <= cap:
+        new_cap = _grown_cap(self, "pattern match rows", n_dropped,
+                             max(n_valid + n_dropped, cap * 2), cap,
+                             self._EMIT_CAP_MAX)
+        if new_cap is None:
             return False
-        _log.warning(
-            "%s: %d pattern match rows dropped at emission capacity %d; "
-            "growing the cap to %d (set @emit(rows='N') to pre-size and "
-            "silence this)", self.name, n_dropped, cap, new_cap)
         self.planned = self._replan(new_cap)
         return True
 
@@ -270,47 +275,73 @@ def _emit_output(qr, out, now: int) -> None:
         return
     n_valid, n_dropped, ots, okind, ovalid, ocols = out
     nv, nd = torch.stack([n_valid, n_dropped]).tolist()
+    _deliver_capped(qr, "pattern match rows", "per-key emission capacity",
+                    nv, nv, nd, (ots, okind, ovalid, ocols), now)
+
+
+def _grown_cap(qr, what: str, n_dropped: int, need: int,
+               cur: Optional[int], cap_max: int) -> Optional[int]:
+    """The implicit emission cap sized to the observed demand `need` in
+    one jump (next power of two, at most `cap_max`), or None when that is
+    no larger than `cur`.  Logs the growth."""
+    new_cap = min(1 << (need - 1).bit_length(), cap_max)
+    if cur is not None and new_cap <= cur:
+        return None
+    _log.warning(
+        "%s: %d %s dropped at emission capacity%s; growing the cap to %d "
+        "(set @emit(rows='N') to pre-size and silence this)", qr.name,
+        n_dropped, what, "" if cur is None else f" {cur}", new_cap)
+    return new_cap
+
+
+def _deliver_capped(qr, what: str, cap_name: str, nv: int, ncur: int,
+                    nd: int, rows, now: int) -> None:
+    """Deliver one step's `nv` kept rows (`ncur` of them CURRENT), `nd`
+    more having been dropped at the emission cap.  An implicit cap must not
+    lose rows silently: it grows for the next batches (`qr`'s
+    `_grow_emission_cap`), and once growth is exhausted the loss raises
+    MatchOverflowError after this batch's rows are delivered.  Past an
+    explicit cap the rows are dropped with a warning."""
     overflow_exc = None
     if nd:
         if not qr.planned.emit_explicit:
-            # an implicit cap must not lose matches silently: grow it for
-            # the next batches; once growth is exhausted the loss surfaces
-            # as an error, raised after this batch's rows are delivered
             if not qr._grow_emission_cap(nd, nv):
                 overflow_exc = MatchOverflowError(
-                    f"{qr.name}: {nd} pattern match rows exceeded the "
-                    f"per-key emission capacity this batch; set "
-                    f"@emit(rows='N') on the query to raise the cap or "
-                    f"accept capped delivery")
+                    f"{qr.name}: {nd} {what} exceeded the {cap_name} this "
+                    f"batch; set @emit(rows='N') on the query to raise the "
+                    f"cap or accept capped delivery")
         else:
-            _log.warning("%s: %d pattern match rows exceeded the per-key "
-                         "emission capacity this batch and were dropped",
-                         qr.name, nd)
+            _log.warning("%s: %d %s exceeded the %s this batch and were "
+                         "dropped", qr.name, nd, what, cap_name)
     try:
         if nv:
-            _deliver(qr, nv, nd, ots, okind, ovalid, ocols, now)
+            _deliver(qr, {"n_valid": nv, "n_current": ncur,
+                          "n_expired": nv - ncur, "n_dropped": nd},
+                     *rows, now)
     finally:
         if overflow_exc is not None:
             raise overflow_exc
 
 
-def _deliver(qr, nv, nd, ots, okind, ovalid, ocols, now: int) -> None:
+def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
+             ts_order: bool = True) -> None:
+    """Fan one step's rows out to the batch callbacks, and decode them to
+    events only for an event consumer: the valid rows in a stable
+    timestamp order (`ts_order`, for rows compacted rank-major) or in row
+    order."""
     p = qr.planned
     if qr.batch_callbacks:
-        counts = {"n_valid": nv, "n_current": nv, "n_expired": 0,
-                  "n_dropped": nd}
         payload = _LazyBatchPayload(p.out_schema.names, ots, okind, ovalid,
                                     ocols, counts)
         for bcb in qr.batch_callbacks:
             bcb(now, payload)
     if not qr.callbacks and not _target_live(qr):
         return
-    # compacted rows are rank-major; restore timestamp order for event
-    # delivery with a host-side stable sort of just the valid rows
     ts_np, okind_np, ovalid_np = (x.cpu().numpy() for x in
                                   (ots, okind, ovalid))
-    idxv = np.nonzero(ovalid_np)[0]
-    order = idxv[np.argsort(ts_np[idxv], kind="stable")]
+    order = np.nonzero(ovalid_np)[0]
+    if ts_order:
+        order = order[np.argsort(ts_np[order], kind="stable")]
     batch = ev.EventBatch(ts_np[order], okind_np[order],
                           np.ones(order.shape[0], np.bool_),
                           tuple(c.cpu().numpy()[order] for c in ocols))
@@ -412,14 +443,16 @@ class _QSub:
 
 
 class _Sub:
-    """A pattern query's subscription to one of its input streams."""
+    """A pattern or join query's subscription to one of its input streams:
+    `which` tells the query where the batch came from (a pattern's stream
+    id, a join's side)."""
 
-    def __init__(self, qr: PatternQueryRuntime, stream: str):
-        self._qr, self._sid = qr, stream
+    def __init__(self, qr, which):
+        self._qr, self._which = qr, which
 
     def process_staged(self, staged, now):
         with self._qr._qlock:
-            self._qr.process_staged(self._sid, staged, now)
+            self._qr.process_staged(self._which, staged, now)
 
 
 _ZERO_SLOTS: Dict[int, np.ndarray] = {}
@@ -462,7 +495,6 @@ class QueryRuntime:
         return _zero_slots(staged.ts.shape[0])
 
     def process_staged(self, staged: ev.StagedBatch, now: int) -> None:
-        from .window import BatchFacts
         p = self.planned
         gslot = self._slots_for_batch(staged)
         batch = staged.to_device(p.in_schema, p.device)
@@ -505,24 +537,155 @@ def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
         qr._apply_wake(wake)
     if not live or not nv:
         return
+    _deliver(qr, {"n_valid": nv, "n_current": ncur, "n_expired": nv - ncur,
+                  "n_dropped": 0}, *out, now, ts_order=False)
+
+
+class JoinQueryRuntime:
+    """Host wrapper for a stream-stream join query (reference:
+    `siddhi_tpu/core/runtime.py:1422` JoinQueryRuntime): binds equi-join
+    key slots and keeps the retention mirror on the host, runs the side's
+    step, schedules a time side's expiry and delivers the output.  The
+    step's lane width and emission cap live on the plan and grow in place
+    (the reference replans its jitted steps; the port's steps read them
+    at each call)."""
+
+    _EMIT_CAP_MAX = 1 << 21   # 2M emitted rows per batch
+
+    def __init__(self, planned, app: "SiddhiAppRuntime"):
+        self.planned = planned
+        self.app = app
+        self.state = planned.init_state()
+        self.callbacks: List[Callable] = []
+        self.batch_callbacks: List[Callable] = []
+        self.next_wakeup: int = NO_WAKEUP
+        self._qlock = threading.RLock()
+        self._zero: Dict[int, torch.Tensor] = {}
+        self._jk = None
+        if planned.fastpath == "bucket":
+            from .join import JoinKeyTracker
+            self._jk = JoinKeyTracker(planned.join_key_allocator,
+                                      planned.ring_caps,
+                                      planned.lane_buckets)
+
+    @property
+    def name(self):
+        return self.planned.name
+
+    def _grow_emission_cap(self, n_dropped: int, n_valid: int = 0) -> bool:
+        """Size the implicit emission cap to the observed demand (next power
+        of two) in one jump.  The batch that overflowed has lost its
+        surplus rows all the same."""
+        p = self.planned
+        need = max(n_valid + n_dropped, 1024)
+        cur = p.compact_rows
+        if cur is not None and need <= cur:
+            return True
+        new_rows = _grown_cap(self, "join result rows", n_dropped, need, cur,
+                              self._EMIT_CAP_MAX)
+        if new_rows is None:
+            return False
+        p.compact_rows = new_rows
+        return True
+
+    def _join_key_probe(self, is_left: bool,
+                        staged: ev.StagedBatch) -> np.ndarray:
+        """Key bucket slots of one arriving batch (bucket fast path),
+        cached on the staged batch per (runtime, side).  Grows the lane
+        width before the step that would need it."""
+        cache = staged.jprobe
+        if cache is None:
+            cache = staged.jprobe = {}
+        key = (id(self), is_left)
+        cached = cache.get(key)
+        if cached is not None:
+            return cached
+        from .join import _norm_key_cols
+        p = self.planned
+        kvalid = staged.valid & (staged.kind == ev.CURRENT)
+        pos = p.key_left if is_left else p.key_right
+        slots = self._jk.track(
+            is_left, _norm_key_cols(staged.cols, pos, p.key_dtypes), kvalid)
+        need = self._jk.needed_k()
+        if need > p.lane_k:
+            self._grow_lane_k(need)
+        out = np.where(kvalid, slots, -1).astype(np.int32)
+        cache[key] = out
+        return out
+
+    def _grow_lane_k(self, need: int) -> None:
+        new_k = 1 << (max(need, 1) - 1).bit_length()
+        _log.info("%s: growing equi-join candidate lanes to %d (max same-"
+                  "bucket window occupancy %d)", self.name, new_k, need)
+        self.planned.lane_k = new_k
+
+    def _zero_slots(self, n: int) -> torch.Tensor:
+        z = self._zero.get(n)
+        if z is None:
+            z = self._zero[n] = torch.zeros(n, dtype=torch.int32,
+                                            device=self.planned.device)
+        return z
+
+    def process_staged(self, is_left: bool, staged: ev.StagedBatch,
+                       now: int) -> None:
+        p = self.planned
+        probe = None
+        if p.fastpath == "bucket":
+            probe = _h2d(self._join_key_probe(is_left, staged), p.device)
+        side = p.left if is_left else p.right
+        step = p.step_left if is_left else p.step_right
+        batch = staged.to_device(side.schema, p.device)
+        cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
+        facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
+        out, header = step(self.state, batch,
+                           self._zero_slots(staged.ts.shape[0]), probe, now,
+                           facts)
+        _emit_join(self, out, header, now)
+
+    def on_timer(self, now: int) -> None:
+        p = self.planned
+        for is_left, side in ((True, p.left), (False, p.right)):
+            if side.window.needs_timer:
+                staged = ev.pack_np(side.schema, [], capacity=8)
+                staged.ts[0] = now
+                staged.kind[0] = ev.TIMER
+                staged.valid[0] = True
+                self.process_staged(is_left, staged, now)
+
+    def _apply_wake(self, w: int) -> None:
+        self.next_wakeup = w
+        if w < NO_WAKEUP:
+            self.app._scheduler.notify_at(w, self)
+
+
+def _emit_join(qr: JoinQueryRuntime, out, header, now: int) -> None:
+    """Deliver one join step's output.  The header [n_valid, n_current,
+    n_dropped, lane overflow, wake, missed] is the step's one device fetch.
+    A lane overflow (the lane table lost candidates) or a time side's short
+    expire bound raises; rows past an implicit emission cap grow the cap
+    for the next batches, past an explicit one they are dropped with a
+    warning.  Rows move to the host only for an event consumer, the valid
+    ones in a stable timestamp order."""
     p = qr.planned
-    ots, okind, ovalid, ocols = out
-    if qr.batch_callbacks:
-        counts = {"n_valid": nv, "n_current": ncur, "n_expired": nv - ncur,
-                  "n_dropped": 0}
-        payload = _LazyBatchPayload(p.out_schema.names, ots, okind, ovalid,
-                                    ocols, counts)
-        for bcb in qr.batch_callbacks:
-            bcb(now, payload)
-    if not qr.callbacks and not _target_live(qr):
+    live = bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
+    if not live and not p.needs_timer:
         return
-    batch = ev.EventBatch(ots.cpu().numpy(), okind.cpu().numpy(),
-                          ovalid.cpu().numpy(),
-                          tuple(c.cpu().numpy() for c in ocols))
-    pairs = ev.unpack(p.out_schema, batch,
-                      want_kinds=(ev.CURRENT, ev.EXPIRED))
-    if pairs:
-        _deliver_pairs(qr, pairs, now)
+    nv, ncur, nd, lane_over, wake, missed = header.tolist()
+    if lane_over:
+        raise RuntimeError(
+            f"query {qr.name!r}: {lane_over} window rows did not fit the "
+            f"equi-join candidate lanes (width {p.lane_k}); this step's "
+            f"output is incomplete")
+    if missed:
+        raise RuntimeError(
+            f"query {qr.name!r}: {missed} more rows expired than the time "
+            f"window's expire bound allowed; the window was left as it was")
+    if p.needs_timer:
+        qr._apply_wake(wake)
+    if not live or out is None:
+        return
+    _deliver_capped(qr, "join result rows", "emission capacity", nv, ncur,
+                    nd, out, now)
 
 
 class _Scheduler:
@@ -681,7 +844,8 @@ class SiddhiAppRuntime:
             self._define_stream_runtime(sdef)
 
         self.query_runtimes: Dict[str, Union[PatternQueryRuntime,
-                                             QueryRuntime]] = {}
+                                             QueryRuntime,
+                                             JoinQueryRuntime]] = {}
         qi = 0
         for element in app.execution_element_list:
             if isinstance(element, Query):
@@ -689,6 +853,8 @@ class SiddhiAppRuntime:
                 qi += 1
                 if isinstance(element.input_stream, SingleInputStream):
                     self._add_query(element, qname)
+                elif isinstance(element.input_stream, JoinInputStream):
+                    self._add_join_query(element, qname)
                 else:
                     self._add_pattern_query(element, qname)
             elif isinstance(element, Partition):
@@ -725,12 +891,24 @@ class SiddhiAppRuntime:
             _QSub(runtime))
         self._define_output_for(planned, name)
 
+    def _add_join_query(self, q: Query, name: str) -> None:
+        """A top-level stream-stream join: one runtime subscribed to both
+        sides' streams (the left side first, so a self-join runs its left
+        step first)."""
+        from .join import plan_join_query
+        _check_annotations(q.annotations, f"query {name!r}")
+        planned = plan_join_query(q, name, self.schemas, self.interner,
+                                  device=self.device)
+        runtime = JoinQueryRuntime(planned, self)
+        self.query_runtimes[name] = runtime
+        for side, is_left in ((planned.left, True), (planned.right, False)):
+            self.junctions[side.stream_id].subscribe_query(
+                _Sub(runtime, is_left))
+        self._define_output_for(planned, name)
+
     def _add_pattern_query(self, q: Query, name: str, key_capacity: int = 1,
                            slots: Optional[int] = None, positions=None,
                            allocator=None) -> None:
-        if not isinstance(q.input_stream, StateInputStream):
-            raise CompileError(
-                f"query {name!r}: joins are not yet ported (ROADMAP A10)")
         _check_annotations(q.annotations, f"query {name!r}")
         if slots is None:
             slots = 8

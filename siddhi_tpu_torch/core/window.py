@@ -6,16 +6,18 @@ their own sequence numbers, valid rows first in seq order, so the selector
 recovers the exact per-event order (expired-before-current interleavings
 included).
 
-Ported: `NoWindow` (pass-through), `TimeWindow` (`time`) and
-`LengthBatchWindow` (`lengthBatch`).  Their steps are the CUDA kernels
-under `kernels/` (`filter_compact`, `time_window`, `length_batch`), each
-with its plain PyTorch version, which runs on the CPU.  Unlike the
+Ported: `NoWindow` (pass-through), `LengthWindow` (`length`),
+`TimeWindow` (`time`) and `LengthBatchWindow` (`lengthBatch`).  Their
+steps are the CUDA kernels under `kernels/` (`filter_compact`,
+`length_window`, `time_window`, `length_batch`), each with its plain
+PyTorch version, which runs on the CPU.  Unlike the
 reference, whose output capacity is the window's worst case (B + C rows
 for a time window), a step's output here is sized from what the host knows
 about the rows that can expire or flush, and only valid rows are defined.
 
-The time window keeps its buffer as a ring in add_seq order, so a step
-reads only the rows that expire and writes only the rows that arrive;
+The length and time windows keep their buffers as rings in add_seq order,
+so a step reads only the rows that leave and writes only the rows that
+arrive;
 `convert.py` turns the reference's compacted buffer into the ring and back.
 """
 from __future__ import annotations
@@ -176,6 +178,33 @@ class NoWindow(WindowProcessor):
         return state, WindowOutput(out, None)
 
 
+class LengthWindow(WindowProcessor):
+    """Sliding length window (reference: LengthWindowProcessor; JAX
+    `siddhi_tpu/core/window.py:228`).
+
+    On each arrival: if full, the oldest entry is emitted as EXPIRED just
+    before the CURRENT event; the expired row keeps its original ts.  The
+    step is kernel K5 (`kernels/length_window.py`)."""
+
+    name = "length"
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=1024):
+        super().__init__(schema, params, batch_capacity)
+        self.length = _param_int(params, 0)
+        if self.length <= 0:
+            raise CompileError("length window length must be positive")
+
+    def init_state(self, device):
+        from ..kernels.length_window import LengthRing
+        return LengthRing.empty(self.schema, self.length, device)
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        from ..kernels.length_window import length_window_step
+        arr, n_arr = _arrivals(rows, fspec, now)
+        return state, WindowOutput(length_window_step(state, arr, n_arr),
+                                   None)
+
+
 class TimeWindow(WindowProcessor):
     """Sliding time window (reference: TimeWindowProcessor.java:86).
 
@@ -235,12 +264,13 @@ class LengthBatchWindow(WindowProcessor):
 # ---------------------------------------------------------------------------
 
 WINDOW_TYPES = {
+    "length": LengthWindow,
     "time": TimeWindow,
     "lengthBatch": LengthBatchWindow,
 }
 
 # reference window kinds that are not ported yet -> ROADMAP item
-_UNPORTED_WINDOWS = {"length": "B11", "timeBatch": "B11"}
+_UNPORTED_WINDOWS = {"timeBatch": "B11"}
 
 
 def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,

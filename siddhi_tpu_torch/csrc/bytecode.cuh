@@ -13,7 +13,7 @@ enum : int { T_I32 = 0, T_I64 = 1, T_F32 = 2, T_BOOL = 3 };
 enum : int { N_NONE = 0, N_INT = 1, N_LONG = 2, N_NAN = 3, N_ID = 4 };
 enum : int {
   OP_LOAD_EV = 1, OP_LOAD_CAP, OP_CONST, OP_ARITH, OP_CMP, OP_AND, OP_OR,
-  OP_NOT, OP_ISNULL
+  OP_NOT, OP_ISNULL, OP_LOAD_OTHER, OP_COALESCE
 };
 
 __device__ __forceinline__ float as_f(long long v) { return __int_as_float((int)v); }
@@ -103,10 +103,28 @@ __device__ inline bool compare(int op, int t, long long x, long long y) {
   }
 }
 
+// The null of a null kind as a 64-bit stack slot.
+__device__ inline long long null_slot(int nk) {
+  switch (nk) {
+    case N_INT: return (long long)INT32_MIN;
+    case N_LONG: return INT64_MIN;
+    case N_NAN: return (long long)0x7fc00000;
+    default: return -1;  // N_ID
+  }
+}
+
+// astype from -> to, a null of kind nk becoming the null of kind onk
+__device__ inline long long null_cast(long long v, int from, int to, int nk, int onk) {
+  if (nk != N_NONE && onk != N_NONE && is_null(v, nk)) return null_slot(onk);
+  return cast(v, from, to);
+}
+
 // Runs `len` words of bytecode.  load_ev(col) returns an event column as a
-// 64-bit stack slot, load_cap(atom, col) a capture column.
-template <class LoadEv, class LoadCap>
-__device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap) {
+// 64-bit stack slot, load_cap(atom, col) a capture column and
+// load_other(col) a column of a join's candidate row.
+template <class LoadEv, class LoadCap, class LoadOther>
+__device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
+                                              LoadOther load_other) {
   if (len == 0) return true;
   long long stk[MAX_STACK];
   int sp = 0;
@@ -141,10 +159,25 @@ __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv l
       case OP_OR: { long long b = stk[--sp]; stk[sp - 1] = (stk[sp - 1] != 0) || (b != 0); pc += 1; break; }
       case OP_NOT: stk[sp - 1] = (stk[sp - 1] == 0); pc += 1; break;
       case OP_ISNULL: stk[sp - 1] = is_null(stk[sp - 1], code[pc + 1]) ? 1 : 0; pc += 2; break;
+      case OP_LOAD_OTHER: stk[sp++] = load_other(code[pc + 1]); pc += 2; break;
+      case OP_COALESCE: {
+        int t = code[pc + 1], lt = code[pc + 2], rt = code[pc + 3];
+        int lnk = code[pc + 4], rnk = code[pc + 5], onk = code[pc + 6];
+        long long b = stk[--sp], a = stk[--sp];
+        long long x = null_cast(a, lt, t, lnk, onk);
+        stk[sp++] = is_null(x, onk) ? null_cast(b, rt, t, rnk, onk) : x;
+        pc += 7;
+        break;
+      }
       default: return false;
     }
   }
   return stk[0] != 0;
+}
+
+template <class LoadEv, class LoadCap>
+__device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap) {
+  return eval_bytecode(code, len, load_ev, load_cap, [](int) { return 0LL; });
 }
 
 // A column element as a 64-bit stack slot (floats as their bits).

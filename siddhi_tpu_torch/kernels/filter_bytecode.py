@@ -16,19 +16,28 @@ promotion and in-band null rules are the executor's:
     when a (non-constant) operand is null;
   * `is null` reads the in-band null of its operand's type.
 
-Subset: constants, event-column and capture-column loads, `+ - * /`, the six
-comparisons, and/or/not, `is null`.  Anything else raises CompileError.
+Subset: constants, event-column, capture-column and other-row loads,
+`+ - * /`, the six comparisons, and/or/not, `is null`, `coalesce(...)`.
+Anything else raises CompileError.  The other-row load is the join
+probe's: in a join's ON condition one side is the row under evaluation
+(`LOAD_EV`) and the other the candidate row it is paired with
+(`LOAD_OTHER`), which reads as the null of each column's type when the
+row is an outer join's unmatched row.
 
 Word layout (operands follow the opcode):
   LOAD_EV col | LOAD_CAP atom col | CONST lo hi | ARITH op t lt rt lnk rnk |
-  CMP op ct lt rt lnk rnk | AND | OR | NOT | ISNULL nk
+  CMP op ct lt rt lnk rnk | AND | OR | NOT | ISNULL nk | LOAD_OTHER col |
+  COALESCE t lt rt lnk rnk onk
+COALESCE pops b, a; casts each to t, a null operand (by its null kind) to
+the null of t (null kind onk); and pushes a unless a is then null, else b
+(`coalesce(x, y, z)` folds left, as the executor's `coalesce` does).
 Type codes: 0 int32, 1 int64, 2 float32, 3 bool.  Null kinds: 0 never null,
 1 INT_MIN, 2 LONG_MIN, 3 NaN, 4 the string/object id -1.
 """
 from __future__ import annotations
 
 import struct
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +47,7 @@ from ..core.executor import CompileError, Scope, compare_dtype, maybe_null, \
 from ..query_api.expression import (
     Add,
     And,
+    AttributeFunction,
     Compare,
     Constant,
     Divide,
@@ -49,7 +59,8 @@ from ..query_api.expression import (
     Variable,
 )
 
-LOAD_EV, LOAD_CAP, CONST, ARITH, CMP, AND, OR, NOT, ISNULL = range(1, 10)
+LOAD_EV, LOAD_CAP, CONST, ARITH, CMP, AND, OR, NOT, ISNULL, LOAD_OTHER, \
+    COALESCE = range(1, 12)
 T_I32, T_I64, T_F32, T_BOOL = range(4)
 N_NONE, N_INT, N_LONG, N_NAN, N_ID = range(5)
 
@@ -85,19 +96,22 @@ def _words(value, attr_type: str) -> Tuple[int, int]:
 
 
 def compile_filter(expr, scope: Scope, own_ref: str,
-                   atom_of_ref: Dict[str, int]) -> List[int]:
-    """Bytecode of one pattern atom's filter.  `scope` is the atom's filter
-    scope (unqualified names bind to the atom's own stream); `own_ref`
-    loads come from the incoming event, every other ref from that atom's
-    capture in the slot under evaluation (`atom_of_ref`: ref -> atom)."""
+                   atom_of_ref: Dict[str, int],
+                   other_ref: Optional[str] = None) -> List[int]:
+    """Bytecode of one filter.  `scope` is the filter's scope (unqualified
+    names bind to its own stream); `own_ref` loads come from the row under
+    evaluation, `other_ref` loads (a join's other side) from the candidate
+    row, every other ref from that pattern atom's capture in the slot under
+    evaluation (`atom_of_ref`: ref -> atom)."""
     code: List[int] = []
-    t = _emit(expr, scope, own_ref, atom_of_ref, code)
+    t = _emit(expr, scope, own_ref, atom_of_ref, code, other_ref)
     if t.type != "BOOL":
-        raise CompileError("pattern filter must be boolean")
+        raise CompileError("filter must be boolean")
     return code
 
 
-def _emit(expr, scope, own_ref, atom_of_ref, code) -> CompiledExpr:
+def _emit(expr, scope, own_ref, atom_of_ref, code,
+          other_ref=None) -> CompiledExpr:
     """Append expr's words; returns a CompiledExpr carrying its static type
     (and constness) for the caller's typing decisions."""
     if isinstance(expr, Constant):
@@ -118,13 +132,15 @@ def _emit(expr, scope, own_ref, atom_of_ref, code) -> CompiledExpr:
                                "kernel filter subset")
         if key == own_ref and expr.stream_index is None:
             code += [LOAD_EV, pos]
+        elif key == other_ref and expr.stream_index is None:
+            code += [LOAD_OTHER, pos]
         else:
             code += [LOAD_CAP, atom_of_ref[key], pos]
         return CompiledExpr(None, t)
 
     if isinstance(expr, (Add, Subtract, Multiply, Divide)):
-        l = _emit(expr.left, scope, own_ref, atom_of_ref, code)
-        r = _emit(expr.right, scope, own_ref, atom_of_ref, code)
+        l = _emit(expr.left, scope, own_ref, atom_of_ref, code, other_ref)
+        r = _emit(expr.right, scope, own_ref, atom_of_ref, code, other_ref)
         t = promote(l.type, r.type)
         code += [ARITH, _ARITH_OPS[type(expr)], type_code(t),
                  type_code(l.type), type_code(r.type),
@@ -133,8 +149,8 @@ def _emit(expr, scope, own_ref, atom_of_ref, code) -> CompiledExpr:
         return CompiledExpr(None, t)
 
     if isinstance(expr, Compare):
-        l = _emit(expr.left, scope, own_ref, atom_of_ref, code)
-        r = _emit(expr.right, scope, own_ref, atom_of_ref, code)
+        l = _emit(expr.left, scope, own_ref, atom_of_ref, code, other_ref)
+        r = _emit(expr.right, scope, own_ref, atom_of_ref, code, other_ref)
         if l.type == "STRING" and r.type == "STRING":
             if expr.operator not in ("==", "!="):
                 raise CompileError(
@@ -149,21 +165,44 @@ def _emit(expr, scope, own_ref, atom_of_ref, code) -> CompiledExpr:
         return CompiledExpr(None, "BOOL")
 
     if isinstance(expr, (And, Or)):
-        _emit(expr.left, scope, own_ref, atom_of_ref, code)
-        _emit(expr.right, scope, own_ref, atom_of_ref, code)
+        _emit(expr.left, scope, own_ref, atom_of_ref, code, other_ref)
+        _emit(expr.right, scope, own_ref, atom_of_ref, code, other_ref)
         code.append(AND if isinstance(expr, And) else OR)
         return CompiledExpr(None, "BOOL")
 
     if isinstance(expr, Not):
-        _emit(expr.expression, scope, own_ref, atom_of_ref, code)
+        _emit(expr.expression, scope, own_ref, atom_of_ref, code,
+                      other_ref)
         code.append(NOT)
         return CompiledExpr(None, "BOOL")
 
     if isinstance(expr, IsNull) and expr.expression is not None:
-        inner = _emit(expr.expression, scope, own_ref, atom_of_ref, code)
+        inner = _emit(expr.expression, scope, own_ref, atom_of_ref, code,
+                      other_ref)
         code += [ISNULL, null_kind(inner.type) if maybe_null(inner)
                  else N_NONE]
         return CompiledExpr(None, "BOOL")
+
+    if isinstance(expr, AttributeFunction) and not expr.namespace and \
+            expr.name == "coalesce" and expr.parameters:
+        acc = _emit(expr.parameters[0], scope, own_ref, atom_of_ref, code,
+                    other_ref)
+        for a in expr.parameters[1:]:
+            c = _emit(a, scope, own_ref, atom_of_ref, code, other_ref)
+            if acc.type in ("STRING", "OBJECT"):
+                if c.type != acc.type:
+                    raise CompileError("coalesce of a string and another "
+                                       "type is outside the kernel subset")
+                t = acc.type
+            else:
+                t = promote(acc.type, c.type)
+            # null kinds of the values, not of their constness: the
+            # executor's coalesce tests every value for the in-band null
+            code += [COALESCE, type_code(t), type_code(acc.type),
+                     type_code(c.type), null_kind(acc.type),
+                     null_kind(c.type), null_kind(t)]
+            acc = CompiledExpr(None, t)
+        return acc
 
     raise CompileError(
         f"{type(expr).__name__} is outside the kernel filter subset")
@@ -197,7 +236,7 @@ _CMP_FNS = (torch.lt, torch.le, torch.gt, torch.ge, torch.eq, torch.ne)
 
 
 _OP_LEN = {LOAD_EV: 2, LOAD_CAP: 3, CONST: 3, ARITH: 7, CMP: 7, AND: 1,
-           OR: 1, NOT: 1, ISNULL: 2}
+           OR: 1, NOT: 1, ISNULL: 2, LOAD_OTHER: 2, COALESCE: 7}
 
 
 def cap_loads(code: List[int]) -> List[Tuple[int, int]]:
@@ -213,10 +252,12 @@ def cap_loads(code: List[int]) -> List[Tuple[int, int]]:
 
 
 def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
-              load_cap: Callable[[int, int], torch.Tensor]) -> torch.Tensor:
-    """Run bytecode over whole columns: `load_ev(col)` and
-    `load_cap(atom, col)` return tensors of one shape (the keys).
-    Returns the bool column."""
+              load_cap: Callable[[int, int], torch.Tensor],
+              load_other: Optional[Callable[[int], torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Run bytecode over whole columns: `load_ev(col)`,
+    `load_cap(atom, col)` and `load_other(col)` return tensors of one
+    shape (the keys, or the candidate pairs).  Returns the bool column."""
     stack: List[torch.Tensor] = []
     pc = 0
     while pc < len(code):
@@ -227,6 +268,15 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
         elif op == LOAD_CAP:
             stack.append(load_cap(code[pc + 1], code[pc + 2]))
             pc += 3
+        elif op == LOAD_OTHER:
+            stack.append(load_other(code[pc + 1]))
+            pc += 2
+        elif op == COALESCE:
+            t, lt, rt, lnk, rnk, onk = code[pc + 1:pc + 7]
+            b, a = _typed(stack.pop(), rt), _typed(stack.pop(), lt)
+            x, y = _null_cast(a, lnk, t, onk), _null_cast(b, rnk, t, onk)
+            stack.append(torch.where(_is_null(x, onk), y, x))
+            pc += 7
         elif op == CONST:
             lo, hi = code[pc + 1], code[pc + 2]
             v = (hi << 32) | (lo & 0xFFFFFFFF)
@@ -265,6 +315,18 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
     if len(stack) != 1:
         raise ValueError("bytecode left an unbalanced stack")
     return stack[0].bool()
+
+
+def _null_cast(v: torch.Tensor, nk: int, t: int, onk: int) -> torch.Tensor:
+    """astype to t, with v's nulls (null kind nk) mapped to the null of the
+    result (null kind onk)."""
+    out = v.to(CODE_DTYPE[t])
+    if nk == N_NONE or onk == N_NONE:
+        return out
+    nv = {N_INT: ev.NULL_INT, N_LONG: ev.NULL_LONG, N_NAN: float("nan"),
+          N_ID: ev.NULL_ID}[onk]
+    return torch.where(_is_null(v, nk),
+                       torch.tensor(nv, dtype=CODE_DTYPE[t]), out)
 
 
 def _typed(v: torch.Tensor, t: int) -> torch.Tensor:

@@ -137,7 +137,7 @@ def test_value_expressions_agree(text):
 
 
 @pytest.mark.parametrize("text", ["math:abs(i) > 1", "i in T",
-                                  "coalesce(i, 0) > 1"])
+                                  "maximum(i, 0) > 1"])
 def test_unported_expressions_raise(text):
     _, tscope = scopes()
     if text == "i in T":

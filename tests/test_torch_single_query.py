@@ -240,7 +240,8 @@ def test_out_of_subset_raises_at_plan_time_on_cuda():
 
 
 @pytest.mark.parametrize("body,item", [
-    ("from S#window.length(5) select price insert into O;", "B11"),
+    ("from S#window.externalTime(volume, 1 sec) select price insert into O;",
+     "B12"),
     ("from S#window.timeBatch(1 sec) select price insert into O;", "B11"),
     ("from S select price insert into O order by price;", "B14"),
     ("from S select distinctCount(symbol) as d insert into O;", "B14"),
