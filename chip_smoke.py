@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the eight kernels of siddhi_tpu_torch/csrc/ with
+  2. build: compiles the nine kernels of siddhi_tpu_torch/csrc/ with
      nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -67,7 +67,31 @@ Phases (any failure exits nonzero):
      [n_valid, n_current, n_dropped] held to a numpy recount, ev/s and
      per-send p50 / p99, then a profiled sweep of J2;
  13. J3: the two join samples whole (16,384 events a side a send, 16
-     sends), with the recount and the outer-join sample's second query.
+     sends), with the recount and the outer-join sample's second query;
+ 14. block_nfa (K8) against its plain version stage by stage (state words,
+     dropped, header, valid rows; exact): S1's shape (bench.py's
+     config_sequence_within, 2,048 events), S1-wide's (131,072 events,
+     1,024 chunks), the pattern sample's (16,384 events), a sequence
+     without `every`, a two-slot slab that overflows at chunk boundaries,
+     batches with invalid rows, ts-delta and raw-ts wires; then K8 per
+     launch at S1's and S1-wide's shapes (CUDA-graph replays) beside its
+     plain version and its bound;
+ 15. pattern_step with an absent atom against its plain version (wakes
+     included) on A1's data steps (2^20-key slab; dense and gather,
+     ts-delta and raw-ts), on timer launches over the whole slab (one that
+     fires a block, one at the same time that fires nothing) and on random
+     traffic without padding rows; then its times at A1's data step and
+     timer step beside their bounds;
+ 16. S1 (1 warm + 32 timed sends), S1-wide (1 + 16, then a profiled sweep)
+     and S2 (16 sends, then the same sends again with every step held to
+     the plain version) through SiddhiManager: S1's match counts equal
+     their closed form on every send, K8 launched, its plain version never
+     called;
+ 17. A1 (the partitioned absent rule at 2^20 keys: 8 filling + 16 timed
+     sends, then a profiled sweep): exactly the odd keys of each block
+     fire, once each, at e1.ts + 1000, through timer-mode launches; A2:
+     the absent corpus's shapes with standalone absent atoms and the idle
+     advance, the JAX package's events.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -528,7 +552,7 @@ def main() -> None:
     cols, delta, sel = flagship_inputs(torch, dev, BATCH)
     hdr = ps.launch(step.kernel_plan, flag_state, cols, None, (1000, delta),
                     sel, 0, 1003, True)[1][0]
-    if [int(x) for x in hdr] != [BATCH, 0]:
+    if [int(x) for x in hdr[:2]] != [BATCH, 0]:
         fail(f"flagship block step header {[int(x) for x in hdr]}")
     replicate_block(flag_state, BATCH)
     flag = time_traffic(torch, ps, step, flag_state, cols, (1010, delta),
@@ -635,6 +659,7 @@ def main() -> None:
 
     records = single_stream_phases(torch, np, dev)
     records += join_phases(torch, np, dev)
+    records += pattern_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -1034,8 +1059,9 @@ def config_rows(np, rng):
             rng.random(B1, dtype=np.float32), np.ones(B1, np.int32)]
 
 
-def drive(torch, np, rt, qname, stream, sends, warm, mods, last=None):
-    """`warm` untimed sends, TIMED timed ones, then the rest untimed;
+def drive(torch, np, rt, qname, stream, sends, warm, mods, last=None,
+          timed=TIMED):
+    """`warm` untimed sends, `timed` timed ones, then the rest untimed;
     `last(i)` runs before send i.  Kernel and plain-version counts from
     just before the first send to just after the last.  Returns (per-send
     host seconds of the timed sends, per-send (n_current, n_expired),
@@ -1050,11 +1076,12 @@ def drive(torch, np, rt, qname, stream, sends, warm, mods, last=None):
     for m in mods.values():
         m.reset_counts()
     lat = []
+    wall = None
     for i, (cols, ts) in enumerate(sends):
         if i == warm:
             rt.flush()
             t_start = time.perf_counter()
-        if i == warm + TIMED:
+        if i == warm + timed:
             rt.flush()
             wall = time.perf_counter() - t_start
         if last is not None:
@@ -1062,9 +1089,11 @@ def drive(torch, np, rt, qname, stream, sends, warm, mods, last=None):
         counts.append([0, 0])
         tb = time.perf_counter()
         h.send_columns(cols, timestamps=ts)
-        if warm <= i < warm + TIMED:
+        if warm <= i < warm + timed:
             lat.append(time.perf_counter() - tb)
     rt.flush()
+    if wall is None:
+        wall = time.perf_counter() - t_start
     launches = {k: m.launches for k, m in mods.items()}
     plain = {k: m.plain_calls for k, m in mods.items()}
     return lat, [tuple(c) for c in counts], launches, plain, wall
@@ -2238,6 +2267,794 @@ def join_phases(torch, np, dev):
             "plain_ms": t2[k]["plain_ms"], "bound_ms": t2[k]["bound_ms"],
             "bound_by": t2[k]["bound_by"], "library_ms": None})
     return records
+
+
+# ---------------------------------------------------------------------------
+# single-key patterns and sequences (K8 block_nfa) and absent patterns
+# (pattern_step's absent atoms and timer mode)
+# ---------------------------------------------------------------------------
+
+S1_B = 1 << 11            # bench.py config_sequence_within's batch
+S1W_B = 1 << 17           # S1-wide: the batch of the port's other paths
+S2_B = 1 << 14            # the pattern sample's sends
+S2_SYMS = 64
+A1_KEYS = 1 << 20         # A1's partition keys
+A1_BLOCK = 1 << 17        # A1's keys a send
+NO_WAKE = (2 ** 63 - 1) // 4
+
+
+def clone_state(state):
+    b32, b64, scal = state
+    return (b32.clone(), b64.clone(), tuple(s.clone() for s in scal))
+
+
+def restore_into(dst, src):
+    for a, b in zip(dst[:2], src[:2]):
+        a.copy_(b)
+    for a, b in zip(dst[2], src[2]):
+        a.copy_(b)
+
+
+def s1_send(np, rng, i, B):
+    """One send of bench.py config_sequence_within: symbol 0, price
+    uniform, volume alternating 1, 2, ts 1000 + 50 i + (j mod 50)."""
+    return ([np.zeros(B, np.int64), rng.random(B, np.float32),
+             np.tile(np.array([1, 2], np.int32), B // 2)],
+            1000 + i * 50 + np.arange(B, dtype=np.int64) % 50)
+
+
+def s1_matches(np, cols):
+    """S1's closed form: each volume-1 event seeds, the next event (its
+    volume-2 partner, always inside `within`) completes it iff its price
+    is higher."""
+    p = cols[1]
+    return int(np.sum(p[1::2] > p[0::2]))
+
+
+def s2_send(np, rng, i, B, sym_ids):
+    return ([sym_ids[rng.integers(0, S2_SYMS, B)],
+             rng.random(B, np.float32)],
+            1000 + i * B + np.arange(B, dtype=np.int64))
+
+
+def block_inputs(torch, np, dev, cols, ts, invalid=0.0, rng=None,
+                 wire=True):
+    """Device arguments of one block step: the columns, the ts (as the
+    ts-delta wire or the raw column), the [1, E] selection (a share of
+    invalid rows), key_ref and now."""
+    B = ts.shape[0]
+    sel = np.arange(B, dtype=np.int32)
+    if invalid:
+        sel[rng.random(B) < invalid] = -1
+    dcols = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                  for c in cols)
+    if wire:
+        ts_args = (int(ts[0]), torch.from_numpy(
+            (ts - ts[0]).astype(np.int32)).to(dev))
+    else:
+        ts_args = (torch.from_numpy(ts).to(dev),)
+    key = torch.zeros(1, dtype=torch.int32, device=dev)
+    return (dcols,) + ts_args + (torch.from_numpy(sel[None, :]).to(dev),
+                                 key, int(ts.max()))
+
+
+def block_compare(torch, planned, sid, state, args, wire, what):
+    """One block step through K8 and its plain version from copies of one
+    state: state words, dropped, header, valid mask and the valid rows
+    must be equal.  Returns (kernel state, max float err, header)."""
+    steps = planned.steps_w if wire else planned.steps
+    step = steps[sid]
+    a = step.plain(clone_state(state), (), *args)
+    b = step.kernel(state, (), *args)
+    torch.cuda.synchronize()
+    err, hdr = compare_steps(torch, a, b, what, False)
+    print(f"compare: {what}: K8 == plain, header {hdr}, dropped "
+          f"{int(b[0][2][0])}")
+    return b[0], err, hdr
+
+
+def bn_bound(planned, sid, E, n_rows, wire):
+    """K8's bound: the bytes its inputs need (E events' selection, ts and
+    columns), the rows it writes (ts, valid, emitted columns) and the slab
+    read and written once."""
+    schema = planned.in_schemas[sid]
+    ev_bytes = sum(np_size(t) for t in schema.types) + 4 + (4 if wire else 8)
+    kp = planned.steps[sid].kernel_plan
+    row = 8 + 1 + sum(np_size(kp.sel.scope.schema(kp.atoms[a].ref).types[c])
+                      for a, c in kp.emit)
+    st = planned.init_state(1)[0]
+    slab = st[0].numel() * 4 + st[1].numel() * 8 + 8
+    return bound(E * ev_bytes + n_rows * row + 2 * slab)
+
+
+def np_size(attr_type):
+    return {"LONG": 8, "BOOL": 1}.get(attr_type.upper(), 4)
+
+
+def compare_block_kernel(torch, np, dev):
+    """K8 against its plain version stage by stage: S1's and S1-wide's
+    shapes, S2's, a sequence without `every`, a slab of two slots that
+    overflows at chunk boundaries, batches with invalid rows, raw-ts and
+    ts-delta wires.  Returns (max err, steps compared, timing inputs)."""
+    from siddhi_tpu_torch import SiddhiManager
+    rng = np.random.default_rng(41)
+    max_err, n = 0.0, 0
+    timing = {}
+
+    def run(ql, qname, sid, sends, label, wire=True, invalid=0.0,
+            keep=None):
+        nonlocal max_err, n
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+        planned = rt.query_runtimes[qname].planned
+        if not planned.block:
+            fail(f"{label}: not planned onto the block NFA")
+        state = planned.init_state(1)[0]
+        for i, (cols, ts) in enumerate(sends):
+            args = block_inputs(torch, np, dev, cols, ts, invalid, rng, wire)
+            before = clone_state(state)
+            state, err, hdr = block_compare(
+                torch, planned, sid, state, args, wire,
+                f"{label} step {i} (E={ts.shape[0]}, "
+                f"{'ts-delta' if wire else 'raw-ts'})")
+            max_err, n = max(max_err, err), n + 1
+        if keep is not None:
+            timing[keep] = (planned, sid, before, args, wire, hdr)
+
+    run(S1_QL.format(rows=4096), "q", "S",
+        [s1_send(np, rng, i, S1_B) for i in range(3)], "S1", keep="S1")
+    run(S1_QL.format(rows=65536), "q", "S",
+        [s1_send(np, rng, i, S1W_B) for i in range(2)], "S1-wide",
+        keep="S1-wide")
+    mgr = SiddhiManager(device=dev)
+    with open("samples/apps/pattern_matching.siddhi") as fh:
+        s2_ql = fh.read()
+    ids = np.array([mgr.interner.intern(f"SYM{i}") for i in range(S2_SYMS)],
+                   np.int32)
+    run(s2_ql, "riseQuery", "StockStream",
+        [s2_send(np, rng, i, S2_B, ids) for i in range(2)], "S2")
+
+    def rand_sends(k, B):
+        out = []
+        for i in range(k):
+            out.append(([np.zeros(B, np.int64), rng.random(B, np.float32),
+                         rng.integers(1, 4, B).astype(np.int32)],
+                        1000 + 200 * i +
+                        np.sort(rng.integers(0, 150, B)).astype(np.int64)))
+        return out
+    run(NON_EVERY_SEQ_QL, "q", "S", rand_sends(2, S1_B), "non-every sequence",
+        wire=False)
+    run(OVERFLOW_QL, "q", "S", rand_sends(3, S1_B), "two-slot overflow")
+    run(S1_QL.format(rows=4096), "q", "S",
+        [s1_send(np, rng, i, S1_B) for i in range(2)], "invalid rows",
+        invalid=0.1)
+    print(f"compare: K8 == plain over {n} block steps, max_abs_err "
+          f"{max_err}")
+    return max_err, n, timing
+
+
+def time_block_kernel(torch, np, dev, timing, label):
+    """K8 per launch at one shape (the last compared step's inputs, from
+    its state), CUDA-graph replays between CUDA events, beside its plain
+    version and its bound."""
+    from siddhi_tpu_torch.kernels import block_nfa as bn
+    planned, sid, before, args, wire, hdr = timing[label]
+    kp = planned.steps[sid].kernel_plan
+    state = clone_state(before)
+    cols = args[0]
+    if wire:
+        ts_wire, raw_ts, sel, now = (args[1], args[2]), None, args[3], args[5]
+    else:
+        ts_wire, raw_ts, sel, now = None, args[1], args[2], args[4]
+
+    def restore():
+        restore_into(state, before)
+    restore()
+    kout = bn.launch(kp, state, cols, raw_ts, ts_wire, sel, now)[1]
+    n_rows = int(kout[0][0])
+    step = (planned.steps_w if wire else planned.steps)[sid]
+    E = sel.shape[1]
+    res = {"ms": graph_ms(torch, lambda: bn.launch(kp, state, cols, raw_ts,
+                                                   ts_wire, sel, now), 10,
+                          restore),
+           "plain_ms": event_timer(torch, lambda: step.plain(
+               state, (), *args), 2, restore),
+           **bn_bound(planned, sid, E, n_rows, wire)}
+    print(f"timing block_nfa ({label}: E={E}, {(E + 127) // 128} chunks, "
+          f"{n_rows} completions): kernel {res['ms']:.4f} ms/launch, plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.5f} ms by "
+          f"{res['bound_by']} ({res['bytes']} bytes)")
+    return res
+
+
+def a1_sends(np, i):
+    """A1's send i: S1 rows (v = 1) for key block i mod 8 at
+    1000 + 250 i, then S2 rows for that block's even keys 100 ms later."""
+    blk = i % (A1_KEYS // A1_BLOCK)
+    keys = np.arange(blk * A1_BLOCK, (blk + 1) * A1_BLOCK, dtype=np.int64)
+    t1 = 1000 + 250 * i
+    s1 = ([keys, np.ones(A1_BLOCK, np.int32)],
+          np.full(A1_BLOCK, t1, np.int64))
+    even = keys[0::2]
+    s2 = ([even, np.full(even.shape[0], 2, np.int32)],
+          np.full(even.shape[0], t1 + 100, np.int64))
+    return s1, s2
+
+
+def absent_step_args(torch, np, dev, planned, cols, ts, wire, dense):
+    """Device arguments of one partitioned data step of A1's query from
+    host columns: keys become slots in order (slot = key), one event each."""
+    n = ts.shape[0]
+    keys = cols[0]
+    dcols = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                  for c in cols)
+    sel = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    if dense:
+        key_ref = int(keys[0])
+    else:
+        key_ref = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    if wire:
+        ts_args = (int(ts[0]), torch.from_numpy(
+            (ts - ts[0]).astype(np.int32)).to(dev))
+    else:
+        ts_args = (torch.from_numpy(ts).to(dev),)
+    return (dcols,) + ts_args + (sel, key_ref, int(ts.max()))
+
+
+def absent_compare(torch, a, b, what, compact):
+    err, hdr = compare_steps(torch, a, b, what, compact)
+    wa, wb = int(a[3]), int(b[3])
+    if wa != wb:
+        fail(f"{what}: wake {wa} != {wb}")
+    print(f"compare: {what}: pattern_step == plain, header {hdr}, wake "
+          f"{wa if wa < NO_WAKE else 'none'}")
+    return err
+
+
+def compare_absent_kernel(torch, np, dev):
+    """pattern_step with an absent atom against its plain version on A1's
+    data steps (dense and gather, ts-delta and raw-ts) and on timer
+    launches over the whole 2^20-key slab, wakes included; then random
+    traffic (volumes 1-4, no padding rows: the plain gather step ticks a
+    clamped copy of the last key for a padding row, the kernel skips it).
+    Returns (max err, steps compared, timing inputs)."""
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(A1_QL)
+    planned = rt.query_runtimes["q"].planned
+    P = planned.slots
+    plain = planned.init_state(A1_KEYS)[0]
+    kern = clone_state(plain)
+    max_err, n = 0.0, 0
+    timing = {}
+
+    def data(sid, cols, ts, wire, dense, label):
+        nonlocal plain, kern, max_err, n
+        args = absent_step_args(torch, np, dev, planned, cols, ts, wire,
+                                dense)
+        steps = (planned.dense_steps_w if wire else planned.dense_steps) \
+            if dense else (planned.steps_w if wire else planned.steps)
+        before = clone_state(kern)
+        a = steps[sid].plain(plain, (), *args)
+        b = steps[sid].kernel(kern, (), *args)
+        torch.cuda.synchronize()
+        EP = planned.slots + 1
+        max_err = max(max_err, absent_compare(
+            torch, a, b, label, min(planned.compact_rows, EP) < EP))
+        plain, kern, n = a[0], b[0], n + 1
+        return before, args, steps[sid]
+
+    def timer(now, label):
+        nonlocal plain, kern, max_err, n
+        before = clone_state(kern)
+        a = planned.timer_step.plain(plain, (), now)
+        b = planned.timer_step.kernel(kern, (), now)
+        torch.cuda.synchronize()
+        max_err = max(max_err, absent_compare(torch, a, b, label,
+                                              min(8, P + 1) < P + 1))
+        plain, kern, n = a[0], b[0], n + 1
+        return before, int(b[2][0])
+
+    for i in range(5):
+        (c1, t1), (c2, t2) = a1_sends(np, i)
+        wire = i != 3
+        kind = "ts-delta" if wire else "raw-ts"
+        got = data("S1", c1, t1, wire, True, f"A1 S1 step {i} (dense, {kind})")
+        if i == 0:
+            timing["data"] = got
+        data("S2", c2, t2, wire, False, f"A1 S2 step {i} (gather, {kind})")
+    before, fired = timer(1000 + 1000, "A1 timer at 2000 (block 0 due)")
+    if fired != A1_BLOCK // 2:
+        fail(f"A1 timer fired {fired} rows, expected {A1_BLOCK // 2}")
+    timing["timer"] = (before, 2000)
+    timer(2000, "A1 timer at 2000 again (nothing due)")
+    rng = np.random.default_rng(43)
+    for i in range(4):
+        m = A1_KEYS // 32
+        keys = np.sort(rng.choice(A1_KEYS, m, replace=False)).astype(np.int64)
+        cols = [keys, rng.integers(1, 5, m).astype(np.int32)]
+        ts = 2100 + 300 * i + np.sort(rng.integers(0, 250, m)).astype(
+            np.int64)
+        data(("S1", "S2")[i % 2], cols, ts, i != 2, False,
+             f"random step {i} (gather, {m} keys)")
+    timer(3400, "timer at 3400")
+    print(f"compare: pattern_step (absent atoms, timer mode) == plain over "
+          f"{n} steps, max_abs_err {max_err}")
+    return max_err, n, (planned, timing)
+
+
+def time_absent_kernel(torch, np, dev, tinfo):
+    """pattern_step per launch at A1's data step (131,072 keys, one event
+    each, dense) and its timer step (the whole 2^20-key slab, 65,536
+    absent deadlines due), CUDA-graph replays between CUDA events."""
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    planned, timing = tinfo
+    res = {}
+    before, args, step = timing["data"]
+    state = clone_state(before)
+
+    def restore():
+        restore_into(state, before)
+    kp = step.kernel_plan
+    cols, base, delta, sel, key_lo, now = args
+    res["data"] = {
+        "ms": graph_ms(torch, lambda: ps.launch(
+            kp, state, cols, None, (base, delta), sel, key_lo, now, True),
+            20, restore),
+        "plain_ms": event_timer(torch, lambda: step.plain(state, (), *args),
+                                3, restore)}
+    # per key: its selection and event (sel 4, key 8, v 4, ts delta 4),
+    # the P active and the seed_on / done words read, the spawned slot's
+    # active, pos, count, lmask (4 each), start, entry, capture ts and key
+    # (8 each) and v (4) written, and the valid flags of its P + 1 rows
+    P = planned.slots
+    Kb = sel.shape[0]
+    res["data"].update(bound(Kb * (20 + 4 * (P + 2) + 52 + (P + 1))))
+    tbefore, now = timing["timer"]
+    state = clone_state(tbefore)
+
+    def trestore():
+        restore_into(state, tbefore)
+    tkp = planned.timer_step.kernel_plan
+    trestore()
+    kout = ps.launch(tkp, state, None, None, None, None, None, now, True,
+                     timer=True)[1]
+    fired = int(kout[0][0])
+    K = tbefore[0].shape[1]
+    act = tbefore[0][:P].to(torch.bool)
+    n_act = int(act.sum())
+    res["timer"] = {
+        "ms": graph_ms(torch, lambda: ps.launch(
+            tkp, state, None, None, None, None, None, now, True, timer=True),
+            20, trestore),
+        "plain_ms": event_timer(torch, lambda: planned.timer_step.plain(
+            state, (), now), 3, trestore)}
+    # phase 2 reads every slot's active word and, of each active slot, its
+    # pos and entry words; it writes the active word of each slot that
+    # fires; the launch writes the valid flag of every output row
+    # ((P + 1) a key) and the ts, kind and emitted column of each fired row
+    res["timer"].update(bound(K * P * 4 + n_act * (4 + 8) + fired * 4 +
+                              K * (P + 1) + fired * (8 + 4 + 8)))
+    res["timer"]["fired"], res["timer"]["active"] = fired, n_act
+    for k, t in res.items():
+        print(f"timing pattern_step (A1 {k} step): kernel {t['ms']:.4f} "
+              f"ms/launch, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+              f"bytes)")
+    print(f"timing pattern_step (A1 timer step): {K} keys, {n_act} active "
+          f"slots, {fired} fired")
+    return res
+
+
+def run_s1(torch, np, dev, mods, B, rows, warm, timed, label, profile):
+    """S1 (or S1-wide) through SiddhiManager: every send's match count
+    against the closed form, the kernel launched and the plain version
+    never called."""
+    from siddhi_tpu_torch import SiddhiManager
+    rng = np.random.default_rng(4)
+    sends = [s1_send(np, rng, i, B) for i in range(warm + timed)]
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(S1_QL.format(rows=rows))
+    rt.start()
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "q", "S", sends, warm, mods, timed=timed)
+    counts = [c[0] for c in counts]
+    want = [s1_matches(np, c) for c, _ in sends]
+    if counts != want:
+        bad = [i for i, (a, b) in enumerate(zip(counts, want)) if a != b]
+        fail(f"{label}: match counts of sends {bad[:4]} are "
+             f"{[counts[i] for i in bad[:4]]}, the closed form "
+             f"{[want[i] for i in bad[:4]]}")
+    check_launched(label, launches, plain, ["block_nfa"])
+    h2d = B * (8 + 4 + 4 + 4 + 4)
+    lat_line(np, label, lat, wall, timed * B, h2d)
+    print(f"{label}: matches {sum(counts[warm:])} over the timed sends, "
+          f"equal to the closed form on every send")
+    prof = None
+    if profile:
+        h = rt.get_input_handler("S")
+        extra = [s1_send(np, rng, warm + timed + i, B) for i in range(4)]
+        prof = device_profile(torch, rt, len(extra), lambda b: h.send_columns(
+            extra[b][0], timestamps=extra[b][1]))
+        profile_line(label, len(extra), prof)
+    mgr.shutdown()
+    return launches["block_nfa"]
+
+
+def profile_line(label, n, prof):
+    if prof["device_ms"] is None:
+        print(f"{label} profile ({n} sends): wall {prof['wall_ms']:.3f} ms, "
+              f"device time not measured")
+        return
+    print(f"{label} profile ({n} sends): wall {prof['wall_ms']:.3f} ms, "
+          f"device busy {prof['device_ms']:.3f} ms (idle share "
+          f"{prof['idle_share']:.4f}); top device ops: "
+          + "; ".join(f"{k} {t:.3f} ms over {c} calls"
+                      for k, t, c in prof["top"]))
+
+
+def run_s2(torch, np, dev, mods):
+    """The pattern sample through SiddhiManager (16 sends of 16,384 events,
+    64 symbols, ts +1 ms an event), then the same sends again on a fresh
+    runtime with every block step held to its plain version (state words,
+    dropped, header, rows)."""
+    from siddhi_tpu_torch import SiddhiManager
+    with open("samples/apps/pattern_matching.siddhi") as fh:
+        ql = fh.read()
+    mgr = SiddhiManager(device=dev)
+    ids = np.array([mgr.interner.intern(f"SYM{i}") for i in range(S2_SYMS)],
+                   np.int32)
+    rng = np.random.default_rng(44)
+    sends = [s2_send(np, rng, i, S2_B, ids) for i in range(16)]
+    rt = mgr.create_siddhi_app_runtime(ql)
+    rt.start()
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "riseQuery", "StockStream", sends, 0, mods,
+        timed=16)
+    counts = [c[0] for c in counts]
+    check_launched("S2", launches, plain, ["block_nfa"])
+    lat_line(np, "S2", lat, wall, 16 * S2_B, S2_B * (4 + 4 + 4 + 4))
+    mgr.shutdown()
+    # the replay, each step against its plain version
+    mgr = SiddhiManager(device=dev)
+    for i in range(S2_SYMS):
+        mgr.interner.intern(f"SYM{i}")
+    rt = mgr.create_siddhi_app_runtime(ql)
+    qr = rt.query_runtimes["riseQuery"]
+    p = qr.planned
+    for table in (p.steps, p.steps_w):
+        inner = table["StockStream"]
+
+        class Shadow:
+            def __init__(self, inner):
+                self.inner = inner
+                self.kernel_plan = inner.kernel_plan
+
+            def __call__(self, packed, sel_state, raw_cols, *args):
+                a = self.inner.body(clone_state(packed), sel_state,
+                                    raw_cols, *args)
+                b = self.inner(packed, sel_state, raw_cols, *args)
+                torch.cuda.synchronize()
+                compare_steps(torch, a, b, "S2 replay step", False)
+                replayed[0] += 1
+                return b
+        table["StockStream"] = Shadow(inner)
+    replayed = [0]
+    got = []
+    rt.add_batch_callback("riseQuery", lambda ts, b: got.append(
+        b["n_current"]))
+    h = rt.get_input_handler("StockStream")
+    for cols, ts in sends:
+        h.send_columns(cols, timestamps=ts)
+    rt.flush()
+    mgr.shutdown()
+    if got != counts or replayed[0] != len(sends):
+        fail(f"S2 replay: {replayed[0]} steps compared, counts {got[:4]} "
+             f"against the timed run's {counts[:4]}")
+    print(f"S2: K8 == plain on all {replayed[0]} replayed sends (rows, "
+          f"header, state words, dropped); {sum(counts)} matches")
+    return launches["block_nfa"]
+
+
+def run_a1(torch, np, dev, mods):
+    """A1 through SiddhiManager: 8 filling + 16 timed sends (each an S1
+    step over 131,072 keys and an S2 step over their 65,536 even keys);
+    the timer steps fire exactly the odd keys of each block, once each, at
+    e1.ts + 1000, and launch in timer mode over the whole slab."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(A1_QL)
+    fired = {}                  # block send -> number of rows fired
+    checked = [0]
+
+    def on_batch(ts, b):
+        n = b["n_current"]
+        if not n:
+            return
+        if checked[0] < 3:
+            v = b["valid"]
+            k = b["cols"]["k"][v]
+            t = b["ts"][v]
+            i = (int(t[0]) - 2000) // 250
+            blk = i % (A1_KEYS // A1_BLOCK)
+            want = np.arange(blk * A1_BLOCK + 1, (blk + 1) * A1_BLOCK, 2)
+            if not (np.array_equal(np.sort(k), want) and
+                    np.all(t == 1000 + 250 * i + 1000)):
+                fail(f"A1: the rows fired at {ts} are not the odd keys of "
+                     f"block {blk} at {1000 + 250 * i + 1000}")
+            checked[0] += 1
+        i = (ts - 2000) // 250
+        fired[i] = fired.get(i, 0) + n
+    rt.add_batch_callback("q", on_batch)
+    rt.start()
+    h1, h2 = rt.get_input_handler("S1"), rt.get_input_handler("S2")
+    warm, timed = 8, 16
+    sends = [a1_sends(np, i) for i in range(warm + timed)]
+    for m in mods.values():
+        m.reset_counts()
+    lat = []
+    for i, ((c1, t1), (c2, t2)) in enumerate(sends):
+        if i == warm:
+            rt.flush()
+            t_start = time.perf_counter()
+        tb = time.perf_counter()
+        h1.send_columns(c1, timestamps=t1)
+        h2.send_columns(c2, timestamps=t2)
+        if i >= warm:
+            lat.append(time.perf_counter() - tb)
+    rt.flush()
+    wall = time.perf_counter() - t_start
+    launches = {k: m.launches for k, m in mods.items()}
+    plain = {k: m.plain_calls for k, m in mods.items()}
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    timer_launches = ps.timer_launches
+    # deadlines of sends 0 .. 19 have fallen due by send 23 (4 sends later)
+    want = {i: A1_BLOCK // 2 for i in range(warm + timed - 4)}
+    if fired != want:
+        fail(f"A1: fired rows by e1 send {sorted(fired.items())[:6]}, "
+             f"expected {A1_BLOCK // 2} for each of sends 0-"
+             f"{warm + timed - 5}")
+    if timer_launches <= 0:
+        fail("A1: the timer step never launched the kernel in timer mode")
+    check_launched("A1", launches, plain, ["pattern_step"])
+    print(f"A1: {sum(fired.values())} rows fired, the odd keys of every "
+          f"block once each (3 batches checked row by row); timer-mode "
+          f"launches {timer_launches}")
+    lat_line(np, "A1", lat, wall, timed * (A1_BLOCK + A1_BLOCK // 2),
+             (A1_BLOCK + A1_BLOCK // 2) * (8 + 4 + 4 + 4 + 4))
+    # a profiled sweep of 8 more sends (4 of them fire a block)
+    more = [a1_sends(np, warm + timed + i) for i in range(8)]
+
+    def send(b):
+        (c1, t1), (c2, t2) = more[b]
+        h1.send_columns(c1, timestamps=t1)
+        h2.send_columns(c2, timestamps=t2)
+    profile_line("A1", len(more), device_profile(torch, rt, len(more), send))
+    mgr.shutdown()
+    return launches["pattern_step"], timer_launches
+
+
+def run_a2(torch, np, dev):
+    """A2: the absent shapes of the JAX package's absent corpus and its
+    idle-advance test, a few events each, on the card: the events must be
+    those the JAX package gives (the CPU tests hold these expectations to
+    it)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    ps.reset_counts()
+    for name, body, sends, want in A2_CASES:
+        got = a2_run(SiddhiManager(device=dev), body, sends)
+        if got != want:
+            fail(f"A2 {name}: events {got}, expected {want}")
+    got = a2_idle(SiddhiManager(device=dev))
+    if got != A2_IDLE_WANT:
+        fail(f"A2 idle advance: events {got}, expected {A2_IDLE_WANT}")
+    if ps.launches <= 0 or ps.plain_calls:
+        fail(f"A2: kernel launches {ps.launches}, plain calls "
+             f"{ps.plain_calls}")
+    print(f"A2: {len(A2_CASES)} absent-corpus shapes and the idle advance "
+          f"give the JAX package's events; launches {ps.launches}, timer "
+          f"launches {ps.timer_launches}, plain calls {ps.plain_calls}")
+
+
+def a2_run(mgr, body, sends):
+    rt = mgr.create_siddhi_app_runtime(A2_BASE + body)
+    got = []
+    rt.add_callback("q", lambda ts, i, o: got.extend(
+        tuple(e.data) for e in (i or [])))
+    rt.start()
+    for stream, data, ts in sends:
+        rt.get_input_handler(stream).send(list(data), timestamp=ts)
+    rt.flush()
+    mgr.shutdown()
+    return got
+
+
+def a2_idle(mgr, timeout=10.0):
+    """The idle-advance case: one S1 event, then silence; the idle thread
+    walks the playback clock past the deadline.  Polls with a deadline."""
+    rt = mgr.create_siddhi_app_runtime(A2_IDLE_QL)
+    got = []
+    rt.add_callback("q", lambda ts, i, o: got.extend(
+        tuple(e.data) for e in (i or [])))
+    rt.start()
+    try:
+        rt.get_input_handler("S1").send(["WSO2", 55.6], timestamp=1000)
+        end = time.time() + timeout
+        while not got and time.time() < end:
+            time.sleep(0.02)
+    finally:
+        mgr.shutdown()
+    return [tuple(x) for x in got]
+
+
+def pattern_phases(torch, np, dev):
+    """Phases 14-17: K8 and pattern_step's absent and timer modes against
+    their plain versions, their times beside their bounds, and S1,
+    S1-wide, S2, A1 and A2 through SiddhiManager.  Returns the K8 and
+    timer-mode records."""
+    from siddhi_tpu_torch.kernels import block_nfa as bn
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    err_b, nb, btiming = compare_block_kernel(torch, np, dev)
+    tb = {k: time_block_kernel(torch, np, dev, btiming, k)
+          for k in ("S1", "S1-wide")}
+    del btiming
+    err_a, na, atiming = compare_absent_kernel(torch, np, dev)
+    ta = time_absent_kernel(torch, np, dev, atiming)
+    del atiming
+    torch.cuda.empty_cache()
+    bmods = {"block_nfa": bn}
+    launches = run_s1(torch, np, dev, bmods, S1_B, 4096, 1, 32, "S1", False)
+    launches += run_s1(torch, np, dev, bmods, S1W_B, 65536, 1, 16,
+                       "S1-wide", True)
+    launches += run_s2(torch, np, dev, bmods)
+    a_launch, t_launch = run_a1(torch, np, dev, {"pattern_step": ps})
+    run_a2(torch, np, dev)
+    print(f"kernel block_nfa: S1's shape {tb['S1']['ms']:.4f} ms (bound "
+          f"{tb['S1']['bound_ms']:.5f}), S1-wide's {tb['S1-wide']['ms']:.4f}"
+          f" ms (bound {tb['S1-wide']['bound_ms']:.5f}), launches on the "
+          f"main paths {launches}; library_ms null: no torch call runs an "
+          f"NFA over a stream")
+    print(f"kernel pattern_step timer mode: {ta['timer']['ms']:.4f} ms over "
+          f"the 2^20-key slab (bound {ta['timer']['bound_ms']:.5f}); A1's "
+          f"data step {ta['data']['ms']:.4f} ms (bound "
+          f"{ta['data']['bound_ms']:.5f}); launches on A1's path {a_launch} "
+          f"data, {t_launch} timer; library_ms null: no torch call runs a "
+          f"pattern's deadlines")
+    t = tb["S1-wide"]
+    return [{"name": "block_nfa", "route": "cuda",
+             "source": "siddhi_tpu_torch/csrc/block_nfa.cu",
+             "replaces": "siddhi_tpu/core/pattern_block.py:68",
+             "launches": launches, "max_abs_err": err_b, "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": None},
+            {"name": "pattern_step_timer", "route": "cuda",
+             "source": "siddhi_tpu_torch/csrc/pattern_step.cu",
+             "replaces": "siddhi_tpu/core/pattern_planner.py:396",
+             "launches": t_launch, "max_abs_err": err_a,
+             "ms": ta["timer"]["ms"], "plain_ms": ta["timer"]["plain_ms"],
+             "bound_ms": ta["timer"]["bound_ms"],
+             "bound_by": ta["timer"]["bound_by"], "library_ms": None}]
+
+
+# bench.py:297 config_sequence_within (siddhi_tpu/analysis/corpus.py
+# SEQUENCE_QL); S1-wide raises the @emit cap with its batch
+S1_QL = """
+@app:playback
+define stream S (symbol long, price float, volume int);
+@capacity(keys='1', slots='8')
+@emit(rows='{rows}')
+@info(name='q')
+from every e1=S[volume == 1], e2=S[volume == 2 and price > e1.price]
+  within 1 sec
+select e1.price as p1, e2.price as p2
+insert into M;
+"""
+
+NON_EVERY_SEQ_QL = """
+@app:playback
+define stream S (symbol long, price float, volume int);
+@info(name='q')
+from e1=S[volume == 2], e2=S[price >= 0.0]
+select e1.price as p1, e2.price as p2
+insert into M;
+"""
+
+OVERFLOW_QL = """
+@app:playback
+define stream S (symbol long, price float, volume int);
+@capacity(slots='2')
+@info(name='q')
+from every e1=S[volume == 1] -> e2=S[volume == 2 and price > e1.price]
+     -> e3=S[volume == 3] within 100 milliseconds
+select e1.price as p1, e2.price as p2, e3.volume as v3
+insert into M;
+"""
+
+# tests/test_correctness_fixes.py ABSENT_QL with `every`, at 2^20 keys
+A1_QL = """
+@app:playback
+define stream S1 (key long, v int);
+define stream S2 (key long, v int);
+partition with (key of S1, key of S2)
+begin
+  @capacity(keys='1048576', slots='4')
+  @info(name='q')
+  from every e1=S1[v == 1] -> not S2 for 1 sec
+  select e1.key as k
+  insert into Out;
+end;
+"""
+
+# tests/test_absent_corpus.py: its stream definitions and the shapes with
+# standalone absent atoms, with the events the JAX package gives
+A2_BASE = """
+@app:playback
+define stream S1 (sym string, price float, vol int);
+define stream S2 (sym string, price float, vol int);
+define stream S3 (sym string, price float, vol int);
+"""
+A2_CASES = [
+    ("absent filter suppresses", """
+@info(name='q') from e1=S1[price > 20.0] ->
+    not S2[price > e1.price] for 1 sec
+select e1.sym as a insert into Out;
+""", [("S1", ["WSO2", 55.6, 100], 1000), ("S2", ["IBM", 58.7, 10], 1100),
+      ("S1", ["tick", 99.0, 1], 2500)], []),
+    ("non-matching arrival", """
+@info(name='q') from e1=S1[price > 20.0] ->
+    not S2[price > e1.price] for 1 sec
+select e1.sym as a insert into Out;
+""", [("S1", ["WSO2", 55.6, 100], 1000), ("S2", ["IBM", 45.7, 10], 1100),
+      ("S1", ["tick", 9.0, 1], 2500)], [("WSO2",)]),
+    ("arrival after the wait", """
+@info(name='q') from e1=S1[price > 20.0] ->
+    not S2[price > e1.price] for 1 sec
+select e1.sym as a insert into Out;
+""", [("S1", ["WSO2", 55.6, 100], 1000), ("S2", ["IBM", 58.7, 10], 2100)],
+     [("WSO2",)]),
+    ("two-stage chain", """
+@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2] ->
+    not S3[vol == 3] for 1 sec
+select e1.sym as a, e2.sym as b insert into Out;
+""", [("S1", ["a", 1.0, 1], 1000), ("S2", ["b", 1.0, 2], 1200),
+      ("S1", ["tick", 1.0, 9], 2600)], [("a", "b")]),
+    ("two-stage chain violated", """
+@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2] ->
+    not S3[vol == 3] for 1 sec
+select e1.sym as a, e2.sym as b insert into Out;
+""", [("S1", ["a", 1.0, 1], 1000), ("S2", ["b", 1.0, 2], 1200),
+      ("S3", ["c", 1.0, 3], 1900), ("S1", ["tick", 1.0, 9], 2600)], []),
+    ("absent then presence", """
+@info(name='q') from e1=S1[vol == 1] -> not S2 for 1 sec ->
+    e3=S3[vol == 3]
+select e1.sym as a, e3.sym as c insert into Out;
+""", [("S1", ["a", 1.0, 1], 1000), ("S3", ["early", 1.0, 3], 1500),
+      ("S3", ["c", 1.0, 3], 2400)], [("a", "c")]),
+    ("every absent per seed", """
+@info(name='q') from every e1=S1[vol == 1] -> not S2 for 1 sec
+select e1.sym as a insert into Out;
+""", [("S1", ["a", 1.0, 1], 1000), ("S1", ["b", 1.0, 1], 1400),
+      ("S1", ["tick", 1.0, 9], 3000)], [("a",), ("b",)]),
+    ("every absent partial suppression", """
+@info(name='q') from every e1=S1[vol == 1] -> not S2 for 1 sec
+select e1.sym as a insert into Out;
+""", [("S1", ["a", 1.0, 1], 1000), ("S1", ["b", 1.0, 1], 1800),
+      ("S2", ["kill", 1.0, 2], 1900), ("S1", ["tick", 1.0, 9], 3500)], []),
+    ("absent within", """
+@info(name='q') from e1=S1[vol == 1] -> not S2 for 2 sec
+    within 1 sec
+select e1.sym as a insert into Out;
+""", [("S1", ["a", 1.0, 1], 1000), ("S1", ["tick", 1.0, 9], 4000)], []),
+]
+
+# tests/test_playback_idle.py:51 (idle advance fires an absent pattern)
+A2_IDLE_QL = """
+@app:playback(idle.time = '50 millisec', increment = '300 millisec')
+define stream S1 (sym string, price float);
+define stream S2 (sym string, price float);
+@info(name='q') from e1=S1[price > 20.0] -> not S2 for 1 sec
+select e1.sym as a insert into Out;
+"""
+A2_IDLE_WANT = [("WSO2",)]
 
 
 # bench.py:261 config_windowed_join (siddhi_tpu/analysis/corpus.py

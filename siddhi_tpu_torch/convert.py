@@ -3,7 +3,10 @@
 Pattern queries: the JAX runtime's `PatternQueryRuntime.state` is
 `((b32, b64, scalars), sel_state)`.  Its blobs are [W, K] with the key axis
 minor, and the port's `StatePacker` lays its rows out identically, so the
-state converts leaf for leaf.
+state converts leaf for leaf.  That holds for every pattern plan: absent
+atoms hold no capture rows in either package, and a block-NFA state
+(non-partitioned simple chains, K = 1) carries its stale capture-ts rows
+and zeroed count / lmask rows across as they are.
 
 Single-stream queries: the JAX runtime's `QueryRuntime.state` is
 `(window_state, selector_state)`.  The selector's state is one [K] array

@@ -7,12 +7,14 @@ atom.  One step consumes a micro-batch laid out per key as [K, E]; a loop
 walks the E event columns (sequential semantics within a key) and each tick
 evaluates every chain position for every (slot, key) at once.
 
-Tick phase order (strict): within-expiry -> match eval (pre-capture state)
--> in-place capture -> emission gather -> fork/seed spawn -> in-place
-advance / kill / deactivate.
+Tick phase order (strict): within-expiry -> absent-deadline advance ->
+match eval (pre-capture state) -> in-place capture -> emission gather ->
+fork/seed spawn -> in-place advance / kill / deactivate.
 
-Absent atoms (`not X for t`) are not ported yet: they need the timer step
-(ROADMAP B7) and raise at plan time.
+Absent atoms (`not X for t`, and the absent side of `not A and B`) hold no
+captures: a pending state waits at an absent atom until its deadline
+(phase 2 advances or completes it, driven by events or by the planner's
+timer step), and a matching arrival of the absent stream kills it.
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ class Atom:
     filter_expr: Optional[Expression]
     min_count: int = 1
     max_count: int = 1            # -1 == ANY
+    absent: bool = False
+    waiting_time: Optional[int] = None
     every: bool = False
     logical: Optional[str] = None  # 'AND' | 'OR' (self = side 0)
     partner: Optional["Atom"] = None
@@ -89,6 +93,16 @@ class PatternSpec:
             if a.partner is not None:
                 yield a.partner
 
+    @property
+    def has_absent(self) -> bool:
+        """True when timer-driven absent machinery is needed: standalone
+        `not X for t` atoms, or timed absent sides of logical pairs
+        (instant `not A and B` needs no timers)."""
+        return any(
+            a.absent or (a.partner is not None and a.partner.absent and
+                         a.partner.waiting_time is not None)
+            for a in self.atoms)
+
 
 def linearize(sis: StateInputStream, count_cap: int = 8) -> PatternSpec:
     atoms: List[Atom] = []
@@ -116,8 +130,13 @@ def linearize(sis: StateInputStream, count_cap: int = 8) -> PatternSpec:
             atoms.append(mk_atom(el.basic_single_input_stream,
                                  len(atoms), every))
         elif isinstance(el, AbsentStreamStateElement):
-            raise CompileError(
-                "absent pattern elements are not yet ported (ROADMAP B7)")
+            a = mk_atom(el.basic_single_input_stream, len(atoms), every)
+            a.absent = True
+            a.waiting_time = el.waiting_time
+            if a.waiting_time is None:
+                raise CompileError(
+                    "absent pattern elements need 'for <time>' in this build")
+            atoms.append(a)
         elif isinstance(el, CountStateElement):
             inner = el.stream_state_element
             a = mk_atom(inner.basic_single_input_stream, len(atoms), every)
@@ -128,21 +147,43 @@ def linearize(sis: StateInputStream, count_cap: int = 8) -> PatternSpec:
             a.capture_depth = max(cap, 1)
             atoms.append(a)
         elif isinstance(el, LogicalStateElement):
-            for side in (el.stream_state_element_1,
-                         el.stream_state_element_2):
-                if isinstance(side, AbsentStreamStateElement):
-                    raise CompileError(
-                        "absent pattern elements are not yet ported "
-                        "(ROADMAP B7)")
-                if not isinstance(side, StreamStateElement):
-                    raise CompileError(
-                        "logical pattern sides must be plain or absent "
-                        "stream elements")
+            def to_parts(x):
+                if isinstance(x, StreamStateElement):
+                    return x.basic_single_input_stream, False, None
+                if isinstance(x, AbsentStreamStateElement):
+                    return x.basic_single_input_stream, True, x.waiting_time
+                raise CompileError(
+                    "logical pattern sides must be plain or absent stream "
+                    "elements")
+            s1, ab1, wt1 = to_parts(el.stream_state_element_1)
+            s2, ab2, wt2 = to_parts(el.stream_state_element_2)
+            if ab1 and ab2:
+                raise CompileError(
+                    "both sides of a logical pattern cannot be absent")
+            if (ab1 or ab2) and el.type == "OR":
+                raise CompileError(
+                    "'not X or Y' is not a valid pattern (reference: "
+                    "logical absent combines with 'and' only)")
             pos = len(atoms)
-            a = mk_atom(el.stream_state_element_1.basic_single_input_stream,
-                        pos, every)
-            b = mk_atom(el.stream_state_element_2.basic_single_input_stream,
-                        pos, False)
+            wt = wt1 if ab1 else wt2
+            if (ab1 or ab2) and wt is not None and pos == 0:
+                raise CompileError(
+                    "leading 'not X for <time> and Y' is not supported in "
+                    "this build (the wait clock starts at a preceding "
+                    "stage); precede it with a stage or drop 'for <time>'")
+            # the PRESENCE side is always the primary atom (it seeds and
+            # captures); an absent side rides as the partner: its arrival
+            # kills the pending state until the waiting time (if any) has
+            # elapsed, after which the absence obligation is satisfied
+            if ab1:
+                a = mk_atom(s2, pos, every)
+                b = mk_atom(s1, pos, False)
+                b.absent = True
+            else:
+                a = mk_atom(s1, pos, every)
+                b = mk_atom(s2, pos, False)
+                b.absent = ab2
+            b.waiting_time = wt if (ab1 or ab2) else None
             if b.ref == a.ref or b.ref == f"__p{pos}":
                 b.ref = f"__p{pos}b"
             a.logical = el.type
@@ -194,11 +235,12 @@ class PatternExec:
         # are materialised into per-match output rows (None = all)
         self.emit_refs = emit_refs
 
-        # selector-facing scope: every atom ref is a source
+        # selector-facing scope: every non-absent atom ref is a source
         self.scope = Scope(self.device)
         self.scope.interner = interner
         for a in spec.all_atoms():
-            self.scope.add_source(a.ref, schemas[a.stream_id])
+            if not a.absent:
+                self.scope.add_source(a.ref, schemas[a.stream_id])
 
         # per-atom filter scopes: unqualified attrs bind to the atom's OWN
         # stream (the incoming event); qualified refs reach earlier captures
@@ -212,7 +254,7 @@ class PatternExec:
             fscope.interner = interner
             fscope.add_source(a.ref, schemas[a.stream_id], default=True)
             for other in spec.all_atoms():
-                if other.ckey != a.ckey:
+                if other.ckey != a.ckey and not other.absent:
                     fscope.add_source(other.ref, schemas[other.stream_id],
                                       default=False)
             self.filter_scopes[a.ckey] = fscope
@@ -223,6 +265,8 @@ class PatternExec:
         P, dev = self.P, self.device
         caps: Dict[str, Tuple] = {}
         for a in self.spec.all_atoms():
+            if a.absent:
+                continue
             schema = self.schemas[a.stream_id]
             D = a.capture_depth
             # unfilled captures are NULL, not zero; the ts plane holds -1
@@ -258,13 +302,62 @@ class PatternExec:
             alive = now_k[None, :] - st.start_ts <= spec.within
             st = st._replace(active=torch.logical_and(st.active, alive))
 
+        # ---- phase 2: absent deadlines -------------------------------------
+        absent_complete = F
+        absent_ts = torch.zeros((P, K), dtype=torch.int64, device=F.device)
+        for a in spec.atoms:
+            if not a.absent:
+                continue
+            at_pos = st.active & (st.pos == a.pos)
+            due = at_pos & (st.entry_ts + a.waiting_time <= now_k[None, :])
+            if a.pos == S - 1:
+                absent_complete = absent_complete | due
+                absent_ts = torch.where(due, st.entry_ts + a.waiting_time,
+                                        absent_ts)
+                st = st._replace(active=st.active & torch.logical_not(due))
+            else:
+                st = st._replace(
+                    pos=torch.where(due, a.pos + 1, st.pos).to(torch.int32),
+                    count=torch.where(due, 0, st.count).to(torch.int32),
+                    lmask=torch.where(due, 0, st.lmask).to(torch.int32),
+                    entry_ts=torch.where(due, st.entry_ts + a.waiting_time,
+                                         st.entry_ts))
+
+        # timed logical-absent pairs (`not A for t and B`): when the wait
+        # elapses without a matching A, the absence obligation is SATISFIED
+        # (bit 2 in lmask); the state fires once B has also arrived --
+        # whichever of {deadline, B} comes last triggers the completion
+        for a in spec.atoms:
+            p = a.partner
+            if p is None or not p.absent or p.waiting_time is None:
+                continue
+            at_pos = st.active & (st.pos == a.pos)
+            pend = at_pos & ((st.lmask & 2) == 0)
+            due = pend & (st.entry_ts + p.waiting_time <= now_k[None, :])
+            have_b = (st.lmask & 1) != 0
+            fire = due & have_b
+            st = st._replace(lmask=torch.where(due, st.lmask | 2, st.lmask)
+                             .to(torch.int32))
+            if a.pos == S - 1:
+                absent_complete = absent_complete | fire
+                absent_ts = torch.where(fire, st.entry_ts + p.waiting_time,
+                                        absent_ts)
+                st = st._replace(active=st.active & torch.logical_not(fire))
+            else:
+                st = st._replace(
+                    pos=torch.where(fire, a.pos + 1, st.pos).to(torch.int32),
+                    count=torch.where(fire, 0, st.count).to(torch.int32),
+                    lmask=torch.where(fire, 0, st.lmask).to(torch.int32),
+                    entry_ts=torch.where(fire, st.entry_ts + p.waiting_time,
+                                         st.entry_ts))
+
         # ---- phase 3: match evaluation (pre-capture state) -----------------
         env = self._build_env(st, ev_ts)
         ev_ok = torch.logical_and(ev_valid, torch.logical_not(st.done))
 
         advance_inplace = F
-        complete = F
-        deactivate = F
+        complete = absent_complete
+        deactivate = absent_complete
         fork = F
         kill = F
         matched_any = F
@@ -276,11 +369,12 @@ class PatternExec:
         skip_srcs: Dict[int, List[int]] = {}
         for a_ in spec.atoms:
             srcs: List[int] = []
-            if a_.logical is None:
+            if a_.logical is None and not a_.absent:
                 q = a_.pos - 1
                 while q >= 0 and spec.atoms[q].is_count \
                         and spec.atoms[q].min_count == 0 \
-                        and spec.atoms[q].partner is None:
+                        and spec.atoms[q].partner is None \
+                        and not spec.atoms[q].absent:
                     srcs.append(q)
                     q -= 1
             skip_srcs[a_.pos] = srcs
@@ -322,11 +416,25 @@ class PatternExec:
                 m = torch.logical_or(m_here, m_skip)
                 if atom is a and skip_srcs.get(a.pos):
                     mark(skip_marks, atom.ckey, m_skip)
+                if atom.absent:
+                    # absence violated -- unless the obligation was already
+                    # satisfied (timed pair whose wait elapsed, bit 1<<side)
+                    live = (st.lmask & (1 << side)) == 0
+                    kill = kill | (m & live)
+                    continue
                 matched_any = torch.logical_or(matched_any, m)
                 if a.logical is not None:
                     bit = 1 << side
                     have_other = (lmask_new & (3 ^ bit)) != 0
-                    adv = m if a.logical == "OR" \
+                    # only OR and INSTANT absent pairs advance on the
+                    # presence side alone; AND-of-presences needs the other
+                    # side's bit and TIMED absent pairs the satisfied-
+                    # absence bit the deadline pass sets -- both ride
+                    # have_other
+                    pair_absent = a.partner is not None and a.partner.absent
+                    instant_pair = pair_absent and \
+                        a.partner.waiting_time is None
+                    adv = m if (a.logical == "OR" or instant_pair) \
                         else torch.logical_and(m, have_other)
                     lmask_new = torch.where(m, lmask_new | bit, lmask_new)
                     mark(capture, atom.ckey, m)
@@ -385,11 +493,27 @@ class PatternExec:
             kill = torch.logical_or(kill, no_match)
 
         # ---- seed (virtual pending slot at position 0) ---------------------
+        # an absent FIRST side (`not A and B` at position 0): A's arrival
+        # disarms the virtual seed (non-every; `every` re-arms immediately,
+        # so the arrival has no lasting effect there)
+        if a0.partner is not None and a0.partner.absent and \
+                a0.partner.stream_id == stream_id and not a0.every:
+            patom = a0.partner
+            pfilt = self._filters[patom.ckey]
+            if pfilt is None:
+                pc = torch.ones((K,), dtype=torch.bool, device=F.device)
+            else:
+                env_p = dict(env)
+                env_p[patom.ref] = tuple(
+                    torch.broadcast_to(cc[None, :], (P, K)) for cc in ev_cols)
+                pc = _seed_eval(pfilt, env_p, K)
+            disarm = st.seed_on & ev_ok & pc
+            st = st._replace(seed_on=st.seed_on & torch.logical_not(disarm))
         seed_match = torch.zeros((K,), dtype=torch.bool, device=F.device)
         seed_side = torch.zeros((K,), dtype=torch.int32, device=F.device)
         for atom, side in [(a0, 0)] + ([(a0.partner, 1)] if a0.partner
                                        else []):
-            if atom.stream_id != stream_id:
+            if atom.stream_id != stream_id or a0.absent or atom.absent:
                 continue
             filt = self._filters[atom.ckey]
             if filt is None:
@@ -407,7 +531,8 @@ class PatternExec:
         # a seed advances immediately iff the first atom completes with one
         # event: single non-count atom, count with min<=1, or logical OR
         if a0.logical is not None:
-            seed_immediate = a0.logical == "OR"
+            seed_immediate = a0.logical == "OR" or (
+                a0.partner is not None and a0.partner.absent)
         elif a0.is_count:
             seed_immediate = a0.min_count <= 1
         else:
@@ -422,7 +547,7 @@ class PatternExec:
         last_atom = spec.atoms[S - 1]
         seed_skip_possible = (
             S > 1 and len(skip_srcs.get(S - 1, ())) == S - 1 and
-            last_atom.logical is None and
+            last_atom.logical is None and not last_atom.absent and
             (not last_atom.is_count or last_atom.min_count <= 1))
         if seed_skip_possible and last_atom.stream_id == stream_id:
             lfilt = self._filters[last_atom.ckey]
@@ -434,7 +559,7 @@ class PatternExec:
                     torch.broadcast_to(cc[None, :], (P, K)) for cc in ev_cols)
                 # the zero-occurrence interpretation carries NO captures
                 for aa in spec.all_atoms():
-                    if aa is last_atom:
+                    if aa.absent or aa is last_atom:
                         continue
                     a_sch = self.schemas[aa.stream_id]
                     nulls = tuple(
@@ -468,6 +593,8 @@ class PatternExec:
         # ---- phase 4: in-place capture -------------------------------------
         newcaps = {}
         for a in spec.all_atoms():
+            if a.absent:
+                continue
             ck = a.ckey
             ts_c, cols_c = st.caps[ck]
             here = capture.get(ck)
@@ -487,9 +614,14 @@ class PatternExec:
 
         # ---- phase 5: emission gather ([P+1, K]: slot axis + seed row) -----
         emit_mask = torch.cat([complete, seed_complete[None, :]], dim=0)
-        emit_ts = torch.broadcast_to(ev_ts[None, :], (P + 1, K))
+        emit_ts = torch.cat([
+            torch.where(absent_complete, absent_ts,
+                        torch.broadcast_to(ev_ts[None, :], (P, K))),
+            ev_ts[None, :]], dim=0)                       # [P+1,K]
         emit: Dict[str, Any] = {"mask": emit_mask, "ts": emit_ts}
         for a in spec.all_atoms():
+            if a.absent:
+                continue
             if self.emit_refs is not None and a.ref not in self.emit_refs:
                 continue
             ck = a.ckey
@@ -529,7 +661,7 @@ class PatternExec:
             newcaps2 = dict(st.caps)
             for a in spec.all_atoms():
                 msk = skip_marks.get(a.ckey)
-                if msk is None:
+                if msk is None or a.absent:
                     continue
                 ts_c, cols_c = st.caps[a.ckey]
                 D2 = ts_c.shape[1]
@@ -641,6 +773,8 @@ class PatternExec:
         fork_hot = hot[:, :P, :]                                     # [P,P,K]
         fork_taken = has_cand & torch.logical_not(seed_taken)
         for a in spec.all_atoms():
+            if a.absent:
+                continue
             ck = a.ckey
             ts_c, cols_c = st.caps[ck]
             D = ts_c.shape[1]
@@ -673,6 +807,8 @@ class PatternExec:
     def _build_env(self, st: PatternState, ev_ts):
         env: Dict[str, Any] = {"__ts__": ev_ts[None, :]}
         for a in self.spec.all_atoms():
+            if a.absent:
+                continue
             ts_c, cols_c = st.caps[a.ckey]       # [P,D,K]
             D = ts_c.shape[1]
             env[a.ref] = tuple(c[:, 0, :] for c in cols_c)

@@ -5,10 +5,16 @@ Each pattern query compiles to one step per input stream.  The host groups
 incoming events by partition key into a [Kb, E] selection, and the step does
 the sequential-per-key NFA advance over the packed state blobs.
 
-On a CUDA device the step is the hand-written kernel of
-`siddhi_tpu_torch/kernels/pattern_step.py`; a plan outside the kernel's
-subset raises there.  On the CPU the step is the plain PyTorch function
-`make_step` below, which is also the kernel's reference.
+A non-partitioned simple chain (`core/pattern_block.py`
+`block_eligible`) runs the block NFA, every other plan the per-key scan
+step.  On a CUDA device the block step is kernel K8
+(`kernels/block_nfa.py`) and the scan step the `pattern_step` kernel
+(`kernels/pattern_step.py`); a plan outside the kernel's subset raises at
+plan time.  On the CPU the steps are the plain PyTorch functions
+(`make_block_step`, and `make_step` below), which are also the kernels'
+references.  A plan with absent atoms also gets a timer step (`tstep`):
+one tick with no event over the whole slab at `now`, which fires the
+absent deadlines that have passed.
 """
 from __future__ import annotations
 
@@ -24,8 +30,13 @@ from . import event as ev
 from .executor import CompileError
 from .pattern import PatternExec, PatternSpec, PatternState, last_filled, \
     linearize, oh_take
+from .pattern_block import block_eligible, make_block_step
 from .selector import SelectorExec
 from .window import NO_WAKEUP, UNCAPPED_SENTINEL, Rows
+
+# test hook: force the scan path even for block-eligible specs (tests
+# compare the two implementations on the same input)
+_FORCE_SCAN = False
 
 
 def state_leaves(st: PatternState) -> List[torch.Tensor]:
@@ -145,6 +156,11 @@ class PlannedPatternQuery:
     selector_exec: Any = None
     compact_rows: int = 8
     device: Any = None
+    # (packed, sel_state, now) -> (packed', sel_state', out, wake); only
+    # plans with absent atoms have one
+    timer_step: Optional[Callable] = None
+    # True when the plan runs the block NFA (non-partitioned simple chain)
+    block: bool = False
 
 
 def plan_pattern_query(
@@ -159,7 +175,7 @@ def plan_pattern_query(
     compact_rows_override: Optional[int] = None,
     device: Optional[torch.device] = None,
 ) -> PlannedPatternQuery:
-    from ..kernels.pattern_step import KernelPlan, PatternStep
+    from ..kernels.pattern_step import KernelPlan, PatternStep, TimerStep
 
     device = device if device is not None else torch.device("cpu")
     sis = query.input_stream
@@ -177,11 +193,9 @@ def plan_pattern_query(
     for sid in spec.stream_ids:
         if sid not in schemas:
             raise CompileError(f"undefined stream {sid!r} in pattern")
-    if partition_positions is None and block_eligible(spec):
-        raise NotImplementedError(
-            f"query {name!r}: a non-partitioned simple-chain pattern runs "
-            f"on the block NFA, which is not yet ported (ROADMAP B6)")
-    if device.type == "cuda":
+    use_block = partition_positions is None and block_eligible(spec) \
+        and not _FORCE_SCAN
+    if device.type == "cuda" and not use_block:
         unsupported = kernel_subset_violation(spec, partition_positions)
         if unsupported is not None:
             raise NotImplementedError(
@@ -201,6 +215,7 @@ def plan_pattern_query(
 
     packer = StatePacker(PatternExec(
         spec, schemas, interner, slots=slots).init_state(1))
+    has_wake = spec.has_absent
 
     def make_step(stream_id: str, dense: bool = False):
         schema = schemas[stream_id]
@@ -257,9 +272,10 @@ def plan_pattern_query(
                 b32[:, wi] = nb32[:, keep]
                 b64[:, wi] = nb64[:, keep]
 
-            sel_state, out, wake = _emit_matches(
+            sel_state, out = _emit_matches(
                 sel, spec, emits, ord_, sel_state, now,
                 key_idx=key_idx, compact_rows=compact_rows)
+            wake = absent_wake(spec, sub) if has_wake else NO_WAKEUP
             return (b32, b64, nscal), sel_state, out, wake
 
         return step
@@ -274,17 +290,72 @@ def plan_pattern_query(
                         key_ref, now)
         return wrapped
 
-    kernel_plans = {}
-    if device.type == "cuda":
-        kernel_plans = {sid: KernelPlan(pexec, sel, packer, sid,
-                                        compact_rows)
-                        for sid in spec.stream_ids}
+    if use_block:
+        from ..kernels.block_nfa import BlockPlan, BlockStep
+        block_plans = {}
+        if device.type == "cuda":
+            block_plans = {sid: BlockPlan(pexec, sel, packer, sid,
+                                          compact_rows)
+                           for sid in spec.stream_ids}
 
-    def variant(dense: bool, wire: bool):
-        return {sid: PatternStep(
-            (wire_ts if wire else (lambda b: b))(make_step(sid, dense)),
-            kernel_plans.get(sid), dense=dense, wire=wire)
-            for sid in spec.stream_ids}
+        def block_variant(wire: bool):
+            return {sid: BlockStep(
+                (wire_ts if wire else (lambda b: b))(make_block_step(
+                    spec, pexec, sel, schemas, packer, sid, compact_rows)),
+                block_plans.get(sid), wire=wire)
+                for sid in spec.stream_ids}
+
+        steps, steps_w = block_variant(False), block_variant(True)
+        dense_steps = dense_steps_w = None
+    else:
+        kernel_plans = {}
+        if device.type == "cuda":
+            kernel_plans = {sid: KernelPlan(pexec, sel, packer, sid,
+                                            compact_rows)
+                            for sid in spec.stream_ids}
+
+        def variant(dense: bool, wire: bool):
+            return {sid: PatternStep(
+                (wire_ts if wire else (lambda b: b))(make_step(sid, dense)),
+                kernel_plans.get(sid), dense=dense, wire=wire)
+                for sid in spec.stream_ids}
+
+        steps, dense_steps = variant(False, False), variant(True, False)
+        steps_w, dense_steps_w = variant(False, True), variant(True, True)
+
+    timer_step = None
+    if spec.has_absent:
+        any_sid = spec.stream_ids[0]
+        schema0 = schemas[any_sid]
+
+        def tstep(packed, sel_state, now):
+            """One tick with an invalid event at ts = now over the whole
+            slab, then the emission (the reference's default cap of 8 rows
+            per key) and the wake over the whole slab."""
+            b32, b64, scalars = packed
+            dev = b32.device
+            pstate = packer.unpack(b32, b64, scalars)
+            K = pstate.active.shape[-1]
+            zero_cols = tuple(
+                torch.full((K,), ev.default_value(t), dtype=d, device=dev)
+                for t, d in zip(schema0.types, schema0.dtypes))
+            ts_e = torch.full((K,), int(now), dtype=torch.int64, device=dev)
+            valid_e = torch.zeros((K,), dtype=torch.bool, device=dev)
+            st, emit = pexec.tick(pstate, any_sid, zero_cols, ts_e, valid_e,
+                                  ts_e)
+            emits = _stack_emits([emit])                 # E = 1
+            ord_ = torch.zeros((K, 1), dtype=torch.int64, device=dev)
+            sel_state, out = _emit_matches(sel, spec, emits, ord_,
+                                           sel_state, now)
+            nb32, nb64, nscal = packer.pack(st)
+            b32.copy_(nb32)
+            b64.copy_(nb64)
+            return (b32, b64, nscal), sel_state, out, absent_wake(spec, st)
+
+        timer_plan = None
+        if device.type == "cuda":
+            timer_plan = KernelPlan(pexec, sel, packer, any_sid, 8)
+        timer_step = TimerStep(tstep, timer_plan)
 
     def init_state(K: int):
         return packer.pack(pexec.init_state(K)), sel.init_state()
@@ -298,31 +369,21 @@ def plan_pattern_query(
                            if query.output_stream and
                            query.output_stream.output_event_type
                            else "CURRENT_EVENTS"),
-        steps=variant(False, False), dense_steps=variant(True, False),
-        steps_w=variant(False, True), dense_steps_w=variant(True, True),
-        init_state=init_state, key_capacity=key_capacity, slots=slots,
+        steps=steps, dense_steps=dense_steps,
+        steps_w=steps_w, dense_steps_w=dense_steps_w,
+        timer_step=timer_step, block=use_block, init_state=init_state,
+        key_capacity=key_capacity, slots=slots,
         packer=packer, partition_positions=partition_positions,
         emit_explicit=emit_explicit, selector_exec=sel,
         compact_rows=compact_rows, device=device)
 
 
-def block_eligible(spec: PatternSpec) -> bool:
-    """Simple chains: single-count atoms, no logical pairs, capture depth 1
-    (the reference routes these to its block NFA when not partitioned)."""
-    for a in spec.atoms:
-        if a.partner is not None or a.is_count:
-            return False
-        if a.capture_depth != 1:
-            return False
-    return spec.state_type in ("PATTERN", "SEQUENCE")
-
-
 def kernel_subset_violation(spec: PatternSpec,
                             partition_positions) -> Optional[str]:
-    """Why a plan is outside the CUDA kernel's subset (None when inside):
-    partitioned stream atoms, `every`, `->`, `within`, capture depth 1."""
-    if not partition_positions:
-        return "non-partitioned patterns (ROADMAP B6)"
+    """Why a scan-path plan is outside the CUDA `pattern_step` kernel's
+    subset (None when inside): stream atoms, `every`, `->`, `within`,
+    capture depth 1, and absent atoms `not X for t` after the first; a
+    non-partitioned plan runs it with one key."""
     if spec.state_type != "PATTERN":
         return "sequences (ROADMAP B3 kernel subset)"
     for a in spec.atoms:
@@ -330,7 +391,30 @@ def kernel_subset_violation(spec: PatternSpec,
             return "logical and/or atoms (ROADMAP B3 kernel subset)"
         if a.is_count or a.capture_depth != 1:
             return "count atoms (ROADMAP B3 kernel subset)"
+    if spec.atoms[0].absent:
+        return "a leading absent atom (ROADMAP B7 kernel subset)"
     return None
+
+
+def absent_wake(spec: PatternSpec, st: PatternState):
+    """The earliest pending absent deadline of the state's keys (the
+    reference's next wakeup): standalone `not X for t` atoms and the timed
+    absent sides of logical pairs whose wait has not elapsed."""
+    wake = torch.full((), NO_WAKEUP, dtype=torch.int64,
+                      device=st.active.device)
+    for a in spec.atoms:
+        if a.absent:
+            at_pos = st.active & (st.pos == a.pos)
+            dl = st.entry_ts + a.waiting_time
+        elif a.partner is not None and a.partner.absent and \
+                a.partner.waiting_time is not None:
+            at_pos = st.active & (st.pos == a.pos) & ((st.lmask & 2) == 0)
+            dl = st.entry_ts + a.partner.waiting_time
+        else:
+            continue
+        wake = torch.minimum(wake, torch.min(torch.where(at_pos, dl,
+                                                         NO_WAKEUP)))
+    return wake
 
 
 def _stack_emits(emits: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -348,7 +432,7 @@ def _stack_emits(emits: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 def _used_refs(query: Query, spec: PatternSpec) -> set:
     """Refs whose captures the selector can touch (emission pruning)."""
-    refs = {a.ref for a in spec.all_atoms()}
+    refs = {a.ref for a in spec.all_atoms() if not a.absent}
     sel = query.selector
     if sel.is_select_all:
         return refs      # select * touches everything
@@ -392,7 +476,7 @@ def _emit_matches(sel: SelectorExec, spec: PatternSpec, emits, ord_,
 
     env: Dict[str, Any] = {"__ts__": rows_ts, "__now__": now}
     for a in spec.all_atoms():
-        if a.ckey not in emits:
+        if a.absent or a.ckey not in emits:
             continue
         cap_ts, cap_cols = emits[a.ckey]       # [E,P+1,D,K]
         D = cap_ts.shape[2]
@@ -437,4 +521,4 @@ def _emit_matches(sel: SelectorExec, spec: PatternSpec, emits, ord_,
         n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
     # leading scalars: valid-row count and overflow count
     out = (n_valid, n_dropped) + out
-    return sel_state, out, NO_WAKEUP
+    return sel_state, out

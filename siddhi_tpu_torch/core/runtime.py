@@ -15,8 +15,14 @@ runs that side's step (filters, window, lane table, probe, projection) and
 fetches its [n_valid, n_current, n_dropped, lane overflow, wake, missed]
 header in one sync.  Rows transfer when a consumer reads them.
 
-Ported: stream definitions, `@app:playback`, value partitions (`partition
-with (attr of Stream)`) around pattern queries, top-level pattern queries,
+A pattern query with absent atoms also fetches its wake (the earliest
+pending absent deadline) with the header, and the scheduler runs its timer
+step at that time.
+
+Ported: stream definitions, `@app:playback` (with `idle.time` and
+`increment`), value partitions (`partition with (attr of Stream)`) around
+pattern queries, top-level pattern queries (non-partitioned simple chains
+on the block NFA, absent atoms with their timer step),
 top-level single-stream queries (filters, `length` / `time` /
 `lengthBatch` windows, group by, having, `@capacity(window='N')`),
 stream-stream joins (`length` / `time` windows, inner and outer,
@@ -154,6 +160,7 @@ class PatternQueryRuntime:
         self.callbacks: List[Callable] = []
         self.batch_callbacks: List[Callable] = []
         self.slot_allocator = slot_allocator  # shared per partition
+        self.next_wakeup: int = NO_WAKEUP
         self._qlock = threading.RLock()
         # set at wiring time: fn(new_cap) -> plan with a larger emission cap
         self._replan = None
@@ -253,10 +260,25 @@ class PatternQueryRuntime:
             steps = p.steps_w if ts_wire else p.steps
         pstate, sel_state = self.state
         ts_args = ts_wire if ts_wire else (raw_ts,)
-        pstate, sel_state, out, _wake = steps[stream_id](
+        pstate, sel_state, out, wake = steps[stream_id](
             pstate, sel_state, raw_cols, *ts_args, sel_d, key_ref, now)
         self.state = (pstate, sel_state)
-        _emit_output(self, out, now)
+        _emit_output(self, out, now, wake)
+
+    def on_timer(self, now: int) -> None:
+        """The timer step (absent deadlines) over the whole slab."""
+        p = self.planned
+        if p.timer_step is None:
+            return
+        pstate, sel_state = self.state
+        pstate, sel_state, out, wake = p.timer_step(pstate, sel_state, now)
+        self.state = (pstate, sel_state)
+        _emit_output(self, out, now, wake)
+
+    def _apply_wake(self, w: int) -> None:
+        self.next_wakeup = w
+        if w < NO_WAKEUP:
+            self.app._scheduler.notify_at(w, self)
 
 
 def _target_live(qr) -> bool:
@@ -267,14 +289,24 @@ def _target_live(qr) -> bool:
     return j is not None and bool(j.queries or j.stream_callbacks)
 
 
-def _emit_output(qr, out, now: int) -> None:
-    """Deliver one step's output: fetch the two-count header (one device
-    sync), fan out to batch callbacks, and decode rows to events only when
-    an event consumer exists."""
-    if not (qr.callbacks or qr.batch_callbacks or _target_live(qr)):
+def _emit_output(qr, out, now: int, wake=NO_WAKEUP) -> None:
+    """Deliver one pattern step's output: fetch the header (one device
+    sync: [n_valid, n_dropped], and the wake where the plan has absent
+    atoms), apply the wake, fan out to batch callbacks, and decode rows to
+    events only when an event consumer exists."""
+    live = bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
+    timed = qr.planned.timer_step is not None
+    if not live and not timed:
         return
     n_valid, n_dropped, ots, okind, ovalid, ocols = out
-    nv, nd = torch.stack([n_valid, n_dropped]).tolist()
+    if timed:
+        nv, nd, w = torch.stack([n_valid, n_dropped, torch.as_tensor(
+            wake, dtype=torch.int64, device=n_valid.device)]).tolist()
+        qr._apply_wake(w)
+        if not live:
+            return
+    else:
+        nv, nd = torch.stack([n_valid, n_dropped]).tolist()
     _deliver_capped(qr, "pattern match rows", "per-key emission capacity",
                     nv, nv, nd, (ots, okind, ovalid, ocols), now)
 
@@ -819,10 +851,19 @@ class SiddhiAppRuntime:
         self._started = False
         pb = app.get_annotation("app:playback")
         self.playback = pb is not None
-        if pb is not None and pb.element("idle.time") is not None:
-            raise CompileError("@app:playback(idle.time) is not yet ported "
-                               "(ROADMAP A8)")
         self._playback_time = 0
+        # @app:playback(idle.time='...', increment='...'): when the input
+        # goes quiet for idle.time (wall clock), advance the event clock by
+        # increment and fire the timers it passes
+        self._playback_idle_ms: Optional[int] = None
+        self._playback_increment_ms = 1000
+        self._playback_last_wall = current_millis()
+        self._idle_stop: Optional[threading.Event] = None
+        self._idle_thread: Optional[threading.Thread] = None
+        if pb is not None and pb.element("idle.time") is not None:
+            self._playback_idle_ms = _parse_time_ms(pb.element("idle.time"))
+            self._playback_increment_ms = _parse_time_ms(
+                pb.element("increment", "1 sec")) or 1000
         self._scheduler = _Scheduler(self)
         _check_annotations(
             [a for a in app.annotations
@@ -998,8 +1039,39 @@ class SiddhiAppRuntime:
     def start(self) -> None:
         self._started = True
         self._scheduler.start()
+        if self.playback and self._playback_idle_ms and \
+                self._idle_thread is None:
+            self._playback_last_wall = current_millis()
+            self._idle_stop = threading.Event()
+            self._idle_thread = threading.Thread(
+                target=self._run_playback_idle, daemon=True,
+                name="siddhi-torch-playback-idle")
+            self._idle_thread.start()
+
+    def _run_playback_idle(self) -> None:
+        """Quiet-input clock advance for @app:playback(idle.time,
+        increment): every idle.time of wall clock without a send, the
+        event clock moves on by increment and the timers it passes fire."""
+        idle_s = self._playback_idle_ms / 1000.0
+        stop = self._idle_stop
+        while not stop.wait(idle_s):
+            if current_millis() - self._playback_last_wall \
+                    < self._playback_idle_ms:
+                continue
+            with self._lock:
+                if stop.is_set():
+                    return
+                self._playback_time += self._playback_increment_ms
+                self._scheduler.drain_playback(self._playback_time)
 
     def shutdown(self) -> None:
+        if self._idle_stop is not None:
+            # under the app lock: once it is set, no advance runs again
+            with self._lock:
+                self._idle_stop.set()
+            if self._idle_thread is not None:
+                self._idle_thread.join(timeout=2.0)
+            self._idle_thread = None
         self._scheduler.stop()
         self.flush()
         self._started = False
@@ -1042,6 +1114,7 @@ class SiddhiAppRuntime:
         if self.playback:
             with self._lock:
                 self._playback_time = max(self._playback_time, max_ts)
+                self._playback_last_wall = current_millis()
 
     def _route_columns(self, stream_id: str, cols, timestamps) -> None:
         junction = self.junctions.get(stream_id)
@@ -1078,7 +1151,8 @@ class SiddhiAppRuntime:
         # the playback clock moves first and due timers fire before the
         # batch is dispatched
         if self.playback:
-            self._scheduler.drain_playback(now)
+            with self._lock:
+                self._scheduler.drain_playback(now)
         junction.dispatch_staged(staged, now)
 
     def _route(self, stream_id: str, events: List[ev.Event]) -> None:
@@ -1089,8 +1163,21 @@ class SiddhiAppRuntime:
             self._advance_playback(max(e.timestamp for e in events))
         now = self.timestamp_millis()
         if self.playback:
-            self._scheduler.drain_playback(now)
+            with self._lock:
+                self._scheduler.drain_playback(now)
         junction.publish(events, now)
+
+
+def _parse_time_ms(s) -> int:
+    """'50 millisec' / '1 sec' / '250' -> milliseconds."""
+    from ..compiler.parser import _TIME_UNITS
+    s = str(s).strip().lower()
+    parts = s.split()
+    if len(parts) == 2 and parts[1] in _TIME_UNITS:
+        return int(float(parts[0]) * _TIME_UNITS[parts[1]])
+    if s.isdigit():
+        return int(s)
+    raise CompileError(f"cannot parse time value {s!r}")
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:

@@ -9,6 +9,19 @@
 // The selector's projection stays outside, as plain torch ops on the
 // compacted rows.
 //
+// Absent atoms (`not X for t` after the first atom) and the timer step
+//   siddhi_tpu/core/pattern.py          tick phase 2 (absent deadlines) and
+//                                       the absent kill of phase 3
+//   siddhi_tpu/core/pattern_planner.py  tstep and the wake of _emit_matches
+// A slot waiting at an absent atom advances (or completes, at the last
+// atom) once entry_ts + waiting_time <= now_k, and dies when a matching
+// event of the absent stream arrives first.  Each launch also reduces the
+// earliest pending absent deadline of its keys into header[2] (warp
+// shuffles, then one atomicMin per block), so the wake rides the step's
+// one header fetch.  In timer mode (`timer` = 1) a launch runs one invalid
+// event at ts = now over every key of the slab (dense, key_lo = 0) and
+// reads no events: phase 1 and phase 2 are all it does.
+//
 // Design: one thread per key.  The state is the reference's packed layout,
 // b32 int32[W32, K] and b64 int64[W64, K] with the key axis minor, so
 // neighbouring threads touch neighbouring addresses.  A thread walks its E
@@ -53,6 +66,7 @@ constexpr int MAX_ATOMS = 8;
 constexpr int MAX_COLS = 8;
 constexpr int MAX_EMIT = 24;
 constexpr int MAX_CODE = 192;
+constexpr long long NO_WAKE = 0x1FFFFFFFFFFFFFFFLL;  // core/window.py NO_WAKEUP
 
 }  // namespace
 
@@ -61,7 +75,9 @@ struct StepPlan {
   // shapes and flags
   int K, Kb, E, B, P, S, R, compact, dense, ts_wire;
   int has_within, every, seed_cap_atom, stream_atom_mask;
+  int absent_mask, timer;
   long long within, now, ts_base, key_lo;
+  long long wait[MAX_ATOMS];
   // state layout: first blob row of each leaf (slot p adds p)
   int off_active, off_pos, off_count, off_lmask, off_seed_on, off_done;
   int off_start, off_entry;
@@ -127,6 +143,7 @@ __device__ bool eval_filter(const Key& key, int atom, int p, const long long* ev
 
 __device__ void store_row(const StepPlan& pl, long long row, bool valid, long long ts,
                           const Key* key, int slot, const long long* ev) {
+  // (the emitted atoms are presence atoms: absent atoms hold no captures)
   pl.out_ts[row] = valid ? ts : 0;
   pl.out_kind[row] = 0;  // CURRENT
   pl.out_valid[row] = valid ? 1 : 0;
@@ -145,10 +162,12 @@ __device__ void store_row(const StepPlan& pl, long long row, bool valid, long lo
   }
 }
 
-// One key's E events.  Returns its emitted-row and dropped-row counts and
-// its slab-overflow count through the out parameters.
+// One key's E events.  Returns its emitted-row and dropped-row counts, its
+// slab-overflow count and its earliest pending absent deadline through the
+// out parameters.
 __device__ void step_key(const StepPlan& pl, long long col, int k,
-                         unsigned& n_valid, unsigned& n_drop, unsigned& n_fork_drop) {
+                         unsigned& n_valid, unsigned& n_drop, unsigned& n_fork_drop,
+                         long long& wake) {
   const Key key{pl, col};
   const int P = pl.P, S = pl.S;
   unsigned active = 0;
@@ -158,14 +177,18 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
   int rank = 0;
   long long ev[MAX_COLS];
   for (int e = 0; e < pl.E; ++e) {
-    int si = pl.sel_idx[(long long)k * pl.E + e];
-    bool valid = si >= 0;
-    int ci = si < 0 ? 0 : (si > pl.B - 1 ? pl.B - 1 : si);
-    long long ts = pl.ts_wire ? pl.ts_base + (long long)pl.ts_delta[ci] : pl.raw_ts[ci];
-    for (int c = 0; c < pl.ev_ncols; ++c) {
-      int ty = pl.ev_ty[c];
-      const void* src = pl.ev_col[c];
-      ev[c] = ty == T_I64 ? ((const long long*)src)[ci] : (long long)((const int*)src)[ci];
+    bool valid = false;
+    long long ts = pl.now;
+    if (!pl.timer) {
+      int si = pl.sel_idx[(long long)k * pl.E + e];
+      valid = si >= 0;
+      int ci = si < 0 ? 0 : (si > pl.B - 1 ? pl.B - 1 : si);
+      ts = pl.ts_wire ? pl.ts_base + (long long)pl.ts_delta[ci] : pl.raw_ts[ci];
+      for (int c = 0; c < pl.ev_ncols; ++c) {
+        int ty = pl.ev_ty[c];
+        const void* src = pl.ev_col[c];
+        ev[c] = ty == T_I64 ? ((const long long*)src)[ci] : (long long)((const int*)src)[ci];
+      }
     }
     long long now_k = valid ? ts : pl.now;
     // phase 1: within expiry
@@ -174,15 +197,43 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
         if ((active >> p & 1u) && now_k - key.w64(pl.off_start + p) > pl.within)
           active &= ~(1u << p);
     }
-    // phase 3: match evaluation on the pre-capture state
+    // phase 2: absent deadlines, atoms in chain order (a slot that passes
+    // one absent atom meets the next one's deadline in the same tick)
+    unsigned acomp = 0;
+    if (pl.absent_mask) {
+      for (int p = 0; p < P; ++p) {
+        if (!(active >> p & 1u)) continue;
+        int a = key.w32(pl.off_pos + p);
+        while (a >= 0 && a < S && (pl.absent_mask >> a & 1)) {
+          long long entry = key.w64(pl.off_entry + p);
+          if (entry + pl.wait[a] > now_k) break;
+          if (a == S - 1) {
+            acomp |= 1u << p;          // emits at entry + wait (phase 5)
+            active &= ~(1u << p);
+            break;
+          }
+          key.w32(pl.off_pos + p) = a + 1;
+          key.w32(pl.off_count + p) = 0;
+          key.w32(pl.off_lmask + p) = 0;
+          key.w64(pl.off_entry + p) = entry + pl.wait[a];
+          ++a;
+        }
+      }
+    }
+    // phase 3: match evaluation on the pre-capture state; an absent atom's
+    // match kills its slot
     bool ev_ok = valid && !done;
-    unsigned m = 0, complete = 0;
+    unsigned m = 0, complete = 0, kill = 0;
     if (ev_ok) {
       for (int p = 0; p < P; ++p) {
         if (!(active >> p & 1u)) continue;
         int a = key.w32(pl.off_pos + p);
         if (a < 0 || a >= S || !(pl.stream_atom_mask >> a & 1)) continue;
         if (eval_filter(key, a, p, ev)) {
+          if (pl.absent_mask >> a & 1) {
+            if ((key.w32(pl.off_lmask + p) & 1) == 0) kill |= 1u << p;
+            continue;
+          }
           m |= 1u << p;
           if (a == S - 1) complete |= 1u << p;
         }
@@ -193,7 +244,7 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
     bool seed_complete = seed_match && S == 1;
     if (!pl.every) {
       if (seed_match) seed_on = false;
-      if (complete || seed_complete) done = true;
+      if (complete || acomp || seed_complete) done = true;
     }
     // phase 4: capture into the matched atom of each matched slot
     for (int p = 0; p < P; ++p) {
@@ -204,11 +255,14 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
     }
     // phase 5: emission rows in (slot, seed) order, compacted per key
     for (int slot = 0; slot <= P; ++slot) {
-      bool v = slot < P ? (complete >> slot & 1u) != 0 : seed_complete;
+      bool v = slot < P ? ((complete | acomp) >> slot & 1u) != 0 : seed_complete;
+      // an absent completion carries its deadline, entry_ts + waiting time
+      long long row_ts = (slot < P && (acomp >> slot & 1u))
+                             ? key.w64(pl.off_entry + slot) + pl.wait[S - 1] : ts;
       if (pl.compact) {
         if (!v) continue;
         if (rank < pl.R) {
-          store_row(pl, (long long)rank * pl.Kb + k, true, ts, &key, slot, ev);
+          store_row(pl, (long long)rank * pl.Kb + k, true, row_ts, &key, slot, ev);
           ++n_valid;
         } else {
           ++n_drop;
@@ -216,7 +270,7 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
         ++rank;
       } else {
         long long row = ((long long)e * (P + 1) + slot) * pl.Kb + k;
-        store_row(pl, row, v, ts, &key, slot, ev);
+        store_row(pl, row, v, row_ts, &key, slot, ev);
         n_valid += v ? 1u : 0u;
       }
     }
@@ -236,6 +290,7 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
         key.w64(pl.off_start + j) = ts;
         key.w64(pl.off_entry + j) = ts;
         for (int a = 0; a < S; ++a) {
+          if (pl.absent_mask >> a & 1) continue;  // no captures
           bool seed_has = (a == 0);  // atom 0 is on this stream: it matched
           key.w64(pl.cap_ts[a] + j) = seed_has ? ts : -1;
           for (int c = 0; c < pl.n_cols[a]; ++c)
@@ -243,7 +298,10 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
         }
       }
     }
-    // phase 7: advance or deactivate the matched slots
+    // phase 7: kill, then advance or deactivate the matched slots.  An
+    // absent completion deactivates its slot again here, as the reference's
+    // `deactivate` mask does, even when this tick's seed took it in phase 6
+    active &= ~(kill | acomp);
     for (int p = 0; p < P; ++p) {
       if (!(m >> p & 1u)) continue;
       key.w32(pl.off_count + p) = 0;
@@ -263,6 +321,16 @@ __device__ void step_key(const StepPlan& pl, long long col, int k,
   for (int p = 0; p < P; ++p) key.w32(pl.off_active + p) = (active >> p) & 1u;
   key.w32(pl.off_seed_on) = seed_on ? 1 : 0;
   key.w32(pl.off_done) = done ? 1 : 0;
+  if (pl.absent_mask) {
+    for (int p = 0; p < P; ++p) {
+      if (!(active >> p & 1u)) continue;
+      int a = key.w32(pl.off_pos + p);
+      if (a >= 0 && a < S && (pl.absent_mask >> a & 1)) {
+        long long w = key.w64(pl.off_entry + p) + pl.wait[a];
+        if (w < wake) wake = w;
+      }
+    }
+  }
 }
 
 // A gather-mode padding row (key index past the capacity): it writes no
@@ -276,11 +344,13 @@ __device__ void empty_rows(const StepPlan& pl, int k) {
 
 __global__ void __launch_bounds__(256)
 pattern_step_kernel(const __grid_constant__ StepPlan pl) {
+  __shared__ long long warp_wake[8];
   int k = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned n_valid = 0, n_drop = 0, n_fork_drop = 0;
+  long long wake = NO_WAKE;
   if (k < pl.Kb) {
     long long col = pl.dense ? pl.key_lo + k : (long long)pl.key_idx[k];
-    if (col >= 0 && col < pl.K) step_key(pl, col, k, n_valid, n_drop, n_fork_drop);
+    if (col >= 0 && col < pl.K) step_key(pl, col, k, n_valid, n_drop, n_fork_drop, wake);
     else empty_rows(pl, k);
   }
   // every lane of the warp reaches here: reduce, then one atomic per warp
@@ -291,6 +361,21 @@ pattern_step_kernel(const __grid_constant__ StepPlan pl) {
     if (n_valid) atomicAdd(pl.header, (unsigned long long)n_valid);
     if (n_drop) atomicAdd(pl.header + 1, (unsigned long long)n_drop);
     if (n_fork_drop) atomicAdd(pl.dropped, (unsigned long long)n_fork_drop);
+  }
+  if (pl.absent_mask) {
+    // the block's earliest deadline: warp shuffles, then one atomic
+    for (int off = 16; off > 0; off >>= 1) {
+      long long o = __shfl_down_sync(0xffffffffu, wake, off);
+      if (o < wake) wake = o;
+    }
+    if ((threadIdx.x & 31) == 0) warp_wake[threadIdx.x >> 5] = wake;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      long long w = warp_wake[0];
+      for (int i = 1; i < (int)(blockDim.x >> 5); ++i)
+        if (warp_wake[i] < w) w = warp_wake[i];
+      if (w < NO_WAKE) atomicMin((long long*)(pl.header + 2), w);
+    }
   }
 }
 

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
 SOURCES = ("pattern_step", "filter_compact", "time_window", "length_batch",
-           "group_agg", "length_window", "join_lanes", "join_probe")
+           "group_agg", "length_window", "join_lanes", "join_probe",
+           "block_nfa")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

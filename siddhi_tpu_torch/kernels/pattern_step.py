@@ -3,21 +3,25 @@
 The kernel (`siddhi_tpu_torch/csrc/pattern_step.cu`) replaces the JAX
 package's jitted pattern step (`siddhi_tpu/core/pattern_planner.py`
 `make_step` with `wire_ts`, `PatternExec.tick` / `_spawn` in
-`siddhi_tpu/core/pattern.py`, and `_emit_matches`' compaction).
+`siddhi_tpu/core/pattern.py`, and `_emit_matches`' compaction), and, for
+plans with absent atoms, its timer step (`tstep`) and the wake of
+`_emit_matches`.
 
-`PatternStep` is what the runtime calls.  Given tensors on the CPU it runs
-the plain PyTorch step (`make_step` in `core/pattern_planner.py`, the
-kernel's reference); given CUDA tensors it launches the kernel, and a plan
-without a kernel plan raises.  There is no fallback from the kernel to the
-plain step.  The kernel updates the state blobs IN PLACE (the JAX step
-donated them), so callers must not keep the old blobs expecting the old
-values.
+`PatternStep` is what the runtime calls for a data step, `TimerStep` for
+a timer step (a launch in timer mode over the whole slab).  Given tensors
+on the CPU it runs the plain PyTorch step (`make_step` or `tstep` in
+`core/pattern_planner.py`, the kernel's reference); given CUDA tensors it
+launches the kernel, and a plan without a kernel plan raises.  There is
+no fallback from the kernel to the plain step.  The kernel updates the
+state blobs IN PLACE (the JAX step donated them), so callers must not
+keep the old blobs expecting the old values.
 
 The kernel builds from the repository's source at first use
 (`kernels/_nvcc.py`).
 
-`launches` counts kernel launches and `plain_calls` calls of the plain
-version; `reset_counts()` sets both to 0.
+`launches` counts data-step kernel launches, `timer_launches` timer-mode
+launches and `plain_calls` calls of the plain versions; `reset_counts()`
+sets them to 0.
 """
 from __future__ import annotations
 
@@ -32,12 +36,14 @@ from . import _nvcc
 from .filter_bytecode import compile_filter, type_code
 
 launches = 0
+timer_launches = 0
 plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
+    global launches, timer_launches, plain_calls
     launches = 0
+    timer_launches = 0
     plain_calls = 0
 
 
@@ -84,8 +90,10 @@ class StepPlan(ctypes.Structure):
     _fields_ = (
         [(n, _I) for n in ("K", "Kb", "E", "B", "P", "S", "R", "compact",
                            "dense", "ts_wire", "has_within", "every",
-                           "seed_cap_atom", "stream_atom_mask")] +
+                           "seed_cap_atom", "stream_atom_mask",
+                           "absent_mask", "timer")] +
         [(n, _L) for n in ("within", "now", "ts_base", "key_lo")] +
+        [("wait", _L * MAX_ATOMS)] +
         [(n, _I) for n in ("off_active", "off_pos", "off_count",
                            "off_lmask", "off_seed_on", "off_done",
                            "off_start", "off_entry")] +
@@ -139,6 +147,10 @@ class KernelPlan:
             else -1
         t.stream_atom_mask = sum(1 << a.pos for a in atoms
                                  if a.stream_id == stream_id)
+        t.absent_mask = sum(1 << a.pos for a in atoms if a.absent)
+        for a in atoms:
+            t.wait[a.pos] = int(a.waiting_time or 0)
+        self.has_absent = bool(t.absent_mask)
         if len(self.schema.types) > MAX_COLS:
             raise NotImplementedError(
                 f"pattern_step kernel takes at most {MAX_COLS} columns")
@@ -154,7 +166,7 @@ class KernelPlan:
             setattr(t, f"off_{name}", rec[3])
         atom_of_ref = {a.ref: a.pos for a in atoms}
         i = 9                                   # past the `dropped` scalar
-        for ck in sorted(a.ckey for a in atoms):
+        for ck in sorted(a.ckey for a in atoms if not a.absent):
             a = next(x for x in atoms if x.ckey == ck)
             sch = schemas[a.stream_id]
             if len(sch.types) > MAX_COLS:
@@ -209,11 +221,14 @@ def _check(x: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
 
 
 def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
-           key_ref, now: int, dense: bool):
+           key_ref, now: int, dense: bool, timer: bool = False):
     """Launch the kernel on the current stream.  Returns the updated packed
     state (same blobs) and the kernel's outputs before projection:
-    (header i64[2], ts, kind, valid, {(atom, col): column})."""
-    global launches
+    (header i64[3] = [n_valid, n_dropped, wake], ts, kind, valid,
+    {(atom, col): column}).  In timer mode (`timer`) the launch ticks every
+    key of the slab once with no event at ts = `now`; the event arguments
+    are then None."""
+    global launches, timer_launches
     b32, b64, scalars = packed
     dev = b32.device
     K = b32.shape[1]
@@ -223,8 +238,11 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     _check(dropped, "dropped", torch.int64, 0, dev)
     if b64.shape[1] != K:
         raise ValueError("pattern_step: b32 and b64 key axes differ")
-    _check(sel_idx, "sel_idx", torch.int32, 2, dev)
-    Kb, E = sel_idx.shape
+    if timer:
+        Kb, E = K, 1
+    else:
+        _check(sel_idx, "sel_idx", torch.int32, 2, dev)
+        Kb, E = sel_idx.shape
     P = kp.P
     EP = E * (P + 1)
     R = min(kp.compact_rows, EP)
@@ -235,12 +253,15 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     pl.K, pl.Kb, pl.E, pl.R, pl.compact, pl.dense = K, Kb, E, R, \
         int(compact), int(dense)
     pl.now = int(now)
+    pl.timer = int(timer)
     # the bool -> int32 columns made here must live until the kernel is
     # queued: freed earlier, their blocks would be handed to the outputs
     # allocated below.  Once it is queued, the caching allocator's stream
     # ordering keeps a freed block from reuse until the kernel is done.
     converted = []
-    if ts_wire is not None:
+    if timer:
+        pl.B = 0
+    elif ts_wire is not None:
         base, delta = ts_wire
         _check(delta, "ts_delta", torch.int32, 1, dev)
         pl.B, pl.ts_wire, pl.ts_base = delta.shape[0], 1, int(base)
@@ -249,10 +270,10 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
         _check(raw_ts, "raw_ts", torch.int64, 1, dev)
         pl.B, pl.ts_wire = raw_ts.shape[0], 0
         pl.raw_ts = raw_ts.data_ptr()
-    if len(raw_cols) != len(kp.schema.types):
+    if not timer and len(raw_cols) != len(kp.schema.types):
         raise ValueError("pattern_step: column count does not match the "
                          "stream schema")
-    for c, (col, d) in enumerate(zip(raw_cols, kp.schema.dtypes)):
+    for c, (col, d) in enumerate(zip(raw_cols or (), kp.schema.dtypes)):
         if d == torch.bool:
             col = col.to(torch.int32)
             d = torch.int32
@@ -261,7 +282,9 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
         if col.shape[0] != pl.B:
             raise ValueError("pattern_step: column length differs from ts")
         pl.ev_col[c] = col.data_ptr()
-    if dense:
+    if timer:
+        pl.dense, pl.key_lo = 1, 0
+    elif dense:
         key_lo = int(key_ref)
         if key_lo < 0 or key_lo + Kb > K:
             raise ValueError(
@@ -277,7 +300,9 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     out_ts = torch.empty(nrows, dtype=torch.int64, device=dev)
     out_kind = torch.empty(nrows, dtype=torch.int32, device=dev)
     out_valid = torch.empty(nrows, dtype=torch.bool, device=dev)
-    header = torch.zeros(2, dtype=torch.int64, device=dev)
+    # fills, not a host copy, so that a CUDA graph can capture the launch
+    header = torch.full((3,), NO_WAKEUP, dtype=torch.int64, device=dev)
+    header[:2] = 0
     out_cols = {}
     for j, (a, c) in enumerate(kp.emit):
         sch = kp.sel.scope.schema(kp.atoms[a].ref)
@@ -286,7 +311,8 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
         pl.out_col[j] = col.data_ptr()
     pl.b32, pl.b64, pl.dropped = b32.data_ptr(), b64.data_ptr(), \
         dropped.data_ptr()
-    pl.sel_idx = sel_idx.data_ptr()
+    if sel_idx is not None:
+        pl.sel_idx = sel_idx.data_ptr()
     pl.out_ts, pl.out_kind, pl.out_valid = out_ts.data_ptr(), \
         out_kind.data_ptr(), out_valid.data_ptr()
     pl.header = header.data_ptr()
@@ -295,7 +321,10 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.check_launch(lib.siddhi_pattern_step(ctypes.byref(pl), stream),
                        "pattern_step")
-    launches += 1
+    if timer:
+        timer_launches += 1
+    else:
+        launches += 1
     del converted
     return (b32, b64, scalars), (header, out_ts, out_kind, out_valid,
                                  out_cols)
@@ -308,6 +337,8 @@ def project(kp: KernelPlan, sel_state, kout, now: int):
     header, out_ts, out_kind, out_valid, out_cols = kout
     env: Dict[str, Any] = {"__ts__": out_ts, "__now__": now}
     for a in kp.atoms:
+        if a.absent:
+            continue
         n = len(kp.sel.scope.schema(a.ref).types)
         cols = tuple(out_cols.get((a.pos, c)) for c in range(n))
         env[a.ref] = env[f"{a.ref}@0"] = env[f"{a.ref}@-1"] = cols
@@ -319,6 +350,11 @@ def project(kp: KernelPlan, sel_state, kout, now: int):
                                                      device=c.device))
                   for c in ocols)
     return sel_state, (header[0], header[1], ots, okind, ovalid, ocols)
+
+
+def wake_of(kp: KernelPlan, kout):
+    """The launch's wake (header[2]) where the plan has absent atoms."""
+    return kout[0][2] if kp.has_absent else NO_WAKEUP
 
 
 class PatternStep:
@@ -364,4 +400,35 @@ class PatternStep:
         packed, kout = launch(self.kernel_plan, packed, raw_cols, raw_ts,
                               ts_wire, sel_idx, key_ref, now, self.dense)
         sel_state, out = project(self.kernel_plan, sel_state, kout, now)
-        return packed, sel_state, out, NO_WAKEUP
+        return packed, sel_state, out, wake_of(self.kernel_plan, kout)
+
+
+class TimerStep:
+    """The timer step of a pattern query with absent atoms:
+    (packed, sel_state, now) -> (packed', sel_state', out, wake).  Given
+    tensors on the CPU it runs the plain `tstep`; given CUDA tensors it
+    launches the kernel in timer mode over the whole slab."""
+
+    def __init__(self, body, kernel_plan: Optional[KernelPlan]):
+        self.body = body
+        self.kernel_plan = kernel_plan
+
+    def __call__(self, packed, sel_state, now):
+        if packed[0].is_cuda:
+            return self.kernel(packed, sel_state, now)
+        return self.plain(packed, sel_state, now)
+
+    def plain(self, packed, sel_state, now):
+        global plain_calls
+        plain_calls += 1
+        return self.body(packed, sel_state, now)
+
+    def kernel(self, packed, sel_state, now):
+        if self.kernel_plan is None:
+            raise NotImplementedError(
+                "this pattern plan has no CUDA kernel plan (planned for "
+                "another device)")
+        packed, kout = launch(self.kernel_plan, packed, None, None, None,
+                              None, None, now, True, timer=True)
+        sel_state, out = project(self.kernel_plan, sel_state, kout, now)
+        return packed, sel_state, out, kout[0][2]

@@ -146,11 +146,30 @@ def test_flagship_is_inside_kernel_subset_and_plans_a_kernel():
 
 
 def test_non_partitioned_simple_chain_raises():
-    mgr = TorchManager(device="cpu")
-    with pytest.raises(NotImplementedError, match="B6"):
-        mgr.create_siddhi_app_runtime(
-            "define stream S (v int);\nfrom every e1=S[v == 1] -> "
-            "e2=S[v == 2] select e1.v as a insert into O;")
+    """The non-partitioned simple chain that raised before the block NFA
+    was ported (ROADMAP B6) now plans onto it and gives the JAX package's
+    events."""
+    ql = ("@app:playback\ndefine stream S (v int);\n@info(name='q')\n"
+          "from every e1=S[v == 1] -> e2=S[v == 2] select e1.v as a "
+          "insert into O;")
+    rng = np.random.default_rng(12)
+    vs = rng.integers(1, 3, 400).astype(np.int32)
+    out = []
+    for mgr in (TorchManager(device="cpu"), JaxManager()):
+        rt = mgr.create_siddhi_app_runtime(ql)
+        got = []
+        rt.add_callback("q", lambda ts, i, o, got=got: got.extend(
+            (e.timestamp, tuple(e.data)) for e in (i or [])))
+        rt.start()
+        rt.get_input_handler("S").send_columns(
+            [vs], timestamps=1000 + np.arange(400, dtype=np.int64))
+        rt.flush()
+        mgr.shutdown()
+        out.append(got)
+    assert out[0] == out[1] and len(out[0]) > 50
+    p = TorchManager(device="cpu").create_siddhi_app_runtime(ql) \
+        .query_runtimes["q"].planned
+    assert p.block
 
 
 @pytest.mark.parametrize("ann", ["@async(buffer.size='64')",
