@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the nine kernels of siddhi_tpu_torch/csrc/ with
+  2. build: compiles the eleven kernels of siddhi_tpu_torch/csrc/ with
      nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -91,7 +91,28 @@ Phases (any failure exits nonzero):
      sends, then a profiled sweep): exactly the odd keys of each block
      fire, once each, at e1.ts + 1000, through timer-mode launches; A2:
      the absent corpus's shapes with standalone absent atoms and the idle
-     advance, the JAX package's events.
+     advance, the JAX package's events;
+ 18. table_write (K9: the row write, duplicate slots in one batch
+     included, and the masked delete), table_match (K10, dense and over
+     index candidates) and join_probe's table modes (K7: the grid over a
+     table and the table fast path) against their plain versions on the
+     card, stage by stage, through twin runtimes fed the same sends (one
+     launching the kernels, one calling the plain versions): every K7 and
+     K10 output, both tables after every send (exact): T1's 2^20-row
+     shape with a send of duplicate new and existing keys, freed-row
+     reuse, a masked delete, K10 dense at 4,096 x 4,096 and 2^20 x 1,024,
+     K10 over @Index candidates (K > 1), K7's grid inner and left outer;
+ 19. their times per launch (CUDA-graph replays) at T1's and T2's shapes
+     beside their plain versions and bounds (and the one torch call that
+     computes the masked delete);
+ 20. T1 (the query guide's upsert + enrichment at 2^20 rows: 8 filling
+     sends, 16 timed sends of 131,072 upserts and 131,072 probes; every
+     join header, the last send's rows and the whole table via rt.query
+     held to a numpy model; then a profiled sweep with the host time of
+     the indexed match and the allocator), T2 (the table_crud sample,
+     4,096 symbols, the table held to numpy after each of 16 sends) and
+     T3 (the table corpus's shapes, the JAX package's events), every
+     kernel launched and no plain version called.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -660,6 +681,7 @@ def main() -> None:
     records = single_stream_phases(torch, np, dev)
     records += join_phases(torch, np, dev)
     records += pattern_phases(torch, np, dev)
+    records += table_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -2935,6 +2957,710 @@ def pattern_phases(torch, np, dev):
              "bound_by": ta["timer"]["bound_by"], "library_ms": None}]
 
 
+# ---------------------------------------------------------------------------
+# in-memory tables: K9 table_write, K10 table_match, K7's table modes
+# ---------------------------------------------------------------------------
+
+T1_ROWS = 1 << 20         # StockTable's capacity and its ids
+T1_B = 1 << 17            # rows a send on each stream
+T1_FILL = 8               # sends that fill the table
+T1_TIMED = 16
+T1_MISS = 1 << 16         # CheckStock ids reach 2^20 + 2^16 (about 6% miss)
+T2_SYMS = 4096
+T2_SENDS = 16
+IDX18_ROWS = 1 << 16      # the @Index twin's rows, 4,096 groups
+
+
+def subcounts(mods):
+    """The main path's launches of each table kernel record."""
+    tw, tm, jp = mods["table_write"], mods["table_match"], \
+        mods["join_probe"]
+    return {"table_write": tw.launches, "table_delete": tw.delete_launches,
+            "table_match": tm.launches - tm.dense_launches,
+            "table_match_dense": tm.dense_launches,
+            "join_probe_table": jp.index_launches,
+            "join_probe_table_grid": jp.grid_table_launches,
+            "join_probe index": jp.index_launches,
+            "join_probe grid": jp.grid_table_launches}
+
+
+def table_modules():
+    from siddhi_tpu_torch.kernels import filter_compact, join_probe, \
+        table_match, table_write
+    return {"filter_compact": filter_compact, "join_probe": join_probe,
+            "table_match": table_match, "table_write": table_write}
+
+
+class Recording:
+    """Within the block, the table paths' K7 and K10 calls are recorded
+    (outputs, and the arguments of the last call of each kind for
+    timing).  `plain=True` also routes K1, K7, K9 and K10 to their plain
+    versions on the card, so a twin runtime gives the reference of every
+    stage."""
+
+    def __init__(self, rec, plain=False, args=None):
+        self.rec, self.plain, self.args = rec, plain, args
+        self.m = table_modules()
+
+    def __enter__(self):
+        m = self.m
+        fc, jp, tm, tw = (m[k] for k in ("filter_compact", "join_probe",
+                                         "table_match", "table_write"))
+        self.saved = (fc.filter_compact, jp.join_probe, tm.table_match,
+                      tw.write, tw.masked_delete)
+        rec, args = self.rec, self.args
+        k_jp = jp.plain if self.plain else jp.join_probe
+        k_tm = tm.plain if self.plain else tm.table_match
+
+        def rec_jp(spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr,
+                   o_valid=None, cand=None):
+            out = k_jp(spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr,
+                       o_valid, cand)
+            rec.append(("K7", out + (hdr,)))
+            if args is not None:
+                args["K7 index" if cand is not None else "K7 grid"] = (
+                    spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr,
+                    o_valid, cand)
+            return out
+
+        def rec_tm(spec, ev_cols, ev_ts, ev_valid, tab_cols, tab_valid,
+                   cand=None):
+            out = k_tm(spec, ev_cols, ev_ts, ev_valid, tab_cols, tab_valid,
+                       cand)
+            rec.append(("K10", out))
+            if args is not None:
+                args["K10 cand" if cand is not None else "K10 dense"] = (
+                    spec, ev_cols, ev_ts, ev_valid, tab_cols, tab_valid,
+                    cand)
+            return out
+        jp.join_probe, tm.table_match = rec_jp, rec_tm
+        if self.plain:
+            fc.filter_compact = fc.plain
+            tw.write = lambda cols, ts, valid, win, *a: \
+                tw.plain_write(cols, ts, valid, *a)
+            tw.masked_delete = tw.plain_delete
+        elif args is not None:
+            orig = tw.write
+
+            def rec_tw(*a):
+                orig(*a)
+                args["K9 write"] = a
+            tw.write = rec_tw
+        return self
+
+    def __exit__(self, *exc):
+        m = self.m
+        (m["filter_compact"].filter_compact, m["join_probe"].join_probe,
+         m["table_match"].table_match, m["table_write"].write,
+         m["table_write"].masked_delete) = self.saved
+
+
+def table_state_err(torch, np, ta, tb, what):
+    """Two tables hold the same rows and host bookkeeping (0.0) or fail."""
+    from siddhi_tpu_torch import convert
+    a, b = convert.table_to_numpy(ta), convert.table_to_numpy(tb)
+    for x, y in zip(a["cols"] + [a["ts"], a["valid"]],
+                    b["cols"] + [b["ts"], b["valid"]]):
+        if x.dtype.kind == "f":
+            x, y = x.view(np.int32), y.view(np.int32)
+        if not np.array_equal(x, y):
+            fail(f"{what}: table columns differ (kernel vs plain)")
+    for k in ("append_ptr", "free_rows"):
+        if a[k] != b[k]:
+            fail(f"{what}: {k} differs")
+    if ta._win is not None and bool((ta._win != -1).any()):
+        fail(f"{what}: K9's claim words were not reset")
+    return 0.0
+
+
+def twin_send(torch, np, rts, stream, cols, ts, what, args=None,
+              stats=None):
+    """One send into the kernel runtime and its plain twin, every K7 and
+    K10 output and both tables compared."""
+    ra, rb = [], []
+    with Recording(ra, args=args):
+        rts[0].get_input_handler(stream).send_columns(cols, timestamps=ts)
+    with Recording(rb, plain=True):
+        rts[1].get_input_handler(stream).send_columns(cols, timestamps=ts)
+    torch.cuda.synchronize()
+    if [t for t, _ in ra] != [t for t, _ in rb]:
+        fail(f"{what}: kernel path {[t for t, _ in ra]}, plain path "
+             f"{[t for t, _ in rb]}")
+    for (tag, xa), (_, xb) in zip(ra, rb):
+        for j, (x, y) in enumerate(zip(xa, xb)):
+            if not torch.equal(x, y):
+                fail(f"{what}: {tag} output {j} differs from its plain "
+                     f"version")
+        if stats is not None:
+            stats[tag] = stats.get(tag, 0) + 1
+    for tid in rts[0].tables:
+        table_state_err(torch, np, rts[0].tables[tid], rts[1].tables[tid],
+                        f"{what} table {tid}")
+    return 0.0
+
+
+def twin(dev, ql):
+    from siddhi_tpu_torch import SiddhiManager
+    rts = [SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+           for _ in range(2)]
+    for rt in rts:
+        rt.start()
+    return rts
+
+
+def t1_sends(np, rng, n, fill=False, perm=None, first=0):
+    """T1's traffic: a fill send upserts its block of the permutation, a
+    steady send upserts ids uniform over 2^20 then checks ids uniform over
+    [0, 2^20 + 2^16)."""
+    out = []
+    for i in range(first, first + n):
+        ts = np.full(T1_B, 1000 + 10 * i, np.int64)
+        ids = perm[i * T1_B:(i + 1) * T1_B] if fill else \
+            rng.integers(0, T1_ROWS, T1_B).astype(np.int64)
+        out.append(("StockUpdate", [ids.astype(np.int64),
+                                    rng.random(T1_B, np.float32),
+                                    rng.integers(0, 1 << 40, T1_B)
+                                    .astype(np.int64)], ts))
+        if not fill:
+            out.append(("CheckStock",
+                        [rng.integers(0, T1_ROWS + T1_MISS, T1_B)
+                         .astype(np.int64),
+                         rng.integers(1, 100, T1_B).astype(np.int32)],
+                        ts + 1))
+    return out
+
+
+def compare_table_kernels(torch, np, dev):
+    """Phase 18: K9, K10 and K7's table modes against their plain versions
+    on the card, stage by stage, through twin runtimes (one launching the
+    kernels, one calling the plain versions) over the same sends.  Returns
+    the largest difference (0.0), the timing inputs and counts."""
+    args, stats = {}, {}
+    timing = {}
+    rng = np.random.default_rng(41)
+    # T1's shape: the fill with a send of duplicate new and existing keys,
+    # steady upserts (K10 over the allocator's candidates) and joins (K7's
+    # fast path)
+    rts = twin(dev, T1_QL)
+    perm = rng.permutation(T1_ROWS).astype(np.int64)
+    fill = t1_sends(np, rng, T1_FILL, fill=True, perm=perm)
+    for i, (s, c, ts) in enumerate(fill):
+        twin_send(torch, np, rts, s, c, ts, f"T1 fill {i}", args, stats)
+        if i == 0:
+            timing["K9 write (T1 fill)"] = args["K9 write"]
+            dup = np.concatenate([perm[:T1_B // 2],
+                                  perm[T1_B:T1_B + T1_B // 2]])
+            ids = dup[rng.integers(0, dup.shape[0], T1_B)]
+            twin_send(torch, np, rts, "StockUpdate",
+                      [ids, rng.random(T1_B, np.float32),
+                       rng.integers(0, 1 << 40, T1_B).astype(np.int64)],
+                      ts, "T1 duplicate new and existing keys", args, stats)
+    for j, (s, c, ts) in enumerate(t1_sends(np, rng, 2, first=T1_FILL)):
+        twin_send(torch, np, rts, s, c, ts, f"T1 steady {j}", args, stats)
+    timing["K10 cand (T1)"] = args.pop("K10 cand")
+    timing["K7 index (T1)"] = args.pop("K7 index")
+    t1_table = rts[0].tables["StockTable"]
+    del rts
+    # T2's shape: the table_crud sample's first send (a permutation: K10
+    # dense without a hit, then K9 appends 4,096 rows) and a second
+    # (uniform: K10 dense, 4,096 x 4,096, with hits); the symbols travel
+    # as the ids 0..4,095
+    with open("samples/apps/table_crud.siddhi") as fh:
+        rts = twin(dev, fh.read())
+    for i in range(2):
+        k = rng.permutation(T2_SYMS) if i == 0 else \
+            rng.integers(0, T2_SYMS, T2_SYMS)
+        twin_send(torch, np, rts, "UpdateStream",
+                  [k.astype(np.int32), rng.random(T2_SYMS, np.float32)],
+                  np.full(T2_SYMS, 1500 + i, np.int64), f"T2 send {i}",
+                  args, stats)
+        if i == 0:
+            timing["K9 write (T2)"] = args.pop("K9 write")
+    timing["K10 dense (T2)"] = args.pop("K10 dense")
+    del rts
+    # appends that reuse freed rows, a masked delete and K7's grid over an
+    # unindexed table (inner and left outer)
+    rts = twin(dev, CRUD18_QL)
+    ids = rng.permutation(T2_SYMS).astype(np.int32)
+    n0 = 3 * T2_SYMS // 4
+
+    def send(stream, cols, i):
+        twin_send(torch, np, rts, stream, cols,
+                  np.full(len(cols[0]), 2000 + i, np.int64),
+                  f"CRUD send {i} ({stream})", args, stats)
+    send("Ins", [ids[:n0], rng.random(n0, np.float32)], 0)
+    send("Del", [rng.choice(ids[:n0], T2_SYMS // 6, replace=False)], 1)
+    send("Ins", [ids[n0:], rng.random(T2_SYMS - n0, np.float32)], 2)
+    send("Probe", [rng.integers(0, T2_SYMS, T2_SYMS).astype(np.int32)], 3)
+    send("Ups", [rng.integers(0, T2_SYMS, T2_SYMS).astype(np.int32),
+                 rng.random(T2_SYMS, np.float32)], 4)
+    send("Probe", [rng.integers(0, T2_SYMS, T2_SYMS).astype(np.int32)], 5)
+    timing["K7 grid"] = args.pop("K7 grid")
+    del rts
+    # K10 dense over a 2^20-row table with 1,024 batch rows
+    rts = twin(dev, BIG18_QL)
+    twin_send(torch, np, rts, "In",
+              [np.arange(T1_ROWS, dtype=np.int64),
+               rng.integers(0, 1000, T1_ROWS).astype(np.int32)],
+              np.full(T1_ROWS, 3000, np.int64), "2^20-row fill", args, stats)
+    twin_send(torch, np, rts, "Up",
+              [rng.integers(0, T1_ROWS, 1024).astype(np.int64),
+               rng.integers(0, 1000, 1024).astype(np.int32)],
+              np.full(1024, 3001, np.int64), "2^20 x 1,024 dense update",
+              args, stats)
+    timing["K10 dense (2^20 x 1,024)"] = args.pop("K10 dense")
+    del rts
+    # K10 over an @Index's candidates (K > 1)
+    rts = twin(dev, IDX18_QL)
+    n = IDX18_ROWS
+    twin_send(torch, np, rts, "In",
+              [np.arange(n, dtype=np.int64),
+               rng.integers(0, 4096, n).astype(np.int32),
+               rng.integers(0, 100, n).astype(np.int32)],
+              np.full(n, 4000, np.int64), "indexed fill", args, stats)
+    twin_send(torch, np, rts, "Del",
+              [rng.integers(0, 4096, 1024).astype(np.int32),
+               rng.integers(0, 100, 1024).astype(np.int32)],
+              np.full(1024, 4001, np.int64), "indexed delete", args, stats)
+    k_idx = int(args["K10 cand"][6].shape[1])
+    del rts
+    torch.cuda.empty_cache()
+    print(f"compare (tables): K9, K10 and K7's table modes == their plain "
+          f"versions on every stage: {stats.get('K10', 0)} K10 and "
+          f"{stats.get('K7', 0)} K7 launches compared, both tables after "
+          f"every send (T1's 2^20-row shape with duplicate new and existing "
+          f"keys, freed-row reuse, a masked delete, K10 dense at 4,096 x "
+          f"4,096 and 2^20 x 1,024, K10 over @Index candidates with K = "
+          f"{k_idx}, K7's grid inner and left outer and its fast path), "
+          f"max_abs_err 0.0")
+    return 0.0, timing, t1_table
+
+
+def code_bytes(code, ev_cols, other_cols):
+    """The bytes of one row of the columns a bytecode loads: (its LOAD_EV
+    columns, its LOAD_OTHER columns)."""
+    from siddhi_tpu_torch.kernels.filter_bytecode import LOAD_EV, \
+        LOAD_OTHER, _OP_LEN
+    loads, pc = {LOAD_EV: set(), LOAD_OTHER: set()}, 0
+    while pc < len(code):
+        if code[pc] in loads:
+            loads[code[pc]].add(code[pc + 1])
+        pc += _OP_LEN[code[pc]]
+    return (sum(ev_cols[c].element_size() for c in loads[LOAD_EV]),
+            sum(other_cols[c].element_size() for c in loads[LOAD_OTHER]))
+
+
+def k9_bound(np, args):
+    cols, ts, valid, win, new_cols, new_ts, slots, row_valid = args
+    rv = row_valid.cpu().numpy()
+    s = slots.cpu().numpy()
+    C = ts.shape[0]
+    live = rv & (s >= 0) & (s < C)
+    uniq = np.unique(s[live]).shape[0]
+    nb = sum(c.element_size() for c in new_cols)
+    tb = sum(c.element_size() for c in cols)
+    return bound(rv.shape[0] + int(live.sum()) * (nb + 8 + 4) +
+                 uniq * (tb + 8 + 1))
+
+
+def k10_bound(torch, np, args):
+    spec, ev_cols, ev_ts, ev_valid, tab_cols, tab_valid, cand = args
+    eb, ob = code_bytes(spec.code, ev_cols, tab_cols)
+    B, C = ev_valid.shape[0], tab_valid.shape[0]
+    out = 5 * C + B
+    if cand is None:
+        return bound(B * (1 + eb) + C * (1 + ob) + out, B * C)
+    c = cand.to(torch.int64)
+    ok = (c >= 0) & ev_valid[:, None]
+    n = int(ok.sum())
+    return bound(B + cand.numel() * 4 + int(ok.any(dim=1).sum()) * eb +
+                 n * (1 + ob) + out, n)
+
+
+def k7_bound(torch, args, hdr_after):
+    spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr, o_valid, cand = args
+    eb, ob = code_bytes(spec.on_code, trig.cols, o_cols)
+    data = trig.valid & ((trig.kind == 0) | (trig.kind == 1))
+    R = int(data.sum())
+    nv = int(hdr_after[0])
+    out = nv * 10 + (cap - nv) + 24
+    if cand is not None:
+        bix = torch.clamp(trig.cols[-1][data].to(torch.int64), 0,
+                          cand.shape[0] - 1)
+        cs = cand[bix].to(torch.int64)
+        n = int((cs >= 0).sum())
+        return bound(R * (4 + 1 + 4 + eb) + cand.numel() * 4 +
+                     n * (1 + ob) + out, n)
+    C_live = int(o_valid.sum())
+    return bound(R * (4 + 1 + eb) + o_valid.shape[0] +
+                 C_live * ob + out, R * C_live)
+
+
+def time_table_kernels(torch, np, dev, timing, t1_table):
+    """Phase 19: K9, K10 and K7's table modes per launch (CUDA-graph
+    replays between CUDA events) at T1's and T2's shapes, beside their
+    plain versions, their bounds and, where one exists, one torch call."""
+    m = table_modules()
+    tw, tm, jp = m["table_write"], m["table_match"], m["join_probe"]
+    res = {}
+    a = timing["K9 write (T1 fill)"]
+    cols, ts, valid, win, new_cols, new_ts, slots, row_valid = a
+    res["table_write"] = {
+        "ms": graph_ms(torch, lambda: tw.launch_write(*a), 20),
+        "plain_ms": event_timer(torch, lambda: tw.plain_write(
+            cols, ts, valid, new_cols, new_ts, slots, row_valid), 3),
+        **k9_bound(np, a), "shape": "T1's fill: 131,072 new rows into "
+        "2^20"}
+    a2 = timing["K9 write (T2)"]
+    res["table_write T2"] = {
+        "ms": graph_ms(torch, lambda: tw.launch_write(*a2), 20),
+        "plain_ms": event_timer(torch, lambda: tw.plain_write(
+            *a2[:3], *a2[4:]), 3),
+        **k9_bound(np, a2), "shape": "T2's first send: 4,096 rows into "
+        "4,096"}
+    vsave = t1_table.valid.clone()
+    kill = torch.from_numpy(np.random.default_rng(9).random(T1_ROWS)
+                            < 0.1).to(dev)
+    v = vsave.clone()
+
+    def restore():
+        v.copy_(vsave)
+    res["table_delete"] = {
+        "ms": graph_ms(torch, lambda: tw.launch_delete(v, kill), 20,
+                       restore),
+        "plain_ms": event_timer(torch, lambda: tw.plain_delete(v, kill), 20,
+                                restore),
+        "library_ms": event_timer(torch, lambda: torch.logical_and(
+            v, kill.logical_not()), 20, restore),
+        **bound(3 * T1_ROWS), "shape": "T1's table: 2^20 rows"}
+    for key, name, shape in (
+            ("K10 cand (T1)", "table_match", "T1: 131,072 rows, K = 1"),
+            ("K10 dense (T2)", "table_match_dense", "T2: 4,096 x 4,096"),
+            ("K10 dense (2^20 x 1,024)", "table_match_dense 2^20",
+             "2^20 table rows x 1,024")):
+        spec, ev_cols, ev_ts, ev_valid, tab_cols, tab_valid, cand = \
+            timing[key]
+        reps = 3 if "2^20 x" in key else 20
+        res[name] = {
+            "ms": graph_ms(torch, lambda: tm.launch(
+                spec, ev_cols, ev_valid, tab_cols, tab_valid, cand), reps),
+            "plain_ms": event_timer(torch, lambda: tm.plain(
+                spec, ev_cols, ev_ts, ev_valid, tab_cols, tab_valid, cand),
+                1 if "2^20 x" in key else 3),
+            **k10_bound(torch, np, timing[key]), "shape": shape}
+    for key, name, shape in (
+            ("K7 index (T1)", "join_probe_table", "T1: 131,072 trigger "
+             "rows, K = 1, 2^20 table rows"),
+            ("K7 grid", "join_probe_table_grid",
+             "4,096 trigger rows x an 8,192-row table with T2's 4,096 "
+             "symbols")):
+        a = timing[key]
+        hd = torch.zeros(3, dtype=torch.int64, device=dev)
+        k = a[:7] + (hd,) + a[8:]
+        jp.launch(*k)
+        torch.cuda.synchronize()
+        if hd.tolist() != a[7].tolist():
+            fail(f"join_probe ({key}): the timed inputs give header "
+                 f"{hd.tolist()}, the compared step {a[7].tolist()}")
+        res[name] = {
+            "ms": graph_ms(torch, lambda: jp.launch(*k), 20),
+            "plain_ms": event_timer(torch, lambda: jp.plain(*k), 3),
+            **k7_bound(torch, a, hd.tolist()), "shape": shape}
+    for name, t in res.items():
+        lib = f", library {t['library_ms']:.4f} ms" \
+            if t.get("library_ms") is not None else ""
+        print(f"timing {name} ({t['shape']}): kernel {t['ms']:.4f} "
+              f"ms/launch, plain {t['plain_ms']:.4f} ms{lib}, bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+              f"bytes, {t['ops']} ops)")
+    return res
+
+
+def run_t1(torch, np, dev, mods):
+    """T1 at full size: 8 sends fill the 2^20-row table through the upsert,
+    16 timed sends of 131,072 upserts and 131,072 enrichment probes; every
+    join header, the last send's joined rows and the final table held to a
+    numpy model (the last writer in batch order wins); then a profiled
+    sweep with the host time of the indexed match and the allocator."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(T1_QL)
+    got = []
+    rt.add_batch_callback("enrich", lambda ts, b: got.append(b))
+    rt.start()
+    table = rt.tables["StockTable"]
+    rng = np.random.default_rng(43)
+    perm = rng.permutation(T1_ROWS).astype(np.int64)
+    sends = t1_sends(np, rng, T1_FILL, fill=True, perm=perm) + \
+        t1_sends(np, rng, T1_TIMED, first=T1_FILL)
+    price = np.zeros(T1_ROWS, np.float32)
+    volume = np.zeros(T1_ROWS, np.int64)
+    for mo in mods.values():
+        mo.reset_counts()
+    lat, t0, heads = [], None, []
+    for i, (stream, cols, ts) in enumerate(sends):
+        if i == T1_FILL:
+            rt.flush()
+            t0 = time.perf_counter()
+        n0 = len(got)
+        tb = time.perf_counter()
+        rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+        if i >= T1_FILL:
+            if stream == "StockUpdate":
+                lat.append(time.perf_counter() - tb)
+            else:
+                lat[-1] += time.perf_counter() - tb
+        if stream == "CheckStock":
+            b = got[n0] if len(got) > n0 else None
+            heads.append((b["n_valid"], b["n_current"], b["n_dropped"])
+                         if b is not None else (0, 0, 0))
+            last = b
+        got.clear()
+    rt.flush()
+    wall = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    sub = subcounts(mods)
+    # the numpy model, outside the timing: the last writer in batch order
+    hj = 0
+    for stream, cols, ts in sends:
+        if stream == "StockUpdate":
+            ids = cols[0]
+            _, first_rev = np.unique(ids[::-1], return_index=True)
+            last_w = ids.shape[0] - 1 - first_rev
+            price[ids[last_w]] = cols[1][last_w]
+            volume[ids[last_w]] = cols[2][last_w]
+        else:
+            n = int((cols[0] < T1_ROWS).sum())
+            if heads[hj] != (n, n, 0):
+                fail(f"T1 join send {hj}: header {heads[hj]}, numpy "
+                     f"({n}, {n}, 0)")
+            hj += 1
+            want_ids = cols[0]
+    v = last["valid"]
+    jc = {k: np.asarray(c)[v] for k, c in last["cols"].items()}
+    sym = jc["symbol"]
+    if not (np.array_equal(np.sort(sym), np.sort(want_ids[want_ids <
+                                                        T1_ROWS])) and
+            np.array_equal(jc["price"].view(np.int32),
+                           price[sym].view(np.int32)) and
+            np.array_equal(jc["volume"], volume[sym])):
+        fail("T1: the last send's joined rows are not the model's")
+    check_launched("T1", launches, plain, ("table_match", "table_write",
+                                          "filter_compact", "join_probe"))
+    if sub["join_probe index"] <= 0 or sub["table_match_dense"]:
+        fail(f"T1: table-mode launches {sub}")
+    ev = 2 * T1_B * T1_TIMED
+    lat_line(np, "T1 (upsert + enrichment, 2^20-row table)", lat, wall, ev,
+             2 * T1_B * (8 + 4 + 8 + 8) + T1_B * (8 + 4 + 8 + 4))
+    # the host time of the indexed match and the allocator lookups
+    spent = {"match": [0.0, 0], "alloc": [0.0, 0]}
+    match, slots_for = table._match, table.allocator.slots_for
+
+    def timed_match(*a, **k):
+        t = time.perf_counter()
+        out = match(*a, **k)
+        spent["match"][0] += time.perf_counter() - t
+        spent["match"][1] += 1
+        return out
+
+    def timed_slots(*a, **k):
+        t = time.perf_counter()
+        out = slots_for(*a, **k)
+        spent["alloc"][0] += time.perf_counter() - t
+        spent["alloc"][1] += 1
+        return out
+    table._match, table.allocator.slots_for = timed_match, timed_slots
+    extra = t1_sends(np, rng, 4, first=T1_FILL + T1_TIMED)
+
+    def send(b):
+        for stream, cols, ts in extra[2 * b:2 * b + 2]:
+            rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+    profile = device_profile(torch, rt, 4, send)
+    table._match, table.allocator.slots_for = match, slots_for
+    profile_line("T1", 4, profile)
+    print(f"T1 host: TableRuntime._match (the indexed probe, candidates to "
+          f"the card, K10's launch) {spent['match'][0] * 1e3 / 4:.3f} ms a "
+          f"send over {spent['match'][1]} calls; the primary-key "
+          f"allocator's lookups {spent['alloc'][0] * 1e3 / 4:.3f} ms a send "
+          f"over {spent['alloc'][1]} calls (upsert match and join probe)")
+    # the final table, read back through an on-demand query
+    for stream, cols, ts in extra:
+        if stream == "StockUpdate":
+            ids = cols[0]
+            _, first_rev = np.unique(ids[::-1], return_index=True)
+            last_w = ids.shape[0] - 1 - first_rev
+            price[ids[last_w]] = cols[1][last_w]
+            volume[ids[last_w]] = cols[2][last_w]
+    rows = rt.query("from StockTable select symbol, price, volume")
+    arr = np.array([(e.data[0], e.data[2]) for e in rows], np.int64)
+    pr = np.array([e.data[1] for e in rows], np.float32)
+    if arr.shape[0] != T1_ROWS or not (
+            np.array_equal(np.sort(arr[:, 0]), np.arange(T1_ROWS)) and
+            np.array_equal(pr.view(np.int32),
+                           price[arr[:, 0]].view(np.int32)) and
+            np.array_equal(arr[:, 1], volume[arr[:, 0]])):
+        fail("T1: rt.query over StockTable differs from the model")
+    print(f"T1 check: every join send's [n_valid, n_current, n_dropped] "
+          f"equals numpy's count of probes below 2^20; the last send's "
+          f"{sym.shape[0]} joined rows carry the model's price and volume; "
+          f"rt.query returns all {T1_ROWS} rows equal to the model; path "
+          f"{rt.query_runtimes['enrich'].planned.fastpath}; launches "
+          f"{launches}, {sub}")
+    mgr.shutdown()
+    return launches, sub
+
+
+def run_t2(torch, np, dev, mods):
+    """T2: the table_crud sample whole (no primary key, so every upsert is
+    K10's dense mode): 4,096 symbols, 16 sends of 4,096 events (the first a
+    permutation, the rest uniform with repeats), the table held to a numpy
+    model after every send."""
+    from siddhi_tpu_torch import SiddhiManager, convert
+    with open("samples/apps/table_crud.siddhi") as fh:
+        ql = fh.read()
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(ql)
+    rt.start()
+    ids = np.array([mgr.interner.intern(f"S{i}") for i in range(T2_SYMS)],
+                   np.int32)
+    rng = np.random.default_rng(47)
+    model = np.full(T2_SYMS, np.nan, np.float32)
+    table = rt.tables["PriceTable"]
+    for mo in mods.values():
+        mo.reset_counts()
+    lat = []
+    for i in range(T2_SENDS):
+        k = rng.permutation(T2_SYMS) if i == 0 else \
+            rng.integers(0, T2_SYMS, T2_SYMS)
+        pr = (rng.integers(0, 1 << 20, T2_SYMS) / 64).astype(np.float32)
+        tb = time.perf_counter()
+        rt.get_input_handler("UpdateStream").send_columns(
+            [ids[k], pr], timestamps=np.full(T2_SYMS, 1000 + i, np.int64))
+        rt.flush()
+        lat.append(time.perf_counter() - tb)
+        _, first_rev = np.unique(k[::-1], return_index=True)
+        last_w = k.shape[0] - 1 - first_rev
+        model[k[last_w]] = pr[last_w]
+        d = convert.table_to_numpy(table)
+        sym, price = d["cols"][0][d["valid"]], d["cols"][1][d["valid"]]
+        pos = np.searchsorted(ids, sym) if np.all(np.diff(ids) > 0) else \
+            np.array([int(np.nonzero(ids == s)[0][0]) for s in sym])
+        if sym.shape[0] != T2_SYMS or np.unique(sym).shape[0] != T2_SYMS \
+                or not np.array_equal(price.view(np.int32),
+                                      model[pos].view(np.int32)):
+            fail(f"T2 send {i}: the table differs from the model")
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("T2", launches, plain, ("table_match", "table_write"))
+    if mods["table_match"].dense_launches != launches["table_match"]:
+        fail("T2: a match that was not dense")
+    ms = np.array(lat) * 1e3
+    print(f"T2 (table_crud sample, 4,096 symbols): the table equals the "
+          f"numpy model after each of {T2_SENDS} sends; per send (with its "
+          f"flush) p50 {float(np.percentile(ms, 50)):.3f} ms, p99 "
+          f"{float(np.percentile(ms, 99)):.3f} ms")
+    mgr.shutdown()
+    return launches, subcounts(mods)
+
+
+def t3_trace(mgr, ql, actions):
+    """One T3 case: per action, the events query 'q' delivered during a
+    send, or an on-demand query's rows."""
+    rt = mgr.create_siddhi_app_runtime(ql)
+    got = []
+    if "q" in rt.query_runtimes:
+        rt.add_callback("q", lambda ts, c, e: got.extend(
+            tuple(x.data) for x in c or []))
+    rt.start()
+    out = []
+    for act in actions:
+        if act[0] == "query":
+            out.append([tuple(e.data) for e in rt.query(act[1])])
+        else:
+            _, stream, rows, ts = act
+            rt.get_input_handler(stream).send(rows, timestamp=ts)
+            rt.flush()
+            out.append(list(got))
+            got.clear()
+    mgr.shutdown()
+    return out
+
+
+def run_t3(torch, np, dev, mods):
+    """T3: the table corpus's shapes, small, with the events and query
+    results the JAX package gives (the CPU tests hold T3_CASES to it)."""
+    from siddhi_tpu_torch import SiddhiManager
+    for mo in mods.values():
+        mo.reset_counts()
+    for name, ql, actions, want in T3_CASES:
+        got = t3_trace(SiddhiManager(device=dev), ql, actions)
+        if got != want:
+            fail(f"T3 {name}: {got}, expected {want}")
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    sub = subcounts(mods)
+    check_launched("T3", launches, plain, ("table_match", "table_write",
+                                          "filter_compact", "join_probe"))
+    if sub["table_delete"] <= 0 or sub["join_probe grid"] <= 0 or \
+            mods["table_write"].delete_plain_calls:
+        fail(f"T3: launches {sub}")
+    print(f"T3: {len(T3_CASES)} table-corpus shapes give the JAX package's "
+          f"events and query results; launches {launches}, {sub}")
+    return launches, sub
+
+
+def table_phases(torch, np, dev):
+    """Phases 18-20: K9, K10 and K7's table modes against their plain
+    versions, their times beside their bounds, and T1-T3 through
+    SiddhiManager.  Returns the table kernels' records."""
+    mods = table_modules()
+    err, timing, t1_table = compare_table_kernels(torch, np, dev)
+    res = time_table_kernels(torch, np, dev, timing, t1_table)
+    del timing, t1_table
+    torch.cuda.empty_cache()
+    sub = {}
+    for run in (run_t1, run_t2, run_t3):
+        _, s = run(torch, np, dev, mods)
+        for k, v in s.items():
+            sub[k] = sub.get(k, 0) + v
+    torch.cuda.empty_cache()
+    no_write = ("index_put_ is nondeterministic on duplicate indices, and "
+                "no call picks the last row of a batch")
+    no_match = ("no torch call reduces a bytecode condition over (batch "
+                "row, table row) pairs to hit / src / any")
+    no_probe = ("no torch call probes a table with a bytecode condition "
+                "and compacts pairs and unmatched rows")
+    recs = [
+        ("table_write", "table_write.cu", "siddhi_tpu/core/table.py:133",
+         no_write),
+        ("table_delete", "table_write.cu", "siddhi_tpu/core/table.py:144",
+         None),
+        ("table_match", "table_match.cu", "siddhi_tpu/core/table.py:259",
+         no_match),
+        ("table_match_dense", "table_match.cu",
+         "siddhi_tpu/core/table.py:318", no_match),
+        ("join_probe_table", "join_probe.cu", "siddhi_tpu/core/join.py:533",
+         no_probe),
+        ("join_probe_table_grid", "join_probe.cu",
+         "siddhi_tpu/core/join.py:495", no_probe)]
+    records = []
+    for name, src, rep, why in recs:
+        t, n = res[name], sub[name]
+        lib = t.get("library_ms")
+        why = f"; library_ms null: {why}" if lib is None else ""
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}), plain "
+              f"{t['plain_ms']:.4f} ms, launches on the main paths {n}{why}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": lib})
+    return records
+
+
 # bench.py:297 config_sequence_within (siddhi_tpu/analysis/corpus.py
 # SEQUENCE_QL); S1-wide raises the @emit cap with its batch
 S1_QL = """
@@ -3180,6 +3906,249 @@ begin
   insert into M2;
 end;
 """
+
+
+# The Siddhi 5.1 query guide's "Table" section: a @PrimaryKey table written
+# by `update or insert into ... on T.key == key` and read by a stream-table
+# join, with its StockTable (symbol, price, volume) shape; `symbol` is a
+# LONG id (not a STRING) so that interning 2^20 strings does not measure
+# the interner
+T1_QL = """
+define stream StockUpdate (symbol long, price float, volume long);
+define stream CheckStock (symbol long, qty int);
+@PrimaryKey('symbol') @capacity(rows='1048576')
+define table StockTable (symbol long, price float, volume long);
+@info(name='upsert') from StockUpdate select symbol, price, volume
+update or insert into StockTable on StockTable.symbol == symbol;
+@info(name='enrich') from CheckStock join StockTable
+  on CheckStock.symbol == StockTable.symbol
+select CheckStock.symbol, CheckStock.qty, StockTable.price,
+       StockTable.volume
+insert into Enriched;
+"""
+
+# phase 18's twins: a keyless table with inserts, deletes and an upsert
+# (freed-row reuse, the masked delete, K10 dense) and stream-table joins on
+# the grid, inner and left outer
+CRUD18_QL = """
+define stream Ins (sym int, price float);
+define stream Del (sym int);
+define stream Ups (sym int, price float);
+define stream Probe (sym int);
+@capacity(rows='8192')
+define table PriceTable (sym int, price float);
+@info(name='ins') from Ins insert into PriceTable;
+@info(name='del') from Del delete PriceTable on PriceTable.sym == sym;
+@info(name='ups') from Ups select sym, price
+update or insert into PriceTable on PriceTable.sym == sym;
+@info(name='inner') from Probe join PriceTable
+  on Probe.sym == PriceTable.sym
+select Probe.sym as s, PriceTable.price as p insert into O1;
+@info(name='outer') from Probe left outer join PriceTable
+  on Probe.sym == PriceTable.sym
+select Probe.sym as s, PriceTable.price as p insert into O2;
+"""
+
+BIG18_QL = """
+define stream In (k long, v int);
+define stream Up (k long, v int);
+@capacity(rows='1048576')
+define table T (k long, v int);
+@info(name='w') from In insert into T;
+@info(name='u') from Up update T set T.v = v on T.k == k;
+"""
+
+IDX18_QL = """
+define stream In (k long, grp int, v int);
+define stream Del (grp int, v int);
+@PrimaryKey('k') @Index('grp') @capacity(rows='65536')
+define table T (k long, grp int, v int);
+@info(name='w') from In insert into T;
+@info(name='d') from Del delete T on T.grp == grp and T.v > v;
+"""
+
+# T3: the shapes of tests/test_table_join.py, test_table_pk_matrix.py,
+# test_table_index.py, test_ondemand_corpus2.py and test_join_fastpath.py's
+# table cases, with the events and query results the JAX package gives
+_T3_JOIN = """
+@app:playback
+define stream S (sym long, price float);
+define stream Feed (sym long, name long);
+{ann}
+define table T (sym long, name long);
+@info(name='load') from Feed select sym, name insert into T;
+@info(name='q')
+from S{win} {jt} T on S.sym == T.sym{residual}
+select S.sym as s, price, T.name as n insert into Out;
+"""
+_T3_FEED = [("send", "Feed", [[1, 10], [2, 20], [3, 30], [5, 50], [2, 21]],
+             1000),
+            ("send", "S", [[1, 0.5], [2, 0.25], [4, 0.75], [5, 0.125],
+                           [2, 0.875]], 1001),
+            ("send", "Feed", [[4, 40], [6, 60]], 1002),
+            ("send", "S", [[4, 0.5], [6, 0.0625], [7, 0.5], [1, 0.375]],
+             1003)]
+_T3_SPECS = [
+    ("crud (test_table_join.py)", """
+@app:playback
+define stream S (symbol string, price float);
+define stream DeleteStream (symbol string);
+define stream U (symbol string, newPrice float);
+define stream UI (symbol string, price float);
+define table T (symbol string, price float);
+from S select * insert into T;
+from DeleteStream delete T on T.symbol == symbol;
+from U select symbol, newPrice
+update T set T.price = newPrice on T.symbol == symbol;
+from UI update or insert into T set T.price = price on T.symbol == symbol;
+""", [("send", "S", [["A", 1.0], ["B", 2.0], ["C", 3.0]], 1000),
+      ("send", "DeleteStream", [["B"]], 1001),
+      ("send", "U", [["A", 9.5]], 1002),
+      ("send", "UI", [["D", 4.0], ["A", 2.0], ["D", 5.0]], 1003),
+      ("query", "from T select symbol, price")]),
+    ("primary key, long (test_table_pk_matrix.py)", """
+@app:playback
+define stream In (sym long, price double, vol long);
+define stream Del (k long);
+define stream Upd (k long, p double);
+@PrimaryKey('sym')
+define table T (sym long, price double, vol long);
+@info(name='ins') from In select sym, price, vol insert into T;
+@info(name='del') from Del delete T on T.sym == k;
+@info(name='upd') from Upd update T set T.price = p on T.sym == k;
+""", [("send", "In", [[10, 0.0, 0], [20, 1.0, 10], [30, 2.0, 20],
+                      [10, 3.0, 30], [40, 4.0, 40], [20, 5.0, 50]], 1000),
+      ("send", "Upd", [[20, 99.5]], 1001),
+      ("send", "Del", [[10]], 1002),
+      ("send", "In", [[50, 6.0, 60], [50, 7.0, 70], [10, 8.0, 80]], 1003),
+      ("query", "from T select sym, price, vol")]),
+    ("@Index on-demand conditions (test_table_index.py)", """
+@app:playback
+define stream In (k string, sym string, v int);
+@PrimaryKey('k')
+@Index('sym', 'v')
+define table T (k string, sym string, v int);
+@info(name='w') from In insert into T;
+""", [("send", "In", [[f"k{i}", f"s{i % 4}", i] for i in range(16)], 1000),
+      ("query", "from T on sym == 's2' select k, v"),
+      ("query", "from T on v >= 12 select k, v"),
+      ("query", "from T on sym == 's1' and v > 6 select k, v"),
+      ("query", "from T on v == 5.5 select k"),
+      ("query", "from T on v < 3 or sym == 's3' select k, v")]),
+    ("@PrimaryKey + @Index delete / update (test_table_index.py)", """
+@app:playback
+define stream In (k string, sym string, v int);
+define stream Del (sym string);
+define stream Up (sym string, v int);
+@PrimaryKey('k')
+@Index('sym')
+define table T (k string, sym string, v int);
+@info(name='w') from In insert into T;
+@info(name='d') from Del delete T on T.sym == sym;
+@info(name='u') from Up update T set T.v = v on T.sym == sym;
+""", [("send", "In", [[f"k{i}", f"s{i % 3}", i] for i in range(8)], 1000),
+      ("send", "Del", [["s1"]], 1001),
+      ("send", "Up", [["s2", 77], ["s0", 5]], 1002),
+      ("query", "from T select k, sym, v")]),
+    ("join, @PrimaryKey fast path (test_join_fastpath.py)",
+     _T3_JOIN.format(ann="@PrimaryKey('sym')", win="", jt="join",
+                     residual=""), _T3_FEED),
+    ("join, @Index fast path with a residual", _T3_JOIN.format(
+        ann="@Index('sym')", win="", jt="join",
+        residual=" and S.price > 0.3"), _T3_FEED),
+    ("left outer join, @PrimaryKey fast path", _T3_JOIN.format(
+        ann="@PrimaryKey('sym')", win="", jt="left outer join",
+        residual=""), _T3_FEED),
+    ("join, unindexed table (grid)", _T3_JOIN.format(
+        ann="", win="", jt="join", residual=""), _T3_FEED),
+    ("full outer join, windowed stream side (grid)", _T3_JOIN.format(
+        ann="", win="#window.length(2)", jt="full outer join",
+        residual=""), _T3_FEED),
+    ("on-demand writes (test_ondemand_corpus2.py)", """
+@app:playback
+define stream In (sym string, price double, qty int);
+define table T (sym string, price double, qty int);
+@info(name='w') from In insert into T;
+""", [("send", "In", [["a", 10.0, 5], ["b", 20.0, 3], ["c", 30.0, 8],
+                      ["d", 5.0, 1]], 1000),
+      ("query", "from T on T.sym == 'b' select 'b' as sym, 99.0 as price, "
+                "7 as qty update or insert into T set T.price = price, "
+                "T.qty = qty on T.sym == sym"),
+      ("query", "from T on T.sym == 'a' select 'zz' as sym, 1.0 as price, "
+                "2 as qty update or insert into T set T.price = price, "
+                "T.qty = qty on T.sym == sym"),
+      ("query", "from T on T.qty > 2 select sym update T set T.price = "
+                "T.price * 2.0 on T.sym == sym"),
+      ("query", "from T delete T on T.sym == 'c'"),
+      ("query", "select 'e' as sym, 1.5 as price, 4 as qty insert into T"),
+      ("query", "from T select sym, price, qty"),
+      ("query", "from T select qty, sum(price) as total group by qty "
+                "order by total desc limit 2")]),
+    ("set expressions read the old columns", """
+@app:playback
+define stream In (k long, a int, b int);
+define stream Sw (k long);
+@PrimaryKey('k')
+define table T (k long, a int, b int);
+from In insert into T;
+from Sw update T set T.a = T.b, T.b = T.a on T.k == k;
+""", [("send", "In", [[1, 10, 20], [2, 30, 40], [3, 50, 60]], 1000),
+      ("send", "Sw", [[1], [3]], 1001),
+      ("send", "Sw", [[3]], 1002),
+      ("query", "from T select k, a, b")]),
+]
+
+_T3_WANT = [
+    # crud (test_table_join.py)
+    [[], [], [], [], [('A', 2.0), ('D', 4.0), ('C', 3.0), ('D', 5.0)]],
+    # primary key, long (test_table_pk_matrix.py)
+    [[], [], [], [],
+     [(50, 7.0, 70), (20, 99.5, 50), (30, 2.0, 20), (40, 4.0, 40),
+      (10, 8.0, 80)]],
+    # @Index on-demand conditions (test_table_index.py)
+    [[], [('k2', 2), ('k6', 6), ('k10', 10), ('k14', 14)],
+     [('k12', 12), ('k13', 13), ('k14', 14), ('k15', 15)],
+     [('k9', 9), ('k13', 13)], [],
+     [('k0', 0), ('k1', 1), ('k2', 2), ('k3', 3), ('k7', 7), ('k11', 11),
+      ('k15', 15)]],
+    # @PrimaryKey + @Index delete / update (test_table_index.py)
+    [[], [], [],
+     [('k0', 's0', 5), ('k2', 's2', 77), ('k3', 's0', 5), ('k5', 's2', 77),
+      ('k6', 's0', 5)]],
+    # join, @PrimaryKey fast path (test_join_fastpath.py)
+    [[], [(1, 0.5, 10), (2, 0.25, 21), (5, 0.125, 50), (2, 0.875, 21)], [],
+     [(4, 0.5, 40), (6, 0.0625, 60), (1, 0.375, 10)]],
+    # join, @Index fast path with a residual
+    [[], [(1, 0.5, 10), (2, 0.875, 20), (2, 0.875, 21)], [],
+     [(4, 0.5, 40), (1, 0.375, 10)]],
+    # left outer join, @PrimaryKey fast path
+    [[],
+     [(1, 0.5, 10), (2, 0.25, 21), (5, 0.125, 50), (2, 0.875, 21),
+      (4, 0.75, None)],
+     [], [(4, 0.5, 40), (6, 0.0625, 60), (1, 0.375, 10), (7, 0.5, None)]],
+    # join, unindexed table (grid)
+    [[],
+     [(1, 0.5, 10), (2, 0.25, 20), (2, 0.25, 21), (5, 0.125, 50),
+      (2, 0.875, 20), (2, 0.875, 21)],
+     [], [(4, 0.5, 40), (6, 0.0625, 60), (1, 0.375, 10)]],
+    # full outer join, windowed stream side (grid)
+    [[],
+     [(1, 0.5, 10), (2, 0.25, 20), (2, 0.25, 21), (5, 0.125, 50),
+      (2, 0.875, 20), (2, 0.875, 21), (4, 0.75, None)],
+     [], [(4, 0.5, 40), (6, 0.0625, 60), (1, 0.375, 10), (7, 0.5, None)]],
+    # on-demand writes (test_ondemand_corpus2.py)
+    [[], [('b', 99.0, 7)], [('zz', 1.0, 2)], [('a',), ('b',), ('c',)],
+     [('a', 20.0, 5), ('b', 198.0, 7), ('c', 60.0, 8), ('d', 5.0, 1),
+      ('zz', 1.0, 2)],
+     [('e', 1.5, 4)],
+     [('a', 20.0, 5), ('b', 198.0, 7), ('e', 1.5, 4), ('d', 5.0, 1),
+      ('zz', 1.0, 2)],
+     [(7, 198.0), (5, 20.0)]],
+    # set expressions read the old columns
+    [[], [], [], [(1, 20, 10), (2, 30, 40), (3, 50, 60)]],
+]
+T3_CASES = [(name, ql, actions, want) for (name, ql, actions), want
+            in zip(_T3_SPECS, _T3_WANT)]
 
 if __name__ == "__main__":
     main()

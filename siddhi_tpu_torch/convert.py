@@ -19,6 +19,12 @@ state converts per window kind:
   * `lengthBatch`: (pending Buffer, previous Buffer, seq), each a compact
     prefix, becomes the port's BatchState.
 Both packages can then continue from the same mid-stream state.
+
+Tables: `table_from_jax` carries a JAX `TableRuntime`'s columns, ts,
+valid, append pointer, free rows, primary-key allocator and @Index lane
+tables into the port's table of the same definition; `table_to_numpy`
+reads either package's table back out as numpy, so the tests can compare
+the two after each op.
 """
 from __future__ import annotations
 
@@ -144,3 +150,75 @@ def query_state_from_jax(planned, jax_state, device=None):
     else:
         raise NotImplementedError(f"no state conversion for {w.name}")
     return port_w, selector_state_from_jax(sel_state, device)
+
+
+# ---------------------------------------------------------------------------
+# tables
+# ---------------------------------------------------------------------------
+
+_ALLOC_ARRAYS = ("_cells", "_cell_by_slot", "_used", "_free", "_meta",
+                 "_journal")
+
+
+def _copy_allocator(dst, src) -> None:
+    """Make `dst` (a port SlotAllocator) the exact copy of `src` (either
+    package's, same capacity): bindings, free stack order and counters."""
+    if dst.capacity != src.capacity:
+        raise ValueError("allocator capacities differ")
+    for name in _ALLOC_ARRAYS:
+        setattr(dst, name, np.array(getattr(src, name), copy=True))
+    dst._w8 = src._w8
+    dst._arena = None if src._arena is None else src._arena.copy()
+    dst._pcache[:] = 0
+    dst.version += 1
+
+
+def table_from_jax(jt, table) -> None:
+    """Carry a JAX TableRuntime's state into the port's TableRuntime of
+    the same definition (in place)."""
+    if jt.capacity != table.capacity:
+        raise ValueError("table capacities differ")
+    dev = table.device
+    for dst, src in zip(table.cols, jt.cols):
+        dst.copy_(_t(src, dev, dst.dtype))
+    table.ts.copy_(_t(jt.ts, dev, torch.int64))
+    table.valid.copy_(_t(jt.valid, dev, torch.bool))
+    table._append_ptr = int(jt._append_ptr)
+    table._free_rows = [int(x) for x in jt._free_rows]
+    if jt.allocator is not None:
+        _copy_allocator(table.allocator, jt.allocator)
+    for pos, src in jt.indexes.items():
+        dst = table.indexes[pos]
+        _copy_allocator(dst.alloc, src.alloc)
+        for name in ("lanes", "counts", "shadow", "bucket_of"):
+            setattr(dst, name, np.array(getattr(src, name), copy=True))
+        dst._sorted_dirty = True
+    table.index_stats = dict(jt.index_stats)
+
+
+def _np(x) -> np.ndarray:
+    """A copy as numpy (a CPU tensor's numpy view would follow the
+    table's in-place writes)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().copy()
+    return np.array(x, copy=True)
+
+
+def table_to_numpy(t) -> dict:
+    """Either package's TableRuntime as numpy: the columns, ts and valid;
+    the append pointer and free rows; the primary-key allocator's bindings
+    and free stack; each @Index's lanes, counts, shadow and bucket map."""
+    out = {"cols": [_np(c) for c in t.cols], "ts": _np(t.ts),
+           "valid": _np(t.valid), "append_ptr": int(t._append_ptr),
+           "free_rows": [int(x) for x in t._free_rows],
+           "slots": None, "free_slots": None, "indexes": {}}
+    if t.allocator is not None:
+        out["slots"] = t.allocator.snapshot()
+        out["free_slots"] = t.allocator._free[:int(
+            t.allocator._meta[1])].copy()
+    for pos, idx in t.indexes.items():
+        out["indexes"][pos] = {
+            "lanes": idx.lanes.copy(), "counts": idx.counts.copy(),
+            "shadow": idx.shadow.copy(), "bucket_of": idx.bucket_of.copy(),
+            "buckets": idx.alloc.snapshot()}
+    return out

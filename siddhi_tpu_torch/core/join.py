@@ -1,10 +1,12 @@
-"""Stream-stream join queries (port of `siddhi_tpu/core/join.py`).
+"""Stream-stream and stream-table join queries (port of
+`siddhi_tpu/core/join.py`).
 
 Reference behaviour (what): each CURRENT or EXPIRED row one side's window
-emits probes the other side's window; matched pairs are emitted, and for
-the outer side(s) of a left / right / full outer join the rows that match
-nothing are emitted with the other side null; `unidirectional` restricts
-which side triggers.
+emits probes the other side's window, or the table on the other side;
+matched pairs are emitted, and for the outer side(s) of a left / right /
+full outer join the rows that match nothing are emitted with the other
+side null; `unidirectional` restricts which side triggers.  A table side
+never triggers; its stream side may have no window (`NoWindow`).
 
 How the port runs a step (a batch arriving on side X), on CUDA one kernel
 per stage and on the CPU each kernel's plain version:
@@ -12,12 +14,15 @@ per stage and on the CPU each kernel's plain version:
      K1 `filter_compact`;
   2. X's window: K5 `length_window` or K2 `time_window`, each a ring in
      add_seq order (a bucketed side's ring carries the key-slot column
-     last);
+     last), or none (K1's compaction; on the table fast path the batch
+     row index rides as the last column);
   3. on the bucket path (an equality conjunct and no side filters), the
      other side's lane table: K6 `join_lanes`;
   4. the probe, the ON and having conditions and the cut to the emission
      cap: K7 `join_probe`, which writes the index rows and [n_valid,
-     n_current, n_dropped];
+     n_current, n_dropped]; against a table it scans the valid rows
+     (grid) or, on the table fast path, the host's [B, K] index
+     candidates (`JoinQueryRuntime._table_probe` in `core/runtime.py`);
   5. the torch projection: gathers of the columns by the index rows, the
      in-band nulls of unmatched rows, the select expressions.
 The step returns the output rows and one header, i64[6] = [n_valid,
@@ -25,23 +30,23 @@ n_current, n_dropped, lane overflow, wake, rows a time side's expire bound
 missed], which the runtime fetches once.
 
 Ported from the reference (line numbers of `siddhi_tpu/core/join.py`):
-`JoinSide`, `PlannedJoinQuery`, `_mk_side`, `plan_join_query`
-(:34-705), `make_step` (:445) and `_make_feed_only` (:708),
-`_retention_rows`, `_lane_bucket_count`, `_conjunct_count`,
-`_norm_key_cols` (:748-805), `_TrackSide` and `JoinKeyTracker`
-(:808-922, host numpy, copied); `_bucket_lanes` (:775) is K6.  The join
-parts of `siddhi_tpu/core/plan_facts.py` are copied here, where only the
-join uses them: `window_handler` (:133), `join_equi_pairs` (:351),
-`JOIN_LANE_K_MIN` (:396) and `join_fastpath` (:399, its stream-stream
-branch; the table branch and `table_probe_attrs_of` (:468) come with the
-tables slice).
+`JoinSide`, `PlannedJoinQuery`, `_mk_side` (with its table side and
+windowless stream side, :189-241), `plan_join_query` (:34-705, with its
+table mode), `make_step` (:445, with its table branches) and
+`_make_feed_only` (:708), `_retention_rows`, `_lane_bucket_count`,
+`_conjunct_count`, `_norm_key_cols` (:748-805), `_TrackSide` and
+`JoinKeyTracker` (:808-922, host numpy, copied); `_bucket_lanes` (:775)
+is K6.  The join parts of `siddhi_tpu/core/plan_facts.py` are copied
+here, where only the join uses them: `window_handler` (:133),
+`join_equi_pairs` (:351), `JOIN_LANE_K_MIN` (:396), `join_fastpath`
+(:399) and `table_probe_attrs_of` (:468).
 
-Not ported, raising at plan time: table sides and the table fast path
-(ROADMAP A10, B16), named-window and aggregation sides (A11), group by
-and aggregators in a join (A10), `@fuse` / `@async` / `@pipeline` /
-`@serve` (A12, raised by the runtime), mesh placement (A14) and the
-restore path (A13).  On CUDA a join whose conditions or columns do not fit
-the kernels raises NotImplementedError here.
+Not ported, raising at plan time: named-window and aggregation sides
+(ROADMAP A11), group by and aggregators in a join (A10), `@fuse` /
+`@async` / `@pipeline` / `@serve` (A12, raised by the runtime), mesh
+placement (A14) and the restore path (A13).  On CUDA a join whose
+conditions or columns do not fit the kernels raises NotImplementedError
+here.
 """
 from __future__ import annotations
 
@@ -61,7 +66,8 @@ from .executor import AGGREGATOR_NAMES, CompileError, CompiledExpr, Scope, \
     compile_expression
 from .keyslots import SlotAllocator
 from .selector import SelectorExec, _substitute_aliases
-from .window import NO_WAKEUP, Rows, WindowProcessor, create_window
+from .window import NO_WAKEUP, NoWindow, Rows, WindowProcessor, \
+    create_window
 
 # A-B kill switch: the parity tests plan one runtime with the fast path
 # off to hold the bucket path against the grid path.  Consulted once at
@@ -69,6 +75,7 @@ from .window import NO_WAKEUP, Rows, WindowProcessor, create_window
 FASTPATH_ENABLED = True
 
 JSLOT_COL = "#jslot"
+BIX_COL = "#bix"
 
 # lane width floor for the bucketed join probe; host occupancy tracking
 # grows it in power-of-two steps (JoinKeyTracker)
@@ -128,24 +135,81 @@ def join_equi_pairs(jis) -> List[Tuple[object, object, object]]:
     return out
 
 
-def join_fastpath(jis) -> Tuple[Optional[str], List, Optional[str]]:
-    """Equi-join fast-path decision for two stream sides: (mode, pairs,
-    reason).  'bucket' when both sides are stream windows without
-    filters; None with a reason when an equality conjunct exists but the
-    fast path cannot apply; None, [], None without an equality conjunct.
-    The reference's table and named-window branches come with the slices
-    that port those sides (ROADMAP A10, A11)."""
+def join_fastpath(jis, side_kind, table_probe_attrs=None
+                  ) -> Tuple[Optional[str], List, Optional[str]]:
+    """Equi-join fast-path decision: (mode, pairs, reason).
+
+    mode 'bucket' — both sides are stream windows: key slots ride the
+    window buffers and the step probes only same-bucket pairs.
+    mode 'table' — one side is an indexed table and the trigger side is
+    a windowless stream: the table's AttributeIndex / primary-key hash
+    answers candidates on the host.  mode None + reason — an equality
+    conjunct exists but the fast path cannot apply.  mode None + reason
+    None — no equality conjunct.
+
+    `side_kind(sid)` -> 'stream' | 'table'; `table_probe_attrs(sid)` ->
+    attribute names probe-able through a single-column @PrimaryKey or an
+    @Index (table mode only).  (The reference's named-window and
+    aggregation branch comes with those sides, ROADMAP A11.)"""
     pairs = join_equi_pairs(jis)
     if not pairs:
         return None, [], None
+    sides = {}
     for label, sis in (("left", jis.left_input_stream),
                        ("right", jis.right_input_stream)):
-        if any(isinstance(h, Filter) for h in sis.stream_handlers):
-            return None, pairs, (
-                f"{label} side {sis.stream_id!r} has a stream filter "
-                f"— host key-retention tracking would under-count "
-                f"the window and could free live key buckets")
-    return "bucket", pairs, None
+        sides[label] = (sis, side_kind(sis.stream_id))
+    kinds = {label: k for label, (_, k) in sides.items()}
+    if kinds["left"] == "stream" and kinds["right"] == "stream":
+        for label, (sis, _) in sides.items():
+            if any(isinstance(h, Filter) for h in sis.stream_handlers):
+                return None, pairs, (
+                    f"{label} side {sis.stream_id!r} has a stream filter "
+                    f"— host key-retention tracking would under-count "
+                    f"the window and could free live key buckets")
+        return "bucket", pairs, None
+    # stream-table: the stream side triggers, the table answers probes
+    t_label = "left" if kinds["left"] == "table" else "right"
+    s_label = "right" if t_label == "left" else "left"
+    t_sis = sides[t_label][0]
+    s_sis = sides[s_label][0]
+    if kinds[s_label] != "stream":
+        return None, pairs, "cannot join two table-like sides"
+    if window_handler(s_sis) is not None:
+        return None, pairs, (
+            f"windowed stream side {s_sis.stream_id!r} joining table "
+            f"{t_sis.stream_id!r} — buffered rows cannot re-probe the "
+            f"table index at step time")
+    probe_attrs = set(table_probe_attrs(t_sis.stream_id)) \
+        if table_probe_attrs is not None else set()
+    usable = []
+    for c, lv, rv in pairs:
+        t_var = lv if t_label == "left" else rv
+        if t_var.attribute_name in probe_attrs:
+            usable.append((c, lv, rv))
+    if not usable:
+        attrs = ", ".join(
+            repr((lv if t_label == "left" else rv).attribute_name)
+            for _, lv, rv in pairs)
+        return None, pairs, (
+            f"table {t_sis.stream_id!r} has no single-column @PrimaryKey "
+            f"or @Index on join key {attrs} — equality probes stay "
+            f"linear scans")
+    return "table", usable, None
+
+
+def table_probe_attrs_of(tdef) -> List[str]:
+    """Attribute names of a TableDefinition probe-able by hash: a
+    single-column @PrimaryKey plus every @Index attribute."""
+    out: List[str] = []
+    pk = tdef.get_annotation("PrimaryKey")
+    if pk is not None:
+        names = pk.positional_elements()
+        if len(names) == 1:
+            out.append(names[0])
+    idx = tdef.get_annotation("Index")
+    if idx is not None:
+        out.extend(n for n in idx.positional_elements() if n not in out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +220,12 @@ def join_fastpath(jis) -> Tuple[Optional[str], List, Optional[str]]:
 class JoinSide:
     stream_id: str
     key: str                      # scope key (alias or stream id)
-    schema: ev.Schema             # the stream's columns
-    window: WindowProcessor       # over win_schema
-    win_schema: ev.Schema         # + the key-slot column on the bucket path
+    schema: ev.Schema             # the stream's (or table's) columns
+    window: Optional[WindowProcessor]   # over win_schema; None: a table
+    win_schema: ev.Schema         # + the key-slot column on the bucket
+    #                               path, the batch-row column on the
+    #                               table fast path
+    is_table: bool = False
     pre_filters: List[CompiledExpr] = dataclasses.field(default_factory=list)
     fspec: Any = None             # kernels.filter_compact.FilterSpec
 
@@ -194,33 +261,46 @@ class PlannedJoinQuery:
     lane_buckets: Tuple[int, int] = (0, 0)
     ring_caps: Tuple[int, int] = (0, 0)
     join_key_allocator: Optional[SlotAllocator] = None
+    # table mode: which side is the table and the probe columns
+    table_is_left: bool = False
+    table_pos: int = -1          # indexed table column
+    stream_key_pos: int = -1     # stream-side key column
     # (left, right) kernels.join_probe.ProbeSpec of each triggering side
     probe_specs: Tuple[Any, Any] = (None, None)
 
 
-def _probe_schema(schema: ev.Schema) -> ev.Schema:
-    """A bucketed side's window schema: the stream's columns plus one INT
-    column carrying the key's bucket slot, which rides the ring, so an
-    EXPIRED row keeps the slot it was bucketed under at arrival."""
-    d = StreamDefinition(f"{schema.id}{JSLOT_COL}")
+def _probe_schema(schema: ev.Schema, col: str = JSLOT_COL) -> ev.Schema:
+    """A fast-path side's window schema: the stream's columns plus one INT
+    column riding the window.  On the bucket path it carries the key's
+    bucket slot, so an EXPIRED row keeps the slot it was bucketed under at
+    arrival; on the table fast path the batch row index, so a compacted
+    trigger row finds the host's candidates of its batch row."""
+    d = StreamDefinition(f"{schema.id}{col}")
     for n, t in zip(schema.names, schema.types):
         d.attribute(n, t)
-    d.attribute(JSLOT_COL, "INT")
+    d.attribute(col, "INT")
     return ev.Schema(d, schema.interner)
 
 
-def _mk_side(sis: SingleInputStream, schemas, batch_capacity, scope: Scope,
-             window_capacity_hint: int, probe_col: bool) -> JoinSide:
+def _mk_side(sis: SingleInputStream, schemas, tables, batch_capacity,
+             scope: Scope, window_capacity_hint: int,
+             extra_col: Optional[str]) -> JoinSide:
     sid = sis.stream_id
     key = sis.stream_reference_id or sid
+    if sid in tables:
+        schema = tables[sid].schema
+        scope.add_source(key, schema, alias=None)
+        return JoinSide(sid, key, schema, None, schema, is_table=True)
     if sid not in schemas:
         raise CompileError(f"undefined stream {sid!r}")
     schema = schemas[sid]
     scope.add_source(key, schema, alias=None)
-    win_schema = _probe_schema(schema) if probe_col else schema
+    win_schema = _probe_schema(schema, extra_col) if extra_col else schema
     wh = window_handler(sis)
     if wh is None:
-        raise CompileError("stream-stream joins need a window on each side")
+        # windowless stream side: valid when probing a table
+        return JoinSide(sid, key, schema,
+                        NoWindow(win_schema, [], batch_capacity), win_schema)
     win = create_window((wh.namespace + ":" if wh.namespace else "") +
                         wh.name, win_schema, wh.parameters, batch_capacity,
                         capacity_hint=window_capacity_hint)
@@ -258,8 +338,11 @@ def _conjunct_count(on) -> int:
 
 def _reference_rows(win: WindowProcessor, B: int) -> int:
     """The reference's window output size R for a batch of capacity B:
-    2B for a length window, B + C for a time window of capacity C.  The
-    implicit emission cap max(2R, 1024) is computed from it."""
+    B without a window, 2B for a length window, B + C for a time window of
+    capacity C.  The implicit emission cap max(2R, 1024) is computed from
+    it."""
+    if isinstance(win, NoWindow):
+        return B
     if win.name == "length":
         return 2 * B
     return B + win.capacity
@@ -273,7 +356,8 @@ def _kernel_subset(name: str, why: str) -> NotImplementedError:
 def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                     interner, batch_capacity: int = 512,
                     window_capacity_hint: int = 512,
-                    device: Optional[torch.device] = None
+                    device: Optional[torch.device] = None,
+                    tables: Optional[Dict[str, Any]] = None
                     ) -> PlannedJoinQuery:
     from ..kernels.filter_bytecode import AND, compile_filter
     from ..kernels.filter_compact import FilterSpec
@@ -288,17 +372,32 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
         raise CompileError("joins with aggregations are not yet ported "
                            "(ROADMAP A11)")
 
-    fp_mode, fp_pairs, fp_reason = join_fastpath(jis)
+    tables = tables or {}
+
+    def side_kind(sid: str) -> str:
+        return "table" if sid in tables else "stream"
+
+    fp_mode, fp_pairs, fp_reason = join_fastpath(
+        jis, side_kind,
+        lambda sid: table_probe_attrs_of(tables[sid].definition))
     if not FASTPATH_ENABLED and fp_mode is not None:
         fp_mode, fp_reason = None, "fast path disabled (A-B comparison)"
     bucket = fp_mode == "bucket"
+    extra_col = JSLOT_COL if bucket else \
+        BIX_COL if fp_mode == "table" else None
 
     scope = Scope(device)
     scope.interner = interner
-    left = _mk_side(jis.left_input_stream, schemas, batch_capacity, scope,
-                    window_capacity_hint, bucket)
-    right = _mk_side(jis.right_input_stream, schemas, batch_capacity, scope,
-                     window_capacity_hint, bucket)
+    left = _mk_side(jis.left_input_stream, schemas, tables, batch_capacity,
+                    scope, window_capacity_hint, extra_col)
+    right = _mk_side(jis.right_input_stream, schemas, tables,
+                     batch_capacity, scope, window_capacity_hint, extra_col)
+    if left.is_table and right.is_table:
+        raise CompileError("cannot join two tables in a streaming query")
+    if not left.is_table and not right.is_table and (
+            isinstance(left.window, NoWindow) or
+            isinstance(right.window, NoWindow)):
+        raise CompileError("stream-stream joins need a window on each side")
     if cuda:
         from ..kernels.filter_compact import MAX_COLS
         for s in (left, right):
@@ -307,20 +406,22 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                                      f"{len(s.win_schema.types)} columns "
                                      f"(the kernels take {MAX_COLS})")
 
-    # side filters (before the window): K1
+    # side filters (before the window): K1.  A table side's filters are
+    # compiled, as the reference compiles them, and never applied: the
+    # table side does not step.
     for side, sis in ((left, jis.left_input_stream),
                       (right, jis.right_input_stream)):
         fscope = Scope(device)
         fscope.interner = interner
         fscope.add_source(side.key, side.schema)
-        code = [] if cuda else None
+        code = [] if cuda and not side.is_table else None
         for h in sis.stream_handlers:
             if isinstance(h, Filter):
                 c = compile_expression(h.expression, fscope)
                 if c.type != "BOOL":
                     raise CompileError("filter expression must be boolean")
                 side.pre_filters.append(c)
-                if cuda:
+                if code is not None:
                     try:
                         code += compile_filter(h.expression, fscope,
                                                side.key, {})
@@ -345,6 +446,17 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
     lane_buckets = (0, 0)
     ring_caps = (0, 0)
     jk_alloc = None
+    table_is_left = False
+    table_pos = stream_key_pos = -1
+    n_keys = len(fp_pairs) if fp_mode is not None else 0
+    if fp_mode == "table":
+        tside, sside = (left, right) if left.is_table else (right, left)
+        table_is_left = left.is_table
+        _c, lv, rv = fp_pairs[0]
+        t_var, s_var = (lv, rv) if table_is_left else (rv, lv)
+        table_pos = tside.schema.position(t_var.attribute_name)
+        stream_key_pos = sside.schema.position(s_var.attribute_name)
+        n_keys = 1
     if bucket:
         for _c, lv, rv in fp_pairs:
             lp = left.schema.position(lv.attribute_name)
@@ -366,7 +478,7 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
             ring_caps[0] + ring_caps[1] + 2 * max(batch_capacity, 8192),
             name=f"{name}:joinkey")
     n_conj = _conjunct_count(jis.on_compare)
-    fp_residual = fp_mode is not None and n_conj > len(key_left)
+    fp_residual = fp_mode is not None and n_conj > n_keys
 
     # ---- selector: projection and having -----------------------------------
     selector = query.selector
@@ -418,13 +530,17 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                            query.output_stream.output_event_type
                            else "CURRENT_EVENTS"),
         selector_exec=sel, step_left=None, step_right=None,
-        init_state=lambda: (left.window.init_state(device),
-                            right.window.init_state(device)),
-        needs_timer=left.window.needs_timer or right.window.needs_timer,
+        init_state=lambda: tuple(
+            s.window.init_state(device) if s.window is not None else None
+            for s in (left, right)),
+        needs_timer=any(s.window is not None and s.window.needs_timer
+                        for s in (left, right)),
         device=device, compact_rows=emit_rows, emit_explicit=emit_explicit,
         fastpath=fp_mode, fastpath_reason=fp_reason, key_left=key_left, key_right=key_right, key_dtypes=key_dtypes,
         residual=fp_residual, lane_k=lane_k, lane_buckets=lane_buckets,
-        ring_caps=ring_caps, join_key_allocator=jk_alloc)
+        ring_caps=ring_caps, join_key_allocator=jk_alloc,
+        table_is_left=table_is_left, table_pos=table_pos,
+        stream_key_pos=stream_key_pos)
 
     def probe_spec(this: JoinSide, other: JoinSide, this_is_left: bool):
         emit_unmatched = (
@@ -441,19 +557,30 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                                                  this.key, {}, other.key)
             except CompileError as exc:
                 raise _kernel_subset(name, str(exc)) from exc
+        table = None if not other.is_table else \
+            "index" if fp_mode == "table" else "grid"
         return ProbeSpec(this.key, other.key, this.win_schema.types,
                          other.win_schema.types, on, having, on_code,
-                         having_code, emit_unmatched, bucket)
+                         having_code, emit_unmatched, bucket, table)
 
+    # a table side never triggers; a stream side that does not trigger
+    # still keeps its window
     specs = (probe_spec(left, right, True)
-             if trigger in ("ALL_EVENTS", "LEFT") else None,
+             if not left.is_table and trigger in ("ALL_EVENTS", "LEFT")
+             else None,
              probe_spec(right, left, False)
-             if trigger in ("ALL_EVENTS", "RIGHT") else None)
+             if not right.is_table and trigger in ("ALL_EVENTS", "RIGHT")
+             else None)
     plan.probe_specs = specs
-    plan.step_left = _make_step(plan, left, right, True, specs[0]) \
-        if specs[0] is not None else _make_feed_only(plan, left, True)
-    plan.step_right = _make_step(plan, right, left, False, specs[1]) \
-        if specs[1] is not None else _make_feed_only(plan, right, False)
+    for is_left, this, other, spec in ((True, left, right, specs[0]),
+                                       (False, right, left, specs[1])):
+        step = None if this.is_table else \
+            _make_step(plan, this, other, is_left, spec) \
+            if spec is not None else _make_feed_only(plan, this, is_left)
+        if is_left:
+            plan.step_left = step
+        else:
+            plan.step_right = step
     return plan
 
 
@@ -468,10 +595,11 @@ def _header(wake, dev) -> torch.Tensor:
     return h
 
 
-def _advance(side: JoinSide, state, batch, gslot, probe, now: int, facts):
+def _advance(side: JoinSide, state, batch, gslot, extra, now: int, facts):
     """The side's filters and window over one batch (K1, then K5 or K2);
-    the key-slot column rides the window on the bucket path."""
-    cols = tuple(batch.cols) + ((probe,) if probe is not None else ())
+    the key-slot column rides the window on the bucket path, the batch
+    row index on the table fast path (`extra`)."""
+    cols = tuple(batch.cols) + ((extra,) if extra is not None else ())
     rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid, seq=None,
                 gslot=gslot, cols=cols)
     _, wout = side.window.process(state, rows, side.fspec, now, facts)
@@ -481,27 +609,45 @@ def _advance(side: JoinSide, state, batch, gslot, probe, now: int, facts):
 def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
                this_is_left: bool, spec):
     """Step for a batch arriving on `this` side (reference `make_step`,
-    `siddhi_tpu/core/join.py:445`)."""
+    `siddhi_tpu/core/join.py:445`).  `probe` is the batch's key-slot
+    column on the bucket path and its [B, K] table candidates on the
+    table fast path; `table` is a table other side's (cols, ts, valid)."""
     from ..kernels.join_lanes import join_lanes
-    from ..kernels.join_probe import join_probe
+    from ..kernels import join_probe as k7
     bucket = plan.fastpath == "bucket"
+    table_probe = plan.fastpath == "table"
     nbl_other = (plan.lane_buckets[1] if this_is_left
                  else plan.lane_buckets[0]) if bucket else 0
     Q_grid = _retention_rows(other.window)
     sel = plan.selector_exec
     used = sel.used_columns()
     o_types = other.schema.types
+    bix: Dict[Tuple[int, Any], torch.Tensor] = {}
 
-    def step(state, batch, gslot, probe, now: int, facts):
+    def step(state, batch, gslot, probe, now: int, facts, table=None):
         this_state = state[0 if this_is_left else 1]
         other_state = state[1 if this_is_left else 0]
-        wout = _advance(this, this_state, batch, gslot, probe, now, facts)
-        trig = wout.rows
-        dev = trig.ts.device
-        header = _header(wout.next_wakeup, dev)
         B = batch.ts.shape[0]
+        dev = batch.ts.device
+        extra = probe
+        if table_probe:
+            # the batch row index rides the window to the probe
+            extra = bix.get((B, dev))
+            if extra is None:
+                extra = bix[(B, dev)] = torch.arange(B, dtype=torch.int32,
+                                                      device=dev)
+        wout = _advance(this, this_state, batch, gslot, extra, now, facts)
+        trig = wout.rows
+        header = _header(wout.next_wakeup, dev)
         R = _reference_rows(this.window, B)
-        Q = plan.lane_k if bucket else Q_grid
+        if other.is_table:
+            o_cols, _, o_valid = table
+            o_meta = None
+            Q = probe.shape[1] if table_probe else o_valid.shape[0]
+        else:
+            o_cols, o_meta, o_valid = other_state.cols, other_state.meta, \
+                None
+            Q = plan.lane_k if bucket else Q_grid
         N = R * Q + (R if spec.emit_unmatched else 0)
         cap = min(N, plan.compact_rows if plan.compact_rows is not None
                   else max(2 * R, 1024))
@@ -512,9 +658,9 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
         if bucket:
             lanes = join_lanes(other_state.cols[-1], other_state.meta,
                                nbl_other, plan.lane_k, header[3:4])
-        li, ri, onull, ovalid = join_probe(
-            spec, trig, other_state.cols, other_state.meta, lanes,
-            nbl_other, cap, header[0:3])
+        li, ri, onull, ovalid = k7.join_probe(
+            spec, trig, o_cols, o_meta, lanes, nbl_other, cap, header[0:3],
+            o_valid, probe if table_probe else None)
         # the torch projection: gathers by the index rows, the in-band null
         # of unmatched rows, the select expressions
         lil, ril = li.to(torch.int64), ri.to(torch.int64)
@@ -524,7 +670,7 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
         other_cols = tuple(
             torch.where(onull, ev.null_value(t), c[ril])
             if (other.key, j) in used else None
-            for j, (c, t) in enumerate(zip(other_state.cols, o_types)))
+            for j, (c, t) in enumerate(zip(o_cols, o_types)))
         ts, kind = trig.ts[lil], trig.kind[lil]
         env = {this.key: this_cols, other.key: other_cols, "__ts__": ts,
                "__now__": now, "__kind__": kind}
@@ -548,9 +694,13 @@ def _make_feed_only(plan: PlannedJoinQuery, side: JoinSide, is_left: bool):
     still keeps its window (reference `_make_feed_only`,
     `siddhi_tpu/core/join.py:708`): K1 and K5 / K2, no probe."""
 
-    def step(state, batch, gslot, probe, now: int, facts):
+    def step(state, batch, gslot, probe, now: int, facts, table=None):
+        extra = probe
+        if plan.fastpath == "table":
+            extra = torch.arange(batch.ts.shape[0], dtype=torch.int32,
+                                 device=batch.ts.device)
         wout = _advance(side, state[0 if is_left else 1], batch, gslot,
-                        probe, now, facts)
+                        extra, now, facts)
         return None, _header(wout.next_wakeup, batch.ts.device)
 
     return step

@@ -19,6 +19,12 @@ A pattern query with absent atoms also fetches its wake (the earliest
 pending absent deadline) with the header, and the scheduler runs its timer
 step at that time.
 
+A query whose output target is a table writes it after its event
+callbacks (`_apply_table_op`): its CURRENT rows, in delivery order,
+drive an insert, a delete, an update or an update-or-insert
+(`core/table.py`, kernels K9 and K10).  `query()` runs an on-demand query
+(`core/ondemand.py`) against the tables' current contents.
+
 Ported: stream definitions, `@app:playback` (with `idle.time` and
 `increment`), value partitions (`partition with (attr of Stream)`) around
 pattern queries, top-level pattern queries (non-partitioned simple chains
@@ -27,6 +33,10 @@ top-level single-stream queries (filters, `length` / `time` /
 `lengthBatch` windows, group by, having, `@capacity(window='N')`),
 stream-stream joins (`length` / `time` windows, inner and outer,
 `unidirectional`, the equi-join bucket path and the grid path, having),
+in-memory tables (`@PrimaryKey`, `@Index`, `@capacity(rows=...)`; insert,
+delete, update, update or insert; stream-table joins with a windowed or
+windowless stream side, on the grid or the table fast path; on-demand
+queries),
 the timer scheduler (playback
 drain and wall-clock thread), `InputHandler.send` / `send_columns`,
 synchronous junctions, the three callback kinds, emission-cap growth,
@@ -39,6 +49,7 @@ import heapq
 import logging
 import threading
 import time
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -64,7 +75,7 @@ _log = logging.getLogger("siddhi_tpu_torch")
 # annotations whose machinery is not ported yet -> ROADMAP item
 _UNPORTED_ANNOTATIONS = {
     "async": "A12", "pipeline": "A12", "serve": "A12", "fuse": "A12",
-    "purge": "A11", "source": "A15", "sink": "A15", "store": "A10",
+    "purge": "A11", "source": "A15", "sink": "A15", "store": "A15",
     "app:statistics": "A15", "app:errorstore": "A15",
 }
 
@@ -282,6 +293,8 @@ class PatternQueryRuntime:
 
 
 def _target_live(qr) -> bool:
+    if getattr(qr, "table_op", None) is not None:
+        return True
     tgt = qr.planned.output_target
     if not tgt:
         return False
@@ -374,6 +387,24 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
     order = np.nonzero(ovalid_np)[0]
     if ts_order:
         order = order[np.argsort(ts_np[order], kind="stable")]
+    table_op = getattr(qr, "table_op", None)
+    if table_op is not None:
+        # reference `_emit_output_sync_impl`: the event callbacks, then the
+        # table op, once the batch holds a CURRENT or EXPIRED row
+        k = okind_np[order]
+        if not np.any((k == ev.CURRENT) | (k == ev.EXPIRED)):
+            return
+        if qr.callbacks:
+            pairs = ev.unpack(p.out_schema, ev.EventBatch(
+                ts_np[order], k, np.ones(order.shape[0], np.bool_),
+                tuple(c.cpu().numpy()[order] for c in ocols)),
+                want_kinds=(ev.CURRENT, ev.EXPIRED))
+            current = [e for kk, e in pairs if kk == ev.CURRENT]
+            expired = [e for kk, e in pairs if kk == ev.EXPIRED]
+            for cb in qr.callbacks:
+                cb(now, current or None, expired or None)
+        _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols)
+        return
     batch = ev.EventBatch(ts_np[order], okind_np[order],
                           np.ones(order.shape[0], np.bool_),
                           tuple(c.cpu().numpy()[order] for c in ocols))
@@ -381,6 +412,35 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
                       want_kinds=(ev.CURRENT, ev.EXPIRED))
     if pairs:
         _deliver_pairs(qr, pairs, now)
+
+
+def _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols) -> None:
+    """Table writes from a query's output rows (reference `_apply_table_op`,
+    `siddhi_tpu/core/runtime.py:1397`): the delivered rows in their order
+    (a pattern's or a join's in the host's stable ts order, a single-stream
+    query's in device row order), the CURRENT ones driving the op.  An
+    insert or an upsert also takes a host copy of the rows: the primary-key
+    allocator and the append bookkeeping run on the host."""
+    op, table, cond, set_fns, key = qr.table_op
+    dev = ots.device
+    want = okind_np[order] == ev.CURRENT
+    idx = _h2d(order.astype(np.int64), dev)
+    cols = tuple(c[idx] for c in ocols)
+    batch = ev.EventBatch(ots[idx], okind[idx], _h2d(want, dev), cols)
+    staged = None
+    if op in ("insert", "upsert"):
+        staged = ev.StagedBatch(ts_np[order], okind_np[order], want,
+                                [c.cpu().numpy() for c in cols],
+                                int(want.sum()))
+    if op == "insert":
+        table.insert(batch, staged)
+    elif op == "delete":
+        table.delete_where(cond, key, batch)
+    elif op == "update":
+        table.update_where(cond, key, batch, set_fns)
+    else:
+        table.update_where(cond, key, batch, set_fns, upsert=True,
+                           staged=staged)
 
 
 class _LazyBatchPayload(dict):
@@ -574,10 +634,12 @@ def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
 
 
 class JoinQueryRuntime:
-    """Host wrapper for a stream-stream join query (reference:
+    """Host wrapper for a join query (reference:
     `siddhi_tpu/core/runtime.py:1422` JoinQueryRuntime): binds equi-join
-    key slots and keeps the retention mirror on the host, runs the side's
-    step, schedules a time side's expiry and delivers the output.  The
+    key slots and keeps the retention mirror on the host, probes a table
+    side's index on the table fast path, runs the side's step against the
+    other side's window or the table's current rows, schedules a time
+    side's expiry and delivers the output.  The
     step's lane width and emission cap live on the plan and grow in place
     (the reference replans its jitted steps; the port's steps read them
     at each call)."""
@@ -651,6 +713,22 @@ class JoinQueryRuntime:
                   "bucket window occupancy %d)", self.name, new_k, need)
         self.planned.lane_k = new_k
 
+    def _table_probe(self, staged: ev.StagedBatch) -> np.ndarray:
+        """The table index's candidates for one trigger batch (table fast
+        path, reference `siddhi_tpu/core/runtime.py:1568`): [B, K] row ids
+        ascending per row (the grid path's emission order), -1 where
+        none."""
+        p = self.planned
+        tid = (p.left if p.table_is_left else p.right).stream_id
+        table = self.app.tables[tid]
+        vals = np.asarray(staged.cols[p.stream_key_pos])
+        with table._lock:
+            cand, ok = table.probe_rows(p.table_pos, vals)
+        big = np.int32(np.iinfo(np.int32).max)
+        cand = np.where(ok, cand, big)
+        cand.sort(axis=1)
+        return np.where(cand < big, cand, -1).astype(np.int32)
+
     def _zero_slots(self, n: int) -> torch.Tensor:
         z = self._zero.get(n)
         if z is None:
@@ -665,19 +743,28 @@ class JoinQueryRuntime:
         if p.fastpath == "bucket":
             probe = _h2d(self._join_key_probe(is_left, staged), p.device)
         side = p.left if is_left else p.right
+        other = p.right if is_left else p.left
         step = p.step_left if is_left else p.step_right
         batch = staged.to_device(side.schema, p.device)
         cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
         facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
-        out, header = step(self.state, batch,
-                           self._zero_slots(staged.ts.shape[0]), probe, now,
-                           facts)
+        gslot = self._zero_slots(staged.ts.shape[0])
+        if not other.is_table:
+            out, header = step(self.state, batch, gslot, probe, now, facts)
+        else:
+            # the table's current rows (reference `_other_table`, :1623)
+            t = self.app.tables[other.stream_id]
+            with t._lock:
+                if p.fastpath == "table":
+                    probe = _h2d(self._table_probe(staged), p.device)
+                out, header = step(self.state, batch, gslot, probe, now,
+                                   facts, (t.cols, t.ts, t.valid))
         _emit_join(self, out, header, now)
 
     def on_timer(self, now: int) -> None:
         p = self.planned
         for is_left, side in ((True, p.left), (False, p.right)):
-            if side.window.needs_timer:
+            if side.window is not None and side.window.needs_timer:
                 staged = ev.pack_np(side.schema, [], capacity=8)
                 staged.ts[0] = now
                 staged.kind[0] = ev.TIMER
@@ -869,7 +956,6 @@ class SiddhiAppRuntime:
             [a for a in app.annotations
              if a.name.lower() not in ("app:playback",)], "the app")
         for what, defs, item in (
-                ("tables", app.table_definition_map, "A10"),
                 ("windows", getattr(app, "window_definition_map", {}), "A11"),
                 ("aggregations", app.aggregation_definition_map, "A11"),
                 ("triggers", app.trigger_definition_map, "A11"),
@@ -883,6 +969,18 @@ class SiddhiAppRuntime:
         for sdef in list(app.stream_definition_map.values()):
             _check_annotations(sdef.annotations, f"stream {sdef.id!r}")
             self._define_stream_runtime(sdef)
+
+        # in-memory tables (reference :2745-2781); @store tables raise
+        from .table import TableRuntime
+        self.tables: Dict[str, TableRuntime] = {}
+        for tid, tdef in app.table_definition_map.items():
+            _check_annotations(tdef.annotations, f"table {tid!r}")
+            self.tables[tid] = TableRuntime(
+                tdef, ev.Schema(tdef, self.interner), self.device)
+        # on-demand queries: parsed plans by query string, least recently
+        # used first (reference: at most 50)
+        self._ondemand_cache: "OrderedDict" = OrderedDict()
+        self._ondemand_lock = threading.Lock()
 
         self.query_runtimes: Dict[str, Union[PatternQueryRuntime,
                                              QueryRuntime,
@@ -930,7 +1028,7 @@ class SiddhiAppRuntime:
         self.query_runtimes[name] = runtime
         self.junctions[planned.input_stream_id].subscribe_query(
             _QSub(runtime))
-        self._define_output_for(planned, name)
+        self._wire_output(runtime, q, planned, name)
 
     def _add_join_query(self, q: Query, name: str) -> None:
         """A top-level stream-stream join: one runtime subscribed to both
@@ -939,13 +1037,14 @@ class SiddhiAppRuntime:
         from .join import plan_join_query
         _check_annotations(q.annotations, f"query {name!r}")
         planned = plan_join_query(q, name, self.schemas, self.interner,
-                                  device=self.device)
+                                  device=self.device, tables=self.tables)
         runtime = JoinQueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         for side, is_left in ((planned.left, True), (planned.right, False)):
-            self.junctions[side.stream_id].subscribe_query(
-                _Sub(runtime, is_left))
-        self._define_output_for(planned, name)
+            if not side.is_table:
+                self.junctions[side.stream_id].subscribe_query(
+                    _Sub(runtime, is_left))
+        self._wire_output(runtime, q, planned, name)
 
     def _add_pattern_query(self, q: Query, name: str, key_capacity: int = 1,
                            slots: Optional[int] = None, positions=None,
@@ -971,7 +1070,7 @@ class SiddhiAppRuntime:
         self.query_runtimes[name] = runtime
         for sid in planned.spec.stream_ids:
             self.junctions[sid].subscribe_query(_Sub(runtime, sid))
-        self._define_output_for(planned, name)
+        self._wire_output(runtime, q, planned, name)
 
     def _add_partition(self, part: Partition, qi: int) -> int:
         """Partitions: the partition key becomes an explicit key axis of the
@@ -1018,6 +1117,61 @@ class SiddhiAppRuntime:
                                     slots=nfa_slots, positions=ppos,
                                     allocator=shared_allocator)
         return qi
+
+    def _wire_output(self, runtime, q: Query, planned, name: str) -> None:
+        """Route a query's output: a table op when the target is a table
+        (reference `_wire_output`, `siddhi_tpu/core/runtime.py:3049`),
+        else the output stream (defined if missing)."""
+        from ..query_api.expression import Variable as V
+        from ..query_api.query import (DeleteStream, UpdateOrInsertStream,
+                                       UpdateStream)
+        from .executor import Scope, compile_expression
+        runtime.table_op = None
+        tgt = planned.output_target
+        out_stream = q.output_stream
+        if not tgt or tgt not in self.tables:
+            self._define_output_for(planned, name)
+            return
+        table = self.tables[tgt]
+        out_key = "__out__"
+        scope_schema = planned.out_schema
+        if not isinstance(out_stream, (DeleteStream, UpdateStream,
+                                       UpdateOrInsertStream)):
+            if len(table.schema.names) != len(scope_schema.names):
+                raise CompileError(
+                    f"query {name!r} output arity does not match table "
+                    f"{tgt!r}")
+            runtime.table_op = ("insert", table, None, [], out_key)
+            return
+        cond_expr = (out_stream.on_delete_expression
+                     if isinstance(out_stream, DeleteStream)
+                     else out_stream.on_update_expression)
+        scope = Scope(self.device)
+        scope.interner = self.interner
+        scope.add_source(out_key, scope_schema)
+        # table attributes must be qualified (T.attr); unqualified names
+        # resolve to the query's output, as in the reference
+        scope.add_source(tgt, table.schema, default=False)
+        cond = table.plan_condition(cond_expr, scope, other_key=out_key)
+        set_fns = []
+        us = getattr(out_stream, "update_set", None)
+        if us is None and not isinstance(out_stream, DeleteStream):
+            # default set: overwrite all same-named columns
+            for n in table.schema.names:
+                if n in scope_schema.names:
+                    e = compile_expression(V(n, stream_id=out_key), scope)
+                    set_fns.append((table.schema.position(n), e.fn))
+        elif us is not None:
+            for sa in us.set_attribute_list:
+                pos = table.schema.position(sa.table_variable.attribute_name)
+                e = compile_expression(sa.value_expression, scope)
+                set_fns.append((pos, e.fn))
+        op = ("delete" if isinstance(out_stream, DeleteStream) else
+              "upsert" if isinstance(out_stream, UpdateOrInsertStream)
+              else "update")
+        if op == "upsert":
+            _check_upsert_arity(table, scope_schema, f"query {name!r}")
+        runtime.table_op = (op, table, cond, set_fns, out_key)
 
     def _define_output_for(self, planned, name: str):
         tgt = planned.output_target
@@ -1086,6 +1240,38 @@ class SiddhiAppRuntime:
         if self.playback:
             return self._playback_time
         return current_millis()
+
+    # -- on-demand queries ----------------------------------------------------
+    _ONDEMAND_CACHE_MAX = 50
+
+    def query(self, q) -> List[ev.Event]:
+        """Run a one-shot query against the tables' current contents
+        (reference `SiddhiAppRuntime.query`, `siddhi_tpu/core/runtime.py
+        :4040`).  A query string's parsed plan is kept in an LRU of at most
+        50, so a repeated query re-plans nothing."""
+        from ..query_api.query import OnDemandQuery
+        from .ondemand import OnDemandPlanMemo, execute_on_demand
+        memo = None
+        if isinstance(q, str):
+            with self._ondemand_lock:
+                ent = self._ondemand_cache.get(q)
+                if ent is not None:
+                    self._ondemand_cache.move_to_end(q)
+            if ent is None:
+                from ..compiler import SiddhiCompiler
+                ent = (SiddhiCompiler.parse_on_demand_query(q),
+                       OnDemandPlanMemo())
+                with self._ondemand_lock:
+                    self._ondemand_cache[q] = ent
+                    while len(self._ondemand_cache) > \
+                            self._ONDEMAND_CACHE_MAX:
+                        self._ondemand_cache.popitem(last=False)
+            q, memo = ent
+        if not isinstance(q, OnDemandQuery):
+            raise TypeError("query() takes a query string or an "
+                            "OnDemandQuery")
+        with self._lock:
+            return execute_on_demand(self, q, memo)
 
     # -- I/O ------------------------------------------------------------------
     def get_input_handler(self, stream_id: str) -> InputHandler:
@@ -1166,6 +1352,18 @@ class SiddhiAppRuntime:
             with self._lock:
                 self._scheduler.drain_playback(now)
         junction.publish(events, now)
+
+
+def _check_upsert_arity(table, out_schema, where: str) -> None:
+    """An upsert inserts the rows that matched nothing as they are, so its
+    output must have the table's attributes.  (The JAX package accepts a
+    narrower output and its insert then zips the output's columns onto
+    the table's, dropping the table's last columns.)"""
+    if len(out_schema.names) != len(table.schema.names):
+        raise CompileError(
+            f"{where}: update or insert into {table.definition.id!r} needs "
+            f"an output of the table's {len(table.schema.names)} "
+            f"attributes, got {len(out_schema.names)}")
 
 
 def _parse_time_ms(s) -> int:

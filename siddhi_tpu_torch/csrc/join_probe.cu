@@ -1,5 +1,7 @@
-// join_probe: the probe and emission compaction of a stream-stream join
-// step, for sm_90a.
+// join_probe: the probe and emission compaction of a join step, for
+// sm_90a: stream-stream (the other side a ring) and stream-table (the
+// other side a table, scanned whole or through the host's index
+// candidates).
 //
 // Replaces, in the JAX package's jitted join step:
 //   siddhi_tpu/core/join.py  make_step (:458-649): the [R, Q] candidate
@@ -8,8 +10,12 @@
 //   and the stable valid-first argsort that cuts the rows to the cap.
 // Each trigger row (a CURRENT or EXPIRED row of the window's output)
 // walks its candidates: its bucket's lane of the other ring (lane
-// entries ascend, so the walk stops at the first empty entry) or every
-// live row of it in ring order.  The ON bytecode reads the trigger row
+// entries ascend, so the walk stops at the first empty entry), every
+// live row of it in ring order, every valid row of a table in row order
+// (`make_step`'s table branch, :495-497), or on the table fast path the
+// valid rows of the host's [B, K] candidates (`siddhi_tpu/core/join.py`
+// :533-547), picked through the batch-row index the trigger side's
+// window carries as its last column (:476-482).  The ON bytecode reads the trigger row
 // through LOAD_EV and the candidate through LOAD_OTHER; the having
 // bytecode, when the query has one, gates each joined row the same way,
 // and an unmatched row's LOAD_OTHER reads the null of each column.
@@ -23,7 +29,9 @@
 // at J2's shape (262,144 trigger rows, 8 candidates each, so about 9 of a
 // lane's 32 entries read: the walk stops at the first empty one) the
 // gathers and lane reads dominate, so the probe is bound by bytes, and by
-// the latency of its dependent random reads.
+// the latency of its dependent random reads.  On T1's table fast path
+// (131,072 trigger rows, one candidate each, a 2^20-row table) the same
+// holds.  The grid over a table evaluates R x C pairs: operations.
 // Design: one thread per trigger row, two passes over the candidates so
 // that nothing per candidate is stored: a counting pass, two device-wide
 // exclusive scans (pairs and unmatched rows) that give every row its
@@ -67,6 +75,12 @@ struct ProbePlan {
   unsigned char* out_null;
   unsigned char* out_valid;
   long long* hdr;            // [n_valid, n_current, n_dropped]
+  // the other side is a table: its valid column [C] (else null), and on
+  // the table fast path the host's candidates [cand_b, cand_k] (else
+  // null), which a trigger row picks through its batch-index column
+  const unsigned char* o_valid;
+  const int* cand;
+  long long cand_b, cand_k;
 };
 
 namespace {
@@ -83,10 +97,26 @@ __device__ __forceinline__ bool is_data(const ProbePlan& pl, long long i) {
   return pl.t_valid[i] && (k == K_CURRENT || k == K_EXPIRED);
 }
 
-// f(p) for every candidate of trigger row i, p the physical ring row, in
-// the reference's buffer order
+// f(p) for every candidate of trigger row i, p the physical row of the
+// other side, in the reference's order: a ring's buffer order, a table's
+// row order (the fast path's candidates arrive ascending)
 template <class F>
 __device__ __forceinline__ void for_candidates(const ProbePlan& pl, long long i, F f) {
+  if (pl.cand != nullptr) {
+    long long b = load_col(pl.t_col[pl.jslot_col], i, 4);
+    b = b < 0 ? 0 : (b >= pl.cand_b ? pl.cand_b - 1 : b);
+    const int* row = pl.cand + b * pl.cand_k;
+    for (long long q = 0; q < pl.cand_k; ++q) {
+      long long c = row[q];
+      if (c >= 0 && c < pl.C && pl.o_valid[c]) f(c);
+    }
+    return;
+  }
+  if (pl.o_valid != nullptr) {
+    for (long long c = 0; c < pl.C; ++c)
+      if (pl.o_valid[c]) f(c);
+    return;
+  }
   const long long head = pl.o_meta[0];
   if (pl.lane_k > 0) {
     long long s = load_col(pl.t_col[pl.jslot_col], i, 4) % pl.nbl;

@@ -2,12 +2,16 @@
 
 The kernel (`siddhi_tpu_torch/csrc/join_probe.cu`) replaces the body of
 the JAX package's join step (`siddhi_tpu/core/join.py:458-649`, `make_step`)
-from the window's output to the emission compaction, for the bucket path
-and the grid path:
+from the window's output to the emission compaction, for the bucket path,
+the grid path and the two table modes:
   * every CURRENT or EXPIRED row the window emits (a trigger row) takes
-    its candidates from the other side's ring: the rows of its bucket's
-    lane (`kernels/join_lanes.py`, bucket path) or every live row in ring
-    order (grid path), the order of the reference's buffer positions;
+    its candidates from the other side: from a ring, the rows of its
+    bucket's lane (`kernels/join_lanes.py`, bucket path) or every live row
+    in ring order (grid path), the order of the reference's buffer
+    positions; from a table, every valid row in row order (grid over a
+    table) or, on the table fast path, the valid rows among the host's
+    [B, K] index candidates (ascending) of the batch row the trigger row
+    came from, which its window carries as its last column;
   * the ON condition (filter bytecode, with `LOAD_EV` reading the trigger
     row and `LOAD_OTHER` the candidate) decides a match; a query's having
     condition, which the reference applies to each joined row before its
@@ -24,8 +28,9 @@ projection's gathers stay in range.
 
 `join_probe` is what the join step calls: CPU tensors run `plain` (the ON
 and having conditions as compiled torch expressions), CUDA tensors launch
-the kernel.  `launches` / `plain_calls` count them; `reset_counts()` sets
-both to 0.
+the kernel.  `launches` / `plain_calls` count them; of the launches,
+`grid_table_launches` scanned a table and `index_launches` took the table
+fast path's candidates; `reset_counts()` sets all four to 0.
 """
 from __future__ import annotations
 
@@ -40,15 +45,16 @@ from .filter_bytecode import type_code
 
 launches = 0
 plain_calls = 0
+grid_table_launches = 0
+index_launches = 0
 
 MAX_COLS, MAX_CODE, BLOCK, SCAN_BLOCK = 16, 256, 256, 1024
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
-    launches = 0
-    plain_calls = 0
+    global launches, plain_calls, grid_table_launches, index_launches
+    launches = plain_calls = grid_table_launches = index_launches = 0
 
 
 class ProbeSpec:
@@ -56,14 +62,16 @@ class ProbeSpec:
     as compiled torch expressions (`on`, `having`, None when absent; the
     plain version) and, on CUDA, as bytecode (the kernel); the scope keys
     of the trigger side and the other side; both sides' column types as
-    their windows hold them (a bucketed side's key-slot column last);
-    whether unmatched trigger rows are emitted (an outer side)."""
+    their windows hold them (a bucketed side's key-slot column last, the
+    table fast path's batch-row column last on the trigger side); whether
+    unmatched trigger rows are emitted (an outer side); `table`: None for
+    a stream other side, "grid" or "index" for a table one."""
 
     def __init__(self, this_key: str, other_key: str,
                  this_types: Sequence[str], other_types: Sequence[str],
                  on, having, on_code: Optional[List[int]],
                  having_code: Optional[List[int]], emit_unmatched: bool,
-                 bucket: bool):
+                 bucket: bool, table: Optional[str] = None):
         for code in (on_code, having_code):
             if code is not None and len(code) > MAX_CODE:
                 raise NotImplementedError(
@@ -80,10 +88,12 @@ class ProbeSpec:
         self.on_code, self.having_code = on_code, having_code
         self.emit_unmatched = emit_unmatched
         self.bucket = bucket
+        self.table = table
 
     @property
     def visible_this(self) -> int:
-        return len(self.this_types) - int(self.bucket)
+        return len(self.this_types) - int(self.bucket or
+                                          self.table == "index")
 
     @property
     def visible_other(self) -> int:
@@ -91,14 +101,19 @@ class ProbeSpec:
 
 
 def join_probe(spec: ProbeSpec, trig, o_cols, o_meta, lanes, nbl: int,
-               cap: int, hdr):
+               cap: int, hdr, o_valid=None, cand=None):
     """(li i32[cap], ri i32[cap], null bool[cap], valid bool[cap]) of one
     step; writes [n_valid, n_current, n_dropped] into `hdr` (i64[3]).
     `trig` are the window's output rows, `o_cols` / `o_meta` the other
-    side's ring columns and meta, `lanes` its lane table (None: grid)."""
+    side's ring columns and meta, `lanes` its lane table (None: grid).
+    A table other side gives its columns, `o_meta` None and its valid
+    column `o_valid`, and on the table fast path `cand` (int32 [B, K],
+    -1 where none)."""
     if trig.ts.is_cuda:
-        return launch(spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr)
-    return plain(spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr)
+        return launch(spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr,
+                      o_valid, cand)
+    return plain(spec, trig, o_cols, o_meta, lanes, nbl, cap, hdr,
+                 o_valid, cand)
 
 
 def _null_cols(types, n, dev):
@@ -107,23 +122,36 @@ def _null_cols(types, n, dev):
 
 
 def plain(spec: ProbeSpec, trig, o_cols, o_meta, lanes, nbl: int, cap: int,
-          hdr):
+          hdr, o_valid=None, cand=None):
     """The plain PyTorch version (the kernel's reference)."""
     global plain_calls
     plain_calls += 1
     dev = trig.ts.device
     R = trig.ts.shape[0]
     C = o_cols[0].shape[0]
-    head, tail = (int(x) for x in o_meta[:2].tolist())
     data = torch.logical_and(trig.valid, torch.logical_or(
         trig.kind == ev.CURRENT, trig.kind == ev.EXPIRED))
-    if lanes is not None:
+    head = 0
+    if cand is not None:
+        bix = torch.clamp(trig.cols[-1].to(torch.int64), 0,
+                          cand.shape[0] - 1)
+        j = cand[bix].to(torch.int64)               # [R, K]
+        ok = (j >= 0) & (j < C)
+        j = torch.where(ok, j, 0)
+        ok = ok & o_valid[j]
+    elif o_valid is not None:
+        j = torch.arange(C, dtype=torch.int64, device=dev)[None, :].expand(
+            R, C)
+        ok = o_valid[None, :].expand(R, C)
+    elif lanes is not None:
+        head = int(o_meta[0])
         b = torch.where(data, torch.remainder(trig.cols[-1].to(torch.int64),
                                               nbl), 0)
-        cand = lanes[b].to(torch.int64)             # [R, k]
-        ok = cand < C
-        j = torch.where(ok, cand, 0)
+        lane = lanes[b].to(torch.int64)             # [R, k]
+        ok = lane < C
+        j = torch.where(ok, lane, 0)
     else:
+        head, tail = (int(x) for x in o_meta[:2].tolist())
         n = tail - head
         j = torch.arange(n, dtype=torch.int64, device=dev)[None, :].expand(
             R, n)
@@ -194,21 +222,25 @@ class ProbePlan(ctypes.Structure):
          ("o_col", _P * MAX_COLS), ("o_meta", _P), ("lanes", _P),
          ("pc", _P), ("uc", _P), ("sums_p", _P), ("sums_u", _P),
          ("out_li", _P), ("out_ri", _P), ("out_null", _P),
-         ("out_valid", _P), ("hdr", _P)])
+         ("out_valid", _P), ("hdr", _P),
+         ("o_valid", _P), ("cand", _P), ("cand_b", _L), ("cand_k", _L)])
 
 
 def launch(spec: ProbeSpec, trig, o_cols, o_meta, lanes, nbl: int,
-           cap: int, hdr):
+           cap: int, hdr, o_valid=None, cand=None):
     """Launch the probe on the current stream."""
-    global launches
+    global launches, grid_table_launches, index_launches
     if spec.on_code is None:
         raise NotImplementedError(
             "this probe plan has no bytecode (planned for another device)")
     dev = trig.ts.device
     R = trig.ts.shape[0]
     C = o_cols[0].shape[0]
+    table = o_valid is not None
     for x, d in ((trig.kind, torch.int32), (trig.valid, torch.bool),
-                 (o_meta, torch.int64), (hdr, torch.int64)):
+                 (o_valid if table else o_meta,
+                  torch.bool if table else torch.int64),
+                 (hdr, torch.int64)):
         if x.device != dev or x.dtype != d or not x.is_contiguous():
             raise ValueError("join_probe: an input has the wrong device, "
                              "dtype or layout")
@@ -227,7 +259,19 @@ def launch(spec: ProbeSpec, trig, o_cols, o_meta, lanes, nbl: int,
     for j, w in enumerate(spec.having_code or ()):
         pl.hv_code[j] = w
     pl.emit_unmatched = int(spec.emit_unmatched)
-    pl.jslot_col = len(trig.cols) - 1 if lanes is not None else -1
+    pl.jslot_col = len(trig.cols) - 1 \
+        if lanes is not None or cand is not None else -1
+    if table:
+        if o_valid.shape[0] != C:
+            raise ValueError("join_probe: table valid column")
+        pl.o_valid = o_valid.data_ptr()
+    if cand is not None:
+        if not table or cand.device != dev or cand.dtype != torch.int32 \
+                or cand.dim() != 2 or not cand.is_contiguous() or \
+                cand.shape[0] == 0:
+            raise ValueError("join_probe: table candidates")
+        pl.cand = cand.data_ptr()
+        pl.cand_b, pl.cand_k = cand.shape
     for j, (c, t) in enumerate(zip(trig.cols, spec.this_types)):
         if c.device != dev or c.dtype != ev.dtype_of(t) or \
                 not c.is_contiguous() or c.shape[0] != R:
@@ -256,7 +300,7 @@ def launch(spec: ProbeSpec, trig, o_cols, o_meta, lanes, nbl: int,
     out_li, out_ri = e(torch.int32), e(torch.int32)
     out_null, out_valid = e(torch.bool), e(torch.bool)
     pl.t_kind, pl.t_valid = trig.kind.data_ptr(), trig.valid.data_ptr()
-    pl.o_meta = o_meta.data_ptr()
+    pl.o_meta = None if table else o_meta.data_ptr()
     pl.pc, pl.uc = pc.data_ptr(), uc.data_ptr()
     pl.sums_p, pl.sums_u = sums_p.data_ptr(), sums_u.data_ptr()
     pl.out_li, pl.out_ri = out_li.data_ptr(), out_ri.data_ptr()
@@ -266,4 +310,6 @@ def launch(spec: ProbeSpec, trig, o_cols, o_meta, lanes, nbl: int,
     _nvcc.launch_plan("join_probe", "siddhi_join_probe",
                       "siddhi_probe_plan_size", pl, stream)
     launches += 1
+    grid_table_launches += int(table and cand is None)
+    index_launches += int(cand is not None)
     return out_li[:cap], out_ri[:cap], out_null[:cap], out_valid[:cap]

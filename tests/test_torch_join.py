@@ -342,8 +342,9 @@ def test_lane_overflow_is_reported():
     ("@fuse(batches='2') from L#window.length(4) join R#window.length(4) "
      "on L.symbol == R.symbol select L.symbol as s insert into O;",
      CompileError, "A12"),
-    ("from L#window.length(4) join T on L.symbol == T.symbol "
-     "select L.symbol as s insert into O;", CompileError, "A10"),
+    ("from L#window.length(4) join T on L.symbol == T.symbol and "
+     "L.symbol in T select L.symbol as s insert into O;", CompileError,
+     "A10"),
     ("from L#window.length(4) join W on L.symbol == W.symbol "
      "select L.symbol as s insert into O;", CompileError, "A11"),
 ])
