@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the eleven kernels of siddhi_tpu_torch/csrc/ with
+  2. build: compiles the twelve kernels of siddhi_tpu_torch/csrc/ with
      nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -112,7 +112,30 @@ Phases (any failure exits nonzero):
      the indexed match and the allocator), T2 (the table_crud sample,
      4,096 symbols, the table held to numpy after each of 16 sends) and
      T3 (the table corpus's shapes, the JAX package's events), every
-     kernel launched and no plain version called.
+     kernel launched and no plain version called;
+ 21. keyed_window (K11) against its plain version on the card, stage by
+     stage (every emitted row, the wake and the whole slab after every
+     step; exact): at P1's shape (length(10), 2^20 keys, 131,072 events a
+     send, a hot key of 100 events), at P2's (time(1 sec), 4,096 keys x
+     256 rows: data steps, TIMER ticks over all keys, an out-of-order send
+     with a key above its capacity, a tick that expires every row) and a
+     filtered lengthBatch(3) at P2's traffic (many keys flushing in one
+     step); every step with padding key rows counted; then group_agg's run
+     mode against its plain version on P1's rows (2^20 slots);
+ 22. K11's time per launch by mode (CUDA-graph replays from a restored
+     slab) beside its plain version and the bound of the bytes the step
+     must move, and group_agg's run mode at P1's shape;
+ 23. P1 (the query guide's per-device rolling maximum at 2^20 devices: 8
+     filling sends and 2 more held row by row to a numpy model, 16 timed
+     sends) and P2 (per-symbol 1-second volume, 4,096 symbols x 32 events
+     a send 250 ms apart, every send's TIMER tick and data step held row
+     by row to numpy), each with ev/s, per-send p50 / p99 and a profiled
+     sweep with the host time of the key grouping and the group slots;
+     P3 (the partition corpus, small, the JAX package's events); K11 and
+     K4 (and K1 for the windowless sample) launched, no plain version
+     called;
+ 24. R1: each output rate form over a single-stream, a join, a pattern
+     and a partitioned query, the JAX package's events.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -682,6 +705,7 @@ def main() -> None:
     records += join_phases(torch, np, dev)
     records += pattern_phases(torch, np, dev)
     records += table_phases(torch, np, dev)
+    records += partition_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -3661,6 +3685,907 @@ def table_phases(torch, np, dev):
     return records
 
 
+# ---------------------------------------------------------------------------
+# partitioned plain queries: kernel K11 (keyed_window) and K4's run mode;
+# output rate limiting (host); P1-P3 and R1 through SiddhiManager
+# ---------------------------------------------------------------------------
+
+P1_KEYS = 1 << 20         # P1's devices (@capacity(keys='1048576'))
+P1_B = 1 << 17            # P1's events a send
+P1_W = 10                 # P1's length(10)
+P1_FILL, P1_TIMED = 128, 16   # 128 filling sends: about 16 events a device
+P4_SYMS, P4_B = 4096, 1 << 17   # P4's symbols and trades a send
+P4_N = 1000               # P4's lengthBatch(1000)
+P4_SPREAD, P4_FILL, P4_TIMED = 4, 8, 16   # P4's spreading sends are
+                                          # the first of its filling sends
+P2_SYMS, P2_PER = 4096, 32   # P2's symbols and events per symbol a send
+P2_FILL, P2_TIMED = 8, 16
+P2_DT = 250               # ms between P2's sends
+K11_OUT = 8 + 4 + 8 + 4   # an emitted row's ts, kind, seq, slot
+
+
+def partition_modules():
+    from siddhi_tpu_torch.kernels import filter_compact, group_agg, \
+        keyed_window
+    return {"keyed_window": keyed_window, "group_agg": group_agg,
+            "filter_compact": filter_compact}
+
+
+def p1_send(np, rng, i, n=None):
+    """n temperatures (P1's send: 131,072), device ids uniform over
+    2^20."""
+    n = n or P1_B
+    ids = rng.integers(0, P1_KEYS, n).astype(np.int64)
+    room = (ids % 97).astype(np.int32)
+    temp = (rng.integers(0, 1 << 14, n) / 256).astype(np.float32)
+    return [ids, room, temp], np.full(n, 1000 + 10 * i, np.int64)
+
+
+def p2_send(np, rng, i):
+    """32 trades of each of 4,096 symbols, interleaved, at one time."""
+    sym = rng.permutation(np.repeat(np.arange(P2_SYMS, dtype=np.int64),
+                                    P2_PER))
+    vol = rng.integers(1, 100, sym.shape[0]).astype(np.int64)
+    return [sym, vol], np.full(sym.shape[0], 1000 + P2_DT * i, np.int64)
+
+
+def keyed_plan(dev, ql, qname):
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    return rt.query_runtimes[qname].planned
+
+
+def keyed_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
+    """K11's arguments for one send, resolved as the runtime resolves
+    them; `tick` (a time): the timer tick over every key."""
+    from siddhi_tpu_torch.core import event as ev
+    if tick is not None:
+        staged = ev.pack_np(planned.in_schema, [], capacity=8)
+        staged.ts[0], staged.kind[0], staged.valid[0] = tick, ev.TIMER, True
+        key_idx, sel = planned.timer_keys()
+        gslot = np.zeros(8, np.int32)
+        now = tick
+    else:
+        staged = stage(np, ev, cols, ts)
+        _, ki, sl = planned.window_key_allocator.slots_and_group(
+            [staged.cols[i] for i in planned.window_key_positions],
+            staged.valid, pad=planned.key_capacity)
+        key_idx, sel = (torch.from_numpy(x).to(dev) for x in (ki, sl))
+        gslot = planned.slot_allocator.slots_for(
+            [staged.cols[i] for i in planned.group_by_positions],
+            staged.valid) if planned.slot_allocator is not None else \
+            np.zeros(staged.ts.shape[0], np.int32)
+        now = int(np.asarray(ts).max())
+    b = staged.to_device(planned.in_schema, dev)
+    return (b.ts, b.kind, b.valid, torch.from_numpy(gslot).to(dev), b.cols,
+            key_idx, sel, now, getattr(planned.window, "time_ms", 0))
+
+
+def same_bits(torch, x, y):
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return x.shape == y.shape and bool(torch.equal(x, y))
+
+
+def slab_err(torch, a, b, what):
+    """Two keyed slabs hold the same alive rows and counters, key by key
+    (checked on the card; a difference is reported through float_err)."""
+    la, lb = a.logical(), b.logical()
+    err = 0.0
+    for k in la:
+        if not same_bits(torch, la[k], lb[k]):
+            err = max(err, float_err(torch, la[k], lb[k],
+                                     f"{what} slab {k}"))
+    return err
+
+
+def keyed_twin(torch, kw, planned, slabs, args, what, stats):
+    """One K11 step on slabs[0] and its plain version on slabs[1]: every
+    emitted row, the wake and the whole slab compared (exact)."""
+    spec = planned.filter_spec
+    ra, wa = kw.launch(slabs[0], spec, *args, tick=False)
+    rb, wb = kw.plain(slabs[1], spec, *args)
+    torch.cuda.synchronize()
+    err = rows_err(torch, ra, rb, what, full=True)
+    err = max(err, float_err(torch, wa, wb, f"{what} wake"),
+              slab_err(torch, slabs[0], slabs[1], what))
+    stats["steps"] += 1
+    stats["rows"] += int(ra.ts.shape[0])
+    pads = int((args[5] >= planned.key_capacity).sum())
+    stats["pads"] += pads
+    return err, ra
+
+
+def compare_keyed_kernel(torch, np, dev):
+    """Phase 21: K11 against its plain version, stage by stage, at P1's
+    shape (length(10), 2^20 keys; from empty windows, then full ones),
+    P2's (time(1 sec), 4,096 keys x 256 rows), P4's (lengthBatch(1000),
+    4,096 keys) and a filtered lengthBatch(3): keys interleaved in every
+    batch, a key with more events than its capacity and than 64, padding
+    key rows, flushes of many keys in one step, TIMER ticks over all K
+    keys, out-of-order timestamps (the general time step); then K4's run
+    mode against its plain version on a steady P1 send's rows.  Returns
+    (max error, the timing inputs)."""
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    rng = np.random.default_rng(61)
+    stats = {"steps": 0, "rows": 0, "pads": 0}
+    err = 0.0
+    timing = {}
+    # -- P1: length(10) over 2^20 keys ---------------------------------------
+    p1 = keyed_plan(dev, P1_QL, "p1")
+    slab = p1.init_state()[0]
+    slabs = [slab, slab.clone()]
+    for i in range(2):                      # empty windows: appends only
+        cols, ts = p1_send(np, rng, i)
+        e, rows = keyed_twin(torch, kw, p1, slabs,
+                             keyed_args(torch, np, dev, p1, cols, ts),
+                             f"K11 length P1 send {i}", stats)
+        err = max(err, e)
+    # fill: 16 sends of 2^20 events (about 16 a device) on the kernel alone
+    for i in range(2, 18):
+        cols, ts = p1_send(np, rng, i, 8 * P1_B)
+        kw.launch(slabs[0], p1.filter_spec,
+                  *keyed_args(torch, np, dev, p1, cols, ts))
+    slabs[1].copy_from(slabs[0])
+    for i in range(18, 20):                 # full windows: P1's steady state
+        cols, ts = p1_send(np, rng, i)
+        args = keyed_args(torch, np, dev, p1, cols, ts)
+        if i == 19:
+            timing["length"] = (p1, slabs[0].clone(), args)
+        e, rows = keyed_twin(torch, kw, p1, slabs, args,
+                             f"K11 length P1 send {i}", stats)
+        err = max(err, e)
+        n_exp = int((rows.kind == 1).sum())
+        if n_exp < P1_B // 2:
+            fail(f"phase 21: {n_exp} EXPIRED rows at P1's steady state")
+    steady, steady_now = rows, int(ts.max())
+    cols, ts = p1_send(np, rng, 20)
+    cols[0][:100] = 5                       # a hot key: 100 events, C = 10
+    e, _ = keyed_twin(torch, kw, p1, slabs,
+                      keyed_args(torch, np, dev, p1, cols, ts),
+                      "K11 length P1 hot key", stats)
+    err = max(err, e)
+    # K4's run mode on a steady send's rows, as the selector feeds it
+    # (2^20 slots)
+    rec = []
+    orig = ga.group_agg_scan
+
+    def record(*a, **k):
+        rec.append((a, k))
+        return orig(*a, **k)
+    ga.group_agg_scan = record
+    try:
+        astate = p1.selector_exec.init_state()
+        p1.select_body(astate, steady, steady_now)
+    finally:
+        ga.group_agg_scan = orig
+    (gargs, gkw), = rec
+    if not gkw.get("runs"):
+        fail("P1's selector did not take group_agg's run mode")
+    na_, ra_ = ga.launch(*gargs, runs=True)
+    nb_, rb_ = ga.plain(*gargs)
+    torch.cuda.synchronize()
+    err_ga = 0.0
+    for j in range(len(gargs[0])):
+        err_ga = max(err_ga, float_err(torch, na_[j], nb_[j], "K4 run state"),
+                     float_err(torch, ra_[j], rb_[j], "K4 run rows"))
+    timing["group_agg_runs"] = gargs
+    del slabs, slab, rows, steady, na_, ra_, nb_, rb_
+    # -- P2: time(1 sec) over 4,096 keys, timer ticks over every key ---------
+    p2 = keyed_plan(dev, P2_QL, "p2")
+    slab = p2.init_state()[0]
+    slabs = [slab, slab.clone()]
+    for i in range(6):
+        now = 1000 + P2_DT * i
+        if i >= 4:
+            args = keyed_args(torch, np, dev, p2, tick=now)
+            if i == 5:
+                timing["time_tick"] = (p2, slabs[0].clone(), args)
+            e, _ = keyed_twin(torch, kw, p2, slabs, args,
+                              f"K11 time P2 tick at {now}", stats)
+            err = max(err, e)
+        cols, ts = p2_send(np, rng, i)
+        args = keyed_args(torch, np, dev, p2, cols, ts)
+        if i == 5:
+            timing["time"] = (p2, slabs[0].clone(), args)
+        e, _ = keyed_twin(torch, kw, p2, slabs, args,
+                          f"K11 time P2 send {i}", stats)
+        err = max(err, e)
+    now = 1000 + P2_DT * 6
+    cols, ts = p2_send(np, rng, 6)
+    ts = ts - rng.integers(0, 900, ts.shape[0])   # out of order
+    cols[0][:300] = 7                       # a hot key above its 256 rows
+    for what, args in (
+            ("out-of-order hot send",
+             keyed_args(torch, np, dev, p2, cols, ts)),
+            ("tick", keyed_args(torch, np, dev, p2, tick=now + 400)),
+            ("tick expiring every row",
+             keyed_args(torch, np, dev, p2, tick=now + 5000))):
+        e, _ = keyed_twin(torch, kw, p2, slabs, args, f"K11 time P2 {what}",
+                          stats)
+        err = max(err, e)
+    del slabs, slab
+    # -- P4: lengthBatch(1000) over 4,096 symbols -----------------------------
+    p4 = keyed_plan(dev, P4_QL, "p4")
+    slab = p4.init_state()[0]
+    slabs = [slab, slab.clone()]
+    for i, (cols, ts) in enumerate(p4_sends(np, rng, P4_SPREAD + 2)):
+        args = keyed_args(torch, np, dev, p4, cols, ts)
+        if i == P4_SPREAD + 1:
+            timing["batch"] = (p4, slabs[0].clone(), args)
+        e, rows = keyed_twin(torch, kw, p4, slabs, args,
+                             f"K11 lengthBatch P4 send {i}", stats)
+        err = max(err, e)
+        if i >= P4_SPREAD and not int((rows.kind == 1).sum()):
+            fail(f"phase 21: no EXPIRED rows at P4's send {i}")
+    del slabs, slab, rows
+    # -- lengthBatch(3) with a filter, at P2's traffic ------------------------
+    pb = keyed_plan(dev, BATCH21_QL, "b")
+    slab = pb.init_state()[0]
+    slabs = [slab, slab.clone()]
+    for i in range(4):
+        cols, ts = p2_send(np, rng, i)
+        cols[1] = cols[1] - 10              # about 10% fail `vol >= 0`
+        e, _ = keyed_twin(torch, kw, pb, slabs,
+                          keyed_args(torch, np, dev, pb, cols, ts),
+                          f"K11 lengthBatch send {i}", stats)
+        err = max(err, e)
+    del slabs, slab
+    if stats["pads"] <= 0:
+        fail("phase 21 compared no step with padding key rows")
+    print(f"compare: keyed_window == plain over {stats['steps']} steps "
+          f"({stats['rows']} rows, {stats['pads']} padding key rows; every "
+          f"row, wake and slab exact); group_agg run mode == plain on a "
+          f"steady P1 send's rows ({gargs[3].shape[0]} rows, "
+          f"{gargs[1][0].shape[0]} slots)")
+    return max(err, err_ga), timing
+
+
+def k11_bytes(torch, planned, slab, args, n_out):
+    """The bytes one K11 step must move: each arrival read once (ts, kind,
+    valid, slot, columns, its sel entry) and written into the slab once,
+    each emitted row written once, each slab row that leaves read once,
+    each key row's index and counters read and written."""
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    ts, kind, valid, gslot, cols, key_idx, sel = args[:7]
+    cb = sum(c.element_size() for c in slab.cols)
+    live = key_idx < slab.K
+    keep = kw._keep(planned.filter_spec, ts, kind, valid, cols, args[7])
+    n_arr = int(((sel >= 0) & keep[sel.clamp(min=0).long()]
+                 & live[:, None]).sum())
+    kb = int(live.sum())
+    if slab.mode == kw.MODE_BATCH:
+        # rows read from the slab: the pending and previous rows of every
+        # key that flushes
+        ki = key_idx[live].long()
+        e_k = ((sel[live] >= 0) & keep[sel[live].clamp(min=0).long()]).sum(1)
+        fl = (slab.count[ki] + e_k) >= slab.C
+        n_leave = int((slab.count[ki] + slab.p_count[ki])[fl].sum())
+    else:
+        n_leave = n_out - n_arr
+    n_read = int((sel >= 0).sum())     # every event is read to filter it
+    return (n_read * (8 + 4 + 1 + 4 + 4 + cb) + n_arr * (8 + 4 + cb) +
+            n_out * (K11_OUT + cb) + n_leave * (8 + 4 + cb) +
+            kb * (4 + 2 * (4 + 4 + 8)))
+
+
+def time_keyed_kernel(torch, np, dev, timing):
+    """Phase 22: K11 per launch by mode (CUDA-graph replays from a restored
+    slab), beside its plain version and the bound of the bytes the step
+    must move (length at P1's full windows, time at P2's data step and
+    tick, lengthBatch at P4's); K4's run mode on a steady P1 send's
+    rows."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    res = {}
+    for mode in ("length", "time", "time_tick", "batch"):
+        planned, saved, args = timing[mode]
+        slab = saved.clone()
+        spec = planned.filter_spec
+
+        def restore():
+            slab.copy_from(saved)
+        restore()
+        n_out = int(kw.launch(slab, spec, *args)[0].ts.shape[0])
+        nbytes = k11_bytes(torch, planned, saved, args, n_out)
+        ms = graph_ms(torch, lambda: kw.launch(slab, spec, *args,
+                                               n_out=n_out), 20, restore)
+        plain = event_timer(torch, lambda: kw.plain(slab, spec, *args), 3,
+                            restore)
+        kb = int(args[5].shape[0])
+        res[mode] = {"ms": ms, "plain_ms": plain, **bound(nbytes),
+                     "shape": f"{kb} key rows, {n_out} rows out"}
+        del slab
+    # K4's run mode must read each row and write its result, and read and
+    # write the state of each slot its contributing rows touch; all K
+    # slots only when a RESET row resets them
+    gargs = timing["group_agg_runs"]
+    _, state, vals, sign, kind, valid, gslot = gargs
+    R, K = sign.shape[0], state[0].shape[0]
+    vb = sum(v.element_size() for v in vals)
+    touched = int(torch.unique(
+        torch.where(gslot >= 0, gslot, 0)[sign != 0]).shape[0])
+    resets = int((valid & (kind == ev.RESET)).sum())
+    state_bytes = (touched + K) * vb if resets else 2 * touched * vb
+    res["group_agg_runs"] = {
+        "ms": graph_ms(torch, lambda: ga.launch(*gargs, runs=True), 20),
+        "plain_ms": event_timer(torch, lambda: ga.plain(*gargs), 2),
+        **bound(R * (4 + 4 + 1 + 4 + 2 * vb) + state_bytes),
+        "shape": f"{R} rows, {touched} of {K} slots touched, {resets} "
+                 f"RESET rows"}
+    return res
+
+
+class P1Model:
+    """What P1's rows must hold, kept in numpy: each device's running
+    max(temp) (the JAX package's max does not retract expired rows, and
+    the port keeps that), its event count, and the timestamp of each of
+    its last W events."""
+
+    def __init__(self, np, K, W):
+        self.np, self.W = np, W
+        self.pmax = np.full(K, -np.inf, np.float32)
+        self.cnt = np.zeros(K, np.int64)
+        self.ring = np.zeros((K, W), np.int64)   # event p at [p % W]
+
+    def step(self, cols, ts, b=None, what="P1"):
+        """Advances the model over one send (every event at time `ts`).
+        With `b`, the send's delivered rows, holds every row to it: the
+        devices key-major in the order the rows give; per device, in its
+        event order, each arrival's CURRENT row (roomNo, deviceID, the
+        running max) after the EXPIRED row of the event it pushes out of
+        a full window (that event's timestamp, the running max before the
+        arrival).  Returns the number of EXPIRED rows."""
+        np, W = self.np, self.W
+        ids, room, temp = cols
+        n = ids.shape[0]
+        v = None
+        if b is not None:
+            v = b["valid"]
+            o_dev = b["cols"]["deviceID"][v]
+            starts = np.r_[0, np.nonzero(o_dev[1:] != o_dev[:-1])[0] + 1]
+            keys = o_dev[starts]
+            if np.unique(keys).shape[0] != keys.shape[0]:
+                fail(f"{what}: a device's rows are not together "
+                     f"(key-major order)")
+            rank = np.full(self.cnt.shape[0], -1, np.int64)
+            rank[keys] = np.arange(keys.shape[0])
+            order = np.lexsort((np.arange(n), rank[ids]))
+        else:
+            order = np.argsort(ids, kind="stable")
+        k = ids[order]
+        head = np.ones(n, np.bool_)
+        head[1:] = k[1:] != k[:-1]
+        seg = np.cumsum(head) - 1
+        first = np.nonzero(head)[0]
+        a = np.arange(n) - first[seg]              # rank in the device
+        # running max per device (temps lie in [0, 64)), from its carry
+        off = seg * 128.0
+        run = np.maximum.accumulate(temp[order] + off) - off
+        run = np.maximum(run.astype(np.float32), self.pmax[k])
+        before = np.where(head, self.pmax[k], np.r_[run[:1], run[:-1]])
+        c0 = self.cnt[k]
+        ev = c0 + a >= W                           # pushes an event out
+        q = c0 + a - W                             # ... this one
+        e_ts = np.where(q < c0, self.ring[k, q % W], ts)
+        pos = np.arange(n) + np.cumsum(ev)         # CURRENT row positions
+        pe = pos[ev] - 1
+        m = n + int(ev.sum())
+        want = {"kind": np.zeros(m, np.int32), "ts": np.empty(m, np.int64),
+                "deviceID": np.empty(m, np.int64),
+                "roomNo": np.empty(m, np.int32),
+                "maxTemp": np.empty(m, np.float32)}
+        want["kind"][pe] = 1
+        for name, cur, exp in (("ts", ts, e_ts[ev]), ("deviceID", k, k[ev]),
+                               ("roomNo", room[order], room[order][ev]),
+                               ("maxTemp", run, before[ev])):
+            want[name][pos] = cur
+            want[name][pe] = exp
+        if b is not None:
+            got = {"kind": b["kind"][v], "ts": b["ts"][v],
+                   **{c: b["cols"][c][v] for c in
+                      ("deviceID", "roomNo", "maxTemp")}}
+            if got["kind"].shape[0] != m:
+                fail(f"{what}: {got['kind'].shape[0]} rows, expected {m} "
+                     f"({n} CURRENT, {m - n} EXPIRED)")
+            for c in want:
+                x, y = got[c], want[c]
+                if c == "maxTemp":
+                    x, y = x.view(np.int32), y.view(np.int32)
+                if not np.array_equal(x, y):
+                    bad = np.nonzero(x != y)[0][:3]
+                    fail(f"{what}: {c} differs at rows {bad}: {got[c][bad]}"
+                         f" vs {want[c][bad]}")
+        last = np.r_[first[1:] - 1, n - 1]
+        self.pmax[k[last]] = run[last]
+        self.ring[k, (c0 + a) % W] = ts
+        self.cnt[k[last]] += a[last] + 1
+        return m - n
+
+
+class P4Model:
+    """What P4's rows must hold, kept in numpy: each symbol's pending batch
+    (prices and timestamps) and the timestamps of its last flushed
+    batch."""
+
+    def __init__(self, np, K, N):
+        self.np, self.N = np, N
+        self.pend = np.zeros((K, N), np.float32)
+        self.pts = np.zeros((K, N), np.int64)
+        self.pn = np.zeros(K, np.int64)
+        self.prev = np.zeros((K, N), np.int64)
+        self.has_prev = np.zeros(K, np.bool_)
+
+    def step(self, cols, ts, b=None, what="P4"):
+        """Advances the model over one send.  With `b`, the send's
+        delivered rows, holds every row to it: each symbol whose batch
+        fills, key-major in the order the rows give, emits per flush the
+        EXPIRED rows of its previous batch (their timestamps) and then the
+        batch's CURRENT rows (their timestamps, the running avg(price)
+        over the batch).  The EXPIRED rows' ap follows the reference's
+        RESET epochs across symbols; the kernel == plain comparison and
+        P3 hold it, not this model.  Returns (flushes, EXPIRED rows)."""
+        np, N = self.np, self.N
+        sym, price = cols[0], cols[1]
+        K = self.pn.shape[0]
+        order = np.argsort(sym, kind="stable")
+        s_sym, s_p, s_t = sym[order], price[order], ts[order]
+        cnt = np.bincount(sym, minlength=K)
+        offs = np.r_[0, np.cumsum(cnt)]
+        nfl = (self.pn + cnt) // N
+        div = np.arange(1, N + 1, dtype=np.float64)
+        want, n_exp = {}, 0
+        for k in np.nonzero(nfl)[0]:
+            pn, lo, hi = self.pn[k], offs[k], offs[k + 1]
+            seq_p = np.concatenate([self.pend[k, :pn], s_p[lo:hi]])
+            seq_t = np.concatenate([self.pts[k, :pn], s_t[lo:hi]])
+            prev = self.prev[k].copy() if self.has_prev[k] else None
+            parts = []
+            for f in range(nfl[k]):
+                bt = seq_t[f * N:(f + 1) * N]
+                if prev is not None:
+                    parts.append((np.ones(N, np.int32), prev,
+                                  np.full(N, np.nan, np.float32)))
+                    n_exp += N
+                ap = np.cumsum(seq_p[f * N:(f + 1) * N], dtype=np.float64)
+                parts.append((np.zeros(N, np.int32), bt,
+                              (ap / div).astype(np.float32)))
+                prev = bt
+            want[int(k)] = [np.concatenate(x) for x in zip(*parts)]
+            self.prev[k] = prev
+            self.has_prev[k] = True
+        a = np.arange(sym.shape[0]) - offs[s_sym]
+        rest = self.pn[s_sym] + a - nfl[s_sym] * N
+        keep = rest >= 0
+        self.pend[s_sym[keep], rest[keep]] = s_p[keep]
+        self.pts[s_sym[keep], rest[keep]] = s_t[keep]
+        self.pn = (self.pn + cnt) % N
+        if b is not None:
+            self._check(b, want, what)
+        return len(want), n_exp
+
+    def _check(self, b, want, what):
+        np = self.np
+        v = b["valid"]
+        o_sym, o_kind, o_ts = b["cols"]["symbol"][v], b["kind"][v], \
+            b["ts"][v]
+        o_ap = b["cols"]["ap"][v]
+        starts = np.r_[0, np.nonzero(o_sym[1:] != o_sym[:-1])[0] + 1] \
+            if o_sym.shape[0] else np.zeros(0, np.int64)
+        keys = [int(x) for x in o_sym[starts]]
+        if sorted(keys) != sorted(want):
+            fail(f"{what}: rows for {len(keys)} symbols, {len(want)} "
+                 f"flushed (or a symbol's rows are not together)")
+        w_kind, w_ts, w_ap = (np.concatenate([want[k][j] for k in keys])
+                              if keys else np.zeros(0) for j in range(3))
+        cur = w_kind == 0
+        if not (np.array_equal(o_kind, w_kind) and
+                np.array_equal(o_ts, w_ts) and
+                np.array_equal(o_ap[cur].view(np.int32),
+                               w_ap[cur].view(np.int32))):
+            fail(f"{what}: kind, ts or ap differs from the numpy model")
+
+
+def p4_sends(np, rng, n):
+    """P4's first n sends.  The first P4_SPREAD hold 1,000 to 1,999 trades
+    of each symbol in all, interleaved (at most 2^21 events a send, the
+    largest batch), so every symbol flushes once and the symbols' batch
+    phases are spread, as in a stream that has run a while; then 131,072
+    trades a send, symbols uniform over 4,096.  Prices are dyadic."""
+    K, B, N, S = P4_SYMS, P4_B, P4_N, P4_SPREAD
+    per = rng.integers(N, 2 * N, K)
+    out = []
+    for i in range(n):
+        if i < S:
+            sym = rng.permutation(np.repeat(np.arange(K, dtype=np.int64),
+                                            per // S + (i < per % S)))
+        else:
+            sym = rng.integers(0, K, B).astype(np.int64)
+        m = sym.shape[0]
+        price = (rng.integers(0, 1 << 14, m) / 256).astype(np.float32)
+        vol = rng.integers(1, 100, m).astype(np.int32)
+        out.append(([sym, price, vol], np.full(m, 1000 + i, np.int64)))
+    return out
+
+
+def run_p1(torch, np, dev, mods):
+    """P1 at full size: 128 filling sends (about 16 events a device, so
+    most windows are full and each arrival pushes an event out), every
+    row of each held to the numpy model; 16 timed sends; 2 more checked
+    sends; then a profiled sweep with the host time of the key grouping
+    and the group slots."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(P1_QL)
+    got = []
+    rt.add_batch_callback("p1", lambda ts, b: got.append(b))
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    rng = np.random.default_rng(71)
+    model = P1Model(np, P1_KEYS, P1_W)
+    for mo in mods.values():
+        mo.reset_counts()
+
+    def checked_send(i, cols, ts):
+        got.clear()
+        h.send_columns(cols, timestamps=ts)
+        if len(got) != 1:
+            fail(f"P1 send {i}: {len(got)} batches")
+        return model.step(cols, int(ts[0]), got[0], f"P1 send {i}")
+    for i in range(P1_FILL):
+        checked_send(i, *p1_send(np, rng, i))
+    later = [p1_send(np, rng, i) for i in
+             range(P1_FILL, P1_FILL + P1_TIMED + 2 + 8)]
+    rt.flush()
+    lat = []
+    t0 = time.perf_counter()
+    for cols, ts in later[:P1_TIMED]:
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        lat.append(time.perf_counter() - tb)
+    rt.flush()
+    wall = time.perf_counter() - t0
+    got.clear()
+    for cols, ts in later[:P1_TIMED]:
+        model.step(cols, int(ts[0]))
+    n_exp = [checked_send(P1_FILL + P1_TIMED + j, *later[P1_TIMED + j])
+             for j in range(2)]
+    if min(n_exp) < P1_B // 2:
+        fail(f"P1: only {n_exp} EXPIRED rows in the checked sends of "
+             f"{P1_B} events: the windows are not full")
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("P1", launches, plain, ("keyed_window", "group_agg"))
+    kw, ga = mods["keyed_window"], mods["group_agg"]
+    if ga.runs_launches != ga.launches:
+        fail(f"P1: group_agg ran {ga.launches - ga.runs_launches} times "
+             f"outside its run mode")
+    slab, agg = rt.query_runtimes["p1"].state
+    mem = sum(x.numel() * x.element_size() for x in
+              list(slab.tensors()) + list(agg))
+    print(f"P1: {P1_FILL + 2} sends held row by row to the numpy model "
+          f"(key-major order; CURRENT rows with roomNo and the running "
+          f"max; the EXPIRED row of each event pushed out, with its "
+          f"timestamp); EXPIRED rows in the last checked sends {n_exp} of "
+          f"{P1_B} arrivals; device state {mem} bytes (the "
+          f"[{slab.K}, {slab.C}] slab and {agg[0].shape[0]} group slots)")
+    lat_line(np, "P1", lat, wall, P1_TIMED * P1_B,
+             keyed_h2d(np, later[0][0][0], P1_KEYS, 8 + 4 + 4))
+    launches_main = (kw.launches, ga.launches)
+    host_profile(torch, np, rt, h, later[P1_TIMED + 2:], "P1")
+    mgr.shutdown()
+    return launches_main
+
+
+def keyed_h2d(np, keys, K, col_bytes):
+    """What one keyed send copies to the card: its columns, ts, kind,
+    valid flags and group slots, and the [Kb] key rows and [Kb, E]
+    selection its keys group into."""
+    from siddhi_tpu_torch.core.keyslots import SlotAllocator
+    n = keys.shape[0]
+    _, ki, sel = SlotAllocator(K).slots_and_group(
+        [keys], np.ones(n, np.bool_), pad=K)
+    return n * (col_bytes + 8 + 4 + 1 + 4) + ki.nbytes + sel.nbytes
+
+
+def host_profile(torch, np, rt, h, sends, label):
+    """A profiled sweep, printed: device busy, idle share, top ops, and
+    the host time of the key grouping (slots_and_group) and the group
+    slots (slots_for) a send."""
+    from siddhi_tpu_torch.core import keyslots
+    spent = {"slots_and_group": 0.0, "slots_for": 0.0}
+    saved = {n: getattr(keyslots.SlotAllocator, n) for n in spent}
+
+    def timed_fn(name):
+        f = saved[name]
+
+        def g(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(self, *a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return g
+    for n in spent:
+        setattr(keyslots.SlotAllocator, n, timed_fn(n))
+    try:
+        prof = device_profile(torch, rt, len(sends), lambda b: h.send_columns(
+            sends[b][0], timestamps=sends[b][1]))
+    finally:
+        for n, f in saved.items():
+            setattr(keyslots.SlotAllocator, n, f)
+    profile_line(label, len(sends), prof)
+    print(f"{label} host (profiled sweep): slots_and_group "
+          f"{spent['slots_and_group'] * 1e3 / len(sends):.3f} ms a send, "
+          f"slots_for {spent['slots_for'] * 1e3 / len(sends):.3f} ms a send")
+
+
+def p2_model(np, sends, i):
+    """P2's expected rows for send i: (the TIMER step's EXPIRED rows or
+    None, the data step's CURRENT rows), each [4,096, 32] per symbol in
+    batch order: (volume sum, count) after the row."""
+    V = [c[1][np.argsort(c[0], kind="stable")].reshape(P2_SYMS, P2_PER)
+         for c, _ in sends[:i + 1]]
+    alive = V[max(0, i - 3):i]
+    base = sum(a.sum(1) for a in alive) if alive else np.zeros(P2_SYMS,
+                                                               np.int64)
+    cnt = P2_PER * len(alive)
+    tick = None
+    if i >= 4:
+        old = V[i - 4]
+        pre = base + old.sum(1)
+        tick = (pre[:, None] - np.cumsum(old, 1),
+                cnt + P2_PER - 1 - np.arange(P2_PER)[None, :].repeat(
+                    P2_SYMS, 0))
+    cur = (base[:, None] + np.cumsum(V[i], 1),
+           cnt + 1 + np.arange(P2_PER)[None, :].repeat(P2_SYMS, 0))
+    return tick, cur
+
+
+def p2_rows_check(np, b, kind, want, what):
+    v = b["valid"] & (b["kind"] == kind)
+    oc = b["cols"]
+    sym, vol, n = oc["symbol"][v], oc["vol"][v], oc["n"][v]
+    if sym.shape[0] != P2_SYMS * P2_PER:
+        fail(f"P2 {what}: {sym.shape[0]} rows")
+    starts = np.r_[0, np.nonzero(sym[1:] != sym[:-1])[0] + 1]
+    if starts.shape[0] != P2_SYMS:
+        fail(f"P2 {what}: a symbol's rows are not together")
+    order = np.argsort(sym, kind="stable")
+    if not (np.array_equal(vol[order].reshape(P2_SYMS, P2_PER), want[0])
+            and np.array_equal(n[order].reshape(P2_SYMS, P2_PER), want[1])):
+        fail(f"P2 {what}: sum(volume) / count() differ from numpy")
+
+
+def run_p2(torch, np, dev, mods):
+    """P2 under playback: sends 250 ms apart, each preceded by a TIMER
+    tick over all 4,096 keys that expires the send of 1 s before; 8
+    filling sends and 2 after the timed ones checked, every row of both
+    steps against numpy's window sums."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(P2_QL)
+    got = []
+    rt.add_batch_callback("p2", lambda ts, b: got.append(b))
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    rng = np.random.default_rng(73)
+    n_all = P2_FILL + P2_TIMED + 2
+    sends = [p2_send(np, rng, i) for i in range(n_all + 8)]
+    for mo in mods.values():
+        mo.reset_counts()
+    lat, checked = [], 0
+    for i, (cols, ts) in enumerate(sends[:n_all]):
+        timed = P2_FILL <= i < P2_FILL + P2_TIMED
+        if i == P2_FILL:
+            rt.flush()
+            t0 = time.perf_counter()
+        if i == P2_FILL + P2_TIMED:
+            rt.flush()
+            wall = time.perf_counter() - t0
+        got.clear()
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if timed:
+            lat.append(time.perf_counter() - tb)
+            continue
+        tick, cur = p2_model(np, sends, i)
+        steps = [b for b in got if b["n_valid"]]
+        want_n = 1 + (tick is not None)
+        if len(steps) != want_n:
+            fail(f"P2 send {i}: {len(steps)} steps emitted, expected "
+                 f"{want_n}")
+        if tick is not None:
+            p2_rows_check(np, steps[0], 1, tick, f"send {i} tick")
+        p2_rows_check(np, steps[-1], 0, cur, f"send {i} data")
+        checked += 1
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("P2", launches, plain, ("keyed_window", "group_agg"))
+    kw = mods["keyed_window"]
+    if kw.tick_launches <= 0:
+        fail("P2: no timer tick launched K11")
+    print(f"P2: {checked} sends held row by row to numpy (the tick's "
+          f"EXPIRED rows and the send's CURRENT rows, per symbol); "
+          f"K11 launches {kw.launches} ({kw.tick_launches} ticks)")
+    ga = mods["group_agg"]
+    if ga.runs_launches != ga.launches:
+        fail(f"P2: group_agg ran {ga.launches - ga.runs_launches} times "
+             f"outside its run mode")
+    lat_line(np, "P2", lat, wall, P2_TIMED * P2_SYMS * P2_PER,
+             keyed_h2d(np, sends[0][0][0], P2_SYMS, 8 + 8))
+    launches_main = (kw.launches, ga.launches, kw.tick_launches)
+    host_profile(torch, np, rt, h, sends[n_all:], "P2")
+    mgr.shutdown()
+    return launches_main
+
+
+def run_p4(torch, np, dev, mods):
+    """P4 at full size: 4 spreading sends and 4 more filling sends, every
+    row held to the numpy model; 16 timed sends; 2 more checked sends;
+    then a profiled sweep with the host time of the key grouping and the
+    group slots."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(P4_QL)
+    got = []
+    rt.add_batch_callback("p4", lambda ts, b: got.append(b))
+    rt.start()
+    h = rt.get_input_handler("StockStream")
+    rng = np.random.default_rng(77)
+    model = P4Model(np, P4_SYMS, P4_N)
+    for mo in mods.values():
+        mo.reset_counts()
+
+    def checked_send(i, cols, ts):
+        got.clear()
+        h.send_columns(cols, timestamps=ts)
+        steps = [b for b in got if b["n_valid"]]
+        if len(steps) > 1:
+            fail(f"P4 send {i}: {len(steps)} steps emitted")
+        if not steps:                       # no batch filled
+            out = model.step(cols, ts)
+            if out[0]:
+                fail(f"P4 send {i}: no rows, {out[0]} flushes expected")
+            return out
+        return model.step(cols, ts, steps[0], f"P4 send {i}")
+    sends = p4_sends(np, rng, P4_FILL + P4_TIMED + 2 + 8)
+    for i in range(P4_FILL):
+        checked_send(i, *sends[i])
+    later = sends[P4_FILL:]
+    rt.flush()
+    lat = []
+    t0 = time.perf_counter()
+    for cols, ts in later[:P4_TIMED]:
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        lat.append(time.perf_counter() - tb)
+    rt.flush()
+    wall = time.perf_counter() - t0
+    got.clear()
+    flushes = [model.step(cols, ts)[0] for cols, ts in later[:P4_TIMED]]
+    last = [checked_send(P4_FILL + P4_TIMED + j, *later[P4_TIMED + j])
+            for j in range(2)]
+    if min(e for _, e in last) <= 0:
+        fail(f"P4: no EXPIRED rows in the checked sends ({last})")
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("P4", launches, plain, ("keyed_window", "group_agg"))
+    kw, ga = mods["keyed_window"], mods["group_agg"]
+    if ga.runs_launches != ga.launches:
+        fail(f"P4: group_agg ran {ga.launches - ga.runs_launches} times "
+             f"outside its run mode")
+    slab, agg = rt.query_runtimes["p4"].state
+    mem = sum(x.numel() * x.element_size() for x in
+              list(slab.tensors()) + list(agg))
+    print(f"P4: {P4_FILL + 2} sends held row by row to the numpy model "
+          f"(key-major order; each flush's EXPIRED rows with their "
+          f"timestamps, its CURRENT rows with the running avg); flushes a "
+          f"timed send {min(flushes)}-{max(flushes)}, (flushes, EXPIRED "
+          f"rows) of the last checked sends {last}; device state {mem} "
+          f"bytes (the [{slab.K}, {slab.C}] slab and {agg[0].shape[0]} "
+          f"group slots)")
+    lat_line(np, "P4", lat, wall, P4_TIMED * P4_B,
+             keyed_h2d(np, later[0][0][0], P4_SYMS, 8 + 4 + 4))
+    launches_main = (kw.mode_launches[kw.MODE_BATCH], ga.launches)
+    host_profile(torch, np, rt, h, later[P4_TIMED + 2:], "P4")
+    mgr.shutdown()
+    return launches_main
+
+
+def corpus_run(mgr, ql, qname, sends):
+    """Events of one small case: per callback (ts, [(ts, current row)],
+    [(ts, expired row)])."""
+    rt = mgr.create_siddhi_app_runtime(ql)
+    got = []
+    rt.add_callback(qname, lambda ts, i, o: got.append(
+        (ts, [(e.timestamp, tuple(e.data)) for e in i or []],
+         [(e.timestamp, tuple(e.data)) for e in o or []])))
+    rt.start()
+    for stream, rows, ts in sends:
+        rt.get_input_handler(stream).send(rows, timestamp=ts)
+    rt.flush()
+    mgr.shutdown()
+    return got
+
+
+def run_corpus(torch, np, dev, mods, label, cases, which):
+    """P3 / R1: small cases with the events the JAX package gives (the CPU
+    tests hold the cases to it)."""
+    from siddhi_tpu_torch import SiddhiManager
+    for mo in mods.values():
+        mo.reset_counts()
+    for name, ql, qname, sends, want in cases:
+        got = corpus_run(SiddhiManager(device=dev), ql, qname, sends)
+        if got != want:
+            fail(f"{label} {name}: {got}, expected {want}")
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched(label, launches, plain, which)
+    print(f"{label}: {len(cases)} cases give the JAX package's events")
+    return launches
+
+
+def partition_phases(torch, np, dev):
+    """Phases 21-24: K11 (and K4's run mode) against their plain versions,
+    their times beside their bounds, P1-P4 through SiddhiManager, and R1.
+    Returns the kernel records: each mode's time at the shape of the
+    configuration whose launches it reports (length P1, time P2,
+    lengthBatch P4)."""
+    from siddhi_tpu_torch.kernels import block_nfa, join_probe
+    mods = partition_modules()
+    err, timing = compare_keyed_kernel(torch, np, dev)
+    res = time_keyed_kernel(torch, np, dev, timing)
+    del timing
+    torch.cuda.empty_cache()
+    l1_kw, l1_ga = run_p1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    l2_kw, l2_ga, ticks = run_p2(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    l4_batch, l4_ga = run_p4(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    run_corpus(torch, np, dev, mods, "P3", P3_CASES,
+               ("keyed_window", "group_agg", "filter_compact"))
+    kw = mods["keyed_window"]
+    l3_batch = kw.mode_launches[kw.MODE_BATCH]
+    print(f"P3: K11 lengthBatch launches {l3_batch}")
+    rmods = dict(mods, block_nfa=block_nfa, join_probe=join_probe)
+    run_corpus(torch, np, dev, rmods, "R1", R1_CASES,
+               ("keyed_window", "group_agg", "filter_compact", "block_nfa",
+                "join_probe"))
+    launches = {"length": l1_kw, "time": l2_kw - ticks, "time_tick": ticks,
+                "batch": l4_batch}
+    why = "no single PyTorch call computes a per-key window step"
+    records = []
+    for mode, name in (("length", "keyed_window"),
+                       ("time", "keyed_window_time"),
+                       ("time_tick", "keyed_window_time_tick"),
+                       ("batch", "keyed_window_batch"),
+                       ("group_agg_runs", "group_agg_runs")):
+        t = res[mode]
+        n = l1_ga + l2_ga + l4_ga if mode == "group_agg_runs" else \
+            launches[mode]
+        src = "group_agg.cu" if mode == "group_agg_runs" else \
+            "keyed_window.cu"
+        rep = "siddhi_tpu/core/selector.py:320" \
+            if mode == "group_agg_runs" else "siddhi_tpu/core/planner.py:539"
+        lib_why = ("no single PyTorch call computes a segmented scan with "
+                   "carry state") if mode == "group_agg_runs" else why
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} "
+              f"bytes), plain {t['plain_ms']:.4f} ms, launches on the main "
+              f"paths {n}; library_ms null: {lib_why}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    return records
+
+
 # bench.py:297 config_sequence_within (siddhi_tpu/analysis/corpus.py
 # SEQUENCE_QL); S1-wide raises the @emit cap with its batch
 S1_QL = """
@@ -4149,6 +5074,476 @@ _T3_WANT = [
 ]
 T3_CASES = [(name, ql, actions, want) for (name, ql, actions), want
             in zip(_T3_SPECS, _T3_WANT)]
+
+# P1: the Siddhi 5.1 query guide's "Partition" example (per-device rolling
+# maximum over a length(10) window) at 2^20 devices
+P1_QL = """
+@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+partition with (deviceID of TempStream)
+begin
+  @capacity(keys='1048576')
+  @info(name='p1')
+  from TempStream#window.length(10)
+  select roomNo, deviceID, max(temp) as maxTemp
+  insert into DeviceTempStream;
+end;
+"""
+# P2: per-symbol 1-second volume with its timer ticks
+P2_QL = """
+@app:playback
+define stream TradeStream (symbol long, volume long);
+partition with (symbol of TradeStream)
+begin
+  @capacity(keys='4096', window='256')
+  @info(name='p2')
+  from TradeStream#window.time(1 sec)
+  select symbol, sum(volume) as vol, count() as n
+  insert all events into SymbolVolume;
+end;
+"""
+# P4: per-symbol batch average (bench.py's config 2, partitioned by symbol)
+P4_QL = """
+@app:playback
+define stream StockStream (symbol long, price float, volume int);
+partition with (symbol of StockStream)
+begin
+  @capacity(keys='4096')
+  @info(name='p4')
+  from StockStream#window.lengthBatch(1000)
+  select symbol, avg(price) as ap
+  insert into OutputStream;
+end;
+"""
+# phase 21's filtered lengthBatch at P2's traffic
+BATCH21_QL = """
+@app:playback
+define stream TradeStream (symbol long, volume long);
+partition with (symbol of TradeStream)
+begin
+  @capacity(keys='4096')
+  @info(name='b')
+  from TradeStream[volume >= 0]#window.lengthBatch(3)
+  select symbol, sum(volume) as vol, count() as n
+  insert all events into BatchOut;
+end;
+"""
+
+_KEYED = """
+@app:playback
+define stream S (k long, v float, w int);
+partition with (k of S)
+begin
+  @capacity(keys='64')
+  @info(name='q') from S[w >= 0]#window.{win}
+  select k, sum(v) as sv, count() as c, max(w) as mw
+  insert all events into Out;
+end;
+"""
+
+
+def _rows(seed, n_sends, per, n_keys, t0=1000, dt=250):
+    """Small interleaved sends: (stream, rows, ts) with several keys each."""
+    import random
+    r = random.Random(seed)
+    out = []
+    for i in range(n_sends):
+        rows = [[r.randrange(n_keys), r.randrange(64) / 64.0,
+                 r.randrange(-1, 9)] for _ in range(per)]
+        out.append(("S", rows, t0 + dt * i))
+    return out
+
+
+def _sample_text(name):
+    """A sample app of the repository ('' where the script stands alone)."""
+    import os
+    p = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples",
+                     "apps", name)
+    if not os.path.exists(p):
+        return ""
+    with open(p) as fh:
+        return fh.read()
+
+
+_SYM3 = [("S", ["IBM", 1.0, 1], 1000), ("S", ["WSO2", 1.0, 1], 1001),
+         ("S", ["IBM", 1.0, 1], 1002), ("S", ["IBM", 1.0, 1], 1003),
+         ("S", ["WSO2", 1.0, 1], 1004)]
+_P3_SPECS = [
+    ("partition_by_key sample", "@app:playback\n" + _sample_text(
+        "partition_by_key.siddhi"), "perSymbolMax",
+     [("TradeStream", [["IBM", 10.5, 1], ["WSO2", 3.25, 2], ["IBM", 9.0, 3],
+                       ["ORCL", 7.75, 4]], 1000),
+      ("TradeStream", [["WSO2", 4.0, 5], ["IBM", 12.0, 6]], 1010),
+      ("TradeStream", [["ORCL", 1.0, 7], ["WSO2", 2.0, 8]], 1020)]),
+    ("count",
+     """@app:playback
+     define stream S (symbol string, price float, volume int);
+     partition with (symbol of S)
+     begin @info(name='query1')
+       from S select symbol, count() as c insert into Out; end;""",
+     "query1", _SYM3),
+    ("group by under the partition key",
+     """@app:playback
+     define stream S (region string, symbol string, volume int);
+     partition with (region of S)
+     begin @info(name='query1')
+       from S select region, symbol, sum(volume) as t
+       group by symbol insert into Out; end;""", "query1",
+     [("S", ["US", "IBM", 10], 1000), ("S", ["EU", "IBM", 100], 1001),
+      ("S", ["US", "IBM", 1], 1002), ("S", ["US", "MSFT", 5], 1003),
+      ("S", ["EU", "IBM", 2], 1004)]),
+    ("inner stream chain",
+     """@app:playback
+     define stream S (symbol string, volume int);
+     partition with (symbol of S)
+     begin
+       from S select symbol, count() as c insert into #Inner;
+       @info(name='query2')
+       from #Inner[c >= 2] select symbol, c insert into Out;
+     end;""", "query2",
+     [("S", ["A", 1], 1000), ("S", ["A", 1], 1001), ("S", ["B", 1], 1002),
+      ("S", ["A", 1], 1003)]),
+    ("length window per key",
+     """@app:playback
+     define stream S (sym string, price float);
+     partition with (sym of S)
+     begin @info(name='q') from S#window.length(2)
+       select sym, sum(price) as total insert all events into Out; end;""",
+     "q",
+     [("S", ["A", 1.0], 1000), ("S", ["B", 10.0], 1001),
+      ("S", ["A", 2.0], 1002), ("S", ["A", 4.0], 1003),
+      ("S", ["B", 20.0], 1004)]),
+    ("lengthBatch window per key",
+     """@app:playback
+     define stream S (sym string, v int);
+     partition with (sym of S)
+     begin @info(name='q') from S#window.lengthBatch(2)
+       select sym, sum(v) as total insert into Out; end;""", "q",
+     [("S", ["A", 1], 1000), ("S", ["B", 10], 1001), ("S", ["A", 2], 1002),
+      ("S", ["B", 20], 1003), ("S", ["A", 5], 1004)]),
+    ("partitioned join",
+     """@app:playback
+     define stream L (sym string, price float);
+     define stream R (sym string, qty int);
+     partition with (sym of L, sym of R)
+     begin @info(name='j')
+       from L#window.length(10) join R#window.length(10)
+       select L.sym as s, L.price as p, R.qty as q insert into Out; end;""",
+     "j",
+     [("L", ["A", 10.0], 1000), ("L", ["B", 20.0], 1001),
+      ("R", ["A", 7], 1002), ("R", ["C", 9], 1003), ("R", ["B", 3], 1004),
+      ("L", ["A", 11.0], 1005)]),
+    ("interleaved keys, length(3)", _KEYED.format(win="length(3)"), "q",
+     _rows(1, 5, 12, 5)),
+    ("interleaved keys, time(600), timer ticks",
+     _KEYED.format(win="time(600)"), "q", _rows(2, 6, 12, 5)),
+    ("interleaved keys, lengthBatch(2), several keys flush a send",
+     _KEYED.format(win="lengthBatch(2)"), "q", _rows(3, 5, 12, 4)),
+]
+
+_R1_BODIES = {
+    "single-stream": (
+        "define stream S (sym string, v int);\n",
+        "from S[v > 0] select sym, v {rate} insert into Out;",
+        [("S", [["a", 1]], 1000), ("S", [["b", 2]], 1300),
+         ("S", [["a", 3]], 1600), ("S", [["c", 4]], 2100),
+         ("S", [["b", 5]], 2200), ("S", [["a", -1]], 2300),
+         ("S", [["a", 6]], 3500)]),
+    "join": (
+        "define stream L (sym string, p int);\n"
+        "define stream R (sym string, q int);\n",
+        "from L#window.length(4) join R#window.length(4) on L.sym == R.sym "
+        "select L.sym as s, L.p as p, R.q as q {rate} insert into Out;",
+        [("L", [["a", 1]], 1000), ("R", [["a", 10]], 1100),
+         ("L", [["b", 2]], 1200), ("R", [["b", 20]], 1300),
+         ("L", [["a", 3]], 1400), ("R", [["a", 30]], 2600),
+         ("L", [["b", 4]], 2700)]),
+    "pattern": (
+        "define stream S (sym string, v int);\n",
+        "from every e1=S[v == 1] -> e2=S[v > 1] select e1.sym as s, "
+        "e2.v as v {rate} insert into Out;",
+        [("S", [["a", 1]], 1000), ("S", [["a", 2]], 1100),
+         ("S", [["b", 1]], 1200), ("S", [["b", 5]], 1300),
+         ("S", [["a", 1]], 2400), ("S", [["a", 9]], 2500),
+         ("S", [["c", 1]], 2600), ("S", [["c", 2]], 3700)]),
+    "partitioned": (
+        "define stream S (sym string, v int);\n",
+        "partition with (sym of S) begin @info(name='q') "
+        "from S#window.length(2) select sym, sum(v) as t "
+        "{rate} insert into Out; end;",
+        [("S", [["a", 1]], 1000), ("S", [["b", 2]], 1100),
+         ("S", [["a", 3]], 1200), ("S", [["b", 4]], 1300),
+         ("S", [["a", 5]], 2400), ("S", [["c", 6]], 2500),
+         ("S", [["b", 7]], 3600)]),
+}
+_R1_RATES = ["output all every 2 events", "output first every 2 events",
+             "output last every 2 events", "output all every 1 sec",
+             "output first every 1 sec", "output last every 1 sec",
+             "output snapshot every 1 sec"]
+
+
+def _r1_specs():
+    out = []
+    for kind, (defs, body, sends) in _R1_BODIES.items():
+        for rate in _R1_RATES:
+            q = body.format(rate=rate)
+            if not q.startswith("partition"):
+                q = "@info(name='q') " + q
+            out.append((f"{kind}: {rate}", "@app:playback\n" + defs + q,
+                        "q", sends))
+    return out
+
+
+_R1_SPECS = _r1_specs()
+
+# the events the JAX package gives for P3 and R1 (held to it by
+# tests/test_torch_partition.py and tests/test_torch_ratelimit.py)
+_P3_WANT = [[(1000,
+   [(1000, ('IBM', 10.5)), (1000, ('WSO2', 3.25)), (1000, ('IBM', 10.5)),
+    (1000, ('ORCL', 7.75))],
+   []),
+  (1010, [(1010, ('WSO2', 4.0)), (1010, ('IBM', 12.0))], []),
+  (1020, [(1020, ('ORCL', 7.75)), (1020, ('WSO2', 4.0))], [])],
+ [(1000, [(1000, ('IBM', 1))], []), (1001, [(1001, ('WSO2', 1))], []),
+  (1002, [(1002, ('IBM', 2))], []), (1003, [(1003, ('IBM', 3))], []),
+  (1004, [(1004, ('WSO2', 2))], [])],
+ [(1000, [(1000, ('US', 'IBM', 10))], []),
+  (1001, [(1001, ('EU', 'IBM', 100))], []),
+  (1002, [(1002, ('US', 'IBM', 11))], []),
+  (1003, [(1003, ('US', 'MSFT', 5))], []),
+  (1004, [(1004, ('EU', 'IBM', 102))], [])],
+ [(1001, [(1001, ('A', 2))], []), (1003, [(1003, ('A', 3))], [])],
+ [(1000, [(1000, ('A', 1.0))], []), (1001, [(1001, ('B', 10.0))], []),
+  (1002, [(1002, ('A', 3.0))], []),
+  (1003, [(1003, ('A', 6.0))], [(1000, ('A', 2.0))]),
+  (1004, [(1004, ('B', 30.0))], [])],
+ [(1002, [(1000, ('A', 1)), (1002, ('A', 3))], []),
+  (1003, [(1001, ('B', 10)), (1003, ('B', 30))], [])],
+ [(1002, [(1002, ('A', 10.0, 7))], []),
+  (1004, [(1004, ('B', 20.0, 3))], []),
+  (1005, [(1005, ('A', 11.0, 7))], [])],
+ [(1000,
+   [(1000, (1, 0.125, 1, 3)), (1000, (1, 0.328125, 2, 4)),
+    (1000, (0, 0.984375, 1, 6)), (1000, (0, 1.875, 2, 6)),
+    (1000, (3, 0.75, 1, 2)), (1000, (3, 1.609375, 2, 8)),
+    (1000, (3, 2.0625, 3, 8)), (1000, (4, 0.015625, 1, 5)),
+    (1000, (4, 0.453125, 2, 6))],
+   []),
+  (1250,
+   [(1250, (1, 0.765625, 3, 6)), (1250, (1, 1.234375, 3, 6)),
+    (1250, (1, 1.828125, 3, 6)), (1250, (1, 2.109375, 3, 7)),
+    (1250, (3, 1.375, 3, 8)), (1250, (4, 0.640625, 3, 6)),
+    (1250, (4, 1.46875, 3, 7)), (1250, (4, 2.015625, 3, 7)),
+    (1250, (4, 2.03125, 3, 7)), (1250, (2, 0.03125, 1, 5)),
+    (1250, (2, 0.265625, 2, 5)), (1250, (2, 0.4375, 3, 6))],
+   [(1000, (1, 0.640625, 2, 6)), (1000, (1, 1.03125, 2, 6)),
+    (1250, (1, 1.390625, 2, 6)), (1000, (3, 1.3125, 2, 8)),
+    (1000, (4, 0.625, 2, 6)), (1000, (4, 1.03125, 2, 7)),
+    (1250, (4, 1.828125, 2, 7))]),
+  (1500,
+   [(1500, (1, 1.96875, 3, 7)), (1500, (0, 2.484375, 3, 8)),
+    (1500, (0, 2.453125, 3, 8)), (1500, (3, 0.5625, 3, 8)),
+    (1500, (4, 1.96875, 3, 7)), (1500, (4, 1.765625, 3, 7)),
+    (1500, (4, 2.25, 3, 8)), (1500, (4, 1.46875, 3, 8)),
+    (1500, (4, 0.9375, 3, 8)), (1500, (4, 0.65625, 3, 8)),
+    (1500, (2, 1.3125, 3, 6))],
+   [(1250, (1, 1.515625, 2, 7)), (1000, (0, 1.5, 2, 8)),
+    (1000, (3, 0.515625, 2, 8)), (1250, (4, 1.1875, 2, 7)),
+    (1250, (4, 0.984375, 2, 7)), (1250, (4, 1.5625, 2, 7)),
+    (1500, (4, 1.46875, 2, 8)), (1500, (4, 0.6875, 2, 8)),
+    (1500, (4, 0.25, 2, 8)), (1250, (2, 0.40625, 2, 6))]),
+  (1750,
+   [(1750, (1, 1.53125, 3, 7)), (1750, (1, 1.34375, 3, 7)),
+    (1750, (3, 1.078125, 3, 8)), (1750, (3, 1.03125, 3, 8)),
+    (1750, (4, 1.046875, 3, 8)), (1750, (4, 1.453125, 3, 8)),
+    (1750, (4, 1.09375, 3, 8)), (1750, (4, 1.0625, 3, 8)),
+    (1750, (2, 1.203125, 3, 6))],
+   [(1250, (1, 1.171875, 2, 7)), (1250, (1, 0.8125, 2, 7)),
+    (1000, (3, 0.109375, 2, 8)), (1250, (3, 1.015625, 2, 8)),
+    (1500, (4, 0.65625, 2, 8)), (1500, (4, 0.796875, 2, 8)),
+    (1500, (4, 1.046875, 2, 8)), (1750, (4, 0.703125, 2, 8)),
+    (1250, (2, 1.078125, 2, 6))]),
+  (2000,
+   [(2000, (1, 1.390625, 3, 7)), (2000, (1, 1.5625, 3, 7)),
+    (2000, (1, 1.0625, 3, 7)), (2000, (1, 0.625, 3, 7)),
+    (2000, (1, 0.984375, 3, 7)), (2000, (0, 2.0625, 3, 8)),
+    (2000, (3, 1.625, 3, 8)), (2000, (3, 1.03125, 3, 8)),
+    (2000, (3, 1.859375, 3, 8)), (2000, (2, 1.796875, 3, 6))],
+   [(1500, (1, 0.890625, 2, 7)), (1750, (1, 1.03125, 2, 7)),
+    (1750, (1, 1.03125, 2, 7)), (2000, (1, 0.5625, 2, 7)),
+    (2000, (1, 0.09375, 2, 7)), (1000, (0, 1.5625, 2, 8)),
+    (1500, (3, 0.984375, 2, 8)), (1750, (3, 0.65625, 2, 8)),
+    (1750, (3, 1.015625, 2, 8)), (1250, (2, 1.03125, 2, 6))])],
+ [(1000,
+   [(1000, (0, 0.171875, 1, 0)), (1000, (0, 0.484375, 2, 5)),
+    (1000, (0, 1.203125, 3, 6)), (1000, (0, 1.546875, 4, 6)),
+    (1000, (2, 0.328125, 1, 3)), (1000, (2, 0.75, 2, 8)),
+    (1000, (2, 1.5, 3, 8)), (1000, (3, 0.734375, 1, 7)),
+    (1000, (4, 0.328125, 1, 7)), (1000, (1, 0.46875, 1, 2)),
+    (1000, (1, 0.734375, 2, 7))],
+   []),
+  (1250,
+   [(1250, (2, 2.21875, 4, 8)), (1250, (2, 3.203125, 5, 8)),
+    (1250, (3, 1.453125, 2, 8)), (1250, (3, 2.140625, 3, 8)),
+    (1250, (4, 1.046875, 2, 7)), (1250, (4, 1.40625, 3, 7)),
+    (1250, (4, 1.890625, 4, 7)), (1250, (4, 2.59375, 5, 7)),
+    (1250, (4, 3.5, 6, 7)), (1250, (4, 4.03125, 7, 7)),
+    (1250, (1, 1.53125, 3, 7)), (1250, (1, 2.171875, 4, 7))],
+   []),
+  (1500,
+   [(1500, (0, 1.921875, 5, 6)), (1500, (0, 2.015625, 6, 6)),
+    (1500, (2, 3.796875, 6, 8)), (1500, (2, 3.9375, 7, 8)),
+    (1500, (2, 4.65625, 8, 8)), (1500, (4, 4.84375, 8, 7)),
+    (1500, (4, 5.296875, 9, 7)), (1500, (4, 5.5625, 10, 7)),
+    (1500, (1, 3.140625, 5, 7)), (1500, (1, 3.1875, 6, 7))],
+   []),
+  (1600, [],
+   [(1600, (0, 1.84375, 5, 6)), (1600, (0, 1.53125, 4, 6)),
+    (1600, (0, 0.8125, 3, 6)), (1600, (0, 0.46875, 2, 6)),
+    (1600, (2, 4.328125, 7, 8)), (1600, (2, 3.90625, 6, 8)),
+    (1600, (2, 3.15625, 5, 8)), (1600, (3, 1.40625, 2, 8)),
+    (1600, (4, 5.234375, 9, 7)), (1600, (1, 2.71875, 5, 7)),
+    (1600, (1, 2.453125, 4, 7))]),
+  (1750,
+   [(1750, (0, 0.5, 3, 6)), (1750, (2, 3.40625, 6, 8)),
+    (1750, (2, 3.625, 7, 8)), (1750, (2, 4.515625, 8, 8)),
+    (1750, (3, 1.703125, 3, 8)), (1750, (4, 5.3125, 10, 7)),
+    (1750, (4, 5.390625, 11, 7)), (1750, (1, 2.453125, 5, 7)),
+    (1750, (1, 2.625, 6, 7))],
+   []),
+  (1850, [],
+   [(1850, (2, 3.796875, 7, 8)), (1850, (2, 2.8125, 6, 8)),
+    (1850, (3, 0.984375, 2, 8)), (1850, (3, 0.296875, 1, 8)),
+    (1850, (4, 4.671875, 10, 7)), (1850, (4, 4.3125, 9, 7)),
+    (1850, (4, 3.828125, 8, 7)), (1850, (4, 3.125, 7, 7)),
+    (1850, (4, 2.21875, 6, 7)), (1850, (4, 1.6875, 5, 7)),
+    (1850, (1, 1.828125, 5, 7)), (1850, (1, 1.1875, 4, 7))]),
+  (2000,
+   [(2000, (0, 0.546875, 4, 6)), (2000, (0, 1.03125, 5, 6)),
+    (2000, (0, 1.484375, 6, 8)), (2000, (2, 3.328125, 7, 8)),
+    (2000, (2, 3.390625, 8, 8)), (2000, (3, 0.75, 2, 8)),
+    (2000, (3, 0.890625, 3, 8)), (2000, (4, 2.328125, 6, 7)),
+    (2000, (1, 1.96875, 5, 7)), (2000, (1, 2.296875, 6, 7))],
+   []),
+  (2100, [],
+   [(2100, (0, 1.109375, 5, 8)), (2100, (0, 1.015625, 4, 8)),
+    (2100, (2, 2.796875, 7, 8)), (2100, (2, 2.65625, 6, 8)),
+    (2100, (2, 1.9375, 5, 8)), (2100, (4, 1.515625, 5, 7)),
+    (2100, (4, 1.0625, 4, 7)), (2100, (4, 0.796875, 3, 7)),
+    (2100, (1, 1.328125, 5, 7)), (2100, (1, 1.28125, 4, 7))]),
+  (2250,
+   [(2250, (0, 1.1875, 5, 8)), (2250, (3, 1.4375, 4, 8)),
+    (2250, (3, 2.25, 5, 8)), (2250, (3, 3.15625, 6, 8)),
+    (2250, (4, 1.515625, 4, 7)), (2250, (4, 2.265625, 5, 7)),
+    (2250, (4, 2.296875, 6, 8)), (2250, (1, 1.734375, 5, 7)),
+    (2250, (1, 1.78125, 6, 7)), (2250, (1, 2.640625, 7, 7))],
+   [])],
+ [(1000,
+   [(1000, (1, 0.25, 1, 4)), (1000, (1, 0.625, 2, 6)),
+    (1000, (1, 0.296875, 1, 7)), (1000, (1, 0.375, 2, 7)),
+    (1000, (3, 0.125, 1, 8)), (1000, (3, 0.90625, 2, 8)),
+    (1000, (3, 0.015625, 1, 0)), (1000, (3, 0.859375, 2, 5)),
+    (1000, (0, 0.9375, 1, 3)), (1000, (0, 1.46875, 2, 6))],
+   [(1000, (1, 0.375, 1, 6)), (1000, (1, None, 0, 6)),
+    (1000, (3, 0.78125, 1, 8)), (1000, (3, None, 0, 8))]),
+  (1250,
+   [(1000, (3, 0.265625, 1, 4)), (1250, (3, 0.6875, 2, 4)),
+    (1250, (3, 0.59375, 1, 5)), (1250, (3, 1.28125, 2, 7)),
+    (1000, (0, 0.0625, 1, 1)), (1250, (0, 0.609375, 2, 8)),
+    (1250, (0, 0.421875, 1, 8)), (1250, (0, 1.375, 2, 8)),
+    (1250, (2, 0.5625, 1, 0)), (1250, (2, 1.40625, 2, 5))],
+   [(1000, (3, -0.015625, -1, None)), (1000, (3, -0.859375, -2, None)),
+    (1000, (3, 0.421875, 1, 4)), (1250, (3, None, 0, 4)),
+    (1000, (0, -0.9375, -1, None)), (1000, (0, -1.46875, -2, None)),
+    (1000, (0, 0.546875, 1, 8)), (1250, (0, None, 0, 8))]),
+  (1500,
+   [(1250, (1, 0.640625, 1, 7)), (1500, (1, 0.703125, 2, 7)),
+    (1250, (3, 0.453125, 1, 4)), (1500, (3, 1.359375, 2, 7)),
+    (1250, (0, 0.6875, 1, 0)), (1500, (0, 0.765625, 2, 8)),
+    (1500, (0, 0.75, 1, 8)), (1500, (0, 0.890625, 2, 8)),
+    (1500, (0, 0.390625, 1, 5)), (1500, (0, 1.0625, 2, 5)),
+    (1500, (2, 0.546875, 1, 7)), (1500, (2, 1.0625, 2, 7)),
+    (1500, (2, 0.265625, 1, 5)), (1500, (2, 1.125, 2, 5))],
+   [(1000, (1, -0.296875, -1, None)), (1000, (1, -0.375, -2, None)),
+    (1250, (3, -0.59375, -1, None)), (1250, (3, -1.28125, -2, None)),
+    (1250, (0, -0.421875, -1, None)), (1250, (0, -1.375, -2, None)),
+    (1250, (0, 0.078125, 1, 8)), (1500, (0, None, 0, 8)),
+    (1500, (0, 0.140625, 1, 8)), (1500, (0, None, 0, 8)),
+    (1250, (2, -0.5625, -1, None)), (1250, (2, -1.40625, -2, None)),
+    (1500, (2, 0.515625, 1, 7)), (1500, (2, None, 0, 7))]),
+  (1750,
+   [(1750, (2, 0.859375, 1, 3)), (1750, (2, 1.78125, 2, 4)),
+    (1750, (2, 0.546875, 1, 6)), (1750, (2, 1.046875, 2, 6)),
+    (1750, (2, 0.625, 1, 1)), (1750, (2, 0.984375, 2, 4))],
+   [(1500, (2, 0.859375, 1, 5)), (1500, (2, None, 0, 5)),
+    (1750, (2, 0.921875, 1, 4)), (1750, (2, None, 0, 4)),
+    (1750, (2, 0.5, 1, 6)), (1750, (2, None, 0, 6))]),
+  (2000,
+   [(2000, (1, 0.609375, 1, 7)), (2000, (1, 1.140625, 2, 7)),
+    (2000, (1, 0.625, 1, 8)), (2000, (1, 1.171875, 2, 8)),
+    (1500, (3, 0.203125, 1, 8)), (2000, (3, 0.53125, 2, 8)),
+    (2000, (0, 0.203125, 1, 8)), (2000, (0, 0.265625, 2, 8)),
+    (1750, (2, 0.515625, 1, 3)), (2000, (2, 0.875, 2, 5)),
+    (2000, (2, 0.65625, 1, 2)), (2000, (2, 1.078125, 2, 8))],
+   [(1250, (1, -0.640625, -1, None)), (1500, (1, -0.703125, -2, None)),
+    (2000, (1, 0.53125, 1, 7)), (2000, (1, None, 0, 7)),
+    (1250, (3, -0.453125, -1, None)), (1500, (3, -1.359375, -2, None)),
+    (1500, (0, -0.390625, -1, None)), (1500, (0, -1.0625, -2, None)),
+    (1750, (2, -0.625, -1, None)), (1750, (2, -0.984375, -2, None)),
+    (1750, (2, 0.359375, 1, 5)), (2000, (2, None, 0, 5))])]]
+_R1_WANT = [[(1300, [(1000, ('a', 1)), (1300, ('b', 2))], []),
+  (2100, [(1600, ('a', 3)), (2100, ('c', 4))], []),
+  (3500, [(2200, ('b', 5)), (3500, ('a', 6))], [])],
+ [(1000, [(1000, ('a', 1))], []), (1600, [(1600, ('a', 3))], []),
+  (2200, [(2200, ('b', 5))], [])],
+ [(1300, [(1300, ('b', 2))], []), (2100, [(2100, ('c', 4))], []),
+  (3500, [(3500, ('a', 6))], [])],
+ [(2000, [(1000, ('a', 1)), (1300, ('b', 2)), (1600, ('a', 3))], []),
+  (3000, [(2100, ('c', 4)), (2200, ('b', 5))], [])],
+ [(1000, [(1000, ('a', 1))], []), (2100, [(2100, ('c', 4))], []),
+  (3500, [(3500, ('a', 6))], [])],
+ [(2000, [(1600, ('a', 3))], []), (3000, [(2200, ('b', 5))], [])],
+ [(2000, [(1600, ('a', 3))], []), (3000, [(2200, ('b', 5))], [])],
+ [(1300, [(1100, ('a', 1, 10)), (1300, ('b', 2, 20))], []),
+  (2600, [(1400, ('a', 3, 10)), (2600, ('a', 1, 30))], []),
+  (2700, [(2600, ('a', 3, 30)), (2700, ('b', 4, 20))], [])],
+ [(1100, [(1100, ('a', 1, 10))], []), (1400, [(1400, ('a', 3, 10))], []),
+  (2600, [(2600, ('a', 3, 30))], [])],
+ [(1300, [(1300, ('b', 2, 20))], []), (2600, [(2600, ('a', 1, 30))], []),
+  (2700, [(2700, ('b', 4, 20))], [])],
+ [(2000, [(1100, ('a', 1, 10)), (1300, ('b', 2, 20)), (1400, ('a', 3, 10))],
+   [])],
+ [(1100, [(1100, ('a', 1, 10))], []), (2600, [(2600, ('a', 1, 30))], [])],
+ [(2000, [(1400, ('a', 3, 10))], [])], [(2000, [(1400, ('a', 3, 10))], [])],
+ [(1300, [(1100, ('a', 2)), (1300, ('b', 5))], []),
+  (3700, [(2500, ('a', 9)), (3700, ('c', 2))], [])],
+ [(1100, [(1100, ('a', 2))], []), (2500, [(2500, ('a', 9))], [])],
+ [(1300, [(1300, ('b', 5))], []), (3700, [(3700, ('c', 2))], [])],
+ [(2000, [(1100, ('a', 2)), (1300, ('b', 5))], []),
+  (3000, [(2500, ('a', 9))], [])],
+ [(1100, [(1100, ('a', 2))], []), (2500, [(2500, ('a', 9))], []),
+  (3700, [(3700, ('c', 2))], [])],
+ [(2000, [(1300, ('b', 5))], []), (3000, [(2500, ('a', 9))], [])],
+ [(2000, [(1300, ('b', 5))], []), (3000, [(2500, ('a', 9))], [])],
+ [(1100, [(1000, ('a', 1)), (1100, ('b', 2))], []),
+  (1300, [(1200, ('a', 4)), (1300, ('b', 6))], []),
+  (2400, [(2400, ('a', 8))], [(1000, ('a', 3))]),
+  (3600, [(2500, ('c', 6))], [(1100, ('b', 4))])],
+ [(1000, [(1000, ('a', 1))], []), (1200, [(1200, ('a', 4))], []),
+  (2400, [], [(1000, ('a', 3))]), (2500, [(2500, ('c', 6))], []),
+  (3600, [(3600, ('b', 11))], [])],
+ [(1100, [(1100, ('b', 2))], []), (1300, [(1300, ('b', 6))], []),
+  (2400, [(2400, ('a', 8))], []), (3600, [], [(1100, ('b', 4))])],
+ [(2000,
+   [(1000, ('a', 1)), (1100, ('b', 2)), (1200, ('a', 4)), (1300, ('b', 6))],
+   []),
+  (3000, [(2400, ('a', 8)), (2500, ('c', 6))], [(1000, ('a', 3))])],
+ [(1000, [(1000, ('a', 1))], []), (2400, [], [(1000, ('a', 3))]),
+  (3600, [], [(1100, ('b', 4))])],
+ [(2000, [(1300, ('b', 6))], []), (3000, [(2500, ('c', 6))], [])],
+ [(2000, [(1300, ('b', 6))], []), (3000, [(2500, ('c', 6))], [])]]
+P3_CASES = [spec + (want,) for spec, want in zip(_P3_SPECS, _P3_WANT)]
+R1_CASES = [spec + (want,) for spec, want in zip(_R1_SPECS, _R1_WANT)]
 
 if __name__ == "__main__":
     main()

@@ -20,6 +20,15 @@ state converts per window kind:
     prefix, becomes the port's BatchState.
 Both packages can then continue from the same mid-stream state.
 
+Keyed windows (windows inside a partition): the JAX state is the
+`vmap`-stacked per-key state, Buffers of [K, C] leaves (each key's alive
+rows a compact prefix in add_seq order) and seq[K];
+`keyed_slab_from_jax` makes the port's `KeyedSlab` (every key's ring at
+head 0), `keyed_slab_to_jax` goes back (add_seq numbered below each key's
+counter, in window order) and `keyed_slab_logical` reads either package's
+keyed state as the same numpy view of every key's alive rows and
+counters.
+
 Tables: `table_from_jax` carries a JAX `TableRuntime`'s columns, ts,
 valid, append pointer, free rows, primary-key allocator and @Index lane
 tables into the port's table of the same definition; `table_to_numpy`
@@ -129,6 +138,101 @@ def batch_state_from_jax(pend, prev, seq, schema: ev.Schema, n: int,
     return st
 
 
+def _keyed_blocks(wslab, mode):
+    """The JAX keyed state as ([(Buffer, alive count [K])...], seq [K]):
+    one block for `length` / `time`, (pending, previous) for
+    `lengthBatch`."""
+    from .kernels.keyed_window import MODE_BATCH
+    bufs = (wslab[0], wslab[1]) if mode == MODE_BATCH else (wslab[0],)
+    out = []
+    for b in bufs:
+        alive = np.asarray(b.alive)
+        n = alive.sum(1)
+        if not np.array_equal(alive, np.arange(alive.shape[1])[None, :]
+                              < n[:, None]):
+            raise ValueError("a key's JAX buffer is not a compact prefix")
+        out.append((b, n))
+    return out, np.asarray(wslab[-1])
+
+
+def keyed_slab_from_jax(wslab, mode: int, types, device=None):
+    """A JAX keyed window state -> the port's KeyedSlab (K11's layout)."""
+    from .kernels.keyed_window import MODE_BATCH, KeyedSlab
+    device = _dev(device)
+    blocks, seq = _keyed_blocks(wslab, mode)
+    K, C = np.asarray(blocks[0][0].ts).shape
+    slab = KeyedSlab.empty(mode, types, K, C, device)
+    targets = [(slab.ts, slab.gslot, slab.cols, slab.count)]
+    if mode == MODE_BATCH:
+        targets.append((slab.p_ts, slab.p_gslot, slab.p_cols,
+                        slab.p_count))
+    for (ts, gs, cols, cnt), (buf, n) in zip(targets, blocks):
+        for dst, src in ((ts, buf.ts), (gs, buf.gslot), (cnt, n),
+                         *zip(cols, buf.cols)):
+            dst.copy_(_t(src, device, dst.dtype))
+    slab.seq.copy_(_t(seq, device, torch.int64))
+    return slab
+
+
+def keyed_slab_to_jax(slab, t: int = 0):
+    """The port's KeyedSlab -> the JAX keyed state of the same window:
+    numpy Buffers of [K, C] (each key's alive rows first, in window order)
+    and seq[K].  A key's rows get add_seq seq - count .. seq - 1, which
+    keeps their order below the key's counter; a time window's expire_ts
+    is ts + t."""
+    from .core.window import BIG_SEQ, Buffer
+    from .kernels.keyed_window import MODE_BATCH, MODE_TIME
+    lg = keyed_slab_logical(slab, slab.mode)
+    seq = lg["seq"]
+    C = slab.C
+    ar = np.arange(C)[None, :]
+
+    def buf(pre, ordered):
+        n = lg[pre + "count"]
+        alive = ar < n[:, None]
+        add = np.where(alive & ordered, seq[:, None] - n[:, None] + ar,
+                       BIG_SEQ)
+        ts = lg[pre + "ts"]
+        exp = np.where(alive & (slab.mode == MODE_TIME), ts + t, BIG_SEQ)
+        cols = tuple(lg[f"{pre}col{j}"].astype(ev.np_dtype(tp))
+                     for j, tp in enumerate(slab.types))
+        return Buffer(ts=ts, add_seq=add,
+                      expire_seq=np.full((slab.K, C), BIG_SEQ, np.int64),
+                      expire_ts=exp, alive=alive,
+                      gslot=np.where(alive, lg[pre + "gslot"], -1)
+                      .astype(np.int32), cols=cols)
+    if slab.mode == MODE_BATCH:
+        return buf("", False), buf("p_", False), seq
+    return buf("", True), seq
+
+
+def keyed_slab_logical(state, mode: int) -> dict:
+    """Every key's alive rows and counters as numpy, from a port KeyedSlab
+    or a JAX keyed state: [K, C] arrays, zero past each key's count."""
+    from .kernels.keyed_window import KeyedSlab
+    if isinstance(state, KeyedSlab):
+        return {k: v.cpu().numpy().astype(np.int64) if v.dtype in (
+            torch.int32, torch.bool) else v.cpu().numpy()
+            for k, v in state.logical().items()}
+    blocks, seq = _keyed_blocks(state, mode)
+    out = {"seq": seq.astype(np.int64)}
+    for pre, (buf, n) in zip(("", "p_"), blocks):
+        C = np.asarray(buf.ts).shape[1]
+        alive = np.arange(C)[None, :] < n[:, None]
+
+        def view(x):
+            x = np.asarray(x)
+            if x.dtype == np.bool_ or x.dtype == np.int32:
+                x = x.astype(np.int64)
+            return np.where(alive, x, np.zeros_like(x))
+        out[pre + "ts"] = view(buf.ts)
+        out[pre + "gslot"] = view(buf.gslot)
+        out[pre + "count"] = n.astype(np.int64)
+        for j, c in enumerate(buf.cols):
+            out[f"{pre}col{j}"] = view(c)
+    return out
+
+
 def query_state_from_jax(planned, jax_state, device=None):
     """A JAX single-stream QueryRuntime.state (window_state,
     selector_state) -> the port's, for the port's plan of the same
@@ -137,7 +241,12 @@ def query_state_from_jax(planned, jax_state, device=None):
     wstate, sel_state = jax_state
     w = planned.window
     device = _dev(device)
-    if isinstance(w, NoWindow):
+    if planned.keyed_window:
+        from .core.planner import _keyed_shape
+        port_w = keyed_slab_from_jax(
+            wstate, _keyed_shape(w, planned.name)[0],
+            planned.in_schema.types, device)
+    elif isinstance(w, NoWindow):
         port_w = torch.tensor([int(np.asarray(wstate))], dtype=torch.int64,
                               device=device)
     elif isinstance(w, TimeWindow):

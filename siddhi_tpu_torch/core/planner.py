@@ -11,14 +11,25 @@ rows in seq order; `header` is i64[4] = [n_valid, n_current, wake, rows
 the time window's expire bound missed], the one scalar block the runtime
 fetches per step.
 
-Ported: filters, the `time` and `lengthBatch` windows or none, group by,
-having, the built-in aggregators.  Stream functions, the other windows,
-keyed windows (windows inside partitions), range partitions, `in Table`
-probes, named-window input and distinctCount pair slots raise
-`CompileError` naming their ROADMAP item.  On CUDA a query must also fit
-the kernels (`kernel_subset_violation`) and have no filter after its
-window (no kernel evaluates one yet, ROADMAP B10); one that does not
-raises NotImplementedError here, at plan time.
+Inside a value partition (`partition_positions`) the partition key is
+prepended to the group-by key when the query aggregates or groups, and a
+windowed query keeps one window per partition key: `kstep` (the
+reference's `kstep`, `siddhi_tpu/core/planner.py:539-584`)
+
+    kstep(state, batch, gslot, key_idx, sel, now) -> (state', out, header)
+
+runs the pre-window filters and every key's window over the [K, C] slab
+(kernel K11, `kernels/keyed_window.py`), then the selector over the rows,
+which come out key-major.
+
+Ported: filters, the `length`, `time` and `lengthBatch` windows or none,
+keyed `length` / `time` / `lengthBatch` windows, group by, having, the
+built-in aggregators.  Stream functions, the other windows, range
+partitions, `in Table` probes, named-window input and distinctCount pair
+slots raise `CompileError` naming their ROADMAP item.  On CUDA a query
+must also fit the kernels (`kernel_subset_violation`) and have no filter
+after its window (no kernel evaluates one yet, ROADMAP B10); one that
+does not raises NotImplementedError here, at plan time.
 """
 from __future__ import annotations
 
@@ -60,6 +71,14 @@ class PlannedQuery:
     filter_spec: Any = None            # kernels.filter_compact.FilterSpec
     stage_body: Optional[Callable] = None
     select_body: Optional[Callable] = None
+    # keyed windows (windows inside a value partition)
+    keyed_window: bool = False
+    window_key_positions: List[int] = dataclasses.field(
+        default_factory=list)
+    window_key_allocator: Optional[SlotAllocator] = None
+    key_capacity: int = 0
+    kstep: Optional[Callable] = None
+    timer_keys: Optional[Callable] = None
 
 
 def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
@@ -81,7 +100,8 @@ def kernel_subset_violation(in_schema: ev.Schema,
                             ) -> Optional[str]:
     """Why a query cannot run on the CUDA kernels, or None.  The stream is
     checked first, before anything is compiled for the device; the
-    selector once it is compiled."""
+    selector once it is compiled.  group_agg takes more than MAX_SLOTS
+    slots only in its run mode (`AggregatorBank.runs`)."""
     from ..kernels import filter_compact, group_agg
     if len(in_schema.types) > filter_compact.MAX_COLS:
         return (f"{len(in_schema.types)} columns (the kernels take "
@@ -89,7 +109,8 @@ def kernel_subset_violation(in_schema: ev.Schema,
     if sel is not None and len(sel.bank.specs) > group_agg.MAX_SPECS:
         return (f"{len(sel.bank.specs)} accumulator columns (group_agg "
                 f"takes {group_agg.MAX_SPECS})")
-    if sel is not None and sel.bank.K > group_agg.MAX_SLOTS:
+    if sel is not None and sel.bank.K > group_agg.MAX_SLOTS and \
+            not sel.bank.runs:
         return (f"{sel.bank.K} group slots (group_agg takes "
                 f"{group_agg.MAX_SLOTS})")
     return None
@@ -107,7 +128,10 @@ def plan_single_query(
         query: Query, name: str, schemas: Dict[str, ev.Schema], interner,
         batch_capacity: int = 512, group_slots: int = 4096,
         window_capacity_hint: int = 2048,
-        device: Optional[torch.device] = None) -> PlannedQuery:
+        device: Optional[torch.device] = None,
+        partition_positions: Optional[List[int]] = None,
+        window_key_allocator: Optional[SlotAllocator] = None,
+        key_capacity: int = 0) -> PlannedQuery:
     from ..kernels.filter_bytecode import AND, compile_filter
     from ..kernels.filter_compact import FilterSpec
     device = torch.device(device) if device is not None \
@@ -167,6 +191,18 @@ def plan_single_query(
         out_def.attribute(n, t)
     out_schema = ev.Schema(out_def, interner)
     gpos = list(sel.group_by_positions)
+    # inside a partition the partition key is prepended to the group key
+    # (reference :439-445)
+    keyed_window = bool(partition_positions and seen_window)
+    if keyed_window and (window_key_allocator is None or key_capacity <= 0):
+        raise CompileError("windows inside partitions need a key allocator")
+    if partition_positions and (sel.has_aggregation or gpos):
+        extra = [g for g in gpos if g not in partition_positions]
+        gpos = [q for q in partition_positions if q not in gpos] + gpos
+        # keyed rows come out key-major and each group slot belongs to one
+        # key when the group key is the partition key alone, so every
+        # (slot, epoch) segment is one run of rows: group_agg's run mode
+        sel.bank.runs = keyed_window and not extra
     allocator = SlotAllocator(group_slots, name=f"{name}:groupby") \
         if gpos else None
     out_event_type = (query.output_stream.output_event_type
@@ -217,6 +253,42 @@ def plan_single_query(
     def init_state():
         return (wproc.init_state(device), sel.init_state())
 
+    kstep = timer_keys = None
+    if keyed_window:
+        from ..kernels.keyed_window import KeyedSlab, keyed_window_step
+        mode, C, t_ms = _keyed_shape(wproc, name)
+        K = key_capacity
+        types = in_schema.types
+
+        def kstep(state, batch, gslot, key_idx, sel_idx, now: int,
+                  tick: bool = False):
+            slab, astate = state
+            orows, wake = keyed_window_step(
+                slab, fspec, batch.ts, batch.kind, batch.valid, gslot,
+                batch.cols, key_idx, sel_idx, now, t_ms, tick)
+            astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
+                                                              now)
+            cur = torch.logical_and(ovalid, okind == ev.CURRENT)
+            header = torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake,
+                                torch.zeros(1, dtype=torch.int64,
+                                            device=wake.device)])
+            return (slab, astate), (ots, okind, ovalid, ocols), header
+
+        def init_state():                              # noqa: F811
+            return (KeyedSlab.empty(mode, types, K, C, device),
+                    sel.init_state())
+
+        tk = []
+
+        def timer_keys():
+            """The timer tick's [K] key rows and [K, 1] selection: every
+            key sees the TIMER row (row 0)."""
+            if not tk:
+                tk.extend([torch.arange(K, dtype=torch.int32, device=device),
+                           torch.zeros((K, 1), dtype=torch.int32,
+                                       device=device)])
+            return tk
+
     return PlannedQuery(
         name=name, input_stream_id=sid, in_schema=in_schema,
         out_schema=out_schema, output_target=out_target,
@@ -225,4 +297,23 @@ def plan_single_query(
         init_state=init_state, slot_allocator=allocator,
         batch_capacity=batch_capacity, needs_timer=wproc.needs_timer,
         device=device, filter_spec=fspec, stage_body=stage_body,
-        select_body=select_body)
+        select_body=select_body, keyed_window=keyed_window,
+        window_key_positions=list(partition_positions or []),
+        window_key_allocator=window_key_allocator,
+        key_capacity=key_capacity, kstep=kstep, timer_keys=timer_keys)
+
+
+def _keyed_shape(wproc, name: str):
+    """(K11 mode, per-key capacity, time window length) of a window kept
+    per partition key.  Other window kinds raise: their keyed forms are not
+    ported yet."""
+    from ..kernels import keyed_window as kw
+    from .window import LengthBatchWindow, LengthWindow, TimeWindow
+    if isinstance(wproc, LengthWindow):
+        return kw.MODE_LENGTH, wproc.length, 0
+    if isinstance(wproc, TimeWindow):
+        return kw.MODE_TIME, wproc.capacity, wproc.time_ms
+    if isinstance(wproc, LengthBatchWindow):
+        return kw.MODE_BATCH, wproc.length, 0
+    raise CompileError(f"query {name!r}: the keyed form of a "
+                       f"{wproc.name!r} window is not yet ported")

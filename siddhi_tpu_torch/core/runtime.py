@@ -25,9 +25,19 @@ drive an insert, a delete, an update or an update-or-insert
 (`core/table.py`, kernels K9 and K10).  `query()` runs an on-demand query
 (`core/ondemand.py`) against the tables' current contents.
 
+A query with `output ... every` / `output snapshot every` hands its
+delivered events to its rate limiter (`core/ratelimit.py`, host code),
+which forwards what is due; a time or snapshot limiter ticks from the
+timer scheduler.  A single-stream query inside a value partition keeps
+its window per partition key: its events group per key on the host
+(`slots_and_group`) and `kstep` advances every key's window (kernel K11);
+a timer tick advances every key.
+
 Ported: stream definitions, `@app:playback` (with `idle.time` and
 `increment`), value partitions (`partition with (attr of Stream)`) around
-pattern queries, top-level pattern queries (non-partitioned simple chains
+pattern, single-stream (`length` / `time` / `lengthBatch` windows kept
+per key, or none) and join queries, output rate limiting,
+top-level pattern queries (non-partitioned simple chains
 on the block NFA, absent atoms with their timer step),
 top-level single-stream queries (filters, `length` / `time` /
 `lengthBatch` windows, group by, having, `@capacity(window='N')`),
@@ -59,10 +69,10 @@ from ..exceptions import (DefinitionNotExistError, MatchOverflowError,
                           QueryNotExistError)
 from ..query_api.app import SiddhiApp
 from ..query_api.definition import StreamDefinition
-from ..query_api.expression import Variable
+from ..query_api.expression import Expression, Variable
 from ..query_api.query import (JoinInputStream, Partition, Query,
-                               SingleInputStream, StateInputStream,
-                               ValuePartitionType)
+                               SingleInputStream, ValuePartitionType,
+                               Window)
 from . import event as ev
 from .executor import CompileError
 from .keyslots import SlotAllocator
@@ -75,8 +85,10 @@ _log = logging.getLogger("siddhi_tpu_torch")
 # annotations whose machinery is not ported yet -> ROADMAP item
 _UNPORTED_ANNOTATIONS = {
     "async": "A12", "pipeline": "A12", "serve": "A12", "fuse": "A12",
-    "purge": "A11", "source": "A15", "sink": "A15", "store": "A15",
-    "app:statistics": "A15", "app:errorstore": "A15",
+    "app:fuse": "A12", "app:pipeline": "A12", "app:serve": "A12",
+    "app:admission": "A15", "purge": "A11", "source": "A15",
+    "sink": "A15", "store": "A15", "app:statistics": "A15",
+    "app:errorstore": "A15",
 }
 
 
@@ -293,7 +305,8 @@ class PatternQueryRuntime:
 
 
 def _target_live(qr) -> bool:
-    if getattr(qr, "table_op", None) is not None:
+    if getattr(qr, "table_op", None) is not None or \
+            getattr(qr, "rate_limiter", None) is not None:
         return True
     tgt = qr.planned.output_target
     if not tgt:
@@ -410,8 +423,15 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
                           tuple(c.cpu().numpy()[order] for c in ocols))
     pairs = ev.unpack(p.out_schema, batch,
                       want_kinds=(ev.CURRENT, ev.EXPIRED))
-    if pairs:
-        _deliver_pairs(qr, pairs, now)
+    if not pairs:
+        return
+    limiter = getattr(qr, "rate_limiter", None)
+    if limiter is not None:
+        # the limiter forwards what is due to _deliver_pairs (reference
+        # `_emit_output_sync_impl`, siddhi_tpu/core/runtime.py:1334)
+        limiter.process(pairs, now)
+        return
+    _deliver_pairs(qr, pairs, now)
 
 
 def _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols) -> None:
@@ -588,6 +608,9 @@ class QueryRuntime:
 
     def process_staged(self, staged: ev.StagedBatch, now: int) -> None:
         p = self.planned
+        if p.keyed_window:
+            self._process_keyed(staged, now)
+            return
         gslot = self._slots_for_batch(staged)
         batch = staged.to_device(p.in_schema, p.device)
         cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
@@ -596,11 +619,37 @@ class QueryRuntime:
             self.state, batch, _h2d(gslot, p.device), now, facts)
         _emit_plain(self, out, header, now)
 
+    def _process_keyed(self, staged: ev.StagedBatch, now: int,
+                       all_keys: bool = False) -> None:
+        """A window per partition key (reference `_process_keyed`,
+        `siddhi_tpu/core/runtime.py:472`): the batch's events group per
+        key into [Kb, E] on the host and `kstep` advances each key's
+        window.  A timer tick advances every key, each seeing the TIMER row
+        (row 0), with no group slots to resolve."""
+        p = self.planned
+        if all_keys:
+            key_idx, sel = p.timer_keys()
+            gslot = _zero_slots(staged.ts.shape[0])
+        else:
+            _, key_idx, sel = p.window_key_allocator.slots_and_group(
+                [staged.cols[i] for i in p.window_key_positions],
+                staged.valid, pad=p.key_capacity)
+            key_idx, sel = _h2d(key_idx, p.device), _h2d(sel, p.device)
+            gslot = self._slots_for_batch(staged)
+        batch = staged.to_device(p.in_schema, p.device)
+        self.state, out, header = p.kstep(
+            self.state, batch, _h2d(gslot, p.device), key_idx, sel, now,
+            all_keys)
+        _emit_plain(self, out, header, now)
+
     def on_timer(self, now: int) -> None:
         staged = ev.pack_np(self.planned.in_schema, [], capacity=8)
         staged.ts[0] = now
         staged.kind[0] = ev.TIMER
         staged.valid[0] = True
+        if self.planned.keyed_window:
+            self._process_keyed(staged, now, all_keys=True)
+            return
         self.process_staged(staged, now)
 
     def _apply_wake(self, w: int) -> None:
@@ -952,6 +1001,7 @@ class SiddhiAppRuntime:
             self._playback_increment_ms = _parse_time_ms(
                 pb.element("increment", "1 sec")) or 1000
         self._scheduler = _Scheduler(self)
+        self._timed_limiters: List = []
         _check_annotations(
             [a for a in app.annotations
              if a.name.lower() not in ("app:playback",)], "the app")
@@ -1074,7 +1124,9 @@ class SiddhiAppRuntime:
 
     def _add_partition(self, part: Partition, qi: int) -> int:
         """Partitions: the partition key becomes an explicit key axis of the
-        pattern state (reference: CORE/partition/PartitionRuntimeImpl.java)."""
+        pattern state, of a keyed window, of the group key, or an extra
+        equality of a join's `on` (reference:
+        CORE/partition/PartitionRuntimeImpl.java)."""
         _check_annotations(part.annotations, "a partition")
         positions: Dict[str, List[int]] = {}
         for sid, pt in part.partition_type_map.items():
@@ -1090,7 +1142,9 @@ class SiddhiAppRuntime:
                     "this build")
             positions[sid] = [schema.position(pt.expression.attribute_name)]
 
-        keys_cap, nfa_slots = 4096, 8
+        # @capacity(keys, slots, window) on the partition or any of its
+        # queries; `window` is the per-key row capacity of a time window
+        keys_cap, nfa_slots, win_cap = 4096, 8, 128
         all_anns = list(part.annotations)
         for q in part.query_list:
             all_anns.extend(q.annotations)
@@ -1098,15 +1152,18 @@ class SiddhiAppRuntime:
             if ann.name.lower() == "capacity":
                 keys_cap = int(ann.element("keys", keys_cap))
                 nfa_slots = int(ann.element("slots", nfa_slots))
+                win_cap = int(ann.element("window", win_cap))
         shared_allocator = SlotAllocator(keys_cap, name="partition")
         for q in part.query_list:
             qname = self._query_name(q, qi)
             qi += 1
-            if not isinstance(q.input_stream, StateInputStream):
-                raise CompileError(
-                    f"query {qname!r}: only pattern queries are ported "
-                    f"inside partitions so far (keyed windows and "
-                    f"partitioned plain queries: ROADMAP B10)")
+            if isinstance(q.input_stream, JoinInputStream):
+                self._add_partitioned_join(q, qname, positions)
+                continue
+            if isinstance(q.input_stream, SingleInputStream):
+                self._add_partitioned_query(q, qname, positions, keys_cap,
+                                            win_cap, shared_allocator)
+                continue
             ppos = {}
             for sid in q.input_stream.all_stream_ids:
                 if sid not in positions:
@@ -1118,14 +1175,115 @@ class SiddhiAppRuntime:
                                     allocator=shared_allocator)
         return qi
 
+    def _attach_rate_limiter(self, q: Query, runtime) -> None:
+        """`output [all|first|last] every ... | snapshot every t`
+        (reference `_attach_rate_limiter`,
+        `siddhi_tpu/core/runtime.py:2999`): the limiter receives the
+        query's delivered pairs and forwards what is due.  A time or
+        snapshot limiter's first tick is scheduled at `start()`."""
+        from .ratelimit import create_rate_limiter
+        runtime.rate_limiter = None
+        if q.output_rate is None:
+            return
+        group_positions = None
+        if q.selector.group_by_list:
+            # positions of projected group-by attributes in the OUTPUT row;
+            # qualified variables match by (stream, attribute)
+            def _matches(oa_expr) -> bool:
+                if not isinstance(oa_expr, Variable):
+                    return False
+                for v in q.selector.group_by_list:
+                    if v.attribute_name != oa_expr.attribute_name:
+                        continue
+                    if v.stream_id is None or oa_expr.stream_id is None \
+                            or v.stream_id == oa_expr.stream_id:
+                        return True
+                return False
+            group_positions = [
+                i for i, oa in enumerate(q.selector.selection_list)
+                if _matches(oa.expression)] or None
+            if group_positions is None and \
+                    q.output_rate.behavior in ("FIRST", "LAST"):
+                raise CompileError(
+                    f"output {q.output_rate.behavior.lower()} with group "
+                    f"by requires projecting the group-by attribute(s) in "
+                    f"the select clause")
+        lim = create_rate_limiter(
+            q.output_rate,
+            lambda pairs, now, _rt=runtime: _deliver_pairs(_rt, pairs, now),
+            group_positions)
+        runtime.rate_limiter = lim
+        if lim is not None and lim.needs_timer:
+            lim.name = f"{runtime.name} (output rate)"
+            lim._schedule = lambda ts, _l=lim: \
+                self._scheduler.notify_at(ts, _l)
+            self._timed_limiters.append(lim)
+
+    def _add_partitioned_query(self, q: Query, name: str, positions,
+                               keys_cap: int, win_cap: int,
+                               allocator: SlotAllocator) -> None:
+        """A single-stream query inside a value partition (reference
+        `_add_partition`, `siddhi_tpu/core/runtime.py:3398-3438`): the
+        partition key joins the group key, and a window is kept per key
+        (`kstep`, kernel K11) with the partition's allocator as the
+        window-key allocator.  An inner stream (`#S`) carries no key."""
+        _check_annotations(q.annotations, f"query {name!r}")
+        ist = q.input_stream
+        sid = ist.unique_stream_id
+        ppos = positions.get(sid)
+        if ppos is None and not ist.is_inner_stream:
+            raise CompileError(f"stream {sid!r} has no partition key")
+        has_window = any(isinstance(h, Window) for h in ist.stream_handlers)
+        planned = plan_single_query(
+            q, name, self.schemas, self.interner,
+            group_slots=max(keys_cap, 4096),
+            # keyed windows see per-key E-row batches, so their window
+            # shapes key off a small batch capacity
+            batch_capacity=64 if has_window else 512,
+            window_capacity_hint=win_cap, device=self.device,
+            partition_positions=ppos, window_key_allocator=allocator,
+            key_capacity=keys_cap)
+        runtime = QueryRuntime(planned, self)
+        self.query_runtimes[name] = runtime
+        self.junctions[sid].subscribe_query(_QSub(runtime))
+        # the reference wires a partitioned query's limiter and output
+        # stream only (no table op)
+        self._attach_rate_limiter(q, runtime)
+        self._define_output_for(planned, name)
+
+    def _add_partitioned_join(self, q: Query, name: str, positions) -> None:
+        """A join inside a value partition (reference
+        `siddhi_tpu/core/runtime.py:3360-3397`): a plain join whose `on`
+        also requires equal partition keys on both sides.  Its windows are
+        shared by the keys, as in the reference."""
+        jis = q.input_stream
+        sides = []
+        for sis in (jis.left_input_stream, jis.right_input_stream):
+            ssid = sis.unique_stream_id
+            if ssid in self.tables:
+                continue
+            pos = positions.get(ssid)
+            if not pos:
+                raise CompileError(f"stream {ssid!r} has no partition key")
+            sides.append(Expression.variable(
+                self.schemas[ssid].names[pos[0]]).of_stream(
+                    sis.stream_reference_id or ssid))
+        if len(sides) == 2:
+            eq = Expression.compare(sides[0], "==", sides[1])
+            jis.on_compare = Expression.and_(jis.on_compare, eq) \
+                if jis.on_compare is not None else eq
+        self._add_join_query(q, name)
+
     def _wire_output(self, runtime, q: Query, planned, name: str) -> None:
-        """Route a query's output: a table op when the target is a table
-        (reference `_wire_output`, `siddhi_tpu/core/runtime.py:3049`),
-        else the output stream (defined if missing)."""
+        """Route a query's output: its rate limiter, then a table op when
+        the target is a table (reference `_wire_output`,
+        `siddhi_tpu/core/runtime.py:3049`), else the output stream (defined
+        if missing)."""
         from ..query_api.expression import Variable as V
         from ..query_api.query import (DeleteStream, UpdateOrInsertStream,
                                        UpdateStream)
         from .executor import Scope, compile_expression
+        self._attach_rate_limiter(q, runtime)
         runtime.table_op = None
         tgt = planned.output_target
         out_stream = q.output_stream
@@ -1191,6 +1349,11 @@ class SiddhiAppRuntime:
 
     # -- lifecycle ------------------------------------------------------------
     def start(self) -> None:
+        if not self._started:
+            # a timed limiter's first tick (reference :3509-3510)
+            now = self.timestamp_millis()
+            for lim in self._timed_limiters:
+                self._scheduler.notify_at(now + lim.interval, lim)
         self._started = True
         self._scheduler.start()
         if self.playback and self._playback_idle_ms and \

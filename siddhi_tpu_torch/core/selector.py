@@ -70,6 +70,10 @@ class AggregatorBank:
     """All aggregator calls of a query as scan columns plus per-slot carry
     state [K]."""
 
+    # True when every (slot, epoch) segment of the rows is one run (keyed
+    # windows grouped by the partition key alone): group_agg's run mode
+    runs = False
+
     def __init__(self, group_slots: int, device):
         self.K = group_slots
         self.device = device
@@ -238,7 +242,7 @@ class AggregatorBank:
                                     _full(v, s.init, s.dtype)))
         specs = [ScanSpec(s.op, s.dtype, s.init) for s in self.specs]
         return group_agg_scan(specs, state, vals, sign, rows.kind,
-                              rows.valid, rows.gslot)
+                              rows.valid, rows.gslot, runs=self.runs)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,12 @@
 // its segment left to right, so float sums add in seq order, exactly as
 // the plain version does.
 //
+// Run mode (siddhi_group_agg_runs) takes rows whose (slot, epoch)
+// segments are each one run of consecutive contributing rows, as a keyed
+// window's key-major rows grouped by the partition key are: the
+// contributing rows are compacted in row order (a tile count, a scan, a
+// scatter) instead of sorted, so no [K] histogram limits the slots.
+//
 // Bound: each row's sign, kind, valid flag, slot and contributions are
 // read once and its results written once, plus the [K] states; the
 // counting sort adds its permutation and a K x tiles count matrix.
@@ -171,9 +177,44 @@ __global__ void ag_state_init(const AggPlan pl) {
   }
 }
 
-__global__ void ag_walk(const AggPlan pl, long long nb_hist) {
+// Run mode: each tile's contributing rows and RESET rows counted (and the
+// identity written for the others) ...
+__global__ void ag_runs_count(const AggPlan pl) {
+  __shared__ long long sh[2 * TILE];
+  int t = threadIdx.x, tile = blockIdx.x;
+  long long i = (long long)tile * TILE + t;
+  int slot = 0;
+  long long act = active(pl, i, &slot) ? 1 : 0;
+  if (!act && i < pl.B)
+    for (int j = 0; j < pl.nspec; ++j) store_bits(pl.res[j], i, pl.init[j], width(pl.dt[j]));
+  long long tot;
+  block_excl_scan<TILE>(act, sh, &tot);
+  if (t == 0) pl.hist[tile] = tot;
+  block_excl_scan<TILE>(is_reset(pl, i), sh, &tot);
+  if (t == 0) pl.tile_resets[tile] = tot;
+}
+
+// ... then, after both scans, placed in row order with their epochs.
+__global__ void ag_runs_scatter(const AggPlan pl) {
+  __shared__ long long sh[2 * TILE];
+  int t = threadIdx.x, tile = blockIdx.x;
+  long long i = (long long)tile * TILE + t;
+  int slot = 0;
+  long long act = active(pl, i, &slot) ? 1 : 0;
+  long long tot;
+  long long dst = pl.hist[tile] + block_excl_scan<TILE>(act, sh, &tot);
+  long long ep = pl.tile_resets[tile] + block_excl_scan<TILE>(is_reset(pl, i), sh, &tot);
+  if (!act) return;
+  pl.perm[dst] = (int)i;
+  pl.s_slot[dst] = slot;
+  pl.s_epoch[dst] = (int)ep;
+}
+
+// One thread per (slot, epoch) segment head; n_act points at the number of
+// contributing rows.
+__global__ void ag_walk(const AggPlan pl, const long long* n_act_p) {
   long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  long long n_act = pl.hist_sums[nb_hist];
+  long long n_act = *n_act_p;
   if (p >= n_act) return;
   int s = pl.s_slot[p], e = pl.s_epoch[p];
   if (p > 0 && pl.s_slot[p - 1] == s && pl.s_epoch[p - 1] == e) return;
@@ -211,6 +252,20 @@ extern "C" int siddhi_group_agg(const AggPlan* plan, void* stream) {
   scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.tile_resets, pl.ntiles);
   ag_scatter<<<pl.ntiles, TILE, shared, s>>>(pl);
   ag_state_init<<<blocks(pl.K), BLOCK, 0, s>>>(pl);
-  ag_walk<<<blocks(pl.B > 0 ? pl.B : 1), BLOCK, 0, s>>>(pl, (nh + SCAN_BLOCK - 1) / SCAN_BLOCK);
+  ag_walk<<<blocks(pl.B > 0 ? pl.B : 1), BLOCK, 0, s>>>(
+      pl, pl.hist_sums + (nh + SCAN_BLOCK - 1) / SCAN_BLOCK);
+  return (int)cudaGetLastError();
+}
+
+// Run mode; `hist` holds ntiles + 1 values.
+extern "C" int siddhi_group_agg_runs(const AggPlan* plan, void* stream) {
+  const AggPlan& pl = *plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  ag_runs_count<<<pl.ntiles, TILE, 0, s>>>(pl);
+  scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.hist, pl.ntiles);
+  scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.tile_resets, pl.ntiles);
+  ag_runs_scatter<<<pl.ntiles, TILE, 0, s>>>(pl);
+  ag_state_init<<<blocks(pl.K), BLOCK, 0, s>>>(pl);
+  ag_walk<<<blocks(pl.B > 0 ? pl.B : 1), BLOCK, 0, s>>>(pl, pl.hist + pl.ntiles);
   return (int)cudaGetLastError();
 }

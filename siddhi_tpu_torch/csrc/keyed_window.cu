@@ -1,0 +1,416 @@
+// keyed_window: the per-key window step of a partitioned single-stream
+// query, for sm_90a.
+//
+// Replaces, in the JAX package's keyed query step `kstep`
+// (siddhi_tpu/core/planner.py:539-584): the pre-window filters, the
+// gather of each key's events to [Kb, E], `window.process` under vmap over
+// the [K, ...] slab for LengthWindow, TimeWindow and LengthBatchWindow
+// (siddhi_tpu/core/window.py:249, :346, :447), the scatter back that drops
+// padding keys, the flattening of the [Kb, E_out] rows and the least wake.
+// kernels/keyed_window.py states the rows, their order and the slab layout.
+//
+// Design: one thread owns one key row of key_idx and walks that key's E
+// events in batch order, with the key's slab row addressed directly (no
+// gathered copy of the state, no scatter back; a padding row, key_idx ==
+// K, touches nothing).  The filters run as the typed postfix bytecode on
+// each event the thread reads, so the batch's row indices in sel stay
+// valid.  Output: "count, scan, write at offsets".  kw_count stores each
+// key's kept arrivals and its number of output rows and scans them per
+// block; a one-block scan of the block sums gives the total (the host reads
+// it to size the output); kw_write rescans the counts, writes each key's
+// rows at its offset in the key's own order, and moves its slab row in
+// place.  length: a ring (evict the head when full, push the arrival).
+// time: expiring rows and arrivals merge in (ts + t)*2 / ts*2+1 order
+// (a two-pointer merge when both runs are sorted, else each row's rank
+// counted), survivors compact toward the head, arrivals follow, the oldest
+// beyond C drop.  lengthBatch: batches are read where they lie (pending
+// rows, then arrivals) and only the new pending and previous batches are
+// written.
+//
+// Bound: each arrival is read once (its columns, ts, gslot, kind, valid,
+// the sel entry) and each output row written once; of the slab, the rows
+// that leave (evicted, expiring, flushed) are read and the rows that enter
+// written, plus the per-key counters.  Bound by bytes; a hot key serialises
+// its events on one thread.
+#include <climits>
+
+#include "bytecode.cuh"
+#include "rows.cuh"
+
+using namespace siddhi;
+
+namespace {
+
+constexpr int MAX_COLS = 16;
+constexpr int MAX_CODE = 256;
+constexpr int BLOCK = 128;
+constexpr long long NO_WAKEUP = BIG_SEQ;
+
+enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2 };
+
+}  // namespace
+
+// Mirrored field for field by kernels/keyed_window.py (ctypes.Structure).
+struct KeyedPlan {
+  long long Kb, E, K, C, now, t, cap;
+  int mode, ncols, code_len, pad;
+  int col_ty[MAX_COLS];
+  int col_w[MAX_COLS];
+  long long col_def[MAX_COLS];
+  int code[MAX_CODE];
+  const long long* ts;
+  const int* kind;
+  const unsigned char* valid;
+  const int* gslot;
+  const void* col[MAX_COLS];
+  const int* key_idx;
+  const int* sel;
+  long long* s_ts;
+  int* s_gslot;
+  void* s_col[MAX_COLS];
+  int* head;
+  int* count;
+  long long* seq;
+  long long* p_ts;
+  int* p_gslot;
+  void* p_col[MAX_COLS];
+  int* p_count;
+  int* arr;
+  int* n_arr;
+  long long* ocnt;
+  long long* block_sums;
+  long long* out_ts;
+  int* out_kind;
+  long long* out_seq;
+  int* out_gslot;
+  void* out_col[MAX_COLS];
+  long long* wake;
+};
+
+namespace {
+
+// The key this thread owns, or -1 for a padding row / a thread past Kb.
+__device__ __forceinline__ long long key_of(const KeyedPlan& pl, long long r) {
+  if (r >= pl.Kb) return -1;
+  long long k = pl.key_idx[r];
+  return (k >= 0 && k < pl.K) ? k : -1;
+}
+
+// Output row helpers: a row from the batch, from a slab block, or a RESET.
+__device__ __forceinline__ void emit_batch(const KeyedPlan& pl, long long o, long long i, int kind,
+                                           long long ts, long long seq) {
+  if (o >= pl.cap) return;
+  pl.out_ts[o] = ts;
+  pl.out_kind[o] = kind;
+  pl.out_seq[o] = seq;
+  pl.out_gslot[o] = pl.gslot[i];
+  for (int c = 0; c < pl.ncols; ++c) copy_elem(pl.out_col[c], o, pl.col[c], i, pl.col_w[c]);
+}
+
+__device__ __forceinline__ void emit_slab(const KeyedPlan& pl, long long o, const long long* s_ts,
+                                          const int* s_gs, void* const* s_col, long long p, int kind,
+                                          long long ts, long long seq) {
+  if (o >= pl.cap) return;
+  pl.out_ts[o] = ts;
+  pl.out_kind[o] = kind;
+  pl.out_seq[o] = seq;
+  pl.out_gslot[o] = s_gs[p];
+  for (int c = 0; c < pl.ncols; ++c) copy_elem(pl.out_col[c], o, s_col[c], p, pl.col_w[c]);
+}
+
+__device__ __forceinline__ void emit_reset(const KeyedPlan& pl, long long o, long long seq) {
+  if (o >= pl.cap) return;
+  pl.out_ts[o] = pl.now;
+  pl.out_kind[o] = K_RESET;
+  pl.out_seq[o] = seq;
+  pl.out_gslot[o] = -1;
+  for (int c = 0; c < pl.ncols; ++c) store_bits(pl.out_col[c], o, pl.col_def[c], pl.col_w[c]);
+}
+
+// Slab writes: a batch row into slab position p, a slab row moved.
+__device__ __forceinline__ void put_batch(const KeyedPlan& pl, long long* s_ts, int* s_gs,
+                                          void* const* s_col, long long p, long long i) {
+  s_ts[p] = pl.ts[i];
+  s_gs[p] = pl.gslot[i];
+  for (int c = 0; c < pl.ncols; ++c) copy_elem(s_col[c], p, pl.col[c], i, pl.col_w[c]);
+}
+
+__device__ __forceinline__ void move_slab(const KeyedPlan& pl, long long* d_ts, int* d_gs,
+                                          void* const* d_col, long long dp, const long long* s_ts,
+                                          const int* s_gs, void* const* s_col, long long sp) {
+  d_ts[dp] = s_ts[sp];
+  d_gs[dp] = s_gs[sp];
+  for (int c = 0; c < pl.ncols; ++c) copy_elem(d_col[c], dp, s_col[c], sp, pl.col_w[c]);
+}
+
+// Output rows of one key (kernels/keyed_window.py states the counts).
+__device__ long long out_rows(const KeyedPlan& pl, long long k, long long na) {
+  long long C = pl.C;
+  long long cnt = pl.count[k];
+  if (pl.mode == M_LENGTH) {
+    long long ev = cnt + na - C;
+    ev = ev < 0 ? 0 : (ev > na ? na : ev);
+    return na + ev;
+  }
+  if (pl.mode == M_TIME) {
+    long long head = pl.head[k], ne = 0;
+    for (long long i = 0; i < cnt; ++i)
+      if (pl.s_ts[k * C + (head + i) % C] + pl.t <= pl.now) ++ne;
+    return ne + na;
+  }
+  long long nflush = (cnt + na) / C;
+  if (nflush == 0) return 0;
+  return pl.p_count[k] + nflush * (C + 1) + (nflush - 1) * C;
+}
+
+__global__ void kw_count(const KeyedPlan pl) {
+  __shared__ long long sh[2 * BLOCK];
+  long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  long long k = key_of(pl, r);
+  long long rows = 0;
+  if (k >= 0) {
+    int na = 0;
+    int* arr = pl.arr + r * pl.E;
+    for (long long e = 0; e < pl.E; ++e) {
+      long long i = pl.sel[r * pl.E + e];
+      if (i < 0) continue;
+      bool keep = pl.valid[i] && pl.kind[i] == K_CURRENT;
+      if (keep && pl.code_len > 0)
+        keep = eval_bytecode(
+            pl.code, pl.code_len,
+            [&](int c) { return load_slot(pl.col[c], i, pl.col_ty[c]); },
+            [&](int, int) { return 0LL; });
+      if (keep) arr[na++] = (int)i;
+    }
+    pl.n_arr[r] = na;
+    rows = out_rows(pl, k, na);
+  }
+  if (r < pl.Kb) pl.ocnt[r] = rows;
+  long long tot;
+  block_excl_scan<BLOCK>(rows, sh, &tot);
+  if (threadIdx.x == 0) pl.block_sums[blockIdx.x] = tot;
+}
+
+__global__ void kw_init(const KeyedPlan pl) { pl.wake[0] = NO_WAKEUP; }
+
+// ---- length ---------------------------------------------------------------
+__device__ void step_length(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
+  long long C = pl.C, base = k * C;
+  long long head = pl.head[k], cnt = pl.count[k], seq0 = pl.seq[k];
+  long long* s_ts = pl.s_ts + 0;
+  for (int q = 0; q < na; ++q) {
+    long long i = arr[q];
+    if (cnt == C) {
+      long long p = base + head;
+      emit_slab(pl, o++, pl.s_ts, pl.s_gslot, pl.s_col, p, K_EXPIRED, s_ts[p], seq0 + 2LL * q);
+      head = head + 1 == C ? 0 : head + 1;
+      --cnt;
+    }
+    put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + (head + cnt) % C, i);
+    ++cnt;
+    emit_batch(pl, o++, i, K_CURRENT, pl.ts[i], seq0 + 2LL * q + 1);
+  }
+  pl.head[k] = (int)head;
+  pl.count[k] = (int)cnt;
+  pl.seq[k] = seq0 + 2LL * na;
+}
+
+// ---- time -----------------------------------------------------------------
+__device__ void step_time(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
+  long long C = pl.C, base = k * C, t = pl.t, now = pl.now;
+  long long head = pl.head[k], cnt = pl.count[k], seq0 = pl.seq[k];
+  const long long* s_ts = pl.s_ts;
+  // are the expiring rows (along the ring) and the arrivals (in batch
+  // order) each in timestamp order?
+  bool sorted = true;
+  long long last = LLONG_MIN, ne = 0;
+  for (long long i = 0; i < cnt; ++i) {
+    long long e = s_ts[base + (head + i) % C] + t;
+    if (e <= now) {
+      if (e < last) sorted = false;
+      last = e;
+      ++ne;
+    }
+  }
+  last = LLONG_MIN;
+  for (int q = 0; q < na; ++q) {
+    long long a = pl.ts[arr[q]];
+    if (a < last) sorted = false;
+    last = a;
+  }
+  if (sorted) {
+    // two-pointer merge; an expiring row e precedes an arrival a iff
+    // 2e < 2a + 1, i.e. e <= a
+    long long i = 0, rank = 0;
+    int q = 0;
+    while (true) {
+      while (i < cnt && s_ts[base + (head + i) % C] + t > now) ++i;
+      bool have_e = i < cnt, have_a = q < na;
+      if (!have_e && !have_a) break;
+      long long e = have_e ? s_ts[base + (head + i) % C] + t : 0;
+      if (have_e && (!have_a || e <= pl.ts[arr[q]])) {
+        emit_slab(pl, o + rank, s_ts, pl.s_gslot, pl.s_col, base + (head + i) % C, K_EXPIRED, e,
+                  seq0 + rank);
+        ++i;
+      } else {
+        long long ai = arr[q];
+        emit_batch(pl, o + rank, ai, K_CURRENT, pl.ts[ai], seq0 + rank);
+        ++q;
+      }
+      ++rank;
+    }
+  } else {
+    for (long long i = 0; i < cnt; ++i) {
+      long long p = base + (head + i) % C;
+      long long e = s_ts[p] + t;
+      if (e > now) continue;
+      long long rank = 0;
+      for (long long j = 0; j < cnt; ++j) {
+        long long ej = s_ts[base + (head + j) % C] + t;
+        if (ej <= now && (ej < e || (ej == e && j < i))) ++rank;
+      }
+      for (int q = 0; q < na; ++q)
+        if (pl.ts[arr[q]] < e) ++rank;
+      emit_slab(pl, o + rank, s_ts, pl.s_gslot, pl.s_col, p, K_EXPIRED, e, seq0 + rank);
+    }
+    for (int q = 0; q < na; ++q) {
+      long long ai = arr[q], a = pl.ts[ai], rank = 0;
+      for (int b = 0; b < na; ++b) {
+        long long tb = pl.ts[arr[b]];
+        if (tb < a || (tb == a && b < q)) ++rank;
+      }
+      for (long long j = 0; j < cnt; ++j) {
+        long long ej = s_ts[base + (head + j) % C] + t;
+        if (ej <= now && ej <= a) ++rank;
+      }
+      emit_batch(pl, o + rank, ai, K_CURRENT, a, seq0 + rank);
+    }
+  }
+  // survivors compact toward the head in their order; arrivals follow in
+  // emission order; the oldest beyond C drop
+  long long w = 0;
+  for (long long i = 0; i < cnt; ++i) {
+    long long p = base + (head + i) % C;
+    if (pl.s_ts[p] + t <= now) continue;
+    if (w != i)
+      move_slab(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + (head + w) % C, pl.s_ts, pl.s_gslot,
+                pl.s_col, p);
+    ++w;
+  }
+  long long total = w + na;
+  long long drop = total > C ? total - C : 0;
+  for (int q = 0; q < na; ++q) {
+    long long r = q;
+    if (!sorted) {
+      long long a = pl.ts[arr[q]];
+      r = 0;
+      for (int b = 0; b < na; ++b) {
+        long long tb = pl.ts[arr[b]];
+        if (tb < a || (tb == a && b < q)) ++r;
+      }
+    }
+    if (w + r >= drop) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + (head + w + r) % C, arr[q]);
+  }
+  long long head2 = (head + drop) % C, cnt2 = total < C ? total : C;
+  long long wk = NO_WAKEUP;
+  for (long long j = 0; j < cnt2; ++j) {
+    long long e = pl.s_ts[base + (head2 + j) % C] + t;
+    if (e < wk) wk = e;
+  }
+  if (wk < NO_WAKEUP) atomicMin(pl.wake, wk);
+  pl.head[k] = (int)head2;
+  pl.count[k] = (int)cnt2;
+  if (ne + na > 0) pl.seq[k] = seq0 + C + pl.E;
+}
+
+// ---- lengthBatch ----------------------------------------------------------
+// Element i of batch b of this step: a pending row while g = b*n + i is
+// below the pending count, else arrival g - fill0.
+__device__ __forceinline__ void emit_member(const KeyedPlan& pl, long long o, long long base,
+                                            long long fill0, const int* arr, long long g, int kind,
+                                            long long seq) {
+  if (g < fill0) {
+    emit_slab(pl, o, pl.s_ts, pl.s_gslot, pl.s_col, base + g, kind, pl.s_ts[base + g], seq);
+  } else {
+    long long ai = arr[g - fill0];
+    emit_batch(pl, o, ai, kind, pl.ts[ai], seq);
+  }
+}
+
+__device__ void step_batch(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
+  long long n = pl.C, base = k * n;
+  long long fill0 = pl.count[k], pc = pl.p_count[k], seq0 = pl.seq[k];
+  long long nflush = (fill0 + na) / n, span = 2 * n + 2;
+  for (long long f = 0; f < nflush; ++f) {
+    long long sb = seq0 + f * span;
+    if (f == 0) {
+      for (long long i = 0; i < pc; ++i)
+        emit_slab(pl, o++, pl.p_ts, pl.p_gslot, pl.p_col, base + i, K_EXPIRED, pl.p_ts[base + i],
+                  sb + i);
+    } else {
+      for (long long i = 0; i < n; ++i)
+        emit_member(pl, o++, base, fill0, arr, (f - 1) * n + i, K_EXPIRED, sb + i);
+    }
+    emit_reset(pl, o++, sb + n);
+    for (long long i = 0; i < n; ++i)
+      emit_member(pl, o++, base, fill0, arr, f * n + i, K_CURRENT, sb + n + 1 + i);
+  }
+  if (nflush > 0) {
+    // the previous batch becomes batch nflush - 1 (it may read pending rows,
+    // so it moves before the pending batch does)
+    for (long long i = 0; i < n; ++i) {
+      long long g = (nflush - 1) * n + i;
+      if (g < fill0)
+        move_slab(pl, pl.p_ts, pl.p_gslot, pl.p_col, base + i, pl.s_ts, pl.s_gslot, pl.s_col,
+                  base + g);
+      else
+        put_batch(pl, pl.p_ts, pl.p_gslot, pl.p_col, base + i, arr[g - fill0]);
+    }
+    pl.p_count[k] = (int)n;
+  }
+  long long first = nflush * n;      // the first element of the new pending batch
+  for (long long g = first > fill0 ? first : fill0; g < fill0 + na; ++g)
+    put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + (g - first), arr[g - fill0]);
+  pl.count[k] = (int)(fill0 + na - first);
+  pl.seq[k] = seq0 + nflush * span;
+}
+
+__global__ void kw_write(const KeyedPlan pl) {
+  __shared__ long long sh[2 * BLOCK];
+  long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  long long k = key_of(pl, r);
+  long long rows = r < pl.Kb ? pl.ocnt[r] : 0;
+  long long tot;
+  long long o = block_excl_scan<BLOCK>(rows, sh, &tot) + pl.block_sums[blockIdx.x];
+  if (k < 0) return;
+  const int* arr = pl.arr + r * pl.E;
+  int na = pl.n_arr[r];
+  if (pl.mode == M_LENGTH) step_length(pl, k, arr, na, o);
+  else if (pl.mode == M_TIME) step_time(pl, k, arr, na, o);
+  else step_batch(pl, k, arr, na, o);
+}
+
+inline unsigned blocks(long long n) { return (unsigned)(n > 0 ? (n + BLOCK - 1) / BLOCK : 1); }
+
+}  // namespace
+
+extern "C" int siddhi_keyed_plan_size() { return (int)sizeof(KeyedPlan); }
+
+// Count launch on `stream`; returns the launches' cudaError_t (0 = launched).
+extern "C" int siddhi_keyed_count(const KeyedPlan* plan, void* stream) {
+  const KeyedPlan& pl = *plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned nb = blocks(pl.Kb);
+  kw_init<<<1, 1, 0, s>>>(pl);
+  kw_count<<<nb, BLOCK, 0, s>>>(pl);
+  scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.block_sums, (long long)nb);
+  return (int)cudaGetLastError();
+}
+
+// Write launch on `stream` (after the count launch, with the outputs set).
+extern "C" int siddhi_keyed_write(const KeyedPlan* plan, void* stream) {
+  const KeyedPlan& pl = *plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  kw_write<<<blocks(pl.Kb), BLOCK, 0, s>>>(pl);
+  return (int)cudaGetLastError();
+}

@@ -25,6 +25,12 @@ float sums agree with it exactly only where every order is exact.
 Design: a stable counting sort by slot (tile histograms, a scan of the
 (slot, tile) counts, a block-local stable rank) puts each slot's rows
 together in seq order; one thread per (slot, epoch) segment then walks it.
+The sort's [K] histograms limit it to MAX_SLOTS slots.  Run mode
+(`runs=True`) is for rows in which every (slot, epoch) segment is already
+one run of consecutive contributing rows (a keyed window's key-major rows
+grouped by the partition key alone): the contributing rows are compacted
+in row order, with no sort, and any number of slots is taken.  The plain
+version computes the same function either way.
 
 `group_agg_scan` is what the selector calls: CPU tensors run `plain`, CUDA
 tensors launch the kernel.  `launches` / `plain_calls` count them;
@@ -42,6 +48,7 @@ from . import _nvcc
 
 launches = 0
 plain_calls = 0
+runs_launches = 0
 
 MAX_SPECS, MAX_SLOTS, TILE, SCAN_BLOCK = 16, 4096, 1024, 1024
 OP_ADD, OP_MIN, OP_MAX = 0, 1, 2
@@ -50,9 +57,10 @@ _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
 def reset_counts() -> None:
-    global launches, plain_calls
+    global launches, plain_calls, runs_launches
     launches = 0
     plain_calls = 0
+    runs_launches = 0
 
 
 class ScanSpec(NamedTuple):
@@ -86,10 +94,10 @@ def _segmented_scan(vals, segs, op: int):
 
 
 def group_agg_scan(specs: Sequence[ScanSpec], state, vals, sign, kind,
-                   valid, gslot):
+                   valid, gslot, runs: bool = False):
     """(new state per spec [K], running value per spec per row)."""
     if sign.is_cuda:
-        return launch(specs, state, vals, sign, kind, valid, gslot)
+        return launch(specs, state, vals, sign, kind, valid, gslot, runs)
     return plain(specs, state, vals, sign, kind, valid, gslot)
 
 
@@ -146,8 +154,8 @@ class AggPlan(ctypes.Structure):
 
 
 def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
-           gslot):
-    global launches
+           gslot, runs: bool = False):
+    global launches, runs_launches
     dev = sign.device
     B = sign.shape[0]
     if len(specs) > MAX_SPECS:
@@ -162,7 +170,7 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
             raise ValueError(f"group_agg: {name} must be a contiguous [{B}] "
                              f"{d} tensor on {dev}")
     K = state[0].shape[0] if state else 1
-    if K > MAX_SLOTS:
+    if K > MAX_SLOTS and not runs:
         raise NotImplementedError(
             f"group_agg takes at most {MAX_SLOTS} group slots")
     pl = AggPlan()
@@ -186,7 +194,7 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
         pl.new_state[j], pl.res[j] = ns.data_ptr(), r.data_ptr()
     def e(n, d=torch.int32):
         return torch.empty(max(n, 1), dtype=d, device=dev)
-    nh = K * ntiles
+    nh = ntiles + 1 if runs else K * ntiles
     hist = e(nh, torch.int64)
     hist_sums = e((nh + SCAN_BLOCK - 1) // SCAN_BLOCK + 1, torch.int64)
     tile_resets = e(ntiles + 1, torch.int64)
@@ -198,7 +206,9 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
     pl.perm, pl.s_slot, pl.s_epoch = perm.data_ptr(), s_slot.data_ptr(), \
         s_epoch.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _nvcc.launch_plan("group_agg", "siddhi_group_agg",
+    _nvcc.launch_plan("group_agg",
+                      "siddhi_group_agg_runs" if runs else "siddhi_group_agg",
                       "siddhi_agg_plan_size", pl, stream)
     launches += 1
+    runs_launches += int(runs)
     return tuple(new_state), tuple(results)

@@ -1,0 +1,596 @@
+"""Keyed window slab, wrapper and plain version of the `keyed_window` CUDA
+kernel (K11).
+
+The kernel (`siddhi_tpu_torch/csrc/keyed_window.cu`) replaces the window
+half of the JAX package's keyed step `kstep`
+(`siddhi_tpu/core/planner.py:539-584`): the pre-window filters, the
+gather of each key's events to [Kb, E] by `sel_idx`, `window.process`
+under `vmap` over a [K, ...] slab (`LengthWindow`, `TimeWindow`,
+`LengthBatchWindow`, `siddhi_tpu/core/window.py:249`, `:346`, `:447`),
+the scatter back that drops padding keys (`key_idx == K`), the flattening
+of the [Kb, E_out] rows and the least wake over the keys.  Its
+observable rows are the reference's valid rows, in the reference's
+order: key-major (the order of `key_idx`), and within a key the order of
+that key's own window step (each key numbers its rows from its own seq
+counter):
+  * `length(n)`: arrival k of a key evicts the key's oldest row when the
+    window is full; EXPIRED k (seq0 + 2k, the original ts) comes just
+    before CURRENT k (seq0 + 2k + 1); the counter advances by 2E';
+  * `time(t)`: the key's rows with ts + t <= now come out EXPIRED with
+    ts = ts + t, its arrivals CURRENT, in a stable order by
+    (ts + t)*2 for the expiring rows (in buffer order) and ts*2 + 1 for
+    the arrivals (in batch order), numbered seq0 + rank; the arrivals
+    enter the buffer in that order and the oldest rows beyond the key's
+    capacity C drop unemitted, as the reference drops them; the counter
+    advances by C + E (E the batch's per-key width) when anything was
+    emitted; the wake is the least ts + t alive after the step;
+  * `lengthBatch(n)`: each completed batch f of the key emits the previous
+    batch EXPIRED, a RESET row (ts = now, no group slot, default columns)
+    and the batch CURRENT, at seq0 + f(2n+2) + [0, n), + n and
+    + n + 1 + [0, n); the counter advances by (2n+2) per flush.
+E' is the number of the key's events that are valid, CURRENT and pass
+the filters.  Only valid rows come out: the output is exactly the
+emitted rows, so it needs no valid mask.
+
+Slab (`KeyedSlab`): per column a [K, C] tensor (bool columns as int32,
+the bytecode's value slots), per key i32 `head` and `count` and i64
+`seq`.  `length` and `time` keep each key's rows as a ring in arrival
+order: logical row i at physical (head + i) mod C, `count` rows alive.
+`lengthBatch` keeps the pending batch at [0, count) and the previous
+batch in the `p_*` columns at [0, p_count).  A time window's rows store
+no expire_ts: it is always ts + t.  Only alive rows are defined.
+
+`keyed_window_step` is what the keyed planner calls: CPU tensors run
+`plain`, CUDA tensors launch the kernel.  `launches` / `plain_calls`
+count them (one per step), `mode_launches` the launches by mode and
+`tick_launches` those of timer ticks; `reset_counts()` sets them to 0.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from ..core import event as ev
+from ..core.window import BIG_SEQ, NO_WAKEUP, Rows
+from . import _nvcc
+from .filter_bytecode import type_code
+
+launches = 0
+plain_calls = 0
+mode_launches = [0, 0, 0]
+tick_launches = 0
+
+MODE_LENGTH, MODE_TIME, MODE_BATCH = 0, 1, 2
+MAX_COLS, MAX_CODE, BLOCK = 16, 256, 128
+_I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+
+
+def reset_counts() -> None:
+    global launches, plain_calls, tick_launches
+    launches = 0
+    plain_calls = 0
+    mode_launches[:] = [0, 0, 0]
+    tick_launches = 0
+
+
+def slab_dtype(attr_type: str) -> torch.dtype:
+    """A column's dtype in the slab and inside the kernel."""
+    d = ev.dtype_of(attr_type)
+    return torch.int32 if d == torch.bool else d
+
+
+class KeyedSlab:
+    """Every key's window state (see the module docstring)."""
+
+    def __init__(self, mode, types, ts, gslot, cols, head, count, seq,
+                 p_ts=None, p_gslot=None, p_cols=None, p_count=None):
+        self.mode, self.types = mode, list(types)
+        self.ts, self.gslot, self.cols = ts, gslot, tuple(cols)
+        self.head, self.count, self.seq = head, count, seq
+        self.p_ts, self.p_gslot = p_ts, p_gslot
+        self.p_cols = tuple(p_cols) if p_cols is not None else None
+        self.p_count = p_count
+
+    @property
+    def K(self) -> int:
+        return self.ts.shape[0]
+
+    @property
+    def C(self) -> int:
+        return self.ts.shape[1]
+
+    @classmethod
+    def empty(cls, mode: int, types: Sequence[str], K: int, C: int,
+              device) -> "KeyedSlab":
+        def z(d, shape=(K, C)):
+            return torch.zeros(shape, dtype=d, device=device)
+
+        def block():
+            return (z(torch.int64), z(torch.int32),
+                    tuple(z(slab_dtype(t)) for t in types))
+        ts, gslot, cols = block()
+        extra = {}
+        if mode == MODE_BATCH:
+            p_ts, p_gslot, p_cols = block()
+            extra = dict(p_ts=p_ts, p_gslot=p_gslot, p_cols=p_cols,
+                         p_count=z(torch.int32, (K,)))
+        return cls(mode, types, ts, gslot, cols, z(torch.int32, (K,)),
+                   z(torch.int32, (K,)), z(torch.int64, (K,)), **extra)
+
+    def tensors(self):
+        out = [self.ts, self.gslot, *self.cols, self.head, self.count,
+               self.seq]
+        if self.mode == MODE_BATCH:
+            out += [self.p_ts, self.p_gslot, *self.p_cols, self.p_count]
+        return out
+
+    def clone(self) -> "KeyedSlab":
+        def c(x):
+            return None if x is None else x.clone()
+        return KeyedSlab(
+            self.mode, self.types, self.ts.clone(), self.gslot.clone(),
+            [x.clone() for x in self.cols], self.head.clone(),
+            self.count.clone(), self.seq.clone(), c(self.p_ts),
+            c(self.p_gslot),
+            None if self.p_cols is None else [x.clone() for x in self.p_cols],
+            c(self.p_count))
+
+    def copy_from(self, other: "KeyedSlab") -> None:
+        """Take `other`'s contents in place."""
+        for a, b in zip(self.tensors(), other.tensors()):
+            a.copy_(b)
+
+    def logical(self):
+        """Every key's alive rows in window order, for comparisons: a dict
+        of [K, C] tensors (positions past a key's count zeroed) and the
+        per-key counters."""
+        K, C = self.K, self.C
+        ar = torch.arange(C, device=self.ts.device)
+        if self.mode == MODE_BATCH:
+            pos = ar.expand(K, C)
+        else:
+            pos = torch.remainder(self.head.long()[:, None] + ar, C)
+        alive = ar[None, :] < self.count.long()[:, None]
+
+        def view(x):
+            return torch.where(alive, torch.gather(x, 1, pos),
+                               torch.zeros_like(x))
+        out = {"ts": view(self.ts), "gslot": view(self.gslot),
+               "count": self.count, "seq": self.seq}
+        for j, c in enumerate(self.cols):
+            out[f"col{j}"] = view(c)
+        if self.mode == MODE_BATCH:
+            p_alive = ar[None, :] < self.p_count.long()[:, None]
+
+            def pview(x):
+                return torch.where(p_alive, x, torch.zeros_like(x))
+            out.update({"p_ts": pview(self.p_ts),
+                        "p_gslot": pview(self.p_gslot),
+                        "p_count": self.p_count})
+            for j, c in enumerate(self.p_cols):
+                out[f"p_col{j}"] = pview(c)
+        return out
+
+
+def keyed_window_step(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols,
+                      key_idx, sel, now: int, t: int = 0,
+                      tick: bool = False):
+    """One keyed step.  `ts`, `kind`, `valid`, `gslot`, `cols` are the flat
+    batch; `key_idx` [Kb] the window slot of each key row (K for a padding
+    row), `sel` [Kb, E] each key's batch rows (-1 for none); `spec` the
+    query's `FilterSpec`; `t` the time window's length; `tick` marks a
+    timer tick over every key.  Moves the slab in place; returns (Rows of
+    exactly the emitted rows, wake i64[1])."""
+    if ts.is_cuda:
+        return launch(slab, spec, ts, kind, valid, gslot, cols, key_idx,
+                      sel, now, t, tick=tick)
+    return plain(slab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
+                 now, t)
+
+
+# ---------------------------------------------------------------------------
+# the plain version: the reference's vmap step written out over [Kb, ...]
+# ---------------------------------------------------------------------------
+
+def _keep(spec, ts, kind, valid, cols, now):
+    keep = torch.logical_and(valid, kind == ev.CURRENT)
+    env = {spec.scope_key: tuple(cols), "__ts__": ts, "__now__": now,
+           "__kind__": kind}
+    for c in spec.compiled:
+        keep = torch.logical_and(keep, c.fn(env))
+    return keep
+
+
+def _rows(parts, Kb, dev, types):
+    """Concatenate per-key row blocks [(ts, kind, valid, seq, gslot,
+    cols)] along dim 1, order each key's rows by (valid first, seq) and
+    return the valid ones, key-major."""
+    cat = [torch.cat([p[i] for p in parts], 1) for i in range(5)]
+    ccols = [torch.cat([p[5][j] for p in parts], 1)
+             for j in range(len(types))]
+    ts, kind, valid, seq, gs = cat
+    key = torch.where(valid, seq, torch.full_like(seq, BIG_SEQ))
+    order = torch.argsort(key, dim=1, stable=True)
+    take = torch.gather(valid, 1, order).reshape(-1)
+
+    def g(x):
+        return torch.gather(x, 1, order).reshape(-1)[take]
+    n = int(take.sum())
+    out_cols = tuple(g(c) != 0 if ev.dtype_of(t) == torch.bool else g(c)
+                     for c, t in zip(ccols, types))
+    return Rows(ts=g(ts), kind=g(kind),
+                valid=torch.ones(n, dtype=torch.bool, device=dev),
+                seq=g(seq), gslot=g(gs), cols=out_cols)
+
+
+def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
+          now: int, t: int = 0):
+    """The plain PyTorch version (the kernel's reference): batched ops
+    over the gathered [Kb, ...] state, step for step as the reference's
+    `vmap` over `window.process`, then the scatter back."""
+    global plain_calls
+    plain_calls += 1
+    dev = slab.ts.device
+    K, C = slab.K, slab.C
+    Kb, E = sel.shape
+    types = slab.types
+    i64 = torch.int64
+    cols32 = [c.to(torch.int32) if c.dtype == torch.bool else c
+              for c in cols]
+    keep = _keep(spec, ts, kind, valid, cols, now)
+    live = key_idx.long() < K
+    kidx = key_idx.long().clamp(0, K - 1)
+    sidx = sel.long().clamp(min=0)
+    evm = (sel >= 0) & keep[sidx] & live[:, None]
+    # each key's kept events compacted to the front, in batch order
+    order = torch.argsort(torch.logical_not(evm).to(torch.int8), dim=1,
+                          stable=True)
+    src = torch.gather(sidx, 1, order)
+    ncur = evm.sum(1)
+    kk = torch.arange(E, device=dev)[None, :]
+    a_valid = kk < ncur[:, None]
+    a_ts, a_gs = ts[src], gslot[src]
+    a_cols = [c[src] for c in cols32]
+    seq0 = slab.seq[kidx]
+    cnt = slab.count[kidx].long()
+    ar = torch.arange(C, device=dev)[None, :]
+    rows2 = kidx[:, None]
+
+    def full(shape, v, d):
+        return torch.full(shape, v, dtype=d, device=dev)
+
+    if slab.mode in (MODE_LENGTH, MODE_TIME):
+        head = slab.head[kidx].long()
+        lpos = torch.remainder(head[:, None] + ar, C)
+        b_ts = slab.ts[rows2, lpos]
+        b_gs = slab.gslot[rows2, lpos]
+        b_cols = [c[rows2, lpos] for c in slab.cols]
+
+    if slab.mode == MODE_LENGTH:
+        v = cnt[:, None] + kk - C                  # the entry arrival k evicts
+        has_ev = a_valid & (v >= 0)
+        old = v < cnt[:, None]
+        vo = v.clamp(0, C - 1)
+        va = (v - cnt[:, None]).clamp(0, E - 1)
+
+        def evicted(b, a):
+            return torch.where(old, torch.gather(b, 1, vo),
+                               torch.gather(a, 1, va))
+        exp = (evicted(b_ts, a_ts), full((Kb, E), ev.EXPIRED, torch.int32),
+               has_ev, seq0[:, None] + 2 * kk, evicted(b_gs, a_gs),
+               [evicted(b, a) for b, a in zip(b_cols, a_cols)])
+        cur = (a_ts, full((Kb, E), ev.CURRENT, torch.int32), a_valid,
+               seq0[:, None] + 2 * kk + 1, a_gs, a_cols)
+        # EXPIRED k then CURRENT k: interleaved, already in seq order
+        parts = [tuple(torch.stack([x, y], 2).reshape(Kb, 2 * E)
+                       for x, y in zip(exp[:5], cur[:5])) +
+                 ([torch.stack([x, y], 2).reshape(Kb, 2 * E)
+                   for x, y in zip(exp[5], cur[5])],)]
+        out = _rows(parts, Kb, dev, types)
+        total = cnt + ncur
+        start = (total - C).clamp(min=0)
+        w = a_valid & (kk >= ncur[:, None] - C)    # the arrivals that stay
+        dst = torch.remainder(head[:, None] + cnt[:, None] + kk, C)
+        r, d = rows2.expand(Kb, E)[w], dst[w]
+        slab.ts[r, d] = a_ts[w]
+        slab.gslot[r, d] = a_gs[w]
+        for sc, ac in zip(slab.cols, a_cols):
+            sc[r, d] = ac[w]
+        k_live = kidx[live]
+        slab.head[k_live] = torch.remainder(head + start, C)[live].to(
+            torch.int32)
+        slab.count[k_live] = torch.minimum(total, torch.full_like(
+            total, C))[live].to(torch.int32)
+        slab.seq[k_live] = (seq0 + 2 * ncur)[live]
+        return out, full((1,), NO_WAKEUP, i64)
+
+    if slab.mode == MODE_TIME:
+        alive = (ar < cnt[:, None]) & live[:, None]
+        e_old = b_ts + t
+        due = alive & (e_old <= now)
+        big = full((1, 1), BIG_SEQ, i64)
+        keys = torch.cat([torch.where(due, 2 * e_old, big),
+                          torch.where(a_valid, 2 * a_ts + 1, big)], 1)
+        m = torch.argsort(keys, dim=1, stable=True)
+        rank = torch.empty_like(m)
+        rank.scatter_(1, m, torch.arange(C + E, device=dev).expand(Kb, -1)
+                      .contiguous())
+        parts = [(e_old, full((Kb, C), ev.EXPIRED, torch.int32), due,
+                  seq0[:, None] + rank[:, :C], b_gs, b_cols),
+                 (a_ts, full((Kb, E), ev.CURRENT, torch.int32), a_valid,
+                  seq0[:, None] + rank[:, C:], a_gs, a_cols)]
+        out = _rows(parts, Kb, dev, types)
+        # survivors keep their order, then the arrivals in emission order;
+        # the oldest beyond C drop
+        surv = alive & torch.logical_not(due)
+        s_order = torch.argsort(torch.logical_not(surv).to(torch.int8),
+                                dim=1, stable=True)
+        nsurv = surv.sum(1)
+        a_order = torch.argsort(keys[:, C:], dim=1, stable=True)
+        total = nsurv + ncur
+        drop = (total - C).clamp(min=0)
+        ws = (ar < nsurv[:, None]) & (ar >= drop[:, None])
+        ds = torch.remainder(head[:, None] + ar, C)
+        wa = a_valid & (nsurv[:, None] + kk >= drop[:, None])
+        da = torch.remainder(head[:, None] + nsurv[:, None] + kk, C)
+
+        def put(dst_t, b, a):
+            sb = torch.gather(b, 1, s_order)
+            sa = torch.gather(a, 1, a_order)
+            dst_t[rows2.expand(Kb, C)[ws], ds[ws]] = sb[ws]
+            dst_t[rows2.expand(Kb, E)[wa], da[wa]] = sa[wa]
+        new_ts = torch.cat([torch.where(ws, torch.gather(b_ts, 1, s_order),
+                                        big),
+                            torch.where(wa, torch.gather(a_ts, 1, a_order),
+                                        big)], 1)
+        put(slab.ts, b_ts, a_ts)
+        put(slab.gslot, b_gs, a_gs)
+        for sc, b, a in zip(slab.cols, b_cols, a_cols):
+            put(sc, b, a)
+        any_em = due.any(1) | (ncur > 0)
+        k_live = kidx[live]
+        slab.head[k_live] = torch.remainder(head + drop, C)[live].to(
+            torch.int32)
+        slab.count[k_live] = torch.minimum(total, torch.full_like(
+            total, C))[live].to(torch.int32)
+        slab.seq[k_live] = torch.where(any_em, seq0 + C + E, seq0)[live]
+        wk = new_ts.min(1).values + t
+        wk = torch.where(new_ts.min(1).values < BIG_SEQ, wk,
+                         torch.full_like(wk, NO_WAKEUP))
+        wk = wk[live]
+        wake = wk.min().reshape(1) if wk.numel() else full((1,), NO_WAKEUP,
+                                                           i64)
+        return out, torch.minimum(wake, full((1,), NO_WAKEUP, i64))
+
+    # ---- lengthBatch -------------------------------------------------------
+    n = C
+    fill0 = cnt
+    pc = slab.p_count[kidx].long()
+    g = fill0[:, None] + kk
+    bidx = torch.div(g, n, rounding_mode="floor")
+    pos = torch.remainder(g, n)
+    nflush = torch.div(fill0 + ncur, n, rounding_mode="floor")
+    nflush = torch.where(live, nflush, torch.zeros_like(nflush))
+    span = 2 * n + 2
+    p_ts, p_gs = slab.ts[kidx], slab.gslot[kidx]
+    p_cols = [c[kidx] for c in slab.cols]
+    q_ts, q_gs = slab.p_ts[kidx], slab.p_gslot[kidx]
+    q_cols = [c[kidx] for c in slab.p_cols]
+    p_alive = (ar < fill0[:, None]) & live[:, None]
+    q_alive = (ar < pc[:, None]) & live[:, None]
+    nf = nflush[:, None]
+    s0 = seq0[:, None]
+    F = E // n + 1
+    f = torch.arange(F, device=dev)[None, :]
+    cur_k = full((Kb, n), ev.CURRENT, torch.int32)
+    exp_k = full((Kb, n), ev.EXPIRED, torch.int32)
+    parts = [
+        (p_ts, cur_k, p_alive & (nf > 0), s0 + n + 1 + ar, p_gs, p_cols),
+        (a_ts, full((Kb, E), ev.CURRENT, torch.int32), a_valid & (bidx < nf),
+         s0 + bidx * span + n + 1 + pos, a_gs, a_cols),
+        (q_ts, exp_k, q_alive & (nf > 0), s0 + ar, q_gs, q_cols),
+        (p_ts, exp_k, p_alive & (nf > 1), s0 + span + ar, p_gs, p_cols),
+        (a_ts, full((Kb, E), ev.EXPIRED, torch.int32),
+         a_valid & (bidx + 1 < nf), s0 + (bidx + 1) * span + pos, a_gs,
+         a_cols),
+        (full((Kb, F), now, i64), full((Kb, F), ev.RESET, torch.int32),
+         (f < nf) & live[:, None], s0 + f * span + n,
+         full((Kb, F), -1, torch.int32),
+         [full((Kb, F), ev.default_value(tp), slab_dtype(tp))
+          for tp in types])]
+    out = _rows(parts, Kb, dev, types)
+    # prev' = batch nflush - 1 (read before the pending batch moves)
+    wq_p = p_alive & (nf == 1)
+    wq_a = a_valid & (bidx == nf - 1)
+    wp = a_valid & (bidx == nf)
+
+    def put(dst_t, mask, vals, at):
+        dst_t[rows2.expand_as(mask)[mask], at.expand_as(mask)[mask]] = \
+            vals[mask]
+    arb = ar.expand(Kb, n)
+    put(slab.p_ts, wq_p, p_ts, arb)
+    put(slab.p_gslot, wq_p, p_gs, arb)
+    for sc, x in zip(slab.p_cols, p_cols):
+        put(sc, wq_p, x, arb)
+    put(slab.p_ts, wq_a, a_ts, pos)
+    put(slab.p_gslot, wq_a, a_gs, pos)
+    for sc, x in zip(slab.p_cols, a_cols):
+        put(sc, wq_a, x, pos)
+    put(slab.ts, wp, a_ts, pos)
+    put(slab.gslot, wp, a_gs, pos)
+    for sc, x in zip(slab.cols, a_cols):
+        put(sc, wp, x, pos)
+    k_live = kidx[live]
+    slab.count[k_live] = (fill0 + ncur - nflush * n)[live].to(torch.int32)
+    slab.p_count[k_live] = torch.where(nflush > 0, torch.full_like(pc, n),
+                                       pc)[live].to(torch.int32)
+    slab.seq[k_live] = (seq0 + nflush * span)[live]
+    return out, full((1,), NO_WAKEUP, i64)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+class KeyedPlan(ctypes.Structure):
+    """Mirrors `struct KeyedPlan` in csrc/keyed_window.cu."""
+    _fields_ = (
+        [(n, _L) for n in ("Kb", "E", "K", "C", "now", "t", "cap")] +
+        [("mode", _I), ("ncols", _I), ("code_len", _I), ("pad", _I),
+         ("col_ty", _I * MAX_COLS), ("col_w", _I * MAX_COLS),
+         ("col_def", _L * MAX_COLS), ("code", _I * MAX_CODE),
+         ("ts", _P), ("kind", _P), ("valid", _P), ("gslot", _P),
+         ("col", _P * MAX_COLS), ("key_idx", _P), ("sel", _P),
+         ("s_ts", _P), ("s_gslot", _P), ("s_col", _P * MAX_COLS),
+         ("head", _P), ("count", _P), ("seq", _P),
+         ("p_ts", _P), ("p_gslot", _P), ("p_col", _P * MAX_COLS),
+         ("p_count", _P),
+         ("arr", _P), ("n_arr", _P), ("ocnt", _P), ("block_sums", _P),
+         ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
+         ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P)])
+
+
+def _check(x, name, dtype, shape, dev):
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape or \
+            not x.is_contiguous():
+        raise ValueError(
+            f"keyed_window: {name} must be a contiguous {list(shape)} "
+            f"{dtype} tensor on {dev} (got {list(x.shape)} {x.dtype} on "
+            f"{x.device})")
+
+
+def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
+            sel, now: int, t: int = 0):
+    """Check the inputs and fill a plan with the batch, the slab and the
+    scratch; returns (plan, a dict of the tensors the launches read,
+    which must stay referenced until both are queued: "sums" ends with
+    the total, "wake" is the least wake)."""
+    if spec.bytecode is None:
+        raise NotImplementedError(
+            "this filter plan has no bytecode (planned for another device)")
+    dev = slab.ts.device
+    B = ts.shape[0]
+    Kb, E = sel.shape
+    K, C = slab.K, slab.C
+    if len(slab.types) > MAX_COLS or len(cols) != len(slab.types):
+        raise ValueError("keyed_window: column count")
+    _check(ts, "ts", torch.int64, (B,), dev)
+    _check(kind, "kind", torch.int32, (B,), dev)
+    _check(valid, "valid", torch.bool, (B,), dev)
+    _check(gslot, "gslot", torch.int32, (B,), dev)
+    _check(key_idx, "key_idx", torch.int32, (Kb,), dev)
+    _check(sel, "sel", torch.int32, (Kb, E), dev)
+    pl = KeyedPlan()
+    pl.Kb, pl.E, pl.K, pl.C = Kb, E, K, C
+    pl.now, pl.t, pl.cap = int(now), int(t), 0
+    pl.mode, pl.ncols = slab.mode, len(cols)
+    pl.code_len = len(spec.bytecode)
+    for j, w in enumerate(spec.bytecode):
+        pl.code[j] = w
+    keep = []
+    for j, (c, tp) in enumerate(zip(cols, slab.types)):
+        d = slab_dtype(tp)
+        if c.dtype == torch.bool:
+            c = c.to(torch.int32)
+            keep.append(c)
+        _check(c, f"column {j}", d, (B,), dev)
+        sc = slab.cols[j]
+        _check(sc, f"slab column {j}", d, (K, C), dev)
+        pl.col_ty[j] = type_code(tp)
+        pl.col_w[j] = torch.empty((), dtype=d).element_size()
+        pl.col_def[j] = _nvcc.slot_bits(ev.default_value(tp), d)
+        pl.col[j], pl.s_col[j] = c.data_ptr(), sc.data_ptr()
+        if slab.mode == MODE_BATCH:
+            pl.p_col[j] = slab.p_cols[j].data_ptr()
+    _check(slab.ts, "slab ts", torch.int64, (K, C), dev)
+    _check(slab.gslot, "slab gslot", torch.int32, (K, C), dev)
+    for x, name, d in ((slab.head, "head", torch.int32),
+                       (slab.count, "count", torch.int32),
+                       (slab.seq, "seq", torch.int64)):
+        _check(x, name, d, (K,), dev)
+    pl.ts, pl.kind, pl.valid, pl.gslot = (ts.data_ptr(), kind.data_ptr(),
+                                          valid.data_ptr(), gslot.data_ptr())
+    pl.key_idx, pl.sel = key_idx.data_ptr(), sel.data_ptr()
+    pl.s_ts, pl.s_gslot = slab.ts.data_ptr(), slab.gslot.data_ptr()
+    pl.head, pl.count, pl.seq = (slab.head.data_ptr(),
+                                 slab.count.data_ptr(), slab.seq.data_ptr())
+    if slab.mode == MODE_BATCH:
+        pl.p_ts, pl.p_gslot = slab.p_ts.data_ptr(), slab.p_gslot.data_ptr()
+        pl.p_count = slab.p_count.data_ptr()
+    nb = max(1, (Kb + BLOCK - 1) // BLOCK)
+    arr = torch.empty(max(Kb * E, 1), dtype=torch.int32, device=dev)
+    n_arr = torch.empty(max(Kb, 1), dtype=torch.int32, device=dev)
+    ocnt = torch.empty(max(Kb, 1), dtype=torch.int64, device=dev)
+    block_sums = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+    wake = torch.empty(1, dtype=torch.int64, device=dev)
+    pl.arr, pl.n_arr, pl.ocnt = arr.data_ptr(), n_arr.data_ptr(), \
+        ocnt.data_ptr()
+    pl.block_sums, pl.wake = block_sums.data_ptr(), wake.data_ptr()
+    bufs = {"cols": keep, "sums": block_sums, "wake": wake,
+            "scratch": (arr, n_arr, ocnt),
+            "inputs": (ts, kind, valid, gslot, key_idx, sel)}
+    return pl, bufs
+
+
+def count(pl: KeyedPlan, dev) -> None:
+    """The first launch: each key's kept arrivals and output rows, their
+    scan; the total lands in block_sums[nb]."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _nvcc.launch_plan("keyed_window", "siddhi_keyed_count",
+                      "siddhi_keyed_plan_size", pl, stream)
+
+
+def alloc_out(pl: KeyedPlan, types, n: int, dev) -> Rows:
+    """Output rows for `n` emitted rows, their pointers set in `pl`."""
+    def e(d):
+        return torch.empty(max(n, 1), dtype=d, device=dev)
+    out = Rows(ts=e(torch.int64), kind=e(torch.int32), valid=None,
+               seq=e(torch.int64), gslot=e(torch.int32),
+               cols=tuple(e(slab_dtype(tp)) for tp in types))
+    pl.cap = n
+    pl.out_ts, pl.out_kind = out.ts.data_ptr(), out.kind.data_ptr()
+    pl.out_seq, pl.out_gslot = out.seq.data_ptr(), out.gslot.data_ptr()
+    for j, c in enumerate(out.cols):
+        pl.out_col[j] = c.data_ptr()
+    return out
+
+
+def write(pl: KeyedPlan, dev) -> None:
+    """The second launch: rows written at their keys' offsets, the slab
+    moved in place, the least wake."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _nvcc.launch_plan("keyed_window", "siddhi_keyed_write",
+                      "siddhi_keyed_plan_size", pl, stream)
+
+
+def finish(out: Rows, types, n: int) -> Rows:
+    dev = out.ts.device
+    return Rows(ts=out.ts[:n], kind=out.kind[:n],
+                valid=torch.ones(n, dtype=torch.bool, device=dev),
+                seq=out.seq[:n], gslot=out.gslot[:n],
+                cols=tuple(c[:n] != 0 if ev.dtype_of(tp) == torch.bool
+                           else c[:n] for c, tp in zip(out.cols, types)))
+
+
+def launch(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
+           sel, now: int, t: int = 0, n_out: Optional[int] = None,
+           tick: bool = False):
+    """Launch the step on the current stream: the count launch, one fetch
+    of the total (it sizes the output), the write launch.  `n_out`, when
+    the caller knows the total, skips the fetch (CUDA-graph timing)."""
+    global launches, tick_launches
+    dev = slab.ts.device
+    pl, bufs = prepare(slab, spec, ts, kind, valid, gslot, cols, key_idx,
+                       sel, now, t)
+    count(pl, dev)
+    n = int(bufs["sums"][-1]) if n_out is None else n_out
+    out = alloc_out(pl, slab.types, n, dev)
+    write(pl, dev)
+    launches += 1
+    mode_launches[slab.mode] += 1
+    tick_launches += int(tick)
+    wake = bufs["wake"]
+    del bufs
+    return finish(out, slab.types, n), wake
