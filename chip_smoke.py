@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the twelve kernels of siddhi_tpu_torch/csrc/ with
+  2. build: compiles the fifteen kernels of siddhi_tpu_torch/csrc/ with
      nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -135,7 +135,33 @@ Phases (any failure exits nonzero):
      K4 (and K1 for the windowless sample) launched, no plain version
      called;
  24. R1: each output rate form over a single-stream, a join, a pattern
-     and a partitioned query, the JAX package's events.
+     and a partitioned query, the JAX package's events;
+ 25. in_probe (K14: the hash-set build and the lookup) against its plain
+     version (the reference's dense compare) at IN1's shape (a 2^20-row
+     LONG column, 131,072 probes) and at edge values (int nulls, a LONG
+     operand over an INT column, -0.0 / +0.0 and NaN, bools, the set's
+     own EMPTY key, an all-invalid table); the bytecode's IN inside K1
+     (IN1's filter), pattern_step (the flagship with e1 probing a
+     65,536-row table, 2^20 keys, 131,072 keys x 4 events), K8 (S1-wide
+     with a probe) and K11 (P1 with a probe) against their plain
+     versions; time_batch (K12) against its plain version at W1's shape
+     (two 2^21-row buffers: filling steps, a first flush, a steady flush
+     of 2,097,153 rows, out-of-order timestamps, TIMER flushes with and
+     without a pending slice) and order_limit (K13) on the steady flush's
+     rows (avgTemp desc limit 10, a two-key order, -0.0 / NaN and int and
+     long nulls under ASC and DESC, an empty step); all exact;
+ 26. their times (CUDA-graph replays) beside their plain versions,
+     bounds and library calls (torch.isin, torch.sort(stable=True)), and
+     each OP_IN kernel beside the same kernel without the probe;
+ 27. W1 (the query guide's Limit & Offset example: timeBatch(10 min),
+     4,000 groups, avg desc, limit 10; 8 filling, 32 timed and 8 checked
+     sends of 131,072 readings, the checked flush's delivered rows held
+     to a numpy model of the reference) and IN1 (T1's upsert with the
+     guide's `in` condition at 2^20 rows: every send's delivered trades
+     held to numpy's isin over the table model), each with ev/s, per-send
+     p50 / p99 and a profiled sweep;
+ 28. J1G (J1 with group by L.symbol and sum(R.qty): every delivered row
+     holds its symbol's running sum in emission order).
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -706,6 +732,7 @@ def main() -> None:
     records += pattern_phases(torch, np, dev)
     records += table_phases(torch, np, dev)
     records += partition_phases(torch, np, dev)
+    records += slice7_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -5544,6 +5571,925 @@ _R1_WANT = [[(1300, [(1000, ('a', 1)), (1300, ('b', 2))], []),
  [(2000, [(1300, ('b', 6))], []), (3000, [(2500, ('c', 6))], [])]]
 P3_CASES = [spec + (want,) for spec, want in zip(_P3_SPECS, _P3_WANT)]
 R1_CASES = [spec + (want,) for spec, want in zip(_R1_SPECS, _R1_WANT)]
+
+# ---------------------------------------------------------------------------
+# phases 25-28: `in Table` (K14 in_probe and the bytecode's IN inside K1,
+# K11, pattern_step and K8), timeBatch (K12 time_batch), order by / limit /
+# offset (K13 order_limit), join group by (K4 over composed slots)
+# ---------------------------------------------------------------------------
+
+W1_KEYS = 4000            # W1's devices: 4,000 (room, device) groups
+W1_B = 1 << 17            # W1's readings a send
+W1_DT = 75_000            # event time a send: 8 sends a 10-minute slice
+W1_FILL, W1_TIMED, W1_CHECK = 8, 32, 8
+IN1_FILL, IN1_TIMED = 8, 16
+WATCH_ROWS = 1 << 16      # the Watch table of the OP_IN comparisons
+J1G_TIMED = 16
+
+
+def slice7_modules():
+    from siddhi_tpu_torch.kernels import (filter_compact, group_agg,
+                                          in_probe, order_limit, table_match,
+                                          table_write, time_batch)
+    return {"in_probe": in_probe, "filter_compact": filter_compact,
+            "time_batch": time_batch, "group_agg": group_agg,
+            "order_limit": order_limit, "table_match": table_match,
+            "table_write": table_write}
+
+
+class ProbeTable:
+    """A table's first column and valid flags as K14 sees them (the
+    TableRuntime attributes its wrapper reads)."""
+
+    def __init__(self, col, valid):
+        self.cols, self.valid = (col,), valid
+        self.version, self.in_sets = 0, {}
+
+
+def probe_cases(torch, np, dev):
+    """(label, column, valid, operand): IN1's shape, then the edge values:
+    int nulls and a LONG operand over an INT column, -0.0 / +0.0 and NaN,
+    a float operand over an INT column, bools, the hash set's own EMPTY
+    key, an all-invalid table."""
+    rng = np.random.default_rng(71)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    C = T1_ROWS
+    out = [("IN1 LONG ids", t(rng.permutation(C).astype(np.int64)),
+            t(rng.random(C) < 0.97),
+            t(rng.integers(0, C + T1_MISS, T1_B).astype(np.int64)))]
+    icol = rng.integers(-50, 50, 4096).astype(np.int32)
+    icol[::7] = np.iinfo(np.int32).min
+    iops = rng.integers(-60, 60, 65536).astype(np.int64)
+    iops[::11] = np.iinfo(np.int32).min
+    iops[::13] = np.iinfo(np.int64).min
+    iops[::17] = 2 ** 31 + 3
+    out.append(("INT column, LONG operand, nulls", t(icol),
+                t(rng.random(4096) < 0.8), t(iops)))
+    fvals = np.array([0.0, -0.0, np.nan, 1.5, -2.25, np.inf, 3.0],
+                     np.float32)
+    out.append(("FLOAT column with -0.0 / NaN", t(rng.choice(fvals, 2048)),
+                t(rng.random(2048) < 0.9), t(rng.choice(fvals, 65536))))
+    out.append(("INT column, FLOAT operand", t(icol), t(np.ones(4096, bool)),
+                t(rng.choice(np.array([3.0, 3.5, -4.0, np.nan], np.float32),
+                             65536))))
+    out.append(("BOOL", t(rng.random(64) < 0.5), t(rng.random(64) < 0.5),
+                t(rng.random(65536) < 0.5)))
+    empty_key = np.array([0xa5a5a5a5a5a5a5a5], np.uint64).view(np.int64)
+    ecol = np.concatenate([empty_key, rng.integers(0, 99, 1023)])
+    eops = rng.integers(0, 120, 65536).astype(np.int64)
+    eops[::5] = empty_key[0]
+    out.append(("the set's EMPTY key as a value", t(ecol),
+                t(np.ones(1024, bool)), t(eops)))
+    out.append(("all rows invalid", t(icol), t(np.zeros(4096, bool)),
+                t(iops)))
+    return out
+
+
+def compare_in_probe(torch, np, dev):
+    """Phase 25a: K14 (build + lookup) against its plain version on every
+    probe case; its time at IN1's shape beside the plain dense compare and
+    torch.isin.  Returns (err, timing)."""
+    from siddhi_tpu_torch.kernels import in_probe as ip
+    err = 0.0
+    timing = None
+    for label, col, valid, vals in probe_cases(torch, np, dev):
+        tab = ip.InTab(ProbeTable(col, valid))
+        got = ip.lookup(vals, tab)
+        want = ip.plain(vals, col, valid)
+        torch.cuda.synchronize()
+        err = max(err, float_err(torch, got, want, f"K14 {label}"))
+        print(f"compare: K14 {label}: lookup == plain over {vals.shape[0]} "
+              f"probes of {col.shape[0]} rows ({int(want.sum())} found)")
+        if timing is None:
+            timing = (tab, vals)
+    tab, vals = timing
+    ct = ip.compare_code(vals.dtype, tab.col0.dtype)
+
+    def build():
+        tab.table.version += 1
+        ip.device_set(tab, ct)
+    b_ms = graph_ms(torch, build, 20)
+    l_ms = graph_ms(torch, lambda: ip.lookup(vals, tab), 20)
+    plain_ms = event_timer(torch, lambda: ip.plain(vals, tab.col0,
+                                                   tab.valid), 2)
+    live = tab.col0[tab.valid]
+    lib_ms = event_timer(torch, lambda: torch.isin(vals, live), 10)
+    C, B = tab.col0.shape[0], vals.shape[0]
+    nslots = ip.device_set(tab, ct).slots.shape[0]
+    res = {"ms": b_ms + l_ms, "build_ms": b_ms, "lookup_ms": l_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "shape": f"{C}-row table, {B} probes"}
+    # the function's bytes: the column and valid flags once, each operand
+    # once, each result once (the set is the kernel's own)
+    res.update(bound(C * (8 + 1) + B * (8 + 1)))
+    print(f"timing K14 at IN1's shape ({res['shape']}): build {b_ms:.4f} ms "
+          f"({nslots} slots) + lookup {l_ms:.4f} ms = {res['ms']:.4f} ms; "
+          f"plain dense compare {plain_ms:.3f} ms; torch.isin over the "
+          f"valid rows {lib_ms:.4f} ms; bound {res['bound_ms']:.5f} ms by "
+          f"{res['bound_by']} ({res['bytes']} bytes)")
+    return err, res
+
+
+def watch_rt(dev, ql, rows, rng, np):
+    """A runtime whose Watch table holds `rows` ids (every other id of
+    [0, 2 * rows)), written through its WatchIn stream."""
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    rt.start()
+    ids = rng.permutation(np.arange(0, 2 * rows, 2, dtype=np.int64))
+    rt.get_input_handler("WatchIn").send_columns(
+        [ids], timestamps=np.full(rows, 1, np.int64))
+    return rt
+
+
+WATCH_DEF = """
+define stream WatchIn (k long);
+@capacity(rows='65536')
+define table Watch (k long);
+from WatchIn insert into Watch;
+"""
+
+
+def compare_op_in(torch, np, dev):
+    """Phase 25b: the bytecode's IN inside K1 (IN1's filter), pattern_step
+    (the flagship with e1 probing a 65,536-row table at the 2^20-key slab,
+    131,072 keys x 4 events), K8 (S1-wide with a probe) and K11 (P1 with
+    a probe) against their plain versions, exact; each timed beside the
+    same kernel on a query without the probe.  Returns the largest
+    difference (0.0, or the comparison fails)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import filter_compact as fc
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    rng = np.random.default_rng(73)
+    err, times = 0.0, []
+
+    # -- K1 at IN1's shape ----------------------------------------------------
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(IN1_QL)
+    rt.start()
+    perm = rng.permutation(T1_ROWS).astype(np.int64)
+    for i in range(IN1_FILL):
+        ids = perm[i * T1_B:(i + 1) * T1_B]
+        rt.get_input_handler("StockUpdate").send_columns(
+            [ids, rng.random(T1_B, np.float32),
+             rng.integers(0, 1 << 40, T1_B).astype(np.int64)],
+            timestamps=np.full(T1_B, 1000 + i, np.int64))
+    p = rt.query_runtimes["known"].planned
+    spec = p.filter_spec.bind(rt.in_probe_tables(p.in_deps))
+    trades = [rng.integers(0, T1_ROWS + T1_MISS, T1_B).astype(np.int64),
+              rng.random(T1_B, np.float32)]
+    ts, kind, valid, gslot, dcols = staged_rows(
+        torch, np, dev, p.in_schema.types, np.full(T1_B, 5000), T1_B,
+        cols=trades)
+    ra, na = fc.launch(spec, ts, kind, valid, gslot, dcols)
+    rb, nb = fc.plain(spec, ts, kind, valid, gslot, dcols, 0)
+    torch.cuda.synchronize()
+    err = max(err, rows_err(torch, ra, rb, "K1 IN1 filter", full=True),
+              float_err(torch, na, nb, "K1 IN1 count"))
+    n_in = int(na)
+    want = int(np.isin(trades[0], perm[:IN1_FILL * T1_B]).sum())
+    if n_in != want:
+        fail(f"K1 with IN: {n_in} trades kept, numpy {want}")
+    plain_spec = fc.FilterSpec(spec.types, [], [], spec.scope_key)
+    k_in = graph_ms(torch, lambda: fc.launch(spec, ts, kind, valid, gslot,
+                                             dcols), 20)
+    k_no = graph_ms(torch, lambda: fc.launch(plain_spec, ts, kind, valid,
+                                             gslot, dcols), 20)
+    times.append(f"K1 with `symbol in StockTable` at IN1's shape "
+                  f"({T1_B} trades, a 2^20-row table, {n_in} kept) "
+                  f"{k_in:.4f} ms; the same K1 with no filter "
+                  f"{k_no:.4f} ms")
+    print(f"compare: K1 with IN == plain at IN1's shape ({n_in} of {T1_B} "
+          f"kept, = numpy)")
+    del rt
+
+    # -- pattern_step: the flagship with e1 probing Watch ----------------------
+    K = N_KEYS
+    rtp = watch_rt(dev, FLAGSHIP_IN_QL.format(n_keys=K), WATCH_ROWS, rng, np)
+    planned = rtp.query_runtimes["flagship"].planned
+    in_tabs = rtp.in_probe_tables(planned.exec.in_deps)
+    a_state = planned.init_state(K)[0]
+    b_state = clone_state(a_state)
+    for it, (dense, E) in enumerate(((True, 4), (False, 4), (True, 4),
+                                     (True, 1))):
+        cols, tsw, _, sel, key_ref, now = random_step_inputs(
+            rng, torch, dev, planned.in_schemas["TradeStream"].types, K,
+            BATCH, E, dense)
+        cols = (cols[0] % (4 * WATCH_ROWS),) + cols[1:]
+        step = (planned.dense_steps_w if dense else planned.steps_w)[
+            "TradeStream"]
+        a = step.plain(a_state, (), cols, *tsw, sel, key_ref, now,
+                       in_tabs=in_tabs)
+        b = step.kernel(b_state, (), cols, *tsw, sel, key_ref, now,
+                        in_tabs=in_tabs)
+        torch.cuda.synchronize()
+        e, hdr = compare_steps(torch, a, b, f"pattern_step with IN step {it}",
+                               True)
+        err = max(err, e)
+        a_state, b_state = a[0], b[0]
+        print(f"compare: pattern_step with IN step {it} "
+              f"({'dense' if dense else 'gather'}, E={E}) == plain, header "
+              f"{hdr}")
+        if it == 0:
+            t_args = (cols, tsw, sel, key_ref, now)
+    base = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        FLAGSHIP_QL.format(n_keys=K)).query_runtimes["flagship"].planned
+    cols, tsw, sel, key_ref, now = t_args
+    saved = clone_state(b_state)
+
+    def restore():
+        restore_into(b_state, saved)
+    kp_in = planned.dense_steps_w["TradeStream"].kernel_plan
+    kp_no = base.dense_steps_w["TradeStream"].kernel_plan
+    t_in = event_timer(torch, lambda: ps.launch(
+        kp_in, b_state, cols, None, tsw, sel, key_ref, now, True,
+        in_tabs=in_tabs), 10, restore)
+    t_no = event_timer(torch, lambda: ps.launch(
+        kp_no, b_state, cols, None, tsw, sel, key_ref, now, True), 10,
+        restore)
+    times.append(f"pattern_step with e1 probing a {WATCH_ROWS}-row table "
+                  f"(2^20-key slab, {BATCH} keys x 4 events) {t_in:.4f} ms; "
+                  f"the flagship's step without it {t_no:.4f} ms")
+    del rtp, a_state, b_state, saved, base
+    torch.cuda.empty_cache()
+
+    # -- K8: S1-wide with e1 probing Watch ---------------------------------------
+    rtb = watch_rt(dev, S1_IN_QL, WATCH_ROWS, rng, np)
+    planned = rtb.query_runtimes["q"].planned
+    in_tabs = rtb.in_probe_tables(planned.exec.in_deps)
+    if not planned.block:
+        fail("S1-wide with IN: not planned onto the block NFA")
+    state = planned.init_state(1)[0]
+    for i in range(2):
+        cols, tsv = s1_send(np, rng, i, S1W_B)
+        cols[0] = rng.integers(0, 4 * WATCH_ROWS, S1W_B).astype(np.int64)
+        args = block_inputs(torch, np, dev, cols, tsv)
+        step = planned.steps_w["S"]
+        a = step.plain(clone_state(state), (), *args, in_tabs=in_tabs)
+        b = step.kernel(state, (), *args, in_tabs=in_tabs)
+        torch.cuda.synchronize()
+        e, hdr = compare_steps(torch, a, b, f"K8 with IN step {i}", False)
+        err = max(err, e)
+        state = b[0]
+        print(f"compare: K8 with IN (S1-wide) step {i} == plain, header "
+              f"{hdr}")
+    saved = clone_state(state)
+    from siddhi_tpu_torch.kernels import block_nfa
+    base = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        S1_QL.format(rows=65536)).query_runtimes["q"].planned
+    bargs = args
+
+    def restore_b():
+        restore_into(state, saved)
+    t_in = event_timer(torch, lambda: block_nfa.launch(
+        planned.steps_w["S"].kernel_plan, state, bargs[0], None,
+        bargs[1:3], bargs[3], bargs[5], in_tabs), 5, restore_b)
+    t_no = event_timer(torch, lambda: block_nfa.launch(
+        base.steps_w["S"].kernel_plan, state, bargs[0], None, bargs[1:3],
+        bargs[3], bargs[5]), 5, restore_b)
+    times.append(f"K8 with e1 probing a {WATCH_ROWS}-row table (S1-wide, "
+                  f"{S1W_B} events) {t_in:.4f} ms; S1-wide's K8 without it "
+                  f"{t_no:.4f} ms")
+    del rtb
+
+    # -- K11: P1 with a probe before the window ----------------------------------
+    rtk = watch_rt(dev, P1_IN_QL, WATCH_ROWS, rng, np)
+    planned = rtk.query_runtimes["p1"].planned
+    spec = planned.filter_spec.bind(rtk.in_probe_tables(planned.in_deps))
+    slabs = [planned.init_state()[0] for _ in range(2)]
+    for i in range(3):
+        cols, tsv = p1_send(np, rng, i)
+        cols[0] = cols[0] % (4 * WATCH_ROWS)
+        args = keyed_args(torch, np, dev, planned, cols, tsv)
+        ra, wa = kw.launch(slabs[0], spec, *args, tick=False)
+        rb, wb = kw.plain(slabs[1], spec, *args)
+        torch.cuda.synchronize()
+        err = max(err, rows_err(torch, ra, rb, f"K11 with IN step {i}",
+                                full=True),
+                  float_err(torch, wa, wb, f"K11 with IN step {i} wake"),
+                  slab_err(torch, slabs[0], slabs[1],
+                           f"K11 with IN step {i}"))
+        print(f"compare: K11 with IN (P1 shape) step {i} == plain, "
+              f"{int(ra.ts.shape[0])} rows")
+    from siddhi_tpu_torch.kernels.filter_compact import FilterSpec
+    no_spec = FilterSpec(spec.types, [], [], spec.scope_key)
+    n_out = int(ra.ts.shape[0])
+    t_in = event_timer(torch, lambda: kw.launch(slabs[0], spec, *args,
+                                                n_out=None), 5)
+    t_no = event_timer(torch, lambda: kw.launch(slabs[0], no_spec, *args,
+                                                n_out=None), 5)
+    times.append(f"K11 with `deviceID in Watch` at P1's shape ({P1_B} "
+                  f"events, about {n_out} rows out) {t_in:.4f} ms; the same "
+                  f"step without the probe {t_no:.4f} ms (each launch "
+                  f"includes K11's fetch of its output size)")
+    del rtk, slabs
+    torch.cuda.empty_cache()
+    for line in times:
+        print(f"timing OP_IN: {line}")
+    return err
+
+
+def tb_arrivals(torch, np, dev, types, cols, ts):
+    """A batch compacted as filter_compact leaves it (every row kept),
+    with its count: K12's arrivals."""
+    n = len(ts)
+    tsd = torch.from_numpy(np.asarray(ts, np.int64)).to(dev)
+    from siddhi_tpu_torch.core.window import Rows
+    dcols = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                  for c in cols)
+    return Rows(ts=tsd, kind=torch.zeros(n, dtype=torch.int32, device=dev),
+                valid=torch.ones(n, dtype=torch.bool, device=dev),
+                seq=torch.zeros(n, dtype=torch.int64, device=dev),
+                gslot=torch.from_numpy((np.asarray(cols[0]) % W1_KEYS)
+                                       .astype(np.int32)).to(dev),
+                cols=dcols), torch.tensor([n], dtype=torch.int64,
+                                           device=dev)
+
+
+def tb_state_err(torch, a, b, what):
+    err = float_err(torch, a.meta, b.meta, f"{what} meta")
+    for sa, sb in zip(a.slices(), b.slices()):
+        err = max(err, float_err(torch, sa[0], sb[0], f"{what} ts"),
+                  float_err(torch, sa[1], sb[1], f"{what} gslot"))
+        for x, y in zip(sa[2], sb[2]):
+            err = max(err, float_err(torch, x, y, f"{what} col"))
+    return err
+
+
+def w1_send(np, rng, i):
+    """W1's readings of send i: devices uniform over 4,000, roomNo =
+    deviceID mod 100, temperatures uniform over [15, 35), event time
+    spread over the send's 75 s."""
+    ids = rng.integers(0, W1_KEYS, W1_B).astype(np.int64)
+    temp = (15 + 20 * rng.random(W1_B)).astype(np.float32)
+    ts = 1000 + W1_DT * i + np.arange(W1_B, dtype=np.int64) * W1_DT // W1_B
+    return [ids, (ids % 100).astype(np.int32), temp], ts
+
+
+def compare_time_batch_order(torch, np, dev):
+    """Phase 25c: K12 against its plain version at W1's shape (two
+    buffers of 2^21 rows) on filling steps, a flush step with a full
+    previous slice, a step with out-of-order timestamps, a TIMER step
+    that flushes, one that flushes an empty slice; then K13 at the
+    flush's 2,097,153 rows (avgTemp desc limit 10, and the two-key order
+    of the query guide's Order By example) and at keys holding -0.0,
+    NaN and int nulls, every output exact.  Returns (err12, err13,
+    timing)."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.core.window import BatchFacts
+    from siddhi_tpu_torch.kernels import order_limit as ol
+    from siddhi_tpu_torch.kernels import time_batch as tb
+    schema = w1_schema()
+    C = 1 << 21
+    states = [tb.TimeBatchState.empty(schema, C, dev) for _ in range(2)]
+    rng = np.random.default_rng(79)
+    err12, timing = 0.0, {}
+    t = 600_000
+    steps = [("fill", i) for i in range(8)] + [("flush", 8)] + \
+        [("fill", i) for i in range(9, 16)] + [("flush", 16)] + \
+        [("fill", i) for i in range(17, 23)] + [("ooo", 23), ("ooo", 24),
+                                                ("timer", 0), ("timer", 1)]
+    last_flush = None
+    for j, (what, i) in enumerate(steps):
+        if what == "timer":
+            now = 1000 + W1_DT * 25 + t * (i + 1)
+            cols = [np.zeros(8, np.int64), np.zeros(8, np.int32),
+                    np.zeros(8, np.float32)]
+            ts = np.full(8, now, np.int64)
+            arr, n_arr = tb_arrivals(torch, np, dev, schema.types, cols, ts)
+            n_arr.zero_()
+            cur = np.zeros(0, np.int64)
+        else:
+            cols, ts = w1_send(np, rng, i)
+            if what == "ooo":
+                    ts = ts[rng.permutation(W1_B)] - rng.integers(
+                    0, 2 * W1_DT, W1_B)
+            now = int(ts.max())
+            arr, n_arr = tb_arrivals(torch, np, dev, schema.types, cols, ts)
+            cur = ts
+        facts = BatchFacts(cur, len(ts))
+        cap = [tb.out_capacity(s, cur, now, t, True) for s in states]
+        if cap[0] != cap[1]:
+            fail("K12: host sizes differ")
+        before = states[0].clone()
+        ra, wa = tb.launch(states[0], arr, n_arr, now, t, cap[0])
+        rb, wb = tb.plain(states[1], arr, n_arr, now, t, cap[1])
+        torch.cuda.synchronize()
+        label = f"K12 step {j} ({what})"
+        err12 = max(err12, rows_err(torch, ra, rb, label, full=True),
+                    float_err(torch, wa, wb, f"{label} wake"),
+                    tb_state_err(torch, states[0], states[1], label))
+        n_rows = int(ra.valid.sum())
+        print(f"compare: {label}: K12 == plain, {n_rows} rows of "
+              f"{cap[0]}, wake {[int(x) for x in wb]}")
+        if what == "flush" and i == 16:      # a steady flush: both slices
+            timing["flush"] = (before, arr, n_arr, now, cap[0], n_rows)
+            last_flush = ra
+        if what == "fill" and i == 9:
+            timing["fill"] = (before, arr, n_arr, now, cap[0], 0)
+        del facts
+    # -- K13 on the flush's rows -----------------------------------------------
+    err13 = 0.0
+    out_rows = last_flush
+    nflush = out_rows.ts.shape[0]
+    avg = torch.from_numpy(
+        (15 + 20 * rng.random(nflush)).astype(np.float32)).to(dev)
+    avg[rng.random(nflush) < 0.3] = 25.0        # ties
+    room = torch.from_numpy(rng.integers(0, 100, nflush).astype(np.int32)) \
+        .to(dev)
+    kinds = out_rows.kind
+    valid = out_rows.valid & (kinds != ev.RESET)
+    cols = (avg, room, out_rows.cols[0])
+    cases = [("avgTemp desc limit 10", [(avg, True)], 0, 10),
+             ("avgTemp, roomNo desc", [(avg, False), (room, True)], 0, None)]
+    spec_vals = np.array([0.0, -0.0, np.nan, 1.0, -1.0, np.inf, -np.inf],
+                         np.float32)
+    f_sp = torch.from_numpy(rng.choice(spec_vals, nflush)).to(dev)
+    i_sp = torch.from_numpy(rng.choice(np.array(
+        [np.iinfo(np.int32).min, 0, 1, -1, 7], np.int32), nflush)).to(dev)
+    l_sp = torch.from_numpy(rng.choice(np.array(
+        [np.iinfo(np.int64).min, 0, 5, -5], np.int64), nflush)).to(dev)
+    b_sp = torch.from_numpy(rng.random(nflush) < 0.5).to(dev)
+    cases += [("-0.0 / NaN desc, int nulls", [(f_sp, True), (i_sp, False)],
+               3, 1000),
+              ("int nulls desc, long nulls, bool", [(i_sp, True),
+                                                    (l_sp, False),
+                                                    (b_sp, True)], 0, None)]
+    for label, keys, lo, lim in cases:
+        a = ol.launch(keys, lo, lim, out_rows.ts, kinds, valid, cols)
+        b = ol.plain(keys, lo, lim, out_rows.ts, kinds, valid, cols)
+        torch.cuda.synchronize()
+        for x, y, f in zip(a[:3], b[:3], ("ts", "kind", "valid")):
+            err13 = max(err13, float_err(torch, x, y, f"K13 {label} {f}"))
+        for j, (x, y) in enumerate(zip(a[3], b[3])):
+            err13 = max(err13, float_err(torch, x, y, f"K13 {label} col {j}"))
+        print(f"compare: K13 ({label}) == plain over {nflush} rows, "
+              f"{int(a[2].sum())} kept")
+    empty = ol.launch([(avg[:0], True)], 0, 10, out_rows.ts[:0], kinds[:0],
+                      valid[:0], tuple(c[:0] for c in cols))
+    if empty[0].shape[0] != 0:
+        fail("K13 on no rows")
+    timing["order"] = (cases[0][1], out_rows.ts, kinds, valid, cols, avg)
+    return err12, err13, timing
+
+
+def w1_schema():
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.query_api.definition import StreamDefinition
+    d = StreamDefinition("TempStream")
+    for n, tp in (("deviceID", "LONG"), ("roomNo", "INT"),
+                  ("temp", "DOUBLE")):
+        d.attribute(n, tp)
+    return ev.Schema(d, ev.StringInterner())
+
+
+def time_time_batch_order(torch, np, dev, timing):
+    """Phase 25d: K12 at W1's flush and at a filling step (from restored
+    states), K13 at the flush's rows, beside their plain versions, their
+    bounds and, for K13, torch.sort(stable=True) of the key."""
+    from siddhi_tpu_torch.kernels import order_limit as ol
+    from siddhi_tpu_torch.kernels import time_batch as tb
+    res = {}
+    t = 600_000
+    for what in ("flush", "fill"):
+        before, arr, n_arr, now, cap, n_rows = timing[what]
+        st = before.clone()
+
+        def restore(_s=st, _b=before):
+            _s.meta.copy_(_b.meta)
+        k_ms = graph_ms(torch, lambda: tb.launch(st, arr, n_arr, now, t,
+                                                 cap), 10, restore)
+        p_ms = event_timer(torch, lambda: tb.plain(st, arr, n_arr, now, t,
+                                                   cap), 3, restore)
+        B = arr.ts.shape[0]
+        _, _, pf, qf = (int(x) for x in before.meta[:4].tolist())
+        row = 8 + 4 + 8 + 4 + 4            # ts, slot, the three columns
+        out_row = 8 + 4 + 1 + 8 + 4 + 16   # ts, kind, valid, seq, slot, cols
+        # the slices read once, the arrivals read and written once, each
+        # output row written once
+        nbytes = 2 * B * row + ((qf + pf) * row + n_rows * out_row
+                                if what == "flush" else 0)
+        r = {"ms": k_ms, "plain_ms": p_ms, "rows": n_rows,
+             "shape": f"{what} step, {B} arrivals, {n_rows} rows out"}
+        r.update(bound(nbytes))
+        res[what] = r
+        print(f"timing K12 ({r['shape']}): {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']} ({r['bytes']} bytes)")
+    keys, ts, kinds, valid, cols, avg = timing["order"]
+    k_ms = graph_ms(torch, lambda: ol.launch(keys, 0, 10, ts, kinds, valid,
+                                             cols), 10)
+    p_ms = event_timer(torch, lambda: ol.plain(keys, 0, 10, ts, kinds,
+                                               valid, cols), 3)
+    lib_ms = event_timer(torch, lambda: torch.sort(-avg, stable=True), 10)
+    n = int(valid.sum())
+    # the valid flags and each valid row's key once, the kept rows read and
+    # written (ts, kind, valid, three columns)
+    r = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+         "shape": f"W1's flush, {n} valid rows, one f32 key, limit 10"}
+    N = valid.shape[0]
+    r.update(bound(N + n * 4 + 2 * 10 * (8 + 4 + 1 + 4 + 4 + 8)))
+    res["order"] = r
+    print(f"timing K13 ({r['shape']}): {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+          f"torch.sort(stable=True) of the key {lib_ms:.4f} ms, bound "
+          f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} bytes)")
+    return res
+
+
+class W1Model:
+    """The reference's semantics for W1, in numpy: per device, f32 running
+    sums and int counts in row order (K4 scans each segment left to
+    right), the flush's EXPIRED rows (the previous slice, subtracting)
+    before its RESET, its CURRENT rows (the flushed slice, from zero)
+    after; avg = f32(sum) / f32(count); a stable sort by -avg (NaN last);
+    the first 10 rows, CURRENT and EXPIRED alike; then the CURRENT cut."""
+
+    def __init__(self, np):
+        self.np = np
+        self.s = np.zeros(W1_KEYS, np.float32)
+        self.c = np.zeros(W1_KEYS, np.int64)
+
+    def _run(self, ids, temp, sign):
+        np = self.np
+        order = np.argsort(ids, kind="stable")
+        sid, st = ids[order], temp[order] * np.float32(sign)
+        bounds = np.flatnonzero(np.diff(sid)) + 1
+        s_out = np.empty(ids.shape[0], np.float32)
+        c_out = np.empty(ids.shape[0], np.int64)
+        for seg in np.split(np.arange(ids.shape[0]), bounds):
+            if not seg.size:
+                continue
+            g = sid[seg[0]]
+            acc = np.add.accumulate(np.concatenate(
+                [[self.s[g]], st[seg]]).astype(np.float32), dtype=np.float32)
+            s_out[order[seg]] = acc[1:]
+            c_out[order[seg]] = self.c[g] + sign * np.arange(1, seg.size + 1)
+            self.s[g] = acc[-1]
+            self.c[g] = c_out[order[seg[-1]]]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            avg = np.where(c_out != 0, s_out / c_out.astype(np.float32),
+                           np.float32(np.nan)).astype(np.float32)
+        return avg
+
+    def slice_totals(self, ids, temp):
+        """The carry a flushed slice leaves: its CURRENT rows from zero."""
+        self.s[:] = 0
+        self.c[:] = 0
+        self._run(ids, temp, 1)
+
+    def flush(self, prev, cur):
+        """The delivered rows of a flush: (avgTemp, roomNo, deviceID)."""
+        np = self.np
+        a_exp = self._run(prev[0], prev[1], -1)
+        self.s[:] = 0
+        self.c[:] = 0
+        a_cur = self._run(cur[0], cur[1], 1)
+        avg = np.concatenate([a_exp, a_cur])
+        kind = np.concatenate([np.ones(a_exp.shape[0], np.int32),
+                               np.zeros(a_cur.shape[0], np.int32)])
+        ids = np.concatenate([prev[0], cur[0]])
+        key = np.where(np.isnan(avg), np.inf, -avg.astype(np.float64))
+        top = np.argsort(key, kind="stable")[:10]
+        top = top[kind[top] == 0]
+        return [(float(avg[r]), int(ids[r] % 100), int(ids[r]))
+                for r in top]
+
+
+def run_w1(torch, np, dev, mods):
+    """W1: the query guide's Limit & Offset example at 4,000 devices,
+    131,072 readings a send, 75 s of event time a send: 8 filling sends,
+    32 timed (4 flushes, each of 1,048,576 EXPIRED rows, a RESET row and
+    1,048,576 CURRENT rows through K4 and K13), 8 checked, whose flush's
+    delivered rows are held to W1Model.  Returns (K12, K13 launches)."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(W1_QL)
+    got = []
+    rt.add_callback("w1", lambda ts, i, o: got.append(
+        [tuple(e.data) for e in i or []]))
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    rng = np.random.default_rng(83)
+    n = W1_FILL + W1_TIMED + W1_CHECK
+    sends = [w1_send(np, rng, i) for i in range(n)]
+    for m in mods.values():
+        m.reset_counts()
+    lat, t0 = [], None
+    for i, (cols, ts) in enumerate(sends):
+        if i == W1_FILL:
+            rt.flush()
+            t0 = time.perf_counter()
+        if i == W1_FILL + W1_TIMED:
+            rt.flush()
+            wall = time.perf_counter() - t0
+            got.clear()
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if W1_FILL <= i < W1_FILL + W1_TIMED:
+            lat.append(time.perf_counter() - tb)
+    rt.flush()
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("W1", launches, plain, ("time_batch", "group_agg",
+                                          "order_limit"))
+    # the checked flush (at send W1_FILL + W1_TIMED) expires the slice of
+    # the 8 sends before the 8 it flushes
+    k = W1_FILL + W1_TIMED
+    flushed = [np.concatenate([sends[j][0][c] for j in range(k - 8, k)])
+               for c in (0, 2)]
+    prev = [np.concatenate([sends[j][0][c] for j in range(k - 16, k - 8)])
+            for c in (0, 2)]
+    model = W1Model(np)
+    model.slice_totals(*prev)
+    want = model.flush(prev, flushed)
+    rows = [r for b in got for r in b]
+    if len(got) != 1 or rows != want:
+        fail(f"W1: the checked flush delivered {rows[:12]} in {len(got)} "
+             f"batches; the model {want}")
+    lat_line(np, "W1 (timeBatch(10 min), 4,000 groups, avg desc limit 10)",
+             lat, wall, W1_B * W1_TIMED, W1_B * (8 + 4 + 4 + 8 + 4))
+    print(f"W1 check: the checked flush's {len(want)} delivered rows (of the "
+          f"top 10 over its 1,048,576 EXPIRED and 1,048,576 CURRENT rows) "
+          f"equal the numpy model; launches {launches}")
+    extra = [w1_send(np, rng, n + j) for j in range(8)]
+
+    def send(b):
+        h.send_columns(*extra[b])
+    profile = device_profile(torch, rt, 8, send)
+    profile_line("W1", 8, profile)
+    mgr.shutdown()
+    return launches
+
+
+def run_in1(torch, np, dev, mods):
+    """IN1: T1's upsert app with the query guide's `in` condition as a
+    second query: 8 filling sends, then 16 timed sends of 131,072 upserts
+    and 131,072 trades (ids over 2^20 + 2^16); every send's delivered
+    symbols equal np.isin over the numpy table model.  The table changes
+    every send, so K14 rebuilds its set every send.  Returns K14's
+    launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(IN1_QL)
+    got = []
+    rt.add_batch_callback("known", lambda ts, b: got.append(b))
+    rt.start()
+    rng = np.random.default_rng(89)
+    perm = rng.permutation(T1_ROWS).astype(np.int64)
+    present = np.zeros(T1_ROWS + T1_MISS, bool)
+    for m in mods.values():
+        m.reset_counts()
+    lat, t0, checked = [], None, 0
+    for i in range(IN1_FILL + IN1_TIMED):
+        if i == IN1_FILL:
+            rt.flush()
+            t0 = time.perf_counter()
+        ts = np.full(T1_B, 1000 + 10 * i, np.int64)
+        ids = perm[i * T1_B:(i + 1) * T1_B] if i < IN1_FILL else \
+            rng.integers(0, T1_ROWS, T1_B).astype(np.int64)
+        up = [ids, rng.random(T1_B, np.float32),
+              rng.integers(0, 1 << 40, T1_B).astype(np.int64)]
+        trades = [rng.integers(0, T1_ROWS + T1_MISS, T1_B).astype(np.int64),
+                  rng.random(T1_B, np.float32)]
+        tb = time.perf_counter()
+        rt.get_input_handler("StockUpdate").send_columns(up, timestamps=ts)
+        rt.get_input_handler("TradeStream").send_columns(trades,
+                                                         timestamps=ts + 1)
+        if i >= IN1_FILL:
+            lat.append(time.perf_counter() - tb)
+        present[ids] = True
+        b = got[-1] if got else None
+        sym = np.asarray(b["cols"]["symbol"])[b["valid"]] if b else \
+            np.zeros(0, np.int64)
+        want = trades[0][present[trades[0]]]
+        if not np.array_equal(sym, want):
+            fail(f"IN1 send {i}: {sym.shape[0]} delivered symbols, numpy "
+                 f"{want.shape[0]}")
+        checked += 1
+        got.clear()
+    rt.flush()
+    wall = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("IN1", launches, plain, ("in_probe", "filter_compact",
+                                           "table_match", "table_write"))
+    lat_line(np, "IN1 (upserts + `symbol in StockTable` at 2^20 rows)", lat,
+             wall, 2 * T1_B * IN1_TIMED, 2 * T1_B * (8 + 4 + 8 + 8))
+    print(f"IN1 check: every one of {checked} sends delivered exactly the "
+          f"trades numpy's isin finds in the table model; K14 launches "
+          f"{launches['in_probe']}")
+    extra = []
+    for j in range(4):
+        ts = np.full(T1_B, 9000 + j, np.int64)
+        extra.append(([rng.integers(0, T1_ROWS, T1_B).astype(np.int64),
+                       rng.random(T1_B, np.float32),
+                       rng.integers(0, 1 << 40, T1_B).astype(np.int64)],
+                      [rng.integers(0, T1_ROWS + T1_MISS, T1_B)
+                       .astype(np.int64), rng.random(T1_B, np.float32)],
+                      ts))
+
+    def send(b):
+        up, tr, ts = extra[b]
+        rt.get_input_handler("StockUpdate").send_columns(up, timestamps=ts)
+        rt.get_input_handler("TradeStream").send_columns(tr,
+                                                         timestamps=ts + 1)
+    profile = device_profile(torch, rt, 4, send)
+    profile_line("IN1", 4, profile)
+    mgr.shutdown()
+    return launches
+
+
+def run_j1g(torch, np, dev, mods):
+    """J1G: J1's windowed join with group by L.symbol and sum(R.qty) (the
+    joined row's R.qty projected beside it): 1 warm + 16 timed sends of
+    8,192 events a side; every delivered row, CURRENT and EXPIRED, holds
+    its symbol's running sum over the join's rows in emission order
+    (+qty CURRENT, -qty EXPIRED; null when no row is left), as numpy
+    accumulates it."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(J1G_QL)
+    got = []
+    rt.add_batch_callback("q", lambda ts, b: got.append(b))
+    rt.start()
+    sends = j1_sends(np, np.random.default_rng(97), 1 + J1G_TIMED)
+    for m in mods.values():
+        m.reset_counts()
+    lat, t0 = [], None
+    run = np.zeros(J1_SYM, np.int64)
+    cnt = np.zeros(J1_SYM, np.int64)
+    rows = 0
+    for i, (stream, cols, ts) in enumerate(sends):
+        if i == 2:
+            rt.flush()
+            t0 = time.perf_counter()
+        tb = time.perf_counter()
+        rt.get_input_handler(stream).send_columns(cols, timestamps=ts)
+        if i >= 2:
+            if stream == "L":
+                lat.append(time.perf_counter() - tb)
+            else:
+                lat[-1] += time.perf_counter() - tb
+    rt.flush()
+    wall = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    for b in got:
+        v = np.asarray(b["valid"])
+        kind = np.asarray(b["kind"])[v]
+        s = np.asarray(b["cols"]["s"])[v]
+        q = np.asarray(b["cols"]["q"])[v].astype(np.int64)
+        total = np.asarray(b["cols"]["total"])[v]
+        sign = np.where(kind == 0, 1, -1)
+        want = np.empty_like(total)
+        for r in range(s.shape[0]):
+            run[s[r]] += sign[r] * q[r]
+            cnt[s[r]] += sign[r]
+            # sum is null once the window retracts every contribution
+            want[r] = run[s[r]] if cnt[s[r]] else np.iinfo(np.int64).min
+        if not np.array_equal(total, want):
+            bad = int(np.flatnonzero(total != want)[0])
+            fail(f"J1G: row {rows + bad}: total {total[bad]}, numpy "
+                 f"{want[bad]}")
+        rows += s.shape[0]
+    check_launched("J1G", launches, plain, ("group_agg", "join_probe",
+                                           "filter_compact"))
+    lat_line(np, "J1G (J1 with group by L.symbol, sum(R.qty))", lat, wall,
+             2 * J1_B * J1G_TIMED, 2 * J1_B * (8 + 4 + 8 + 4 + 4))
+    print(f"J1G check: all {rows} delivered rows hold their symbol's "
+          f"running sum in emission order")
+    mgr.shutdown()
+    return launches
+
+
+def slice7_phases(torch, np, dev):
+    """Phases 25-28: K14 and the IN opcode in K1 / pattern_step / K8 /
+    K11 against their plain versions; K12 and K13 against theirs; their
+    times; W1, IN1 and J1G through SiddhiManager.  Returns the K12, K13
+    and K14 records."""
+    from siddhi_tpu_torch.kernels import join_probe
+    mods = slice7_modules()
+    err14, t14 = compare_in_probe(torch, np, dev)
+    err_in = compare_op_in(torch, np, dev)
+    torch.cuda.empty_cache()
+    err12, err13, timing = compare_time_batch_order(torch, np, dev)
+    t12 = time_time_batch_order(torch, np, dev, timing)
+    del timing
+    torch.cuda.empty_cache()
+    l_w1 = run_w1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    l_in1 = run_in1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    l_j1g = run_j1g(torch, np, dev, dict(mods, join_probe=join_probe))
+    print(f"compare: OP_IN inside K1, pattern_step, K8 and K11 == plain, "
+          f"max_abs_err {err_in}")
+    records = []
+    for name, t, n, err, rep, lib in (
+            ("time_batch", t12["flush"], l_w1["time_batch"], err12,
+             "siddhi_tpu/core/window.py:602", None),
+            ("order_limit", t12["order"], l_w1["order_limit"], err13,
+             "siddhi_tpu/core/selector.py:545", t12["order"]["library_ms"]),
+            ("in_probe", t14, l_in1["in_probe"], max(err14, err_in),
+             "siddhi_tpu/core/planner.py:471", t14["library_ms"])):
+        why = "" if lib is not None else \
+            "; library_ms null: no single PyTorch call computes a " \
+            "tumbling-slice flush"
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} "
+              f"bytes), plain {t['plain_ms']:.4f} ms, launches on the main "
+              f"path {n}{why}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{name}.cu", "replaces": rep,
+            "launches": n, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": lib})
+    print(f"J1G: K4 launches {l_j1g['group_agg']}")
+    return records
+
+
+# the Siddhi 5.1 query guide's Limit & Offset example with its TempStream,
+# playback and a window that holds a 10-minute slice
+W1_QL = """
+@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+@capacity(window='2097152')
+@info(name='w1')
+from TempStream#window.timeBatch(10 min)
+select avg(temp) as avgTemp, roomNo, deviceID
+group by roomNo, deviceID
+order by avgTemp desc
+limit 10
+insert into HighestAvgTempStream;
+"""
+
+# T1's upsert (the query guide's Table section) and its `in` condition
+IN1_QL = """
+define stream StockUpdate (symbol long, price float, volume long);
+define stream TradeStream (symbol long, price float);
+@PrimaryKey('symbol') @capacity(rows='1048576')
+define table StockTable (symbol long, price float, volume long);
+@info(name='upsert') from StockUpdate select symbol, price, volume
+update or insert into StockTable on StockTable.symbol == symbol;
+@info(name='known') from TradeStream[symbol in StockTable]
+select symbol, price insert into KnownTrades;
+"""
+
+# bench.py:261's J1 with group by (and the joined row's R.qty, so each
+# delivered row shows its contribution)
+J1G_QL = """
+@app:playback
+define stream L (symbol long, price float);
+define stream R (symbol long, qty int);
+@info(name='q')
+from L#window.length(128) join R#window.length(128)
+  on L.symbol == R.symbol
+select L.symbol as s, R.qty as q, sum(R.qty) as total
+group by L.symbol
+insert all events into Out;
+"""
+
+FLAGSHIP_IN_QL = "@app:playback" + WATCH_DEF + """
+define stream TradeStream (key long, price float, volume int);
+partition with (key of TradeStream)
+begin
+  @capacity(keys='{n_keys}', slots='4')
+  @emit(rows='2')
+  @info(name='flagship')
+  from every e1=TradeStream[volume == 1 and key in Watch]
+       -> e2=TradeStream[volume == 2 and price >= e1.price]
+       -> e3=TradeStream[volume == 3]
+       -> e4=TradeStream[volume == 4 and price >= e3.price]
+  select e1.key as k, e1.price as p1, e2.price as p2, e4.price as p4
+  insert into Matches;
+end;
+"""
+
+S1_IN_QL = "@app:playback" + WATCH_DEF + """
+define stream S (symbol long, price float, volume int);
+@capacity(keys='1', slots='8')
+@emit(rows='65536')
+@info(name='q')
+from every e1=S[volume == 1 and symbol in Watch],
+  e2=S[volume == 2 and price > e1.price]
+  within 1 sec
+select e1.price as p1, e2.price as p2
+insert into M;
+"""
+
+P1_IN_QL = "@app:playback" + WATCH_DEF.replace(
+    "(k long)", "(deviceID long)") + """
+define stream TempStream (deviceID long, roomNo int, temp double);
+partition with (deviceID of TempStream)
+begin
+  @capacity(keys='1048576')
+  @info(name='p1')
+  from TempStream[deviceID in Watch]#window.length(10)
+  select roomNo, deviceID, max(temp) as maxTemp
+  insert into DeviceTempStream;
+end;
+"""
+
 
 if __name__ == "__main__":
     main()

@@ -138,6 +138,29 @@ def batch_state_from_jax(pend, prev, seq, schema: ev.Schema, n: int,
     return st
 
 
+def time_batch_state_from_jax(pend, prev, start, seq, schema: ev.Schema,
+                              C: int, device=None):
+    """A JAX TimeBatchWindow state (pending Buffer, previous Buffer, slice
+    start, seq) -> the port's TimeBatchState, its host mirror exact."""
+    from .kernels.time_batch import TimeBatchState
+    device = _dev(device)
+    st = TimeBatchState.empty(schema, C, device)
+    fills = []
+    for b, buf in enumerate((pend, prev)):
+        alive = np.asarray(buf.alive)
+        n = int(alive.sum())
+        if not alive[:n].all():
+            raise ValueError("a timeBatch buffer is not compact")
+        fills.append(n)
+        for dst, src in ((st.b_ts[b], buf.ts), (st.b_gslot[b], buf.gslot),
+                         *zip(st.b_cols[b], buf.cols)):
+            dst.copy_(_t(src, device, dst.dtype))
+    st.meta.copy_(torch.tensor([int(start), int(seq), fills[0], fills[1],
+                                0, 0], dtype=torch.int64))
+    st.h_start, st.h_pend, st.h_prev = int(start), fills[0], fills[1]
+    return st
+
+
 def _keyed_blocks(wslab, mode):
     """The JAX keyed state as ([(Buffer, alive count [K])...], seq [K]):
     one block for `length` / `time`, (pending, previous) for
@@ -237,7 +260,8 @@ def query_state_from_jax(planned, jax_state, device=None):
     """A JAX single-stream QueryRuntime.state (window_state,
     selector_state) -> the port's, for the port's plan of the same
     query."""
-    from .core.window import LengthBatchWindow, NoWindow, TimeWindow
+    from .core.window import LengthBatchWindow, NoWindow, TimeBatchWindow, \
+        TimeWindow
     wstate, sel_state = jax_state
     w = planned.window
     device = _dev(device)
@@ -256,6 +280,10 @@ def query_state_from_jax(planned, jax_state, device=None):
         port_w = batch_state_from_jax(wstate[0], wstate[1],
                                       np.asarray(wstate[2]),
                                       planned.in_schema, w.length, device)
+    elif isinstance(w, TimeBatchWindow):
+        port_w = time_batch_state_from_jax(
+            wstate[0], wstate[1], np.asarray(wstate[2]),
+            np.asarray(wstate[3]), planned.in_schema, w.capacity, device)
     else:
         raise NotImplementedError(f"no state conversion for {w.name}")
     return port_w, selector_state_from_jax(sel_state, device)
@@ -292,6 +320,7 @@ def table_from_jax(jt, table) -> None:
         dst.copy_(_t(src, dev, dst.dtype))
     table.ts.copy_(_t(jt.ts, dev, torch.int64))
     table.valid.copy_(_t(jt.valid, dev, torch.bool))
+    table.version += 1
     table._append_ptr = int(jt._append_ptr)
     table._free_rows = [int(x) for x in jt._free_rows]
     if jt.allocator is not None:

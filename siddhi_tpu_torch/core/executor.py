@@ -15,7 +15,8 @@ Semantics kept from the reference package, operator by operator:
 
 Of the function calls only `coalesce` is ported (reference:
 `siddhi_tpu/core/executor.py:377`); the other built-ins, the extension
-SPI, script functions and `in Table` raise `CompileError`.
+SPI and script functions raise `CompileError`.  `x in Table` reads the
+probe the step puts in the env (`env["__in__:<table>"]`).
 """
 from __future__ import annotations
 
@@ -282,8 +283,13 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
             "BOOL")
 
     if isinstance(expr, In):
-        raise CompileError(
-            "'in Table' conditions are not yet ported (ROADMAP A10)")
+        # the step's env carries one probe per table dependency
+        # (`kernels.in_probe.probe_env`), as the reference's does
+        inner = compile_expression(expr.expression, scope)
+
+        def fn(env, _i=inner.fn, _src=expr.source_id):
+            return env["__in__:" + _src](_i(env))
+        return CompiledExpr(fn, "BOOL")
 
     if isinstance(expr, AttributeFunction) and not expr.namespace and \
             expr.name == "coalesce" and expr.parameters:

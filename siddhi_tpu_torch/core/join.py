@@ -24,7 +24,9 @@ per stage and on the CPU each kernel's plain version:
      (grid) or, on the table fast path, the host's [B, K] index
      candidates (`JoinQueryRuntime._table_probe` in `core/runtime.py`);
   5. the torch projection: gathers of the columns by the index rows, the
-     in-band nulls of unmatched rows, the select expressions.
+     in-band nulls of unmatched rows, the select expressions; with group
+     by or aggregators the joined rows' composed group slots (each
+     side's slot rides its window) and K4 `group_agg` first.
 The step returns the output rows and one header, i64[6] = [n_valid,
 n_current, n_dropped, lane overflow, wake, rows a time side's expire bound
 missed], which the runtime fetches once.
@@ -42,7 +44,8 @@ here, where only the join uses them: `window_handler` (:133),
 (:399) and `table_probe_attrs_of` (:468).
 
 Not ported, raising at plan time: named-window and aggregation sides
-(ROADMAP A11), group by and aggregators in a join (A10), `@fuse` /
+(ROADMAP A11), `in Table` in the ON condition, select or having
+(B-probe), distinctCount / unionSet (B14), `@fuse` /
 `@async` / `@pipeline` / `@serve` (A12, raised by the runtime), mesh
 placement (A14) and the restore path (A13).  On CUDA a join whose
 conditions or columns do not fit the kernels raises NotImplementedError
@@ -58,7 +61,7 @@ import numpy as np
 import torch
 
 from ..query_api.definition import StreamDefinition
-from ..query_api.expression import AttributeFunction, walk
+from ..query_api.expression import AttributeFunction, In, walk
 from ..query_api.query import Filter, JoinInputStream, Query, \
     SingleInputStream, Window
 from . import event as ev
@@ -267,6 +270,14 @@ class PlannedJoinQuery:
     stream_key_pos: int = -1     # stream-side key column
     # (left, right) kernels.join_probe.ProbeSpec of each triggering side
     probe_specs: Tuple[Any, Any] = (None, None)
+    # group by and aggregators: each side's group attributes, slot
+    # allocator and slot count (the joined row's slot composes the two)
+    aggregates: bool = False
+    # the tables the side filters' `in` probes read
+    in_deps: List[str] = dataclasses.field(default_factory=list)
+    group_positions: Tuple[List[int], List[int]] = ([], [])
+    group_allocators: Tuple[Any, Any] = (None, None)
+    group_slots: Tuple[int, int] = (0, 0)
 
 
 def _probe_schema(schema: ev.Schema, col: str = JSLOT_COL) -> ev.Schema:
@@ -357,9 +368,10 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                     interner, batch_capacity: int = 512,
                     window_capacity_hint: int = 512,
                     device: Optional[torch.device] = None,
-                    tables: Optional[Dict[str, Any]] = None
+                    tables: Optional[Dict[str, Any]] = None,
+                    in_cols: Optional[Dict[str, str]] = None
                     ) -> PlannedJoinQuery:
-    from ..kernels.filter_bytecode import AND, compile_filter
+    from ..kernels.filter_bytecode import AND, InKeys, compile_filter
     from ..kernels.filter_compact import FilterSpec
     from ..kernels.join_probe import ProbeSpec
     device = torch.device(device) if device is not None \
@@ -415,6 +427,7 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
         fscope.interner = interner
         fscope.add_source(side.key, side.schema)
         code = [] if cuda and not side.is_table else None
+        ik = InKeys(dict(in_cols or {}))
         for h in sis.stream_handlers:
             if isinstance(h, Filter):
                 c = compile_expression(h.expression, fscope)
@@ -424,13 +437,23 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                 if code is not None:
                     try:
                         code += compile_filter(h.expression, fscope,
-                                               side.key, {})
+                                               side.key, {}, in_keys=ik)
                     except CompileError as exc:
                         raise _kernel_subset(name, str(exc)) from exc
                     if len(side.pre_filters) > 1:
                         code.append(AND)
         side.fspec = FilterSpec(side.win_schema.types, side.pre_filters,
-                                code, side.key)
+                                code, side.key, ik.keys)
+    # a side's filters probe tables through K1; the reference ships no
+    # probe into its join step, so `in` elsewhere in a join fails there at
+    # the first event, and here at plan time
+    rest = [jis.on_compare, query.selector.having_expression] + [
+        oa.expression for oa in query.selector.selection_list]
+    if any(isinstance(n, In) for e in rest if e is not None
+           for n in walk(e)):
+        raise CompileError(
+            f"query {name!r}: `in Table` in a join's ON condition, select "
+            f"or having is not ported (ROADMAP B-probe)")
 
     on = None
     if jis.on_compare is not None:
@@ -489,12 +512,36 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
         ([selector.having_expression]
          if selector.having_expression is not None else [])
         for n in walk(e))
-    if selector.group_by_list or uses_agg:
-        raise NotImplementedError(
-            f"query {name!r}: group by and aggregators in a join are not "
-            f"yet ported (ROADMAP A10)")
+    # group by in joins (reference `siddhi_tpu/core/join.py:389-418`):
+    # group attributes resolve to per-side slots at ingestion; the joined
+    # row's slot is gl * (Kr + 1) + gr, an unmatched outer row taking the
+    # other side's null group K_other.  The selector (K4, sort mode) then
+    # aggregates over the joined rows, and having runs after it.
+    aggregates = bool(selector.group_by_list) or uses_agg
+    gl_pos: List[int] = []
+    gr_pos: List[int] = []
+    for v in selector.group_by_list:
+        key, pos, _ = scope.resolve(v)
+        side = left if key == left.key else right if key == right.key \
+            else None
+        if side is None:
+            raise CompileError(
+                f"cannot resolve group-by attribute {v.attribute_name!r} "
+                f"to a join side")
+        if side.is_table:
+            raise CompileError(
+                "join group-by attributes must come from stream sides")
+        (gl_pos if side is left else gr_pos).append(pos)
+    if gl_pos and gr_pos:
+        Kl = Kr = 63
+    elif gl_pos:
+        Kl, Kr = 2047, 0
+    elif gr_pos:
+        Kl, Kr = 0, 2047
+    else:
+        Kl = Kr = 0
     having = having_expr = None
-    if selector.having_expression is not None:
+    if selector.having_expression is not None and not aggregates:
         # having may name select aliases: substitute the projected
         # expressions (as the selector does) into a copy
         alias_map = {oa.rename: oa.expression
@@ -505,11 +552,18 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
         if having.type != "BOOL":
             raise CompileError("having expression must be boolean")
     proj_selector = copy.copy(selector)
-    proj_selector.having_expression = None
+    if not aggregates:
+        proj_selector.having_expression = None
     out_target = query.output_stream.target_id if query.output_stream \
         else ""
-    sel = SelectorExec(proj_selector, scope, left.schema, 64,
-                       out_target or name, aggregate=True)
+    sel = SelectorExec(proj_selector, scope, left.schema,
+                       max((Kl + 1) * (Kr + 1), 64), out_target or name,
+                       aggregate=True)
+    if cuda:
+        from ..kernels.group_agg import MAX_SPECS
+        if len(sel.bank.specs) > MAX_SPECS:
+            raise _kernel_subset(name, f"{len(sel.bank.specs)} accumulator "
+                                 f"columns (group_agg takes {MAX_SPECS})")
     out_def = StreamDefinition(out_target or f"#{name}.out")
     for n, t in zip(sel.out_names, sel.out_types):
         out_def.attribute(n, t)
@@ -530,9 +584,12 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                            query.output_stream.output_event_type
                            else "CURRENT_EVENTS"),
         selector_exec=sel, step_left=None, step_right=None,
+        # (left window, right window), and with aggregators a box holding
+        # the selector's state, which each step replaces
         init_state=lambda: tuple(
             s.window.init_state(device) if s.window is not None else None
-            for s in (left, right)),
+            for s in (left, right)) + (
+                ([sel.init_state()],) if aggregates else ()),
         needs_timer=any(s.window is not None and s.window.needs_timer
                         for s in (left, right)),
         device=device, compact_rows=emit_rows, emit_explicit=emit_explicit,
@@ -540,7 +597,13 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
         residual=fp_residual, lane_k=lane_k, lane_buckets=lane_buckets,
         ring_caps=ring_caps, join_key_allocator=jk_alloc,
         table_is_left=table_is_left, table_pos=table_pos,
-        stream_key_pos=stream_key_pos)
+        stream_key_pos=stream_key_pos, aggregates=aggregates,
+        in_deps=list(in_cols or {}),
+        group_positions=(gl_pos, gr_pos),
+        group_allocators=(
+            SlotAllocator(Kl, name=f"{name}:gl") if gl_pos else None,
+            SlotAllocator(Kr, name=f"{name}:gr") if gr_pos else None),
+        group_slots=(Kl, Kr))
 
     def probe_spec(this: JoinSide, other: JoinSide, this_is_left: bool):
         emit_unmatched = (
@@ -595,14 +658,16 @@ def _header(wake, dev) -> torch.Tensor:
     return h
 
 
-def _advance(side: JoinSide, state, batch, gslot, extra, now: int, facts):
+def _advance(side: JoinSide, state, batch, gslot, extra, now: int, facts,
+             in_tabs=None):
     """The side's filters and window over one batch (K1, then K5 or K2);
     the key-slot column rides the window on the bucket path, the batch
     row index on the table fast path (`extra`)."""
     cols = tuple(batch.cols) + ((extra,) if extra is not None else ())
     rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid, seq=None,
                 gslot=gslot, cols=cols)
-    _, wout = side.window.process(state, rows, side.fspec, now, facts)
+    _, wout = side.window.process(state, rows, side.fspec.bind(in_tabs),
+                                  now, facts)
     return wout
 
 
@@ -622,9 +687,12 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
     sel = plan.selector_exec
     used = sel.used_columns()
     o_types = other.schema.types
+    Kl, Kr = plan.group_slots
+    K_other = Kr if this_is_left else Kl
     bix: Dict[Tuple[int, Any], torch.Tensor] = {}
 
-    def step(state, batch, gslot, probe, now: int, facts, table=None):
+    def step(state, batch, gslot, probe, now: int, facts, table=None,
+             in_tabs=None):
         this_state = state[0 if this_is_left else 1]
         other_state = state[1 if this_is_left else 0]
         B = batch.ts.shape[0]
@@ -636,7 +704,8 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
             if extra is None:
                 extra = bix[(B, dev)] = torch.arange(B, dtype=torch.int32,
                                                       device=dev)
-        wout = _advance(this, this_state, batch, gslot, extra, now, facts)
+        wout = _advance(this, this_state, batch, gslot, extra, now, facts,
+                        in_tabs)
         trig = wout.rows
         header = _header(wout.next_wakeup, dev)
         R = _reference_rows(this.window, B)
@@ -649,8 +718,10 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
                 None
             Q = plan.lane_k if bucket else Q_grid
         N = R * Q + (R if spec.emit_unmatched else 0)
+        # aggregates read every joined row: an implicit cap is the whole
+        # grid (the reference aggregates before its cut)
         cap = min(N, plan.compact_rows if plan.compact_rows is not None
-                  else max(2 * R, 1024))
+                  else N if plan.aggregates else max(2 * R, 1024))
         if trig.ts.shape[0] == 0:
             # a TIMER step that expired nothing: no trigger rows
             return _no_rows(sel, cap, dev), header
@@ -674,8 +745,21 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
         ts, kind = trig.ts[lil], trig.kind[lil]
         env = {this.key: this_cols, other.key: other_cols, "__ts__": ts,
                "__now__": now, "__kind__": kind}
-        _, out = sel.process((), Rows(ts=ts, kind=kind, valid=ovalid,
-                                      seq=None, gslot=None, cols=()), env)
+        gslot = None
+        if plan.aggregates:
+            tg = trig.gslot[lil].to(torch.int64)
+            og = torch.full_like(tg, K_other) if other.is_table else \
+                torch.where(onull, K_other,
+                            other_state.gslot[ril].to(torch.int64))
+            gslot = (tg * (Kr + 1) + og if this_is_left
+                     else og * (Kr + 1) + tg).to(torch.int32)
+        rows = Rows(ts=ts, kind=kind, valid=ovalid, seq=None, gslot=gslot,
+                    cols=())
+        if plan.aggregates:
+            box = state[2]
+            box[0], out = sel.process(box[0], rows, env)
+        else:
+            _, out = sel.process((), rows, env)
         return out, header
 
     return step
@@ -694,13 +778,14 @@ def _make_feed_only(plan: PlannedJoinQuery, side: JoinSide, is_left: bool):
     still keeps its window (reference `_make_feed_only`,
     `siddhi_tpu/core/join.py:708`): K1 and K5 / K2, no probe."""
 
-    def step(state, batch, gslot, probe, now: int, facts, table=None):
+    def step(state, batch, gslot, probe, now: int, facts, table=None,
+             in_tabs=None):
         extra = probe
         if plan.fastpath == "table":
             extra = torch.arange(batch.ts.shape[0], dtype=torch.int32,
                                  device=batch.ts.device)
         wout = _advance(side, state[0 if is_left else 1], batch, gslot,
-                        extra, now, facts)
+                        extra, now, facts, in_tabs)
         return None, _header(wout.next_wakeup, batch.ts.device)
 
     return step

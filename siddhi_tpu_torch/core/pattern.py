@@ -38,6 +38,7 @@ from ..query_api.query import (
 )
 from . import event as ev
 from .executor import CompileError, CompiledExpr, Scope, compile_expression
+from ..kernels.in_probe import probe_env
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +225,8 @@ class PatternExec:
     def __init__(self, spec: PatternSpec, schemas: Dict[str, ev.Schema],
                  interner: ev.StringInterner, slots: int = 8,
                  emit_refs: Optional[set] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 in_col0_types: Optional[Dict[str, str]] = None):
         self.spec = spec
         self.schemas = schemas
         self.P = slots
@@ -244,8 +246,12 @@ class PatternExec:
 
         # per-atom filter scopes: unqualified attrs bind to the atom's OWN
         # stream (the incoming event); qualified refs reach earlier captures
+        # `x in Table` probes: the tables the query reads, and each one's
+        # first attribute type (the kernels' compare types)
         self._filters: Dict[str, Optional[CompiledExpr]] = {}
         self.filter_scopes: Dict[str, Scope] = {}
+        self.in_col0_types: Dict[str, str] = dict(in_col0_types or {})
+        self.in_deps: List[str] = list(self.in_col0_types)
         for a in spec.all_atoms():
             if a.filter_expr is None:
                 self._filters[a.ckey] = None
@@ -290,7 +296,7 @@ class PatternExec:
 
     # -- one event per key ----------------------------------------------------
     def tick(self, st: PatternState, stream_id: str, ev_cols, ev_ts,
-             ev_valid, now_k):
+             ev_valid, now_k, in_tabs=None):
         spec = self.spec
         S = self.S
         P, K = st.active.shape
@@ -352,7 +358,7 @@ class PatternExec:
                                          st.entry_ts))
 
         # ---- phase 3: match evaluation (pre-capture state) -----------------
-        env = self._build_env(st, ev_ts)
+        env = self._build_env(st, ev_ts, in_tabs)
         ev_ok = torch.logical_and(ev_valid, torch.logical_not(st.done))
 
         advance_inplace = F
@@ -804,8 +810,11 @@ class PatternExec:
         return st._replace(caps=newcaps)
 
     # -- env ------------------------------------------------------------------
-    def _build_env(self, st: PatternState, ev_ts):
-        env: Dict[str, Any] = {"__ts__": ev_ts[None, :]}
+    def _build_env(self, st: PatternState, ev_ts, in_tabs=None):
+        # `x in Table` probes broadcast over the operand's shape ([P, K]
+        # here), as the reference's do
+        env: Dict[str, Any] = {"__ts__": ev_ts[None, :],
+                               **probe_env(in_tabs or {})}
         for a in self.spec.all_atoms():
             if a.absent:
                 continue

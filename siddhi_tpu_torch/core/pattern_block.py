@@ -40,6 +40,7 @@ import torch
 
 from . import event as ev
 from .pattern import PatternExec, PatternSpec
+from ..kernels.in_probe import probe_env
 from .window import NO_WAKEUP, Rows
 
 CHUNK = 128
@@ -115,7 +116,7 @@ def make_block_step(spec: PatternSpec, pexec: PatternExec, sel, schemas,
             if filt0 is None:
                 c0 = torch.ones((W,), dtype=torch.bool, device=dev)
             else:
-                env0 = {"__ts__": ts}
+                env0 = {"__ts__": ts, **probes}
                 for a in atoms:
                     _bind(env0, a.ref, ev_cols if a.ref == a0.ref
                           else zeros_of(a, W, dev))
@@ -198,7 +199,7 @@ def make_block_step(spec: PatternSpec, pexec: PatternExec, sel, schemas,
                     alive = alive & torch.logical_not(eligible & exists)
                 continue
             filt = pexec._filters[a.ckey]
-            env: Dict[str, Any] = {"__ts__": ts[None, :]}
+            env: Dict[str, Any] = {"__ts__": ts[None, :], **probes}
             for other in atoms:
                 _bind(env, other.ref,
                       tuple(c[None, :] for c in ev_cols)
@@ -276,7 +277,14 @@ def make_block_step(spec: PatternSpec, pexec: PatternExec, sel, schemas,
             seed_on, done, dropped)
         return ncarry, (comp_valid, comp_idx, comp_ts, caps_t)
 
-    def step(packed, sel_state, raw_cols, raw_ts, sel_idx, key_ref, now):
+    probes: Dict[str, Any] = {}
+
+    def step(packed, sel_state, raw_cols, raw_ts, sel_idx, key_ref, now,
+             in_tabs=None):
+        # `x in Table` probes of this step's filters (reference: the
+        # block step's probe_env over the shipped snapshots)
+        probes.clear()
+        probes.update(probe_env(in_tabs or {}))
         b32, b64, scalars = packed
         dev = b32.device
         B = raw_ts.shape[0]

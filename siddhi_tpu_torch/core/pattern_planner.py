@@ -174,6 +174,7 @@ def plan_pattern_query(
     partition_positions: Optional[Dict[str, List[int]]] = None,
     compact_rows_override: Optional[int] = None,
     device: Optional[torch.device] = None,
+    in_col0_types: Optional[Dict[str, str]] = None,
 ) -> PlannedPatternQuery:
     from ..kernels.pattern_step import KernelPlan, PatternStep, TimerStep
 
@@ -202,7 +203,8 @@ def plan_pattern_query(
                 f"query {name!r} is outside the CUDA pattern_step kernel's "
                 f"subset: {unsupported}")
     pexec = PatternExec(spec, schemas, interner, slots=slots,
-                        emit_refs=_used_refs(query, spec), device=device)
+                        emit_refs=_used_refs(query, spec), device=device,
+                        in_col0_types=in_col0_types)
 
     out_target = query.output_stream.target_id if query.output_stream else ""
     sel = SelectorExec(query.selector, pexec.scope,
@@ -220,7 +222,8 @@ def plan_pattern_query(
     def make_step(stream_id: str, dense: bool = False):
         schema = schemas[stream_id]
 
-        def step(packed, sel_state, raw_cols, raw_ts, sel_idx, key_ref, now):
+        def step(packed, sel_state, raw_cols, raw_ts, sel_idx, key_ref, now,
+                 in_tabs=None):
             # raw_cols/raw_ts are the UNGROUPED batch [B]; sel_idx [Kb,E]
             # holds batch indices (-1 = padding).  The blobs update in place.
             b32, b64, scalars = packed
@@ -258,7 +261,8 @@ def plan_pattern_query(
                 now_k = torch.where(valid[:, e], ts[:, e], now)
                 sub, emit = pexec.tick(sub, stream_id,
                                        tuple(c[:, e] for c in cols),
-                                       ts[:, e], valid[:, e], now_k)
+                                       ts[:, e], valid[:, e], now_k,
+                                       in_tabs)
                 emits.append(emit)
             emits = _stack_emits(emits)
 
@@ -284,10 +288,10 @@ def plan_pattern_query(
         """ts-delta wire variant: the host ships (base i64 scalar, delta i32
         [B]) instead of an 8-byte-per-event timestamp column."""
         def wrapped(packed, sel_state, raw_cols, ts_base, ts_delta,
-                    sel_idx, key_ref, now):
+                    sel_idx, key_ref, now, in_tabs=None):
             raw_ts = int(ts_base) + ts_delta.to(torch.int64)
             return body(packed, sel_state, raw_cols, raw_ts, sel_idx,
-                        key_ref, now)
+                        key_ref, now, in_tabs)
         return wrapped
 
     if use_block:
@@ -328,7 +332,7 @@ def plan_pattern_query(
         any_sid = spec.stream_ids[0]
         schema0 = schemas[any_sid]
 
-        def tstep(packed, sel_state, now):
+        def tstep(packed, sel_state, now, in_tabs=None):
             """One tick with an invalid event at ts = now over the whole
             slab, then the emission (the reference's default cap of 8 rows
             per key) and the wake over the whole slab."""
@@ -342,7 +346,7 @@ def plan_pattern_query(
             ts_e = torch.full((K,), int(now), dtype=torch.int64, device=dev)
             valid_e = torch.zeros((K,), dtype=torch.bool, device=dev)
             st, emit = pexec.tick(pstate, any_sid, zero_cols, ts_e, valid_e,
-                                  ts_e)
+                                  ts_e, in_tabs)
             emits = _stack_emits([emit])                 # E = 1
             ord_ = torch.zeros((K, 1), dtype=torch.int64, device=dev)
             sel_state, out = _emit_matches(sel, spec, emits, ord_,

@@ -24,8 +24,8 @@ which come out key-major.
 
 Ported: filters, the `length`, `time` and `lengthBatch` windows or none,
 keyed `length` / `time` / `lengthBatch` windows, group by, having, the
-built-in aggregators.  Stream functions, the other windows, range
-partitions, `in Table` probes, named-window input and distinctCount pair
+built-in aggregators, `x in Table` probes.  Stream functions, the other
+windows, range partitions, named-window input and distinctCount pair
 slots raise `CompileError` naming their ROADMAP item.  On CUDA a query
 must also fit the kernels (`kernel_subset_violation`) and have no filter
 after its window (no kernel evaluates one yet, ROADMAP B10); one that
@@ -79,6 +79,7 @@ class PlannedQuery:
     key_capacity: int = 0
     kstep: Optional[Callable] = None
     timer_keys: Optional[Callable] = None
+    in_deps: List[str] = dataclasses.field(default_factory=list)
 
 
 def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
@@ -131,8 +132,10 @@ def plan_single_query(
         device: Optional[torch.device] = None,
         partition_positions: Optional[List[int]] = None,
         window_key_allocator: Optional[SlotAllocator] = None,
-        key_capacity: int = 0) -> PlannedQuery:
-    from ..kernels.filter_bytecode import AND, compile_filter
+        key_capacity: int = 0,
+        in_cols: Optional[Dict[str, str]] = None) -> PlannedQuery:
+    from ..kernels.filter_bytecode import AND, InKeys, compile_filter
+    from ..kernels.in_probe import probe_env
     from ..kernels.filter_compact import FilterSpec
     device = torch.device(device) if device is not None \
         else torch.device("cpu")
@@ -210,27 +213,38 @@ def plan_single_query(
                       query.output_stream.output_event_type
                       else "CURRENT_EVENTS")
 
+    # `x in Table` probes (reference: the dependency scan, :319-323); each
+    # step's env gets one probe per table (`_probe_env`, :471-480)
+    in_deps = list(in_cols or {})
     bytecode = None
+    ik = InKeys(dict(in_cols or {}))
     if device.type == "cuda":
         _check_subset(name, in_schema, sel)
         bytecode = []
         for i, e in enumerate(pre_exprs):
-            bytecode += compile_filter(e, scope, sid, {})
+            try:
+                bytecode += compile_filter(e, scope, sid, {}, in_keys=ik)
+            except CompileError as exc:
+                raise NotImplementedError(
+                    f"query {name!r} is outside the CUDA kernels' subset: "
+                    f"{exc}") from exc
             if i:
                 bytecode.append(AND)
-    fspec = FilterSpec(in_schema.types, pre_chain, bytecode, sid)
+    fspec = FilterSpec(in_schema.types, pre_chain, bytecode, sid, ik.keys)
     wproc = window_proc
 
-    def stage_body(wstate, batch, gslot, now: int, facts):
+    def stage_body(wstate, batch, gslot, now: int, facts, in_tabs=None):
         """Pre-window filters + window advance."""
         rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid,
                     seq=None, gslot=gslot, cols=batch.cols)
-        wstate, wout = wproc.process(wstate, rows, fspec, now, facts)
+        wstate, wout = wproc.process(wstate, rows, fspec.bind(in_tabs), now,
+                                     facts)
         return wstate, wout.rows, wout.next_wakeup
 
-    def select_body(astate, orows: Rows, now: int):
+    def select_body(astate, orows: Rows, now: int, in_tabs=None):
         """Post-window filters + selector over the window's rows."""
         env = _env_for(sid, orows.cols, orows.ts, now, orows.kind)
+        env.update(probe_env(in_tabs or {}))
         if post_chain:
             data_row = torch.logical_or(orows.kind == ev.CURRENT,
                                         orows.kind == ev.EXPIRED)
@@ -238,11 +252,12 @@ def plan_single_query(
                 post_chain, env, orows.valid, data_row))
         return sel.process(astate, orows, env)
 
-    def step(state, batch, gslot, now: int, facts):
+    def step(state, batch, gslot, now: int, facts, in_tabs=None):
         wstate, astate = state
-        wstate, orows, wake = stage_body(wstate, batch, gslot, now, facts)
+        wstate, orows, wake = stage_body(wstate, batch, gslot, now, facts,
+                                         in_tabs)
         astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
-                                                          now)
+                                                          now, in_tabs)
         cur = torch.logical_and(ovalid, okind == ev.CURRENT)
         if wake is None:
             wake = torch.tensor([NO_WAKEUP, 0], dtype=torch.int64,
@@ -261,13 +276,13 @@ def plan_single_query(
         types = in_schema.types
 
         def kstep(state, batch, gslot, key_idx, sel_idx, now: int,
-                  tick: bool = False):
+                  tick: bool = False, in_tabs=None):
             slab, astate = state
             orows, wake = keyed_window_step(
-                slab, fspec, batch.ts, batch.kind, batch.valid, gslot,
-                batch.cols, key_idx, sel_idx, now, t_ms, tick)
+                slab, fspec.bind(in_tabs), batch.ts, batch.kind, batch.valid,
+                gslot, batch.cols, key_idx, sel_idx, now, t_ms, tick)
             astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
-                                                              now)
+                                                              now, in_tabs)
             cur = torch.logical_and(ovalid, okind == ev.CURRENT)
             header = torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake,
                                 torch.zeros(1, dtype=torch.int64,
@@ -300,7 +315,8 @@ def plan_single_query(
         select_body=select_body, keyed_window=keyed_window,
         window_key_positions=list(partition_positions or []),
         window_key_allocator=window_key_allocator,
-        key_capacity=key_capacity, kstep=kstep, timer_keys=timer_keys)
+        key_capacity=key_capacity, kstep=kstep, timer_keys=timer_keys,
+        in_deps=in_deps)
 
 
 def _keyed_shape(wproc, name: str):
@@ -315,5 +331,7 @@ def _keyed_shape(wproc, name: str):
         return kw.MODE_TIME, wproc.capacity, wproc.time_ms
     if isinstance(wproc, LengthBatchWindow):
         return kw.MODE_BATCH, wproc.length, 0
+    item = " (ROADMAP B11 (keyed timeBatch))" \
+        if wproc.name == "timeBatch" else ""
     raise CompileError(f"query {name!r}: the keyed form of a "
-                       f"{wproc.name!r} window is not yet ported")
+                       f"{wproc.name!r} window is not yet ported{item}")

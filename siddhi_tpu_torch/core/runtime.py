@@ -60,7 +60,7 @@ import logging
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -284,7 +284,8 @@ class PatternQueryRuntime:
         pstate, sel_state = self.state
         ts_args = ts_wire if ts_wire else (raw_ts,)
         pstate, sel_state, out, wake = steps[stream_id](
-            pstate, sel_state, raw_cols, *ts_args, sel_d, key_ref, now)
+            pstate, sel_state, raw_cols, *ts_args, sel_d, key_ref, now,
+            **self.app.in_probe_kw(p.exec.in_deps))
         self.state = (pstate, sel_state)
         _emit_output(self, out, now, wake)
 
@@ -294,7 +295,8 @@ class PatternQueryRuntime:
         if p.timer_step is None:
             return
         pstate, sel_state = self.state
-        pstate, sel_state, out, wake = p.timer_step(pstate, sel_state, now)
+        pstate, sel_state, out, wake = p.timer_step(
+            pstate, sel_state, now, **self.app.in_probe_kw(p.exec.in_deps))
         self.state = (pstate, sel_state)
         _emit_output(self, out, now, wake)
 
@@ -616,7 +618,8 @@ class QueryRuntime:
         cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
         facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
         self.state, out, header = p.step(
-            self.state, batch, _h2d(gslot, p.device), now, facts)
+            self.state, batch, _h2d(gslot, p.device), now, facts,
+            **self.app.in_probe_kw(p.in_deps))
         _emit_plain(self, out, header, now)
 
     def _process_keyed(self, staged: ev.StagedBatch, now: int,
@@ -639,7 +642,7 @@ class QueryRuntime:
         batch = staged.to_device(p.in_schema, p.device)
         self.state, out, header = p.kstep(
             self.state, batch, _h2d(gslot, p.device), key_idx, sel, now,
-            all_keys)
+            all_keys, **self.app.in_probe_kw(p.in_deps))
         _emit_plain(self, out, header, now)
 
     def on_timer(self, now: int) -> None:
@@ -669,6 +672,11 @@ def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
     if not live and not qr.planned.needs_timer:
         return
     nv, ncur, wake, missed = header.tolist()
+    if missed and qr.planned.window.name == "timeBatch":
+        raise RuntimeError(
+            f"query {qr.name!r}: {missed} rows did not fit the time batch "
+            f"window's slice of {qr.planned.window.capacity} rows; raise "
+            f"@capacity(window=...)")
     if missed:
         raise RuntimeError(
             f"query {qr.name!r}: {missed} more rows expired than the time "
@@ -797,9 +805,19 @@ class JoinQueryRuntime:
         batch = staged.to_device(side.schema, p.device)
         cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
         facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
-        gslot = self._zero_slots(staged.ts.shape[0])
+        alloc = p.group_allocators[0 if is_left else 1]
+        if alloc is not None:
+            # the side's group slots ride its window (join group by)
+            gslot = _h2d(alloc.slots_for(
+                [staged.cols[i]
+                 for i in p.group_positions[0 if is_left else 1]],
+                staged.valid), p.device)
+        else:
+            gslot = self._zero_slots(staged.ts.shape[0])
+        kw = self.app.in_probe_kw(p.in_deps)
         if not other.is_table:
-            out, header = step(self.state, batch, gslot, probe, now, facts)
+            out, header = step(self.state, batch, gslot, probe, now, facts,
+                               **kw)
         else:
             # the table's current rows (reference `_other_table`, :1623)
             t = self.app.tables[other.stream_id]
@@ -807,7 +825,7 @@ class JoinQueryRuntime:
                 if p.fastpath == "table":
                     probe = _h2d(self._table_probe(staged), p.device)
                 out, header = step(self.state, batch, gslot, probe, now,
-                                   facts, (t.cols, t.ts, t.valid))
+                                   facts, (t.cols, t.ts, t.valid), **kw)
         _emit_join(self, out, header, now)
 
     def on_timer(self, now: int) -> None:
@@ -839,6 +857,11 @@ def _emit_join(qr: JoinQueryRuntime, out, header, now: int) -> None:
     if not live and not p.needs_timer:
         return
     nv, ncur, nd, lane_over, wake, missed = header.tolist()
+    if nd and p.aggregates:
+        raise RuntimeError(
+            f"query {qr.name!r}: {nd} joined rows did not fit the emission "
+            f"cap @emit(rows='{p.compact_rows}'); the aggregates missed "
+            f"them (raise the cap)")
     if lane_over:
         raise RuntimeError(
             f"query {qr.name!r}: {lane_over} window rows did not fit the "
@@ -973,6 +996,30 @@ class StreamJunction:
             self.dispatch_staged(ev.pack_np(self.schema, events), now)
 
 
+def _in_deps(node, seen=None) -> List[str]:
+    """The tables a query's `x in T` conditions probe, in order of first
+    appearance (reference: the planners' dependency scans)."""
+    from ..query_api.expression import In
+    seen = set() if seen is None else seen
+    out: List[str] = []
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if id(n) in seen or n is None or isinstance(
+                n, (str, int, float, bool)):
+            continue
+        seen.add(id(n))
+        if isinstance(n, In) and n.source_id not in out:
+            out.append(n.source_id)
+        if isinstance(n, dict):
+            stack.extend(reversed(list(n.values())))
+        elif isinstance(n, (list, tuple)):
+            stack.extend(reversed(n))
+        elif hasattr(n, "__dict__"):
+            stack.extend(reversed(list(vars(n).values())))
+    return out
+
+
 class SiddhiAppRuntime:
     """reference: CORE/SiddhiAppRuntimeImpl.java:99"""
 
@@ -1049,6 +1096,36 @@ class SiddhiAppRuntime:
             elif isinstance(element, Partition):
                 qi = self._add_partition(element, qi)
 
+    # -- `x in Table` probes ---------------------------------------------------
+    def in_probe_tables(self, deps) -> Dict[str, Any]:
+        """What each `x in T` probe of a step sees: the table's first
+        column and valid flags as they stand at that step (reference
+        `in_probe_tables`, `siddhi_tpu/core/runtime.py:3607`), the one
+        definition every step kind ships."""
+        from ..kernels.in_probe import InTab
+        return {d: InTab(self.tables[d]) for d in deps}
+
+    def in_probe_kw(self, deps) -> Dict[str, Any]:
+        """A step's `in_tabs` keyword, for a query that probes tables."""
+        return {"in_tabs": self.in_probe_tables(deps)} if deps else {}
+
+    def _validate_in_deps(self, deps, qname: str) -> None:
+        """`x in <id>` probes defined tables only (reference
+        `_validate_in_deps`, `siddhi_tpu/core/runtime.py:3614`)."""
+        for d in deps:
+            if d not in self.tables:
+                raise CompileError(
+                    f"query {qname!r}: `in {d}` requires a defined table "
+                    f"(named windows and aggregations are not probe-able "
+                    f"with `in`; defined tables: {sorted(self.tables)})")
+
+    def _in_cols(self, q: Query, qname: str) -> Dict[str, str]:
+        """Validate a query's probes; the probed tables' first attribute
+        types, which the kernels' compare types follow."""
+        deps = _in_deps(q)
+        self._validate_in_deps(deps, qname)
+        return {d: self.tables[d].schema.types[0] for d in deps}
+
     # -- construction ---------------------------------------------------------
     def _define_stream_runtime(self, sdef: StreamDefinition):
         schema = ev.Schema(sdef, self.interner)
@@ -1073,7 +1150,8 @@ class SiddhiAppRuntime:
             wch = int(cap_ann.element("window"))
         planned = plan_single_query(q, name, self.schemas, self.interner,
                                     window_capacity_hint=wch,
-                                    device=self.device)
+                                    device=self.device,
+                                    in_cols=self._in_cols(q, name))
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         self.junctions[planned.input_stream_id].subscribe_query(
@@ -1087,7 +1165,8 @@ class SiddhiAppRuntime:
         from .join import plan_join_query
         _check_annotations(q.annotations, f"query {name!r}")
         planned = plan_join_query(q, name, self.schemas, self.interner,
-                                  device=self.device, tables=self.tables)
+                                  device=self.device, tables=self.tables,
+                                  in_cols=self._in_cols(q, name))
         runtime = JoinQueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         for side, is_left in ((planned.left, True), (planned.right, False)):
@@ -1106,12 +1185,14 @@ class SiddhiAppRuntime:
             if cap_ann is not None:
                 slots = int(cap_ann.element("slots", slots))
 
+        in_cols = self._in_cols(q, name)
+
         def plan(cap=None):
             return plan_pattern_query(
                 q, name, self.schemas, self.interner,
                 key_capacity=key_capacity, slots=slots,
                 partition_positions=positions, compact_rows_override=cap,
-                device=self.device)
+                device=self.device, in_col0_types=in_cols)
 
         planned = plan()
         runtime = PatternQueryRuntime(planned, self, slot_allocator=allocator)
@@ -1242,7 +1323,7 @@ class SiddhiAppRuntime:
             batch_capacity=64 if has_window else 512,
             window_capacity_hint=win_cap, device=self.device,
             partition_positions=ppos, window_key_allocator=allocator,
-            key_capacity=keys_cap)
+            key_capacity=keys_cap, in_cols=self._in_cols(q, name))
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         self.junctions[sid].subscribe_query(_QSub(runtime))

@@ -11,8 +11,9 @@ functions (avg's divide, null rules), having and the projection stay
 compiled torch expressions over the scan results.
 
 Ported aggregators: sum, avg, count, min, max, minForever, maxForever,
-stdDev, and, or.  distinctCount, unionSet, extension aggregators and
-order by / limit / offset raise `CompileError`.  A pattern query's
+stdDev, and, or; order by / limit / offset (kernel K13,
+`kernels/order_limit.py`).  distinctCount, unionSet and extension
+aggregators raise `CompileError`.  A pattern query's
 selector is projection-only (`aggregate=False`), as before.
 """
 from __future__ import annotations
@@ -316,6 +317,18 @@ def _expr_fingerprint(e: Expression) -> str:
     return repr(e)
 
 
+def _projection_scope(names, types, interner, device) -> Scope:
+    """Scope over the projected output columns (for order by)."""
+    from ..query_api.definition import StreamDefinition
+    d = StreamDefinition("__out__")
+    for n, t in zip(names, types):
+        d.attribute(n, t)
+    s = Scope(device)
+    s.interner = interner
+    s.add_source("__out__", ev.Schema(d, interner))
+    return s
+
+
 def _compile_with_pseudo(expr: Expression, scope: Scope,
                          agg_results: List[Tuple[str, Callable]]
                          ) -> CompiledExpr:
@@ -343,10 +356,6 @@ class SelectorExec:
             if selector.having_expression is not None:
                 raise CompileError(f"having {what}is not yet ported "
                                    f"(ROADMAP B14)")
-        if selector.order_by_list or selector.limit is not None or \
-                selector.offset is not None:
-            raise CompileError(
-                "order by / limit / offset are not yet ported (ROADMAP B14)")
         self.group_by_positions: List[int] = []
         for v in selector.group_by_list:
             _, pos, _ = scope.resolve(v)
@@ -386,6 +395,18 @@ class SelectorExec:
             self._compile_calls(scope, out_stream_id, "h")
             self.having = _compile_with_pseudo(hre, scope,
                                                self._agg_results)
+
+        # order by: keys are projected output columns (reference
+        # `_projection_scope`, `siddhi_tpu/core/selector.py:638`)
+        self._order_by: List[Tuple[CompiledExpr, str]] = []
+        if selector.order_by_list:
+            pscope = _projection_scope(self.out_names, self.out_types,
+                                       scope.interner, scope.device)
+            for ob in selector.order_by_list:
+                self._order_by.append(
+                    (compile_expression(ob.variable, pscope), ob.order))
+        self.ordered = bool(self._order_by) or selector.limit is not None \
+            or selector.offset is not None
 
     def _compile_calls(self, scope, out_stream_id, tag) -> None:
         while len(self._agg_results) < len(self._agg_calls):
@@ -429,4 +450,17 @@ class SelectorExec:
                              rows.kind == ev.EXPIRED))
         if self.having is not None:
             valid = torch.logical_and(valid, self.having.fn(env))
+        if self.ordered:
+            return new_state, self._order_limit(rows.ts, rows.kind, valid,
+                                                out_cols)
         return new_state, (rows.ts, rows.kind, valid, out_cols)
+
+    def _order_limit(self, ts, kind, valid, out_cols):
+        """order by / limit / offset over every valid CURRENT and EXPIRED
+        row of the step (reference `_order_limit`,
+        `siddhi_tpu/core/selector.py:545`): kernel K13."""
+        from ..kernels.order_limit import order_limit
+        env = {"__out__": out_cols}
+        keys = [(c.fn(env), order == "DESC") for c, order in self._order_by]
+        return order_limit(keys, self.selector.offset or 0,
+                           self.selector.limit, ts, kind, valid, out_cols)

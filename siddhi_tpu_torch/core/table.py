@@ -109,6 +109,11 @@ class TableRuntime:
             if device.type == "cuda" else None
         self._append_ptr = 0  # non-keyed append position (host-tracked)
         self._free_rows: List[int] = []
+        # bumped by every write, delete and update: the `in` probes' hash
+        # sets (kernels/in_probe.py, one per compare type) rebuild when
+        # they are older
+        self.version = 0
+        self.in_sets: Dict[int, object] = {}
 
     # -- row-slot resolution --------------------------------------------------
     def _slots_for_batch(self, staged_cols: Sequence[np.ndarray],
@@ -161,6 +166,7 @@ class TableRuntime:
             write(self.cols, self.ts, self.valid, self._win, batch.cols,
                   batch.ts, _h2d(slots.astype(np.int32), dev),
                   _h2d(staged.valid, dev))
+            self.version += 1
 
     def plan_condition(self, cond_expr: Expression, scope: Scope,
                        table_id: Optional[str] = None,
@@ -268,6 +274,7 @@ class TableRuntime:
         with self._lock:
             kill, _, _ = self._match(cond, other_key, batch, staged)
             masked_delete(self.valid, kill)
+            self.version += 1
             self._reclaim(kill.cpu().numpy())
 
     def _reclaim(self, kill: np.ndarray) -> None:
@@ -320,6 +327,7 @@ class TableRuntime:
                         hit_rows, val.cpu().numpy()[hit_rows])
             for pos, v in new_vals:
                 self.cols[pos].copy_(v)
+            self.version += 1
             if upsert and staged is not None:
                 miss = staged.valid & ~matched_any()
                 if miss.any():

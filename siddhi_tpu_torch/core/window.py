@@ -7,9 +7,10 @@ recovers the exact per-event order (expired-before-current interleavings
 included).
 
 Ported: `NoWindow` (pass-through), `LengthWindow` (`length`),
-`TimeWindow` (`time`) and `LengthBatchWindow` (`lengthBatch`).  Their
-steps are the CUDA kernels under `kernels/` (`filter_compact`,
-`length_window`, `time_window`, `length_batch`), each with its plain
+`TimeWindow` (`time`), `LengthBatchWindow` (`lengthBatch`) and
+`TimeBatchWindow` (`timeBatch`).  Their steps are the CUDA kernels under
+`kernels/` (`filter_compact`, `length_window`, `time_window`,
+`length_batch`, `time_batch`), each with its plain
 PyTorch version, which runs on the CPU.  Unlike the
 reference, whose output capacity is the window's worst case (B + C rows
 for a time window), a step's output here is sized from what the host knows
@@ -261,23 +262,53 @@ class LengthBatchWindow(WindowProcessor):
         return state, WindowOutput(out, None)
 
 
+class TimeBatchWindow(WindowProcessor):
+    """Tumbling time batch (reference: TimeBatchWindowProcessor; JAX
+    `siddhi_tpu/core/window.py:573`).
+
+    Time is cut into [start + k*t, start + (k+1)*t) slices; at each slice
+    boundary the gathered events are emitted as CURRENT, preceded by the
+    previous slice as EXPIRED and a RESET row.  Arrivals and TIMER rows
+    drive it; the wake is the next boundary.  The step is kernel K12
+    (`kernels/time_batch.py`)."""
+
+    name = "timeBatch"
+    needs_timer = True
+    emits_reset = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=2048):
+        super().__init__(schema, params, batch_capacity)
+        self.time_ms = _param_int(params, 0)
+        if self.time_ms <= 0:
+            raise CompileError("timeBatch period must be positive")
+        self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def init_state(self, device):
+        from ..kernels.time_batch import TimeBatchState
+        return TimeBatchState.empty(self.schema, self.capacity, device)
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        from ..kernels.time_batch import time_batch_step
+        arr, n_arr = _arrivals(rows, fspec, now)
+        out, wake = time_batch_step(state, arr, n_arr, now, self.time_ms,
+                                    facts, exact=not fspec.compiled)
+        return state, WindowOutput(out, wake)
+
+
 # ---------------------------------------------------------------------------
 
 WINDOW_TYPES = {
     "length": LengthWindow,
     "time": TimeWindow,
     "lengthBatch": LengthBatchWindow,
+    "timeBatch": TimeBatchWindow,
 }
-
-# reference window kinds that are not ported yet -> ROADMAP item
-_UNPORTED_WINDOWS = {"timeBatch": "B11"}
 
 
 def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
                   capacity_hint: int = 2048) -> WindowProcessor:
     if name not in WINDOW_TYPES:
-        item = _UNPORTED_WINDOWS.get(name, "B12/B13")
         raise CompileError(f"window {name!r} is not yet ported "
-                           f"(ROADMAP {item})")
+                           f"(ROADMAP B12/B13)")
     return WINDOW_TYPES[name](schema, params, batch_capacity,
                               capacity_hint=capacity_hint)

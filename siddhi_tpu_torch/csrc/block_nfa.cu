@@ -91,6 +91,7 @@ struct BlockPlan {
   unsigned char* out_valid;
   void* out_col[MAX_EMIT];
   long long* header;  // [completions written]
+  InSet in_sets[MAX_IN];
 };
 
 namespace {
@@ -183,10 +184,10 @@ block_nfa_kernel(const __grid_constant__ BlockPlan pl) {
     bool c0 = false;
     const int j = t - P;             // a seed thread's event
     if (t >= P && t < T && pl.a0_here && s_valid[j] && !done0) {
-      c0 = eval_bytecode(
+      c0 = eval_bytecode_in(
           pl.code + pl.code_start[0], pl.code_len[0],
           [&](int c) { return s_ev[(long long)c * W + j]; },
-          [&](int, int) { return 0LL; });  // other atoms read zeros
+          [&](int, int) { return 0LL; }, pl.in_sets);  // other atoms read zeros
     }
     if (c0 && !pl.every) atomicMin(&s_first, j);
     __syncthreads();
@@ -236,7 +237,7 @@ block_nfa_kernel(const __grid_constant__ BlockPlan pl) {
           if (exists && !done0) {
             const int k = s_nv[avail];
             if ((!pl.has_within || s_ts[k] - start <= pl.within) &&
-                eval_bytecode(code, len, [&](int c) { return s_ev[(long long)c * W + k]; }, cap))
+                eval_bytecode_in(code, len, [&](int c) { return s_ev[(long long)c * W + k]; }, cap, pl.in_sets))
               hit = k;
           }
           if (exists && hit < 0) alive = false;  // the next event did not match
@@ -244,7 +245,7 @@ block_nfa_kernel(const __grid_constant__ BlockPlan pl) {
           for (int k = avail; k < W; ++k) {
             if (!s_valid[k]) continue;
             if (pl.has_within && s_ts[k] - start > pl.within) continue;
-            if (eval_bytecode(code, len, [&](int c) { return s_ev[(long long)c * W + k]; }, cap)) {
+            if (eval_bytecode_in(code, len, [&](int c) { return s_ev[(long long)c * W + k]; }, cap, pl.in_sets)) {
               hit = k;
               break;
             }

@@ -13,7 +13,20 @@ enum : int { T_I32 = 0, T_I64 = 1, T_F32 = 2, T_BOOL = 3 };
 enum : int { N_NONE = 0, N_INT = 1, N_LONG = 2, N_NAN = 3, N_ID = 4 };
 enum : int {
   OP_LOAD_EV = 1, OP_LOAD_CAP, OP_CONST, OP_ARITH, OP_CMP, OP_AND, OP_OR,
-  OP_NOT, OP_ISNULL, OP_LOAD_OTHER, OP_COALESCE
+  OP_NOT, OP_ISNULL, OP_LOAD_OTHER, OP_COALESCE, OP_IN
+};
+
+// `x in Table` (OP_IN): the valid rows' first-column values of a table,
+// cast to one compare type, in an open-addressing hash set built by
+// csrc/in_probe.cu (kernel K14).  `slots` has mask + 1 entries, EMPTY
+// marks a free one; a table value equal to EMPTY sets *has_empty instead.
+constexpr int MAX_IN = 4;
+constexpr long long IN_EMPTY = (long long)0xa5a5a5a5a5a5a5a5ULL;
+
+struct InSet {
+  const long long* slots;
+  const int* has_empty;
+  long long mask;
 };
 
 __device__ __forceinline__ float as_f(long long v) { return __int_as_float((int)v); }
@@ -119,12 +132,53 @@ __device__ inline long long null_cast(long long v, int from, int to, int nk, int
   return cast(v, from, to);
 }
 
+// A value of compare type ct as its hash-set key; false for a value that
+// equals nothing (NaN).  -0.0 and +0.0 are one key.
+__device__ __forceinline__ bool in_key(long long v, int ct, long long* key) {
+  if (ct == T_F32) {
+    float f = as_f(v);
+    if (f != f) return false;
+    if (f == 0.0f) f = 0.0f;
+    *key = (long long)(unsigned int)__float_as_int(f);
+    return true;
+  }
+  *key = ct == T_I64 ? v : (long long)(int)v;
+  return true;
+}
+
+// murmur3's 64-bit finaliser
+__device__ __forceinline__ unsigned long long in_hash(long long key) {
+  unsigned long long h = (unsigned long long)key;
+  h ^= h >> 33;
+  h *= 0xff51afd7ed558ccdULL;
+  h ^= h >> 33;
+  h *= 0xc4ceb9fe1a85ec53ULL;
+  h ^= h >> 33;
+  return h;
+}
+
+// Is v (of compare type ct) in the set?  Linear probing to the first
+// free slot.
+__device__ inline bool in_lookup(const InSet& s, long long v, int ct) {
+  long long key;
+  if (!in_key(v, ct, &key)) return false;
+  if (key == IN_EMPTY) return *s.has_empty != 0;
+  unsigned long long h = in_hash(key) & (unsigned long long)s.mask;
+  for (;;) {
+    long long x = s.slots[h];
+    if (x == key) return true;
+    if (x == IN_EMPTY) return false;
+    h = (h + 1) & (unsigned long long)s.mask;
+  }
+}
+
 // Runs `len` words of bytecode.  load_ev(col) returns an event column as a
 // 64-bit stack slot, load_cap(atom, col) a capture column and
-// load_other(col) a column of a join's candidate row.
+// load_other(col) a column of a join's candidate row; `sets` are the
+// hash sets OP_IN reads (word 1 indexes them).
 template <class LoadEv, class LoadCap, class LoadOther>
 __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
-                                              LoadOther load_other) {
+                                              LoadOther load_other, const InSet* sets) {
   if (len == 0) return true;
   long long stk[MAX_STACK];
   int sp = 0;
@@ -169,15 +223,35 @@ __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv l
         pc += 7;
         break;
       }
+      case OP_IN: {
+        // set, compare type, operand type, operand null kind: a null is a
+        // value like any other, as the reference's == treats it
+        int ct = code[pc + 2], ot = code[pc + 3];
+        stk[sp - 1] = in_lookup(sets[code[pc + 1]], cast(stk[sp - 1], ot, ct), ct) ? 1 : 0;
+        pc += 5;
+        break;
+      }
       default: return false;
     }
   }
   return stk[0] != 0;
 }
 
+template <class LoadEv, class LoadCap, class LoadOther>
+__device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
+                                              LoadOther load_other) {
+  return eval_bytecode(code, len, load_ev, load_cap, load_other, (const InSet*)nullptr);
+}
+
 template <class LoadEv, class LoadCap>
 __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap) {
   return eval_bytecode(code, len, load_ev, load_cap, [](int) { return 0LL; });
+}
+
+template <class LoadEv, class LoadCap>
+__device__ __forceinline__ bool eval_bytecode_in(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
+                                                 const InSet* sets) {
+  return eval_bytecode(code, len, load_ev, load_cap, [](int) { return 0LL; }, sets);
 }
 
 // A column element as a 64-bit stack slot (floats as their bits).

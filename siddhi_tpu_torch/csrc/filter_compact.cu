@@ -5,7 +5,8 @@
 //   siddhi_tpu/core/planner.py  _apply_chain (filters) in stage_body
 //   siddhi_tpu/core/window.py   NoWindow.process + sort_rows
 // Each row is kept when it is valid, CURRENT and passes the filters (typed
-// postfix bytecode, kernels/filter_bytecode.py, one thread per row).  The
+// postfix bytecode, kernels/filter_bytecode.py, one thread per row; an
+// `x in Table` probe is a lookup in the hash sets of csrc/in_probe.cu).  The
 // output is a STABLE partition: kept rows first in input order, numbered
 // seq0 + rank when a seq counter is given, then the others in input order,
 // marked invalid.  The kept count goes to a device scalar and the counter
@@ -50,6 +51,7 @@ struct FilterPlan {
   long long* seq;
   unsigned char* flags;
   long long* block_sums;
+  InSet in_sets[MAX_IN];
 };
 
 namespace {
@@ -65,10 +67,10 @@ __global__ void fc_flags(const FilterPlan pl) {
   if (i < pl.B) {
     keep = pl.valid[i] && pl.kind[i] == K_CURRENT;
     if (keep && pl.code_len > 0)
-      keep = eval_bytecode(
+      keep = eval_bytecode_in(
           pl.code, pl.code_len,
           [&](int c) { return load_slot(pl.col[c], i, pl.col_ty[c]); },
-          [&](int, int) { return 0LL; });
+          [&](int, int) { return 0LL; }, pl.in_sets);
     pl.flags[i] = (unsigned char)keep;
   }
   long long tot;

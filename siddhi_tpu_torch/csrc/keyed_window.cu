@@ -85,6 +85,7 @@ struct KeyedPlan {
   int* out_gslot;
   void* out_col[MAX_COLS];
   long long* wake;
+  InSet in_sets[MAX_IN];
 };
 
 namespace {
@@ -176,10 +177,10 @@ __global__ void kw_count(const KeyedPlan pl) {
       if (i < 0) continue;
       bool keep = pl.valid[i] && pl.kind[i] == K_CURRENT;
       if (keep && pl.code_len > 0)
-        keep = eval_bytecode(
+        keep = eval_bytecode_in(
             pl.code, pl.code_len,
             [&](int c) { return load_slot(pl.col[c], i, pl.col_ty[c]); },
-            [&](int, int) { return 0LL; });
+            [&](int, int) { return 0LL; }, pl.in_sets);
       if (keep) arr[na++] = (int)i;
     }
     pl.n_arr[r] = na;

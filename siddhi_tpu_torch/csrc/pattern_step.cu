@@ -111,6 +111,7 @@ struct StepPlan {
   unsigned char* out_valid;
   void* out_col[MAX_EMIT];
   unsigned long long* header;
+  InSet in_sets[MAX_IN];
 };
 
 namespace {
@@ -135,10 +136,10 @@ struct Key {
 // own ref, every other ref from slot p's (pre-capture) captures.
 __device__ bool eval_filter(const Key& key, int atom, int p, const long long* ev) {
   const StepPlan& pl = key.pl;
-  return eval_bytecode(
+  return eval_bytecode_in(
       pl.code + pl.code_start[atom], pl.code_len[atom],
       [&](int c) { return ev[c]; },
-      [&](int a, int c) { return key.cap(a, c, p); });
+      [&](int a, int c) { return key.cap(a, c, p); }, pl.in_sets);
 }
 
 __device__ void store_row(const StepPlan& pl, long long row, bool valid, long long ts,

@@ -27,7 +27,8 @@ from ..core import event as ev
 from ..core.pattern_block import CHUNK, cut_rows
 from ..core.window import NO_WAKEUP, Rows
 from . import _nvcc
-from .filter_bytecode import cap_loads, compile_filter, type_code
+from .in_probe import MAX_IN, InSet, fill_sets
+from .filter_bytecode import InKeys, cap_loads, compile_filter, type_code
 
 launches = 0
 plain_calls = 0
@@ -65,7 +66,8 @@ class BlockNfaPlan(ctypes.Structure):
          ("b32", _P), ("b64", _P), ("dropped", _P),
          ("ev_col", _P * MAX_COLS), ("raw_ts", _P), ("ts_delta", _P),
          ("sel_idx", _P), ("out_ts", _P), ("out_valid", _P),
-         ("out_col", _P * MAX_EMIT), ("header", _P)])
+         ("out_col", _P * MAX_EMIT), ("header", _P),
+         ("in_sets", InSet * MAX_IN)])
 
 
 def smem_bytes(P: int, W: int, ncols: int, ncap: int) -> int:
@@ -136,12 +138,13 @@ class BlockPlan:
 
         atom_of_ref = {a.ref: a.pos for a in atoms}
         code: List[int] = []
+        ik = InKeys(pexec.in_col0_types)
         for a in atoms:
             if a.filter_expr is None:
                 continue
             words = compile_filter(a.filter_expr,
                                    pexec.filter_scopes[a.ckey], a.ref,
-                                   atom_of_ref)
+                                   atom_of_ref, in_keys=ik)
             if any(at == a.pos for at, _ in cap_loads(words)):
                 # the block step binds an atom's own indexed ref to the
                 # incoming event; the bytecode would read the capture
@@ -157,6 +160,7 @@ class BlockPlan:
                 f"block_nfa kernel takes {MAX_CODE}")
         for j, w in enumerate(code):
             t.code[j] = w
+        self.in_keys = ik.keys
 
         self.emit = sorted((atom_of_ref[ref], pos)
                            for ref, pos in sel.used_columns())
@@ -185,7 +189,7 @@ def _check(x: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
 
 
 def launch(kp: BlockPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
-           now: int):
+           now: int, in_tabs=None):
     """Launch K8 on the current stream.  Returns the updated packed state
     (same blobs) and the kernel's outputs before projection: (header
     i64[1] = completions written, ts, valid, {(atom, col): column}), CT
@@ -253,11 +257,12 @@ def launch(kp: BlockPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     pl.out_ts, pl.out_valid = out_ts.data_ptr(), out_valid.data_ptr()
     pl.header = header.data_ptr()
 
+    held = fill_sets(pl.in_sets, kp.in_keys, in_tabs or {})
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.launch_plan("block_nfa", "siddhi_block_nfa",
                       "siddhi_block_nfa_plan_size", pl, stream)
     launches += 1
-    del converted
+    del converted, held
     return (b32, b64, scalars), (header, out_ts, out_valid, out_cols)
 
 
@@ -294,18 +299,21 @@ class BlockStep:
         self.kernel_plan = kernel_plan
         self.wire = wire
 
-    def __call__(self, packed, sel_state, raw_cols, *args):
+    def __call__(self, packed, sel_state, raw_cols, *args, in_tabs=None):
         if packed[0].is_cuda:
-            return self.kernel(packed, sel_state, raw_cols, *args)
-        return self.plain(packed, sel_state, raw_cols, *args)
+            return self.kernel(packed, sel_state, raw_cols, *args,
+                               in_tabs=in_tabs)
+        return self.plain(packed, sel_state, raw_cols, *args,
+                          in_tabs=in_tabs)
 
-    def plain(self, packed, sel_state, raw_cols, *args):
+    def plain(self, packed, sel_state, raw_cols, *args, in_tabs=None):
         """The plain PyTorch step (the kernel's reference)."""
         global plain_calls
         plain_calls += 1
-        return self.body(packed, sel_state, raw_cols, *args)
+        return self.body(packed, sel_state, raw_cols, *args,
+                         in_tabs=in_tabs)
 
-    def kernel(self, packed, sel_state, raw_cols, *args):
+    def kernel(self, packed, sel_state, raw_cols, *args, in_tabs=None):
         if self.kernel_plan is None:
             raise NotImplementedError(
                 "this pattern plan has no CUDA kernel plan (planned for "
@@ -317,6 +325,6 @@ class BlockStep:
             raw_ts, sel_idx, _key_ref, now = args
             ts_wire = None
         packed, kout = launch(self.kernel_plan, packed, raw_cols, raw_ts,
-                              ts_wire, sel_idx, now)
+                              ts_wire, sel_idx, now, in_tabs)
         sel_state, out = project(self.kernel_plan, sel_state, kout, now)
         return packed, sel_state, out, NO_WAKEUP

@@ -17,7 +17,9 @@ promotion and in-band null rules are the executor's:
   * `is null` reads the in-band null of its operand's type.
 
 Subset: constants, event-column, capture-column and other-row loads,
-`+ - * /`, the six comparisons, and/or/not, `is null`, `coalesce(...)`.
+`+ - * /`, the six comparisons, and/or/not, `is null`, `coalesce(...)`,
+and `x in Table` where the caller's kernel carries the probe's hash sets
+(`in_keys`).
 Anything else raises CompileError.  The other-row load is the join
 probe's: in a join's ON condition one side is the row under evaluation
 (`LOAD_EV`) and the other the candidate row it is paired with
@@ -27,7 +29,10 @@ row is an outer join's unmatched row.
 Word layout (operands follow the opcode):
   LOAD_EV col | LOAD_CAP atom col | CONST lo hi | ARITH op t lt rt lnk rnk |
   CMP op ct lt rt lnk rnk | AND | OR | NOT | ISNULL nk | LOAD_OTHER col |
-  COALESCE t lt rt lnk rnk onk
+  COALESCE t lt rt lnk rnk onk | IN set ct ot onk
+IN pops a value of type ot, casts it to the compare type ct and pushes
+whether it is in hash set `set` (`kernels/in_probe.py`: the first column of
+a table under ct); an in-band null is looked up like any other value.
 COALESCE pops b, a; casts each to t, a null operand (by its null kind) to
 the null of t (null kind onk); and pushes a unless a is then null, else b
 (`coalesce(x, y, z)` folds left, as the executor's `coalesce` does).
@@ -51,6 +56,7 @@ from ..query_api.expression import (
     Compare,
     Constant,
     Divide,
+    In,
     IsNull,
     Multiply,
     Not,
@@ -60,7 +66,7 @@ from ..query_api.expression import (
 )
 
 LOAD_EV, LOAD_CAP, CONST, ARITH, CMP, AND, OR, NOT, ISNULL, LOAD_OTHER, \
-    COALESCE = range(1, 12)
+    COALESCE, IN = range(1, 13)
 T_I32, T_I64, T_F32, T_BOOL = range(4)
 N_NONE, N_INT, N_LONG, N_NAN, N_ID = range(5)
 
@@ -95,16 +101,38 @@ def _words(value, attr_type: str) -> Tuple[int, int]:
     return lo, hi
 
 
+class InKeys:
+    """The `x in Table` probes of a kernel plan: the (table, compare type)
+    pair behind each hash set its OP_IN words index, in order.
+    `col0_types` gives each probe-able table's first attribute type."""
+
+    def __init__(self, col0_types: Dict[str, str]):
+        self.col0_types = col0_types
+        self.keys: List[Tuple[str, int]] = []
+
+    def index(self, table: str, ct: int) -> int:
+        if (table, ct) not in self.keys:
+            self.keys.append((table, ct))
+        return self.keys.index((table, ct))
+
+
 def compile_filter(expr, scope: Scope, own_ref: str,
                    atom_of_ref: Dict[str, int],
-                   other_ref: Optional[str] = None) -> List[int]:
+                   other_ref: Optional[str] = None,
+                   in_keys: Optional[InKeys] = None) -> List[int]:
     """Bytecode of one filter.  `scope` is the filter's scope (unqualified
     names bind to its own stream); `own_ref` loads come from the row under
     evaluation, `other_ref` loads (a join's other side) from the candidate
     row, every other ref from that pattern atom's capture in the slot under
-    evaluation (`atom_of_ref`: ref -> atom)."""
+    evaluation (`atom_of_ref`: ref -> atom).  `in_keys` collects the
+    plan's probes; without it `x in Table` is outside the subset."""
     code: List[int] = []
-    t = _emit(expr, scope, own_ref, atom_of_ref, code, other_ref)
+    global _IN_KEYS
+    _IN_KEYS = in_keys
+    try:
+        t = _emit(expr, scope, own_ref, atom_of_ref, code, other_ref)
+    finally:
+        _IN_KEYS = None
     if t.type != "BOOL":
         raise CompileError("filter must be boolean")
     return code
@@ -183,6 +211,24 @@ def _emit(expr, scope, own_ref, atom_of_ref, code,
                  else N_NONE]
         return CompiledExpr(None, "BOOL")
 
+    if isinstance(expr, In):
+        if _IN_KEYS is None or expr.source_id not in _IN_KEYS.col0_types:
+            raise CompileError(
+                "'in Table' here is outside the kernels' subset "
+                "(ROADMAP B-probe)")
+        inner = _emit(expr.expression, scope, own_ref, atom_of_ref, code,
+                      other_ref)
+        if inner.type in ("OBJECT",):
+            raise CompileError("'in' over an object value is outside the "
+                               "kernel filter subset")
+        ct = _DTYPE_CODE[compare_dtype(
+            ev.dtype_of(inner.type),
+            ev.dtype_of(_IN_KEYS.col0_types[expr.source_id]))]
+        code += [IN, _IN_KEYS.index(expr.source_id, ct), ct,
+                 type_code(inner.type),
+                 null_kind(inner.type) if maybe_null(inner) else N_NONE]
+        return CompiledExpr(None, "BOOL")
+
     if isinstance(expr, AttributeFunction) and not expr.namespace and \
             expr.name == "coalesce" and expr.parameters:
         acc = _emit(expr.parameters[0], scope, own_ref, atom_of_ref, code,
@@ -236,7 +282,8 @@ _CMP_FNS = (torch.lt, torch.le, torch.gt, torch.ge, torch.eq, torch.ne)
 
 
 _OP_LEN = {LOAD_EV: 2, LOAD_CAP: 3, CONST: 3, ARITH: 7, CMP: 7, AND: 1,
-           OR: 1, NOT: 1, ISNULL: 2, LOAD_OTHER: 2, COALESCE: 7}
+           OR: 1, NOT: 1, ISNULL: 2, LOAD_OTHER: 2, COALESCE: 7, IN: 5}
+_IN_KEYS: Optional[InKeys] = None
 
 
 def cap_loads(code: List[int]) -> List[Tuple[int, int]]:
@@ -253,11 +300,15 @@ def cap_loads(code: List[int]) -> List[Tuple[int, int]]:
 
 def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
               load_cap: Callable[[int, int], torch.Tensor],
-              load_other: Optional[Callable[[int], torch.Tensor]] = None
+              load_other: Optional[Callable[[int], torch.Tensor]] = None,
+              load_in: Optional[Callable[[int, torch.Tensor],
+                                         torch.Tensor]] = None
               ) -> torch.Tensor:
     """Run bytecode over whole columns: `load_ev(col)`,
     `load_cap(atom, col)` and `load_other(col)` return tensors of one
-    shape (the keys, or the candidate pairs).  Returns the bool column."""
+    shape (the keys, or the candidate pairs); `load_in(set, values)` is
+    the probe of hash set `set` over values already in its compare type.
+    Returns the bool column."""
     stack: List[torch.Tensor] = []
     pc = 0
     while pc < len(code):
@@ -310,6 +361,11 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
             v = stack.pop()
             stack.append(_is_null(v, code[pc + 1]))
             pc += 2
+        elif op == IN:
+            si, ct, ot = code[pc + 1:pc + 4]
+            v = _typed(stack.pop(), ot).to(CODE_DTYPE[ct])
+            stack.append(load_in(si, v))
+            pc += 5
         else:
             raise ValueError(f"bad opcode {op} at {pc}")
     if len(stack) != 1:

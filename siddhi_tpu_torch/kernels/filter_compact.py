@@ -29,6 +29,7 @@ from ..core import event as ev
 from ..core.window import BIG_SEQ, Rows, sort_rows
 from . import _nvcc
 from .filter_bytecode import type_code
+from .in_probe import MAX_IN, InSet, fill_sets, probe_env
 
 launches = 0
 plain_calls = 0
@@ -52,25 +53,48 @@ class FilterPlan(ctypes.Structure):
          ("col", _P * MAX_COLS),
          ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
          ("out_seq", _P), ("out_gslot", _P), ("out_col", _P * MAX_COLS),
-         ("count", _P), ("seq", _P), ("flags", _P), ("block_sums", _P)])
+         ("count", _P), ("seq", _P), ("flags", _P), ("block_sums", _P),
+         ("in_sets", InSet * MAX_IN)])
 
 
 class FilterSpec:
     """The static part of one query's filter step: the stream's column
     types, the filters as compiled torch expressions (the plain version)
     and, on CUDA, as bytecode (the kernel).  `bytecode` is None when the
-    plan was made for the CPU."""
+    plan was made for the CPU.  `in_keys` are the (table, compare type)
+    pairs of the bytecode's `in` probes; `in_tabs` the tables a step's
+    probes read (`bind`)."""
 
     def __init__(self, types: Sequence[str], compiled, bytecode,
-                 scope_key: str):
+                 scope_key: str, in_keys=(), in_tabs=None):
         if bytecode is not None and len(bytecode) > MAX_CODE:
             raise NotImplementedError(
                 f"the filters need {len(bytecode)} bytecode words; the "
                 f"kernel takes {MAX_CODE}")
+        if len(in_keys) > MAX_IN:
+            raise NotImplementedError(
+                f"the filters probe {len(in_keys)} (table, type) pairs; "
+                f"the kernels take {MAX_IN}")
         self.types = list(types)
         self.compiled = list(compiled)
         self.bytecode = bytecode
         self.scope_key = scope_key
+        self.in_keys = list(in_keys)
+        self.in_tabs = in_tabs or {}
+
+    def bind(self, in_tabs) -> "FilterSpec":
+        """This spec with the tables its `in` probes read at one step."""
+        if not in_tabs:
+            return self
+        return FilterSpec(self.types, self.compiled, self.bytecode,
+                          self.scope_key, self.in_keys, in_tabs)
+
+    def env(self, cols, ts, now: int, kind) -> dict:
+        """The compiled filters' env over one batch (the plain version)."""
+        env = {self.scope_key: tuple(cols), "__ts__": ts, "__now__": now,
+               "__kind__": kind}
+        env.update(probe_env(self.in_tabs))
+        return env
 
 
 def filter_compact(spec: FilterSpec, ts, kind, valid, gslot, cols,
@@ -89,8 +113,7 @@ def plain(spec: FilterSpec, ts, kind, valid, gslot, cols, now: int,
     global plain_calls
     plain_calls += 1
     keep = torch.logical_and(valid, kind == ev.CURRENT)
-    env = {spec.scope_key: tuple(cols), "__ts__": ts, "__now__": now,
-           "__kind__": kind}
+    env = spec.env(cols, ts, now, kind)
     for c in spec.compiled:
         keep = torch.logical_and(keep, c.fn(env))
     n = keep.sum().reshape(1)
@@ -173,12 +196,13 @@ def launch(spec: FilterSpec, ts, kind, valid, gslot, cols,
     pl.count = count.data_ptr()
     pl.seq = seq.data_ptr() if seq is not None else None
     pl.flags, pl.block_sums = flags.data_ptr(), block_sums.data_ptr()
+    held = fill_sets(pl.in_sets, spec.in_keys, spec.in_tabs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.launch_plan("filter_compact", "siddhi_filter_compact",
                       "siddhi_filter_plan_size", pl, stream)
     launches += 1
     ocols = tuple(o != 0 if ev.dtype_of(t) == torch.bool else o
                   for o, t in zip(outs, spec.types))
-    del keep_alive
+    del keep_alive, held
     return Rows(ts=out_ts, kind=out_kind, valid=out_valid, seq=out_seq,
                 gslot=out_gslot, cols=ocols), count

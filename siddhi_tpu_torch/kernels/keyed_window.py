@@ -56,6 +56,7 @@ from ..core import event as ev
 from ..core.window import BIG_SEQ, NO_WAKEUP, Rows
 from . import _nvcc
 from .filter_bytecode import type_code
+from .in_probe import MAX_IN, InSet, fill_sets
 
 launches = 0
 plain_calls = 0
@@ -196,8 +197,7 @@ def keyed_window_step(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols,
 
 def _keep(spec, ts, kind, valid, cols, now):
     keep = torch.logical_and(valid, kind == ev.CURRENT)
-    env = {spec.scope_key: tuple(cols), "__ts__": ts, "__now__": now,
-           "__kind__": kind}
+    env = spec.env(cols, ts, now, kind)
     for c in spec.compiled:
         keep = torch.logical_and(keep, c.fn(env))
     return keep
@@ -449,7 +449,8 @@ class KeyedPlan(ctypes.Structure):
          ("p_count", _P),
          ("arr", _P), ("n_arr", _P), ("ocnt", _P), ("block_sums", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
-         ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P)])
+         ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P),
+         ("in_sets", InSet * MAX_IN)])
 
 
 def _check(x, name, dtype, shape, dev):
@@ -530,7 +531,8 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     pl.block_sums, pl.wake = block_sums.data_ptr(), wake.data_ptr()
     bufs = {"cols": keep, "sums": block_sums, "wake": wake,
             "scratch": (arr, n_arr, ocnt),
-            "inputs": (ts, kind, valid, gslot, key_idx, sel)}
+            "inputs": (ts, kind, valid, gslot, key_idx, sel),
+            "sets": fill_sets(pl.in_sets, spec.in_keys, spec.in_tabs)}
     return pl, bufs
 
 

@@ -33,7 +33,8 @@ import torch
 from ..core import event as ev
 from ..core.window import NO_WAKEUP, Rows
 from . import _nvcc
-from .filter_bytecode import compile_filter, type_code
+from .in_probe import MAX_IN, InSet, fill_sets
+from .filter_bytecode import InKeys, compile_filter, type_code
 
 launches = 0
 timer_launches = 0
@@ -110,7 +111,7 @@ class StepPlan(ctypes.Structure):
          ("ev_col", _P * MAX_COLS), ("raw_ts", _P), ("ts_delta", _P),
          ("sel_idx", _P), ("key_idx", _P), ("out_ts", _P),
          ("out_kind", _P), ("out_valid", _P), ("out_col", _P * MAX_EMIT),
-         ("header", _P)])
+         ("header", _P), ("in_sets", InSet * MAX_IN)])
 
 
 def _null_bits(attr_type: str) -> int:
@@ -181,12 +182,13 @@ class KernelPlan:
             i += 1 + len(sch.types)
 
         code: List[int] = []
+        ik = InKeys(pexec.in_col0_types)
         for a in atoms:
             if a.filter_expr is None:
                 continue
             words = compile_filter(a.filter_expr,
                                    pexec.filter_scopes[a.ckey], a.ref,
-                                   atom_of_ref)
+                                   atom_of_ref, in_keys=ik)
             t.code_start[a.pos] = len(code)
             t.code_len[a.pos] = len(words)
             code += words
@@ -196,6 +198,7 @@ class KernelPlan:
                 f"kernel takes {MAX_CODE}")
         for j, w in enumerate(code):
             t.code[j] = w
+        self.in_keys = ik.keys
 
         # emitted capture columns: those the projection reads
         self.emit = sorted((atom_of_ref[ref], pos)
@@ -221,7 +224,8 @@ def _check(x: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
 
 
 def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
-           key_ref, now: int, dense: bool, timer: bool = False):
+           key_ref, now: int, dense: bool, timer: bool = False,
+           in_tabs=None):
     """Launch the kernel on the current stream.  Returns the updated packed
     state (same blobs) and the kernel's outputs before projection:
     (header i64[3] = [n_valid, n_dropped, wake], ts, kind, valid,
@@ -317,6 +321,7 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
         out_kind.data_ptr(), out_valid.data_ptr()
     pl.header = header.data_ptr()
 
+    held = fill_sets(pl.in_sets, kp.in_keys, in_tabs or {})
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.check_launch(lib.siddhi_pattern_step(ctypes.byref(pl), stream),
@@ -325,7 +330,7 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
         timer_launches += 1
     else:
         launches += 1
-    del converted
+    del converted, held
     return (b32, b64, scalars), (header, out_ts, out_kind, out_valid,
                                  out_cols)
 
@@ -375,18 +380,21 @@ class PatternStep:
         self.dense = dense
         self.wire = wire
 
-    def __call__(self, packed, sel_state, raw_cols, *args):
+    def __call__(self, packed, sel_state, raw_cols, *args, in_tabs=None):
         if packed[0].is_cuda:
-            return self.kernel(packed, sel_state, raw_cols, *args)
-        return self.plain(packed, sel_state, raw_cols, *args)
+            return self.kernel(packed, sel_state, raw_cols, *args,
+                               in_tabs=in_tabs)
+        return self.plain(packed, sel_state, raw_cols, *args,
+                          in_tabs=in_tabs)
 
-    def plain(self, packed, sel_state, raw_cols, *args):
+    def plain(self, packed, sel_state, raw_cols, *args, in_tabs=None):
         """The plain PyTorch step (the kernel's reference)."""
         global plain_calls
         plain_calls += 1
-        return self.body(packed, sel_state, raw_cols, *args)
+        return self.body(packed, sel_state, raw_cols, *args,
+                         in_tabs=in_tabs)
 
-    def kernel(self, packed, sel_state, raw_cols, *args):
+    def kernel(self, packed, sel_state, raw_cols, *args, in_tabs=None):
         if self.kernel_plan is None:
             raise NotImplementedError(
                 "this pattern plan has no CUDA kernel plan (planned for "
@@ -398,7 +406,8 @@ class PatternStep:
             raw_ts, sel_idx, key_ref, now = args
             ts_wire = None
         packed, kout = launch(self.kernel_plan, packed, raw_cols, raw_ts,
-                              ts_wire, sel_idx, key_ref, now, self.dense)
+                              ts_wire, sel_idx, key_ref, now, self.dense,
+                              in_tabs=in_tabs)
         sel_state, out = project(self.kernel_plan, sel_state, kout, now)
         return packed, sel_state, out, wake_of(self.kernel_plan, kout)
 
@@ -413,22 +422,23 @@ class TimerStep:
         self.body = body
         self.kernel_plan = kernel_plan
 
-    def __call__(self, packed, sel_state, now):
+    def __call__(self, packed, sel_state, now, in_tabs=None):
         if packed[0].is_cuda:
-            return self.kernel(packed, sel_state, now)
-        return self.plain(packed, sel_state, now)
+            return self.kernel(packed, sel_state, now, in_tabs)
+        return self.plain(packed, sel_state, now, in_tabs)
 
-    def plain(self, packed, sel_state, now):
+    def plain(self, packed, sel_state, now, in_tabs=None):
         global plain_calls
         plain_calls += 1
-        return self.body(packed, sel_state, now)
+        return self.body(packed, sel_state, now, in_tabs)
 
-    def kernel(self, packed, sel_state, now):
+    def kernel(self, packed, sel_state, now, in_tabs=None):
         if self.kernel_plan is None:
             raise NotImplementedError(
                 "this pattern plan has no CUDA kernel plan (planned for "
                 "another device)")
         packed, kout = launch(self.kernel_plan, packed, None, None, None,
-                              None, None, now, True, timer=True)
+                              None, None, now, True, timer=True,
+                              in_tabs=in_tabs)
         sel_state, out = project(self.kernel_plan, sel_state, kout, now)
         return packed, sel_state, out, kout[0][2]

@@ -334,17 +334,17 @@ def test_lane_overflow_is_reported():
 
 @pytest.mark.parametrize("body,err,item", [
     ("from L#window.length(4) join R#window.length(4) on L.symbol == "
-     "R.symbol select L.symbol as s, sum(R.qty) as q group by L.symbol "
-     "insert into O;", NotImplementedError, "A10"),
-    ("from L#window.length(4) join R#window.length(4) on L.symbol == "
-     "R.symbol select count() as c insert into O;", NotImplementedError,
-     "A10"),
+     "R.symbol select L.symbol as s, distinctCount(R.qty) as q group by "
+     "L.symbol insert into O;", CompileError, "B14"),
+    ("from L#window.length(4) join R#window.externalTime(qty, 1 sec) on "
+     "L.symbol == R.symbol select count() as c insert into O;",
+     CompileError, "B12"),
     ("@fuse(batches='2') from L#window.length(4) join R#window.length(4) "
      "on L.symbol == R.symbol select L.symbol as s insert into O;",
      CompileError, "A12"),
     ("from L#window.length(4) join T on L.symbol == T.symbol and "
      "L.symbol in T select L.symbol as s insert into O;", CompileError,
-     "A10"),
+     "B-probe"),
     ("from L#window.length(4) join W on L.symbol == W.symbol "
      "select L.symbol as s insert into O;", CompileError, "A11"),
 ])

@@ -242,15 +242,14 @@ def test_out_of_subset_raises_at_plan_time_on_cuda():
 @pytest.mark.parametrize("body,item", [
     ("from S#window.externalTime(volume, 1 sec) select price insert into O;",
      "B12"),
-    ("from S#window.timeBatch(1 sec) select price insert into O;", "B11"),
-    ("from S select price insert into O order by price;", "B14"),
+    ("from S#window.externalTimeBatch(volume, 1 sec) select price "
+     "insert into O;", "B12"),
+    ("from S#window.length(4) select distinctCount(symbol) as d "
+     "insert into O;", "B14"),
     ("from S select distinctCount(symbol) as d insert into O;", "B14"),
 ])
 def test_unported_single_stream_features_raise(body, item):
     ql = "define stream S (symbol long, price float, volume int);\n" + body
-    if "order by" in body:
-        ql = ("define stream S (symbol long, price float, volume int);\n"
-              "from S select price order by price insert into O;")
     with pytest.raises(CompileError, match=item):
         TorchManager(device="cpu").create_siddhi_app_runtime(ql)
 

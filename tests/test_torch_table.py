@@ -599,7 +599,8 @@ def test_set_expressions_read_the_old_columns():
      from S insert into W;""", "A11"),
     ("""define stream S (k string, v int);
      define table T (k string, v int);
-     from S[k in T] select k, v insert into Out;""", "A10"),
+     from S#window.externalTime(v, 1 sec) select k, v insert into T;""",
+     "B12"),
 ])
 def test_still_raises(ql, item):
     with pytest.raises(CompileError, match=item):
