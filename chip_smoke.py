@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the fifteen kernels of siddhi_tpu_torch/csrc/ with
-     nvcc, one process each, all started together;
+  2. build: compiles the sixteen kernel sources of siddhi_tpu_torch/csrc/
+     with nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
      flagship query at its step's shapes (2^20-key state, 131,072 keys per
@@ -161,7 +161,33 @@ Phases (any failure exits nonzero):
      held to numpy's isin over the table model), each with ev/s, per-send
      p50 / p99 and a profiled sweep;
  28. J1G (J1 with group by L.symbol and sum(R.qty): every delivered row
-     holds its symbol's running sum in emission order).
+     holds its symbol's running sum in emission order);
+ 29. post_filter (K15) against its plain version on every step that
+     reached it in PF1's runtime (131,072-row TIMER and data steps), in a
+     keyed timeBatch, with `in Table`, nulls and bool columns, and after
+     every top-level window; keyed_window's timeBatch mode against its
+     plain version at KT1's shape (65,536 keys x 128: data steps, a tick
+     at one boundary, a tick flushing every key across collapsed
+     boundaries, arrivals past the boundary, a key above its capacity with
+     missed rows) and its time mode at RP1's (4 keys x 4,194,304: in-order
+     sends and ticks, the ordered-ring path, then late readings) and
+     P2's (late trades after in-order rings, one key above its
+     capacity); group_agg's radix mode against
+     its plain version at PG1's 2^21 slots and on random rows with RESET
+     epochs; all exact;
+ 30. their times (CUDA-graph replays) beside their plain versions and
+     bounds: K15 at a PF1 data step, K11 timeBatch at a tick flushing every
+     KT1 key and at a KT1 data step, K11 time at an RP1 data step, K4
+     radix at a PG1 send;
+ 31. RP1 (the query guide's range-partition example, 10-minute windows
+     per area at 10,000 devices: every tick's and data step's rows held
+     to a numpy model), KT1 (a per-device tumbling minute at 65,536
+     devices: a flush round's 65,536 flushes held to a numpy model), PG1
+     (a per-device running maximum over churning devices under @purge at
+     2^21 group slots: every row against a model that forgets idle
+     devices, the allocator's size against it) and PF1 (config 1 with a
+     filter after its window: every send's counts against numpy), each
+     with ev/s, per-send p50 / p99 and a profiled sweep.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -733,6 +759,7 @@ def main() -> None:
     records += table_phases(torch, np, dev)
     records += partition_phases(torch, np, dev)
     records += slice7_phases(torch, np, dev)
+    records += slice8_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -3733,9 +3760,9 @@ K11_OUT = 8 + 4 + 8 + 4   # an emitted row's ts, kind, seq, slot
 
 def partition_modules():
     from siddhi_tpu_torch.kernels import filter_compact, group_agg, \
-        keyed_window
+        keyed_window, post_filter
     return {"keyed_window": keyed_window, "group_agg": group_agg,
-            "filter_compact": filter_compact}
+            "filter_compact": filter_compact, "post_filter": post_filter}
 
 
 def p1_send(np, rng, i, n=None):
@@ -3764,7 +3791,9 @@ def keyed_plan(dev, ql, qname):
 
 def keyed_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
     """K11's arguments for one send, resolved as the runtime resolves
-    them; `tick` (a time): the timer tick over every key."""
+    them (a range partition's rows keyed by their labels, the rows that
+    match no range left out); `tick` (a time): the timer tick over every
+    key."""
     from siddhi_tpu_torch.core import event as ev
     if tick is not None:
         staged = ev.pack_np(planned.in_schema, [], capacity=8)
@@ -3774,12 +3803,20 @@ def keyed_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
         now = tick
     else:
         staged = stage(np, ev, cols, ts)
+        lead = []                       # a range partition's labels
+        if planned.partition_key_fn is not None:
+            lead, kv = planned.partition_key_fn(staged)
+            staged = ev.StagedBatch(staged.ts, staged.kind,
+                                    staged.valid & kv, staged.cols, staged.n)
+            wkeys = list(lead)
+        else:
+            wkeys = [staged.cols[i] for i in planned.window_key_positions]
         _, ki, sl = planned.window_key_allocator.slots_and_group(
-            [staged.cols[i] for i in planned.window_key_positions],
-            staged.valid, pad=planned.key_capacity)
+            wkeys, staged.valid, pad=planned.key_capacity)
         key_idx, sel = (torch.from_numpy(x).to(dev) for x in (ki, sl))
         gslot = planned.slot_allocator.slots_for(
-            [staged.cols[i] for i in planned.group_by_positions],
+            list(lead) + [staged.cols[i] for i in
+                          planned.group_by_positions],
             staged.valid) if planned.slot_allocator is not None else \
             np.zeros(staged.ts.shape[0], np.int32)
         now = int(np.asarray(ts).max())
@@ -3973,7 +4010,8 @@ def k11_bytes(torch, planned, slab, args, n_out):
     """The bytes one K11 step must move: each arrival read once (ts, kind,
     valid, slot, columns, its sel entry) and written into the slab once,
     each emitted row written once, each slab row that leaves read once,
-    each key row's index and counters read and written."""
+    each key row's index and counters read and written.  A flushing
+    timeBatch key also writes its pending rows into the previous slice."""
     from siddhi_tpu_torch.kernels import keyed_window as kw
     ts, kind, valid, gslot, cols, key_idx, sel = args[:7]
     cb = sum(c.element_size() for c in slab.cols)
@@ -3989,6 +4027,20 @@ def k11_bytes(torch, planned, slab, args, n_out):
         e_k = ((sel[live] >= 0) & keep[sel[live].clamp(min=0).long()]).sum(1)
         fl = (slab.count[ki] + e_k) >= slab.C
         n_leave = int((slab.count[ki] + slab.p_count[ki])[fl].sum())
+    elif slab.mode == kw.MODE_TBATCH:
+        # the keys whose boundary `now` has passed (from their start, or
+        # their first arrival) read both slices and move the pending one
+        ki = key_idx[live].long()
+        s_l = sel[live]
+        ok = (s_l >= 0) & keep[s_l.clamp(min=0).long()]
+        a_ts = torch.where(ok, ts[s_l.clamp(min=0).long()], 2 ** 62)
+        start0 = slab.key_state["start"][ki]
+        started = start0 >= 0
+        start = torch.where(started, start0, a_ts.min(1).values)
+        el = torch.where(started | ok.any(1), args[7] - start, 0)
+        fl = torch.div(el.clamp(min=0), args[8], rounding_mode="floor") > 0
+        n_leave = int((slab.count[ki] + slab.p_count[ki])[fl].sum())
+        n_arr += int(slab.count[ki][fl].sum())
     else:
         n_leave = n_out - n_arr
     n_read = int((sel >= 0).sum())     # every event is read to filter it
@@ -4319,11 +4371,16 @@ def keyed_h2d(np, keys, K, col_bytes):
 
 def host_profile(torch, np, rt, h, sends, label):
     """A profiled sweep, printed: device busy, idle share, top ops, and
-    the host time of the key grouping (slots_and_group) and the group
-    slots (slots_for) a send."""
+    the host time a send of the key grouping (slots_and_group), the group
+    slots (slots_for) and, under `@purge`, the purger's ticks (on_timer,
+    its resets included)."""
     from siddhi_tpu_torch.core import keyslots
-    spent = {"slots_and_group": 0.0, "slots_for": 0.0}
-    saved = {n: getattr(keyslots.SlotAllocator, n) for n in spent}
+    from siddhi_tpu_torch.core import runtime as rtm
+    owners = {"slots_and_group": keyslots.SlotAllocator,
+              "slots_for": keyslots.SlotAllocator,
+              "on_timer": rtm._PartitionPurger}
+    spent = dict.fromkeys(owners, 0.0)
+    saved = {n: getattr(c, n) for n, c in owners.items()}
 
     def timed_fn(name):
         f = saved[name]
@@ -4335,18 +4392,20 @@ def host_profile(torch, np, rt, h, sends, label):
             finally:
                 spent[name] += time.perf_counter() - t0
         return g
-    for n in spent:
-        setattr(keyslots.SlotAllocator, n, timed_fn(n))
+    for n, c in owners.items():
+        setattr(c, n, timed_fn(n))
     try:
         prof = device_profile(torch, rt, len(sends), lambda b: h.send_columns(
             sends[b][0], timestamps=sends[b][1]))
     finally:
         for n, f in saved.items():
-            setattr(keyslots.SlotAllocator, n, f)
+            setattr(owners[n], n, f)
     profile_line(label, len(sends), prof)
     print(f"{label} host (profiled sweep): slots_and_group "
           f"{spent['slots_and_group'] * 1e3 / len(sends):.3f} ms a send, "
-          f"slots_for {spent['slots_for'] * 1e3 / len(sends):.3f} ms a send")
+          f"slots_for {spent['slots_for'] * 1e3 / len(sends):.3f} ms a send, "
+          f"purger ticks {spent['on_timer'] * 1e3 / len(sends):.3f} ms a "
+          f"send")
 
 
 def p2_model(np, sends, i):
@@ -5267,6 +5326,82 @@ _P3_SPECS = [
     ("interleaved keys, lengthBatch(2), several keys flush a send",
      _KEYED.format(win="lengthBatch(2)"), "q", _rows(3, 5, 12, 4)),
 ]
+# PR 8's additions: range partitions, @purge, keyed timeBatch, a filter
+# after a keyed window
+_P3_SPECS += [
+    ("range partition, one query",
+     """@app:playback
+     define stream S (sym string, price float, vol int);
+     partition with (vol < 100 as 'small' or
+                     vol >= 100 and vol < 1000 as 'medium' or
+                     vol >= 1000 as 'large' of S)
+     begin @info(name='q') from S select sym, sum(vol) as total
+       insert into Out; end;""", "q",
+     [("S", ["a", 1.0, 50], 1000), ("S", ["b", 1.0, 500], 1001),
+      ("S", ["c", 1.0, 60], 1002), ("S", ["d", 1.0, 2000], 1003)]),
+    ("range partition, unmatched rows leave",
+     """@app:playback
+     define stream S (sym string, vol int);
+     partition with (vol < 10 as 'small' of S)
+     begin @info(name='q') from S select sym, count() as n
+       insert into Out; end;""", "q",
+     [("S", ["in", 5], 1000), ("S", ["out", 50], 1001),
+      ("S", ["in2", 7], 1002)]),
+    ("range partition, pattern",
+     """@app:playback
+     define stream T (key long, price float, vol int);
+     partition with (vol < 100 as 'small' or vol >= 100 as 'big' of T)
+     begin @info(name='p')
+       from every e1=T[price > 10.0] -> e2=T[price > e1.price]
+       select e1.price as p1, e2.price as p2 insert into M; end;""", "p",
+     [("T", [1, 20.0, 5], 1000), ("T", [2, 30.0, 500], 1001),
+      ("T", [3, 25.0, 7], 1002), ("T", [4, 40.0, 600], 1003)]),
+    ("purge recycles pattern slots",
+     """@app:playback
+     define stream T (key long, price float, vol int);
+     partition with (key of T)
+     begin
+       @capacity(keys='16', slots='4')
+       @purge(enable='true', interval='1 sec', idle.period='5 sec')
+       @info(name='p')
+       from every e1=T[vol == 1] -> e2=T[vol == 2 and price >= e1.price]
+       select e1.key as k insert into M;
+     end;""", "p",
+     [("T", [[k, 5.0, 1] for k in range(16)], 1000),
+      ("T", [[0, 5.0, 1]], 20_000),
+      ("T", [[k, 5.0, 1] for k in range(100, 113)], 21_000),
+      ("T", [[3, 9.0, 2]], 21_500),
+      ("T", [[200, 5.0, 1], [200, 6.0, 2]], 22_000)]),
+    ("range partition, lengthBatch per range",
+     """@app:playback
+     define stream S (sym string, vol int);
+     partition with (vol < 100 as 'small' or vol >= 100 as 'big' of S)
+     begin @info(name='q') from S#window.lengthBatch(2)
+       select sym, sum(vol) as total insert into Out; end;""", "q",
+     [("S", ["a", 1], 1000), ("S", ["b", 500], 1001), ("S", ["c", 2], 1002),
+      ("S", ["d", 900], 1003)]),
+    ("purge recycles group-by slots",
+     """@app:playback
+     define stream S (key long, v int);
+     partition with (key of S)
+     begin
+       @purge(enable='true', interval='1 sec', idle.period='5 sec')
+       @info(name='q') from S select key, sum(v) as total insert into Out;
+     end;""", "q",
+     [("S", [1, 10], 1000), ("S", [1, 5], 1100), ("S", [2, 1], 30_000),
+      ("S", [1, 7], 31_000)]),
+    ("interleaved keys, timeBatch(500)", _KEYED.format(win="timeBatch(500)"),
+     "q", _rows(4, 8, 12, 5)),
+    ("filter after a keyed window",
+     """@app:playback
+     define stream S (k long, v float, w int);
+     partition with (k of S)
+     begin
+       @capacity(keys='64')
+       @info(name='q') from S#window.length(3)[w > 2]
+       select k, sum(v) as sv, count() as c insert all events into Out;
+     end;""", "q", _rows(5, 6, 12, 5)),
+]
 
 _R1_BODIES = {
     "single-stream": (
@@ -5569,6 +5704,222 @@ _R1_WANT = [[(1300, [(1000, ('a', 1)), (1300, ('b', 2))], []),
   (3600, [], [(1100, ('b', 4))])],
  [(2000, [(1300, ('b', 6))], []), (3000, [(2500, ('c', 6))], [])],
  [(2000, [(1300, ('b', 6))], []), (3000, [(2500, ('c', 6))], [])]]
+_P3_WANT += [[(1000, [(1000, ('a', 50))], []),
+  (1001, [(1001, ('b', 500))], []),
+  (1002, [(1002, ('c', 110))], []),
+  (1003, [(1003, ('d', 2000))], [])],
+ [(1000, [(1000, ('in', 1))], []), (1002, [(1002, ('in2', 2))], [])],
+ [(1002, [(1002, (20.0, 25.0))], []), (1003, [(1003, (30.0, 40.0))], [])],
+ [(22000, [(22000, (200,))], [])],
+ [(1002, [(1000, ('a', 1)), (1002, ('c', 3))], []),
+  (1003, [(1001, ('b', 500)), (1003, ('d', 1400))], [])],
+ [(1000, [(1000, (1, 10))], []),
+  (1100, [(1100, (1, 15))], []),
+  (30000, [(30000, (2, 1))], []),
+  (31000, [(31000, (1, 7))], [])],
+ [(1500,
+   [(1000, (1, 0.59375, 1, 0)),
+    (1000, (1, 1.3125, 2, 3)),
+    (1000, (1, 1.515625, 3, 3)),
+    (1000, (1, 1.5625, 4, 3)),
+    (1000, (1, 2.5, 5, 3)),
+    (1250, (1, 3.3125, 6, 5)),
+    (1250, (1, 3.703125, 7, 5)),
+    (1000, (3, 0.953125, 1, 1)),
+    (1250, (3, 1.265625, 2, 2)),
+    (1250, (3, 1.65625, 3, 6)),
+    (1250, (3, 2.296875, 4, 7)),
+    (1000, (0, 0.671875, 1, 5)),
+    (1250, (0, 0.75, 2, 6)),
+    (1000, (2, 0.375, 1, 1)),
+    (1000, (2, 0.953125, 2, 4)),
+    (1250, (2, 1.5625, 3, 7)),
+    (1250, (2, 2.5, 4, 7)),
+    (1250, (2, 2.859375, 5, 7)),
+    (1000, (4, 0.484375, 1, 1)),
+    (1250, (4, 1.046875, 2, 5))],
+   []),
+  (2000,
+   [(1500, (1, 0.640625, 1, 0)),
+    (1750, (1, 1.484375, 2, 2)),
+    (1750, (1, 1.5625, 3, 7)),
+    (1500, (3, 0.140625, 1, 3)),
+    (1500, (3, 0.453125, 2, 4)),
+    (1750, (3, 0.9375, 3, 4)),
+    (1750, (3, 1.328125, 4, 4)),
+    (1500, (0, 0.453125, 1, 3)),
+    (1750, (0, 1.359375, 2, 3)),
+    (1750, (0, 1.6875, 3, 8)),
+    (1750, (0, 1.921875, 4, 8)),
+    (1500, (2, 0.34375, 1, 3)),
+    (1500, (2, 0.5, 2, 3)),
+    (1500, (2, 0.53125, 3, 4)),
+    (1500, (2, 1.171875, 4, 4)),
+    (1500, (2, 1.4375, 5, 4)),
+    (1750, (2, 2.15625, 6, 4)),
+    (1750, (2, 2.96875, 7, 4)),
+    (1500, (4, 0.46875, 1, 0)),
+    (1500, (4, 0.84375, 2, 6)),
+    (1750, (4, 0.859375, 3, 6)),
+    (1750, (4, 1.046875, 4, 6))],
+   [(1000, (1, -0.59375, -1, None)),
+    (1000, (1, -1.3125, -2, None)),
+    (1000, (1, -1.515625, -3, None)),
+    (1000, (1, -1.5625, -4, None)),
+    (1000, (1, -2.5, -5, None)),
+    (1250, (1, -3.3125, -6, None)),
+    (1250, (1, -3.703125, -7, None)),
+    (1000, (3, -0.953125, -1, None)),
+    (1250, (3, -1.265625, -2, None)),
+    (1250, (3, -1.65625, -3, None)),
+    (1250, (3, -2.296875, -4, None)),
+    (1000, (0, -0.671875, -1, None)),
+    (1250, (0, -0.75, -2, None)),
+    (1000, (2, -0.375, -1, None)),
+    (1000, (2, -0.953125, -2, None)),
+    (1250, (2, -1.5625, -3, None)),
+    (1250, (2, -2.5, -4, None)),
+    (1250, (2, -2.859375, -5, None)),
+    (1000, (4, -0.484375, -1, None)),
+    (1250, (4, -1.046875, -2, None))]),
+  (2500,
+   [(2000, (1, 0.984375, 1, 2)),
+    (2000, (1, 1.4375, 2, 5)),
+    (2250, (1, 2.109375, 3, 5)),
+    (2250, (1, 3.03125, 4, 8)),
+    (2250, (1, 3.03125, 5, 8)),
+    (2250, (1, 3.046875, 6, 8)),
+    (2000, (3, 0.8125, 1, 6)),
+    (2000, (3, 1.296875, 2, 6)),
+    (2000, (3, 2.0625, 3, 6)),
+    (2000, (3, 2.46875, 4, 8)),
+    (2250, (3, 3.09375, 5, 8)),
+    (2250, (3, 3.890625, 6, 8)),
+    (2000, (0, 0.4375, 1, 5)),
+    (2000, (0, 0.5, 2, 5)),
+    (2000, (0, 1.125, 3, 8)),
+    (2250, (0, 1.671875, 4, 8)),
+    (2250, (0, 2.453125, 5, 8)),
+    (2000, (2, 0.484375, 1, 7)),
+    (2000, (2, 0.765625, 2, 7)),
+    (2250, (2, 1.546875, 3, 7)),
+    (2250, (2, 1.765625, 4, 7)),
+    (2250, (4, 0.421875, 1, 3))],
+   [(1500, (1, -0.640625, -1, None)),
+    (1750, (1, -1.484375, -2, None)),
+    (1750, (1, -1.5625, -3, None)),
+    (1500, (3, -0.140625, -1, None)),
+    (1500, (3, -0.453125, -2, None)),
+    (1750, (3, -0.9375, -3, None)),
+    (1750, (3, -1.328125, -4, None)),
+    (1500, (0, -0.453125, -1, None)),
+    (1750, (0, -1.359375, -2, None)),
+    (1750, (0, -1.6875, -3, None)),
+    (1750, (0, -1.921875, -4, None)),
+    (1500, (2, -0.34375, -1, None)),
+    (1500, (2, -0.5, -2, None)),
+    (1500, (2, -0.53125, -3, None)),
+    (1500, (2, -1.171875, -4, None)),
+    (1500, (2, -1.4375, -5, None)),
+    (1750, (2, -2.15625, -6, None)),
+    (1750, (2, -2.96875, -7, None)),
+    (1500, (4, -0.46875, -1, None)),
+    (1500, (4, -0.84375, -2, None)),
+    (1750, (4, -0.859375, -3, None)),
+    (1750, (4, -1.046875, -4, None))])],
+ [(1000,
+   [(1000, (4, 0.5, 1)),
+    (1000, (4, 0.546875, 2)),
+    (1000, (1, 0.75, 1)),
+    (1000, (1, 1.5625, 2)),
+    (1000, (0, 0.734375, 1)),
+    (1000, (0, 1.0, 2))],
+   [(1000, (1, 0.8125, 1)), (1000, (1, None, 0))]),
+  (1250,
+   [(1250, (4, 0.046875, 2)),
+    (1250, (1, 0.578125, 1)),
+    (1250, (1, 1.34375, 2)),
+    (1250, (1, 1.046875, 2)),
+    (1250, (0, 0.984375, 2)),
+    (1250, (0, 1.640625, 3)),
+    (1250, (2, 0.125, 1)),
+    (1250, (2, 0.734375, 2)),
+    (1250, (2, 1.09375, 3)),
+    (1250, (2, 1.0, 3))],
+   [(1000, (4, 0.046875, 1)),
+    (1250, (1, 0.765625, 1)),
+    (1000, (0, 0.265625, 1)),
+    (1250, (2, 0.96875, 2))]),
+  (1500,
+   [(1500, (4, 0.015625, 2)),
+    (1500, (1, 0.953125, 2)),
+    (1500, (0, 1.734375, 3)),
+    (1500, (0, 1.75, 3)),
+    (1500, (2, 0.890625, 3)),
+    (1500, (2, 1.078125, 3)),
+    (1500, (3, 0.03125, 1)),
+    (1500, (3, 0.75, 2)),
+    (1500, (3, 1.4375, 3))],
+   [(1000, (4, 0.0, 1)),
+    (1250, (1, 0.28125, 1)),
+    (1000, (0, 1.375, 2)),
+    (1250, (0, 1.015625, 2)),
+    (1250, (0, 1.09375, 2)),
+    (1250, (2, 0.390625, 2)),
+    (1250, (2, 0.53125, 2))]),
+  (1750,
+   [(1750, (4, 0.25, 1)),
+    (1750, (1, 1.28125, 2)),
+    (1750, (1, 1.296875, 2)),
+    (1750, (0, 1.34375, 2)),
+    (1750, (0, 0.671875, 2)),
+    (1750, (0, 1.0, 3))],
+   [(1250, (4, 0.015625, 1)),
+    (1500, (4, None, 0)),
+    (1250, (1, 0.671875, 1)),
+    (1500, (1, 0.609375, 1)),
+    (1500, (0, 0.734375, 1)),
+    (1500, (0, 0.609375, 1)),
+    (1250, (2, 1.046875, 2)),
+    (1500, (2, 0.546875, 1)),
+    (1500, (2, None, 0)),
+    (1500, (3, 1.40625, 2))]),
+  (2000,
+   [(2000, (1, 1.671875, 2)),
+    (2000, (1, 1.84375, 3)),
+    (2000, (0, 1.140625, 3)),
+    (2000, (2, 0.0625, 1)),
+    (2000, (2, 0.609375, 2)),
+    (2000, (2, 1.1875, 3)),
+    (2000, (3, 0.328125, 1)),
+    (2000, (3, 1.296875, 2)),
+    (2000, (3, 1.84375, 3))],
+   [(1750, (1, 0.6875, 1)),
+    (1750, (0, 0.390625, 2)),
+    (1500, (3, 0.6875, 1)),
+    (1500, (3, None, 0)),
+    (2000, (3, 1.515625, 2))]),
+  (2250,
+   [(2250, (4, 0.75, 2)),
+    (2250, (4, 1.453125, 3)),
+    (2250, (4, 2.03125, 3)),
+    (2250, (1, 1.171875, 3)),
+    (2250, (2, 2.046875, 3)),
+    (2250, (2, 2.1875, 3)),
+    (2250, (2, 1.953125, 3)),
+    (2250, (2, 1.6875, 3)),
+    (2250, (2, 1.953125, 3))],
+   [(1750, (4, 1.203125, 2)),
+    (2250, (4, 1.53125, 2)),
+    (1750, (1, 1.15625, 2)),
+    (2000, (1, 0.1875, 2)),
+    (1750, (0, 1.078125, 2)),
+    (2000, (2, 1.125, 2)),
+    (2000, (2, 1.5, 2)),
+    (2000, (2, 1.609375, 2)),
+    (2250, (2, 1.03125, 2)),
+    (2250, (2, 1.0, 2))])]]
+
 P3_CASES = [spec + (want,) for spec, want in zip(_P3_SPECS, _P3_WANT)]
 R1_CASES = [spec + (want,) for spec, want in zip(_R1_SPECS, _R1_WANT)]
 
@@ -6489,6 +6840,1062 @@ begin
   insert into DeviceTempStream;
 end;
 """
+
+
+# ---------------------------------------------------------------------------
+# phases 29-32: range partitions, @purge, keyed timeBatch (K11's timeBatch
+# mode), filters after the window (K15 post_filter) and group_agg beyond
+# 4,096 slots (K4's radix mode)
+# ---------------------------------------------------------------------------
+
+RP1_DEV, RP1_ROOMS, RP1_B = 10_000, 1500, 1 << 17
+RP1_T = 600_000           # time(10 min)
+RP1_FILL, RP1_TIMED, RP1_CHECK = 48, 16, 2
+KT1_KEYS = 1 << 16        # KT1's devices (@capacity(keys='65536'))
+KT1_T = 60_000            # timeBatch(1 min): 30 sends a slice
+KT1_C = 128               # a key's slice capacity: max(128, 2 * 64)
+KT1_FILL, KT1_CHECK, KT1_TIMED = 59, 2, 32
+PG1_B, PG1_SHIFT, PG1_SPAN = 1 << 17, 1 << 14, 1 << 20
+PG1_IDLE = 30_000         # @purge(idle.period='30 sec', interval='1 sec')
+PG1_KEYS_CAP = 1 << 21    # @capacity(keys='2097152'): its group slots
+PG1_FILL, PG1_TIMED, PG1_CHECK = 64, 32, 2
+PF1_SYM = N_SYM
+PF1_FILL, PF1_TIMED = 104, 16
+
+
+def slice8_modules():
+    from siddhi_tpu_torch.kernels import (filter_compact, group_agg,
+                                          keyed_window, post_filter,
+                                          time_window)
+    return {"keyed_window": keyed_window, "group_agg": group_agg,
+            "filter_compact": filter_compact, "post_filter": post_filter,
+            "time_window": time_window}
+
+
+def rp1_send(np, rng, i):
+    """RP1's send i: readings i*B .. (i+1)*B - 1 of a stream in which
+    each of RP1_DEV devices reads once a second (all at the second's
+    timestamp, in device order); device d sits in room d * 1500 // DEV;
+    temperatures are integers 0-3, so every window sum is exact."""
+    j = i * RP1_B + np.arange(RP1_B, dtype=np.int64)
+    dev = j % RP1_DEV
+    room = (dev * RP1_ROOMS // RP1_DEV).astype(np.int32)
+    temp = rng.integers(0, 4, RP1_B).astype(np.float32)
+    return [dev, room, temp], 1000 + 1000 * (j // RP1_DEV)
+
+
+def rp1_area(np, room):
+    """The first range a room matches: 0 serverRoom, 1 officeRoom, 2
+    lobby."""
+    return np.where(room >= 1030, 0, np.where(room >= 330, 1, 2))
+
+
+class RP1Model:
+    """RP1's window per area in numpy: the alive readings in arrival order
+    and their count and (exact) temperature sum."""
+
+    def __init__(self, np, t):
+        self.np, self.t = np, t
+        self.rows = [[] for _ in range(3)]   # chunks (ts, device, temp)
+        self.head = [0, 0, 0]                # rows of chunk 0 gone
+        self.n = [0, 0, 0]
+        self.sum = [0.0, 0.0, 0.0]
+
+    def _expire(self, a, w):
+        """Area a's rows with ts + t == w (a prefix), removed."""
+        np = self.np
+        out = []
+        while self.rows[a]:
+            ts, d, tp = self.rows[a][0]
+            h = self.head[a]
+            k = h + int(np.searchsorted(ts[h:], w - self.t, side="right"))
+            out.append((ts[h:k], d[h:k], tp[h:k]))
+            if k < ts.shape[0]:
+                self.head[a] = k
+                break
+            self.rows[a].pop(0)
+            self.head[a] = 0
+        return [np.concatenate(x) for x in zip(*out)] if out else None
+
+    def _oldest(self, a):
+        return int(self.rows[a][0][0][self.head[a]]) if self.rows[a] \
+            else None
+
+    def _check(self, b, want, what):
+        """The valid rows of one step: each area's rows together, in the
+        rows' area order, as `want` = {area: (kind, ts, device, avg)}."""
+        np = self.np
+        v = b["valid"]
+        area = rp1_area(np, b["cols"]["roomNo"][v])
+        starts = np.r_[0, np.nonzero(area[1:] != area[:-1])[0] + 1] \
+            if area.shape[0] else np.zeros(0, np.int64)
+        order = [int(x) for x in area[starts]]
+        if sorted(order) != sorted(want):
+            fail(f"{what}: rows for areas {order}, expected {sorted(want)} "
+                 f"(or an area's rows are not together)")
+        got = (b["kind"][v], b["ts"][v], b["cols"]["deviceID"][v],
+               b["cols"]["avgTemp"][v].view(np.int32))
+        for j, name in enumerate(("kind", "ts", "deviceID", "avgTemp")):
+            w = np.concatenate([want[a][j] for a in order])
+            if name == "avgTemp":
+                w = w.view(np.int32)
+            if not np.array_equal(got[j], w):
+                bad = np.nonzero(got[j] != w)[0][:3]
+                fail(f"{what}: {name} differs at rows {bad}")
+
+    def step(self, cols, ts, batches=None, what="RP1"):
+        """Advances over one send: the TIMER ticks at each expiry time up
+        to the send's time (one step each, expiring the readings of that
+        second), then the data step.  With `batches` (the send's delivered
+        steps) holds every row: EXPIRED rows with ts + t and the running
+        avg after each removal, CURRENT rows with the running avg after
+        each arrival.  Returns the number of ticks."""
+        np = self.np
+        now = int(ts.max())
+        dev, room, temp = cols
+        area = rp1_area(np, room)
+        steps = [b for b in batches if b["n_valid"]] if batches is not None \
+            else None
+        ticks = 0
+        while True:
+            old = [self._oldest(a) for a in range(3)]
+            due = [o + self.t for o in old if o is not None and
+                   o + self.t <= now]
+            if not due:
+                break
+            w = min(due)
+            want = {}
+            for a in range(3):
+                if old[a] is None or old[a] + self.t != w:
+                    continue
+                e_ts, e_dev, e_tp = self._expire(a, w)
+                cum = np.cumsum(e_tp, dtype=np.float64)
+                cnt = self.n[a] - np.arange(1, e_ts.shape[0] + 1)
+                avg = ((self.sum[a] - cum) / cnt).astype(np.float32)
+                want[a] = (np.ones(e_ts.shape[0], np.int32), e_ts + self.t,
+                           e_dev, avg)
+                self.n[a] -= e_ts.shape[0]
+                self.sum[a] -= float(cum[-1])
+            if steps is not None:
+                self._check(steps[ticks], want, f"{what} tick at {w}")
+            ticks += 1
+        want = {}
+        for a in range(3):
+            m = area == a
+            if not m.any():
+                continue
+            cum = np.cumsum(temp[m], dtype=np.float64)
+            cnt = self.n[a] + np.arange(1, int(m.sum()) + 1)
+            avg = ((self.sum[a] + cum) / cnt).astype(np.float32)
+            want[a] = (np.zeros(int(m.sum()), np.int32), ts[m], dev[m], avg)
+            self.rows[a].append((ts[m], dev[m], temp[m]))
+            self.n[a] += int(m.sum())
+            self.sum[a] += float(cum[-1])
+        if steps is not None:
+            if len(steps) != ticks + 1:
+                fail(f"{what}: {len(steps)} steps delivered rows, expected "
+                     f"{ticks} ticks and the data step")
+            self._check(steps[ticks], want, f"{what} data step")
+        return ticks
+
+
+def kt1_send(np, rng, i):
+    """KT1's send i: two readings of each device, 1 s apart, device d at
+    offset d mod 1000 ms, in timestamp order; 2 s of event time."""
+    d = np.arange(KT1_KEYS, dtype=np.int64)
+    base = 1000 + 2000 * i + d % 1000
+    ts = np.concatenate([base, base + 1000])
+    order = np.argsort(ts, kind="stable")
+    dev = np.concatenate([d, d])[order]
+    temp = (rng.integers(0, 1 << 14, 2 * KT1_KEYS) / 256).astype(np.float32)
+    return [dev, (dev % 97).astype(np.int32), temp], ts[order]
+
+
+class KT1Model:
+    """KT1's slices in numpy: per device its start, pending slice (ts,
+    temp) and previous slice's timestamps."""
+
+    def __init__(self, np, K, t, C=KT1_C):
+        self.np, self.t = np, t
+        self.start = np.full(K, -1, np.int64)
+        self.pts = np.zeros((K, C), np.int64)
+        self.ptemp = np.zeros((K, C), np.float32)
+        self.pn = np.zeros(K, np.int64)
+        self.qts = np.zeros((K, C), np.int64)
+        self.qn = np.zeros(K, np.int64)
+
+    def _want(self, keys):
+        """The rows of `keys`' flushes, key by key: the previous slice
+        EXPIRED, then the pending slice CURRENT with its running max."""
+        np = self.np
+        C = self.pts.shape[1]
+        ar = np.arange(C)[None, :]
+        mask = np.concatenate([ar < self.qn[keys][:, None],
+                               ar < self.pn[keys][:, None]], 1)
+        kind = np.concatenate([np.ones((len(keys), C), np.int32),
+                               np.zeros((len(keys), C), np.int32)], 1)
+        ts = np.concatenate([self.qts[keys], self.pts[keys]], 1)
+        mx = np.concatenate([np.zeros((len(keys), C), np.float32),
+                             np.maximum.accumulate(self.ptemp[keys], 1)], 1)
+        dev = np.repeat(np.asarray(keys, np.int64)[:, None], 2 * C, 1)
+        return [x[mask] for x in (kind, ts, dev, mx)]
+
+    def step(self, cols, ts, batches=None, what="KT1"):
+        """Advances over one send: each device whose boundary the send's
+        time has passed flushes in the timer tick at its boundary (one
+        tick per distinct boundary, in order), then the arrivals join the
+        pending slices.  With `batches` holds every tick's rows to the
+        flushes (key by key; CURRENT rows with ts, deviceID and the running
+        max; EXPIRED rows with ts) and the data step to no rows.  Returns
+        the number of flushing devices."""
+        np = self.np
+        now = int(ts.max())
+        bound = self.start + self.t
+        due = (self.start >= 0) & (bound <= now)
+        if batches is not None:
+            steps = [b for b in batches if b["n_valid"]]
+            ws = np.unique(bound[due])
+            if len(steps) != ws.shape[0]:
+                fail(f"{what}: {len(steps)} steps delivered rows, expected "
+                     f"{ws.shape[0]} ticks")
+            for b, w in zip(steps, ws):
+                v = b["valid"]
+                o_dev = b["cols"]["deviceID"][v]
+                starts = np.r_[0, np.nonzero(o_dev[1:] != o_dev[:-1])[0] + 1]
+                keys = o_dev[starts]
+                if np.unique(keys).shape[0] != keys.shape[0] or \
+                        not np.array_equal(np.sort(keys),
+                                           np.nonzero(due & (bound == w))[0]):
+                    fail(f"{what}: the tick at {w} flushed other devices, or "
+                         f"a device's rows are not together")
+                kind, wts, wdev, wmx = self._want(keys)
+                cur = kind == 0
+                got = b["cols"]["maxTemp"][v]
+                if not (np.array_equal(b["kind"][v], kind) and
+                        np.array_equal(b["ts"][v], wts) and
+                        np.array_equal(o_dev, wdev) and
+                        np.array_equal(b["cols"]["roomNo"][v],
+                                       (wdev % 97).astype(np.int32)) and
+                        np.array_equal(got[cur].view(np.int32),
+                                       wmx[cur].view(np.int32))):
+                    fail(f"{what}: the tick at {w} differs from the model")
+        k = np.nonzero(due)[0]
+        self.qts[k] = self.pts[k]
+        self.qn[k] = self.pn[k]
+        self.pn[k] = 0
+        self.start[k] += self.t
+        dev, _, temp = cols
+        order = np.argsort(dev, kind="stable")
+        d, t_s, tp = dev[order], ts[order], temp[order]
+        head = np.ones(d.shape[0], np.bool_)
+        head[1:] = d[1:] != d[:-1]
+        first = np.nonzero(head)[0]
+        a = np.arange(d.shape[0]) - first[np.cumsum(head) - 1]
+        fresh = self.start[d[first]] < 0
+        self.start[d[first][fresh]] = t_s[first][fresh]
+        pos = self.pn[d] + a
+        self.pts[d, pos] = t_s
+        self.ptemp[d, pos] = tp
+        np.add.at(self.pn, d, 1)
+        return int(k.shape[0])
+
+
+def pg1_send(np, rng, i):
+    """PG1's send i: 131,072 readings over 1 s, device ids uniform over
+    [16,384 i, 16,384 i + 2^20)."""
+    ids = PG1_SHIFT * i + rng.integers(0, PG1_SPAN, PG1_B)
+    ts = 1000 + 1000 * i + (np.arange(PG1_B, dtype=np.int64) * 1000) // PG1_B
+    temp = (rng.integers(0, 1 << 14, PG1_B) / 256).astype(np.float32)
+    return [ids.astype(np.int64), (ids % 97).astype(np.int32), temp], ts
+
+
+class PG1Model:
+    """PG1 in numpy: each device's running max(temp) and the time it was
+    last seen; the purge tick every second (from the app's start at 0)
+    forgets the devices last seen before the tick's time minus
+    idle.period, so a purged device's maximum starts again."""
+
+    def __init__(self, np, n_ids, idle, interval=1000):
+        self.np, self.idle, self.interval = np, idle, interval
+        self.maxv = np.full(n_ids, -np.inf, np.float32)
+        self.last = np.full(n_ids, -1, np.int64)
+        self.tick = interval
+
+    def step(self, cols, ts, b=None, what="PG1"):
+        """Advances over one send (the purge ticks up to its time, then
+        its rows).  With `b`, the send's delivered rows, holds every row
+        (in send order): deviceID, roomNo and the running max.  Returns
+        the devices purged before the send."""
+        np = self.np
+        now = int(ts.max())
+        purged = 0
+        while self.tick <= now:
+            gone = (self.last >= 0) & (self.last < self.tick - self.idle)
+            self.maxv[gone] = -np.inf
+            self.last[gone] = -1
+            purged += int(gone.sum())
+            self.tick += self.interval
+        ids, room, temp = cols
+        n = ids.shape[0]
+        order = np.argsort(ids, kind="stable")
+        k = ids[order]
+        head = np.ones(n, np.bool_)
+        head[1:] = k[1:] != k[:-1]
+        seg = np.cumsum(head) - 1
+        off = seg * 128.0              # temperatures lie in [0, 64)
+        run = np.maximum.accumulate(temp[order] + off) - off
+        run = np.maximum(run.astype(np.float32), self.maxv[k])
+        want = np.empty(n, np.float32)
+        want[order] = run
+        last = np.r_[np.nonzero(head)[0][1:] - 1, n - 1]
+        self.maxv[k[last]] = run[last]
+        self.last[ids] = now
+        if b is not None:
+            v = b["valid"]
+            got = (b["cols"]["deviceID"][v], b["cols"]["roomNo"][v],
+                   b["cols"]["maxTemp"][v])
+            if got[0].shape[0] != n or not (
+                    np.array_equal(got[0], ids) and
+                    np.array_equal(got[1], room) and
+                    np.array_equal(got[2].view(np.int32),
+                                   want.view(np.int32))):
+                fail(f"{what}: rows differ from the model")
+        return purged
+
+
+def pf1_counts(np, sends, i):
+    """PF1's (n_current, n_expired) at send i: the rows of send i with
+    price > 0.5, and those of the send its 1-second window expires."""
+    cur = int((sends[i][0][1] > 0.5).sum())
+    old = i - FILL
+    return cur, int((sends[old][0][1] > 0.5).sum()) if old >= 0 else 0
+
+
+def pf1_check(np, sends, last, fetched, what="PF1"):
+    """The last send's rows: count() of every symbol after the expiry
+    (its last EXPIRED row) and after the send (its last CURRENT row)
+    equals numpy's count of the window's rows with price > 0.5;
+    avg(volume) is 1.0."""
+    syms = [s[0][0] for s in sends]
+    keep = [s[0][1] > 0.5 for s in sends]
+
+    def win(lo, hi):
+        return np.bincount(np.concatenate(
+            [syms[j][keep[j]] for j in range(max(lo, 0), hi)]),
+            minlength=PF1_SYM)
+    (k_exp, c_exp), (k_cur, c_cur) = fetched
+    if not (np.all(k_exp == 1) and np.all(k_cur == 0)):
+        fail(f"{what}: the TIMER step must emit EXPIRED rows only and the "
+             f"data step CURRENT rows only")
+    for when, cols, want, pick, init in (
+            ("after the send", c_cur, win(last - FILL + 1, last + 1),
+             np.maximum, -1),
+            ("after the expiry", c_exp, win(last - FILL + 1, last),
+             np.minimum, 1 << 62)):
+        got = np.full(PF1_SYM, init, np.int64)
+        pick.at(got, cols["symbol"], cols["c"])
+        seen = np.bincount(cols["symbol"], minlength=PF1_SYM) > 0
+        if seen.sum() < PF1_SYM // 2 or \
+                not np.array_equal(got[seen], want[seen]):
+            fail(f"{what}: count per symbol {when} differs from numpy")
+        if not np.all(cols["av"] == 1.0):
+            fail(f"{what}: avg(volume) != 1.0")
+        if np.any(cols["c"] < 1):
+            fail(f"{what}: a delivered row counts no row")
+
+
+def recorded(module, name, calls):
+    """Wraps module.<name> so each call's arguments are appended to
+    `calls`; returns the function that undoes it."""
+    orig = getattr(module, name)
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+    setattr(module, name, rec)
+    return lambda: setattr(module, name, orig)
+
+
+def compare_post_filter(torch, np, dev):
+    """Phase 29a: K15 against its plain version on the rows of every step
+    that reached it: PF1's time window at full batch (TIMER steps with
+    131,072 EXPIRED rows, data steps with 131,072 CURRENT rows), a keyed
+    timeBatch's flushes (EXPIRED, RESET and CURRENT rows), a post filter
+    with `in Table`, bool and string columns and null operands, and every
+    window kind at the top level.  Returns (max error, the timing inputs
+    of a PF1 data step)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import post_filter as pf
+    calls = []
+    undo = recorded(pf, "launch", calls)
+    rng = np.random.default_rng(91)
+    try:
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(PF1_QL)
+        h = rt.get_input_handler("S")
+        for i in range(3):
+            h.send_columns(config_rows(np, rng), timestamps=np.full(
+                B1, 1000 + 500 * i, np.int64))
+        rt.shutdown()
+        n_pf1 = len(calls)
+        for ql, sends in PF_CASES:
+            rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+            rt.start()
+            for sid, rows, ts in sends:
+                rt.get_input_handler(sid).send(rows, timestamp=ts)
+            rt.shutdown()
+    finally:
+        undo()
+    err, n_rows, kinds = 0.0, 0, set()
+    timing = None
+    for j, ((spec, rows), _) in enumerate(calls):
+        a = pf.launch(spec, rows)
+        b = pf.plain(spec, rows, 0)
+        torch.cuda.synchronize()
+        err = max(err, float_err(torch, a, b, f"K15 step {j}"))
+        n_rows += int(rows.ts.shape[0])
+        kinds |= set(int(x) for x in torch.unique(rows.kind[rows.valid]))
+        if j < n_pf1 and int((rows.valid & (rows.kind == 0)).sum()) == B1:
+            timing = (spec, rows)
+    if timing is None or not kinds >= {0, 1, 3}:
+        fail(f"phase 29: K15 saw no PF1 data step or no EXPIRED / RESET "
+             f"rows (kinds {sorted(kinds)})")
+    print(f"compare: post_filter == plain over {len(calls)} steps "
+          f"({n_rows} rows, kinds {sorted(kinds)}; {n_pf1} of PF1's)")
+    return err, timing
+
+
+def compare_keyed_tbatch(torch, np, dev):
+    """Phase 29b: K11's timeBatch mode against its plain version at KT1's
+    shape (65,536 keys x 128 rows), stage by stage (every row, [wake,
+    missed] and the whole slab): data steps, a tick flushing the keys of
+    one boundary, a tick that flushes every key across several collapsed
+    boundaries, arrivals at or past the boundary of a step that does not
+    flush, a key above its slice capacity (missed rows in both), padding
+    key rows; then the time mode at RP1's shape (4 keys x 4,194,304 rows,
+    3 range labels): in-order sends and ticks (the ordered prefix path),
+    then a late reading in two areas; and at P2's shape (4,096 keys x
+    256 rows), in-order sends, then a send with late trades (one key with
+    more than its capacity) and ticks.  Returns (max error, timing
+    inputs)."""
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    rng = np.random.default_rng(93)
+    stats = {"steps": 0, "rows": 0, "pads": 0}
+    err, timing = 0.0, {}
+    kt = keyed_plan(dev, KT1_QL, "kt1")
+    slab = kt.init_state()[0]
+    slabs = [slab, slab.clone()]
+
+    def twin(plan, args, what):
+        nonlocal err
+        e, rows = keyed_twin(torch, kw, plan, slabs, args, what, stats)
+        err = max(err, e)
+        return rows
+    n_slice = KT1_T // 2000                 # sends a slice
+    for i in range(min(3, n_slice - 1)):
+        twin(kt, keyed_args(torch, np, dev, kt, *kt1_send(np, rng, i)),
+             f"K11 timeBatch KT1 send {i}")
+    for i in range(3, n_slice - 1):         # the rest of the first slice
+        kw.launch(slabs[0], kt.filter_spec,
+                  *keyed_args(torch, np, dev, kt, *kt1_send(np, rng, i)))
+    slabs[1].copy_from(slabs[0])
+    rows = twin(kt, keyed_args(torch, np, dev, kt, tick=1000 + KT1_T),
+                "K11 timeBatch tick at one boundary")
+    if not int((rows.kind == 3).sum()):
+        fail("phase 29: the boundary tick flushed no key")
+    cols, ts = kt1_send(np, rng, n_slice - 1)
+    args = keyed_args(torch, np, dev, kt, cols, ts)
+    timing["tbatch_data"] = (kt, slabs[0].clone(), args)
+    twin(kt, args, f"K11 timeBatch KT1 send {n_slice - 1}")
+    args = keyed_args(torch, np, dev, kt, tick=1000 + 3 * KT1_T + 999)
+    timing["tbatch"] = (kt, slabs[0].clone(), args)
+    rows = twin(kt, args, "K11 timeBatch tick flushing every key")
+    n_reset = int((rows.kind == 3).sum())
+    if n_reset != KT1_KEYS:
+        fail(f"phase 29: the late tick flushed {n_reset} keys")
+    # arrivals past the boundary of a step that does not flush (every
+    # other reading 70 s later, the step's `now` the send's own time), and
+    # a key above its slice capacity
+    cols, ts = kt1_send(np, rng, 3 * n_slice + 5)
+    late = ts.copy()
+    late[::2] += KT1_T + 10_000
+    args = list(keyed_args(torch, np, dev, kt, cols, late))
+    args[7] = int(ts.max())
+    twin(kt, tuple(args), "K11 timeBatch arrivals past the boundary")
+    cols, ts = kt1_send(np, rng, 3 * n_slice + 6)
+    reps = -(-3 * KT1_C // ts.shape[0])     # device 7: 3C readings
+    cols, ts = [np.tile(c, reps) for c in cols], np.tile(ts, reps)
+    cols[0][:3 * KT1_C] = 7
+    _, wa = kw.launch(slabs[0].clone(), kt.filter_spec,
+                      *keyed_args(torch, np, dev, kt, cols, ts))
+    twin(kt, keyed_args(torch, np, dev, kt, cols, ts),
+         "K11 timeBatch hot key")
+    if int(wa[1]) <= 0:
+        fail("phase 29: a key above its slice capacity reported no missed "
+             "rows")
+    del slabs, slab
+    # -- the time mode at RP1's shape ------------------------------------
+    rp = keyed_plan(dev, RP1_QL, "rp1")
+    slab = rp.init_state()[0]
+    slabs = [slab, slab.clone()]
+    for i in range(3):
+        cols, ts = rp1_send(np, rng, i)
+        args = keyed_args(torch, np, dev, rp, cols, ts)
+        if i == 2:
+            timing["time_rp1"] = (rp, slabs[0].clone(), args)
+        twin(rp, args, f"K11 time RP1 send {i}")
+    # ticks expiring the first seconds, a send between them (RP1's
+    # traffic is in order: the ordered path; phase 21's out-of-order P2
+    # sends take the general one, which is quadratic in a key's rows)
+    twin(rp, keyed_args(torch, np, dev, rp, tick=3000 + RP1_T),
+         "K11 time RP1 tick")
+    twin(rp, keyed_args(torch, np, dev, rp, *rp1_send(np, rng, 3)),
+         "K11 time RP1 send 3")
+    twin(rp, keyed_args(torch, np, dev, rp, tick=6000 + RP1_T),
+         "K11 time RP1 tick after it")
+    if int(slabs[0].key_state["ordered"][:3].sum()) != 3:
+        fail("phase 29: RP1's in-order rings are not marked ordered")
+    # a late reading in two areas, older than all their survivors (the
+    # wake is the late row's), in-order readings in the third
+    room = np.array([1100, 500] + [100] * 64, np.int32)
+    ts = np.array([6500, 6500] + [60_000] * 64, np.int64)
+    cols = [np.arange(room.shape[0], dtype=np.int64), room,
+            rng.integers(0, 4, room.shape[0]).astype(np.float32)]
+    _, wa = kw.launch(slabs[0].clone(), rp.filter_spec,
+                      *keyed_args(torch, np, dev, rp, cols, ts))
+    twin(rp, keyed_args(torch, np, dev, rp, cols, ts),
+         "K11 time RP1 late readings")
+    if int(wa[0]) != 6500 + RP1_T or \
+            int(slabs[0].key_state["ordered"][:3].sum()) != 1:
+        fail("phase 29: RP1's late readings did not set the wake and the "
+             "order flags")
+    del slabs, slab
+    # -- the time mode at P2's shape: late arrivals after in-order rings ---
+    p2 = keyed_plan(dev, P2_QL, "p2")
+    slab = p2.init_state()[0]
+    slabs = [slab, slab.clone()]
+    for i in range(4):
+        twin(p2, keyed_args(torch, np, dev, p2, *p2_send(np, rng, i)),
+             f"K11 time P2 send {i}")
+    # symbols 0-99 one trade each older than all their survivors, symbol
+    # 100 more sorted trades than its 256 rows, all older than its
+    # survivors (every survivor and its oldest trades drop, the ring ends
+    # in order), the rest in order
+    n_hot = 300
+    sym = np.concatenate([np.arange(100), np.full(n_hot, 100),
+                          np.arange(101, P2_SYMS)]).astype(np.int64)
+    t3 = 1000 + 3 * P2_DT
+    ts = np.concatenate([np.full(100, 900), 900 + np.arange(n_hot),
+                         np.full(P2_SYMS - 101, t3 + 50)]).astype(np.int64)
+    cols = [sym, rng.integers(1, 100, sym.shape[0]).astype(np.int64)]
+    args = keyed_args(torch, np, dev, p2, cols, ts)
+    _, wa = kw.launch(slabs[0].clone(), p2.filter_spec, *args)
+    twin(p2, args, "K11 time P2 late")
+    if int(wa[0]) != 1900:
+        fail(f"phase 29: P2's late trades gave the wake {int(wa[0])}, not "
+             "1900")
+    ordered = slabs[0].key_state["ordered"]
+    if int((ordered == 0).sum()) != 100:     # symbols 0-99, not 100
+        fail("phase 29: P2's late trades did not set the order flags")
+    for k, tk in enumerate((t3 + 800, t3 + 1200)):
+        twin(p2, keyed_args(torch, np, dev, p2, tick=tk),
+             f"K11 time P2 tick {k} after the late trades")
+    del slabs, slab
+    print(f"compare: keyed_window timeBatch and time modes == plain over "
+          f"{stats['steps']} steps ({stats['rows']} rows, {stats['pads']} "
+          f"padding key rows; every row, [wake, missed] and slab exact)")
+    return err, timing
+
+
+def k4_radix_case(torch, np, dev, rng, K, B, p_reset):
+    """K4's radix mode against its plain version: random slots over K,
+    CURRENT / EXPIRED / RESET / TIMER rows, rows without a slot."""
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    specs = agg_specs(torch)
+    kind = rng.choice([0, 1, 3, 2], B, p=[0.55 - p_reset, 0.35, p_reset, 0.1])
+    kind_d = torch.from_numpy(kind.astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(B) < 0.95).to(dev)
+    sign = ((valid & (kind_d == 0)).to(torch.int32) -
+            (valid & (kind_d == 1)).to(torch.int32))
+    gslot = torch.from_numpy(rng.integers(-1, K, B).astype(np.int32)).to(dev)
+    vals, state = [], []
+    for s in specs:
+        if s.dtype == torch.float32:
+            v = rng.random(B, dtype=np.float32) * 8 - 4
+            st = rng.random(K, dtype=np.float32) * 64
+        else:
+            v = rng.integers(-10 ** 6, 10 ** 6, B)
+            st = rng.integers(-10 ** 6, 10 ** 6, K)
+        v = torch.from_numpy(v).to(device=dev, dtype=s.dtype)
+        vals.append(torch.where(sign != 0, v, torch.full_like(v, s.init)))
+        state.append(torch.from_numpy(st).to(device=dev, dtype=s.dtype))
+    return (specs, state, vals, sign, kind_d, valid, gslot)
+
+
+def compare_group_agg_radix(torch, np, dev):
+    """Phase 29c: K4's radix mode against its plain version on PG1's
+    selector rows (2^21 slots; recorded from two sends through the
+    runtime) and on random rows with RESET epochs at 8,192 and 2^21
+    slots.  Returns (max error, the PG1 inputs)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    rng = np.random.default_rng(95)
+    calls = []
+    undo = recorded(ga, "launch", calls)
+    try:
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(PG1_QL)
+        h = rt.get_input_handler("TempStream")
+        for i in range(2):
+            h.send_columns(*pg1_send(np, rng, i))
+        rt.flush()
+    finally:
+        undo()
+    cases = [("PG1 send", a[:7]) for a, _ in calls]
+    if not cases or cases[-1][1][1][0].shape[0] != PG1_KEYS_CAP:
+        fail("phase 29: PG1's selector did not reach group_agg at 2^21 "
+             "slots")
+    pg1_args = cases[-1][1]
+    rt.shutdown()
+    for K, B, p in ((8192, 2 * B1, 0.0005), (PG1_KEYS_CAP, 2 * B1, 0.001),
+                    (PG1_KEYS_CAP, B1, 0.0)):
+        cases.append((f"{K} slots, {B} rows, p(RESET) {p}",
+                      k4_radix_case(torch, np, dev, rng, K, B, p)))
+    err = 0.0
+    before = ga.radix_launches
+    for what, args in cases:
+        na, ra = ga.launch(*args)
+        nb, rb = ga.plain(*args)
+        torch.cuda.synchronize()
+        for j in range(len(args[0])):
+            err = max(err, float_err(torch, na[j], nb[j],
+                                     f"K4 radix {what} state {j}"),
+                      float_err(torch, ra[j], rb[j],
+                                f"K4 radix {what} rows {j}"))
+    if ga.radix_launches - before != len(cases):
+        fail("phase 29: a comparison did not take group_agg's radix mode")
+    print(f"compare: group_agg radix mode == plain over {len(cases)} steps "
+          f"(up to {PG1_KEYS_CAP} slots)")
+    return err, pg1_args
+
+
+def time_slice8_kernels(torch, np, dev, pf_in, kw_in, ga_in):
+    """Phase 30: K15 at a PF1 data step, K11's timeBatch mode at a step
+    that flushes every key and at a data step of KT1, its time mode at an
+    RP1 data step, K4's radix mode at a PG1 send (CUDA-graph replays,
+    the keyed slab restored before each), beside their plain versions and
+    bounds."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    from siddhi_tpu_torch.kernels import post_filter as pf
+    res = {}
+    spec, rows = pf_in
+    R = int(rows.ts.shape[0])
+    lb, _ = code_bytes(spec.bytecode, rows.cols, [])
+    res["post_filter"] = {
+        "ms": graph_ms(torch, lambda: pf.launch(spec, rows), 20),
+        "plain_ms": event_timer(torch, lambda: pf.plain(spec, rows, 0), 5),
+        **bound(R * (4 + 1 + lb + 1), R * len(spec.bytecode)),
+        "shape": f"{R} rows"}
+    for mode in ("tbatch", "tbatch_data", "time_rp1"):
+        planned, saved, args = kw_in[mode]
+        slab = saved.clone()
+        sp = planned.filter_spec
+
+        def restore():
+            slab.copy_from(saved)
+        restore()
+        n_out = int(kw.launch(slab, sp, *args)[0].ts.shape[0])
+        nbytes = k11_bytes(torch, planned, saved, args, n_out)
+        res[mode] = {
+            "ms": graph_ms(torch, lambda: kw.launch(slab, sp, *args,
+                                                    n_out=n_out), 10,
+                           restore),
+            "plain_ms": event_timer(torch, lambda: kw.plain(slab, sp, *args),
+                                    2, restore),
+            **bound(nbytes),
+            "shape": f"{int(args[5].shape[0])} key rows, {n_out} rows out"}
+        del slab
+    _, state, vals, sign, kind, valid, gslot = ga_in
+    B, K = sign.shape[0], state[0].shape[0]
+    vb = sum(v.element_size() for v in vals)
+    touched = int(torch.unique(
+        torch.where(gslot >= 0, gslot, 0)[sign != 0]).shape[0])
+    resets = int((valid & (kind == ev.RESET)).sum())
+    state_bytes = (touched + K) * vb if resets else 2 * touched * vb
+    res["group_agg_radix"] = {
+        "ms": graph_ms(torch, lambda: ga.launch(*ga_in), 20),
+        "plain_ms": event_timer(torch, lambda: ga.plain(*ga_in), 2),
+        **bound(B * (4 + 4 + 1 + 4 + 2 * vb) + state_bytes),
+        "shape": f"{B} rows, {touched} of {K} slots touched"}
+    return res
+
+
+def slice8_run(torch, np, rt, h, sends, model_step, check, mods, stream_fn,
+               label):
+    """Drives one configuration: sends[:fill] untimed, each `check`ed
+    send held to the model, the timed sends between; returns (latencies,
+    wall seconds of the timed sends, launches, plain calls).  `check` is
+    (fill, n_check, checked before the timed sends)."""
+    fill, n_check, early = check
+    got = []
+    rt.add_batch_callback(stream_fn, lambda ts, b: got.append(b))
+    for m in mods.values():
+        m.reset_counts()
+    n_timed = len(sends) - fill - n_check
+    t_lo = fill + (n_check if early else 0)
+    lat, wall = [], 0.0
+    for i, (cols, ts) in enumerate(sends):
+        if i == t_lo:
+            rt.flush()
+            t0 = time.perf_counter()
+        got.clear()
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        if t_lo <= i < t_lo + n_timed:
+            lat.append(time.perf_counter() - tb)
+            if i == t_lo + n_timed - 1:
+                rt.flush()
+                wall = time.perf_counter() - t0
+                # the model follows the timed sends outside the timing
+                for j in range(t_lo, i + 1):
+                    model_step(*sends[j], None, f"{label} send {j}")
+            continue
+        checked = (fill <= i < fill + n_check) if early else \
+            (i >= t_lo + n_timed)
+        model_step(cols, ts, list(got) if checked else None,
+                   f"{label} send {i}")
+    rt.flush()
+    launches = {k: m.launches for k, m in mods.items()}
+    plain = {k: m.plain_calls for k, m in mods.items()}
+    return lat, wall, launches, plain
+
+
+def run_rp1(torch, np, dev, mods):
+    """RP1: the query guide's range-partition example at 10,000 devices,
+    48 filling sends (the 10-minute windows fill: about 6M readings
+    alive), 16 timed, 2 checked: every tick's and data step's rows held
+    to RP1Model.  Returns K11's time-mode launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(RP1_QL)
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    rng = np.random.default_rng(97)
+    model = RP1Model(np, RP1_T)
+    n = RP1_FILL + RP1_TIMED + RP1_CHECK
+    sends = [rp1_send(np, rng, i) for i in range(n + 4)]
+    ticks = []
+
+    def step(cols, ts, b, what):
+        ticks.append(model.step(cols, ts, b, what))
+    lat, wall, launches, plain = slice8_run(
+        torch, np, rt, h, sends[:n], step, (RP1_FILL, RP1_CHECK, False),
+        mods, "rp1", "RP1")
+    check_launched("RP1", launches, plain, ("keyed_window", "group_agg"))
+    kw = mods["keyed_window"]
+    slab, agg = rt.query_runtimes["rp1"].state
+    alive = [int(x) for x in slab.count[:3].tolist()]
+    full = RP1_T // 1000 * RP1_DEV          # a full 10-minute window
+    if sum(alive) < 0.95 * full:
+        fail(f"RP1: only {alive} readings alive of about {full}: the "
+             f"windows are not full")
+    mem = sum(x.numel() * x.element_size() for x in slab.tensors())
+    print(f"RP1: {RP1_CHECK} sends after the timed ones held row by row to "
+          f"the numpy model (every tick's EXPIRED rows with ts + 10 min and "
+          f"the running avg, the data step's CURRENT rows, per area); "
+          f"readings alive per label {alive}; ticks a send "
+          f"{min(ticks[RP1_FILL:])}-{max(ticks[RP1_FILL:])}; device state "
+          f"{mem} bytes (the [{slab.K}, {slab.C}] slab); K11 launches "
+          f"{kw.launches} ({kw.tick_launches} ticks)")
+    lat_line(np, "RP1 (range partition, time(10 min), 10,000 devices)", lat,
+             wall, RP1_TIMED * RP1_B, RP1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4))
+    launches_main = kw.mode_launches[kw.MODE_TIME]
+    host_profile(torch, np, rt, h, sends[n:], "RP1")
+    mgr.shutdown()
+    return launches_main
+
+
+def run_kt1(torch, np, dev, mods):
+    """KT1: per-device tumbling minute at 65,536 devices: 59 filling
+    sends (one flush round at send 30), 2 checked (send 60 a flush round:
+    every device flushes in the tick at its own boundary), 32 timed (one
+    more round).  Returns K11's timeBatch launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(KT1_QL)
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    rng = np.random.default_rng(99)
+    model = KT1Model(np, KT1_KEYS, KT1_T)
+    n = KT1_FILL + KT1_CHECK + KT1_TIMED
+    sends = [kt1_send(np, rng, i) for i in range(n + 4)]
+    flushes = []
+
+    def step(cols, ts, b, what):
+        flushes.append(model.step(cols, ts, b, what))
+    lat, wall, launches, plain = slice8_run(
+        torch, np, rt, h, sends[:n], step, (KT1_FILL, KT1_CHECK, True),
+        mods, "kt1", "KT1")
+    check_launched("KT1", launches, plain, ("keyed_window", "group_agg"))
+    kw, ga = mods["keyed_window"], mods["group_agg"]
+    checked = flushes[KT1_FILL:KT1_FILL + KT1_CHECK]
+    if max(checked) != KT1_KEYS or sum(f == KT1_KEYS for f in flushes) < 3:
+        fail(f"KT1: flush rounds {[i for i, f in enumerate(flushes) if f]}"
+             f"; checked sends flushed {checked} devices")
+    if ga.runs_launches != ga.launches:
+        fail("KT1: group_agg ran outside its run mode")
+    slab = rt.query_runtimes["kt1"].state[0]
+    mem = sum(x.numel() * x.element_size() for x in slab.tensors())
+    print(f"KT1: sends {KT1_FILL}-{KT1_FILL + KT1_CHECK - 1} held row by row "
+          f"to the numpy model (send {KT1_FILL + 1}: every device's flush "
+          f"in the tick at its boundary, the previous slice EXPIRED, the "
+          f"slice CURRENT with its running max); flush rounds at sends "
+          f"{[i for i, f in enumerate(flushes) if f == KT1_KEYS]}; device "
+          f"state {mem} bytes (the [{slab.K}, {slab.C}] slab pair); K11 "
+          f"launches {kw.launches} ({kw.tick_launches} ticks)")
+    lat_line(np, "KT1 (timeBatch(1 min) per device, 65,536 devices)", lat,
+             wall, KT1_TIMED * 2 * KT1_KEYS,
+             keyed_h2d(np, sends[0][0][0], KT1_KEYS, 8 + 4 + 4))
+    launches_main = kw.mode_launches[kw.MODE_TBATCH]
+    host_profile(torch, np, rt, h, sends[n:], "KT1")
+    mgr.shutdown()
+    return launches_main
+
+
+def run_pg1(torch, np, dev, mods):
+    """PG1: per-device running maximum without a window under @purge, 2^21
+    group slots: 64 filling sends, 32 timed, 2 checked (every row against
+    PG1Model, which forgets a device idle for 30 s); the allocator must
+    hold fewer devices than it would without the purge.  Returns K4's
+    radix launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(PG1_QL)
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    rng = np.random.default_rng(101)
+    n = PG1_FILL + PG1_TIMED + PG1_CHECK
+    sends = [pg1_send(np, rng, i) for i in range(n + 4)]
+    model = PG1Model(np, PG1_SHIFT * (n + 4) + PG1_SPAN, PG1_IDLE)
+    purged = []
+
+    def step(cols, ts, b, what):
+        steps = None
+        if b is not None:
+            steps = [x for x in b if x["n_valid"]]
+            if len(steps) != 1:
+                fail(f"{what}: {len(steps)} steps delivered rows")
+        purged.append(model.step(cols, ts, steps[0] if steps else None,
+                                 what))
+    lat, wall, launches, plain = slice8_run(
+        torch, np, rt, h, sends[:n], step, (PG1_FILL, PG1_CHECK, False),
+        mods, "pg1", "PG1")
+    check_launched("PG1", launches, plain, ("filter_compact", "group_agg"))
+    ga = mods["group_agg"]
+    if ga.radix_launches != ga.launches:
+        fail("PG1: group_agg ran outside its radix mode")
+    qr = rt.query_runtimes["pg1"]
+    held = len(qr.planned.slot_allocator)
+    seen = int((model.last >= 0).sum())
+    distinct = PG1_SHIFT * (n - 1) + PG1_SPAN
+    if held != seen:
+        fail(f"PG1: the allocator holds {held} devices, the model {seen}")
+    print(f"PG1: {PG1_CHECK} sends after the timed ones held row by row to "
+          f"the numpy model (running max per device, reset when purged); "
+          f"devices purged a tick {min(purged[40:] or [0])}-"
+          f"{max(purged[40:] or [0])}; "
+          f"the allocator holds {held} devices of about {distinct} ids drawn "
+          f"(capacity {PG1_KEYS_CAP}); K4 radix launches {ga.radix_launches}")
+    lat_line(np, "PG1 (no window, @purge, 2^21 group slots)", lat, wall,
+             PG1_TIMED * PG1_B, PG1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4))
+    launches_main = ga.radix_launches
+    host_profile(torch, np, rt, h, sends[n:], "PG1")
+    mgr.shutdown()
+    return launches_main
+
+
+def run_pf1(torch, np, dev, mods):
+    """PF1: config 1 with `[price > 0.5]` after its 1-second window: 104
+    filling sends, 16 timed, 1 checked; every send's (n_current,
+    n_expired) against numpy, the last send's counts per symbol.  Returns
+    K15's launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(PF1_QL)
+    rng = np.random.default_rng(103)
+    sends = [(config_rows(np, rng), np.full(B1, 1000 + 10 * i, np.int64))
+             for i in range(PF1_FILL + PF1_TIMED + 1)]
+    last = len(sends) - 1
+    fetch = []
+    rt.add_batch_callback("q", lambda ts, b: fetch and fetch[-1].append(
+        (b["kind"][b["valid"]], {k: v[b["valid"]] for k, v in
+                                 b["cols"].items()})))
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "q", "S", sends, PF1_FILL, mods,
+        last=lambda i: i == last and fetch.append([]), timed=PF1_TIMED)
+    check_launched("PF1", launches, plain,
+                   ("filter_compact", "time_window", "post_filter",
+                    "group_agg"))
+    for i, c in enumerate(counts):
+        if c != pf1_counts(np, sends, i):
+            fail(f"PF1 send {i}: (n_current, n_expired) {c}, numpy "
+                 f"{pf1_counts(np, sends, i)}")
+    pf1_check(np, sends, last, fetch[-1])
+    fetch.clear()
+    print(f"PF1: all {len(sends)} sends' (n_current, n_expired) equal "
+          f"numpy's counts of price > 0.5 (steady {counts[-1]}); the last "
+          f"send's count per symbol after the expiry and after the send "
+          f"equal numpy's; launches {launches}")
+    lat_line(np, "PF1 (config 1 with [price > 0.5] after the window)", lat,
+             wall, PF1_TIMED * B1, B1 * (8 + 4 + 1 + 4 + 8 + 4 + 4))
+    clock = [1000 + 10 * len(sends)]
+
+    def send(_):
+        rt.get_input_handler("S").send_columns(
+            config_rows(np, rng), timestamps=np.full(B1, clock[0], np.int64))
+        clock[0] += 10
+    profile_line("PF1", 8, device_profile(torch, rt, 8, send))
+    mgr.shutdown()
+    return launches["post_filter"]
+
+
+def slice8_phases(torch, np, dev):
+    """Phases 29-32: K15, K11's timeBatch mode (and its time mode's
+    ordered path) and K4's radix mode against their plain versions; their
+    times; RP1, KT1, PG1 and PF1 through SiddhiManager.  Returns the K15,
+    K11 timeBatch and K4 radix records."""
+    mods = slice8_modules()
+    err15, pf_in = compare_post_filter(torch, np, dev)
+    err11, kw_in = compare_keyed_tbatch(torch, np, dev)
+    torch.cuda.empty_cache()
+    err4, ga_in = compare_group_agg_radix(torch, np, dev)
+    res = time_slice8_kernels(torch, np, dev, pf_in, kw_in, ga_in)
+    del pf_in, kw_in, ga_in
+    torch.cuda.empty_cache()
+    n_time = run_rp1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n_tb = run_kt1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n_radix = run_pg1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n_pf = run_pf1(torch, np, dev, mods)
+    for name, t in (("keyed_window_tbatch (KT1 data step)",
+                     res["tbatch_data"]),
+                    ("keyed_window_time (RP1 data step)", res["time_rp1"])):
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} bytes), "
+              f"plain {t['plain_ms']:.4f} ms; RP1's time-mode launches "
+              f"{n_time}")
+    records = []
+    for name, key, src, rep, n, err, why in (
+            ("post_filter", "post_filter", "post_filter.cu",
+             "siddhi_tpu/core/planner.py:124", n_pf, err15,
+             "no single PyTorch call evaluates a filter expression"),
+            ("keyed_window_tbatch", "tbatch", "keyed_window.cu",
+             "siddhi_tpu/core/window.py:573", n_tb, err11,
+             "no single PyTorch call computes a per-key window step"),
+            ("group_agg_radix", "group_agg_radix", "group_agg.cu",
+             "siddhi_tpu/core/selector.py:320", n_radix, err4,
+             "no single PyTorch call computes a segmented scan with carry "
+             "state")):
+        t = res[key]
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} bytes), "
+              f"plain {t['plain_ms']:.4f} ms, launches on the main path {n}; "
+              f"library_ms null: {why}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n, "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    return records
+
+
+# RP1: the Siddhi 5.1 query guide's range-partition example (per-area
+# average temperature) with the guide's TempStream
+RP1_QL = """
+@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+partition with (roomNo >= 1030 as 'serverRoom' or
+                roomNo < 1030 and roomNo >= 330 as 'officeRoom' or
+                roomNo < 330 as 'lobby' of TempStream)
+begin
+  @capacity(keys='4', window='4194304')
+  @info(name='rp1')
+  from TempStream#window.time(10 min)
+  select roomNo, deviceID, avg(temp) as avgTemp
+  insert into AreaTempStream;
+end;
+"""
+# KT1: P1's app with a per-device tumbling minute
+KT1_QL = """
+@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+partition with (deviceID of TempStream)
+begin
+  @capacity(keys='65536')
+  @info(name='kt1')
+  from TempStream#window.timeBatch(1 min)
+  select roomNo, deviceID, max(temp) as maxTemp
+  insert into DeviceTempStream;
+end;
+"""
+# PG1: P1's app without its window, with churning devices under @purge
+PG1_QL = """
+@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+partition with (deviceID of TempStream)
+begin
+  @capacity(keys='2097152')
+  @purge(enable='true', interval='1 sec', idle.period='30 sec')
+  @info(name='pg1')
+  from TempStream
+  select roomNo, deviceID, max(temp) as maxTemp
+  insert into DeviceTempStream;
+end;
+"""
+# PF1: bench.py's config 1 with a filter after its window
+PF1_QL = """
+@app:playback
+define stream S (symbol long, price float, volume int);
+@capacity(window='16777216')
+@info(name='q') from S#window.time(1 sec)[price > 0.5]
+select symbol, sum(price) as sp, count() as c, avg(volume) as av
+group by symbol having sp > 0.0
+insert into Out;
+"""
+# phase 29's other post filters: a keyed timeBatch (RESET rows), `in
+# Table` with bool and string columns and nulls, every top-level window
+_PF_DEF = """
+@app:playback
+define stream S (sym string, k long, v int, p float, b bool);
+define stream W (sym string);
+@PrimaryKey('sym') define table T (sym string);
+from W select sym insert into T;
+"""
+PF_CASES = [
+    (_PF_DEF + """
+partition with (k of S)
+begin
+  @info(name='q') from S#window.timeBatch(100)[v > 1 or b]
+  select k, sum(v) as sv insert all events into O;
+end;""",
+     [("S", [["a", k % 5, k % 4, 0.5 * k, k % 3 == 0] for k in range(40)],
+       1000 + 30 * j) for j in range(8)]),
+    (_PF_DEF + """
+@info(name='q') from S#window.length(6)[sym in T and (p > 1.0 or v is null)]
+select sym, count() as c insert all events into O;""",
+     [("W", [["a"], ["c"]], 1000)] +
+     [("S", [["abc"[k % 3], k, None if k % 5 == 0 else k, 0.25 * k,
+              k % 2 == 0] for k in range(j, j + 9)], 1001 + j)
+      for j in range(5)]),
+] + [(_PF_DEF + f"""
+@info(name='q') from S#window.{w}[v >= 2 and not b]
+select k, sum(p) as sp insert all events into O;""",
+      [("S", [["x", k % 3, k % 5, 0.5 * k, k % 4 == 0]
+               for k in range(j, j + 7)], 1000 + 40 * j) for j in range(6)])
+     for w in ("length(4)", "time(100)", "lengthBatch(3)", "timeBatch(90)")]
 
 
 if __name__ == "__main__":

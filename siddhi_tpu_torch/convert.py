@@ -164,9 +164,10 @@ def time_batch_state_from_jax(pend, prev, start, seq, schema: ev.Schema,
 def _keyed_blocks(wslab, mode):
     """The JAX keyed state as ([(Buffer, alive count [K])...], seq [K]):
     one block for `length` / `time`, (pending, previous) for
-    `lengthBatch`."""
-    from .kernels.keyed_window import MODE_BATCH
-    bufs = (wslab[0], wslab[1]) if mode == MODE_BATCH else (wslab[0],)
+    `lengthBatch` and `timeBatch` (whose state also holds the slice start
+    [K] before the seq)."""
+    from .kernels.keyed_window import _TWO_BLOCKS
+    bufs = (wslab[0], wslab[1]) if mode in _TWO_BLOCKS else (wslab[0],)
     out = []
     for b in bufs:
         alive = np.asarray(b.alive)
@@ -178,15 +179,25 @@ def _keyed_blocks(wslab, mode):
     return out, np.asarray(wslab[-1])
 
 
+def _jax_key_state(wslab, blocks, mode) -> dict:
+    """The port slab's mode-specific per-key state (`KEY_STATE`) as the
+    JAX keyed state gives it: timeBatch's slice start is in the state, the
+    time window's `ordered` is read off each key's rows."""
+    from .kernels.keyed_window import KEY_STATE
+    derive = {"start": lambda: np.asarray(wslab[2]),
+              "ordered": lambda: _ordered(*blocks[0])}
+    return {n: derive[n]() for n in KEY_STATE.get(mode, {})}
+
+
 def keyed_slab_from_jax(wslab, mode: int, types, device=None):
     """A JAX keyed window state -> the port's KeyedSlab (K11's layout)."""
-    from .kernels.keyed_window import MODE_BATCH, KeyedSlab
+    from .kernels.keyed_window import _TWO_BLOCKS, KeyedSlab
     device = _dev(device)
     blocks, seq = _keyed_blocks(wslab, mode)
     K, C = np.asarray(blocks[0][0].ts).shape
     slab = KeyedSlab.empty(mode, types, K, C, device)
     targets = [(slab.ts, slab.gslot, slab.cols, slab.count)]
-    if mode == MODE_BATCH:
+    if mode in _TWO_BLOCKS:
         targets.append((slab.p_ts, slab.p_gslot, slab.p_cols,
                         slab.p_count))
     for (ts, gs, cols, cnt), (buf, n) in zip(targets, blocks):
@@ -194,7 +205,18 @@ def keyed_slab_from_jax(wslab, mode: int, types, device=None):
                          *zip(cols, buf.cols)):
             dst.copy_(_t(src, device, dst.dtype))
     slab.seq.copy_(_t(seq, device, torch.int64))
+    for n, x in _jax_key_state(wslab, blocks, mode).items():
+        slab.key_state[n].copy_(_t(x, device, slab.key_state[n].dtype))
     return slab
+
+
+def _ordered(buf, n) -> np.ndarray:
+    """Per key: are its alive rows (a prefix, in window order) in
+    timestamp order?"""
+    ts = np.asarray(buf.ts)
+    back = (ts[:, 1:] < ts[:, :-1]) & (np.arange(1, ts.shape[1])[None, :]
+                                        < np.asarray(n)[:, None])
+    return (~back.any(1)).astype(np.int32)
 
 
 def keyed_slab_to_jax(slab, t: int = 0):
@@ -204,7 +226,7 @@ def keyed_slab_to_jax(slab, t: int = 0):
     keeps their order below the key's counter; a time window's expire_ts
     is ts + t."""
     from .core.window import BIG_SEQ, Buffer
-    from .kernels.keyed_window import MODE_BATCH, MODE_TIME
+    from .kernels.keyed_window import _TWO_BLOCKS, MODE_TBATCH, MODE_TIME
     lg = keyed_slab_logical(slab, slab.mode)
     seq = lg["seq"]
     C = slab.C
@@ -224,7 +246,9 @@ def keyed_slab_to_jax(slab, t: int = 0):
                       expire_ts=exp, alive=alive,
                       gslot=np.where(alive, lg[pre + "gslot"], -1)
                       .astype(np.int32), cols=cols)
-    if slab.mode == MODE_BATCH:
+    if slab.mode == MODE_TBATCH:
+        return buf("", False), buf("p_", False), lg["start"], seq
+    if slab.mode in _TWO_BLOCKS:
         return buf("", False), buf("p_", False), seq
     return buf("", True), seq
 
@@ -239,6 +263,8 @@ def keyed_slab_logical(state, mode: int) -> dict:
             for k, v in state.logical().items()}
     blocks, seq = _keyed_blocks(state, mode)
     out = {"seq": seq.astype(np.int64)}
+    out.update({n: x.astype(np.int64) for n, x in
+                _jax_key_state(state, blocks, mode).items()})
     for pre, (buf, n) in zip(("", "p_"), blocks):
         C = np.asarray(buf.ts).shape[1]
         alive = np.arange(C)[None, :] < n[:, None]

@@ -147,6 +147,8 @@ class PlannedPatternQuery:
     slots: int
     packer: StatePacker
     partition_positions: Optional[Dict[str, List[int]]] = None
+    # range partitions: stream id -> staged batch -> ([label ids], mask)
+    partition_key_fns: Optional[Dict[str, Callable]] = None
     dense_steps: Optional[Dict[str, Callable]] = None
     steps_w: Optional[Dict[str, Callable]] = None
     dense_steps_w: Optional[Dict[str, Callable]] = None
@@ -175,6 +177,7 @@ def plan_pattern_query(
     compact_rows_override: Optional[int] = None,
     device: Optional[torch.device] = None,
     in_col0_types: Optional[Dict[str, str]] = None,
+    partition_key_fns: Optional[Dict[str, Callable]] = None,
 ) -> PlannedPatternQuery:
     from ..kernels.pattern_step import KernelPlan, PatternStep, TimerStep
 
@@ -378,6 +381,7 @@ def plan_pattern_query(
         timer_step=timer_step, block=use_block, init_state=init_state,
         key_capacity=key_capacity, slots=slots,
         packer=packer, partition_positions=partition_positions,
+        partition_key_fns=partition_key_fns,
         emit_explicit=emit_explicit, selector_exec=sel,
         compact_rows=compact_rows, device=device)
 

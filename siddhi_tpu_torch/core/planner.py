@@ -5,11 +5,12 @@ query_api AST -> one step function
 
 over a staged micro-batch: the pre-window filters and the window
 (`stage_body`: kernels K1-K3), then the post-window filters and the
-selector (`select_body`: kernel K4 for aggregations, torch ops for the
-projection and having).  `out` is (ts, kind, valid, cols) with the valid
-rows in seq order; `header` is i64[4] = [n_valid, n_current, wake, rows
-the time window's expire bound missed], the one scalar block the runtime
-fetches per step.
+selector (`select_body`: kernel K15 for the filters, K4 for
+aggregations, torch ops for the projection and having).  `out` is (ts,
+kind, valid, cols) with the valid rows in seq order; `header` is i64[4] =
+[n_valid, n_current, wake, rows the window missed (a time window's short
+expire bound, a timeBatch slice above its capacity)], the one scalar
+block the runtime fetches per step.
 
 Inside a value partition (`partition_positions`) the partition key is
 prepended to the group-by key when the query aggregates or groups, and a
@@ -22,14 +23,19 @@ runs the pre-window filters and every key's window over the [K, C] slab
 (kernel K11, `kernels/keyed_window.py`), then the selector over the rows,
 which come out key-major.
 
-Ported: filters, the `length`, `time` and `lengthBatch` windows or none,
-keyed `length` / `time` / `lengthBatch` windows, group by, having, the
-built-in aggregators, `x in Table` probes.  Stream functions, the other
-windows, range partitions, named-window input and distinctCount pair
-slots raise `CompileError` naming their ROADMAP item.  On CUDA a query
-must also fit the kernels (`kernel_subset_violation`) and have no filter
-after its window (no kernel evaluates one yet, ROADMAP B10); one that
-does not raises NotImplementedError here, at plan time.
+A range partition gives no key positions but a key function
+(`partition_key_fn`, host code): each row's key is the label of the first
+range it matches.  Its window is kept per label, and its group key is the
+label followed by the group-by attributes.
+
+Ported: filters before and after the window, the `length`, `time`,
+`lengthBatch` and `timeBatch` windows or none, keyed `length` / `time` /
+`lengthBatch` / `timeBatch` windows, group by, having, the built-in
+aggregators, `x in Table` probes.  Stream functions, the other windows,
+named-window input and distinctCount pair slots raise `CompileError`
+naming their ROADMAP item.  On CUDA a query must also fit the kernels
+(`kernel_subset_violation`, and filters inside the bytecode subset); one
+that does not raises NotImplementedError here, at plan time.
 """
 from __future__ import annotations
 
@@ -69,9 +75,10 @@ class PlannedQuery:
     needs_timer: bool
     device: torch.device
     filter_spec: Any = None            # kernels.filter_compact.FilterSpec
+    post_spec: Any = None              # the filters after the window
     stage_body: Optional[Callable] = None
     select_body: Optional[Callable] = None
-    # keyed windows (windows inside a value partition)
+    # keyed windows (windows inside a partition)
     keyed_window: bool = False
     window_key_positions: List[int] = dataclasses.field(
         default_factory=list)
@@ -80,6 +87,8 @@ class PlannedQuery:
     kstep: Optional[Callable] = None
     timer_keys: Optional[Callable] = None
     in_deps: List[str] = dataclasses.field(default_factory=list)
+    # range partitions: staged batch -> ([label ids], matched mask)
+    partition_key_fn: Optional[Callable] = None
 
 
 def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
@@ -87,22 +96,12 @@ def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
             "__kind__": kind}
 
 
-def _apply_chain(chain, env, keep, data_row):
-    """Run a filter chain over columnar rows.  Filters only gate
-    `data_row` rows (TIMER/RESET pass through untouched)."""
-    for c in chain:
-        keep = torch.logical_and(
-            keep, torch.logical_or(torch.logical_not(data_row), c.fn(env)))
-    return keep
-
-
 def kernel_subset_violation(in_schema: ev.Schema,
                             sel: Optional[SelectorExec] = None
                             ) -> Optional[str]:
     """Why a query cannot run on the CUDA kernels, or None.  The stream is
     checked first, before anything is compiled for the device; the
-    selector once it is compiled.  group_agg takes more than MAX_SLOTS
-    slots only in its run mode (`AggregatorBank.runs`)."""
+    selector once it is compiled."""
     from ..kernels import filter_compact, group_agg
     if len(in_schema.types) > filter_compact.MAX_COLS:
         return (f"{len(in_schema.types)} columns (the kernels take "
@@ -110,10 +109,6 @@ def kernel_subset_violation(in_schema: ev.Schema,
     if sel is not None and len(sel.bank.specs) > group_agg.MAX_SPECS:
         return (f"{len(sel.bank.specs)} accumulator columns (group_agg "
                 f"takes {group_agg.MAX_SPECS})")
-    if sel is not None and sel.bank.K > group_agg.MAX_SLOTS and \
-            not sel.bank.runs:
-        return (f"{sel.bank.K} group slots (group_agg takes "
-                f"{group_agg.MAX_SLOTS})")
     return None
 
 
@@ -133,10 +128,12 @@ def plan_single_query(
         partition_positions: Optional[List[int]] = None,
         window_key_allocator: Optional[SlotAllocator] = None,
         key_capacity: int = 0,
-        in_cols: Optional[Dict[str, str]] = None) -> PlannedQuery:
+        in_cols: Optional[Dict[str, str]] = None,
+        partition_key_fn: Optional[Callable] = None) -> PlannedQuery:
     from ..kernels.filter_bytecode import AND, InKeys, compile_filter
     from ..kernels.in_probe import probe_env
     from ..kernels.filter_compact import FilterSpec
+    from ..kernels.post_filter import post_filter
     device = torch.device(device) if device is not None \
         else torch.device("cpu")
     ist = query.input_stream
@@ -155,23 +152,32 @@ def plan_single_query(
     scope.add_source(sid, in_schema, alias=ist.stream_reference_id)
 
     # ---- handlers: filters before/after the window -------------------------
-    pre_chain, post_chain, pre_exprs = [], [], []
+    # on CUDA each filter also becomes bytecode for its kernel (K1 before
+    # the window, K15 after it), checked before anything is built for the
+    # device
+    ik = InKeys(dict(in_cols or {}))
+    bytecode, post_code = ([], []) if device.type == "cuda" else (None, None)
+    pre_chain, post_chain = [], []
     window_proc: WindowProcessor = NoWindow(in_schema, [], batch_capacity)
     seen_window = False
     for h in ist.stream_handlers:
         if isinstance(h, Filter):
-            if seen_window and device.type == "cuda":
-                raise NotImplementedError(
-                    f"query {name!r} is outside the CUDA kernels' subset: "
-                    f"a filter after the window (ROADMAP B10)")
+            code = post_code if seen_window else bytecode
+            if code is not None:
+                try:
+                    words = compile_filter(h.expression, scope, sid, {},
+                                           in_keys=ik)
+                except CompileError as exc:
+                    raise NotImplementedError(
+                        f"query {name!r} is outside the CUDA kernels' "
+                        f"subset: {exc}" + (" (a filter after the window, "
+                                            "ROADMAP B10)" if seen_window
+                                            else "")) from exc
+                code += words + ([AND] if code else [])
             c = compile_expression(h.expression, scope)
             if c.type != "BOOL":
                 raise CompileError("filter expression must be boolean")
-            if seen_window:
-                post_chain.append(c)
-            else:
-                pre_chain.append(c)
-                pre_exprs.append(h.expression)
+            (post_chain if seen_window else pre_chain).append(c)
         elif isinstance(h, Window):
             if seen_window:
                 raise CompileError("only one window per input stream")
@@ -195,8 +201,10 @@ def plan_single_query(
     out_schema = ev.Schema(out_def, interner)
     gpos = list(sel.group_by_positions)
     # inside a partition the partition key is prepended to the group key
-    # (reference :439-445)
-    keyed_window = bool(partition_positions and seen_window)
+    # (reference :413-445); a range partition's label leads the group key
+    # through the key function instead
+    keyed_window = bool((partition_positions or partition_key_fn)
+                        and seen_window)
     if keyed_window and (window_key_allocator is None or key_capacity <= 0):
         raise CompileError("windows inside partitions need a key allocator")
     if partition_positions and (sel.has_aggregation or gpos):
@@ -206,8 +214,12 @@ def plan_single_query(
         # key when the group key is the partition key alone, so every
         # (slot, epoch) segment is one run of rows: group_agg's run mode
         sel.bank.runs = keyed_window and not extra
+    needs_alloc = bool(gpos) or (partition_key_fn is not None and
+                                 sel.has_aggregation)
+    if partition_key_fn is not None:
+        sel.bank.runs = keyed_window and not gpos
     allocator = SlotAllocator(group_slots, name=f"{name}:groupby") \
-        if gpos else None
+        if needs_alloc else None
     out_event_type = (query.output_stream.output_event_type
                       if query.output_stream and
                       query.output_stream.output_event_type
@@ -216,21 +228,11 @@ def plan_single_query(
     # `x in Table` probes (reference: the dependency scan, :319-323); each
     # step's env gets one probe per table (`_probe_env`, :471-480)
     in_deps = list(in_cols or {})
-    bytecode = None
-    ik = InKeys(dict(in_cols or {}))
     if device.type == "cuda":
         _check_subset(name, in_schema, sel)
-        bytecode = []
-        for i, e in enumerate(pre_exprs):
-            try:
-                bytecode += compile_filter(e, scope, sid, {}, in_keys=ik)
-            except CompileError as exc:
-                raise NotImplementedError(
-                    f"query {name!r} is outside the CUDA kernels' subset: "
-                    f"{exc}") from exc
-            if i:
-                bytecode.append(AND)
     fspec = FilterSpec(in_schema.types, pre_chain, bytecode, sid, ik.keys)
+    post_spec = FilterSpec(in_schema.types, post_chain, post_code, sid,
+                           ik.keys) if post_chain else None
     wproc = window_proc
 
     def stage_body(wstate, batch, gslot, now: int, facts, in_tabs=None):
@@ -242,14 +244,12 @@ def plan_single_query(
         return wstate, wout.rows, wout.next_wakeup
 
     def select_body(astate, orows: Rows, now: int, in_tabs=None):
-        """Post-window filters + selector over the window's rows."""
+        """Post-window filters (K15) + selector over the window's rows."""
         env = _env_for(sid, orows.cols, orows.ts, now, orows.kind)
         env.update(probe_env(in_tabs or {}))
-        if post_chain:
-            data_row = torch.logical_or(orows.kind == ev.CURRENT,
-                                        orows.kind == ev.EXPIRED)
-            orows = orows._replace(valid=_apply_chain(
-                post_chain, env, orows.valid, data_row))
+        if post_spec is not None:
+            orows = orows._replace(valid=post_filter(
+                post_spec.bind(in_tabs), orows, now))
         return sel.process(astate, orows, env)
 
     def step(state, batch, gslot, now: int, facts, in_tabs=None):
@@ -284,9 +284,8 @@ def plan_single_query(
             astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
                                                               now, in_tabs)
             cur = torch.logical_and(ovalid, okind == ev.CURRENT)
-            header = torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake,
-                                torch.zeros(1, dtype=torch.int64,
-                                            device=wake.device)])
+            # wake = [least wake, rows a timeBatch slice could not hold]
+            header = torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake])
             return (slab, astate), (ots, okind, ovalid, ocols), header
 
         def init_state():                              # noqa: F811
@@ -311,27 +310,31 @@ def plan_single_query(
         group_by_positions=gpos, selector_exec=sel, step=step,
         init_state=init_state, slot_allocator=allocator,
         batch_capacity=batch_capacity, needs_timer=wproc.needs_timer,
-        device=device, filter_spec=fspec, stage_body=stage_body,
-        select_body=select_body, keyed_window=keyed_window,
+        device=device, filter_spec=fspec, post_spec=post_spec,
+        stage_body=stage_body, select_body=select_body,
+        keyed_window=keyed_window,
         window_key_positions=list(partition_positions or []),
         window_key_allocator=window_key_allocator,
         key_capacity=key_capacity, kstep=kstep, timer_keys=timer_keys,
-        in_deps=in_deps)
+        in_deps=in_deps, partition_key_fn=partition_key_fn)
 
 
 def _keyed_shape(wproc, name: str):
     """(K11 mode, per-key capacity, time window length) of a window kept
     per partition key.  Other window kinds raise: their keyed forms are not
-    ported yet."""
+    ported yet.  A timeBatch key holds max(@capacity(window), 2 * batch
+    capacity) rows a slice, as the reference builds it."""
     from ..kernels import keyed_window as kw
-    from .window import LengthBatchWindow, LengthWindow, TimeWindow
+    from .window import (LengthBatchWindow, LengthWindow, TimeBatchWindow,
+                         TimeWindow)
     if isinstance(wproc, LengthWindow):
         return kw.MODE_LENGTH, wproc.length, 0
     if isinstance(wproc, TimeWindow):
         return kw.MODE_TIME, wproc.capacity, wproc.time_ms
     if isinstance(wproc, LengthBatchWindow):
         return kw.MODE_BATCH, wproc.length, 0
-    item = " (ROADMAP B11 (keyed timeBatch))" \
-        if wproc.name == "timeBatch" else ""
+    if isinstance(wproc, TimeBatchWindow):
+        return kw.MODE_TBATCH, wproc.capacity, wproc.time_ms
     raise CompileError(f"query {name!r}: the keyed form of a "
-                       f"{wproc.name!r} window is not yet ported{item}")
+                       f"{wproc.name!r} window is not yet ported (ROADMAP "
+                       f"B12)")

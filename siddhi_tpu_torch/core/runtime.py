@@ -28,15 +28,20 @@ drive an insert, a delete, an update or an update-or-insert
 A query with `output ... every` / `output snapshot every` hands its
 delivered events to its rate limiter (`core/ratelimit.py`, host code),
 which forwards what is due; a time or snapshot limiter ticks from the
-timer scheduler.  A single-stream query inside a value partition keeps
-its window per partition key: its events group per key on the host
+timer scheduler.  A single-stream query inside a partition keeps its
+window per partition key: its events group per key on the host
 (`slots_and_group`) and `kstep` advances every key's window (kernel K11);
-a timer tick advances every key.
+a timer tick advances every key.  A range partition's key is the label
+of the first range a row matches (conditions evaluated on the host); a
+row that matches none leaves the query.  `@purge` frees the key slots
+that stayed idle past `idle.period` and resets their state on the device
+(`_PartitionPurger`).
 
 Ported: stream definitions, `@app:playback` (with `idle.time` and
-`increment`), value partitions (`partition with (attr of Stream)`) around
-pattern, single-stream (`length` / `time` / `lengthBatch` windows kept
-per key, or none) and join queries, output rate limiting,
+`increment`), value and range partitions around pattern, single-stream
+(`length` / `time` / `lengthBatch` / `timeBatch` windows kept per key, or
+none) and join queries (value partitions only), `@purge`, output rate
+limiting,
 top-level pattern queries (non-partitioned simple chains
 on the block NFA, absent atoms with their timer step),
 top-level single-stream queries (filters, `length` / `time` /
@@ -55,6 +60,7 @@ ROADMAP item.
 """
 from __future__ import annotations
 
+import contextlib
 import heapq
 import logging
 import threading
@@ -71,8 +77,8 @@ from ..query_api.app import SiddhiApp
 from ..query_api.definition import StreamDefinition
 from ..query_api.expression import Expression, Variable
 from ..query_api.query import (JoinInputStream, Partition, Query,
-                               SingleInputStream, ValuePartitionType,
-                               Window)
+                               RangePartitionType, SingleInputStream,
+                               ValuePartitionType, Window)
 from . import event as ev
 from .executor import CompileError
 from .keyslots import SlotAllocator
@@ -86,7 +92,7 @@ _log = logging.getLogger("siddhi_tpu_torch")
 _UNPORTED_ANNOTATIONS = {
     "async": "A12", "pipeline": "A12", "serve": "A12", "fuse": "A12",
     "app:fuse": "A12", "app:pipeline": "A12", "app:serve": "A12",
-    "app:admission": "A15", "purge": "A11", "source": "A15",
+    "app:admission": "A15", "source": "A15",
     "sink": "A15", "store": "A15", "app:statistics": "A15",
     "app:errorstore": "A15",
 }
@@ -185,6 +191,8 @@ class PatternQueryRuntime:
         self.slot_allocator = slot_allocator  # shared per partition
         self.next_wakeup: int = NO_WAKEUP
         self._qlock = threading.RLock()
+        # set by _PartitionPurger: fn(slots, now) recording key liveness
+        self._touch = None
         # set at wiring time: fn(new_cap) -> plan with a larger emission cap
         self._replan = None
         # steady-state block memo for _grouped_slots: (k0, n) ->
@@ -255,9 +263,19 @@ class PatternQueryRuntime:
                 ts_wire = (base, _h2d(delta32, dev))
         raw_ts = _h2d(staged.ts, dev) if ts_wire is None else None
         if p.partition_positions:
-            pos = p.partition_positions[stream_id]
-            key_cols = [staged.cols[i] for i in pos]
-            key_idx_np, sel = self._grouped_slots(key_cols, staged.valid, p)
+            kf = (p.partition_key_fns or {}).get(stream_id)
+            if kf is not None:
+                # range partition: the label of each row's first matching
+                # range; rows matching none are left out of the grouping
+                key_cols, kvalid = kf(staged)
+                valid = staged.valid & kvalid
+            else:
+                key_cols = [staged.cols[i]
+                            for i in p.partition_positions[stream_id]]
+                valid = staged.valid
+            key_idx_np, sel = self._grouped_slots(key_cols, valid, p)
+            if self._touch is not None:
+                self._touch(key_idx_np, now)
             sel_d = _h2d(sel, dev)
             Kb = key_idx_np.shape[0]
             nuniq = int((key_idx_np < p.key_capacity).sum())
@@ -594,17 +612,32 @@ class QueryRuntime:
         self.batch_callbacks: List[Callable] = []
         self.next_wakeup: int = NO_WAKEUP
         self._qlock = threading.RLock()
+        # set by _PartitionPurger: fn(slots, now) recording the liveness of
+        # the group slots (`_touch`) or, on a keyed window, of the window
+        # keys (`_touch`) and the group slots (`_touch_group`)
+        self._touch = None
+        self._touch_group = None
 
     @property
     def name(self):
         return self.planned.name
 
-    def _slots_for_batch(self, staged: ev.StagedBatch) -> np.ndarray:
-        """Group slots of the batch's rows (host side: binds new keys)."""
+    def _range_keys(self, staged: ev.StagedBatch):
+        """A range partition's label column and the batch with the rows
+        that match no range left out (reference `process_staged`,
+        `siddhi_tpu/core/runtime.py:430-447`)."""
+        kcols, kvalid = self.planned.partition_key_fn(staged)
+        return list(kcols), ev.StagedBatch(
+            staged.ts, staged.kind, staged.valid & kvalid, staged.cols,
+            staged.n)
+
+    def _group_slots(self, staged: ev.StagedBatch, kcols=()) -> np.ndarray:
+        """Group slots of the batch's rows (host side: binds new keys):
+        a range partition's labels lead the group key."""
         p = self.planned
-        if p.group_by_positions and p.slot_allocator is not None:
+        if p.slot_allocator is not None:
             return p.slot_allocator.slots_for(
-                [staged.cols[i] for i in p.group_by_positions],
+                list(kcols) + [staged.cols[i] for i in p.group_by_positions],
                 staged.valid)
         return _zero_slots(staged.ts.shape[0])
 
@@ -613,7 +646,12 @@ class QueryRuntime:
         if p.keyed_window:
             self._process_keyed(staged, now)
             return
-        gslot = self._slots_for_batch(staged)
+        kcols = ()
+        if p.partition_key_fn is not None:
+            kcols, staged = self._range_keys(staged)
+        gslot = self._group_slots(staged, kcols)
+        if self._touch is not None:
+            self._touch(gslot, now)
         batch = staged.to_device(p.in_schema, p.device)
         cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
         facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
@@ -628,17 +666,28 @@ class QueryRuntime:
         `siddhi_tpu/core/runtime.py:472`): the batch's events group per
         key into [Kb, E] on the host and `kstep` advances each key's
         window.  A timer tick advances every key, each seeing the TIMER row
-        (row 0), with no group slots to resolve."""
+        (row 0), with no group slots to resolve; it does not apply a range
+        partition's key function, whose conditions a TIMER row's zeroed
+        columns would fail."""
         p = self.planned
         if all_keys:
             key_idx, sel = p.timer_keys()
             gslot = _zero_slots(staged.ts.shape[0])
         else:
+            if p.partition_key_fn is not None:
+                kcols, staged = self._range_keys(staged)
+                wkeys = kcols
+            else:
+                kcols = ()
+                wkeys = [staged.cols[i] for i in p.window_key_positions]
             _, key_idx, sel = p.window_key_allocator.slots_and_group(
-                [staged.cols[i] for i in p.window_key_positions],
-                staged.valid, pad=p.key_capacity)
+                wkeys, staged.valid, pad=p.key_capacity)
+            if self._touch is not None:
+                self._touch(key_idx, now)
             key_idx, sel = _h2d(key_idx, p.device), _h2d(sel, p.device)
-            gslot = self._slots_for_batch(staged)
+            gslot = self._group_slots(staged, kcols)
+            if self._touch_group is not None:
+                self._touch_group(gslot, now)
         batch = staged.to_device(p.in_schema, p.device)
         self.state, out, header = p.kstep(
             self.state, batch, _h2d(gslot, p.device), key_idx, sel, now,
@@ -964,6 +1013,130 @@ class _Scheduler:
                 _log.exception("timer of query %s failed", q.name)
 
 
+class _PartitionPurger:
+    """Idle partition-key GC for `@purge` (reference `_PartitionPurger`,
+    `siddhi_tpu/core/runtime.py:2223-2375`; PartitionRuntimeImpl.java
+    :120-147).  It keeps the last event time of every key slot across a
+    partition's runtimes (their `_touch` hooks); each tick, the slots idle
+    past `idle.period` go back to their allocators and their state is reset
+    in place on the device: a pattern's [W, K] key columns, a keyed
+    window's counters, the selector's slots.  A join runtime has no
+    liveness hook and is left out, as in the reference.  (The reference
+    also skips distinctCount queries and marks purged pattern keys dirty
+    for incremental snapshots; the port has neither distinctCount slots
+    nor snapshots yet, so nothing here acts on them.)"""
+
+    name = "partition purger"
+
+    def __init__(self, app: "SiddhiAppRuntime", shared_alloc: SlotAllocator,
+                 runtimes, interval_ms: int, idle_ms: int):
+        self.app = app
+        self.shared_alloc = shared_alloc
+        self.runtimes = runtimes
+        self.interval_ms = interval_ms
+        self.idle_ms = idle_ms
+        self._qlock = threading.RLock()
+        self._seen_shared = np.zeros(shared_alloc.capacity, np.int64)
+        self._seen_q: Dict[int, np.ndarray] = {}
+        self._init_cols: Dict[int, Any] = {}
+        for qr in runtimes:
+            if isinstance(qr, PatternQueryRuntime):
+                qr._touch = self._make_touch(self._seen_shared)
+                (b32, b64, _), _ = qr.planned.init_state(1)
+                self._init_cols[id(qr)] = (b32.to(qr.planned.device),
+                                           b64.to(qr.planned.device))
+                continue
+            if not hasattr(qr, "_touch"):
+                continue
+            if qr.planned.keyed_window:
+                # keyed windows share the partition's key allocator
+                qr._touch = self._make_touch(self._seen_shared)
+            alloc = qr.planned.slot_allocator
+            if alloc is not None:
+                seen = np.zeros(alloc.capacity, np.int64)
+                self._seen_q[id(qr)] = seen
+                if qr.planned.keyed_window:
+                    qr._touch_group = self._make_touch(seen)
+                else:
+                    qr._touch = self._make_touch(seen)
+        app._scheduler.notify_at(app.timestamp_millis() + interval_ms, self)
+
+    @staticmethod
+    def _make_touch(seen: np.ndarray):
+        cap = seen.shape[0]
+
+        def touch(slots, now: int) -> None:
+            slots = np.asarray(slots)
+            live = slots[(slots >= 0) & (slots < cap)]
+            if live.size:
+                seen[live] = now
+        return touch
+
+    @staticmethod
+    def _idle_slots(alloc: SlotAllocator, seen: np.ndarray, now: int,
+                    cutoff: int) -> np.ndarray:
+        used = np.nonzero(alloc._used)[0]
+        # a slot this purger has not seen touched starts ageing now
+        fresh = used[seen[used] == 0]
+        if fresh.size:
+            seen[fresh] = now
+        return used[seen[used] < cutoff]
+
+    def on_timer(self, now: int) -> None:
+        cutoff = now - self.idle_ms
+        # every runtime this purger resets is locked first, so no step of
+        # theirs interleaves with the resets
+        with contextlib.ExitStack() as stack:
+            for qr in self.runtimes:
+                stack.enter_context(qr._qlock)
+            idle = self._idle_slots(self.shared_alloc, self._seen_shared,
+                                    now, cutoff)
+            if idle.size:
+                self.shared_alloc.purge(idle.tolist())
+                for qr in self.runtimes:
+                    if isinstance(qr, PatternQueryRuntime):
+                        self._reset_pattern_keys(qr, idle)
+                    elif isinstance(qr, QueryRuntime) and \
+                            qr.planned.keyed_window:
+                        self._reset_keyed_window(qr, idle)
+            for qr in self.runtimes:
+                seen = self._seen_q.get(id(qr))
+                if seen is None:
+                    continue
+                alloc = qr.planned.slot_allocator
+                qidle = self._idle_slots(alloc, seen, now, cutoff)
+                if qidle.size:
+                    alloc.purge(qidle.tolist())
+                    self._reset_selector_slots(qr, qidle)
+        self.app._scheduler.notify_at(now + self.interval_ms, self)
+
+    @staticmethod
+    def _reset_slots(state, specs, idx: torch.Tensor) -> None:
+        """A selector's accumulators at `idx` back to their identities, so
+        a recycled slot does not carry the purged key's aggregates."""
+        for a, spec in zip(state, specs):
+            a[idx[idx < a.shape[0]]] = spec.init
+
+    def _reset_pattern_keys(self, qr, idle: np.ndarray) -> None:
+        (b32, b64, _), sel_state = qr.state
+        init32, init64 = self._init_cols[id(qr)]
+        idx = _h2d(idle.astype(np.int64), b32.device)
+        b32[:, idx] = init32
+        b64[:, idx] = init64
+        self._reset_slots(sel_state, qr.planned.selector_exec.bank.specs,
+                          idx)
+
+    @staticmethod
+    def _reset_keyed_window(qr, idle: np.ndarray) -> None:
+        slab = qr.state[0]
+        slab.reset_keys(_h2d(idle.astype(np.int64), slab.head.device))
+
+    def _reset_selector_slots(self, qr, idle: np.ndarray) -> None:
+        astate = qr.state[1]
+        self._reset_slots(astate, qr.planned.selector_exec.bank.specs,
+                          _h2d(idle.astype(np.int64), qr.planned.device))
+
+
 class StreamJunction:
     """Per-stream pub/sub hub (reference: CORE/stream/StreamJunction.java:61),
     synchronous.  A subscriber's failure is logged and the batch dropped for
@@ -1177,7 +1350,7 @@ class SiddhiAppRuntime:
 
     def _add_pattern_query(self, q: Query, name: str, key_capacity: int = 1,
                            slots: Optional[int] = None, positions=None,
-                           allocator=None) -> None:
+                           allocator=None, key_fns=None) -> None:
         _check_annotations(q.annotations, f"query {name!r}")
         if slots is None:
             slots = 8
@@ -1192,7 +1365,8 @@ class SiddhiAppRuntime:
                 q, name, self.schemas, self.interner,
                 key_capacity=key_capacity, slots=slots,
                 partition_positions=positions, compact_rows_override=cap,
-                device=self.device, in_col0_types=in_cols)
+                device=self.device, in_col0_types=in_cols,
+                partition_key_fns=key_fns)
 
         planned = plan()
         runtime = PatternQueryRuntime(planned, self, slot_allocator=allocator)
@@ -1206,17 +1380,23 @@ class SiddhiAppRuntime:
     def _add_partition(self, part: Partition, qi: int) -> int:
         """Partitions: the partition key becomes an explicit key axis of the
         pattern state, of a keyed window, of the group key, or an extra
-        equality of a join's `on` (reference:
-        CORE/partition/PartitionRuntimeImpl.java)."""
+        equality of a join's `on` (reference `_add_partition`,
+        `siddhi_tpu/core/runtime.py:3234`;
+        CORE/partition/PartitionRuntimeImpl.java).  A range partition's key
+        is a function of the row (`_range_key_fn`) in place of a
+        position.  `@purge` on the partition or any of its queries starts
+        a `_PartitionPurger` over its runtimes."""
         _check_annotations(part.annotations, "a partition")
         positions: Dict[str, List[int]] = {}
+        key_fns: Dict[str, Callable] = {}
         for sid, pt in part.partition_type_map.items():
             schema = self.schemas.get(sid)
             if schema is None:
                 raise CompileError(f"undefined partitioned stream {sid!r}")
-            if not isinstance(pt, ValuePartitionType):
-                raise CompileError("range partitions are not yet ported "
-                                   "(ROADMAP A11)")
+            if isinstance(pt, RangePartitionType):
+                key_fns[sid] = self._range_key_fn(sid, schema, pt)
+                positions[sid] = []
+                continue
             if not isinstance(pt.expression, Variable):
                 raise CompileError(
                     "partition-by expression must be a plain attribute in "
@@ -1235,26 +1415,81 @@ class SiddhiAppRuntime:
                 nfa_slots = int(ann.element("slots", nfa_slots))
                 win_cap = int(ann.element("window", win_cap))
         shared_allocator = SlotAllocator(keys_cap, name="partition")
+        part_runtimes = []
         for q in part.query_list:
             qname = self._query_name(q, qi)
             qi += 1
             if isinstance(q.input_stream, JoinInputStream):
-                self._add_partitioned_join(q, qname, positions)
-                continue
-            if isinstance(q.input_stream, SingleInputStream):
+                self._add_partitioned_join(q, qname, positions, key_fns)
+            elif isinstance(q.input_stream, SingleInputStream):
                 self._add_partitioned_query(q, qname, positions, keys_cap,
-                                            win_cap, shared_allocator)
-                continue
-            ppos = {}
-            for sid in q.input_stream.all_stream_ids:
-                if sid not in positions:
-                    raise CompileError(
-                        f"pattern stream {sid!r} has no partition key")
-                ppos[sid] = positions[sid]
-            self._add_pattern_query(q, qname, key_capacity=keys_cap,
-                                    slots=nfa_slots, positions=ppos,
-                                    allocator=shared_allocator)
+                                            win_cap, shared_allocator,
+                                            key_fns)
+            else:
+                ppos, pfns = {}, {}
+                for sid in q.input_stream.all_stream_ids:
+                    if sid not in positions:
+                        raise CompileError(
+                            f"pattern stream {sid!r} has no partition key")
+                    ppos[sid] = positions[sid]
+                    if sid in key_fns:
+                        pfns[sid] = key_fns[sid]
+                self._add_pattern_query(q, qname, key_capacity=keys_cap,
+                                        slots=nfa_slots, positions=ppos,
+                                        allocator=shared_allocator,
+                                        key_fns=pfns or None)
+            part_runtimes.append(self.query_runtimes[qname])
+        # @purge(enable, interval='1 sec', idle.period='5 min') on the
+        # partition or any of its queries (reference :3439-3456)
+        for ann in all_anns:
+            if ann.name.lower() == "purge":
+                if str(ann.element("enable", "true")).lower() != "true":
+                    break
+                interval = _parse_time_ms(ann.element("interval", "1 sec")) \
+                    or 1000
+                idle = _parse_time_ms(ann.element("idle.period", "5 min")) \
+                    or 300_000
+                # the scheduler's queue holds it from tick to tick
+                _PartitionPurger(self, shared_allocator, part_runtimes,
+                                 interval, idle)
+                break
         return qi
+
+    def _range_key_fn(self, sid: str, schema: ev.Schema,
+                      pt: RangePartitionType) -> Callable:
+        """A range partition's key function (reference
+        `siddhi_tpu/core/runtime.py:3262-3283`; RangePartitionExecutor):
+        staged batch -> ([each row's label id], mask of the rows that
+        match a range), the label the interned name of the first range
+        whose condition holds.  The conditions run on the host, where the
+        slots are resolved."""
+        from .executor import Scope, compile_expression
+        cpu = torch.device("cpu")
+        scope = Scope(cpu)
+        scope.interner = self.interner
+        scope.add_source(sid, schema)
+        conds = []
+        for rp in pt.ranges:
+            c = compile_expression(rp.condition, scope)
+            if c.type != "BOOL":
+                raise CompileError(
+                    "range partition conditions must be boolean")
+            conds.append((self.interner.intern(rp.partition_key), c))
+
+        def fn(staged: ev.StagedBatch):
+            ts = torch.from_numpy(np.ascontiguousarray(staged.ts))
+            env = {sid: tuple(torch.from_numpy(np.ascontiguousarray(c))
+                              for c in staged.cols),
+                   "__ts__": ts, "__now__": ts,
+                   "__kind__": torch.from_numpy(
+                       np.ascontiguousarray(staged.kind))}
+            n = staged.ts.shape[0]
+            ids = np.full(n, -1, np.int32)
+            for label, c in conds:
+                m = np.broadcast_to(np.asarray(c.fn(env), np.bool_), (n,))
+                ids = np.where((ids < 0) & m, np.int32(label), ids)
+            return [ids], ids >= 0
+        return fn
 
     def _attach_rate_limiter(self, q: Query, runtime) -> None:
         """`output [all|first|last] every ... | snapshot every t`
@@ -1302,12 +1537,14 @@ class SiddhiAppRuntime:
 
     def _add_partitioned_query(self, q: Query, name: str, positions,
                                keys_cap: int, win_cap: int,
-                               allocator: SlotAllocator) -> None:
-        """A single-stream query inside a value partition (reference
+                               allocator: SlotAllocator,
+                               key_fns=None) -> None:
+        """A single-stream query inside a partition (reference
         `_add_partition`, `siddhi_tpu/core/runtime.py:3398-3438`): the
-        partition key joins the group key, and a window is kept per key
-        (`kstep`, kernel K11) with the partition's allocator as the
-        window-key allocator.  An inner stream (`#S`) carries no key."""
+        partition key (a value partition's attribute, a range partition's
+        label) joins the group key, and a window is kept per key (`kstep`,
+        kernel K11) with the partition's allocator as the window-key
+        allocator.  An inner stream (`#S`) carries no key."""
         _check_annotations(q.annotations, f"query {name!r}")
         ist = q.input_stream
         sid = ist.unique_stream_id
@@ -1323,7 +1560,8 @@ class SiddhiAppRuntime:
             batch_capacity=64 if has_window else 512,
             window_capacity_hint=win_cap, device=self.device,
             partition_positions=ppos, window_key_allocator=allocator,
-            key_capacity=keys_cap, in_cols=self._in_cols(q, name))
+            key_capacity=keys_cap, in_cols=self._in_cols(q, name),
+            partition_key_fn=(key_fns or {}).get(sid))
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         self.junctions[sid].subscribe_query(_QSub(runtime))
@@ -1332,12 +1570,17 @@ class SiddhiAppRuntime:
         self._attach_rate_limiter(q, runtime)
         self._define_output_for(planned, name)
 
-    def _add_partitioned_join(self, q: Query, name: str, positions) -> None:
+    def _add_partitioned_join(self, q: Query, name: str, positions,
+                              key_fns=None) -> None:
         """A join inside a value partition (reference
         `siddhi_tpu/core/runtime.py:3360-3397`): a plain join whose `on`
         also requires equal partition keys on both sides.  Its windows are
-        shared by the keys, as in the reference."""
+        shared by the keys, as in the reference.  A range-partitioned join
+        raises, as in the reference."""
         jis = q.input_stream
+        if key_fns and (jis.left_input_stream.unique_stream_id in key_fns or
+                        jis.right_input_stream.unique_stream_id in key_fns):
+            raise CompileError("range-partitioned joins are not supported")
         sides = []
         for sis in (jis.left_input_stream, jis.right_input_stream):
             ssid = sis.unique_stream_id

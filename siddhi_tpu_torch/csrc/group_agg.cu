@@ -27,6 +27,14 @@
 // contributing rows are compacted in row order (a tile count, a scan, a
 // scatter) instead of sorted, so no [K] histogram limits the slots.
 //
+// Radix mode (siddhi_group_agg_radix) takes more than MAX_SLOTS slots in
+// any row order: the contributing rows are compacted in row order as in
+// run mode, then sorted by slot with the stable LSD radix sort of
+// radix.cuh (one 8-bit pass per byte of K - 1), so each slot's rows stay
+// in seq order and its epochs ascend; the same walk follows.  The slot
+// bits the passes take are those of an int32 slot, so K has no limit
+// below the allocator's.
+//
 // Bound: each row's sign, kind, valid flag, slot and contributions are
 // read once and its results written once, plus the [K] states; the
 // counting sort adds its permutation and a K x tiles count matrix.
@@ -35,6 +43,7 @@
 #include <cassert>
 
 #include "bytecode.cuh"
+#include "radix.cuh"
 #include "rows.cuh"
 
 using namespace siddhi;
@@ -72,6 +81,15 @@ struct AggPlan {
   int* perm;               // sorted place -> row
   int* s_slot;
   int* s_epoch;
+  // radix mode: the compacted rows in row order, the (slot, place) pairs
+  // and the radix histogram
+  int* r_perm;
+  int* r_slot;
+  int* r_epoch;
+  unsigned long long* r_key[2];
+  int* r_idx[2];
+  long long* r_hist;
+  long long* r_hist_sums;
 };
 
 namespace {
@@ -210,6 +228,24 @@ __global__ void ag_runs_scatter(const AggPlan pl) {
   pl.s_epoch[dst] = (int)ep;
 }
 
+// Radix mode: the (slot, place) pairs of the compacted rows ...
+__global__ void ag_radix_keys(const AggPlan pl) {
+  long long j = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (j >= pl.hist[pl.ntiles]) return;
+  pl.r_key[0][j] = (unsigned long long)(unsigned)pl.r_slot[j];
+  pl.r_idx[0][j] = (int)j;
+}
+
+// ... and, once sorted by slot, the rows, slots and epochs in that order.
+__global__ void ag_radix_gather(const AggPlan pl, int cur) {
+  long long p = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  if (p >= pl.hist[pl.ntiles]) return;
+  int j = pl.r_idx[cur][p];
+  pl.perm[p] = pl.r_perm[j];
+  pl.s_slot[p] = pl.r_slot[j];
+  pl.s_epoch[p] = pl.r_epoch[j];
+}
+
 // One thread per (slot, epoch) segment head; n_act points at the number of
 // contributing rows.
 __global__ void ag_walk(const AggPlan pl, const long long* n_act_p) {
@@ -267,5 +303,29 @@ extern "C" int siddhi_group_agg_runs(const AggPlan* plan, void* stream) {
   ag_runs_scatter<<<pl.ntiles, TILE, 0, s>>>(pl);
   ag_state_init<<<blocks(pl.K), BLOCK, 0, s>>>(pl);
   ag_walk<<<blocks(pl.B > 0 ? pl.B : 1), BLOCK, 0, s>>>(pl, pl.hist + pl.ntiles);
+  return (int)cudaGetLastError();
+}
+
+// Radix mode; `hist` holds ntiles + 1 values.
+extern "C" int siddhi_group_agg_radix(const AggPlan* plan, void* stream) {
+  const AggPlan& pl = *plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  AggPlan rp = pl;                    // run mode's compaction, into r_*
+  rp.perm = pl.r_perm;
+  rp.s_slot = pl.r_slot;
+  rp.s_epoch = pl.r_epoch;
+  unsigned nb = blocks(pl.B > 0 ? pl.B : 1);
+  ag_runs_count<<<pl.ntiles, TILE, 0, s>>>(pl);
+  scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.hist, pl.ntiles);
+  scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.tile_resets, pl.ntiles);
+  ag_runs_scatter<<<pl.ntiles, TILE, 0, s>>>(rp);
+  ag_radix_keys<<<nb, BLOCK, 0, s>>>(pl);
+  int bits = 0;
+  while (bits < 31 && (1LL << bits) < pl.K) ++bits;
+  int cur = radix_sort(pl.r_key, pl.r_idx, 0, pl.hist + pl.ntiles, pl.B, bits, pl.r_hist,
+                       pl.r_hist_sums, s);
+  ag_radix_gather<<<nb, BLOCK, 0, s>>>(pl, cur);
+  ag_state_init<<<blocks(pl.K), BLOCK, 0, s>>>(pl);
+  ag_walk<<<nb, BLOCK, 0, s>>>(pl, pl.hist + pl.ntiles);
   return (int)cudaGetLastError();
 }

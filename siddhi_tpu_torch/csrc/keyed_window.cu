@@ -4,9 +4,10 @@
 // Replaces, in the JAX package's keyed query step `kstep`
 // (siddhi_tpu/core/planner.py:539-584): the pre-window filters, the
 // gather of each key's events to [Kb, E], `window.process` under vmap over
-// the [K, ...] slab for LengthWindow, TimeWindow and LengthBatchWindow
-// (siddhi_tpu/core/window.py:249, :346, :447), the scatter back that drops
-// padding keys, the flattening of the [Kb, E_out] rows and the least wake.
+// the [K, ...] slab for LengthWindow, TimeWindow, LengthBatchWindow and
+// TimeBatchWindow (siddhi_tpu/core/window.py:249, :346, :447, :573), the
+// scatter back that drops padding keys, the flattening of the [Kb, E_out]
+// rows and the least wake.
 // kernels/keyed_window.py states the rows, their order and the slab layout.
 //
 // Design: one thread owns one key row of key_idx and walks that key's E
@@ -23,15 +24,23 @@
 // time: expiring rows and arrivals merge in (ts + t)*2 / ts*2+1 order
 // (a two-pointer merge when both runs are sorted, else each row's rank
 // counted), survivors compact toward the head, arrivals follow, the oldest
-// beyond C drop.  lengthBatch: batches are read where they lie (pending
+// beyond C drop.  A key whose ring is in timestamp order (the slab's
+// `ordered` flag) and whose arrivals are too, none older than its last
+// survivor, expires a prefix: its thread
+// reads only the expiring rows and the arrivals, the survivors stay where
+// they are and the head moves, so a step costs O(expiring + arrivals), not
+// O(alive rows).  lengthBatch: batches are read where they lie (pending
 // rows, then arrivals) and only the new pending and previous batches are
-// written.
+// written.  timeBatch: each key follows its own slice boundaries from its
+// `start`; a flush emits the previous slice, a RESET row and the pending
+// rows with the arrivals before the boundary, then moves them into the
+// previous slice; rows beyond C are counted in the wake's second word.
 //
 // Bound: each arrival is read once (its columns, ts, gslot, kind, valid,
 // the sel entry) and each output row written once; of the slab, the rows
 // that leave (evicted, expiring, flushed) are read and the rows that enter
 // written, plus the per-key counters.  Bound by bytes; a hot key serialises
-// its events on one thread.
+// its events on one thread, and so does a flushing key its 2C + 1 rows.
 #include <climits>
 
 #include "bytecode.cuh"
@@ -46,7 +55,7 @@ constexpr int MAX_CODE = 256;
 constexpr int BLOCK = 128;
 constexpr long long NO_WAKEUP = BIG_SEQ;
 
-enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2 };
+enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2, M_TBATCH = 3 };
 
 }  // namespace
 
@@ -75,6 +84,8 @@ struct KeyedPlan {
   int* p_gslot;
   void* p_col[MAX_COLS];
   int* p_count;
+  long long* start;        // timeBatch: each key's slice start, -1 unset
+  int* ordered;            // time: 1 where a key's ring is in ts order
   int* arr;
   int* n_arr;
   long long* ocnt;
@@ -84,7 +95,7 @@ struct KeyedPlan {
   long long* out_seq;
   int* out_gslot;
   void* out_col[MAX_COLS];
-  long long* wake;
+  long long* wake;         // [least wake, rows a slice could not hold]
   InSet in_sets[MAX_IN];
 };
 
@@ -144,8 +155,38 @@ __device__ __forceinline__ void move_slab(const KeyedPlan& pl, long long* d_ts, 
   for (int c = 0; c < pl.ncols; ++c) copy_elem(d_col[c], dp, s_col[c], sp, pl.col_w[c]);
 }
 
+// A timeBatch key's flush: (number of slices passed, their boundary), from
+// its start and the timestamps of its arrivals.
+struct TBatchFlush {
+  long long nflush, start, boundary;
+};
+
+__device__ TBatchFlush tbatch_flush(const KeyedPlan& pl, long long k, const int* arr, int na) {
+  long long start0 = pl.start[k], first = BIG_SEQ;
+  for (int q = 0; q < na; ++q) {
+    long long a = pl.ts[arr[q]];
+    if (a < first) first = a;
+  }
+  TBatchFlush f;
+  f.start = start0 >= 0 ? start0 : first;
+  f.nflush = 0;
+  if (start0 >= 0 || na > 0) {
+    long long el = pl.now - f.start;
+    f.nflush = el > 0 ? el / pl.t : 0;
+  }
+  f.boundary = f.start + (f.nflush > 0 ? f.nflush : 1) * pl.t;
+  return f;
+}
+
+// Expiring rows of a time key whose ring is in timestamp order: a prefix.
+__device__ long long expiring_prefix(const KeyedPlan& pl, long long k) {
+  long long C = pl.C, base = k * C, head = pl.head[k], cnt = pl.count[k], ne = 0;
+  while (ne < cnt && pl.s_ts[base + (head + ne) % C] + pl.t <= pl.now) ++ne;
+  return ne;
+}
+
 // Output rows of one key (kernels/keyed_window.py states the counts).
-__device__ long long out_rows(const KeyedPlan& pl, long long k, long long na) {
+__device__ long long out_rows(const KeyedPlan& pl, long long k, const int* arr, int na) {
   long long C = pl.C;
   long long cnt = pl.count[k];
   if (pl.mode == M_LENGTH) {
@@ -154,10 +195,18 @@ __device__ long long out_rows(const KeyedPlan& pl, long long k, long long na) {
     return na + ev;
   }
   if (pl.mode == M_TIME) {
+    if (pl.ordered[k]) return expiring_prefix(pl, k) + na;
     long long head = pl.head[k], ne = 0;
     for (long long i = 0; i < cnt; ++i)
       if (pl.s_ts[k * C + (head + i) % C] + pl.t <= pl.now) ++ne;
     return ne + na;
+  }
+  if (pl.mode == M_TBATCH) {
+    TBatchFlush f = tbatch_flush(pl, k, arr, na);
+    if (f.nflush == 0) return 0;
+    long long n_in = 0;
+    for (int q = 0; q < na; ++q) n_in += pl.ts[arr[q]] < f.boundary;
+    return pl.p_count[k] + 1 + cnt + n_in;
   }
   long long nflush = (cnt + na) / C;
   if (nflush == 0) return 0;
@@ -184,7 +233,7 @@ __global__ void kw_count(const KeyedPlan pl) {
       if (keep) arr[na++] = (int)i;
     }
     pl.n_arr[r] = na;
-    rows = out_rows(pl, k, na);
+    rows = out_rows(pl, k, arr, na);
   }
   if (r < pl.Kb) pl.ocnt[r] = rows;
   long long tot;
@@ -192,7 +241,10 @@ __global__ void kw_count(const KeyedPlan pl) {
   if (threadIdx.x == 0) pl.block_sums[blockIdx.x] = tot;
 }
 
-__global__ void kw_init(const KeyedPlan pl) { pl.wake[0] = NO_WAKEUP; }
+__global__ void kw_init(const KeyedPlan pl) {
+  pl.wake[0] = NO_WAKEUP;
+  pl.wake[1] = 0;
+}
 
 // ---- length ---------------------------------------------------------------
 __device__ void step_length(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
@@ -217,14 +269,61 @@ __device__ void step_length(const KeyedPlan& pl, long long k, const int* arr, in
 }
 
 // ---- time -----------------------------------------------------------------
+// A ring in timestamp order, arrivals in timestamp order and none older than
+// the last survivor (step_time checks all three): the expiring rows are a
+// prefix, merged with the arrivals; the survivors stay in place, and the
+// ring stays in order, so its head is its least ts.
+__device__ void step_time_ordered(const KeyedPlan& pl, long long k, const int* arr, int na,
+                                  long long o, long long ne) {
+  long long C = pl.C, base = k * C, t = pl.t;
+  long long head = pl.head[k], cnt = pl.count[k], seq0 = pl.seq[k];
+  const long long* s_ts = pl.s_ts;
+  long long i = 0, rank = 0;
+  int q = 0;
+  while (i < ne || q < na) {
+    long long p = base + (head + i) % C;
+    if (i < ne && (q >= na || s_ts[p] + t <= pl.ts[arr[q]])) {
+      emit_slab(pl, o + rank, s_ts, pl.s_gslot, pl.s_col, p, K_EXPIRED, s_ts[p] + t, seq0 + rank);
+      ++i;
+    } else {
+      long long ai = arr[q];
+      emit_batch(pl, o + rank, ai, K_CURRENT, pl.ts[ai], seq0 + rank);
+      ++q;
+    }
+    ++rank;
+  }
+  long long w = cnt - ne, total = w + na;
+  long long drop = total > C ? total - C : 0;
+  for (int a = 0; a < na; ++a)
+    if (w + a >= drop) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + (head + ne + w + a) % C, arr[a]);
+  long long head2 = (head + ne + drop) % C, cnt2 = total < C ? total : C;
+  if (cnt2 > 0) atomicMin(pl.wake, pl.s_ts[base + head2] + t);
+  pl.head[k] = (int)head2;
+  pl.count[k] = (int)cnt2;
+  if (ne + na > 0) pl.seq[k] = seq0 + C + pl.E;
+}
+
 __device__ void step_time(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
   long long C = pl.C, base = k * C, t = pl.t, now = pl.now;
   long long head = pl.head[k], cnt = pl.count[k], seq0 = pl.seq[k];
   const long long* s_ts = pl.s_ts;
-  // are the expiring rows (along the ring) and the arrivals (in batch
-  // order) each in timestamp order?
+  // are the arrivals (in batch order) and the expiring rows (along the
+  // ring) each in timestamp order?
   bool sorted = true;
   long long last = LLONG_MIN, ne = 0;
+  for (int q = 0; q < na; ++q) {
+    long long a = pl.ts[arr[q]];
+    if (a < last) sorted = false;
+    last = a;
+  }
+  if (sorted && pl.ordered[k]) {
+    long long ne0 = expiring_prefix(pl, k);
+    if (ne0 == cnt || na == 0 || s_ts[base + (head + cnt - 1) % C] <= pl.ts[arr[0]]) {
+      step_time_ordered(pl, k, arr, na, o, ne0);
+      return;
+    }
+  }
+  last = LLONG_MIN;
   for (long long i = 0; i < cnt; ++i) {
     long long e = s_ts[base + (head + i) % C] + t;
     if (e <= now) {
@@ -232,12 +331,6 @@ __device__ void step_time(const KeyedPlan& pl, long long k, const int* arr, int 
       last = e;
       ++ne;
     }
-  }
-  last = LLONG_MIN;
-  for (int q = 0; q < na; ++q) {
-    long long a = pl.ts[arr[q]];
-    if (a < last) sorted = false;
-    last = a;
   }
   if (sorted) {
     // two-pointer merge; an expiring row e precedes an arrival a iff
@@ -313,14 +406,18 @@ __device__ void step_time(const KeyedPlan& pl, long long k, const int* arr, int 
     if (w + r >= drop) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + (head + w + r) % C, arr[q]);
   }
   long long head2 = (head + drop) % C, cnt2 = total < C ? total : C;
-  long long wk = NO_WAKEUP;
+  long long wk = NO_WAKEUP, prev = LLONG_MIN;
+  int ord = 1;
   for (long long j = 0; j < cnt2; ++j) {
-    long long e = pl.s_ts[base + (head2 + j) % C] + t;
-    if (e < wk) wk = e;
+    long long ts = pl.s_ts[base + (head2 + j) % C];
+    if (ts < prev) ord = 0;
+    prev = ts;
+    if (ts + t < wk) wk = ts + t;
   }
   if (wk < NO_WAKEUP) atomicMin(pl.wake, wk);
   pl.head[k] = (int)head2;
   pl.count[k] = (int)cnt2;
+  pl.ordered[k] = ord;
   if (ne + na > 0) pl.seq[k] = seq0 + C + pl.E;
 }
 
@@ -376,6 +473,73 @@ __device__ void step_batch(const KeyedPlan& pl, long long k, const int* arr, int
   pl.seq[k] = seq0 + nflush * span;
 }
 
+// ---- timeBatch ------------------------------------------------------------
+// Rows past C are counted in wake[1], the runtime raises on them; what the
+// step emits is the reference's rows all the same.
+__device__ void step_tbatch(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
+  long long C = pl.C, base = k * C, t = pl.t;
+  long long cnt = pl.count[k], pc = pl.p_count[k], seq0 = pl.seq[k];
+  TBatchFlush f = tbatch_flush(pl, k, arr, na);
+  bool flush = f.nflush > 0;
+  long long missed = 0, w = cnt, n_next = 0;
+  if (flush) {
+    for (long long i = 0; i < pc; ++i)
+      emit_slab(pl, o++, pl.p_ts, pl.p_gslot, pl.p_col, base + i, K_EXPIRED, pl.p_ts[base + i],
+                seq0 + i);
+    emit_reset(pl, o++, seq0 + C);
+    for (long long i = 0; i < cnt; ++i)
+      emit_slab(pl, o++, pl.s_ts, pl.s_gslot, pl.s_col, base + i, K_CURRENT, pl.s_ts[base + i],
+                seq0 + C + 1 + i);
+    for (int q = 0; q < na; ++q) {
+      long long ai = arr[q];
+      if (pl.ts[ai] < f.boundary) {
+        emit_batch(pl, o++, ai, K_CURRENT, pl.ts[ai], seq0 + C + 1 + w);
+        ++w;
+      }
+    }
+    // the flushed slice becomes the previous one (the pending rows first,
+    // read before the arrivals past the boundary replace them) ...
+    for (long long i = 0; i < cnt; ++i)
+      move_slab(pl, pl.p_ts, pl.p_gslot, pl.p_col, base + i, pl.s_ts, pl.s_gslot, pl.s_col, base + i);
+    w = cnt;
+    for (int q = 0; q < na; ++q) {
+      long long ai = arr[q];
+      if (pl.ts[ai] < f.boundary) {
+        if (w < C) put_batch(pl, pl.p_ts, pl.p_gslot, pl.p_col, base + w, ai);
+        ++w;
+      }
+    }
+    // ... and the arrivals past it start the new pending slice
+    for (int q = 0; q < na; ++q) {
+      long long ai = arr[q];
+      if (pl.ts[ai] >= f.boundary) {
+        if (n_next < C) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + n_next, ai);
+        ++n_next;
+      }
+    }
+    pl.p_count[k] = (int)(w < C ? w : C);
+    pl.count[k] = (int)(n_next < C ? n_next : C);
+    missed = (w > C ? w - C : 0) + (n_next > C ? n_next - C : 0);
+    pl.seq[k] = seq0 + 2 * C + pl.E + 2;
+  } else {
+    // arrivals before the boundary join the pending slice, the others drop
+    for (int q = 0; q < na; ++q) {
+      long long ai = arr[q];
+      if (pl.ts[ai] < f.boundary) {
+        if (w < C) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + w, ai);
+        ++w;
+      }
+    }
+    pl.count[k] = (int)(w < C ? w : C);
+    missed = w > C ? w - C : 0;
+  }
+  long long nstart = -1;
+  if (pl.start[k] >= 0 || na > 0) nstart = flush ? f.start + f.nflush * t : f.start;
+  pl.start[k] = nstart;
+  if (nstart >= 0) atomicMin(pl.wake, nstart + t);
+  if (missed) atomicAdd((unsigned long long*)(pl.wake + 1), (unsigned long long)missed);
+}
+
 __global__ void kw_write(const KeyedPlan pl) {
   __shared__ long long sh[2 * BLOCK];
   long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
@@ -388,6 +552,7 @@ __global__ void kw_write(const KeyedPlan pl) {
   int na = pl.n_arr[r];
   if (pl.mode == M_LENGTH) step_length(pl, k, arr, na, o);
   else if (pl.mode == M_TIME) step_time(pl, k, arr, na, o);
+  else if (pl.mode == M_TBATCH) step_tbatch(pl, k, arr, na, o);
   else step_batch(pl, k, arr, na, o);
 }
 

@@ -14,16 +14,15 @@
 // for an int (a DESC int null wraps to itself, so null ints sort first
 // under DESC, as in the reference); for a float, -0.0 and +0.0 are one
 // value, every NaN one value above +inf, and the IEEE flip; a bool is 0 or
-// 1.  Then one stable LSD radix sort per key over 8-bit digits: a digit
-// histogram per tile of 2,048 rows, one scan of the (digit, tile) counts,
-// and a stable scatter in which each warp ranks its rows with
-// __match_any_sync and the tile's warps and rounds are counted in order.
-// Last, the kept rows are gathered to the front of the output.
+// 1.  Then one stable LSD radix sort per key over 8-bit digits
+// (radix.cuh, shared with group_agg).  Last, the kept rows are gathered to
+// the front of the output.
 //
 // Bound: each valid row's keys are read once and each kept row written
 // once; the radix passes re-read and re-write (key, index) pairs, 4 passes
 // a 32-bit key and 8 a 64-bit one, which is the design's cost above the
 // bound.  Bound by bytes.
+#include "radix.cuh"
 #include "rows.cuh"
 
 using namespace siddhi;
@@ -32,10 +31,6 @@ namespace {
 
 constexpr int MAX_COLS = 16;
 constexpr int BLOCK = 256;
-constexpr int ROUNDS = 8;
-constexpr int TILE = BLOCK * ROUNDS;
-constexpr int WARPS = BLOCK / 32;
-constexpr int RADIX = 256;
 
 }  // namespace
 
@@ -109,61 +104,6 @@ __global__ void ol_keys(const OrderPlan pl, long long nb, const void* col, int t
   pl.key[cur][j] = u;
 }
 
-// Digit counts of each tile, digit-major: hist[d * tiles + tile].
-__global__ void ol_hist(const OrderPlan pl, long long nb, int shift, int cur, long long tiles) {
-  __shared__ int h[RADIX];
-  h[threadIdx.x] = 0;
-  __syncthreads();
-  const long long n = pl.block_sums[nb];
-  const long long base = (long long)blockIdx.x * TILE;
-  for (int k = 0; k < ROUNDS; ++k) {
-    long long j = base + k * BLOCK + threadIdx.x;
-    if (j < n) atomicAdd(&h[(pl.key[cur][j] >> shift) & 0xff], 1);
-  }
-  __syncthreads();
-  pl.hist[(long long)threadIdx.x * tiles + blockIdx.x] = h[threadIdx.x];
-}
-
-// Stable scatter of (key, index) pairs by one digit.
-__global__ void ol_scatter(const OrderPlan pl, long long nb, int shift, int cur, long long tiles) {
-  __shared__ int wc[WARPS][RADIX];
-  __shared__ int run[RADIX];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  run[t] = 0;
-  const long long n = pl.block_sums[nb];
-  const long long base = (long long)blockIdx.x * TILE;
-  const long long tile_off = pl.hist[(long long)t * tiles + blockIdx.x];
-  __shared__ long long off[RADIX];
-  off[t] = tile_off;
-  for (int k = 0; k < ROUNDS; ++k) {
-    for (int w = 0; w < WARPS; ++w) wc[w][t] = 0;
-    __syncthreads();
-    long long j = base + k * BLOCK + t;
-    bool live = j < n;
-    unsigned long long kv = live ? pl.key[cur][j] : 0;
-    int d = live ? (int)((kv >> shift) & 0xff) : RADIX;
-    unsigned peers = __match_any_sync(0xffffffffu, d);
-    int rank = __popc(peers & ((1u << lane) - 1u));
-    if (live && rank == 0) wc[warp][d] = __popc(peers);
-    __syncthreads();
-    // per digit t: the warps' exclusive offsets, after the earlier rounds
-    int acc = run[t];
-    for (int w = 0; w < WARPS; ++w) {
-      int c = wc[w][t];
-      wc[w][t] = acc;
-      acc += c;
-    }
-    run[t] = acc;
-    __syncthreads();
-    if (live) {
-      long long dst = off[d] + wc[warp][d] + rank;
-      pl.key[1 - cur][dst] = kv;
-      pl.idx[1 - cur][dst] = pl.idx[cur][j];
-    }
-    __syncthreads();
-  }
-}
-
 // The kept rows [lo, lo + limit) of the order to the output's front; the
 // rest of the output invalid.
 __global__ void ol_emit(const OrderPlan pl, long long nb, int cur) {
@@ -201,7 +141,6 @@ extern "C" int siddhi_order_limit(const OrderPlan* plan, int nkeys, const void* 
   if (pl.N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   long long nb = (pl.N + BLOCK - 1) / BLOCK;
-  long long tiles = (pl.N + TILE - 1) / TILE;
   ol_flags<<<(unsigned)nb, BLOCK, 0, s>>>(pl);
   scan_sums_kernel<<<1, SCAN_BLOCK, 0, s>>>(pl.block_sums, nb);
   ol_compact<<<(unsigned)nb, BLOCK, 0, s>>>(pl);
@@ -209,12 +148,8 @@ extern "C" int siddhi_order_limit(const OrderPlan* plan, int nkeys, const void* 
   for (int k = 0; k < nkeys; ++k) {
     ol_keys<<<(unsigned)nb, BLOCK, 0, s>>>(pl, nb, key_col[k], key_ty[k], key_desc[k], cur);
     int bits = key_ty[k] == 1 ? 64 : key_ty[k] == 3 ? 8 : 32;
-    for (int shift = 0; shift < bits; shift += 8) {
-      ol_hist<<<(unsigned)tiles, BLOCK, 0, s>>>(pl, nb, shift, cur, tiles);
-      exclusive_scan(pl.hist, RADIX * tiles, pl.hist_sums, s);
-      ol_scatter<<<(unsigned)tiles, BLOCK, 0, s>>>(pl, nb, shift, cur, tiles);
-      cur = 1 - cur;
-    }
+    cur = radix_sort(pl.key, pl.idx, cur, pl.block_sums + nb, pl.N, bits, pl.hist, pl.hist_sums,
+                     s);
   }
   if (pl.cap > 0) ol_emit<<<(unsigned)((pl.cap + BLOCK - 1) / BLOCK), BLOCK, 0, s>>>(pl, nb, cur);
   return (int)cudaGetLastError();

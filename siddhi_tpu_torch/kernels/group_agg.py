@@ -25,16 +25,20 @@ float sums agree with it exactly only where every order is exact.
 Design: a stable counting sort by slot (tile histograms, a scan of the
 (slot, tile) counts, a block-local stable rank) puts each slot's rows
 together in seq order; one thread per (slot, epoch) segment then walks it.
-The sort's [K] histograms limit it to MAX_SLOTS slots.  Run mode
-(`runs=True`) is for rows in which every (slot, epoch) segment is already
-one run of consecutive contributing rows (a keyed window's key-major rows
-grouped by the partition key alone): the contributing rows are compacted
-in row order, with no sort, and any number of slots is taken.  The plain
-version computes the same function either way.
+The sort's [K] histograms limit it to MAX_SLOTS slots; above that the
+contributing rows are compacted in row order and sorted by slot with a
+stable LSD radix sort (`csrc/radix.cuh`, one pass per byte of K - 1),
+which keeps each slot's rows in seq order, and the same walk follows.
+Run mode (`runs=True`) is for rows in which every (slot, epoch) segment is
+already one run of consecutive contributing rows (a keyed window's
+key-major rows grouped by the partition key alone): the contributing rows
+are compacted in row order, with no sort.  The plain version computes the
+same function in every mode.
 
 `group_agg_scan` is what the selector calls: CPU tensors run `plain`, CUDA
-tensors launch the kernel.  `launches` / `plain_calls` count them;
-`reset_counts()` sets both to 0.
+tensors launch the kernel.  `launches` / `plain_calls` count them, and
+`runs_launches` / `radix_launches` the launches in run and radix mode;
+`reset_counts()` sets them to 0.
 """
 from __future__ import annotations
 
@@ -49,18 +53,21 @@ from . import _nvcc
 launches = 0
 plain_calls = 0
 runs_launches = 0
+radix_launches = 0
 
 MAX_SPECS, MAX_SLOTS, TILE, SCAN_BLOCK = 16, 4096, 1024, 1024
+RADIX, RADIX_TILE = 256, 2048
 OP_ADD, OP_MIN, OP_MAX = 0, 1, 2
 _DT_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2}
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
 def reset_counts() -> None:
-    global launches, plain_calls, runs_launches
+    global launches, plain_calls, runs_launches, radix_launches
     launches = 0
     plain_calls = 0
     runs_launches = 0
+    radix_launches = 0
 
 
 class ScanSpec(NamedTuple):
@@ -150,12 +157,17 @@ class AggPlan(ctypes.Structure):
          ("vals", _P * MAX_SPECS), ("state", _P * MAX_SPECS),
          ("new_state", _P * MAX_SPECS), ("res", _P * MAX_SPECS),
          ("hist", _P), ("hist_sums", _P), ("tile_resets", _P),
-         ("perm", _P), ("s_slot", _P), ("s_epoch", _P)])
+         ("perm", _P), ("s_slot", _P), ("s_epoch", _P),
+         ("r_perm", _P), ("r_slot", _P), ("r_epoch", _P),
+         ("r_key", _P * 2), ("r_idx", _P * 2), ("r_hist", _P),
+         ("r_hist_sums", _P)])
 
 
 def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
            gslot, runs: bool = False):
-    global launches, runs_launches
+    """Run mode when `runs`, else the counting sort up to MAX_SLOTS
+    slots and the radix sort above."""
+    global launches, runs_launches, radix_launches
     dev = sign.device
     B = sign.shape[0]
     if len(specs) > MAX_SPECS:
@@ -170,9 +182,7 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
             raise ValueError(f"group_agg: {name} must be a contiguous [{B}] "
                              f"{d} tensor on {dev}")
     K = state[0].shape[0] if state else 1
-    if K > MAX_SLOTS and not runs:
-        raise NotImplementedError(
-            f"group_agg takes at most {MAX_SLOTS} group slots")
+    radix = not runs and K > MAX_SLOTS
     pl = AggPlan()
     pl.B, pl.K, pl.nspec = B, K, len(specs)
     ntiles = max(1, (B + TILE - 1) // TILE)
@@ -194,7 +204,7 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
         pl.new_state[j], pl.res[j] = ns.data_ptr(), r.data_ptr()
     def e(n, d=torch.int32):
         return torch.empty(max(n, 1), dtype=d, device=dev)
-    nh = ntiles + 1 if runs else K * ntiles
+    nh = ntiles + 1 if runs or radix else K * ntiles
     hist = e(nh, torch.int64)
     hist_sums = e((nh + SCAN_BLOCK - 1) // SCAN_BLOCK + 1, torch.int64)
     tile_resets = e(ntiles + 1, torch.int64)
@@ -205,10 +215,22 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
     pl.tile_resets = tile_resets.data_ptr()
     pl.perm, pl.s_slot, pl.s_epoch = perm.data_ptr(), s_slot.data_ptr(), \
         s_epoch.data_ptr()
+    held = []
+    if radix:
+        rtiles = (B + RADIX_TILE - 1) // RADIX_TILE
+        held = [e(B), e(B), e(B), e(B, torch.int64), e(B, torch.int64),
+                e(B), e(B), e(RADIX * rtiles, torch.int64),
+                e((RADIX * rtiles + SCAN_BLOCK - 1) // SCAN_BLOCK + 1,
+                  torch.int64)]
+        (pl.r_perm, pl.r_slot, pl.r_epoch, pl.r_key[0], pl.r_key[1],
+         pl.r_idx[0], pl.r_idx[1], pl.r_hist, pl.r_hist_sums) = \
+            (x.data_ptr() for x in held)
+    entry = "siddhi_group_agg_runs" if runs else \
+        "siddhi_group_agg_radix" if radix else "siddhi_group_agg"
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _nvcc.launch_plan("group_agg",
-                      "siddhi_group_agg_runs" if runs else "siddhi_group_agg",
-                      "siddhi_agg_plan_size", pl, stream)
+    _nvcc.launch_plan("group_agg", entry, "siddhi_agg_plan_size", pl, stream)
     launches += 1
     runs_launches += int(runs)
+    radix_launches += int(radix)
+    del held
     return tuple(new_state), tuple(results)

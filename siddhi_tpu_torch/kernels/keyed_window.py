@@ -36,12 +36,19 @@ Slab (`KeyedSlab`): per column a [K, C] tensor (bool columns as int32,
 the bytecode's value slots), per key i32 `head` and `count` and i64
 `seq`.  `length` and `time` keep each key's rows as a ring in arrival
 order: logical row i at physical (head + i) mod C, `count` rows alive.
-`lengthBatch` keeps the pending batch at [0, count) and the previous
-batch in the `p_*` columns at [0, p_count).  A time window's rows store
-no expire_ts: it is always ts + t.  Only alive rows are defined.
+`lengthBatch` and `timeBatch` keep the pending batch at [0, count) and
+the previous batch in the `p_*` columns at [0, p_count).  A mode's further
+per-key state (`KEY_STATE`, held in `key_state`): `timeBatch`'s i64
+`start` (-1 until the key's first arrival), and the time window's i32
+`ordered`, 1 where the key's alive rows are in timestamp order along the
+ring (its expiring rows are then a prefix, which lets the kernel skip the
+survivors when no arrival is older than the last of them).  A time
+window's rows store no expire_ts: it is always ts + t.  Only alive rows
+are defined.
 
 `keyed_window_step` is what the keyed planner calls: CPU tensors run
-`plain`, CUDA tensors launch the kernel.  `launches` / `plain_calls`
+`plain`, CUDA tensors launch the kernel; both return the rows and i64[2]
+[least wake, missed].  `launches` / `plain_calls`
 count them (one per step), `mode_launches` the launches by mode and
 `tick_launches` those of timer ticks; `reset_counts()` sets them to 0.
 """
@@ -60,10 +67,15 @@ from .in_probe import MAX_IN, InSet, fill_sets
 
 launches = 0
 plain_calls = 0
-mode_launches = [0, 0, 0]
+mode_launches = [0, 0, 0, 0]
 tick_launches = 0
 
-MODE_LENGTH, MODE_TIME, MODE_BATCH = 0, 1, 2
+MODE_LENGTH, MODE_TIME, MODE_BATCH, MODE_TBATCH = 0, 1, 2, 3
+_TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH)
+# the per-key state a mode keeps beside head / count / seq (and p_count):
+# name -> (dtype, the value of a key with no rows)
+KEY_STATE = {MODE_TIME: {"ordered": (torch.int32, 1)},
+             MODE_TBATCH: {"start": (torch.int64, -1)}}
 MAX_COLS, MAX_CODE, BLOCK = 16, 256, 128
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -72,7 +84,7 @@ def reset_counts() -> None:
     global launches, plain_calls, tick_launches
     launches = 0
     plain_calls = 0
-    mode_launches[:] = [0, 0, 0]
+    mode_launches[:] = [0, 0, 0, 0]
     tick_launches = 0
 
 
@@ -86,13 +98,16 @@ class KeyedSlab:
     """Every key's window state (see the module docstring)."""
 
     def __init__(self, mode, types, ts, gslot, cols, head, count, seq,
-                 p_ts=None, p_gslot=None, p_cols=None, p_count=None):
+                 p_ts=None, p_gslot=None, p_cols=None, p_count=None,
+                 key_state=None):
         self.mode, self.types = mode, list(types)
         self.ts, self.gslot, self.cols = ts, gslot, tuple(cols)
         self.head, self.count, self.seq = head, count, seq
         self.p_ts, self.p_gslot = p_ts, p_gslot
         self.p_cols = tuple(p_cols) if p_cols is not None else None
         self.p_count = p_count
+        # the mode's KEY_STATE tensors, [K] each
+        self.key_state = dict(key_state or {})
 
     @property
     def K(self) -> int:
@@ -113,19 +128,22 @@ class KeyedSlab:
                     tuple(z(slab_dtype(t)) for t in types))
         ts, gslot, cols = block()
         extra = {}
-        if mode == MODE_BATCH:
+        if mode in _TWO_BLOCKS:
             p_ts, p_gslot, p_cols = block()
             extra = dict(p_ts=p_ts, p_gslot=p_gslot, p_cols=p_cols,
                          p_count=z(torch.int32, (K,)))
+        key_state = {n: torch.full((K,), v, dtype=d, device=device)
+                     for n, (d, v) in KEY_STATE.get(mode, {}).items()}
         return cls(mode, types, ts, gslot, cols, z(torch.int32, (K,)),
-                   z(torch.int32, (K,)), z(torch.int64, (K,)), **extra)
+                   z(torch.int32, (K,)), z(torch.int64, (K,)),
+                   key_state=key_state, **extra)
 
     def tensors(self):
         out = [self.ts, self.gslot, *self.cols, self.head, self.count,
                self.seq]
-        if self.mode == MODE_BATCH:
+        if self.mode in _TWO_BLOCKS:
             out += [self.p_ts, self.p_gslot, *self.p_cols, self.p_count]
-        return out
+        return out + list(self.key_state.values())
 
     def clone(self) -> "KeyedSlab":
         def c(x):
@@ -136,7 +154,16 @@ class KeyedSlab:
             self.count.clone(), self.seq.clone(), c(self.p_ts),
             c(self.p_gslot),
             None if self.p_cols is None else [x.clone() for x in self.p_cols],
-            c(self.p_count))
+            c(self.p_count),
+            {n: x.clone() for n, x in self.key_state.items()})
+
+    def reset_keys(self, idx) -> None:
+        """Empty the keys at `idx` (a purged partition key's slot)."""
+        for x in (self.head, self.count, self.seq, self.p_count):
+            if x is not None:
+                x[idx] = 0
+        for n, (_, v) in KEY_STATE.get(self.mode, {}).items():
+            self.key_state[n][idx] = v
 
     def copy_from(self, other: "KeyedSlab") -> None:
         """Take `other`'s contents in place."""
@@ -149,7 +176,7 @@ class KeyedSlab:
         per-key counters."""
         K, C = self.K, self.C
         ar = torch.arange(C, device=self.ts.device)
-        if self.mode == MODE_BATCH:
+        if self.mode in _TWO_BLOCKS:
             pos = ar.expand(K, C)
         else:
             pos = torch.remainder(self.head.long()[:, None] + ar, C)
@@ -162,7 +189,8 @@ class KeyedSlab:
                "count": self.count, "seq": self.seq}
         for j, c in enumerate(self.cols):
             out[f"col{j}"] = view(c)
-        if self.mode == MODE_BATCH:
+        out.update(self.key_state)
+        if self.mode in _TWO_BLOCKS:
             p_alive = ar[None, :] < self.p_count.long()[:, None]
 
             def pview(x):
@@ -183,7 +211,7 @@ def keyed_window_step(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols,
     row), `sel` [Kb, E] each key's batch rows (-1 for none); `spec` the
     query's `FilterSpec`; `t` the time window's length; `tick` marks a
     timer tick over every key.  Moves the slab in place; returns (Rows of
-    exactly the emitted rows, wake i64[1])."""
+    exactly the emitted rows, i64[2] [least wake, rows missed])."""
     if ts.is_cuda:
         return launch(slab, spec, ts, kind, valid, gslot, cols, key_idx,
                       sel, now, t, tick=tick)
@@ -304,7 +332,7 @@ def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
         slab.count[k_live] = torch.minimum(total, torch.full_like(
             total, C))[live].to(torch.int32)
         slab.seq[k_live] = (seq0 + 2 * ncur)[live]
-        return out, full((1,), NO_WAKEUP, i64)
+        return out, _wake(NO_WAKEUP, 0, dev)
 
     if slab.mode == MODE_TIME:
         alive = (ar < cnt[:, None]) & live[:, None]
@@ -356,13 +384,23 @@ def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
         slab.count[k_live] = torch.minimum(total, torch.full_like(
             total, C))[live].to(torch.int32)
         slab.seq[k_live] = torch.where(any_em, seq0 + C + E, seq0)[live]
+        # in order: each alive row no older than the one before it
+        cnt2 = slab.count[kidx].long()
+        pos2 = torch.remainder(slab.head[kidx].long()[:, None] + ar, C)
+        r_ts = slab.ts[rows2, pos2]
+        back = (r_ts[:, 1:] < r_ts[:, :-1]) & (ar[:, 1:] < cnt2[:, None])
+        slab.key_state["ordered"][k_live] = torch.logical_not(back.any(1))[live].to(
+            torch.int32)
         wk = new_ts.min(1).values + t
         wk = torch.where(new_ts.min(1).values < BIG_SEQ, wk,
                          torch.full_like(wk, NO_WAKEUP))
         wk = wk[live]
-        wake = wk.min().reshape(1) if wk.numel() else full((1,), NO_WAKEUP,
-                                                           i64)
-        return out, torch.minimum(wake, full((1,), NO_WAKEUP, i64))
+        wake = int(wk.min()) if wk.numel() else NO_WAKEUP
+        return out, _wake(min(wake, NO_WAKEUP), 0, dev)
+
+    if slab.mode == MODE_TBATCH:
+        return _plain_tbatch(slab, now, t, Kb, E, dev, kidx, live, a_ts,
+                             a_gs, a_cols, a_valid, ncur, seq0, cnt)
 
     # ---- lengthBatch -------------------------------------------------------
     n = C
@@ -427,7 +465,93 @@ def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
     slab.p_count[k_live] = torch.where(nflush > 0, torch.full_like(pc, n),
                                        pc)[live].to(torch.int32)
     slab.seq[k_live] = (seq0 + nflush * span)[live]
-    return out, full((1,), NO_WAKEUP, i64)
+    return out, _wake(NO_WAKEUP, 0, dev)
+
+
+def _wake(w: int, missed, dev):
+    return torch.tensor([w, int(missed)], dtype=torch.int64, device=dev)
+
+
+def _plain_tbatch(slab, now, t, Kb, E, dev, kidx, live, a_ts, a_gs, a_cols,
+                  a_valid, ncur, seq0, cnt):
+    """timeBatch's plain step over the gathered [Kb, ...] state, as the
+    reference's `TimeBatchWindow.process` under `vmap`."""
+    C, types, i64 = slab.C, slab.types, torch.int64
+    ar = torch.arange(C, device=dev)[None, :]
+    rows2 = kidx[:, None]
+
+    def full(shape, v, d):
+        return torch.full(shape, v, dtype=d, device=dev)
+    start0 = slab.key_state["start"][kidx]
+    first = torch.where(a_valid, a_ts, full(a_ts.shape, BIG_SEQ, i64)) \
+        .min(1).values
+    started, anyc = start0 >= 0, ncur > 0
+    start = torch.where(started, start0, first)
+    el = torch.where(started | anyc, now - start, 0).clamp(min=0)
+    nflush = torch.where(live, torch.div(el, t, rounding_mode="floor"), 0)
+    flush = nflush > 0
+    boundary = start + torch.where(flush, nflush, 1) * t
+    to_pend = a_valid & (a_ts < boundary[:, None])
+    to_next = a_valid & ~to_pend
+    r_pend = torch.cumsum(to_pend.to(i64), 1) - 1
+    r_next = torch.cumsum(to_next.to(i64), 1) - 1
+    n_in, n_next = to_pend.sum(1), to_next.sum(1)
+    pc = slab.p_count[kidx].long()
+    p_ts, p_gs = slab.ts[kidx], slab.gslot[kidx]
+    p_cols = [c[kidx] for c in slab.cols]
+    q_ts, q_gs = slab.p_ts[kidx], slab.p_gslot[kidx]
+    q_cols = [c[kidx] for c in slab.p_cols]
+    fl = (flush & live)[:, None]
+    p_alive, q_alive = ar < cnt[:, None], ar < pc[:, None]
+    s0 = seq0[:, None]
+    pos_in = cnt[:, None] + r_pend
+    parts = [
+        (q_ts, full((Kb, C), ev.EXPIRED, torch.int32), q_alive & fl,
+         s0 + ar, q_gs, q_cols),
+        (full((Kb, 1), now, i64), full((Kb, 1), ev.RESET, torch.int32), fl,
+         s0 + C, full((Kb, 1), -1, torch.int32),
+         [full((Kb, 1), ev.default_value(tp), slab_dtype(tp))
+          for tp in types]),
+        (p_ts, full((Kb, C), ev.CURRENT, torch.int32), p_alive & fl,
+         s0 + C + 1 + ar, p_gs, p_cols),
+        (a_ts, full(a_ts.shape, ev.CURRENT, torch.int32), to_pend & fl,
+         s0 + C + 1 + pos_in, a_gs, a_cols)]
+    out = _rows(parts, Kb, dev, types)
+
+    def put(dst_t, mask, vals, at):
+        dst_t[rows2.expand_as(mask)[mask], at.expand_as(mask)[mask]] = \
+            vals[mask]
+    # a flush: the pending rows and the arrivals before the boundary become
+    # the previous slice, the arrivals past it the pending one; otherwise
+    # the arrivals before the boundary join the pending slice
+    arb = ar.expand(Kb, C)
+    wq_p, wq_a = p_alive & fl, to_pend & fl & (pos_in < C)
+    wp_n = to_next & fl & (r_next < C)
+    wp_i = to_pend & ~fl & live[:, None] & (pos_in < C)
+    for dst, src_p, src_a, tgt_p, tgt_n in (
+            (slab.p_ts, p_ts, a_ts, slab.ts, a_ts),
+            (slab.p_gslot, p_gs, a_gs, slab.gslot, a_gs),
+            *zip(slab.p_cols, p_cols, a_cols, slab.cols, a_cols)):
+        put(dst, wq_p, src_p, arb)
+        put(dst, wq_a, src_a, pos_in)
+        put(tgt_p, wp_n, tgt_n, r_next)
+        put(tgt_p, wp_i, tgt_n, pos_in)
+    k_live = kidx[live]
+    fill = cnt + n_in
+    over = (fill - C).clamp(min=0)
+    missed = torch.where(flush, over + (n_next - C).clamp(min=0), over)
+    slab.count[k_live] = torch.where(flush, n_next.clamp(max=C),
+                                     fill.clamp(max=C))[live].to(torch.int32)
+    slab.p_count[k_live] = torch.where(flush, fill.clamp(max=C),
+                                       pc)[live].to(torch.int32)
+    nstart = torch.where(started | anyc,
+                         torch.where(flush, start + nflush * t, start), -1)
+    slab.key_state["start"][k_live] = nstart[live]
+    slab.seq[k_live] = torch.where(flush, seq0 + 2 * C + E + 2,
+                                   seq0)[live]
+    wk = torch.where(nstart >= 0, nstart + t, NO_WAKEUP)[live]
+    wake = int(wk.min()) if wk.numel() else NO_WAKEUP
+    return out, _wake(wake, int(missed[live].sum()), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +570,7 @@ class KeyedPlan(ctypes.Structure):
          ("s_ts", _P), ("s_gslot", _P), ("s_col", _P * MAX_COLS),
          ("head", _P), ("count", _P), ("seq", _P),
          ("p_ts", _P), ("p_gslot", _P), ("p_col", _P * MAX_COLS),
-         ("p_count", _P),
+         ("p_count", _P), ("start", _P), ("ordered", _P),
          ("arr", _P), ("n_arr", _P), ("ocnt", _P), ("block_sums", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
          ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P),
@@ -467,7 +591,7 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     """Check the inputs and fill a plan with the batch, the slab and the
     scratch; returns (plan, a dict of the tensors the launches read,
     which must stay referenced until both are queued: "sums" ends with
-    the total, "wake" is the least wake)."""
+    the total, "wake" is [least wake, rows missed])."""
     if spec.bytecode is None:
         raise NotImplementedError(
             "this filter plan has no bytecode (planned for another device)")
@@ -503,7 +627,7 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
         pl.col_w[j] = torch.empty((), dtype=d).element_size()
         pl.col_def[j] = _nvcc.slot_bits(ev.default_value(tp), d)
         pl.col[j], pl.s_col[j] = c.data_ptr(), sc.data_ptr()
-        if slab.mode == MODE_BATCH:
+        if slab.mode in _TWO_BLOCKS:
             pl.p_col[j] = slab.p_cols[j].data_ptr()
     _check(slab.ts, "slab ts", torch.int64, (K, C), dev)
     _check(slab.gslot, "slab gslot", torch.int32, (K, C), dev)
@@ -517,15 +641,18 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     pl.s_ts, pl.s_gslot = slab.ts.data_ptr(), slab.gslot.data_ptr()
     pl.head, pl.count, pl.seq = (slab.head.data_ptr(),
                                  slab.count.data_ptr(), slab.seq.data_ptr())
-    if slab.mode == MODE_BATCH:
+    if slab.mode in _TWO_BLOCKS:
         pl.p_ts, pl.p_gslot = slab.p_ts.data_ptr(), slab.p_gslot.data_ptr()
         pl.p_count = slab.p_count.data_ptr()
+    for n, x in slab.key_state.items():
+        _check(x, n, KEY_STATE[slab.mode][n][0], (K,), dev)
+        setattr(pl, n, x.data_ptr())
     nb = max(1, (Kb + BLOCK - 1) // BLOCK)
     arr = torch.empty(max(Kb * E, 1), dtype=torch.int32, device=dev)
     n_arr = torch.empty(max(Kb, 1), dtype=torch.int32, device=dev)
     ocnt = torch.empty(max(Kb, 1), dtype=torch.int64, device=dev)
     block_sums = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
-    wake = torch.empty(1, dtype=torch.int64, device=dev)
+    wake = torch.empty(2, dtype=torch.int64, device=dev)
     pl.arr, pl.n_arr, pl.ocnt = arr.data_ptr(), n_arr.data_ptr(), \
         ocnt.data_ptr()
     pl.block_sums, pl.wake = block_sums.data_ptr(), wake.data_ptr()

@@ -9,7 +9,8 @@ Inputs come from numpy seeds: several keys interleaved in one batch,
 invalid rows and rows the filter drops, a key with more events in one
 send than its capacity (and than 64), padding key rows, two keys of a
 lengthBatch window flushing in one step, a time window's expiry by a
-TIMER tick over all K keys, and out-of-order timestamps.  Tolerance:
+TIMER tick over all K keys, out-of-order timestamps, and arrivals older
+than an in-order ring's survivors.  Tolerance:
 exact.  The windows move rows and compute nothing; each step's valid rows
 in order (key-major, then each key's seq order), every key's alive rows
 and counters, and the wake are compared.  The JAX side takes the least
@@ -43,7 +44,7 @@ begin
 end;
 """
 MODES = {"length": kw.MODE_LENGTH, "time": kw.MODE_TIME,
-         "lengthBatch": kw.MODE_BATCH}
+         "lengthBatch": kw.MODE_BATCH, "timeBatch": kw.MODE_TBATCH}
 
 
 def _plans(win, cap=128):
@@ -241,6 +242,31 @@ def test_time_out_of_order_and_equal_timestamps():
     assert _run("time(60)", steps) > 30
 
 
+def test_time_late_arrivals_after_an_ordered_ring():
+    """Rings in timestamp order, then a send in which some keys get one
+    arrival older than all their survivors (the least alive ts, so the
+    wake, is the late row's), one key gets more sorted arrivals than its
+    capacity, all older than its survivors (every survivor drops, the
+    oldest arrivals too, and the ring ends in order), and the rest arrive
+    in order; then ticks.  `ordered` is part of the compared state."""
+    rng = np.random.default_rng(29)
+    steps = []
+    for i in range(4):
+        now = 1000 + 250 * i
+        keys = np.repeat(np.arange(K), 4)
+        b = _batch(rng, len(keys), keys, np.full(len(keys), now),
+                   invalid=0.0, filt=0.0)
+        steps.append(b + _group(keys, b[2], rng.permutation(K)) + (now,))
+    late = np.arange(6)
+    keys = np.concatenate([late, np.full(130, 7), np.arange(8, K)])
+    ts = np.concatenate([np.full(6, 1400), 1400 + np.arange(130),
+                         np.full(K - 8, 2300)])
+    b = _batch(rng, len(keys), keys, ts, invalid=0.0, filt=0.0)
+    steps.append(b + _group(keys, b[2], np.unique(keys)) + (2300,))
+    steps += [_timer(2400) + (2400,), _timer(2600) + (2600,)]
+    assert _run("time(1000)", steps) > 200
+
+
 @pytest.mark.parametrize("win", ["length(5)", "time(1000)",
                                  "lengthBatch(4)"])
 def test_hot_key_above_capacity(win):
@@ -306,7 +332,7 @@ def test_empty_slab_roundtrip():
 
 
 @pytest.mark.parametrize("win", ["length(3)", "time(100)",
-                                 "lengthBatch(3)"])
+                                 "lengthBatch(3)", "timeBatch(100)"])
 def test_slab_round_trip_to_jax(win):
     """A JAX slab carried to the port (through `query_state_from_jax`) and
     back (`keyed_slab_to_jax`) steps in the JAX package exactly as the
@@ -314,8 +340,8 @@ def test_slab_round_trip_to_jax(win):
     rng = np.random.default_rng(23)
     jp, tp, (jslab, jsel) = _plans(win)
     mode = MODES[win.split("(")[0]]
-    steps = _interleaved(rng, 5, 40, timer_at=(3,) if mode == kw.MODE_TIME
-                         else ())
+    steps = _interleaved(rng, 5, 40, timer_at=(3,) if mode in (
+        kw.MODE_TIME, kw.MODE_TBATCH) else ())
     def half(slab, st):
         ts, kind, valid, cols, gslot, key_idx, sel, now = st
         return _jax_window_half(jp.window, slab, ts, kind, valid, gslot, cols,
@@ -324,8 +350,10 @@ def test_slab_round_trip_to_jax(win):
         jslab = half(jslab, st)[0]
     slab, _ = convert.query_state_from_jax(tp, (jslab, jsel))
     back = convert.keyed_slab_to_jax(slab, getattr(tp.window, "time_ms", 0))
-    back = tuple(jax.tree.map(jnp.asarray, JBuffer(*x)) for x in back[:-1]) \
-        + (jnp.asarray(back[-1]),)
+    n_buf = 2 if mode in (kw.MODE_BATCH, kw.MODE_TBATCH) else 1
+    back = tuple(jax.tree.map(jnp.asarray, JBuffer(*x))
+                 for x in back[:n_buf]) + \
+        tuple(jnp.asarray(x) for x in back[n_buf:])
     a, b = half(jslab, steps[4]), half(back, steps[4])
     for x, y in zip(a[1][:4], b[1][:4]):
         assert np.array_equal(x, y)

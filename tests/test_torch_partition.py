@@ -236,18 +236,18 @@ def test_time_window_timer_ticks_every_key():
 
 @pytest.mark.parametrize("ql,item", [
     ("""define stream S (k int, v int);
-     partition with (k < 10 as 'small' or k >= 10 as 'big' of S)
+     partition with (k of S)
+     begin from S#window.session(1 sec) select k, sum(v) as s
+     insert into O; end;""", "B12"),
+    ("""define stream S (k int, v int);
+     define window SW (k int, v int) length(4);
+     partition with (k of S)
      begin from S select k, sum(v) as s insert into O; end;""", "A11"),
     ("""define stream S (k int, v int);
+     define aggregation SA from S select k, sum(v) as s group by k
+     aggregate every sec ... min;
      partition with (k of S)
-     begin
-       @purge(enable='true', interval='1 sec', idle.period='5 sec')
-       from S select k, sum(v) as s insert into O;
-     end;""", "A11"),
-    ("""define stream S (k int, v int);
-     partition with (k of S)
-     begin from S#window.timeBatch(1 sec) select k, sum(v) as s
-     insert into O; end;""", "B11"),
+     begin from S select k, sum(v) as s insert into O; end;""", "A11"),
     ("""@app:fuse(batches='2')
      define stream S (k int, v int); from S select k insert into O;""",
      "A12"),
@@ -260,7 +260,8 @@ def test_time_window_timer_ticks_every_key():
     ("""@app:admission(rate='100')
      define stream S (k int, v int); from S select k insert into O;""",
      "A15"),
-], ids=["range_partition", "purge", "timeBatch_in_partition", "app_fuse",
+], ids=["session_in_partition", "define_window_in_partitioned_app",
+        "define_aggregation_in_partitioned_app", "app_fuse",
         "app_pipeline", "app_serve", "app_admission"])
 def test_still_raises(ql, item):
     with pytest.raises(CompileError, match=item):

@@ -314,12 +314,13 @@ def test_wall_clock_timer_expires_rows():
     assert rt._scheduler._thread is None
 
 
-def test_post_window_filter_raises_at_plan_time_on_cuda():
-    """No kernel evaluates a filter after the window yet: planned for
-    CUDA such a query raises before any traffic; on the CPU it runs and
-    gives the JAX package's events."""
+def test_post_window_filter_compiles_to_bytecode():
+    """A filter after the window compiles to the bytecode kernel K15 runs
+    on CUDA (planned for the CPU, the plan holds its compiled filter and no
+    bytecode); on the CPU the query gives the JAX package's events."""
     from siddhi_tpu_torch.compiler import SiddhiCompiler
-    from siddhi_tpu_torch.core.planner import plan_single_query
+    from siddhi_tpu_torch.core.executor import Scope
+    from siddhi_tpu_torch.kernels.filter_bytecode import compile_filter
     ql = """
     @app:playback
     define stream S (symbol long, price float, volume int);
@@ -328,9 +329,13 @@ def test_post_window_filter_raises_at_plan_time_on_cuda():
     """
     rt = TorchManager(device="cpu").create_siddhi_app_runtime(ql)
     q = SiddhiCompiler.parse(ql).execution_element_list[0]
-    with pytest.raises(NotImplementedError, match="after the window"):
-        plan_single_query(q, "q", rt.schemas, rt.manager.interner,
-                          device=torch.device("cuda"))
+    post = rt.query_runtimes["q"].planned.post_spec
+    assert len(post.compiled) == 1 and post.bytecode is None
+    scope = Scope(torch.device("cpu"))
+    scope.interner = rt.interner
+    scope.add_source("S", rt.schemas["S"])
+    assert compile_filter(q.input_stream.stream_handlers[1].expression,
+                          scope, "S", {})
     rng = np.random.default_rng(17)
     sends = [([rng.integers(0, 4, 16).astype(np.int64), _dyadic(rng, 16),
                rng.integers(0, 6, 16).astype(np.int32)],
