@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the sixteen kernel sources of siddhi_tpu_torch/csrc/
+  2. build: compiles the eighteen kernel sources of siddhi_tpu_torch/csrc/
      with nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -187,7 +187,30 @@ Phases (any failure exits nonzero):
      2^21 group slots: every row against a model that forgets idle
      devices, the allocator's size against it) and PF1 (config 1 with a
      filter after its window: every send's counts against numpy), each
-     with ev/s, per-send p50 / p99 and a profiled sweep.
+     with ev/s, per-send p50 / p99 and a profiled sweep;
+ 33. ext_window (K16: externalTime, timeLength, delay), sort_window (K17),
+     time_batch's external mode (K12), keyed_window's session mode (K11)
+     and group_agg's refcount pass (K4) against their plain versions,
+     step by step (exact): at EX1's shape (epoch-ms event times jittered
+     out of order, the window filling to 1.97M rows; a send without
+     arrivals; a small window dropping survivors), TL1's (length
+     evictions, timer ticks), DL1's, SO1's (NaN, +inf and -0.0 prices
+     among them; an int-key window with LONG_MIN and BIG_SEQ keys and a
+     filter), XB1's (flushes of about 262,144 rows), SE1's (2^20 keys x
+     256 rows, a tick over every key, late joins over many keys, a hot
+     key above capacity; top-level session(gap) on one key row, with a
+     262,144-row session of late joins) and DC1's (2^20 pair slots);
+ 34. their times (CUDA-graph replays) beside their plain versions and
+     bounds (K16's the bytes a window step needs, its full rewrite
+     beside), K17 beside torch.topk of the same keys;
+ 35. EX1 (externalTime(1 min) at 4,096 devices), XB1 (externalTimeBatch(1
+     sec)), TL1 (timeLength(10 sec, 1048576) under playback), DL1
+     (delay(1 sec)), SO1 (a standing top 1,000), SE1 (clickstream
+     sessions at 2^20 users) and DC1 (distinct users per IP at 2^20 pair
+     slots), each held to a numpy model on its checked sends, with ev/s,
+     per-send p50 / p99 and a profiled sweep (the launch counts are read
+     before the sweep);
+ 36. X2: the slice's corpus against the JAX package's events.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -760,6 +783,7 @@ def main() -> None:
     records += partition_phases(torch, np, dev)
     records += slice7_phases(torch, np, dev)
     records += slice8_phases(torch, np, dev)
+    records += slice9_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -3821,8 +3845,10 @@ def keyed_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
             np.zeros(staged.ts.shape[0], np.int32)
         now = int(np.asarray(ts).max())
     b = staged.to_device(planned.in_schema, dev)
+    from siddhi_tpu_torch.core.planner import _keyed_shape
+    t = _keyed_shape(planned.window, planned.name)[2]
     return (b.ts, b.kind, b.valid, torch.from_numpy(gslot).to(dev), b.cols,
-            key_idx, sel, now, getattr(planned.window, "time_ms", 0))
+            key_idx, sel, now, t)
 
 
 def same_bits(torch, x, y):
@@ -4338,8 +4364,8 @@ def run_p1(torch, np, dev, mods):
     plain = {k: mo.plain_calls for k, mo in mods.items()}
     check_launched("P1", launches, plain, ("keyed_window", "group_agg"))
     kw, ga = mods["keyed_window"], mods["group_agg"]
-    if ga.runs_launches != ga.launches:
-        fail(f"P1: group_agg ran {ga.launches - ga.runs_launches} times "
+    if ga.mode_launches[ga.MODE_RUNS] != ga.launches:
+        fail(f"P1: group_agg ran {ga.launches - ga.mode_launches[ga.MODE_RUNS]} times "
              f"outside its run mode")
     slab, agg = rt.query_runtimes["p1"].state
     mem = sum(x.numel() * x.element_size() for x in
@@ -4497,8 +4523,8 @@ def run_p2(torch, np, dev, mods):
           f"EXPIRED rows and the send's CURRENT rows, per symbol); "
           f"K11 launches {kw.launches} ({kw.tick_launches} ticks)")
     ga = mods["group_agg"]
-    if ga.runs_launches != ga.launches:
-        fail(f"P2: group_agg ran {ga.launches - ga.runs_launches} times "
+    if ga.mode_launches[ga.MODE_RUNS] != ga.launches:
+        fail(f"P2: group_agg ran {ga.launches - ga.mode_launches[ga.MODE_RUNS]} times "
              f"outside its run mode")
     lat_line(np, "P2", lat, wall, P2_TIMED * P2_SYMS * P2_PER,
              keyed_h2d(np, sends[0][0][0], P2_SYMS, 8 + 8))
@@ -4560,8 +4586,8 @@ def run_p4(torch, np, dev, mods):
     plain = {k: mo.plain_calls for k, mo in mods.items()}
     check_launched("P4", launches, plain, ("keyed_window", "group_agg"))
     kw, ga = mods["keyed_window"], mods["group_agg"]
-    if ga.runs_launches != ga.launches:
-        fail(f"P4: group_agg ran {ga.launches - ga.runs_launches} times "
+    if ga.mode_launches[ga.MODE_RUNS] != ga.launches:
+        fail(f"P4: group_agg ran {ga.launches - ga.mode_launches[ga.MODE_RUNS]} times "
              f"outside its run mode")
     slab, agg = rt.query_runtimes["p4"].state
     mem = sum(x.numel() * x.element_size() for x in
@@ -7460,7 +7486,7 @@ def compare_group_agg_radix(torch, np, dev):
         cases.append((f"{K} slots, {B} rows, p(RESET) {p}",
                       k4_radix_case(torch, np, dev, rng, K, B, p)))
     err = 0.0
-    before = ga.radix_launches
+    before = ga.mode_launches[ga.MODE_RADIX]
     for what, args in cases:
         na, ra = ga.launch(*args)
         nb, rb = ga.plain(*args)
@@ -7470,7 +7496,7 @@ def compare_group_agg_radix(torch, np, dev):
                                      f"K4 radix {what} state {j}"),
                       float_err(torch, ra[j], rb[j],
                                 f"K4 radix {what} rows {j}"))
-    if ga.radix_launches - before != len(cases):
+    if ga.mode_launches[ga.MODE_RADIX] - before != len(cases):
         fail("phase 29: a comparison did not take group_agg's radix mode")
     print(f"compare: group_agg radix mode == plain over {len(cases)} steps "
           f"(up to {PG1_KEYS_CAP} slots)")
@@ -7642,7 +7668,7 @@ def run_kt1(torch, np, dev, mods):
     if max(checked) != KT1_KEYS or sum(f == KT1_KEYS for f in flushes) < 3:
         fail(f"KT1: flush rounds {[i for i, f in enumerate(flushes) if f]}"
              f"; checked sends flushed {checked} devices")
-    if ga.runs_launches != ga.launches:
+    if ga.mode_launches[ga.MODE_RUNS] != ga.launches:
         fail("KT1: group_agg ran outside its run mode")
     slab = rt.query_runtimes["kt1"].state[0]
     mem = sum(x.numel() * x.element_size() for x in slab.tensors())
@@ -7692,7 +7718,7 @@ def run_pg1(torch, np, dev, mods):
         mods, "pg1", "PG1")
     check_launched("PG1", launches, plain, ("filter_compact", "group_agg"))
     ga = mods["group_agg"]
-    if ga.radix_launches != ga.launches:
+    if ga.mode_launches[ga.MODE_RADIX] != ga.launches:
         fail("PG1: group_agg ran outside its radix mode")
     qr = rt.query_runtimes["pg1"]
     held = len(qr.planned.slot_allocator)
@@ -7705,10 +7731,10 @@ def run_pg1(torch, np, dev, mods):
           f"devices purged a tick {min(purged[40:] or [0])}-"
           f"{max(purged[40:] or [0])}; "
           f"the allocator holds {held} devices of about {distinct} ids drawn "
-          f"(capacity {PG1_KEYS_CAP}); K4 radix launches {ga.radix_launches}")
+          f"(capacity {PG1_KEYS_CAP}); K4 radix launches {ga.mode_launches[ga.MODE_RADIX]}")
     lat_line(np, "PG1 (no window, @purge, 2^21 group slots)", lat, wall,
              PG1_TIMED * PG1_B, PG1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4))
-    launches_main = ga.radix_launches
+    launches_main = ga.mode_launches[ga.MODE_RADIX]
     host_profile(torch, np, rt, h, sends[n:], "PG1")
     mgr.shutdown()
     return launches_main
@@ -7896,6 +7922,1686 @@ select k, sum(p) as sp insert all events into O;""",
       [("S", [["x", k % 3, k % 5, 0.5 * k, k % 4 == 0]
                for k in range(j, j + 7)], 1000 + 40 * j) for j in range(6)])
      for w in ("length(4)", "time(100)", "lengthBatch(3)", "timeBatch(90)")]
+
+
+# ---------------------------------------------------------------------------
+# slice 9: event-time, sort and session windows and distinctCount (phases
+# 33-36): K16 ext_window, K17 sort_window, K12's external mode, K11's
+# session mode and K4's refcount pass
+# ---------------------------------------------------------------------------
+
+EX_T0 = 1_760_000_000_000        # event times in epoch milliseconds
+EX1_DEV, EX1_B, EX1_SPAN, EX1_JIT, EX1_T = 4096, 1 << 17, 4000, 2000, 60_000
+EX1_C = 1 << 22
+EX1_FILL, EX1_TIMED, EX1_CHECK = 16, 16, 2
+XB1_B, XB1_SPAN, XB1_JIT, XB1_T = 1 << 17, 500, 100, 1000
+XB1_FILL, XB1_TIMED, XB1_CHECK = 8, 16, 4
+TL1_B, TL1_T, TL1_N, TL1_SYM = 1 << 17, 10_000, 1 << 20, 256
+TL1_BURST, TL1_GAP = 16, 2000
+DL1_B, DL1_T, DL1_STEP = 1 << 17, 1000, 250
+DL1_FILL, DL1_TIMED, DL1_CHECK = 8, 16, 2
+SO1_B, SO1_N = 1 << 17, 1000
+SO1_FILL, SO1_TIMED, SO1_CHECK = 4, 16, 2
+SE1_KEYS, SE1_C, SE1_B, SE1_GAP, SE1_STEP = 1 << 20, 256, 1 << 17, 5000, 250
+SE1_ACTIVE, SE1_ROT = 1 << 14, 16     # active users: SE1_B / 8
+SE1_FILL, SE1_CHECK, SE1_TIMED = 35, 2, 16
+DC1_IPS, DC1_POOL, DC1_B, DC1_KEYS = 65536, 8, 1 << 17, 131072
+DC1_FILL, DC1_TIMED, DC1_CHECK = 8, 16, 2
+
+# EX1: the Siddhi 5.1 API reference's externalTime example (a sliding
+# minute on the reading's own time), at 4,096 devices
+EX1_QL = """
+define stream SensorStream (deviceID long, eventTime long, temp double);
+@capacity(window='4194304')
+@info(name='ex1')
+from SensorStream#window.externalTime(eventTime, 1 min)
+select deviceID, avg(temp) as a, count() as n group by deviceID
+insert all events into Out;
+"""
+XB1_QL = """
+define stream SensorStream (deviceID long, eventTime long, temp double);
+@capacity(window='1048576')
+@info(name='xb1')
+from SensorStream#window.externalTimeBatch(eventTime, 1 sec)
+select deviceID, avg(temp) as a group by deviceID
+insert all events into Out;
+"""
+TL1_QL = """
+@app:playback
+define stream TradeStream (symbol long, price double, volume int);
+@info(name='tl1')
+from TradeStream#window.timeLength(10 sec, 1048576)
+select symbol, count() as c group by symbol
+insert all events into Out;
+"""
+DL1_QL = """
+@app:playback
+define stream TradeStream (symbol long, price double, volume int);
+@capacity(window='1048576')
+@info(name='dl1')
+from TradeStream#window.delay(1 sec)
+select symbol, price insert into Out;
+"""
+SO1_QL = """
+define stream TradeStream (symbol long, price double, volume int);
+@info(name='so1')
+from TradeStream#window.sort(1000, price, 'desc')
+select symbol, price insert all events into Out;
+"""
+# SE1: the clickstream session; no `group by user`: a top-level query has
+# 4,096 group slots in both packages and SE1's 2^20 users would exhaust
+# them (the reference raises too), so the aggregates run over every live
+# session
+SE1_QL = """
+@app:playback
+define stream ClickStream (user long, page int, dwell double);
+@capacity(keys='1048576', window='256')
+@info(name='se1')
+from ClickStream#window.session(5 sec, user)
+select user, dwell, count() as clicks, sum(dwell) as d
+insert all events into Out;
+"""
+# SE1's clicks through session(gap) at the top level: one session, K11's
+# session mode on one key row
+SE1_ONE_QL = """
+@app:playback
+define stream ClickStream (user long, page int, dwell double);
+@capacity(window='262144')
+@info(name='se1') from ClickStream#window.session(5 sec)
+select user, dwell, count() as clicks, sum(dwell) as d
+insert all events into Out;
+"""
+DC1_QL = """
+define stream LoginStream (ip long, user long);
+partition with (ip of LoginStream)
+begin
+  @capacity(keys='131072')
+  @info(name='dc1')
+  from LoginStream select ip, distinctCount(user) as users insert into Out;
+end;
+"""
+
+
+def slice9_modules():
+    from siddhi_tpu_torch.kernels import (ext_window, filter_compact,
+                                          group_agg, keyed_window,
+                                          sort_window, time_batch)
+    return {"ext_window": ext_window, "sort_window": sort_window,
+            "time_batch": time_batch, "keyed_window": keyed_window,
+            "group_agg": group_agg, "filter_compact": filter_compact}
+
+
+def ex1_send(np, rng, i, span=None, jit=None, b=None):
+    """EX1's send i: readings i*B .. of 4,096 devices in turn, their
+    arrival times spread over the send's `span` ms of event time from
+    EX_T0, each reading's event time jittered back by up to `jit` ms (out
+    of order within and across sends); integer temperatures 0-3, so every
+    sum is exact."""
+    span = EX1_SPAN if span is None else span
+    jit = EX1_JIT if jit is None else jit
+    B = EX1_B if b is None else b
+    j = i * B + np.arange(B, dtype=np.int64)
+    base = EX_T0 + i * span + np.arange(B, dtype=np.int64) * span // B
+    ets = base - rng.integers(0, jit, B) if jit else base.copy()
+    temp = rng.integers(0, 4, B).astype(np.float32)
+    return [j % EX1_DEV, ets, temp], base
+
+
+def xb1_send(np, rng, i):
+    return ex1_send(np, rng, i, XB1_SPAN, XB1_JIT, XB1_B)
+
+
+def trade_send(np, rng, i, ts, b):
+    """One send of `b` trades at one timestamp: symbols 0-255, uniform
+    prices, volume 1."""
+    return ([rng.integers(0, TL1_SYM, b).astype(np.int64),
+             rng.random(b, dtype=np.float32), np.ones(b, np.int32)],
+            np.full(b, ts, np.int64))
+
+
+def tl1_time(i):
+    """TL1's send times: a burst 250 ms apart, then sends 2 s apart."""
+    if i < TL1_BURST:
+        return 1000 + 250 * i
+    return 1000 + 250 * (TL1_BURST - 1) + TL1_GAP * (i - TL1_BURST + 1)
+
+
+def se1_send(np, rng, i):
+    """SE1's send i (at 1000 + 250 i): 7/8 of the clicks from the active
+    set of 16,384 users (the set changes every 16 sends), 1/8 from users
+    uniform over 2^20; dwell 0, 0.5 or 1 s, so every sum is exact."""
+    B = SE1_B
+    n_act = B * 7 // 8
+    r = i // SE1_ROT
+    act = (r * SE1_ACTIVE * 7919 + rng.integers(0, SE1_ACTIVE, n_act)) \
+        % SE1_KEYS
+    user = np.concatenate([act, rng.integers(0, SE1_KEYS, B - n_act)])
+    rng.shuffle(user)
+    return ([user.astype(np.int64), rng.integers(0, 64, B).astype(np.int32),
+             rng.integers(0, 3, B).astype(np.float32) * 0.5],
+            np.full(B, 1000 + SE1_STEP * i, np.int64))
+
+
+def dc1_send(np, rng, i):
+    """DC1's send i: logins from 65,536 IPs, each IP's user drawn from its
+    pool of 8."""
+    ip = rng.integers(0, DC1_IPS, DC1_B).astype(np.int64)
+    user = ip * DC1_POOL + rng.integers(0, DC1_POOL, DC1_B)
+    return [ip, user], np.full(DC1_B, 1000 + 10 * i, np.int64)
+
+
+def sent_rows(np, batches, names):
+    """The valid rows of one send's delivered steps, in delivery order:
+    (kind, ts, {column: values})."""
+    kinds, ts = [], []
+    cols = {n: [] for n in names}
+    for b in batches:
+        if not b["n_valid"]:
+            continue
+        v = b["valid"]
+        kinds.append(b["kind"][v])
+        ts.append(b["ts"][v])
+        for n in names:
+            cols[n].append(b["cols"][n][v])
+
+    def cat(x, d):
+        return np.concatenate(x) if x else np.zeros(0, d)
+    return (cat(kinds, np.int32), cat(ts, np.int64),
+            {n: cat(c, np.float64) for n, c in cols.items()})
+
+
+def expect(np, what, name, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype == np.float32 or want.dtype == np.float32:
+        got = got.astype(np.float32).view(np.int32)
+        want = want.astype(np.float32).view(np.int32)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        if got.shape != want.shape:
+            fail(f"{what}: {got.shape[0]} {name} values, expected "
+                 f"{want.shape[0]}")
+        bad = np.nonzero(got != want)[0][:4]
+        fail(f"{what}: {name} differs at rows {bad.tolist()}: "
+             f"{got[bad].tolist()} vs {want[bad].tolist()}")
+
+
+def group_cumsum(np, g, v):
+    """The running sum of v within each group g, in row order."""
+    o = np.argsort(g, kind="stable")
+    gs, vs = g[o], v[o]
+    cs = np.cumsum(vs)
+    start = np.r_[0, np.nonzero(gs[1:] != gs[:-1])[0] + 1] if gs.size \
+        else np.zeros(0, np.int64)
+    lens = np.diff(np.r_[start, gs.size])
+    base = np.repeat(cs[start] - vs[start], lens)
+    out = np.empty_like(cs)
+    out[o] = cs - base
+    return out
+
+
+def running_avg(np, g, sign, val, cnt0, sum0):
+    """Per row: the group's count and float32 avg after the row (sum /
+    count, NaN at count 0), from the counts and sums before the rows."""
+    c = cnt0[g] + group_cumsum(np, g, sign.astype(np.int64))
+    s = sum0[g] + group_cumsum(np, g, sign * val.astype(np.float64))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        a = np.where(c != 0, s.astype(np.float32) / c.astype(np.float32),
+                     np.float32("nan")).astype(np.float32)
+    return c, a
+
+
+class EX1Model:
+    """EX1's window in numpy: the alive readings in (event time, arrival)
+    order, each device's count and exact temperature sum.  A checked step
+    holds every row: the EXPIRED ones (ts = event time + t) and CURRENT
+    ones (their arrival ts) in the order of their keys 2*(ets + t) and
+    2*ets + 1, with each device's running avg and count."""
+
+    def __init__(self, np, t):
+        self.np, self.t = np, t
+        z = np.zeros(0, np.int64)
+        self.ets, self.dev, self.temp = z, z, np.zeros(0, np.float32)
+        self.cnt = np.zeros(EX1_DEV, np.int64)
+        self.sum = np.zeros(EX1_DEV, np.float64)
+
+    def step(self, cols, ts, batches, what):
+        np, t = self.np, self.t
+        dev, ets, temp = cols
+        thr = int(ets.max()) - t
+        ndb = int(np.searchsorted(self.ets, thr, side="right"))
+        due = ets <= thr
+        if batches is not None:
+            keys = np.concatenate([2 * (self.ets[:ndb] + t),
+                                   2 * (ets[due] + t), 2 * ets + 1])
+            o = np.argsort(keys, kind="stable")
+            nd = ndb + int(due.sum())
+            kind = np.r_[np.ones(nd, np.int32), np.zeros(ets.shape[0],
+                                                         np.int32)][o]
+            r_ts = np.concatenate([self.ets[:ndb] + t, ets[due] + t, ts])[o]
+            r_dev = np.concatenate([self.dev[:ndb], dev[due], dev])[o]
+            r_temp = np.concatenate([self.temp[:ndb], temp[due], temp])[o]
+            sign = np.where(kind == 0, 1.0, -1.0)
+            c, a = running_avg(np, r_dev, sign, r_temp, self.cnt, self.sum)
+            g_kind, g_ts, g = sent_rows(np, batches, ("deviceID", "a", "n"))
+            expect(np, what, "kind", g_kind, kind)
+            expect(np, what, "ts", g_ts, r_ts)
+            expect(np, what, "deviceID", g["deviceID"], r_dev)
+            expect(np, what, "n", g["n"], c)
+            expect(np, what, "avg", g["a"], a)
+        gone = np.concatenate([self.dev[:ndb], dev[due]])
+        gone_t = np.concatenate([self.temp[:ndb], temp[due]])
+        np.add.at(self.cnt, dev, 1)
+        np.add.at(self.sum, dev, temp.astype(np.float64))
+        np.add.at(self.cnt, gone, -1)
+        np.add.at(self.sum, gone, -gone_t.astype(np.float64))
+        keep = ~due
+        e = np.concatenate([self.ets[ndb:], ets[keep]])
+        o = np.argsort(e, kind="stable")
+        self.ets = e[o]
+        self.dev = np.concatenate([self.dev[ndb:], dev[keep]])[o]
+        self.temp = np.concatenate([self.temp[ndb:], temp[keep]])[o]
+        if self.ets.shape[0] > EX1_C:
+            fail(f"{what}: the model holds more rows than the window")
+        return ndb + int(due.sum())
+
+
+class XB1Model:
+    """XB1's tumbling second of event time in numpy: the pending and the
+    previous slice (device, arrival ts, temp) and the slice start.  A
+    flush's rows: the previous slice EXPIRED (its avg falling from the
+    slice's per-device totals), then the slice CURRENT from zero (the
+    RESET row between them is not delivered)."""
+
+    def __init__(self, np, t):
+        self.np, self.t = np, t
+        self.start = -1
+        self.pend = [np.zeros(0, np.int64)] * 2 + [np.zeros(0, np.float32)]
+        self.prev = list(self.pend)
+
+    def step(self, cols, ts, batches, what):
+        np, t = self.np, self.t
+        dev, ets, temp = cols
+        start = self.start if self.start >= 0 else int(ets.min())
+        nflush = max(int(ets.max()) - start, 0) // t
+        bnd = start + (nflush or 1) * t
+        inn = ets < bnd
+        cat = [np.concatenate([p, x[inn]]) for p, x in
+               zip(self.pend, (dev, ts, temp))]
+        if nflush:
+            if batches is not None:
+                q_dev, q_ts, q_temp = self.prev
+                cnt0 = np.bincount(q_dev, minlength=EX1_DEV)
+                sum0 = np.bincount(q_dev, weights=q_temp.astype(np.float64),
+                                   minlength=EX1_DEV)
+                zc, zs = np.zeros(EX1_DEV, np.int64), np.zeros(EX1_DEV)
+                _, a_e = running_avg(np, q_dev, -np.ones(q_dev.shape[0]),
+                                     q_temp, cnt0, sum0)
+                _, a_c = running_avg(np, cat[0], np.ones(cat[0].shape[0]),
+                                     cat[2], zc, zs)
+                g_kind, g_ts, g = sent_rows(np, batches, ("deviceID", "a"))
+                expect(np, what, "kind", g_kind,
+                       np.r_[np.ones(q_dev.shape[0], np.int32),
+                             np.zeros(cat[0].shape[0], np.int32)])
+                expect(np, what, "ts", g_ts, np.r_[q_ts, cat[1]])
+                expect(np, what, "deviceID", g["deviceID"],
+                       np.r_[q_dev, cat[0]])
+                expect(np, what, "avg", g["a"], np.r_[a_e, a_c])
+            self.prev = cat
+            self.pend = [x[~inn] for x in (dev, ts, temp)]
+            self.start = start + nflush * t
+        else:
+            if batches is not None and sum(b["n_valid"] for b in batches):
+                fail(f"{what}: a step that does not flush delivered rows")
+            self.pend = cat
+            self.start = start
+        return cat[0].shape[0] if nflush else 0
+
+
+class TL1Model:
+    """TL1's window in numpy: the alive trades in arrival order (each
+    send's rows share its ts) and each symbol's count.  Over one send the
+    delivered rows are the time expiries up to the send's time (the timer
+    ticks', in expiry order, ts = expiry), the length evictions
+    (EXPIRED, the evicting trade's ts, the evicted trade's symbol), then
+    the send's trades CURRENT: every key of an eviction (4*ts + 1) sorts
+    before every CURRENT key (4*ts + 2) of the same ts."""
+
+    def __init__(self, np, t, n):
+        self.np, self.t, self.n = np, t, n
+        self.ts = np.zeros(0, np.int64)
+        self.sym = np.zeros(0, np.int64)
+        self.cnt = np.zeros(TL1_SYM, np.int64)
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        sym, now = cols[0], int(ts[0])
+        nd = int(np.searchsorted(self.ts + self.t, now, side="right"))
+        ev_n = max(self.ts.shape[0] - nd + sym.shape[0] - self.n, 0)
+        e_sym = np.concatenate([self.sym[nd:], sym])[:ev_n]
+        if batches is not None:
+            k = np.r_[np.ones(nd + ev_n, np.int32),
+                      np.zeros(sym.shape[0], np.int32)]
+            r_ts = np.r_[self.ts[:nd] + self.t, np.full(ev_n + sym.shape[0],
+                                                        now)]
+            r_sym = np.r_[self.sym[:nd], e_sym, sym]
+            sign = np.where(k == 0, 1, -1)
+            c = self.cnt[r_sym] + group_cumsum(np, r_sym, sign)
+            g_kind, g_ts, g = sent_rows(np, batches, ("symbol", "c"))
+            expect(np, what, "kind", g_kind, k)
+            expect(np, what, "ts", g_ts, r_ts)
+            expect(np, what, "symbol", g["symbol"], r_sym)
+            expect(np, what, "c", g["c"], c)
+        np.add.at(self.cnt, self.sym[:nd], -1)
+        np.add.at(self.cnt, e_sym, -1)
+        np.add.at(self.cnt, sym, 1)
+        self.ts = np.r_[self.ts[nd:], np.full(sym.shape[0], now)][ev_n:]
+        self.sym = np.r_[self.sym[nd:], sym][ev_n:]
+        return nd, ev_n
+
+
+class DL1Model:
+    """DL1's held trades in numpy (arrival order; a send's rows share its
+    ts): over one send, every held trade whose ts + t has come is released
+    CURRENT with its own ts, in release order."""
+
+    def __init__(self, np, t):
+        self.np, self.t = np, t
+        self.rows = [np.zeros(0, np.int64), np.zeros(0, np.int64),
+                     np.zeros(0, np.float32)]
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        now = int(ts[0])
+        r_ts, r_sym, r_p = self.rows
+        k = int(np.searchsorted(r_ts + self.t, now, side="right"))
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches, ("symbol", "price"))
+            expect(np, what, "kind", g_kind, np.zeros(k, np.int32))
+            expect(np, what, "ts", g_ts, r_ts[:k])
+            expect(np, what, "symbol", g["symbol"], r_sym[:k])
+            expect(np, what, "price", g["price"], r_p[:k])
+        self.rows = [np.r_[x[k:], y] for x, y in
+                     zip(self.rows, (ts, cols[0], cols[1]))]
+        return k
+
+
+class SO1Model:
+    """SO1's standing top 1,000 in numpy (buffer in candidate order):
+    every trade CURRENT in send order, then the evicted rows EXPIRED in
+    candidate order (the kept rows are the 1,000 greatest prices, ties to
+    the earlier candidate)."""
+
+    def __init__(self, np, n):
+        self.np, self.n = np, n
+        self.rows = [np.zeros(0, np.int64), np.zeros(0, np.int64),
+                     np.zeros(0, np.float32)]
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        c = [np.r_[x, y] for x, y in zip(self.rows, (ts, cols[0], cols[1]))]
+        key = (-c[2]).astype(np.float64)
+        rank = np.empty(key.shape[0], np.int64)
+        rank[np.argsort(key, kind="stable")] = np.arange(key.shape[0])
+        keep = rank < min(key.shape[0], self.n)
+        ev = ~keep
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches, ("symbol", "price"))
+            expect(np, what, "kind", g_kind,
+                   np.r_[np.zeros(ts.shape[0], np.int32),
+                         np.ones(int(ev.sum()), np.int32)])
+            expect(np, what, "ts", g_ts, np.r_[ts, c[0][ev]])
+            expect(np, what, "symbol", g["symbol"], np.r_[cols[0], c[1][ev]])
+            expect(np, what, "price", g["price"], np.r_[cols[1], c[2][ev]])
+        self.rows = [x[keep] for x in c]
+        return int(ev.sum())
+
+
+class SE1Model:
+    """SE1's live sessions in numpy: every live row (user, ts, dwell) in
+    arrival order and each user's last click.  Over one send, every
+    session whose user's last click is `gap` or more before the send's
+    time expires (the timer ticks' rows), then the send's clicks arrive.
+    Rows come out key-major, so a checked send holds: the EXPIRED rows,
+    each user's together and in ts order (ties in arrival order), equal
+    to the expiring sessions' rows; the CURRENT rows, each user's
+    together and in send order, equal to the send's clicks; and the
+    global running count and dwell sum after each delivered row, from the
+    totals before the send."""
+
+    def __init__(self, np, gap):
+        self.np, self.gap = np, gap
+        self.user = np.zeros(0, np.int64)
+        self.ts = np.zeros(0, np.int64)
+        self.dwell = np.zeros(0, np.float32)
+        self.last = np.full(SE1_KEYS, -1, np.int64)
+
+    def _held(self, what, name, u, ts, dw, w_u, w_ts, w_dw):
+        """Rows (u, ts, dw) delivered key-major against the expected ones
+        (w_*) in per-user order: each user's rows together, and equal
+        user by user."""
+        np = self.np
+        starts = np.r_[True, u[1:] != u[:-1]] if u.size else \
+            np.zeros(0, np.bool_)
+        if np.unique(u[starts]).shape[0] != int(starts.sum()):
+            fail(f"{what}: a user's {name} rows are not together")
+        o, wo = np.argsort(u, kind="stable"), np.argsort(w_u, kind="stable")
+        expect(np, what, f"{name} user", u[o], w_u[wo])
+        expect(np, what, f"{name} ts", ts[o], w_ts[wo])
+        expect(np, what, f"{name} dwell", dw[o], w_dw[wo])
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        user, _, dwell = cols
+        now = int(ts[0])
+        exp_u = (self.last >= 0) & (self.last + self.gap <= now)
+        gone = exp_u[self.user]
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches,
+                                        ("user", "dwell", "clicks", "d"))
+            ne = int(gone.sum())
+            expect(np, what, "kind", g_kind,
+                   np.r_[np.ones(ne, np.int32),
+                         np.zeros(user.shape[0], np.int32)])
+            gu = g["user"].astype(np.int64)
+            gd = g["dwell"].astype(np.float32)
+            # the model's expiring rows, per user in ts order (ties in
+            # arrival order)
+            o = np.lexsort((self.ts[gone], self.user[gone]))
+            self._held(what, "expired", gu[:ne], g_ts[:ne], gd[:ne],
+                       self.user[gone][o], self.ts[gone][o],
+                       self.dwell[gone][o])
+            if np.any((g_ts[1:ne] < g_ts[:ne - 1]) &
+                      (gu[1:ne] == gu[:ne - 1])):
+                fail(f"{what}: a session's rows are not in ts order")
+            self._held(what, "current", gu[ne:], g_ts[ne:], gd[ne:], user,
+                       ts, dwell)
+            sign = np.where(g_kind == 0, 1, -1)
+            expect(np, what, "clicks", g["clicks"],
+                   self.user.shape[0] + np.cumsum(sign))
+            expect(np, what, "d", g["d"].astype(np.float32),
+                   (float(self.dwell.astype(np.float64).sum()) +
+                    np.cumsum(sign * gd.astype(np.float64)))
+                   .astype(np.float32))
+        keep = ~gone
+        self.user = np.r_[self.user[keep], user]
+        self.ts = np.r_[self.ts[keep], ts]
+        self.dwell = np.r_[self.dwell[keep], dwell]
+        self.last[exp_u] = -1
+        self.last[user] = now
+        return int(exp_u.sum())
+
+
+class DC1Model:
+    """DC1's (IP, user) pairs seen, in numpy: each login's row holds its
+    IP's distinct users after it (the rows come in send order)."""
+
+    def __init__(self, np):
+        self.np = np
+        self.seen = np.zeros(DC1_IPS * DC1_POOL, np.bool_)
+        self.cnt = np.zeros(DC1_IPS, np.int64)
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        ip, user = cols
+        pair = user                      # ip * POOL + pool index
+        _, first = np.unique(pair, return_index=True)
+        new = np.zeros(pair.shape[0], np.bool_)
+        new[first] = True
+        new &= ~self.seen[pair]
+        c = self.cnt[ip] + group_cumsum(np, ip, new.astype(np.int64))
+        if batches is not None:
+            g_kind, _, g = sent_rows(np, batches, ("ip", "users"))
+            expect(np, what, "kind", g_kind, np.zeros(ip.shape[0], np.int32))
+            expect(np, what, "ip", g["ip"], ip)
+            expect(np, what, "users", g["users"], c)
+        self.seen[pair] = True
+        np.add.at(self.cnt, ip, new.astype(np.int64))
+        return int(self.seen.sum())
+
+
+# -- kernels against their plain versions -----------------------------------
+
+def window_plan(dev, ql, qname):
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    return rt.query_runtimes[qname].planned
+
+
+def window_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
+    """One send's arrivals as a top-level window step sees them (K1's
+    compaction, without a counter: each arrival's seq is its input row),
+    with its `now` and host facts; `tick` (a time): a TIMER step."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.core.window import BatchFacts
+    from siddhi_tpu_torch.kernels import filter_compact as fc
+    if tick is not None:
+        staged = ev.pack_np(planned.in_schema, [], capacity=8)
+        staged.ts[0], staged.kind[0], staged.valid[0] = tick, ev.TIMER, True
+        now = tick
+    else:
+        staged = stage(np, ev, cols, ts)
+        now = int(np.asarray(ts).max())
+    gslot = planned.slot_allocator.slots_for(
+        [staged.cols[i] for i in planned.group_by_positions],
+        staged.valid) if planned.slot_allocator is not None else \
+        np.zeros(staged.ts.shape[0], np.int32)
+    b = staged.to_device(planned.in_schema, dev)
+    arr, n = fc.launch(planned.filter_spec, b.ts, b.kind, b.valid,
+                       torch.from_numpy(gslot).to(dev), b.cols, None)
+    cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
+    return arr, n, now, BatchFacts(staged.ts[cur], staged.ts.shape[0],
+                                   staged, cur)
+
+
+def ext_state_err(torch, a, b, what):
+    la, lb = a.alive(), b.alive()
+    err = float_err(torch, a.meta, b.meta, f"{what} meta")
+    for k in la:
+        if k not in ("seq", "missed"):
+            err = max(err, float_err(torch, la[k], lb[k], f"{what} {k}"))
+    return err
+
+
+def sort_state_err(torch, a, b, what):
+    n = int(a.meta[0])
+    err = float_err(torch, a.meta, b.meta, f"{what} meta")
+    for x, y in zip(a.tensors()[:-1], b.tensors()[:-1]):
+        err = max(err, float_err(torch, x[:n], y[:n], f"{what} buffer"))
+    return err
+
+
+def tb_state_err(torch, a, b, what):
+    err = float_err(torch, a.meta, b.meta, f"{what} meta")
+    for (sa, sb) in zip(a.slices(), b.slices()):
+        for x, y in zip((sa[0], sa[1], *sa[2]), (sb[0], sb[1], *sb[2])):
+            err = max(err, float_err(torch, x, y, f"{what} slice"))
+    return err
+
+
+class Twin:
+    """A kernel's state and a clone for its plain version, stepped
+    together: every emitted row, the wake and the whole state compared."""
+
+    def __init__(self, torch, state, state_err):
+        self.torch, self.s, self.err_fn = torch, [state, state.clone()], \
+            state_err
+        self.err, self.steps, self.rows = 0.0, 0, 0
+
+    def step(self, launch, plain, what):
+        torch = self.torch
+        ra, rb = launch(self.s[0]), plain(self.s[1])
+        torch.cuda.synchronize()
+        if len(ra) == 2:                    # (rows, wake)
+            (ra, wa), (rb, wb) = ra, rb
+            self.err = max(self.err, float_err(torch, wa, wb, f"{what} wake"))
+        self.err = max(self.err, rows_err(torch, ra, rb, what, full=True),
+                       self.err_fn(torch, self.s[0], self.s[1], what))
+        self.steps += 1
+        self.rows += int(ra.ts.shape[0])
+        return ra
+
+
+def compare_ext(torch, np, dev):
+    """Phase 33a: K16 against its plain version, step by step, at EX1's,
+    TL1's and DL1's shapes: EX1's filling sends (out-of-order event times,
+    epoch milliseconds, the window filling to about 1.97M rows), a send
+    without arrivals, a small window that drops its oldest survivors;
+    TL1's burst (the length evicting 131,072 rows a send) and
+    its timer ticks; DL1's held trades and ticks.  A window of EX1_B / 2
+    rows drops survivors.  Returns (max error, the
+    timing inputs)."""
+    from siddhi_tpu_torch.kernels import ext_window as ew
+    rng = np.random.default_rng(111)
+    out, timing = 0.0, {}
+    plan = window_plan(dev, EX1_QL, "ex1")
+    t = plan.window.time_ms
+    tw = Twin(torch, plan.init_state()[0], ext_state_err)
+    small = Twin(torch, ew.ExtState.empty(ew.MODE_EXT, plan.in_schema,
+                                          EX1_B // 2, dev), ext_state_err)
+    pos = plan.window.ts_pos
+    for i in range(EX1_FILL + 1):
+        arr, n, now, _ = window_args(torch, np, dev, plan,
+                                     *ex1_send(np, rng, i))
+        if i == EX1_FILL:
+            timing["ext"] = (tw.s[0].clone(), arr, n, now, t, 0,
+                             arr.cols[pos])
+        tw.step(lambda s: ew.launch(s, arr, n, now, t, ets=arr.cols[pos]),
+                lambda s: ew.plain(s, arr, n, now, t, ets=arr.cols[pos]),
+                f"K16 externalTime EX1 send {i}")
+        if i < 4:
+            small.step(
+                lambda s: ew.launch(s, arr, n, now, t, ets=arr.cols[pos]),
+                lambda s: ew.plain(s, arr, n, now, t, ets=arr.cols[pos]),
+                f"K16 externalTime {EX1_B // 2}-row window send {i}")
+    arr, n, now, _ = window_args(torch, np, dev, plan, tick=now)
+    tw.step(lambda s: ew.launch(s, arr, n, now, t, ets=arr.cols[pos]),
+            lambda s: ew.plain(s, arr, n, now, t, ets=arr.cols[pos]),
+            "K16 externalTime, no arrivals")
+    alive = int(tw.s[0].meta[0])
+    if alive < 0.9 * EX1_T // EX1_SPAN * EX1_B:
+        fail(f"phase 33: EX1's window holds {alive} rows")
+    if int(small.s[0].meta[2]) <= 0:
+        fail("phase 33: the small window dropped no survivors")
+    out = max(out, tw.err, small.err)
+    print(f"phase 33a K16 externalTime: {tw.steps + small.steps} steps, "
+          f"{tw.rows + small.rows} rows equal (window {alive} rows alive; "
+          f"the small window dropped {int(small.s[0].meta[2])})")
+    del tw, small
+    # -- timeLength at TL1's shape -----------------------------------------
+    plan = window_plan(dev, TL1_QL, "tl1")
+    t, L = plan.window.time_ms, plan.window.length
+    tw = Twin(torch, plan.init_state()[0], ext_state_err)
+    last, ticks = 0, 0
+    for i in range(TL1_BURST + 6):
+        now = tl1_time(i)
+        while True:                 # the timer ticks due by this send
+            m = int(tw.s[0].meta[0])
+            w = int(tw.s[0].key[:m].min()) if m else None
+            if w is None or w > now:
+                break
+            ticks += 1
+            arr, n, _, _ = window_args(torch, np, dev, plan, tick=w)
+            if "tlen_tick" not in timing:
+                timing["tlen_tick"] = (tw.s[0].clone(), arr, n, w, t, L,
+                                       None)
+            tw.step(lambda s: ew.launch(s, arr, n, w, t, L),
+                    lambda s: ew.plain(s, arr, n, w, t, L),
+                    f"K16 timeLength TL1 tick at {w}")
+        arr, n, _, _ = window_args(torch, np, dev, plan,
+                                   *trade_send(np, rng, i, now, TL1_B))
+        if i == TL1_BURST - 1:
+            timing["tlen"] = (tw.s[0].clone(), arr, n, now, t, L, None)
+        tw.step(lambda s: ew.launch(s, arr, n, now, t, L),
+                lambda s: ew.plain(s, arr, n, now, t, L),
+                f"K16 timeLength TL1 send {i}")
+        last = now
+    out = max(out, tw.err)
+    if not ticks:
+        fail("phase 33: no timeLength tick expired rows")
+    print(f"phase 33a K16 timeLength: {tw.steps} steps ({ticks} ticks), "
+          f"{tw.rows} rows equal (window {int(tw.s[0].meta[0])} rows alive "
+          f"at {last})")
+    del tw
+    # -- delay at DL1's shape ----------------------------------------------
+    plan = window_plan(dev, DL1_QL, "dl1")
+    t = plan.window.time_ms
+    tw = Twin(torch, plan.init_state()[0], ext_state_err)
+    for i in range(8):
+        now = 1000 + DL1_STEP * i
+        for w in (1000 + DL1_STEP * j + t for j in range(i)):
+            if now - DL1_STEP < w <= now:
+                arr, n, _, _ = window_args(torch, np, dev, plan, tick=w)
+                if i == 7:
+                    timing["delay"] = (tw.s[0].clone(), arr, n, w, t, 0,
+                                       None)
+                tw.step(lambda s: ew.launch(s, arr, n, w, t),
+                        lambda s: ew.plain(s, arr, n, w, t),
+                        f"K16 delay DL1 tick at {w}")
+        arr, n, _, _ = window_args(torch, np, dev, plan,
+                                   *trade_send(np, rng, i, now, DL1_B))
+        tw.step(lambda s: ew.launch(s, arr, n, now, t),
+                lambda s: ew.plain(s, arr, n, now, t),
+                f"K16 delay DL1 send {i}")
+    out = max(out, tw.err)
+    print(f"phase 33a K16 delay: {tw.steps} steps, {tw.rows} rows equal "
+          f"({int(tw.s[0].meta[0])} rows held)")
+    return out, timing
+
+
+def compare_sort(torch, np, dev):
+    """Phase 33b: K17 against its plain version at SO1's shape (sort(1000,
+    price, 'desc'), 131,072 trades a send), with a send whose prices hold
+    NaN, +inf and -0.0 (ties with the dead candidates' +inf key), and an
+    int-key asc window with LONG_MIN and BIG_SEQ keys and filtered-out
+    rows between the arrivals.  Returns (max error, timing inputs)."""
+    from siddhi_tpu_torch.kernels import sort_window as sw
+    rng = np.random.default_rng(113)
+    plan = window_plan(dev, SO1_QL, "so1")
+    w = plan.window
+    tw = Twin(torch, plan.init_state()[0], sort_state_err)
+    timing = None
+    for i in range(6):
+        cols, ts = trade_send(np, rng, i, 1000 + i, SO1_B)
+        if i == 4:
+            cols[1][::7] = np.float32("nan")
+            cols[1][1::11] = np.float32("inf")
+            cols[1][2::13] = np.float32(-0.0)
+        arr, n, _, facts = window_args(torch, np, dev, plan, cols, ts)
+        B = facts.capacity
+        if i == 3:
+            timing = (tw.s[0].clone(), arr, n, w.length, w.key_pos,
+                      w.descending, B)
+        tw.step(lambda s: sw.launch(s, arr, n, w.length, w.key_pos,
+                                    w.descending, B),
+                lambda s: sw.plain(s, arr, n, w.length, w.key_pos,
+                                   w.descending, B),
+                f"K17 SO1 send {i}")
+    ql = ("define stream S (k long, v int);\n@info(name='q') from "
+          "S#window.sort(300, k)[v > 2] select k, v insert all events into O;")
+    plan = window_plan(dev, ql, "q")
+    w = plan.window
+    tw2 = Twin(torch, plan.init_state()[0], sort_state_err)
+    for i in range(5):
+        k = rng.integers(-1000, 1000, 4096).astype(np.int64)
+        k[::97] = -(2 ** 63)
+        k[1::89] = (2 ** 63 - 1) // 4
+        cols = [k, rng.integers(0, 6, 4096).astype(np.int32)]
+        arr, n, _, facts = window_args(torch, np, dev, plan, cols,
+                                       np.full(4096, 2000 + i, np.int64))
+        tw2.step(lambda s: sw.launch(s, arr, n, w.length, w.key_pos,
+                                     w.descending, facts.capacity),
+                 lambda s: sw.plain(s, arr, n, w.length, w.key_pos,
+                                    w.descending, facts.capacity),
+                 f"K17 int asc send {i}")
+    print(f"phase 33b K17: {tw.steps + tw2.steps} steps, "
+          f"{tw.rows + tw2.rows} rows equal")
+    return max(tw.err, tw2.err), timing
+
+
+def compare_xbatch(torch, np, dev):
+    """Phase 33c: K12's external mode against its plain version at XB1's
+    shape: sends that flush every other send (about 262,144 rows) and
+    that do not, event times jittered back, a send without arrivals.
+    Returns (max error, timing inputs)."""
+    from siddhi_tpu_torch.kernels import time_batch as tb
+    rng = np.random.default_rng(117)
+    plan = window_plan(dev, XB1_QL, "xb1")
+    w = plan.window
+    tw = Twin(torch, plan.init_state()[0], tb_state_err)
+    timing, flushes = None, 0
+    for i in range(9):
+        if i == 8:
+            arr, n, now, facts = window_args(torch, np, dev, plan, tick=now)
+            cur = np.zeros(0, np.int64)
+        else:
+            arr, n, now, facts = window_args(torch, np, dev, plan,
+                                             *xb1_send(np, rng, i))
+            cur = facts.staged.cols[w.ts_pos][facts.cur]
+        ets = arr.cols[w.ts_pos]
+        cap = tb.out_capacity_ext(tw.s[0], cur, w.time_ms, True)
+        if cap and timing is None and i > 2:
+            timing = (tw.s[0].clone(), arr, n, now, w.time_ms, cap, ets)
+        rows = tw.step(
+            lambda s: tb.launch(s, arr, n, now, w.time_ms, cap, ets),
+            lambda s: tb.plain(s, arr, n, now, w.time_ms, cap, ets),
+            f"K12 external XB1 send {i}")
+        flushes += int((rows.kind == 3).sum())
+    if flushes < 3:
+        fail(f"phase 33: XB1's sends flushed {flushes} times")
+    print(f"phase 33c K12 external: {tw.steps} steps, {tw.rows} rows equal "
+          f"({flushes} flushes)")
+    return tw.err, timing
+
+
+def compare_session(torch, np, dev):
+    """Phase 33d: K11's session mode against its plain version at SE1's
+    shape (2^20 keys x 256 rows): sends of active and one-click users, a
+    timer tick over every key that expires the sessions gone quiet, a
+    hot key above its capacity (missed rows in both), padding key rows;
+    then session(gap) at the top level (one key row) over a send of
+    131,072 clicks and the tick that expires them.  Returns (max error,
+    timing inputs)."""
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    rng = np.random.default_rng(119)
+    stats = {"steps": 0, "rows": 0, "pads": 0}
+    plan = keyed_plan(dev, SE1_QL, "se1")
+    torch.cuda.empty_cache()
+    slab = plan.init_state()[0]
+    slabs = [slab, slab.clone()]
+    err, timing = 0.0, {}
+    for i in range(3):
+        args = keyed_args(torch, np, dev, plan, *se1_send(np, rng, i))
+        if i == 2:
+            timing["data"] = (plan, slabs[0].clone(), args)
+        e, _ = keyed_twin(torch, kw, plan, slabs, args,
+                          f"K11 session SE1 send {i}", stats)
+        err = max(err, e)
+    args = keyed_args(torch, np, dev, plan, tick=1000 + 2 * SE1_STEP +
+                      SE1_GAP)
+    timing["tick"] = (plan, slabs[0].clone(), args)
+    e, rows = keyed_twin(torch, kw, plan, slabs, args,
+                         "K11 session tick over every key", stats)
+    err = max(err, e)
+    if int(rows.ts.shape[0]) < SE1_B // 8:
+        fail(f"phase 33: the tick expired {int(rows.ts.shape[0])} rows")
+    # late joins over many keys: a send, then one whose clicks all lie
+    # within the gap before it (late joins to the sessions it opened, new
+    # sessions out of batch order), then the tick that expires them all
+    # through the rank launch
+    t_l = 1000 + 2 * SE1_STEP + 2 * SE1_GAP
+    for what, late in (("before the late joins", 0),
+                       ("late joins", 1)):
+        cols, ts = se1_send(np, rng, 3)
+        ts = np.full(ts.shape[0], t_l, np.int64)
+        if late:
+            ts -= rng.integers(1, SE1_GAP, ts.shape[0])
+        e, _ = keyed_twin(torch, kw, plan, slabs,
+                          keyed_args(torch, np, dev, plan, cols, ts),
+                          f"K11 session SE1 {what}", stats)
+        err = max(err, e)
+    e, rows = keyed_twin(torch, kw, plan, slabs,
+                         keyed_args(torch, np, dev, plan, tick=t_l + SE1_GAP),
+                         "K11 session tick expiring the late sessions",
+                         stats)
+    err = max(err, e)
+    n_late = int(rows.ts.shape[0])
+    cols, ts = se1_send(np, rng, 30)
+    cols[0][:2 * SE1_C] = 12345              # one user above 256 clicks
+    args = keyed_args(torch, np, dev, plan, cols, ts)
+    _, wa = kw.launch(slabs[0].clone(), plan.filter_spec, *args)
+    e, _ = keyed_twin(torch, kw, plan, slabs, args, "K11 session hot key",
+                      stats)
+    if int(wa[1]) <= 0:
+        fail("phase 33: a session above its capacity reported no missed "
+             "rows")
+    err = max(err, e)
+    print(f"phase 33d K11 session: {stats['steps']} steps, {stats['rows']} "
+          f"rows equal, {stats['pads']} padding key rows; the tick after "
+          f"the late joins expired {n_late} rows")
+    del slabs, slab
+    # session(gap) at the top level: one key row, one thread over a whole
+    # send, then a tick expiring the session (in ts order already)
+    one = window_plan(dev, SE1_ONE_QL, "se1")
+    slab = one.init_state()[0]
+    slabs = [slab, slab.clone()]
+    one_stats = {"steps": 0, "rows": 0, "pads": 0}
+    cols, ts = se1_send(np, rng, 40)
+    for key, args in (("one", one_key_args(torch, np, dev, one, cols, ts)),
+                      ("one_tick", one_key_args(torch, np, dev, one,
+                                                tick=int(ts[0]) + SE1_GAP))):
+        timing[key] = (one, slabs[0].clone(), args)
+        e, rows = keyed_twin(torch, kw, one, slabs, args,
+                             f"K11 session, one key ({key})", one_stats)
+        err = max(err, e)
+    if int(rows.ts.shape[0]) != SE1_B:
+        fail(f"phase 33: the one-key session expired {rows.ts.shape[0]} "
+             f"rows")
+    # a session with late joins: a send, then one whose clicks are half
+    # late (older than the session's start, within the gap) and half on
+    # time, then the tick that expires all 262,144 rows out of ts order
+    # (the rank launch's path, the worst case of its quadratic count)
+    cols, ts = se1_send(np, rng, 41)
+    t0 = int(ts[0])
+    e, _ = keyed_twin(torch, kw, one, slabs,
+                      one_key_args(torch, np, dev, one, cols, ts),
+                      "K11 session, one key, before the late joins",
+                      one_stats)
+    err = max(err, e)
+    cols, ts = se1_send(np, rng, 42)
+    late = rng.integers(1, SE1_GAP, ts.shape[0] // 2)
+    ts[:late.shape[0]] = t0 - late
+    e, _ = keyed_twin(torch, kw, one, slabs,
+                      one_key_args(torch, np, dev, one, cols, ts),
+                      "K11 session, one key, late joins", one_stats)
+    err = max(err, e)
+    args = one_key_args(torch, np, dev, one, tick=int(ts.max()) + SE1_GAP)
+    timing["one_late_tick"] = (one, slabs[0].clone(), args)
+    e, rows = keyed_twin(torch, kw, one, slabs, args,
+                         "K11 session, one key, late session expired",
+                         one_stats)
+    err = max(err, e)
+    r_ts = rows.ts.cpu().numpy()
+    if r_ts.shape[0] != 2 * SE1_B or not np.all(np.diff(r_ts) >= 0):
+        fail(f"phase 33: the late session expired {r_ts.shape[0]} rows, "
+             f"not {2 * SE1_B} in ts order")
+    print(f"phase 33d K11 session on one key: {one_stats['steps']} steps, "
+          f"{one_stats['rows']} rows equal (a session of {2 * SE1_B} rows "
+          f"with {late.shape[0]} late joins among them)")
+    return err, timing
+
+
+def one_key_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
+    """K11's arguments for a top-level session(gap) step: one key row
+    whose events are the whole batch (`SessionWindow.process`)."""
+    from siddhi_tpu_torch.core import event as ev
+    if tick is not None:
+        staged = ev.pack_np(planned.in_schema, [], capacity=8)
+        staged.ts[0], staged.kind[0], staged.valid[0] = tick, ev.TIMER, True
+        now = tick
+    else:
+        staged = stage(np, ev, cols, ts)
+        now = int(np.asarray(ts).max())
+    B = staged.ts.shape[0]
+    b = staged.to_device(planned.in_schema, dev)
+    return (b.ts, b.kind, b.valid, torch.zeros(B, dtype=torch.int32,
+                                                device=dev), b.cols,
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.arange(B, dtype=torch.int32, device=dev).view(1, B), now,
+            planned.window.gap_ms)
+
+
+def compare_pairs(torch, np, dev):
+    """Phase 33e: K4's refcount pass over pair slots (2^20 of them, radix
+    mode) against its plain version at DC1's shape, and the distinct
+    count's group pass it feeds, over three sends (pairs repeat).
+    Returns (max error, timing inputs)."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.core.keyslots import SlotAllocator
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    rng = np.random.default_rng(121)
+    K = DC1_KEYS
+    pairs, groups = SlotAllocator(8 * K), SlotAllocator(K)
+    spec = [ga.ScanSpec(ga.OP_ADD, torch.int64, 0)]
+    st = [torch.zeros(8 * K, dtype=torch.int64, device=dev)] * 2
+    gst = [torch.zeros(K, dtype=torch.int64, device=dev)] * 2
+    err, timing = 0.0, None
+    B = DC1_B
+    sign = torch.ones(B, dtype=torch.int32, device=dev)
+    kind = torch.full((B,), ev.CURRENT, dtype=torch.int32, device=dev)
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    ones = np.ones(B, np.bool_)
+    for i in range(3):
+        (ip, user), _ = dc1_send(np, rng, i)
+        g = groups.slots_for([ip], ones)
+        p = pairs.slots_for([g, user], ones)
+        ps = torch.from_numpy(p).to(dev)
+        vals = [sign.to(torch.int64)]
+        if timing is None:
+            timing = (spec, [st[0].clone()], vals, sign, kind, valid, ps)
+        a = ga.launch(spec, [st[0]], vals, sign, kind, valid, ps, pair=True)
+        b = ga.plain(spec, [st[1]], vals, sign, kind, valid, ps)
+        torch.cuda.synchronize()
+        err = max(err, float_err(torch, a[1][0], b[1][0], f"K4 pairs {i}"),
+                  float_err(torch, a[0][0], b[0][0], f"K4 pairs {i} state"))
+        st = [a[0][0], b[0][0]]
+        dv = (a[1][0] == 1).to(torch.int64)
+        gs = torch.from_numpy(g).to(dev)
+        a2 = ga.launch(spec, [gst[0]], [dv], sign, kind, valid, gs)
+        b2 = ga.plain(spec, [gst[1]], [dv], sign, kind, valid, gs)
+        err = max(err, float_err(torch, a2[1][0], b2[1][0],
+                                 f"K4 distinct {i}"))
+        gst = [a2[0][0], b2[0][0]]
+    print(f"phase 33e K4 refcount pass: 3 sends of {B} logins, "
+          f"{len(pairs)} pair slots bound: equal")
+    return err, timing
+
+
+# -- timing -----------------------------------------------------------------
+
+def row_bytes(rows):
+    return 8 + 4 + 8 + 4 + sum(c.element_size() for c in rows.cols)
+
+
+def k16_bytes(torch, saved, arr, na, now, t, ets, n_new, out):
+    """(the bytes a K16 step needs, the bytes its design moves).  Needed:
+    each arrival read, each buffer row that leaves (expires, is evicted or
+    released) read, each output row written, each arrival the window keeps
+    written; for externalTime also the buffer rows after the earliest kept
+    arrival's event time, which an insertion in (ets, position) order
+    moves (read and written).  The design reads every alive row and writes
+    the whole new buffer instead."""
+    n_in = int(saved.meta[0])
+    rb = 8 + 8 + 4 + sum(c.element_size() for c in saved.cols)
+    ab = 8 + 4 + sum(c.element_size() for c in arr.cols) + \
+        (8 if ets is not None else 0)
+    ob = row_bytes(out)
+    n_out = int(out.ts.shape[0])
+    if ets is not None:          # externalTime: its clock is ext_now
+        a_key = ets[:na].to(torch.int64) + t
+        clock = int(a_key.max()) - t if na else None
+    else:                        # timeLength, delay: ts + t against now
+        a_key, clock = arr.ts[:na] + t, now
+    kept = a_key > clock if na else torch.zeros(0, dtype=torch.bool)
+    e_in = min(int(kept.sum()), n_new)
+    leave = max(n_in - (n_new - e_in), 0)
+    tail = 0
+    if ets is not None and e_in:
+        first = int((a_key[kept] - t).min())
+        b_key = saved.key[:n_in]
+        tail = int(((b_key + t > clock) & (b_key > first)).sum())
+    need = na * ab + leave * rb + n_out * ob + e_in * rb + 2 * tail * rb
+    return need, n_in * rb + na * ab + n_out * ob + n_new * rb
+
+
+def time_slice9(torch, np, dev, t_ext, t_sort, t_tb, t_ses, t_pair):
+    """Phase 34: each kernel at its configuration's step (CUDA-graph
+    replays; the state restored before each), its plain version and the
+    bound of the bytes the step must move; K17 beside torch.topk of the
+    same keys.  K16's bound counts what a window step needs, not its
+    design's full rewrite of the buffer (`k16_bytes`)."""
+    from siddhi_tpu_torch.kernels import ext_window as ew
+    from siddhi_tpu_torch.kernels import group_agg as ga
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    from siddhi_tpu_torch.kernels import sort_window as sw
+    from siddhi_tpu_torch.kernels import time_batch as tb
+    res = {}
+    for mode, key in (("ext", "ext_window_ext"), ("tlen", "ext_window_tlen"),
+                      ("tlen_tick", "ext_window_tlen_tick"),
+                      ("delay", "ext_window_delay")):
+        saved, arr, n, now, t, L, ets = t_ext[mode]
+        work = saved.clone()
+        meta = saved.meta.clone()
+        out = ew.launch(work, arr, n, now, t, L, ets)[0]
+        n_out = int(out.ts.shape[0])
+        need, rewrite = k16_bytes(torch, saved, arr, int(n), now, t, ets,
+                                  int(work.meta[0]), out)
+
+        def fixed():
+            st = ew.ExtState(saved.mode, saved.ts, saved.key, saved.gslot,
+                             saved.cols, meta)
+            return ew.launch(st, arr, n, now, t, L, ets, n_out=n_out)
+        res[key] = {
+            "ms": graph_ms(torch, fixed, 10,
+                           lambda: meta.copy_(saved.meta)),
+            "plain_ms": event_timer(
+                torch, lambda: ew.plain(work, arr, n, now, t, L, ets), 3,
+                lambda: work.copy_from(saved)),
+            **bound(need), "rewrite_bytes": rewrite,
+            "shape": f"{int(saved.meta[0])} rows alive, {int(n)} arrivals, "
+                     f"{n_out} rows out"}
+    saved, arr, n, length, kp, desc, B = t_sort
+    work = saved.clone()
+    meta = saved.meta.clone()
+    out = sw.launch(work, arr, n, length, kp, desc, B)
+    n_out = int(out.ts.shape[0])
+    n_in, na = int(saved.meta[0]), int(n)
+    rb = 8 + 4 + sum(c.element_size() for c in saved.cols)
+
+    def fixed_sort():
+        st = sw.SortState(saved.ts, saved.gslot, saved.cols, meta)
+        return sw.launch(st, arr, n, length, kp, desc, B, n_out=n_out)
+    keys = -torch.cat([saved.cols[kp][:n_in], arr.cols[kp][:na]]).to(
+        torch.float64)
+    res["sort_window"] = {
+        "ms": graph_ms(torch, fixed_sort, 10, lambda: meta.copy_(
+            saved.meta)),
+        "plain_ms": event_timer(
+            torch, lambda: sw.plain(work, arr, n, length, kp, desc, B), 3,
+            lambda: work.copy_from(saved)),
+        "library_ms": event_timer(torch, lambda: torch.topk(keys, length,
+                                                            largest=False),
+                                  10),
+        **bound((n_in + na) * rb + na * 8 + n_out * row_bytes(out) +
+                int(work.meta[0]) * rb),
+        "shape": f"{n_in} rows kept, {na} arrivals, {n_out} rows out"}
+    saved, arr, n, now, t, cap, ets = t_tb
+    work = saved.clone()
+
+    def restore_tb():
+        for a, b in zip(work_tensors(work), work_tensors(saved)):
+            a.copy_(b)
+    out = tb.launch(work, arr, n, now, t, cap, ets)[0]
+    restore_tb()
+    nv = int(out.valid.sum())
+    pend, prev = (int(x) for x in saved.meta[2:4].tolist())
+    rb = 8 + 4 + sum(c.element_size() for c in saved.b_cols[0])
+    na = int(n)
+    res["time_batch_ext"] = {
+        "ms": graph_ms(torch, lambda: tb.launch(work, arr, n, now, t, cap,
+                                                ets), 10, restore_tb),
+        "plain_ms": event_timer(torch, lambda: tb.plain(work, arr, n, now, t,
+                                                        cap, ets), 3,
+                                restore_tb),
+        **bound((pend + prev) * rb + na * (rb + 8) + nv * row_bytes(out) +
+                na * rb),
+        "shape": f"{pend} pending + {prev} previous rows, {na} arrivals, "
+                 f"{nv} rows out"}
+    for mode in ("tick", "data", "one", "one_tick", "one_late_tick"):
+        planned, saved, args = t_ses[mode]
+        slab = saved.clone()
+        sp = planned.filter_spec
+
+        def restore():
+            slab.copy_from(saved)
+        restore()
+        n_out = int(kw.launch(slab, sp, *args)[0].ts.shape[0])
+        nbytes = k11_bytes(torch, planned, saved, args, n_out)
+        res[f"session_{mode}"] = {
+            "ms": graph_ms(torch, lambda: kw.launch(slab, sp, *args,
+                                                    n_out=n_out), 5,
+                           restore),
+            "plain_ms": event_timer(torch, lambda: kw.plain(slab, sp, *args),
+                                    1, restore),
+            **bound(nbytes),
+            "shape": f"{int(args[5].shape[0])} key rows, {n_out} rows out"}
+        del slab
+    spec, st, vals, sign, kind, valid, ps = t_pair
+    B, K = sign.shape[0], st[0].shape[0]
+    touched = int(torch.unique(ps).shape[0])
+    res["group_agg_pair"] = {
+        "ms": graph_ms(torch, lambda: ga.launch(spec, st, vals, sign, kind,
+                                                valid, ps, pair=True), 20),
+        "plain_ms": event_timer(torch, lambda: ga.plain(spec, st, vals, sign,
+                                                        kind, valid, ps), 2),
+        **bound(B * (4 + 4 + 1 + 4 + 2 * 8) + 2 * touched * 8),
+        "shape": f"{B} rows, {touched} of {K} pair slots touched"}
+    return res
+
+
+def work_tensors(st):
+    return [*st.b_ts, *st.b_gslot, *(c for cols in st.b_cols for c in cols),
+            st.meta]
+
+
+# -- the configurations through SiddhiManager -------------------------------
+
+def run9(torch, np, dev, mods, ql, qname, stream, sends, model, check,
+         label, n_events, h2d, names):
+    """One configuration through SiddhiManager: slice8_run's drive (the
+    checked sends held to the model, the timed ones between), its latency
+    line and a profiled sweep over 4 more sends.  Returns (each module's
+    launches by mode and its timer-tick launches, its launches, the model
+    results of every send), the counts taken when the main path's last
+    send is done, before the sweep."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(ql)
+    rt.start()
+    h = rt.get_input_handler(stream)
+    results = []
+
+    def step(cols, ts, b, what):
+        results.append(model.step(cols, ts, b, what))
+    n = len(sends) - 4
+    lat, wall, launches, plain = slice8_run(
+        torch, np, rt, h, sends[:n], step, check, mods, qname, label)
+    check_launched(label, launches, plain, names)
+    counts = {k: (list(getattr(m, "mode_launches", ())),
+                  getattr(m, "tick_launches", 0)) for k, m in mods.items()}
+    lat_line(np, label, lat, wall, n_events, h2d)
+    host_profile(torch, np, rt, h, sends[n:], label)
+    mgr.shutdown()
+    return counts, launches, results
+
+
+def run_ex1(torch, np, dev, mods):
+    """EX1: externalTime(eventTime, 1 min) at 4,096 devices, epoch-ms event
+    times jittered back up to 2 s: 16 filling sends (about 1.97M rows
+    alive), 16 timed, 2 checked row by row against EX1Model.  Returns
+    K16's externalTime launches."""
+    from siddhi_tpu_torch.kernels import ext_window as ew
+    rng = np.random.default_rng(131)
+    n = EX1_FILL + EX1_TIMED + EX1_CHECK
+    sends = [ex1_send(np, rng, i) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, EX1_QL, "ex1", "SensorStream", sends,
+        EX1Model(np, EX1_T), (EX1_FILL, EX1_CHECK, False),
+        "EX1 (externalTime(1 min), 4,096 devices)", EX1_TIMED * EX1_B,
+        EX1_B * (8 + 8 + 4 + 8 + 4 + 1 + 4),
+        ("filter_compact", "ext_window", "group_agg"))
+    k = counts["ext_window"][0][ew.MODE_EXT]
+    print(f"EX1: sends {n - EX1_CHECK}-{n - 1} held row by row to the "
+          f"numpy model (EXPIRED at event time + 1 min and CURRENT rows in "
+          f"key order, each device's running avg and count); rows expiring "
+          f"a steady send {res[-1]}; K16 externalTime launches {k}")
+    return k
+
+
+def run_xb1(torch, np, dev, mods):
+    """XB1: externalTimeBatch(eventTime, 1 sec), 500 ms of event time a
+    send: 8 filling, 4 checked (two flushes of about 262,144 rows), 16
+    timed.  Returns K12's external launches."""
+    tb = mods["time_batch"]
+    rng = np.random.default_rng(133)
+    n = XB1_FILL + XB1_CHECK + XB1_TIMED
+    sends = [xb1_send(np, rng, i) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, XB1_QL, "xb1", "SensorStream", sends,
+        XB1Model(np, XB1_T), (XB1_FILL, XB1_CHECK, True),
+        "XB1 (externalTimeBatch(1 sec), 4,096 devices)", XB1_TIMED * XB1_B,
+        XB1_B * (8 + 8 + 4 + 8 + 4 + 1 + 4),
+        ("filter_compact", "time_batch", "group_agg"))
+    flushed = [r for r in res if r]
+    if len(flushed) < n // 3:
+        fail(f"XB1: {len(flushed)} flushes over {n} sends")
+    k = counts["time_batch"][0][tb.MODE_EXT]
+    print(f"XB1: sends {XB1_FILL}-{XB1_FILL + XB1_CHECK - 1} held row by "
+          f"row to the numpy model; rows a flush {min(flushed)}-"
+          f"{max(flushed)}; K12 external launches {k}")
+    return k
+
+
+def run_tl1(torch, np, dev, mods):
+    """TL1: timeLength(10 sec, 1048576) under playback: a burst of 16
+    sends 250 ms apart (the length evicts 131,072 rows a send from the
+    9th), then sends 2 s apart (the timer ticks expire each send of the
+    burst 10 s on).  2 checked after the burst's 12 sends, 16 timed.
+    Returns K16's timeLength launches."""
+    from siddhi_tpu_torch.kernels import ext_window as ew
+    rng = np.random.default_rng(137)
+    n = 12 + 2 + 16
+    sends = [trade_send(np, rng, i, tl1_time(i), TL1_B)
+             for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, TL1_QL, "tl1", "TradeStream", sends,
+        TL1Model(np, TL1_T, TL1_N), (12, 2, True),
+        "TL1 (timeLength(10 sec, 1048576))", 16 * TL1_B,
+        TL1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4),
+        ("filter_compact", "ext_window", "group_agg"))
+    k = counts["ext_window"][0][ew.MODE_TLEN]
+    ev_n = sum(e for _, e in res)
+    tim = sum(t for t, _ in res)
+    if not ev_n or not tim:
+        fail(f"TL1: {ev_n} evictions, {tim} time expiries")
+    print(f"TL1: sends 12-13 held row by row to the numpy model (time "
+          f"expiries, evictions, CURRENT rows, each symbol's count); rows "
+          f"evicted {ev_n}, expired by time {tim}; K16 timeLength launches "
+          f"{k}")
+    return k
+
+
+def run_dl1(torch, np, dev, mods):
+    """DL1: delay(1 sec) under playback, 131,072 trades a send 250 ms
+    apart (about 600,000 held): 8 filling, 2 checked, 16 timed.  Returns
+    K16's delay launches."""
+    from siddhi_tpu_torch.kernels import ext_window as ew
+    rng = np.random.default_rng(139)
+    n = DL1_FILL + DL1_CHECK + DL1_TIMED
+    sends = [trade_send(np, rng, i, 1000 + DL1_STEP * i, DL1_B)
+             for i in range(n + 4)]
+    counts, _, _ = run9(
+        torch, np, dev, mods, DL1_QL, "dl1", "TradeStream", sends,
+        DL1Model(np, DL1_T), (DL1_FILL, DL1_CHECK, True),
+        "DL1 (delay(1 sec))", DL1_TIMED * DL1_B,
+        DL1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4), ("filter_compact", "ext_window"))
+    k = counts["ext_window"][0][ew.MODE_DELAY]
+    print(f"DL1: sends {DL1_FILL}-{DL1_FILL + DL1_CHECK - 1} held row by "
+          f"row to the numpy model (released trades in release order); K16 "
+          f"delay launches {k}")
+    return k
+
+
+def run_so1(torch, np, dev, mods):
+    """SO1: a standing top 1,000 by price over 131,072 trades a send: 4
+    filling, 2 checked, 16 timed.  Returns K17's launches."""
+    rng = np.random.default_rng(141)
+    n = SO1_FILL + SO1_CHECK + SO1_TIMED
+    sends = [trade_send(np, rng, i, 1000 + i, SO1_B) for i in range(n + 4)]
+    _, launches, res = run9(
+        torch, np, dev, mods, SO1_QL, "so1", "TradeStream", sends,
+        SO1Model(np, SO1_N), (SO1_FILL, SO1_CHECK, True),
+        "SO1 (sort(1000, price, 'desc'))", SO1_TIMED * SO1_B,
+        SO1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4),
+        ("filter_compact", "sort_window"))
+    print(f"SO1: sends {SO1_FILL}-{SO1_FILL + SO1_CHECK - 1} held row by "
+          f"row to the numpy model; rows evicted a send {min(res[2:])}-"
+          f"{max(res[2:])}; K17 launches {launches['sort_window']}")
+    return launches["sort_window"]
+
+
+def run_se1(torch, np, dev, mods):
+    """SE1: session(5 sec, user) at 2^20 keys x 256 rows, 131,072 clicks a
+    send 250 ms apart under playback: 35 filling sends, 2 checked (send 35
+    expires the first active set's sessions, about 1.8M rows), 16 timed.
+    Returns K11's session launches (timer ticks included)."""
+    kw = mods["keyed_window"]
+    rng = np.random.default_rng(143)
+    n = SE1_FILL + SE1_CHECK + SE1_TIMED
+    sends = [se1_send(np, rng, i) for i in range(n + 4)]
+    torch.cuda.empty_cache()
+    counts, launches, res = run9(
+        torch, np, dev, mods, SE1_QL, "se1", "ClickStream", sends,
+        SE1Model(np, SE1_GAP), (SE1_FILL, SE1_CHECK, True),
+        "SE1 (session(5 sec, user), 2^20 keys)", SE1_TIMED * SE1_B,
+        keyed_h2d(np, sends[0][0][0], SE1_KEYS, 8 + 4 + 4),
+        ("keyed_window", "group_agg"))
+    modes, ticks = counts["keyed_window"]
+    k = modes[kw.MODE_SESSION]
+    print(f"SE1: sends {SE1_FILL}-{SE1_FILL + 1} held to the numpy model "
+          f"(the expired sessions as a multiset, each session's rows "
+          f"together in ts order, the clicks, the running totals); "
+          f"sessions expiring a send {min(res[4:])}-{max(res[4:])} (send "
+          f"{SE1_FILL}: {res[SE1_FILL]}); K11 session launches {k} "
+          f"({ticks} ticks)")
+    return k
+
+
+def run_dc1(torch, np, dev, mods):
+    """DC1: distinct users per source IP in a partition of 131,072 keys
+    (2^20 pair slots): 8 filling, 16 timed, 2 checked against DC1Model.
+    Returns K4's refcount-pass launches."""
+    ga = mods["group_agg"]
+    rng = np.random.default_rng(147)
+    n = DC1_FILL + DC1_TIMED + DC1_CHECK
+    sends = [dc1_send(np, rng, i) for i in range(n + 4)]
+    counts, launches, res = run9(
+        torch, np, dev, mods, DC1_QL, "dc1", "LoginStream", sends,
+        DC1Model(np), (DC1_FILL, DC1_CHECK, False),
+        "DC1 (distinctCount per IP, 2^20 pair slots)", DC1_TIMED * DC1_B,
+        DC1_B * (8 + 8 + 8 + 4 + 1 + 4 + 4),
+        ("filter_compact", "group_agg"))
+    sent = np.unique(np.concatenate([c[1] for c, _ in sends[:n]])).shape[0]
+    if res[-1] != sent or sent < 0.99 * DC1_IPS * DC1_POOL:
+        fail(f"DC1: the model saw {res[-1]} distinct pairs, the sends hold "
+             f"{sent} of {DC1_IPS * DC1_POOL}")
+    modes = counts["group_agg"][0]
+    print(f"DC1: sends {n - DC1_CHECK}-{n - 1} held row by row to the "
+          f"numpy set model; distinct pairs {res[-1]} of "
+          f"{DC1_IPS * DC1_POOL}; K4 launches by mode (sort, runs, radix, "
+          f"refcount pass) {modes} of {launches['group_agg']}")
+    return modes[ga.MODE_PAIR]
+
+
+def slice9_phases(torch, np, dev):
+    """Phases 33-36: K16's three modes, K17, K12's external mode, K11's
+    session mode and K4's refcount pass against their plain versions;
+    their times; EX1, XB1, TL1, DL1, SO1, SE1, DC1 and X2 through
+    SiddhiManager.  Returns their kernel records."""
+    mods = slice9_modules()
+    e16, t_ext = compare_ext(torch, np, dev)
+    torch.cuda.empty_cache()
+    e17, t_sort = compare_sort(torch, np, dev)
+    e12, t_tb = compare_xbatch(torch, np, dev)
+    e11, t_ses = compare_session(torch, np, dev)
+    torch.cuda.empty_cache()
+    e4, t_pair = compare_pairs(torch, np, dev)
+    res = time_slice9(torch, np, dev, t_ext, t_sort, t_tb, t_ses, t_pair)
+    del t_ext, t_sort, t_tb, t_ses, t_pair
+    torch.cuda.empty_cache()
+    n = {"ext_window_ext": run_ex1(torch, np, dev, mods)}
+    torch.cuda.empty_cache()
+    n["time_batch_ext"] = run_xb1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n["ext_window_tlen"] = run_tl1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n["ext_window_delay"] = run_dl1(torch, np, dev, mods)
+    n["sort_window"] = run_so1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n["keyed_window_session"] = run_se1(torch, np, dev, mods)
+    torch.cuda.empty_cache()
+    n["group_agg_pair"] = run_dc1(torch, np, dev, mods)
+    run_corpus(torch, np, dev, mods, "X2", X2_CASES,
+               ("ext_window", "sort_window", "time_batch", "keyed_window",
+                "group_agg"))
+    no_lib = "no single PyTorch call computes this window step"
+    records = []
+    for name, key, src, rep, err, lib in (
+            ("ext_window_ext", "ext_window_ext", "ext_window.cu",
+             "siddhi_tpu/core/window_ext.py:83", e16, no_lib),
+            ("ext_window_tlen", "ext_window_tlen", "ext_window.cu",
+             "siddhi_tpu/core/window_ext.py:279", e16, no_lib),
+            ("ext_window_delay", "ext_window_delay", "ext_window.cu",
+             "siddhi_tpu/core/window_ext.py:375", e16, no_lib),
+            ("time_batch_ext", "time_batch_ext", "time_batch.cu",
+             "siddhi_tpu/core/window_ext.py:178", e12, no_lib),
+            ("sort_window", "sort_window", "sort_window.cu",
+             "siddhi_tpu/core/window_ext.py:496", e17, None),
+            ("keyed_window_session", "session_tick", "keyed_window.cu",
+             "siddhi_tpu/core/window_ext.py:668", e11, no_lib),
+            ("group_agg_pair", "group_agg_pair", "group_agg.cu",
+             "siddhi_tpu/core/selector.py:294", e4,
+             "no single PyTorch call computes a segmented scan with carry "
+             "state")):
+        t = res[key]
+        lib_ms = t.get("library_ms")
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} bytes"
+              f"{rewrite_note(t)}), plain {t['plain_ms']:.4f} ms, launches "
+              f"on the main path {n[name]}; " +
+              (f"library torch.topk {lib_ms:.4f} ms" if lib_ms is not None
+               else f"library_ms null: {lib}"))
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n[name], "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": lib_ms})
+    for key in ("ext_window_tlen_tick", "session_data", "session_one",
+                "session_one_tick", "session_one_late_tick"):
+        t = res[key]
+        print(f"kernel {key}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}{rewrite_note(t)}), "
+              f"plain {t['plain_ms']:.4f} ms")
+    return records
+
+
+def rewrite_note(t):
+    """K16's own traffic beside its bound: the whole buffer read and
+    rewritten."""
+    if "rewrite_bytes" not in t:
+        return ""
+    b = t["rewrite_bytes"]
+    return (f"; the design's full rewrite moves {b} bytes, "
+            f"{b / H100_BYTES_PER_S * 1e3:.5f} ms at the memory rate")
+
+
+# X2: the slice's corpus (tests/test_window_ext.py, test_session_matrix.py,
+# test_session_keyed.py, the distinct cases of test_join_groupby.py, a sort
+# int-key asc case, a top-level distinctCount by page), under playback;
+# _X2_WANT holds the JAX package's events (the CPU tests hold the cases to
+# it)
+_W = "@app:playback\ndefine stream S (eventTime long, v int, k string);\n"
+_U = "@app:playback\ndefine stream S (user string, item int);\n"
+_K = "@app:playback\ndefine stream S (user string, score int);\n"
+_G = "@app:playback\ndefine stream S (g string, x string);\n"
+
+
+def _sess(gap, sends, extra=""):
+    return (_U + f"@info(name='q') from S#window.session({gap}{extra})\n"
+            "select user, item insert all events into Out;",
+            [("S", list(d), ts) for d, ts in sends])
+
+
+_X2_SPECS = [
+    ("externalTime sliding", _W + """@info(name='q')
+from S#window.externalTime(eventTime, 1000)
+select v, sum(v) as total insert all events into Out;""", "q",
+     [("S", [1000, 1, "a"], 1000), ("S", [1500, 2, "b"], 1500),
+      ("S", [2500, 4, "c"], 2500)]),
+    ("externalTime out of order", _W + """@info(name='q')
+from S#window.externalTime(eventTime, 1000)
+select k, count() as n insert all events into Out;""", "q",
+     [("S", [[3000, 1, "a"], [1000, 2, "b"], [2500, 3, "c"]], 1000),
+      ("S", [[1200, 4, "d"], [4100, 5, "e"]], 1010),
+      ("S", [[2000, 6, "f"], [2000, 7, "g"]], 1020),
+      ("S", [[9000, 8, "h"]], 1030)]),
+    ("externalTimeBatch", _W + """@info(name='q')
+from S#window.externalTimeBatch(eventTime, 1000)
+select sum(v) as total insert all events into Out;""", "q",
+     [("S", [1000, 1, "a"], 1000), ("S", [1200, 2, "b"], 1200),
+      ("S", [2100, 4, "c"], 2100), ("S", [3100, 8, "d"], 3100),
+      ("S", [[5200, 1, "x"], [5300, 2, "y"]], 3200)]),
+    ("externalTimeBatch with start", _W + """@info(name='q')
+from S#window.externalTimeBatch(eventTime, 1 sec, 500)
+select k, count() as n insert all events into Out;""", "q",
+     [("S", [[700, 1, "a"], [1400, 2, "b"]], 1), ("S", [1600, 3, "c"], 2),
+      ("S", [[2600, 4, "d"], [2400, 5, "e"]], 3)]),
+    ("timeLength", _W + """@info(name='q')
+from S#window.timeLength(600000, 2)
+select k, sum(v) as total insert all events into Out;""", "q",
+     [("S", [0, 1, "a"], 1000), ("S", [0, 2, "b"], 1001),
+      ("S", [0, 4, "c"], 1002)]),
+    ("timeLength time and length", _W + """@info(name='q')
+from S#window.timeLength(2 sec, 3)
+select k, count() as n insert all events into Out;""", "q",
+     [("S", [0, 1, "a"], 1000), ("S", [0, 2, "b"], 1500),
+      ("S", [[0, 3, "c"], [0, 4, "d"], [0, 5, "e"]], 1600),
+      ("S", [0, 6, "f"], 4000), ("S", [0, 7, "g"], 7000)]),
+    ("delay", _W + """@info(name='q')
+from S#window.delay(1000) select k, v insert into Out;""", "q",
+     [("S", [0, 1, "a"], 1000), ("S", [0, 2, "b"], 1400),
+      ("S", [[0, 3, "c"], [0, 4, "d"]], 2600), ("S", [0, 5, "e"], 5000)]),
+    ("sort int asc", _W + """@info(name='q')
+from S#window.sort(2, v) select k, v insert all events into Out;""", "q",
+     [("S", [0, 50, "a"], 1), ("S", [0, 20, "b"], 2), ("S", [0, 40, "c"], 3),
+      ("S", [0, 10, "d"], 4), ("S", [[0, 30, "e"], [0, 5, "f"]], 5)]),
+    ("sort desc", _W + """@info(name='q')
+from S#window.sort(2, v, 'desc') select k, v insert all events into Out;""",
+     "q", [("S", [0, 50, "a"], 1), ("S", [0, 20, "b"], 2),
+           ("S", [0, 40, "c"], 3)]),
+    ("session", _W + """@info(name='q')
+from S#window.session(1000) select k, v insert expired events into Out;""",
+     "q", [("S", [0, 1, "a"], 1000), ("S", [0, 2, "b"], 1500),
+           ("S", [0, 3, "c"], 5000)]),
+    ("session single timeout", *_sess("2 sec", [(["u", 101], 1000),
+                                                (["tick", 0], 4000)])[:1],
+     "q", _sess("2 sec", [(["u", 101], 1000), (["tick", 0], 4000)])[1]),
+]
+_SESS = [
+    ("session two in turn", [(["u", 1], 1000), (["u", 2], 1500),
+                             (["u", 3], 5000), (["u", 4], 5200),
+                             (["end", 0], 9000)]),
+    ("session boundary", [(["u", 1], 1000), (["u", 2], 3000),
+                          (["end", 0], 6000)]),
+    ("session late joins", [(["a", 101], 5000), (["b", 102], 5010),
+                            (["late", 103], 4000), (["end", 0], 9000)]),
+    ("session too late", [(["a", 101], 5000), (["dead", 103], 2500),
+                          (["end", 0], 9000)]),
+    ("session start moves back", [(["a", 1], 5000), (["late1", 2], 3500),
+                                  (["late2", 3], 1800), (["end", 0], 9000)]),
+    ("session gap from last", [(["u", i], 1000 + i * 1500) for i in range(6)]
+     + [(["end", 0], 30000)]),
+]
+_X2_SPECS += [(n, _sess("2 sec", s)[0], "q", _sess("2 sec", s)[1])
+              for n, s in _SESS]
+_X2_SPECS += [
+    ("session aggregate", _U + """@info(name='q') from S#window.session(1 sec)
+select sum(item) as total insert expired events into Out;""", "q",
+     [("S", ["u", 10], 1000), ("S", ["u", 20], 1500), ("S", ["u", 99], 5000),
+      ("S", ["end", 1], 9000)]),
+    ("session per key", _K + """@info(name='q')
+from S#window.session(1 sec, user) select user, score
+insert all events into Out;""", "q",
+     [("S", ["alice", 1], 1000), ("S", ["bob", 10], 1600),
+      ("S", ["alice", 2], 2100), ("S", ["carol", 99], 4000)]),
+    ("session per key accumulates", _K + """@info(name='q')
+from S#window.session(1 sec, user) select user, score
+insert all events into Out;""", "q",
+     [("S", ["u", 1], 1000), ("S", ["u", 2], 1500), ("S", ["u", 3], 4000)]),
+    ("session per key sum", _K + """@info(name='q')
+from S#window.session(1 sec, user) select sum(score) as total
+insert all events into Out;""", "q",
+     [("S", ["a", 1], 1000), ("S", ["b", 2], 1200), ("S", ["a", 3], 1500),
+      ("S", ["c", 4], 5000)]),
+    ("session per key group by", _K + """@info(name='q')
+from S#window.session(1 sec, user) select user, sum(score) as total
+group by user insert all events into Out;""", "q",
+     [("S", [["a", 1], ["b", 2], ["a", 3]], 1000), ("S", ["b", 4], 1500),
+      ("S", ["c", 4], 5000)]),
+    ("session in a partition", _K + """partition with (user of S) begin
+@info(name='q') from S#window.session(1 sec)
+select user, count() as n insert all events into Out; end;""", "q",
+     [("S", [["a", 1], ["b", 2]], 1000), ("S", ["a", 3], 1500),
+      ("S", ["b", 4], 2600), ("S", ["c", 5], 6000)]),
+    ("distinctCount", _G + """@info(name='q')
+from S select g, distinctCount(x) as dc group by g insert into Out;""", "q",
+     [("S", ["a", "x1"], 1), ("S", ["a", "x1"], 2), ("S", ["a", "x2"], 3),
+      ("S", ["b", "x1"], 4), ("S", ["a", "x2"], 5)]),
+    ("distinctCount batched", """@app:playback
+define stream S (g long, x long);
+@info(name='q')
+from S select g, distinctCount(x) as dc group by g insert into Out;""", "q",
+     [("S", [[1, 10], [1, 10], [1, 20], [2, 10], [2, 10], [1, 30]], 1)]),
+    ("unionSet size", _G + """@info(name='q')
+from S select g, sizeOfSet(unionSet(createSet(x))) as n
+group by g insert into Out;""", "q",
+     [("S", ["a", "x1"], 1), ("S", ["a", "x2"], 2), ("S", ["a", "x1"], 3),
+      ("S", ["b", "y"], 4)]),
+    ("distinctCount by page", """@app:playback
+define stream ClickStream (user long, page int, dwell double);
+@info(name='q') from ClickStream
+select page, distinctCount(user) as users group by page insert into Out;""",
+     "q", [("ClickStream", [[1, 7, 1.0], [2, 7, 0.0], [2, 7, 2.0],
+                            [1, 8, 1.0]], 1),
+           ("ClickStream", [[1, 7, 3.0], [3, 7, 1.0], [3, 8, 1.0]], 2)]),
+    ("distinctCount in a partition", """@app:playback
+define stream L (ip long, user long);
+partition with (ip of L) begin
+@info(name='q') from L select ip, distinctCount(user) as users,
+count() as logins insert into Out; end;""", "q",
+     [("L", [[1, 10], [1, 10], [2, 10], [1, 11]], 1),
+      ("L", [[2, 11], [2, 12], [1, 10], [3, 1]], 2)]),
+]
+
+_X2_WANT = [[(1000, [(1000, (1, 1))], []), (1500, [(1500, (2, 3))], []),
+  (2500, [(2500, (4, 4))], [(2000, (1, 2)), (2500, (2, None))])],
+ [(1000, [(1000, ('b', 1)), (1000, ('c', 1)), (1000, ('a', 2))],
+   [(2000, ('b', 0))]),
+  (2000, [(1010, ('d', 3)), (1010, ('e', 1))],
+   [(2200, ('d', 2)), (3500, ('c', 1)), (4000, ('a', 0))]),
+  (4000, [(1020, ('f', 2)), (1020, ('g', 3))], []),
+  (4000, [(1030, ('h', 1))],
+   [(3000, ('f', 2)), (3000, ('g', 1)), (5100, ('e', 0))])],
+ [(2100, [(1000, (1,)), (1200, (3,))], []),
+  (3100, [(2100, (4,))], [(1000, (2,)), (1200, (None,))]),
+  (3200, [(3100, (8,))], [(2100, (None,))])],
+ [(2, [(1, ('a', 1)), (1, ('b', 2))], []),
+  (3, [(2, ('c', 1)), (3, ('e', 2))], [(1, ('a', 1)), (1, ('b', 0))])],
+ [(1000, [(1000, ('a', 1))], []), (1001, [(1001, ('b', 3))], []),
+  (1002, [(1002, ('c', 6))], [(1002, ('a', 2))])],
+ [(1000, [(1000, ('a', 1))], []), (1500, [(1500, ('b', 2))], []),
+  (1600, [(1600, ('c', 1)), (1600, ('d', 2)), (1600, ('e', 3))],
+   [(1600, ('a', 1)), (1600, ('b', 0))]),
+  (3600, [], [(3600, ('c', 2)), (3600, ('d', 1)), (3600, ('e', 0))]),
+  (4000, [(4000, ('f', 1))], []), (6000, [], [(6000, ('f', 0))]),
+  (7000, [(7000, ('g', 1))], [])],
+ [(2000, [(1000, ('a', 1))], []), (2400, [(1400, ('b', 2))], []),
+  (3600, [(2600, ('c', 3)), (2600, ('d', 4))], [])],
+ [(1, [(1, ('a', 50))], []), (2, [(2, ('b', 20))], []),
+  (3, [(3, ('c', 40))], [(1, ('a', 50))]),
+  (4, [(4, ('d', 10))], [(3, ('c', 40))]),
+  (5, [(5, ('e', 30)), (5, ('f', 5))], [(2, ('b', 20)), (5, ('e', 30))])],
+ [(1, [(1, ('a', 50))], []), (2, [(2, ('b', 20))], []),
+  (3, [(3, ('c', 40))], [(2, ('b', 20))])],
+ [(1000, [(1000, ('a', 1))], []), (1500, [(1500, ('b', 2))], []),
+  (2500, [], [(1000, ('a', 1)), (1500, ('b', 2))]),
+  (5000, [(5000, ('c', 3))], [])],
+ [(1000, [(1000, ('u', 101))], []), (3000, [], [(1000, ('u', 101))]),
+  (4000, [(4000, ('tick', 0))], [])],
+ [(1000, [(1000, ('u', 1))], []), (1500, [(1500, ('u', 2))], []),
+  (3500, [], [(1000, ('u', 1)), (1500, ('u', 2))]),
+  (5000, [(5000, ('u', 3))], []), (5200, [(5200, ('u', 4))], []),
+  (7200, [], [(5000, ('u', 3)), (5200, ('u', 4))]),
+  (9000, [(9000, ('end', 0))], [])],
+ [(1000, [(1000, ('u', 1))], []), (3000, [], [(1000, ('u', 1))]),
+  (3000, [(3000, ('u', 2))], []), (5000, [], [(3000, ('u', 2))]),
+  (6000, [(6000, ('end', 0))], [])],
+ [(5000, [(5000, ('a', 101))], []), (5010, [(5010, ('b', 102))], []),
+  (5010, [(4000, ('late', 103))], []),
+  (6000, [],
+   [(4000, ('late', 103)), (5000, ('a', 101)), (5010, ('b', 102))]),
+  (9000, [(9000, ('end', 0))], [])],
+ [(5000, [(5000, ('a', 101))], []), (7000, [], [(5000, ('a', 101))]),
+  (9000, [(9000, ('end', 0))], [])],
+ [(5000, [(5000, ('a', 1))], []), (5000, [(3500, ('late1', 2))], []),
+  (5000, [(1800, ('late2', 3))], []),
+  (3800, [],
+   [(1800, ('late2', 3)), (3500, ('late1', 2)), (5000, ('a', 1))]),
+  (9000, [(9000, ('end', 0))], [])],
+ [(1000, [(1000, ('u', 0))], []), (2500, [(2500, ('u', 1))], []),
+  (4000, [(4000, ('u', 2))], []), (5500, [(5500, ('u', 3))], []),
+  (7000, [(7000, ('u', 4))], []), (8500, [(8500, ('u', 5))], []),
+  (10500, [],
+   [(1000, ('u', 0)), (2500, ('u', 1)), (4000, ('u', 2)), (5500, ('u', 3)),
+    (7000, ('u', 4)), (8500, ('u', 5))]),
+  (30000, [(30000, ('end', 0))], [])],
+ [(1000, [(1000, (10,))], []), (1500, [(1500, (30,))], []),
+  (2500, [], [(1000, (20,)), (1500, (None,))]), (5000, [(5000, (99,))], []),
+  (6000, [], [(5000, (None,))]), (9000, [(9000, (1,))], [])],
+ [(1000, [(1000, ('alice', 1))], []), (1600, [(1600, ('bob', 10))], []),
+  (2000, [], [(1000, ('alice', 1))]), (2100, [(2100, ('alice', 2))], []),
+  (2600, [], [(1600, ('bob', 10))]), (3100, [], [(2100, ('alice', 2))]),
+  (4000, [(4000, ('carol', 99))], [])],
+ [(1000, [(1000, ('u', 1))], []), (1500, [(1500, ('u', 2))], []),
+  (2500, [], [(1000, ('u', 1)), (1500, ('u', 2))]),
+  (4000, [(4000, ('u', 3))], [])],
+ [(1000, [(1000, (1,))], []), (1200, [(1200, (3,))], []),
+  (1500, [(1500, (6,))], []), (2200, [], [(1200, (4,))]),
+  (2500, [], [(1000, (3,)), (1500, (None,))]), (5000, [(5000, (4,))], [])],
+ [(1000, [(1000, ('a', 1)), (1000, ('a', 4)), (1000, ('b', 2))], []),
+  (1500, [(1500, ('b', 6))], []),
+  (2000, [], [(1000, ('a', 3)), (1000, ('a', None))]),
+  (2500, [], [(1000, ('b', 4)), (1500, ('b', None))]),
+  (5000, [(5000, ('c', 4))], [])],
+ [(1000, [(1000, ('a', 1)), (1000, ('b', 1))], []),
+  (1500, [(1500, ('a', 2))], []), (2000, [], [(1000, ('b', 0))]),
+  (2500, [], [(1000, ('a', 1)), (1500, ('a', 0))]),
+  (2600, [(2600, ('b', 1))], []), (3600, [], [(2600, ('b', 0))]),
+  (6000, [(6000, ('c', 1))], [])],
+ [(1, [(1, ('a', 1))], []), (2, [(2, ('a', 1))], []),
+  (3, [(3, ('a', 2))], []), (4, [(4, ('b', 1))], []),
+  (5, [(5, ('a', 2))], [])],
+ [(1,
+   [(1, (1, 1)), (1, (1, 1)), (1, (1, 2)), (1, (2, 1)), (1, (2, 1)),
+    (1, (1, 3))],
+   [])],
+ [(1, [(1, ('a', 1))], []), (2, [(2, ('a', 2))], []),
+  (3, [(3, ('a', 2))], []), (4, [(4, ('b', 1))], [])],
+ [(1, [(1, (7, 1)), (1, (7, 2)), (1, (7, 2)), (1, (8, 1))], []),
+  (2, [(2, (7, 2)), (2, (7, 3)), (2, (8, 2))], [])],
+ [(1, [(1, (1, 1, 1)), (1, (1, 1, 2)), (1, (2, 1, 1)), (1, (1, 2, 3))], []),
+  (2, [(2, (2, 2, 2)), (2, (2, 3, 3)), (2, (1, 2, 4)), (2, (3, 1, 1))],
+   [])]]
+X2_CASES = [spec + (want,) for spec, want in zip(_X2_SPECS, _X2_WANT)]
 
 
 if __name__ == "__main__":

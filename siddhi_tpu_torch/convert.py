@@ -18,7 +18,17 @@ state converts per window kind:
     at [0, L); `ring_to_jax` goes back;
   * `lengthBatch`: (pending Buffer, previous Buffer, seq), each a compact
     prefix, becomes the port's BatchState.
+  * `externalTime` / `timeLength` / `delay`: (Buffer, seq) becomes the
+    port's `ExtState` (`kernels/ext_window.py`): the alive rows in the
+    port's order (event time then position; add_seq; position) with their
+    key (event time = expire_ts - t; expire_ts; the release time);
+  * `externalTimeBatch`: (pending, previous, start, seq) as timeBatch;
+  * `sort`: (Buffer, seq) becomes the port's `SortState`;
+  * `session(gap)`: (Buffer, start, last, seq) becomes a one-key
+    `KeyedSlab` in K11's session mode.
 Both packages can then continue from the same mid-stream state.
+`pair_allocators_from_jax` copies a distinctCount query's pair-slot
+allocators (and its group-slot allocator) across.
 
 Keyed windows (windows inside a partition): the JAX state is the
 `vmap`-stacked per-key state, Buffers of [K, C] leaves (each key's alive
@@ -181,10 +191,13 @@ def _keyed_blocks(wslab, mode):
 
 def _jax_key_state(wslab, blocks, mode) -> dict:
     """The port slab's mode-specific per-key state (`KEY_STATE`) as the
-    JAX keyed state gives it: timeBatch's slice start is in the state, the
-    time window's `ordered` is read off each key's rows."""
-    from .kernels.keyed_window import KEY_STATE
-    derive = {"start": lambda: np.asarray(wslab[2]),
+    JAX keyed state gives it: timeBatch's slice start and session's start
+    and last are in the state, the time window's `ordered` is read off
+    each key's rows."""
+    from .kernels.keyed_window import KEY_STATE, MODE_SESSION
+    ses = mode == MODE_SESSION
+    derive = {"start": lambda: np.asarray(wslab[1 if ses else 2]),
+              "last": lambda: np.asarray(wslab[2]),
               "ordered": lambda: _ordered(*blocks[0])}
     return {n: derive[n]() for n in KEY_STATE.get(mode, {})}
 
@@ -282,12 +295,65 @@ def keyed_slab_logical(state, mode: int) -> dict:
     return out
 
 
+def ext_state_from_jax(window, buf, seq, schema: ev.Schema, device=None):
+    """A JAX externalTime / timeLength / delay state (Buffer, seq) -> the
+    port's ExtState for the port's window `window`."""
+    from .kernels.ext_window import MODE_EXT, MODE_TLEN, ExtState
+    from .core.window_ext import (ExternalTimeWindow, TimeLengthWindow)
+    device = _dev(device)
+    mode = {ExternalTimeWindow: MODE_EXT, TimeLengthWindow: MODE_TLEN}.get(
+        type(window), 2)
+    alive = np.asarray(buf.alive)
+    idx = np.nonzero(alive)[0]
+    exp = np.asarray(buf.expire_ts)
+    key = exp - window.time_ms if mode == MODE_EXT else exp
+    if mode == MODE_EXT:
+        idx = idx[np.argsort(key[idx], kind="stable")]
+    elif mode == MODE_TLEN:
+        idx = idx[np.argsort(np.asarray(buf.add_seq)[idx], kind="stable")]
+    st = ExtState.empty(mode, schema, window.capacity, device)
+    n = idx.shape[0]
+    for dst, src in ((st.ts, buf.ts), (st.key, key), (st.gslot, buf.gslot),
+                     *zip(st.cols, buf.cols)):
+        dst[:n] = _t(np.asarray(src)[idx], device, dst.dtype)
+    st.meta.copy_(torch.tensor([n, int(seq), 0, 0], dtype=torch.int64))
+    return st
+
+
+def sort_state_from_jax(window, buf, seq, schema: ev.Schema, device=None):
+    """A JAX SortWindow state (Buffer, seq) -> the port's SortState."""
+    from .kernels.sort_window import SortState
+    device = _dev(device)
+    idx = np.nonzero(np.asarray(buf.alive))[0]
+    st = SortState.empty(schema, window.capacity, device)
+    n = idx.shape[0]
+    for dst, src in ((st.ts, buf.ts), (st.gslot, buf.gslot),
+                     *zip(st.cols, buf.cols)):
+        dst[:n] = _t(np.asarray(src)[idx], device, dst.dtype)
+    st.meta.copy_(torch.tensor([n, int(seq)], dtype=torch.int64))
+    return st
+
+
+def pair_allocators_from_jax(port_planned, jax_planned) -> None:
+    """Copy a distinctCount query's pair-slot allocators, and its
+    group-slot allocator, from the JAX plan into the port's."""
+    for (dst, _), (src, _) in zip(port_planned.pair_allocs,
+                                  jax_planned.pair_allocs):
+        _copy_allocator(dst, src)
+    if port_planned.slot_allocator is not None:
+        _copy_allocator(port_planned.slot_allocator,
+                        jax_planned.slot_allocator)
+
+
 def query_state_from_jax(planned, jax_state, device=None):
     """A JAX single-stream QueryRuntime.state (window_state,
     selector_state) -> the port's, for the port's plan of the same
     query."""
     from .core.window import LengthBatchWindow, NoWindow, TimeBatchWindow, \
         TimeWindow
+    from .core.window_ext import (DelayWindow, ExternalTimeBatchWindow,
+                                  ExternalTimeWindow, SessionWindow,
+                                  SortWindow, TimeLengthWindow)
     wstate, sel_state = jax_state
     w = planned.window
     device = _dev(device)
@@ -306,10 +372,22 @@ def query_state_from_jax(planned, jax_state, device=None):
         port_w = batch_state_from_jax(wstate[0], wstate[1],
                                       np.asarray(wstate[2]),
                                       planned.in_schema, w.length, device)
-    elif isinstance(w, TimeBatchWindow):
+    elif isinstance(w, (TimeBatchWindow, ExternalTimeBatchWindow)):
         port_w = time_batch_state_from_jax(
             wstate[0], wstate[1], np.asarray(wstate[2]),
             np.asarray(wstate[3]), planned.in_schema, w.capacity, device)
+    elif isinstance(w, (ExternalTimeWindow, TimeLengthWindow, DelayWindow)):
+        port_w = ext_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
+                                    planned.in_schema, device)
+    elif isinstance(w, SortWindow):
+        port_w = sort_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
+                                     planned.in_schema, device)
+    elif isinstance(w, SessionWindow):
+        # one key: the JAX state with a key axis of 1
+        from .kernels.keyed_window import MODE_SESSION
+        one = _stack_one(wstate)
+        port_w = keyed_slab_from_jax(one, MODE_SESSION,
+                                     planned.in_schema.types, device)
     else:
         raise NotImplementedError(f"no state conversion for {w.name}")
     return port_w, selector_state_from_jax(sel_state, device)
@@ -321,6 +399,16 @@ def query_state_from_jax(planned, jax_state, device=None):
 
 _ALLOC_ARRAYS = ("_cells", "_cell_by_slot", "_used", "_free", "_meta",
                  "_journal")
+
+
+def _stack_one(state):
+    """A window state as a keyed state of one key: every leaf with a
+    leading axis of 1."""
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_stack_one(x) for x in state))
+    if isinstance(state, (tuple, list)):
+        return tuple(_stack_one(x) for x in state)
+    return np.asarray(state)[None]
 
 
 def _copy_allocator(dst, src) -> None:

@@ -13,10 +13,12 @@ Semantics kept from the reference package, operator by operator:
     operand makes the comparison false;
   * constants are never null.
 
-Of the function calls only `coalesce` is ported (reference:
-`siddhi_tpu/core/executor.py:377`); the other built-ins, the extension
-SPI and script functions raise `CompileError`.  `x in Table` reads the
-probe the step puts in the env (`env["__in__:<table>"]`).
+Of the function calls `coalesce` (reference:
+`siddhi_tpu/core/executor.py:377`) and `sizeOfSet` over unionSet's SET
+value are ported; `createSet` only inside unionSet; the other built-ins,
+the extension SPI and script functions raise `CompileError`.  `x in
+Table` reads the probe the step puts in the env
+(`env["__in__:<table>"]`).
 """
 from __future__ import annotations
 
@@ -295,6 +297,10 @@ def compile_expression(expr: Expression, scope: Scope) -> CompiledExpr:
             expr.name == "coalesce" and expr.parameters:
         return _compile_coalesce(expr, scope)
 
+    if isinstance(expr, AttributeFunction) and not expr.namespace and \
+            expr.name in ("createSet", "sizeOfSet"):
+        return _compile_set_fn(expr, scope)
+
     if isinstance(expr, AttributeFunction):
         full = f"{expr.namespace}:{expr.name}" if expr.namespace \
             else expr.name
@@ -315,6 +321,21 @@ def _null_cast(x, from_t: str, to_t: str):
     return torch.where(ev.null_mask(x, from_t),
                        torch.tensor(ev.null_value(to_t), dtype=d,
                                     device=x.device), out)
+
+
+def _compile_set_fn(expr: AttributeFunction, scope: Scope) -> CompiledExpr:
+    """createSet / sizeOfSet (reference: siddhi_tpu/core/executor.py:433):
+    a set exists only as unionSet's SET value, which carries the running
+    distinct count, so sizeOfSet of it is that count."""
+    if expr.name == "createSet":
+        raise CompileError(
+            "createSet is only valid inside unionSet(createSet(attr))")
+    src = compile_expression(expr.parameters[0], scope)
+    if src.type != "SET":
+        raise CompileError(
+            "sizeOfSet expects a set value "
+            "(e.g. sizeOfSet(unionSet(createSet(attr))))")
+    return CompiledExpr(src.fn, "LONG")
 
 
 def _compile_coalesce(expr: AttributeFunction, scope: Scope) -> CompiledExpr:

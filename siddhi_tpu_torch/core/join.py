@@ -559,6 +559,11 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
     sel = SelectorExec(proj_selector, scope, left.schema,
                        max((Kl + 1) * (Kr + 1), 64), out_target or name,
                        aggregate=True)
+    if sel.bank.pair_sources:
+        # reference join.py:421-423
+        raise CompileError(
+            "distinctCount/unionSet in join queries lands in a later phase "
+            "(ROADMAP B14)")
     if cuda:
         from ..kernels.group_agg import MAX_SPECS
         if len(sel.bank.specs) > MAX_SPECS:

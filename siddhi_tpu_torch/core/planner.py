@@ -28,14 +28,27 @@ A range partition gives no key positions but a key function
 range it matches.  Its window is kept per label, and its group key is the
 label followed by the group-by attributes.
 
+A `session(gap, key)` window is kept per value of its key attribute the
+same way, outside a partition: the runtime gives it a key allocator of
+`@capacity(keys)` keys.
+
+distinctCount and unionSet resolve each (group slot, value) pair of the
+batch to a pair slot on the host (`pair_allocs`, one allocator of 8K
+slots per distinct argument); the step takes them as `pslots` and the
+selector's refcount pass reads each output row's slot by its input index
+(the pass-through window's index mode).
+
 Ported: filters before and after the window, the `length`, `time`,
-`lengthBatch` and `timeBatch` windows or none, keyed `length` / `time` /
-`lengthBatch` / `timeBatch` windows, group by, having, the built-in
-aggregators, `x in Table` probes.  Stream functions, the other windows,
-named-window input and distinctCount pair slots raise `CompileError`
-naming their ROADMAP item.  On CUDA a query must also fit the kernels
-(`kernel_subset_violation`, and filters inside the bytecode subset); one
-that does not raises NotImplementedError here, at plan time.
+`lengthBatch`, `timeBatch`, `externalTime`, `externalTimeBatch`,
+`timeLength`, `delay`, `sort` and `session` windows or none, keyed
+`length` / `time` / `lengthBatch` / `timeBatch` / `session` windows,
+group by, having, the built-in aggregators with distinctCount and
+unionSet on queries without a window, `x in Table` probes.  Stream
+functions, the other windows, named-window input and distinctCount over a
+window raise `CompileError` naming their ROADMAP item.  On CUDA a query
+must also fit the kernels (`kernel_subset_violation`, and filters inside
+the bytecode subset); one that does not raises NotImplementedError here,
+at plan time.
 """
 from __future__ import annotations
 
@@ -89,6 +102,8 @@ class PlannedQuery:
     in_deps: List[str] = dataclasses.field(default_factory=list)
     # range partitions: staged batch -> ([label ids], matched mask)
     partition_key_fn: Optional[Callable] = None
+    # distinctCount / unionSet: (pair allocator, value position) each
+    pair_allocs: List[Any] = dataclasses.field(default_factory=list)
 
 
 def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
@@ -205,8 +220,20 @@ def plan_single_query(
     # through the key function instead
     keyed_window = bool((partition_positions or partition_key_fn)
                         and seen_window)
+    window_key_positions = list(partition_positions or [])
+    skey_pos = getattr(window_proc, "session_key_pos", None)
+    if skey_pos is not None:
+        # session(gap, key): the session key scopes the window as a
+        # partition key would (reference :416-436)
+        if partition_positions or partition_key_fn:
+            raise CompileError(
+                "session(gap, key) inside `partition with` is redundant: "
+                "the partition key already scopes the session window")
+        keyed_window = True
+        window_key_positions = [skey_pos]
     if keyed_window and (window_key_allocator is None or key_capacity <= 0):
-        raise CompileError("windows inside partitions need a key allocator")
+        raise CompileError("windows inside partitions (and session(gap, "
+                           "key) queries) need a key allocator")
     if partition_positions and (sel.has_aggregation or gpos):
         extra = [g for g in gpos if g not in partition_positions]
         gpos = [q for q in partition_positions if q not in gpos] + gpos
@@ -220,6 +247,22 @@ def plan_single_query(
         sel.bank.runs = keyed_window and not gpos
     allocator = SlotAllocator(group_slots, name=f"{name}:groupby") \
         if needs_alloc else None
+
+    # distinctCount pair slots: (group, value) -> refcount slot (reference
+    # :447-461)
+    pair_allocs = []
+    if sel.bank.pair_sources:
+        if seen_window:
+            raise CompileError(
+                "distinctCount over windowed queries lands in a later "
+                "phase (expired-row pair slots need buffer plumbing; "
+                "ROADMAP B14)")
+        for j, v in enumerate(sel.bank.pair_sources):
+            _, pos, _ = scope.resolve(v)
+            pair_allocs.append((SlotAllocator(
+                sel.bank.K * 8, name=f"{name}:distinct{j}"), pos))
+        # the selector finds each row's pair slot by its input index
+        window_proc.index_seq = True
     out_event_type = (query.output_stream.output_event_type
                       if query.output_stream and
                       query.output_stream.output_event_type
@@ -243,21 +286,27 @@ def plan_single_query(
                                      facts)
         return wstate, wout.rows, wout.next_wakeup
 
-    def select_body(astate, orows: Rows, now: int, in_tabs=None):
-        """Post-window filters (K15) + selector over the window's rows."""
+    def select_body(astate, orows: Rows, now: int, in_tabs=None,
+                    pslots=()):
+        """Post-window filters (K15) + selector over the window's rows.
+        `pslots` are the batch's pair slots per distinct argument, by
+        input row; the rows' seq is their input index."""
         env = _env_for(sid, orows.cols, orows.ts, now, orows.kind)
         env.update(probe_env(in_tabs or {}))
+        for j, ps in enumerate(pslots):
+            env[f"__pslot__{j}"] = ps[orows.seq]
         if post_spec is not None:
             orows = orows._replace(valid=post_filter(
                 post_spec.bind(in_tabs), orows, now))
         return sel.process(astate, orows, env)
 
-    def step(state, batch, gslot, now: int, facts, in_tabs=None):
+    def step(state, batch, gslot, now: int, facts, in_tabs=None,
+             pslots=()):
         wstate, astate = state
         wstate, orows, wake = stage_body(wstate, batch, gslot, now, facts,
                                          in_tabs)
-        astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
-                                                          now, in_tabs)
+        astate, (ots, okind, ovalid, ocols) = select_body(
+            astate, orows, now, in_tabs, pslots)
         cur = torch.logical_and(ovalid, okind == ev.CURRENT)
         if wake is None:
             wake = torch.tensor([NO_WAKEUP, 0], dtype=torch.int64,
@@ -313,20 +362,25 @@ def plan_single_query(
         device=device, filter_spec=fspec, post_spec=post_spec,
         stage_body=stage_body, select_body=select_body,
         keyed_window=keyed_window,
-        window_key_positions=list(partition_positions or []),
+        window_key_positions=window_key_positions,
         window_key_allocator=window_key_allocator,
         key_capacity=key_capacity, kstep=kstep, timer_keys=timer_keys,
-        in_deps=in_deps, partition_key_fn=partition_key_fn)
+        in_deps=in_deps, partition_key_fn=partition_key_fn,
+        pair_allocs=pair_allocs)
 
 
 def _keyed_shape(wproc, name: str):
-    """(K11 mode, per-key capacity, time window length) of a window kept
-    per partition key.  Other window kinds raise: their keyed forms are not
-    ported yet.  A timeBatch key holds max(@capacity(window), 2 * batch
-    capacity) rows a slice, as the reference builds it."""
+    """(K11 mode, per-key capacity, time window length or session gap) of
+    a window kept per partition key (or per session key).  Other window
+    kinds raise: their keyed forms are not ported yet.  A timeBatch or
+    session key holds max(@capacity(window), 2 * batch capacity) rows, as
+    the reference builds it."""
     from ..kernels import keyed_window as kw
     from .window import (LengthBatchWindow, LengthWindow, TimeBatchWindow,
                          TimeWindow)
+    from .window_ext import SessionWindow
+    if isinstance(wproc, SessionWindow):
+        return kw.MODE_SESSION, wproc.capacity, wproc.gap_ms
     if isinstance(wproc, LengthWindow):
         return kw.MODE_LENGTH, wproc.length, 0
     if isinstance(wproc, TimeWindow):

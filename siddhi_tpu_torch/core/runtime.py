@@ -654,10 +654,17 @@ class QueryRuntime:
             self._touch(gslot, now)
         batch = staged.to_device(p.in_schema, p.device)
         cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
-        facts = BatchFacts(staged.ts[cur], staged.ts.shape[0])
+        facts = BatchFacts(staged.ts[cur], staged.ts.shape[0], staged, cur)
+        kw = self.app.in_probe_kw(p.in_deps)
+        if p.pair_allocs:
+            # distinctCount: (group slot, value) -> pair slot, by input row
+            # (reference `_slots_for_batch`, :401-457)
+            kw["pslots"] = tuple(
+                _h2d(alloc.slots_for([gslot, staged.cols[pos]],
+                                     staged.valid), p.device)
+                for alloc, pos in p.pair_allocs)
         self.state, out, header = p.step(
-            self.state, batch, _h2d(gslot, p.device), now, facts,
-            **self.app.in_probe_kw(p.in_deps))
+            self.state, batch, _h2d(gslot, p.device), now, facts, **kw)
         _emit_plain(self, out, header, now)
 
     def _process_keyed(self, staged: ev.StagedBatch, now: int,
@@ -710,6 +717,15 @@ class QueryRuntime:
             self.app._scheduler.notify_at(w, self)
 
 
+# windows whose rows beyond their capacity are counted in the header's
+# `missed` word (the reference drops them silently): what fills up
+_HOLDS = {"timeBatch": "time batch window's slice",
+          "externalTimeBatch": "externalTimeBatch window's slice",
+          "externalTime": "externalTime window's buffer",
+          "delay": "delay window's buffer",
+          "session": "session window's session (per key)"}
+
+
 def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
     """Deliver one plain step's output.  The header [n_valid, n_current,
     wake, missed] is the step's one device fetch.  A time window step whose
@@ -721,10 +737,11 @@ def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
     if not live and not qr.planned.needs_timer:
         return
     nv, ncur, wake, missed = header.tolist()
-    if missed and qr.planned.window.name == "timeBatch":
+    w = qr.planned.window
+    if missed and w.name in _HOLDS:
         raise RuntimeError(
-            f"query {qr.name!r}: {missed} rows did not fit the time batch "
-            f"window's slice of {qr.planned.window.capacity} rows; raise "
+            f"query {qr.name!r}: {missed} rows did not fit the "
+            f"{_HOLDS[w.name]} of {w.capacity} rows; raise "
             f"@capacity(window=...)")
     if missed:
         raise RuntimeError(
@@ -1023,8 +1040,10 @@ class _PartitionPurger:
     window's counters, the selector's slots.  A join runtime has no
     liveness hook and is left out, as in the reference.  (The reference
     also skips distinctCount queries and marks purged pattern keys dirty
-    for incremental snapshots; the port has neither distinctCount slots
-    nor snapshots yet, so nothing here acts on them.)"""
+    for incremental snapshots; the port has no snapshots yet.)  A query
+    with distinctCount pair slots is left out too, with a warning, as in
+    the reference: its pair slots key on the group slots, which recycling
+    would corrupt."""
 
     name = "partition purger"
 
@@ -1047,6 +1066,12 @@ class _PartitionPurger:
                                            b64.to(qr.planned.device))
                 continue
             if not hasattr(qr, "_touch"):
+                continue
+            if qr.planned.pair_allocs:
+                # reference :2253-2262
+                _log.warning(
+                    "@purge skips query %s: distinctCount state is not "
+                    "purgeable yet", qr.name)
                 continue
             if qr.planned.keyed_window:
                 # keyed windows share the partition's key allocator
@@ -1317,14 +1342,29 @@ class SiddhiAppRuntime:
         """A top-level single-stream query (filters, window, group by,
         having).  `@capacity(window='N')` sizes the window's buffer."""
         _check_annotations(q.annotations, f"query {name!r}")
-        wch = 2048
+        wch, wch_set = 2048, False
         cap_ann = q.get_annotation("capacity")
         if cap_ann is not None and cap_ann.element("window"):
-            wch = int(cap_ann.element("window"))
+            wch, wch_set = int(cap_ann.element("window")), True
+        kw = dict(window_capacity_hint=wch)
+        # session(gap, key) keeps a window per key outside partitions: the
+        # per-key batches are small, so the window's shapes key off a batch
+        # capacity of 64 and a per-key capacity of max(@capacity(window),
+        # 128); @capacity(keys) keys (reference runtime.py:2958-2980)
+        if any(isinstance(h, Window) and h.name == "session" and
+               len(h.parameters) == 2
+               for h in getattr(q.input_stream, "stream_handlers", [])):
+            kcap = 4096
+            if cap_ann is not None and cap_ann.element("keys"):
+                kcap = int(cap_ann.element("keys"))
+            kw = dict(batch_capacity=64,
+                      window_capacity_hint=wch if wch_set else 128,
+                      window_key_allocator=SlotAllocator(
+                          kcap, name=f"{name}:sessionkey"),
+                      key_capacity=kcap)
         planned = plan_single_query(q, name, self.schemas, self.interner,
-                                    window_capacity_hint=wch,
                                     device=self.device,
-                                    in_cols=self._in_cols(q, name))
+                                    in_cols=self._in_cols(q, name), **kw)
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         self.junctions[planned.input_stream_id].subscribe_query(

@@ -11,9 +11,17 @@ functions (avg's divide, null rules), having and the projection stay
 compiled torch expressions over the scan results.
 
 Ported aggregators: sum, avg, count, min, max, minForever, maxForever,
-stdDev, and, or; order by / limit / offset (kernel K13,
-`kernels/order_limit.py`).  distinctCount, unionSet and extension
-aggregators raise `CompileError`.  A pattern query's
+stdDev, and, or, distinctCount and unionSet (whose SET value only
+`sizeOfSet` reads); order by / limit / offset (kernel K13,
+`kernels/order_limit.py`).  Extension aggregators raise `CompileError`.
+
+distinctCount (reference `_distinct_spec`,
+`siddhi_tpu/core/selector.py:294`): each (group, value) pair of a row has
+a pair slot, resolved on the host (`__pslot__<j>` in the env).  A refcount
+column scans over the pair slots (K4 over 8K slots), and its 0 <-> 1
+transitions feed the distinct count as +1 / -1 contributions to a second
+scan over the group slots (K4 again); the refcounts' per-row results stay
+on the device between the two passes.  A pattern query's
 selector is projection-only (`aggregate=False`), as before.
 """
 from __future__ import annotations
@@ -61,6 +69,10 @@ class _AggSpec:
     dtype: torch.dtype
     # vals_fn(env, sign) -> [B] contribution per row
     vals_fn: Callable
+    # a distinctCount refcount: scans over pair slots of source j, K_override
+    # of them
+    slot_src: Any = None
+    K_override: Any = None
 
 
 def _full(x, v, dtype):
@@ -80,6 +92,8 @@ class AggregatorBank:
         self.device = device
         self.specs: List[_AggSpec] = []
         self._index: Dict[str, int] = {}
+        # distinctCount / unionSet arguments, one pair-slot source each
+        self.pair_sources: List[Variable] = []
 
     def _add(self, spec: _AggSpec) -> int:
         if spec.key in self._index:
@@ -89,8 +103,9 @@ class AggregatorBank:
         return len(self.specs) - 1
 
     def init_state(self):
-        return tuple(torch.full((self.K,), s.init, dtype=s.dtype,
-                                device=self.device) for s in self.specs)
+        return tuple(torch.full((s.K_override or self.K,), s.init,
+                                dtype=s.dtype, device=self.device)
+                     for s in self.specs)
 
     # -- aggregator compilation ----------------------------------------------
     def compile_call(self, fn_expr: AttributeFunction, scope: Scope,
@@ -103,9 +118,25 @@ class AggregatorBank:
                 else name
             raise CompileError(f"aggregator {full!r} is not yet ported "
                                f"(ROADMAP B14)")
-        if name in ("distinctCount", "unionSet"):
-            raise CompileError(f"aggregator {name!r} is not yet ported "
-                               f"(ROADMAP B14)")
+        if name == "distinctCount":
+            orig = fn_expr.parameters[0]
+            if not isinstance(orig, Variable):
+                raise CompileError(
+                    "distinctCount needs a plain attribute argument")
+            i_dc = self._distinct_spec(orig, expr_key)
+            return "LONG", (lambda res, _i=i_dc: res[_i])
+        if name == "unionSet":
+            # sizeOfSet(unionSet(createSet(x))) is the distinct count: the
+            # SET pseudo-value carries it (reference :149-160)
+            inner = fn_expr.parameters[0]
+            if not (isinstance(inner, AttributeFunction) and
+                    not inner.namespace and inner.name == "createSet" and
+                    len(inner.parameters) == 1 and
+                    isinstance(inner.parameters[0], Variable)):
+                raise CompileError(
+                    "unionSet expects createSet(<attribute>) in this build")
+            i_dc = self._distinct_spec(inner.parameters[0], expr_key)
+            return "SET", (lambda res, _i=i_dc: res[_i])
         args = [compile_expression(p, scope) for p in fn_expr.parameters]
         i64, f32 = torch.int64, torch.float32
 
@@ -227,23 +258,71 @@ class AggregatorBank:
         raise CompileError(f"aggregator {name!r} is not yet ported "
                            f"(ROADMAP B14)")
 
+    def _distinct_spec(self, var: Variable, expr_key: str) -> int:
+        """Exact distinct count (reference: DistinctCountAttribute-
+        AggregatorExecutor's per-value refcount map): a refcount column over
+        the pair slots of `var`, then a count column fed by its 0 <-> 1
+        transitions.  The refcount spec comes first, so its results exist
+        when the count's contributions read them."""
+        from ..kernels.group_agg import OP_ADD
+        i64 = torch.int64
+        j = len(self.pair_sources)
+        self.pair_sources.append(var)
+        i_ref = self._add(_AggSpec(
+            f"ref:{expr_key}", OP_ADD, 0, i64,
+            lambda env, sign: sign.to(i64), slot_src=j,
+            K_override=self.K * 8))
+
+        def dvals(env, sign, _r=i_ref):
+            r = env["__scanres__"][_r]
+            up = torch.logical_and(sign > 0, r == 1)
+            down = torch.logical_and(sign < 0, r == 0)
+            return up.to(i64) - down.to(i64)
+        return self._add(_AggSpec(f"dc:{expr_key}", OP_ADD, 0, i64, dvals))
+
     # -- runtime -------------------------------------------------------------
     def process(self, state, rows: Rows, env) -> Tuple[Any, Tuple]:
-        """Returns (new_state, per-row running values per spec)."""
+        """Returns (new_state, per-row running values per spec): the
+        refcount specs first, one K4 pass per pair-slot source, then one
+        pass of the others over the group slots."""
         if not self.specs:
             return state, ()
-        from ..kernels.group_agg import ScanSpec, group_agg_scan
         cur = torch.logical_and(rows.valid, rows.kind == ev.CURRENT)
         exp = torch.logical_and(rows.valid, rows.kind == ev.EXPIRED)
         sign = cur.to(torch.int32) - exp.to(torch.int32)
+        env = dict(env)
+        results = [None] * len(self.specs)
+        env["__scanres__"] = results
+        new_state = list(state)
+        for j in range(len(self.pair_sources)):
+            self._scan([i for i, s in enumerate(self.specs)
+                        if s.slot_src == j], state, new_state, results, env,
+                       sign, rows, env[f"__pslot__{j}"], False, True)
+        self._scan([i for i, s in enumerate(self.specs)
+                    if s.slot_src is None], state, new_state, results, env,
+                   sign, rows, rows.gslot, self.runs)
+        return tuple(new_state), tuple(results)
+
+    def _scan(self, idx, state, new_state, results, env, sign, rows, slots,
+              runs, pair=False) -> None:
+        """One K4 pass of the specs at `idx` over `slots`."""
+        from ..kernels.group_agg import ScanSpec, group_agg_scan
+        if not idx:
+            return
         vals = []
-        for s in self.specs:
+        for i in idx:
+            s = self.specs[i]
             v = s.vals_fn(env, sign)
             vals.append(torch.where(sign != 0, v.to(s.dtype),
                                     _full(v, s.init, s.dtype)))
-        specs = [ScanSpec(s.op, s.dtype, s.init) for s in self.specs]
-        return group_agg_scan(specs, state, vals, sign, rows.kind,
-                              rows.valid, rows.gslot, runs=self.runs)
+        specs = [ScanSpec(self.specs[i].op, self.specs[i].dtype,
+                          self.specs[i].init) for i in idx]
+        ns, res = group_agg_scan(specs, [state[i] for i in idx], vals, sign,
+                                 rows.kind, rows.valid,
+                                 slots.to(torch.int32).contiguous(),
+                                 runs=runs, pair=pair)
+        for i, a, r in zip(idx, ns, res):
+            new_state[i], results[i] = a, r
 
 
 # ---------------------------------------------------------------------------
@@ -382,6 +461,10 @@ class SelectorExec:
         self._compiled: List[CompiledExpr] = [
             _compile_with_pseudo(e, scope, self._agg_results) for e in proj]
         self.out_types = [c.type for c in self._compiled]
+        if "SET" in self.out_types:
+            raise CompileError(
+                "set values cannot materialize in columnar outputs; wrap "
+                "with sizeOfSet(...)")
 
         self.having = None
         if selector.having_expression is not None:

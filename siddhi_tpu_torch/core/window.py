@@ -8,7 +8,9 @@ included).
 
 Ported: `NoWindow` (pass-through), `LengthWindow` (`length`),
 `TimeWindow` (`time`), `LengthBatchWindow` (`lengthBatch`) and
-`TimeBatchWindow` (`timeBatch`).  Their steps are the CUDA kernels under
+`TimeBatchWindow` (`timeBatch`) here; `externalTime`,
+`externalTimeBatch`, `timeLength`, `delay`, `sort` and `session` in
+`window_ext.py`.  Their steps are the CUDA kernels under
 `kernels/` (`filter_compact`, `length_window`, `time_window`,
 `length_batch`, `time_batch`), each with its plain
 PyTorch version, which runs on the CPU.  Unlike the
@@ -140,11 +142,14 @@ class WindowProcessor:
 
 class BatchFacts(NamedTuple):
     """What the host knows about a batch before its step: the timestamps of
-    its valid CURRENT rows (a superset of the rows its filters keep) and
-    its capacity.  Window steps size their outputs from it."""
+    its valid CURRENT rows (a superset of the rows its filters keep), its
+    capacity, and the staged batch with the mask of those rows.  Window
+    steps size their outputs from it."""
 
     cur_ts: Any        # numpy i64[n]
     capacity: int
+    staged: Any = None  # ev.StagedBatch
+    cur: Any = None     # numpy bool[capacity]
 
 
 def _param_int(params, i, default=None):
@@ -167,15 +172,23 @@ def _arrivals(rows: Rows, fspec, now: int, seq=None):
 class NoWindow(WindowProcessor):
     """Pass-through when the query has no window handler: valid CURRENT
     rows that pass the filters, compacted to the front in input order and
-    numbered from the seq counter (kernel K1)."""
+    numbered from the seq counter (kernel K1).  With `index_seq` (a query
+    whose selector reads host data keyed by input row: distinctCount's
+    pair slots) each row's seq is its input index instead, and the
+    counter advances all the same."""
 
     name = "(none)"
+    index_seq = False
 
     def init_state(self, device):
         return torch.zeros(1, dtype=torch.int64, device=device)
 
     def process(self, state, rows: Rows, fspec, now: int, facts):
-        out, _ = _arrivals(rows, fspec, now, seq=state)
+        if self.index_seq:
+            out, n = _arrivals(rows, fspec, now)
+            state.add_(n)
+        else:
+            out, _ = _arrivals(rows, fspec, now, seq=state)
         return state, WindowOutput(out, None)
 
 
@@ -307,6 +320,14 @@ WINDOW_TYPES = {
 
 def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
                   capacity_hint: int = 2048) -> WindowProcessor:
+    from . import window_ext
+    window_ext.register(WINDOW_TYPES)
+    if name in window_ext.UNPORTED:
+        raise CompileError(f"window {name!r} is not yet ported (ROADMAP "
+                           f"B12)")
+    if name in ("expression", "expressionBatch"):
+        raise CompileError(f"window {name!r} is not yet ported (ROADMAP "
+                           f"B13)")
     if name not in WINDOW_TYPES:
         raise CompileError(f"window {name!r} is not yet ported "
                            f"(ROADMAP B12/B13)")

@@ -9,8 +9,9 @@
 // `x in Table` probe is a lookup in the hash sets of csrc/in_probe.cu).  The
 // output is a STABLE partition: kept rows first in input order, numbered
 // seq0 + rank when a seq counter is given, then the others in input order,
-// marked invalid.  The kept count goes to a device scalar and the counter
-// advances by it.
+// marked invalid.  Without a counter each row's seq is its input index (a
+// caller that keys host data by input row finds it there).  The kept count
+// goes to a device scalar and the counter advances by it.
 //
 // Bound: every input row is read once (its columns, ts, kind, valid, group
 // slot) and written once to its place; the filter is a few dozen integer
@@ -91,7 +92,7 @@ __global__ void fc_scatter(const FilterPlan pl) {
   pl.out_kind[dst] = pl.kind[i];
   pl.out_valid[dst] = (unsigned char)keep;
   pl.out_gslot[dst] = pl.gslot[i];
-  pl.out_seq[dst] = pl.write_seq ? (keep ? pl.seq[0] + r : BIG_SEQ) : 0;
+  pl.out_seq[dst] = pl.write_seq ? (keep ? pl.seq[0] + r : BIG_SEQ) : i;
   for (int c = 0; c < pl.ncols; ++c)
     copy_elem(pl.out_col[c], dst, pl.col[c], i, col_bytes(pl.col_ty[c]));
 }

@@ -35,6 +35,18 @@
 // `start`; a flush emits the previous slice, a RESET row and the pending
 // rows with the arrivals before the boundary, then moves them into the
 // previous slice; rows beyond C are counted in the wake's second word.
+// session (SessionWindow.process, siddhi_tpu/core/window_ext.py:668): a
+// key whose gap has passed since its last arrival emits its session in ts
+// order, then its arrivals that are not too late pass as CURRENT rows and
+// join the session at its tail; `start` and `last` follow, and the wake is
+// last + gap.  A session of at most 256 rows in slab order (no late join)
+// is emitted by its key's thread as it lies; kw_count lists the others,
+// and a rank launch before kw_write writes their rows, a block per 256
+// rows: a block finds whether the key's rows are in ts order (then a row's
+// rank is its position), else counts each row's stable ts rank against the
+// key's rows staged through shared memory (O(rows^2) comparisons per late
+// session, spread over the card, not one thread).  A session without a key
+// is this mode on one key row: one thread walks the batch's arrivals.
 //
 // Bound: each arrival is read once (its columns, ts, gslot, kind, valid,
 // the sel entry) and each output row written once; of the slab, the rows
@@ -53,9 +65,10 @@ namespace {
 constexpr int MAX_COLS = 16;
 constexpr int MAX_CODE = 256;
 constexpr int BLOCK = 128;
+constexpr int RANK_BLOCK = 256, RANK_GRID = 528;
 constexpr long long NO_WAKEUP = BIG_SEQ;
 
-enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2, M_TBATCH = 3 };
+enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2, M_TBATCH = 3, M_SESSION = 4 };
 
 }  // namespace
 
@@ -84,8 +97,12 @@ struct KeyedPlan {
   int* p_gslot;
   void* p_col[MAX_COLS];
   int* p_count;
-  long long* start;        // timeBatch: each key's slice start, -1 unset
+  long long* start;        // timeBatch: each key's slice start, -1 unset;
+                           // session: the session's start, -1 for none
   int* ordered;            // time: 1 where a key's ring is in ts order
+  long long* last;         // session: the latest arrival, -1 for none
+  int* late;               // session: key rows whose expiring session is
+  int* n_late;             // out of ts order, and their number
   int* arr;
   int* n_arr;
   long long* ocnt;
@@ -185,10 +202,43 @@ __device__ long long expiring_prefix(const KeyedPlan& pl, long long k) {
   return ne;
 }
 
+// A session key's facts before its step: does its session expire now,
+// and below which ts is an arrival too late to join it.
+struct SessionFacts {
+  bool expire;
+  long long late_below;
+};
+
+__device__ SessionFacts session_facts(const KeyedPlan& pl, long long k) {
+  long long last0 = pl.last[k];
+  SessionFacts f;
+  f.expire = last0 >= 0 && last0 + pl.t <= pl.now;
+  bool live = last0 >= 0 && !f.expire;
+  f.late_below = live ? pl.start[k] - pl.t : LLONG_MIN;
+  return f;
+}
+
+// Does a session key's own thread emit its expiring session: at most
+// RANK_BLOCK rows, in ts order along the slab (no late join)?  Else the
+// rank launch does.
+__device__ bool session_own(const KeyedPlan& pl, long long k) {
+  long long base = k * pl.C, cnt = pl.count[k];
+  if (cnt > RANK_BLOCK) return false;
+  for (long long i = 1; i < cnt; ++i)
+    if (pl.s_ts[base + i - 1] > pl.s_ts[base + i]) return false;
+  return true;
+}
+
 // Output rows of one key (kernels/keyed_window.py states the counts).
 __device__ long long out_rows(const KeyedPlan& pl, long long k, const int* arr, int na) {
   long long C = pl.C;
   long long cnt = pl.count[k];
+  if (pl.mode == M_SESSION) {
+    SessionFacts f = session_facts(pl, k);
+    long long rows = f.expire ? cnt : 0;
+    for (int q = 0; q < na; ++q) rows += pl.ts[arr[q]] >= f.late_below;
+    return rows;
+  }
   if (pl.mode == M_LENGTH) {
     long long ev = cnt + na - C;
     ev = ev < 0 ? 0 : (ev > na ? na : ev);
@@ -234,6 +284,8 @@ __global__ void kw_count(const KeyedPlan pl) {
     }
     pl.n_arr[r] = na;
     rows = out_rows(pl, k, arr, na);
+    if (pl.mode == M_SESSION && session_facts(pl, k).expire && !session_own(pl, k))
+      pl.late[atomicAdd(pl.n_late, 1)] = (int)r;
   }
   if (r < pl.Kb) pl.ocnt[r] = rows;
   long long tot;
@@ -244,6 +296,7 @@ __global__ void kw_count(const KeyedPlan pl) {
 __global__ void kw_init(const KeyedPlan pl) {
   pl.wake[0] = NO_WAKEUP;
   pl.wake[1] = 0;
+  if (pl.mode == M_SESSION) *pl.n_late = 0;
 }
 
 // ---- length ---------------------------------------------------------------
@@ -540,6 +593,93 @@ __device__ void step_tbatch(const KeyedPlan& pl, long long k, const int* arr, in
   if (missed) atomicAdd((unsigned long long*)(pl.wake + 1), (unsigned long long)missed);
 }
 
+// ---- session --------------------------------------------------------------
+__device__ void step_session(const KeyedPlan& pl, long long k, const int* arr, int na, long long o) {
+  long long C = pl.C, base = k * C, gap = pl.t;
+  long long cnt = pl.count[k], seq0 = pl.seq[k], start0 = pl.start[k], last0 = pl.last[k];
+  SessionFacts f = session_facts(pl, k);
+  long long nexp = 0;
+  if (f.expire) {
+    // the session in ts order: as it lies, or kw_session_rank has written it
+    if (session_own(pl, k))
+      for (long long i = 0; i < cnt; ++i)
+        emit_slab(pl, o + i, pl.s_ts, pl.s_gslot, pl.s_col, base + i, K_EXPIRED, pl.s_ts[base + i],
+                  seq0 + i);
+    nexp = cnt;
+    o += cnt;
+  }
+  long long w = f.expire ? 0 : cnt, ncur = 0, mn = LLONG_MAX, mx = -1;
+  for (int q = 0; q < na; ++q) {
+    long long ai = arr[q], a = pl.ts[ai];
+    if (a < f.late_below) continue;
+    emit_batch(pl, o++, ai, K_CURRENT, a, seq0 + nexp + ncur);
+    if (w < C) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + w, ai);
+    ++w;
+    ++ncur;
+    mn = a < mn ? a : mn;
+    mx = a > mx ? a : mx;
+  }
+  long long nlast, nstart;
+  if (ncur > 0) {
+    nlast = mx > 0 ? mx : 0;
+    nstart = (f.expire || last0 < 0) ? mn : (start0 < mn ? start0 : mn);
+  } else {
+    nlast = f.expire ? -1 : last0;
+    nstart = f.expire ? -1 : start0;
+  }
+  pl.count[k] = (int)(w < C ? w : C);
+  pl.seq[k] = seq0 + nexp + ncur;
+  pl.start[k] = nstart;
+  pl.last[k] = nlast;
+  if (nlast >= 0) atomicMin(pl.wake, nlast + gap);
+  if (w > C) atomicAdd((unsigned long long*)(pl.wake + 1), (unsigned long long)(w - C));
+}
+
+// The expiring sessions kw_count listed (above RANK_BLOCK rows, or out of
+// ts order): a block per RANK_BLOCK rows of such a key ranks each row,
+// stably by (ts, slab position), against all the key's rows, and writes it
+// at its key's offset + rank.  Before kw_write, which then overwrites the
+// rows.
+__global__ void kw_session_rank(const KeyedPlan pl) {
+  __shared__ long long sh_ts[RANK_BLOCK];
+  __shared__ long long sh_o;
+  long long tiles = (pl.C + RANK_BLOCK - 1) / RANK_BLOCK;
+  long long items = (long long)*pl.n_late * tiles;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    long long r = pl.late[it / tiles], tile = it % tiles;
+    long long k = pl.key_idx[r], base = k * pl.C, cnt = pl.count[k];
+    if (tile * RANK_BLOCK >= cnt) continue;  // the same for the whole block
+    if (threadIdx.x == 0) {
+      // the key row's offset, as kw_write finds it
+      long long b = r / BLOCK, o = pl.block_sums[b];
+      for (long long q = b * BLOCK; q < r; ++q) o += pl.ocnt[q];
+      sh_o = o;
+    }
+    long long i = tile * RANK_BLOCK + threadIdx.x;
+    long long ti = i < cnt ? pl.s_ts[base + i] : 0;
+    int unsorted = 0;
+    for (long long j = threadIdx.x + 1; j < cnt && !unsorted; j += RANK_BLOCK)
+      unsorted = pl.s_ts[base + j - 1] > pl.s_ts[base + j];
+    bool sorted = !__syncthreads_or(unsorted);  // the same for the block
+    long long rank = sorted ? i : 0;  // in ts order: a row's rank is its place
+    for (long long j0 = 0; !sorted && j0 < cnt; j0 += RANK_BLOCK) {
+      __syncthreads();
+      if (j0 + threadIdx.x < cnt) sh_ts[threadIdx.x] = pl.s_ts[base + j0 + threadIdx.x];
+      __syncthreads();
+      int m = cnt - j0 < RANK_BLOCK ? (int)(cnt - j0) : RANK_BLOCK;
+      long long before = i - j0;  // rows jj < before precede row i
+      for (int jj = 0; jj < m; ++jj) {
+        long long tj = sh_ts[jj];
+        rank += tj < ti || (tj == ti && jj < before);
+      }
+    }
+    if (i < cnt)
+      emit_slab(pl, sh_o + rank, pl.s_ts, pl.s_gslot, pl.s_col, base + i, K_EXPIRED, ti,
+                pl.seq[k] + rank);
+    __syncthreads();
+  }
+}
+
 __global__ void kw_write(const KeyedPlan pl) {
   __shared__ long long sh[2 * BLOCK];
   long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
@@ -553,6 +693,7 @@ __global__ void kw_write(const KeyedPlan pl) {
   if (pl.mode == M_LENGTH) step_length(pl, k, arr, na, o);
   else if (pl.mode == M_TIME) step_time(pl, k, arr, na, o);
   else if (pl.mode == M_TBATCH) step_tbatch(pl, k, arr, na, o);
+  else if (pl.mode == M_SESSION) step_session(pl, k, arr, na, o);
   else step_batch(pl, k, arr, na, o);
 }
 
@@ -577,6 +718,7 @@ extern "C" int siddhi_keyed_count(const KeyedPlan* plan, void* stream) {
 extern "C" int siddhi_keyed_write(const KeyedPlan* plan, void* stream) {
   const KeyedPlan& pl = *plan;
   cudaStream_t s = (cudaStream_t)stream;
+  if (pl.mode == M_SESSION) kw_session_rank<<<RANK_GRID, RANK_BLOCK, 0, s>>>(pl);
   kw_write<<<blocks(pl.Kb), BLOCK, 0, s>>>(pl);
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,15 @@
 // dropping scatter does, and counts the rest in `missed` (the runtime
 // raises).
 //
+// External mode (`ext`) replaces ExternalTimeBatchWindow.process
+// (siddhi_tpu/core/window_ext.py:178), externalTimeBatch(attr, t): the
+// slices are cut by the arrivals' event times (`a_ets`), not by `now`.
+// The start is the first arrival's event time; the step flushes when its
+// latest event time has passed a boundary (a step without arrivals never
+// does), arrivals with event time < boundary join the flushed slice, the
+// RESET row still carries `now`, and there is no timer (the wake is
+// NO_WAKEUP).
+//
 // Bound: a flush reads the two slices and the arrivals once and writes
 // each output row once; a step that does not flush moves only its
 // arrivals.  No arithmetic to speak of: bound by bytes.
@@ -42,7 +51,7 @@ constexpr int MIN_BLOCK = 1024;
 // Mirrored field for field by kernels/time_batch.py (ctypes.Structure).
 struct TimeBatchPlan {
   long long C, t, now, B, cap_out;
-  int ncols, pad;
+  int ncols, ext;    // ext: slices by a_ets (externalTimeBatch)
   int col_bytes[MAX_COLS];
   long long reset_val[MAX_COLS];
   long long* b_ts[2];
@@ -50,6 +59,7 @@ struct TimeBatchPlan {
   void* b_col[2][MAX_COLS];
   long long* meta;  // [start, seq, pending fill, previous fill, parity, missed]
   const long long* a_ts;
+  const long long* a_ets;   // ext: the arrivals' event times
   const int* a_gslot;
   const void* a_col[MAX_COLS];
   const long long* n_arr;
@@ -69,24 +79,41 @@ namespace {
 
 __device__ __forceinline__ long long imax(long long a, long long b) { return a > b ? a : b; }
 
-// The step's slice facts, from the state and the earliest arrival.
+// What slices the time: the arrivals' ts, or their event times.
+__device__ __forceinline__ const long long* slice_key(const TimeBatchPlan& pl) {
+  return pl.ext ? pl.a_ets : pl.a_ts;
+}
+
+// The step's slice facts, from the state and the earliest (and, in
+// external mode, the latest) arrival.
 __global__ void tb_first(const TimeBatchPlan pl) {
   __shared__ long long sh[MIN_BLOCK];
+  __shared__ long long sx[MIN_BLOCK];
   const long long na = pl.n_arr[0];
-  long long m = BIG_SEQ;
-  for (long long i = threadIdx.x; i < na; i += MIN_BLOCK) m = min(m, pl.a_ts[i]);
+  const long long* key = slice_key(pl);
+  long long m = BIG_SEQ, x = -BIG_SEQ;
+  for (long long i = threadIdx.x; i < na; i += MIN_BLOCK) {
+    m = min(m, key[i]);
+    x = max(x, key[i]);
+  }
   sh[threadIdx.x] = m;
+  sx[threadIdx.x] = x;
   __syncthreads();
   for (int s = MIN_BLOCK / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = min(sh[threadIdx.x], sh[threadIdx.x + s]);
+    if (threadIdx.x < s) {
+      sh[threadIdx.x] = min(sh[threadIdx.x], sh[threadIdx.x + s]);
+      sx[threadIdx.x] = max(sx[threadIdx.x], sx[threadIdx.x + s]);
+    }
     __syncthreads();
   }
   if (threadIdx.x != 0) return;
   const long long start0 = pl.meta[0], first = sh[0];
   const bool any_cur = na > 0;
   const long long start = start0 >= 0 ? start0 : first;
-  long long nflush = start0 >= 0 ? imax(pl.now - start0, 0) / pl.t
-                                 : (any_cur ? imax(pl.now - first, 0) / pl.t : 0);
+  long long nflush;
+  if (pl.ext) nflush = any_cur ? imax(sx[0] - start, 0) / pl.t : 0;
+  else nflush = start0 >= 0 ? imax(pl.now - start0, 0) / pl.t
+                            : (any_cur ? imax(pl.now - first, 0) / pl.t : 0);
   pl.step[0] = start;
   pl.step[1] = nflush;
   pl.step[2] = start + (nflush > 0 ? nflush : 1) * pl.t;
@@ -97,7 +124,7 @@ __global__ void tb_first(const TimeBatchPlan pl) {
 __global__ void tb_flags(const TimeBatchPlan pl) {
   __shared__ long long sh[2 * BLOCK];
   long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  int f = i < pl.n_arr[0] && pl.a_ts[i] < pl.step[2];
+  int f = i < pl.n_arr[0] && slice_key(pl)[i] < pl.step[2];
   if (i < pl.B) pl.flags[i] = (unsigned char)f;
   long long tot;
   block_excl_scan<BLOCK>((long long)f, sh, &tot);
@@ -201,7 +228,7 @@ __global__ void tb_finish(const TimeBatchPlan pl, long long nb) {
   }
   m[0] = nstart;
   m[5] += missed;
-  pl.wake[0] = nstart >= 0 ? nstart + pl.t : BIG_SEQ;
+  pl.wake[0] = nstart >= 0 && !pl.ext ? nstart + pl.t : BIG_SEQ;
   pl.wake[1] = missed;
 }
 

@@ -101,7 +101,8 @@ def filter_compact(spec: FilterSpec, ts, kind, valid, gslot, cols,
                    now: int, seq: Optional[torch.Tensor] = None):
     """(Rows of the same capacity, kept count i64[1]).  `seq` (i64[1]) is
     the pass-through window's counter: given, kept rows get
-    `seq0 + rank` and the counter advances; otherwise their seq is 0."""
+    `seq0 + rank` and the counter advances; otherwise every row's seq is
+    its input index."""
     if ts.is_cuda:
         return launch(spec, ts, kind, valid, gslot, cols, seq)
     return plain(spec, ts, kind, valid, gslot, cols, now, seq)
@@ -119,14 +120,14 @@ def plain(spec: FilterSpec, ts, kind, valid, gslot, cols, now: int,
     n = keep.sum().reshape(1)
     rank = torch.cumsum(keep.to(torch.int64), 0) - 1
     seq0 = seq if seq is not None else 0
-    rows = sort_rows(Rows(
-        ts=ts, kind=kind, valid=keep,
-        seq=torch.where(keep, seq0 + rank, torch.full_like(rank, BIG_SEQ)),
-        gslot=gslot, cols=tuple(cols)))
+    key = torch.where(keep, seq0 + rank, torch.full_like(rank, BIG_SEQ))
+    rows = sort_rows(Rows(ts=ts, kind=kind, valid=keep, seq=key,
+                          gslot=gslot, cols=tuple(cols)))
     if seq is not None:
         seq.add_(n)
     else:
-        rows = rows._replace(seq=torch.zeros_like(rows.seq))
+        # without a counter each row's seq is its input index
+        rows = rows._replace(seq=torch.argsort(key, stable=True))
     return rows, n
 
 

@@ -35,9 +35,14 @@ key-major rows grouped by the partition key alone): the contributing rows
 are compacted in row order, with no sort.  The plain version computes the
 same function in every mode.
 
+distinctCount's refcount pass (`pair=True`) is this scan over pair slots
+(8K of them, so radix mode above 512 group slots); its per-row results
+feed the group pass as contributions on the device.
+
 `group_agg_scan` is what the selector calls: CPU tensors run `plain`, CUDA
 tensors launch the kernel.  `launches` / `plain_calls` count them, and
-`runs_launches` / `radix_launches` the launches in run and radix mode;
+`mode_launches` the launches by mode: MODE_PAIR for a refcount pass over
+pair slots (whatever its sort), else MODE_SORT, MODE_RUNS or MODE_RADIX;
 `reset_counts()` sets them to 0.
 """
 from __future__ import annotations
@@ -52,8 +57,9 @@ from . import _nvcc
 
 launches = 0
 plain_calls = 0
-runs_launches = 0
-radix_launches = 0
+mode_launches = [0, 0, 0, 0]
+
+MODE_SORT, MODE_RUNS, MODE_RADIX, MODE_PAIR = range(4)
 
 MAX_SPECS, MAX_SLOTS, TILE, SCAN_BLOCK = 16, 4096, 1024, 1024
 RADIX, RADIX_TILE = 256, 2048
@@ -63,11 +69,10 @@ _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
 def reset_counts() -> None:
-    global launches, plain_calls, runs_launches, radix_launches
+    global launches, plain_calls
     launches = 0
     plain_calls = 0
-    runs_launches = 0
-    radix_launches = 0
+    mode_launches[:] = [0, 0, 0, 0]
 
 
 class ScanSpec(NamedTuple):
@@ -101,10 +106,12 @@ def _segmented_scan(vals, segs, op: int):
 
 
 def group_agg_scan(specs: Sequence[ScanSpec], state, vals, sign, kind,
-                   valid, gslot, runs: bool = False):
-    """(new state per spec [K], running value per spec per row)."""
+                   valid, gslot, runs: bool = False, pair: bool = False):
+    """(new state per spec [K], running value per spec per row); `pair`
+    marks a distinctCount refcount pass (`gslot` are pair slots)."""
     if sign.is_cuda:
-        return launch(specs, state, vals, sign, kind, valid, gslot, runs)
+        return launch(specs, state, vals, sign, kind, valid, gslot, runs,
+                      pair)
     return plain(specs, state, vals, sign, kind, valid, gslot)
 
 
@@ -164,10 +171,10 @@ class AggPlan(ctypes.Structure):
 
 
 def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
-           gslot, runs: bool = False):
+           gslot, runs: bool = False, pair: bool = False):
     """Run mode when `runs`, else the counting sort up to MAX_SLOTS
     slots and the radix sort above."""
-    global launches, runs_launches, radix_launches
+    global launches
     dev = sign.device
     B = sign.shape[0]
     if len(specs) > MAX_SPECS:
@@ -230,7 +237,7 @@ def launch(specs: Sequence[ScanSpec], state, vals, sign, kind, valid,
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.launch_plan("group_agg", entry, "siddhi_agg_plan_size", pl, stream)
     launches += 1
-    runs_launches += int(runs)
-    radix_launches += int(radix)
+    mode_launches[MODE_PAIR if pair else MODE_RUNS if runs else
+                  MODE_RADIX if radix else MODE_SORT] += 1
     del held
     return tuple(new_state), tuple(results)

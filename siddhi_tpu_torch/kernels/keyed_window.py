@@ -27,7 +27,20 @@ counter):
   * `lengthBatch(n)`: each completed batch f of the key emits the previous
     batch EXPIRED, a RESET row (ts = now, no group slot, default columns)
     and the batch CURRENT, at seq0 + f(2n+2) + [0, n), + n and
-    + n + 1 + [0, n); the counter advances by (2n+2) per flush.
+    + n + 1 + [0, n); the counter advances by (2n+2) per flush;
+  * `session(gap)` (`SessionWindow.process`,
+    `siddhi_tpu/core/window_ext.py:668`, with `t` the gap): a key whose
+    last arrival is at least `gap` before `now` (decided before the
+    step's arrivals) expires its session: every row EXPIRED with its own
+    ts, in a stable ts order (late joins first), at seq0 + rank; while a
+    session lives, an arrival older than start - gap is dropped; the
+    others come out CURRENT at seq0 + expired + k and join the session
+    (rows beyond C are counted in the wake's second word, on which the
+    runtime raises; the reference drops them silently).  The key's
+    `start` is its session's least arrival ts, `last` its latest (at
+    least 0); the wake is last + gap; the counter advances by the rows
+    emitted.  A session without a key (`session(gap)` at the top level)
+    is this mode on a slab of one key.
 E' is the number of the key's events that are valid, CURRENT and pass
 the filters.  Only valid rows come out: the output is exactly the
 emitted rows, so it needs no valid mask.
@@ -37,9 +50,11 @@ the bytecode's value slots), per key i32 `head` and `count` and i64
 `seq`.  `length` and `time` keep each key's rows as a ring in arrival
 order: logical row i at physical (head + i) mod C, `count` rows alive.
 `lengthBatch` and `timeBatch` keep the pending batch at [0, count) and
-the previous batch in the `p_*` columns at [0, p_count).  A mode's further
-per-key state (`KEY_STATE`, held in `key_state`): `timeBatch`'s i64
-`start` (-1 until the key's first arrival), and the time window's i32
+the previous batch in the `p_*` columns at [0, p_count); `session` keeps
+the session at [0, count).  A mode's further per-key state (`KEY_STATE`,
+held in `key_state`): `timeBatch`'s i64 `start` (-1 until the key's first
+arrival), `session`'s i64 `start` and `last` (-1 while the key has no
+session), and the time window's i32
 `ordered`, 1 where the key's alive rows are in timestamp order along the
 ring (its expiring rows are then a prefix, which lets the kernel skip the
 survivors when no arrival is older than the last of them).  A time
@@ -67,15 +82,17 @@ from .in_probe import MAX_IN, InSet, fill_sets
 
 launches = 0
 plain_calls = 0
-mode_launches = [0, 0, 0, 0]
+mode_launches = [0, 0, 0, 0, 0]
 tick_launches = 0
 
-MODE_LENGTH, MODE_TIME, MODE_BATCH, MODE_TBATCH = 0, 1, 2, 3
+MODE_LENGTH, MODE_TIME, MODE_BATCH, MODE_TBATCH, MODE_SESSION = range(5)
 _TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH)
 # the per-key state a mode keeps beside head / count / seq (and p_count):
 # name -> (dtype, the value of a key with no rows)
 KEY_STATE = {MODE_TIME: {"ordered": (torch.int32, 1)},
-             MODE_TBATCH: {"start": (torch.int64, -1)}}
+             MODE_TBATCH: {"start": (torch.int64, -1)},
+             MODE_SESSION: {"start": (torch.int64, -1),
+                            "last": (torch.int64, -1)}}
 MAX_COLS, MAX_CODE, BLOCK = 16, 256, 128
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -84,7 +101,7 @@ def reset_counts() -> None:
     global launches, plain_calls, tick_launches
     launches = 0
     plain_calls = 0
-    mode_launches[:] = [0, 0, 0, 0]
+    mode_launches[:] = [0, 0, 0, 0, 0]
     tick_launches = 0
 
 
@@ -401,6 +418,9 @@ def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
     if slab.mode == MODE_TBATCH:
         return _plain_tbatch(slab, now, t, Kb, E, dev, kidx, live, a_ts,
                              a_gs, a_cols, a_valid, ncur, seq0, cnt)
+    if slab.mode == MODE_SESSION:
+        return _plain_session(slab, now, t, Kb, dev, kidx, live, a_ts,
+                              a_gs, a_cols, a_valid, seq0, cnt)
 
     # ---- lengthBatch -------------------------------------------------------
     n = C
@@ -554,6 +574,72 @@ def _plain_tbatch(slab, now, t, Kb, E, dev, kidx, live, a_ts, a_gs, a_cols,
     return out, _wake(wake, int(missed[live].sum()), dev)
 
 
+def _plain_session(slab, now, gap, Kb, dev, kidx, live, a_ts, a_gs, a_cols,
+                   a_valid, seq0, cnt):
+    """session's plain step over the gathered [Kb, ...] state, as the
+    reference's `SessionWindow.process` under `vmap`."""
+    C, types, i64 = slab.C, slab.types, torch.int64
+    big = torch.iinfo(i64).max
+    ar = torch.arange(C, device=dev)[None, :]
+    rows2 = kidx[:, None]
+    start0 = slab.key_state["start"][kidx]
+    last0 = slab.key_state["last"][kidx]
+    expire = (last0 >= 0) & (last0 + gap <= now)
+    alive_s = (last0 >= 0) & ~expire
+    # too late: older than the live session's start - gap
+    keep = a_valid & ~(alive_s[:, None] & (a_ts < (start0 - gap)[:, None]))
+    k = torch.cumsum(keep.to(i64), 1) - 1
+    ncur = keep.sum(1)
+    b_ts, b_gs = slab.ts[kidx], slab.gslot[kidx]
+    b_cols = [c[kidx] for c in slab.cols]
+    b_alive = ar < cnt[:, None]
+    order = torch.argsort(torch.where(b_alive, b_ts, torch.full_like(b_ts,
+                                                                    big)),
+                          dim=1, stable=True)
+    ts_rank = torch.empty_like(order)
+    ts_rank.scatter_(1, order, torch.arange(C, device=dev).expand(Kb, -1)
+                     .contiguous())
+    nexp = torch.where(expire, cnt, 0)
+    s0 = seq0[:, None]
+    parts = [(b_ts, torch.full((Kb, C), ev.EXPIRED, dtype=torch.int32,
+                               device=dev),
+              b_alive & (expire & live)[:, None], s0 + ts_rank, b_gs,
+              b_cols),
+             (a_ts, torch.full(a_ts.shape, ev.CURRENT, dtype=torch.int32,
+                               device=dev),
+              keep & live[:, None], s0 + nexp[:, None] + k, a_gs, a_cols)]
+    out = _rows(parts, Kb, dev, types)
+    fill0 = torch.where(expire, 0, cnt)
+    pos = fill0[:, None] + k
+    w = keep & live[:, None] & (pos < C)
+    r, d = rows2.expand_as(w)[w], pos[w]
+    slab.ts[r, d] = a_ts[w]
+    slab.gslot[r, d] = a_gs[w]
+    for sc, ac in zip(slab.cols, a_cols):
+        sc[r, d] = ac[w]
+    anyc = ncur > 0
+    last_arr = torch.where(keep, a_ts, torch.full_like(a_ts, -1)).max(1) \
+        .values
+    min_arr = torch.where(keep, a_ts, torch.full_like(a_ts, big)).min(1) \
+        .values
+    nlast = torch.where(anyc, last_arr.clamp(min=0),
+                        torch.where(expire, -1, last0))
+    fresh = expire | (last0 < 0)
+    nstart = torch.where(anyc, torch.where(fresh, min_arr,
+                                           torch.minimum(start0, min_arr)),
+                         torch.where(expire, -1, start0))
+    k_live = kidx[live]
+    total = fill0 + ncur
+    slab.count[k_live] = total.clamp(max=C)[live].to(torch.int32)
+    slab.seq[k_live] = (seq0 + nexp + ncur)[live]
+    slab.key_state["start"][k_live] = nstart[live]
+    slab.key_state["last"][k_live] = nlast[live]
+    missed = int((total - C).clamp(min=0)[live].sum())
+    wk = torch.where(nlast >= 0, nlast + gap, NO_WAKEUP)[live]
+    wake = int(wk.min()) if wk.numel() else NO_WAKEUP
+    return out, _wake(wake, missed, dev)
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -570,7 +656,8 @@ class KeyedPlan(ctypes.Structure):
          ("s_ts", _P), ("s_gslot", _P), ("s_col", _P * MAX_COLS),
          ("head", _P), ("count", _P), ("seq", _P),
          ("p_ts", _P), ("p_gslot", _P), ("p_col", _P * MAX_COLS),
-         ("p_count", _P), ("start", _P), ("ordered", _P),
+         ("p_count", _P), ("start", _P), ("ordered", _P), ("last", _P),
+         ("late", _P), ("n_late", _P),
          ("arr", _P), ("n_arr", _P), ("ocnt", _P), ("block_sums", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
          ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P),
@@ -656,8 +743,15 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     pl.arr, pl.n_arr, pl.ocnt = arr.data_ptr(), n_arr.data_ptr(), \
         ocnt.data_ptr()
     pl.block_sums, pl.wake = block_sums.data_ptr(), wake.data_ptr()
+    scratch = (arr, n_arr, ocnt)
+    if slab.mode == MODE_SESSION:
+        # the key rows whose expiring session is out of ts order
+        late = torch.empty(max(Kb, 1), dtype=torch.int32, device=dev)
+        n_late = torch.empty(1, dtype=torch.int32, device=dev)
+        pl.late, pl.n_late = late.data_ptr(), n_late.data_ptr()
+        scratch += (late, n_late)
     bufs = {"cols": keep, "sums": block_sums, "wake": wake,
-            "scratch": (arr, n_arr, ocnt),
+            "scratch": scratch,
             "inputs": (ts, kind, valid, gslot, key_idx, sel),
             "sets": fill_sets(pl.in_sets, spec.in_keys, spec.in_tabs)}
     return pl, bufs
@@ -687,8 +781,9 @@ def alloc_out(pl: KeyedPlan, types, n: int, dev) -> Rows:
 
 
 def write(pl: KeyedPlan, dev) -> None:
-    """The second launch: rows written at their keys' offsets, the slab
-    moved in place, the least wake."""
+    """The second launch: rows written at their keys' offsets (in session
+    mode a rank launch first writes the sessions out of ts order), the
+    slab moved in place, the least wake."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.launch_plan("keyed_window", "siddhi_keyed_write",
                       "siddhi_keyed_plan_size", pl, stream)

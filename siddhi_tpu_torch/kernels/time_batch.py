@@ -28,9 +28,21 @@ a sync; with such a filter the mirror's start is fetched once after the
 first step that can set it.  Output rows past the step's emitted ones
 are invalid and zero.
 
-`time_batch_step` is what `TimeBatchWindow.process` calls: CPU tensors
-run `plain`, CUDA tensors launch the kernel.  `launches` / `plain_calls`
-count them; `reset_counts()` sets both to 0.
+External mode (`ets` given) replaces `ExternalTimeBatchWindow.process`
+(`siddhi_tpu/core/window_ext.py:178`), externalTimeBatch(attr, t): the
+slices are cut by the arrivals' event times `ets`, not by `now`.  The
+start is the first arrival's event time; a step flushes when its latest
+event time has passed a boundary (a step without arrivals never does);
+arrivals with event time < boundary join the flushed slice; the RESET row
+carries `now`; there is no timer (the wake is NO_WAKEUP).  The host sizes
+an external step from the state's start and fills, read from the device
+once a step, and the event times of the batch's valid CURRENT rows.
+
+`time_batch_step` is what `TimeBatchWindow.process` and
+`ExternalTimeBatchWindow.process` call: CPU tensors run `plain`, CUDA
+tensors launch the kernel.  `launches` / `plain_calls`
+count them, `mode_launches` the launches by mode (MODE_TIME for timeBatch,
+MODE_EXT for externalTimeBatch); `reset_counts()` sets them to 0.
 """
 from __future__ import annotations
 
@@ -45,6 +57,9 @@ from . import _nvcc
 
 launches = 0
 plain_calls = 0
+mode_launches = [0, 0]
+
+MODE_TIME, MODE_EXT = 0, 1
 
 MAX_COLS = 16
 BLOCK = 256
@@ -58,6 +73,7 @@ def reset_counts() -> None:
     global launches, plain_calls
     launches = 0
     plain_calls = 0
+    mode_launches[:] = [0, 0]
 
 
 class TimeBatchState:
@@ -140,19 +156,43 @@ def out_capacity(st: TimeBatchState, cur_ts: np.ndarray, now: int, t: int,
     return cap
 
 
+def out_capacity_ext(st: TimeBatchState, cur_ets: np.ndarray, t: int,
+                     exact: bool) -> int:
+    """Rows an external step can emit, from the state (one device read)
+    and the event times of the batch's valid CURRENT rows (a superset of
+    its arrivals; the same set when `exact`)."""
+    start, _, pend, prev = (int(x) for x in st.meta[:4].tolist())
+    n = int(cur_ets.shape[0])
+    if n == 0:
+        return 0
+    if start < 0:
+        start = int(cur_ets.min())
+    nflush = max(int(cur_ets.max()) - start, 0) // t
+    if not nflush:
+        return 0
+    boundary = start + nflush * t
+    n_in = int(np.count_nonzero(cur_ets < boundary)) if exact else n
+    return prev + 1 + pend + n_in
+
+
 def time_batch_step(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
-                    facts, exact: bool):
+                    facts, exact: bool, ets=None, cur_ets=None):
     """One step: `arr` are the batch's arrivals compacted to the front,
-    `n_arr` their count (i64[1]).  Updates `st` in place; returns (rows,
+    `n_arr` their count (i64[1]); in external mode `ets` are the
+    arrivals' event times (int64) and `cur_ets` those of the batch's valid
+    CURRENT rows on the host.  Updates `st` in place; returns (rows,
     i64[2] [wake, rows missed])."""
-    cap_out = out_capacity(st, facts.cur_ts, now, t, exact)
+    if ets is not None:
+        cap_out = out_capacity_ext(st, cur_ets, t, exact)
+    else:
+        cap_out = out_capacity(st, facts.cur_ts, now, t, exact)
     if arr.ts.is_cuda:
-        return launch(st, arr, n_arr, now, t, cap_out)
-    return plain(st, arr, n_arr, now, t, cap_out)
+        return launch(st, arr, n_arr, now, t, cap_out, ets)
+    return plain(st, arr, n_arr, now, t, cap_out, ets)
 
 
 def plain(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
-          cap_out: int):
+          cap_out: int, ets=None):
     """The plain PyTorch version (the kernel's reference)."""
     global plain_calls
     plain_calls += 1
@@ -161,16 +201,19 @@ def plain(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     start0, seq0, pf, qf, par, _ = (int(x) for x in st.meta.tolist())
     P, Q = par, 1 - par
     na = int(n_arr)
-    a_ts = arr.ts[:na]
-    first = int(a_ts.min()) if na else BIG_SEQ
+    # what slices the time: the arrivals' ts, or their event times
+    a_key = (ets if ets is not None else arr.ts)[:na].to(torch.int64)
+    first = int(a_key.min()) if na else BIG_SEQ
     start = start0 if start0 >= 0 else first
-    if start0 >= 0:
+    if ets is not None:
+        nflush = max(int(a_key.max()) - start, 0) // t if na else 0
+    elif start0 >= 0:
         nflush = max(now - start0, 0) // t
     else:
         nflush = max(now - first, 0) // t if na else 0
     flush = nflush > 0
     boundary = start + (nflush if flush else 1) * t
-    f = a_ts < boundary
+    f = a_key < boundary
     n_in = int(f.sum())
     i_in = torch.nonzero(f).flatten()
     i_next = torch.nonzero(~f).flatten()
@@ -233,7 +276,8 @@ def plain(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     nstart = meta[START]
     st.meta.copy_(torch.tensor(meta + [int(st.meta[MISSED]) + missed],
                                dtype=torch.int64))
-    wake = torch.tensor([nstart + t if nstart >= 0 else NO_WAKEUP, missed],
+    wake = torch.tensor([nstart + t if nstart >= 0 and ets is None
+                         else NO_WAKEUP, missed],
                         dtype=torch.int64, device=dev)
     return out, wake
 
@@ -246,11 +290,11 @@ class TimeBatchPlan(ctypes.Structure):
     """Mirrors `struct TimeBatchPlan` in csrc/time_batch.cu."""
     _fields_ = (
         [(n, _L) for n in ("C", "t", "now", "B", "cap_out")] +
-        [("ncols", _I), ("pad", _I), ("col_bytes", _I * MAX_COLS),
+        [("ncols", _I), ("ext", _I), ("col_bytes", _I * MAX_COLS),
          ("reset_val", _L * MAX_COLS),
          ("b_ts", _P * 2), ("b_gslot", _P * 2),
          ("b_col", (_P * MAX_COLS) * 2),
-         ("meta", _P), ("a_ts", _P), ("a_gslot", _P),
+         ("meta", _P), ("a_ts", _P), ("a_ets", _P), ("a_gslot", _P),
          ("a_col", _P * MAX_COLS), ("n_arr", _P), ("flags", _P),
          ("block_sums", _P), ("step", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
@@ -259,7 +303,7 @@ class TimeBatchPlan(ctypes.Structure):
 
 
 def launch(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
-           cap_out: int):
+           cap_out: int, ets=None):
     global launches
     dev = st.meta.device
     cols0 = st.b_cols[0]
@@ -272,6 +316,11 @@ def launch(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     pl = TimeBatchPlan()
     pl.C, pl.t, pl.now, pl.B, pl.cap_out = st.C, int(t), int(now), B, cap_out
     pl.ncols = len(cols0)
+    if ets is not None:
+        ets = ets.to(torch.int64).contiguous()
+        if ets.device != dev or ets.shape[0] != B:
+            raise ValueError("time_batch: event-time column")
+        pl.ext, pl.a_ets = 1, ets.data_ptr()
 
     def e(d, n=max(cap_out, 1)):
         return torch.empty(n, dtype=d, device=dev)
@@ -308,6 +357,7 @@ def launch(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     _nvcc.launch_plan("time_batch", "siddhi_time_batch",
                       "siddhi_time_batch_plan_size", pl, stream)
     launches += 1
+    mode_launches[MODE_TIME if ets is None else MODE_EXT] += 1
     n = cap_out
     return Rows(ts=out_ts[:n], kind=out_kind[:n], valid=out_valid[:n],
                 seq=out_seq[:n], gslot=out_gslot[:n],

@@ -336,7 +336,7 @@ def test_lane_overflow_is_reported():
     ("from L#window.length(4) join R#window.length(4) on L.symbol == "
      "R.symbol select L.symbol as s, distinctCount(R.qty) as q group by "
      "L.symbol insert into O;", CompileError, "B14"),
-    ("from L#window.length(4) join R#window.externalTime(qty, 1 sec) on "
+    ("from L#window.length(4) join R#window.frequent(2) on "
      "L.symbol == R.symbol select count() as c insert into O;",
      CompileError, "B12"),
     ("@fuse(batches='2') from L#window.length(4) join R#window.length(4) "

@@ -237,7 +237,7 @@ def test_time_window_timer_ticks_every_key():
 @pytest.mark.parametrize("ql,item", [
     ("""define stream S (k int, v int);
      partition with (k of S)
-     begin from S#window.session(1 sec) select k, sum(v) as s
+     begin from S#window.session(1 sec, k, 500) select k, sum(v) as s
      insert into O; end;""", "B12"),
     ("""define stream S (k int, v int);
      define window SW (k int, v int) length(4);

@@ -240,18 +240,36 @@ def test_out_of_subset_raises_at_plan_time_on_cuda():
 
 
 @pytest.mark.parametrize("body,item", [
-    ("from S#window.externalTime(volume, 1 sec) select price insert into O;",
+    ("from S#window.cron('*/5 * * * * ?') select price insert into O;",
      "B12"),
-    ("from S#window.externalTimeBatch(volume, 1 sec) select price "
-     "insert into O;", "B12"),
+    ("from S#window.frequent(2) select price insert into O;", "B12"),
     ("from S#window.length(4) select distinctCount(symbol) as d "
      "insert into O;", "B14"),
-    ("from S select distinctCount(symbol) as d insert into O;", "B14"),
+    ("from S#window.lossyFrequent(0.1) select price insert into O;",
+     "B12"),
 ])
 def test_unported_single_stream_features_raise(body, item):
     ql = "define stream S (symbol long, price float, volume int);\n" + body
     with pytest.raises(CompileError, match=item):
         TorchManager(device="cpu").create_siddhi_app_runtime(ql)
+
+
+def test_windowless_distinct_count_parity():
+    """A windowless distinctCount, once a raising case above, gives the
+    JAX package's events: a batched send with repeated values, then sends
+    that repeat and extend them."""
+    ql = """define stream S (symbol long, price float, volume int);
+    @info(name='q') from S select symbol, distinctCount(volume) as d,
+    sizeOfSet(unionSet(createSet(price))) as p group by symbol
+    insert into O;"""
+    rng = np.random.default_rng(17)
+    sends = [([rng.integers(0, 4, 32).astype(np.int64),
+               rng.integers(0, 5, 32).astype(np.float32),
+               rng.integers(0, 6, 32).astype(np.int32)],
+              np.full(32, 1000 + i, np.int64)) for i in range(3)]
+    je, te = _both(ql, "q", sends, "S")
+    _same(je[0], te[0], clock=False)
+    assert [c[1:] for c in je[1]] == [c[1:] for c in te[1]]
 
 
 def test_every_aggregator_and_nulls():

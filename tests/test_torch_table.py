@@ -599,7 +599,7 @@ def test_set_expressions_read_the_old_columns():
      from S insert into W;""", "A11"),
     ("""define stream S (k string, v int);
      define table T (k string, v int);
-     from S#window.externalTime(v, 1 sec) select k, v insert into T;""",
+     from S#window.frequent(2) select k, v insert into T;""",
      "B12"),
 ])
 def test_still_raises(ql, item):
