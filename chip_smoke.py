@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the eighteen kernel sources of siddhi_tpu_torch/csrc/
+  2. build: compiles the twenty kernel sources of siddhi_tpu_torch/csrc/
      with nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -210,7 +210,27 @@ Phases (any failure exits nonzero):
      slots), each held to a numpy model on its checked sends, with ev/s,
      per-send p50 / p99 and a profiled sweep (the launch counts are read
      before the sweep);
- 36. X2: the slice's corpus against the JAX package's events.
+ 36. X2: the slice's corpus against the JAX package's events;
+ 37. time_batch's chunk and cron modes (K12), hop_window (K18), frequent
+     (K19) and keyed_window's latency mode (K11) against their plain
+     versions, step by step (exact): at CB1's shape (131,072-row chunks, a
+     TIMER step that keeps the chunk), CR1's (fires flushing 655,360
+     pending rows while the fire step's arrivals start the next batch),
+     HP1's (the window filling past 700,000 rows, a hop at a TIMER step,
+     hops collapsed, a small window whose kept rows overflow), FQ1's
+     (1,000 counters; 20,000 counters in device memory; float keys of two
+     columns with -0.0 and NaN payloads) and SL1's (2^20 keys x 2 x 128
+     rows: late clicks into both sessions, merges, a tick over every key,
+     a hot key above capacity written out of ts order);
+ 38. their times (CUDA-graph replays) beside their plain versions and
+     bounds;
+ 39. CB1 (batch() at 4,096 price levels), CR1 (the API reference's cron
+     every 5 s at 4,096 symbols), HP1 (hopping(1 min, 10 sec) over 10,000
+     sensors), FQ1 (the API reference's PotentialFraud lossyFrequent over
+     2^20 cards drawn Zipf(1.1)) and SL1 (session(5 sec, user, 2 sec) at
+     2^20 users, late clicks), each held to a numpy model on its checked
+     sends, with ev/s, per-send p50 / p99 and a profiled sweep;
+ 40. X2's cases of these kinds against the JAX package's events.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -784,6 +804,7 @@ def main() -> None:
     records += slice7_phases(torch, np, dev)
     records += slice8_phases(torch, np, dev)
     records += slice9_phases(torch, np, dev)
+    records += slice10_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -3869,12 +3890,13 @@ def slab_err(torch, a, b, what):
     return err
 
 
-def keyed_twin(torch, kw, planned, slabs, args, what, stats):
+def keyed_twin(torch, kw, planned, slabs, args, what, stats, lat=0):
     """One K11 step on slabs[0] and its plain version on slabs[1]: every
-    emitted row, the wake and the whole slab compared (exact)."""
+    emitted row, the wake and the whole slab compared (exact); `lat` a
+    latency session's allowed latency."""
     spec = planned.filter_spec
-    ra, wa = kw.launch(slabs[0], spec, *args, tick=False)
-    rb, wb = kw.plain(slabs[1], spec, *args)
+    ra, wa = kw.launch(slabs[0], spec, *args, tick=False, lat=lat)
+    rb, wb = kw.plain(slabs[1], spec, *args, lat=lat)
     torch.cuda.synchronize()
     err = rows_err(torch, ra, rb, what, full=True)
     err = max(err, float_err(torch, wa, wb, f"{what} wake"),
@@ -9299,7 +9321,7 @@ def slice9_phases(torch, np, dev):
     n["keyed_window_session"] = run_se1(torch, np, dev, mods)
     torch.cuda.empty_cache()
     n["group_agg_pair"] = run_dc1(torch, np, dev, mods)
-    run_corpus(torch, np, dev, mods, "X2", X2_CASES,
+    run_corpus(torch, np, dev, mods, "X2", X9_CASES,
                ("ext_window", "sort_window", "time_batch", "keyed_window",
                 "group_agg"))
     no_lib = "no single PyTorch call computes this window step"
@@ -9352,6 +9374,1124 @@ def rewrite_note(t):
     b = t["rewrite_bytes"]
     return (f"; the design's full rewrite moves {b} bytes, "
             f"{b / H100_BYTES_PER_S * 1e3:.5f} ms at the memory rate")
+
+
+# ---------------------------------------------------------------------------
+# slice 10: batch, cron, hopping, frequent / lossyFrequent and session with
+# allowed latency (K12's chunk and cron modes, K18 hop_window, K19
+# frequent, K11's latency mode)
+# ---------------------------------------------------------------------------
+
+CB1_B, CB1_LEVELS = 1 << 17, 4096
+CB1_FILL, CB1_CHECK, CB1_TIMED = 2, 2, 16
+CR1_B, CR1_SYM, CR1_EVERY = 1 << 17, 4096, 5000
+CR1_FILL, CR1_CHECK, CR1_TIMED = 10, 5, 16
+HP1_B, HP1_SENSORS, HP1_WIN, HP1_HOP = 1 << 17, 10_000, 60_000, 10_000
+HP1_FILL, HP1_CHECK, HP1_TIMED = 6, 2, 16
+FQ1_B, FQ1_CARDS, FQ1_N = 1 << 17, 1 << 20, 1000
+FQ1_FILL, FQ1_CHECK, FQ1_TIMED = 2, 2, 16
+SL1_KEYS, SL1_ROWS, SL1_C = 1 << 20, 1 << 16, 128
+SL1_GAP, SL1_LAT, SL1_STEP, SL1_LATE = 5000, 2000, 250, 7000
+SL1_ACTIVE, SL1_ROT = 1 << 16, 12
+SL1_FILL, SL1_CHECK, SL1_TIMED = 38, 2, 16
+
+# CB1: prices of one chunk a send, by price level
+CB1_QL = """
+@app:playback
+define stream PriceStream (level int, price float);
+@info(name='cb1') from PriceStream#window.batch()
+select level, count() as n, sum(price) as total group by level
+insert all events into Out;
+"""
+# CR1: the Siddhi 5.1 API reference's cron example (sum(price) by symbol
+# every 5 s), at 4,096 symbols under playback
+CR1_QL = """
+@app:playback
+define stream StockStream (symbol long, price float);
+@capacity(window='1048576')
+@info(name='cr1') from StockStream#window.cron('*/5 * * * * ?')
+select symbol, sum(price) as total group by symbol
+insert all events into Out;
+"""
+# HP1: a trailing minute every 10 s over 10,000 sensors reporting once a
+# second; the average is kept by zone (4 sensors a zone: a top-level query
+# has 4,096 group slots in both packages)
+HP1_QL = """
+@app:playback
+define stream SensorStream (sensor long, zone int, temp float);
+@capacity(window='1048576')
+@info(name='hp1') from SensorStream#window.hopping(1 min, 10 sec)
+select zone, avg(temp) as a group by zone
+insert all events into Out;
+"""
+# FQ1: the API reference's PotentialFraud query, at 1,000 counters
+FQ1_QL = """
+define stream purchase (cardNo long, price float);
+@info(name='fq1')
+from purchase[price >= 30]#window.lossyFrequent(0.001, 0.0001, cardNo)
+select cardNo, price insert all events into PotentialFraud;
+"""
+# SL1: the API reference's session with late-arrival grace, at SE1's 2^20
+# users
+SL1_QL = """
+@app:playback
+define stream ClickStream (user long, page int, dwell float);
+@capacity(keys='1048576', window='128')
+@info(name='sl1') from ClickStream#window.session(5 sec, user, 2 sec)
+select user, dwell, count() as clicks, sum(dwell) as d
+insert all events into Out;
+"""
+
+
+def slice10_modules():
+    from siddhi_tpu_torch.kernels import (filter_compact, frequent,
+                                          group_agg, hop_window,
+                                          keyed_window, time_batch)
+    return {"time_batch": time_batch, "hop_window": hop_window,
+            "frequent": frequent, "keyed_window": keyed_window,
+            "group_agg": group_agg, "filter_compact": filter_compact}
+
+
+def cb1_send(np, rng, i, b=CB1_B, levels=CB1_LEVELS):
+    """CB1's send i: one chunk of b prices over the levels, each price a
+    multiple of 0.5 below 4 (every sum exact)."""
+    return ([rng.integers(0, levels, b).astype(np.int32),
+             rng.integers(0, 8, b).astype(np.float32) * 0.5],
+            np.full(b, 1000 + 100 * i, np.int64))
+
+
+def cr1_send(np, rng, i, b=CR1_B, syms=CR1_SYM):
+    """CR1's send i: b trades over 1 s of event time from EX_T0 (a
+    multiple of 5 s), prices multiples of 0.5 below 4."""
+    return ([rng.integers(0, syms, b).astype(np.int64),
+             rng.integers(0, 8, b).astype(np.float32) * 0.5],
+            EX_T0 + 1000 * i + np.arange(b, dtype=np.int64) * 1000 // b)
+
+
+def hp1_send(np, rng, i, b=HP1_B, sensors=HP1_SENSORS):
+    """HP1's send i: readings i*b .. of `sensors` sensors reporting once a
+    second (reading j: sensor j % sensors at EX_T0 + 1 s * (j //
+    sensors)), integer temperatures 0-3."""
+    j = i * b + np.arange(b, dtype=np.int64)
+    s = j % sensors
+    return ([s, (s // 4).astype(np.int32),
+             rng.integers(0, 4, b).astype(np.float32)],
+            EX_T0 + 1000 * (j // sensors))
+
+
+def fq1_send(np, rng, i, b=FQ1_B, cards=FQ1_CARDS):
+    """FQ1's send i: b purchases, card numbers Zipf(1.1) over `cards`
+    (scrambled), prices 0-59 (about half pass price >= 30)."""
+    z = (rng.zipf(1.1, b) - 1) % cards
+    return ([(z * 7919 + 13) % cards, rng.integers(0, 60, b)
+             .astype(np.float32)], np.full(b, 1000 + i, np.int64))
+
+
+def sl1_send(np, rng, i, rows=SL1_ROWS, keys=SL1_KEYS, active=SL1_ACTIVE):
+    """SL1's send i (at 10,000 + 250 i): two clicks from each of `rows`
+    users of the active group, each click late by 0-7 s (in 250 ms steps)
+    with probability 0.1; dwell 0, 0.5 or 1 s.  Three groups of `active`
+    users take turns of SL1_ROT sends (3 s), so a user comes back 6.25 s
+    after its last click: its session has rotated to previous (after the
+    5 s gap) and lingers (2 s of latency), and a click late by 5-7 s
+    joins it or merges it."""
+    g = (i // SL1_ROT) % 3
+    u = (g * active * 7919 + rng.permutation(active)[:rows]) % keys
+    user = np.repeat(u, 2)
+    rng.shuffle(user)
+    n = user.shape[0]
+    now = 10_000 + SL1_STEP * i
+    ts = np.full(n, now, np.int64)
+    late = rng.random(n) < 0.1
+    # late by whole sends: every ts on the 250 ms grid, so the sessions'
+    # wakes (last + gap, end + gap + latency) fall on it too and the
+    # runtime ticks at most a few times a send
+    ts[late] -= SL1_STEP * rng.integers(0, SL1_LATE // SL1_STEP + 1,
+                                        int(late.sum()))
+    return ([user.astype(np.int64), rng.integers(0, 64, n).astype(np.int32),
+             rng.integers(0, 3, n).astype(np.float32) * 0.5], ts)
+
+
+def _sum_or_null(np, what, name, n, got, want):
+    """A sum column: equal where the group's count is not 0, null (NaN)
+    where it is."""
+    z = np.asarray(n) == 0
+    if not np.all(np.isnan(np.asarray(got)[z])):
+        fail(f"{what}: {name} is not null at a count of 0")
+    expect(np, what, name, np.asarray(got)[~z],
+           np.asarray(want).astype(np.float32)[~z])
+
+
+class CB1Model:
+    """CB1's chunks in numpy: a send's rows are the previous chunk EXPIRED
+    (each level's count and sum falling from the chunk's totals), then
+    the send's chunk CURRENT from zero (the RESET row between them is not
+    delivered)."""
+
+    def __init__(self, np, levels=CB1_LEVELS):
+        self.np, self.levels = np, levels
+        z = np.zeros(0, np.int64)
+        self.prev = (z.astype(np.int32), z, np.zeros(0, np.float32))
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        level, price = cols
+        if batches is not None:
+            q_l, q_ts, q_p = self.prev
+            L = self.levels
+            c0 = np.bincount(q_l, minlength=L)
+            s0 = np.bincount(q_l, weights=q_p.astype(np.float64),
+                             minlength=L)
+            one = np.ones(q_l.shape[0])
+            n_e = c0[q_l] - group_cumsum(np, q_l, one)
+            s_e = s0[q_l] - group_cumsum(np, q_l, q_p.astype(np.float64))
+            n_c = group_cumsum(np, level, np.ones(level.shape[0]))
+            s_c = group_cumsum(np, level, price.astype(np.float64))
+            g_kind, g_ts, g = sent_rows(np, batches, ("level", "n", "total"))
+            expect(np, what, "kind", g_kind,
+                   np.r_[np.ones(q_l.shape[0], np.int32),
+                         np.zeros(level.shape[0], np.int32)])
+            expect(np, what, "ts", g_ts, np.r_[q_ts, ts])
+            expect(np, what, "level", g["level"].astype(np.int64),
+                   np.r_[q_l, level].astype(np.int64))
+            n = np.r_[n_e, n_c].astype(np.int64)
+            expect(np, what, "n", g["n"].astype(np.int64), n)
+            _sum_or_null(np, what, "total", n, g["total"], np.r_[s_e, s_c])
+        self.prev = (level, ts, price)
+        return int(level.shape[0])
+
+
+class CR1Model:
+    """CR1's cron batches in numpy: fires at the multiples of 5 s (a
+    time zone's offset is a whole number of minutes), each one before the
+    first send whose time reaches it.  A fire's rows: the previous batch
+    EXPIRED (each symbol's sum falling from the batch's totals), then the
+    pending rows CURRENT from zero; the sends' own steps emit nothing."""
+
+    def __init__(self, np, syms=CR1_SYM, every=CR1_EVERY):
+        self.np, self.syms, self.every = np, syms, every
+        z = np.zeros(0, np.int64)
+        self.pend = [z, z, np.zeros(0, np.float32)]
+        self.prev = list(self.pend)
+        self.next = None
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        now = int(ts.max())
+        fired = 0
+        rows = []
+        while self.next is not None and self.next <= now:
+            rows.append((self.prev, self.pend))
+            self.prev = self.pend
+            self.pend = [x[:0] for x in self.pend]
+            self.next += self.every
+            fired += int(self.prev[0].shape[0])
+        if batches is not None:
+            w_kind, w_ts, w_sym, w_tot = [], [], [], []
+            for (q_s, q_ts, q_p), (p_s, p_ts, p_p) in rows:
+                c0 = np.bincount(q_s, minlength=self.syms)
+                s0 = np.bincount(q_s, weights=q_p.astype(np.float64),
+                                 minlength=self.syms)
+                n_e = c0[q_s] - group_cumsum(np, q_s, np.ones(q_s.shape[0]))
+                s_e = s0[q_s] - group_cumsum(np, q_s, q_p.astype(np.float64))
+                s_c = group_cumsum(np, p_s, p_p.astype(np.float64))
+                w_kind += [np.ones(q_s.shape[0], np.int32),
+                           np.zeros(p_s.shape[0], np.int32)]
+                w_ts += [q_ts, p_ts]
+                w_sym += [q_s, p_s]
+                w_tot += [np.where(n_e == 0, np.nan, s_e), s_c]
+            g_kind, g_ts, g = sent_rows(np, batches, ("symbol", "total"))
+
+            def cat(x, d):
+                return np.concatenate(x).astype(d) if x else np.zeros(0, d)
+            expect(np, what, "kind", g_kind, cat(w_kind, np.int32))
+            expect(np, what, "ts", g_ts, cat(w_ts, np.int64))
+            expect(np, what, "symbol", g["symbol"].astype(np.int64),
+                   cat(w_sym, np.int64))
+            w = cat(w_tot, np.float64)
+            _sum_or_null(np, what, "total", np.where(np.isnan(w), 0, 1),
+                         g["total"], np.nan_to_num(w))
+        self.pend = [np.r_[p, x] for p, x in zip(self.pend,
+                                                 (cols[0], ts, cols[1]))]
+        self.next = (now // self.every + 1) * self.every
+        return fired
+
+
+class HP1Model:
+    """HP1's hopping window in numpy: the retained rows in candidate order
+    (the buffer's, then each send's) and the next boundary.  Before a
+    send, the timer fires at each boundary its time reaches (a TIMER step:
+    the buffer's rows alone); a step whose time reaches the boundary
+    flushes once, at the latest boundary it passed: the rows in [emit -
+    hop - win, emit - hop) EXPIRED (each zone's avg falling from the
+    aggregates the last flush left), then the rows in [emit - win, emit)
+    CURRENT from zero."""
+
+    def __init__(self, np, win=HP1_WIN, hop=HP1_HOP, zones=HP1_SENSORS // 4):
+        self.np, self.win, self.hop, self.zones = np, win, hop, zones
+        z = np.zeros(0, np.int64)
+        self.buf = [z, z.astype(np.int32), z, np.zeros(0, np.float32)]
+        self.next = -1
+        self.cnt = np.zeros(zones, np.int64)
+        self.sum = np.zeros(zones)
+
+    def _step(self, now, arrivals, want):
+        """One window step at `now` (arrivals: sensor, zone, ts, temp);
+        appends the rows it emits to `want`; returns the CURRENT rows."""
+        np = self.np
+        win, hop = self.win, self.hop
+        c = [np.r_[b, x] for b, x in zip(self.buf, arrivals)]
+        nxt = self.next if self.next >= 0 else (
+            int(arrivals[2].min()) + hop if arrivals[2].size else -1)
+        emitted = 0
+        if nxt >= 0 and now >= nxt:
+            emit = nxt + ((now - nxt) // hop) * hop
+            c_ts = c[2]
+            d = (c_ts >= emit - hop - win) & (c_ts < emit - hop)
+            k = (c_ts >= emit - win) & (c_ts < emit)
+            zd, zc = c[1][d].astype(np.int64), c[1][k].astype(np.int64)
+            _, a_e = running_avg(np, zd, -np.ones(zd.shape[0]), c[3][d],
+                                 self.cnt, self.sum)
+            zeros = np.zeros(self.zones, np.int64)
+            _, a_c = running_avg(np, zc, np.ones(zc.shape[0]), c[3][k],
+                                 zeros, zeros.astype(np.float64))
+            want.append((np.r_[np.ones(zd.shape[0], np.int32),
+                               np.zeros(zc.shape[0], np.int32)],
+                         np.r_[c_ts[d], c_ts[k]], np.r_[zd, zc],
+                         np.r_[a_e, a_c]))
+            self.cnt = np.bincount(zc, minlength=self.zones)
+            self.sum = np.bincount(zc, weights=c[3][k].astype(np.float64),
+                                   minlength=self.zones)
+            nxt = emit + hop
+            emitted = int(k.sum())
+        if nxt >= 0:
+            c = [x[c[2] >= nxt - win - hop] for x in c]
+        self.buf, self.next = c, nxt
+        return emitted
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        now = int(ts.max())
+        want, emitted = [], 0
+        none = [x[:0] for x in self.buf]
+        while 0 <= self.next <= now:            # the timer's hops
+            emitted += self._step(self.next, none, want)
+        emitted += self._step(now, (cols[0], cols[1], ts, cols[2]), want)
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches, ("zone", "a"))
+
+            def cat(i, d):
+                return np.concatenate([w[i] for w in want]).astype(d) \
+                    if want else np.zeros(0, d)
+            expect(np, what, "kind", g_kind, cat(0, np.int32))
+            expect(np, what, "ts", g_ts, cat(1, np.int64))
+            expect(np, what, "zone", g["zone"].astype(np.int64),
+                   cat(2, np.int64))
+            expect(np, what, "avg", g["a"], cat(3, np.float32))
+        return emitted
+
+
+class FQ1Model:
+    """FQ1's Misra-Gries counters in numpy: the purchases that pass the
+    filter, in send order, through n counters (a hit counts up and
+    replaces its stored purchase, which leaves EXPIRED; a free counter
+    takes the card; a full miss counts every counter down and the ones at
+    0 leave EXPIRED, in counter order; a hit or an insert passes the
+    purchase CURRENT).  A checked send's rows equal the model's, row for
+    row (an EXPIRED row carries the arriving purchase's ts)."""
+
+    def __init__(self, np, n=FQ1_N):
+        import heapq
+        self.np, self.n, self.heapq = np, n, heapq
+        self.counts = np.zeros(n, np.int64)
+        self.card = np.zeros(n, np.int64)
+        self.price = np.zeros(n, np.float32)
+        self.slot = {}
+        self.free = list(range(n))
+        self.hits = self.misses = 0
+
+    def step(self, cols, ts, batches, what):
+        np, hq = self.np, self.heapq
+        card, price = cols
+        p = np.nonzero(price >= 30)[0]
+        kind, o_ts, o_card, o_price = [], [], [], []
+        counts = self.counts
+        for i in p.tolist():
+            k = int(card[i])
+            j = self.slot.get(k)
+            if j is not None:
+                counts[j] += 1
+                self.hits += 1
+                kind.append(1)
+                o_ts.append(ts[i])
+                o_card.append(self.card[j])
+                o_price.append(self.price[j])
+            elif self.free:
+                j = hq.heappop(self.free)
+                counts[j] = 1
+                self.card[j] = k
+                self.slot[k] = j
+            else:
+                self.misses += 1
+                counts -= 1
+                for e in np.nonzero(counts == 0)[0].tolist():
+                    kind.append(1)
+                    o_ts.append(ts[i])
+                    o_card.append(self.card[e])
+                    o_price.append(self.price[e])
+                    del self.slot[int(self.card[e])]
+                    hq.heappush(self.free, e)
+                continue
+            self.price[j] = price[i]
+            kind.append(0)
+            o_ts.append(ts[i])
+            o_card.append(k)
+            o_price.append(price[i])
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches, ("cardNo", "price"))
+            expect(np, what, "kind", g_kind, np.array(kind, np.int32))
+            expect(np, what, "ts", g_ts, np.array(o_ts, np.int64))
+            expect(np, what, "cardNo", g["cardNo"].astype(np.int64),
+                   np.array(o_card, np.int64))
+            expect(np, what, "price", g["price"],
+                   np.array(o_price, np.float32))
+        return len(kind)
+
+
+class SL1Model:
+    """SL1's sessions with allowed latency in numpy, over every user:
+    each user's current and previous session (rows, start, last; the
+    previous one's alive time end + gap + latency).  Before a send, the
+    timer ticks the runtime fires (at each least wake up to the send's
+    time) expire previous sessions whose alive time has come and rotate
+    current sessions whose gap has passed; then each user's clicks, in
+    send order, join the current session, start a new one (the current
+    one rotating, an older previous one expiring), join the previous one
+    late (merging it into the current one when its end comes within two
+    gaps of the current start) or are dropped.  A checked send holds: the
+    EXPIRED rows the model expires (as a multiset of user, ts, dwell), the
+    CURRENT rows the model keeps, and the global running count and dwell
+    sum after each delivered row."""
+
+    def __init__(self, np, keys=SL1_KEYS, gap=SL1_GAP, lat=SL1_LAT):
+        self.np, self.gap, self.lat = np, gap, lat
+        neg = np.full(keys, -1, np.int64)
+        self.cs, self.cl, self.ps, self.pl, self.pa = (neg.copy()
+                                                       for _ in range(5))
+        # rows: user, ts, dwell, in the previous session, alive; the rows
+        # of earlier sends in `r` (left dead until the send's end), the
+        # send's own in `n`
+        self.r = self._empty()
+        self.n = self._empty()
+        self.live_n, self.live_d = 0, 0.0
+        self.stats = dict.fromkeys(("late_cur", "late_prev", "dropped",
+                                    "merges", "rotations"), 0)
+
+    def _empty(self):
+        np = self.np
+        return [np.zeros(0, np.int64), np.zeros(0, np.int64),
+                np.zeros(0, np.float32), np.zeros(0, np.bool_),
+                np.zeros(0, np.bool_)]
+
+    def _expire(self, users_mask, out):
+        """The previous sessions of the users in the mask leave."""
+        if not users_mask.any():
+            return
+        for u, t, d, p, a in (self.r, self.n):
+            m = a & p & users_mask[u]
+            out.append((u[m], t[m], d[m]))
+            a[m] = False
+        self.ps[users_mask] = self.pl[users_mask] = self.pa[users_mask] = -1
+
+    def _rotate(self, users_mask):
+        if not users_mask.any():
+            return
+        for r in (self.r, self.n):
+            r[3] |= users_mask[r[0]]
+        m = users_mask
+        self.ps[m], self.pl[m] = self.cs[m], self.cl[m]
+        self.pa[m] = self.cl[m] + self.gap + self.lat
+        self.cs[m] = self.cl[m] = -1
+
+    def _timeouts(self, now, users, out):
+        """The batch-start timeouts at `now` of the users (a mask)."""
+        pto = users & (self.pl >= 0) & (self.pa <= now)
+        self._expire(pto, out)
+        cto = users & (self.cl >= 0) & (self.cl + self.gap <= now)
+        self._expire(cto & (self.pl >= 0), out)
+        self._rotate(cto)
+        self.stats["rotations"] += int(cto.sum())
+
+    def _wake(self):
+        np = self.np
+        w = np.minimum(np.where(self.cl >= 0, self.cl + self.gap, BIG),
+                       np.where(self.pl >= 0, self.pa, BIG))
+        return int(w.min())
+
+    def step(self, cols, ts, batches, what):
+        np, gap = self.np, self.gap
+        user, _, dwell = cols
+        now = int(ts.max())
+        out = []
+        # the timer ticks: at each least wake up to the send's time
+        everyone = np.ones(self.cs.shape[0], np.bool_)
+        while True:
+            w = self._wake()
+            if w > now:
+                break
+            self._timeouts(w, everyone, out)
+        # the data step: batch-start timeouts, then each user's clicks in
+        # send order (the k-th click of every user at once)
+        mask = np.zeros(self.cs.shape[0], np.bool_)
+        mask[user] = True
+        self._timeouts(now, mask, out)
+        o = np.argsort(user, kind="stable")
+        us = user[o]
+        first = np.r_[True, us[1:] != us[:-1]]
+        rank = np.arange(us.shape[0]) - np.maximum.accumulate(
+            np.where(first, np.arange(us.shape[0]), 0))
+        kept = np.zeros(user.shape[0], np.bool_)
+        for e in range(int(rank.max()) + 1 if rank.size else 0):
+            idx = o[rank == e]
+            u, t, d = user[idx], ts[idx], dwell[idx]
+            cs, cl, ps, pl = self.cs[u], self.cl[u], self.ps[u], self.pl[u]
+            cur_has, prev_has = cl >= 0, pl >= 0
+            new_sess = cur_has & (t >= cs) & (t > cl + gap)
+            late_cur = cur_has & (t < cs) & (t >= cs - gap)
+            late_prev = cur_has & (t < cs - gap) & prev_has & \
+                (t >= ps - gap)
+            k = ~cur_has | (cur_has & (t >= cs) & (t <= cl + gap)) | \
+                new_sess | late_cur | late_prev
+            rot = np.zeros(self.cs.shape[0], np.bool_)
+            rot[u[new_sess]] = True
+            self._expire(rot & (self.pl >= 0), out)
+            self._rotate(rot)
+            self.stats["rotations"] += int(new_sess.sum())
+            to_cur = k & ~late_prev
+            # appends: the click joins the user's session
+            self.n = [np.r_[x, y] for x, y in zip(
+                self.n, (u[k], t[k], d[k], late_prev[k],
+                         np.ones(int(k.sum()), np.bool_)))]
+            cs = np.where(new_sess | ~cur_has, t, np.minimum(cs, t))
+            self.cs[u[to_cur]] = cs[to_cur]
+            self.cl[u[to_cur]] = np.maximum(self.cl[u[to_cur]], t[to_cur])
+            pu = u[late_prev]
+            self.ps[pu] = np.minimum(self.ps[pu], t[late_prev])
+            fwd = late_prev & (t > self.pl[u])
+            self.pl[u[fwd]] = t[fwd]
+            self.pa[u[fwd]] = t[fwd] + gap + self.lat
+            can = (self.pl[u] >= 0) & (self.cl[u] >= 0) & \
+                (self.pl[u] + gap >= self.cs[u] - gap)
+            mg = (late_cur | fwd) & can
+            mu = np.zeros(self.cs.shape[0], np.bool_)
+            mu[u[mg]] = True
+            if mg.any():
+                for r in (self.r, self.n):
+                    r[3] &= ~mu[r[0]]
+            self.cs[mu] = np.minimum(self.cs[mu], self.ps[mu])
+            self.cl[mu] = np.maximum(self.cl[mu], self.pl[mu])
+            self.ps[mu] = self.pl[mu] = self.pa[mu] = -1
+            kept[idx] = k
+            for name, m in (("late_cur", late_cur), ("late_prev", late_prev),
+                            ("dropped", ~k), ("merges", mg)):
+                self.stats[name] += int(m.sum())
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches,
+                                        ("user", "dwell", "clicks", "d"))
+            e_u = np.concatenate([x[0] for x in out]) if out else \
+                np.zeros(0, np.int64)
+            e_t = np.concatenate([x[1] for x in out]) if out else \
+                np.zeros(0, np.int64)
+            e_d = np.concatenate([x[2] for x in out]) if out else \
+                np.zeros(0, np.float32)
+            gu, gd = g["user"].astype(np.int64), g["dwell"].astype(np.float32)
+            for name, m, w in (
+                    ("expired", g_kind == 1, (e_u, e_t, e_d)),
+                    ("current", g_kind == 0, (user[kept], ts[kept],
+                                              dwell[kept]))):
+                a = np.lexsort((gd[m], g_ts[m], gu[m]))
+                b = np.lexsort((w[2], w[1], w[0]))
+                expect(np, what, f"{name} user", gu[m][a], w[0][b])
+                expect(np, what, f"{name} ts", g_ts[m][a], w[1][b])
+                expect(np, what, f"{name} dwell", gd[m][a], w[2][b])
+            sign = np.where(g_kind == 0, 1, -1)
+            expect(np, what, "clicks", g["clicks"],
+                   self.live_n + np.cumsum(sign))
+            expect(np, what, "d", g["d"].astype(np.float32),
+                   (self.live_d + np.cumsum(sign * gd.astype(np.float64)))
+                   .astype(np.float32))
+        self.r = [np.r_[x[self.r[4]], y[self.n[4]]]
+                  for x, y in zip(self.r, self.n)]
+        self.n = self._empty()
+        n_exp = sum(int(x[0].shape[0]) for x in out)
+        self.live_n += int(kept.sum()) - n_exp
+        self.live_d += float(dwell[kept].astype(np.float64).sum()) - sum(
+            float(x[2].astype(np.float64).sum()) for x in out)
+        return n_exp
+
+
+BIG = 1 << 62
+
+
+def small_drive(np, mgr, ql, qname, stream, sends, model, label):
+    """A configuration at a small size through `mgr` (the CPU in the
+    tests): every send's delivered rows held to the model.  Returns the
+    model's results."""
+    rt = mgr.create_siddhi_app_runtime(ql)
+    got = []
+    rt.add_batch_callback(qname, lambda ts, b: got.append(b))
+    rt.start()
+    h = rt.get_input_handler(stream)
+    res = []
+    for i, (cols, ts) in enumerate(sends):
+        got.clear()
+        h.send_columns(cols, timestamps=ts)
+        res.append(model.step(cols, ts, list(got), f"{label} send {i}"))
+    mgr.shutdown()
+    return res
+
+
+def cb1_small_check(np, mgr):
+    rng = np.random.default_rng(5)
+    # chunks above the 512 rows the reference keeps: the buffer grows
+    sends = [cb1_send(np, rng, i, 700, 64) for i in range(4)]
+    res = small_drive(np, mgr, CB1_QL, "cb1", "PriceStream", sends,
+                      CB1Model(np, 64), "CB1")
+    return res == [700] * 4
+
+
+def cr1_small_check(np, mgr):
+    rng = np.random.default_rng(6)
+    sends = [cr1_send(np, rng, i, 256, 16) for i in range(17)]
+    m = CR1Model(np, 16)
+    res = small_drive(np, mgr, CR1_QL, "cr1", "StockStream", sends, m,
+                      "CR1")
+    return [r for r in res if r] == [5 * 256] * 3
+
+
+def hp1_small_check(np, mgr):
+    rng = np.random.default_rng(7)
+    sends = [hp1_send(np, rng, i, 2048, 200) for i in range(12)]
+    m = HP1Model(np, zones=50)
+    res = small_drive(np, mgr, HP1_QL, "hp1", "SensorStream", sends, m,
+                      "HP1")
+    return sum(1 for r in res if r) >= 8
+
+
+def fq1_small_check(np, mgr):
+    rng = np.random.default_rng(8)
+    sends = [fq1_send(np, rng, i, 1024, 4096) for i in range(3)]
+    ql = FQ1_QL.replace("0.001, 0.0001", "0.02, 0.001")
+    m = FQ1Model(np, 50)
+    small_drive(np, mgr, ql, "fq1", "purchase", sends, m, "FQ1")
+    return m.hits > 0 and m.misses > 0
+
+
+def sl1_small_check(np, mgr):
+    rng = np.random.default_rng(9)
+    sends = [sl1_send(np, rng, i, 32, 4096, 128) for i in range(44)]
+    ql = SL1_QL.replace("1048576", "4096")
+    m = SL1Model(np, 4096)
+    small_drive(np, mgr, ql, "sl1", "ClickStream", sends, m, "SL1")
+    return all(m.stats[k] > 0 for k in m.stats)
+
+
+# -- the kernels against their plain versions --------------------------------
+
+def hop_state_err(torch, a, b, what):
+    err = float_err(torch, a.meta, b.meta, f"{what} meta")
+    la, lb = a.alive(), b.alive()
+    for k in la:
+        if torch.is_tensor(la[k]):
+            err = max(err, float_err(torch, la[k], lb[k], f"{what} {k}"))
+    return err
+
+
+def freq_state_err(torch, a, b, what):
+    err = max(float_err(torch, a.counts, b.counts, f"{what} counts"),
+              float_err(torch, a.meta, b.meta, f"{what} seq"))
+    la, lb = a.alive(), b.alive()
+    for k in la:
+        if torch.is_tensor(la[k]):
+            err = max(err, float_err(torch, la[k], lb[k], f"{what} {k}"))
+    return err
+
+
+def compare_chunk_cron(torch, np, dev):
+    """Phase 37a: K12's chunk and cron modes against their plain versions:
+    CB1's chunks (131,072 rows each, a TIMER step between that must keep
+    the chunk), then CR1's pending sends and the fires that flush 655,360
+    rows while the fire step's own arrivals start the next batch.  Returns
+    (max error, timing inputs)."""
+    from siddhi_tpu_torch.kernels import time_batch as tb
+    rng = np.random.default_rng(151)
+    timing = {}
+    plan = window_plan(dev, CB1_QL, "cb1")
+    st = plan.init_state()[0]
+    st.grow(CB1_B)
+    tw = Twin(torch, st, tb_state_err)
+    now = 0
+    for i in range(5):
+        if i == 2:
+            arr, n, now, facts = window_args(torch, np, dev, plan, tick=now)
+        else:
+            arr, n, now, facts = window_args(torch, np, dev, plan,
+                                             *cb1_send(np, rng, i))
+        nc = int(facts.cur.sum())
+        if i == 4:
+            timing["chunk"] = (tw.s[0].clone(), arr, n, now, nc)
+
+        def step(s, f):
+            cap = tb.out_capacity_chunk(s, nc, True)
+            return f(s, arr, n, now, 0, cap, None, tb.MODE_CHUNK)
+        tw.step(lambda s: step(s, tb.launch), lambda s: step(s, tb.plain),
+                f"K12 chunk CB1 send {i}")
+    e_chunk, rows_chunk = tw.err, tw.rows
+    plan = window_plan(dev, CR1_QL, "cr1")
+    tw = Twin(torch, plan.init_state()[0], tb_state_err)
+    flushed = 0
+    for i in range(12):
+        cols, ts = cr1_send(np, rng, i)
+        flush = i in (5, 10)
+        if flush:
+            # the fire and, in the same step, a few arrivals of the next
+            # batch (they must not join the flush)
+            m = min(1000, ts.shape[0])
+            cols = [c[:m] for c in cols]
+            ts = np.full(m, EX_T0 + 1000 * i, np.int64)
+        arr, n, now, facts = window_args(torch, np, dev, plan, cols, ts)
+        nc = int(facts.cur.sum())
+        if i == 10:
+            timing["cron"] = (tw.s[0].clone(), arr, n, now, nc)
+
+        def step(s, f):
+            cap = tb.out_capacity_cron(s, nc, flush)
+            return f(s, arr, n, now, 0, cap, None, tb.MODE_CRON, flush)
+        rows = tw.step(lambda s: step(s, tb.launch),
+                       lambda s: step(s, tb.plain), f"K12 cron CR1 step {i}")
+        flushed += int(rows.valid.sum())
+    if flushed < 2 * 5 * CR1_B:
+        fail(f"phase 37: CR1's fires flushed {flushed} rows")
+    print(f"phase 37a K12 chunk: {rows_chunk} rows equal; cron: {tw.steps} "
+          f"steps, {tw.rows} rows equal ({flushed} flushed)")
+    return max(e_chunk, tw.err), timing
+
+
+def compare_hop(torch, np, dev):
+    """Phase 37b: K18 against its plain version at HP1's shape: seven
+    sends (the window filling past 700,000 rows, hops collapsing within a
+    send), a TIMER step at the next boundary and one past two boundaries,
+    and a window of 131,072 rows whose kept rows overflow (counted in
+    both).
+    Returns (max error, timing inputs)."""
+    from siddhi_tpu_torch.kernels import hop_window as hw
+    rng = np.random.default_rng(153)
+    plan = window_plan(dev, HP1_QL, "hp1")
+    w = plan.window
+    tw = Twin(torch, plan.init_state()[0], hop_state_err)
+    small = Twin(torch, hw.HopState.empty(plan.in_schema, HP1_B, dev),
+                 hop_state_err)
+    timing, now = None, 0
+    for i in range(9):
+        if i >= 7:
+            nxt = int(tw.s[0].meta[hw.NEXT])
+            arr, n, now, _ = window_args(torch, np, dev, plan,
+                                         tick=nxt + (i - 7) * 2 * HP1_HOP)
+        else:
+            arr, n, now, _ = window_args(torch, np, dev, plan,
+                                         *hp1_send(np, rng, i))
+        if i == 6:
+            timing = (tw.s[0].clone(), arr, n, now)
+        for t in (tw, small):
+            t.step(lambda s: hw.launch(s, arr, n, now, w.win_ms, w.hop_ms),
+                   lambda s: hw.plain(s, arr, n, now, w.win_ms, w.hop_ms),
+                   f"K18 HP1 step {i}")
+    if int(small.s[0].meta[hw.MISSED]) == 0:
+        fail("phase 37: a hopping window below its rows reported no missed "
+             "rows")
+    print(f"phase 37b K18: {tw.steps + small.steps} steps, "
+          f"{tw.rows + small.rows} rows equal ({int(tw.s[0].meta[0])} rows "
+          f"retained; the small window missed "
+          f"{int(small.s[0].meta[hw.MISSED])})")
+    return max(tw.err, small.err), timing
+
+
+def compare_frequent(torch, np, dev):
+    """Phase 37c: K19 against its plain version: FQ1's purchases (1,000
+    counters in shared memory, three sends), 20,000 counters (beyond
+    shared memory: the counters in device memory) over a small send, and
+    float keys (-0.0, +0.0, NaNs of two payloads) over two columns.
+    Returns (max error, timing inputs)."""
+    from siddhi_tpu_torch.kernels import frequent as fq
+    rng = np.random.default_rng(157)
+    err, timing, rows = 0.0, None, 0
+    cases = [(FQ1_QL, [fq1_send(np, rng, i) for i in range(3)]),
+             (FQ1_QL.replace("0.001, 0.0001", "0.00005"),
+              [fq1_send(np, rng, i, 8192) for i in range(2)])]
+    nan2 = np.array([0x7fc00001], np.uint32).view(np.float32)[0]
+    fl = np.array([-0.0, 0.0, 0.5, np.nan, nan2, -1.5], np.float32)
+    cases.append((FQ1_QL.replace("0.001, 0.0001, cardNo",
+                                 "0.25, cardNo, price").replace(
+                                     "[price >= 30]", ""),
+                  [([rng.integers(0, 6, 4096).astype(np.int64),
+                     fl[rng.integers(0, 6, 4096)]],
+                    np.full(4096, 7 + i, np.int64)) for i in range(2)]))
+    for c, (ql, sends) in enumerate(cases):
+        plan = window_plan(dev, ql, "fq1")
+        kp = plan.window.key_positions
+        tw = Twin(torch, plan.init_state()[0], freq_state_err)
+        for i, (cols, ts) in enumerate(sends):
+            arr, n, now, _ = window_args(torch, np, dev, plan, cols, ts)
+            if c == 0 and i == 2:
+                timing = (tw.s[0].clone(), arr, n, kp)
+            tw.step(lambda s: fq.launch(s, arr, n, kp),
+                    lambda s: fq.plain(s, arr, n, kp),
+                    f"K19 case {c} send {i}")
+        err, rows = max(err, tw.err), rows + tw.rows
+    print(f"phase 37c K19: {rows} rows equal over FQ1's sends, 20,000 "
+          f"counters in device memory and float keys")
+    return err, timing
+
+
+def compare_latency(torch, np, dev):
+    """Phase 37d: K11's latency mode against its plain version at SL1's
+    shape (2^20 keys x 2 x 128 rows): sends with late clicks (into the
+    current session, into the previous one, merging, dropped), a timer
+    tick over every key, a hot key above its capacity (missed rows in
+    both) and a session written out of ts order (the rank launch).
+    Returns (max error, timing inputs)."""
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    rng = np.random.default_rng(159)
+    stats = {"steps": 0, "rows": 0, "pads": 0}
+    plan = keyed_plan(dev, SL1_QL, "sl1")
+    torch.cuda.empty_cache()
+    slab = plan.init_state()[0]
+    slabs = [slab, slab.clone()]
+    err, timing = 0.0, {}
+    lat = plan.window.latency_ms
+    steps = [sl1_send(np, rng, i) for i in range(0, 40, 2)]
+    for i, (cols, ts) in enumerate(steps):
+        args = keyed_args(torch, np, dev, plan, cols, ts)
+        if i == len(steps) - 1:
+            timing["data"] = (plan, slabs[0].clone(), args, lat)
+        e, _ = keyed_twin(torch, kw, plan, slabs, args,
+                          f"K11 latency SL1 send {i}", stats, lat=lat)
+        err = max(err, e)
+    # a tick that rotates every current session to previous, then one
+    # past their alive times that expires them all
+    t_rot = int(steps[-1][1].max()) + SL1_GAP
+    for what, tick in (("rotating", t_rot),
+                       ("expiring", t_rot + SL1_GAP + SL1_LAT)):
+        args = keyed_args(torch, np, dev, plan, tick=tick)
+        if what == "expiring":
+            timing["tick"] = (plan, slabs[0].clone(), args, lat)
+        e, rows = keyed_twin(torch, kw, plan, slabs, args,
+                             f"K11 latency tick {what} over every key",
+                             stats, lat=lat)
+        err = max(err, e)
+    n_tick = int(rows.ts.shape[0])
+    if n_tick == 0:
+        fail("phase 37: the expiring tick expired no session")
+    # one user above 128 rows, whose clicks come out of ts order
+    cols, ts = sl1_send(np, rng, 60)
+    cols[0][:3 * SL1_C] = 12345
+    ts[:3 * SL1_C] = ts[0] - rng.integers(0, 3000, 3 * SL1_C)
+    args = keyed_args(torch, np, dev, plan, cols, ts)
+    _, wa = kw.launch(slabs[0].clone(), plan.filter_spec, *args, lat=lat)
+    e, _ = keyed_twin(torch, kw, plan, slabs, args, "K11 latency hot key",
+                      stats, lat=lat)
+    if int(wa[1]) <= 0:
+        fail("phase 37: a latency session above its capacity reported no "
+             "missed rows")
+    err = max(err, e)
+    args = keyed_args(torch, np, dev, plan,
+                    tick=int(ts.max()) + SL1_GAP + SL1_LAT)
+    e, rows = keyed_twin(torch, kw, plan, slabs, args,
+                         "K11 latency tick expiring the hot key", stats,
+                         lat=lat)
+    err = max(err, e)
+    print(f"phase 37d K11 latency: {stats['steps']} steps, {stats['rows']} "
+          f"rows equal, {stats['pads']} padding key rows; the expiring tick "
+          f"expired {n_tick} rows")
+    del slabs, slab
+    return err, timing
+
+
+# -- their times -------------------------------------------------------------
+
+def time_slice10(torch, np, dev, t_tb, t_hop, t_fq, t_lat):
+    """Phase 38: each kernel at its configuration's step (CUDA-graph
+    replays, the state restored before each) beside its plain version and
+    the bound of the bytes the step must move."""
+    from siddhi_tpu_torch.kernels import frequent as fq
+    from siddhi_tpu_torch.kernels import hop_window as hw
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    from siddhi_tpu_torch.kernels import time_batch as tb
+    res = {}
+    for key, mode in (("chunk", tb.MODE_CHUNK), ("cron", tb.MODE_CRON)):
+        saved, arr, n, now, nc = t_tb[key]
+        work = saved.clone()
+        flush = mode == tb.MODE_CRON
+        cap = (tb.out_capacity_chunk(saved.clone(), nc, True)
+               if mode == tb.MODE_CHUNK
+               else tb.out_capacity_cron(saved.clone(), nc, flush))
+
+        def restore():
+            for a, b in zip(work_tensors(work), work_tensors(saved)):
+                a.copy_(b)
+        out = tb.launch(work, arr, n, now, 0, cap, None, mode, flush)[0]
+        restore()
+        nv = int(out.valid.sum())
+        pend, prev = (int(x) for x in saved.meta[2:4].tolist())
+        rb = 8 + 4 + sum(c.element_size() for c in saved.b_cols[0])
+        na = int(n)
+        res[f"time_batch_{key}"] = {
+            "ms": graph_ms(torch, lambda: tb.launch(
+                work, arr, n, now, 0, cap, None, mode, flush), 10, restore),
+            "plain_ms": event_timer(torch, lambda: tb.plain(
+                work, arr, n, now, 0, cap, None, mode, flush), 3, restore),
+            **bound((pend + prev) * rb + 2 * na * rb + nv * row_bytes(out)),
+            "shape": f"{prev} previous + {pend} pending rows, {na} "
+                     f"arrivals, {nv} rows out"}
+    saved, arr, n, now = t_hop
+    work = saved.clone()
+    w_ms, h_ms = HP1_WIN, HP1_HOP
+    out = hw.launch(work, arr, n, now, w_ms, h_ms)[0]
+    n_out = int(out.ts.shape[0])
+    n_in, na = int(saved.meta[0]), int(n)
+    rb = 8 + 4 + sum(c.element_size() for c in saved.b_cols[0])
+    res["hop_window"] = {
+        "ms": graph_ms(torch, lambda: hw.launch(
+            work, arr, n, now, w_ms, h_ms, n_out=n_out), 10,
+            lambda: work.copy_from(saved)),
+        "plain_ms": event_timer(torch, lambda: hw.plain(
+            work, arr, n, now, w_ms, h_ms), 3, lambda: work.copy_from(saved)),
+        **bound((n_in + na) * rb + n_out * row_bytes(out) + na * rb),
+        "rewrite_bytes": (n_in + na) * rb + n_out * row_bytes(out) +
+        int(work.meta[0]) * rb,
+        "shape": f"{n_in} rows retained, {na} arrivals, {n_out} rows out"}
+    saved, arr, n, kp = t_fq
+    work = saved.clone()
+    out = fq.launch(work, arr, n, kp)
+    n_out = int(out.ts.shape[0])
+    na = int(n)
+    rb = 8 + 4 + sum(c.element_size() for c in saved.cols)
+    nk = saved.keys.shape[1]
+    n_cur = int((out.kind == 0).sum())
+    res["frequent"] = {
+        "ms": graph_ms(torch, lambda: fq.launch(work, arr, n, kp,
+                                                n_out=n_out), 3,
+                       lambda: work.copy_from(saved)),
+        "plain_ms": event_timer(torch, lambda: fq.plain(work, arr, n, kp),
+                                1, lambda: work.copy_from(saved)),
+        **bound(na * (rb + 8) + n_out * row_bytes(out) + n_cur * rb +
+                2 * saved.n * 8 * (1 + nk)),
+        "shape": f"{saved.n} counters, {na} arrivals, {n_out} rows out"}
+    for key in ("data", "tick"):
+        planned, saved, args, lat = t_lat[key]
+        slab = saved.clone()
+        sp = planned.filter_spec
+
+        def restore():
+            slab.copy_from(saved)
+        restore()
+        out = kw.launch(slab, sp, *args, lat=lat)[0]
+        n_out = int(out.ts.shape[0])
+        restore()
+        # and each key row's previous count and its five session words
+        nbytes = k11_bytes(torch, planned, saved, args, n_out) + \
+            int((args[5] < saved.K).sum()) * 2 * (4 + 5 * 8)
+        res[f"latency_{key}"] = {
+            "ms": graph_ms(torch, lambda: kw.launch(slab, sp, *args,
+                                                    n_out=n_out, lat=lat), 5,
+                           restore),
+            "plain_ms": event_timer(torch, lambda: kw.plain(
+                slab, sp, *args, lat=lat), 1, restore),
+            **bound(nbytes),
+            "shape": f"{int(args[5].shape[0])} key rows, {n_out} rows out"}
+        del slab
+    return res
+
+
+# -- the configurations through SiddhiManager --------------------------------
+
+def run_cb1(torch, np, dev, mods):
+    """CB1: batch() over 131,072-row chunks at 4,096 price levels: 2
+    filling, 2 checked, 16 timed.  Returns K12's chunk launches."""
+    tb = mods["time_batch"]
+    rng = np.random.default_rng(161)
+    n = CB1_FILL + CB1_CHECK + CB1_TIMED
+    sends = [cb1_send(np, rng, i) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, CB1_QL, "cb1", "PriceStream", sends,
+        CB1Model(np), (CB1_FILL, CB1_CHECK, True),
+        "CB1 (batch(), 4,096 price levels)", CB1_TIMED * CB1_B,
+        CB1_B * (4 + 4 + 8 + 4 + 1 + 4), ("filter_compact", "time_batch",
+                                          "group_agg"))
+    k = counts["time_batch"][0][tb.MODE_CHUNK]
+    print(f"CB1: sends {CB1_FILL}-{CB1_FILL + CB1_CHECK - 1} held row by "
+          f"row to the numpy model (each {2 * CB1_B} rows); K12 chunk "
+          f"launches {k}")
+    return k
+
+
+def run_cr1(torch, np, dev, mods):
+    """CR1: cron('*/5 * * * * ?') under playback at 4,096 symbols, 1 s of
+    event time a send: 10 filling (two fires), 5 checked (one fire of
+    655,360 pending rows), 16 timed.  Returns K12's cron launches."""
+    tb = mods["time_batch"]
+    rng = np.random.default_rng(163)
+    n = CR1_FILL + CR1_CHECK + CR1_TIMED
+    sends = [cr1_send(np, rng, i) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, CR1_QL, "cr1", "StockStream", sends,
+        CR1Model(np), (CR1_FILL, CR1_CHECK, True),
+        "CR1 (cron every 5 s, 4,096 symbols)", CR1_TIMED * CR1_B,
+        CR1_B * (8 + 4 + 8 + 4 + 1 + 4), ("filter_compact", "time_batch",
+                                          "group_agg"))
+    fired = [r for r in res if r]
+    if len(fired) < n // 5 - 1:
+        fail(f"CR1: {len(fired)} fires over {n} sends")
+    k = counts["time_batch"][0][tb.MODE_CRON]
+    print(f"CR1: sends {CR1_FILL}-{CR1_FILL + CR1_CHECK - 1} held row by "
+          f"row to the numpy model; rows a fire {min(fired)}-{max(fired)}; "
+          f"K12 cron launches {k}")
+    return k
+
+
+def run_hp1(torch, np, dev, mods):
+    """HP1: hopping(1 min, 10 sec) over 10,000 sensors reporting once a
+    second (13.1 s of readings a send): 6 filling, 2 checked, 16 timed.
+    Returns K18's launches."""
+    rng = np.random.default_rng(165)
+    n = HP1_FILL + HP1_CHECK + HP1_TIMED
+    sends = [hp1_send(np, rng, i) for i in range(n + 4)]
+    _, launches, res = run9(
+        torch, np, dev, mods, HP1_QL, "hp1", "SensorStream", sends,
+        HP1Model(np), (HP1_FILL, HP1_CHECK, True),
+        "HP1 (hopping(1 min, 10 sec), 10,000 sensors)", HP1_TIMED * HP1_B,
+        HP1_B * (8 + 4 + 4 + 8 + 4 + 1 + 4),
+        ("filter_compact", "hop_window", "group_agg"))
+    hops = [r for r in res if r]
+    print(f"HP1: sends {HP1_FILL}-{HP1_FILL + HP1_CHECK - 1} held row by "
+          f"row to the numpy model; CURRENT rows a hop {min(hops)}-"
+          f"{max(hops)}; K18 launches {launches['hop_window']}")
+    return launches["hop_window"]
+
+
+def run_fq1(torch, np, dev, mods):
+    """FQ1: lossyFrequent(0.001, 0.0001, cardNo) over purchase[price >=
+    30], 1,000 counters, card numbers Zipf(1.1) over 2^20: 2 filling, 2
+    checked row by row against FQ1Model, 16 timed.  Returns K19's
+    launches."""
+    rng = np.random.default_rng(167)
+    n = FQ1_FILL + FQ1_CHECK + FQ1_TIMED
+    sends = [fq1_send(np, rng, i) for i in range(n + 4)]
+    model = FQ1Model(np)
+    _, launches, res = run9(
+        torch, np, dev, mods, FQ1_QL, "fq1", "purchase", sends, model,
+        (FQ1_FILL, FQ1_CHECK, True),
+        "FQ1 (lossyFrequent(0.001), 2^20 cards Zipf(1.1))",
+        FQ1_TIMED * FQ1_B, FQ1_B * (8 + 4 + 8 + 4 + 1 + 4),
+        ("filter_compact", "frequent"))
+    print(f"FQ1: sends {FQ1_FILL}-{FQ1_FILL + FQ1_CHECK - 1} held row by "
+          f"row to the numpy model; rows a send {min(res)}-{max(res)}; "
+          f"hits {model.hits}, full misses {model.misses}; K19 launches "
+          f"{launches['frequent']}")
+    return launches["frequent"]
+
+
+def run_sl1(torch, np, dev, mods):
+    """SL1: session(5 sec, user, 2 sec) at 2^20 users, 65,536 users a
+    send (two clicks each, 10% of clicks 0-7 s late), 250 ms apart under
+    playback, three groups of users taking 3 s turns: 38 filling (the
+    first group back from its turns away), 2 checked, 16 timed.  Returns
+    K11's latency launches (timer ticks included)."""
+    kw = mods["keyed_window"]
+    rng = np.random.default_rng(169)
+    n = SL1_FILL + SL1_CHECK + SL1_TIMED
+    sends = [sl1_send(np, rng, i) for i in range(n + 4)]
+    torch.cuda.empty_cache()
+    model = SL1Model(np)
+    counts, _, res = run9(
+        torch, np, dev, mods, SL1_QL, "sl1", "ClickStream", sends, model,
+        (SL1_FILL, SL1_CHECK, True),
+        "SL1 (session(5 sec, user, 2 sec), 2^20 users)",
+        SL1_TIMED * 2 * SL1_ROWS,
+        keyed_h2d(np, sends[0][0][0], SL1_KEYS, 8 + 4 + 4),
+        ("keyed_window", "group_agg"))
+    modes, ticks = counts["keyed_window"]
+    k = modes[kw.MODE_LATENCY]
+    if not all(model.stats.values()):
+        fail(f"SL1: a late branch never occurred: {model.stats}")
+    print(f"SL1: sends {SL1_FILL}-{SL1_FILL + 1} held to the numpy model "
+          f"(the expired and kept rows as multisets, the running totals); "
+          f"branches {model.stats}; K11 latency launches {k} ({ticks} "
+          f"ticks)")
+    return k
+
+
+def slice10_phases(torch, np, dev):
+    """Phases 37-40: K12's chunk and cron modes, K18, K19 and K11's
+    latency mode against their plain versions; their times; CB1, CR1,
+    HP1, FQ1 and SL1 through SiddhiManager; X2's cases of these kinds.
+    Returns their kernel records."""
+    mods = slice10_modules()
+    t0 = time.perf_counter()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 10 {what}: {time.perf_counter() - t0:.1f} s")
+    e12, t_tb = compare_chunk_cron(torch, np, dev)
+    e18, t_hop = compare_hop(torch, np, dev)
+    e19, t_fq = compare_frequent(torch, np, dev)
+    e11, t_lat = compare_latency(torch, np, dev)
+    took("phase 37 done")
+    res = time_slice10(torch, np, dev, t_tb, t_hop, t_fq, t_lat)
+    del t_tb, t_hop, t_fq, t_lat
+    took("phase 38 done")
+    n = {"time_batch_chunk": run_cb1(torch, np, dev, mods)}
+    took("CB1 done")
+    n["time_batch_cron"] = run_cr1(torch, np, dev, mods)
+    took("CR1 done")
+    n["hop_window"] = run_hp1(torch, np, dev, mods)
+    took("HP1 done")
+    n["frequent"] = run_fq1(torch, np, dev, mods)
+    took("FQ1 done")
+    n["keyed_window_latency"] = run_sl1(torch, np, dev, mods)
+    took("SL1 done")
+    run_corpus(torch, np, dev, mods, "X2 (slice 10)", X10_CASES,
+               ("time_batch", "hop_window", "frequent", "keyed_window"))
+    took("phase 40 done")
+    no_lib = "no single PyTorch call computes this window step"
+    records = []
+    for name, key, src, rep, err in (
+            ("time_batch_chunk", "time_batch_chunk", "time_batch.cu",
+             "siddhi_tpu/core/window_ext.py:427", e12),
+            ("time_batch_cron", "time_batch_cron", "time_batch.cu",
+             "siddhi_tpu/core/window_ext.py:579", e12),
+            ("hop_window", "hop_window", "hop_window.cu",
+             "siddhi_tpu/core/window_ext.py:1166", e18),
+            ("frequent", "frequent", "frequent.cu",
+             "siddhi_tpu/core/window_ext.py:1023", e19),
+            ("keyed_window_latency", "latency_data", "keyed_window.cu",
+             "siddhi_tpu/core/window_ext.py:850", e11)):
+        t = res[key]
+        print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
+              f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} bytes"
+              f"{rewrite_note(t)}), plain {t['plain_ms']:.4f} ms, launches "
+              f"on the main path {n[name]}; library_ms null: {no_lib}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n[name], "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    t = res["latency_tick"]
+    print(f"kernel latency_tick: {t['ms']:.4f} ms at {t['shape']} (bound "
+          f"{t['bound_ms']:.5f} by {t['bound_by']}), plain "
+          f"{t['plain_ms']:.4f} ms")
+    return records
 
 
 # X2: the slice's corpus (tests/test_window_ext.py, test_session_matrix.py,
@@ -9601,7 +10741,174 @@ _X2_WANT = [[(1000, [(1000, (1, 1))], []), (1500, [(1500, (2, 3))], []),
  [(1, [(1, (1, 1, 1)), (1, (1, 1, 2)), (1, (2, 1, 1)), (1, (1, 2, 3))], []),
   (2, [(2, (2, 2, 2)), (2, (2, 3, 3)), (2, (1, 2, 4)), (2, (3, 1, 1))],
    [])]]
-X2_CASES = [spec + (want,) for spec, want in zip(_X2_SPECS, _X2_WANT)]
+X9_CASES = [spec + (want,) for spec, want in zip(_X2_SPECS, _X2_WANT)]
+
+# X2's cases of slice 10 (tests/test_window_ext.py, test_session_latency.py,
+# test_window_corpus.py, test_window_corpus2.py, and a collapsed hop, a
+# grouped chunk, lossyFrequent's error parameter, late joins into the
+# current session): batch, cron, hopping / hoping, frequent,
+# lossyFrequent, session with allowed latency.  _X10_WANT holds the JAX
+# package's events; cron's with the JAX scheduler's timer entries
+# deduplicated as the port's scheduler keeps them (one flush per fire
+# time; the JAX package queues a fire time once per step that schedules
+# it and flushes again at each)
+_B = "@app:playback\ndefine stream S (k string, v int);\n"
+_P = "@app:playback\ndefine stream S (sym string, price float);\n"
+_H = "@app:playback\ndefine stream S (sym string, v int);\n"
+_L = ("@app:playback\ndefine stream S (user string, item int);\n"
+      "@capacity(keys='16')\n"
+      "@info(name='q') from S#window.session(2 sec, user, 1 sec)\n"
+      "select user, item insert all events into Out;")
+_S4 = [("S", ["a", 1.0], 1000), ("S", ["b", 2.0], 1001),
+       ("S", ["c", 3.0], 1002), ("S", ["d", 4.0], 1003)]
+_HOPS = [("S", [["a", 1]], 1000), ("S", [["b", 2]], 1500),
+         ("S", [["c", 4]], 2200), ("S", [["d", 8]], 3100),
+         ("S", [["e", 16]], 4100)]
+_X10_SPECS = [
+    ("batch chunk", _B + """@info(name='q') from S#window.batch()
+select k, v insert all events into Out;""", "q",
+     [("S", [["a", 1], ["b", 2]], 1000), ("S", [["c", 3]], 1100)]),
+    ("batch golden", _P + """@info(name='q') from S#window.batch()
+select sym, price insert all events into Out;""", "q", _S4),
+    ("batch group by sum", _B + """@info(name='q') from S#window.batch(2)
+select k, sum(v) as s group by k insert all events into Out;""", "q",
+     [("S", [["a", 1], ["b", 2], ["a", 3]], 1000), ("S", [["a", 5]], 1100),
+      ("S", [["b", 4], ["b", 6]], 1200)]),
+    ("frequent one counter", _B + """@info(name='q')
+from S#window.frequent(1, k) select k, v insert all events into Out;""",
+     "q", [("S", ["a", 1], 1), ("S", ["a", 2], 2), ("S", ["b", 3], 3)]),
+    ("frequent golden", """@app:playback
+define stream S (sym string);
+@info(name='q') from S#window.frequent(1, sym) select sym insert into Out;""",
+     "q", [("S", [s], 1000) for s in ("a", "a", "b", "a")]),
+    ("frequent every column", _B + """@info(name='q')
+from S#window.frequent(2) select k, v insert all events into Out;""", "q",
+     [("S", [["a", 1], ["a", 1], ["b", 2], ["c", 3], ["a", 1], ["d", 4]], 1),
+      ("S", [["b", 2], ["b", 2], ["e", 5]], 2)]),
+    ("lossyFrequent", _B + """@info(name='q')
+from S#window.lossyFrequent(0.5, k) select k, v insert into Out;""", "q",
+     [("S", ["x", 1], 1), ("S", ["x", 1], 2), ("S", ["x", 1], 3)]),
+    ("lossyFrequent with error", _B + """@info(name='q')
+from S#window.lossyFrequent(0.34, 0.01, k)
+select k, count() as n insert all events into Out;""", "q",
+     [("S", [["x", 1], ["y", 2], ["x", 3], ["z", 4]], 1),
+      ("S", [["w", 5], ["x", 6], ["y", 7], ["v", 8]], 2)]),
+    ("cron every second", """@app:playback
+define stream S (v int);
+@info(name='q') from S#window.cron('* * * * * ?')
+select sum(v) as sv insert all events into Out;""", "q",
+     [("S", [[1]], 100), ("S", [[2]], 300), ("S", [[10]], 1200),
+      ("S", [[5]], 2500)]),
+    ("cron every 5 seconds", _B + """@info(name='q')
+from S#window.cron('*/5 * * * * ?')
+select k, count() as n group by k insert all events into Out;""", "q",
+     [("S", [["a", 1], ["b", 2]], 1000), ("S", [["a", 3]], 4000),
+      ("S", [["a", 4]], 6000), ("S", [["b", 5]], 9000),
+      ("S", [["c", 6]], 17000)]),
+    ("hopping golden", _H + """@info(name='q')
+from S#window.hopping(2 sec, 1 sec) select sym, sum(v) as sv
+insert all events into Out;""", "q", _HOPS),
+    ("hopping expired batch", _H + """@info(name='q')
+from S#window.hopping(2 sec, 1 sec) select sym
+insert expired events into Out;""", "q", _HOPS),
+    ("hoping collapsed hops", _H + """@info(name='q')
+from S#window.hoping(2 sec, 500) select sym, count() as n
+insert all events into Out;""", "q",
+     [("S", [["a", 1]], 1000), ("S", [["b", 2]], 1200),
+      ("S", [["c", 4]], 1700), ("S", [["d", 8]], 4900),
+      ("S", [["e", 16]], 5300)]),
+    ("latency session two sessions", _L, "q",
+     [("S", ["u", 101], 1000), ("S", ["u", 102], 1010),
+      ("S", ["u", 103], 3510), ("S", ["u", 104], 3515),
+      ("S", ["t", 0], 8000), ("S", ["t", 0], 20000)]),
+    ("latency session late merge", _L, "q",
+     [("S", ["u", 101], 1000), ("S", ["u", 108], 3500),
+      ("S", ["u", 105], 2200), ("S", ["t", 0], 30000)]),
+    ("latency session too late", _L, "q",
+     [("S", ["u", 101], 10000), ("S", ["u", 200], 16000),
+      ("S", ["u", 1], 2000), ("S", ["t", 0], 40000)]),
+    ("latency session per key", _L, "q",
+     [("S", ["a", 1], 1000), ("S", ["b", 2], 1100), ("S", ["a", 3], 4000),
+      ("S", ["t", 0], 30000)]),
+    ("latency session late into current", _L, "q",
+     [("S", ["u", 1], 5000), ("S", ["u", 2], 4000), ("S", ["u", 3], 3500),
+      ("S", [["u", 4], ["v", 5]], 9000), ("S", ["t", 0], 30000)]),
+]
+_X10_WANT = [[(1000, [(1000, ('a', 1)), (1000, ('b', 2))], []),
+  (1100, [(1100, ('c', 3))], [(1000, ('a', 1)), (1000, ('b', 2))])],
+ [(1000, [(1000, ('a', 1.0))], []),
+  (1001, [(1001, ('b', 2.0))], [(1000, ('a', 1.0))]),
+  (1002, [(1002, ('c', 3.0))], [(1001, ('b', 2.0))]),
+  (1003, [(1003, ('d', 4.0))], [(1002, ('c', 3.0))])],
+ [(1000, [(1000, ('a', 1)), (1000, ('b', 2)), (1000, ('a', 4))], []),
+  (1100, [(1100, ('a', 5))],
+   [(1000, ('a', 3)), (1000, ('b', None)), (1000, ('a', None))]),
+  (1200, [(1200, ('b', 4)), (1200, ('b', 10))], [(1100, ('a', None))])],
+ [(1, [(1, ('a', 1))], []), (2, [(2, ('a', 2))], [(2, ('a', 1))])],
+ [(1000, [(1000, ('a',))], []), (1000, [(1000, ('a',))], [(1000, ('a',))]),
+  (1000, [(1000, ('a',))], [(1000, ('a',))])],
+ [(1,
+   [(1, ('a', 1)), (1, ('a', 1)), (1, ('b', 2)), (1, ('a', 1)),
+    (1, ('d', 4))],
+   [(1, ('a', 1)), (1, ('b', 2)), (1, ('a', 1))]),
+  (2, [(2, ('b', 2))], [(2, ('d', 4)), (2, ('a', 1)), (2, ('b', 2))])],
+ [(1, [(1, ('x', 1))], []), (2, [(2, ('x', 1))], [(2, ('x', 1))]),
+  (3, [(3, ('x', 1))], [(3, ('x', 1))])],
+ [(1, [(1, ('x', 1)), (1, ('y', 2)), (1, ('x', 2))],
+   [(1, ('x', 1)), (1, ('y', 1))]),
+  (2, [(2, ('w', 2)), (2, ('x', 2)), (2, ('v', 2))],
+   [(2, ('x', 1)), (2, ('w', 1))])],
+ [(1000, [(100, (1,)), (300, (3,))], []),
+  (2000, [(1200, (10,))], [(100, (2,)), (300, (None,))])],
+ [(5000, [(1000, ('a', 1)), (1000, ('b', 1)), (4000, ('a', 2))], []),
+  (10000, [(6000, ('a', 1)), (9000, ('b', 1))],
+   [(1000, ('a', 1)), (1000, ('b', 0)), (4000, ('a', 0))]),
+  (15000, [], [(6000, ('a', 0)), (9000, ('b', 0))])],
+ [(2000, [(1000, ('a', 1)), (1500, ('b', 3))], []),
+  (3000, [(1000, ('a', 1)), (1500, ('b', 3)), (2200, ('c', 7))],
+   [(1000, ('a', 2)), (1500, ('b', None))]),
+  (4000, [(2200, ('c', 4)), (3100, ('d', 12))],
+   [(1000, ('a', 6)), (1500, ('b', 4)), (2200, ('c', None))])],
+ [(2000, [(1000, ('a',)), (1500, ('b',))], []),
+  (3000, [(1000, ('a',)), (1500, ('b',)), (2200, ('c',))],
+   [(1000, ('a',)), (1500, ('b',))]),
+  (4000, [(2200, ('c',)), (3100, ('d',))],
+   [(1000, ('a',)), (1500, ('b',)), (2200, ('c',))])],
+ [(1500, [(1000, ('a', 1)), (1200, ('b', 2))], []),
+  (2000, [(1000, ('a', 1)), (1200, ('b', 2)), (1700, ('c', 3))],
+   [(1000, ('a', 1)), (1200, ('b', 0))]),
+  (2500, [(1000, ('a', 1)), (1200, ('b', 2)), (1700, ('c', 3))],
+   [(1000, ('a', 2)), (1200, ('b', 1)), (1700, ('c', 0))]),
+  (3000, [(1000, ('a', 1)), (1200, ('b', 2)), (1700, ('c', 3))],
+   [(1000, ('a', 2)), (1200, ('b', 1)), (1700, ('c', 0))]),
+  (3500, [(1700, ('c', 1))],
+   [(1000, ('a', 2)), (1200, ('b', 1)), (1700, ('c', 0))]),
+  (4000, [], [(1700, ('c', 0))]), (5000, [(4900, ('d', 1))], [])],
+ [(1000, [(1000, ('u', 101))], []), (1010, [(1010, ('u', 102))], []),
+  (3510, [(3510, ('u', 103))], []), (3515, [(3515, ('u', 104))], []),
+  (4010, [], [(1000, ('u', 101)), (1010, ('u', 102))]),
+  (6515, [], [(3510, ('u', 103)), (3515, ('u', 104))]),
+  (8000, [(8000, ('t', 0))], []), (11000, [], [(8000, ('t', 0))]),
+  (20000, [(20000, ('t', 0))], [])],
+ [(1000, [(1000, ('u', 101))], []), (3500, [(3500, ('u', 108))], []),
+  (3500, [(2200, ('u', 105))], []),
+  (6500, [], [(1000, ('u', 101)), (2200, ('u', 105)), (3500, ('u', 108))]),
+  (30000, [(30000, ('t', 0))], [])],
+ [(10000, [(10000, ('u', 101))], []), (13000, [], [(10000, ('u', 101))]),
+  (16000, [(16000, ('u', 200))], []), (19000, [], [(16000, ('u', 200))]),
+  (40000, [(40000, ('t', 0))], [])],
+ [(1000, [(1000, ('a', 1))], []), (1100, [(1100, ('b', 2))], []),
+  (4000, [], [(1000, ('a', 1))]), (4000, [(4000, ('a', 3))], []),
+  (4100, [], [(1100, ('b', 2))]), (7000, [], [(4000, ('a', 3))]),
+  (30000, [(30000, ('t', 0))], [])],
+ [(5000, [(5000, ('u', 1))], []), (5000, [(4000, ('u', 2))], []),
+  (5000, [(3500, ('u', 3))], []),
+  (8000, [], [(3500, ('u', 3)), (4000, ('u', 2)), (5000, ('u', 1))]),
+  (9000, [(9000, ('u', 4)), (9000, ('v', 5))], []),
+  (12000, [], [(9000, ('u', 4)), (9000, ('v', 5))]),
+  (30000, [(30000, ('t', 0))], [])]]
+X10_CASES = [spec + (want,) for spec, want in zip(_X10_SPECS, _X10_WANT)]
+X2_CASES = X9_CASES + X10_CASES
 
 
 if __name__ == "__main__":

@@ -25,7 +25,16 @@ state converts per window kind:
   * `externalTimeBatch`: (pending, previous, start, seq) as timeBatch;
   * `sort`: (Buffer, seq) becomes the port's `SortState`;
   * `session(gap)`: (Buffer, start, last, seq) becomes a one-key
-    `KeyedSlab` in K11's session mode.
+    `KeyedSlab` in K11's session mode;
+  * `batch`: (previous Buffer, seq) and `cron`: (pending, previous, seq)
+    become the port's `TimeBatchState` as timeBatch's do;
+  * `hopping`: (Buffer, next, seq) becomes the port's `HopState`;
+  * `frequent` / `lossyFrequent`: (counts, keys, stored Buffer, seq)
+    becomes the port's `FreqState`;
+  * `session(gap, key, allowed.latency)` (keyed): per key the current and
+    previous slabs (ts, alive, gslot, columns), their starts and lasts,
+    the previous one's alive time and the seq, become a `KeyedSlab` in
+    K11's latency mode (`latency_slab_from_jax`).
 Both packages can then continue from the same mid-stream state.
 `pair_allocators_from_jax` copies a distinctCount query's pair-slot
 allocators (and its group-slot allocator) across.
@@ -334,6 +343,65 @@ def sort_state_from_jax(window, buf, seq, schema: ev.Schema, device=None):
     return st
 
 
+def hop_state_from_jax(window, buf, nxt, seq, schema: ev.Schema,
+                       device=None):
+    """A JAX HoppingWindow state (Buffer, next, seq) -> the port's
+    HopState (the alive rows in buffer order)."""
+    from .kernels.hop_window import HopState
+    device = _dev(device)
+    idx = np.nonzero(np.asarray(buf.alive))[0]
+    st = HopState.empty(schema, window.capacity, device)
+    n = idx.shape[0]
+    for dst, src in ((st.b_ts[0], buf.ts), (st.b_gslot[0], buf.gslot),
+                     *zip(st.b_cols[0], buf.cols)):
+        dst[:n] = _t(np.asarray(src)[idx], device, dst.dtype)
+    st.meta.copy_(torch.tensor([n, int(nxt), int(seq), 0, 0],
+                               dtype=torch.int64))
+    return st
+
+
+def freq_state_from_jax(window, counts, keys, buf, seq, schema: ev.Schema,
+                        device=None):
+    """A JAX FrequentWindow state (counts, keys, stored Buffer, seq) ->
+    the port's FreqState."""
+    from .kernels.frequent import FreqState
+    device = _dev(device)
+    st = FreqState.empty(schema, window.n, len(window.key_positions),
+                         device)
+    for dst, src in ((st.counts, counts), (st.keys, keys),
+                     (st.ts, buf.ts), (st.gslot, buf.gslot),
+                     *zip(st.cols, buf.cols)):
+        dst.copy_(_t(src, device, dst.dtype))
+    st.meta[0] = int(seq)
+    return st
+
+
+def latency_slab_from_jax(wslab, types, device=None):
+    """A JAX keyed SessionLatencyWindow state -> the port's KeyedSlab in
+    K11's latency mode: each slab a compact prefix of its key's rows."""
+    from .kernels.keyed_window import MODE_LATENCY, KeyedSlab
+    device = _dev(device)
+    cur, cs, cl, prev, ps, pl, pa, seq = wslab
+    K, C = np.asarray(cur[0]).shape
+    slab = KeyedSlab.empty(MODE_LATENCY, types, K, C, device)
+    for (ts, gs, cols, cnt), (sts, salive, sgs, scols) in (
+            ((slab.ts, slab.gslot, slab.cols, slab.count), cur),
+            ((slab.p_ts, slab.p_gslot, slab.p_cols, slab.p_count), prev)):
+        alive = np.asarray(salive)
+        n = alive.sum(1)
+        if not np.array_equal(alive, np.arange(C)[None, :] < n[:, None]):
+            raise ValueError("a key's JAX session slab is not a compact "
+                             "prefix")
+        for dst, src in ((ts, sts), (gs, sgs), (cnt, n),
+                         *zip(cols, scols)):
+            dst.copy_(_t(src, device, dst.dtype))
+    slab.seq.copy_(_t(seq, device, torch.int64))
+    for n, x in (("start", cs), ("last", cl), ("p_start", ps),
+                 ("p_last", pl), ("p_alive", pa)):
+        slab.key_state[n].copy_(_t(x, device, torch.int64))
+    return slab
+
+
 def pair_allocators_from_jax(port_planned, jax_planned) -> None:
     """Copy a distinctCount query's pair-slot allocators, and its
     group-slot allocator, from the JAX plan into the port's."""
@@ -351,17 +419,38 @@ def query_state_from_jax(planned, jax_state, device=None):
     query."""
     from .core.window import LengthBatchWindow, NoWindow, TimeBatchWindow, \
         TimeWindow
-    from .core.window_ext import (DelayWindow, ExternalTimeBatchWindow,
-                                  ExternalTimeWindow, SessionWindow,
-                                  SortWindow, TimeLengthWindow)
+    from .core.window_ext import (ChunkBatchWindow, CronWindow,
+                                  DelayWindow, ExternalTimeBatchWindow,
+                                  ExternalTimeWindow, FrequentWindow,
+                                  HoppingWindow, SessionLatencyWindow,
+                                  SessionWindow, SortWindow,
+                                  TimeLengthWindow)
     wstate, sel_state = jax_state
     w = planned.window
     device = _dev(device)
-    if planned.keyed_window:
+    types = planned.in_schema.types
+    if planned.keyed_window and isinstance(w, SessionLatencyWindow):
+        port_w = latency_slab_from_jax(wstate, types, device)
+    elif planned.keyed_window:
         from .core.planner import _keyed_shape
         port_w = keyed_slab_from_jax(
-            wstate, _keyed_shape(w, planned.name)[0],
-            planned.in_schema.types, device)
+            wstate, _keyed_shape(w, planned.name)[0], types, device)
+    elif isinstance(w, ChunkBatchWindow):
+        from .core.window import empty_buffer
+        port_w = time_batch_state_from_jax(
+            empty_buffer(planned.in_schema, w.capacity), wstate[0], -1,
+            np.asarray(wstate[1]), planned.in_schema, w.capacity, device)
+    elif isinstance(w, CronWindow):
+        port_w = time_batch_state_from_jax(
+            wstate[0], wstate[1], -1, np.asarray(wstate[2]),
+            planned.in_schema, w.capacity, device)
+    elif isinstance(w, HoppingWindow):
+        port_w = hop_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
+                                    np.asarray(wstate[2]), planned.in_schema,
+                                    device)
+    elif isinstance(w, FrequentWindow):
+        port_w = freq_state_from_jax(w, *wstate[:3], np.asarray(wstate[3]),
+                                     planned.in_schema, device)
     elif isinstance(w, NoWindow):
         port_w = torch.tensor([int(np.asarray(wstate))], dtype=torch.int64,
                               device=device)

@@ -40,8 +40,10 @@ selector's refcount pass reads each output row's slot by its input index
 
 Ported: filters before and after the window, the `length`, `time`,
 `lengthBatch`, `timeBatch`, `externalTime`, `externalTimeBatch`,
-`timeLength`, `delay`, `sort` and `session` windows or none, keyed
-`length` / `time` / `lengthBatch` / `timeBatch` / `session` windows,
+`timeLength`, `delay`, `batch`, `sort`, `cron`, `session`, `frequent`,
+`lossyFrequent` and `hopping` windows or none, keyed `length` / `time` /
+`lengthBatch` / `timeBatch` / `session` (with or without allowed latency)
+windows,
 group by, having, the built-in aggregators with distinctCount and
 unionSet on queries without a window, `x in Table` probes.  Stream
 functions, the other windows, named-window input and distinctCount over a
@@ -320,7 +322,7 @@ def plan_single_query(
     kstep = timer_keys = None
     if keyed_window:
         from ..kernels.keyed_window import KeyedSlab, keyed_window_step
-        mode, C, t_ms = _keyed_shape(wproc, name)
+        mode, C, t_ms, lat_ms = _keyed_shape(wproc, name)
         K = key_capacity
         types = in_schema.types
 
@@ -329,7 +331,8 @@ def plan_single_query(
             slab, astate = state
             orows, wake = keyed_window_step(
                 slab, fspec.bind(in_tabs), batch.ts, batch.kind, batch.valid,
-                gslot, batch.cols, key_idx, sel_idx, now, t_ms, tick)
+                gslot, batch.cols, key_idx, sel_idx, now, t_ms, tick,
+                lat=lat_ms)
             astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
                                                               now, in_tabs)
             cur = torch.logical_and(ovalid, okind == ev.CURRENT)
@@ -370,25 +373,28 @@ def plan_single_query(
 
 
 def _keyed_shape(wproc, name: str):
-    """(K11 mode, per-key capacity, time window length or session gap) of
-    a window kept per partition key (or per session key).  Other window
-    kinds raise: their keyed forms are not ported yet.  A timeBatch or
-    session key holds max(@capacity(window), 2 * batch capacity) rows, as
-    the reference builds it."""
+    """(K11 mode, per-key capacity, time window length or session gap,
+    session latency) of a window kept per partition key (or per session
+    key).  Other window kinds raise: their keyed forms are not ported yet.
+    A timeBatch or session key holds max(@capacity(window), 2 * batch
+    capacity) rows, as the reference builds it."""
     from ..kernels import keyed_window as kw
     from .window import (LengthBatchWindow, LengthWindow, TimeBatchWindow,
                          TimeWindow)
-    from .window_ext import SessionWindow
+    from .window_ext import SessionLatencyWindow, SessionWindow
+    if isinstance(wproc, SessionLatencyWindow):
+        return kw.MODE_LATENCY, wproc.capacity, wproc.gap_ms, \
+            wproc.latency_ms
     if isinstance(wproc, SessionWindow):
-        return kw.MODE_SESSION, wproc.capacity, wproc.gap_ms
+        return kw.MODE_SESSION, wproc.capacity, wproc.gap_ms, 0
     if isinstance(wproc, LengthWindow):
-        return kw.MODE_LENGTH, wproc.length, 0
+        return kw.MODE_LENGTH, wproc.length, 0, 0
     if isinstance(wproc, TimeWindow):
-        return kw.MODE_TIME, wproc.capacity, wproc.time_ms
+        return kw.MODE_TIME, wproc.capacity, wproc.time_ms, 0
     if isinstance(wproc, LengthBatchWindow):
-        return kw.MODE_BATCH, wproc.length, 0
+        return kw.MODE_BATCH, wproc.length, 0, 0
     if isinstance(wproc, TimeBatchWindow):
-        return kw.MODE_TBATCH, wproc.capacity, wproc.time_ms
+        return kw.MODE_TBATCH, wproc.capacity, wproc.time_ms, 0
     raise CompileError(f"query {name!r}: the keyed form of a "
                        f"{wproc.name!r} window is not yet ported (ROADMAP "
                        f"B12)")

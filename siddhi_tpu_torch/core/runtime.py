@@ -723,7 +723,9 @@ _HOLDS = {"timeBatch": "time batch window's slice",
           "externalTimeBatch": "externalTimeBatch window's slice",
           "externalTime": "externalTime window's buffer",
           "delay": "delay window's buffer",
-          "session": "session window's session (per key)"}
+          "session": "session window's session (per key)",
+          "cron": "cron window's pending batch",
+          "hopping": "hopping window's buffer"}
 
 
 def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
@@ -748,7 +750,11 @@ def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
             f"query {qr.name!r}: {missed} more rows expired than the time "
             f"window's expire bound allowed; the window and the aggregates "
             f"were left as they were")
-    if qr.planned.needs_timer:
+    if getattr(w, "host_scheduled", False):
+        # cron: the host's schedule, after every step (reference
+        # `siddhi_tpu/core/runtime.py:466-467`)
+        qr._apply_wake(w.host_next_wakeup(now))
+    elif qr.planned.needs_timer:
         qr._apply_wake(wake)
     if not live or not nv:
         return
@@ -1352,7 +1358,7 @@ class SiddhiAppRuntime:
         # capacity of 64 and a per-key capacity of max(@capacity(window),
         # 128); @capacity(keys) keys (reference runtime.py:2958-2980)
         if any(isinstance(h, Window) and h.name == "session" and
-               len(h.parameters) == 2
+               len(h.parameters) >= 2
                for h in getattr(q.input_stream, "stream_handlers", [])):
             kcap = 4096
             if cap_ann is not None and cap_ann.element("keys"):

@@ -9,8 +9,9 @@ included).
 Ported: `NoWindow` (pass-through), `LengthWindow` (`length`),
 `TimeWindow` (`time`), `LengthBatchWindow` (`lengthBatch`) and
 `TimeBatchWindow` (`timeBatch`) here; `externalTime`,
-`externalTimeBatch`, `timeLength`, `delay`, `sort` and `session` in
-`window_ext.py`.  Their steps are the CUDA kernels under
+`externalTimeBatch`, `timeLength`, `delay`, `batch`, `sort`, `cron`,
+`session`, `frequent`, `lossyFrequent` and `hopping` in `window_ext.py`.
+Their steps are the CUDA kernels under
 `kernels/` (`filter_compact`, `length_window`, `time_window`,
 `length_batch`, `time_batch`), each with its plain
 PyTorch version, which runs on the CPU.  Unlike the
@@ -322,14 +323,11 @@ def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
                   capacity_hint: int = 2048) -> WindowProcessor:
     from . import window_ext
     window_ext.register(WINDOW_TYPES)
-    if name in window_ext.UNPORTED:
-        raise CompileError(f"window {name!r} is not yet ported (ROADMAP "
-                           f"B12)")
     if name in ("expression", "expressionBatch"):
         raise CompileError(f"window {name!r} is not yet ported (ROADMAP "
                            f"B13)")
     if name not in WINDOW_TYPES:
-        raise CompileError(f"window {name!r} is not yet ported "
-                           f"(ROADMAP B12/B13)")
+        raise CompileError(f"unknown window type {name!r}; "
+                           f"available: {sorted(WINDOW_TYPES)}")
     return WINDOW_TYPES[name](schema, params, batch_capacity,
                               capacity_hint=capacity_hint)

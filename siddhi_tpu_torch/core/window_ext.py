@@ -1,32 +1,40 @@
 """Extended window processors (port of `siddhi_tpu/core/window_ext.py`).
 
 Ported: `externalTime`, `externalTimeBatch`, `timeLength`, `delay`,
-`sort` and `session(gap[, key])` (reference:
+`batch`, `sort`, `cron`, `session`, `frequent`, `lossyFrequent` and
+`hopping` (also spelt `hoping`) (reference:
 CORE/query/processor/stream/window/{ExternalTime,ExternalTimeBatch,
-TimeLength,Delay,Sort,Session}WindowProcessor.java).  Their steps are CUDA
-kernels, each with its plain PyTorch version, which runs on the CPU:
+TimeLength,Delay,Batch,Sort,Cron,Session,Frequent,LossyFrequent}
+WindowProcessor.java and the JAX package's hopping window).  Their steps
+are CUDA kernels, each with its plain PyTorch version, which runs on the
+CPU:
   * `externalTime`, `timeLength`, `delay`: K16 (`kernels/ext_window.py`);
-  * `externalTimeBatch`: K12's external mode (`kernels/time_batch.py`);
+  * `externalTimeBatch`, `batch`, `cron`: K12's external, chunk and cron
+    modes (`kernels/time_batch.py`);
   * `sort`: K17 (`kernels/sort_window.py`);
+  * `hopping`: K18 (`kernels/hop_window.py`);
+  * `frequent`, `lossyFrequent`: K19 (`kernels/frequent.py`);
   * `session`: K11's session mode (`kernels/keyed_window.py`), per key for
     `session(gap, key)` (the planner keys the query's window by the
     attribute, as a partition would) and on one key row for
-    `session(gap)`.
+    `session(gap)`; `session(gap, key, allowed.latency)` is K11's latency
+    mode, always per key.
 Parameter lists are accepted and rejected as the reference accepts and
-rejects them.  The other kinds (`cron`, `batch`, `frequent`,
-`lossyFrequent`, `hopping`, `session(gap, key, allowed.latency)`) raise
-`CompileError` naming ROADMAP B12.
+rejects them.  Two reference behaviours the port keeps: `batch(length)`
+ignores its length (each send's chunk is the window), and `lossyFrequent`
+is Misra-Gries over int(1 / support) counters that drops its error
+parameter.  One it does not: the reference keeps at most `batch_capacity`
+rows of a chunk and drops the rest silently; the port's chunk buffer
+grows to the largest chunk.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..exceptions import CompileError
 from ..query_api.expression import Constant, Variable
+from . import event as ev
 from .window import WindowOutput, WindowProcessor, _arrivals, _param_int
-
-UNPORTED = ("cron", "batch", "frequent", "lossyFrequent", "hopping",
-            "hoping")
 
 
 def _param_var_position(params, i, schema, what="window"):
@@ -175,6 +183,148 @@ class SortWindow(WindowProcessor):
         return state, WindowOutput(out, None)
 
 
+class ChunkBatchWindow(WindowProcessor):
+    """`batch()`: each send's chunk is the window; the previous chunk is
+    replayed as EXPIRED ahead of the new one (kernel K12, chunk mode)."""
+
+    name = "batch"
+    emits_reset = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=1024):
+        super().__init__(schema, params, batch_capacity)
+        self.capacity = batch_capacity
+
+    def init_state(self, device):
+        from ..kernels.time_batch import TimeBatchState
+        return TimeBatchState.empty(self.schema, self.capacity, device)
+
+    def process(self, state, rows, fspec, now: int, facts):
+        from ..kernels.time_batch import MODE_CHUNK, time_batch_step
+        n = int(facts.cur_ts.shape[0])
+        if n > state.C:
+            # a chunk above the buffers: they grow to hold it
+            state.grow(1 << (n - 1).bit_length())
+        arr, n_arr = _arrivals(rows, fspec, now)
+        out, wake = time_batch_step(state, arr, n_arr, now, 0, facts,
+                                    exact=not fspec.compiled,
+                                    mode=MODE_CHUNK)
+        return state, WindowOutput(out, wake)
+
+
+class CronWindow(WindowProcessor):
+    """Rows gather and flush at the cron expression's fire times (kernel
+    K12, cron mode).  The host computes the fire times
+    (`host_next_wakeup`, the runtime's wake after every step) and a step
+    flushes when its batch holds a TIMER row."""
+
+    name = "cron"
+    needs_timer = True
+    host_scheduled = True
+    emits_reset = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=2048):
+        super().__init__(schema, params, batch_capacity)
+        if not params or not isinstance(params[0], Constant):
+            raise ValueError("cron window needs a cron expression string")
+        from ..utils.cron import CronExpression
+        self.cron = CronExpression(str(params[0].value))
+        self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def host_next_wakeup(self, now: int) -> int:
+        return self.cron.next_fire(now)
+
+    def init_state(self, device):
+        from ..kernels.time_batch import TimeBatchState
+        return TimeBatchState.empty(self.schema, self.capacity, device)
+
+    def process(self, state, rows, fspec, now: int, facts):
+        from ..kernels.time_batch import MODE_CRON, time_batch_step
+        st = facts.staged
+        flush = bool(np.any(st.valid & (st.kind == ev.TIMER)))
+        arr, n_arr = _arrivals(rows, fspec, now)
+        out, wake = time_batch_step(state, arr, n_arr, now, 0, facts,
+                                    exact=not fspec.compiled,
+                                    mode=MODE_CRON, flush=flush)
+        return state, WindowOutput(out, wake)
+
+
+class HoppingWindow(WindowProcessor):
+    """`hopping(window.time, hop.time)`: every hop the rows of the trailing
+    window come out as one batch, after the previous hop's batch as
+    EXPIRED and a RESET row (kernel K18)."""
+
+    name = "hopping"
+    needs_timer = True
+    emits_reset = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=2048):
+        super().__init__(schema, params, batch_capacity)
+        self.win_ms = _param_int(params, 0)
+        self.hop_ms = _param_int(params, 1, default=self.win_ms)
+        self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def init_state(self, device):
+        from ..kernels.hop_window import HopState
+        return HopState.empty(self.schema, self.capacity, device)
+
+    def process(self, state, rows, fspec, now: int, facts):
+        from ..kernels.hop_window import hop_window_step
+        arr, n_arr = _arrivals(rows, fspec, now)
+        out, wake = hop_window_step(state, arr, n_arr, now, self.win_ms,
+                                    self.hop_ms)
+        return state, WindowOutput(out, wake)
+
+
+class FrequentWindow(WindowProcessor):
+    """Misra-Gries over n counters: the latest event of each of up to n
+    keys (kernel K19)."""
+
+    name = "frequent"
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=1024):
+        super().__init__(schema, params, batch_capacity)
+        self.n = _param_int(params, 0)
+        if len(params) > 1:
+            self.key_positions = [
+                _param_var_position(params, i, schema, "frequent")
+                for i in range(1, len(params))]
+        else:
+            self.key_positions = list(range(len(schema.names)))
+
+    def init_state(self, device):
+        from ..kernels.frequent import FreqState
+        return FreqState.empty(self.schema, self.n, len(self.key_positions),
+                               device)
+
+    def process(self, state, rows, fspec, now: int, facts):
+        from ..kernels.frequent import frequent_step
+        arr, n_arr = _arrivals(rows, fspec, now)  # seq: input positions
+        return state, WindowOutput(
+            frequent_step(state, arr, n_arr, self.key_positions), None)
+
+
+class LossyFrequentWindow(FrequentWindow):
+    """`lossyFrequent(support[, error][, attrs])`: the Misra-Gries window
+    over n = max(int(1 / support), 1) counters; float parameters after the
+    support (the reference's error bound) are dropped, as the reference
+    does."""
+
+    name = "lossyFrequent"
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=1024):
+        if not params or not isinstance(params[0], Constant):
+            raise ValueError("lossyFrequent needs a support fraction")
+        support = float(params[0].value)
+        if not (0.0 < support < 1.0):
+            raise ValueError("support must be in (0, 1)")
+        n = max(int(1.0 / support), 1)
+        rest = [p for p in params[1:]
+                if not (isinstance(p, Constant)
+                        and isinstance(p.value, float))]
+        super().__init__(schema, [Constant(n, "INT")] + rest,
+                         batch_capacity, capacity_hint)
+
+
 class SessionWindow(WindowProcessor):
     """Sessions: rows gather while arrivals come less than `gap` apart and
     expire together when the gap passes (kernel K11, session mode).
@@ -187,10 +337,6 @@ class SessionWindow(WindowProcessor):
     def __init__(self, schema, params, batch_capacity, capacity_hint=2048):
         super().__init__(schema, params, batch_capacity)
         self.gap_ms = _param_int(params, 0)
-        if len(params) > 2:
-            raise CompileError(
-                "window 'session(gap, key, allowed.latency)' is not yet "
-                "ported (ROADMAP B12)")
         self.session_key_pos = None
         if len(params) == 2:
             self.session_key_pos = _param_var_position(params, 1, schema,
@@ -218,7 +364,46 @@ class SessionWindow(WindowProcessor):
         return state, WindowOutput(out, wake)
 
 
+class SessionLatencyWindow(WindowProcessor):
+    """`session(gap, key, allowed.latency)`: per key a current session and
+    one previous session that lingers `allowed.latency` past its gap, so
+    late arrivals can still join or merge them (kernel K11, latency mode;
+    always per key: the planner keys the window by `session_key_pos`)."""
+
+    name = "session"
+    needs_timer = True
+
+    def __init__(self, schema, params, batch_capacity, capacity_hint=2048):
+        super().__init__(schema, params, batch_capacity)
+        self.gap_ms = _param_int(params, 0)
+        self.session_key_pos = _param_var_position(
+            params, 1, schema, "session") \
+            if not isinstance(params[1], Constant) else None
+        if self.session_key_pos is None:
+            raise ValueError("session's 2nd parameter must name the "
+                             "session key attribute")
+        self.latency_ms = _param_int(params, 2)
+        if self.latency_ms > self.gap_ms:
+            # reference: validateAllowedLatency
+            raise ValueError(
+                "session window's allowed.latency must not exceed the "
+                "session gap")
+        self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+
+def _session_factory(schema, params, batch_capacity, capacity_hint=2048):
+    """session(gap) and session(gap, key): `SessionWindow`;
+    session(gap, key, allowed.latency): `SessionLatencyWindow` (reference:
+    SessionWindowProcessor.java:86-88)."""
+    cls = SessionLatencyWindow if len(params) >= 3 else SessionWindow
+    return cls(schema, params, batch_capacity, capacity_hint=capacity_hint)
+
+
 def register(window_types: dict) -> None:
     for cls in (ExternalTimeWindow, ExternalTimeBatchWindow,
-                TimeLengthWindow, DelayWindow, SortWindow, SessionWindow):
+                TimeLengthWindow, DelayWindow, ChunkBatchWindow, SortWindow,
+                CronWindow, FrequentWindow, LossyFrequentWindow,
+                HoppingWindow):
         window_types[cls.name] = cls
+    window_types["session"] = _session_factory
+    window_types["hoping"] = HoppingWindow   # the reference's spelling

@@ -47,6 +47,18 @@
 // key's rows staged through shared memory (O(rows^2) comparisons per late
 // session, spread over the card, not one thread).  A session without a key
 // is this mode on one key row: one thread walks the batch's arrivals.
+// session with allowed latency (SessionLatencyWindow.process,
+// siddhi_tpu/core/window_ext.py:850): a key's thread walks its arrivals
+// through the reference's scan with the current session in the slab and
+// the previous one in the p_ block, in the reference's slab order (appends
+// and merged rows at the tail, so both stay prefix-compact).  kw_count runs
+// the same walk on the counts and scalars alone to count the key's rows.
+// An expiring session in ts order along the slab is written by the thread
+// as it lies; one out of order is copied to scratch rows at its output
+// offset and listed, and kw_latency_rank (after kw_write) ranks each listed
+// session's rows, a block per 256 rows, against the session's rows staged
+// through shared memory, and writes them from the scratch at offset +
+// rank.  The kept arrivals follow the key's expiries as CURRENT rows.
 //
 // Bound: each arrival is read once (its columns, ts, gslot, kind, valid,
 // the sel entry) and each output row written once; of the slab, the rows
@@ -68,13 +80,13 @@ constexpr int BLOCK = 128;
 constexpr int RANK_BLOCK = 256, RANK_GRID = 528;
 constexpr long long NO_WAKEUP = BIG_SEQ;
 
-enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2, M_TBATCH = 3, M_SESSION = 4 };
+enum : int { M_LENGTH = 0, M_TIME = 1, M_BATCH = 2, M_TBATCH = 3, M_SESSION = 4, M_LATENCY = 5 };
 
 }  // namespace
 
 // Mirrored field for field by kernels/keyed_window.py (ctypes.Structure).
 struct KeyedPlan {
-  long long Kb, E, K, C, now, t, cap;
+  long long Kb, E, K, C, now, t, lat, cap;   // lat: the session's allowed latency
   int mode, ncols, code_len, pad;
   int col_ty[MAX_COLS];
   int col_w[MAX_COLS];
@@ -101,8 +113,16 @@ struct KeyedPlan {
                            // session: the session's start, -1 for none
   int* ordered;            // time: 1 where a key's ring is in ts order
   long long* last;         // session: the latest arrival, -1 for none
+  long long* p_start;      // latency: the previous session's start, last
+  long long* p_last;       // and alive time (end + gap + latency), -1 for
+  long long* p_alive;      // none
   int* late;               // session: key rows whose expiring session is
   int* n_late;             // out of ts order, and their number
+  long long* seg;          // latency: (offset, rows, seq) of each session
+  int* n_seg;              // written out of ts order, and their number
+  long long* x_ts;         // latency: those sessions' rows, at their
+  int* x_gslot;            // output offsets
+  void* x_col[MAX_COLS];
   int* arr;
   int* n_arr;
   long long* ocnt;
@@ -229,10 +249,156 @@ __device__ bool session_own(const KeyedPlan& pl, long long k) {
   return true;
 }
 
+// ---- session with allowed latency ----------------------------------------
+// The previous session (pc rows at base) comes out EXPIRED in a stable ts
+// order at o, numbered from seq: as it lies when it is in ts order, else
+// copied to the scratch rows at o and listed for kw_latency_rank.
+__device__ void latency_emit(const KeyedPlan& pl, long long base, long long pc, long long o,
+                             long long seq) {
+  bool sorted = true;
+  for (long long i = 1; i < pc && sorted; ++i) sorted = pl.p_ts[base + i - 1] <= pl.p_ts[base + i];
+  if (sorted) {
+    for (long long i = 0; i < pc; ++i)
+      emit_slab(pl, o + i, pl.p_ts, pl.p_gslot, pl.p_col, base + i, K_EXPIRED, pl.p_ts[base + i],
+                seq + i);
+    return;
+  }
+  // rows past the output are not written (never so when the output was
+  // sized by the count launch); the list holds sessions inside it only
+  if (o + pc > pl.cap) return;
+  for (long long i = 0; i < pc; ++i)
+    move_slab(pl, pl.x_ts, pl.x_gslot, pl.x_col, o + i, pl.p_ts, pl.p_gslot, pl.p_col, base + i);
+  long long s = atomicAdd(pl.n_seg, 1);
+  pl.seg[3 * s] = o;
+  pl.seg[3 * s + 1] = pc;
+  pl.seg[3 * s + 2] = seq;
+}
+
+// One key's latency step; W: write the rows and the state (kw_write), else
+// only count the rows (kw_count).  Returns the key's output rows.  A
+// dropped arrival is marked in arr (-1 - row) for the CURRENT pass.
+template <bool W>
+__device__ long long step_latency(const KeyedPlan& pl, long long k, int* arr, int na, long long o) {
+  const long long C = pl.C, base = k * C, gap = pl.t, lat = pl.lat, now = pl.now;
+  long long cc = pl.count[k], pc = pl.p_count[k];
+  long long cs = pl.start[k], cl = pl.last[k];
+  long long ps = pl.p_start[k], pll = pl.p_last[k], pa = pl.p_alive[k];
+  long long seq = pl.seq[k], missed = 0;
+  const long long o0 = o;
+  auto emit_prev = [&]() {
+    if (W) latency_emit(pl, base, pc, o, seq);
+    o += pc;
+    seq += pc;
+  };
+  auto rotate = [&]() {   // the current session becomes the previous one
+    if (W)
+      for (long long i = 0; i < cc; ++i)
+        move_slab(pl, pl.p_ts, pl.p_gslot, pl.p_col, base + i, pl.s_ts, pl.s_gslot, pl.s_col, base + i);
+    pc = cc;
+    ps = cs;
+    pll = cl;
+    pa = cl + gap + lat;
+    cc = 0;
+  };
+  bool prev_has = pll >= 0;
+  if (prev_has && pa <= now) {
+    emit_prev();
+    pc = 0;
+    ps = pll = pa = -1;
+    prev_has = false;
+  }
+  if (cl >= 0 && cl + gap <= now) {
+    if (prev_has) emit_prev();
+    rotate();
+    cs = cl = -1;
+  }
+  long long nk = 0;
+  for (int q = 0; q < na; ++q) {
+    const long long i = arr[q], t = pl.ts[i];
+    const bool cur_has = cl >= 0;
+    bool ph = pll >= 0;
+    const bool in_cur = cur_has && t >= cs && t <= cl + gap;
+    const bool new_sess = cur_has && t >= cs && t > cl + gap;
+    const bool late_cur = cur_has && t < cs && t >= cs - gap;
+    const bool late_prev = cur_has && t < cs - gap && ph && t >= ps - gap;
+    const bool fresh = !cur_has;
+    const bool kept = fresh || in_cur || new_sess || late_cur || late_prev;
+    if (new_sess) {
+      if (ph) emit_prev();
+      rotate();
+      ph = true;
+    }
+    bool p_fwd = false;
+    if (kept && !late_prev) {
+      if (cc < C) {
+        if (W) put_batch(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + cc, i);
+        ++cc;
+      } else {
+        ++missed;
+      }
+      cs = (fresh || new_sess) ? t : (cs < t ? cs : t);
+      cl = cl > t ? cl : t;
+    } else if (late_prev) {
+      if (pc < C) {
+        if (W) put_batch(pl, pl.p_ts, pl.p_gslot, pl.p_col, base + pc, i);
+        ++pc;
+      } else {
+        ++missed;
+      }
+      if (t < ps) ps = t;
+      if (t > pll) {
+        pll = t;
+        pa = t + gap + lat;
+        p_fwd = true;
+      }
+    }
+    if ((late_cur || p_fwd) && ph && cl >= 0 && pll + gap >= cs - gap) {
+      // the previous session merges into the current one, after its rows
+      for (long long j = 0; j < pc; ++j) {
+        if (cc < C) {
+          if (W) move_slab(pl, pl.s_ts, pl.s_gslot, pl.s_col, base + cc, pl.p_ts, pl.p_gslot, pl.p_col, base + j);
+          ++cc;
+        } else {
+          ++missed;
+        }
+      }
+      pc = 0;
+      cs = cs < ps ? cs : ps;
+      cl = cl > pll ? cl : pll;
+      ps = pll = pa = -1;
+    }
+    if (W && !kept) arr[q] = -1 - (int)i;
+    nk += kept;
+  }
+  if (W) {
+    long long kq = 0;
+    for (int q = 0; q < na; ++q) {
+      if (arr[q] < 0) continue;
+      const long long i = arr[q];
+      emit_batch(pl, o + kq, i, K_CURRENT, pl.ts[i], seq + kq);
+      ++kq;
+    }
+    pl.count[k] = (int)cc;
+    pl.p_count[k] = (int)pc;
+    pl.start[k] = cs;
+    pl.last[k] = cl;
+    pl.p_start[k] = ps;
+    pl.p_last[k] = pll;
+    pl.p_alive[k] = pa;
+    pl.seq[k] = seq + nk;
+    long long wk = cl >= 0 ? cl + gap : NO_WAKEUP;
+    if (pll >= 0 && pa < wk) wk = pa;
+    if (wk < NO_WAKEUP) atomicMin(pl.wake, wk);
+    if (missed) atomicAdd((unsigned long long*)(pl.wake + 1), (unsigned long long)missed);
+  }
+  return o + nk - o0;
+}
+
 // Output rows of one key (kernels/keyed_window.py states the counts).
 __device__ long long out_rows(const KeyedPlan& pl, long long k, const int* arr, int na) {
   long long C = pl.C;
   long long cnt = pl.count[k];
+  if (pl.mode == M_LATENCY) return step_latency<false>(pl, k, const_cast<int*>(arr), na, 0);
   if (pl.mode == M_SESSION) {
     SessionFacts f = session_facts(pl, k);
     long long rows = f.expire ? cnt : 0;
@@ -297,6 +463,7 @@ __global__ void kw_init(const KeyedPlan pl) {
   pl.wake[0] = NO_WAKEUP;
   pl.wake[1] = 0;
   if (pl.mode == M_SESSION) *pl.n_late = 0;
+  if (pl.mode == M_LATENCY) *pl.n_seg = 0;
 }
 
 // ---- length ---------------------------------------------------------------
@@ -680,6 +847,37 @@ __global__ void kw_session_rank(const KeyedPlan pl) {
   }
 }
 
+// The latency sessions kw_write listed (written to the scratch rows out of
+// ts order): a block per RANK_BLOCK rows of such a session ranks each row,
+// stably by (ts, position), against the session's rows and writes it at
+// the session's offset + rank.  After kw_write.
+__global__ void kw_latency_rank(const KeyedPlan pl) {
+  __shared__ long long sh_ts[RANK_BLOCK];
+  long long tiles = (pl.C + RANK_BLOCK - 1) / RANK_BLOCK;
+  long long items = (long long)*pl.n_seg * tiles;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long* sg = pl.seg + 3 * (it / tiles);
+    long long tile = it % tiles, o = sg[0], cnt = sg[1], sq = sg[2];
+    if (tile * RANK_BLOCK >= cnt) continue;  // the same for the whole block
+    long long i = tile * RANK_BLOCK + threadIdx.x;
+    long long ti = i < cnt ? pl.x_ts[o + i] : 0, rank = 0;
+    for (long long j0 = 0; j0 < cnt; j0 += RANK_BLOCK) {
+      __syncthreads();
+      if (j0 + threadIdx.x < cnt) sh_ts[threadIdx.x] = pl.x_ts[o + j0 + threadIdx.x];
+      __syncthreads();
+      int m = cnt - j0 < RANK_BLOCK ? (int)(cnt - j0) : RANK_BLOCK;
+      long long before = i - j0;  // rows jj < before precede row i
+      for (int jj = 0; jj < m; ++jj) {
+        long long tj = sh_ts[jj];
+        rank += tj < ti || (tj == ti && jj < before);
+      }
+    }
+    if (i < cnt)
+      emit_slab(pl, o + rank, pl.x_ts, pl.x_gslot, pl.x_col, o + i, K_EXPIRED, ti, sq + rank);
+    __syncthreads();
+  }
+}
+
 __global__ void kw_write(const KeyedPlan pl) {
   __shared__ long long sh[2 * BLOCK];
   long long r = (long long)blockIdx.x * BLOCK + threadIdx.x;
@@ -688,9 +886,10 @@ __global__ void kw_write(const KeyedPlan pl) {
   long long tot;
   long long o = block_excl_scan<BLOCK>(rows, sh, &tot) + pl.block_sums[blockIdx.x];
   if (k < 0) return;
-  const int* arr = pl.arr + r * pl.E;
+  int* arr = pl.arr + r * pl.E;
   int na = pl.n_arr[r];
   if (pl.mode == M_LENGTH) step_length(pl, k, arr, na, o);
+  else if (pl.mode == M_LATENCY) step_latency<true>(pl, k, arr, na, o);
   else if (pl.mode == M_TIME) step_time(pl, k, arr, na, o);
   else if (pl.mode == M_TBATCH) step_tbatch(pl, k, arr, na, o);
   else if (pl.mode == M_SESSION) step_session(pl, k, arr, na, o);
@@ -720,5 +919,6 @@ extern "C" int siddhi_keyed_write(const KeyedPlan* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (pl.mode == M_SESSION) kw_session_rank<<<RANK_GRID, RANK_BLOCK, 0, s>>>(pl);
   kw_write<<<blocks(pl.Kb), BLOCK, 0, s>>>(pl);
+  if (pl.mode == M_LATENCY) kw_latency_rank<<<RANK_GRID, RANK_BLOCK, 0, s>>>(pl);
   return (int)cudaGetLastError();
 }

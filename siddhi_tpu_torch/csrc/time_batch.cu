@@ -33,6 +33,19 @@
 // RESET row still carries `now`, and there is no timer (the wake is
 // NO_WAKEUP).
 //
+// Chunk mode replaces ChunkBatchWindow.process
+// (siddhi_tpu/core/window_ext.py:427), batch(): a step with an arrival
+// flushes the previous chunk (EXPIRED, seq seq0 + rank), a RESET row (seq
+// seq0 + qf) and every arrival (CURRENT, seq seq0 + qf + 1 + rank); the
+// arrivals become the previous chunk.  Cron mode replaces
+// CronWindow.process (:579): a step flushes when the host says its batch
+// holds a TIMER row (`flush`); the flush is timeBatch's without the
+// step's arrivals, which start the new pending batch.  Both keep the two
+// buffers and the parity word; neither has a start or a timer.  In the
+// flags below, chunk mode flags every arrival as in the flushed slice and
+// cron mode flags none on a flush and all otherwise, so the scan, the
+// writes and the buffer moves are timeBatch's.
+//
 // Bound: a flush reads the two slices and the arrivals once and writes
 // each output row once; a step that does not flush moves only its
 // arrivals.  No arithmetic to speak of: bound by bytes.
@@ -45,13 +58,15 @@ namespace {
 constexpr int MAX_COLS = 16;
 constexpr int BLOCK = 256;
 constexpr int MIN_BLOCK = 1024;
+enum : int { M_TIME = 0, M_EXT = 1, M_CHUNK = 2, M_CRON = 3 };
 
 }  // namespace
 
 // Mirrored field for field by kernels/time_batch.py (ctypes.Structure).
 struct TimeBatchPlan {
   long long C, t, now, B, cap_out;
-  int ncols, ext;    // ext: slices by a_ets (externalTimeBatch)
+  int ncols, mode;   // M_EXT: slices by a_ets (externalTimeBatch)
+  int flush, pad;    // M_CRON: the batch holds a TIMER row
   int col_bytes[MAX_COLS];
   long long reset_val[MAX_COLS];
   long long* b_ts[2];
@@ -81,7 +96,7 @@ __device__ __forceinline__ long long imax(long long a, long long b) { return a >
 
 // What slices the time: the arrivals' ts, or their event times.
 __device__ __forceinline__ const long long* slice_key(const TimeBatchPlan& pl) {
-  return pl.ext ? pl.a_ets : pl.a_ts;
+  return pl.mode == M_EXT ? pl.a_ets : pl.a_ts;
 }
 
 // The step's slice facts, from the state and the earliest (and, in
@@ -107,11 +122,20 @@ __global__ void tb_first(const TimeBatchPlan pl) {
     __syncthreads();
   }
   if (threadIdx.x != 0) return;
+  if (pl.mode == M_CHUNK || pl.mode == M_CRON) {
+    // the flags: chunk, every arrival in the flushed chunk; cron, none in
+    // the flushed batch on a flush, all in the pending one otherwise
+    const bool flush = pl.mode == M_CHUNK ? na > 0 : pl.flush != 0;
+    pl.step[0] = -1;
+    pl.step[1] = flush ? 1 : 0;
+    pl.step[2] = (pl.mode == M_CRON && flush) ? -BIG_SEQ : BIG_SEQ;
+    return;
+  }
   const long long start0 = pl.meta[0], first = sh[0];
   const bool any_cur = na > 0;
   const long long start = start0 >= 0 ? start0 : first;
   long long nflush;
-  if (pl.ext) nflush = any_cur ? imax(sx[0] - start, 0) / pl.t : 0;
+  if (pl.mode == M_EXT) nflush = any_cur ? imax(sx[0] - start, 0) / pl.t : 0;
   else nflush = start0 >= 0 ? imax(pl.now - start0, 0) / pl.t
                             : (any_cur ? imax(pl.now - first, 0) / pl.t : 0);
   pl.step[0] = start;
@@ -129,6 +153,11 @@ __global__ void tb_flags(const TimeBatchPlan pl) {
   long long tot;
   block_excl_scan<BLOCK>((long long)f, sh, &tot);
   if (threadIdx.x == 0) pl.block_sums[blockIdx.x] = tot;
+}
+
+// The RESET row's seq offset; the CURRENT rows follow it.
+__device__ __forceinline__ long long reset_seq(const TimeBatchPlan& pl, long long qf) {
+  return pl.mode == M_CHUNK ? qf : pl.C;
 }
 
 __device__ void put_row(const TimeBatchPlan& pl, long long p, int kind, long long seq, long long ts,
@@ -160,15 +189,16 @@ __global__ void tb_out(const TimeBatchPlan pl, long long nb) {
     return;
   }
   const int P = par, Q = 1 - par;
+  const long long rs = reset_seq(pl, qf);
   if (p < qf) {
     put_row(pl, p, K_EXPIRED, seq0 + p, pl.b_ts[Q][p], pl.b_gslot[Q][p]);
     for (int c = 0; c < pl.ncols; ++c) copy_elem(pl.out_col[c], p, pl.b_col[Q][c], p, pl.col_bytes[c]);
   } else if (p == qf) {
-    put_row(pl, p, K_RESET, seq0 + pl.C, pl.now, -1);
+    put_row(pl, p, K_RESET, seq0 + rs, pl.now, -1);
     for (int c = 0; c < pl.ncols; ++c) store_bits(pl.out_col[c], p, pl.reset_val[c], pl.col_bytes[c]);
   } else if (p <= qf + pf) {
     long long r = p - qf - 1;
-    put_row(pl, p, K_CURRENT, seq0 + pl.C + 1 + r, pl.b_ts[P][r], pl.b_gslot[P][r]);
+    put_row(pl, p, K_CURRENT, seq0 + rs + 1 + r, pl.b_ts[P][r], pl.b_gslot[P][r]);
     for (int c = 0; c < pl.ncols; ++c) copy_elem(pl.out_col[c], p, pl.b_col[P][c], r, pl.col_bytes[c]);
   }
   // rows past qf + pf are the arrivals: tb_arr writes them
@@ -189,7 +219,7 @@ __global__ void tb_arr(const TimeBatchPlan pl) {
   if (f) {
     if (flush && qf + 1 + pf + r < pl.cap_out) {
       long long p = qf + 1 + pf + r;
-      put_row(pl, p, K_CURRENT, seq0 + pl.C + 1 + pf + r, pl.a_ts[i], pl.a_gslot[i]);
+      put_row(pl, p, K_CURRENT, seq0 + reset_seq(pl, qf) + 1 + pf + r, pl.a_ts[i], pl.a_gslot[i]);
       for (int c = 0; c < pl.ncols; ++c) copy_elem(pl.out_col[c], p, pl.a_col[c], i, pl.col_bytes[c]);
     }
     long long d = pf + r;
@@ -217,7 +247,7 @@ __global__ void tb_finish(const TimeBatchPlan pl, long long nb) {
   long long nstart;
   if (nflush > 0) {
     missed += imax(n_next - pl.C, 0);
-    m[1] += 2 * pl.C + pl.B + 2;
+    m[1] += pl.mode == M_CHUNK ? m[3] + 1 + na : pl.mode == M_CRON ? 2 * pl.C + 1 : 2 * pl.C + pl.B + 2;
     m[3] = fill < pl.C ? fill : pl.C;
     m[2] = n_next < pl.C ? n_next : pl.C;
     m[4] = 1 - m[4];
@@ -226,9 +256,10 @@ __global__ void tb_finish(const TimeBatchPlan pl, long long nb) {
     m[2] = fill < pl.C ? fill : pl.C;
     nstart = (start0 >= 0 || na > 0) ? pl.step[0] : -1;
   }
+  if (pl.mode == M_CHUNK || pl.mode == M_CRON) nstart = -1;
   m[0] = nstart;
   m[5] += missed;
-  pl.wake[0] = nstart >= 0 && !pl.ext ? nstart + pl.t : BIG_SEQ;
+  pl.wake[0] = nstart >= 0 && pl.mode == M_TIME ? nstart + pl.t : BIG_SEQ;
   pl.wake[1] = missed;
 }
 

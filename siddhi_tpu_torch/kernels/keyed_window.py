@@ -41,6 +41,29 @@ counter):
     least 0); the wake is last + gap; the counter advances by the rows
     emitted.  A session without a key (`session(gap)` at the top level)
     is this mode on a slab of one key.
+  * `session(gap, key, allowed.latency)` (`SessionLatencyWindow.process`,
+    `siddhi_tpu/core/window_ext.py:850`, `t` the gap, `lat` the latency):
+    each key keeps a current session and one previous session, which
+    lingers until its `alive` = end + gap + latency.  At the step's start
+    a previous session whose alive time has come expires, then a current
+    session whose gap has passed becomes the previous one (an older
+    previous one expiring first).  Then each arrival in turn: into the
+    current session if it is in [start, last + gap] (or there is none),
+    or if it is late by at most the gap (extending the start back); a new
+    session (the current one rotating to previous, an older previous one
+    expiring) if it lies past last + gap; into the previous session if it
+    is older than start - gap but not older than the previous start -
+    gap; otherwise it is dropped (not emitted, not kept).  When a late
+    arrival joins the current session, or pushes the previous session's
+    end forward, and the previous end + gap reaches the current start -
+    gap, the previous session merges into the current one (its rows after
+    the current rows).  Every expiring session comes out EXPIRED in a
+    stable ts order, numbered on from the key's counter as it expires;
+    after them the kept arrivals come out CURRENT in batch order.  The
+    key's `start` / `last` are the current session's, `p_start` /
+    `p_last` / `p_alive` the previous one's (-1 for none); the wake is
+    min(last + gap, p_alive).  Rows beyond C (of an append or a merge)
+    are counted in the wake's second word; the reference drops them.
 E' is the number of the key's events that are valid, CURRENT and pass
 the filters.  Only valid rows come out: the output is exactly the
 emitted rows, so it needs no valid mask.
@@ -51,10 +74,14 @@ the bytecode's value slots), per key i32 `head` and `count` and i64
 order: logical row i at physical (head + i) mod C, `count` rows alive.
 `lengthBatch` and `timeBatch` keep the pending batch at [0, count) and
 the previous batch in the `p_*` columns at [0, p_count); `session` keeps
-the session at [0, count).  A mode's further per-key state (`KEY_STATE`,
-held in `key_state`): `timeBatch`'s i64 `start` (-1 until the key's first
-arrival), `session`'s i64 `start` and `last` (-1 while the key has no
-session), and the time window's i32
+the session at [0, count), the latency form its current session there and
+its previous one in the `p_*` columns at [0, p_count), each in the
+reference's slab order (appends and merged rows at the tail).  A mode's
+further per-key state (`KEY_STATE`, held in `key_state`): `timeBatch`'s
+i64 `start` (-1 until the key's first arrival), `session`'s i64 `start`
+and `last` (-1 while the key has no session; the latency form's also
+`p_start`, `p_last` and `p_alive`, -1 while it has no previous session),
+and the time window's i32
 `ordered`, 1 where the key's alive rows are in timestamp order along the
 ring (its expiring rows are then a prefix, which lets the kernel skip the
 survivors when no arrival is older than the last of them).  A time
@@ -82,17 +109,20 @@ from .in_probe import MAX_IN, InSet, fill_sets
 
 launches = 0
 plain_calls = 0
-mode_launches = [0, 0, 0, 0, 0]
+mode_launches = [0] * 6
 tick_launches = 0
 
-MODE_LENGTH, MODE_TIME, MODE_BATCH, MODE_TBATCH, MODE_SESSION = range(5)
-_TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH)
+(MODE_LENGTH, MODE_TIME, MODE_BATCH, MODE_TBATCH, MODE_SESSION,
+ MODE_LATENCY) = range(6)
+_TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH, MODE_LATENCY)
 # the per-key state a mode keeps beside head / count / seq (and p_count):
 # name -> (dtype, the value of a key with no rows)
 KEY_STATE = {MODE_TIME: {"ordered": (torch.int32, 1)},
              MODE_TBATCH: {"start": (torch.int64, -1)},
              MODE_SESSION: {"start": (torch.int64, -1),
-                            "last": (torch.int64, -1)}}
+                            "last": (torch.int64, -1)},
+             MODE_LATENCY: {n: (torch.int64, -1) for n in (
+                 "start", "last", "p_start", "p_last", "p_alive")}}
 MAX_COLS, MAX_CODE, BLOCK = 16, 256, 128
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -101,7 +131,7 @@ def reset_counts() -> None:
     global launches, plain_calls, tick_launches
     launches = 0
     plain_calls = 0
-    mode_launches[:] = [0, 0, 0, 0, 0]
+    mode_launches[:] = [0] * 6
     tick_launches = 0
 
 
@@ -222,18 +252,19 @@ class KeyedSlab:
 
 def keyed_window_step(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols,
                       key_idx, sel, now: int, t: int = 0,
-                      tick: bool = False):
+                      tick: bool = False, lat: int = 0):
     """One keyed step.  `ts`, `kind`, `valid`, `gslot`, `cols` are the flat
     batch; `key_idx` [Kb] the window slot of each key row (K for a padding
     row), `sel` [Kb, E] each key's batch rows (-1 for none); `spec` the
-    query's `FilterSpec`; `t` the time window's length; `tick` marks a
-    timer tick over every key.  Moves the slab in place; returns (Rows of
-    exactly the emitted rows, i64[2] [least wake, rows missed])."""
+    query's `FilterSpec`; `t` the time window's length (the session gap);
+    `tick` marks a timer tick over every key; `lat` the session's allowed
+    latency.  Moves the slab in place; returns (Rows of exactly the
+    emitted rows, i64[2] [least wake, rows missed])."""
     if ts.is_cuda:
         return launch(slab, spec, ts, kind, valid, gslot, cols, key_idx,
-                      sel, now, t, tick=tick)
+                      sel, now, t, tick=tick, lat=lat)
     return plain(slab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
-                 now, t)
+                 now, t, lat)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +302,7 @@ def _rows(parts, Kb, dev, types):
 
 
 def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
-          now: int, t: int = 0):
+          now: int, t: int = 0, lat: int = 0):
     """The plain PyTorch version (the kernel's reference): batched ops
     over the gathered [Kb, ...] state, step for step as the reference's
     `vmap` over `window.process`, then the scatter back."""
@@ -420,6 +451,9 @@ def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
                              a_gs, a_cols, a_valid, ncur, seq0, cnt)
     if slab.mode == MODE_SESSION:
         return _plain_session(slab, now, t, Kb, dev, kidx, live, a_ts,
+                              a_gs, a_cols, a_valid, seq0, cnt)
+    if slab.mode == MODE_LATENCY:
+        return _plain_latency(slab, now, t, lat, E, dev, kidx, live, a_ts,
                               a_gs, a_cols, a_valid, seq0, cnt)
 
     # ---- lengthBatch -------------------------------------------------------
@@ -640,6 +674,146 @@ def _plain_session(slab, now, gap, Kb, dev, kidx, live, a_ts, a_gs, a_cols,
     return out, _wake(wake, missed, dev)
 
 
+def _plain_latency(slab, now, gap, lat, E, dev, kidx, live, a_ts, a_gs,
+                   a_cols, a_valid, seq0, cnt):
+    """session(gap, key, allowed.latency)'s plain step over the gathered
+    [Kb, ...] state, as the reference's `SessionLatencyWindow.process`
+    under `vmap`: its batch-start timeouts, then its scan over each key's
+    arrivals, a column of the [Kb, E] arrivals at a time."""
+    C, types, i64 = slab.C, slab.types, torch.int64
+    Kb = kidx.shape[0]
+    big = torch.iinfo(i64).max
+    ar = torch.arange(C, device=dev)[None, :]
+    rk = torch.arange(Kb, device=dev)
+    ks = slab.key_state
+    cur = [slab.ts[kidx], slab.gslot[kidx], *(c[kidx] for c in slab.cols)]
+    prev = [slab.p_ts[kidx], slab.p_gslot[kidx],
+            *(c[kidx] for c in slab.p_cols)]
+    cc, pc = cnt.clone(), slab.p_count[kidx].long()
+    cs, cl = ks["start"][kidx], ks["last"][kidx]
+    ps, pl, pa = ks["p_start"][kidx], ks["p_last"][kidx], ks["p_alive"][kidx]
+    seq = seq0.clone()
+    missed = torch.zeros(Kb, dtype=i64, device=dev)
+    parts = []
+    neg = torch.full_like(cs, -1)
+
+    def emit(do):
+        """The previous sessions of the keys `do` come out EXPIRED, in a
+        stable ts order, numbered on from each key's counter."""
+        nonlocal seq
+        if not bool((do & live).any()):
+            return
+        alive = (ar < pc[:, None]) & (do & live)[:, None]
+        order = torch.argsort(torch.where(alive, prev[0], big), dim=1,
+                              stable=True)
+        rank = torch.empty_like(order)
+        rank.scatter_(1, order, ar.expand(Kb, C).contiguous())
+        parts.append((prev[0].clone(), torch.full((Kb, C), ev.EXPIRED,
+                                                  dtype=torch.int32,
+                                                  device=dev),
+                      alive, seq[:, None] + rank, prev[1].clone(),
+                      [x.clone() for x in prev[2:]]))
+        seq = torch.where(do, seq + pc, seq)
+
+    def rotate(do):
+        """The current sessions of the keys `do` become their previous
+        ones (the slab copied as it lies)."""
+        nonlocal pc, ps, pl, pa, cc
+        for j in range(len(cur)):
+            prev[j] = torch.where(do[:, None], cur[j], prev[j])
+        pc = torch.where(do, cc, pc)
+        ps, pl = torch.where(do, cs, ps), torch.where(do, cl, pl)
+        pa = torch.where(do, cl + gap + lat, pa)
+        cc = torch.where(do, 0, cc)
+
+    def append(blk, n, do, vals):
+        """Each key `do` appends its event at its block's count (beyond C:
+        missed)."""
+        nonlocal missed
+        w = do & (n < C)
+        r = rk[w]
+        for j, v in enumerate(vals):
+            blk[j][r, n[w]] = v[w]
+        missed = missed + (do & (n >= C)).to(i64)
+        return n + w.to(i64)
+
+    prev_has, cur_has = pl >= 0, cl >= 0
+    pto = prev_has & (pa <= now)
+    emit(pto)
+    pc = torch.where(pto, 0, pc)
+    ps, pl, pa = (torch.where(pto, neg, x) for x in (ps, pl, pa))
+    prev_has = prev_has & ~pto
+    cto = cur_has & (cl + gap <= now)
+    emit(cto & prev_has)
+    rotate(cto)
+    cs, cl = torch.where(cto, neg, cs), torch.where(cto, neg, cl)
+    kept = torch.zeros_like(a_valid)
+    for e in range(E):
+        t = a_ts[:, e]
+        lv = a_valid[:, e] & live
+        cur_has, prev_has = cl >= 0, pl >= 0
+        cend = cl + gap
+        in_cur = cur_has & (t >= cs) & (t <= cend)
+        new_sess = cur_has & (t >= cs) & (t > cend)
+        late_cur = cur_has & (t < cs) & (t >= cs - gap)
+        late_prev = cur_has & (t < cs - gap) & prev_has & (t >= ps - gap)
+        fresh = ~cur_has
+        k = lv & (fresh | in_cur | new_sess | late_cur | late_prev)
+        do_rot = lv & new_sess
+        emit(do_rot & prev_has)
+        rotate(do_rot)
+        prev_has = prev_has | do_rot
+        to_prev = lv & late_prev
+        to_cur = k & ~late_prev
+        vals = [t, a_gs[:, e], *(c[:, e] for c in a_cols)]
+        cc = append(cur, cc, to_cur, vals)
+        pc = append(prev, pc, to_prev, vals)
+        cs = torch.where(to_cur, torch.where(fresh | do_rot, t,
+                                             torch.minimum(cs, t)), cs)
+        cl = torch.where(to_cur, torch.maximum(cl, t), cl)
+        ps = torch.where(to_prev & (t < ps), t, ps)
+        p_fwd = to_prev & (t > pl)
+        pl = torch.where(p_fwd, t, pl)
+        pa = torch.where(p_fwd, t + gap + lat, pa)
+        can = prev_has & (cl >= 0) & (pl + gap >= cs - gap)
+        merge = ((lv & late_cur) | p_fwd) & can
+        # the previous rows after the current ones; beyond C: missed
+        m = merge[:, None] & (ar < pc[:, None])
+        dst = cc[:, None] + ar
+        w = m & (dst < C)
+        rr, ii = torch.nonzero(w, as_tuple=True)
+        for j in range(len(cur)):
+            cur[j][rr, dst[rr, ii]] = prev[j][rr, ii]
+        missed = missed + (m & (dst >= C)).sum(1)
+        cc = torch.where(merge, torch.clamp(cc + pc, max=C), cc)
+        pc = torch.where(merge, 0, pc)
+        cs = torch.where(merge, torch.minimum(cs, ps), cs)
+        cl = torch.where(merge, torch.maximum(cl, pl), cl)
+        ps, pl, pa = (torch.where(merge, neg, x) for x in (ps, pl, pa))
+        kept[:, e] = k
+    kr = torch.cumsum(kept.to(i64), 1) - 1
+    parts.append((a_ts, torch.full(a_ts.shape, ev.CURRENT, dtype=torch.int32,
+                                   device=dev), kept, seq[:, None] + kr, a_gs,
+                  a_cols))
+    seq = seq + kept.sum(1)
+    out = _rows(parts, Kb, dev, types)
+    k_live = kidx[live]
+    for dst, src in zip([slab.ts, slab.gslot, *slab.cols], cur):
+        dst[k_live] = src[live]
+    for dst, src in zip([slab.p_ts, slab.p_gslot, *slab.p_cols], prev):
+        dst[k_live] = src[live]
+    slab.count[k_live] = cc[live].to(torch.int32)
+    slab.p_count[k_live] = pc[live].to(torch.int32)
+    slab.seq[k_live] = seq[live]
+    for n, x in (("start", cs), ("last", cl), ("p_start", ps),
+                 ("p_last", pl), ("p_alive", pa)):
+        ks[n][k_live] = x[live]
+    wk = torch.minimum(torch.where(cl >= 0, cl + gap, NO_WAKEUP),
+                       torch.where(pl >= 0, pa, NO_WAKEUP))[live]
+    wake = int(wk.min()) if wk.numel() else NO_WAKEUP
+    return out, _wake(wake, int(missed[live].sum()), dev)
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -647,7 +821,7 @@ def _plain_session(slab, now, gap, Kb, dev, kidx, live, a_ts, a_gs, a_cols,
 class KeyedPlan(ctypes.Structure):
     """Mirrors `struct KeyedPlan` in csrc/keyed_window.cu."""
     _fields_ = (
-        [(n, _L) for n in ("Kb", "E", "K", "C", "now", "t", "cap")] +
+        [(n, _L) for n in ("Kb", "E", "K", "C", "now", "t", "lat", "cap")] +
         [("mode", _I), ("ncols", _I), ("code_len", _I), ("pad", _I),
          ("col_ty", _I * MAX_COLS), ("col_w", _I * MAX_COLS),
          ("col_def", _L * MAX_COLS), ("code", _I * MAX_CODE),
@@ -657,7 +831,10 @@ class KeyedPlan(ctypes.Structure):
          ("head", _P), ("count", _P), ("seq", _P),
          ("p_ts", _P), ("p_gslot", _P), ("p_col", _P * MAX_COLS),
          ("p_count", _P), ("start", _P), ("ordered", _P), ("last", _P),
+         ("p_start", _P), ("p_last", _P), ("p_alive", _P),
          ("late", _P), ("n_late", _P),
+         ("seg", _P), ("n_seg", _P), ("x_ts", _P), ("x_gslot", _P),
+         ("x_col", _P * MAX_COLS),
          ("arr", _P), ("n_arr", _P), ("ocnt", _P), ("block_sums", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
          ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P),
@@ -674,7 +851,7 @@ def _check(x, name, dtype, shape, dev):
 
 
 def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
-            sel, now: int, t: int = 0):
+            sel, now: int, t: int = 0, lat: int = 0):
     """Check the inputs and fill a plan with the batch, the slab and the
     scratch; returns (plan, a dict of the tensors the launches read,
     which must stay referenced until both are queued: "sums" ends with
@@ -696,7 +873,7 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     _check(sel, "sel", torch.int32, (Kb, E), dev)
     pl = KeyedPlan()
     pl.Kb, pl.E, pl.K, pl.C = Kb, E, K, C
-    pl.now, pl.t, pl.cap = int(now), int(t), 0
+    pl.now, pl.t, pl.lat, pl.cap = int(now), int(t), int(lat), 0
     pl.mode, pl.ncols = slab.mode, len(cols)
     pl.code_len = len(spec.bytecode)
     for j, w in enumerate(spec.bytecode):
@@ -750,6 +927,12 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
         n_late = torch.empty(1, dtype=torch.int32, device=dev)
         pl.late, pl.n_late = late.data_ptr(), n_late.data_ptr()
         scratch += (late, n_late)
+    if slab.mode == MODE_LATENCY:
+        # the count of the sessions written out of ts order (kw_write lists
+        # them, the rank launch writes them)
+        n_seg = torch.empty(1, dtype=torch.int32, device=dev)
+        pl.n_seg = n_seg.data_ptr()
+        scratch += (n_seg,)
     bufs = {"cols": keep, "sums": block_sums, "wake": wake,
             "scratch": scratch,
             "inputs": (ts, kind, valid, gslot, key_idx, sel),
@@ -765,10 +948,12 @@ def count(pl: KeyedPlan, dev) -> None:
                       "siddhi_keyed_plan_size", pl, stream)
 
 
-def alloc_out(pl: KeyedPlan, types, n: int, dev) -> Rows:
-    """Output rows for `n` emitted rows, their pointers set in `pl`."""
-    def e(d):
-        return torch.empty(max(n, 1), dtype=d, device=dev)
+def alloc_out(pl: KeyedPlan, types, n: int, dev, bufs=None) -> Rows:
+    """Output rows for `n` emitted rows, their pointers set in `pl`; in
+    latency mode also the scratch rows and the list of the sessions
+    written out of ts order (kept in `bufs`)."""
+    def e(d, m=n):
+        return torch.empty(max(m, 1), dtype=d, device=dev)
     out = Rows(ts=e(torch.int64), kind=e(torch.int32), valid=None,
                seq=e(torch.int64), gslot=e(torch.int32),
                cols=tuple(e(slab_dtype(tp)) for tp in types))
@@ -777,13 +962,24 @@ def alloc_out(pl: KeyedPlan, types, n: int, dev) -> Rows:
     pl.out_seq, pl.out_gslot = out.seq.data_ptr(), out.gslot.data_ptr()
     for j, c in enumerate(out.cols):
         pl.out_col[j] = c.data_ptr()
+    if pl.mode == MODE_LATENCY:
+        # a listed session has at least 2 rows: n // 2 (offset, rows, seq)
+        x = (e(torch.int64), e(torch.int32),
+             tuple(e(slab_dtype(tp)) for tp in types),
+             e(torch.int64, 3 * (n // 2 + 1)))
+        pl.x_ts, pl.x_gslot, pl.seg = x[0].data_ptr(), x[1].data_ptr(), \
+            x[3].data_ptr()
+        for j, c in enumerate(x[2]):
+            pl.x_col[j] = c.data_ptr()
+        bufs["latency"] = x
     return out
 
 
 def write(pl: KeyedPlan, dev) -> None:
     """The second launch: rows written at their keys' offsets (in session
-    mode a rank launch first writes the sessions out of ts order), the
-    slab moved in place, the least wake."""
+    mode a rank launch first writes the sessions out of ts order; in
+    latency mode one writes them after), the slab moved in place, the
+    least wake."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.launch_plan("keyed_window", "siddhi_keyed_write",
                       "siddhi_keyed_plan_size", pl, stream)
@@ -800,17 +996,17 @@ def finish(out: Rows, types, n: int) -> Rows:
 
 def launch(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
            sel, now: int, t: int = 0, n_out: Optional[int] = None,
-           tick: bool = False):
+           tick: bool = False, lat: int = 0):
     """Launch the step on the current stream: the count launch, one fetch
     of the total (it sizes the output), the write launch.  `n_out`, when
     the caller knows the total, skips the fetch (CUDA-graph timing)."""
     global launches, tick_launches
     dev = slab.ts.device
     pl, bufs = prepare(slab, spec, ts, kind, valid, gslot, cols, key_idx,
-                       sel, now, t)
+                       sel, now, t, lat)
     count(pl, dev)
     n = int(bufs["sums"][-1]) if n_out is None else n_out
-    out = alloc_out(pl, slab.types, n, dev)
+    out = alloc_out(pl, slab.types, n, dev, bufs)
     write(pl, dev)
     launches += 1
     mode_launches[slab.mode] += 1

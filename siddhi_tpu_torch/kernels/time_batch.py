@@ -38,11 +38,33 @@ carries `now`; there is no timer (the wake is NO_WAKEUP).  The host sizes
 an external step from the state's start and fills, read from the device
 once a step, and the event times of the batch's valid CURRENT rows.
 
-`time_batch_step` is what `TimeBatchWindow.process` and
-`ExternalTimeBatchWindow.process` call: CPU tensors run `plain`, CUDA
-tensors launch the kernel.  `launches` / `plain_calls`
-count them, `mode_launches` the launches by mode (MODE_TIME for timeBatch,
-MODE_EXT for externalTimeBatch); `reset_counts()` sets them to 0.
+Chunk mode replaces `ChunkBatchWindow.process`
+(`siddhi_tpu/core/window_ext.py:427`), `batch()`: the window is the last
+chunk a send delivered.  A step with an arrival flushes: the previous
+chunk as EXPIRED rows (seq `seq0 + rank`), a RESET row (seq `seq0 + qf`,
+qf the previous chunk's rows), the arrivals as CURRENT rows (seq
+`seq0 + qf + 1 + rank`); the arrivals become the previous chunk and the
+counter advances by `qf + 1 + arrivals`.  A step without one (a TIMER
+step, or a send its filters emptied) emits nothing and keeps the chunk.
+There is no pending slice, no start and no timer.
+
+Cron mode replaces `CronWindow.process` (`:579`): the host schedules the
+fire times (`CronWindow.host_next_wakeup`) and a step flushes when its
+batch holds a valid TIMER row (`flush`, a host fact).  The flush emits the
+previous batch as EXPIRED, the RESET row and the pending rows as CURRENT,
+numbered as timeBatch's; unlike timeBatch's, the step's own arrivals are
+not in the flush: they start the new pending batch.  The counter advances
+by `2C + 1`.  Without a flush the arrivals join the pending batch.  Rows
+past C are counted in `missed` (the runtime raises; the reference drops
+them).  The wake is NO_WAKEUP (the host schedules cron).
+
+`time_batch_step` is what `TimeBatchWindow.process`,
+`ExternalTimeBatchWindow.process`, `ChunkBatchWindow.process` and
+`CronWindow.process` call: CPU tensors run `plain`, CUDA tensors launch
+the kernel.  `launches` / `plain_calls` count them, `mode_launches` the
+launches by mode (MODE_TIME for timeBatch, MODE_EXT for
+externalTimeBatch, MODE_CHUNK for batch, MODE_CRON for cron);
+`reset_counts()` sets them to 0.
 """
 from __future__ import annotations
 
@@ -57,9 +79,9 @@ from . import _nvcc
 
 launches = 0
 plain_calls = 0
-mode_launches = [0, 0]
+mode_launches = [0, 0, 0, 0]
 
-MODE_TIME, MODE_EXT = 0, 1
+MODE_TIME, MODE_EXT, MODE_CHUNK, MODE_CRON = range(4)
 
 MAX_COLS = 16
 BLOCK = 256
@@ -73,7 +95,7 @@ def reset_counts() -> None:
     global launches, plain_calls
     launches = 0
     plain_calls = 0
-    mode_launches[:] = [0, 0]
+    mode_launches[:] = [0, 0, 0, 0]
 
 
 class TimeBatchState:
@@ -105,6 +127,18 @@ class TimeBatchState:
             [tuple(c.clone() for c in cols) for cols in self.b_cols],
             self.meta.clone(), self.defaults, self.h_start, self.h_pend,
             self.h_prev)
+
+    def grow(self, C: int) -> None:
+        """Make both buffers C rows long, their rows kept (chunk mode: a
+        chunk larger than the buffers)."""
+        def g(x):
+            y = torch.zeros(C, dtype=x.dtype, device=x.device)
+            y[:self.C] = x
+            return y
+        self.b_ts = [g(x) for x in self.b_ts]
+        self.b_gslot = [g(x) for x in self.b_gslot]
+        self.b_cols = [tuple(g(c) for c in cols) for cols in self.b_cols]
+        self.C = C
 
     def slices(self):
         """((ts, gslot, cols) of the pending slice, of the previous one),
@@ -175,48 +209,90 @@ def out_capacity_ext(st: TimeBatchState, cur_ets: np.ndarray, t: int,
     return prev + 1 + pend + n_in
 
 
+def out_capacity_chunk(st: TimeBatchState, n: int, exact: bool) -> int:
+    """Rows a chunk step can emit, from the host mirror and the number n
+    of the batch's valid CURRENT rows (its arrivals when `exact`, else an
+    upper bound); updates the mirror."""
+    if n == 0:
+        return 0
+    cap = st.h_prev + 1 + n
+    st.h_prev = min(n, st.C) if exact else max(st.h_prev, min(n, st.C))
+    return cap
+
+
+def out_capacity_cron(st: TimeBatchState, n: int, flush: bool) -> int:
+    """Rows a cron step can emit (n as for `out_capacity_chunk`);
+    updates the mirror."""
+    if not flush:
+        st.h_pend = min(st.C, st.h_pend + n)
+        return 0
+    cap = st.h_prev + 1 + st.h_pend
+    st.h_prev, st.h_pend = st.h_pend, min(n, st.C)
+    return cap
+
+
 def time_batch_step(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
-                    facts, exact: bool, ets=None, cur_ets=None):
+                    facts, exact: bool, ets=None, cur_ets=None,
+                    mode: int = None, flush: bool = False):
     """One step: `arr` are the batch's arrivals compacted to the front,
     `n_arr` their count (i64[1]); in external mode `ets` are the
     arrivals' event times (int64) and `cur_ets` those of the batch's valid
-    CURRENT rows on the host.  Updates `st` in place; returns (rows,
-    i64[2] [wake, rows missed])."""
-    if ets is not None:
+    CURRENT rows on the host; `mode` MODE_CHUNK or MODE_CRON for those
+    windows (cron: `flush` when the batch holds a valid TIMER row).
+    Updates `st` in place; returns (rows, i64[2] [wake, rows missed])."""
+    if mode is None:
+        mode = MODE_TIME if ets is None else MODE_EXT
+    if mode == MODE_EXT:
         cap_out = out_capacity_ext(st, cur_ets, t, exact)
+    elif mode == MODE_CHUNK:
+        cap_out = out_capacity_chunk(st, int(facts.cur_ts.shape[0]), exact)
+    elif mode == MODE_CRON:
+        cap_out = out_capacity_cron(st, int(facts.cur_ts.shape[0]), flush)
     else:
         cap_out = out_capacity(st, facts.cur_ts, now, t, exact)
     if arr.ts.is_cuda:
-        return launch(st, arr, n_arr, now, t, cap_out, ets)
-    return plain(st, arr, n_arr, now, t, cap_out, ets)
+        return launch(st, arr, n_arr, now, t, cap_out, ets, mode, flush)
+    return plain(st, arr, n_arr, now, t, cap_out, ets, mode, flush)
 
 
 def plain(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
-          cap_out: int, ets=None):
+          cap_out: int, ets=None, mode: int = None, flush: bool = False):
     """The plain PyTorch version (the kernel's reference)."""
     global plain_calls
     plain_calls += 1
+    if mode is None:
+        mode = MODE_TIME if ets is None else MODE_EXT
     dev = st.meta.device
     C, B = st.C, int(arr.ts.shape[0])
     start0, seq0, pf, qf, par, _ = (int(x) for x in st.meta.tolist())
     P, Q = par, 1 - par
     na = int(n_arr)
-    # what slices the time: the arrivals' ts, or their event times
-    a_key = (ets if ets is not None else arr.ts)[:na].to(torch.int64)
-    first = int(a_key.min()) if na else BIG_SEQ
-    start = start0 if start0 >= 0 else first
-    if ets is not None:
-        nflush = max(int(a_key.max()) - start, 0) // t if na else 0
-    elif start0 >= 0:
-        nflush = max(now - start0, 0) // t
+    start = nflush = 0
+    if mode in (MODE_TIME, MODE_EXT):
+        # what slices the time: the arrivals' ts, or their event times
+        a_key = (ets if ets is not None else arr.ts)[:na].to(torch.int64)
+        first = int(a_key.min()) if na else BIG_SEQ
+        start = start0 if start0 >= 0 else first
+        if ets is not None:
+            nflush = max(int(a_key.max()) - start, 0) // t if na else 0
+        elif start0 >= 0:
+            nflush = max(now - start0, 0) // t
+        else:
+            nflush = max(now - first, 0) // t if na else 0
+        flush = nflush > 0
+        boundary = start + (nflush if flush else 1) * t
+        f = a_key < boundary
     else:
-        nflush = max(now - first, 0) // t if na else 0
-    flush = nflush > 0
-    boundary = start + (nflush if flush else 1) * t
-    f = a_key < boundary
+        # chunk: every arrival is in the flushed chunk; cron: none is in
+        # the flushed batch, all join the pending one
+        flush = na > 0 if mode == MODE_CHUNK else bool(flush)
+        f = torch.full((na,), mode == MODE_CHUNK or not flush,
+                       dtype=torch.bool, device=dev)
     n_in = int(f.sum())
     i_in = torch.nonzero(f).flatten()
     i_next = torch.nonzero(~f).flatten()
+    # the RESET row's seq offset (the CURRENT rows follow it)
+    rs = qf if mode == MODE_CHUNK else C
 
     # output: previous slice, RESET, pending slice, arrivals in the slice
     n_out = qf + 1 + pf + n_in if flush else 0
@@ -239,8 +315,8 @@ def plain(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
         kind[qf] = ev.RESET
         kind[qf + 1:n_out] = ev.CURRENT
         seq[:qf] = seq0 + torch.arange(qf, device=dev)
-        seq[qf] = seq0 + C
-        seq[qf + 1:n_out] = seq0 + C + 1 + torch.arange(
+        seq[qf] = seq0 + rs
+        seq[qf + 1:n_out] = seq0 + rs + 1 + torch.arange(
             n_out - qf - 1, device=dev)
         valid[:n_out] = True
     out = Rows(
@@ -267,16 +343,20 @@ def plain(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     if flush:
         put(Q, 0, i_next)
         missed += max(na - n_in - C, 0)
-        meta = [start + nflush * t, seq0 + 2 * C + B + 2,
+        adv = {MODE_CHUNK: qf + 1 + na, MODE_CRON: 2 * C + 1}.get(
+            mode, 2 * C + B + 2)
+        meta = [start + nflush * t, seq0 + adv,
                 min(na - n_in, C), min(fill, C), 1 - par]
     elif start0 >= 0 or na:
         meta[START] = start
     else:
         meta[START] = -1
+    if mode in (MODE_CHUNK, MODE_CRON):
+        meta[START] = -1
     nstart = meta[START]
     st.meta.copy_(torch.tensor(meta + [int(st.meta[MISSED]) + missed],
                                dtype=torch.int64))
-    wake = torch.tensor([nstart + t if nstart >= 0 and ets is None
+    wake = torch.tensor([nstart + t if nstart >= 0 and mode == MODE_TIME
                          else NO_WAKEUP, missed],
                         dtype=torch.int64, device=dev)
     return out, wake
@@ -290,7 +370,8 @@ class TimeBatchPlan(ctypes.Structure):
     """Mirrors `struct TimeBatchPlan` in csrc/time_batch.cu."""
     _fields_ = (
         [(n, _L) for n in ("C", "t", "now", "B", "cap_out")] +
-        [("ncols", _I), ("ext", _I), ("col_bytes", _I * MAX_COLS),
+        [("ncols", _I), ("mode", _I), ("flush", _I), ("pad", _I),
+         ("col_bytes", _I * MAX_COLS),
          ("reset_val", _L * MAX_COLS),
          ("b_ts", _P * 2), ("b_gslot", _P * 2),
          ("b_col", (_P * MAX_COLS) * 2),
@@ -303,8 +384,10 @@ class TimeBatchPlan(ctypes.Structure):
 
 
 def launch(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
-           cap_out: int, ets=None):
+           cap_out: int, ets=None, mode: int = None, flush: bool = False):
     global launches
+    if mode is None:
+        mode = MODE_TIME if ets is None else MODE_EXT
     dev = st.meta.device
     cols0 = st.b_cols[0]
     if len(cols0) > MAX_COLS or len(arr.cols) != len(cols0):
@@ -315,12 +398,12 @@ def launch(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     B = int(arr.ts.shape[0])
     pl = TimeBatchPlan()
     pl.C, pl.t, pl.now, pl.B, pl.cap_out = st.C, int(t), int(now), B, cap_out
-    pl.ncols = len(cols0)
-    if ets is not None:
+    pl.ncols, pl.mode, pl.flush = len(cols0), mode, int(bool(flush))
+    if mode == MODE_EXT:
         ets = ets.to(torch.int64).contiguous()
         if ets.device != dev or ets.shape[0] != B:
             raise ValueError("time_batch: event-time column")
-        pl.ext, pl.a_ets = 1, ets.data_ptr()
+        pl.a_ets = ets.data_ptr()
 
     def e(d, n=max(cap_out, 1)):
         return torch.empty(n, dtype=d, device=dev)
@@ -357,7 +440,7 @@ def launch(st: TimeBatchState, arr: Rows, n_arr, now: int, t: int,
     _nvcc.launch_plan("time_batch", "siddhi_time_batch",
                       "siddhi_time_batch_plan_size", pl, stream)
     launches += 1
-    mode_launches[MODE_TIME if ets is None else MODE_EXT] += 1
+    mode_launches[mode] += 1
     n = cap_out
     return Rows(ts=out_ts[:n], kind=out_kind[:n], valid=out_valid[:n],
                 seq=out_seq[:n], gslot=out_gslot[:n],

@@ -338,7 +338,7 @@ def test_lane_overflow_is_reported():
      "L.symbol insert into O;", CompileError, "B14"),
     ("from L#window.length(4) join R#window.frequent(2) on "
      "L.symbol == R.symbol select count() as c insert into O;",
-     CompileError, "B12"),
+     CompileError, "sliding"),
     ("@fuse(batches='2') from L#window.length(4) join R#window.length(4) "
      "on L.symbol == R.symbol select L.symbol as s insert into O;",
      CompileError, "A12"),

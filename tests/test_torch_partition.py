@@ -238,7 +238,7 @@ def test_time_window_timer_ticks_every_key():
     ("""define stream S (k int, v int);
      partition with (k of S)
      begin from S#window.session(1 sec, k, 500) select k, sum(v) as s
-     insert into O; end;""", "B12"),
+     insert into O; end;""", "redundant"),
     ("""define stream S (k int, v int);
      define window SW (k int, v int) length(4);
      partition with (k of S)

@@ -165,8 +165,9 @@ def test_top_level_session_is_one_key():
      from S#window.session(1 sec, user) select user insert into O; end;""",
      "redundant"),
     ("""define stream S (user string, item int);
-     from S#window.session(1 sec, user, 500) select user insert into O;""",
-     "B12"),
+     partition with (user of S) begin
+     from S#window.session(1 sec, user, 500) select user insert into O;
+     end;""", "redundant"),
     ("""define stream S (user string, item int);
      define window W (user string, item int) session(1 sec, user);""",
      "A11"),

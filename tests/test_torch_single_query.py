@@ -240,13 +240,14 @@ def test_out_of_subset_raises_at_plan_time_on_cuda():
 
 
 @pytest.mark.parametrize("body,item", [
-    ("from S#window.cron('*/5 * * * * ?') select price insert into O;",
-     "B12"),
-    ("from S#window.frequent(2) select price insert into O;", "B12"),
+    ("partition with (symbol of S) begin from S#window.cron('*/5 * * * * "
+     "?') select price insert into O; end;", "B12"),
+    ("partition with (symbol of S) begin from S#window.frequent(2) "
+     "select price insert into O; end;", "B12"),
     ("from S#window.length(4) select distinctCount(symbol) as d "
      "insert into O;", "B14"),
-    ("from S#window.lossyFrequent(0.1) select price insert into O;",
-     "B12"),
+    ("partition with (symbol of S) begin from S#window.lossyFrequent(0.1) "
+     "select price insert into O; end;", "B12"),
 ])
 def test_unported_single_stream_features_raise(body, item):
     ql = "define stream S (symbol long, price float, volume int);\n" + body

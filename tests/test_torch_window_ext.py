@@ -12,7 +12,8 @@ window's state equal to the JAX step's (exact: the windows move rows and
 compute nothing), over random batches with padding rows, out-of-order
 timestamps and TIMER rows.  Then the reference's externalTime defect the
 port does not copy, a capacity shortfall that raises, and the parameter
-lists and unported kinds that raise.
+lists and unported kinds that raise (of the window_ext kinds too that
+other files hold to the JAX package: batch, cron, frequent, hopping).
 """
 import numpy as np
 import pytest
@@ -259,11 +260,11 @@ def test_external_time_shortfall_raises(caplog):
     ("sort(2)", ValueError, "parameter 1 must be an attribute"),
     ("sort(2, v, 'desc', w)", ValueError, "single sort key"),
     ("timeLength(1 sec)", CompileError, "missing window parameter"),
-    ("cron('*/5 * * * * ?')", CompileError, "B12"),
-    ("batch()", CompileError, "B12"),
-    ("frequent(2)", CompileError, "B12"),
-    ("lossyFrequent(0.1)", CompileError, "B12"),
-    ("hopping(1 sec, 500)", CompileError, "B12"),
+    ("cron(5)", ValueError, "cron expression"),
+    ("frequent(v)", CompileError, "constants"),
+    ("frequent(2, 3)", ValueError, "parameter 1 must be an attribute"),
+    ("lossyFrequent(1.5)", ValueError, "support"),
+    ("hopping(et, 500)", CompileError, "constants"),
     ("expression('count() <= 2')", CompileError, "B13"),
     ("expressionBatch('count() <= 2')", CompileError, "B13"),
 ])
