@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the twenty kernel sources of siddhi_tpu_torch/csrc/
+  2. build: compiles the twenty-one kernel sources of siddhi_tpu_torch/csrc/
      with nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -230,7 +230,24 @@ Phases (any failure exits nonzero):
      2^20 cards drawn Zipf(1.1)) and SL1 (session(5 sec, user, 2 sec) at
      2^20 users, late clicks), each held to a numpy model on its checked
      sends, with ev/s, per-send p50 / p99 and a profiled sweep;
- 40. X2's cases of these kinds against the JAX package's events.
+ 40. X2's cases of these kinds against the JAX package's events;
+ 41. keyed_ext.cu's four kernels K20 (externalTime, timeLength, delay),
+     K21 (externalTimeBatch, batch, cron), K22 (sort) and K23 (hopping),
+     eight windows kept per partition key, against their plain versions
+     step by step (exact: every row, the wake and missed words, every
+     key's slab) at 65,536 keys: from empty and filled slabs, padding key
+     rows, a TIMER row beside every key row's arrivals, out-of-order event
+     times, ticks over every key, collapsed hops, a batch() key growing
+     its slab, sort keys of -inf, NaN and -0, a key past its capacity,
+     and keys of 8,192 rows (the global workspace);
+ 42. their times (CUDA-graph replays from a restored slab) beside their
+     plain versions and bounds, K22 beside torch.topk of the same keys;
+ 43. KX1 (externalTime per device), KXB1 (externalTimeBatch per device),
+     KSO1 (a top 10 per symbol) and KHP1 (hopping per sensor, two ticks a
+     send over every key), each at 65,536 keys, held to a numpy model on
+     its checked sends (the selector's RESET epochs across keys), with
+     ev/s, per-send p50 / p99 and a profiled sweep;
+ 44. X3: the keyed corpus against the JAX package's events.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -805,6 +822,7 @@ def main() -> None:
     records += slice8_phases(torch, np, dev)
     records += slice9_phases(torch, np, dev)
     records += slice10_phases(torch, np, dev)
+    records += slice11_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -3867,7 +3885,7 @@ def keyed_args(torch, np, dev, planned, cols=None, ts=None, tick=None):
         now = int(np.asarray(ts).max())
     b = staged.to_device(planned.in_schema, dev)
     from siddhi_tpu_torch.core.planner import _keyed_shape
-    t = _keyed_shape(planned.window, planned.name)[2]
+    t = _keyed_shape(planned.window, planned.name)[2].get("t", 0)
     return (b.ts, b.kind, b.valid, torch.from_numpy(gslot).to(dev), b.cols,
             key_idx, sel, now, t)
 
@@ -10909,6 +10927,1245 @@ _X10_WANT = [[(1000, [(1000, ('a', 1)), (1000, ('b', 2))], []),
   (30000, [(30000, ('t', 0))], [])]]
 X10_CASES = [spec + (want,) for spec, want in zip(_X10_SPECS, _X10_WANT)]
 X2_CASES = X9_CASES + X10_CASES
+
+
+# ---------------------------------------------------------------------------
+# slice 11: eight B12 windows kept per partition key (K20 keyed_ext, K21
+# keyed_batch, K22 keyed_sort, K23 keyed_hop in csrc/keyed_ext.cu)
+# ---------------------------------------------------------------------------
+
+KX_KEYS = 1 << 16
+KX1_T, KX1_JIT = 60_000, 500
+KX1_FILL, KX1_CHECK, KX1_TIMED = 30, 2, 16
+KXB1_FILL, KXB1_CHECK, KXB1_TIMED = 30, 2, 16
+KSO1_B, KSO1_N = 1 << 17, 10
+KSO1_FILL, KSO1_CHECK, KSO1_TIMED = 8, 2, 16
+KHP1_WIN, KHP1_HOP = 60_000, 10_000
+KHP1_FILL, KHP1_CHECK, KHP1_TIMED = 12, 2, 16
+
+# KX1: EX1's app (the Siddhi 5.1 API reference's externalTime entry) kept
+# per device: a sliding minute on each device's own readings
+KX1_QL = """
+define stream SensorStream (deviceID long, eventTime long, temp double);
+partition with (deviceID of SensorStream)
+begin
+  @capacity(keys='{keys}', window='128')
+  @info(name='kx1') from SensorStream#window.externalTime(eventTime, 1 min)
+  select deviceID, avg(temp) as a, count() as n
+  insert all events into Out;
+end;
+"""
+# KXB1: a tumbling minute per device on the device's own clock
+KXB1_QL = KX1_QL.replace("externalTime(", "externalTimeBatch(") \
+    .replace("'kx1'", "'kxb1'")
+# KSO1: SO1's app (the API reference's sort entry) kept per symbol: the
+# top 10 trades of each symbol by price
+KSO1_QL = """
+define stream StockStream (symbol long, price double, volume int);
+partition with (symbol of StockStream)
+begin
+  @capacity(keys='{keys}')
+  @info(name='kso1') from StockStream#window.sort(10, price, 'desc')
+  select symbol, price insert all events into Out;
+end;
+"""
+# KHP1: HP1's window kept per sensor: a trailing minute every 10 s
+KHP1_QL = """
+@app:playback
+define stream SensorStream (sensorID long, temp double);
+partition with (sensorID of SensorStream)
+begin
+  @capacity(keys='{keys}', window='128')
+  @info(name='khp1') from SensorStream#window.hopping(1 min, 10 sec)
+  select sensorID, avg(temp) as a insert all events into Out;
+end;
+"""
+
+
+def slice11_modules():
+    from siddhi_tpu_torch.kernels import group_agg, keyed_ext
+    return {"keyed_ext": keyed_ext, "group_agg": group_agg}
+
+
+def kx1_send(np, rng, i, keys=KX_KEYS, stagger=False, jit=KX1_JIT):
+    """KX1's send i (at 1,000 + i): two readings from each of `keys`
+    devices (KXB1: from those that have joined, device d at send d mod
+    30), 1 s apart in event time from EX_T0 + 2 s * i, each jittered back
+    by up to `jit` ms, in a random order; integer temperatures 0-3."""
+    dev = np.arange(keys, dtype=np.int64)
+    if stagger:
+        dev = dev[dev % 30 <= i]
+    n = dev.shape[0]
+    d = np.tile(dev, 2)
+    r = np.repeat(np.arange(2, dtype=np.int64), n)
+    et = EX_T0 + 1000 * (2 * i + r) - rng.integers(0, jit + 1, 2 * n)
+    p = rng.permutation(2 * n)
+    return ([d[p], et[p], rng.integers(0, 4, 2 * n)
+             .astype(np.float32)[p]], np.full(2 * n, 1000 + i, np.int64))
+
+
+def kxb1_send(np, rng, i, keys=KX_KEYS):
+    """KXB1's send i: KX1's readings from the devices that have joined
+    (device d at send d mod 30, so each device's minute starts 2 s after
+    the one before's, and about 1/30 of them flush each send)."""
+    return kx1_send(np, rng, i, keys, stagger=True)
+
+
+def kso1_send(np, rng, i, b=KSO1_B, keys=KX_KEYS):
+    """KSO1's send i (at 1,000 + i): b trades, symbols and prices (in
+    quarters below 250) uniform."""
+    return ([rng.integers(0, keys, b).astype(np.int64),
+             rng.integers(0, 1000, b).astype(np.float32) / 4,
+             rng.integers(1, 100, b).astype(np.int32)],
+            np.full(b, 1000 + i, np.int64))
+
+
+def khp1_send(np, rng, i, keys=KX_KEYS):
+    """KHP1's send i: the readings of seconds 2i and 2i + 1 (at EX_T0 +
+    1 s * second) of every sensor that has started (sensor d starts at
+    second d mod 10), integer temperatures 0-3."""
+    d = np.arange(keys, dtype=np.int64)
+    ids, secs = [], []
+    for s in (2 * i, 2 * i + 1):
+        on = d[d % 10 <= s]
+        ids.append(on)
+        secs.append(np.full(on.shape[0], s, np.int64))
+    ids, secs = np.concatenate(ids), np.concatenate(secs)
+    return ([ids, rng.integers(0, 4, ids.shape[0]).astype(np.float32)],
+            EX_T0 + 1000 * secs)
+
+
+def key_blocks(np, what, dev):
+    """The delivered rows' keys must come key-major (each key's rows
+    together); returns the keys in their delivered order."""
+    if dev.size == 0:
+        return dev
+    starts = np.r_[0, np.nonzero(dev[1:] != dev[:-1])[0] + 1]
+    keys = dev[starts]
+    if np.unique(keys).shape[0] != keys.shape[0]:
+        fail(f"{what}: a key's rows are not together (rows not key-major)")
+    return keys
+
+
+def in_key_order(np, keys, lens, order):
+    """Rows laid out key by key (`keys` ascending, `lens` rows each) taken
+    in the key order `order`: (their row indices, each row's block)."""
+    starts = np.r_[0, np.cumsum(lens)[:-1]]
+    pos = np.searchsorted(keys, order)
+    ls, st = lens[pos], starts[pos]
+    base = np.repeat(st - np.r_[0, np.cumsum(ls)[:-1]], ls)
+    return base + np.arange(int(ls.sum())), np.repeat(
+        np.arange(order.shape[0]), ls)
+
+
+def masked_rows(np, keys, mask, *cols):
+    """[K, W] blocks of rows (mask: which exist) flattened key by key:
+    (keys with rows, their row counts, the flat columns)."""
+    lens = mask.sum(1)
+    has = lens > 0
+    return keys[has], lens[has], [c[mask] for c in cols]
+
+
+class EpochAgg:
+    """A keyed selector's running count and float32 avg per key, with
+    the selector's RESET epochs: within one step, a key's EXPIRED rows
+    after k RESET rows start from zero (k > 0) or from the key's carried
+    state (k = 0), and a flush's CURRENT rows follow its RESET; after a
+    step with a RESET, only the keys whose rows count in the last epoch
+    keep their state."""
+
+    def __init__(self, np, keys):
+        self.np = np
+        self.cnt = np.zeros(keys, np.int64)
+        self.sum = np.zeros(keys, np.float64)
+
+    def run(self, dev, cur, val, block, resets):
+        """Rows in delivered order: key, CURRENT flag, value, the index of
+        the key's block; `resets`: each block is a flush (EXPIRED rows, a
+        RESET, CURRENT rows).  Returns each row's count and avg."""
+        np = self.np
+        if dev.size == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+        sign = np.where(cur, 1, -1)
+        epoch = block + cur if resets else np.zeros_like(block)
+        # every (key, epoch) is its own group
+        gid = np.unique(np.stack([dev, epoch]), axis=1,
+                        return_inverse=True)[1].reshape(-1)
+        ng = int(gid.max()) + 1
+        c0, s0 = np.zeros(ng, np.int64), np.zeros(ng)
+        carried = np.zeros(ng, np.bool_)
+        first = epoch == 0
+        c0[gid[first]] = self.cnt[dev[first]]
+        s0[gid[first]] = self.sum[dev[first]]
+        carried[gid[first]] = True
+        v = sign * val.astype(np.float64)
+        c = c0[gid] + group_cumsum(np, gid, sign.astype(np.int64))
+        s_run = s0[gid] + group_cumsum(np, gid, v)
+        # a sum is -0 while every term (and a carried state) is -0: a group
+        # that carries nothing starts from its first row, as the scan does
+        pos = ~((v == 0) & np.signbit(v))
+        neg0 = group_cumsum(np, gid, pos.astype(np.int64)) == 0
+        neg0 &= ~carried[gid] | ((s0[gid] == 0) & np.signbit(s0[gid]))
+        s_run = np.where((s_run == 0) & neg0, -0.0, s_run)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            a = np.where(c != 0, s_run.astype(np.float32) /
+                         c.astype(np.float32),
+                         np.float32("nan")).astype(np.float32)
+        last = np.zeros(ng, np.int64)
+        last[gid] = np.arange(gid.shape[0])
+        if resets:
+            # the last flush's RESET opens the final epoch
+            sel = epoch == int(block.max()) + 1
+            self.cnt[:] = 0
+            self.sum[:] = 0.0
+        else:
+            sel = np.ones(dev.shape[0], np.bool_)
+        idx = last[gid[sel]]
+        self.cnt[dev[idx]] = c[idx]
+        self.sum[dev[idx]] = s_run[idx]
+        return c, a
+
+
+def check_keyed(np, what, batches, names, exp, agg, resets):
+    """Holds one step's delivered rows to the model's rows (`exp`: keys
+    ascending, their row counts, then kind, ts, value and more columns
+    flat key by key): the same keys, each key's rows in the model's order,
+    and (with `agg`) the running count / avg the selector gives them."""
+    g_kind, g_ts, g = sent_rows(np, batches, names)
+    dev = g[names[0]].astype(np.int64)
+    order = key_blocks(np, what, dev)
+    keys, lens = exp[0], exp[1]
+    if not np.array_equal(np.sort(order), keys):
+        fail(f"{what}: rows for {order.shape[0]} keys, the model has "
+             f"{keys.shape[0]}")
+    idx, block = in_key_order(np, keys, lens, order)
+    kind, ts, val = (x[idx] for x in exp[2:5])
+    expect(np, what, "kind", g_kind, kind)
+    expect(np, what, "ts", g_ts, ts)
+    expect(np, what, names[0], dev, np.repeat(order, lens[
+        np.searchsorted(keys, order)]))
+    if agg is None:
+        expect(np, what, names[1], g[names[1]], val)
+        return
+    c, a = agg.run(dev, kind == 0, val, block, resets)
+    expect(np, what, "a", g["a"], a)
+    if "n" in g:
+        expect(np, what, "n", g["n"].astype(np.int64), c)
+
+
+def agg_unchecked(np, agg, exp, resets):
+    """An unchecked step's aggregates, its keys taken in ascending order
+    (the order decides only which key keeps its state after a RESET step,
+    so a RESET step leaves every key at zero here)."""
+    keys, lens = exp[0], exp[1]
+    if keys.size == 0:
+        return
+    block = np.repeat(np.arange(keys.shape[0]), lens)
+    agg.run(np.repeat(keys, lens), exp[2] == 0, exp[4], block, resets)
+    if resets:
+        agg.cnt[:] = 0
+        agg.sum[:] = 0.0
+
+
+class _Readings:
+    """Per key, its readings of each send by index j (two a send, the
+    earlier event time first): event time, arrival ts, value and place in
+    the send's batch, in [keys, J] arrays."""
+
+    def __init__(self, np, keys, sends):
+        J = 2 * sends
+        self.np = np
+        self.ets = np.zeros((keys, J), np.int64)
+        self.ts = np.zeros((keys, J), np.int64)
+        self.val = np.zeros((keys, J), np.float32)
+        self.pos = np.zeros((keys, J), np.int64)
+        self.have = np.zeros((keys, sends), np.bool_)     # by send
+
+    def add(self, i, dev, ets, ts, val, what):
+        """Send i's readings: two of each key it holds."""
+        np = self.np
+        o = np.lexsort((ets, dev))
+        d = dev[o]
+        if d.shape[0] % 2 or not np.array_equal(d[0::2], d[1::2]) or \
+                np.unique(d).shape[0] * 2 != d.shape[0]:
+            fail(f"{what}: a send must hold two readings of each key")
+        self.have[d[0::2], i] = True
+        for r in range(2):
+            k = o[r::2]
+            for arr, src in ((self.ets, ets), (self.ts, ts),
+                             (self.val, val)):
+                arr[d[r::2], 2 * i + r] = src[k]
+            self.pos[d[r::2], 2 * i + r] = k
+
+
+class KX1Model:
+    """KX1's windows in numpy: each device's readings (two a send, in
+    event-time order, which is their (event time, arrival) order here),
+    its count and exact temperature sum.  Over a send, a device's rows with
+    ets + 1 min at or before its latest new ets expire (EXPIRED, ts = ets +
+    1 min) and its two readings pass CURRENT, in the order of the keys
+    2 (ets + t) and 2 ets + 1; a checked step holds every row, key by key,
+    with the running avg and count."""
+
+    def __init__(self, np, keys, sends=64, t=KX1_T):
+        self.np, self.t, self.keys = np, t, keys
+        self.r = _Readings(np, keys, sends)
+        self.lo = np.zeros(keys, np.int64)
+        self.agg = EpochAgg(np, keys)
+        self.i = 0
+
+    def step(self, cols, ts, batches, what):
+        np, t, r, i = self.np, self.t, self.r, self.i
+        self.i += 1
+        r.add(i, cols[0], cols[1], ts, cols[2], what)
+        D = self.keys
+        if not r.have[:, i].all():
+            fail(f"{what}: KX1 sends hold every device")
+        now = r.ets[:, 2 * i + 1]
+        W = 2 * (t // 2000) + 8           # the alive rows lie in W columns
+        j0 = max(0, 2 * i - W)
+        j = np.arange(j0, 2 * i)[None, :]
+        due = (j >= self.lo[:, None]) & \
+            (r.ets[:, j0:2 * i] + t <= now[:, None])
+        cand = np.arange(D)[:, None]
+        e_ets = r.ets[:, j0:2 * i]
+        # per device: its expiring rows, then its two readings, ordered by
+        # the emission keys
+        key = np.concatenate([np.where(due, 2 * (e_ets + t), BIG),
+                              2 * r.ets[:, 2 * i:2 * i + 2] + 1], 1)
+        o = np.argsort(key, axis=1, kind="stable")
+        ex = np.concatenate([due, np.ones((D, 2), np.bool_)], 1)
+        kind = np.concatenate([np.ones_like(due, np.int32),
+                               np.zeros((D, 2), np.int32)], 1)
+        tss = np.concatenate([e_ets + t, r.ts[:, 2 * i:2 * i + 2]], 1)
+        val = np.concatenate([r.val[:, j0:2 * i], r.val[:, 2 * i:2 * i + 2]],
+                             1)
+
+        def take(x):
+            return np.take_along_axis(x, o, 1)
+        exp = masked_rows(np, np.arange(D), take(ex), take(kind), take(tss),
+                          take(val))
+        exp = (exp[0], exp[1], *exp[2])
+        self.lo += due.sum(1)
+        if batches is not None:
+            check_keyed(np, what, batches, ("deviceID", "a", "n"), exp,
+                        self.agg, False)
+        else:
+            agg_unchecked(np, self.agg, exp, False)
+        return int(due.sum())
+
+
+class KXB1Model:
+    """KXB1's slices in numpy: device d's slice of reading j is (ets_j -
+    its first reading's ets) // 1 min, and its pending slice the one of its
+    last flush (0 before any).  A send whose later reading of a device
+    falls in a later slice flushes it: the previous slice EXPIRED, (a
+    RESET row), the pending slice's readings CURRENT, each in arrival
+    order (send, then place in the batch); the selector's RESET epochs run
+    over the flushing devices in their delivered order.  A device sends
+    two readings a send from the send it joins."""
+
+    def __init__(self, np, keys, sends=64, t=KX1_T):
+        self.np, self.t, self.keys = np, t, keys
+        self.r = _Readings(np, keys, sends)
+        self.cs = np.zeros(keys, np.int64)
+        self.agg = EpochAgg(np, keys)
+        self.i = 0
+
+    def step(self, cols, ts, batches, what):
+        np, t, r, i = self.np, self.t, self.r, self.i
+        self.i += 1
+        r.add(i, cols[0], cols[1], ts, cols[2], what)
+        # each device's first reading (the index of the send it joined)
+        first = 2 * np.argmax(r.have, axis=1)
+        start = r.ets[np.arange(self.keys), first]
+        hi = 2 * i + 2
+        W = 4 * (t // 2000) + 8
+        j0 = max(0, hi - W)
+        jj = np.arange(j0, hi)[None, :]
+        sl = np.where(jj >= first[:, None],
+                      (r.ets[:, j0:hi] - start[:, None]) // t, -2)
+        new = sl[:, -1]
+        fl = r.have[:, i] & (new > self.cs)
+        if np.any(new > self.cs + 1):
+            fail(f"{what}: a device crossed two slice ends in one send")
+        F = np.nonzero(fl)[0]
+        cs = self.cs[F][:, None]
+        s = sl[F]
+        ex = s == cs - 1
+        cu = s == cs
+        akey = (jj // 2) * (1 << 40) + r.pos[F, j0:hi]
+        key = np.where(ex, akey, np.where(cu, (1 << 60) + akey, BIG))
+        o = np.argsort(key, axis=1, kind="stable")
+
+        def take(x):
+            return np.take_along_axis(x, o, 1)
+        exp = masked_rows(np, F, take(ex | cu), take(np.where(ex, 1, 0)
+                                                      .astype(np.int32)),
+                          take(r.ts[F, j0:hi]), take(r.val[F, j0:hi]))
+        exp = (exp[0], exp[1], *exp[2])
+        self.cs[F] = new[F]
+        if batches is not None:
+            check_keyed(np, what, batches, ("deviceID", "a", "n"), exp,
+                        self.agg, True)
+        else:
+            agg_unchecked(np, self.agg, exp, True)
+        return int(F.shape[0])
+
+
+class KSO1Model:
+    """KSO1's standing top 10 per symbol in numpy (kept rows in candidate
+    order): a symbol's trades pass CURRENT in send order, then its evicted
+    rows leave EXPIRED in candidate order (the kept rows are its 10
+    greatest prices, ties to the earlier candidate)."""
+
+    def __init__(self, np, keys, n=KSO1_N):
+        self.np, self.n = np, n
+        self.ts = np.zeros((keys, n), np.int64)
+        self.p = np.zeros((keys, n), np.float32)
+        self.cnt = np.zeros(keys, np.int64)
+
+    def step(self, cols, ts, batches, what):
+        np, n = self.np, self.n
+        sym, price = cols[0], cols[1]
+        o = np.argsort(sym, kind="stable")
+        s = sym[o]
+        keys, starts, lens = np.unique(s, return_index=True,
+                                       return_counts=True)
+        E = int(lens.max()) if lens.size else 1
+        k = np.arange(s.shape[0]) - np.repeat(starts, lens)
+        a_p = np.zeros((keys.shape[0], E), np.float32)
+        a_ts = np.zeros((keys.shape[0], E), np.int64)
+        a_p[np.repeat(np.arange(keys.shape[0]), lens), k] = price[o]
+        a_ts[np.repeat(np.arange(keys.shape[0]), lens), k] = ts[o]
+        a_ok = np.arange(E)[None, :] < lens[:, None]
+        b_ok = np.arange(n)[None, :] < self.cnt[keys][:, None]
+        c_p = np.concatenate([self.p[keys], a_p], 1)
+        c_ts = np.concatenate([self.ts[keys], a_ts], 1)
+        c_ok = np.concatenate([b_ok, a_ok], 1)
+        key = np.where(c_ok, -c_p.astype(np.float64), np.inf)
+        rank = np.empty_like(key, dtype=np.int64)
+        np.put_along_axis(rank, np.argsort(key, axis=1, kind="stable"),
+                          np.arange(key.shape[1])[None, :].repeat(
+                              key.shape[0], 0), 1)
+        total = c_ok.sum(1)
+        keep = c_ok & (rank < np.minimum(total, n)[:, None])
+        ev_ = c_ok & ~keep
+        exp = masked_rows(
+            np, keys, np.concatenate([a_ok, ev_], 1),
+            np.concatenate([np.zeros_like(a_ok, np.int32),
+                            np.ones_like(ev_, np.int32)], 1),
+            np.concatenate([a_ts, c_ts], 1), np.concatenate([a_p, c_p], 1))
+        ko = np.argsort(~keep, axis=1, kind="stable")[:, :n]
+        self.p[keys] = np.take_along_axis(c_p, ko, 1)
+        self.ts[keys] = np.take_along_axis(c_ts, ko, 1)
+        self.cnt[keys] = keep.sum(1)
+        if batches is not None:
+            check_keyed(np, what, batches, ("symbol", "price"),
+                        (exp[0], exp[1], *exp[2]), None, False)
+        return int(ev_.sum())
+
+
+class KHP1Model:
+    """KHP1's hopping windows in numpy, from the traffic's regular shape
+    (sensor d reads once a second from second d mod 10, a send carrying two
+    seconds): d's boundaries are at its first second + 10, + 20, ...  From
+    second 10 the timer ticks every second before each send's batch (each
+    tick's wake is the next second), and a tick at second s flushes the
+    sensors with a boundary there: their readings of [s - 70, s - 10)
+    EXPIRED, (a RESET row), of [s - 60, s) CURRENT, in second order, from
+    the readings that have arrived (the seconds before the send); the data
+    steps flush nothing.  The selector's RESET epochs run over each
+    tick's sensors in their delivered order."""
+
+    def __init__(self, np, keys, sends=64, win=KHP1_WIN, hop=KHP1_HOP):
+        self.np, self.keys = np, keys
+        self.win, self.hop = win // 1000, hop // 1000
+        self.temp = np.zeros((keys, 2 * sends), np.float32)
+        self.agg = EpochAgg(np, keys)
+        self.i = 0
+
+    def step(self, cols, ts, batches, what):
+        np, i = self.np, self.i
+        self.i += 1
+        sec = (ts - EX_T0) // 1000
+        d = np.arange(self.keys)
+        want = np.r_[d[d % 10 <= 2 * i], d[d % 10 <= 2 * i + 1]]
+        if not np.array_equal(np.sort(cols[0]), np.sort(want)):
+            fail(f"{what}: not KHP1's regular readings")
+        self.temp[cols[0], sec] = cols[1]
+        ticks = [s for s in (2 * i, 2 * i + 1) if s >= 10]
+        if batches is not None:
+            got = [b for b in batches if b["n_valid"]]
+            if len(got) != len(ticks):
+                fail(f"{what}: {len(got)} steps delivered rows, the model "
+                     f"has {len(ticks)} ticks")
+        win, hop = self.win, self.hop
+        flushed = 0
+        for j, s in enumerate(ticks):
+            F = d[(s >= d % 10 + hop) & ((s - d % 10) % hop == 0)]
+            flushed += F.shape[0]
+            S = np.arange(s - win - hop, s)[None, :]
+            arrived = (S >= (F % 10)[:, None]) & (S < 2 * i) & (S >= 0)
+            ex = arrived & (S < s - hop)
+            cu = arrived & (S >= s - win)
+            Sc = np.clip(S, 0, None).repeat(F.shape[0], 0)
+            t_all = EX_T0 + 1000 * Sc
+            v = self.temp[F[:, None], Sc]
+            exp = masked_rows(
+                np, F, np.concatenate([ex, cu], 1),
+                np.concatenate([np.ones_like(ex, np.int32),
+                                np.zeros_like(cu, np.int32)], 1),
+                np.concatenate([t_all, t_all], 1), np.concatenate([v, v], 1))
+            exp = (exp[0], exp[1], *exp[2])
+            if batches is not None:
+                check_keyed(np, f"{what} tick at second {s}", [got[j]],
+                            ("sensorID", "a"), exp, self.agg, True)
+            else:
+                agg_unchecked(np, self.agg, exp, True)
+        return flushed
+
+
+# -- the kernels against their plain versions --------------------------------
+
+def kx_prm(planned):
+    from siddhi_tpu_torch.core.planner import _keyed_shape
+    return _keyed_shape(planned.window, planned.name)[2]["prm"]
+
+
+def with_timer(torch, args):
+    """The same step with a valid TIMER row (ts = now) put first in the
+    batch and in every key row's events (a cron fire that carries
+    arrivals)."""
+    ts, kind, valid, gslot, cols, key_idx, sel, now = args[:8]
+    dev = ts.device
+
+    def one(x, v):
+        return torch.cat([torch.full((1,), v, dtype=x.dtype, device=dev), x])
+    sel2 = torch.where(sel >= 0, sel + 1, sel)
+    sel2 = torch.cat([torch.zeros((sel.shape[0], 1), dtype=sel.dtype,
+                                  device=dev), sel2], 1).contiguous()
+    return (one(ts, now), one(kind, 2), one(valid, True), one(gslot, 0),
+            [one(c, 0) for c in cols], key_idx, sel2, now)
+
+
+def kx_twin(torch, planned, slabs, args, what, stats, tick=False):
+    """One K20-K23 step on slabs[0] and its plain version on slabs[1]:
+    every emitted row, the wake and missed words and the whole slab
+    compared (exact)."""
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    args = tuple(args[:8])
+    prm = kx_prm(planned)
+    spec = planned.filter_spec
+    for s in slabs:
+        ke.fit(s, int(args[6].shape[1]))
+    ra, wa = ke.launch(slabs[0], spec, *args, prm, tick=tick)
+    rb, wb = ke.plain(slabs[1], spec, *args, prm)
+    torch.cuda.synchronize()
+    err = rows_err(torch, ra, rb, what, full=True)
+    err = max(err, float_err(torch, wa, wb, f"{what} wake"),
+              slab_err(torch, slabs[0], slabs[1], what))
+    stats["steps"] += 1
+    stats["rows"] += int(ra.ts.shape[0])
+    stats["pads"] += int((args[5] >= planned.key_capacity).sum())
+    stats["missed"] += int(wa[1])
+    return err, ra
+
+
+def kx_fill(torch, planned, slabs, args):
+    """A step on the kernel alone (filling a window), the plain slab then
+    made its copy."""
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    args = tuple(args[:8])
+    ke.fit(slabs[0], int(args[6].shape[1]))
+    ke.launch(slabs[0], planned.filter_spec, *args, kx_prm(planned))
+
+
+def compare_keyed_ext(torch, np, dev, keys=KX_KEYS):
+    """Phase 41: K20 (externalTime, timeLength, delay), K21
+    (externalTimeBatch, batch, cron), K22 and K23 against their plain
+    versions at 65,536 keys: from empty slabs and from filled ones (KX1's
+    and KXB1's minute, KSO1's top 10, KHP1's hops), with padding key rows
+    (a send from part of the keys), a valid TIMER row in every key row
+    beside its arrivals (a cron fire that carries arrivals; the other
+    modes ignore it), out-of-order event times (jitter of 5 s against 1 s
+    apart), timer ticks over every key, collapsed hops, a key past its
+    capacity (counted as missed in both), and sort keys that tie with the
+    dead places (-inf under 'desc'), NaN and -0.  Every row, the wake,
+    missed and the slab compared.  Returns (max error, timing inputs by
+    mode, stats)."""
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    rng = np.random.default_rng(171)
+    stats = {"steps": 0, "rows": 0, "pads": 0, "missed": 0}
+    timing, err = {}, 0.0
+
+    def run(ql, qname, mode, steps, fill=(), time_at=None):
+        """steps: [(label, a callable of the plan giving the args)];
+        `fill`: the indices of steps run on the kernel alone; `time_at`:
+        the label of the step phase 42 times."""
+        nonlocal err
+        plan = keyed_plan(dev, ql.format(keys=keys), qname)
+        slab = plan.init_state()[0]
+        if slab.mode != mode:
+            fail(f"phase 41: {qname} planned in mode {slab.mode}")
+        slabs = [slab, slab.clone()]
+        for j, (label, mk) in enumerate(steps):
+            args = mk(plan)
+            if j in fill:
+                kx_fill(torch, plan, slabs, args)
+                if j + 1 not in fill:
+                    slabs[1] = slabs[0].clone()
+                continue
+            if label == time_at:
+                timing[mode] = (plan, slabs[0].clone(), tuple(args[:8]),
+                                label)
+            e, _ = kx_twin(torch, plan, slabs, args,
+                           f"phase 41 {qname} {label}", stats,
+                           tick=label.startswith("tick"))
+            err = max(err, e)
+
+    def send(fn, i, *a, **k):
+        return lambda p: keyed_args(torch, np, dev, p, *fn(np, rng, i, *a,
+                                                            **k))
+
+    def tick(t):
+        return lambda p: keyed_args(torch, np, dev, p, tick=t)
+
+    def timer(fn, i, *a):
+        return lambda p: with_timer(torch, keyed_args(
+            torch, np, dev, p, *fn(np, rng, i, *a)))
+
+    part = max(keys // 20 + 3, 3)       # part of the keys: padding rows
+    # K20 externalTime at KX1: 2 sends from empty, 26 filling, then steady
+    # sends, a partial one, a TIMER row beside the arrivals, a late one
+    steps = [(f"send {i}", send(kx1_send, i, keys)) for i in range(30)]
+    steps += [("partial send", send(kx1_send, 30, part)),
+              ("send with a TIMER row", timer(kx1_send, 31, keys)),
+              ("out-of-order send", send(kx1_send, 32, keys, False, 5000))]
+    run(KX1_QL, "kx1", kw.MODE_EXT, steps, fill=range(2, 28),
+        time_at="send 29")
+    # keys of 8,192 rows: a key's workspace past the shared memory (the
+    # global workspace, a block looping over the key rows), at 64 keys
+    ql = KX1_QL.replace("{keys}", "64").replace("window='128'",
+                                                "window='8192'")
+    run(ql.replace("'kx1'", "'kxw'"), "kxw", kw.MODE_EXT,
+        [(f"send {i}", send(kx1_send, i, 64, False, 30_000))
+         for i in range(4)])
+    # K20 timeLength(2 sec, 8) and delay(1 sec) at KX1's traffic: sends
+    # 500 ms apart (playback ts), ticks between
+    for win, qname, mode in (("timeLength(2 sec, 8)", "ktl", kw.MODE_TLEN),
+                             ("delay(1 sec)", "kdl", kw.MODE_DELAY)):
+        ql = KX1_QL.replace("externalTime(eventTime, 1 min)", win) \
+            .replace("'kx1'", f"'{qname}'")
+
+        def at(i, n=keys, t0=EX_T0):
+            def mk(p):
+                cols, _ = kx1_send(np, rng, i, n)
+                return keyed_args(torch, np, dev, p, cols,
+                                  np.full(cols[0].shape[0], t0 + 500 * i,
+                                          np.int64))
+            return mk
+        steps = [(f"send {i}", at(i)) for i in range(6)]
+        steps += [("tick", tick(EX_T0 + 2600)), ("partial send", at(6, part)),
+                  ("send with a TIMER row",
+                   lambda p: with_timer(torch, at(7)(p))),
+                  ("tick", tick(EX_T0 + 9000))]
+        run(ql, qname, mode, steps, time_at="send 5")
+    # K21 externalTimeBatch at KXB1: 2 from empty, 26 filling, 3 steady
+    # (about 2,185 devices flush a send), a partial send, a TIMER row
+    steps = [(f"send {i}", send(kxb1_send, i, keys)) for i in range(31)]
+    steps += [("partial send", send(kxb1_send, 31, part)),
+              ("send with a TIMER row", timer(kxb1_send, 32, keys))]
+    run(KXB1_QL, "kxb1", kw.MODE_XBATCH, steps, fill=range(2, 28),
+        time_at="send 30")
+    # K21 batch(): two readings a key a send; a hot key of 100 (the slab
+    # grows past 64)
+    ql = KX1_QL.replace("externalTime(eventTime, 1 min)", "batch()") \
+        .replace("'kx1'", "'kcb'")
+
+    def hot(p):
+        cols, ts = kx1_send(np, rng, 5, keys)
+        cols[0][:100] = 7
+        return keyed_args(torch, np, dev, p, cols, ts)
+    steps = [(f"send {i}", send(kx1_send, i, keys)) for i in range(4)]
+    steps += [("hot key", hot), ("partial send", send(kx1_send, 6, part)),
+              ("send with a TIMER row", timer(kx1_send, 7, keys))]
+    run(ql, "kcb", kw.MODE_CHUNK, steps, time_at="send 3")
+    # K21 cron: sends, a fire that carries arrivals, a tick, sends, a tick
+    ql = KX1_QL.replace("externalTime(eventTime, 1 min)",
+                        "cron('*/5 * * * * ?')").replace("'kx1'", "'kcr'")
+    steps = [(f"send {i}", send(kx1_send, i, keys)) for i in range(3)]
+    steps += [("fire with arrivals", timer(kx1_send, 3, keys)),
+              ("tick", tick(EX_T0 + 10_000)),
+              ("partial send", send(kx1_send, 4, part)),
+              ("send", send(kx1_send, 5, keys)),
+              ("tick", tick(EX_T0 + 15_000))]
+    run(ql, "kcr", kw.MODE_CRON, steps, time_at="fire with arrivals")
+    # K22 at KSO1: 2 from empty, 6 filling, 2 steady, a partial send, a
+    # send with -inf (ties the dead places under 'desc'), NaN, 0 and -0
+    steps = [(f"send {i}", send(kso1_send, i, KSO1_B * keys // KX_KEYS,
+                                keys)) for i in range(10)]
+
+    def odd(p):
+        cols, ts = kso1_send(np, rng, 11, 4 * keys, keys)
+        m = rng.random(cols[1].shape[0])
+        cols[1][m < 0.1] = -np.inf
+        cols[1][(m >= 0.1) & (m < 0.2)] = np.nan
+        cols[1][(m >= 0.2) & (m < 0.3)] = -0.0
+        cols[1][(m >= 0.3) & (m < 0.4)] = 0.0
+        return keyed_args(torch, np, dev, p, cols, ts)
+    steps += [("partial send", send(kso1_send, 10, part, keys)),
+              ("send with -inf, NaN, 0, -0", odd),
+              ("send with a TIMER row",
+               timer(kso1_send, 12, KSO1_B * keys // KX_KEYS, keys))]
+    run(KSO1_QL, "kso1", kw.MODE_SORT, steps, fill=range(2, 8),
+        time_at="send 9")
+    # K23 at KHP1: 12 data sends (the first 2 compared), ticks at the next
+    # boundaries, a partial send, a TIMER row, a tick 35 s on (collapsed
+    # hops), then a window of 24 rows a key that misses rows
+    steps = [(f"send {i}", send(khp1_send, i, keys)) for i in range(12)]
+    steps += [("tick 24 s", tick(EX_T0 + 24_000)),
+              ("tick 25 s", tick(EX_T0 + 25_000)),
+              ("partial send", send(khp1_send, 12, part)),
+              ("send with a TIMER row", timer(khp1_send, 13, keys)),
+              ("tick collapsed", tick(EX_T0 + 62_000))]
+    run(KHP1_QL, "khp1", kw.MODE_HOP, steps, fill=range(2, 11),
+        time_at="tick 25 s")
+
+    def hot_hop(p):
+        cols, ts = khp1_send(np, rng, 0, part)
+        cols = [np.r_[cols[0], np.full(200, 3, np.int64)],
+                np.r_[cols[1], np.zeros(200, np.float32)]]
+        return keyed_args(torch, np, dev, p, cols,
+                          np.r_[ts, EX_T0 + np.arange(200, dtype=np.int64)])
+    before = stats["missed"]
+    run(KHP1_QL.replace("'khp1'", "'khs'"), "khs", kw.MODE_HOP,
+        [("a sensor of 200 readings", hot_hop)])
+    if stats["missed"] == before:
+        fail("phase 41: a sensor of 200 readings in a slab of 128 rows a key "
+             "missed no rows")
+    if not stats["pads"]:
+        fail("phase 41: no padding key rows were compared")
+    print(f"phase 41 K20-K23: {stats['steps']} steps, {stats['rows']} rows "
+          f"equal to the plain versions ({stats['pads']} padding key rows, "
+          f"{stats['missed']} rows missed in both), max_abs_err {err}")
+    return err, timing, stats
+
+
+def kx_bytes(torch, planned, before, after, args, n_out):
+    """The bytes one K20-K23 step must move: each event read once (ts,
+    kind, valid, slot, columns, its sel entry), each emitted row written
+    once (ts, kind, seq, slot, columns), each slab row that leaves a
+    stepped key read once and each row that enters written once, and each
+    key row's index and counters read and written."""
+    ts, kind, valid, gslot, cols, key_idx, sel, now = args
+    cb = sum(c.element_size() for c in before.cols)
+    live = key_idx < before.K
+    ki = key_idx[live].long()
+
+    def rows(s):
+        n = s.count[ki].sum()
+        if s.p_count is not None:
+            n = n + s.p_count[ki].sum()
+        return int(n)
+    old, new = rows(before), rows(after)
+    keep = planned.filter_spec
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    ok = kw._keep(keep, ts, kind, valid, cols, now)
+    n_arr = int(((sel >= 0) & ok[sel.clamp(min=0).long()]
+                 & live[:, None]).sum())
+    leave = max(0, old + n_arr - new)
+    enter = max(0, new - old + leave)
+    n_read = int((sel >= 0).sum())
+    kb = int(live.sum())
+    return (n_read * (8 + 4 + 1 + 4 + 4 + cb) + n_out * (8 + 4 + 8 + 4 + cb)
+            + (leave + enter) * (8 + 4 + cb) + kb * (4 + 2 * (4 + 4 + 8)))
+
+
+def time_slice11(torch, np, dev, timing):
+    """Phase 42: each mode of K20-K23 per launch (CUDA-graph replays from a
+    restored slab) at its phase-41 step, beside the bound of the bytes the
+    step must move and its plain version; for K22 also one batched
+    torch.topk over the step's [Kb, C + E] candidate keys (the library
+    call nearest to it: it ranks but does not evict, emit or move rows)."""
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    from siddhi_tpu_torch.kernels import sort_window as sw
+    res = {}
+    for mode, (plan, saved, args, label) in timing.items():
+        slab = saved.clone()
+        prm = kx_prm(plan)
+        spec = plan.filter_spec
+
+        def restore():
+            slab.copy_from(saved)
+        restore()
+        n_out = int(ke.launch(slab, spec, *args, prm)[0].ts.shape[0])
+        nbytes = kx_bytes(torch, plan, saved, slab, args, n_out)
+        restore()
+        ms = graph_ms(torch, lambda: ke.launch(slab, spec, *args, prm,
+                                               n_out=n_out), 20, restore)
+        plain = event_timer(torch, lambda: ke.plain(slab, spec, *args, prm),
+                            3, restore)
+        kb = int(args[5].shape[0])
+        r = {"ms": ms, "plain_ms": plain, **bound(nbytes),
+             "shape": f"{plan.name} {label}: {kb} key rows x E = "
+                      f"{int(args[6].shape[1])}, C = {saved.C}, {n_out} rows "
+                      f"out", "library_ms": None}
+        if mode == ke.MODE_SORT:
+            ki = args[5].long().clamp(0, saved.K - 1)
+            kc = torch.cat([saved.cols[prm.key_pos][ki],
+                            args[4][prm.key_pos][args[6].long().clamp(
+                                min=0)]], 1)
+            keys = sw.sort_keys(kc, prm.desc)
+            r["library_ms"] = event_timer(
+                torch, lambda: torch.topk(keys, prm.length, dim=1,
+                                          largest=False), 20)
+            r["library"] = (f"torch.topk over [{kb}, "
+                            f"{int(keys.shape[1])}] int64 keys")
+        res[mode] = r
+        del slab
+    return res
+
+
+def run_kx1(torch, np, dev, mods, keys=KX_KEYS):
+    """KX1: externalTime(eventTime, 1 min) per device at 65,536 devices,
+    two readings each a send (about 60 alive a device after 30 sends): 30
+    filling, 16 timed, 2 checked row by row against KX1Model.  Returns
+    K20's externalTime launches."""
+    ke = mods["keyed_ext"]
+    rng = np.random.default_rng(173)
+    n = KX1_FILL + KX1_TIMED + KX1_CHECK
+    sends = [kx1_send(np, rng, i, keys) for i in range(n + 4)]
+    model = KX1Model(np, keys)
+    counts, _, res = run9(
+        torch, np, dev, mods, KX1_QL.format(keys=keys), "kx1",
+        "SensorStream", sends, model, (KX1_FILL, KX1_CHECK, False),
+        "KX1 (externalTime(1 min) per device, 65,536 devices)",
+        KX1_TIMED * 2 * keys, 2 * keys * (8 + 8 + 4 + 8 + 4 + 1 + 4),
+        ("keyed_ext", "group_agg"))
+    k = counts["keyed_ext"][0][ke.MODE_EXT]
+    print(f"KX1: sends {n - KX1_CHECK}-{n - 1} held row by row to the numpy "
+          f"model (each device's EXPIRED rows at event time + 1 min and "
+          f"CURRENT rows in key order, its running avg and count); rows "
+          f"expiring a steady send {res[-1]}; K20 externalTime launches {k}")
+    return k
+
+
+def run_kxb1(torch, np, dev, mods, keys=KX_KEYS):
+    """KXB1: externalTimeBatch(eventTime, 1 min) per device, device d's
+    clock (d mod 30) s ahead: 30 filling, 16 timed, 2 checked (about 2,185
+    devices flush a send, with the selector's RESET epochs).  Returns
+    K21's externalTimeBatch launches."""
+    ke = mods["keyed_ext"]
+    rng = np.random.default_rng(175)
+    n = KXB1_FILL + KXB1_TIMED + KXB1_CHECK
+    sends = [kxb1_send(np, rng, i, keys) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, KXB1_QL.format(keys=keys), "kxb1",
+        "SensorStream", sends, KXB1Model(np, keys),
+        (KXB1_FILL, KXB1_CHECK, False),
+        "KXB1 (externalTimeBatch(1 min) per device, 65,536 devices)",
+        KXB1_TIMED * 2 * keys, 2 * keys * (8 + 8 + 4 + 8 + 4 + 1 + 4),
+        ("keyed_ext", "group_agg"))
+    k = counts["keyed_ext"][0][ke.MODE_XBATCH]
+    print(f"KXB1: sends {n - KXB1_CHECK}-{n - 1} held row by row to the numpy "
+          f"model (each flushing device's previous slice EXPIRED, its slice "
+          f"CURRENT, the running avg and count across RESET epochs); devices "
+          f"flushing a steady send {res[-1]}; K21 externalTimeBatch "
+          f"launches {k}")
+    return k
+
+
+def run_kso1(torch, np, dev, mods, keys=KX_KEYS):
+    """KSO1: sort(10, price, 'desc') per symbol at 65,536 symbols, 131,072
+    trades a send: 8 filling, 2 checked, 16 timed.  Returns K22's
+    launches."""
+    ke = mods["keyed_ext"]
+    rng = np.random.default_rng(177)
+    n = KSO1_FILL + KSO1_CHECK + KSO1_TIMED
+    b = KSO1_B * keys // KX_KEYS
+    sends = [kso1_send(np, rng, i, b, keys) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, KSO1_QL.format(keys=keys), "kso1",
+        "StockStream", sends, KSO1Model(np, keys),
+        (KSO1_FILL, KSO1_CHECK, True),
+        "KSO1 (sort(10, price, 'desc') per symbol, 65,536 symbols)",
+        KSO1_TIMED * b, b * (8 + 4 + 4 + 8 + 4 + 1 + 4), ("keyed_ext",))
+    k = counts["keyed_ext"][0][ke.MODE_SORT]
+    print(f"KSO1: sends {KSO1_FILL}-{KSO1_FILL + KSO1_CHECK - 1} held row by "
+          f"row to the numpy model; rows evicted a send {min(res[2:])}-"
+          f"{max(res[2:])}; K22 launches {k}")
+    return k
+
+
+def run_khp1(torch, np, dev, mods, keys=KX_KEYS):
+    """KHP1: hopping(1 min, 10 sec) per sensor at 65,536 sensors under
+    playback, one reading a second each, two seconds a send: 12 filling,
+    2 checked, 16 timed; each second's tick flushes about 6,554 sensors.
+    Returns K23's launches (timer ticks included) and its ticks."""
+    ke = mods["keyed_ext"]
+    rng = np.random.default_rng(179)
+    n = KHP1_FILL + KHP1_CHECK + KHP1_TIMED
+    sends = [khp1_send(np, rng, i, keys) for i in range(n + 4)]
+    model = KHP1Model(np, keys)
+    counts, _, res = run9(
+        torch, np, dev, mods, KHP1_QL.format(keys=keys), "khp1",
+        "SensorStream", sends, model, (KHP1_FILL, KHP1_CHECK, True),
+        "KHP1 (hopping(1 min, 10 sec) per sensor, 65,536 sensors)",
+        KHP1_TIMED * 2 * keys, 2 * keys * (8 + 4 + 8 + 4 + 1 + 4),
+        ("keyed_ext", "group_agg"))
+    k = counts["keyed_ext"][0][ke.MODE_HOP]
+    ticks = counts["keyed_ext"][1]
+    print(f"KHP1: sends {KHP1_FILL}-{KHP1_FILL + KHP1_CHECK - 1} held row by "
+          f"row to the numpy model (every tick's and data step's flushes, "
+          f"the running avg across RESET epochs); sensors flushing a steady "
+          f"send {res[-1]}; K23 launches {k} ({ticks} timer ticks)")
+    return k, ticks
+
+
+def kx_small_checks(np, mgr_fn):
+    """KX1, KXB1, KSO1 and KHP1's models held to the port's rows at 64
+    keys (the CPU tests run this on the plain versions)."""
+    rng = np.random.default_rng(181)
+    ok = []
+    for ql, qname, stream, sends, model, fill in (
+            (KX1_QL, "kx1", "SensorStream",
+             [kx1_send(np, rng, i, 64) for i in range(36)],
+             KX1Model(np, 64), 30),
+            (KXB1_QL, "kxb1", "SensorStream",
+             [kxb1_send(np, rng, i, 64) for i in range(36)],
+             KXB1Model(np, 64), 30),
+            (KSO1_QL, "kso1", "StockStream",
+             [kso1_send(np, rng, i, 256, 64) for i in range(6)],
+             KSO1Model(np, 64), 0),
+            (KHP1_QL, "khp1", "SensorStream",
+             [khp1_send(np, rng, i, 64) for i in range(12)],
+             KHP1Model(np, 64), 6)):
+        mgr = mgr_fn()
+        rt = mgr.create_siddhi_app_runtime(ql.format(keys=64))
+        got = []
+        rt.add_batch_callback(qname, lambda ts, b: got.append(b))
+        rt.start()
+        h = rt.get_input_handler(stream)
+        res = []
+        for i, (cols, ts) in enumerate(sends):
+            got.clear()
+            h.send_columns(cols, timestamps=ts)
+            res.append(model.step(cols, ts, list(got) if i >= fill else None,
+                                  f"{qname} send {i}"))
+        mgr.shutdown()
+        ok.append(sum(res[fill:]))
+    return ok
+
+
+def slice11_phases(torch, np, dev):
+    """Phases 41-44: K20-K23 against their plain versions; their times;
+    KX1, KXB1, KSO1 and KHP1 through SiddhiManager; X3 (the JAX package's
+    events of the keyed corpus).  Returns their kernel records."""
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    mods = slice11_modules()
+    t0 = time.perf_counter()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 11 {what}: {time.perf_counter() - t0:.1f} s")
+    err, timing, _ = compare_keyed_ext(torch, np, dev)
+    took("phase 41 done")
+    res = time_slice11(torch, np, dev, timing)
+    del timing
+    took("phase 42 done")
+    n = {ke.MODE_EXT: run_kx1(torch, np, dev, mods)}
+    took("KX1 done")
+    n[ke.MODE_XBATCH] = run_kxb1(torch, np, dev, mods)
+    took("KXB1 done")
+    n[ke.MODE_SORT] = run_kso1(torch, np, dev, mods)
+    took("KSO1 done")
+    n[ke.MODE_HOP], _ = run_khp1(torch, np, dev, mods)
+    took("KHP1 done")
+    launched = run_corpus(torch, np, dev, mods, "X3 (slice 11)", X11_CASES,
+                          ("keyed_ext",))
+    # the corpus is the main path of the modes no configuration drives
+    for m in (ke.MODE_TLEN, ke.MODE_DELAY, ke.MODE_CHUNK, ke.MODE_CRON):
+        n[m] = ke.mode_launches[m]
+        if n[m] <= 0:
+            fail(f"X3: K20-K23 mode {m} was never launched")
+    print(f"X3: keyed_ext launches {launched['keyed_ext']} (by mode "
+          f"{ke.mode_launches[6:]})")
+    took("phase 44 done")
+    no_lib = "no single PyTorch call computes a keyed window step"
+    records = []
+    for mode, name, kernel, rep in (
+            (ke.MODE_EXT, "keyed_ext_externalTime", "K20", ":83"),
+            (ke.MODE_TLEN, "keyed_ext_timeLength", "K20", ":279"),
+            (ke.MODE_DELAY, "keyed_ext_delay", "K20", ":375"),
+            (ke.MODE_XBATCH, "keyed_batch_externalTimeBatch", "K21", ":178"),
+            (ke.MODE_CHUNK, "keyed_batch_batch", "K21", ":427"),
+            (ke.MODE_CRON, "keyed_batch_cron", "K21", ":579"),
+            (ke.MODE_SORT, "keyed_sort", "K22", ":496"),
+            (ke.MODE_HOP, "keyed_hop", "K23", ":1166")):
+        t = res[mode]
+        lib = (f"library_ms {t['library_ms']:.4f} ({t['library']})"
+               if t["library_ms"] is not None else f"library_ms null: {no_lib}")
+        print(f"kernel {name} ({kernel}): {t['ms']:.4f} ms at {t['shape']} "
+              f"(bound {t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} "
+              f"bytes), plain {t['plain_ms']:.4f} ms, launches on the main "
+              f"path {n[mode]}; {lib}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "siddhi_tpu_torch/csrc/keyed_ext.cu",
+            "replaces": f"siddhi_tpu/core/window_ext.py{rep}",
+            "launches": n[mode], "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return records
+
+
+# X3: the slice's corpus: each of the eight kinds inside a value partition
+# with several keys a send, group by and having, a filter after the window,
+# nulls, `insert all events` / `expired events`, range partitions, @purge
+# and timer-driven cron / timeLength / delay / hopping keys.  _X11_WANT
+# holds the JAX package's events (cron's with the JAX scheduler's timer
+# entries deduplicated, as for X2); the CPU tests hold the cases to it
+_KX = "@app:playback\ndefine stream S (k string, et long, v int);\n"
+
+
+def _part(win, sel="k, v", extra="", key="k", ann="@capacity(keys='16')",
+          out="insert all events into Out;", filt=""):
+    return (_KX + f"partition with ({key} of S)\nbegin\n  {ann}\n"
+            f"  @info(name='q') from S{filt}#window.{win}{extra}\n"
+            f"  select {sel} {out}\nend;")
+
+
+_EXT_SENDS = [("S", [["a", 1000, 1], ["b", 1000, 2], ["a", 1500, 3]], 1000),
+              ("S", [["b", 1800, 4], ["a", 2200, 5]], 1100),
+              ("S", [["a", 1900, 6], ["b", 3000, 7], ["c", 500, 8]], 1200),
+              ("S", [["a", 4000, 9]], 1300)]
+_T_SENDS = [("S", [["a", 0, 1], ["b", 0, 2]], 1000),
+            ("S", [["a", 0, 3]], 1300),
+            ("S", [["b", 0, 4], ["a", 0, 5], ["a", 0, 6]], 1700),
+            ("S", [["c", 0, 7]], 2600), ("S", [["c", 0, 8]], 5000)]
+_HOP_SENDS = [("S", [["a", 0, 1], ["b", 0, 2]], 1000),
+              ("S", [["a", 0, 4]], 1500), ("S", [["b", 0, 8]], 2200),
+              ("S", [["a", 0, 16], ["c", 0, 32]], 3100),
+              ("S", [["c", 0, 64]], 4100), ("S", [["a", 0, 1]], 9000)]
+_X11_SPECS = [
+    ("keyed externalTime", _part("externalTime(et, 1000)",
+                                 "k, v, sum(v) as total"), "q", _EXT_SENDS),
+    ("keyed externalTime group by having",
+     _part("externalTime(et, 1000)", "k, v, count() as n",
+           out="group by v having n > 0 and v > 1 insert all events into "
+               "Out;"),
+     "q", _EXT_SENDS),
+    ("keyed externalTime filter after the window",
+     _part("externalTime(et, 1000)", "k, v, count() as n", extra="[v > 2]"),
+     "q", _EXT_SENDS),
+    ("keyed externalTime nulls", _part("externalTime(et, 1000)",
+                                       "k, v, sum(v) as s"), "q",
+     [("S", [["a", 1000, None], ["a", 1200, 2]], 1000),
+      ("S", [["a", 2100, None], ["b", 100, None]], 1100)]),
+    ("keyed timeLength", _part("timeLength(1 sec, 2)",
+                               "k, v, count() as n"), "q", _T_SENDS),
+    ("keyed delay", _part("delay(500)", "k, v, sum(v) as s"), "q", _T_SENDS),
+    ("keyed externalTimeBatch", _part("externalTimeBatch(et, 1000)",
+                                      "k, count() as n"), "q", _EXT_SENDS),
+    ("keyed externalTimeBatch with start",
+     _part("externalTimeBatch(et, 1000, 700)", "k, v, sum(v) as s"), "q",
+     _EXT_SENDS),
+    ("keyed batch", _part("batch()", "k, count() as n"), "q",
+     [("S", [["a", 0, 1], ["b", 0, 2], ["a", 0, 3]], 1000),
+      ("S", [["b", 0, 4]], 1100), ("S", [["a", 0, 5], ["b", 0, 6]], 1200)]),
+    ("keyed cron", _part("cron('* * * * * ?')", "k, sum(v) as s"), "q",
+     [("S", [["a", 0, 1], ["b", 0, 2]], 100),
+      ("S", [["a", 0, 3]], 300), ("S", [["b", 0, 10]], 1200),
+      ("S", [["c", 0, 5]], 2500), ("S", [["a", 0, 7]], 3600)]),
+    ("keyed sort desc", _part("sort(2, v, 'desc')", "k, v"), "q",
+     [("S", [["a", 0, 5], ["a", 0, 1], ["b", 0, 3], ["a", 0, 9]], 1000),
+      ("S", [["b", 0, 7], ["b", 0, 1], ["a", 0, None]], 1100),
+      ("S", [["b", 0, 8], ["a", 0, 2]], 1200)]),
+    ("keyed sort asc group by", _part(
+        "sort(2, v)", "k, v, count() as n",
+        out="group by v insert all events into Out;"), "q",
+     [("S", [["a", 0, 5], ["a", 0, 1], ["b", 0, 3], ["a", 0, 9]], 1000),
+      ("S", [["b", 0, 7], ["b", 0, 1], ["a", 0, 0]], 1100)]),
+    ("keyed hopping", _part("hopping(2 sec, 1 sec)", "k, count() as n"),
+     "q", _HOP_SENDS),
+    ("keyed hopping expired", _part("hopping(2 sec, 1 sec)", "k, v",
+                                    out="insert expired events into Out;"),
+     "q", _HOP_SENDS),
+    ("range partition externalTime", _part(
+        "externalTime(et, 1000)", "k, v, sum(v) as total",
+        key="v < 5 as 'lo' or v >= 5 as 'hi'"), "q", _EXT_SENDS),
+    ("range partition sort", _part(
+        "sort(1, et)", "k, et, v", key="v < 5 as 'lo' or v >= 5 as 'hi'"),
+     "q", _EXT_SENDS),
+    ("purge timeLength", _part(
+        "timeLength(2 sec, 3)", "k, v, count() as n",
+        ann="@capacity(keys='4')\n  @purge(enable='true', interval='1 sec',"
+            " idle.period='3 sec')"), "q",
+     [("S", [["a", 0, 1], ["b", 0, 2], ["a", 0, 3]], 1000),
+      ("S", [["c", 0, 3], ["d", 0, 4]], 8000),
+      ("S", [["a", 0, 5], ["e", 0, 6]], 9000),
+      ("S", [["a", 0, 7], ["e", 0, 8]], 9500)]),
+    ("purge hopping", _part(
+        "hopping(2 sec, 1 sec)", "k, v, count() as n",
+        ann="@capacity(keys='4')\n  @purge(enable='true', interval='1 sec',"
+            " idle.period='3 sec')"), "q",
+     [("S", [["a", 0, 1], ["b", 0, 2]], 1000),
+      ("S", [["c", 0, 3], ["d", 0, 4]], 8000),
+      ("S", [["a", 0, 5], ["e", 0, 6]], 9000),
+      ("S", [["a", 0, 7]], 12000)]),
+]
+
+_X11_WANT = [[(1000, [(1000, ('a', 1, 1)), (1000, ('a', 3, 4)), (1000, ('b', 2, 2))], []),
+  (1100, [(1100, ('a', 5, 8)), (1100, ('b', 4, 6))], [(2000, ('a', 1, 3))]),
+  (2000,
+   [(1200, ('a', 6, 14)), (1200, ('b', 7, 7)), (1200, ('c', 8, 8))],
+   [(2000, ('b', 2, 4)), (2800, ('b', 4, None))]),
+  (2800,
+   [(1300, ('a', 9, 9))],
+   [(2500, ('a', 3, 11)), (2900, ('a', 6, 5)), (3200, ('a', 5, None))])],
+ [(1000, [(1000, ('a', 3, 1)), (1000, ('b', 2, 1))], []),
+  (1100, [(1100, ('a', 5, 1)), (1100, ('b', 4, 1))], []),
+  (1200, [(1200, ('a', 6, 1)), (1200, ('b', 7, 1)), (1200, ('c', 8, 1))], []),
+  (1300, [(1300, ('a', 9, 1))], [])],
+ [(1000, [(1000, ('a', 3, 1))], []),
+  (1100, [(1100, ('a', 5, 2)), (1100, ('b', 4, 1))], []),
+  (1200,
+   [(1200, ('a', 6, 3)), (1200, ('b', 7, 1)), (1200, ('c', 8, 1))],
+   [(2800, ('b', 4, 0))]),
+  (2800,
+   [(1300, ('a', 9, 1))],
+   [(2500, ('a', 3, 2)), (2900, ('a', 6, 1)), (3200, ('a', 5, 0))])],
+ [(1000, [(1000, ('a', None, None)), (1000, ('a', 2, 2))], []),
+  (1100,
+   [(1100, ('a', None, 2)), (1100, ('b', None, None))],
+   [(2000, ('a', None, 2))])],
+ [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+  (1300, [(1300, ('a', 3, 2))], []),
+  (1700,
+   [(1700, ('a', 5, 1)), (1700, ('a', 6, 2)), (1700, ('b', 4, 2))],
+   [(1700, ('a', 1, 1)), (1700, ('a', 3, 0))]),
+  (2000, [], [(2000, ('b', 2, 1))]),
+  (2600, [(2600, ('c', 7, 1))], []),
+  (2700, [], [(2700, ('a', 5, 1)), (2700, ('a', 6, 0)), (2700, ('b', 4, 0))]),
+  (3600, [], [(3600, ('c', 7, 0))]),
+  (5000, [(5000, ('c', 8, 1))], [])],
+ [(1500, [(1000, ('a', 1, 1)), (1000, ('b', 2, 2))], []),
+  (1800, [(1300, ('a', 3, 4))], []),
+  (2200,
+   [(1700, ('a', 5, 9)), (1700, ('a', 6, 15)), (1700, ('b', 4, 6))],
+   []),
+  (3100, [(2600, ('c', 7, 7))], [])],
+ [(1100, [(1000, ('a', 1)), (1000, ('a', 2))], []),
+  (1200, [(1000, ('b', 1)), (1100, ('b', 2))], []),
+  (1300,
+   [(1100, ('a', 1)), (1200, ('a', 2))],
+   [(1000, ('a', -1)), (1000, ('a', -2))])],
+ [(1100, [(1000, ('a', 1, 1)), (1000, ('a', 3, 4)), (1000, ('b', 2, 2))], []),
+  (1200, [(1100, ('b', 4, 4))], [(1000, ('b', 2, None))]),
+  (1300,
+   [(1100, ('a', 5, 5)), (1200, ('a', 6, 11))],
+   [(1000, ('a', 1, -1)), (1000, ('a', 3, -4))])],
+ [(1000, [(1000, ('a', 1)), (1000, ('a', 2)), (1000, ('b', 1))], []),
+  (1100, [(1100, ('b', 1))], [(1000, ('b', 0))]),
+  (1200,
+   [(1200, ('a', 1)), (1200, ('b', 1))],
+   [(1000, ('a', -1)), (1000, ('a', -2)), (1100, ('b', -1))])],
+ [(1000, [(100, ('a', 1)), (300, ('a', 4)), (100, ('b', 2))], []),
+  (2000,
+   [(1200, ('b', 10))],
+   [(100, ('a', -1)), (300, ('a', -4)), (100, ('b', -2))]),
+  (3000, [(2500, ('c', 5))], [(1200, ('b', -10))])],
+ [(1000,
+   [(1000, ('a', 5)), (1000, ('a', 1)), (1000, ('a', 9)), (1000, ('b', 3))],
+   [(1000, ('a', 1))]),
+  (1100,
+   [(1100, ('a', None)), (1100, ('b', 7)), (1100, ('b', 1))],
+   [(1000, ('a', 5)), (1100, ('b', 1))]),
+  (1200,
+   [(1200, ('a', 2)), (1200, ('b', 8))],
+   [(1200, ('a', 2)), (1000, ('b', 3))])],
+ [(1000,
+   [(1000, ('a', 5, 1)),
+    (1000, ('a', 1, 1)),
+    (1000, ('a', 9, 1)),
+    (1000, ('b', 3, 1))],
+   [(1000, ('a', 9, 0))]),
+  (1100,
+   [(1100, ('a', 0, 1)), (1100, ('b', 7, 1)), (1100, ('b', 1, 1))],
+   [(1000, ('a', 5, 0)), (1100, ('b', 7, 0))])],
+ [(2000, [(1000, ('a', 1)), (1500, ('a', 2)), (1000, ('b', 1))], []),
+  (3000,
+   [(1000, ('a', 1)), (1500, ('a', 2)), (1000, ('b', 1)), (2200, ('b', 2))],
+   [(1000, ('a', -1)), (1500, ('a', -2)), (1000, ('b', -1))]),
+  (4000,
+   [(3100, ('a', 1)), (2200, ('b', 1))],
+   [(1000, ('a', -1)),
+    (1500, ('a', -2)),
+    (1000, ('b', -1)),
+    (2200, ('b', -2))]),
+  (4100, [(3100, ('c', 1))], []),
+  (5000, [(3100, ('a', 1))], [(3100, ('a', -1)), (2200, ('b', -1))]),
+  (5100, [(3100, ('c', 1)), (4100, ('c', 2))], [(3100, ('c', -1))]),
+  (6000, [], [(3100, ('a', -1))]),
+  (6100, [(4100, ('c', 1))], [(3100, ('c', -1)), (4100, ('c', -2))]),
+  (7100, [], [(4100, ('c', -1))])],
+ [(2000, [(1000, ('a', 1)), (1500, ('a', 4)), (1000, ('b', 2))], []),
+  (3000,
+   [(1000, ('a', 1)), (1500, ('a', 4)), (1000, ('b', 2)), (2200, ('b', 8))],
+   [(1000, ('a', 1)), (1500, ('a', 4)), (1000, ('b', 2))]),
+  (4000,
+   [(3100, ('a', 16)), (2200, ('b', 8))],
+   [(1000, ('a', 1)), (1500, ('a', 4)), (1000, ('b', 2)), (2200, ('b', 8))]),
+  (4100, [(3100, ('c', 32))], []),
+  (5000, [(3100, ('a', 16))], [(3100, ('a', 16)), (2200, ('b', 8))]),
+  (5100, [(3100, ('c', 32)), (4100, ('c', 64))], [(3100, ('c', 32))]),
+  (6000, [], [(3100, ('a', 16))]),
+  (6100, [(4100, ('c', 64))], [(3100, ('c', 32)), (4100, ('c', 64))]),
+  (7100, [], [(4100, ('c', 64))])],
+ [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 3)), (1000, ('a', 3, 6))], []),
+  (1100, [(1100, ('b', 4, 10)), (1100, ('a', 5, 5))], []),
+  (1200,
+   [(1200, ('c', 8, 13)), (1200, ('a', 6, 11)), (1200, ('b', 7, 12))],
+   [(1500, ('c', 8, 5)), (2900, ('a', 6, 5))]),
+  (2900,
+   [(1300, ('a', 9, 9))],
+   [(3200, ('a', 5, 7)), (4000, ('b', 7, None))])],
+ [(1000,
+   [(1000, ('a', 1000, 1)), (1000, ('b', 1000, 2)), (1000, ('a', 1500, 3))],
+   [(1000, ('b', 1000, 2)), (1000, ('a', 1500, 3))]),
+  (1100,
+   [(1100, ('b', 1800, 4)), (1100, ('a', 2200, 5))],
+   [(1100, ('b', 1800, 4))]),
+  (1200,
+   [(1200, ('a', 1900, 6)), (1200, ('b', 3000, 7)), (1200, ('c', 500, 8))],
+   [(1100, ('a', 2200, 5)), (1200, ('a', 1900, 6)), (1200, ('b', 3000, 7))]),
+  (1300, [(1300, ('a', 4000, 9))], [(1300, ('a', 4000, 9))])],
+ [(1000, [(1000, ('a', 1, 1)), (1000, ('a', 3, 2)), (1000, ('b', 2, 1))], []),
+  (3000, [], [(3000, ('a', 1, 1)), (3000, ('a', 3, 0)), (3000, ('b', 2, 0))]),
+  (8000, [(8000, ('d', 4, 1)), (8000, ('c', 3, 1))], []),
+  (9000, [(9000, ('a', 5, 1)), (9000, ('e', 6, 1))], []),
+  (9500, [(9500, ('a', 7, 2)), (9500, ('e', 8, 2))], [])],
+ [(2000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+  (3000,
+   [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))],
+   [(1000, ('a', 1, -1)), (1000, ('b', 2, -1))]),
+  (4000, [], [(1000, ('a', 1, -1)), (1000, ('b', 2, -1))]),
+  (9000, [(8000, ('d', 4, 1)), (8000, ('c', 3, 1))], []),
+  (10000,
+   [(8000, ('d', 4, 1)),
+    (8000, ('c', 3, 1)),
+    (9000, ('a', 5, 1)),
+    (9000, ('e', 6, 1))],
+   [(8000, ('d', 4, -1)), (8000, ('c', 3, -1))]),
+  (11000,
+   [(9000, ('a', 5, 1)), (9000, ('e', 6, 1))],
+   [(8000, ('d', 4, -1)),
+    (8000, ('c', 3, -1)),
+    (9000, ('a', 5, -1)),
+    (9000, ('e', 6, -1))]),
+  (12000, [], [(9000, ('a', 5, -1)), (9000, ('e', 6, -1))])]]
+X11_CASES = [spec + (want,) for spec, want in zip(_X11_SPECS, _X11_WANT)]
 
 
 if __name__ == "__main__":

@@ -46,7 +46,12 @@ rows a compact prefix in add_seq order) and seq[K];
 head 0), `keyed_slab_to_jax` goes back (add_seq numbered below each key's
 counter, in window order) and `keyed_slab_logical` reads either package's
 keyed state as the same numpy view of every key's alive rows and
-counters.
+counters.  The keyed forms of K20-K23's windows carry across the same
+way: externalTime, delay, sort (Buffer, seq), batch (previous Buffer,
+seq) and hopping (Buffer, next, seq) as one block, externalTimeBatch
+(pending, previous, start, seq) and cron (pending, previous, seq) as two;
+a timeLength key's rows are put in add_seq order (the order its next
+step reads them in), its buffer keeps them in position order.
 
 Tables: `table_from_jax` carries a JAX `TableRuntime`'s columns, ts,
 valid, append pointer, free rows, primary-key allocator and @Index lane
@@ -185,7 +190,7 @@ def _keyed_blocks(wslab, mode):
     one block for `length` / `time`, (pending, previous) for
     `lengthBatch` and `timeBatch` (whose state also holds the slice start
     [K] before the seq)."""
-    from .kernels.keyed_window import _TWO_BLOCKS
+    from .kernels.keyed_window import _TWO_BLOCKS, MODE_TLEN
     bufs = (wslab[0], wslab[1]) if mode in _TWO_BLOCKS else (wslab[0],)
     out = []
     for b in bufs:
@@ -194,8 +199,21 @@ def _keyed_blocks(wslab, mode):
         if not np.array_equal(alive, np.arange(alive.shape[1])[None, :]
                               < n[:, None]):
             raise ValueError("a key's JAX buffer is not a compact prefix")
+        if mode == MODE_TLEN:
+            b = _by_add_seq(b)
         out.append((b, n))
     return out, np.asarray(wslab[-1])
+
+
+def _by_add_seq(b):
+    """A stacked Buffer with each key's rows in add_seq order (the dead
+    rows, at BIG_SEQ, after them)."""
+    order = np.argsort(np.asarray(b.add_seq), axis=1, kind="stable")
+
+    def take(x):
+        return np.take_along_axis(np.asarray(x), order, 1)
+    return type(b)(*(tuple(take(c) for c in x) if isinstance(x, tuple)
+                     else take(x) for x in b))
 
 
 def _jax_key_state(wslab, blocks, mode) -> dict:
@@ -207,17 +225,21 @@ def _jax_key_state(wslab, blocks, mode) -> dict:
     ses = mode == MODE_SESSION
     derive = {"start": lambda: np.asarray(wslab[1 if ses else 2]),
               "last": lambda: np.asarray(wslab[2]),
+              "next": lambda: np.asarray(wslab[1]),
               "ordered": lambda: _ordered(*blocks[0])}
     return {n: derive[n]() for n in KEY_STATE.get(mode, {})}
 
 
-def keyed_slab_from_jax(wslab, mode: int, types, device=None):
-    """A JAX keyed window state -> the port's KeyedSlab (K11's layout)."""
+def keyed_slab_from_jax(wslab, mode: int, types, device=None,
+                        key_init=None):
+    """A JAX keyed window state -> the port's KeyedSlab (K11's or
+    K20-K23's layout); `key_init` the per-key state's initial values
+    where the window's parameters set them."""
     from .kernels.keyed_window import _TWO_BLOCKS, KeyedSlab
     device = _dev(device)
     blocks, seq = _keyed_blocks(wslab, mode)
     K, C = np.asarray(blocks[0][0].ts).shape
-    slab = KeyedSlab.empty(mode, types, K, C, device)
+    slab = KeyedSlab.empty(mode, types, K, C, device, key_init)
     targets = [(slab.ts, slab.gslot, slab.cols, slab.count)]
     if mode in _TWO_BLOCKS:
         targets.append((slab.p_ts, slab.p_gslot, slab.p_cols,
@@ -433,8 +455,8 @@ def query_state_from_jax(planned, jax_state, device=None):
         port_w = latency_slab_from_jax(wstate, types, device)
     elif planned.keyed_window:
         from .core.planner import _keyed_shape
-        port_w = keyed_slab_from_jax(
-            wstate, _keyed_shape(w, planned.name)[0], types, device)
+        mode, _, _, key_init = _keyed_shape(w, planned.name)
+        port_w = keyed_slab_from_jax(wstate, mode, types, device, key_init)
     elif isinstance(w, ChunkBatchWindow):
         from .core.window import empty_buffer
         port_w = time_batch_state_from_jax(

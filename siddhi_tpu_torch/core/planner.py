@@ -20,8 +20,10 @@ reference's `kstep`, `siddhi_tpu/core/planner.py:539-584`)
     kstep(state, batch, gslot, key_idx, sel, now) -> (state', out, header)
 
 runs the pre-window filters and every key's window over the [K, C] slab
-(kernel K11, `kernels/keyed_window.py`), then the selector over the rows,
-which come out key-major.
+(kernel K11, `kernels/keyed_window.py`, for length, time, lengthBatch,
+timeBatch and session; K20-K23, `kernels/keyed_ext.py`, for
+externalTime, timeLength, delay, externalTimeBatch, batch, cron, sort and
+hopping), then the selector over the rows, which come out key-major.
 
 A range partition gives no key positions but a key function
 (`partition_key_fn`, host code): each row's key is the label of the first
@@ -43,7 +45,8 @@ Ported: filters before and after the window, the `length`, `time`,
 `timeLength`, `delay`, `batch`, `sort`, `cron`, `session`, `frequent`,
 `lossyFrequent` and `hopping` windows or none, keyed `length` / `time` /
 `lengthBatch` / `timeBatch` / `session` (with or without allowed latency)
-windows,
+/ `externalTime` / `timeLength` / `delay` / `externalTimeBatch` / `batch`
+/ `cron` / `sort` / `hopping` windows,
 group by, having, the built-in aggregators with distinctCount and
 unionSet on queries without a window, `x in Table` probes.  Stream
 functions, the other windows, named-window input and distinctCount over a
@@ -321,18 +324,20 @@ def plan_single_query(
 
     kstep = timer_keys = None
     if keyed_window:
+        from ..kernels.keyed_ext import keyed_ext_step
         from ..kernels.keyed_window import KeyedSlab, keyed_window_step
-        mode, C, t_ms, lat_ms = _keyed_shape(wproc, name)
+        mode, C, wkw, key_init = _keyed_shape(wproc, name)
+        # K11's windows or K20-K23's
+        wstep = keyed_ext_step if "prm" in wkw else keyed_window_step
         K = key_capacity
         types = in_schema.types
 
         def kstep(state, batch, gslot, key_idx, sel_idx, now: int,
                   tick: bool = False, in_tabs=None):
             slab, astate = state
-            orows, wake = keyed_window_step(
+            orows, wake = wstep(
                 slab, fspec.bind(in_tabs), batch.ts, batch.kind, batch.valid,
-                gslot, batch.cols, key_idx, sel_idx, now, t_ms, tick,
-                lat=lat_ms)
+                gslot, batch.cols, key_idx, sel_idx, now, tick=tick, **wkw)
             astate, (ots, okind, ovalid, ocols) = select_body(astate, orows,
                                                               now, in_tabs)
             cur = torch.logical_and(ovalid, okind == ev.CURRENT)
@@ -341,7 +346,7 @@ def plan_single_query(
             return (slab, astate), (ots, okind, ovalid, ocols), header
 
         def init_state():                              # noqa: F811
-            return (KeyedSlab.empty(mode, types, K, C, device),
+            return (KeyedSlab.empty(mode, types, K, C, device, key_init),
                     sel.init_state())
 
         tk = []
@@ -373,28 +378,60 @@ def plan_single_query(
 
 
 def _keyed_shape(wproc, name: str):
-    """(K11 mode, per-key capacity, time window length or session gap,
-    session latency) of a window kept per partition key (or per session
-    key).  Other window kinds raise: their keyed forms are not ported yet.
-    A timeBatch or session key holds max(@capacity(window), 2 * batch
-    capacity) rows, as the reference builds it."""
+    """(slab mode, per-key capacity, the keyword arguments of its step,
+    the per-key state's initial values) of a window kept per partition
+    key (or per session key): K11's windows take their time `t` (the
+    session gap) and session latency `lat`, K20-K23's an `ExtParams`.
+    `frequent` / `lossyFrequent` raise: their keyed forms are not ported
+    yet.  A key holds the window's capacity: max(@capacity(window), 2 *
+    batch capacity) rows for timeBatch, session, externalTime,
+    externalTimeBatch, delay, cron and hopping, `length` rows for length,
+    lengthBatch, timeLength and sort, and the batch capacity for `batch()`
+    (grown to the widest key row of a step), as the reference builds
+    them."""
     from ..kernels import keyed_window as kw
+    from ..kernels.keyed_ext import ExtParams
     from .window import (LengthBatchWindow, LengthWindow, TimeBatchWindow,
                          TimeWindow)
-    from .window_ext import SessionLatencyWindow, SessionWindow
+    from .window_ext import (ChunkBatchWindow, CronWindow, DelayWindow,
+                             ExternalTimeBatchWindow, ExternalTimeWindow,
+                             HoppingWindow, SessionLatencyWindow,
+                             SessionWindow, SortWindow, TimeLengthWindow)
     if isinstance(wproc, SessionLatencyWindow):
-        return kw.MODE_LATENCY, wproc.capacity, wproc.gap_ms, \
-            wproc.latency_ms
-    if isinstance(wproc, SessionWindow):
-        return kw.MODE_SESSION, wproc.capacity, wproc.gap_ms, 0
-    if isinstance(wproc, LengthWindow):
-        return kw.MODE_LENGTH, wproc.length, 0, 0
-    if isinstance(wproc, TimeWindow):
-        return kw.MODE_TIME, wproc.capacity, wproc.time_ms, 0
-    if isinstance(wproc, LengthBatchWindow):
-        return kw.MODE_BATCH, wproc.length, 0, 0
-    if isinstance(wproc, TimeBatchWindow):
-        return kw.MODE_TBATCH, wproc.capacity, wproc.time_ms, 0
+        return kw.MODE_LATENCY, wproc.capacity, dict(
+            t=wproc.gap_ms, lat=wproc.latency_ms), None
+    k11 = {SessionWindow: (kw.MODE_SESSION, "capacity", "gap_ms"),
+           LengthWindow: (kw.MODE_LENGTH, "length", None),
+           TimeWindow: (kw.MODE_TIME, "capacity", "time_ms"),
+           LengthBatchWindow: (kw.MODE_BATCH, "length", None),
+           TimeBatchWindow: (kw.MODE_TBATCH, "capacity", "time_ms")}
+    for cls, (mode, cap, t) in k11.items():
+        if isinstance(wproc, cls):
+            return mode, getattr(wproc, cap), dict(
+                t=getattr(wproc, t) if t else 0, lat=0), None
+    if isinstance(wproc, ExternalTimeWindow):
+        return kw.MODE_EXT, wproc.capacity, dict(prm=ExtParams(
+            t=wproc.time_ms, ts_pos=wproc.ts_pos)), None
+    if isinstance(wproc, TimeLengthWindow):
+        return kw.MODE_TLEN, wproc.capacity, dict(prm=ExtParams(
+            t=wproc.time_ms, length=wproc.length)), None
+    if isinstance(wproc, DelayWindow):
+        return kw.MODE_DELAY, wproc.capacity, dict(prm=ExtParams(
+            t=wproc.time_ms)), None
+    if isinstance(wproc, ExternalTimeBatchWindow):
+        return kw.MODE_XBATCH, wproc.capacity, dict(prm=ExtParams(
+            t=wproc.time_ms, ts_pos=wproc.ts_pos)), {"start": wproc.start}
+    if isinstance(wproc, ChunkBatchWindow):
+        return kw.MODE_CHUNK, wproc.capacity, dict(prm=ExtParams()), None
+    if isinstance(wproc, CronWindow):
+        return kw.MODE_CRON, wproc.capacity, dict(prm=ExtParams()), None
+    if isinstance(wproc, SortWindow):
+        return kw.MODE_SORT, wproc.capacity, dict(prm=ExtParams(
+            length=wproc.length, key_pos=wproc.key_pos,
+            desc=wproc.descending)), None
+    if isinstance(wproc, HoppingWindow):
+        return kw.MODE_HOP, wproc.capacity, dict(prm=ExtParams(
+            win=wproc.win_ms, hop=wproc.hop_ms)), None
     raise CompileError(f"query {name!r}: the keyed form of a "
                        f"{wproc.name!r} window is not yet ported (ROADMAP "
                        f"B12)")

@@ -725,7 +725,8 @@ _HOLDS = {"timeBatch": "time batch window's slice",
           "delay": "delay window's buffer",
           "session": "session window's session (per key)",
           "cron": "cron window's pending batch",
-          "hopping": "hopping window's buffer"}
+          "hopping": "hopping window's buffer",
+          "batch": "batch window's chunk"}
 
 
 def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
@@ -741,10 +742,13 @@ def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
     nv, ncur, wake, missed = header.tolist()
     w = qr.planned.window
     if missed and w.name in _HOLDS:
+        per_key = qr.planned.keyed_window and "per key" not in \
+            _HOLDS[w.name]
         raise RuntimeError(
             f"query {qr.name!r}: {missed} rows did not fit the "
-            f"{_HOLDS[w.name]} of {w.capacity} rows; raise "
-            f"@capacity(window=...)")
+            f"{_HOLDS[w.name]}{' (per key)' if per_key else ''} of "
+            f"{qr.state[0].C if qr.planned.keyed_window else w.capacity} "
+            f"rows; raise @capacity(window=...)")
     if missed:
         raise RuntimeError(
             f"query {qr.name!r}: {missed} more rows expired than the time "

@@ -30,7 +30,8 @@ SOURCES = ("pattern_step", "filter_compact", "time_window", "length_batch",
            "group_agg", "length_window", "join_lanes", "join_probe",
            "block_nfa", "table_write", "table_match", "keyed_window",
            "in_probe", "time_batch", "order_limit", "post_filter",
-           "ext_window", "sort_window", "hop_window", "frequent")
+           "ext_window", "sort_window", "hop_window", "frequent",
+           "keyed_ext")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

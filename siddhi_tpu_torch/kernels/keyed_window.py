@@ -86,7 +86,13 @@ and the time window's i32
 ring (its expiring rows are then a prefix, which lets the kernel skip the
 survivors when no arrival is older than the last of them).  A time
 window's rows store no expire_ts: it is always ts + t.  Only alive rows
-are defined.
+are defined.  The slabs of the keyed kernels K20-K23 (`kernels/keyed_ext.py`,
+MODE_EXT to MODE_HOP) are KeyedSlabs too, each key's rows a compact
+prefix (head 0): externalTimeBatch and cron keep their pending and
+previous blocks as lengthBatch does, externalTimeBatch its `start` (the
+window's start parameter for a fresh key, else -1; `key_init`) and
+hopping its `next` boundary (-1 unset) in `key_state`; `grow` widens a
+`batch()` slab to the widest key row of a step.
 
 `keyed_window_step` is what the keyed planner calls: CPU tensors run
 `plain`, CUDA tensors launch the kernel; both return the rows and i64[2]
@@ -114,7 +120,13 @@ tick_launches = 0
 
 (MODE_LENGTH, MODE_TIME, MODE_BATCH, MODE_TBATCH, MODE_SESSION,
  MODE_LATENCY) = range(6)
-_TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH, MODE_LATENCY)
+# the modes of the keyed kernels K20-K23 (`kernels/keyed_ext.py`), whose
+# slabs are KeyedSlabs too: externalTime, timeLength, delay (K20),
+# externalTimeBatch, batch, cron (K21), sort (K22), hopping (K23)
+(MODE_EXT, MODE_TLEN, MODE_DELAY, MODE_XBATCH, MODE_CHUNK, MODE_CRON,
+ MODE_SORT, MODE_HOP) = range(6, 14)
+_TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH, MODE_LATENCY, MODE_XBATCH,
+               MODE_CRON)
 # the per-key state a mode keeps beside head / count / seq (and p_count):
 # name -> (dtype, the value of a key with no rows)
 KEY_STATE = {MODE_TIME: {"ordered": (torch.int32, 1)},
@@ -122,7 +134,9 @@ KEY_STATE = {MODE_TIME: {"ordered": (torch.int32, 1)},
              MODE_SESSION: {"start": (torch.int64, -1),
                             "last": (torch.int64, -1)},
              MODE_LATENCY: {n: (torch.int64, -1) for n in (
-                 "start", "last", "p_start", "p_last", "p_alive")}}
+                 "start", "last", "p_start", "p_last", "p_alive")},
+             MODE_XBATCH: {"start": (torch.int64, -1)},
+             MODE_HOP: {"next": (torch.int64, -1)}}
 MAX_COLS, MAX_CODE, BLOCK = 16, 256, 128
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
@@ -146,15 +160,21 @@ class KeyedSlab:
 
     def __init__(self, mode, types, ts, gslot, cols, head, count, seq,
                  p_ts=None, p_gslot=None, p_cols=None, p_count=None,
-                 key_state=None):
+                 key_state=None, key_init=None):
         self.mode, self.types = mode, list(types)
         self.ts, self.gslot, self.cols = ts, gslot, tuple(cols)
         self.head, self.count, self.seq = head, count, seq
         self.p_ts, self.p_gslot = p_ts, p_gslot
         self.p_cols = tuple(p_cols) if p_cols is not None else None
         self.p_count = p_count
-        # the mode's KEY_STATE tensors, [K] each
+        # the mode's KEY_STATE tensors, [K] each, and the value each takes
+        # for a key with no rows where the window's parameters set it (an
+        # externalTimeBatch's start)
         self.key_state = dict(key_state or {})
+        self.key_init = dict(key_init or {})
+
+    def init_value(self, name: str) -> int:
+        return self.key_init.get(name, KEY_STATE[self.mode][name][1])
 
     @property
     def K(self) -> int:
@@ -166,7 +186,7 @@ class KeyedSlab:
 
     @classmethod
     def empty(cls, mode: int, types: Sequence[str], K: int, C: int,
-              device) -> "KeyedSlab":
+              device, key_init=None) -> "KeyedSlab":
         def z(d, shape=(K, C)):
             return torch.zeros(shape, dtype=d, device=device)
 
@@ -179,11 +199,13 @@ class KeyedSlab:
             p_ts, p_gslot, p_cols = block()
             extra = dict(p_ts=p_ts, p_gslot=p_gslot, p_cols=p_cols,
                          p_count=z(torch.int32, (K,)))
-        key_state = {n: torch.full((K,), v, dtype=d, device=device)
+        key_init = dict(key_init or {})
+        key_state = {n: torch.full((K,), key_init.get(n, v), dtype=d,
+                                   device=device)
                      for n, (d, v) in KEY_STATE.get(mode, {}).items()}
         return cls(mode, types, ts, gslot, cols, z(torch.int32, (K,)),
                    z(torch.int32, (K,)), z(torch.int64, (K,)),
-                   key_state=key_state, **extra)
+                   key_state=key_state, key_init=key_init, **extra)
 
     def tensors(self):
         out = [self.ts, self.gslot, *self.cols, self.head, self.count,
@@ -202,15 +224,29 @@ class KeyedSlab:
             c(self.p_gslot),
             None if self.p_cols is None else [x.clone() for x in self.p_cols],
             c(self.p_count),
-            {n: x.clone() for n, x in self.key_state.items()})
+            {n: x.clone() for n, x in self.key_state.items()},
+            self.key_init)
 
     def reset_keys(self, idx) -> None:
         """Empty the keys at `idx` (a purged partition key's slot)."""
         for x in (self.head, self.count, self.seq, self.p_count):
             if x is not None:
                 x[idx] = 0
-        for n, (_, v) in KEY_STATE.get(self.mode, {}).items():
-            self.key_state[n][idx] = v
+        for n in KEY_STATE.get(self.mode, {}):
+            self.key_state[n][idx] = self.init_value(n)
+
+    def grow(self, C: int) -> None:
+        """Widen every key's blocks to C rows, their rows kept (`batch()`
+        grows to the largest chunk a key receives)."""
+        def wide(x):
+            y = torch.zeros((self.K, C), dtype=x.dtype, device=x.device)
+            y[:, :x.shape[1]] = x
+            return y
+        self.ts, self.gslot = wide(self.ts), wide(self.gslot)
+        self.cols = tuple(wide(x) for x in self.cols)
+        if self.p_ts is not None:
+            self.p_ts, self.p_gslot = wide(self.p_ts), wide(self.p_gslot)
+            self.p_cols = tuple(wide(x) for x in self.p_cols)
 
     def copy_from(self, other: "KeyedSlab") -> None:
         """Take `other`'s contents in place."""

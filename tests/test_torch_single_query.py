@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from siddhi_tpu import Event as JaxEvent
 from siddhi_tpu import SiddhiManager as JaxManager
 from siddhi_tpu_torch import Event as TorchEvent
@@ -240,8 +241,6 @@ def test_out_of_subset_raises_at_plan_time_on_cuda():
 
 
 @pytest.mark.parametrize("body,item", [
-    ("partition with (symbol of S) begin from S#window.cron('*/5 * * * * "
-     "?') select price insert into O; end;", "B12"),
     ("partition with (symbol of S) begin from S#window.frequent(2) "
      "select price insert into O; end;", "B12"),
     ("from S#window.length(4) select distinctCount(symbol) as d "
@@ -253,6 +252,37 @@ def test_unported_single_stream_features_raise(body, item):
     ql = "define stream S (symbol long, price float, volume int);\n" + body
     with pytest.raises(CompileError, match=item):
         TorchManager(device="cpu").create_siddhi_app_runtime(ql)
+
+
+def test_keyed_cron_parity():
+    """A cron window inside a partition (once a raising case above) is
+    kept per key (kernel K21, `kernels/keyed_ext.py`): under playback the
+    timer's fire times tick every key, each flushing its own batch; the
+    port gives the JAX package's events (its scheduler kept to one timer
+    entry per fire time, as the port's)."""
+    from siddhi_tpu.core import runtime as jax_runtime
+    ql = """@app:playback
+    define stream S (symbol long, price float, volume int);
+    partition with (symbol of S) begin
+    @info(name='q') from S#window.cron('*/5 * * * * ?')
+    select symbol, sum(price) as total insert all events into O; end;"""
+    sends = [("S", [[s, float(i + s), i] for s in range(3)], 1000 + 2000 * i)
+             for i in range(7)]
+    orig = jax_runtime._Scheduler.notify_at
+
+    def notify_at(self, ts, q):
+        with self._cv:
+            if any(t == ts and x is q for t, _, x in self._heap):
+                return
+        orig(self, ts, q)
+    jax_runtime._Scheduler.notify_at = notify_at
+    try:
+        want = chip_smoke.corpus_run(JaxManager(), ql, "q", sends)
+    finally:
+        jax_runtime._Scheduler.notify_at = orig
+    assert sum(len(e) for _, _, e in want) > 0
+    assert chip_smoke.corpus_run(TorchManager(device="cpu"), ql, "q",
+                                 sends) == want
 
 
 def test_windowless_distinct_count_parity():

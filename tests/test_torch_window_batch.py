@@ -13,8 +13,8 @@ compute nothing), over random batches with padding rows, TIMER rows, a
 cron flush that carries arrivals and hops collapsed in one gap.  Then the
 two places the port departs from the JAX package (a cron fire time
 flushes once; a chunk above the reference's capacity is kept whole),
-the shortfalls that raise, the parameter lists that raise and the kinds
-whose keyed form is not ported (inside a partition).  chip_smoke's CB1,
+the shortfalls that raise, the parameter lists that raise and the keyed
+forms (inside a partition) against the JAX package.  chip_smoke's CB1,
 CR1 and HP1 models are held to the port's rows at a small size.
 """
 import jax
@@ -310,9 +310,19 @@ def test_parameters_that_raise(win, exc, match):
 
 @pytest.mark.parametrize("win", ["batch()", "cron('* * * * * ?')",
                                  "hopping(2 sec, 1 sec)"])
-def test_keyed_form_raises_naming_b12(win):
-    ql = f"""define stream S (k string, v int);
+def test_keyed_form_raises_naming_b12(win, one_entry_per_fire_time):
+    """Inside a partition these windows are kept per key (kernels K21 and
+    K23, `kernels/keyed_ext.py`; once a CompileError naming B12): the port
+    gives the JAX package's events, keys interleaved in each send, with
+    the timer's ticks over every key."""
+    ql = f"""@app:playback
+    define stream S (k string, v int);
     partition with (k of S) begin
-    @info(name='q') from S#window.{win} select k, v insert into O; end;"""
-    with pytest.raises(CompileError, match="B12"):
-        TorchManager(device="cpu").create_siddhi_app_runtime(ql)
+    @info(name='q') from S#window.{win} select k, v, count() as n
+    insert all events into O; end;"""
+    sends = [("S", [[k, 10 * i + j] for j, k in enumerate("abcab"[:2 + i % 4])],
+              1000 + 700 * i) for i in range(6)]
+    want = chip_smoke.corpus_run(JaxManager(), ql, "q", sends)
+    assert sum(len(c) + len(e) for _, c, e in want) > 0
+    assert chip_smoke.corpus_run(TorchManager(device="cpu"), ql, "q",
+                                 sends) == want

@@ -13,7 +13,9 @@ compute nothing), over random batches with padding rows, out-of-order
 timestamps and TIMER rows.  Then the reference's externalTime defect the
 port does not copy, a capacity shortfall that raises, and the parameter
 lists and unported kinds that raise (of the window_ext kinds too that
-other files hold to the JAX package: batch, cron, frequent, hopping).
+other files hold to the JAX package: batch, cron, frequent, hopping), and
+the keyed forms of these five kinds (inside a partition) against the JAX
+package.
 """
 import numpy as np
 import pytest
@@ -280,10 +282,17 @@ def test_parameters_and_unported_kinds_raise(win, exc, match):
                                  "timeLength(1 sec, 4)", "delay(1 sec)",
                                  "sort(3, v)"])
 def test_keyed_forms_raise(win):
-    """Inside a partition these windows would be kept per key; their
-    keyed forms are not ported yet."""
-    ql = ("define stream S (et long, v float, w int, b bool);\n"
+    """Inside a partition these windows are kept per key (kernels K20 and
+    K21, `kernels/keyed_ext.py`; once a B12 CompileError): the port gives
+    the JAX package's events, keys interleaved in each send."""
+    ql = ("@app:playback\n"
+          "define stream S (et long, v float, w int, b bool);\n"
           "partition with (w of S) begin\n"
-          f"from S#window.{win} select v insert into O;\nend;")
-    with pytest.raises(CompileError, match="B12"):
-        TorchManager(device="cpu").create_siddhi_app_runtime(ql)
+          f"@info(name='q') from S#window.{win} select w, v, count() as n "
+          "insert all events into O;\nend;")
+    sends = [("S", [[1000 + 300 * i + 40 * j, float(i + j), j % 3, j % 2 == 0]
+                    for j in range(5)], 1000 + 400 * i) for i in range(6)]
+    want = chip_smoke.corpus_run(JaxManager(), ql, "q", sends)
+    assert sum(len(c) + len(e) for _, c, e in want) > 0
+    assert chip_smoke.corpus_run(TorchManager(device="cpu"), ql, "q",
+                                 sends) == want
