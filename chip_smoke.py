@@ -823,6 +823,7 @@ def main() -> None:
     records += slice9_phases(torch, np, dev)
     records += slice10_phases(torch, np, dev)
     records += slice11_phases(torch, np, dev)
+    records += slice12_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -11145,7 +11146,8 @@ def check_keyed(np, what, batches, names, exp, agg, resets):
     expect(np, what, names[0], dev, np.repeat(order, lens[
         np.searchsorted(keys, order)]))
     if agg is None:
-        expect(np, what, names[1], g[names[1]], val)
+        for n, want in zip(names[1:], exp[4:]):
+            expect(np, what, n, g[n], want[idx])
         return
     c, a = agg.run(dev, kind == 0, val, block, resets)
     expect(np, what, "a", g["a"], a)
@@ -12166,6 +12168,1786 @@ _X11_WANT = [[(1000, [(1000, ('a', 1, 1)), (1000, ('a', 3, 4)), (1000, ('b', 2, 
     (9000, ('e', 6, -1))]),
   (12000, [], [(9000, ('a', 5, -1)), (9000, ('e', 6, -1))])]]
 X11_CASES = [spec + (want,) for spec, want in zip(_X11_SPECS, _X11_WANT)]
+
+
+
+# ---------------------------------------------------------------------------
+# slice 12: keyed frequent / lossyFrequent (K24) and the expression windows
+# at the top level and per key (K25, K26)
+# ---------------------------------------------------------------------------
+
+KF_KEYS = 1 << 16          # KFQ1's merchants, KEB1's meters
+KFQ1_B = 1 << 17           # purchases a send
+KFQ1_CARDS = 64            # a merchant's cards, drawn Zipf(1.1)
+KFQ1_FILL, KFQ1_TIMED, KFQ1_CHECK = 8, 16, 2
+EW1_B = 1 << 17            # trades a send
+EW1_FILL, EW1_TIMED, EW1_CHECK = 8, 16, 2
+EW1_C = 2048               # the default @capacity(window)
+KEB1_FILL, KEB1_TIMED, KEB1_CHECK = 24, 16, 2
+KEB1_C = 128
+
+# the Siddhi API reference's PotentialFraud query (lossyFrequent(0.1,
+# 0.01, cardNo)), kept per merchant: 10 counters a merchant
+KFQ1_QL = """
+@app:playback
+define stream PurchaseStream (merchant long, cardNo long, price float);
+partition with (merchant of PurchaseStream)
+begin
+  @capacity(keys='{keys}')
+  @info(name='kfq1')
+  from PurchaseStream#window.lossyFrequent(0.1, 0.01, cardNo)
+  select merchant, cardNo, price insert all events into PotentialFraud;
+end;
+"""
+# trades held while their volume sums under 100,000 within a minute
+EW1_QL = """
+@app:playback
+define stream TradeStream (symbol long, price float, volume int);
+@info(name='ew1')
+from TradeStream#window.expression(
+  'sum(volume) < 100000 and eventTimestamp(last) - eventTimestamp(first) < 60000')
+select symbol, price, volume insert all events into Windowed;
+"""
+# a bill per meter, cut when its energy reaches 10 kWh (the reading that
+# reaches it joins the bill)
+KEB1_QL = """
+@app:playback
+define stream MeterStream (meter long, kwh float);
+partition with (meter of MeterStream)
+begin
+  @capacity(keys='{keys}', window='128')
+  @info(name='keb1')
+  from MeterStream#window.expressionBatch('sum(kwh) < 10.0', true)
+  select meter, kwh insert all events into Bills;
+end;
+"""
+
+
+def slice12_modules():
+    from siddhi_tpu_torch.kernels import expr_window, keyed_freq
+    return {"keyed_freq": keyed_freq, "expr_window": expr_window}
+
+
+def kfq1_send(np, rng, i, b=KFQ1_B, keys=KF_KEYS):
+    """KFQ1's send i: b purchases, merchants uniform, each merchant's card
+    drawn Zipf(1.1) from its 64 (card id merchant * 64 + rank), prices in
+    cents below 500, at EX_T0 + 1 s * i (a ms apart in batch order)."""
+    r = np.arange(1, KFQ1_CARDS + 1, dtype=np.float64) ** -1.1
+    m = rng.integers(0, keys, b).astype(np.int64)
+    card = m * KFQ1_CARDS + rng.choice(KFQ1_CARDS, b, p=r / r.sum())
+    return ([m, card.astype(np.int64),
+             (rng.integers(100, 50_000, b) / 100).astype(np.float32)],
+            EX_T0 + 1000 * i + np.arange(b, dtype=np.int64) * 1000 // b)
+
+
+def ew1_send(np, rng, i, b=EW1_B):
+    """EW1's send i: b trades over a second (ts nondecreasing), symbols
+    of 512, volume uniform 1-200, every 8th send 61 s after the one
+    before."""
+    t = EX_T0 + 1000 * i + 61_000 * (i // 8)
+    return ([rng.integers(0, 512, b).astype(np.int64),
+             (rng.integers(1000, 20_000, b) / 100).astype(np.float32),
+             rng.integers(1, 201, b).astype(np.int32)],
+            t + np.arange(b, dtype=np.int64) * 1000 // b)
+
+
+def keb1_send(np, rng, i, keys=KF_KEYS):
+    """KEB1's send i: two readings of every meter, in a random order (a
+    meter's first before its second), kwh uniform 0.1-1.0, at EX_T0 +
+    1 s * i."""
+    p = rng.permutation(2 * keys)
+    meter = (p % keys).astype(np.int64)       # reading p // keys of meter
+    return ([meter, (0.1 + 0.9 * rng.random(2 * keys)).astype(np.float32)],
+            np.full(2 * keys, EX_T0 + 1000 * i, np.int64))
+
+
+def rank_in_key(np, key):
+    """Each row's rank among its key's rows (batch order)."""
+    o = np.argsort(key, kind="stable")
+    k = key[o]
+    start = np.r_[0, np.nonzero(k[1:] != k[:-1])[0] + 1] if k.size else \
+        np.zeros(0, np.int64)
+    r = np.empty(key.shape[0], np.int64)
+    r[o] = np.arange(k.shape[0]) - np.repeat(start, np.diff(np.r_[start,
+                                                                  k.size]))
+    return r
+
+
+class KFQ1Model:
+    """KFQ1's counters in numpy: per merchant 10 (Misra-Gries, as the
+    reference's FrequentWindow): a purchase whose card a counter holds
+    adds one to it, the stored purchase EXPIRED and the new one stored; a
+    free counter (the lowest) takes a new card; else every count drops by
+    one, the counters reaching 0 EXPIRED in counter order, and the
+    purchase is not emitted.  A stored purchase comes out with the new
+    purchase's ts.  A checked step holds every row, merchant by merchant
+    (kind, ts, card, price)."""
+
+    def __init__(self, np, keys, n=10):
+        self.np, self.n = np, n
+        self.cnt = np.zeros((keys, n), np.int64)
+        self.card = np.zeros((keys, n), np.int64)
+        self.price = np.zeros((keys, n), np.float32)
+
+    def step(self, cols, ts, batches, what):
+        np, n = self.np, self.n
+        m, card, price = cols
+        rank = rank_in_key(np, m)
+        R = int(rank.max()) + 1 if rank.size else 0
+        K = self.cnt.shape[0]
+        W = n + 1                      # a purchase's rows: n EXPIRED, CURRENT
+        ex = np.zeros((K, R * W), np.bool_)
+        kind = np.zeros((K, R * W), np.int32)
+        tss = np.zeros((K, R * W), np.int64)
+        cc = np.zeros((K, R * W), np.int64)
+        pp = np.zeros((K, R * W), np.float32)
+        jj = np.arange(n)[None, :]
+        evicted = 0
+        for r in range(R):
+            at = np.nonzero(rank == r)[0]
+            k, c, p, t = m[at], card[at], price[at], ts[at]
+            cnt, held = self.cnt[k], self.card[k]
+            match = (cnt > 0) & (held == c[:, None])
+            hit = match.any(1)
+            free = cnt == 0
+            slot = np.where(hit, match.argmax(1), free.argmax(1))
+            miss = ~hit & ~free.any(1)
+            out = np.where(miss[:, None], cnt == 1,
+                           hit[:, None] & (jj == slot[:, None]))
+            lo = r * W
+            ex[k, lo:lo + n] = out
+            kind[k, lo:lo + n] = 1
+            tss[k, lo:lo + n] = t[:, None]
+            cc[k, lo:lo + n] = held
+            pp[k, lo:lo + n] = self.price[k]
+            ex[k, lo + n] = ~miss
+            tss[k, lo + n], cc[k, lo + n], pp[k, lo + n] = t, c, p
+            evicted += int((miss[:, None] & out).sum())
+            # the counters move
+            put = ~miss
+            cnt = np.where(miss[:, None], cnt - 1, cnt)
+            ks, sl = k[put], slot[put]
+            cnt[put, sl] = np.where(hit[put], cnt[put, sl] + 1, 1)
+            self.cnt[k] = cnt
+            self.card[ks, sl] = c[put]
+            self.price[ks, sl] = p[put]
+        if batches is not None:
+            keys, lens, flat = masked_rows(np, np.arange(K), ex, kind, tss,
+                                           cc, pp)
+            check_keyed(np, what, batches, ("merchant", "cardNo", "price"),
+                        (keys, lens, *flat), None, False)
+        return evicted
+
+
+class EW1Model:
+    """EW1's window in numpy: the trades held are a suffix of the stream;
+    each arrival's front is the first held trade from which the volume
+    sum to the arrival is under 100,000 and the arrival is less than a
+    minute later (both hold for every later start, so the first is found
+    by a binary search), at least the arrival's index + 1 - C; the trades
+    the front passes come out EXPIRED with their own ts before the
+    arrival's CURRENT row.  A checked step holds every row in order."""
+
+    def __init__(self, np, C=EW1_C):
+        self.np, self.C = np, C
+        self.ts = np.zeros(0, np.int64)
+        self.cols = [np.zeros(0, np.int64), np.zeros(0, np.float32),
+                     np.zeros(0, np.int32)]
+
+    def step(self, cols, ts, batches, what):
+        np = self.np
+        cnt, B = self.ts.shape[0], ts.shape[0]
+        cts = np.r_[self.ts, ts]
+        cc = [np.r_[a, b] for a, b in zip(self.cols, cols)]
+        vol = cc[2].astype(np.int64)
+        P = np.cumsum(vol)
+        hi = cnt + np.arange(B)
+        j_sum = np.searchsorted(P - vol, P[hi] - 100_000, side="right")
+        j_ts = np.searchsorted(cts, cts[hi] - 60_000, side="right")
+        front = np.maximum.accumulate(np.maximum(np.maximum(j_sum, j_ts),
+                                                 hi + 1 - self.C))
+        ff = int(front[-1]) if B else 0
+        p = np.arange(ff)
+        kp = np.searchsorted(front, p, side="right")
+        n = ff + B
+        order = np.empty(n, np.int64)
+        order[p + kp] = p
+        order[front + np.arange(B)] = hi
+        kind = np.zeros(n, np.int32)
+        kind[p + kp] = 1
+        if batches is not None:
+            g_kind, g_ts, g = sent_rows(np, batches,
+                                        ("symbol", "price", "volume"))
+            expect(np, what, "kind", g_kind, kind)
+            expect(np, what, "ts", g_ts, cts[order])
+            for name, c in zip(("symbol", "price", "volume"), cc):
+                expect(np, what, name, g[name], c[order])
+        self.ts = cts[ff:]
+        self.cols = [c[ff:] for c in cc]
+        return ff
+
+
+class KEB1Model:
+    """KEB1's bills in numpy: per meter its pending readings and their
+    exact float64 sum; a reading that brings the sum to 10 kWh or more
+    cuts the bill (pending and the reading) CURRENT, after the previous
+    bill EXPIRED, and the bill becomes the previous one.  A checked step
+    holds every row, meter by meter (kind, ts, kwh)."""
+
+    def __init__(self, np, keys, C=KEB1_C):
+        self.np, self.C = np, C
+        self.pend = np.zeros((keys, C), np.float32)
+        self.pend_ts = np.zeros((keys, C), np.int64)
+        self.n = np.zeros(keys, np.int64)
+        self.sum = np.zeros(keys, np.float64)
+        self.prev = np.zeros((keys, C + 1), np.float32)
+        self.prev_ts = np.zeros((keys, C + 1), np.int64)
+        self.pn = np.zeros(keys, np.int64)
+
+    def step(self, cols, ts, batches, what):
+        np, C = self.np, self.C
+        m, kwh = cols
+        rank = rank_in_key(np, m)
+        K = self.n.shape[0]
+        W = 2 * (C + 1)                # a meter's rows: EXPIRED, then CURRENT
+        ex = np.zeros((K, W), np.bool_)
+        kind = np.zeros((K, W), np.int32)
+        tss = np.zeros((K, W), np.int64)
+        val = np.zeros((K, W), np.float32)
+        flushed = np.zeros(K, np.bool_)
+        ar = np.arange(C + 1)[None, :]
+        for r in range(int(rank.max()) + 1 if rank.size else 0):
+            at = np.nonzero(rank == r)[0]
+            k, x, t = m[at], kwh[at], ts[at]
+            s = self.sum[k] + x.astype(np.float64)
+            cut = ~(s < 10.0)
+            if (cut & flushed[k]).any() or (self.n[k] >= C).any():
+                fail(f"{what}: KEB1 cuts a bill twice in a send or runs "
+                     f"past its capacity")
+            kc = k[cut]
+            pn, n = self.pn[kc], self.n[kc]
+            # the previous bill EXPIRED, then the pending readings and the
+            # reading CURRENT
+            ex[kc, :C + 1] = ar < pn[:, None]
+            kind[kc, :C + 1] = 1
+            tss[kc, :C + 1] = self.prev_ts[kc]
+            val[kc, :C + 1] = self.prev[kc]
+            bill = np.c_[self.pend[kc], np.zeros(kc.shape[0], np.float32)]
+            bts = np.c_[self.pend_ts[kc], np.zeros(kc.shape[0], np.int64)]
+            bill[np.arange(kc.shape[0]), n] = x[cut]
+            bts[np.arange(kc.shape[0]), n] = t[cut]
+            ex[kc, C + 1:] = ar < (n + 1)[:, None]
+            tss[kc, C + 1:] = bts
+            val[kc, C + 1:] = bill
+            self.prev[kc], self.prev_ts[kc], self.pn[kc] = bill, bts, n + 1
+            self.n[kc], self.sum[kc] = 0, 0.0
+            flushed[kc] = True
+            kk = k[~cut]
+            self.pend[kk, self.n[kk]] = x[~cut]
+            self.pend_ts[kk, self.n[kk]] = t[~cut]
+            self.n[kk] += 1
+            self.sum[kk] = s[~cut]
+        if batches is not None:
+            keys, lens, flat = masked_rows(np, np.arange(K), ex, kind, tss,
+                                           val)
+            check_keyed(np, what, batches, ("meter", "kwh"),
+                        (keys, lens, *flat), None, False)
+        return int(flushed.sum())
+
+
+def kf_small_checks(np, mgr_fn):
+    """KFQ1, EW1 and KEB1's models held to the port's rows at a small size
+    (64 keys; the CPU tests run this on the plain versions)."""
+    rng = np.random.default_rng(191)
+    ok = []
+    for ql, qname, stream, sends, model, fill in (
+            (KFQ1_QL, "kfq1", "PurchaseStream",
+             [kfq1_send(np, rng, i, 1024, 64) for i in range(8)],
+             KFQ1Model(np, 64), 2),
+            (EW1_QL, "ew1", "TradeStream",
+             [ew1_send(np, rng, i, 700) for i in range(10)],
+             EW1Model(np), 2),
+            (KEB1_QL, "keb1", "MeterStream",
+             [keb1_send(np, rng, i, 64) for i in range(30)],
+             KEB1Model(np, 64), 4)):
+        mgr = mgr_fn()
+        rt = mgr.create_siddhi_app_runtime(ql.format(keys=64))
+        got = []
+        rt.add_batch_callback(qname, lambda ts, b: got.append(b))
+        rt.start()
+        h = rt.get_input_handler(stream)
+        res = []
+        for i, (cols, ts) in enumerate(sends):
+            got.clear()
+            h.send_columns(cols, timestamps=ts)
+            res.append(model.step(cols, ts, list(got) if i >= fill else None,
+                                  f"{qname} send {i}"))
+        mgr.shutdown()
+        ok.append(sum(res[fill:]))
+    return ok
+
+
+def s12_twin(torch, planned, mod, slabs, args, what, stats):
+    """One K24-K26 step on slabs[0] and its plain version on slabs[1]:
+    every emitted row and the whole slab compared (exact)."""
+    prm = kx_prm(planned)
+    spec = planned.filter_spec
+    args = tuple(args[:8])
+    ra, wa = mod.launch(slabs[0], spec, *args, prm)
+    rb, wb = mod.plain(slabs[1], spec, *args, prm)
+    torch.cuda.synchronize()
+    err = rows_err(torch, ra, rb, what, full=True)
+    err = max(err, float_err(torch, wa, wb, f"{what} wake"),
+              slab_err(torch, slabs[0], slabs[1], what))
+    stats["steps"] += 1
+    stats["rows"] += int(ra.ts.shape[0])
+    stats["pads"] += int((args[5] >= slabs[0].K).sum())
+    return err
+
+
+def s12_hot(torch, planned, mod, slabs, args, what, stats):
+    """One K25 / K26 step whose widest key row is one hot key's (its key
+    in column 0): the kernel over every key row on slabs[0]; the plain
+    version on slabs[1] over the hot key row alone (the same E: its rows
+    and state exact) and over the other key rows at their own width, 8,192
+    at a time (rows and state exact but for seq, which hangs on E)."""
+    from siddhi_tpu_torch.core.window import Rows
+    prm = kx_prm(planned)
+    spec = planned.filter_spec
+    ts, kind, valid, gslot, cols, key_idx, sel, now = args[:8]
+    width = (sel >= 0).sum(1)
+    p = int(width.argmax())
+    rest = torch.ones_like(width, dtype=torch.bool)
+    rest[p] = False
+    e2 = max(int(width[rest].max()), 1)
+    ra, _ = mod.launch(slabs[0], spec, *args[:8], prm)
+    rh, _ = mod.plain(slabs[1], spec, ts, kind, valid, gslot, cols,
+                      key_idx[p:p + 1].contiguous(),
+                      sel[p:p + 1].contiguous(), now, prm)
+    others = torch.nonzero(rest).squeeze(1)
+    parts = []
+    for i0 in range(0, int(others.shape[0]), 8192):
+        r = others[i0:i0 + 8192]
+        parts.append(mod.plain(slabs[1], spec, ts, kind, valid, gslot, cols,
+                               key_idx[r].contiguous(),
+                               sel[r][:, :e2].contiguous(), now, prm)[0])
+    torch.cuda.synchronize()
+    is_hot = ra.cols[0] == cols[0][sel[p, 0].long()]
+
+    def sub(r, m, seq=True):
+        return Rows(ts=r.ts[m], kind=r.kind[m], valid=r.valid[m],
+                    seq=r.seq[m] if seq else torch.zeros_like(r.seq[m]),
+                    gslot=r.gslot[m], cols=tuple(c[m] for c in r.cols))
+    ro = Rows(*(torch.cat([getattr(x, f) for x in parts])
+                for f in ("ts", "kind", "valid", "seq", "gslot")),
+              cols=tuple(torch.cat(c) for c in zip(*(x.cols for x in parts))))
+    err = rows_err(torch, sub(ra, is_hot), rh, f"{what} hot key", full=True)
+    err = max(err, rows_err(
+        torch, sub(ra, ~is_hot, False),
+        sub(ro, torch.ones_like(ro.valid), False), f"{what} other keys",
+        full=True))
+    la, lb = slabs[0].logical(), slabs[1].logical()
+    k = int(key_idx[p])
+    for name in la:
+        x, y = la[name], lb[name]
+        if name == "seq":
+            x, y = x[k:k + 1], y[k:k + 1]
+        if not same_bits(torch, x, y):
+            err = max(err, float_err(torch, x, y, f"{what} slab {name}"))
+    stats["steps"] += 1
+    stats["rows"] += int(ra.ts.shape[0])
+    return err
+
+
+def s12_scratch(planned, C, args):
+    """K25 / K26's scratch bytes at these arguments, and what a [Kb, E]
+    layout (every key row as wide as the widest) would take."""
+    prm = kx_prm(planned)
+    B, (Kb, E) = int(args[0].shape[0]), tuple(args[6].shape)
+    nw = (C + (0 if prm.batch else 1) + 31) // 32
+    lanes = len(prm.program.lanes) + 2 * len(prm.program.aggs)
+    return ((lanes * (Kb * C + B) * 8 + B * (nw * 4 + 8 + 4) + Kb * E * 4),
+            (lanes * Kb * (C + E) * 8 + Kb * E * (nw * 4 + 8 + 4)))
+
+
+def top_args(torch, np, dev, planned, cols, ts):
+    """A top-level window's step arguments: the staged send on one key
+    row whose events are the whole batch."""
+    from siddhi_tpu_torch.core import event as ev
+    b = stage(np, ev, cols, ts).to_device(planned.in_schema, dev)
+    B = b.ts.shape[0]
+    return (b.ts, b.kind, b.valid, torch.zeros(B, dtype=torch.int32,
+                                               device=dev), b.cols,
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.arange(B, dtype=torch.int32, device=dev).view(1, B),
+            int(np.asarray(ts).max()))
+
+
+def top_plan(dev, ql, qname):
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    return rt.query_runtimes[qname].planned
+
+
+def compare_slice12(torch, np, dev, keys=KF_KEYS):
+    """Phase 45: K24, K25 and K26 against their plain versions, step by
+    step, exact: every row and every key's state.  K24 at KFQ1 (65,536
+    merchants: 2 sends from empty, 6 filling, 2 steady, a send from part
+    of the merchants: padding key rows) and frequent(4, price) with -0.0,
+    +0.0 and NaN prices; K25 per meter at KEB1's traffic (sum, and the
+    clamp at j = hi - C) and at the top level on one key row of 131,072
+    trades (EW1 from empty, filled, across a 61 s jump; a NaN price; the
+    clamp); K26 per meter (KEB1; a meter of 300 readings in a send: runs
+    above C) and at the top level with stream.current.event and with
+    include.triggering.event; K24 at KFQ1 with its counters in the global
+    workspace; K25 and K26 at C = 2,048 with one hot meter of 13,000
+    readings among 65,536 (s12_hot).  Returns (max error, timing inputs,
+    stats)."""
+    mods = slice12_modules()
+    rng = np.random.default_rng(193)
+    stats = {"steps": 0, "rows": 0, "pads": 0}
+    timing, err = {}, 0.0
+
+    def run(ql, qname, mod, steps, fill=(), time_as=None, top=False):
+        nonlocal err
+        plan = (top_plan if top else keyed_plan)(dev, ql, qname)
+        slab = plan.init_state()[0]
+        slabs = [slab, slab.clone()]
+        for j, (label, mk) in enumerate(steps):
+            args = mk(plan)
+            if j in fill:
+                mod.launch(slabs[0], plan.filter_spec, *tuple(args[:8]),
+                           kx_prm(plan))
+                if j + 1 not in fill:
+                    slabs[1] = slabs[0].clone()
+                continue
+            if time_as is not None and label == time_as[1]:
+                timing[time_as[0]] = (plan, mod, slabs[0].clone(),
+                                      tuple(args[:8]), label)
+            err = max(err, s12_twin(torch, plan, mod, slabs, args,
+                                    f"phase 45 {qname} {label}", stats))
+
+    def send(fn, i, *a):
+        return lambda p: keyed_args(torch, np, dev, p, *fn(np, rng, i, *a))
+
+    def top(fn, i, *a):
+        return lambda p: top_args(torch, np, dev, p, *fn(np, rng, i, *a))
+
+    part = max(keys // 20 + 3, 3)
+    kf, ew = mods["keyed_freq"], mods["expr_window"]
+    # K24 at KFQ1
+    steps = [(f"send {i}", send(kfq1_send, i, KFQ1_B * keys // KF_KEYS,
+                                keys)) for i in range(10)]
+    steps.append(("partial send", send(kfq1_send, 10, part, part)))
+    run(KFQ1_QL.format(keys=keys), "kfq1", kf, steps, fill=range(2, 8),
+        time_as=("K24", "send 9"))
+
+    def odd(i):
+        def mk(p):
+            cols, ts = kfq1_send(np, rng, i, 4 * keys, keys)
+            x = rng.random(cols[2].shape[0])
+            cols[2] = np.where(x < 0.3, -0.0, np.where(
+                x < 0.6, 0.0, np.where(x < 0.8, np.nan, 1.5))) \
+                .astype(np.float32)
+            return keyed_args(torch, np, dev, p, cols, ts)
+        return mk
+    ql = KFQ1_QL.format(keys=keys).replace(
+        "lossyFrequent(0.1, 0.01, cardNo)", "frequent(4, price)") \
+        .replace("'kfq1'", "'kfq2'")
+    run(ql, "kfq2", kf, [(f"-0.0 / NaN send {i}", odd(i)) for i in range(3)])
+    # K24 with every key row's counters in the global workspace (the
+    # shared memory cap set to 0): 1,024 blocks stride over the key rows
+    smem = kf.SMEM_MAX
+    kf.SMEM_MAX = 0
+    try:
+        run(KFQ1_QL.format(keys=keys).replace("'kfq1'", "'kfg'"), "kfg", kf,
+            [(f"global workspace send {i}",
+              send(kfq1_send, i, KFQ1_B * keys // KF_KEYS, keys))
+             for i in range(3)])
+    finally:
+        kf.SMEM_MAX = smem
+    # K25 per meter at KEB1's traffic, and the clamp case
+    # (the clamp: a key's front row always has kwh < 0.5, so once it holds
+    # C + 1 rows the expression holds at j = hi - C, and the front moves
+    # to hi + 1 - C before it looks for the next such row)
+    for win, qname, n_fill in (("expression('sum(kwh) < 10.0')", "kew", 20),
+                               ("expression('first.kwh < 0.5')", "kcl", 62)):
+        ql = KEB1_QL.format(keys=keys).replace(
+            "expressionBatch('sum(kwh) < 10.0', true)", win) \
+            .replace("'keb1'", f"'{qname}'")
+        steps = [(f"send {i}", send(keb1_send, i, keys))
+                 for i in range(n_fill + 4)]
+        steps.append(("partial send", send(keb1_send, n_fill + 4, part)))
+        run(ql, qname, ew, steps, fill=range(2, n_fill + 2),
+            time_as=("K25 keyed", f"send {n_fill + 2}")
+            if qname == "kew" else None)
+    # K26 per meter (KEB1), a meter of 300 readings (runs above C)
+    steps = [(f"send {i}", send(keb1_send, i, keys)) for i in range(26)]
+
+    def hot(p):
+        cols, ts = keb1_send(np, rng, 26, keys)
+        cols = [np.r_[cols[0], np.full(300, 5, np.int64)],
+                np.r_[cols[1], np.full(300, 0.125, np.float32)]]
+        return keyed_args(torch, np, dev, p, cols,
+                          np.r_[ts, np.full(300, ts[0])])
+    steps += [("a meter of 300 readings", hot),
+              ("partial send", send(keb1_send, 27, part))]
+    run(KEB1_QL.format(keys=keys), "keb1", ew, steps, fill=range(2, 24),
+        time_as=("K26", "send 25"))
+    # K25 at the top level: EW1 from empty, filled, across the jump at 8
+    steps = [(f"send {i}", top(ew1_send, i)) for i in range(10)]
+
+    def nan_send(p):
+        cols, ts = ew1_send(np, rng, 10)
+        cols[1][rng.random(cols[1].shape[0]) < 0.001] = np.nan
+        return top_args(torch, np, dev, p, cols, ts)
+    run(EW1_QL, "ew1", ew, steps, fill=range(1, 6), top=True,
+        time_as=("K25", "send 7"))
+    ql = EW1_QL.replace("sum(volume) < 100000", "sum(price) < 90000.0") \
+        .replace("'ew1'", "'ewn'")
+    run(ql, "ewn", ew, [("send 0", top(ew1_send, 0)), ("NaN send", nan_send)],
+        top=True)
+    # the clamp at the top level: the front row's price is below 100, the
+    # window grows to C + 1 rows and the clamp moves the front
+    ql = EW1_QL.replace(
+        "'sum(volume) < 100000 and eventTimestamp(last) - "
+        "eventTimestamp(first) < 60000'", "'first.price < 100.0'") \
+        .replace("'ew1'", "'ewc'")
+    run(ql, "ewc", ew, [(f"send {i}", top(ew1_send, i)) for i in range(2)],
+        top=True)
+    # K26 at the top level, both batch options
+    for opts, qname in (("false, true", "ebs"), ("true", "ebi")):
+        ql = EW1_QL.replace(
+            "expression(\n  'sum(volume) < 100000 and eventTimestamp(last) - "
+            "eventTimestamp(first) < 60000')",
+            f"expressionBatch('sum(volume) < 100000', {opts})") \
+            .replace("'ew1'", f"'{qname}'")
+        run(ql, qname, ew, [(f"send {i}", top(ew1_send, i))
+                            for i in range(3)], top=True)
+    # one hot meter among 65,536 at C = 2,048: 13,000 of its readings
+    # beside every meter's two (the scratch is sized by the arrivals)
+    for win, qname in (("expression('sum(kwh) < 100.0')", "khw"),
+                       ("expressionBatch('sum(kwh) < 100.0', true)", "khb")):
+        ql = KEB1_QL.format(keys=keys).replace(
+            "expressionBatch('sum(kwh) < 10.0', true)", win) \
+            .replace("window='128'", "window='2048'") \
+            .replace("'keb1'", f"'{qname}'")
+        plan = keyed_plan(dev, ql, qname)
+        slab = plan.init_state()[0]
+        slabs = [slab, slab.clone()]
+        for i in range(2):
+            cols, ts = keb1_send(np, rng, i, keys)
+            cols = [np.r_[cols[0], np.full(13_000, 5, np.int64)],
+                    np.r_[cols[1], (0.1 + 0.9 * rng.random(13_000))
+                          .astype(np.float32)]]
+            args = keyed_args(torch, np, dev, plan, cols,
+                              np.r_[ts, np.full(13_000, ts[0])])
+            if i == 0:
+                have, dense = s12_scratch(plan, slab.C, args)
+                print(f"phase 45 {qname}: {int(args[5].shape[0])} key rows "
+                      f"x E = {int(args[6].shape[1])}, C = {slab.C}: "
+                      f"scratch {have} bytes (a [Kb, E] layout: {dense})")
+            err = max(err, s12_hot(torch, plan, ew, slabs, args,
+                                   f"phase 45 {qname} hot send {i}", stats))
+        del slab, slabs, args
+        torch.cuda.empty_cache()
+    if not stats["pads"]:
+        fail("phase 45: no padding key rows were compared")
+    print(f"phase 45 K24-K26: {stats['steps']} steps, {stats['rows']} rows "
+          f"equal to the plain versions ({stats['pads']} padding key rows), "
+          f"max_abs_err {err}")
+    return err, timing, stats
+
+
+def s12_bytes(torch, planned, before, after, args, n_out):
+    """The bytes one K24-K26 step must move: each event read once (ts,
+    kind, valid, slot, columns, its sel entry), each emitted row written
+    once, each stepped key row's index and counters read and written; and
+    of each stepped key's state only what the step reads or changes:
+      K24: its counts and key words read; the stored events that leave (a
+        counter hit, replaced or evicted) read; the counts, key words and
+        stored events that change written;
+      K25 / K26: the lanes the range program reads of the kept (pending)
+        rows that stay, the kept rows that leave read, the arrivals that
+        stay written; K26 also a flushing key's previous batch read and
+        its new one written.
+    No scratch.  The timed queries have no filter: a key row's arrivals
+    are its sel entries that are valid CURRENT rows."""
+    from siddhi_tpu_torch.core import event as ev
+    ts, kind, valid, gslot, cols, key_idx, sel, now = args
+    cb = sum(c.element_size() for c in before.cols)
+    row = 8 + 4 + cb                       # a stored row: ts, slot, columns
+    live = key_idx < before.K
+    at = sel.clamp(min=0).long()
+    na = ((sel >= 0) & valid[at] & (kind[at] == ev.CURRENT)).sum(1)
+    ki = key_idx[live & (na > 0)].long()
+    na = na[live & (na > 0)]
+    kb = int(ki.shape[0])
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    if before.f_counts is not None:
+        n, nk = before.C, before.f_keys.shape[2]
+        cb0, ca = before.f_counts[ki], after.f_counts[ki]
+        kchg = (before.f_keys[ki] != after.f_keys[ki]).any(-1)
+        schg = (before.ts[ki] != after.ts[ki]) | \
+            (before.gslot[ki] != after.gslot[ki])
+        for x, y in zip(before.cols, after.cols):
+            schg |= bits(x[ki]) != bits(y[ki])
+        leave = (cb0 > 0) & ((ca == 0) | schg | kchg)
+        enter = (ca > 0) & ((cb0 == 0) | schg | kchg)
+        state = (kb * n * (8 + 8 * nk) + int(leave.sum()) * row +
+                 int(enter.sum()) * row + int((cb0 != ca).sum()) * 8 +
+                 int(kchg.sum()) * 8 * nk)
+        head = kb * (4 + 2 * 8)            # key_idx; seq read and written
+    else:
+        prog = kx_prm(planned).program
+        lane = sum(8 if pos < 0 else before.cols[pos].element_size()
+                   for pos in prog.lanes)
+        c0 = before.count[ki].long()
+        c1 = after.count[ki].long()
+        front = c0 + na - c1               # K25's front, K26's start
+        leave = torch.minimum(front, c0).clamp(min=0)
+        enter = c1 - (c0 - leave)
+        state = (int((c0 - leave).sum()) * lane + int(leave.sum()) * row +
+                 int(enter.sum()) * row)
+        if before.p_count is not None:
+            p0 = before.p_count[ki].long()
+            p1 = after.p_count[ki].long()
+            fl = (front > 0) | (p0 != p1)
+            state += (int(p0[fl].sum()) + int(p1[fl].sum())) * row
+            head = kb * (4 + 2 * (4 + 4 + 8))   # count, p_count, seq
+        else:
+            head = kb * (4 + 2 * (4 + 8))       # count, seq
+    n_read = int((sel >= 0).sum())
+    return (n_read * (8 + 4 + 1 + 4 + 4 + cb) + n_out * (8 + 4 + 8 + 4 + cb)
+            + state + head)
+
+
+def time_slice12(torch, np, dev, timing):
+    """Phase 46: K24 (KFQ1's step), K25 (EW1's step at the top level and
+    KEB1's traffic per meter) and K26 (KEB1's step) per launch, replayed
+    from a CUDA graph from a restored slab, beside the bound of the bytes
+    the step must move and the plain version's time."""
+    res = {}
+    for name, (plan, mod, saved, args, label) in timing.items():
+        slab = saved.clone()
+        prm = kx_prm(plan)
+        spec = plan.filter_spec
+
+        def restore():
+            slab.copy_from(saved)
+        restore()
+        n_out = int(mod.launch(slab, spec, *args, prm)[0].ts.shape[0])
+        nbytes = s12_bytes(torch, plan, saved, slab, args, n_out)
+        restore()
+        ms = graph_ms(torch, lambda: mod.launch(slab, spec, *args, prm,
+                                                n_out=n_out), 10, restore)
+        plain = event_timer(torch, lambda: mod.plain(slab, spec, *args, prm),
+                            2, restore)
+        res[name] = {"ms": ms, "plain_ms": plain, **bound(nbytes),
+                     "shape": f"{plan.name} {label}: {int(args[5].shape[0])} "
+                              f"key rows x E = {int(args[6].shape[1])}, C = "
+                              f"{saved.C}, {n_out} rows out",
+                     "library_ms": None}
+        del slab
+    return res
+
+
+def fq1_on_k24(torch, np, dev):
+    """Phase 46b: FQ1's step (1,000 counters, one key) through K24 on a
+    one-key MODE_FREQ slab beside K19, from the same state (two sends in):
+    the rows and the counters equal (exact), and both timed (CUDA-graph
+    replays).  K24 walks the arrivals twice (count, write), K19 once into
+    an output sized by its bound."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.kernels import frequent as fq
+    from siddhi_tpu_torch.kernels import keyed_freq as kf
+    from siddhi_tpu_torch.kernels.keyed_window import MODE_FREQ, KeyedSlab
+    rng = np.random.default_rng(157)
+    plan = window_plan(dev, FQ1_QL, "fq1")
+    kp = tuple(plan.window.key_positions)
+    st = plan.init_state()[0]
+    for i in range(2):
+        arr, n, _, _ = window_args(torch, np, dev, plan, *fq1_send(np, rng, i))
+        fq.launch(st, arr, n, kp)
+    arr, n, now, _ = window_args(torch, np, dev, plan, *fq1_send(np, rng, 2))
+    na, A, N = int(n), int(arr.ts.shape[0]), st.n
+    slab = KeyedSlab.empty(MODE_FREQ, plan.window.schema.types, 1, N, dev,
+                           nkeys=len(kp))
+    slab.f_counts[0], slab.f_keys[0] = st.counts, st.keys
+    slab.ts[0], slab.gslot[0] = st.ts, st.gslot
+    for x, y in zip(slab.cols, st.cols):
+        x[0] = y
+    slab.seq[0] = st.meta[0]
+    sel = torch.full((1, A), -1, dtype=torch.int32, device=dev)
+    sel[0, arr.seq[:na]] = torch.arange(na, dtype=torch.int32, device=dev)
+    args = (arr.ts, torch.full((A,), ev.CURRENT, dtype=torch.int32,
+                               device=dev),
+            torch.arange(A, device=dev) < na, arr.gslot, arr.cols,
+            torch.zeros(1, dtype=torch.int32, device=dev), sel, now)
+    prm = kf.FreqParams(N, kp)
+    spec = plan.filter_spec          # FQ1's filter: every arrival passes
+    st0, slab0 = st.clone(), slab.clone()
+    r19 = fq.launch(st, arr, n, kp)
+    r24, _ = kf.launch(slab, spec, *args, prm)
+    torch.cuda.synchronize()
+    what = "phase 46b FQ1 on K24"
+    err = rows_err(torch, r24, r19, what, full=True)
+    live = st.counts > 0
+    err = max(err, float_err(torch, slab.f_counts[0], st.counts,
+                             f"{what} counts"),
+              float_err(torch, slab.seq[:1], st.meta[:1], f"{what} seq"))
+    for x, y in ((slab.f_keys[0], st.keys), (slab.ts[0], st.ts),
+                 (slab.gslot[0], st.gslot),
+                 *((x[0], y) for x, y in zip(slab.cols, st.cols))):
+        err = max(err, float_err(torch, x[live], y[live], f"{what} state"))
+    m = int(r19.ts.shape[0])
+    t19 = graph_ms(torch, lambda: fq.launch(st, arr, n, kp, n_out=m), 3,
+                   lambda: st.copy_from(st0))
+    t24 = graph_ms(torch, lambda: kf.launch(slab, spec, *args, prm,
+                                            n_out=m), 3,
+                   lambda: slab.copy_from(slab0))
+    print(f"phase 46b: FQ1's step ({na} arrivals, {N} counters, {m} rows "
+          f"out) on one key row: K24 {t24:.4f} ms, K19 {t19:.4f} ms "
+          f"({t24 / t19:.3f}x); rows and counters equal, max_abs_err {err}")
+    return {"k24_ms": t24, "k19_ms": t19, "err": err}
+
+
+def run_kfq1(torch, np, dev, mods, keys=KF_KEYS):
+    """KFQ1: lossyFrequent(0.1, 0.01, cardNo) per merchant at 65,536
+    merchants, 131,072 purchases a send: 8 filling, 16 timed, 2 checked
+    row by row against KFQ1Model.  Returns K24's launches."""
+    rng = np.random.default_rng(195)
+    n = KFQ1_FILL + KFQ1_TIMED + KFQ1_CHECK
+    sends = [kfq1_send(np, rng, i, KFQ1_B, keys) for i in range(n + 4)]
+    _, launches, res = run9(
+        torch, np, dev, mods, KFQ1_QL.format(keys=keys), "kfq1",
+        "PurchaseStream", sends, KFQ1Model(np, keys),
+        (KFQ1_FILL, KFQ1_CHECK, False),
+        "KFQ1 (lossyFrequent(0.1, 0.01, cardNo) per merchant, 65,536 "
+        "merchants)", KFQ1_TIMED * KFQ1_B, KFQ1_B * (8 + 8 + 4 + 8 + 4 + 1),
+        ("keyed_freq",))
+    print(f"KFQ1: sends {n - KFQ1_CHECK}-{n - 1} held row by row to the "
+          f"numpy model (each merchant's replaced and evicted purchases "
+          f"EXPIRED, its new ones CURRENT); counters evicted a steady send "
+          f"{res[-1]}; K24 launches {launches['keyed_freq']}")
+    return launches["keyed_freq"]
+
+
+def run_ew1(torch, np, dev, mods):
+    """EW1: the top-level expression window over 131,072 trades a send (a
+    window of about 1,000 trades by volume, every 8th send 61 s later: it
+    empties): 8 filling, 16 timed, 2 checked (the first across a jump)
+    row by row against EW1Model.  Returns K25's launches."""
+    ew = mods["expr_window"]
+    rng = np.random.default_rng(197)
+    n = EW1_FILL + EW1_TIMED + EW1_CHECK
+    sends = [ew1_send(np, rng, i) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, EW1_QL, "ew1", "TradeStream", sends,
+        EW1Model(np), (EW1_FILL, EW1_CHECK, False),
+        "EW1 (expression(sum(volume) < 100000 and 1 min), 131,072 trades a "
+        "send)", EW1_TIMED * EW1_B, EW1_B * (8 + 8 + 4 + 4 + 8 + 4 + 1),
+        ("expr_window",))
+    k = counts["expr_window"][0][ew.MODE_EXPR]
+    print(f"EW1: sends {n - EW1_CHECK}-{n - 1} held row by row to the numpy "
+          f"model (every EXPIRED trade before the arrival that passes it, "
+          f"the jump emptying the window); trades expiring a send "
+          f"{min(res[1:])}-{max(res[1:])}; K25 launches {k}")
+    return k
+
+
+def run_keb1(torch, np, dev, mods, keys=KF_KEYS):
+    """KEB1: expressionBatch('sum(kwh) < 10.0', true) per meter at 65,536
+    meters, two readings a meter a send: 24 filling, 16 timed, 2 checked
+    row by row against KEB1Model.  Returns K26's launches."""
+    ew = mods["expr_window"]
+    rng = np.random.default_rng(199)
+    n = KEB1_FILL + KEB1_TIMED + KEB1_CHECK
+    sends = [keb1_send(np, rng, i, keys) for i in range(n + 4)]
+    counts, _, res = run9(
+        torch, np, dev, mods, KEB1_QL.format(keys=keys), "keb1",
+        "MeterStream", sends, KEB1Model(np, keys),
+        (KEB1_FILL, KEB1_CHECK, False),
+        "KEB1 (expressionBatch(sum(kwh) < 10.0, true) per meter, 65,536 "
+        "meters)", KEB1_TIMED * 2 * keys, 2 * keys * (8 + 8 + 4 + 8 + 4 + 1),
+        ("expr_window",))
+    k = counts["expr_window"][0][ew.MODE_EXPRB]
+    print(f"KEB1: sends {n - KEB1_CHECK}-{n - 1} held row by row to the "
+          f"numpy model (each cut bill CURRENT after the previous one "
+          f"EXPIRED); meters billed a steady send {res[-1]}; K26 launches "
+          f"{k}")
+    return k
+
+
+def slice12_phases(torch, np, dev):
+    """Phases 45-48: K24-K26 against their plain versions; their times;
+    KFQ1, EW1 and KEB1 through SiddhiManager; X4 (the JAX package's events
+    of the slice's corpus).  Returns their kernel records."""
+    from siddhi_tpu_torch.kernels import expr_window as ew
+    mods = slice12_modules()
+    t0 = time.perf_counter()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 12 {what}: {time.perf_counter() - t0:.1f} s")
+    err, timing, _ = compare_slice12(torch, np, dev)
+    took("phase 45 done")
+    res = time_slice12(torch, np, dev, timing)
+    del timing
+    err = max(err, fq1_on_k24(torch, np, dev)["err"])
+    took("phase 46 done")
+    n = {"K24": run_kfq1(torch, np, dev, mods)}
+    took("KFQ1 done")
+    n["K25"] = run_ew1(torch, np, dev, mods)
+    took("EW1 done")
+    n["K26"] = run_keb1(torch, np, dev, mods)
+    took("KEB1 done")
+    launched = run_corpus(torch, np, dev, mods, "X4 (slice 12)", X12_CASES,
+                          ("keyed_freq", "expr_window"))
+    print(f"X4: keyed_freq launches {launched['keyed_freq']}, expr_window "
+          f"launches {launched['expr_window']} (by mode "
+          f"{ew.mode_launches[ew.MODE_EXPR:]})")
+    took("phase 48 done")
+    no_lib = "no single PyTorch call computes these window steps"
+    records = []
+    for key, name, src, rep in (
+            ("K24", "keyed_freq", "keyed_freq.cu",
+             "siddhi_tpu/core/window_ext.py:1023"),
+            ("K25", "expr_window", "expr_window.cu",
+             "siddhi_tpu/core/window_expr.py:227"),
+            ("K26", "expr_batch", "expr_window.cu",
+             "siddhi_tpu/core/window_expr.py:329")):
+        t = res[key]
+        print(f"kernel {name} ({key}): {t['ms']:.4f} ms at {t['shape']} "
+              f"(bound {t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} "
+              f"bytes), plain {t['plain_ms']:.4f} ms, launches on the main "
+              f"path {n[key]}; library_ms null: {no_lib}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": n[key], "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    t = res["K25 keyed"]
+    print(f"kernel expr_window per key (K25): {t['ms']:.4f} ms at "
+          f"{t['shape']} (bound {t['bound_ms']:.5f} by {t['bound_by']}, "
+          f"{t['bytes']} bytes), plain {t['plain_ms']:.4f} ms")
+    return records
+
+
+# X4: the slice's corpus: the expression windows at the top level, in a
+# value partition and in a range partition (test_window_expr.py's six
+# apps, aggregates, first / last / eventTimestamp, % on negatives, a weak
+# constant at an f32 boundary, the clamp at hi - C, a run above C, both
+# batch options, a NaN row), and keyed frequent / lossyFrequent (-0.0 and
+# NaN keys, every column as the key, @purge).  _X12_WANT holds the JAX
+# package's events; the CPU tests hold the cases to it
+_XS = "@app:playback\ndefine stream S (sym string, price float, v int);\n"
+_XW = [("S", ["A", 1.0, 1], 1000), ("S", ["B", 2.0, -2], 1001),
+       ("S", ["C", 3.0, 3], 1002), ("S", ["D", 4.0, -4], 1003),
+       ("S", ["E", 5.0, 5], 1004)]
+_XSYM = [("S", [["X", 1.0, 1], ["X", 2.0, -2]], 1000),
+         ("S", [["Y", 3.0, 3], ["Y", 4.0, -4]], 1001),
+         ("S", [["Z", 5.0, 5]], 1002)]
+_XSUM = [("S", [["A", 60.0, 1]], 1000), ("S", [["B", 30.0, -2]], 1001),
+         ("S", [["C", 50.0, 3], ["A", 9.5, 4]], 1002),
+         ("S", [["B", 45.0, -5], ["C", None, 6]], 1003),
+         ("S", [["A", 20.0, 7], ["B", 2.5, -8]], 1004),
+         ("S", [["C", 99.0, 9]], 1005)]
+_XMIX = [("S", [["a", 7.5, -7], ["b", -2.5, 5], ["a", 3.25, 2]], 1000),
+         ("S", [["b", 8.0, -1], ["a", -6.5, 4]], 1001),
+         ("S", [["a", 1.0, -9], ["b", 0.5, 3], ["b", 12.0, 8]], 1003),
+         ("S", [["a", 100.1, 6], ["b", 100.1, -6]], 1004),
+         ("S", [["a", 2.0, 1], ["b", -0.0, 0], ["a", 5.5, -3]], 1006),
+         ("S", [["b", 4.0, 2], ["a", 9.0, 11]], 1007)]
+
+
+def _xwin(win, sel="sym, price, v", out="insert all events into Out;",
+          cap="", where="top"):
+    """A window query at the top level, in a value partition (by sym) or
+    in a range partition (on v)."""
+    ann = f"@capacity(window='{cap}') " if cap else ""
+    q = f"@info(name='q') from S#window.{win} select {sel} {out}"
+    if where == "top":
+        return _XS + ann + q
+    key = "sym" if where == "value" else \
+        "v < 0 as 'neg' or v >= 0 as 'pos'"
+    return (_XS + f"partition with ({key} of S)\nbegin\n  {ann}{q}\nend;")
+
+
+_X12_BASE = [
+    ("count <= 2", "expression('count() <= 2')", {}, _XW),
+    ("sum eviction", "expression('sum(price) < 100.0')", {}, _XSUM),
+    ("running aggregate", "expression('count() <= 3')",
+     dict(sel="sum(price) as total", out="insert into Out;"), _XW),
+    ("batch count", "expressionBatch('count() <= 2')",
+     dict(out="insert into Out;"), _XW),
+    ("batch symbol change", "expressionBatch('last.sym == first.sym')",
+     dict(out="insert into Out;"), _XSYM),
+    ("batch expired replay", "expressionBatch('count() <= 2')", {}, _XW),
+    ("aggregates", "expression('avg(price) > first.price - 5.0 and "
+                   "max(v) - min(v) <= 9')", {}, _XMIX),
+    ("first last timestamps",
+     "expression('eventTimestamp(last) - eventTimestamp(first) < 3 and "
+     "last.v >= first.v - 12')", {}, _XMIX),
+    ("mod on negatives", "expression('sum(v % -3) > -4 and "
+                         "(last.price % -2.5) > -2.0')", {}, _XMIX),
+    ("weak float at an f32 boundary",
+     "expression('last.price < 100.1 and first.price != 100.1')", {},
+     _XMIX),
+    ("clamp at hi - C", "expression('first.price == 7.5')", dict(cap="3"),
+     _XMIX),
+    ("run above C", "expressionBatch('count() <= 10')", dict(cap="3"),
+     _XMIX),
+    ("include trigger", "expressionBatch('sum(price) < 10.0', true)", {},
+     _XMIX),
+    ("stream current", "expressionBatch('sum(price) < 10.0', false, true)",
+     {}, _XMIX),
+    ("include and stream", "expressionBatch('count() <= 2', true, true)",
+     {}, _XMIX),
+    ("NaN row", "expression('sum(price) < 100.0')",
+     dict(sel="sym, price, count() as n"), _XSUM),
+]
+_XF = "@app:playback\ndefine stream S (m string, card long, price float);\n"
+_XF_SENDS = [("S", [["a", 1, 1.0], ["a", 2, -0.0], ["b", 1, 0.0],
+                    ["a", 1, 2.0]], 1000),
+             ("S", [["a", 3, None], ["b", 2, 1.5], ["a", 3, None],
+                    ["b", 1, -0.0]], 1001),
+             ("S", [["a", 4, 0.0], ["c", 9, 9.0], ["a", 2, -0.0]], 1002),
+             ("S", [["b", 5, 2.5], ["a", 1, 3.0], ["c", 9, None]], 1003)]
+
+
+def _xf(win, key="m", ann="@capacity(keys='16')"):
+    return (_XF + f"partition with ({key} of S)\nbegin\n  {ann}\n"
+            f"  @info(name='q') from S#window.{win}\n"
+            f"  select m, card, price, count() as n insert all events into "
+            f"Out;\nend;")
+
+
+_X12_SPECS = [
+    (f"{where} {name}", _xwin(win, where=where, **kw), "q", sends)
+    for name, win, kw, sends in _X12_BASE
+    for where in ("top", "value", "range")] + [
+    ("keyed frequent every column", _xf("frequent(2)"), "q", _XF_SENDS),
+    ("keyed frequent one card", _xf("frequent(1, card)"), "q", _XF_SENDS),
+    ("keyed frequent -0.0 and NaN keys", _xf("frequent(2, price)"), "q",
+     _XF_SENDS),
+    ("keyed lossyFrequent", _xf("lossyFrequent(0.5, 0.1, card)"), "q",
+     _XF_SENDS),
+    ("range partition lossyFrequent",
+     _xf("lossyFrequent(0.34, card)",
+         key="card < 3 as 'lo' or card >= 3 as 'hi'"), "q", _XF_SENDS),
+    ("purge frequent", _xf(
+        "frequent(2, card)", ann="@capacity(keys='4')\n  @purge(enable="
+        "'true', interval='1 sec', idle.period='3 sec')"), "q",
+     [("S", [["a", 1, 1.0], ["b", 2, 2.0], ["a", 3, 3.0]], 1000),
+      ("S", [["c", 3, 3.0], ["d", 4, 4.0]], 8000),
+      ("S", [["a", 5, 5.0], ["e", 6, 6.0], ["a", 1, 1.0]], 9000),
+      ("S", [["a", 7, 7.0], ["e", 6, 8.0]], 9500)]),
+]
+
+_X12_WANT = [[(1000, [(1000, ('A', 1.0, 1))], []),
+  (1001, [(1001, ('B', 2.0, -2))], []),
+  (1002, [(1002, ('C', 3.0, 3))], [(1000, ('A', 1.0, 1))]),
+  (1003, [(1003, ('D', 4.0, -4))], [(1001, ('B', 2.0, -2))]),
+  (1004, [(1004, ('E', 5.0, 5))], [(1002, ('C', 3.0, 3))])],
+ [(1000, [(1000, ('A', 1.0, 1))], []),
+  (1001, [(1001, ('B', 2.0, -2))], []),
+  (1002, [(1002, ('C', 3.0, 3))], []),
+  (1003, [(1003, ('D', 4.0, -4))], []),
+  (1004, [(1004, ('E', 5.0, 5))], [])],
+ [(1000, [(1000, ('A', 1.0, 1))], []),
+  (1001, [(1001, ('B', 2.0, -2))], []),
+  (1002, [(1002, ('C', 3.0, 3))], []),
+  (1003, [(1003, ('D', 4.0, -4))], []),
+  (1004, [(1004, ('E', 5.0, 5))], [(1000, ('A', 1.0, 1))])],
+ [(1000, [(1000, ('A', 60.0, 1))], []),
+  (1001, [(1001, ('B', 30.0, -2))], []),
+  (1002,
+   [(1002, ('C', 50.0, 3)), (1002, ('A', 9.5, 4))],
+   [(1000, ('A', 60.0, 1))]),
+  (1003,
+   [(1003, ('B', 45.0, -5)), (1003, ('C', None, 6))],
+   [(1001, ('B', 30.0, -2)),
+    (1002, ('C', 50.0, 3)),
+    (1002, ('A', 9.5, 4)),
+    (1003, ('B', 45.0, -5)),
+    (1003, ('C', None, 6))]),
+  (1004, [(1004, ('A', 20.0, 7)), (1004, ('B', 2.5, -8))], []),
+  (1005,
+   [(1005, ('C', 99.0, 9))],
+   [(1004, ('A', 20.0, 7)), (1004, ('B', 2.5, -8))])],
+ [(1000, [(1000, ('A', 60.0, 1))], []),
+  (1001, [(1001, ('B', 30.0, -2))], []),
+  (1002, [(1002, ('A', 9.5, 4)), (1002, ('C', 50.0, 3))], []),
+  (1003,
+   [(1003, ('B', 45.0, -5)), (1003, ('C', None, 6))],
+   [(1002, ('C', 50.0, 3)), (1003, ('C', None, 6))]),
+  (1004, [(1004, ('A', 20.0, 7)), (1004, ('B', 2.5, -8))], []),
+  (1005, [(1005, ('C', 99.0, 9))], [])],
+ [(1000, [(1000, ('A', 60.0, 1))], []),
+  (1001, [(1001, ('B', 30.0, -2))], []),
+  (1002,
+   [(1002, ('C', 50.0, 3)), (1002, ('A', 9.5, 4))],
+   [(1000, ('A', 60.0, 1))]),
+  (1003,
+   [(1003, ('C', None, 6)), (1003, ('B', 45.0, -5))],
+   [(1002, ('C', 50.0, 3)), (1002, ('A', 9.5, 4)), (1003, ('C', None, 6))]),
+  (1004, [(1004, ('A', 20.0, 7)), (1004, ('B', 2.5, -8))], []),
+  (1005, [(1005, ('C', 99.0, 9))], [(1004, ('A', 20.0, 7))])],
+ [(1000, [(1000, (1.0,))], []),
+  (1001, [(1001, (3.0,))], []),
+  (1002, [(1002, (6.0,))], []),
+  (1003, [(1003, (9.0,))], [(1000, (5.0,))]),
+  (1004, [(1004, (12.0,))], [(1001, (7.0,))])],
+ [(1000, [(1000, (1.0,))], []),
+  (1001, [(1001, (2.0,))], []),
+  (1002, [(1002, (3.0,))], []),
+  (1003, [(1003, (4.0,))], []),
+  (1004, [(1004, (5.0,))], [])],
+ [(1000, [(1000, (1.0,))], []),
+  (1001, [(1001, (2.0,))], []),
+  (1002, [(1002, (4.0,))], []),
+  (1003, [(1003, (6.0,))], []),
+  (1004, [(1004, (9.0,))], [])],
+ [(1002, [(1000, ('A', 1.0, 1)), (1001, ('B', 2.0, -2))], []),
+  (1004,
+   [(1002, ('C', 3.0, 3)), (1003, ('D', 4.0, -4))],
+   [(1000, ('A', 1.0, 1)), (1001, ('B', 2.0, -2))])],
+ [],
+ [(1004, [(1000, ('A', 1.0, 1)), (1002, ('C', 3.0, 3))], [])],
+ [(1001, [(1000, ('X', 1.0, 1)), (1000, ('X', 2.0, -2))], []),
+  (1002,
+   [(1001, ('Y', 3.0, 3)), (1001, ('Y', 4.0, -4))],
+   [(1000, ('X', 1.0, 1)), (1000, ('X', 2.0, -2))])],
+ [],
+ [(1001, [(1000, ('X', 1.0, 1)), (1000, ('X', 2.0, -2))], []),
+  (1002, [(1001, ('Y', 3.0, 3))], [(1000, ('X', 1.0, 1))])],
+ [(1002, [(1000, ('A', 1.0, 1)), (1001, ('B', 2.0, -2))], []),
+  (1004,
+   [(1002, ('C', 3.0, 3)), (1003, ('D', 4.0, -4))],
+   [(1000, ('A', 1.0, 1)), (1001, ('B', 2.0, -2))])],
+ [],
+ [(1004, [(1000, ('A', 1.0, 1)), (1002, ('C', 3.0, 3))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   [(1000, ('a', 7.5, -7))]),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('b', 8.0, -1)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   [(1004, ('b', 100.0999984741211, -6))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   []),
+  (1001,
+   [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))],
+   [(1000, ('a', 7.5, -7))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 3.25, 2)), (1001, ('a', -6.5, 4))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1003, ('a', 1.0, -9)),
+    (1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   [(1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1007,
+   [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))],
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   []),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   []),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   []),
+  (1001, [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1000, ('b', -2.5, 5))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1001, ('b', 8.0, -1))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))]),
+  (1007,
+   [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))],
+   [(1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))]),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))]),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1004, ('a', 100.0999984741211, 6))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001,
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('b', 8.0, -1))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1001, ('a', -6.5, 4)), (1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))]),
+  (1007, [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   []),
+  (1001,
+   [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))],
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1001, ('b', 8.0, -1))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1003, ('b', 0.5, 3))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3))]),
+  (1007, [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001,
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))],
+   [(1000, ('a', 7.5, -7)), (1001, ('b', 8.0, -1)), (1000, ('b', -2.5, 5))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 3.25, 2)), (1001, ('a', -6.5, 4)), (1003, ('b', 0.5, 3))]),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   [(1003, ('a', 1.0, -9)),
+    (1004, ('b', 100.0999984741211, -6)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))]),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   [(1006, ('a', 5.5, -3))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1006, ('a', 2.0, 1))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('b', 8.0, -1)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   []),
+  (1007, [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   []),
+  (1001, [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   []),
+  (1007, [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   [(1000, ('a', 7.5, -7)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('b', 100.0999984741211, -6)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))]),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   []),
+  (1007, [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001,
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('b', 8.0, -1)),
+    (1001, ('a', -6.5, 4))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   [(1000, ('b', -2.5, 5))]),
+  (1001,
+   [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))],
+   [(1001, ('b', 8.0, -1))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 7.5, -7)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))]),
+  (1007,
+   [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))],
+   [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   [(1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))]),
+  (1001,
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))],
+   [(1001, ('a', -6.5, 4))]),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))]),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   [(1000, ('a', 7.5, -7)), (1004, ('a', 100.0999984741211, 6))]),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   [(1001, ('b', 8.0, -1)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('b', 100.0999984741211, -6)),
+    (1006, ('a', 5.5, -3)),
+    (1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))])],
+ [(1001,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1003,
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4)), (1003, ('a', 1.0, -9))],
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))]),
+  (1004,
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))],
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4)), (1003, ('a', 1.0, -9))]),
+  (1006,
+   [(1004, ('b', 100.0999984741211, -6)),
+    (1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0))],
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))])],
+ [(1003,
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3))],
+   []),
+  (1006,
+   [(1003, ('a', 1.0, -9)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1006, ('a', 2.0, 1))],
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1001, ('a', -6.5, 4))]),
+  (1007,
+   [(1003, ('b', 12.0, 8)),
+    (1004, ('b', 100.0999984741211, -6)),
+    (1006, ('b', -0.0, 0))],
+   [(1000, ('b', -2.5, 5)), (1001, ('b', 8.0, -1)), (1003, ('b', 0.5, 3))])],
+ [(1003,
+   [(1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2)), (1001, ('a', -6.5, 4))],
+   []),
+  (1004,
+   [(1000, ('a', 7.5, -7)), (1001, ('b', 8.0, -1)), (1003, ('a', 1.0, -9))],
+   []),
+  (1006,
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))],
+   [(1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2)), (1001, ('a', -6.5, 4))]),
+  (1007,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1007, ('b', 4.0, 2))],
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))])],
+ [(1001,
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('b', 8.0, -1))],
+   []),
+  (1004,
+   [(1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('b', 8.0, -1)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))]),
+  (1007,
+   [(1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0)),
+    (1006, ('a', 5.5, -3)),
+    (1007, ('b', 4.0, 2))],
+   [(1004, ('b', 100.0999984741211, -6))])],
+ [(1000, [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2))], []),
+  (1003,
+   [(1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('a', 100.0999984741211, 6)),
+    (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('a', 3.25, 2)),
+    (1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8))]),
+  (1007,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1007, ('a', 9.0, 11))],
+   [(1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1004, ('a', 100.0999984741211, 6))])],
+ [(1001, [(1000, ('a', 7.5, -7)), (1001, ('b', 8.0, -1))], []),
+  (1004,
+   [(1003, ('a', 1.0, -9)),
+    (1004, ('b', 100.0999984741211, -6)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))],
+   [(1000, ('a', 7.5, -7)), (1001, ('b', 8.0, -1))]),
+  (1007,
+   [(1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0)),
+    (1007, ('b', 4.0, 2)),
+    (1007, ('a', 9.0, 11))],
+   [(1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1001, ('b', 8.0, -1)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   [(1004, ('a', 100.0999984741211, 6))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1004, ('b', 100.0999984741211, -6)),
+    (1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0)),
+    (1006, ('a', 5.5, -3))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   []),
+  (1001, [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   [(1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('a', 1.0, -9)),
+    (1003, ('b', 12.0, 8))]),
+  (1007,
+   [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))],
+   [(1004, ('a', 100.0999984741211, 6))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   [(1000, ('a', 7.5, -7))]),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   [(1001, ('b', 8.0, -1)),
+    (1003, ('a', 1.0, -9)),
+    (1000, ('b', -2.5, 5)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1004, ('a', 100.0999984741211, 6))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))]),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4)), (1003, ('a', 1.0, -9))]),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0)), (1006, ('a', 5.5, -3))],
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))]),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1004, ('b', 100.0999984741211, -6)),
+    (1006, ('a', 2.0, 1)),
+    (1006, ('b', -0.0, 0))])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('a', 3.25, 2)), (1000, ('b', -2.5, 5))],
+   []),
+  (1001, [(1001, ('a', -6.5, 4)), (1001, ('b', 8.0, -1))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('a', 100.0999984741211, 6)), (1004, ('b', 100.0999984741211, -6))],
+   []),
+  (1006,
+   [(1006, ('a', 2.0, 1)), (1006, ('a', 5.5, -3)), (1006, ('b', -0.0, 0))],
+   [(1000, ('a', 7.5, -7)),
+    (1000, ('a', 3.25, 2)),
+    (1001, ('a', -6.5, 4)),
+    (1000, ('b', -2.5, 5)),
+    (1001, ('b', 8.0, -1)),
+    (1003, ('b', 0.5, 3))]),
+  (1007, [(1007, ('a', 9.0, 11)), (1007, ('b', 4.0, 2))], [])],
+ [(1000,
+   [(1000, ('a', 7.5, -7)), (1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2))],
+   []),
+  (1001, [(1001, ('b', 8.0, -1)), (1001, ('a', -6.5, 4))], []),
+  (1003,
+   [(1003, ('a', 1.0, -9)), (1003, ('b', 0.5, 3)), (1003, ('b', 12.0, 8))],
+   []),
+  (1004,
+   [(1004, ('b', 100.0999984741211, -6)), (1004, ('a', 100.0999984741211, 6))],
+   [(1000, ('b', -2.5, 5)), (1000, ('a', 3.25, 2)), (1001, ('a', -6.5, 4))]),
+  (1006,
+   [(1006, ('a', 5.5, -3)), (1006, ('a', 2.0, 1)), (1006, ('b', -0.0, 0))],
+   []),
+  (1007,
+   [(1007, ('b', 4.0, 2)), (1007, ('a', 9.0, 11))],
+   [(1003, ('b', 0.5, 3)),
+    (1003, ('b', 12.0, 8)),
+    (1004, ('a', 100.0999984741211, 6))])],
+ [(1000, [(1000, ('A', 60.0, 1))], []),
+  (1001, [(1001, ('B', 30.0, 2))], []),
+  (1002,
+   [(1002, ('C', 50.0, 2)), (1002, ('A', 9.5, 3))],
+   [(1000, ('A', 60.0, 1))]),
+  (1003,
+   [(1003, ('B', 45.0, 2)), (1003, ('C', None, 0))],
+   [(1001, ('B', 30.0, 2)),
+    (1002, ('C', 50.0, 1)),
+    (1002, ('A', 9.5, 1)),
+    (1003, ('B', 45.0, 0)),
+    (1003, ('C', None, -1))]),
+  (1004, [(1004, ('A', 20.0, 1)), (1004, ('B', 2.5, 2))], []),
+  (1005,
+   [(1005, ('C', 99.0, 1))],
+   [(1004, ('A', 20.0, 1)), (1004, ('B', 2.5, 0))])],
+ [(1000, [(1000, ('A', 60.0, 1))], []),
+  (1001, [(1001, ('B', 30.0, 1))], []),
+  (1002, [(1002, ('A', 9.5, 2)), (1002, ('C', 50.0, 1))], []),
+  (1003,
+   [(1003, ('B', 45.0, 2)), (1003, ('C', None, 0))],
+   [(1002, ('C', 50.0, 0)), (1003, ('C', None, -1))]),
+  (1004, [(1004, ('A', 20.0, 3)), (1004, ('B', 2.5, 3))], []),
+  (1005, [(1005, ('C', 99.0, 1))], [])],
+ [(1000, [(1000, ('A', 60.0, 1))], []),
+  (1001, [(1001, ('B', 30.0, 1))], []),
+  (1002,
+   [(1002, ('C', 50.0, 1)), (1002, ('A', 9.5, 2))],
+   [(1000, ('A', 60.0, 0))]),
+  (1003,
+   [(1003, ('C', None, 0)), (1003, ('B', 45.0, 2))],
+   [(1002, ('C', 50.0, 1)), (1002, ('A', 9.5, 0)), (1003, ('C', None, -1))]),
+  (1004, [(1004, ('A', 20.0, 1)), (1004, ('B', 2.5, 3))], []),
+  (1005, [(1005, ('C', 99.0, 1))], [(1004, ('A', 20.0, 0))])],
+ [(1000,
+   [(1000, ('a', 1, 1.0, 1)),
+    (1000, ('a', 2, -0.0, 2)),
+    (1000, ('b', 1, 0.0, 1))],
+   [(1000, ('a', 1, 1.0, 1)), (1000, ('a', 2, -0.0, 0))]),
+  (1001,
+   [(1001, ('a', 3, None, 1)),
+    (1001, ('a', 3, None, 1)),
+    (1001, ('b', 2, 1.5, 2))],
+   [(1001, ('a', 3, None, 0)),
+    (1001, ('b', 1, 0.0, 1)),
+    (1001, ('b', 2, 1.5, 0))]),
+  (1002,
+   [(1002, ('a', 4, 0.0, 2)), (1002, ('c', 9, 9.0, 1))],
+   [(1002, ('a', 4, 0.0, 1))]),
+  (1003,
+   [(1003, ('a', 1, 3.0, 2)),
+    (1003, ('b', 5, 2.5, 1)),
+    (1003, ('c', 9, None, 2))],
+   [])],
+ [(1000,
+   [(1000, ('a', 1, 1.0, 1)),
+    (1000, ('a', 1, 2.0, 1)),
+    (1000, ('b', 1, 0.0, 1))],
+   [(1000, ('a', 1, 1.0, 0))]),
+  (1001,
+   [(1001, ('a', 3, None, 1)), (1001, ('b', 1, -0.0, 1))],
+   [(1001, ('a', 1, 2.0, 0)), (1001, ('b', 1, 0.0, 0))]),
+  (1002,
+   [(1002, ('a', 2, -0.0, 1)), (1002, ('c', 9, 9.0, 1))],
+   [(1002, ('a', 3, None, 0))]),
+  (1003,
+   [(1003, ('c', 9, None, 1))],
+   [(1003, ('a', 2, -0.0, 0)),
+    (1003, ('b', 1, -0.0, 0)),
+    (1003, ('c', 9, 9.0, 0))])],
+ [(1000,
+   [(1000, ('a', 1, 1.0, 1)),
+    (1000, ('a', 2, -0.0, 2)),
+    (1000, ('b', 1, 0.0, 1))],
+   [(1000, ('a', 1, 1.0, 1)), (1000, ('a', 2, -0.0, 0))]),
+  (1001,
+   [(1001, ('a', 3, None, 1)),
+    (1001, ('a', 3, None, 1)),
+    (1001, ('b', 2, 1.5, 2))],
+   [(1001, ('a', 3, None, 0)),
+    (1001, ('b', 1, 0.0, 1)),
+    (1001, ('b', 2, 1.5, 0))]),
+  (1002,
+   [(1002, ('a', 4, 0.0, 2)), (1002, ('c', 9, 9.0, 1))],
+   [(1002, ('a', 4, 0.0, 1))]),
+  (1003,
+   [(1003, ('a', 1, 3.0, 2)),
+    (1003, ('b', 5, 2.5, 1)),
+    (1003, ('c', 9, None, 2))],
+   [])],
+ [(1000,
+   [(1000, ('a', 1, 1.0, 1)),
+    (1000, ('a', 2, -0.0, 2)),
+    (1000, ('a', 1, 2.0, 2)),
+    (1000, ('b', 1, 0.0, 1))],
+   [(1000, ('a', 1, 1.0, 1))]),
+  (1001,
+   [(1001, ('a', 3, None, 2)),
+    (1001, ('b', 2, 1.5, 2)),
+    (1001, ('b', 1, -0.0, 2))],
+   [(1001, ('a', 2, -0.0, 1)), (1001, ('b', 1, 0.0, 1))]),
+  (1002,
+   [(1002, ('a', 2, -0.0, 1)), (1002, ('c', 9, 9.0, 1))],
+   [(1002, ('a', 1, 2.0, 1)), (1002, ('a', 3, None, 0))]),
+  (1003,
+   [(1003, ('a', 1, 3.0, 2)), (1003, ('c', 9, None, 1))],
+   [(1003, ('b', 2, 1.5, 1)), (1003, ('c', 9, 9.0, 0))])],
+ [(1000,
+   [(1000, ('a', 1, 1.0, 1)),
+    (1000, ('a', 2, -0.0, 2)),
+    (1000, ('b', 1, 0.0, 2)),
+    (1000, ('a', 1, 2.0, 2))],
+   [(1000, ('a', 1, 1.0, 1)), (1000, ('b', 1, 0.0, 1))]),
+  (1001,
+   [(1001, ('b', 2, 1.5, 2)),
+    (1001, ('b', 1, -0.0, 2)),
+    (1001, ('a', 3, None, 1)),
+    (1001, ('a', 3, None, 1))],
+   [(1001, ('a', 2, -0.0, 1)),
+    (1001, ('a', 1, 2.0, 1)),
+    (1001, ('a', 3, None, 0))]),
+  (1002,
+   [(1002, ('a', 2, -0.0, 2)), (1002, ('a', 4, 0.0, 2))],
+   [(1002, ('b', 2, 1.5, 1)), (1002, ('a', 4, 0.0, 1))]),
+  (1003,
+   [(1003, ('a', 1, 3.0, 2)), (1003, ('b', 5, 2.5, 2))],
+   [(1003, ('b', 1, -0.0, 1)),
+    (1003, ('a', 3, None, 1)),
+    (1003, ('b', 5, 2.5, 0))])],
+ [(1000,
+   [(1000, ('a', 1, 1.0, 1)),
+    (1000, ('a', 3, 3.0, 2)),
+    (1000, ('b', 2, 2.0, 1))],
+   []),
+  (8000, [(8000, ('d', 4, 4.0, 1)), (8000, ('c', 3, 3.0, 1))], []),
+  (9000,
+   [(9000, ('a', 5, 5.0, 1)),
+    (9000, ('a', 1, 1.0, 2)),
+    (9000, ('e', 6, 6.0, 1))],
+   []),
+  (9500,
+   [(9500, ('e', 6, 8.0, 1))],
+   [(9500, ('a', 5, 5.0, 1)),
+    (9500, ('a', 1, 1.0, 0)),
+    (9500, ('e', 6, 6.0, 0))])]]
+X12_CASES = [spec + (want,) for spec, want in
+             zip(_X12_SPECS, _X12_WANT)]
 
 
 if __name__ == "__main__":

@@ -190,10 +190,14 @@ def _keyed_blocks(wslab, mode):
     one block for `length` / `time`, (pending, previous) for
     `lengthBatch` and `timeBatch` (whose state also holds the slice start
     [K] before the seq)."""
-    from .kernels.keyed_window import _TWO_BLOCKS, MODE_TLEN
+    from .kernels.keyed_window import (_TWO_BLOCKS, MODE_EXPR, MODE_EXPRB,
+                                       MODE_TLEN)
     bufs = (wslab[0], wslab[1]) if mode in _TWO_BLOCKS else (wslab[0],)
     out = []
     for b in bufs:
+        if mode in (MODE_EXPR, MODE_EXPRB):
+            # an expression window's rows by add_seq, the alive ones first
+            b = _by_add_seq(b, alive_first=True)
         alive = np.asarray(b.alive)
         n = alive.sum(1)
         if not np.array_equal(alive, np.arange(alive.shape[1])[None, :]
@@ -205,10 +209,15 @@ def _keyed_blocks(wslab, mode):
     return out, np.asarray(wslab[-1])
 
 
-def _by_add_seq(b):
+def _by_add_seq(b, alive_first=False):
     """A stacked Buffer with each key's rows in add_seq order (the dead
-    rows, at BIG_SEQ, after them)."""
-    order = np.argsort(np.asarray(b.add_seq), axis=1, kind="stable")
+    rows, at BIG_SEQ, after them; with `alive_first` whatever their
+    add_seq)."""
+    key = np.asarray(b.add_seq)
+    if alive_first:
+        from .core.window import BIG_SEQ
+        key = np.where(np.asarray(b.alive), key, BIG_SEQ)
+    order = np.argsort(key, axis=1, kind="stable")
 
     def take(x):
         return np.take_along_axis(np.asarray(x), order, 1)
@@ -235,8 +244,10 @@ def keyed_slab_from_jax(wslab, mode: int, types, device=None,
     """A JAX keyed window state -> the port's KeyedSlab (K11's or
     K20-K23's layout); `key_init` the per-key state's initial values
     where the window's parameters set them."""
-    from .kernels.keyed_window import _TWO_BLOCKS, KeyedSlab
+    from .kernels.keyed_window import _TWO_BLOCKS, MODE_FREQ, KeyedSlab
     device = _dev(device)
+    if mode == MODE_FREQ:
+        return freq_slab_from_jax(wslab, types, device)
     blocks, seq = _keyed_blocks(wslab, mode)
     K, C = np.asarray(blocks[0][0].ts).shape
     slab = KeyedSlab.empty(mode, types, K, C, device, key_init)
@@ -254,6 +265,32 @@ def keyed_slab_from_jax(wslab, mode: int, types, device=None,
     return slab
 
 
+def freq_slab_from_jax(wslab, types, device=None):
+    """A JAX keyed FrequentWindow state (counts [K, n], keys [K, n, nk],
+    the stored events' Buffer [K, n], seq [K]) -> the port's KeyedSlab in
+    MODE_FREQ (K24)."""
+    from .kernels.keyed_window import MODE_FREQ, KeyedSlab
+    device = _dev(device)
+    counts, keys, buf, seq = wslab
+    K, n, nk = np.asarray(keys).shape
+    slab = KeyedSlab.empty(MODE_FREQ, types, K, n, device, nkeys=nk)
+    for dst, src in ((slab.f_counts, counts), (slab.f_keys, keys),
+                     (slab.ts, buf.ts), (slab.gslot, buf.gslot),
+                     (slab.seq, seq), *zip(slab.cols, buf.cols)):
+        dst.copy_(_t(src, device, dst.dtype))
+    return slab
+
+
+def expr_state_from_jax(window, wstate, types, device=None):
+    """A JAX top-level ExpressionWindow state (Buffer [C], seq) or
+    ExpressionBatchWindow state (pending Buffer [C], previous Buffer
+    [C + 1], seq) -> the port's slab of one key (K25 / K26), each buffer's
+    alive rows by add_seq."""
+    from .kernels.keyed_window import MODE_EXPR, MODE_EXPRB
+    mode = MODE_EXPRB if window.name == "expressionBatch" else MODE_EXPR
+    return keyed_slab_from_jax(_stack_one(wstate), mode, types, device)
+
+
 def _ordered(buf, n) -> np.ndarray:
     """Per key: are its alive rows (a prefix, in window order) in
     timestamp order?"""
@@ -265,19 +302,32 @@ def _ordered(buf, n) -> np.ndarray:
 
 def keyed_slab_to_jax(slab, t: int = 0):
     """The port's KeyedSlab -> the JAX keyed state of the same window:
-    numpy Buffers of [K, C] (each key's alive rows first, in window order)
+    numpy Buffers of [K, C] (each key's alive rows first, in window order;
+    a frequent window's counters in place, with their counts and keys)
     and seq[K].  A key's rows get add_seq seq - count .. seq - 1, which
     keeps their order below the key's counter; a time window's expire_ts
     is ts + t."""
     from .core.window import BIG_SEQ, Buffer
-    from .kernels.keyed_window import _TWO_BLOCKS, MODE_TBATCH, MODE_TIME
+    from .kernels.keyed_window import (_TWO_BLOCKS, MODE_FREQ, MODE_TBATCH,
+                                       MODE_TIME)
     lg = keyed_slab_logical(slab, slab.mode)
     seq = lg["seq"]
-    C = slab.C
-    ar = np.arange(C)[None, :]
+    if slab.mode == MODE_FREQ:
+        # (counts, keys, the stored events, seq), as FrequentWindow keeps
+        # them: a counter's event in place, alive where its count is
+        alive = lg["f_counts"] > 0
+        big = np.full(alive.shape, BIG_SEQ, np.int64)
+        stored = Buffer(
+            ts=lg["ts"], add_seq=big, expire_seq=big, expire_ts=big,
+            alive=alive, gslot=lg["gslot"].astype(np.int32),
+            cols=tuple(lg[f"col{j}"].astype(ev.np_dtype(tp))
+                       for j, tp in enumerate(slab.types)))
+        return lg["f_counts"], lg["f_keys"], stored, seq
 
     def buf(pre, ordered):
         n = lg[pre + "count"]
+        C = lg[pre + "ts"].shape[1]      # an expressionBatch's previous
+        ar = np.arange(C)[None, :]       # batch holds C + 1 rows
         alive = ar < n[:, None]
         add = np.where(alive & ordered, seq[:, None] - n[:, None] + ar,
                        BIG_SEQ)
@@ -300,11 +350,18 @@ def keyed_slab_to_jax(slab, t: int = 0):
 def keyed_slab_logical(state, mode: int) -> dict:
     """Every key's alive rows and counters as numpy, from a port KeyedSlab
     or a JAX keyed state: [K, C] arrays, zero past each key's count."""
-    from .kernels.keyed_window import KeyedSlab
+    from .kernels.keyed_window import MODE_FREQ, KeyedSlab
     if isinstance(state, KeyedSlab):
         return {k: v.cpu().numpy().astype(np.int64) if v.dtype in (
             torch.int32, torch.bool) else v.cpu().numpy()
             for k, v in state.logical().items()}
+    if mode == MODE_FREQ:
+        # the attribute type of each stored column, by its dtype
+        names = {np.dtype(np.int32): "INT", np.dtype(np.int64): "LONG",
+                 np.dtype(np.float32): "FLOAT", np.dtype(np.bool_): "BOOL"}
+        return keyed_slab_logical(freq_slab_from_jax(
+            state, [names[np.asarray(c).dtype] for c in state[2].cols]),
+            mode)
     blocks, seq = _keyed_blocks(state, mode)
     out = {"seq": seq.astype(np.int64)}
     out.update({n: x.astype(np.int64) for n, x in
@@ -451,6 +508,7 @@ def query_state_from_jax(planned, jax_state, device=None):
     w = planned.window
     device = _dev(device)
     types = planned.in_schema.types
+    from .core.window_expr import ExpressionWindow
     if planned.keyed_window and isinstance(w, SessionLatencyWindow):
         port_w = latency_slab_from_jax(wstate, types, device)
     elif planned.keyed_window:
@@ -470,6 +528,8 @@ def query_state_from_jax(planned, jax_state, device=None):
         port_w = hop_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
                                     np.asarray(wstate[2]), planned.in_schema,
                                     device)
+    elif isinstance(w, ExpressionWindow):
+        port_w = expr_state_from_jax(w, wstate, types, device)
     elif isinstance(w, FrequentWindow):
         port_w = freq_state_from_jax(w, *wstate[:3], np.asarray(wstate[3]),
                                      planned.in_schema, device)

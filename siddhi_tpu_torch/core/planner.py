@@ -23,7 +23,10 @@ runs the pre-window filters and every key's window over the [K, C] slab
 (kernel K11, `kernels/keyed_window.py`, for length, time, lengthBatch,
 timeBatch and session; K20-K23, `kernels/keyed_ext.py`, for
 externalTime, timeLength, delay, externalTimeBatch, batch, cron, sort and
-hopping), then the selector over the rows, which come out key-major.
+hopping; K24, `kernels/keyed_freq.py`, for frequent and lossyFrequent;
+K25 / K26, `kernels/expr_window.py`, for expression and
+expressionBatch), then the selector over the rows, which come out
+key-major.
 
 A range partition gives no key positions but a key function
 (`partition_key_fn`, host code): each row's key is the label of the first
@@ -43,10 +46,12 @@ selector's refcount pass reads each output row's slot by its input index
 Ported: filters before and after the window, the `length`, `time`,
 `lengthBatch`, `timeBatch`, `externalTime`, `externalTimeBatch`,
 `timeLength`, `delay`, `batch`, `sort`, `cron`, `session`, `frequent`,
-`lossyFrequent` and `hopping` windows or none, keyed `length` / `time` /
-`lengthBatch` / `timeBatch` / `session` (with or without allowed latency)
-/ `externalTime` / `timeLength` / `delay` / `externalTimeBatch` / `batch`
-/ `cron` / `sort` / `hopping` windows,
+`lossyFrequent`, `hopping`, `expression` and `expressionBatch` windows
+or none, keyed `length` / `time` / `lengthBatch` / `timeBatch` /
+`session` (with or without allowed latency) / `externalTime` /
+`timeLength` / `delay` / `externalTimeBatch` / `batch` / `cron` / `sort`
+/ `hopping` / `frequent` / `lossyFrequent` / `expression` /
+`expressionBatch` windows,
 group by, having, the built-in aggregators with distinctCount and
 unionSet on queries without a window, `x in Table` probes.  Stream
 functions, the other windows, named-window input and distinctCount over a
@@ -324,11 +329,12 @@ def plan_single_query(
 
     kstep = timer_keys = None
     if keyed_window:
-        from ..kernels.keyed_ext import keyed_ext_step
-        from ..kernels.keyed_window import KeyedSlab, keyed_window_step
+        from ..kernels.keyed_window import KeyedSlab
         mode, C, wkw, key_init = _keyed_shape(wproc, name)
-        # K11's windows or K20-K23's
-        wstep = keyed_ext_step if "prm" in wkw else keyed_window_step
+        from ..kernels.keyed_freq import FreqParams
+        wstep = _keyed_step(wkw)
+        prm = wkw.get("prm")
+        nkeys = len(prm.key_pos) if isinstance(prm, FreqParams) else 0
         K = key_capacity
         types = in_schema.types
 
@@ -346,8 +352,8 @@ def plan_single_query(
             return (slab, astate), (ots, okind, ovalid, ocols), header
 
         def init_state():                              # noqa: F811
-            return (KeyedSlab.empty(mode, types, K, C, device, key_init),
-                    sel.init_state())
+            return (KeyedSlab.empty(mode, types, K, C, device, key_init,
+                                    nkeys), sel.init_state())
 
         tk = []
 
@@ -377,20 +383,41 @@ def plan_single_query(
         pair_allocs=pair_allocs)
 
 
+def _keyed_step(wkw):
+    """The keyed window step of a window's step arguments: K11's, or the
+    family of its parameters' type (K20-K23, K24, K25 / K26)."""
+    from ..kernels.expr_window import ExprParams, expr_window_step
+    from ..kernels.keyed_ext import keyed_ext_step
+    from ..kernels.keyed_freq import FreqParams, keyed_freq_step
+    from ..kernels.keyed_window import keyed_window_step
+    prm = wkw.get("prm")
+    if prm is None:
+        return keyed_window_step
+    if isinstance(prm, FreqParams):
+        return keyed_freq_step
+    if isinstance(prm, ExprParams):
+        return expr_window_step
+    return keyed_ext_step
+
+
 def _keyed_shape(wproc, name: str):
     """(slab mode, per-key capacity, the keyword arguments of its step,
     the per-key state's initial values) of a window kept per partition
     key (or per session key): K11's windows take their time `t` (the
-    session gap) and session latency `lat`, K20-K23's an `ExtParams`.
-    `frequent` / `lossyFrequent` raise: their keyed forms are not ported
-    yet.  A key holds the window's capacity: max(@capacity(window), 2 *
-    batch capacity) rows for timeBatch, session, externalTime,
-    externalTimeBatch, delay, cron and hopping, `length` rows for length,
-    lengthBatch, timeLength and sort, and the batch capacity for `batch()`
-    (grown to the widest key row of a step), as the reference builds
-    them."""
+    session gap) and session latency `lat`, K20-K23's an `ExtParams`,
+    K24's a `FreqParams`, K25 / K26's an `ExprParams`.  A key holds the
+    window's capacity: max(@capacity(window), 2 * batch capacity) rows
+    for timeBatch, session, externalTime, externalTimeBatch, delay, cron
+    and hopping, `length` rows for length, lengthBatch, timeLength and
+    sort, the batch capacity for `batch()` (grown to the widest key row
+    of a step), n counters for frequent and lossyFrequent and
+    @capacity(window) rows for expression and expressionBatch, as the
+    reference builds them."""
     from ..kernels import keyed_window as kw
     from ..kernels.keyed_ext import ExtParams
+    from ..kernels.keyed_freq import FreqParams
+    from .window_expr import ExpressionWindow
+    from .window_ext import FrequentWindow
     from .window import (LengthBatchWindow, LengthWindow, TimeBatchWindow,
                          TimeWindow)
     from .window_ext import (ChunkBatchWindow, CronWindow, DelayWindow,
@@ -432,6 +459,13 @@ def _keyed_shape(wproc, name: str):
     if isinstance(wproc, HoppingWindow):
         return kw.MODE_HOP, wproc.capacity, dict(prm=ExtParams(
             win=wproc.win_ms, hop=wproc.hop_ms)), None
+    if isinstance(wproc, FrequentWindow):
+        return kw.MODE_FREQ, wproc.n, dict(prm=FreqParams(
+            n=wproc.n, key_pos=tuple(wproc.key_positions))), None
+    if isinstance(wproc, ExpressionWindow):
+        prm = wproc.params()
+        return (kw.MODE_EXPRB if prm.batch else kw.MODE_EXPR,
+                wproc.capacity, dict(prm=prm), None)
     raise CompileError(f"query {name!r}: the keyed form of a "
                        f"{wproc.name!r} window is not yet ported (ROADMAP "
                        f"B12)")

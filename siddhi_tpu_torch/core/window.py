@@ -10,7 +10,8 @@ Ported: `NoWindow` (pass-through), `LengthWindow` (`length`),
 `TimeWindow` (`time`), `LengthBatchWindow` (`lengthBatch`) and
 `TimeBatchWindow` (`timeBatch`) here; `externalTime`,
 `externalTimeBatch`, `timeLength`, `delay`, `batch`, `sort`, `cron`,
-`session`, `frequent`, `lossyFrequent` and `hopping` in `window_ext.py`.
+`session`, `frequent`, `lossyFrequent` and `hopping` in `window_ext.py`;
+`expression` and `expressionBatch` in `window_expr.py`.
 Their steps are the CUDA kernels under
 `kernels/` (`filter_compact`, `length_window`, `time_window`,
 `length_batch`, `time_batch`), each with its plain
@@ -162,6 +163,18 @@ def _param_int(params, i, default=None):
     if not isinstance(p, Constant):
         raise CompileError("window parameters must be constants")
     return int(p.value)
+
+
+def one_key_row(cache: dict, ts):
+    """A top-level window kept on a slab of one key: its key rows ([0])
+    and selection (one row whose events are the whole batch), cached per
+    batch size and device."""
+    B, dev = ts.shape[0], ts.device
+    if (B, dev) not in cache:
+        cache[(B, dev)] = (
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.arange(B, dtype=torch.int32, device=dev).view(1, B))
+    return cache[(B, dev)]
 
 
 def _arrivals(rows: Rows, fspec, now: int, seq=None):
@@ -321,11 +334,9 @@ WINDOW_TYPES = {
 
 def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
                   capacity_hint: int = 2048) -> WindowProcessor:
-    from . import window_ext
+    from . import window_expr, window_ext
     window_ext.register(WINDOW_TYPES)
-    if name in ("expression", "expressionBatch"):
-        raise CompileError(f"window {name!r} is not yet ported (ROADMAP "
-                           f"B13)")
+    window_expr.register(WINDOW_TYPES)
     if name not in WINDOW_TYPES:
         raise CompileError(f"unknown window type {name!r}; "
                            f"available: {sorted(WINDOW_TYPES)}")

@@ -30,11 +30,11 @@ grows to the largest chunk.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..query_api.expression import Constant, Variable
 from . import event as ev
-from .window import WindowOutput, WindowProcessor, _arrivals, _param_int
+from .window import (WindowOutput, WindowProcessor, _arrivals, _param_int,
+                     one_key_row)
 
 
 def _param_var_position(params, i, schema, what="window"):
@@ -351,13 +351,7 @@ class SessionWindow(WindowProcessor):
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.keyed_window import keyed_window_step
-        B, dev = rows.ts.shape[0], rows.ts.device
-        if (B, dev) not in self._sel:
-            # one key row whose events are the whole batch
-            self._sel[(B, dev)] = (
-                torch.zeros(1, dtype=torch.int32, device=dev),
-                torch.arange(B, dtype=torch.int32, device=dev).view(1, B))
-        key_idx, sel = self._sel[(B, dev)]
+        key_idx, sel = one_key_row(self._sel, rows.ts)
         out, wake = keyed_window_step(state, fspec, rows.ts, rows.kind,
                                       rows.valid, rows.gslot, rows.cols,
                                       key_idx, sel, now, self.gap_ms)

@@ -65,17 +65,6 @@ struct FreqPlan {
 
 namespace {
 
-// A float32's bits as those of the float64 it converts to; a NaN keeps its
-// payload and comes out quiet, as an x86 conversion gives it.
-__device__ __forceinline__ long long f32_key(unsigned u) {
-  if (((u >> 23) & 0xffu) == 0xffu) {
-    unsigned long long m = u & 0x7fffffu;
-    if (m) m |= 0x400000u;
-    return (long long)(((unsigned long long)(u >> 31) << 63) | (0x7ffULL << 52) | (m << 29));
-  }
-  return __double_as_longlong((double)__uint_as_float(u));
-}
-
 __device__ __forceinline__ long long key_word(const FreqPlan& pl, int w, long long i) {
   const void* c = pl.a_col[pl.key_col[w]];
   switch (pl.key_ty[w]) {

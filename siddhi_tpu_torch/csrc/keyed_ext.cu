@@ -115,12 +115,6 @@ __device__ __forceinline__ long long key_of(const ExtPlan& pl, long long r) {
   return (k >= 0 && k < pl.K) ? k : -1;
 }
 
-__device__ __forceinline__ long long load_raw(const void* p, long long i, int w) {
-  if (w == 8) return ((const long long*)p)[i];
-  if (w == 4) return (long long)((const int*)p)[i];
-  return (long long)((const unsigned char*)p)[i];
-}
-
 // A column element as int64 (the event-time attribute's astype(int64)).
 __device__ __forceinline__ long long load_i64(const void* p, long long i, int ty) {
   if (ty == T_I64) return ((const long long*)p)[i];

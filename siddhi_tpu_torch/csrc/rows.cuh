@@ -42,6 +42,26 @@ __device__ __forceinline__ void copy_elem(void* dst, long long di, const void* s
   else ((unsigned char*)dst)[di] = ((const unsigned char*)src)[si];
 }
 
+// Element si of a column whose elements are `bytes` wide, as 64 bits (an
+// int32 or a float's bits sign-extended, a bool as 0 / 1).
+__device__ __forceinline__ long long load_raw(const void* src, long long si, int bytes) {
+  if (bytes == 8) return ((const long long*)src)[si];
+  if (bytes == 4) return (long long)((const int*)src)[si];
+  return (long long)((const unsigned char*)src)[si];
+}
+
+// A float32's bits as those of the float64 it converts to; a NaN keeps its
+// payload and comes out quiet, as an x86 conversion gives it (the key word
+// of a float column in the frequent windows).
+__device__ __forceinline__ long long f32_key(unsigned u) {
+  if (((u >> 23) & 0xffu) == 0xffu) {
+    unsigned long long m = u & 0x7fffffu;
+    if (m) m |= 0x400000u;
+    return (long long)(((unsigned long long)(u >> 31) << 63) | (0x7ffULL << 52) | (m << 29));
+  }
+  return __double_as_longlong((double)__uint_as_float(u));
+}
+
 __device__ __forceinline__ void store_bits(void* dst, long long di, long long v, int bytes) {
   if (bytes == 8) ((long long*)dst)[di] = v;
   else if (bytes == 4) ((int*)dst)[di] = (int)v;

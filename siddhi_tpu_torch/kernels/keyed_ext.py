@@ -256,10 +256,11 @@ def _rank(keys, valid):
     return rank
 
 
-def _compact(g: _Keys, vals, mask, dest):
-    """[Kb, C] blocks of the candidates `mask` placed at `dest` (those
-    past C drop); returns them and the rows dropped per key row."""
-    C = g.C
+def _compact(g: _Keys, vals, mask, dest, width=None):
+    """[Kb, C] blocks (C the slab's, or `width`) of the candidates `mask`
+    placed at `dest` (those past C drop); returns them and the rows
+    dropped per key row."""
+    C = width or g.C
     w = mask & (dest < C)
     r = torch.arange(g.Kb, device=g.dev)[:, None].expand_as(w)[w]
     out = []

@@ -92,7 +92,12 @@ prefix (head 0): externalTimeBatch and cron keep their pending and
 previous blocks as lengthBatch does, externalTimeBatch its `start` (the
 window's start parameter for a fresh key, else -1; `key_init`) and
 hopping its `next` boundary (-1 unset) in `key_state`; `grow` widens a
-`batch()` slab to the widest key row of a step.
+`batch()` slab to the widest key row of a step.  So are the slabs of
+K24-K26: keyed frequent (MODE_FREQ) keeps its n counters in place, their
+counts in `f_counts` [K, n] (0: free), key words in `f_keys` [K, n, nk]
+and stored events in the main block; `expression` (MODE_EXPR) its rows
+by age as a compact prefix; `expressionBatch` (MODE_EXPRB) its pending
+run there and its previous batch in the `p_*` block of C + 1 rows.
 
 `keyed_window_step` is what the keyed planner calls: CPU tensors run
 `plain`, CUDA tensors launch the kernel; both return the rows and i64[2]
@@ -125,8 +130,11 @@ tick_launches = 0
 # externalTimeBatch, batch, cron (K21), sort (K22), hopping (K23)
 (MODE_EXT, MODE_TLEN, MODE_DELAY, MODE_XBATCH, MODE_CHUNK, MODE_CRON,
  MODE_SORT, MODE_HOP) = range(6, 14)
+# keyed frequent / lossyFrequent (K24, `kernels/keyed_freq.py`) and the
+# expression windows (K25 / K26, `kernels/expr_window.py`)
+MODE_FREQ, MODE_EXPR, MODE_EXPRB = range(14, 17)
 _TWO_BLOCKS = (MODE_BATCH, MODE_TBATCH, MODE_LATENCY, MODE_XBATCH,
-               MODE_CRON)
+               MODE_CRON, MODE_EXPRB)
 # the per-key state a mode keeps beside head / count / seq (and p_count):
 # name -> (dtype, the value of a key with no rows)
 KEY_STATE = {MODE_TIME: {"ordered": (torch.int32, 1)},
@@ -160,8 +168,11 @@ class KeyedSlab:
 
     def __init__(self, mode, types, ts, gslot, cols, head, count, seq,
                  p_ts=None, p_gslot=None, p_cols=None, p_count=None,
-                 key_state=None, key_init=None):
+                 key_state=None, key_init=None, f_counts=None, f_keys=None):
         self.mode, self.types = mode, list(types)
+        # keyed frequent: each key's n counters ([K, n]) and their key
+        # words ([K, n, nk]); the stored events are the main block
+        self.f_counts, self.f_keys = f_counts, f_keys
         self.ts, self.gslot, self.cols = ts, gslot, tuple(cols)
         self.head, self.count, self.seq = head, count, seq
         self.p_ts, self.p_gslot = p_ts, p_gslot
@@ -186,19 +197,27 @@ class KeyedSlab:
 
     @classmethod
     def empty(cls, mode: int, types: Sequence[str], K: int, C: int,
-              device, key_init=None) -> "KeyedSlab":
+              device, key_init=None, nkeys: int = 0) -> "KeyedSlab":
+        """A slab of K empty keys of C rows (for keyed frequent, C is its
+        n counters of `nkeys` key words each)."""
         def z(d, shape=(K, C)):
             return torch.zeros(shape, dtype=d, device=device)
 
-        def block():
-            return (z(torch.int64), z(torch.int32),
-                    tuple(z(slab_dtype(t)) for t in types))
+        def block(w=C):
+            return (z(torch.int64, (K, w)), z(torch.int32, (K, w)),
+                    tuple(z(slab_dtype(t), (K, w)) for t in types))
         ts, gslot, cols = block()
         extra = {}
         if mode in _TWO_BLOCKS:
-            p_ts, p_gslot, p_cols = block()
+            # an expressionBatch's previous batch holds a full run and its
+            # triggering event: C + 1 rows
+            p_ts, p_gslot, p_cols = block(C + 1 if mode == MODE_EXPRB
+                                          else C)
             extra = dict(p_ts=p_ts, p_gslot=p_gslot, p_cols=p_cols,
                          p_count=z(torch.int32, (K,)))
+        if mode == MODE_FREQ:
+            extra = dict(f_counts=z(torch.int64),
+                         f_keys=z(torch.int64, (K, C, nkeys)))
         key_init = dict(key_init or {})
         key_state = {n: torch.full((K,), key_init.get(n, v), dtype=d,
                                    device=device)
@@ -212,6 +231,8 @@ class KeyedSlab:
                self.seq]
         if self.mode in _TWO_BLOCKS:
             out += [self.p_ts, self.p_gslot, *self.p_cols, self.p_count]
+        if self.mode == MODE_FREQ:
+            out += [self.f_counts, self.f_keys]
         return out + list(self.key_state.values())
 
     def clone(self) -> "KeyedSlab":
@@ -225,11 +246,12 @@ class KeyedSlab:
             None if self.p_cols is None else [x.clone() for x in self.p_cols],
             c(self.p_count),
             {n: x.clone() for n, x in self.key_state.items()},
-            self.key_init)
+            self.key_init, c(self.f_counts), c(self.f_keys))
 
     def reset_keys(self, idx) -> None:
         """Empty the keys at `idx` (a purged partition key's slot)."""
-        for x in (self.head, self.count, self.seq, self.p_count):
+        for x in (self.head, self.count, self.seq, self.p_count,
+                  self.f_counts):
             if x is not None:
                 x[idx] = 0
         for n in KEY_STATE.get(self.mode, {}):
@@ -264,6 +286,9 @@ class KeyedSlab:
         else:
             pos = torch.remainder(self.head.long()[:, None] + ar, C)
         alive = ar[None, :] < self.count.long()[:, None]
+        if self.mode == MODE_FREQ:
+            # the counters in use, in place; their keys and stored events
+            alive = self.f_counts > 0
 
         def view(x):
             return torch.where(alive, torch.gather(x, 1, pos),
@@ -273,7 +298,12 @@ class KeyedSlab:
         for j, c in enumerate(self.cols):
             out[f"col{j}"] = view(c)
         out.update(self.key_state)
+        if self.mode == MODE_FREQ:
+            out["f_counts"] = self.f_counts
+            out["f_keys"] = torch.where(alive[:, :, None], self.f_keys,
+                                        torch.zeros_like(self.f_keys))
         if self.mode in _TWO_BLOCKS:
+            ar = torch.arange(self.p_ts.shape[1], device=self.ts.device)
             p_alive = ar[None, :] < self.p_count.long()[:, None]
 
             def pview(x):
@@ -560,6 +590,14 @@ def plain(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx, sel,
 
 def _wake(w: int, missed, dev):
     return torch.tensor([w, int(missed)], dtype=torch.int64, device=dev)
+
+
+def no_wake(dev):
+    """[NO_WAKEUP, 0] made on the device (no host copy, so a CUDA graph
+    can capture it)."""
+    w = torch.zeros(2, dtype=torch.int64, device=dev)
+    w[:1].fill_(NO_WAKEUP)
+    return w
 
 
 def _plain_tbatch(slab, now, t, Kb, E, dev, kidx, live, a_ts, a_gs, a_cols,

@@ -11,8 +11,8 @@ those in use, the seq counter) equal to the JAX step's, exact, over random
 batches with padding rows, rows the filter drops, float keys with -0.0,
 +0.0 and NaNs of two payloads, keys of two columns, and a full miss that
 evicts a cascade of counters.  Then chip_smoke's FQ1 model at a small
-size, the output bound, and the parameter lists and keyed forms that
-raise.
+size, the output bound, the parameter lists that raise, and the keyed
+forms (kernel K24) against the JAX package's events.
 """
 import jax
 import numpy as np
@@ -236,8 +236,19 @@ def test_parameters_that_raise(win, exc, match):
 
 @pytest.mark.parametrize("win", ["frequent(2, v)", "lossyFrequent(0.1)"])
 def test_keyed_form_raises_naming_b12(win):
-    ql = f"""define stream S (k long, v float, w int, b bool);
+    """Inside a partition these windows are kept per key (kernel K24,
+    `kernels/keyed_freq.py`; once a CompileError naming B12): the port
+    gives the JAX package's events, keys interleaved in each send."""
+    ql = f"""@app:playback
+    define stream S (k long, v float, w int, b bool);
     partition with (k of S) begin
-    @info(name='q') from S#window.{win} select k insert into O; end;"""
-    with pytest.raises(CompileError, match="B12"):
-        TorchManager(device="cpu").create_siddhi_app_runtime(ql)
+    @info(name='q') from S#window.{win} select k, v, w
+    insert all events into O; end;"""
+    rng = np.random.default_rng(3)
+    sends = [("S", [[int(rng.integers(0, 3)), float(rng.integers(0, 3)),
+                     int(rng.integers(0, 9)), bool(rng.random() < 0.5)]
+                    for _ in range(6)], 1000 + i) for i in range(4)]
+    want = chip_smoke.corpus_run(JaxManager(), ql, "q", sends)
+    assert any(o for _, _, o in want)
+    assert chip_smoke.corpus_run(TorchManager(device="cpu"), ql, "q",
+                                 sends) == want

@@ -241,12 +241,11 @@ def test_out_of_subset_raises_at_plan_time_on_cuda():
 
 
 @pytest.mark.parametrize("body,item", [
-    ("partition with (symbol of S) begin from S#window.frequent(2) "
-     "select price insert into O; end;", "B12"),
+    ("from S#pol2Cart(price, price) select price insert into O;", "A4"),
     ("from S#window.length(4) select distinctCount(symbol) as d "
      "insert into O;", "B14"),
-    ("partition with (symbol of S) begin from S#window.lossyFrequent(0.1) "
-     "select price insert into O; end;", "B12"),
+    ("from S select ifThenElse(price > 1.0, 1, 0) as d insert into O;",
+     "A4"),
 ])
 def test_unported_single_stream_features_raise(body, item):
     ql = "define stream S (symbol long, price float, volume int);\n" + body

@@ -599,8 +599,9 @@ def test_set_expressions_read_the_old_columns():
      from S insert into W;""", "A11"),
     ("""define stream S (k string, v int);
      define table T (k string, v int);
+     define trigger Tr at every 5 sec;
      from S#window.expression('count() <= 2') select k, v
-     insert into T;""", "B13"),
+     insert into T;""", "A11"),
 ])
 def test_still_raises(ql, item):
     with pytest.raises(CompileError, match=item):

@@ -267,8 +267,9 @@ def test_external_time_shortfall_raises(caplog):
     ("frequent(2, 3)", ValueError, "parameter 1 must be an attribute"),
     ("lossyFrequent(1.5)", ValueError, "support"),
     ("hopping(et, 500)", CompileError, "constants"),
-    ("expression('count() <= 2')", CompileError, "B13"),
-    ("expressionBatch('count() <= 2')", CompileError, "B13"),
+    ("expression(5)", CompileError, "constant string expression"),
+    ("expressionBatch('sum(first.v) < 2')", CompileError,
+     "not allowed inside window-expression aggregates"),
 ])
 def test_parameters_and_unported_kinds_raise(win, exc, match):
     ql = ("define stream S (et long, v float, w int, b bool);\n"
