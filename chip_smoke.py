@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases (any failure exits nonzero):
   1. the card: name and power limit from nvidia-smi;
-  2. build: compiles the twenty-one kernel sources of siddhi_tpu_torch/csrc/
+  2. build: compiles the kernel sources of siddhi_tpu_torch/csrc/
      with nvcc, one process each, all started together;
   3. pattern_step vs plain: the kernel against its plain PyTorch version
      on the card from the same state, on seeded random traffic: the
@@ -247,7 +247,33 @@ Phases (any failure exits nonzero):
      send over every key), each at 65,536 keys, held to a numpy model on
      its checked sends (the selector's RESET epochs across keys), with
      ev/s, per-send p50 / p99 and a profiled sweep;
- 44. X3: the keyed corpus against the JAX package's events.
+ 44. X3: the keyed corpus against the JAX package's events;
+ 45-48. keyed_freq (K24) and expr_window (K25, K26) against their plain
+     versions, their times, KFQ1, EW1 and KEB1 through SiddhiManager, and
+     X4 (`slice12_phases`);
+ 49. pattern_step's general mode and its timer pass against their plain
+     versions from one state (state words, dropped, header, rows and wake
+     after every step): fifteen forms (`GEN_FORMS`: `+`, `<0:>`, `<0:1>`,
+     `<2:4>`, `<1:>` over two streams of different widths, and, or,
+     instant and timed absent pairs, an absent chain with a count atom, a
+     leading absent atom, a partitioned sequence, a non-`every` or, and
+     aggregators with having in both modes) on random traffic at 65,536
+     keys, every general-mode step of every X5 case (`x5_twins`), then
+     two sends each of PK1, CP1, LG1 and TP1 at full size and TP1's timer
+     step over 2^20 keys;
+ 50. the general mode's time per launch at those sends, at TP1's timer
+     step and at a top-level count plan (one key, 1,024 events) beside
+     its plain version and the bound of the bytes each step must move;
+ 51. PK1 (the query guide's counting sequence at 2^20 devices: 3 sweeps
+     held pair for pair to an independent model of the slots), CP1 (its
+     counting pattern at 65,536 rooms: every round held to a closed form),
+     LG1 (its logical pattern with having, 65,536 rooms: every round held
+     to a model) and TP1 (a timed `not X for t and Y` at 2^20 keys: the
+     even keys of each block fire at their deadlines through timer-mode
+     launches), each with ev/s and per-send p50 / p99;
+ 52. X5: the pattern corpus at the top level and in a value partition,
+     the guide's examples, and aggregators over a count pattern in a
+     range partition, against the JAX package's events.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -596,10 +622,58 @@ def must_move(torch, step, before, after, cols, wire, sel, key_lo, now,
     return n, ops
 
 
-def time_traffic(torch, ps, step, state, cols, wire, sel, now):
+def general_plans(dev, ql, qname, sid):
+    """The general mode's kernel plans (the data step on `sid`, the timer
+    step or None) for a query that the flagship mode runs, planned while
+    `flagship_subset` answers no: to time the general mode on the
+    flagship's and A1's plans beside the flagship mode."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    saved = ps.flagship_subset
+    ps.flagship_subset = lambda spec: False
+    try:
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    finally:
+        ps.flagship_subset = saved
+    planned = rt.query_runtimes[qname].planned
+    kp = planned.dense_steps_w[sid].kernel_plan
+    ts = planned.timer_step
+    tkp = None if ts is None else ts.kernel_plan
+    if not kp.general or (tkp is not None and not tkp.general):
+        fail(f"{qname}: the forced plan is not the general mode's")
+    return kp, tkp
+
+
+def same_launch(torch, restore, state, launch, kp, gkp, label):
+    """One launch of the flagship mode's plan `kp` and one of the general
+    mode's `gkp` for the same query, each from the restored state: the
+    state words, the header and the rows' valid flags, ts and kinds must
+    agree.  Leaves the state restored."""
+    outs = []
+    for k in (kp, gkp):
+        restore()
+        kout = launch(k)[1]
+        torch.cuda.synchronize()
+        outs.append((state[0].clone(), state[1].clone(), kout))
+    (a32, a64, ka), (b32, b64, kb) = outs
+    if not (torch.equal(a32, b32) and torch.equal(a64, b64)):
+        fail(f"{label}: the general mode's state differs from the flagship "
+             f"mode's")
+    v = ka[3]
+    if not (torch.equal(ka[0], kb[0]) and torch.equal(v, kb[3]) and
+            torch.equal(ka[1][v], kb[1][v]) and
+            torch.equal(ka[2][v], kb[2][v])):
+        fail(f"{label}: the general mode's header or rows differ from the "
+             f"flagship mode's")
+    restore()
+
+
+def time_traffic(torch, ps, step, state, cols, wire, sel, now, gkp=None):
     """Kernel, kernel + projection and plain step at one send's inputs on
     a state whose Kb-key blocks are all alike: each timed call is a dense
-    step on the next block, from the same restored state.  Returns the
+    step on the next block, from the same restored state.  With `gkp`
+    (the general mode's plan for the same query) also the general mode,
+    held equal to the flagship mode and timed the same way.  Returns the
     times and the bound of one step."""
     kp = step.kernel_plan
     b32, b64, scal = state
@@ -633,6 +707,12 @@ def time_traffic(torch, ps, step, state, cols, wire, sel, now):
         state, (), cols, *wire, sel, j * Kb, now), 3, per)
     res["plain_ms"] = timed(torch, restore, lambda j: step.plain(
         state, (), cols, *wire, sel, j * Kb, now), 1, per)
+    if gkp is not None:
+        same_launch(torch, restore, state, lambda k: ps.launch(
+            k, state, cols, None, wire, sel, 0, now, True), kp, gkp,
+            "flagship traffic")
+        res["gen_ms"] = timed(torch, restore, lambda j: ps.launch(
+            gkp, state, cols, None, wire, sel, j * Kb, now, True), 6, per)
     restore()
     return res
 
@@ -711,21 +791,24 @@ def main() -> None:
     if [int(x) for x in hdr[:2]] != [BATCH, 0]:
         fail(f"flagship block step header {[int(x) for x in hdr]}")
     replicate_block(flag_state, BATCH)
+    gkp = general_plans(dev, ql, "flagship", T)[0]
     flag = time_traffic(torch, ps, step, flag_state, cols, (1010, delta),
-                        sel, 1013)
+                        sel, 1013, gkp)
     del flag_state
     # seeded random traffic, from the state the comparison left
     replicate_block(kern_state, BATCH)
     rcols, wire, _, rsel, _, now = random_step_inputs(
         rng, torch, dev, planned.in_schemas[T].types, N_KEYS, BATCH, 4, True)
-    rand = time_traffic(torch, ps, step, kern_state, rcols, wire, rsel, now)
+    rand = time_traffic(torch, ps, step, kern_state, rcols, wire, rsel, now,
+                        gkp)
     del kern_state
     for name, t in (("flagship traffic", flag), ("random traffic", rand)):
         print(f"timing ({name}, dense step, 2^20-key state, {BATCH} keys x "
               f"4 events): kernel {t['ms']:.4f} ms/send, kernel+projection "
               f"{t['step_ms']:.4f} ms/send, plain torch step "
               f"{t['plain_ms']:.4f} ms/send, bound {t['bound_ms']:.4f} ms "
-              f"by {t['bound_by']} ({t['bytes']} bytes, {t['ops']} ops)")
+              f"by {t['bound_by']} ({t['bytes']} bytes, {t['ops']} ops); "
+              f"the general mode on the same plan {t['gen_ms']:.4f} ms/send")
     mgr.shutdown()
 
     # -- the flagship through SiddhiManager ----------------------------------
@@ -824,6 +907,7 @@ def main() -> None:
     records += slice10_phases(torch, np, dev)
     records += slice11_phases(torch, np, dev)
     records += slice12_phases(torch, np, dev)
+    records += slice13_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -2748,21 +2832,27 @@ def compare_absent_kernel(torch, np, dev):
 def time_absent_kernel(torch, np, dev, tinfo):
     """pattern_step per launch at A1's data step (131,072 keys, one event
     each, dense) and its timer step (the whole 2^20-key slab, 65,536
-    absent deadlines due), CUDA-graph replays between CUDA events."""
+    absent deadlines due), CUDA-graph replays between CUDA events; and
+    the general mode on A1's plan (held equal, timed the same way)."""
     from siddhi_tpu_torch.kernels import pattern_step as ps
     planned, timing = tinfo
     res = {}
     before, args, step = timing["data"]
     state = clone_state(before)
+    gkp, gtkp = general_plans(dev, A1_QL, "q", "S1")
 
     def restore():
         restore_into(state, before)
     kp = step.kernel_plan
     cols, base, delta, sel, key_lo, now = args
+
+    def dlaunch(k):
+        return ps.launch(k, state, cols, None, (base, delta), sel, key_lo,
+                         now, True)
+    same_launch(torch, restore, state, dlaunch, kp, gkp, "A1 data step")
     res["data"] = {
-        "ms": graph_ms(torch, lambda: ps.launch(
-            kp, state, cols, None, (base, delta), sel, key_lo, now, True),
-            20, restore),
+        "ms": graph_ms(torch, lambda: dlaunch(kp), 20, restore),
+        "gen_ms": graph_ms(torch, lambda: dlaunch(gkp), 20, restore),
         "plain_ms": event_timer(torch, lambda: step.plain(state, (), *args),
                                 3, restore)}
     # per key: its selection and event (sel 4, key 8, v 4, ts delta 4),
@@ -2778,17 +2868,19 @@ def time_absent_kernel(torch, np, dev, tinfo):
     def trestore():
         restore_into(state, tbefore)
     tkp = planned.timer_step.kernel_plan
-    trestore()
-    kout = ps.launch(tkp, state, None, None, None, None, None, now, True,
-                     timer=True)[1]
+
+    def tlaunch(k):
+        return ps.launch(k, state, None, None, None, None, None, now, True,
+                         timer=True)
+    same_launch(torch, trestore, state, tlaunch, tkp, gtkp, "A1 timer step")
+    kout = tlaunch(tkp)[1]
     fired = int(kout[0][0])
     K = tbefore[0].shape[1]
     act = tbefore[0][:P].to(torch.bool)
     n_act = int(act.sum())
     res["timer"] = {
-        "ms": graph_ms(torch, lambda: ps.launch(
-            tkp, state, None, None, None, None, None, now, True, timer=True),
-            20, trestore),
+        "ms": graph_ms(torch, lambda: tlaunch(tkp), 20, trestore),
+        "gen_ms": graph_ms(torch, lambda: tlaunch(gtkp), 20, trestore),
         "plain_ms": event_timer(torch, lambda: planned.timer_step.plain(
             state, (), now), 3, trestore)}
     # phase 2 reads every slot's active word and, of each active slot, its
@@ -2802,7 +2894,8 @@ def time_absent_kernel(torch, np, dev, tinfo):
         print(f"timing pattern_step (A1 {k} step): kernel {t['ms']:.4f} "
               f"ms/launch, plain {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
-              f"bytes)")
+              f"bytes); the general mode on the same plan "
+              f"{t['gen_ms']:.4f} ms/launch")
     print(f"timing pattern_step (A1 timer step): {K} keys, {n_act} active "
           f"slots, {fired} fired")
     return res
@@ -13948,6 +14041,2454 @@ _X12_WANT = [[(1000, [(1000, ('A', 1.0, 1))], []),
     (9500, ('e', 6, 6.0, 0))])]]
 X12_CASES = [spec + (want,) for spec, want in
              zip(_X12_SPECS, _X12_WANT)]
+
+
+# ---------------------------------------------------------------------------
+# slice 13: the general mode of pattern_step (count atoms, logical pairs,
+# sequences, a leading absent atom, timed logical-absent pairs, aggregators
+# over pattern matches)
+# ---------------------------------------------------------------------------
+
+# Phase 49's forms: one app per form over two streams of different widths
+# (T is wider than U, so a step on U also exercises the capture merge of a
+# narrower stream), partitioned by key.
+GEN_BASE = """
+define stream T (key long, price float, volume int);
+define stream U (key long, volume int);
+partition with (key of T, key of U)
+begin
+  @capacity(keys='{keys}', slots='{slots}')
+  @info(name='q')
+  {body}
+end;
+"""
+GEN_FORMS = [
+    ("plus", 4, "from every e1=T[volume == 1], e2=T[volume == 2 and "
+     "price >= e1.price]+, e3=T[volume == 3 and e2[last].price > price] "
+     "select e1.price as a, e2[last].price as b, e2[0].price as c "
+     "insert into O;"),
+    ("star", 4, "from every e1=T[volume == 1] -> e2=T[volume == 2]<0:> -> "
+     "e3=T[volume == 3] select e1.price as a, e2[0].price as b, "
+     "e2[last].price as c, e3.price as d insert into O;"),
+    ("optional", 4, "from every e1=T[volume == 2]<0:1> -> e2=U[volume == 3] "
+     "-> e3=T[volume == 4] select e1.price as a, e2.volume as b, "
+     "e3.price as c insert into O;"),
+    ("range", 6, "from every e1=T[volume <= 2]<2:4> -> e2=U[volume == 3] "
+     "select e1[0].price as a, e1[1].price as b, e1[last].price as c, "
+     "e2.volume as d insert into O;"),
+    ("count_pattern", 4, "from every e1=T[volume == 1] -> "
+     "e2=U[volume >= 2]<1:> -> e3=T[volume == 1] select e1.price as a, "
+     "e2[0].volume - e2[last].volume as b insert into O;"),
+    ("and", 4, "from every e1=T[volume == 1] -> e2=T[volume == 2] and "
+     "e3=U[volume == 3] -> e4=T[volume == 4] select e1.price as a, "
+     "e2.price as b, e3.volume as c insert into O;"),
+    ("or", 4, "from every e1=T[volume == 1] -> e2=U[volume == 2] or "
+     "e3=T[volume == 3] select e1.price as a, e2.volume as b, "
+     "e3.price as c insert into O;"),
+    ("instant_absent", 4, "from every e1=T[volume == 1] -> "
+     "not U[volume == 2] and e3=T[volume == 3] select e1.price as a, "
+     "e3.price as b insert into O;"),
+    ("timed_absent", 4, "from every e1=T[volume == 1] -> "
+     "not U[volume == 2] for 40 milliseconds and e3=T[volume == 3] "
+     "select e1.price as a, e3.price as b insert into O;"),
+    ("absent_chain", 4, "from every e1=T[volume == 1] -> "
+     "not U[volume == 2] for 30 milliseconds -> e3=T[volume == 3]<1:2> "
+     "within 200 milliseconds select e1.price as a, e3[last].price as b "
+     "insert into O;"),
+    ("leading_absent", 4, "from every not U[volume == 2] for 30 "
+     "milliseconds -> e2=T[volume == 3] select e2.price as a insert into "
+     "O;"),
+    ("sequence", 4, "from every e1=T[volume == 1], e2=T[volume <= 2]*, "
+     "e3=T[volume == 3] select e1.price as a, e2[0].price as b, "
+     "e3.price as c insert into O;"),
+    ("not_every_or", 4, "from e1=T[volume == 1] or e2=U[volume == 2] -> "
+     "e3=T[volume == 3] select e1.price as a, e2.volume as b, "
+     "e3.price as c insert into O;"),
+    ("having", 4, "from every e1=T[volume == 1] -> e2=T[volume == 2]<1:2> "
+     "select e1.key as k, count() as n, sum(e2[last].volume) as s, "
+     "max(e2[0].price) as m having m > 0.25 insert into O;"),
+    # the flagship mode's rows through the selector over the whole grid
+    ("flagship_having", 4, "from every e1=T[volume == 1] -> "
+     "e2=U[volume == 2] select e1.key as k, count() as n, "
+     "sum(e2.volume) as s having n > 1 insert into O;"),
+]
+
+
+def gen_app(body, keys, slots):
+    return GEN_BASE.format(keys=keys, slots=slots, body=body)
+
+
+def gen_send(np, rng, torch, dev, types, K, Kb, E, dense, clock, pad):
+    """One random send of a phase-49 app's stream: keys, volumes 1-4,
+    prices with NaN and -0.0, ts from `clock` in steps of 0-9 ms; the
+    [Kb, E] selection with ~10% padding events; gather mode draws distinct
+    keys and, with `pad`, ~5% padding rows."""
+    B = Kb * E
+    cols = []
+    for t in types:
+        if t == "LONG":
+            c = rng.integers(0, K, B).astype(np.int64)
+        elif t == "INT":
+            c = rng.integers(1, 5, B).astype(np.int32)
+        else:
+            c = rng.random(B).astype(np.float32)
+            c[rng.random(B) < 0.03] = np.nan
+            c[rng.random(B) < 0.03] = -0.0
+        cols.append(torch.from_numpy(c).to(dev))
+    ts = clock + np.sort(rng.integers(0, 10 * E, B)).astype(np.int64)
+    sel = rng.permutation(B).astype(np.int32).reshape(Kb, E)
+    sel[rng.random((Kb, E)) < 0.1] = -1
+    if dense:
+        key_ref = int(rng.integers(0, K - Kb + 1))
+    else:
+        ki = rng.choice(K, Kb, replace=False).astype(np.int32)
+        if pad:
+            p = rng.random(Kb) < 0.05
+            ki[p] = K
+            sel[p] = -1
+        key_ref = torch.from_numpy(ki).to(dev)
+    wire = (int(ts[0]), torch.from_numpy((ts - ts[0]).astype(np.int32))
+            .to(dev))
+    return tuple(cols), wire, torch.from_numpy(ts).to(dev), \
+        torch.from_numpy(sel).to(dev), key_ref, int(ts[-1])
+
+
+def compare_general_plan(torch, np, planned, K, Kb, n_sends, rng, dev,
+                         label, timers=True):
+    """n_sends random steps (both streams, dense and gather, ts-delta and
+    raw-ts wires, E from 1 to 4) and, for a plan with timers, a timer step
+    after each, through the general mode and its plain version from one
+    state: state words, `dropped`, header, rows and wake equal after each.
+    Returns (max float difference, steps compared)."""
+    plain = planned.init_state(K)[0]
+    kern = clone_state(plain)
+    sel_a = sel_b = planned.init_state(K)[1]
+    sids = planned.spec.stream_ids
+    has_timer = planned.timer_step is not None
+    max_err, n, clock = 0.0, 0, 1000
+    for i in range(n_sends):
+        sid = sids[i % len(sids)]
+        dense, wire, E = i % 2 == 0, i % 3 != 2, 1 + i % 4
+        cols, tsw, raw_ts, sel, key_ref, now = gen_send(
+            np, rng, torch, dev, planned.in_schemas[sid].types, K, Kb, E,
+            dense, clock, pad=not has_timer)
+        clock = now + 1
+        steps = (planned.dense_steps_w if wire else planned.dense_steps) \
+            if dense else (planned.steps_w if wire else planned.steps)
+        ts_args = tsw if wire else (raw_ts,)
+        before = clone_state(plain)
+        a = steps[sid].plain(plain, sel_a, cols, *ts_args, sel, key_ref, now)
+        b = steps[sid].kernel(kern, sel_b, cols, *ts_args, sel, key_ref, now)
+        torch.cuda.synchronize()
+        what = (f"{label} step {i} ({sid} {'dense' if dense else 'gather'} "
+                f"{'ts-delta' if wire else 'raw-ts'} E={E})")
+        if not torch.equal(a[0][0], b[0][0]) or \
+                not torch.equal(a[0][1], b[0][1]):
+            describe_state_mismatch(torch, planned, before, a[0], b[0], sel,
+                                    key_ref, cols, ts_args, now)
+        EP = E * (planned.slots + 1)
+        compact = min(planned.compact_rows, EP) < EP
+        max_err = max(max_err, absent_compare(torch, a, b, what, compact))
+        plain, kern, sel_a, sel_b, n = a[0], b[0], a[1], b[1], n + 1
+        if has_timer and timers:
+            clock += 25
+            a = planned.timer_step.plain(plain, sel_a, clock)
+            b = planned.timer_step.kernel(kern, sel_b, clock)
+            torch.cuda.synchronize()
+            P1 = planned.slots + 1
+            max_err = max(max_err, absent_compare(
+                torch, a, b, f"{label} timer {i} at {clock}", 8 < P1))
+            plain, kern, sel_a, sel_b, n = a[0], b[0], a[1], b[1], n + 1
+    return max_err, n
+
+
+def compare_general(torch, np, dev, keys=4096, Kb=1024, n_sends=8):
+    """Phase 49's forms: each app's general mode against its plain version
+    on seeded random traffic."""
+    from siddhi_tpu_torch import SiddhiManager
+    rng = np.random.default_rng(49)
+    max_err, n = 0.0, 0
+    for name, slots, body in GEN_FORMS:
+        rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+            gen_app(body, keys, slots))
+        planned = rt.query_runtimes["q"].planned
+        kp = planned.steps[planned.spec.stream_ids[0]].kernel_plan
+        if kp.general == name.startswith("flagship"):
+            fail(f"phase 49 {name}: planned the wrong mode")
+        err, m = compare_general_plan(torch, np, planned, keys, Kb, n_sends,
+                                      rng, dev, f"general {name}")
+        max_err, n = max(max_err, err), n + m
+    print(f"compare: pattern_step general mode == plain on "
+          f"{len(GEN_FORMS)} forms over {n} steps, max_abs_err {max_err}")
+    return max_err, n
+
+
+# The slice's configurations, from the Siddhi 5.1 query guide's pattern
+# examples (PK1 its counting sequence, CP1 its counting pattern, LG1 its
+# logical pattern), and TP1, a timed `not X for t and Y` per key at A1's
+# slab size
+PK1_DEV = 1 << 20          # devices (@capacity(keys='1048576'))
+PK1_BLOCK = 1 << 15        # devices a send, 4 readings each
+PK1_SWEEPS = 3             # sweeps over every device
+CP1_ROOMS = 1 << 16        # rooms (@capacity(keys='65536'))
+CP1_REG = 1 << 14          # regulator events a round
+CP1_ROUNDS = 16
+LG1_ROOMS = 1 << 16
+LG1_ROUNDS = 16
+TP1_KEYS = 1 << 20
+TP1_BLOCK = 1 << 17
+
+PK1_QL = """
+@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+partition with (deviceID of TempStream)
+begin
+  @capacity(keys='{keys}', slots='4')
+  @info(name='peak')
+  from every e1=TempStream, e2=TempStream[e1.temp <= temp]+,
+       e3=TempStream[e2[last].temp > temp]
+  select e1.temp as initialTemp, e2[last].temp as peakTemp
+  insert into PeekTempStream;
+end;
+"""
+CP1_QL = """
+@app:playback
+define stream TemperatureStream (roomNo int, temp double);
+define stream RegulatorStream (deviceID long, roomNo int, tempSet double,
+                               isOn bool);
+partition with (roomNo of RegulatorStream, roomNo of TemperatureStream)
+begin
+  @capacity(keys='{keys}')
+  @info(name='diff')
+  from every (e1=RegulatorStream)
+       -> e2=TemperatureStream[e1.roomNo == roomNo]<1:>
+       -> e3=RegulatorStream[e1.roomNo == roomNo]
+  select e1.roomNo, e2[0].temp - e2[last].temp as tempDiff
+  insert into TempDiffStream;
+end;
+"""
+LG1_QL = """
+@app:playback
+define stream RegulatorStateChangeStream (deviceID long, roomNo int,
+                                          tempSet double, action string);
+define stream RoomKeyStream (deviceID long, roomNo int, action string);
+partition with (roomNo of RegulatorStateChangeStream,
+                roomNo of RoomKeyStream)
+begin
+  @capacity(keys='{keys}')
+  @info(name='act')
+  from every e1=RegulatorStateChangeStream[action == 'on']
+       -> e2=RoomKeyStream[action == 'removed']
+          or e3=RegulatorStateChangeStream[action == 'off']
+  select e1.roomNo as roomNo, e2.action as keyAction
+  having not (keyAction is null)
+  insert into RegulatorActionStream;
+end;
+"""
+TP1_QL = """
+@app:playback
+define stream S1 (key long, v int);
+define stream S2 (key long, v int);
+partition with (key of S1, key of S2)
+begin
+  @capacity(keys='{keys}', slots='2')
+  @info(name='q')
+  from every e1=S1[v == 1] -> not S2[v == 2] for 1 sec and e2=S2[v == 3]
+  select e1.key as k, e2.v as v
+  insert into Out;
+end;
+"""
+
+
+def pk1_pattern(np, c, n):
+    """Device class c's first n readings: runs rising 1-3 steps by 1-3
+    degrees from a start 10 degrees below the last run's start."""
+    rng = np.random.default_rng([13, c])
+    out, k = [], 0
+    while len(out) < n:
+        v = 200 - 10 * k
+        out.append(v)
+        for _ in range(int(rng.integers(1, 4))):
+            v += int(rng.integers(1, 4))
+            out.append(v)
+        k += 1
+    return np.array(out[:n], np.float64)
+
+
+def pk1_simulate(temps, P=4, cap=8):
+    """An independent model of PK1's query on one device (the reference's
+    sequence semantics at P slots and count cap 8): the matches as
+    (reading index, initialTemp, peakTemp) and the dropped forks."""
+    slots = [None] * P
+    rows, drops = [], 0
+    for i, t in enumerate(temps):
+        free = [j for j in range(P) if slots[j] is None]
+        forks, dead = [], []
+        for j in range(P):
+            s = slots[j]
+            if s is None:
+                continue
+            if s[0] == 1:                          # collecting e2
+                if t >= s[2]:
+                    if s[1] + 1 < cap:
+                        forks.append([2, 0, s[2], t])
+                        s[1] += 1
+                    else:
+                        s[:] = [2, 0, s[2], t]
+                else:
+                    dead.append(j)                 # strict sequence
+            else:                                  # waiting for e3
+                if s[3] > t:
+                    rows.append((i, s[2], s[3]))
+                dead.append(j)
+        cands = forks + [[1, 0, t, None]]          # then the seed
+        drops += max(len(cands) - len(free), 0)
+        for j, c in zip(free, cands):
+            slots[j] = c
+        for j in dead:
+            slots[j] = None
+    return rows, drops
+
+
+class PK1Model:
+    """PK1's traffic and its expected matches: device d reads class
+    d % 8's saw-tooth plus (d % 251) * 300 degrees."""
+
+    def __init__(self, np, sweeps=None):
+        self.n = 4 * (sweeps or PK1_SWEEPS)
+        self.devices, self.block = PK1_DEV, PK1_BLOCK
+        self.pat = [pk1_pattern(np, c, self.n) for c in range(8)]
+        self.sim = [pk1_simulate(list(p)) for p in self.pat]
+
+    def send(self, np, i):
+        """Send i: block i mod (devices / block), 4 readings each."""
+        nb = self.devices // self.block
+        b, w = i % nb, i // nb
+        d = np.arange(b * self.block, (b + 1) * self.block, dtype=np.int64)
+        dev = np.repeat(d, 4)
+        r = np.tile(np.arange(4), self.block) + 4 * w
+        pat = np.stack(self.pat)                   # [8, n]
+        temp = pat[dev % 8, r] + (dev % 251) * 300.0
+        ts = 1000 + 10 * i + np.tile(np.arange(4, dtype=np.int64),
+                                     self.block)
+        return [dev, (dev % 1000).astype(np.int32), temp], ts
+
+    def expected(self, np, sweep):
+        """(count, sorted (initialTemp, peakTemp) pairs) of the matches of
+        one sweep (readings 4 sweep .. 4 sweep + 3 of every device)."""
+        d = np.arange(self.devices, dtype=np.int64)
+        off = (d % 251) * 300.0
+        pairs = []
+        for c in range(8):
+            rows = [(a, b) for i, a, b in self.sim[c][0]
+                    if 4 * sweep <= i < 4 * sweep + 4]
+            dc = off[c::8]
+            for a, b in rows:
+                pairs.append(np.stack([a + dc, b + dc], 1))
+        allp = np.concatenate(pairs) if pairs else np.zeros((0, 2))
+        return allp.shape[0], allp[np.lexsort((allp[:, 1], allp[:, 0]))]
+
+    def drops(self):
+        return sum(self.sim[d % 8][1] for d in range(8)) * \
+            (self.devices // 8)
+
+
+def cp1_temp(np, rooms, rnd, j):
+    return ((rooms * 7 + rnd * 13 + j * 5) % 40 + 10).astype(np.float64)
+
+
+def cp1_sends(np, i):
+    """Round i: regulator events for the rooms of block i mod 4, then two
+    readings for every room."""
+    rooms = np.arange((i % 4) * CP1_REG, (i % 4 + 1) * CP1_REG)
+    t0 = 1000 + 100 * i
+    reg = ([rooms.astype(np.int64) + 7, rooms.astype(np.int32),
+            np.full(CP1_REG, 21.5), np.ones(CP1_REG, bool)],
+           np.full(CP1_REG, t0, np.int64))
+    allr = np.repeat(np.arange(CP1_ROOMS), 2)
+    j = np.tile(np.arange(2), CP1_ROOMS)
+    temps = ([allr.astype(np.int32), cp1_temp(np, allr, i, j)],
+             t0 + 1 + j.astype(np.int64))
+    return reg, temps
+
+
+def cp1_expected(np, i):
+    """Round i's rows: the regulator block b = i mod 4 fires in rounds with
+    i mod 8 >= 4, 8 rows a room (tempDiff = t1 - tk over the 8 readings of
+    rounds i-4 .. i-1), its seed dropped; else none."""
+    if i % 8 < 4 or i < 4:
+        return None
+    b = i % 4
+    rooms = np.arange(b * CP1_REG, (b + 1) * CP1_REG)
+    ts = [cp1_temp(np, rooms, r, j) for r in range(i - 4, i)
+          for j in range(2)]
+    diffs = np.stack([ts[0] - t for t in ts], 1)      # [rooms, 8]
+    return rooms, diffs
+
+
+class LG1Model:
+    """LG1: each round every room's state change ('on' with probability
+    0.7, else 'off'), then key events for the rooms of one parity
+    ('removed' with probability 0.4, else 'inserted').  Pending 'on's per
+    room (at most 8 slots); a 'removed' fires them all, an 'off' clears
+    them without a row."""
+
+    def __init__(self, np):
+        self.pend = np.zeros(LG1_ROOMS, np.int64)
+        self.drops = 0
+        self.rng = np.random.default_rng(131)
+
+    def sends(self, np, i):
+        rooms = np.arange(LG1_ROOMS)
+        on = self.rng.random(LG1_ROOMS) < 0.7
+        kr = rooms[(rooms + i) % 2 == 0]
+        removed = self.rng.random(kr.shape[0]) < 0.4
+        t0 = 1000 + 100 * i
+        sc = ([rooms.astype(np.int64), rooms.astype(np.int32),
+               np.full(LG1_ROOMS, 20.0),
+               np.where(on, "on", "off").astype(object)],
+              np.full(LG1_ROOMS, t0, np.int64))
+        ks = ([kr.astype(np.int64), kr.astype(np.int32),
+               np.where(removed, "removed", "inserted").astype(object)],
+              np.full(kr.shape[0], t0 + 1, np.int64))
+        # the model: 'on' seeds a slot (or drops at 8), 'off' clears
+        self.drops += int((on & (self.pend == 8)).sum())
+        self.pend = np.where(on, np.minimum(self.pend + 1, 8), 0)
+        fired = kr[removed]
+        rows = np.repeat(fired, self.pend[fired])
+        self.pend[fired] = 0
+        return sc, ks, np.sort(rows)
+
+
+def tp1_sends(np, i):
+    """TP1 round i: S1 (v = 1) for key block i mod 8 at 1000 + 250 i; 100
+    ms later S2 for the same keys: v = 3 (the presence) on even keys,
+    v = 2 (the absent side, killing) on odd keys."""
+    blk = i % (TP1_KEYS // TP1_BLOCK)
+    keys = np.arange(blk * TP1_BLOCK, (blk + 1) * TP1_BLOCK, dtype=np.int64)
+    t1 = 1000 + 250 * i
+    s1 = ([keys, np.ones(TP1_BLOCK, np.int32)],
+          np.full(TP1_BLOCK, t1, np.int64))
+    s2 = ([keys, np.where(keys % 2 == 0, 3, 2).astype(np.int32)],
+          np.full(TP1_BLOCK, t1 + 100, np.int64))
+    return s1, s2
+
+
+def slot_args(torch, np, dev, cols, ts, key_col, E, dense, types):
+    """A partitioned data step's device arguments from host columns sorted
+    by key, E events a key, slot = key: (cols, ts base, ts delta, sel,
+    key_ref, now)."""
+    n = ts.shape[0]
+    keys = np.asarray(cols[key_col])[::E]
+    dcols = []
+    for c, t in zip(cols, types):
+        if t == "STRING":
+            c = np.zeros(n, np.int32)              # ids: unused by these
+        dcols.append(torch.from_numpy(np.ascontiguousarray(c).astype(
+            {"LONG": np.int64, "INT": np.int32, "DOUBLE": np.float32,
+             "FLOAT": np.float32, "BOOL": bool, "STRING": np.int32}[t]))
+            .to(dev))
+    sel = torch.arange(n, dtype=torch.int32, device=dev).view(-1, E)
+    key_ref = int(keys[0]) if dense else \
+        torch.from_numpy(keys.astype(np.int32)).to(dev)
+    delta = torch.from_numpy((ts - ts[0]).astype(np.int32)).to(dev)
+    return (tuple(dcols), int(ts[0]), delta, sel, key_ref, int(ts.max()))
+
+
+def out_bytes(torch, kp, kout, full_grid):
+    """Bytes of a launch's output rows and header.  Compacted rows are
+    charged at full width.  On the whole grid (`full_grid`) an empty row
+    needs only its valid flag, and full width is charged only for the
+    rows that hold a match, as A1's timer bound charges them."""
+    out_row = 8 + 4 + 1 + sum(torch.empty((), dtype=d).element_size()
+                              for d in kp.emit_dtypes)
+    nrows = kout[1].shape[0]
+    if not full_grid:
+        return nrows * out_row + 16
+    return nrows + int(kout[3].sum()) * (out_row - 1) + 16
+
+
+def gen_bound(torch, kp, before, after, args, kout):
+    """Bytes one general-mode step must move for these inputs: the
+    selection; the selected events' columns and ts deltas; each key's
+    control words (P active flags, seed_on, done); for every slot live
+    when the key's events arrive, its pos, count and lmask words and the
+    capture words its atom's filters load (an `e[last]` load also reads
+    the set's D ts words); every state word the step changed (captures at
+    the depths written, fork copies, advances); the output rows and the
+    header (`out_bytes`)."""
+    from siddhi_tpu_torch.kernels.filter_bytecode import cap_loads
+    t = kp.template
+    P, S = kp.P, t.S
+    cols, _, _, sel, key_ref, _ = args
+    Kb = sel.shape[0]
+    kc = (int(key_ref) + torch.arange(Kb, device=sel.device)) \
+        if isinstance(key_ref, int) else key_ref.long()
+    valid = sel >= 0
+    n = sel.numel() * 4 + int(valid.sum()) * (
+        sum(c.element_size() for c in cols) + 4)
+    n += Kb * (P + 2) * 4
+    b32 = before[0][:, kc]
+    active = b32[t.off_active:t.off_active + P] != 0
+    done = b32[t.off_done] != 0
+    live = active & (valid.any(1) & ~done)[None]
+    per_atom = []
+    for a in range(S):
+        nb = 12
+        for s in (t.a_side[a], t.a_pside[a]):
+            if s < 0 or t.s_code_len[s] == 0:
+                continue
+            code = list(t.code[t.s_code[s]:t.s_code[s] + t.s_code_len[s]])
+            for st, c, d in cap_loads(code, with_depth=True):
+                nb += 8 if t.s_ty[st][c] == 1 else 4
+                if d < 0:
+                    nb += 8 * t.s_depth[st]
+        per_atom.append(nb)
+    pos = b32[t.off_pos:t.off_pos + P].long().clamp(0, S - 1)
+    n += int(torch.tensor(per_atom, device=sel.device)[pos][live].sum())
+    n += int((after[0][:, kc] != b32).sum()) * 4
+    n += int((after[1][:, kc] != before[1][:, kc]).sum()) * 8
+    return n + out_bytes(torch, kp, kout, kp.full_grid)
+
+
+def time_general(torch, label, planned, sid, dense, state, args):
+    """One data step's kernel launch (CUDA events, from a restored state)
+    beside its plain step and its bound."""
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    steps = planned.dense_steps_w if dense else planned.steps_w
+    step = steps[sid]
+    kp = step.kernel_plan
+    snap = clone_state(state)
+    cols, base, delta, sel, key_ref, now = args
+
+    def restore():
+        restore_into(state, snap)
+
+    def launch():
+        return ps.launch(kp, state, cols, None, (base, delta), sel, key_ref,
+                         now, dense)
+    restore()
+    kout = launch()[1]
+    torch.cuda.synchronize()
+    nb = gen_bound(torch, kp, snap, state, args, kout)
+    ms = event_timer(torch, launch, 10, restore)
+    step_ms = event_timer(torch, lambda: step.kernel(
+        state, (), cols, base, delta, sel, key_ref, now), 5, restore)
+    plain_ms = event_timer(torch, lambda: step.plain(
+        state, (), cols, base, delta, sel, key_ref, now), 2, restore)
+    restore()
+    res = dict(bound(nb), ms=ms, step_ms=step_ms, plain_ms=plain_ms)
+    print(f"timing {label}: kernel {ms:.4f} ms/launch, kernel+selector "
+          f"{step_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.5f} ms by {res['bound_by']} ({nb} bytes), "
+          f"{res['bound_ms'] / ms:.4f} of the bound")
+    return res
+
+
+class GeneralTwin:
+    """Wraps one step of a planned pattern query: each call runs the plain
+    version on a copy of the state and the kernel on the state itself,
+    compares state words, `dropped`, header, rows and wake, and returns
+    the kernel's result.  Gather padding rows are left out of both (the
+    plain step ticks a clamped copy of the last key for one)."""
+
+    def __init__(self, torch, step, label, stats, timer=False):
+        self.torch, self.step, self.label = torch, step, label
+        self.stats, self.timer = stats, timer
+
+    def __call__(self, packed, sel_state, *args, in_tabs=None):
+        torch = self.torch
+        kw = {} if in_tabs is None else {"in_tabs": in_tabs}
+        if not self.timer:
+            *front, sel, key_ref, now = args
+            if not isinstance(key_ref, int):
+                keep = key_ref < packed[0].shape[1]
+                sel, key_ref = sel[keep].contiguous(), \
+                    key_ref[keep].contiguous()
+            args = (*front, sel, key_ref, now)
+        sel_copy = tuple(x.clone() for x in sel_state)
+        a = self.step.plain(clone_state(packed), sel_copy, *args, **kw)
+        b = self.step.kernel(packed, sel_state, *args, **kw)
+        torch.cuda.synchronize()
+        n = self.stats["steps"]
+        compact = False
+        if not self.timer and not self.step.kernel_plan.full_grid:
+            EP = args[-3].shape[1] * (self.step.kernel_plan.P + 1)
+            compact = min(self.step.kernel_plan.compact_rows, EP) < EP
+        elif self.timer and not self.step.kernel_plan.full_grid:
+            compact = 8 < self.step.kernel_plan.P + 1
+        err, _ = compare_steps(torch, a, b, f"{self.label} step {n}",
+                               compact)
+        if int(a[3]) != int(b[3]):
+            fail(f"{self.label} step {n}: wake {int(a[3])} != {int(b[3])}")
+        self.stats["steps"] += 1
+        self.stats["err"] = max(self.stats["err"], err)
+        return b
+
+
+def x5_twins(torch, np, dev):
+    """Phase 49 on every X5 case: each general-mode step and timer step of
+    the case's run against its plain version (`GeneralTwin`)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core import runtime as rtm
+    stats = {"steps": 0, "err": 0.0}
+    orig = rtm.plan_pattern_query
+    label = [""]
+
+    def plan(*a, **k):
+        p = orig(*a, **k)
+        if not p.block:
+            for steps in (p.steps, p.dense_steps, p.steps_w,
+                          p.dense_steps_w):
+                for sid, st in list(steps.items()):
+                    if st.kernel_plan.general:
+                        steps[sid] = GeneralTwin(torch, st, label[0], stats)
+            if p.timer_step is not None and p.timer_step.kernel_plan.general:
+                p.timer_step = GeneralTwin(torch, p.timer_step, label[0],
+                                           stats, timer=True)
+        return p
+    rtm.plan_pattern_query = plan
+    try:
+        for name, ql, qname, sends, want in X5_CASES:
+            label[0] = f"X5 {name}"
+            got = corpus_run(SiddhiManager(device=dev), ql, qname, sends)
+            if got != want:
+                fail(f"X5 twins {name}: {got}, expected {want}")
+    finally:
+        rtm.plan_pattern_query = orig
+    print(f"compare: general mode == plain on every X5 case, "
+          f"{stats['steps']} steps (timer steps included), max_abs_err "
+          f"{stats['err']}")
+    return stats["err"]
+
+
+def time_general_timer(torch, planned, state, now):
+    """A general-mode timer launch over the whole slab (TP1: the first
+    block's 65,536 timed pairs fall due) beside its plain version and the
+    bytes it must move: each key's control words, the pos / lmask / entry
+    words of its active slots, the words it changes, the valid flag of
+    every output row and the whole of each fired row."""
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    kp = planned.timer_step.kernel_plan
+    snap = clone_state(state)
+    t = kp.template
+    P, K = kp.P, state[0].shape[1]
+
+    def restore():
+        restore_into(state, snap)
+
+    def launch():
+        return ps.launch(kp, state, None, None, None, None, None, now, True,
+                         timer=True)
+    restore()
+    kout = launch()[1]
+    torch.cuda.synchronize()
+    active = snap[0][t.off_active:t.off_active + P] != 0
+    nb = K * (P + 2) * 4 + int(active.sum()) * 16
+    nb += int((state[0] != snap[0]).sum()) * 4 + \
+        int((state[1] != snap[1]).sum()) * 8
+    nb += out_bytes(torch, kp, kout, True)
+    ms = event_timer(torch, launch, 10, restore)
+    plain_ms = event_timer(torch, lambda: planned.timer_step.plain(
+        state, (), now), 2, restore)
+    restore()
+    res = dict(bound(nb), ms=ms, plain_ms=plain_ms)
+    print(f"timing TP1 timer step ({K} keys, {int(kout[0][0])} fired): "
+          f"kernel {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound "
+          f"{res['bound_ms']:.5f} ms by {res['bound_by']} ({nb} bytes), "
+          f"{res['bound_ms'] / ms:.4f} of the bound")
+    return res
+
+
+def config_twins(torch, np, dev, label, ql, qname, K, sends, timer_at=None):
+    """Phase 49 at full size: `sends` ((stream, args fn, dense), ...) of a
+    configuration through the general mode and its plain version from one
+    state, then with `timer_at` a timer step at that time; returns (max
+    err, the timing inputs of the first send, and with a timer step
+    (planned, the state before it, its time))."""
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    planned = rt.query_runtimes[qname].planned
+    plain = planned.init_state(K)[0]
+    kern = clone_state(plain)
+    max_err, first = 0.0, None
+    for j, (sid, make, dense) in enumerate(sends):
+        args = make(planned)
+        steps = planned.dense_steps_w if dense else planned.steps_w
+        before = clone_state(kern)
+        a = steps[sid].plain(plain, planned.init_state(1)[1], *args)
+        b = steps[sid].kernel(kern, planned.init_state(1)[1], *args)
+        torch.cuda.synchronize()
+        cols, base, delta, sel, key_ref, now = args
+        if not torch.equal(a[0][0], b[0][0]) or \
+                not torch.equal(a[0][1], b[0][1]):
+            describe_state_mismatch(torch, planned, before, a[0], b[0], sel,
+                                    key_ref, cols, (base, delta), now)
+        E = sel.shape[1]
+        EP = E * (planned.slots + 1)
+        compact = min(planned.compact_rows, EP) < EP and \
+            not steps[sid].kernel_plan.full_grid
+        max_err = max(max_err, absent_compare(
+            torch, a, b, f"{label} send {j} ({sid})", compact))
+        if first is None:
+            first = (planned, sid, dense, before, args)
+        plain, kern = a[0], b[0]
+    timer = None
+    if timer_at is not None:
+        before = clone_state(kern)
+        a = planned.timer_step.plain(plain, planned.init_state(1)[1],
+                                     timer_at)
+        b = planned.timer_step.kernel(kern, planned.init_state(1)[1],
+                                      timer_at)
+        torch.cuda.synchronize()
+        max_err = max(max_err, absent_compare(
+            torch, a, b, f"{label} timer at {timer_at}",
+            min(8, planned.slots + 1) < planned.slots + 1))
+        timer = (planned, before, timer_at)
+    del plain
+    return max_err, first, timer
+
+
+def s13_config_sends(np, torch, dev):
+    """Phase 49's full-size sends of PK1, CP1 and LG1: two each."""
+    pk = PK1Model(np, sweeps=1)
+    pk_types = ["LONG", "INT", "DOUBLE"]
+
+    def pk_send(i):
+        cols, ts = pk.send(np, i)
+        return lambda p: slot_args(torch, np, dev, cols, ts, 0, 4, True,
+                                   pk_types)
+    (rc, rt_), (tc, tt) = cp1_sends(np, 0)
+    lg = LG1Model(np)
+    (sc, st), (kc, kt), _ = lg.sends(np, 0)
+    (c1, t1), (c2, t2) = tp1_sends(np, 0)
+    tp_types = ["LONG", "INT"]
+    return [
+        ("PK1", PK1_QL.format(keys=PK1_DEV), "peak", PK1_DEV,
+         [("TempStream", pk_send(0), True), ("TempStream", pk_send(1),
+                                             True)]),
+        ("CP1", CP1_QL.format(keys=CP1_ROOMS), "diff", CP1_ROOMS,
+         [("RegulatorStream", lambda p: slot_args(
+             torch, np, dev, rc, rt_, 1, 1, True,
+             ["LONG", "INT", "DOUBLE", "BOOL"]), True),
+          ("TemperatureStream", lambda p: slot_args(
+              torch, np, dev, tc, tt, 0, 2, True, ["INT", "DOUBLE"]),
+           True)]),
+        ("LG1", LG1_QL.format(keys=LG1_ROOMS), "act", LG1_ROOMS,
+         [("RegulatorStateChangeStream", lambda p: lg_args(
+             torch, np, dev, p, "RegulatorStateChangeStream", sc, st, True),
+           True),
+          ("RoomKeyStream", lambda p: lg_args(
+              torch, np, dev, p, "RoomKeyStream", kc, kt, False), False)]),
+        ("TP1", TP1_QL.format(keys=TP1_KEYS), "q", TP1_KEYS,
+         [("S1", lambda p: slot_args(torch, np, dev, c1, t1, 0, 1, True,
+                                     tp_types), True),
+          ("S2", lambda p: slot_args(torch, np, dev, c2, t2, 0, 1, True,
+                                     tp_types), True)]),
+    ]
+
+
+def lg_args(torch, np, dev, planned, sid, cols, ts, dense):
+    """LG1's step arguments with its action strings interned as the
+    runtime interns them."""
+    interner = planned.exec.interner
+    ids = np.array([interner.intern(x) for x in cols[-1]], np.int32)
+    types = planned.in_schemas[sid].types
+    args = slot_args(torch, np, dev, list(cols[:-1]) + [ids], ts, 1, 1,
+                     dense, list(types[:-1]) + ["INT"])
+    return args
+
+
+def s13_drive(torch, np, rt, qname, rounds, send_round):
+    """Drive a configuration's rounds through SiddhiManager, collecting
+    each batch's valid rows; returns (rows by round, latencies, wall)."""
+    got = {}
+    cur = [0]
+
+    def on_batch(ts, b):
+        if not b["n_current"]:
+            return
+        v = b["valid"]
+        got.setdefault(cur[0], []).append(
+            ({k: c[v] for k, c in b["cols"].items()}, b["ts"][v]))
+    rt.add_batch_callback(qname, on_batch)
+    rt.start()
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(rounds):
+        cur[0] = i
+        tb = time.perf_counter()
+        send_round(i)
+        rt.flush()
+        lat.append(time.perf_counter() - tb)
+    wall = time.perf_counter() - t0
+    return got, lat, wall
+
+
+def s13_profile(torch, rt, label, n, send_round):
+    """A profiled sweep of n more rounds (on the card: device busy time,
+    the idle share and the top device ops)."""
+    if torch.cuda.is_available():
+        profile_line(label, n, device_profile(torch, rt, n, send_round))
+
+
+def s13_cat(np, parts, name):
+    return np.concatenate([c[name] for c, _ in parts]) if parts else \
+        np.zeros(0)
+
+
+def run_pk1(torch, np, dev):
+    """PK1 through SiddhiManager: 3 sweeps of 32 sends (32,768 devices x 4
+    readings each); every sweep's matches held to the model, as sorted
+    (initialTemp, peakTemp) pairs, and the dropped forks to its count."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(PK1_QL.format(keys=PK1_DEV))
+    model = PK1Model(np)
+    h = rt.get_input_handler("TempStream")
+    nb = PK1_DEV // PK1_BLOCK
+    sends = [model.send(np, i) for i in range(nb * PK1_SWEEPS)]
+    ps.reset_counts()
+
+    def send_round(i):
+        cols, ts = sends[i]
+        h.send_columns(cols, timestamps=ts)
+    got, lat, wall = s13_drive(torch, np, rt, "peak", len(sends), send_round)
+    launches, plain = ps.mode_launches[0], ps.plain_calls
+    for w in range(PK1_SWEEPS):
+        parts = [p for i in range(w * nb, (w + 1) * nb)
+                 for p in got.get(i, [])]
+        a = s13_cat(np, parts, "initialTemp").astype(np.float64)
+        b = s13_cat(np, parts, "peakTemp").astype(np.float64)
+        o = np.lexsort((b, a))
+        n, want = model.expected(np, w)
+        if a.shape[0] != n or not np.array_equal(
+                np.stack([a[o], b[o]], 1), want):
+            fail(f"PK1 sweep {w}: {a.shape[0]} matches, expected {n} (or "
+                 f"the (initialTemp, peakTemp) pairs differ)")
+    dropped = int(rt.query_runtimes["peak"].state[0][2][0])
+    if dropped != model.drops():
+        fail(f"PK1: {dropped} forks dropped, the model drops "
+             f"{model.drops()}")
+    if dev.type == "cuda" and (launches <= 0 or plain):
+        fail(f"PK1: general-mode launches {launches}, plain calls {plain}")
+    total = sum(model.expected(np, w)[0] for w in range(PK1_SWEEPS))
+    print(f"PK1: {total} matches over {PK1_SWEEPS} sweeps equal the model "
+          f"pair for pair, {dropped} forks dropped as modelled; "
+          f"general-mode launches {launches}, plain calls {plain}")
+    lat_line(np, "PK1", lat, wall, len(sends) * 4 * PK1_BLOCK,
+             4 * PK1_BLOCK * (8 + 4 + 4 + 4 + 4))
+
+    def again(b):
+        cols, ts = sends[b]
+        h.send_columns(cols, timestamps=ts + 10 ** 6)
+    s13_profile(torch, rt, "PK1", 8, again)
+    mgr.shutdown()
+    return launches
+
+
+def run_cp1(torch, np, dev):
+    """CP1 through SiddhiManager: 16 rounds of 16,384 regulator events and
+    131,072 readings; each round's rows held to the closed form (rooms and
+    tempDiffs), the dropped seeds to its count."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(CP1_QL.format(keys=CP1_ROOMS))
+    hr = rt.get_input_handler("RegulatorStream")
+    ht = rt.get_input_handler("TemperatureStream")
+    sends = [cp1_sends(np, i) for i in range(CP1_ROUNDS)]
+    ps.reset_counts()
+
+    def send_round(i):
+        (rc, rts), (tc, tts) = sends[i]
+        hr.send_columns(rc, timestamps=rts)
+        ht.send_columns(tc, timestamps=tts)
+    got, lat, wall = s13_drive(torch, np, rt, "diff", CP1_ROUNDS,
+                               send_round)
+    launches, plain = ps.mode_launches[0], ps.plain_calls
+    total, fires = 0, 0
+    for i in range(CP1_ROUNDS):
+        parts = got.get(i, [])
+        room = s13_cat(np, parts, "roomNo").astype(np.int64)
+        diff = s13_cat(np, parts, "tempDiff").astype(np.float64)
+        exp = cp1_expected(np, i)
+        if exp is None:
+            if room.shape[0]:
+                fail(f"CP1 round {i}: {room.shape[0]} rows, expected none")
+            continue
+        rooms, diffs = exp
+        o = np.lexsort((diff, room))
+        want_r = np.repeat(rooms, 8)
+        want_d = np.sort(diffs, 1).reshape(-1)
+        if not (np.array_equal(room[o], want_r) and
+                np.array_equal(diff[o], want_d)):
+            fail(f"CP1 round {i}: {room.shape[0]} rows differ from the "
+                 f"closed form ({want_r.shape[0]} rows)")
+        total, fires = total + room.shape[0], fires + 1
+    dropped = int(rt.query_runtimes["diff"].state[0][2][0])
+    if dropped != fires * CP1_REG:
+        fail(f"CP1: {dropped} seeds dropped, expected {fires * CP1_REG}")
+    if dev.type == "cuda" and (launches <= 0 or plain):
+        fail(f"CP1: general-mode launches {launches}, plain calls {plain}")
+    print(f"CP1: {total} rows in {fires} firing rounds equal the closed "
+          f"form room by room; {dropped} seeds dropped as expected; "
+          f"general-mode launches {launches}, plain calls {plain}")
+    lat_line(np, "CP1", lat, wall, CP1_ROUNDS * (CP1_REG + 2 * CP1_ROOMS),
+             CP1_REG * 25 + 2 * CP1_ROOMS * 16)
+
+    def again(b):
+        (rc, rts), (tc, tts) = sends[b]
+        hr.send_columns(rc, timestamps=rts + 10 ** 6)
+        ht.send_columns(tc, timestamps=tts + 10 ** 6)
+    s13_profile(torch, rt, "CP1", 4, again)
+    mgr.shutdown()
+    return launches
+
+
+def run_lg1(torch, np, dev):
+    """LG1 through SiddhiManager: 16 rounds of 65,536 state changes and
+    32,768 key events; each round's rows (rooms, 'removed') held to the
+    model, the dropped seeds to its count."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(LG1_QL.format(keys=LG1_ROOMS))
+    qr = rt.query_runtimes["act"]
+    intern = qr.planned.exec.interner.intern
+    hs = rt.get_input_handler("RegulatorStateChangeStream")
+    hk = rt.get_input_handler("RoomKeyStream")
+    model = LG1Model(np)
+    rounds = [model.sends(np, i) for i in range(LG1_ROUNDS)]
+    ids = {s: intern(s) for s in ("on", "off", "removed", "inserted")}
+
+    def enc(cols):
+        return list(cols[:-1]) + [np.array([ids[x] for x in cols[-1]],
+                                           np.int32)]
+    enc_rounds = [(enc(sc), st, enc(kc), kt) for (sc, st), (kc, kt), _
+                  in rounds]
+    ps.reset_counts()
+
+    def send_round(i):
+        sc, st, kc, kt = enc_rounds[i]
+        hs.send_columns(sc, timestamps=st)
+        hk.send_columns(kc, timestamps=kt)
+    got, lat, wall = s13_drive(torch, np, rt, "act", LG1_ROUNDS, send_round)
+    launches, plain = ps.mode_launches[0], ps.plain_calls
+    total = 0
+    for i, (_, _, want) in enumerate(rounds):
+        parts = got.get(i, [])
+        room = np.sort(s13_cat(np, parts, "roomNo").astype(np.int64))
+        act = s13_cat(np, parts, "keyAction")
+        if not np.array_equal(room, want) or \
+                not np.all(act == ids["removed"]):
+            fail(f"LG1 round {i}: {room.shape[0]} rows, the model "
+                 f"{want.shape[0]} (or rooms / actions differ)")
+        total += room.shape[0]
+    dropped = int(qr.state[0][2][0])
+    if dropped != model.drops:
+        fail(f"LG1: {dropped} seeds dropped, the model {model.drops}")
+    if dev.type == "cuda" and (launches <= 0 or plain):
+        fail(f"LG1: general-mode launches {launches}, plain calls {plain}")
+    print(f"LG1: {total} rows equal the model room by room (having drops "
+          f"the 'off' completions); {dropped} seeds dropped as modelled; "
+          f"general-mode launches {launches}, plain calls {plain}")
+    lat_line(np, "LG1", lat, wall, LG1_ROUNDS * (LG1_ROOMS + LG1_ROOMS // 2),
+             LG1_ROOMS * 24 + LG1_ROOMS // 2 * 20)
+
+    def again(b):
+        sc, st, kc, kt = enc_rounds[b]
+        hs.send_columns(sc, timestamps=st + 10 ** 6)
+        hk.send_columns(kc, timestamps=kt + 10 ** 6)
+    s13_profile(torch, rt, "LG1", 4, again)
+    mgr.shutdown()
+    return launches
+
+
+def run_tp1(torch, np, dev):
+    """TP1 through SiddhiManager at 2^20 keys: 16 rounds; the timer steps
+    fire exactly the even keys of each block, once each, at e1.ts + 1000,
+    through general-mode timer launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(TP1_QL.format(keys=TP1_KEYS))
+    fired, bad = {}, []
+
+    def on_batch(ts, b):
+        if not b["n_current"]:
+            return
+        v = b["valid"]
+        k, t = b["cols"]["k"][v], b["ts"][v]
+        for tt in np.unique(t):
+            i = (int(tt) - 2000) // 250
+            kk = np.sort(k[t == tt])
+            blk = i % (TP1_KEYS // TP1_BLOCK)
+            want = np.arange(blk * TP1_BLOCK, (blk + 1) * TP1_BLOCK, 2)
+            if not np.array_equal(kk, want) or \
+                    not np.all(b["cols"]["v"][v][t == tt] == 3):
+                bad.append(i)
+            fired[i] = fired.get(i, 0) + kk.shape[0]
+    rt.add_batch_callback("q", on_batch)
+    rt.start()
+    h1, h2 = rt.get_input_handler("S1"), rt.get_input_handler("S2")
+    rounds = 16
+    sends = [tp1_sends(np, i) for i in range(rounds)]
+    ps.reset_counts()
+    lat = []
+    t0 = time.perf_counter()
+    for (c1, t1), (c2, t2) in sends:
+        tb = time.perf_counter()
+        h1.send_columns(c1, timestamps=t1)
+        h2.send_columns(c2, timestamps=t2)
+        lat.append(time.perf_counter() - tb)
+    rt.flush()
+    wall = time.perf_counter() - t0
+    timer, data = ps.mode_launches[1], ps.mode_launches[0]
+    want = {i: TP1_BLOCK // 2 for i in range(rounds - 4)}
+    if bad or fired != want:
+        fail(f"TP1: fired {sorted(fired.items())[:6]}, bad rounds "
+             f"{bad[:4]}; expected the even keys of rounds 0-{rounds - 5}")
+    if dev.type == "cuda" and (timer <= 0 or ps.plain_calls):
+        fail(f"TP1: general-mode timer launches {timer}, plain calls "
+             f"{ps.plain_calls}")
+    print(f"TP1: {sum(fired.values())} rows fired at their deadlines, the "
+          f"even keys of every block once each; general-mode data launches "
+          f"{data}, timer launches {timer}")
+    lat_line(np, "TP1", lat, wall, rounds * 2 * TP1_BLOCK,
+             2 * TP1_BLOCK * 16)
+    more = [tp1_sends(np, rounds + i) for i in range(8)]
+
+    def again(b):
+        (c1, t1), (c2, t2) = more[b]
+        h1.send_columns(c1, timestamps=t1)
+        h2.send_columns(c2, timestamps=t2)
+    s13_profile(torch, rt, "TP1", 8, again)
+    mgr.shutdown()
+    return data + timer
+
+
+def s13_small_checks(torch, np):
+    """PK1, CP1, LG1 and TP1 through the port on the CPU at a small size,
+    held to the same models and closed forms as on the card (the CPU tests
+    run this on the plain versions)."""
+    g = globals()
+    names = ("PK1_DEV", "PK1_BLOCK", "CP1_ROOMS", "CP1_REG", "LG1_ROOMS",
+             "TP1_KEYS", "TP1_BLOCK")
+    saved = {n: g[n] for n in names}
+    g.update(PK1_DEV=1 << 9, PK1_BLOCK=1 << 6, CP1_ROOMS=1 << 8,
+             CP1_REG=1 << 6, LG1_ROOMS=1 << 8, TP1_KEYS=1 << 9,
+             TP1_BLOCK=1 << 6)
+    try:
+        cpu = torch.device("cpu")
+        run_pk1(torch, np, cpu)
+        run_cp1(torch, np, cpu)
+        run_lg1(torch, np, cpu)
+        run_tp1(torch, np, cpu)
+    finally:
+        g.update(saved)
+
+
+def time_top_level(torch, np, dev):
+    """A top-level count plan runs one key: one thread walks the whole
+    send.  Its kernel time on one send of 1,024 events (recorded, not
+    gated)."""
+    from siddhi_tpu_torch import SiddhiManager
+    ql = ("@app:playback\ndefine stream S1 (sym string, price float, "
+          "vol int);\n@info(name='q') from every e1=S1[vol == 1] -> "
+          "e2=S1[vol == 2]<1:3> -> e3=S1[vol == 3] select e1.price as a, "
+          "e2[last].price as b, e3.price as c insert into O;")
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(ql)
+    planned = rt.query_runtimes["q"].planned
+    rng = np.random.default_rng(52)
+    n = 1024
+    cols = (torch.zeros(n, dtype=torch.int32, device=dev),
+            torch.from_numpy(rng.random(n).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.integers(1, 4, n).astype(np.int32)).to(dev))
+    ts = np.arange(1000, 1000 + n, dtype=np.int64)
+    args = (cols, 1000, torch.from_numpy((ts - 1000).astype(np.int32))
+            .to(dev), torch.arange(n, dtype=torch.int32, device=dev)[None],
+            torch.zeros(1, dtype=torch.int32, device=dev), int(ts[-1]))
+    state = planned.init_state(1)[0]
+    return time_general(torch, "top level (one key, 1,024 events a send)",
+                        planned, "S1", False, state, args)
+
+
+def slice13_phases(torch, np, dev):
+    """Phases 49-52: the general mode (and its timer pass) against its
+    plain version on every form and at full size; its times beside its
+    bound; PK1, CP1, LG1 and TP1 through SiddhiManager; X5 against the
+    JAX package's events.  Returns the general mode's kernel record."""
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    t0 = time.perf_counter()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 13 {what}: {time.perf_counter() - t0:.1f} s")
+    err, n = compare_general(torch, np, dev)
+    err = max(err, x5_twins(torch, np, dev))
+    timing, ttiming = {}, None
+    for label, ql, qname, K, sends in s13_config_sends(np, torch, dev):
+        e, first, timer = config_twins(
+            torch, np, dev, label, ql, qname, K, sends,
+            2000 if label == "TP1" else None)
+        err = max(err, e)
+        timing[label] = first
+        ttiming = timer or ttiming
+    print(f"compare: general mode == plain at full size on PK1, CP1, LG1 "
+          f"and TP1 (two sends each) and TP1's timer step, max_abs_err "
+          f"{err}")
+    took("phase 49 done")
+    res = {}
+    for label, (planned, sid, dense, before, args) in timing.items():
+        res[label] = time_general(torch, f"{label} ({sid})", planned, sid,
+                                  dense, clone_state(before), args)
+    del timing
+    res["timer"] = time_general_timer(torch, *ttiming)
+    res["top"] = time_top_level(torch, np, dev)
+    took("phase 50 done")
+    launches = run_pk1(torch, np, dev)
+    took("PK1 done")
+    launches += run_cp1(torch, np, dev)
+    took("CP1 done")
+    launches += run_lg1(torch, np, dev)
+    took("LG1 done")
+    launches += run_tp1(torch, np, dev)
+    took("phase 51 done")
+    mods = {"pattern_step": ps}
+    run_corpus(torch, np, dev, mods, "X5 (slice 13)", X5_CASES,
+               ("pattern_step",))
+    print(f"X5: general-mode launches {ps.mode_launches}")
+    took("phase 52 done")
+    t = res["PK1"]
+    print(f"kernel pattern_step general mode: {t['ms']:.4f} ms at PK1's "
+          f"send (bound {t['bound_ms']:.5f} by {t['bound_by']}), plain "
+          f"{t['plain_ms']:.4f} ms, launches on the main paths {launches}; "
+          f"library_ms null: no PyTorch call computes an NFA step")
+    return [{"name": "pattern_step_general", "route": "cuda",
+             "source": "siddhi_tpu_torch/csrc/pattern_step.cu",
+             "replaces": "siddhi_tpu/core/pattern.py:313",
+             "launches": launches, "max_abs_err": err, "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": None}]
+
+
+# X5: the slice's corpus: every app of tests/test_pattern.py,
+# test_pattern_corpus.py, test_sequence_corpus.py and test_absent_corpus.py
+# that the JAX package runs (its sends with playback timestamps), the query
+# guide's three pattern examples and their padded twins, and a leading
+# absent atom with and without `every`; each at the top level and inside a
+# value partition (x5_partition) with three keys a send.  A case whose
+# narrower stream the reference cannot merge (a reference defect the port
+# does not copy) carries a twin: the same app with that stream padded by
+# dummy columns, which the JAX package runs.  _X5_WANT holds the JAX
+# package's events; the CPU tests recompute them.
+X5_GUIDE_SEQ = """@app:playback
+define stream TempStream (deviceID long, roomNo int, temp double);
+@info(name='q')
+from every e1=TempStream, e2=TempStream[e1.temp <= temp]+,
+     e3=TempStream[e2[last].temp > temp]
+select e1.temp as initialTemp, e2[last].temp as peakTemp
+insert into PeekTempStream;
+"""
+X5_GUIDE_COUNT = """@app:playback
+define stream TemperatureStream (roomNo int, temp double{pad});
+define stream RegulatorStream (deviceID long, roomNo int, tempSet double,
+                               isOn bool);
+@info(name='q')
+from every (e1=RegulatorStream)
+     -> e2=TemperatureStream[e1.roomNo == roomNo]<1:>
+     -> e3=RegulatorStream[e1.roomNo == roomNo]
+select e1.roomNo, e2[0].temp - e2[last].temp as tempDiff
+insert into TempDiffStream;
+"""
+X5_GUIDE_LOGICAL = """@app:playback
+define stream RegulatorStateChangeStream (deviceID long, roomNo int,
+                                          tempSet double, action string);
+define stream RoomKeyStream (deviceID long, roomNo int, action string{pad});
+@info(name='q')
+from every e1=RegulatorStateChangeStream[action == 'on']
+     -> e2=RoomKeyStream[action == 'removed']
+        or e3=RegulatorStateChangeStream[action == 'off']
+select e1.roomNo as roomNo, e2.action as keyAction
+having not (keyAction is null)
+insert into RegulatorActionStream;
+"""
+X5_LEADING = """@app:playback
+define stream S1 (sym string, price float, vol int);
+define stream S2 (sym string, price float, vol int);
+@info(name='q')
+from {every}not S2[vol == 2] for 1 sec -> e2=S1[vol == 1]
+select e2.sym as s insert into Out;
+"""
+_X5_SEQ_SENDS = [("TempStream", [d, 1, t], 1000 + i) for i, (d, t) in
+                 enumerate([(1, 20.0), (2, 30.0), (1, 22.0), (1, 25.0),
+                            (2, 31.0), (1, 21.0), (2, 29.0), (1, 24.0),
+                            (1, 24.0), (1, 23.0), (2, 35.0), (2, 33.0)])]
+_X5_COUNT_SENDS = [
+    ("RegulatorStream", [1, 10, 20.0, True], 1000),
+    ("RegulatorStream", [2, 11, 21.0, True], 1000),
+    ("TemperatureStream", [10, 30.0], 1001),
+    ("TemperatureStream", [11, 25.0], 1001),
+    ("TemperatureStream", [10, 28.0], 1002),
+    ("TemperatureStream", [10, 27.0], 1003),
+    ("TemperatureStream", [11, 22.5], 1003),
+    ("RegulatorStream", [1, 10, 20.0, False], 1004),
+    ("TemperatureStream", [10, 26.0], 1005),
+    ("RegulatorStream", [2, 11, 20.0, False], 1006)]
+_X5_LOGICAL_SENDS = [
+    ("RegulatorStateChangeStream", [1, 5, 20.0, "on"], 1000),
+    ("RegulatorStateChangeStream", [2, 6, 20.0, "on"], 1000),
+    ("RoomKeyStream", [1, 5, "removed"], 1001),
+    ("RegulatorStateChangeStream", [2, 6, 20.0, "off"], 1002),
+    ("RegulatorStateChangeStream", [2, 6, 20.0, "on"], 1003),
+    ("RoomKeyStream", [2, 6, "inserted"], 1004),
+    ("RoomKeyStream", [2, 6, "removed"], 1005)]
+_X5_LEADING_SENDS = [("S1", ["a", 1.0, 1], 1000), ("S1", ["b", 1.0, 1], 2500),
+                     ("S2", ["c", 1.0, 2], 2600), ("S1", ["d", 1.0, 1], 4000)]
+
+
+def _x5_pad(sends, stream, n):
+    return [(s, r + [0] * n if s == stream else r, t) for s, r, t in sends]
+
+
+def _x5_guide():
+    """The guide's examples: (name, ql, query, sends, twin)."""
+    cnt, lg = X5_GUIDE_COUNT.format(pad=""), X5_GUIDE_LOGICAL.format(pad="")
+    cnt2 = X5_GUIDE_COUNT.format(pad=", d1 long, d2 long")
+    lg2 = X5_GUIDE_LOGICAL.format(pad=", d1 long")
+    cs2 = _x5_pad(_X5_COUNT_SENDS, "TemperatureStream", 2)
+    ls2 = _x5_pad(_X5_LOGICAL_SENDS, "RoomKeyStream", 1)
+    return [
+        ("guide_counting_sequence", X5_GUIDE_SEQ, "q", _X5_SEQ_SENDS, None),
+        ("guide_counting_pattern", cnt, "q", _X5_COUNT_SENDS, (cnt2, cs2)),
+        ("guide_counting_pattern_padded", cnt2, "q", cs2, None),
+        ("guide_logical_pattern", lg, "q", _X5_LOGICAL_SENDS, (lg2, ls2)),
+        ("guide_logical_pattern_padded", lg2, "q", ls2, None),
+        ("leading_absent", X5_LEADING.format(every=""), "q",
+         _X5_LEADING_SENDS, None),
+        ("leading_absent_every", X5_LEADING.format(every="every "), "q",
+         _X5_LEADING_SENDS, None)]
+
+
+def x5_partition(ql, sends, twin=None):
+    """A top-level case inside a value partition: every stream gains a
+    leading `pk int` column, the queries run inside `partition with (pk of
+    ...)`, and every send carries the event for keys 0, 1 and 2."""
+    import re
+
+    def part(q, ss):
+        names = re.findall(r"define stream (\w+)\s*\(", q)
+        q = re.sub(r"(define stream \w+\s*\()", r"\1pk int, ", q)
+        end = max(m.end() for m in re.finditer(r"define stream [^;]*;", q))
+        head, body = q[:end], q[end:]
+        keys = ", ".join(f"pk of {n}" for n in names)
+        q = f"{head}\npartition with ({keys})\nbegin\n{body}\nend;\n"
+        return q, [(s, [[k] + r for k in range(3)], t) for s, r, t in ss]
+    pq, ps = part(ql, sends)
+    return pq, ps, (part(*twin) if twin is not None else None)
+
+
+X5_RANGE = """@app:playback
+define stream S1 (sym string, price float, vol int);
+partition with (price >= 50.0 as 'high' or price < 50.0 as 'low' of S1)
+begin
+@info(name='q')
+from every e1=S1[vol == 1] -> e2=S1[vol == 2]<1:2>
+select e1.sym as s, sum(e2[last].price) as t, count() as n
+having n > 1
+insert into Out;
+end;
+"""
+_X5_RANGE_SENDS = [("S1", [["a", 60.0, 1], ["b", 10.0, 1]], 1000),
+                   ("S1", [["c", 70.0, 2], ["d", 20.0, 2]], 1001),
+                   ("S1", [["e", 80.0, 2]], 1002),
+                   ("S1", [["f", 55.0, 1], ["g", 15.0, 2]], 1003),
+                   ("S1", [["h", 65.0, 2], ["i", 5.0, 1]], 1004),
+                   ("S1", [["j", 30.0, 2]], 1005)]
+
+
+def x5_specs():
+    """(name, ql, query, sends, twin) of every X5 case: each corpus app and
+    guide example at the top level, then inside a value partition, then
+    aggregators over a count pattern in a range partition."""
+    top = [t + (None,) for t in _X5_TESTS] + _x5_guide()
+    part = []
+    for name, ql, q, sends, twin in top:
+        pq, psends, ptwin = x5_partition(ql, sends, twin)
+        part.append((f"{name}@partition", pq, q, psends, ptwin))
+    return top + part + [("range_partition_aggregates", X5_RANGE, "q",
+                          _X5_RANGE_SENDS, None)]
+
+
+_X5_TESTS = [('pattern:simple_followed_by',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1[price > 20] -> e2=Stream2[price > e1.price]\n'
+  'select e1.symbol as s1, e2.symbol as s2, e2.price as p2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['WSO2', 55.6, 100], 1000),
+   ('Stream2', ['IBM', 45.7, 100], 1010),
+   ('Stream2', ['GOOG', 85.0, 100], 1020),
+   ('Stream2', ['MSFT', 95.0, 100], 1030)]),
+ ('pattern:without_every_matches_once',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1 -> e2=Stream2\n'
+  'select e1.volume as v1, e2.volume as v2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream1', ['A', 1.0, 2], 1001),
+   ('Stream2', ['B', 1.0, 3], 1002),
+   ('Stream1', ['A', 1.0, 4], 1003),
+   ('Stream2', ['B', 1.0, 5], 1004)]),
+ ('pattern:every_restarts',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from every e1=Stream1 -> e2=Stream2\n'
+  'select e1.volume as v1, e2.volume as v2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream1', ['A', 1.0, 2], 1001),
+   ('Stream2', ['B', 1.0, 3], 1002),
+   ('Stream1', ['A', 1.0, 4], 1003),
+   ('Stream2', ['B', 1.0, 5], 1004)]),
+ ('pattern:three_state_chain',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from every e1=Stream1[volume == 1] -> e2=Stream1[volume == 2]\n'
+  '-> e3=Stream1[volume == 3]\n'
+  'select e1.symbol as s1, e2.symbol as s2, e3.symbol as s3\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream1', ['B', 1.0, 2], 1001),
+   ('Stream1', ['X', 1.0, 9], 1002),
+   ('Stream1', ['C', 1.0, 3], 1003)]),
+ ('pattern:within_expires',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from every e1=Stream1 -> e2=Stream2 within 1 sec\n'
+  'select e1.volume as v1, e2.volume as v2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream2', ['B', 1.0, 2], 2500),
+   ('Stream1', ['A', 1.0, 3], 3000),
+   ('Stream2', ['B', 1.0, 4], 3600)]),
+ ('pattern:count_quantifier',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1 -> e2=Stream1[volume > 10]<2:4> -> e3=Stream1[volume == '
+  '0]\n'
+  'select e1.volume as v1, e2[0].volume as a, e2[1].volume as b,\n'
+  'e3.volume as v3\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['S', 1.0, 5], 1000),
+   ('Stream1', ['S', 1.0, 11], 1001),
+   ('Stream1', ['S', 1.0, 12], 1002),
+   ('Stream1', ['S', 1.0, 0], 1003)]),
+ ('pattern:logical_and',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1 and e2=Stream2\n'
+  'select e1.volume as v1, e2.volume as v2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000), ('Stream2', ['B', 1.0, 2], 1001)]),
+ ('pattern:logical_or',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1[volume == 7] or e2=Stream2[volume == 8]\n'
+  'select e2.volume as v2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000), ('Stream2', ['B', 1.0, 8], 1001)]),
+ ('pattern:absent_pattern',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1 -> not Stream2 for 1 sec\n'
+  'select e1.volume as v1\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000), ('Stream1', ['X', 1.0, 99], 2500)]),
+ ('pattern:absent_pattern_violated',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from e1=Stream1 -> not Stream2 for 1 sec\n'
+  'select e1.volume as v1\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream2', ['B', 1.0, 2], 1400),
+   ('Stream1', ['X', 1.0, 99], 2500)]),
+ ('pattern:strict_sequence',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from every e1=Stream1[volume == 1], e2=Stream1[volume == 2]\n'
+  'select e1.symbol as s1, e2.symbol as s2\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream1', ['X', 1.0, 9], 1001),
+   ('Stream1', ['B', 1.0, 1], 1002),
+   ('Stream1', ['C', 1.0, 2], 1003)]),
+ ('pattern:sequence_kleene',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='query1')\n"
+  'from every e1=Stream1[volume == 1], e2=Stream1[volume == 5]+,\n'
+  'e3=Stream1[volume == 2]\n'
+  'select e1.symbol as s1, e2[0].symbol as k0, e3.symbol as s3\n'
+  'insert into OutputStream;\n',
+  'query1',
+  [('Stream1', ['A', 1.0, 1], 1000),
+   ('Stream1', ['K', 1.0, 5], 1001),
+   ('Stream1', ['L', 1.0, 5], 1002),
+   ('Stream1', ['B', 1.0, 2], 1003)]),
+ ('pattern_corpus:followed_by_basic',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000), ('S2', ['y', 1.0, 2], 1001)]),
+ ('pattern_corpus:followed_by_no_every_fires_once',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000),
+   ('S2', ['y', 1.0, 2], 1001),
+   ('S1', ['p', 1.0, 1], 1002),
+   ('S2', ['q', 1.0, 2], 1003)]),
+ ('pattern_corpus:every_restarts',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000),
+   ('S2', ['y', 1.0, 2], 1001),
+   ('S1', ['p', 1.0, 1], 1002),
+   ('S2', ['q', 1.0, 2], 1003)]),
+ ('pattern_corpus:capture_filter_cross_reference',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1]\n"
+  '-> e2=S2[price > e1.price]\n'
+  'select e1.price as p1, e2.price as p2 insert into Out;\n',
+  'q',
+  [('S1', ['a', 10.0, 1], 1000),
+   ('S2', ['b', 5.0, 0], 1001),
+   ('S2', ['c', 15.0, 0], 1002)]),
+ ('pattern_corpus:count_quantifier_range',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S1[vol == 5]<2:3>\n"
+  '-> e3=S1[vol == 9]\n'
+  'select e2[0].price as k0, e2[1].price as k1 insert into Out;\n',
+  'q',
+  [('S1', ['s', 0.0, 1], 1000),
+   ('S1', ['s', 1.0, 5], 1001),
+   ('S1', ['s', 2.0, 5], 1002),
+   ('S1', ['s', 0.0, 9], 1003)]),
+ ('pattern_corpus:count_quantifier_min_not_met',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S1[vol == 5]<2:3>\n"
+  '-> e3=S1[vol == 9]\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['s', 0.0, 1], 1000),
+   ('S1', ['s', 1.0, 5], 1001),
+   ('S1', ['s', 0.0, 9], 1002)]),
+ ('pattern_corpus:logical_and_pattern',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] and e2=S2[vol == 2]\n"
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S2', ['y', 1.0, 2], 1000), ('S1', ['x', 1.0, 1], 1001)]),
+ ('pattern_corpus:logical_or_pattern',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] or e2=S2[vol == 2]\n"
+  'select e2.sym as b insert into Out;\n',
+  'q',
+  [('S2', ['y', 1.0, 2], 1000)]),
+ ('pattern_corpus:within_expires_partial',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  'within 1 sec\n'
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000), ('S2', ['y', 1.0, 2], 2500)]),
+ ('pattern_corpus:within_met',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  'within 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000), ('S2', ['y', 1.0, 2], 1800)]),
+ ('pattern_corpus:absent_fires_after_timeout',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> not S2 for 1 sec\n"
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000), ('S1', ['z', 1.0, 9], 2500)]),
+ ('pattern_corpus:absent_suppressed_by_arrival',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> not S2 for 1 sec\n"
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000),
+   ('S2', ['y', 1.0, 2], 1500),
+   ('S1', ['z', 1.0, 9], 2500)]),
+ ('pattern_corpus:sequence_strictness',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1], e2=S1[vol == 2]\n"
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S1', ['k', 1.0, 7], 1001),
+   ('S1', ['b', 1.0, 2], 1002),
+   ('S1', ['c', 1.0, 1], 1003),
+   ('S1', ['d', 1.0, 2], 1004)]),
+ ('pattern_corpus:sequence_kleene_plus',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1], e2=S1[vol == 5]+,\n"
+  'e3=S1[vol == 2]\n'
+  'select e1.sym as a, e2[0].sym as k0, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S1', ['k', 1.0, 5], 1001),
+   ('S1', ['l', 1.0, 5], 1002),
+   ('S1', ['b', 1.0, 2], 1003)]),
+ ('pattern_corpus:pattern_output_aggregation',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  'select count() as n insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000),
+   ('S2', ['y', 1.0, 2], 1001),
+   ('S1', ['p', 1.0, 1], 1002),
+   ('S2', ['q', 1.0, 2], 1003)]),
+ ('pattern_corpus:multi_stream_three_stage',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2]\n"
+  '-> e3=S1[vol == 3]\n'
+  'select e1.sym as a, e2.sym as b, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['x', 1.0, 1], 1000),
+   ('S2', ['y', 1.0, 2], 1001),
+   ('S1', ['z', 1.0, 3], 1002)]),
+ ('sequence_corpus:strict_sequence_matches_adjacent',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from e1=Stream1[price>20], e2=Stream2[price>e1.price]\n'
+  'select e1.price as p1, e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream1', ['WSO2', 55.6, 100], 1000),
+   ('Stream2', ['IBM', 55.7, 100], 1010)]),
+ ('sequence_corpus:strict_sequence_broken_by_nonmatching_next',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from e1=Stream1[price>20], e2=Stream1[price>e1.price]\n'
+  'select e1.price as p1, e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream1', ['WSO2', 55.6, 100], 1000),
+   ('Stream1', ['LOW', 10.0, 100], 1010),
+   ('Stream1', ['IBM', 95.7, 100], 1020)]),
+ ('sequence_corpus:every_sequence_restarts',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream1[price>20], e2=Stream1[price>e1.price]\n'
+  'select e1.price as p1, e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream1', ['A', 25.0, 100], 1000),
+   ('Stream1', ['B', 30.0, 100], 1010),
+   ('Stream1', ['C', 26.0, 100], 1020),
+   ('Stream1', ['D', 55.0, 100], 1030)]),
+ ('sequence_corpus:kleene_star_collects_then_closes',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream2[price>20]*, e2=Stream1[price>e1[0].price]\n'
+  'select e1[0].price as p0, e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream2', ['A', 25.0, 100], 1000), ('Stream1', ['B', 26.0, 100], 1010)]),
+ ('sequence_corpus:kleene_plus_requires_at_least_one',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream2[price>20]+, e2=Stream1[price>e1[0].price]\n'
+  'select e1[0].price as p0, e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream1', ['X', 99.0, 100], 1000),
+   ('Stream2', ['A', 25.0, 100], 1010),
+   ('Stream1', ['B', 26.0, 100], 1020)]),
+ ('sequence_corpus:optional_question_mark',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream2[price>20]?, e2=Stream1[price>30]\n'
+  'select e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream1', ['B', 35.0, 100], 1000)]),
+ ('sequence_corpus:or_partner_in_sequence',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream2[price>20], e2=Stream2[price>e1.price]\n'
+  "or e3=Stream2[symbol=='IBM']\n"
+  'select e1.price as p1, e2.price as p2, e3.symbol as s3\n'
+  'insert into Out;\n',
+  'q',
+  [('Stream2', ['A', 25.0, 100], 1000),
+   ('Stream2', ['IBM', 10.0, 100], 1010)]),
+ ('sequence_corpus:and_partner_in_sequence',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  "from e1=Stream1[price>20], e2=Stream2['IBM' == symbol]\n"
+  "and e3=Stream2['WSO2' == symbol]\n"
+  'select e1.price as p1, e2.symbol as s2, e3.symbol as s3\n'
+  'insert into Out;\n',
+  'q',
+  [('Stream1', ['A', 25.0, 100], 1000),
+   ('Stream2', ['IBM', 10.0, 100], 1010),
+   ('Stream2', ['WSO2', 11.0, 100], 1020)]),
+ ('sequence_corpus:counting_capture_last_index',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream1[price>20]+, e2=Stream1[price<10]\n'
+  'select e1[0].price as first, e1[last].price as last_p\n'
+  'insert into Out;\n',
+  'q',
+  [('Stream1', ['A', 25.0, 100], 1000),
+   ('Stream1', ['B', 30.0, 100], 1010),
+   ('Stream1', ['C', 5.0, 100], 1020)]),
+ ('sequence_corpus:sequence_from_two_streams_interleaved',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream1[price >= 50 and volume > 100],\n'
+  'e2=Stream2[price <= 40]*, e3=Stream2[volume <= 70]\n'
+  'select e1.symbol as s1, e2[0].symbol as s2, e3.symbol as s3\n'
+  'insert into Out;\n',
+  'q',
+  [('Stream1', ['IBM', 75.0, 105], 1000),
+   ('Stream2', ['GOOG', 21.0, 81], 1010),
+   ('Stream2', ['WSO2', 176.6, 65], 1020)]),
+ ('sequence_corpus:sequence_group_by_output',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream1[price>20], e2=Stream1[price>e1.price]\n'
+  'select e1.symbol as s, sum(e2.price) as total group by e1.symbol\n'
+  'insert into Out;\n',
+  'q',
+  [('Stream1', ['A', 25.0, 100], 1000),
+   ('Stream1', ['B', 30.0, 100], 1010),
+   ('Stream1', ['A', 26.0, 100], 1020),
+   ('Stream1', ['Z', 55.0, 100], 1030)]),
+ ('sequence_corpus:skip_and_collect_interpretations_coexist',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream1[price > 10]*, e2=Stream1[price > 20]\n'
+  'select e1[0].price as p0, e2.price as p2 insert into Out;\n',
+  'q',
+  [('Stream1', ['X', 25.0, 100], 1000), ('Stream1', ['Y', 30.0, 100], 1010)]),
+ ('sequence_corpus:skip_completion_leaves_origin_collection_intact',
+  '@app:playback\n'
+  'define stream Stream1 (symbol string, price float, volume int);\n'
+  'define stream Stream2 (symbol string, price float, volume int);\n'
+  "@info(name='q')\n"
+  'from every e1=Stream2[price>20]*, e2=Stream1[price>0]\n'
+  'select e1[0].price as p0, e1[last].price as pl, e2.price as p2\n'
+  'insert into Out;\n',
+  'q',
+  [('Stream1', ['B1', 1.0, 1], 1000),
+   ('Stream2', ['A1', 25.0, 1], 1010),
+   ('Stream2', ['A2', 30.0, 1], 1020),
+   ('Stream1', ['B2', 2.0, 1], 1030)]),
+ ('absent_corpus:absent_filter_on_absent_stream_suppresses',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[price > 20.0] ->\n"
+  'not S2[price > e1.price] for 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['WSO2', 55.6, 100], 1000),
+   ('S2', ['IBM', 58.7, 10], 1100),
+   ('S1', ['tick', 99.0, 1], 2500)]),
+ ('absent_corpus:absent_nonmatching_arrival_does_not_suppress',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[price > 20.0] ->\n"
+  'not S2[price > e1.price] for 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['WSO2', 55.6, 100], 1000),
+   ('S2', ['IBM', 45.7, 10], 1100),
+   ('S1', ['tick', 9.0, 1], 2500)]),
+ ('absent_corpus:absent_arrival_after_timeout_is_too_late',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[price > 20.0] ->\n"
+  'not S2[price > e1.price] for 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['WSO2', 55.6, 100], 1000), ('S2', ['IBM', 58.7, 10], 2100)]),
+ ('absent_corpus:absent_two_stage_chain',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2] ->\n"
+  'not S3[vol == 3] for 1 sec\n'
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S2', ['b', 1.0, 2], 1200),
+   ('S1', ['tick', 1.0, 9], 2600)]),
+ ('absent_corpus:absent_two_stage_chain_violated',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> e2=S2[vol == 2] ->\n"
+  'not S3[vol == 3] for 1 sec\n'
+  'select e1.sym as a, e2.sym as b insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S2', ['b', 1.0, 2], 1200),
+   ('S3', ['c', 1.0, 3], 1900),
+   ('S1', ['tick', 1.0, 9], 2600)]),
+ ('absent_corpus:absent_then_presence_continues_chain',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> not S2 for 1 sec ->\n"
+  'e3=S3[vol == 3]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S3', ['early', 1.0, 3], 1500),
+   ('S3', ['c', 1.0, 3], 2400)]),
+ ('absent_corpus:every_absent_fires_per_seed',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1] -> not S2 for 1 sec\n"
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S1', ['b', 1.0, 1], 1400),
+   ('S1', ['tick', 1.0, 9], 3000)]),
+ ('absent_corpus:every_absent_partial_suppression',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from every e1=S1[vol == 1] -> not S2 for 1 sec\n"
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S1', ['b', 1.0, 1], 1800),
+   ('S2', ['kill', 1.0, 2], 1900),
+   ('S1', ['tick', 1.0, 9], 3500)]),
+ ('absent_corpus:logical_absent_and_presence',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from not S2[price > 20.0] and e3=S3[price > 30.0]\n"
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S3', ['ok', 35.0, 1], 1000)]),
+ ('absent_corpus:logical_absent_and_presence_violated',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from not S2[price > 20.0] and e3=S3[price > 30.0]\n"
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S2', ['bad', 25.0, 1], 900), ('S3', ['x', 35.0, 1], 1000)]),
+ ('absent_corpus:chained_logical_absent',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[price > 10.0] ->\n"
+  'not S2[price > 20.0] and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 15.0, 1], 1000), ('S3', ['c', 35.0, 1], 1200)]),
+ ('absent_corpus:chained_logical_absent_violated',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[price > 10.0] ->\n"
+  'not S2[price > 20.0] and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 15.0, 1], 1000),
+   ('S2', ['kill', 25.0, 1], 1100),
+   ('S3', ['c', 35.0, 1], 1200)]),
+ ('absent_corpus:absent_within_interaction',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] -> not S2 for 2 sec\n"
+  'within 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000), ('S1', ['tick', 1.0, 9], 4000)]),
+ ('absent_corpus:logical_absent_second_side',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e3=S3[price > 30.0] and not S2[price > 20.0]\n"
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S3', ['ok', 35.0, 1], 1000)]),
+ ('absent_corpus:logical_absent_second_side_violated',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e3=S3[price > 30.0] and not S2[price > 20.0]\n"
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S2', ['bad', 25.0, 1], 900), ('S3', ['x', 35.0, 1], 1000)]),
+ ('absent_corpus:logical_absent_nonmatching_arrival_ignored',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from not S2[price > 20.0] and e3=S3[price > 30.0]\n"
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S2', ['low', 5.0, 1], 900), ('S3', ['ok', 35.0, 1], 1000)]),
+ ('absent_corpus:every_logical_absent_rearms',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from every (not S2[price > 20.0] and\n"
+  'e3=S3[price > 30.0])\n'
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S3', ['a', 35.0, 1], 1000),
+   ('S2', ['kill', 25.0, 1], 1100),
+   ('S3', ['b', 36.0, 1], 1200)]),
+ ('absent_corpus:logical_absent_mid_chain_then_stage',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] ->\n"
+  'not S2[vol == 2] and e3=S3[vol == 3] -> e4=S1[vol == 4]\n'
+  'select e1.sym as a, e3.sym as c, e4.sym as d insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S3', ['c', 1.0, 3], 1100),
+   ('S1', ['d', 1.0, 4], 1200)]),
+ ('absent_corpus:timed_logical_absent_b_before_deadline',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] ->\n"
+  'not S2[price > 20.0] for 1 sec and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S3', ['c', 35.0, 1], 1400),
+   ('S1', ['tick', 1.0, 9], 2500)]),
+ ('absent_corpus:timed_logical_absent_b_after_deadline',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] ->\n"
+  'not S2[price > 20.0] for 1 sec and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000), ('S3', ['c', 35.0, 1], 2600)]),
+ ('absent_corpus:timed_logical_absent_violated_by_a',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] ->\n"
+  'not S2[price > 20.0] for 1 sec and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S2', ['kill', 25.0, 1], 1300),
+   ('S3', ['c', 35.0, 1], 1400),
+   ('S1', ['tick', 1.0, 9], 2500)]),
+ ('absent_corpus:timed_logical_absent_a_after_deadline_harmless',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] ->\n"
+  'not S2[price > 20.0] for 1 sec and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S2', ['late', 25.0, 1], 2200),
+   ('S3', ['c', 35.0, 1], 2600)]),
+ ('absent_corpus:timed_logical_absent_nonmatching_a_ignored',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] ->\n"
+  'not S2[price > 20.0] for 1 sec and e3=S3[price > 30.0]\n'
+  'select e1.sym as a, e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000),
+   ('S2', ['low', 5.0, 1], 1200),
+   ('S3', ['c', 35.0, 1], 1500),
+   ('S1', ['tick', 1.0, 9], 2500)]),
+ ('absent_corpus:or_seed_then_absent_killable',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] or e2=S2[vol == 1] ->\n"
+  'not S3 for 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S1', ['WSO2', 1.0, 1], 1000),
+   ('S3', ['kill', 1.0, 2], 1300),
+   ('S1', ['tick', 1.0, 9], 2500)]),
+ ('absent_corpus:or_seed_then_absent_fires_clean',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] or e2=S2[vol == 1] ->\n"
+  'not S3 for 1 sec\n'
+  'select e1.sym as a insert into Out;\n',
+  'q',
+  [('S2', ['viaB', 1.0, 1], 1000), ('S1', ['tick', 1.0, 9], 2500)]),
+ ('absent_corpus:or_seed_then_timed_logical_absent_needs_presence',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] or e2=S2[vol == 1] ->\n"
+  'not S3[vol == 3] for 1 sec and e3=S3[vol == 4]\n'
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000), ('S1', ['tick', 1.0, 9], 2600)]),
+ ('absent_corpus:or_seed_then_timed_logical_absent_killable',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] or e2=S2[vol == 1] ->\n"
+  'not S3[vol == 3] for 1 sec and e3=S3[vol == 4]\n'
+  'select e3.sym as c insert into Out;\n',
+  'q',
+  [('S2', ['viaB', 1.0, 1], 1000),
+   ('S3', ['kill', 1.0, 3], 1200),
+   ('S3', ['c', 1.0, 4], 1400),
+   ('S1', ['tick', 1.0, 9], 2600)]),
+ ('absent_corpus:or_seed_then_logical_pair_clean',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1[vol == 1] or e2=S2[vol == 1] ->\n"
+  'e3=S3[vol == 3] and e4=S3[vol == 4]\n'
+  'select e3.sym as c, e4.sym as d insert into Out;\n',
+  'q',
+  [('S1', ['a', 1.0, 1], 1000), ('S3', ['c', 1.0, 3], 1100)])]
+# the corpus's raise-checks: both packages refuse these apps
+X5_RAISES = [('absent_corpus:absent_does_not_capture_columns',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from e1=S1 -> e2=not S2 for 1 sec\n"
+  'select e1.sym as a, e2.sym as b insert into Out;\n'),
+ ('absent_corpus:logical_absent_or_rejected',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from not S2[price > 20.0] or e3=S3[price > 30.0]\n"
+  'select e3.sym as c insert into Out;\n'),
+ ('absent_corpus:leading_timed_logical_absent_rejected',
+  '@app:playback\n'
+  'define stream S1 (sym string, price float, vol int);\n'
+  'define stream S2 (sym string, price float, vol int);\n'
+  'define stream S3 (sym string, price float, vol int);\n'
+  "@info(name='q') from not S2[price > 20.0] for 1 sec and\n"
+  'e3=S3[price > 30.0]\n'
+  'select e3.sym as c insert into Out;\n')]
+
+_X5_WANT = [[(1020, [(1020, ('WSO2', 'GOOG', 85.0))], [])],
+ [(1002, [(1002, (1, 3))], [])],
+ [(1002, [(1002, (1, 3)), (1002, (2, 3))], []), (1004, [(1004, (4, 5))], [])],
+ [(1003, [(1003, ('A', 'B', 'C'))], [])],
+ [(3600, [(3600, (3, 4))], [])],
+ [(1003, [(1003, (5, 11, 12, 0))], [])],
+ [(1001, [(1001, (1, 2))], [])],
+ [(1001, [(1001, (8,))], [])],
+ [(2000, [(2000, (1,))], [])],
+ [],
+ [(1003, [(1003, ('B', 'C'))], [])],
+ [(1003, [(1003, ('A', 'K', 'B'))], [])],
+ [(1001, [(1001, ('x', 'y'))], [])],
+ [(1001, [(1001, ('x', 'y'))], [])],
+ [(1001, [(1001, ('x', 'y'))], []), (1003, [(1003, ('p', 'q'))], [])],
+ [(1002, [(1002, (10.0, 15.0))], [])],
+ [(1003, [(1003, (1.0, 2.0))], [])],
+ [],
+ [(1001, [(1001, ('x', 'y'))], [])],
+ [(1000, [(1000, ('y',))], [])],
+ [],
+ [(1800, [(1800, ('x',))], [])],
+ [(2000, [(2000, ('x',))], [])],
+ [],
+ [(1004, [(1004, ('c', 'd'))], [])],
+ [(1003, [(1003, ('a', 'k', 'b'))], [])],
+ [(1001, [(1001, (1,))], []), (1003, [(1003, (2,))], [])],
+ [(1002, [(1002, ('x', 'y', 'z'))], [])],
+ [(1010, [(1010, (55.599998474121094, 55.70000076293945))], [])],
+ [],
+ [(1010, [(1010, (25.0, 30.0))], []), (1030, [(1030, (26.0, 55.0))], [])],
+ [(1010, [(1010, (25.0, 26.0))], [])],
+ [(1020, [(1020, (25.0, 26.0))], [])],
+ [(1000, [(1000, (35.0,))], [])],
+ [(1010, [(1010, (25.0, None, 'IBM'))], [])],
+ [(1020, [(1020, (25.0, 'IBM', 'WSO2'))], [])],
+ [(1020, [(1020, (25.0, 30.0)), (1020, (30.0, 30.0))], [])],
+ [(1020, [(1020, ('IBM', 'GOOG', 'WSO2'))], [])],
+ [(1010, [(1010, ('A', 30.0))], []), (1030, [(1030, ('A', 85.0))], [])],
+ [(1000, [(1000, (None, 25.0))], []),
+  (1010, [(1010, (25.0, 30.0)), (1010, (None, 30.0))], [])],
+ [(1000, [(1000, (None, None, 1.0))], []),
+  (1030,
+   [(1030, (25.0, 30.0, 2.0)),
+    (1030, (30.0, 30.0, 2.0)),
+    (1030, (None, None, 2.0))],
+   [])],
+ [],
+ [(2000, [(2000, ('WSO2',))], [])],
+ [(2000, [(2000, ('WSO2',))], [])],
+ [(2200, [(2200, ('a', 'b'))], [])],
+ [],
+ [(2400, [(2400, ('a', 'c'))], [])],
+ [(2000, [(2000, ('a',))], []), (2400, [(2400, ('b',))], [])],
+ [],
+ [(1000, [(1000, ('ok',))], [])],
+ [],
+ [(1200, [(1200, ('a', 'c'))], [])],
+ [],
+ [],
+ [(1000, [(1000, ('ok',))], [])],
+ [],
+ [(1000, [(1000, ('ok',))], [])],
+ [(1000, [(1000, ('a',))], []), (1200, [(1200, ('b',))], [])],
+ [(1200, [(1200, ('a', 'c', 'd'))], [])],
+ [(2000, [(2000, ('a', 'c'))], [])],
+ [(2600, [(2600, ('a', 'c'))], [])],
+ [],
+ [(2600, [(2600, ('a', 'c'))], [])],
+ [(2000, [(2000, ('a', 'c'))], [])],
+ [],
+ [(2000, [(2000, (None,))], [])],
+ [],
+ [],
+ [],
+ [(1002, [(1002, (20.0, 30.0))], []),
+  (1005,
+   [(1005, (20.0, 31.0)), (1005, (22.0, 31.0)), (1005, (25.0, 31.0))],
+   []),
+  (1007, [(1007, (20.0, 29.0)), (1007, (21.0, 29.0))], []),
+  (1009,
+   [(1009, (20.0, 24.0)), (1009, (21.0, 24.0)), (1009, (24.0, 24.0))],
+   []),
+  (1011, [(1011, (21.0, 35.0)), (1011, (23.0, 35.0))], [])],
+ [(1004, [(1004, (10, 0.0)), (1004, (10, 2.0)), (1004, (10, 3.0))], []),
+  (1006, [(1006, (11, 0.0)), (1006, (11, 2.5))], [])],
+ [(1004, [(1004, (10, 0.0)), (1004, (10, 2.0)), (1004, (10, 3.0))], []),
+  (1006, [(1006, (11, 0.0)), (1006, (11, 2.5))], [])],
+ [(1001, [(1001, (5, 'removed')), (1001, (6, 'removed'))], []),
+  (1005, [(1005, (6, 'removed'))], [])],
+ [(1001, [(1001, (5, 'removed')), (1001, (6, 'removed'))], []),
+  (1005, [(1005, (6, 'removed'))], [])],
+ [],
+ [],
+ [(1020,
+   [(1020, ('WSO2', 'GOOG', 85.0)),
+    (1020, ('WSO2', 'GOOG', 85.0)),
+    (1020, ('WSO2', 'GOOG', 85.0))],
+   [])],
+ [(1002, [(1002, (1, 3)), (1002, (1, 3)), (1002, (1, 3))], [])],
+ [(1002,
+   [(1002, (1, 3)),
+    (1002, (1, 3)),
+    (1002, (1, 3)),
+    (1002, (2, 3)),
+    (1002, (2, 3)),
+    (1002, (2, 3))],
+   []),
+  (1004, [(1004, (4, 5)), (1004, (4, 5)), (1004, (4, 5))], [])],
+ [(1003,
+   [(1003, ('A', 'B', 'C')),
+    (1003, ('A', 'B', 'C')),
+    (1003, ('A', 'B', 'C'))],
+   [])],
+ [(3600, [(3600, (3, 4)), (3600, (3, 4)), (3600, (3, 4))], [])],
+ [(1003,
+   [(1003, (5, 11, 12, 0)), (1003, (5, 11, 12, 0)), (1003, (5, 11, 12, 0))],
+   [])],
+ [(1001, [(1001, (1, 2)), (1001, (1, 2)), (1001, (1, 2))], [])],
+ [(1001, [(1001, (8,)), (1001, (8,)), (1001, (8,))], [])],
+ [(2000, [(2000, (1,)), (2000, (1,)), (2000, (1,))], [])],
+ [],
+ [(1003, [(1003, ('B', 'C')), (1003, ('B', 'C')), (1003, ('B', 'C'))], [])],
+ [(1003,
+   [(1003, ('A', 'K', 'B')),
+    (1003, ('A', 'K', 'B')),
+    (1003, ('A', 'K', 'B'))],
+   [])],
+ [(1001, [(1001, ('x', 'y')), (1001, ('x', 'y')), (1001, ('x', 'y'))], [])],
+ [(1001, [(1001, ('x', 'y')), (1001, ('x', 'y')), (1001, ('x', 'y'))], [])],
+ [(1001, [(1001, ('x', 'y')), (1001, ('x', 'y')), (1001, ('x', 'y'))], []),
+  (1003, [(1003, ('p', 'q')), (1003, ('p', 'q')), (1003, ('p', 'q'))], [])],
+ [(1002,
+   [(1002, (10.0, 15.0)), (1002, (10.0, 15.0)), (1002, (10.0, 15.0))],
+   [])],
+ [(1003, [(1003, (1.0, 2.0)), (1003, (1.0, 2.0)), (1003, (1.0, 2.0))], [])],
+ [],
+ [(1001, [(1001, ('x', 'y')), (1001, ('x', 'y')), (1001, ('x', 'y'))], [])],
+ [(1000, [(1000, ('y',)), (1000, ('y',)), (1000, ('y',))], [])],
+ [],
+ [(1800, [(1800, ('x',)), (1800, ('x',)), (1800, ('x',))], [])],
+ [(2000, [(2000, ('x',)), (2000, ('x',)), (2000, ('x',))], [])],
+ [],
+ [(1004, [(1004, ('c', 'd')), (1004, ('c', 'd')), (1004, ('c', 'd'))], [])],
+ [(1003,
+   [(1003, ('a', 'k', 'b')),
+    (1003, ('a', 'k', 'b')),
+    (1003, ('a', 'k', 'b'))],
+   [])],
+ [(1001, [(1001, (1,)), (1001, (1,)), (1001, (1,))], []),
+  (1003, [(1003, (2,)), (1003, (2,)), (1003, (2,))], [])],
+ [(1002,
+   [(1002, ('x', 'y', 'z')),
+    (1002, ('x', 'y', 'z')),
+    (1002, ('x', 'y', 'z'))],
+   [])],
+ [(1010,
+   [(1010, (55.599998474121094, 55.70000076293945)),
+    (1010, (55.599998474121094, 55.70000076293945)),
+    (1010, (55.599998474121094, 55.70000076293945))],
+   [])],
+ [],
+ [(1010,
+   [(1010, (25.0, 30.0)), (1010, (25.0, 30.0)), (1010, (25.0, 30.0))],
+   []),
+  (1030,
+   [(1030, (26.0, 55.0)), (1030, (26.0, 55.0)), (1030, (26.0, 55.0))],
+   [])],
+ [(1010,
+   [(1010, (25.0, 26.0)), (1010, (25.0, 26.0)), (1010, (25.0, 26.0))],
+   [])],
+ [(1020,
+   [(1020, (25.0, 26.0)), (1020, (25.0, 26.0)), (1020, (25.0, 26.0))],
+   [])],
+ [(1000, [(1000, (35.0,)), (1000, (35.0,)), (1000, (35.0,))], [])],
+ [(1010,
+   [(1010, (25.0, None, 'IBM')),
+    (1010, (25.0, None, 'IBM')),
+    (1010, (25.0, None, 'IBM'))],
+   [])],
+ [(1020,
+   [(1020, (25.0, 'IBM', 'WSO2')),
+    (1020, (25.0, 'IBM', 'WSO2')),
+    (1020, (25.0, 'IBM', 'WSO2'))],
+   [])],
+ [(1020,
+   [(1020, (25.0, 30.0)),
+    (1020, (25.0, 30.0)),
+    (1020, (25.0, 30.0)),
+    (1020, (30.0, 30.0)),
+    (1020, (30.0, 30.0)),
+    (1020, (30.0, 30.0))],
+   [])],
+ [(1020,
+   [(1020, ('IBM', 'GOOG', 'WSO2')),
+    (1020, ('IBM', 'GOOG', 'WSO2')),
+    (1020, ('IBM', 'GOOG', 'WSO2'))],
+   [])],
+ [(1010, [(1010, ('A', 30.0)), (1010, ('A', 30.0)), (1010, ('A', 30.0))], []),
+  (1030,
+   [(1030, ('A', 85.0)), (1030, ('A', 85.0)), (1030, ('A', 85.0))],
+   [])],
+ [(1000,
+   [(1000, (None, 25.0)), (1000, (None, 25.0)), (1000, (None, 25.0))],
+   []),
+  (1010,
+   [(1010, (25.0, 30.0)),
+    (1010, (25.0, 30.0)),
+    (1010, (25.0, 30.0)),
+    (1010, (None, 30.0)),
+    (1010, (None, 30.0)),
+    (1010, (None, 30.0))],
+   [])],
+ [(1000,
+   [(1000, (None, None, 1.0)),
+    (1000, (None, None, 1.0)),
+    (1000, (None, None, 1.0))],
+   []),
+  (1030,
+   [(1030, (25.0, 30.0, 2.0)),
+    (1030, (25.0, 30.0, 2.0)),
+    (1030, (25.0, 30.0, 2.0)),
+    (1030, (30.0, 30.0, 2.0)),
+    (1030, (30.0, 30.0, 2.0)),
+    (1030, (30.0, 30.0, 2.0)),
+    (1030, (None, None, 2.0)),
+    (1030, (None, None, 2.0)),
+    (1030, (None, None, 2.0))],
+   [])],
+ [],
+ [(2000, [(2000, ('WSO2',)), (2000, ('WSO2',)), (2000, ('WSO2',))], [])],
+ [(2000, [(2000, ('WSO2',)), (2000, ('WSO2',)), (2000, ('WSO2',))], [])],
+ [(2200, [(2200, ('a', 'b')), (2200, ('a', 'b')), (2200, ('a', 'b'))], [])],
+ [],
+ [(2400, [(2400, ('a', 'c')), (2400, ('a', 'c')), (2400, ('a', 'c'))], [])],
+ [(2000, [(2000, ('a',)), (2000, ('a',)), (2000, ('a',))], []),
+  (2400, [(2400, ('b',)), (2400, ('b',)), (2400, ('b',))], [])],
+ [],
+ [(1000, [(1000, ('ok',)), (1000, ('ok',)), (1000, ('ok',))], [])],
+ [],
+ [(1200, [(1200, ('a', 'c')), (1200, ('a', 'c')), (1200, ('a', 'c'))], [])],
+ [],
+ [],
+ [(1000, [(1000, ('ok',)), (1000, ('ok',)), (1000, ('ok',))], [])],
+ [],
+ [(1000, [(1000, ('ok',)), (1000, ('ok',)), (1000, ('ok',))], [])],
+ [(1000, [(1000, ('a',)), (1000, ('a',)), (1000, ('a',))], []),
+  (1200, [(1200, ('b',)), (1200, ('b',)), (1200, ('b',))], [])],
+ [(1200,
+   [(1200, ('a', 'c', 'd')),
+    (1200, ('a', 'c', 'd')),
+    (1200, ('a', 'c', 'd'))],
+   [])],
+ [(2000, [(2000, ('a', 'c')), (2000, ('a', 'c')), (2000, ('a', 'c'))], [])],
+ [(2600, [(2600, ('a', 'c')), (2600, ('a', 'c')), (2600, ('a', 'c'))], [])],
+ [],
+ [(2600, [(2600, ('a', 'c')), (2600, ('a', 'c')), (2600, ('a', 'c'))], [])],
+ [(2000, [(2000, ('a', 'c')), (2000, ('a', 'c')), (2000, ('a', 'c'))], [])],
+ [],
+ [(2000, [(2000, (None,)), (2000, (None,)), (2000, (None,))], [])],
+ [],
+ [],
+ [],
+ [(1002,
+   [(1002, (20.0, 30.0)), (1002, (20.0, 30.0)), (1002, (20.0, 30.0))],
+   []),
+  (1005,
+   [(1005, (20.0, 31.0)),
+    (1005, (20.0, 31.0)),
+    (1005, (20.0, 31.0)),
+    (1005, (22.0, 31.0)),
+    (1005, (22.0, 31.0)),
+    (1005, (22.0, 31.0)),
+    (1005, (25.0, 31.0)),
+    (1005, (25.0, 31.0)),
+    (1005, (25.0, 31.0))],
+   []),
+  (1007,
+   [(1007, (20.0, 29.0)),
+    (1007, (20.0, 29.0)),
+    (1007, (20.0, 29.0)),
+    (1007, (21.0, 29.0)),
+    (1007, (21.0, 29.0)),
+    (1007, (21.0, 29.0))],
+   []),
+  (1009,
+   [(1009, (20.0, 24.0)),
+    (1009, (20.0, 24.0)),
+    (1009, (20.0, 24.0)),
+    (1009, (21.0, 24.0)),
+    (1009, (21.0, 24.0)),
+    (1009, (21.0, 24.0)),
+    (1009, (24.0, 24.0)),
+    (1009, (24.0, 24.0)),
+    (1009, (24.0, 24.0))],
+   []),
+  (1011,
+   [(1011, (21.0, 35.0)),
+    (1011, (21.0, 35.0)),
+    (1011, (21.0, 35.0)),
+    (1011, (23.0, 35.0)),
+    (1011, (23.0, 35.0)),
+    (1011, (23.0, 35.0))],
+   [])],
+ [(1004,
+   [(1004, (10, 0.0)),
+    (1004, (10, 0.0)),
+    (1004, (10, 0.0)),
+    (1004, (10, 2.0)),
+    (1004, (10, 2.0)),
+    (1004, (10, 2.0)),
+    (1004, (10, 3.0)),
+    (1004, (10, 3.0)),
+    (1004, (10, 3.0))],
+   []),
+  (1006,
+   [(1006, (11, 0.0)),
+    (1006, (11, 0.0)),
+    (1006, (11, 0.0)),
+    (1006, (11, 2.5)),
+    (1006, (11, 2.5)),
+    (1006, (11, 2.5))],
+   [])],
+ [(1004,
+   [(1004, (10, 0.0)),
+    (1004, (10, 0.0)),
+    (1004, (10, 0.0)),
+    (1004, (10, 2.0)),
+    (1004, (10, 2.0)),
+    (1004, (10, 2.0)),
+    (1004, (10, 3.0)),
+    (1004, (10, 3.0)),
+    (1004, (10, 3.0))],
+   []),
+  (1006,
+   [(1006, (11, 0.0)),
+    (1006, (11, 0.0)),
+    (1006, (11, 0.0)),
+    (1006, (11, 2.5)),
+    (1006, (11, 2.5)),
+    (1006, (11, 2.5))],
+   [])],
+ [(1001,
+   [(1001, (5, 'removed')),
+    (1001, (5, 'removed')),
+    (1001, (5, 'removed')),
+    (1001, (6, 'removed')),
+    (1001, (6, 'removed')),
+    (1001, (6, 'removed'))],
+   []),
+  (1005,
+   [(1005, (6, 'removed')), (1005, (6, 'removed')), (1005, (6, 'removed'))],
+   [])],
+ [(1001,
+   [(1001, (5, 'removed')),
+    (1001, (5, 'removed')),
+    (1001, (5, 'removed')),
+    (1001, (6, 'removed')),
+    (1001, (6, 'removed')),
+    (1001, (6, 'removed'))],
+   []),
+  (1005,
+   [(1005, (6, 'removed')), (1005, (6, 'removed')), (1005, (6, 'removed'))],
+   [])],
+ [],
+ [],
+ [(1002, [(1002, ('a', 150.0, 2))], []),
+  (1003, [(1003, ('b', 35.0, 2))], []),
+  (1004, [(1004, ('f', 215.0, 3))], []),
+  (1005, [(1005, ('i', 65.0, 3))], [])]]
+X5_CASES = [spec[:4] + (want,) for spec, want in
+            zip(x5_specs(), _X5_WANT)]
 
 
 if __name__ == "__main__":

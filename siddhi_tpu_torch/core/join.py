@@ -557,8 +557,7 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
     out_target = query.output_stream.target_id if query.output_stream \
         else ""
     sel = SelectorExec(proj_selector, scope, left.schema,
-                       max((Kl + 1) * (Kr + 1), 64), out_target or name,
-                       aggregate=True)
+                       max((Kl + 1) * (Kr + 1), 64), out_target or name)
     if sel.bank.pair_sources:
         # reference join.py:421-423
         raise CompileError(

@@ -778,6 +778,11 @@ class PatternExec:
         seed_taken = torch.any(hot[:, P:, :], dim=1)                 # [P,K]
         fork_hot = hot[:, :P, :]                                     # [P,P,K]
         fork_taken = has_cand & torch.logical_not(seed_taken)
+        # each fork's source slot, for a gather: the reference's one-hot
+        # sum gives the source's value with -0.0 as +0.0 (reproduced
+        # below) and, on the CPU, a NaN's bits unchanged; a sum on the card
+        # would rewrite a NaN's bits, a gather keeps them on every device
+        fork_src = torch.argmax(fork_hot.to(torch.int32), dim=1)    # [P,K]
         for a in spec.all_atoms():
             if a.absent:
                 continue
@@ -789,8 +794,10 @@ class PatternExec:
             seed_m = torch.broadcast_to(seed_taken[:, None, :], (P, D, K))
 
             def merge(c, incoming, nullv):
-                inherited = oh_take(c[None, :, :, :],
-                                    fork_hot[:, :, None, :], 1)      # [P,D,K]
+                inherited = torch.gather(c, 0, fork_src[:, None, :].expand(
+                    P, D, K))                                        # [P,D,K]
+                if c.dtype.is_floating_point:
+                    inherited = torch.where(inherited == 0, 0.0, inherited)
                 out = torch.where(fork_taken[:, None, :], inherited, c)
                 clear = torch.full_like(out, nullv)
                 if seed_has:
@@ -802,9 +809,13 @@ class PatternExec:
                     out = torch.where(seed_m, clear, out)
                 return out
 
+            # the incoming event's columns are read only for an atom that
+            # seeds from this stream: another stream may be narrower (the
+            # reference indexes them for every atom and raises there)
             a_schema = self.schemas[a.stream_id]
             newcaps[ck] = (merge(ts_c, ev_ts, -1),
-                           tuple(merge(c, ev_cols[j], ev.null_value(t))
+                           tuple(merge(c, ev_cols[j] if seed_has else None,
+                                       ev.null_value(t))
                                  for j, (c, t) in enumerate(
                                      zip(cols_c, a_schema.types))))
         return st._replace(caps=newcaps)

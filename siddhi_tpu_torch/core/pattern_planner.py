@@ -9,12 +9,13 @@ A non-partitioned simple chain (`core/pattern_block.py`
 `block_eligible`) runs the block NFA, every other plan the per-key scan
 step.  On a CUDA device the block step is kernel K8
 (`kernels/block_nfa.py`) and the scan step the `pattern_step` kernel
-(`kernels/pattern_step.py`); a plan outside the kernel's subset raises at
-plan time.  On the CPU the steps are the plain PyTorch functions
-(`make_block_step`, and `make_step` below), which are also the kernels'
-references.  A plan with absent atoms also gets a timer step (`tstep`):
-one tick with no event over the whole slab at `now`, which fires the
-absent deadlines that have passed.
+(`kernels/pattern_step.py`: its flagship mode or its general mode); a plan
+past one of the kernel's stated limits raises at plan time, naming it.  On
+the CPU the steps are the plain PyTorch functions (`make_block_step`, and
+`make_step` below), which are also the kernels' references.  A plan with
+absent atoms also gets a timer step (`tstep`): one tick with no event over
+the whole slab at `now`, which fires the absent deadlines that have
+passed.
 """
 from __future__ import annotations
 
@@ -199,19 +200,21 @@ def plan_pattern_query(
             raise CompileError(f"undefined stream {sid!r} in pattern")
     use_block = partition_positions is None and block_eligible(spec) \
         and not _FORCE_SCAN
-    if device.type == "cuda" and not use_block:
-        unsupported = kernel_subset_violation(spec, partition_positions)
-        if unsupported is not None:
-            raise NotImplementedError(
-                f"query {name!r} is outside the CUDA pattern_step kernel's "
-                f"subset: {unsupported}")
     pexec = PatternExec(spec, schemas, interner, slots=slots,
                         emit_refs=_used_refs(query, spec), device=device,
                         in_col0_types=in_col0_types)
 
     out_target = query.output_stream.target_id if query.output_stream else ""
+    # aggregators over pattern matches: the group slots are the partition
+    # keys (a top-level plan's rows all take slot 0), as the reference's
     sel = SelectorExec(query.selector, pexec.scope,
-                       schemas[spec.stream_ids[0]])
+                       schemas[spec.stream_ids[0]],
+                       key_capacity if partition_positions else 64,
+                       out_target or name)
+    if sel.bank.pair_sources:
+        raise CompileError(
+            "distinctCount/unionSet in pattern queries lands in a later "
+            "phase")
 
     out_def = StreamDefinition(out_target or f"#{name}.out")
     for n, t in zip(sel.out_names, sel.out_types):
@@ -386,24 +389,6 @@ def plan_pattern_query(
         compact_rows=compact_rows, device=device)
 
 
-def kernel_subset_violation(spec: PatternSpec,
-                            partition_positions) -> Optional[str]:
-    """Why a scan-path plan is outside the CUDA `pattern_step` kernel's
-    subset (None when inside): stream atoms, `every`, `->`, `within`,
-    capture depth 1, and absent atoms `not X for t` after the first; a
-    non-partitioned plan runs it with one key."""
-    if spec.state_type != "PATTERN":
-        return "sequences (ROADMAP B3 kernel subset)"
-    for a in spec.atoms:
-        if a.partner is not None:
-            return "logical and/or atoms (ROADMAP B3 kernel subset)"
-        if a.is_count or a.capture_depth != 1:
-            return "count atoms (ROADMAP B3 kernel subset)"
-    if spec.atoms[0].absent:
-        return "a leading absent atom (ROADMAP B7 kernel subset)"
-    return None
-
-
 def absent_wake(spec: PatternSpec, st: PatternState):
     """The earliest pending absent deadline of the state's keys (the
     reference's next wakeup): standalone `not X for t` atoms and the timed
@@ -506,8 +491,16 @@ def _emit_matches(sel: SelectorExec, spec: PatternSpec, emits, ord_,
                                 device=dev),
                 valid=flat(mask), seq=seq, gslot=gslot, cols=())
     sel_state, out = sel.process(sel_state, rows, env)
+    return sel_state, cut_per_key(out, EP, K, compact_rows)
 
+
+def cut_per_key(out, EP: int, K: int, compact_rows: int):
+    """The selector's output rows [EP * K] (row = ep * K + k) cut per key to
+    its first R = min(compact_rows, EP) valid rows, [R, K], by rank (a
+    one-hot contraction over the EP axis); returns (n_valid, n_dropped, ts,
+    kind, valid, cols) with the rows past R counted in n_dropped."""
     ots, okind, ovalid, ocols = out
+    dev = ovalid.device
     R = min(compact_rows, EP)
     if R < EP:
         v2 = ovalid.reshape(EP, K)
@@ -528,5 +521,4 @@ def _emit_matches(sel: SelectorExec, spec: PatternSpec, emits, ord_,
         n_valid = torch.sum(ovalid.to(torch.int64))
         n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
     # leading scalars: valid-row count and overflow count
-    out = (n_valid, n_dropped) + out
-    return sel_state, out
+    return (n_valid, n_dropped) + out

@@ -219,7 +219,7 @@ def plan_single_query(
     out_target = query.output_stream.target_id if query.output_stream \
         else ""
     sel = SelectorExec(query.selector, scope, in_schema, group_slots,
-                       out_target or name, aggregate=True)
+                       out_target or name)
     out_def = StreamDefinition(out_target or f"#{name}.out")
     for n, t in zip(sel.out_names, sel.out_types):
         out_def.attribute(n, t)

@@ -21,8 +21,7 @@ a pair slot, resolved on the host (`__pslot__<j>` in the env).  A refcount
 column scans over the pair slots (K4 over 8K slots), and its 0 <-> 1
 transitions feed the distinct count as +1 / -1 contributions to a second
 scan over the group slots (K4 again); the refcounts' per-row results stay
-on the device between the two passes.  A pattern query's
-selector is projection-only (`aggregate=False`), as before.
+on the device between the two passes.
 """
 from __future__ import annotations
 
@@ -424,17 +423,9 @@ class SelectorExec:
 
     def __init__(self, selector: Selector, scope: Scope,
                  in_schema: ev.Schema, group_slots: int = 4096,
-                 out_stream_id: str = "", aggregate: bool = False):
+                 out_stream_id: str = ""):
         self.selector = selector
         self.scope = scope
-        what = "in pattern queries " if not aggregate else ""
-        if not aggregate:
-            if selector.group_by_list:
-                raise CompileError(f"group by {what}is not yet ported "
-                                   f"(ROADMAP B14)")
-            if selector.having_expression is not None:
-                raise CompileError(f"having {what}is not yet ported "
-                                   f"(ROADMAP B14)")
         self.group_by_positions: List[int] = []
         for v in selector.group_by_list:
             _, pos, _ = scope.resolve(v)
@@ -443,15 +434,6 @@ class SelectorExec:
         self._agg_calls: List[AttributeFunction] = []
         sel_list = selector.selection_list or [
             OutputAttribute(None, Variable(n)) for n in in_schema.names]
-        if not aggregate:
-            for oa in sel_list:
-                for node in walk(oa.expression):
-                    if isinstance(node, AttributeFunction) and \
-                            not node.namespace and \
-                            node.name in AGGREGATOR_NAMES:
-                        raise CompileError(
-                            f"aggregator {node.name!r} {what}is not yet "
-                            f"ported (ROADMAP B14)")
         self.out_names: List[str] = [oa.name for oa in sel_list]
         self._exprs = [oa.expression for oa in sel_list]
         proj = [_rewrite_aggregators(oa.expression, self._agg_calls,

@@ -3,6 +3,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace siddhi {
@@ -13,7 +14,7 @@ enum : int { T_I32 = 0, T_I64 = 1, T_F32 = 2, T_BOOL = 3 };
 enum : int { N_NONE = 0, N_INT = 1, N_LONG = 2, N_NAN = 3, N_ID = 4 };
 enum : int {
   OP_LOAD_EV = 1, OP_LOAD_CAP, OP_CONST, OP_ARITH, OP_CMP, OP_AND, OP_OR,
-  OP_NOT, OP_ISNULL, OP_LOAD_OTHER, OP_COALESCE, OP_IN
+  OP_NOT, OP_ISNULL, OP_LOAD_OTHER, OP_COALESCE, OP_IN, OP_LOAD_CAPD
 };
 
 // `x in Table` (OP_IN): the valid rows' first-column values of a table,
@@ -172,13 +173,19 @@ __device__ inline bool in_lookup(const InSet& s, long long v, int ct) {
   }
 }
 
+// The absent load_capd of eval_bytecode: OP_LOAD_CAPD is then not
+// compiled in, and the callers that never emit it build as before.
+struct NoCapD {};
+
 // Runs `len` words of bytecode.  load_ev(col) returns an event column as a
-// 64-bit stack slot, load_cap(atom, col) a capture column and
-// load_other(col) a column of a join's candidate row; `sets` are the
-// hash sets OP_IN reads (word 1 indexes them).
-template <class LoadEv, class LoadCap, class LoadOther>
+// 64-bit stack slot, load_cap(atom, col) a capture column,
+// load_capd(set, col, depth) a capture column at a depth (-1: the deepest
+// filled one) and load_other(col) a column of a join's candidate row;
+// `sets` are the hash sets OP_IN reads (word 1 indexes them).
+template <class LoadEv, class LoadCap, class LoadOther, class LoadCapD = NoCapD>
 __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
-                                              LoadOther load_other, const InSet* sets) {
+                                              LoadOther load_other, const InSet* sets,
+                                              LoadCapD load_capd = {}) {
   if (len == 0) return true;
   long long stk[MAX_STACK];
   int sp = 0;
@@ -231,7 +238,16 @@ __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv l
         pc += 5;
         break;
       }
-      default: return false;
+      default:
+        // OP_LOAD_CAPD, where the caller reads indexed captures
+        if constexpr (!std::is_same_v<LoadCapD, NoCapD>) {
+          if (code[pc] == OP_LOAD_CAPD) {
+            stk[sp++] = load_capd(code[pc + 1], code[pc + 2], code[pc + 3]);
+            pc += 4;
+            break;
+          }
+        }
+        return false;
     }
   }
   return stk[0] != 0;

@@ -162,8 +162,10 @@ class BlockPlan:
             t.code[j] = w
         self.in_keys = ik.keys
 
-        self.emit = sorted((atom_of_ref[ref], pos)
-                           for ref, pos in sel.used_columns())
+        # the captured columns the select and having read
+        from .pattern_step import _selected_captures
+        self.emit = sorted({(atom_of_ref[ref], pos)
+                            for ref, pos, _ in _selected_captures(sel)})
         if len(self.emit) > MAX_EMIT:
             raise NotImplementedError(
                 f"the selector reads {len(self.emit)} captured columns; "
@@ -267,8 +269,9 @@ def launch(kp: BlockPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
 
 
 def project(kp: BlockPlan, sel_state, kout, now: int):
-    """The selector's projection over the ordered rows, then the cut to
-    the emission cap (`core/pattern_block.py` `cut_rows`)."""
+    """The selector over the ordered rows (aggregators over group slot 0,
+    as the plain block step's), then the cut to the emission cap
+    (`core/pattern_block.py` `cut_rows`)."""
     header, out_ts, out_valid, out_cols = kout
     dev = out_ts.device
     CT = out_ts.shape[0]
@@ -280,7 +283,9 @@ def project(kp: BlockPlan, sel_state, kout, now: int):
     rows = Rows(ts=out_ts,
                 kind=torch.full((CT,), ev.CURRENT, dtype=torch.int32,
                                 device=dev),
-                valid=out_valid, seq=None, gslot=None, cols=())
+                valid=out_valid, seq=None,
+                gslot=torch.zeros((CT,), dtype=torch.int32, device=dev),
+                cols=())
     sel_state, out = kp.sel.process(sel_state, rows, env)
     return cut_rows(out, kp.compact_rows, sel_state)
 

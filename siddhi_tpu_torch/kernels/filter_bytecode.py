@@ -29,7 +29,13 @@ row is an outer join's unmatched row.
 Word layout (operands follow the opcode):
   LOAD_EV col | LOAD_CAP atom col | CONST lo hi | ARITH op t lt rt lnk rnk |
   CMP op ct lt rt lnk rnk | AND | OR | NOT | ISNULL nk | LOAD_OTHER col |
-  COALESCE t lt rt lnk rnk onk | IN set ct ot onk
+  COALESCE t lt rt lnk rnk onk | IN set ct ot onk | LOAD_CAPD set col depth
+LOAD_CAP reads depth 0 of a pattern atom's capture (depth-1 plans).
+LOAD_CAPD reads capture set `set` (every non-absent atom of the pattern,
+logical partners included, `kernels/pattern_step.py` numbers them) at a
+depth: `e1[i]` is depth i, `e1` depth 0, and depth -1 is `e1[last]`, the
+deepest filled depth (a float -0.0 read there comes out +0.0, as the
+reference's one-hot take gives it).
 IN pops a value of type ot, casts it to the compare type ct and pushes
 whether it is in hash set `set` (`kernels/in_probe.py`: the first column of
 a table under ct); an in-band null is looked up like any other value.
@@ -66,7 +72,7 @@ from ..query_api.expression import (
 )
 
 LOAD_EV, LOAD_CAP, CONST, ARITH, CMP, AND, OR, NOT, ISNULL, LOAD_OTHER, \
-    COALESCE, IN = range(1, 13)
+    COALESCE, IN, LOAD_CAPD = range(1, 14)
 T_I32, T_I64, T_F32, T_BOOL = range(4)
 N_NONE, N_INT, N_LONG, N_NAN, N_ID = range(5)
 
@@ -119,20 +125,23 @@ class InKeys:
 def compile_filter(expr, scope: Scope, own_ref: str,
                    atom_of_ref: Dict[str, int],
                    other_ref: Optional[str] = None,
-                   in_keys: Optional[InKeys] = None) -> List[int]:
+                   in_keys: Optional[InKeys] = None,
+                   depths: Optional[Dict[int, int]] = None) -> List[int]:
     """Bytecode of one filter.  `scope` is the filter's scope (unqualified
     names bind to its own stream); `own_ref` loads come from the row under
     evaluation, `other_ref` loads (a join's other side) from the candidate
     row, every other ref from that pattern atom's capture in the slot under
-    evaluation (`atom_of_ref`: ref -> atom).  `in_keys` collects the
-    plan's probes; without it `x in Table` is outside the subset."""
+    evaluation (`atom_of_ref`: ref -> atom).  With `depths` (capture set ->
+    its depth D) `atom_of_ref` maps refs to capture sets and every capture
+    load is an indexed LOAD_CAPD.  `in_keys` collects the plan's probes;
+    without it `x in Table` is outside the subset."""
     code: List[int] = []
-    global _IN_KEYS
-    _IN_KEYS = in_keys
+    global _IN_KEYS, _DEPTHS
+    _IN_KEYS, _DEPTHS = in_keys, depths
     try:
         t = _emit(expr, scope, own_ref, atom_of_ref, code, other_ref)
     finally:
-        _IN_KEYS = None
+        _IN_KEYS = _DEPTHS = None
     if t.type != "BOOL":
         raise CompileError("filter must be boolean")
     return code
@@ -155,6 +164,17 @@ def _emit(expr, scope, own_ref, atom_of_ref, code,
 
     if isinstance(expr, Variable):
         key, pos, t = scope.resolve(expr)
+        own = key in (own_ref, other_ref) and expr.stream_index is None
+        if _DEPTHS is not None and not own:
+            si = atom_of_ref[key]
+            d = expr.stream_index or 0
+            d = d if d >= 0 else -1
+            if d >= _DEPTHS[si]:
+                raise CompileError(
+                    f"{key}[{d}] is past the capture depth "
+                    f"{_DEPTHS[si]} of {key!r}")
+            code += [LOAD_CAPD, si, pos, d]
+            return CompiledExpr(None, t)
         if expr.stream_index not in (None, 0, -1):
             raise CompileError("capture index beyond depth 1 is outside the "
                                "kernel filter subset")
@@ -282,18 +302,25 @@ _CMP_FNS = (torch.lt, torch.le, torch.gt, torch.ge, torch.eq, torch.ne)
 
 
 _OP_LEN = {LOAD_EV: 2, LOAD_CAP: 3, CONST: 3, ARITH: 7, CMP: 7, AND: 1,
-           OR: 1, NOT: 1, ISNULL: 2, LOAD_OTHER: 2, COALESCE: 7, IN: 5}
+           OR: 1, NOT: 1, ISNULL: 2, LOAD_OTHER: 2, COALESCE: 7, IN: 5,
+           LOAD_CAPD: 4}
 _IN_KEYS: Optional[InKeys] = None
+_DEPTHS: Optional[Dict[int, int]] = None
 
 
-def cap_loads(code: List[int]) -> List[Tuple[int, int]]:
-    """The distinct (atom, column) capture words the bytecode reads, in
-    order of first load."""
-    out: List[Tuple[int, int]] = []
+def cap_loads(code: List[int], with_depth: bool = False) -> List[Tuple]:
+    """The distinct (atom or capture set, column) capture words the
+    bytecode reads (LOAD_CAP and LOAD_CAPD), in order of first load; with
+    `with_depth`, (set, column, depth) with LOAD_CAP at depth 0."""
+    out: List[Tuple] = []
     pc = 0
     while pc < len(code):
-        if code[pc] == LOAD_CAP and (code[pc + 1], code[pc + 2]) not in out:
-            out.append((code[pc + 1], code[pc + 2]))
+        if code[pc] in (LOAD_CAP, LOAD_CAPD):
+            x = (code[pc + 1], code[pc + 2])
+            if with_depth:
+                x += (code[pc + 3] if code[pc] == LOAD_CAPD else 0,)
+            if x not in out:
+                out.append(x)
         pc += _OP_LEN[code[pc]]
     return out
 
@@ -302,13 +329,16 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
               load_cap: Callable[[int, int], torch.Tensor],
               load_other: Optional[Callable[[int], torch.Tensor]] = None,
               load_in: Optional[Callable[[int, torch.Tensor],
-                                         torch.Tensor]] = None
+                                         torch.Tensor]] = None,
+              load_capd: Optional[Callable[[int, int, int],
+                                           torch.Tensor]] = None
               ) -> torch.Tensor:
     """Run bytecode over whole columns: `load_ev(col)`,
-    `load_cap(atom, col)` and `load_other(col)` return tensors of one
-    shape (the keys, or the candidate pairs); `load_in(set, values)` is
-    the probe of hash set `set` over values already in its compare type.
-    Returns the bool column."""
+    `load_cap(atom, col)`, `load_capd(set, col, depth)` and
+    `load_other(col)` return tensors of one shape (the keys, or the
+    candidate pairs); `load_in(set, values)` is the probe of hash set
+    `set` over values already in its compare type.  Returns the bool
+    column."""
     stack: List[torch.Tensor] = []
     pc = 0
     while pc < len(code):
@@ -319,6 +349,9 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
         elif op == LOAD_CAP:
             stack.append(load_cap(code[pc + 1], code[pc + 2]))
             pc += 3
+        elif op == LOAD_CAPD:
+            stack.append(load_capd(code[pc + 1], code[pc + 2], code[pc + 3]))
+            pc += 4
         elif op == LOAD_OTHER:
             stack.append(load_other(code[pc + 1]))
             pc += 2

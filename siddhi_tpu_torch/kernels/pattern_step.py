@@ -5,7 +5,19 @@ package's jitted pattern step (`siddhi_tpu/core/pattern_planner.py`
 `make_step` with `wire_ts`, `PatternExec.tick` / `_spawn` in
 `siddhi_tpu/core/pattern.py`, and `_emit_matches`' compaction), and, for
 plans with absent atoms, its timer step (`tstep`) and the wake of
-`_emit_matches`.
+`_emit_matches`.  The source holds two kernels: the flagship mode
+(`StepPlan`: stream atoms, `every`, `->`, `within`, capture depth 1,
+absent atoms after the first) and the general mode (`GenPlan`: every other
+pattern the planner accepts: count atoms, logical pairs, sequences, a
+leading absent atom, timed logical-absent pairs).  `KernelPlan` picks the
+mode (`flagship_subset`).
+
+Where the select aggregates, has `having` or orders, the kernel writes
+every (event, slot) row uncompacted, and the selector runs over the whole
+[E * (P + 1), Kb] grid before the per-key cut to R rows
+(`core/pattern_planner.py` `cut_per_key`), as the reference orders them;
+otherwise the kernel cuts to R rows itself and the projection runs on
+those.
 
 `PatternStep` is what the runtime calls for a data step, `TimerStep` for
 a timer step (a launch in timer mode over the whole slab).  Given tensors
@@ -20,8 +32,9 @@ The kernel builds from the repository's source at first use
 (`kernels/_nvcc.py`).
 
 `launches` counts data-step kernel launches, `timer_launches` timer-mode
-launches and `plain_calls` calls of the plain versions; `reset_counts()`
-sets them to 0.
+launches (either mode), `mode_launches` the general mode's data and timer
+launches among them, and `plain_calls` calls of the plain versions;
+`reset_counts()` sets them to 0.
 """
 from __future__ import annotations
 
@@ -34,11 +47,14 @@ from ..core import event as ev
 from ..core.window import NO_WAKEUP, Rows
 from . import _nvcc
 from .in_probe import MAX_IN, InSet, fill_sets
-from .filter_bytecode import InKeys, compile_filter, type_code
+from .filter_bytecode import InKeys, compile_filter, null_kind, type_code
+from ..core.executor import CompileError
 
 launches = 0
 timer_launches = 0
 plain_calls = 0
+# the general mode's share of the launches: [data steps, timer steps]
+mode_launches = [0, 0]
 
 
 def reset_counts() -> None:
@@ -46,6 +62,7 @@ def reset_counts() -> None:
     launches = 0
     timer_launches = 0
     plain_calls = 0
+    mode_launches[:] = [0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -60,15 +77,19 @@ def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library."""
     lib = _nvcc.build("pattern_step")
     if not getattr(lib, "_siddhi_checked", False):
-        lib.siddhi_pattern_step.restype = ctypes.c_int
-        lib.siddhi_pattern_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.siddhi_pattern_step_plan_size.restype = ctypes.c_int
-        lib.siddhi_pattern_step_plan_size.argtypes = []
-        size = lib.siddhi_pattern_step_plan_size()
-        if size != ctypes.sizeof(StepPlan):
-            raise RuntimeError(
-                f"StepPlan layout mismatch: kernel {size} bytes, wrapper "
-                f"{ctypes.sizeof(StepPlan)} bytes")
+        for entry, struct in (("siddhi_pattern_step", StepPlan),
+                              ("siddhi_pattern_general", GenPlan)):
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            size_fn = getattr(lib, entry + "_plan_size")
+            size_fn.restype = ctypes.c_int
+            size_fn.argtypes = []
+            if size_fn() != ctypes.sizeof(struct):
+                raise RuntimeError(
+                    f"{struct.__name__} layout mismatch: kernel "
+                    f"{size_fn()} bytes, wrapper {ctypes.sizeof(struct)} "
+                    f"bytes")
         lib._siddhi_checked = True
     return lib
 
@@ -80,11 +101,28 @@ def ptxas_report() -> str:
 
 
 # ---------------------------------------------------------------------------
-# the kernel's plan (mirrors `struct StepPlan` in csrc/pattern_step.cu)
+# the kernels' plans (mirror `struct StepPlan` and `struct GenPlan` in
+# csrc/pattern_step.cu)
 # ---------------------------------------------------------------------------
 
 MAX_ATOMS, MAX_COLS, MAX_EMIT, MAX_CODE, MAX_P = 8, 8, 24, 192, 32
+# the general mode's limits: atoms, capture sets (atoms and their logical
+# partners), bytecode words
+G_SIDES, G_CODE = 16, 256
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_C = ctypes.c_byte
+
+# general-mode atom and side flags (csrc/pattern_step.cu)
+A_COUNT, A_ABSENT, A_AND, A_OR, A_PABSENT, A_PTIMED = 1, 2, 4, 8, 16, 32
+S_HERE, S_CAP, S_ABSENT, S_SEEDHAS, S_SEEDROW = 1, 2, 4, 8, 16
+
+
+# the buffers, last in both structures
+_BUFFERS = [("b32", _P), ("b64", _P), ("dropped", _P),
+            ("ev_col", _P * MAX_COLS), ("raw_ts", _P), ("ts_delta", _P),
+            ("sel_idx", _P), ("key_idx", _P), ("out_ts", _P),
+            ("out_kind", _P), ("out_valid", _P), ("out_col", _P * MAX_EMIT),
+            ("header", _P), ("in_sets", InSet * MAX_IN)]
 
 
 class StepPlan(ctypes.Structure):
@@ -106,12 +144,33 @@ class StepPlan(ctypes.Structure):
          ("code_start", _I * MAX_ATOMS), ("code_len", _I * MAX_ATOMS),
          ("code", _I * MAX_CODE),
          ("n_emit", _I), ("emit_atom", _I * MAX_EMIT),
-         ("emit_col", _I * MAX_EMIT),
-         ("b32", _P), ("b64", _P), ("dropped", _P),
-         ("ev_col", _P * MAX_COLS), ("raw_ts", _P), ("ts_delta", _P),
-         ("sel_idx", _P), ("key_idx", _P), ("out_ts", _P),
-         ("out_kind", _P), ("out_valid", _P), ("out_col", _P * MAX_EMIT),
-         ("header", _P), ("in_sets", InSet * MAX_IN)])
+         ("emit_col", _I * MAX_EMIT)] + _BUFFERS)
+
+
+class GenPlan(ctypes.Structure):
+    _fields_ = (
+        [(n, _I) for n in ("K", "Kb", "E", "B", "P", "S", "R", "compact",
+                           "dense", "ts_wire", "has_within", "timer",
+                           "sequence", "every", "has_timers",
+                           "seed_spawn", "seed_complete", "seed_pos",
+                           "seed_count", "seed_fork_also", "seed_lmask",
+                           "seed_skip", "seed_disarm", "last_side")] +
+        [(n, _L) for n in ("within", "now", "ts_base", "key_lo")] +
+        [(n, _I) for n in ("off_active", "off_pos", "off_count",
+                           "off_lmask", "off_seed_on", "off_done",
+                           "off_start", "off_entry")] +
+        [(n, _I * MAX_ATOMS) for n in ("a_flags", "a_min", "a_max",
+                                       "a_side", "a_pside", "skip_to")] +
+        [("a_wait", _L * MAX_ATOMS), ("a_pwait", _L * MAX_ATOMS)] +
+        [(n, _I * G_SIDES) for n in ("s_flags", "s_depth", "s_ts",
+                                     "s_ncols", "s_code", "s_code_len")] +
+        [("s_col", (_I * MAX_COLS) * G_SIDES),
+         ("s_ty", (_C * MAX_COLS) * G_SIDES),
+         ("s_nk", (_C * MAX_COLS) * G_SIDES),
+         ("ev_ncols", _I), ("ev_ty", _I * MAX_COLS), ("code", _I * G_CODE),
+         ("n_emit", _I), ("emit_side", _C * MAX_EMIT),
+         ("emit_col", _C * MAX_EMIT), ("emit_depth", _C * MAX_EMIT)] +
+        _BUFFERS)
 
 
 def _null_bits(attr_type: str) -> int:
@@ -122,25 +181,107 @@ def _null_bits(attr_type: str) -> int:
     return int(v)
 
 
+def flagship_subset(spec) -> bool:
+    """Whether a plan runs the flagship mode: stream atoms, `every`, `->`,
+    `within`, capture depth 1 and absent atoms after the first.  Every
+    other plan runs the general mode."""
+    return (spec.state_type == "PATTERN" and not spec.atoms[0].absent and
+            all(a.partner is None and not a.is_count and
+                a.capture_depth == 1 for a in spec.atoms))
+
+
+def _limit(what: str, got: int, most: int) -> None:
+    if got > most:
+        raise NotImplementedError(
+            f"pattern_step kernel takes at most {most} {what} (the plan "
+            f"needs {got})")
+
+
+def _selected_captures(sel):
+    """(ref, column, depth) of every capture the select clause reads:
+    depth 0 for `e1` and `e1[0]`, -1 for `e1[last]`."""
+    from ..query_api.expression import Variable, walk
+    exprs = list(sel._exprs)
+    if sel.selector.having_expression is not None:
+        exprs.append(sel.selector.having_expression)
+    out = set()
+    for e in exprs:
+        for node in walk(e):
+            if not isinstance(node, Variable):
+                continue
+            try:
+                key, pos, _ = sel.scope.resolve(node)
+            except CompileError:        # a select alias inside `having`
+                continue
+            if key is None:             # an aggregator's bound result
+                continue
+            d = node.stream_index or 0
+            out.add((key, pos, d if d >= 0 else -1))
+    return sorted(out)
+
+
 class KernelPlan:
     """The static part of a kernel launch for one (pattern query, input
-    stream): the state layout, the filters' bytecode and the emitted
-    capture columns.  Built at plan time."""
+    stream): the mode, the state layout, the filters' bytecode and the
+    emitted capture columns.  Built at plan time; a plan past a stated
+    limit raises NotImplementedError naming it."""
 
     def __init__(self, pexec, sel, packer, stream_id: str,
                  compact_rows: int):
         spec = pexec.spec
-        atoms = spec.atoms
-        S, P = len(atoms), pexec.P
-        if S > MAX_ATOMS or P > MAX_P:
-            raise NotImplementedError(
-                f"pattern_step kernel takes at most {MAX_ATOMS} atoms and "
-                f"{MAX_P} slots (got {S} and {P})")
-        schemas = pexec.schemas
-        self.schema = schemas[stream_id]
+        S, P = len(spec.atoms), pexec.P
+        _limit("atoms", S, MAX_ATOMS)
+        _limit("slots", P, MAX_P)
+        self.schema = pexec.schemas[stream_id]
+        _limit("columns a stream", len(self.schema.types), MAX_COLS)
         self.P, self.compact_rows = P, compact_rows
+        self.sel = sel
+        self.has_absent = spec.has_absent
+        # the selector over the whole grid, then the cut (aggregators,
+        # having, order by / limit read rows the cut would drop)
+        self.full_grid = bool(sel.has_aggregation or sel.having is not None
+                              or sel.ordered)
+        self.general = not flagship_subset(spec)
+        # env key -> (emitted column key or None per column) for the
+        # projection; emit: the emitted keys in launch order, with dtypes
+        self.env_cols: Dict[str, tuple] = {}
+        self.emit: List[tuple] = []
+        self.emit_dtypes: List[torch.dtype] = []
+        if self.general:
+            self.entry = "siddhi_pattern_general"
+            self.template = self._general(pexec, sel, packer, stream_id)
+        else:
+            self.entry = "siddhi_pattern_step"
+            self.template = self._flagship(pexec, sel, packer, stream_id)
+        _limit("captured columns the select reads", len(self.emit),
+               MAX_EMIT)
+        self.template.n_emit = len(self.emit)
+
+    def _layout(self, t, packer) -> None:
+        # state layout from the packer's leaf rows (reference pytree order)
+        names = ["active", "pos", "count", "lmask", "start", "entry",
+                 "seed_on", "done"]
+        for name, rec in zip(names, packer.recs[:8]):
+            setattr(t, f"off_{name}", rec[3])
+        t.ev_ncols = len(self.schema.types)
+        for c, at in enumerate(self.schema.types):
+            t.ev_ty[c] = type_code(at)
+
+    def _caps_rows(self, pexec, packer) -> Dict[str, tuple]:
+        """Each capture set's first blob rows: ckey -> (ts row, col rows)."""
+        rows, out, i = packer.recs, {}, 9      # past the `dropped` scalar
+        for ck, ncols in packer._caps_layout:
+            out[ck] = (rows[i][3], [rows[i + 1 + c][3]
+                                    for c in range(ncols)])
+            i += 1 + ncols
+        return out
+
+    def _flagship(self, pexec, sel, packer, stream_id) -> StepPlan:
+        spec = pexec.spec
+        atoms = spec.atoms
+        S = len(atoms)
         t = StepPlan()
-        t.P, t.S = P, S
+        t.P, t.S = self.P, S
         t.has_within = int(spec.within is not None)
         t.within = int(spec.within or 0)
         t.every = int(atoms[0].every)
@@ -151,35 +292,21 @@ class KernelPlan:
         t.absent_mask = sum(1 << a.pos for a in atoms if a.absent)
         for a in atoms:
             t.wait[a.pos] = int(a.waiting_time or 0)
-        self.has_absent = bool(t.absent_mask)
-        if len(self.schema.types) > MAX_COLS:
-            raise NotImplementedError(
-                f"pattern_step kernel takes at most {MAX_COLS} columns")
-        t.ev_ncols = len(self.schema.types)
-        for c, at in enumerate(self.schema.types):
-            t.ev_ty[c] = type_code(at)
-
-        # state layout from the packer's leaf rows (reference pytree order)
-        rows = packer.recs
-        names = ["active", "pos", "count", "lmask", "start", "entry",
-                 "seed_on", "done"]
-        for name, rec in zip(names, rows[:8]):
-            setattr(t, f"off_{name}", rec[3])
+        self._layout(t, packer)
+        caps = self._caps_rows(pexec, packer)
         atom_of_ref = {a.ref: a.pos for a in atoms}
-        i = 9                                   # past the `dropped` scalar
-        for ck in sorted(a.ckey for a in atoms if not a.absent):
-            a = next(x for x in atoms if x.ckey == ck)
-            sch = schemas[a.stream_id]
-            if len(sch.types) > MAX_COLS:
-                raise NotImplementedError(
-                    f"pattern_step kernel takes at most {MAX_COLS} columns")
-            t.cap_ts[a.pos] = rows[i][3]
+        for a in atoms:
+            if a.absent:
+                continue
+            sch = pexec.schemas[a.stream_id]
+            _limit("columns a stream", len(sch.types), MAX_COLS)
+            ts_row, col_rows = caps[a.ckey]
+            t.cap_ts[a.pos] = ts_row
             t.n_cols[a.pos] = len(sch.types)
             for c, at in enumerate(sch.types):
-                t.cap_off[a.pos][c] = rows[i + 1 + c][3]
+                t.cap_off[a.pos][c] = col_rows[c]
                 t.cap_ty[a.pos][c] = type_code(at)
                 t.cap_null[a.pos][c] = _null_bits(at)
-            i += 1 + len(sch.types)
 
         code: List[int] = []
         ik = InKeys(pexec.in_col0_types)
@@ -192,27 +319,168 @@ class KernelPlan:
             t.code_start[a.pos] = len(code)
             t.code_len[a.pos] = len(words)
             code += words
-        if len(code) > MAX_CODE:
-            raise NotImplementedError(
-                f"pattern filters need {len(code)} bytecode words; the "
-                f"kernel takes {MAX_CODE}")
+        _limit("bytecode words", len(code), MAX_CODE)
         for j, w in enumerate(code):
             t.code[j] = w
         self.in_keys = ik.keys
 
-        # emitted capture columns: those the projection reads
-        self.emit = sorted((atom_of_ref[ref], pos)
-                           for ref, pos in sel.used_columns())
-        if len(self.emit) > MAX_EMIT:
-            raise NotImplementedError(
-                f"the selector reads {len(self.emit)} captured columns; the "
-                f"kernel emits at most {MAX_EMIT}")
-        t.n_emit = len(self.emit)
-        for j, (a, c) in enumerate(self.emit):
-            t.emit_atom[j], t.emit_col[j] = a, c
-        self.atoms = atoms
-        self.sel = sel
-        self.template = t
+        # emitted capture columns: those the select reads (every index of a
+        # depth-1 capture reads its one row)
+        for ref, c in sorted({(ref, c) for ref, c, _ in
+                              _selected_captures(sel)}):
+            a = atoms[atom_of_ref[ref]]
+            j = len(self.emit)
+            if j < MAX_EMIT:
+                t.emit_atom[j], t.emit_col[j] = a.pos, c
+            self.emit.append((a.pos, c))
+            self.emit_dtypes.append(pexec.schemas[a.stream_id].dtypes[c])
+        for a in atoms:
+            if a.absent:
+                continue
+            n = len(pexec.schemas[a.stream_id].types)
+            cols = tuple((a.pos, c) if (a.pos, c) in self.emit else None
+                         for c in range(n))
+            for k in (a.ref, f"{a.ref}@0", f"{a.ref}@-1"):
+                self.env_cols[k] = cols
+        return t
+
+    def _general(self, pexec, sel, packer, stream_id) -> GenPlan:
+        spec = pexec.spec
+        atoms, sides = spec.atoms, list(spec.all_atoms())
+        S = len(atoms)
+        _limit("atoms and logical partners", len(sides), G_SIDES)
+        side_of = {id(x): i for i, x in enumerate(sides)}
+        t = GenPlan()
+        t.P, t.S = self.P, S
+        t.has_within = int(spec.within is not None)
+        t.within = int(spec.within or 0)
+        t.sequence = int(spec.state_type == "SEQUENCE")
+        a0, last = atoms[0], atoms[-1]
+        t.every = int(a0.every)
+        t.has_timers = int(spec.has_absent)
+        self._layout(t, packer)
+        caps = self._caps_rows(pexec, packer)
+
+        # skip sources (the reference tick's epsilon closure): atom b is
+        # reachable from a slot parked at q when every atom in [q, b) is a
+        # plain zero-minimum count
+        skip_srcs = {}
+        for a in atoms:
+            srcs = []
+            if a.logical is None and not a.absent:
+                q = a.pos - 1
+                while q >= 0 and atoms[q].is_count and \
+                        atoms[q].min_count == 0 and \
+                        atoms[q].partner is None and not atoms[q].absent:
+                    srcs.append(q)
+                    q -= 1
+            skip_srcs[a.pos] = srcs
+            for q in srcs:
+                t.skip_to[q] |= 1 << a.pos
+        for a in atoms:
+            fl = (A_COUNT if a.is_count else 0) | \
+                (A_ABSENT if a.absent else 0) | \
+                {None: 0, "AND": A_AND, "OR": A_OR}[a.logical]
+            p = a.partner
+            if p is not None and p.absent:
+                fl |= A_PABSENT
+                if p.waiting_time is not None:
+                    fl |= A_PTIMED
+                    t.a_pwait[a.pos] = int(p.waiting_time)
+            t.a_flags[a.pos] = fl
+            t.a_min[a.pos] = a.min_count
+            t.a_max[a.pos] = spec.count_cap if a.max_count < 0 \
+                else a.max_count
+            t.a_wait[a.pos] = int(a.waiting_time or 0) if a.absent else 0
+            t.a_side[a.pos] = side_of[id(a)]
+            t.a_pside[a.pos] = side_of[id(p)] if p is not None else -1
+
+        # the seed (reference tick: seed_immediate / seed_keeps)
+        if a0.logical is not None:
+            immediate = a0.logical == "OR" or (
+                a0.partner is not None and a0.partner.absent)
+        elif a0.is_count:
+            immediate = a0.min_count <= 1
+        else:
+            immediate = True
+        keeps = a0.is_count and (a0.max_count < 0 or a0.max_count > 1)
+        t.seed_complete = int(immediate and S == 1)
+        t.seed_spawn = int((immediate and S > 1) or not immediate or keeps)
+        t.seed_pos, t.seed_count = (1, 0) if immediate and not keeps \
+            else (0, 1)
+        t.seed_fork_also = int(immediate and keeps and S > 1)
+        t.seed_lmask = int(a0.logical is not None and t.seed_pos == 0)
+        skip_possible = (
+            S > 1 and len(skip_srcs.get(S - 1, ())) == S - 1 and
+            last.logical is None and not last.absent and
+            (not last.is_count or last.min_count <= 1))
+        t.seed_skip = int(skip_possible and last.stream_id == stream_id)
+        t.seed_disarm = int(a0.partner is not None and a0.partner.absent
+                            and a0.partner.stream_id == stream_id
+                            and not a0.every)
+        t.last_side = side_of[id(last)]
+
+        # capture sets and filters, one per side
+        depths = {i: x.capture_depth for i, x in enumerate(sides)}
+        set_of_ref = {x.ref: i for i, x in enumerate(sides) if not x.absent}
+        code: List[int] = []
+        ik = InKeys(pexec.in_col0_types)
+        for i, x in enumerate(sides):
+            sch = pexec.schemas[x.stream_id]
+            _limit("columns a stream", len(sch.types), MAX_COLS)
+            here = x.stream_id == stream_id
+            fl = S_HERE if here else 0
+            if x.absent:
+                fl |= S_ABSENT
+            else:
+                fl |= S_CAP
+                if x.pos == 0 and here:
+                    fl |= S_SEEDHAS
+                if here and ((S == 1 and x.pos == 0) or
+                             (S > 1 and skip_possible and x.pos == S - 1)):
+                    fl |= S_SEEDROW
+                ts_row, col_rows = caps[x.ckey]
+                t.s_depth[i], t.s_ts[i] = x.capture_depth, ts_row
+                t.s_ncols[i] = len(sch.types)
+                for c, at in enumerate(sch.types):
+                    t.s_col[i][c] = col_rows[c]
+                    t.s_ty[i][c] = type_code(at)
+                    t.s_nk[i][c] = null_kind(at)
+            t.s_flags[i] = fl
+            if x.filter_expr is not None:
+                words = compile_filter(x.filter_expr,
+                                       pexec.filter_scopes[x.ckey], x.ref,
+                                       set_of_ref, in_keys=ik,
+                                       depths=depths)
+                t.s_code[i], t.s_code_len[i] = len(code), len(words)
+                code += words
+        _limit("bytecode words", len(code), G_CODE)
+        for j, w in enumerate(code):
+            t.code[j] = w
+        self.in_keys = ik.keys
+
+        # emitted capture columns: (set, column, depth or -1 for last)
+        for ref, c, d in _selected_captures(sel):
+            i = set_of_ref[ref]
+            if d >= depths[i]:
+                raise CompileError(
+                    f"{ref}[{d}] is past the capture depth {depths[i]}")
+            j = len(self.emit)
+            if j < MAX_EMIT:
+                t.emit_side[j], t.emit_col[j], t.emit_depth[j] = i, c, d
+            self.emit.append((i, c, d))
+            self.emit_dtypes.append(
+                pexec.schemas[sides[i].stream_id].dtypes[c])
+        for i, x in enumerate(sides):
+            if x.absent:
+                continue
+            n = len(pexec.schemas[x.stream_id].types)
+            for d in range(-1, x.capture_depth):
+                cols = tuple((i, c, d) if (i, c, d) in self.emit else None
+                             for c in range(n))
+                self.env_cols[f"{x.ref}@{d}"] = cols
+            self.env_cols[x.ref] = self.env_cols[f"{x.ref}@0"]
+        return t
 
 
 def _check(x: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
@@ -226,12 +494,13 @@ def _check(x: torch.Tensor, name: str, dtype, dim: int, dev) -> None:
 def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
            key_ref, now: int, dense: bool, timer: bool = False,
            in_tabs=None):
-    """Launch the kernel on the current stream.  Returns the updated packed
-    state (same blobs) and the kernel's outputs before projection:
+    """Launch the plan's kernel on the current stream.  Returns the updated
+    packed state (same blobs) and the kernel's outputs before projection:
     (header i64[3] = [n_valid, n_dropped, wake], ts, kind, valid,
-    {(atom, col): column}).  In timer mode (`timer`) the launch ticks every
-    key of the slab once with no event at ts = `now`; the event arguments
-    are then None."""
+    {emitted key: column}).  Rows are compacted to R per key unless the
+    plan runs the selector over the whole grid (`kp.full_grid`).  In timer
+    mode (`timer`) the launch ticks every key of the slab once with no
+    event at ts = `now`; the event arguments are then None."""
     global launches, timer_launches
     b32, b64, scalars = packed
     dev = b32.device
@@ -250,10 +519,10 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     P = kp.P
     EP = E * (P + 1)
     R = min(kp.compact_rows, EP)
-    compact = R < EP
+    compact = R < EP and not kp.full_grid
     nrows = (R if compact else EP) * Kb
 
-    pl = StepPlan.from_buffer_copy(kp.template)
+    pl = type(kp.template).from_buffer_copy(kp.template)
     pl.K, pl.Kb, pl.E, pl.R, pl.compact, pl.dense = K, Kb, E, R, \
         int(compact), int(dense)
     pl.now = int(now)
@@ -308,10 +577,9 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     header = torch.full((3,), NO_WAKEUP, dtype=torch.int64, device=dev)
     header[:2] = 0
     out_cols = {}
-    for j, (a, c) in enumerate(kp.emit):
-        sch = kp.sel.scope.schema(kp.atoms[a].ref)
-        col = torch.empty(nrows, dtype=sch.dtypes[c], device=dev)
-        out_cols[(a, c)] = col
+    for j, (key, dt) in enumerate(zip(kp.emit, kp.emit_dtypes)):
+        col = torch.empty(nrows, dtype=dt, device=dev)
+        out_cols[key] = col
         pl.out_col[j] = col.data_ptr()
     pl.b32, pl.b64, pl.dropped = b32.data_ptr(), b64.data_ptr(), \
         dropped.data_ptr()
@@ -324,37 +592,49 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
     held = fill_sets(pl.in_sets, kp.in_keys, in_tabs or {})
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _nvcc.check_launch(lib.siddhi_pattern_step(ctypes.byref(pl), stream),
+    _nvcc.check_launch(getattr(lib, kp.entry)(ctypes.byref(pl), stream),
                        "pattern_step")
     if timer:
         timer_launches += 1
     else:
         launches += 1
+    if kp.general:
+        mode_launches[1 if timer else 0] += 1
     del converted, held
     return (b32, b64, scalars), (header, out_ts, out_kind, out_valid,
                                  out_cols)
 
 
-def project(kp: KernelPlan, sel_state, kout, now: int):
-    """The selector's projection over the kernel's compacted rows; rows
-    that hold no match come out zero, as the reference's compaction
-    leaves them."""
+def project(kp: KernelPlan, sel_state, kout, now: int, Kb: int,
+            gslot=None):
+    """The selector over the kernel's rows.  Compacted rows: the
+    projection, rows that hold no match zero, as the reference's
+    compaction leaves them.  The whole grid (`kp.full_grid`, rows
+    [E * (P + 1), Kb]): aggregators over every row with its key's group
+    slot (`gslot` [Kb], None for slot 0), having, then the per-key cut to
+    R rows."""
+    from ..core.pattern_planner import cut_per_key
     header, out_ts, out_kind, out_valid, out_cols = kout
     env: Dict[str, Any] = {"__ts__": out_ts, "__now__": now}
-    for a in kp.atoms:
-        if a.absent:
-            continue
-        n = len(kp.sel.scope.schema(a.ref).types)
-        cols = tuple(out_cols.get((a.pos, c)) for c in range(n))
-        env[a.ref] = env[f"{a.ref}@0"] = env[f"{a.ref}@-1"] = cols
+    for k, cols in kp.env_cols.items():
+        env[k] = tuple(None if x is None else out_cols[x] for x in cols)
+    n = out_ts.shape[0]
+    if not kp.full_grid:
+        rows = Rows(ts=out_ts, kind=out_kind, valid=out_valid, seq=None,
+                    gslot=None, cols=())
+        sel_state, (ots, okind, ovalid, ocols) = kp.sel.process(
+            sel_state, rows, env)
+        ocols = tuple(torch.where(ovalid, c, torch.zeros(
+            (), dtype=c.dtype, device=c.device)) for c in ocols)
+        return sel_state, (header[0], header[1], ots, okind, ovalid, ocols)
+    if gslot is None:
+        slots = torch.zeros((n,), dtype=torch.int32, device=out_ts.device)
+    else:
+        slots = gslot.to(torch.int32).clamp(min=0).repeat(n // Kb)
     rows = Rows(ts=out_ts, kind=out_kind, valid=out_valid, seq=None,
-                gslot=None, cols=())
-    sel_state, (ots, okind, ovalid, ocols) = kp.sel.process(
-        sel_state, rows, env)
-    ocols = tuple(torch.where(ovalid, c, torch.zeros((), dtype=c.dtype,
-                                                     device=c.device))
-                  for c in ocols)
-    return sel_state, (header[0], header[1], ots, okind, ovalid, ocols)
+                gslot=slots, cols=())
+    sel_state, out = kp.sel.process(sel_state, rows, env)
+    return sel_state, cut_per_key(out, n // Kb, Kb, kp.compact_rows)
 
 
 def wake_of(kp: KernelPlan, kout):
@@ -405,10 +685,16 @@ class PatternStep:
         else:
             raw_ts, sel_idx, key_ref, now = args
             ts_wire = None
-        packed, kout = launch(self.kernel_plan, packed, raw_cols, raw_ts,
-                              ts_wire, sel_idx, key_ref, now, self.dense,
-                              in_tabs=in_tabs)
-        sel_state, out = project(self.kernel_plan, sel_state, kout, now)
+        kp = self.kernel_plan
+        packed, kout = launch(kp, packed, raw_cols, raw_ts, ts_wire, sel_idx,
+                              key_ref, now, self.dense, in_tabs=in_tabs)
+        Kb = sel_idx.shape[0]
+        gslot = None
+        if kp.full_grid:
+            # the rows' group slots: each row's key, as the plain step's
+            gslot = key_ref if not self.dense else int(key_ref) + \
+                torch.arange(Kb, dtype=torch.int32, device=sel_idx.device)
+        sel_state, out = project(kp, sel_state, kout, now, Kb, gslot)
         return packed, sel_state, out, wake_of(self.kernel_plan, kout)
 
 
@@ -440,5 +726,6 @@ class TimerStep:
         packed, kout = launch(self.kernel_plan, packed, None, None, None,
                               None, None, now, True, timer=True,
                               in_tabs=in_tabs)
-        sel_state, out = project(self.kernel_plan, sel_state, kout, now)
+        sel_state, out = project(self.kernel_plan, sel_state, kout, now,
+                                 packed[0].shape[1])
         return packed, sel_state, out, kout[0][2]

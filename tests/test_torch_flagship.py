@@ -21,8 +21,6 @@ from siddhi_tpu_torch import SiddhiManager as TorchManager
 from siddhi_tpu_torch.compiler import SiddhiCompiler
 from siddhi_tpu_torch.core.executor import CompileError
 from siddhi_tpu_torch.core.pattern import linearize
-from siddhi_tpu_torch.core.pattern_planner import kernel_subset_violation, \
-    plan_pattern_query
 from siddhi_tpu_torch.kernels import pattern_step as ps
 
 N_KEYS, BATCH = 4096, 1024
@@ -113,24 +111,27 @@ def _query(ql):
     ("every e1=T[v == 1], e2=T[v == 2]", "sequence"),
 ])
 def test_outside_kernel_subset_raises_on_cuda(pattern, reason):
+    """Outside the flagship mode's subset a plan takes the general mode;
+    only a plan past a stated limit raises (test_torch_pattern_general.py
+    holds the messages)."""
     ql = ("define stream T (k long, v int);\npartition with (k of T)\n"
-          f"begin\nfrom {pattern}\nselect e1.v as x insert into O;\nend;")
+          f"begin\n@info(name='q') from {pattern}\n"
+          "select e1.v as x insert into O;\nend;")
     app, q = _query(ql)
-    spec = linearize(q.input_stream)
-    assert reason in kernel_subset_violation(spec, {"T": [0]})
-    mgr = TorchManager(device="cpu")
-    with pytest.raises(NotImplementedError, match="kernel's subset"):
-        plan_pattern_query(q, "q", mgr.create_siddhi_app_runtime(
-            "define stream T (k long, v int);").schemas, mgr.interner,
-            key_capacity=16, slots=4, partition_positions={"T": [0]},
-            device=torch.device("cuda"))
+    assert not ps.flagship_subset(linearize(q.input_stream))
+    p = TorchManager(device="cpu").create_siddhi_app_runtime(
+        ql).query_runtimes["q"].planned
+    kp = ps.KernelPlan(p.exec, p.selector_exec, p.packer, "T",
+                       p.compact_rows)
+    assert kp.general and kp.entry == "siddhi_pattern_general"
+    assert (kp.template.sequence == 1) == (reason == "sequence")
 
 
 def test_flagship_is_inside_kernel_subset_and_plans_a_kernel():
     mgr = TorchManager(device="cpu")
     rt = mgr.create_siddhi_app_runtime(QL)
     p = rt.query_runtimes["flagship"].planned
-    assert kernel_subset_violation(p.spec, p.partition_positions) is None
+    assert ps.flagship_subset(p.spec)
     kp = ps.KernelPlan(p.exec, p.selector_exec, p.packer, "TradeStream",
                        p.compact_rows)
     t = kp.template
