@@ -274,6 +274,30 @@ Phases (any failure exits nonzero):
  52. X5: the pattern corpus at the top level and in a value partition,
      the guide's examples, and aggregators over a count pattern in a
      range partition, against the JAX package's events.
+ 53. agg_base (K27) and agg_merge (K28) against their plain versions on
+     the card (exact; NaN equal to NaN, -0.0 apart from +0.0): K27 over
+     every column type with nulls of each, +-inf, -0.0, a filter,
+     padding, EXPIRED and TIMER rows, an empty and an all-filtered batch,
+     and AG1's send; K28 on slot -1 rows, +-inf, -0.0, one slot of 4,096
+     rows whose f64 sum depends on its order, and AG1's shapes (6
+     durations x 7 bases x 2^20 buckets);
+ 54. their times (CUDA-graph replays) beside their plain versions, their
+     bounds and, for K28, one `scatter_reduce_` per (duration, base);
+ 55. AG1 (the query guide's TradeAggregation: 4,096 symbols, 160 sends of
+     131,072 trades a second, 1% null prices and volumes, seconds to
+     years; every retained (symbol, second) and every (symbol, minute)
+     bucket held to numpy, f64 equal) and AGJ1 on its state (the guide's
+     `within ... per "seconds"` join, 4,096 requests a send over the last
+     60 s, rows and counts held to numpy; an on-demand read per "hours"),
+     then NW1 (the guide's shared time(10 sec) window, 131,072 readings a
+     second, about 1.31M rows alive, its reader held to the closed form)
+     and TR1 (a trigger every second joined with it, 1,179,648 pairs a
+     trigger, held to the closed form), each with ev/s, per-send p50 /
+     p99 and a profiled sweep;
+ 56. X14: every window kind as a named window (read, joined, read on
+     demand) and the named-window join apps against the JAX package's
+     events, and a bidirectional named-window join on the card against
+     its plain run.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -908,6 +932,7 @@ def main() -> None:
     records += slice11_phases(torch, np, dev)
     records += slice12_phases(torch, np, dev)
     records += slice13_phases(torch, np, dev)
+    records += slice14_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -14551,9 +14576,11 @@ def gen_bound(torch, kp, before, after, args, kout):
     return n + out_bytes(torch, kp, kout, kp.full_grid)
 
 
-def time_general(torch, label, planned, sid, dense, state, args):
+def time_general(torch, label, planned, sid, dense, state, args,
+                 plain_reps=2):
     """One data step's kernel launch (CUDA events, from a restored state)
-    beside its plain step and its bound."""
+    beside its plain step (`plain_reps` timed calls after a warm one) and
+    its bound."""
     from siddhi_tpu_torch.kernels import pattern_step as ps
     steps = planned.dense_steps_w if dense else planned.steps_w
     step = steps[sid]
@@ -14575,7 +14602,8 @@ def time_general(torch, label, planned, sid, dense, state, args):
     step_ms = event_timer(torch, lambda: step.kernel(
         state, (), cols, base, delta, sel, key_ref, now), 5, restore)
     plain_ms = event_timer(torch, lambda: step.plain(
-        state, (), cols, base, delta, sel, key_ref, now), 2, restore)
+        state, (), cols, base, delta, sel, key_ref, now), plain_reps,
+        restore)
     restore()
     res = dict(bound(nb), ms=ms, step_ms=step_ms, plain_ms=plain_ms)
     print(f"timing {label}: kernel {ms:.4f} ms/launch, kernel+selector "
@@ -15111,8 +15139,9 @@ def time_top_level(torch, np, dev):
             .to(dev), torch.arange(n, dtype=torch.int32, device=dev)[None],
             torch.zeros(1, dtype=torch.int32, device=dev), int(ts[-1]))
     state = planned.init_state(1)[0]
+    # its plain step takes about 11 s a call: one timed call
     return time_general(torch, "top level (one key, 1,024 events a send)",
-                        planned, "S1", False, state, args)
+                        planned, "S1", False, state, args, plain_reps=1)
 
 
 def slice13_phases(torch, np, dev):
@@ -16489,6 +16518,1145 @@ _X5_WANT = [[(1020, [(1020, ('WSO2', 'GOOG', 85.0))], [])],
   (1005, [(1005, ('i', 65.0, 3))], [])]]
 X5_CASES = [spec[:4] + (want,) for spec, want in
             zip(x5_specs(), _X5_WANT)]
+
+
+# ---------------------------------------------------------------------------
+# slice 14: incremental aggregations (K27 agg_base, csrc/agg_base.cu; K28
+# agg_merge, csrc/agg_merge.cu), named windows and triggers
+# ---------------------------------------------------------------------------
+
+AG_SYMS = 4096            # AG1's symbols
+AG_B = 1 << 17            # AG1's trades a send (1 s of event time)
+AG_SENDS = 160            # AG1's sends: the seconds' retention purges
+AG_CAP = 1 << 20          # AG1's @capacity(buckets): 2^20 a duration
+AG_PURGE, AG_SEC_KEEP = 15_000, 120_000
+AGJ_LO, AGJ_HI = 100_000, 160_000   # AGJ1's `within`: AG1's last 60 s
+AGJ_TIMED = 16
+NW_ROOMS, NW_DEVICES, NW_B = 4096, 1 << 16, 1 << 17
+NW_SENDS = 24
+
+# the query guide's TradeAggregation (seconds to years over 4,096 symbols,
+# 7 base rows) and, on its state, the guide's `within ... per` join
+AG1_QL = """@app:playback
+define stream TradeStream (symbol string, price double, volume long,
+                           ts long);
+define stream StockStream (symbol string);
+@capacity(buckets='{cap}')
+define aggregation TradeAggregation
+from TradeStream
+select symbol, avg(price) as avgPrice, sum(price) as total,
+       min(price) as low, max(price) as high, sum(volume) as vol,
+       count() as n
+group by symbol
+aggregate by ts every sec ... year;
+@info(name='agj1') @emit(rows='{emit}')
+from StockStream as S join TradeAggregation as T
+  on S.symbol == T.symbol
+  within {lo}L, {hi}L per "seconds"
+select S.symbol as symbol, T.AGG_TIMESTAMP as bucket, T.total as total,
+       T.n as n
+insert into EnrichedTradeStream;
+"""
+
+# the guide's shared time window, its reader, and a trigger joined with it
+# (each trigger's pairs projected: `max(temp) group by roomNo` over the
+# window side raises in both packages, and aggregators without a group by
+# would put every pair in one K4 segment)
+NW1_QL = """@app:playback
+define stream TempStream (roomNo int, deviceID long, temp double);
+define window TempWindow (roomNo int, deviceID long, temp double)
+    time(10 sec) output all events;
+define trigger Tick at every 1 sec;
+@info(name='ins') from TempStream select * insert into TempWindow;
+@info(name='nw1') from TempWindow
+select roomNo, avg(temp) as avgTemp, count() as n group by roomNo
+insert into RoomStats;
+@info(name='tr1') @emit(rows='2097152')
+from Tick unidirectional join TempWindow
+select Tick.triggered_time as t, TempWindow.roomNo as roomNo,
+       TempWindow.temp as temp
+insert into TickOut;
+"""
+
+# K27's edge cases: every column type, nulls of each, a filter, values of
+# expressions
+AGX_QL = """
+define stream S (k string, i int, l long, f float, d double, b bool,
+                 ts long);
+define aggregation A from S[i > -100 and b]
+select k, sum(i) as si, min(l) as ml, avg(f) as af, max(d * 2.0) as xd,
+       sum(l + 1L) as s1, count() as n
+group by k aggregate by ts every seconds, minutes, hours;
+"""
+
+
+def agg_modules():
+    from siddhi_tpu_torch.kernels import agg_base, agg_merge
+    return {"agg_base": agg_base, "agg_merge": agg_merge}
+
+
+def nw_modules():
+    from siddhi_tpu_torch.kernels import filter_compact, group_agg, \
+        join_probe, time_window
+    return {"filter_compact": filter_compact, "time_window": time_window,
+            "group_agg": group_agg, "join_probe": join_probe}
+
+
+def agx_batch(np, rng, B, n_valid, ev, kind=None):
+    """A seeded batch over AGX_QL's stream: nulls of every type, +-inf,
+    -0.0, padding rows and EXPIRED rows (or every row of `kind`)."""
+    i = rng.integers(-200, 200, B).astype(np.int32)
+    i[rng.random(B) < 0.1] = ev.NULL_INT
+    ln = rng.integers(-2**40, 2**40, B).astype(np.int64)
+    ln[rng.random(B) < 0.1] = ev.NULL_LONG
+    f = rng.normal(0, 100, B).astype(np.float32)
+    d = rng.normal(0, 1e6, B).astype(np.float32)
+    for a in (f, d):
+        a[rng.random(B) < 0.1] = np.nan
+        a[rng.random(B) < 0.05] = np.inf
+        a[rng.random(B) < 0.05] = -np.inf
+        a[rng.random(B) < 0.05] = -0.0
+    b = rng.random(B) < 0.8
+    k = np.where(rng.random(B) < 0.1, ev.EXPIRED, ev.CURRENT)
+    if kind is not None:
+        k[:] = kind
+    valid = np.arange(B) < n_valid
+    ts = np.full(B, 1000, np.int64)
+    return ts, k.astype(np.int32), valid, [np.zeros(B, np.int32), i, ln, f,
+                                           d, b, ts]
+
+
+def ag1_send(np, i, syms=AG_SYMS, B=AG_B, seed=141):
+    """AG1's send i: B trades over `syms` symbols in second i, 1% null
+    prices and 1% null volumes: (symbol index, price, volume, ts)."""
+    from siddhi_tpu_torch.core import event as ev
+    rng = np.random.default_rng(seed + i)
+    sym = rng.integers(0, syms, B).astype(np.int32)
+    price = (1 + 99 * rng.random(B)).astype(np.float32)
+    price[rng.random(B) < 0.01] = np.nan
+    vol = rng.integers(1, 1000, B).astype(np.int64)
+    vol[rng.random(B) < 0.01] = ev.NULL_LONG
+    ts = i * 1000 + np.sort(rng.integers(0, 1000, B)).astype(np.int64)
+    return sym, price, vol, ts
+
+
+class AggModel:
+    """AG1's buckets in numpy: per (bucket, symbol) the base values merged
+    in row order (np.add.at, np.minimum.at, np.maximum.at over each send
+    in turn), for the seconds, minutes and hours durations."""
+
+    SPANS = {"SECONDS": 1000, "MINUTES": 60_000, "HOURS": 3_600_000}
+
+    def __init__(self, np, syms):
+        self.np, self.syms = np, syms
+        self.acc = {d: {} for d in self.SPANS}
+
+    def send(self, sym, price, vol, i):
+        np = self.np
+        pn, vn = np.isnan(price), vol == np.iinfo(np.int64).min
+        p = price.astype(np.float64)
+        parts = (np.where(pn, 0.0, p), (~pn).astype(np.float64),
+                 np.where(pn, np.inf, p), np.where(pn, -np.inf, p),
+                 np.where(vn, 0.0, vol.astype(np.float64)),
+                 (~vn).astype(np.float64))
+        for dur, span in self.SPANS.items():
+            key = (i * 1000 // span) * span
+            a = self.acc[dur].get(key)
+            if a is None:
+                z = np.zeros(self.syms)
+                a = self.acc[dur][key] = [z.copy(), z.copy(),
+                                          np.full(self.syms, np.inf),
+                                          np.full(self.syms, -np.inf),
+                                          z.copy(), z.copy(), z.copy()]
+            np.add.at(a[0], sym, parts[0])
+            np.add.at(a[1], sym, parts[1])
+            np.minimum.at(a[2], sym, parts[2])
+            np.maximum.at(a[3], sym, parts[3])
+            np.add.at(a[4], sym, parts[4])
+            np.add.at(a[5], sym, parts[5])
+            np.add.at(a[6], sym, 1.0)
+
+    def rows(self, dur, lo=None):
+        """(bucket, symbol index, avgPrice, total, low, high, vol, n) of
+        every bucket of `dur` at or after `lo` that holds a row, sorted by
+        (bucket, symbol)."""
+        np = self.np
+        out = []
+        for key in sorted(self.acc[dur]):
+            if lo is not None and key < lo:
+                continue
+            s, c, lo_, hi, vs, vc, n = self.acc[dur][key]
+            m = np.nonzero(n > 0)[0]
+            nan = np.float64(np.nan)
+            out.append((np.full(m.shape, key, np.int64), m.astype(np.int64),
+                        np.where(c > 0, s / np.maximum(c, 1), nan)[m]
+                        .astype(np.float32),
+                        np.where(c > 0, s, nan)[m].astype(np.float32),
+                        np.where(c > 0, lo_, nan)[m].astype(np.float32),
+                        np.where(c > 0, hi, nan)[m].astype(np.float32),
+                        np.where(vc > 0, vs, float(np.iinfo(np.int64).min))
+                        [m].astype(np.int64), n[m].astype(np.int64)))
+        return [np.concatenate(x) for x in zip(*out)]
+
+
+def ag_snapshot(np, agg, dur, sym_of, lo=None):
+    """The port's buckets of `dur` (at or after `lo`) as AggModel.rows
+    gives them: symbol ids mapped to indexes, sorted by (bucket,
+    symbol)."""
+    ts, cols = agg.snapshot_rows(dur, None)
+    if lo is not None:
+        m = ts >= lo
+        ts, cols = ts[m], [c[m] for c in cols]
+    sym = sym_of[cols[1]]
+    o = np.lexsort((sym, ts))
+    return [ts[o], sym[o].astype(np.int64)] + [c[o] for c in cols[2:]]
+
+
+def ag_equal(np, torch, got, want, what):
+    if [len(x) for x in got] != [len(x) for x in want]:
+        fail(f"{what}: {len(got[0])} buckets, expected {len(want[0])}")
+    for j, (a, b) in enumerate(zip(got, want)):
+        float_err(torch, torch.from_numpy(np.ascontiguousarray(a)),
+                  torch.from_numpy(np.ascontiguousarray(b)),
+                  f"{what} column {j}")
+
+
+def compare_agg(torch, np, dev):
+    """Phase 53: K27 and K28 against their plain versions on the card from
+    the same inputs (exact, NaN equal to NaN and -0.0 apart from +0.0):
+    K27 on AGX_QL's plan (random rows with nulls of each type, +-inf,
+    -0.0, padding and EXPIRED rows; every row filtered out; an empty
+    batch; a TIMER-only batch) and on AG1's at 131,072 rows; K28 on
+    random slots with -1, +-inf and -0.0, one hot slot of 4,096 rows whose
+    sum depends on its order, and AG1's shapes (6 durations x 7 bases x
+    2^20 buckets).  Returns (max error, AG1's K27 spec)."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core import event as ev
+    m = agg_modules()
+    k27, k28 = m["agg_base"], m["agg_merge"]
+    err = 0.0
+    agx = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        AGX_QL).aggregations["A"]
+    rng = np.random.default_rng(153)
+    cases = [(AG_B, AG_B - 5, None), (AG_B, AG_B, None), (64, 0, None),
+             (1024, 1024, ev.TIMER)]
+    for B, nv, kind in cases:
+        ts, k, valid, cols = agx_batch(np, rng, B, nv, ev, kind)
+        if kind is None and nv == B:
+            cols[5][:] = False                  # every row filtered out
+        b = ev.StagedBatch(ts, k, valid, cols, B).to_device(agx.in_schema,
+                                                            dev)
+        ka, va = k27.launch(agx.spec, b)
+        kb, vb = k27.plain(agx.spec, b, 1000)
+        err = max(err, float_err(torch, ka, kb, f"K27 keep ({B}, {nv})"),
+                  float_err(torch, va, vb, f"K27 vals ({B}, {nv})"))
+    ag1 = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        AG1_QL.format(cap=AG_CAP, emit=1 << 18, lo=AGJ_LO, hi=AGJ_HI)
+    ).aggregations["TradeAggregation"]
+    sym, price, vol, ts = ag1_send(np, 0)
+    b = ev.StagedBatch(ts, np.zeros(AG_B, np.int32), np.ones(AG_B, bool),
+                       [sym, price, vol, ts], AG_B).to_device(
+                           ag1.in_schema, dev)
+    ka, va = k27.launch(ag1.spec, b)
+    kb, vb = k27.plain(ag1.spec, b, 0)
+    err = max(err, float_err(torch, ka, kb, "K27 keep (AG1)"),
+              float_err(torch, va, vb, "K27 vals (AG1)"))
+
+    def merge_case(D, nb, cap, slots, vals, kinds, what):
+        nonlocal err
+        base = torch.from_numpy(rng.normal(0, 1e3, (D, nb, cap))).to(dev)
+        base[:, :, :7] = torch.tensor([np.inf, -np.inf, -0.0, 0.0, 1e16,
+                                       -1e16, 1.0], dtype=torch.float64)
+        a, p = base.clone(), base.clone()
+        s = torch.from_numpy(slots).to(dev)
+        v = torch.from_numpy(vals).to(dev)
+        k28.launch(a, s, v, kinds)
+        k28.plain(p, s, v, kinds)
+        err = max(err, float_err(torch, a, p, f"K28 slab ({what})"))
+        if not torch.equal(torch.signbit(a), torch.signbit(p)):
+            fail(f"K28 slab ({what}): signs of zero differ")
+    kinds = ["sum", "count", "min", "max", "sum", "min", "max"]
+    B = 8192
+    vals = rng.normal(0, 1e16, (7, B)) * (rng.random((7, B)) < 0.5) + \
+        rng.integers(-3, 3, (7, B))
+    for x, p in ((np.inf, 0.02), (-np.inf, 0.02), (-0.0, 0.05)):
+        vals[rng.random((7, B)) < p] = x
+    slots = rng.integers(-1, 64, (3, B)).astype(np.int32)
+    merge_case(3, 7, 256, slots, vals, kinds, "random, slot -1")
+    hot = np.zeros((1, 4096), np.int32)
+    hv = np.tile(np.array([1.0, 1e16, 1.0, -1e16]), 1024)[None, :].repeat(
+        7, 0)
+    merge_case(1, 7, 16, hot, hv, kinds, "one slot, order-sensitive sum")
+    merge_case(2, 7, 16, np.full((2, 0), 0, np.int32), np.zeros((7, 0)),
+               kinds, "empty")
+    merge_case(6, 7, AG_CAP, ag1_slots(np, 6), va.cpu().numpy(), ag1.kinds,
+               "AG1 shapes")
+    print(f"compare: K27 == plain on {len(cases) + 1} batches, K28 == plain "
+          f"on 4 merges (AG1's at 6 x 7 x 2^20), max_abs_err {err}")
+    return err, ag1, b
+
+
+def ag1_slots(np, D):
+    """K28's slots at an AG1 send: per duration the buckets of the send's
+    4,096 symbols (32 rows each), as a steady send touches them."""
+    sym = np.random.default_rng(157).integers(0, AG_SYMS, AG_B)
+    return np.stack([(d * 100_003 + 17 * sym) % AG_CAP
+                     for d in range(D)]).astype(np.int32)
+
+
+def time_agg(torch, np, dev, ag1, batch):
+    """Phase 54: K27 and K28 at AG1's shapes (CUDA-graph replays), their
+    plain versions, their bounds, and as K28's library yardstick one
+    `scatter_reduce_` per (base, duration)."""
+    m = agg_modules()
+    k27, k28 = m["agg_base"], m["agg_merge"]
+    spec, kinds = ag1.spec, ag1.kinds
+    res = {}
+    t = {"ms": graph_ms(torch, lambda: k27.launch(spec, batch), 20),
+         "plain_ms": event_timer(torch, lambda: k27.plain(spec, batch, 0),
+                                 5)}
+    nb = len(spec.modes)
+    # kind, valid and the two loaded columns read; keep and vals written
+    t.update(bound(AG_B * (4 + 1 + 4 + 8) + AG_B * (1 + 8 * nb),
+                   AG_B * sum(len(c) for c in spec.vcodes)))
+    t["library_ms"] = None
+    res["agg_base"] = t
+    _, vals = k27.launch(spec, batch)
+    D = len(ag1.durations)
+    slab = torch.zeros((D, nb, AG_CAP), dtype=torch.float64, device=dev)
+    slots = torch.from_numpy(ag1_slots(np, D)).to(dev)
+    t = {"ms": graph_ms(torch, lambda: k28.launch(slab, slots, vals, kinds),
+                        20),
+         "plain_ms": event_timer(torch, lambda: k28.plain(slab, slots, vals,
+                                                          kinds), 3)}
+    t.update(bound(D * AG_B * 4 + nb * AG_B * 8 + 2 * 8 * nb * D * AG_SYMS))
+    idx = slots.to(torch.int64)
+    red = {"sum": "sum", "count": "sum", "min": "amin", "max": "amax"}
+
+    def library():
+        for d in range(D):
+            for b, k in enumerate(kinds):
+                slab[d, b].scatter_reduce_(0, idx[d], vals[b], red[k])
+    t["library_ms"] = event_timer(torch, library, 5)
+    res["agg_merge"] = t
+    for name, r in res.items():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms ({D * nb} scatter_reduce_ calls, " \
+            f"one per (duration, base), in the library's own sum order)"
+        print(f"kernel {name}: {r['ms']:.4f} ms at AG1's send (graph "
+              f"replay), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} "
+              f"bytes), library {lib}")
+    return res
+
+
+def run_ag1(torch, np, dev, sends=AG_SENDS, syms=AG_SYMS, B=AG_B,
+            cap=AG_CAP, check=True):
+    """AG1: the guide's TradeAggregation at 4,096 symbols, 160 sends of
+    131,072 trades, 1 s of event time a send, 1% null prices and volumes;
+    every (symbol, second) bucket the 120 s retention keeps and every
+    (symbol, minute) bucket held to AggModel (f64 equal), the launches
+    of K27 / K28 with the plain versions never called.  Then AGJ1 on its
+    state: 16 sends of 4,096 requests joined with the last 60 s of
+    seconds, each send's count and one send's rows against the model, and
+    an on-demand read per "hours".  Returns the launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    m = agg_modules()
+    for mo in list(m.values()) + list(nw_modules().values()):
+        mo.reset_counts()
+    mgr = SiddhiManager(device=dev)
+    lo, hi = (sends - 60) * 1000, sends * 1000
+    rt = mgr.create_siddhi_app_runtime(AG1_QL.format(
+        cap=cap, emit=1 << max(10, (60 * syms - 1).bit_length()), lo=lo,
+        hi=hi))
+    ids = np.array([mgr.interner.intern(f"S{j:04d}") for j in range(syms)],
+                   np.int32)
+    sym_of = np.zeros(int(ids.max()) + 1, np.int64)
+    sym_of[ids] = np.arange(syms)
+    agg = rt.aggregations["TradeAggregation"]
+    joined = []
+    rt.add_batch_callback("agj1", lambda ts, p: joined.append(p))
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    model = AggModel(np, syms)
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(sends):
+        sym, price, vol, ts = ag1_send(np, i, syms, B)
+        tb = time.perf_counter()
+        h.send_columns([ids[sym], price, vol, ts], timestamps=ts)
+        lat.append(time.perf_counter() - tb)
+        if check:
+            model.send(sym, price, vol, i)
+    rt.flush()
+    wall = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in m.items()}
+    plain = {k: mo.plain_calls for k, mo in m.items()}
+    check_launched("AG1", launches, plain, ("agg_base", "agg_merge"))
+    lat_line(np, f"AG1 (TradeAggregation, {syms} symbols, 6 durations)",
+             lat, wall, sends * B, B * (4 + 4 + 8 + 8))
+    if check:
+        last_purge = ((sends - 1) * 1000 + 999) // AG_PURGE * AG_PURGE
+        cut = last_purge - AG_SEC_KEEP
+        for dur, lo_ in (("SECONDS", cut), ("MINUTES", None)):
+            ag_equal(np, torch, ag_snapshot(np, agg, dur, sym_of, lo_),
+                     model.rows(dur, lo_), f"AG1 {dur}")
+        n_sec = len(agg._dstores["SECONDS"].alloc)
+        print(f"AG1: every (symbol, second) bucket since {cut} ms "
+              f"({n_sec} buckets after the purges, slots recycled) and every "
+              f"(symbol, minute) bucket equal to numpy (f64 sums in row "
+              f"order)")
+    # AGJ1 on AG1's state
+    rh = rt.get_input_handler("StockStream")
+    req = [ids]
+    lat, per = [], []
+    t0 = time.perf_counter()
+    for j in range(AGJ_TIMED):
+        tb = time.perf_counter()
+        rh.send_columns(req, timestamps=np.full(syms, hi + j, np.int64))
+        lat.append(time.perf_counter() - tb)
+    rt.flush()
+    wall = time.perf_counter() - t0
+    per = [p["n_current"] for p in joined]
+    want_n = min(60, sends) * syms
+    if per != [want_n] * AGJ_TIMED:
+        fail(f"AGJ1: joined rows a send {per}, expected {want_n}")
+    if check:
+        c = joined[-1]["cols"]
+        v = joined[-1]["valid"]
+        sym = sym_of[c["symbol"][v]]
+        got = [c["bucket"][v], sym.astype(np.int64), c["total"][v],
+               c["n"][v]]
+        o = np.lexsort((got[1], got[0]))
+        got = [x[o] for x in got]
+        want = model.rows("SECONDS", lo)
+        keep = want[0] < hi
+        ag_equal(np, torch, got, [want[0][keep], want[1][keep],
+                                  want[3][keep], want[7][keep]], "AGJ1 rows")
+    lat_line(np, f"AGJ1 ({syms} requests a send joined with 60 s of "
+             f"seconds)", lat, wall, AGJ_TIMED * syms, syms * (4 + 8 + 4))
+    prof = device_profile(torch, rt, 2, lambda b: rh.send_columns(
+        req, timestamps=np.full(syms, hi + AGJ_TIMED + b, np.int64)))
+    profile_line("AGJ1", 2, prof)
+    ond = rt.query('from TradeAggregation within 0L, 3600000L per "hours" '
+                   'select symbol, total, n')
+    if check:
+        ws = model.rows("HOURS")
+        got = sorted((int(sym_of[mgr.interner.intern(e.data[0])]),
+                      e.data[1], e.data[2]) for e in ond)
+        want = [(int(s), float(t), int(n)) for s, t, n in
+                zip(ws[1], ws[3], ws[7])]
+        if len(got) != len(want) or any(
+                g[0] != w[0] or g[2] != w[2] or np.float32(g[1]) !=
+                np.float32(w[1]) for g, w in zip(got, want)):
+            fail(f"AGJ1 on-demand per hours: {got[:3]} vs {want[:3]}")
+        print(f"AGJ1: {AGJ_TIMED} sends of {want_n} joined rows, the last "
+              f"send's rows equal to numpy; on-demand per hours: {len(got)} "
+              f"rows equal to numpy")
+    extra = [ag1_send(np, sends + b, syms, B) for b in range(4)]
+    prof = device_profile(torch, rt, 4, lambda b: h.send_columns(
+        [ids[extra[b][0]]] + list(extra[b][1:]), timestamps=extra[b][3]))
+    profile_line("AG1", 4, prof)
+    mgr.shutdown()
+    return launches
+
+
+def nw1_send(np, j, rooms=NW_ROOMS, devices=NW_DEVICES, B=NW_B):
+    """NW1's send j: B readings at ts j s, every device B / devices
+    times, room = device % rooms, temp 20 + room % 10 + (j % 4) / 2."""
+    dev_ = (np.arange(B) % devices).astype(np.int64)
+    room = (dev_ % rooms).astype(np.int32)
+    temp = (20 + room % 10 + 0.5 * (j % 4)).astype(np.float32)
+    return [room, dev_, temp], np.full(B, j * 1000, np.int64)
+
+
+def run_nw1(torch, np, dev, sends=NW_SENDS, rooms=NW_ROOMS,
+            devices=NW_DEVICES, B=NW_B):
+    """NW1 and TR1: the guide's shared time(10 sec) window fed 131,072
+    readings a second (2^16 devices, 4,096 rooms), about 1.31M rows alive;
+    its reader's last rows per room held to the closed form after the last
+    send; a trigger every second joined with it: each trigger's pair count
+    and the last trigger's pairs (each room's rows and temperatures) held
+    to the closed form.  K1, K2, K4 and K7 launched, the plain versions
+    never called.  Returns the launches."""
+    from siddhi_tpu_torch import SiddhiManager
+    mods = nw_modules()
+    for mo in mods.values():
+        mo.reset_counts()
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(NW1_QL)
+    last, ticks = [], []
+    rt.add_batch_callback("nw1", lambda ts, p: last.__setitem__(
+        slice(None), [p]))
+    rt.add_batch_callback("tr1", lambda ts, p: ticks.append(
+        (ts, p["n_current"], p)))
+    rt.start()
+    h = rt.get_input_handler("TempStream")
+    lat = []
+    t0 = time.perf_counter()
+    for j in range(1, sends + 1):
+        cols, ts = nw1_send(np, j, rooms, devices, B)
+        tb = time.perf_counter()
+        h.send_columns(cols, timestamps=ts)
+        lat.append(time.perf_counter() - tb)
+    rt.flush()
+    wall = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    check_launched("NW1 / TR1", launches, plain, tuple(mods))
+    lat_line(np, f"NW1 (time(10 sec) named window, {rooms} rooms, "
+             f"{devices} devices) with TR1", lat, wall, sends * B,
+             B * (4 + 8 + 4 + 8))
+    # the reader's last row of each room: the window after the last send
+    p = last[0]
+    c, v = p["cols"], p["valid"]
+    cur = v & (p["kind"] == 0)
+    room, avg, n = c["roomNo"][cur], c["avgTemp"][cur], c["n"][cur]
+    idx = np.zeros(rooms, np.int64)
+    np.maximum.at(idx, room, np.arange(room.shape[0]))  # each room's last
+    alive = range(max(1, sends - 9), sends + 1)
+    per = B // rooms
+    r = np.arange(rooms)
+    exp_n = per * len(alive)
+    exp_avg = sum(20 + r % 10 + 0.5 * (j % 4) for j in alive) / len(alive)
+    got_avg = avg[idx].astype(np.float64)
+    if not np.array_equal(n[idx], np.full(rooms, exp_n)) or \
+            np.abs(got_avg - exp_avg).max() > 1e-6 * exp_avg.max():
+        fail(f"NW1 reader: counts {n[idx][:4]}, avg {got_avg[:4]}, "
+             f"expected {exp_n}, {exp_avg[:4]}")
+    for ts_, nc, pay in ticks:
+        T = ts_ // 1000
+        # the window's expiry at T runs first (its timer entry for T is
+        # older than the trigger's): sends T - 9 .. T - 1 are alive
+        alive = [j for j in range(1, sends + 1) if T - 9 <= j <= T - 1]
+        if nc != len(alive) * B:
+            fail(f"TR1 trigger at {ts_}: {nc} pairs, expected "
+                 f"{len(alive) * B}")
+    T = ticks[-1][0]
+    alive = [j for j in range(1, sends + 1)
+             if T // 1000 - 9 <= j <= T // 1000 - 1]
+    c, v = ticks[-1][2]["cols"], ticks[-1][2]["valid"]
+    room, temp = c["roomNo"][v].astype(np.int64), c["temp"][v]
+    cnt = np.bincount(room, minlength=rooms)
+    tsum = np.bincount(room, weights=temp.astype(np.float64),
+                       minlength=rooms)
+    want = sum(20 + r % 10 + 0.5 * (j % 4) for j in alive) * per
+    if not (np.all(c["t"][v] == T) and np.array_equal(
+            cnt, np.full(rooms, per * len(alive))) and
+            np.array_equal(tsum, want)):
+        fail(f"TR1 trigger at {T}: pairs per room {cnt[:4]}, temp sums "
+             f"{tsum[:4]}, expected {per * len(alive)}, {want[:4]}")
+    print(f"NW1: each room's avg and count after the last send equal to the "
+          f"closed form ({exp_n} rows a room, "
+          f"{rt.named_windows['TempWindow'].state.C}-row ring); TR1: "
+          f"{len(ticks)} triggers, {ticks[-1][1]} pairs the last, every "
+          f"trigger's pair count and the last one's rows per room equal to "
+          f"the closed form")
+    t = time_nw1_step(torch, np, rt, sends + 1, rooms, devices, B)
+    print(f"NW1: the named window's steady step (K1 + K2: {B} arrivals, "
+          f"{B} expiring, {9 * B} kept) {t['ms']:.4f} ms (CUDA events, "
+          f"from a restored ring), plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes']} "
+          f"bytes)")
+    prof = device_profile(torch, rt, 4, lambda b: h.send_columns(
+        *nw1_send(np, sends + 1 + b, rooms, devices, B)))
+    profile_line("NW1 / TR1", 4, prof)
+    mgr.shutdown()
+    return launches
+
+
+def time_nw1_step(torch, np, rt, j, rooms, devices, B):
+    """The named window's step on send j (K1 + K2, from a copy of the ring
+    the last send left, restored outside the timed calls), its plain
+    versions', and the bytes it must move: the arrivals read and written
+    into the ring, the expiring rows read, the output rows written."""
+    from siddhi_tpu_torch.core import event as ev
+    from siddhi_tpu_torch.core.window import BatchFacts, Rows
+    from siddhi_tpu_torch.kernels import filter_compact as fc
+    from siddhi_tpu_torch.kernels import time_window as tw
+    nw = rt.named_windows["TempWindow"]
+    snap = nw.state.clone()
+    cols, ts = nw1_send(np, j, rooms, devices, B)
+    staged = ev.StagedBatch(ts, np.zeros(B, np.int32), np.ones(B, bool),
+                            cols, B)
+    batch = staged.to_device(nw.schema, nw.device)
+    facts = BatchFacts(ts, B, staged, staged.valid)
+    rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid, seq=None,
+                gslot=torch.zeros(B, dtype=torch.int32, device=nw.device),
+                cols=batch.cols)
+    box = {}
+
+    def restore():
+        box["st"] = snap.clone()
+    restore()                  # event_timer's warm call comes first
+
+    def step():
+        nw.wproc.process(box["st"], rows, nw._fspec, j * 1000, facts)
+    res = {"ms": event_timer(torch, step, 5, restore)}
+    launches = fc.launch, tw.launch
+    fc.launch = lambda spec, ts, kind, valid, gslot, cols, seq=None, \
+        keep_expired=False: fc.plain(spec, ts, kind, valid, gslot, cols, 0,
+                                     seq, keep_expired)
+    tw.launch = lambda st, arr, n_arr, now, t, b, cap_out, e_bound, *_: \
+        tw.plain(st, arr, n_arr, now, t, b, cap_out, e_bound)
+    try:
+        res["plain_ms"] = event_timer(torch, step, 3, restore)
+    finally:
+        fc.launch, tw.launch = launches
+    row = 8 + sum(c.element_size() for c in batch.cols)   # ts and columns
+    # arrivals in (kind, valid, gslot too) and into the ring (add_seq,
+    # expire_ts, gslot too), expiring rows out of it, 2B output rows
+    # (kind, valid, seq, gslot too)
+    res.update(bound(B * (row + 9) + 2 * B * (row + 20) +
+                     2 * B * (row + 17)))
+    return res
+
+
+def nw_run(mgr, ql, queries, sends, reads=(), window_cb=None):
+    """One small named-window case: each named query's callbacks as (now,
+    [(ts, current row)], [(ts, expired row)]), the window's stream
+    callback batches and the on-demand results' rows."""
+    rt = mgr.create_siddhi_app_runtime(ql)
+    got = {q: [] for q in queries}
+    for q in queries:
+        rt.add_callback(q, lambda ts, i, o, _q=q: got[_q].append(
+            (ts, [(e.timestamp, tuple(e.data)) for e in i or []],
+             [(e.timestamp, tuple(e.data)) for e in o or []])))
+    seen = []
+    if window_cb is not None:
+        rt.add_callback(window_cb, lambda evs: seen.append(
+            [(e.timestamp, tuple(e.data)) for e in evs]))
+    rt.start()
+    for stream, rows, ts in sends:
+        rt.get_input_handler(stream).send(rows, timestamp=ts)
+    rt.flush()
+    ond = [[tuple(e.data) for e in rt.query(q)] for q in reads]
+    mgr.shutdown()
+    return got, seen, ond
+
+
+def run_x14(torch, np, dev):
+    """Phase 56: X14 (every window kind as a named window, read, joined
+    and read on demand) against the JAX package's events, and the
+    bidirectional named-window join on the card against its plain run
+    (the same app on the CPU, every step a plain version)."""
+    from siddhi_tpu_torch import SiddhiManager
+    for name, ql, queries, sends, reads, want in X14_CASES:
+        got = nw_run(SiddhiManager(device=dev), ql, queries, sends, reads,
+                     "W")
+        if got != want:
+            fail(f"X14 {name}: {got}, expected {want}")
+    bidir = X14_JOIN_QL.format(uni="")
+    a = nw_run(SiddhiManager(device=dev), bidir, ["q"], X14_JOIN_SENDS)
+    b = nw_run(SiddhiManager(device="cpu"), bidir, ["q"], X14_JOIN_SENDS)
+    if a != b:
+        fail(f"bidirectional named-window join: card {a}, plain {b}")
+    print(f"X14: {len(X14_CASES)} cases give the JAX package's events; the "
+          f"bidirectional named-window join on the card equals its plain "
+          f"run ({sum(len(c) for _, c, _ in a[0]['q'])} pairs)")
+
+
+def slice14_phases(torch, np, dev):
+    """Phases 53-56: K27 and K28 against their plain versions, their
+    times, AG1 / AGJ1 and NW1 / TR1 through SiddhiManager, X14.  Returns
+    the K27 and K28 kernel records."""
+    t0 = time.perf_counter()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 14 {what}: {time.perf_counter() - t0:.1f} s")
+    err, ag1, batch = compare_agg(torch, np, dev)
+    took("phase 53 done")
+    res = time_agg(torch, np, dev, ag1, batch)
+    del ag1, batch
+    took("phase 54 done")
+    launches = run_ag1(torch, np, dev)
+    took("AG1 / AGJ1 done")
+    run_nw1(torch, np, dev)
+    took("NW1 / TR1 done")
+    run_x14(torch, np, dev)
+    took("phase 56 done")
+    replaces = {"agg_base": "siddhi_tpu/core/aggregation.py:483",
+                "agg_merge": "siddhi_tpu/core/aggregation.py:510"}
+    return [{"name": k, "route": "cuda",
+             "source": f"siddhi_tpu_torch/csrc/{k}.cu",
+             "replaces": replaces[k], "launches": launches[k],
+             "max_abs_err": err, "ms": res[k]["ms"],
+             "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound_ms"],
+             "bound_by": res[k]["bound_by"],
+             "library_ms": res[k]["library_ms"]} for k in replaces]
+
+
+# X14: every window kind the JAX package probes as a named window (cron,
+# whose named window the JAX package never flushes, is held apart in the
+# CPU tests), read by a grouped reader, probed by a unidirectional join and
+# read on demand, and the named-window join apps of
+# tests/test_named_window_join.py; _X14_WANT holds the JAX package's
+# events (nw_run), recomputed for some cases by the CPU tests.
+X14_KIND_QL = """@app:playback
+define stream In (k string, v int, ts long);
+define stream Req (k string);
+define window W (k string, v int, ts long) {kind} output all events;
+@info(name='ins') from In select * insert into W;
+@info(name='r') from W select k, sum(v) as s, count() as n group by k
+insert into R;
+"""
+X14_KIND_JOIN = """
+@info(name='j') from Req unidirectional join W on Req.k == W.k
+select W.k as k, W.v as v, W.ts as ts insert into J;
+"""
+X14_KIND_SENDS = [
+    ("In", [["a", 1, 1000], ["b", 2, 1000]], 1000),
+    ("In", [["a", 3, 1500]], 1500),
+    ("Req", [["a"], ["b"]], 1600),
+    ("In", [["b", 4, 2100], ["a", 5, 2200], ["a", 6, 1900]], 2200),
+    ("Req", [["a"]], 2300),
+    ("In", [["c", 7, 3600]], 3600),
+    ("Req", [["a"], ["b"], ["c"]], 3700),
+    ("In", [["a", 8, 5200], ["c", 2, 5200]], 5200),
+    ("Req", [["a"], ["c"]], 5300),
+]
+X14_READS = ["from W select *", "from W on v > 2 select k, v",
+             "from W select k, count() as n group by k"]
+X14_KINDS = ["length(3)", "time(1 sec)", "lengthBatch(3)",
+             "timeBatch(1 sec)", "externalTime(ts, 1 sec)",
+             "externalTimeBatch(ts, 1 sec)", "timeLength(1 sec, 3)",
+             "delay(1 sec)", "batch()", "sort(3, v, 'asc')",
+             "session(1 sec)", "hopping(2 sec, 1 sec)",
+             "expression('count() <= 3')",
+             "expressionBatch('count() <= 3')"]
+X14_JOIN_QL = """@app:playback
+define stream S (sym string, qty int);
+define stream F (sym string, price double);
+define window W (sym string, price double) length(8);
+@info(name='feed') from F select sym, price insert into W;
+@info(name='q')
+from S#window.length(8) {uni} join W on S.sym == W.sym
+select S.sym as sym, qty, price insert into Out;
+"""
+X14_JOIN_SENDS = [("S", [["a", 5]], 1000), ("F", [["a", 9.5]], 1001),
+                  ("S", [["a", 6], ["b", 1]], 1002),
+                  ("F", [["a", 2.0], ["b", 3.0]], 1003),
+                  ("S", [["a", 3]], 1004), ("F", [["b", 1.0]], 1005)]
+X14_TABLE_QL = """@app:playback
+define stream F (sym string, price double);
+define table T (sym string, fee double);
+define stream TI (sym string, fee double);
+@info(name='tw') from TI insert into T;
+define window W (sym string, price double) length(8);
+@info(name='feed') from F select sym, price insert into W;
+@info(name='q')
+from W join T on W.sym == T.sym
+select W.sym as sym, price, fee insert into Out;
+"""
+_X14_SPECS = [(kind, X14_KIND_QL.format(kind=kind) + X14_KIND_JOIN,
+               ["r", "j"], X14_KIND_SENDS, X14_READS)
+              for kind in X14_KINDS] + [
+    ("bidirectional join", X14_JOIN_QL.format(uni=""), ["q"],
+     X14_JOIN_SENDS, ["from W select *"]),
+    ("unidirectional join", X14_JOIN_QL.format(uni="unidirectional"),
+     ["q"], X14_JOIN_SENDS, ()),
+    ("window joins a table", X14_TABLE_QL, ["q"],
+     [("TI", [["a", 0.5], ["b", 0.25]], 999),
+      ("F", [["a", 10.0], ["c", 1.0]], 1000), ("F", [["b", 4.0]], 1001)],
+     ["from W on price > 2.0 select sym, price"])]
+
+_X14_WANT = [({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))], []),
+         (3700,
+          [(3700, ('a', 5, 2200)), (3700, ('a', 6, 1900)),
+           (3700, ('c', 7, 3600))],
+          []),
+         (5300,
+          [(5300, ('a', 8, 5200)), (5300, ('c', 7, 3600)),
+           (5300, ('c', 2, 5200))],
+          [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2200,
+          [(2200, ('b', 6, 2)), (2200, ('a', 8, 2)), (2200, ('a', 11, 2))],
+          [(1000, ('a', 3, 1)), (1000, ('b', 4, 1)), (1500, ('a', 5, 1))]),
+         (3600, [(3600, ('c', 7, 1))], [(2200, ('b', None, 0))]),
+         (5200, [(5200, ('a', 14, 2)), (5200, ('c', 9, 2))],
+          [(2200, ('a', 6, 1)), (2200, ('a', 8, 1))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(1000, ('a', 1, 1000)), (2200, ('b', 4, 2100)), (1000, ('b', 2, 1000)),
+    (2200, ('a', 5, 2200)), (1500, ('a', 3, 1500)), (2200, ('a', 6, 1900))],
+   [(2200, ('b', 4, 2100)), (3600, ('c', 7, 3600))],
+   [(2200, ('a', 5, 2200)), (5200, ('a', 8, 5200)), (2200, ('a', 6, 1900)),
+    (5200, ('c', 2, 5200))]],
+  [[('c', 7, 3600), ('a', 8, 5200), ('c', 2, 5200)], [('c', 7), ('a', 8)],
+   [('a', 1), ('c', 2)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300,
+          [(2300, ('a', 3, 1500)), (2300, ('a', 5, 2200)),
+           (2300, ('a', 6, 1900))],
+          []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2000, [], [(2000, ('a', 3, 1)), (2000, ('b', None, 0))]),
+         (2200,
+          [(2200, ('b', 4, 1)), (2200, ('a', 8, 2)), (2200, ('a', 14, 3))],
+          []),
+         (2500, [], [(2500, ('a', 11, 2))]),
+         (3200, [],
+          [(3200, ('b', None, 0)), (3200, ('a', 6, 1)),
+           (3200, ('a', None, 0))]),
+         (3600, [(3600, ('c', 7, 1))], []),
+         (4600, [], [(4600, ('c', None, 0))]),
+         (5200, [(5200, ('a', 8, 1)), (5200, ('c', 2, 1))], [])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(2000, ('a', 1, 1000)), (2000, ('b', 2, 1000))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(2500, ('a', 3, 1500))],
+   [(3200, ('b', 4, 2100)), (3200, ('a', 5, 2200)), (3200, ('a', 6, 1900))],
+   [(3600, ('c', 7, 3600))], [(4600, ('c', 7, 3600))],
+   [(5200, ('a', 8, 5200)), (5200, ('c', 2, 5200))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(3700, [(3700, ('c', 7, 3600))], [])],
+   'r': [(1500,
+          [(1000, ('a', 1, 1)), (1000, ('b', 2, 1)), (1500, ('a', 4, 2))],
+          []),
+         (2200,
+          [(2200, ('b', 4, 1)), (2200, ('a', 5, 1)), (2200, ('a', 11, 2))],
+          [(1000, ('a', 3, 1)), (1000, ('b', None, 0)),
+           (1500, ('a', None, 0))]),
+         (5200,
+          [(3600, ('c', 7, 1)), (5200, ('a', 8, 1)), (5200, ('c', 9, 2))],
+          [(2200, ('b', None, 0)), (2200, ('a', 6, 1)),
+           (2200, ('a', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (3600, ('c', 7, 3600)), (5200, ('a', 8, 5200)), (5200, ('c', 2, 5200))]],
+  [[], [], []]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))], []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(2000,
+          [(1000, ('a', 1, 1)), (1000, ('b', 2, 1)), (1500, ('a', 4, 2))],
+          []),
+         (3000,
+          [(2200, ('b', 4, 1)), (2200, ('a', 5, 1)), (2200, ('a', 11, 2))],
+          [(1000, ('a', 3, 1)), (1000, ('b', None, 0)),
+           (1500, ('a', None, 0))]),
+         (4000, [(3600, ('c', 7, 1))],
+          [(2200, ('b', None, 0)), (2200, ('a', 6, 1)),
+           (2200, ('a', None, 0))]),
+         (5000, [], [(3600, ('c', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (3600, ('c', 7, 3600))],
+   [(3600, ('c', 7, 3600))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300,
+          [(2300, ('a', 3, 1500)), (2300, ('a', 6, 1900)),
+           (2300, ('a', 5, 2200))],
+          []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2200,
+          [(2200, ('a', 10, 3)), (2200, ('b', 4, 1)), (2200, ('a', 14, 3))],
+          [(2000, ('a', 9, 2)), (2000, ('b', None, 0))]),
+         (3600, [(3600, ('c', 7, 1))],
+          [(2500, ('a', 11, 2)), (2900, ('a', 5, 1)), (3100, ('b', None, 0)),
+           (3200, ('a', None, 0))]),
+         (5200, [(5200, ('a', 8, 1)), (5200, ('c', 2, 1))],
+          [(4600, ('c', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(2200, ('a', 6, 1900)), (2000, ('a', 1, 1000)), (2000, ('b', 2, 1000)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200))],
+   [(2500, ('a', 3, 1500)), (2900, ('a', 6, 1900)), (3100, ('b', 4, 2100)),
+    (3200, ('a', 5, 2200)), (3600, ('c', 7, 3600))],
+   [(4600, ('c', 7, 3600)), (5200, ('a', 8, 5200)), (5200, ('c', 2, 5200))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 5, 2200))], []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(2200,
+          [(1000, ('a', 1, 1)), (1000, ('b', 2, 1)), (1500, ('a', 4, 2)),
+           (2200, ('a', 10, 3))],
+          []),
+         (3600, [(2200, ('b', 4, 1)), (2200, ('a', 5, 1))],
+          [(1000, ('a', 9, 2)), (1000, ('b', None, 0)), (1500, ('a', 6, 1)),
+           (2200, ('a', None, 0))]),
+         (5200, [(3600, ('c', 7, 1))],
+          [(2200, ('b', None, 0)), (2200, ('a', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('a', 6, 1900))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('a', 6, 1900)), (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (3600, ('c', 7, 3600))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))], []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2000, [], [(2000, ('a', 3, 1)), (2000, ('b', None, 0))]),
+         (2200,
+          [(2200, ('b', 4, 1)), (2200, ('a', 5, 1)), (2200, ('a', 11, 2))],
+          [(2200, ('a', None, 0))]),
+         (3200, [],
+          [(3200, ('b', None, 0)), (3200, ('a', 6, 1)),
+           (3200, ('a', None, 0))]),
+         (3600, [(3600, ('c', 7, 1))], []),
+         (4600, [], [(4600, ('c', None, 0))]),
+         (5200, [(5200, ('a', 8, 1)), (5200, ('c', 2, 1))], [])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(2000, ('a', 1, 1000)), (2000, ('b', 2, 1000))],
+   [(2200, ('a', 3, 1500)), (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)),
+    (2200, ('a', 6, 1900))],
+   [(3200, ('b', 4, 2100)), (3200, ('a', 5, 2200)), (3200, ('a', 6, 1900))],
+   [(3600, ('c', 7, 3600))], [(4600, ('c', 7, 3600))],
+   [(5200, ('a', 8, 5200)), (5200, ('c', 2, 5200))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300,
+          [(2300, ('a', 3, 1500)), (2300, ('a', 5, 2200)),
+           (2300, ('a', 6, 1900))],
+          []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(2000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (2500, [(1500, ('a', 4, 2))], []),
+         (3200,
+          [(2200, ('b', 6, 2)), (2200, ('a', 9, 3)), (2200, ('a', 15, 4))],
+          []),
+         (4600, [(3600, ('c', 7, 1))], [])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(3600, ('c', 7, 3600))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600, [(1600, ('a', 3, 1500))], []),
+         (2300, [(2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))], []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 3, 1))],
+          [(1000, ('a', None, 0)), (1000, ('b', None, 0))]),
+         (2200,
+          [(2200, ('b', 4, 1)), (2200, ('a', 5, 1)), (2200, ('a', 11, 2))],
+          [(1500, ('a', None, 0))]),
+         (3600, [(3600, ('c', 7, 1))],
+          [(2200, ('b', None, 0)), (2200, ('a', 6, 1)),
+           (2200, ('a', None, 0))]),
+         (5200, [(5200, ('a', 8, 1)), (5200, ('c', 2, 1))],
+          [(3600, ('c', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500))],
+   [(1500, ('a', 3, 1500)), (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)),
+    (2200, ('a', 6, 1900))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (3600, ('c', 7, 3600))],
+   [(3600, ('c', 7, 3600)), (5200, ('a', 8, 5200)), (5200, ('c', 2, 5200))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 1, 1000)), (2300, ('a', 3, 1500))], []),
+         (3700,
+          [(3700, ('a', 1, 1000)), (3700, ('a', 3, 1500)),
+           (3700, ('b', 2, 1000))],
+          []),
+         (5300, [(5300, ('a', 1, 1000)), (5300, ('c', 2, 5200))], [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2200,
+          [(2200, ('b', 6, 2)), (2200, ('a', 9, 3)), (2200, ('a', 15, 4))],
+          [(2200, ('b', 2, 1)), (2200, ('a', 10, 3)), (2200, ('a', 4, 2))]),
+         (3600, [(3600, ('c', 7, 1))], [(3600, ('c', None, 0))]),
+         (5200, [(5200, ('a', 12, 3)), (5200, ('c', 2, 1))],
+          [(1500, ('a', 9, 2)), (5200, ('a', 1, 1))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(3600, ('c', 7, 3600)), (3600, ('c', 7, 3600))],
+   [(5200, ('a', 8, 5200)), (5200, ('c', 2, 5200)), (1500, ('a', 3, 1500)),
+    (5200, ('a', 8, 5200))]],
+  [[('a', 1, 1000), ('b', 2, 1000), ('c', 2, 5200)], [],
+   [('a', 1), ('b', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300,
+          [(2300, ('a', 1, 1000)), (2300, ('a', 3, 1500)),
+           (2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))],
+          []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300, [(5300, ('a', 8, 5200)), (5300, ('c', 2, 5200))], [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2200,
+          [(2200, ('b', 6, 2)), (2200, ('a', 9, 3)), (2200, ('a', 15, 4))],
+          []),
+         (3200, [],
+          [(1000, ('a', 14, 3)), (1000, ('b', 4, 1)), (1500, ('a', 11, 2)),
+           (2200, ('b', None, 0)), (2200, ('a', 6, 1)),
+           (2200, ('a', None, 0))]),
+         (3600, [(3600, ('c', 7, 1))], []),
+         (4600, [], [(3600, ('c', None, 0))]),
+         (5200, [(5200, ('a', 8, 1)), (5200, ('c', 2, 1))], [])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(3600, ('c', 7, 3600))], [(3600, ('c', 7, 3600))],
+   [(5200, ('a', 8, 5200)), (5200, ('c', 2, 5200))]],
+  [[('a', 8, 5200), ('c', 2, 5200)], [('a', 8)], [('a', 1), ('c', 1)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300,
+          [(2300, ('a', 1, 1000)), (2300, ('a', 3, 1500)),
+           (2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))],
+          []),
+         (3700,
+          [(3700, ('a', 1, 1000)), (3700, ('a', 3, 1500)),
+           (3700, ('a', 5, 2200)), (3700, ('a', 6, 1900)),
+           (3700, ('b', 2, 1000)), (3700, ('b', 4, 2100)),
+           (3700, ('c', 7, 3600))],
+          []),
+         (5300,
+          [(5300, ('a', 8, 5200)), (5300, ('c', 7, 3600)),
+           (5300, ('c', 2, 5200))],
+          [])],
+   'r': [(2000,
+          [(1000, ('a', 1, 1)), (1000, ('b', 2, 1)), (1500, ('a', 4, 2))],
+          []),
+         (3000,
+          [(1000, ('a', 1, 1)), (1000, ('b', 2, 1)), (1500, ('a', 4, 2)),
+           (2200, ('b', 6, 2)), (2200, ('a', 9, 3)), (2200, ('a', 15, 4))],
+          [(1000, ('a', 3, 1)), (1000, ('b', None, 0)),
+           (1500, ('a', None, 0))]),
+         (4000,
+          [(2200, ('b', 4, 1)), (2200, ('a', 5, 1)), (2200, ('a', 11, 2)),
+           (3600, ('c', 7, 1))],
+          [(1000, ('a', 14, 3)), (1000, ('b', 4, 1)), (1500, ('a', 11, 2)),
+           (2200, ('b', None, 0)), (2200, ('a', 6, 1)),
+           (2200, ('a', None, 0))]),
+         (5000, [(3600, ('c', 7, 1))],
+          [(2200, ('b', None, 0)), (2200, ('a', 6, 1)), (2200, ('a', None, 0)),
+           (3600, ('c', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (3600, ('c', 7, 3600))],
+   [(2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900)),
+    (3600, ('c', 7, 3600)), (3600, ('c', 7, 3600))]],
+  [[('c', 7, 3600), ('a', 8, 5200), ('c', 2, 5200)], [('c', 7), ('a', 8)],
+   [('a', 1), ('c', 2)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))], []),
+         (3700,
+          [(3700, ('a', 5, 2200)), (3700, ('a', 6, 1900)),
+           (3700, ('c', 7, 3600))],
+          []),
+         (5300,
+          [(5300, ('a', 8, 5200)), (5300, ('c', 7, 3600)),
+           (5300, ('c', 2, 5200))],
+          [])],
+   'r': [(1000, [(1000, ('a', 1, 1)), (1000, ('b', 2, 1))], []),
+         (1500, [(1500, ('a', 4, 2))], []),
+         (2200,
+          [(2200, ('b', 6, 2)), (2200, ('a', 8, 2)), (2200, ('a', 11, 2))],
+          [(1000, ('a', 3, 1)), (1000, ('b', 4, 1)), (1500, ('a', 5, 1))]),
+         (3600, [(3600, ('c', 7, 1))], [(2200, ('b', None, 0))]),
+         (5200, [(5200, ('a', 14, 2)), (5200, ('c', 9, 2))],
+          [(2200, ('a', 6, 1)), (2200, ('a', 8, 1))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000))], [(1500, ('a', 3, 1500))],
+   [(1000, ('a', 1, 1000)), (2200, ('b', 4, 2100)), (1000, ('b', 2, 1000)),
+    (2200, ('a', 5, 2200)), (1500, ('a', 3, 1500)), (2200, ('a', 6, 1900))],
+   [(2200, ('b', 4, 2100)), (3600, ('c', 7, 3600))],
+   [(2200, ('a', 5, 2200)), (5200, ('a', 8, 5200)), (2200, ('a', 6, 1900)),
+    (5200, ('c', 2, 5200))]],
+  [[('c', 7, 3600), ('a', 8, 5200), ('c', 2, 5200)], [('c', 7), ('a', 8)],
+   [('a', 1), ('c', 2)]]),
+ ({'j': [(1600,
+          [(1600, ('a', 1, 1000)), (1600, ('a', 3, 1500)),
+           (1600, ('b', 2, 1000))],
+          []),
+         (2300, [(2300, ('a', 5, 2200)), (2300, ('a', 6, 1900))], []),
+         (3700, [(3700, ('c', 7, 3600))], []),
+         (5300,
+          [(5300, ('a', 8, 5200)), (5300, ('c', 7, 3600)),
+           (5300, ('c', 2, 5200))],
+          [])],
+   'r': [(2200,
+          [(1000, ('a', 1, 1)), (1000, ('b', 2, 1)), (1500, ('a', 4, 2))],
+          []),
+         (3600,
+          [(2200, ('b', 4, 1)), (2200, ('a', 5, 1)), (2200, ('a', 11, 2))],
+          [(1000, ('a', 3, 1)), (1000, ('b', None, 0)),
+           (1500, ('a', None, 0))])]},
+  [[(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500))],
+   [(1000, ('a', 1, 1000)), (1000, ('b', 2, 1000)), (1500, ('a', 3, 1500)),
+    (2200, ('b', 4, 2100)), (2200, ('a', 5, 2200)), (2200, ('a', 6, 1900))]],
+  [[('c', 7, 3600), ('a', 8, 5200), ('c', 2, 5200)], [('c', 7), ('a', 8)],
+   [('a', 1), ('c', 2)]]),
+ ({'q': [(1001, [(1001, ('a', 5, 9.5))], []),
+         (1002, [(1002, ('a', 6, 9.5))], []),
+         (1003,
+          [(1003, ('a', 5, 2.0)), (1003, ('a', 6, 2.0)),
+           (1003, ('b', 1, 3.0))],
+          []),
+         (1004, [(1004, ('a', 3, 9.5)), (1004, ('a', 3, 2.0))], []),
+         (1005, [(1005, ('b', 1, 1.0))], [])]},
+  [[(1001, ('a', 9.5))], [(1003, ('a', 2.0)), (1003, ('b', 3.0))],
+   [(1005, ('b', 1.0))]],
+  [[('a', 9.5), ('a', 2.0), ('b', 3.0), ('b', 1.0)]]),
+ ({'q': [(1002, [(1002, ('a', 6, 9.5))], []),
+         (1004, [(1004, ('a', 3, 9.5)), (1004, ('a', 3, 2.0))], [])]},
+  [[(1001, ('a', 9.5))], [(1003, ('a', 2.0)), (1003, ('b', 3.0))],
+   [(1005, ('b', 1.0))]],
+  []),
+ ({'q': [(1000, [(1000, ('a', 10.0, 0.5))], []),
+         (1001, [(1001, ('b', 4.0, 0.25))], [])]},
+  [[(1000, ('a', 10.0)), (1000, ('c', 1.0))], [(1001, ('b', 4.0))]],
+  [[('a', 10.0), ('b', 4.0)]])]
+X14_CASES = [spec + (want,) for spec, want in zip(_X14_SPECS, _X14_WANT)]
 
 
 if __name__ == "__main__":

@@ -53,6 +53,13 @@ seq) and hopping (Buffer, next, seq) as one block, externalTimeBatch
 a timeLength key's rows are put in add_seq order (the order its next
 step reads them in), its buffer keeps them in position order.
 
+Named windows: `named_window_from_jax` carries a JAX
+`NamedWindowRuntime`'s window state through the same per-kind converters
+(`window_state_from_jax`; a `length` window's compacted buffer becomes the
+port's `LengthRing`).  Aggregations: `aggregation_from_jax` carries each
+duration's allocator (mapping, free order and counters, so both list their
+buckets in one order) and slab into the port's `AggregationRuntime`.
+
 Tables: `table_from_jax` carries a JAX `TableRuntime`'s columns, ts,
 valid, append pointer, free rows, primary-key allocator and @Index lane
 tables into the port's table of the same definition; `table_to_numpy`
@@ -142,6 +149,29 @@ def ring_to_jax(ring) -> Tuple["Buffer", int]:
                   expire_ts=col(ring.expire_ts, BIG_SEQ),
                   alive=np.arange(C) < L, gslot=col(ring.gslot, -1),
                   cols=tuple(col(c, 0) for c in ring.cols)), seq
+
+
+def length_ring_from_jax(buf, seq, schema: ev.Schema, device=None):
+    """A JAX LengthWindow state (Buffer, the oldest alive row first, and
+    seq = twice the arrivals so far) -> the port's LengthRing: the alive
+    rows at logical positions [seq / 2 - L, seq / 2)."""
+    from .kernels.length_window import LengthRing
+    device = _dev(device)
+    alive = np.asarray(buf.alive)
+    L = int(alive.sum())
+    if not alive[:L].all():
+        raise ValueError("the JAX buffer is not a compact prefix")
+    C = alive.shape[0]
+    tail = int(seq) // 2
+    head = tail - L
+    pos = torch.from_numpy((head + np.arange(L)) % C).to(device)
+    ring = LengthRing.empty(schema, C, device)
+    for dst, src in ((ring.ts, buf.ts), (ring.gslot, buf.gslot),
+                     *zip(ring.cols, buf.cols)):
+        dst[pos] = _t(np.asarray(src)[:L], device, dst.dtype)
+    ring.meta.copy_(torch.tensor([head, tail, int(seq), 0],
+                                 dtype=torch.int64))
+    return ring
 
 
 def batch_state_from_jax(pend, prev, seq, schema: ev.Schema, n: int,
@@ -496,72 +526,105 @@ def query_state_from_jax(planned, jax_state, device=None):
     """A JAX single-stream QueryRuntime.state (window_state,
     selector_state) -> the port's, for the port's plan of the same
     query."""
-    from .core.window import LengthBatchWindow, NoWindow, TimeBatchWindow, \
-        TimeWindow
-    from .core.window_ext import (ChunkBatchWindow, CronWindow,
-                                  DelayWindow, ExternalTimeBatchWindow,
-                                  ExternalTimeWindow, FrequentWindow,
-                                  HoppingWindow, SessionLatencyWindow,
-                                  SessionWindow, SortWindow,
-                                  TimeLengthWindow)
+    from .core.window_ext import SessionLatencyWindow
     wstate, sel_state = jax_state
     w = planned.window
     device = _dev(device)
     types = planned.in_schema.types
-    from .core.window_expr import ExpressionWindow
     if planned.keyed_window and isinstance(w, SessionLatencyWindow):
         port_w = latency_slab_from_jax(wstate, types, device)
     elif planned.keyed_window:
         from .core.planner import _keyed_shape
         mode, _, _, key_init = _keyed_shape(w, planned.name)
         port_w = keyed_slab_from_jax(wstate, mode, types, device, key_init)
-    elif isinstance(w, ChunkBatchWindow):
+    else:
+        port_w = window_state_from_jax(w, wstate, planned.in_schema, device)
+    return port_w, selector_state_from_jax(sel_state, device)
+
+
+def window_state_from_jax(w, wstate, schema: ev.Schema, device=None):
+    """A JAX top-level window state -> the port's state of the port's
+    window `w` (of the same kind and parameters)."""
+    from .core.window import LengthBatchWindow, LengthWindow, NoWindow, \
+        PassAllWindow, TimeBatchWindow, TimeWindow
+    from .core.window_ext import (ChunkBatchWindow, CronWindow,
+                                  DelayWindow, ExternalTimeBatchWindow,
+                                  ExternalTimeWindow, FrequentWindow,
+                                  HoppingWindow, SessionWindow, SortWindow,
+                                  TimeLengthWindow)
+    from .core.window_expr import ExpressionWindow
+    device = _dev(device)
+    types = schema.types
+    if isinstance(w, ChunkBatchWindow):
         from .core.window import empty_buffer
-        port_w = time_batch_state_from_jax(
-            empty_buffer(planned.in_schema, w.capacity), wstate[0], -1,
-            np.asarray(wstate[1]), planned.in_schema, w.capacity, device)
-    elif isinstance(w, CronWindow):
-        port_w = time_batch_state_from_jax(
-            wstate[0], wstate[1], -1, np.asarray(wstate[2]),
-            planned.in_schema, w.capacity, device)
-    elif isinstance(w, HoppingWindow):
-        port_w = hop_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
-                                    np.asarray(wstate[2]), planned.in_schema,
+        return time_batch_state_from_jax(
+            empty_buffer(schema, w.capacity), wstate[0], -1,
+            np.asarray(wstate[1]), schema, w.capacity, device)
+    if isinstance(w, CronWindow):
+        return time_batch_state_from_jax(
+            wstate[0], wstate[1], -1, np.asarray(wstate[2]), schema,
+            w.capacity, device)
+    if isinstance(w, HoppingWindow):
+        return hop_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
+                                  np.asarray(wstate[2]), schema, device)
+    if isinstance(w, ExpressionWindow):
+        return expr_state_from_jax(w, wstate, types, device)
+    if isinstance(w, FrequentWindow):
+        return freq_state_from_jax(w, *wstate[:3], np.asarray(wstate[3]),
+                                   schema, device)
+    if isinstance(w, (NoWindow, PassAllWindow)):
+        return torch.tensor([int(np.asarray(wstate))], dtype=torch.int64,
+                            device=device)
+    if isinstance(w, TimeWindow):
+        return time_ring_from_jax(wstate[0], np.asarray(wstate[1]), schema,
+                                  device)
+    if isinstance(w, LengthWindow):
+        return length_ring_from_jax(wstate[0], np.asarray(wstate[1]),
+                                    schema, device)
+    if isinstance(w, LengthBatchWindow):
+        return batch_state_from_jax(wstate[0], wstate[1],
+                                    np.asarray(wstate[2]), schema, w.length,
                                     device)
-    elif isinstance(w, ExpressionWindow):
-        port_w = expr_state_from_jax(w, wstate, types, device)
-    elif isinstance(w, FrequentWindow):
-        port_w = freq_state_from_jax(w, *wstate[:3], np.asarray(wstate[3]),
-                                     planned.in_schema, device)
-    elif isinstance(w, NoWindow):
-        port_w = torch.tensor([int(np.asarray(wstate))], dtype=torch.int64,
-                              device=device)
-    elif isinstance(w, TimeWindow):
-        port_w = time_ring_from_jax(wstate[0], np.asarray(wstate[1]),
-                                    planned.in_schema, device)
-    elif isinstance(w, LengthBatchWindow):
-        port_w = batch_state_from_jax(wstate[0], wstate[1],
-                                      np.asarray(wstate[2]),
-                                      planned.in_schema, w.length, device)
-    elif isinstance(w, (TimeBatchWindow, ExternalTimeBatchWindow)):
-        port_w = time_batch_state_from_jax(
+    if isinstance(w, (TimeBatchWindow, ExternalTimeBatchWindow)):
+        return time_batch_state_from_jax(
             wstate[0], wstate[1], np.asarray(wstate[2]),
-            np.asarray(wstate[3]), planned.in_schema, w.capacity, device)
-    elif isinstance(w, (ExternalTimeWindow, TimeLengthWindow, DelayWindow)):
-        port_w = ext_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
-                                    planned.in_schema, device)
-    elif isinstance(w, SortWindow):
-        port_w = sort_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
-                                     planned.in_schema, device)
-    elif isinstance(w, SessionWindow):
+            np.asarray(wstate[3]), schema, w.capacity, device)
+    if isinstance(w, (ExternalTimeWindow, TimeLengthWindow, DelayWindow)):
+        return ext_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
+                                  schema, device)
+    if isinstance(w, SortWindow):
+        return sort_state_from_jax(w, wstate[0], np.asarray(wstate[1]),
+                                   schema, device)
+    if isinstance(w, SessionWindow):
         # one key: the JAX state with a key axis of 1
         from .kernels.keyed_window import MODE_SESSION
-        one = _stack_one(wstate)
-        port_w = keyed_slab_from_jax(one, MODE_SESSION,
-                                     planned.in_schema.types, device)
-    else:
-        raise NotImplementedError(f"no state conversion for {w.name}")
-    return port_w, selector_state_from_jax(sel_state, device)
+        return keyed_slab_from_jax(_stack_one(wstate), MODE_SESSION, types,
+                                   device)
+    raise NotImplementedError(f"no state conversion for {w.name}")
+
+
+def named_window_from_jax(jax_nw, nw) -> None:
+    """Carry a JAX NamedWindowRuntime's window state into the port's
+    NamedWindowRuntime of the same definition (in place)."""
+    nw.state = window_state_from_jax(nw.wproc, jax_nw.state, nw.schema,
+                                     nw.device)
+
+
+def aggregation_from_jax(jax_agg, agg) -> None:
+    """Carry a JAX AggregationRuntime's buckets into the port's
+    AggregationRuntime of the same definition (in place): per duration
+    the allocator (its mapping, free order and counters, so
+    `decode_keys` lists the buckets in the same order) and the slab."""
+    if list(jax_agg.durations) != list(agg.durations) or \
+            len(jax_agg.base) != len(agg.base) or \
+            jax_agg.bucket_capacity != agg.bucket_capacity:
+        raise ValueError("the aggregations' durations, bases or capacities "
+                         "differ")
+    for d, dur in enumerate(agg.durations):
+        src = jax_agg._dstores[dur]
+        _copy_allocator(agg._dstores[dur].alloc, src.alloc)
+        agg.slabs[d].copy_(_t(np.asarray(src.slab), agg.slabs.device,
+                              torch.float64))
 
 
 # ---------------------------------------------------------------------------

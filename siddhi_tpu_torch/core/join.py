@@ -43,9 +43,16 @@ here, where only the join uses them: `window_handler` (:133),
 `join_equi_pairs` (:351), `JOIN_LANE_K_MIN` (:396), `join_fastpath`
 (:399) and `table_probe_attrs_of` (:468).
 
-Not ported, raising at plan time: named-window and aggregation sides
-(ROADMAP A11), `in Table` in the ON condition, select or having
-(B-probe), distinctCount / unionSet (B14), `@fuse` /
+A named-window side (reference :202-218) probes the window's contents
+(`NamedWindowRuntime.current_buffer`, a copy gathered on the device) and
+triggers on the rows the window publishes (a `PassAllWindow`, K1 keeping
+EXPIRED rows); an aggregation side (:195-201) probes the buckets of its
+`per` duration `within` the range (`AggregationRuntime.device_view`, the
+reference's `_aggregation_view`).  Both take the grid path of K7's table
+mode.
+
+Not ported, raising at plan time: `in Table` in the ON condition, select
+or having (B-probe), distinctCount / unionSet (B14), `@fuse` /
 `@async` / `@pipeline` / `@serve` (A12, raised by the runtime), mesh
 placement (A14) and the restore path (A13).  On CUDA a join whose
 conditions or columns do not fit the kernels raises NotImplementedError
@@ -69,8 +76,8 @@ from .executor import AGGREGATOR_NAMES, CompileError, CompiledExpr, Scope, \
     compile_expression
 from .keyslots import SlotAllocator
 from .selector import SelectorExec, _substitute_aliases
-from .window import NO_WAKEUP, NoWindow, Rows, WindowProcessor, \
-    create_window
+from .window import NO_WAKEUP, NoWindow, PassAllWindow, Rows, \
+    WindowProcessor, create_window
 
 # A-B kill switch: the parity tests plan one runtime with the fast path
 # off to hold the bucket path against the grid path.  Consulted once at
@@ -150,10 +157,12 @@ def join_fastpath(jis, side_kind, table_probe_attrs=None
     conjunct exists but the fast path cannot apply.  mode None + reason
     None — no equality conjunct.
 
-    `side_kind(sid)` -> 'stream' | 'table'; `table_probe_attrs(sid)` ->
-    attribute names probe-able through a single-column @PrimaryKey or an
-    @Index (table mode only).  (The reference's named-window and
-    aggregation branch comes with those sides, ROADMAP A11.)"""
+    `side_kind(sid)` -> 'stream' | 'table' | 'named_window' |
+    'aggregation'; `table_probe_attrs(sid)` -> attribute names
+    probe-able through a single-column @PrimaryKey or an @Index (table
+    mode only).  A named-window or aggregation side takes neither path:
+    its rows come from a shared buffer the join carries no key slots
+    through."""
     pairs = join_equi_pairs(jis)
     if not pairs:
         return None, [], None
@@ -162,6 +171,12 @@ def join_fastpath(jis, side_kind, table_probe_attrs=None
                        ("right", jis.right_input_stream)):
         sides[label] = (sis, side_kind(sis.stream_id))
     kinds = {label: k for label, (_, k) in sides.items()}
+    for label, (sis, kind) in sides.items():
+        if kind in ("named_window", "aggregation"):
+            return None, pairs, (
+                f"{label} side {sis.stream_id!r} is a {kind} — its rows "
+                f"are probed from a shared buffer the join cannot carry "
+                f"key slots through")
     if kinds["left"] == "stream" and kinds["right"] == "stream":
         for label, (sis, _) in sides.items():
             if any(isinstance(h, Filter) for h in sis.stream_handlers):
@@ -228,9 +243,14 @@ class JoinSide:
     win_schema: ev.Schema         # + the key-slot column on the bucket
     #                               path, the batch-row column on the
     #                               table fast path
-    is_table: bool = False
+    is_table: bool = False        # a table-like side: a table, an
+    #                               aggregation or a named window
     pre_filters: List[CompiledExpr] = dataclasses.field(default_factory=list)
     fspec: Any = None             # kernels.filter_compact.FilterSpec
+    is_aggregation: bool = False
+    # a named window side probes the window's contents and triggers on
+    # the rows the window publishes (its `window` is a PassAllWindow)
+    is_named_window: bool = False
 
 
 @dataclasses.dataclass
@@ -278,6 +298,9 @@ class PlannedJoinQuery:
     group_positions: Tuple[List[int], List[int]] = ([], [])
     group_allocators: Tuple[Any, Any] = (None, None)
     group_slots: Tuple[int, int] = (0, 0)
+    # an aggregation side's `within` [start, end) and `per` duration
+    within_range: Optional[Tuple[int, int]] = None
+    per_duration: Optional[str] = None
 
 
 def _probe_schema(schema: ev.Schema, col: str = JSLOT_COL) -> ev.Schema:
@@ -295,9 +318,30 @@ def _probe_schema(schema: ev.Schema, col: str = JSLOT_COL) -> ev.Schema:
 
 def _mk_side(sis: SingleInputStream, schemas, tables, batch_capacity,
              scope: Scope, window_capacity_hint: int,
-             extra_col: Optional[str]) -> JoinSide:
+             extra_col: Optional[str], aggregations=None,
+             named_windows=None) -> JoinSide:
     sid = sis.stream_id
     key = sis.stream_reference_id or sid
+    if aggregations and sid in aggregations:
+        # the aggregation's buckets, read at each step (reference
+        # :195-201)
+        schema = aggregations[sid].make_schema()
+        scope.add_source(key, schema, alias=None)
+        return JoinSide(sid, key, schema, None, schema, is_table=True,
+                        is_aggregation=True)
+    if named_windows and sid in named_windows:
+        # probes the window's contents and triggers on what it publishes
+        # (reference :202-218; Window.java:145-184)
+        nw = named_windows[sid]
+        if nw.current_buffer() is None:
+            raise CompileError(
+                f"named window {sid!r} ({nw.wproc.name}) does not expose a "
+                f"probe-able buffer for joins")
+        schema = nw.schema
+        scope.add_source(key, schema, alias=None)
+        return JoinSide(sid, key, schema,
+                        PassAllWindow(schema, [], batch_capacity), schema,
+                        is_table=True, is_named_window=True)
     if sid in tables:
         schema = tables[sid].schema
         scope.add_source(key, schema, alias=None)
@@ -352,7 +396,7 @@ def _reference_rows(win: WindowProcessor, B: int) -> int:
     B without a window, 2B for a length window, B + C for a time window of
     capacity C.  The implicit emission cap max(2R, 1024) is computed from
     it."""
-    if isinstance(win, NoWindow):
+    if isinstance(win, (NoWindow, PassAllWindow)):
         return B
     if win.name == "length":
         return 2 * B
@@ -369,7 +413,8 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                     window_capacity_hint: int = 512,
                     device: Optional[torch.device] = None,
                     tables: Optional[Dict[str, Any]] = None,
-                    in_cols: Optional[Dict[str, str]] = None
+                    in_cols: Optional[Dict[str, str]] = None,
+                    aggregations=None, named_windows=None
                     ) -> PlannedJoinQuery:
     from ..kernels.filter_bytecode import AND, InKeys, compile_filter
     from ..kernels.filter_compact import FilterSpec
@@ -380,13 +425,13 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
     jis = query.input_stream
     if not isinstance(jis, JoinInputStream):
         raise CompileError(f"query {name!r} is not a join")
-    if jis.within is not None or jis.per is not None:
-        raise CompileError("joins with aggregations are not yet ported "
-                           "(ROADMAP A11)")
-
     tables = tables or {}
 
     def side_kind(sid: str) -> str:
+        if aggregations and sid in aggregations:
+            return "aggregation"
+        if named_windows and sid in named_windows:
+            return "named_window"
         return "table" if sid in tables else "stream"
 
     fp_mode, fp_pairs, fp_reason = join_fastpath(
@@ -401,11 +446,19 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
     scope = Scope(device)
     scope.interner = interner
     left = _mk_side(jis.left_input_stream, schemas, tables, batch_capacity,
-                    scope, window_capacity_hint, extra_col)
+                    scope, window_capacity_hint, extra_col, aggregations,
+                    named_windows)
     right = _mk_side(jis.right_input_stream, schemas, tables,
-                     batch_capacity, scope, window_capacity_hint, extra_col)
-    if left.is_table and right.is_table:
+                     batch_capacity, scope, window_capacity_hint, extra_col,
+                     aggregations, named_windows)
+    if left.is_table and right.is_table and \
+            not (left.is_named_window or right.is_named_window):
         raise CompileError("cannot join two tables in a streaming query")
+    within_range = per_duration = None
+    if left.is_aggregation or right.is_aggregation:
+        from .aggregation import parse_per, parse_within
+        within_range = parse_within(jis.within)
+        per_duration = parse_per(jis.per)
     if not left.is_table and not right.is_table and (
             isinstance(left.window, NoWindow) or
             isinstance(right.window, NoWindow)):
@@ -418,15 +471,16 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                                      f"{len(s.win_schema.types)} columns "
                                      f"(the kernels take {MAX_COLS})")
 
-    # side filters (before the window): K1.  A table side's filters are
-    # compiled, as the reference compiles them, and never applied: the
-    # table side does not step.
+    # side filters (before the window): K1.  A table's or an aggregation's
+    # filters are compiled, as the reference compiles them, and never
+    # applied: those sides do not step.
     for side, sis in ((left, jis.left_input_stream),
                       (right, jis.right_input_stream)):
         fscope = Scope(device)
         fscope.interner = interner
         fscope.add_source(side.key, side.schema)
-        code = [] if cuda and not side.is_table else None
+        code = [] if cuda and (not side.is_table or
+                               side.is_named_window) else None
         ik = InKeys(dict(in_cols or {}))
         for h in sis.stream_handlers:
             if isinstance(h, Filter):
@@ -607,7 +661,8 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
         group_allocators=(
             SlotAllocator(Kl, name=f"{name}:gl") if gl_pos else None,
             SlotAllocator(Kr, name=f"{name}:gr") if gr_pos else None),
-        group_slots=(Kl, Kr))
+        group_slots=(Kl, Kr), within_range=within_range,
+        per_duration=per_duration)
 
     def probe_spec(this: JoinSide, other: JoinSide, this_is_left: bool):
         emit_unmatched = (
@@ -624,31 +679,41 @@ def plan_join_query(query: Query, name: str, schemas: Dict[str, ev.Schema],
                                                  this.key, {}, other.key)
             except CompileError as exc:
                 raise _kernel_subset(name, str(exc)) from exc
-        table = None if not other.is_table else \
-            "index" if fp_mode == "table" else "grid"
+        table = None if not (other.is_table or _empty_other(this, other)) \
+            else "index" if fp_mode == "table" else "grid"
         return ProbeSpec(this.key, other.key, this.win_schema.types,
                          other.win_schema.types, on, having, on_code,
                          having_code, emit_unmatched, bucket, table)
 
-    # a table side never triggers; a stream side that does not trigger
-    # still keeps its window
-    specs = (probe_spec(left, right, True)
-             if not left.is_table and trigger in ("ALL_EVENTS", "LEFT")
+    # a table or aggregation side never triggers, a named window side
+    # does (reference :657-663); a stream side that does not trigger still
+    # keeps its window
+    def triggers(side: JoinSide, which: str) -> bool:
+        return (not side.is_table or side.is_named_window) and \
+            trigger in ("ALL_EVENTS", which)
+    specs = (probe_spec(left, right, True) if triggers(left, "LEFT")
              else None,
-             probe_spec(right, left, False)
-             if not right.is_table and trigger in ("ALL_EVENTS", "RIGHT")
+             probe_spec(right, left, False) if triggers(right, "RIGHT")
              else None)
     plan.probe_specs = specs
     for is_left, this, other, spec in ((True, left, right, specs[0]),
                                        (False, right, left, specs[1])):
-        step = None if this.is_table else \
-            _make_step(plan, this, other, is_left, spec) \
-            if spec is not None else _make_feed_only(plan, this, is_left)
+        step = _make_step(plan, this, other, is_left, spec) \
+            if spec is not None else None if this.is_table else \
+            _make_feed_only(plan, this, is_left)
         if is_left:
             plan.step_left = step
         else:
             plan.step_right = step
     return plan
+
+
+def _empty_other(this: JoinSide, other: JoinSide) -> bool:
+    """A named window's rows probing a windowless stream side, which holds
+    no rows: they probe an empty table.  (The reference probes the
+    stream side's pass-through state there and fails at every row the
+    window publishes.)"""
+    return this.is_named_window and isinstance(other.window, NoWindow)
 
 
 def _header(wake, dev) -> torch.Tensor:
@@ -694,6 +759,7 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
     Kl, Kr = plan.group_slots
     K_other = Kr if this_is_left else Kl
     bix: Dict[Tuple[int, Any], torch.Tensor] = {}
+    empty_other = _empty_other(this, other)
 
     def step(state, batch, gslot, probe, now: int, facts, table=None,
              in_tabs=None):
@@ -713,7 +779,12 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
         trig = wout.rows
         header = _header(wout.next_wakeup, dev)
         R = _reference_rows(this.window, B)
-        if other.is_table:
+        if empty_other:
+            table = (tuple(torch.zeros(1, dtype=ev.dtype_of(t), device=dev)
+                           for t in o_types),
+                     torch.zeros(1, dtype=torch.int64, device=dev),
+                     torch.zeros(1, dtype=torch.bool, device=dev))
+        if other.is_table or empty_other:
             o_cols, _, o_valid = table
             o_meta = None
             Q = probe.shape[1] if table_probe else o_valid.shape[0]
@@ -752,7 +823,8 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
         gslot = None
         if plan.aggregates:
             tg = trig.gslot[lil].to(torch.int64)
-            og = torch.full_like(tg, K_other) if other.is_table else \
+            og = torch.full_like(tg, K_other) \
+                if other.is_table or empty_other else \
                 torch.where(onull, K_other,
                             other_state.gslot[ril].to(torch.int64))
             gslot = (tg * (Kr + 1) + og if this_is_left

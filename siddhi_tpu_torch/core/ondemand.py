@@ -1,5 +1,5 @@
-"""On-demand (store) queries over tables (port of the table store path of
-`siddhi_tpu/core/ondemand.py`).
+"""On-demand (store) queries over tables, named windows and aggregations
+(port of `siddhi_tpu/core/ondemand.py`).
 
 Reference behaviour (what): `runtime.query("from T on cond select ...")`
 runs at once against the table's current contents and returns Event[]:
@@ -12,7 +12,9 @@ which go through the table's own write paths (kernels K9 and K10).
 How the port runs it: a FIND fetches the table's columns to the host
 once and reduces them there with numpy, as the reference does; the
 condition and the projections are the executor's torch expressions over
-host tensors.  Named-window and aggregation stores raise (ROADMAP A11).
+host tensors.  A named window's store is its contents
+(`current_buffer`), an aggregation's the buckets of the `per` duration
+`within` the range (`snapshot_rows`), both read as a table's rows are.
 """
 from __future__ import annotations
 
@@ -38,17 +40,37 @@ def _host_scope(interner) -> Scope:
     return scope
 
 
-def _store_rows(rt, store_id: str):
-    """-> (schema, host cols, valid mask) of a table."""
+def _store_rows(rt, store_id: str, within, per):
+    """-> (schema, host cols, valid mask) of a table, a named window's
+    contents or an aggregation's buckets of the `per` duration `within`
+    the range (reference `_store_rows`, `siddhi_tpu/core/ondemand.py:
+    26-49`)."""
     if store_id in rt.tables:
         t = rt.tables[store_id]
         with t._lock:
             rows = t.all_rows_batch()
             return (t.schema, [_host(c) for c in rows.cols],
                     _host(rows.valid))
-    raise CompileError(
-        f"no table named {store_id!r} (named-window and aggregation stores "
-        f"are not yet ported: ROADMAP A11)")
+    if store_id in rt.named_windows:
+        nw = rt.named_windows[store_id]
+        with nw._qlock:
+            buf = nw.current_buffer()
+        if buf is None:
+            raise CompileError(
+                f"window type {nw.wproc.name!r} does not expose contents "
+                f"for on-demand queries")
+        cols, _, alive = buf
+        return nw.schema, [_host(c) for c in cols], _host(alive)
+    if store_id in rt.aggregations:
+        from .aggregation import parse_per, parse_within
+        agg = rt.aggregations[store_id]
+        rng = parse_within(within) if within is not None else None
+        if per is None:
+            raise CompileError("aggregation on-demand query needs `per`")
+        ts, cols = agg.snapshot_rows(parse_per(per), rng)
+        return (agg.make_schema(), [np.asarray(c) for c in cols],
+                np.ones((ts.shape[0],), np.bool_))
+    raise CompileError(f"no table/window/aggregation named {store_id!r}")
 
 
 class OnDemandPlanMemo:
@@ -134,10 +156,8 @@ def execute_on_demand(rt, oq, memo=None) -> List[ev.Event]:
     if oq.type == "INSERT" and oq.input_store is None:
         return _insert_constant(rt, oq)
     store = oq.input_store
-    if store.within is not None or store.per is not None:
-        raise CompileError("on-demand queries over aggregations are not "
-                           "yet ported (ROADMAP A11)")
-    schema, cols, valid = _store_rows(rt, store.store_id)
+    schema, cols, valid = _store_rows(rt, store.store_id, store.within,
+                                      store.per)
     key = store.alias if getattr(store, "alias", None) else store.store_id
 
     scope = _host_scope(rt.interner)
@@ -151,13 +171,15 @@ def execute_on_demand(rt, oq, memo=None) -> List[ev.Event]:
         c = memo.compile(store.on_condition, scope)
         if c.type != "BOOL":
             raise CompileError("on-condition must be boolean")
-        table = rt.tables[store.store_id]
-        sel = _indexed_row_mask(table, store.on_condition, key, scope, env,
-                                mask, c, memo)
+        table = rt.tables.get(store.store_id)
+        sel = (_indexed_row_mask(table, store.on_condition, key, scope, env,
+                                 mask, c, memo)
+               if table is not None else None)
         if sel is not None:
             mask &= sel
         else:
-            table.index_stats["dense"] += 1
+            if table is not None:
+                table.index_stats["dense"] += 1
             mask &= np.broadcast_to(_eval(c, env).astype(bool), mask.shape)
 
     if oq.type == "FIND":

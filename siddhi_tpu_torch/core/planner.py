@@ -53,9 +53,10 @@ or none, keyed `length` / `time` / `lengthBatch` / `timeBatch` /
 / `hopping` / `frequent` / `lossyFrequent` / `expression` /
 `expressionBatch` windows,
 group by, having, the built-in aggregators with distinctCount and
-unionSet on queries without a window, `x in Table` probes.  Stream
-functions, the other windows, named-window input and distinctCount over a
-window raise `CompileError` naming their ROADMAP item.  On CUDA a query
+unionSet on queries without a window, `x in Table` probes, and a named
+window's rows as input (`named_window_input`: `PassAllWindow`, the
+reference's :344-360).  Stream functions and distinctCount over a window
+raise `CompileError` naming their ROADMAP item.  On CUDA a query
 must also fit the kernels (`kernel_subset_violation`, and filters inside
 the bytecode subset); one that does not raises NotImplementedError here,
 at plan time.
@@ -74,8 +75,8 @@ from . import event as ev
 from .executor import CompileError, Scope, compile_expression
 from .keyslots import SlotAllocator
 from .selector import SelectorExec
-from .window import NO_WAKEUP, NoWindow, Rows, WindowProcessor, \
-    create_window
+from .window import NO_WAKEUP, NoWindow, PassAllWindow, Rows, \
+    WindowProcessor, create_window
 
 
 @dataclasses.dataclass
@@ -154,7 +155,8 @@ def plan_single_query(
         window_key_allocator: Optional[SlotAllocator] = None,
         key_capacity: int = 0,
         in_cols: Optional[Dict[str, str]] = None,
-        partition_key_fn: Optional[Callable] = None) -> PlannedQuery:
+        partition_key_fn: Optional[Callable] = None,
+        named_window_input: bool = False) -> PlannedQuery:
     from ..kernels.filter_bytecode import AND, InKeys, compile_filter
     from ..kernels.in_probe import probe_env
     from ..kernels.filter_compact import FilterSpec
@@ -183,7 +185,11 @@ def plan_single_query(
     ik = InKeys(dict(in_cols or {}))
     bytecode, post_code = ([], []) if device.type == "cuda" else (None, None)
     pre_chain, post_chain = [], []
-    window_proc: WindowProcessor = NoWindow(in_schema, [], batch_capacity)
+    # a query reading a named window passes its CURRENT and EXPIRED rows
+    # on (reference :344-360)
+    window_proc: WindowProcessor = (PassAllWindow if named_window_input
+                                    else NoWindow)(in_schema, [],
+                                                   batch_capacity)
     seen_window = False
     for h in ist.stream_handlers:
         if isinstance(h, Filter):
@@ -204,6 +210,9 @@ def plan_single_query(
                 raise CompileError("filter expression must be boolean")
             (post_chain if seen_window else pre_chain).append(c)
         elif isinstance(h, Window):
+            if named_window_input:
+                raise CompileError(
+                    "cannot apply a window to a named-window input")
             if seen_window:
                 raise CompileError("only one window per input stream")
             seen_window = True

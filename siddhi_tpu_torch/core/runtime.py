@@ -55,8 +55,12 @@ queries),
 the timer scheduler (playback
 drain and wall-clock thread), `InputHandler.send` / `send_columns`,
 synchronous junctions, the three callback kinds, emission-cap growth,
-`flush` and `shutdown`.  Everything else raises `CompileError` naming its
-ROADMAP item.
+`flush` and `shutdown`; incremental aggregations (`core/aggregation.py`,
+kernels K27 and K28), named windows (`NamedWindowRuntime`: a shared window
+processor whose published rows reader queries, bidirectional joins and
+stream callbacks receive; joins and on-demand reads probe its contents)
+and triggers (`TriggerRuntime`, host code on the scheduler).  Everything
+else raises `CompileError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -331,6 +335,8 @@ def _target_live(qr) -> bool:
     tgt = qr.planned.output_target
     if not tgt:
         return False
+    if tgt in qr.app.named_windows:
+        return True
     j = qr.app.junctions.get(tgt)
     return j is not None and bool(j.queries or j.stream_callbacks)
 
@@ -438,6 +444,11 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
                 cb(now, current or None, expired or None)
         _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols)
         return
+    nw = qr.app.named_windows.get(p.output_target)
+    if nw is not None and not qr.callbacks and \
+            getattr(qr, "rate_limiter", None) is None:
+        _insert_into_window(qr, nw, order, ts_np, okind_np, ocols)
+        return
     batch = ev.EventBatch(ts_np[order], okind_np[order],
                           np.ones(order.shape[0], np.bool_),
                           tuple(c.cpu().numpy()[order] for c in ocols))
@@ -452,6 +463,36 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
         limiter.process(pairs, now)
         return
     _deliver_pairs(qr, pairs, now)
+
+
+def _insert_into_window(qr, nw, order, ts_np, okind_np, ocols) -> None:
+    """`insert into` a named window without decoding the rows to events:
+    the rows the output event type routes, in order, staged as the
+    window's arrivals as `_route` would stage their events (CURRENT, a
+    float column's NaN as the canonical null, padded to the staging
+    bucket size)."""
+    sel = qr.planned.output_event_type
+    k = okind_np[order]
+    keep = (k == ev.CURRENT) if sel == "CURRENT_EVENTS" else \
+        (k == ev.EXPIRED) if sel == "EXPIRED_EVENTS" else \
+        (k == ev.CURRENT) | (k == ev.EXPIRED)
+    rows = order[keep]
+    n = rows.shape[0]
+    if not n:
+        return
+    cap = ev.bucket_size(n)
+
+    def staged(x, dtype):
+        a = np.zeros(cap, dtype)
+        a[:n] = x[rows]
+        if a.dtype.kind == "f":
+            a[:n][np.isnan(a[:n])] = np.nan
+        return a
+    cols = [staged(c.cpu().numpy(), ev.np_dtype(t))
+            for c, t in zip(ocols, nw.schema.types)]
+    qr.app._route_window(nw, ev.StagedBatch(
+        staged(ts_np, np.int64), np.zeros(cap, np.int32),
+        np.arange(cap) < n, cols, n), int(ts_np[rows].max()))
 
 
 def _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols) -> None:
@@ -894,6 +935,20 @@ class JoinQueryRuntime:
         if not other.is_table:
             out, header = step(self.state, batch, gslot, probe, now, facts,
                                **kw)
+        elif other.is_aggregation:
+            # the buckets of the `per` duration within the range
+            # (reference `_other_table`, :1626-1628)
+            view = self.app.aggregations[other.stream_id].device_view(
+                p.per_duration, p.within_range)
+            out, header = step(self.state, batch, gslot, probe, now, facts,
+                               view, **kw)
+        elif other.is_named_window:
+            # the shared window's contents (reference :1629-1634)
+            nw = self.app.named_windows[other.stream_id]
+            with nw._qlock:
+                view = nw.current_buffer()
+            out, header = step(self.state, batch, gslot, probe, now, facts,
+                               view, **kw)
         else:
             # the table's current rows (reference `_other_table`, :1623)
             t = self.app.tables[other.stream_id]
@@ -953,6 +1008,210 @@ def _emit_join(qr: JoinQueryRuntime, out, header, now: int) -> None:
         return
     _deliver_capped(qr, "join result rows", "emission capacity", nv, ncur,
                     nd, out, now)
+
+
+class _ASub:
+    """An aggregation's subscription to its input stream."""
+
+    def __init__(self, agg):
+        self._agg = agg
+
+    def process_staged(self, staged, now):
+        self._agg.process_staged(staged, now)
+
+
+class TriggerRuntime:
+    """An event generator into a stream named after the trigger (reference
+    `TriggerRuntime`, `siddhi_tpu/core/runtime.py:1705`; CORE/trigger/
+    {Start,Periodic,Cron}Trigger.java): each firing publishes one event
+    `[triggered_time]` and reschedules itself on the app's scheduler.
+    Host code."""
+
+    def __init__(self, tdef, app: "SiddhiAppRuntime"):
+        self.definition = tdef
+        self.app = app
+        self.stream_id = tdef.id
+        self.name = f"trigger {tdef.id}"
+        self._qlock = threading.RLock()
+        self._cron = None
+        if tdef.at is not None and tdef.at.lower() != "start":
+            from ..utils.cron import CronExpression
+            self._cron = CronExpression(tdef.at)
+
+    def start(self, now: int) -> None:
+        d = self.definition
+        if d.at is not None and d.at.lower() == "start":
+            self.app._scheduler.notify_at(now, self)
+        elif d.at_every is not None:
+            self.app._scheduler.notify_at(now + d.at_every, self)
+        elif self._cron is not None:
+            self.app._scheduler.notify_at(self._cron.next_fire(now), self)
+
+    def on_timer(self, now: int) -> None:
+        self.app._route(self.stream_id, [ev.Event(now, [now])])
+        d = self.definition
+        if d.at_every is not None:
+            self.app._scheduler.notify_at(now + d.at_every, self)
+        elif self._cron is not None:
+            self.app._scheduler.notify_at(self._cron.next_fire(now), self)
+
+
+class NamedWindowRuntime:
+    """A shared window (reference `NamedWindowRuntime`,
+    `siddhi_tpu/core/runtime.py:1738`; CORE/window/Window.java:65):
+    queries insert into it, and reader queries, bidirectional joins and
+    stream callbacks receive what it publishes, CURRENT and / or EXPIRED
+    rows by its `output ... events`.  Joins and on-demand reads probe its
+    contents (`current_buffer`).
+
+    A step runs the port's window processor of the kind (with its
+    kernels), fetches [valid rows, wake, missed] in one sync, and stages
+    the published rows to numpy once for every subscriber.
+
+    Capacity: the reference builds the window with a batch capacity of 512
+    and 2,048 rows, so a `time` window silently drops its oldest unemitted
+    rows beyond 2,048 (`siddhi_tpu/core/window.py:400-405`).  The port
+    does not copy that: a `time` window's ring grows before a step whose
+    rows could pass its capacity (the host's bound of the rows alive after
+    the step), and every other kind keeps what it keeps or raises, naming
+    its buffer, where rows would not fit."""
+
+    def __init__(self, wdef, schema: ev.Schema, app: "SiddhiAppRuntime"):
+        from ..kernels.filter_compact import FilterSpec
+        from .window import create_window
+        self.definition = wdef
+        self.schema = schema
+        self.app = app
+        self.device = app.device
+        w = wdef.window
+        if w is None:
+            raise CompileError(
+                f"window definition {wdef.id!r} needs a window function")
+        self.wproc = create_window(
+            (w.namespace + ":" if w.namespace else "") + w.name, schema,
+            w.parameters, batch_capacity=512)
+        if getattr(self.wproc, "session_key_pos", None) is not None:
+            # a shared window has no key axis: the key-less processor would
+            # merge every key into one session
+            raise CompileError(
+                "session(gap, key) is not supported on a `define window` "
+                "shared instance; use it on a query's input stream")
+        self.needs_timer = self.wproc.needs_timer
+        self.output_event_type = wdef.output_event_type or "ALL_EVENTS"
+        self.subscribers: List = []
+        self.stream_callbacks: List[Callable] = []
+        self._qlock = threading.RLock()
+        self.next_wakeup: int = NO_WAKEUP
+        # no filters: every valid CURRENT row arrives
+        self._fspec = FilterSpec(
+            schema.types, [], [] if self.device.type == "cuda" else None,
+            wdef.id)
+        self.state = self.wproc.init_state(self.device)
+
+    @property
+    def name(self):
+        return self.definition.id
+
+    def current_buffer(self):
+        """(cols, ts, alive) of the window's contents, or None for a kind
+        whose reference state exposes no buffer."""
+        return self.wproc.current_buffer(self.state)
+
+    def _fit(self, staged: ev.StagedBatch, now: int) -> None:
+        """Grow a `time` window's ring to hold every row that can be alive
+        after this step."""
+        from .window import TimeWindow
+        if not isinstance(self.wproc, TimeWindow):
+            return
+        ring = self.state
+        need = int(np.count_nonzero(staged.valid & (staged.kind ==
+                                                    ev.CURRENT)))
+        need += sum(n for _, hi, n in ring.facts.entries if hi > now)
+        if need > ring.C:
+            self.state = ring.grown(1 << (need - 1).bit_length())
+            self.wproc.capacity = self.state.C
+
+    def process_staged(self, staged: ev.StagedBatch, now: int) -> None:
+        from .window import Rows
+        self._fit(staged, now)
+        batch = staged.to_device(self.schema, self.device)
+        cur = np.logical_and(staged.valid, staged.kind == ev.CURRENT)
+        facts = BatchFacts(staged.ts[cur], staged.ts.shape[0], staged, cur)
+        gslot = torch.zeros(staged.ts.shape[0], dtype=torch.int32,
+                            device=self.device)
+        rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid,
+                    seq=None, gslot=gslot, cols=batch.cols)
+        self.state, wout = self.wproc.process(self.state, rows, self._fspec,
+                                              now, facts)
+        o = wout.rows
+        wake = wout.next_wakeup
+        if wake is None:
+            wake = torch.tensor([NO_WAKEUP, 0], dtype=torch.int64,
+                                device=self.device)
+        nv, w, missed = torch.cat([o.valid.sum().reshape(1),
+                                   wake]).tolist()
+        if missed:
+            what = _HOLDS.get(self.wproc.name, "time window's expire bound")
+            raise RuntimeError(
+                f"window {self.name!r}: {missed} rows did not fit the "
+                f"{what}; the step was not applied in full")
+        if getattr(self.wproc, "host_scheduled", False):
+            w = self.wproc.host_next_wakeup(now)
+        if self.needs_timer:
+            self.next_wakeup = w
+            if w < NO_WAKEUP:
+                self.app._scheduler.notify_at(w, self)
+        if nv:
+            self._fanout(o, now)
+
+    def on_timer(self, now: int) -> None:
+        staged = ev.pack_np(self.schema, [], capacity=8)
+        staged.ts[0] = now
+        staged.kind[0] = ev.TIMER
+        staged.valid[0] = True
+        self.process_staged(staged, now)
+
+    def _fanout(self, o, now: int) -> None:
+        """The published rows (valid ones, in the step's row order, cut to
+        the output event type) to the stream callbacks, then to each
+        subscriber as one staged batch."""
+        valid = o.valid.cpu().numpy()
+        kind = o.kind.cpu().numpy()
+        sel = self.output_event_type
+        if sel == "CURRENT_EVENTS":
+            keep = kind == ev.CURRENT
+        elif sel == "EXPIRED_EVENTS":
+            keep = kind == ev.EXPIRED
+        else:
+            keep = (kind == ev.CURRENT) | (kind == ev.EXPIRED)
+        idx = np.nonzero(valid & keep)[0]
+        n = idx.shape[0]
+        if not n:
+            return
+        cap = ev.bucket_size(n)
+
+        def staged_col(x, dtype):
+            a = np.zeros(cap, dtype)
+            a[:n] = x.cpu().numpy()[idx]
+            return a
+        kinds = np.zeros(cap, np.int32)
+        kinds[:n] = kind[idx]
+        valid_s = np.zeros(cap, np.bool_)
+        valid_s[:n] = True
+        staged = ev.StagedBatch(
+            staged_col(o.ts, np.int64), kinds, valid_s,
+            [staged_col(c, ev.np_dtype(t))
+             for c, t in zip(o.cols, self.schema.types)], n)
+        if self.stream_callbacks:
+            pairs = ev.unpack(self.schema, ev.EventBatch(
+                staged.ts[:n], kinds[:n], valid_s[:n],
+                tuple(c[:n] for c in staged.cols)),
+                want_kinds=(ev.CURRENT, ev.EXPIRED))
+            events = [e for _, e in pairs]
+            for cb in self.stream_callbacks:
+                cb(events)
+        for q in self.subscribers:
+            q.process_staged(staged, now)
 
 
 class _Scheduler:
@@ -1260,14 +1519,8 @@ class SiddhiAppRuntime:
         _check_annotations(
             [a for a in app.annotations
              if a.name.lower() not in ("app:playback",)], "the app")
-        for what, defs, item in (
-                ("windows", getattr(app, "window_definition_map", {}), "A11"),
-                ("aggregations", app.aggregation_definition_map, "A11"),
-                ("triggers", app.trigger_definition_map, "A11"),
-                ("functions", app.function_definition_map, "A4")):
-            if defs:
-                raise CompileError(f"{what} are not yet ported "
-                                   f"(ROADMAP {item})")
+        if app.function_definition_map:
+            raise CompileError("functions are not yet ported (ROADMAP A4)")
 
         self.schemas: Dict[str, ev.Schema] = {}
         self.junctions: Dict[str, StreamJunction] = {}
@@ -1282,6 +1535,36 @@ class SiddhiAppRuntime:
             _check_annotations(tdef.annotations, f"table {tid!r}")
             self.tables[tid] = TableRuntime(
                 tdef, ev.Schema(tdef, self.interner), self.device)
+        # named windows (reference :2783-2788; Window.java:65)
+        self.named_windows: Dict[str, NamedWindowRuntime] = {}
+        for wid, wdef in getattr(app, "window_definition_map", {}).items():
+            _check_annotations(wdef.annotations, f"window {wid!r}")
+            schema = ev.Schema(wdef, self.interner)
+            self.schemas[wid] = schema
+            self.named_windows[wid] = NamedWindowRuntime(wdef, schema, self)
+        # incremental aggregations (reference :2790-2809): each subscribes
+        # to its input stream, and its retention purge rides the scheduler
+        # from construction on
+        from .aggregation import AggregationRuntime
+        self.aggregations: Dict[str, AggregationRuntime] = {}
+        for aid, adef in app.aggregation_definition_map.items():
+            _check_annotations(adef.annotations, f"aggregation {aid!r}")
+            agg = AggregationRuntime(adef, self)
+            self.aggregations[aid] = agg
+            self.junctions[agg.input_stream_id].subscribe_query(_ASub(agg))
+            if agg.purge_enabled:
+                self._scheduler.notify_at(
+                    self.timestamp_millis() + agg.purge_interval_ms, agg)
+        # triggers define a stream `<id> (triggered_time long)` (reference
+        # :2811-2820)
+        self.triggers: Dict[str, TriggerRuntime] = {}
+        for tid, tdef in app.trigger_definition_map.items():
+            if tid not in self.schemas:
+                sdef = StreamDefinition(tid).attribute("triggered_time",
+                                                       "LONG")
+                app.stream_definition_map[tid] = sdef
+                self._define_stream_runtime(sdef)
+            self.triggers[tid] = TriggerRuntime(tdef, self)
         # on-demand queries: parsed plans by query string, least recently
         # used first (reference: at most 50)
         self._ondemand_cache: "OrderedDict" = OrderedDict()
@@ -1372,13 +1655,20 @@ class SiddhiAppRuntime:
                       window_key_allocator=SlotAllocator(
                           kcap, name=f"{name}:sessionkey"),
                       key_capacity=kcap)
+        from_window = q.input_stream.unique_stream_id in self.named_windows
         planned = plan_single_query(q, name, self.schemas, self.interner,
                                     device=self.device,
-                                    in_cols=self._in_cols(q, name), **kw)
+                                    in_cols=self._in_cols(q, name),
+                                    named_window_input=from_window, **kw)
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
-        self.junctions[planned.input_stream_id].subscribe_query(
-            _QSub(runtime))
+        if from_window:
+            # a reader of a named window (reference :2993-2994)
+            self.named_windows[planned.input_stream_id].subscribers.append(
+                _QSub(runtime))
+        else:
+            self.junctions[planned.input_stream_id].subscribe_query(
+                _QSub(runtime))
         self._wire_output(runtime, q, planned, name)
 
     def _add_join_query(self, q: Query, name: str) -> None:
@@ -1389,12 +1679,21 @@ class SiddhiAppRuntime:
         _check_annotations(q.annotations, f"query {name!r}")
         planned = plan_join_query(q, name, self.schemas, self.interner,
                                   device=self.device, tables=self.tables,
-                                  in_cols=self._in_cols(q, name))
+                                  in_cols=self._in_cols(q, name),
+                                  aggregations=self.aggregations,
+                                  named_windows=self.named_windows)
         runtime = JoinQueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         for side, is_left in ((planned.left, True), (planned.right, False)):
             if not side.is_table:
                 self.junctions[side.stream_id].subscribe_query(
+                    _Sub(runtime, is_left))
+            elif side.is_named_window and (
+                    planned.step_left if is_left else
+                    planned.step_right) is not None:
+                # bidirectional: the rows the shared window publishes
+                # trigger the join too (reference :3139-3146)
+                self.named_windows[side.stream_id].subscribers.append(
                     _Sub(runtime, is_left))
         self._wire_output(runtime, q, planned, name)
 
@@ -1634,8 +1933,9 @@ class SiddhiAppRuntime:
         sides = []
         for sis in (jis.left_input_stream, jis.right_input_stream):
             ssid = sis.unique_stream_id
-            if ssid in self.tables:
-                continue
+            if ssid in self.tables or ssid in self.named_windows or \
+                    ssid in self.aggregations:
+                continue        # shared collections: no key column
             pos = positions.get(ssid)
             if not pos:
                 raise CompileError(f"stream {ssid!r} has no partition key")
@@ -1707,6 +2007,13 @@ class SiddhiAppRuntime:
 
     def _define_output_for(self, planned, name: str):
         tgt = planned.output_target
+        if tgt and tgt in self.named_windows:
+            if len(self.named_windows[tgt].schema.names) != len(
+                    planned.out_schema.names):
+                raise CompileError(
+                    f"query {name!r} output arity does not match window "
+                    f"{tgt!r}")
+            return
         if tgt and tgt not in self.junctions:
             sdef = StreamDefinition(tgt)
             for a in planned.out_schema.definition.attribute_list:
@@ -1726,6 +2033,8 @@ class SiddhiAppRuntime:
         if not self._started:
             # a timed limiter's first tick (reference :3509-3510)
             now = self.timestamp_millis()
+            for tr in self.triggers.values():
+                tr.start(now)
             for lim in self._timed_limiters:
                 self._scheduler.notify_at(now + lim.interval, lim)
         self._started = True
@@ -1824,8 +2133,12 @@ class SiddhiAppRuntime:
         self.query_runtimes[query_name].batch_callbacks.append(cb)
 
     def add_callback(self, name: str, cb) -> None:
-        """Stream name -> StreamCallback; query name -> QueryCallback."""
-        if name in self.junctions and name not in self.query_runtimes:
+        """Stream or window name -> StreamCallback; query name ->
+        QueryCallback."""
+        if name in self.named_windows:
+            self.named_windows[name].stream_callbacks.append(
+                _wrap_stream_callback(cb))
+        elif name in self.junctions and name not in self.query_runtimes:
             self.junctions[name].subscribe_callback(_wrap_stream_callback(cb))
         elif name in self.query_runtimes:
             self.query_runtimes[name].callbacks.append(
@@ -1878,7 +2191,26 @@ class SiddhiAppRuntime:
                 self._scheduler.drain_playback(now)
         junction.dispatch_staged(staged, now)
 
+    def _route_window(self, nw, staged: ev.StagedBatch,
+                      max_ts: Optional[int]) -> None:
+        """`insert into W` (reference :3815-3828): the playback clock
+        moves to the rows' latest ts and due timers fire first."""
+        if max_ts is not None:
+            self._advance_playback(max_ts)
+        now = self.timestamp_millis()
+        if self.playback:
+            with self._lock:
+                self._scheduler.drain_playback(now)
+        with nw._qlock:
+            nw.process_staged(staged, now)
+
     def _route(self, stream_id: str, events: List[ev.Event]) -> None:
+        nw = self.named_windows.get(stream_id)
+        if nw is not None:
+            self._route_window(nw, ev.pack_np(nw.schema, events),
+                               max(e.timestamp for e in events)
+                               if events else None)
+            return
         junction = self.junctions.get(stream_id)
         if junction is None:
             raise DefinitionNotExistError(f"undefined stream {stream_id!r}")

@@ -6,7 +6,8 @@ their own sequence numbers, valid rows first in seq order, so the selector
 recovers the exact per-event order (expired-before-current interleavings
 included).
 
-Ported: `NoWindow` (pass-through), `LengthWindow` (`length`),
+Ported: `NoWindow` (pass-through), `PassAllWindow` (a named window's
+reader), `LengthWindow` (`length`),
 `TimeWindow` (`time`), `LengthBatchWindow` (`lengthBatch`) and
 `TimeBatchWindow` (`timeBatch`) here; `externalTime`,
 `externalTimeBatch`, `timeLength`, `delay`, `batch`, `sort`, `cron`,
@@ -141,6 +142,32 @@ class WindowProcessor:
     def process(self, state, rows: Rows, fspec, now: int, facts):
         raise NotImplementedError
 
+    def current_buffer(self, state):
+        """The window's contents for joins and on-demand reads (JAX
+        `current_buffer`, `siddhi_tpu/core/window.py:147`): (cols, ts,
+        alive), the rows the reference's buffer holds alive in its order,
+        gathered on the device; None for a kind whose reference state
+        exposes no buffer."""
+        return None
+
+
+def table_view(ts, cols, idx):
+    """(cols, ts, alive) of the rows at `idx` (a device index tensor), as
+    a join reads a table side: a copy, so a later step that moves the
+    window's buffers in place leaves it as it is; one dead row when `idx`
+    is empty."""
+    n = int(idx.numel())
+    if n == 0:
+        idx = torch.zeros(1, dtype=torch.int64, device=ts.device)
+    alive = torch.full((idx.numel(),), n > 0, dtype=torch.bool,
+                       device=ts.device)
+    return tuple(c[idx] for c in cols), ts[idx], alive
+
+
+def prefix_view(ts, cols, n: int):
+    """`table_view` of the first n rows."""
+    return table_view(ts, cols, torch.arange(n, device=ts.device))
+
 
 class BatchFacts(NamedTuple):
     """What the host knows about a batch before its step: the timestamps of
@@ -177,10 +204,11 @@ def one_key_row(cache: dict, ts):
     return cache[(B, dev)]
 
 
-def _arrivals(rows: Rows, fspec, now: int, seq=None):
+def _arrivals(rows: Rows, fspec, now: int, seq=None,
+              keep_expired: bool = False):
     from ..kernels.filter_compact import filter_compact
     return filter_compact(fspec, rows.ts, rows.kind, rows.valid, rows.gslot,
-                          rows.cols, now, seq)
+                          rows.cols, now, seq, keep_expired)
 
 
 class NoWindow(WindowProcessor):
@@ -206,6 +234,24 @@ class NoWindow(WindowProcessor):
         return state, WindowOutput(out, None)
 
 
+class PassAllWindow(WindowProcessor):
+    """Pass-through for a query reading a named window (JAX
+    `siddhi_tpu/core/window.py:199`; reference Window.java:65): the window
+    publishes CURRENT and EXPIRED rows, which the query must not window
+    again.  Both kinds pass the filters, so signed aggregation stays
+    balanced, and come out compacted in order, numbered from the seq
+    counter (kernel K1 with its EXPIRED rows kept)."""
+
+    name = "(named-window input)"
+
+    def init_state(self, device):
+        return torch.zeros(1, dtype=torch.int64, device=device)
+
+    def process(self, state, rows: Rows, fspec, now: int, facts):
+        out, _ = _arrivals(rows, fspec, now, seq=state, keep_expired=True)
+        return state, WindowOutput(out, None)
+
+
 class LengthWindow(WindowProcessor):
     """Sliding length window (reference: LengthWindowProcessor; JAX
     `siddhi_tpu/core/window.py:228`).
@@ -225,6 +271,11 @@ class LengthWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.length_window import LengthRing
         return LengthRing.empty(self.schema, self.length, device)
+
+    def current_buffer(self, state):
+        """The ring's rows in add_seq order, as the reference compacts
+        them."""
+        return table_view(state.ts, state.cols, state.live()[3])
 
     def process(self, state, rows: Rows, fspec, now: int, facts):
         from ..kernels.length_window import length_window_step
@@ -252,6 +303,11 @@ class TimeWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.time_window import TimeRing
         return TimeRing.empty(self.schema, self.capacity, device)
+
+    def current_buffer(self, state):
+        """The ring's rows in add_seq order, as the reference compacts
+        them."""
+        return table_view(state.ts, state.cols, state.live()[3])
 
     def process(self, state, rows: Rows, fspec, now: int, facts):
         from ..kernels.time_window import time_window_step
@@ -281,6 +337,10 @@ class LengthBatchWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.length_batch import BatchState
         return BatchState.empty(self.schema, self.length, device)
+
+    def current_buffer(self, state):
+        """The pending batch (the reference's first buffer)."""
+        return prefix_view(state.p_ts, state.p_cols, int(state.meta[0]))
 
     def process(self, state, rows: Rows, fspec, now: int, facts):
         from ..kernels.length_batch import length_batch_step
@@ -314,12 +374,36 @@ class TimeBatchWindow(WindowProcessor):
         from ..kernels.time_batch import TimeBatchState
         return TimeBatchState.empty(self.schema, self.capacity, device)
 
+    def current_buffer(self, state):
+        """The pending slice (the reference's first buffer)."""
+        return slice_view(state, pending=True)
+
     def process(self, state, rows: Rows, fspec, now: int, facts):
         from ..kernels.time_batch import time_batch_step
         arr, n_arr = _arrivals(rows, fspec, now)
         out, wake = time_batch_step(state, arr, n_arr, now, self.time_ms,
                                     facts, exact=not fspec.compiled)
         return state, WindowOutput(out, wake)
+
+
+def slab_view(slab):
+    """`table_view` of a one-key KeyedSlab's (first) block in window
+    order: a ring from the key's head, or a block from row 0."""
+    from ..kernels.keyed_window import _TWO_BLOCKS
+    n = int(slab.count[0])
+    idx = torch.arange(n, device=slab.ts.device)
+    if slab.mode not in _TWO_BLOCKS:
+        idx = torch.remainder(idx + slab.head[0].long(), slab.C)
+    return table_view(slab.ts[0], tuple(c[0] for c in slab.cols), idx)
+
+
+def slice_view(state, pending: bool):
+    """`table_view` of a TimeBatchState's pending or previous slice."""
+    from ..kernels.time_batch import PARITY, PEND, PREV
+    m = state.meta.tolist()
+    b = int(m[PARITY]) if pending else 1 - int(m[PARITY])
+    return prefix_view(state.b_ts[b], state.b_cols[b],
+                       int(m[PEND if pending else PREV]))
 
 
 # ---------------------------------------------------------------------------

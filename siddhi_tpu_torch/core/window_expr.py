@@ -52,7 +52,7 @@ from ..query_api.expression import (Add, And, AttributeFunction, Compare,
                                     Constant, Divide, Mod, Multiply, Not, Or,
                                     Subtract, Variable)
 from . import event as ev
-from .window import WindowOutput, WindowProcessor, one_key_row
+from .window import WindowOutput, WindowProcessor, one_key_row, slab_view
 
 # value types (the first four are the filter bytecode's type codes)
 T_I32, T_I64, T_F32, T_BOOL, T_F64 = range(5)
@@ -342,6 +342,11 @@ class ExpressionWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.expr_window import empty_slab
         return empty_slab(self, 1, device)
+
+    def current_buffer(self, state):
+        """The window's rows (an expressionBatch's pending run) by
+        add_seq."""
+        return slab_view(state)
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.expr_window import expr_window_step

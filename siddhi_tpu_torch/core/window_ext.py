@@ -34,7 +34,7 @@ import numpy as np
 from ..query_api.expression import Constant, Variable
 from . import event as ev
 from .window import (WindowOutput, WindowProcessor, _arrivals, _param_int,
-                     one_key_row)
+                     one_key_row, prefix_view, slab_view, slice_view)
 
 
 def _param_var_position(params, i, schema, what="window"):
@@ -58,6 +58,9 @@ class ExternalTimeWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.ext_window import MODE_EXT, ExtState
         return ExtState.empty(MODE_EXT, self.schema, self.capacity, device)
+
+    def current_buffer(self, state):
+        return prefix_view(state.ts, state.cols, int(state.meta[0]))
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.ext_window import ext_window_step
@@ -92,6 +95,10 @@ class ExternalTimeBatchWindow(WindowProcessor):
         st.h_start = self.start
         return st
 
+    def current_buffer(self, state):
+        """The pending slice (the reference's first buffer)."""
+        return slice_view(state, pending=True)
+
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.time_batch import time_batch_step
         arr, n_arr = _arrivals(rows, fspec, now)
@@ -120,6 +127,9 @@ class TimeLengthWindow(WindowProcessor):
         from ..kernels.ext_window import MODE_TLEN, ExtState
         return ExtState.empty(MODE_TLEN, self.schema, self.capacity, device)
 
+    def current_buffer(self, state):
+        return prefix_view(state.ts, state.cols, int(state.meta[0]))
+
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.ext_window import ext_window_step
         arr, n_arr = _arrivals(rows, fspec, now)
@@ -143,6 +153,9 @@ class DelayWindow(WindowProcessor):
         from ..kernels.ext_window import MODE_DELAY, ExtState
         return ExtState.empty(MODE_DELAY, self.schema, self.capacity,
                               device)
+
+    def current_buffer(self, state):
+        return prefix_view(state.ts, state.cols, int(state.meta[0]))
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.ext_window import ext_window_step
@@ -175,6 +188,9 @@ class SortWindow(WindowProcessor):
         from ..kernels.sort_window import SortState
         return SortState.empty(self.schema, self.capacity, device)
 
+    def current_buffer(self, state):
+        return prefix_view(state.ts, state.cols, int(state.meta[0]))
+
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.sort_window import sort_window_step
         arr, n_arr = _arrivals(rows, fspec, now)     # seq: input positions
@@ -197,6 +213,10 @@ class ChunkBatchWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.time_batch import TimeBatchState
         return TimeBatchState.empty(self.schema, self.capacity, device)
+
+    def current_buffer(self, state):
+        """The previous chunk (the reference's buffer)."""
+        return slice_view(state, pending=False)
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.time_batch import MODE_CHUNK, time_batch_step
@@ -237,6 +257,10 @@ class CronWindow(WindowProcessor):
         from ..kernels.time_batch import TimeBatchState
         return TimeBatchState.empty(self.schema, self.capacity, device)
 
+    def current_buffer(self, state):
+        """The pending slice (the reference's first buffer)."""
+        return slice_view(state, pending=True)
+
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.time_batch import MODE_CRON, time_batch_step
         st = facts.staged
@@ -266,6 +290,11 @@ class HoppingWindow(WindowProcessor):
     def init_state(self, device):
         from ..kernels.hop_window import HopState
         return HopState.empty(self.schema, self.capacity, device)
+
+    def current_buffer(self, state):
+        """The kept candidates, in candidate order."""
+        n, _, _, cur = (int(x) for x in state.meta[:4].tolist())
+        return prefix_view(state.b_ts[cur], state.b_cols[cur], n)
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.hop_window import hop_window_step
@@ -348,6 +377,9 @@ class SessionWindow(WindowProcessor):
         from ..kernels.keyed_window import MODE_SESSION, KeyedSlab
         return KeyedSlab.empty(MODE_SESSION, self.schema.types, 1,
                                self.capacity, device)
+
+    def current_buffer(self, state):
+        return slab_view(state)
 
     def process(self, state, rows, fspec, now: int, facts):
         from ..kernels.keyed_window import keyed_window_step

@@ -177,16 +177,16 @@ __device__ inline bool in_lookup(const InSet& s, long long v, int ct) {
 // compiled in, and the callers that never emit it build as before.
 struct NoCapD {};
 
-// Runs `len` words of bytecode.  load_ev(col) returns an event column as a
-// 64-bit stack slot, load_cap(atom, col) a capture column,
+// Runs `len` (> 0) words of bytecode and returns the 64-bit slot on top of
+// the stack (0 after an unknown opcode).  load_ev(col) returns an event
+// column as a 64-bit stack slot, load_cap(atom, col) a capture column,
 // load_capd(set, col, depth) a capture column at a depth (-1: the deepest
 // filled one) and load_other(col) a column of a join's candidate row;
 // `sets` are the hash sets OP_IN reads (word 1 indexes them).
 template <class LoadEv, class LoadCap, class LoadOther, class LoadCapD = NoCapD>
-__device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
-                                              LoadOther load_other, const InSet* sets,
-                                              LoadCapD load_capd = {}) {
-  if (len == 0) return true;
+__device__ __forceinline__ long long eval_slot(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
+                                               LoadOther load_other, const InSet* sets,
+                                               LoadCapD load_capd = {}) {
   long long stk[MAX_STACK];
   int sp = 0;
   for (int pc = 0; pc < len;) {
@@ -247,10 +247,19 @@ __device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv l
             break;
           }
         }
-        return false;
+        return 0;
     }
   }
-  return stk[0] != 0;
+  return stk[0];
+}
+
+// A filter: the bytecode's boolean result (true for no words).
+template <class LoadEv, class LoadCap, class LoadOther, class LoadCapD = NoCapD>
+__device__ __forceinline__ bool eval_bytecode(const int* code, int len, LoadEv load_ev, LoadCap load_cap,
+                                              LoadOther load_other, const InSet* sets,
+                                              LoadCapD load_capd = {}) {
+  if (len == 0) return true;
+  return eval_slot(code, len, load_ev, load_cap, load_other, sets, load_capd) != 0;
 }
 
 template <class LoadEv, class LoadCap, class LoadOther>

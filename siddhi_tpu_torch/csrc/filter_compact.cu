@@ -4,7 +4,8 @@
 // Replaces, in the JAX package's jitted query step:
 //   siddhi_tpu/core/planner.py  _apply_chain (filters) in stage_body
 //   siddhi_tpu/core/window.py   NoWindow.process + sort_rows
-// Each row is kept when it is valid, CURRENT and passes the filters (typed
+// Each row is kept when it is valid, CURRENT (or, for a query reading a
+// named window, EXPIRED: `keep_expired`) and passes the filters (typed
 // postfix bytecode, kernels/filter_bytecode.py, one thread per row; an
 // `x in Table` probe is a lookup in the hash sets of csrc/in_probe.cu).  The
 // output is a STABLE partition: kept rows first in input order, numbered
@@ -34,7 +35,7 @@ constexpr int BLOCK = 256;
 
 // Mirrored field for field by kernels/filter_compact.py (ctypes.Structure).
 struct FilterPlan {
-  int B, ncols, code_len, write_seq;
+  int B, ncols, code_len, write_seq, keep_expired, pad;
   int col_ty[MAX_COLS];
   int code[MAX_CODE];
   const long long* ts;
@@ -66,7 +67,8 @@ __global__ void fc_flags(const FilterPlan pl) {
   long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
   int keep = 0;
   if (i < pl.B) {
-    keep = pl.valid[i] && pl.kind[i] == K_CURRENT;
+    keep = pl.valid[i] && (pl.kind[i] == K_CURRENT ||
+                           (pl.keep_expired && pl.kind[i] == K_EXPIRED));
     if (keep && pl.code_len > 0)
       keep = eval_bytecode_in(
           pl.code, pl.code_len,

@@ -31,7 +31,8 @@ SOURCES = ("pattern_step", "filter_compact", "time_window", "length_batch",
            "block_nfa", "table_write", "table_match", "keyed_window",
            "in_probe", "time_batch", "order_limit", "post_filter",
            "ext_window", "sort_window", "hop_window", "frequent",
-           "keyed_ext", "keyed_freq", "expr_window")
+           "keyed_ext", "keyed_freq", "expr_window", "agg_base",
+           "agg_merge")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -147,6 +147,20 @@ def compile_filter(expr, scope: Scope, own_ref: str,
     return code
 
 
+def compile_value(expr, scope: Scope, own_ref: str) -> Tuple[List[int],
+                                                            int, int]:
+    """Bytecode of one numeric value expression over the row's own columns
+    (an aggregation's argument, kernel K27): (words, the result's type
+    code, its null kind).  The kernel reads the top of the stack as the
+    value instead of testing it."""
+    code: List[int] = []
+    t = _emit(expr, scope, own_ref, {}, code)
+    if t.type not in ("INT", "LONG", "FLOAT", "DOUBLE"):
+        raise CompileError(f"value expression of type {t.type} is not "
+                           f"numeric")
+    return code, type_code(t.type), null_kind(t.type)
+
+
 def _emit(expr, scope, own_ref, atom_of_ref, code,
           other_ref=None) -> CompiledExpr:
     """Append expr's words; returns a CompiledExpr carrying its static type
@@ -331,8 +345,8 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
               load_in: Optional[Callable[[int, torch.Tensor],
                                          torch.Tensor]] = None,
               load_capd: Optional[Callable[[int, int, int],
-                                           torch.Tensor]] = None
-              ) -> torch.Tensor:
+                                           torch.Tensor]] = None,
+              value: bool = False) -> torch.Tensor:
     """Run bytecode over whole columns: `load_ev(col)`,
     `load_cap(atom, col)`, `load_capd(set, col, depth)` and
     `load_other(col)` return tensors of one shape (the keys, or the
@@ -403,7 +417,7 @@ def interpret(code: List[int], load_ev: Callable[[int], torch.Tensor],
             raise ValueError(f"bad opcode {op} at {pc}")
     if len(stack) != 1:
         raise ValueError("bytecode left an unbalanced stack")
-    return stack[0].bool()
+    return stack[0] if value else stack[0].bool()
 
 
 def _null_cast(v: torch.Tensor, nk: int, t: int, onk: int) -> torch.Tensor:

@@ -6,7 +6,9 @@ package's pre-window filter chain and pass-through window
 `siddhi_tpu/core/window.py` `NoWindow.process` with `sort_rows`): it
 evaluates each row's filters (the typed postfix bytecode of
 `kernels/filter_bytecode.py`, one thread per row) and writes a STABLE
-compaction of the rows that are valid, CURRENT and pass: kept rows first in
+compaction of the rows that are valid, CURRENT (or EXPIRED, with
+`keep_expired`: a query reading a named window, the reference's
+`PassAllWindow`, `siddhi_tpu/core/window.py:199`) and pass: kept rows first in
 input order, then the others in input order, marked invalid.  It writes the
 kept count to a device scalar and, for a pass-through window, numbers the
 kept rows `seq0 + rank` and advances the seq counter by the count.
@@ -48,7 +50,8 @@ class FilterPlan(ctypes.Structure):
     """Mirrors `struct FilterPlan` in csrc/filter_compact.cu."""
     _fields_ = (
         [("B", _I), ("ncols", _I), ("code_len", _I), ("write_seq", _I),
-         ("col_ty", _I * MAX_COLS), ("code", _I * MAX_CODE),
+         ("keep_expired", _I), ("pad", _I), ("col_ty", _I * MAX_COLS),
+         ("code", _I * MAX_CODE),
          ("ts", _P), ("kind", _P), ("valid", _P), ("gslot", _P),
          ("col", _P * MAX_COLS),
          ("out_ts", _P), ("out_kind", _P), ("out_valid", _P),
@@ -98,22 +101,27 @@ class FilterSpec:
 
 
 def filter_compact(spec: FilterSpec, ts, kind, valid, gslot, cols,
-                   now: int, seq: Optional[torch.Tensor] = None):
+                   now: int, seq: Optional[torch.Tensor] = None,
+                   keep_expired: bool = False):
     """(Rows of the same capacity, kept count i64[1]).  `seq` (i64[1]) is
     the pass-through window's counter: given, kept rows get
     `seq0 + rank` and the counter advances; otherwise every row's seq is
-    its input index."""
+    its input index.  With `keep_expired` EXPIRED rows are kept as
+    CURRENT ones are."""
     if ts.is_cuda:
-        return launch(spec, ts, kind, valid, gslot, cols, seq)
-    return plain(spec, ts, kind, valid, gslot, cols, now, seq)
+        return launch(spec, ts, kind, valid, gslot, cols, seq, keep_expired)
+    return plain(spec, ts, kind, valid, gslot, cols, now, seq, keep_expired)
 
 
 def plain(spec: FilterSpec, ts, kind, valid, gslot, cols, now: int,
-          seq: Optional[torch.Tensor] = None):
+          seq: Optional[torch.Tensor] = None, keep_expired: bool = False):
     """The plain PyTorch version (the kernel's reference)."""
     global plain_calls
     plain_calls += 1
-    keep = torch.logical_and(valid, kind == ev.CURRENT)
+    data = kind == ev.CURRENT
+    if keep_expired:
+        data = torch.logical_or(data, kind == ev.EXPIRED)
+    keep = torch.logical_and(valid, data)
     env = spec.env(cols, ts, now, kind)
     for c in spec.compiled:
         keep = torch.logical_and(keep, c.fn(env))
@@ -141,7 +149,7 @@ def _check(x, name, dtype, n, dev):
 
 
 def launch(spec: FilterSpec, ts, kind, valid, gslot, cols,
-           seq: Optional[torch.Tensor] = None):
+           seq: Optional[torch.Tensor] = None, keep_expired: bool = False):
     global launches
     if spec.bytecode is None:
         raise NotImplementedError(
@@ -188,6 +196,7 @@ def launch(spec: FilterSpec, ts, kind, valid, gslot, cols,
     if seq is not None:
         _check(seq, "seq", torch.int64, 1, dev)
     pl.write_seq = int(seq is not None)
+    pl.keep_expired = int(keep_expired)
     pl.ts, pl.kind, pl.valid, pl.gslot = (ts.data_ptr(), kind.data_ptr(),
                                           valid.data_ptr(), gslot.data_ptr())
     pl.out_ts, pl.out_kind, pl.out_valid = (out_ts.data_ptr(),

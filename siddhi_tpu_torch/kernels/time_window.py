@@ -150,6 +150,24 @@ class TimeRing:
                                 device=self.ts.device), self.C)
         return head, tail, seq, pos
 
+    def grown(self, C: int) -> "TimeRing":
+        """This ring's rows in a ring of capacity C (>= the alive rows),
+        at logical positions [0, L); the host facts carried over."""
+        _, _, seq, pos = self.live()
+        L = pos.shape[0]
+
+        def g(x):
+            y = torch.zeros(C, dtype=x.dtype, device=x.device)
+            y[:L] = x[pos]
+            return y
+        f = self.facts.copy()
+        f.C = C
+        meta = torch.tensor([0, L, seq, 0], dtype=torch.int64,
+                            device=self.meta.device)
+        return TimeRing(g(self.ts), g(self.add_seq), g(self.expire_ts),
+                        g(self.gslot), tuple(g(c) for c in self.cols), meta,
+                        f)
+
 
 def time_window_step(st: TimeRing, arr: Rows, n_arr, now: int, t: int,
                      facts):

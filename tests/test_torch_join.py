@@ -346,14 +346,16 @@ def test_lane_overflow_is_reported():
      "L.symbol in T select L.symbol as s insert into O;", CompileError,
      "B-probe"),
     ("from L#window.length(4) join W on L.symbol == W.symbol "
-     "select L.symbol as s insert into O;", CompileError, "A11"),
+     "select L.symbol as s insert into O;", CompileError,
+     "probe-able buffer"),
 ])
 def test_out_of_subset_joins_raise(body, err, item):
     extra = ""
     if " T " in body:
         extra = "define table T (symbol long, qty int);\n"
     if " W " in body:
-        extra = "define window W (symbol long, qty int) length(4);\n"
+        # a named window of a kind that keeps no buffer to probe
+        extra = "define window W (symbol long, qty int) frequent(2);\n"
     ql = ("define stream L (symbol long, price float);\n"
           "define stream R (symbol long, qty int);\n" + extra + body)
     with pytest.raises(err, match=item):

@@ -242,12 +242,14 @@ def test_time_window_timer_ticks_every_key():
     ("""define stream S (k int, v int);
      define window SW (k int, v int) length(4);
      partition with (k of S)
-     begin from S select k, sum(v) as s insert into O; end;""", "A11"),
+     begin from SW select k, sum(v) as s insert into O; end;""",
+     "no partition key"),
     ("""define stream S (k int, v int);
+     @store(type='memory')
      define aggregation SA from S select k, sum(v) as s group by k
      aggregate every sec ... min;
      partition with (k of S)
-     begin from S select k, sum(v) as s insert into O; end;""", "A11"),
+     begin from S select k, sum(v) as s insert into O; end;""", "A15"),
     ("""@app:fuse(batches='2')
      define stream S (k int, v int); from S select k insert into O;""",
      "A12"),

@@ -170,7 +170,7 @@ def test_top_level_session_is_one_key():
      end;""", "redundant"),
     ("""define stream S (user string, item int);
      define window W (user string, item int) session(1 sec, user);""",
-     "A11"),
+     "define window"),
 ])
 def test_what_raises(ql, match):
     with pytest.raises(CompileError, match=match):

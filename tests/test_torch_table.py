@@ -594,14 +594,13 @@ def test_set_expressions_read_the_old_columns():
     ("""define stream S (a int);
      @store(type='rdbms', url='x') define table T (a int);
      from S insert into T;""", "A15"),
-    ("""define stream S (a int);
-     define window W (a int) length(2);
-     from S insert into W;""", "A11"),
-    ("""define stream S (k string, v int);
-     define table T (k string, v int);
-     define trigger Tr at every 5 sec;
-     from S#window.expression('count() <= 2') select k, v
-     insert into T;""", "A11"),
+    ("""define stream S (a int, ts long);
+     @store(type='memory')
+     define aggregation A from S select sum(a) as s
+     aggregate by ts every sec ... min;""", "A15"),
+    ("""define stream S (k string, v int, ts long);
+     define aggregation A from S select k, custom:agg(v) as c group by k
+     aggregate by ts every sec ... min;""", "A4"),
 ])
 def test_still_raises(ql, item):
     with pytest.raises(CompileError, match=item):
@@ -610,7 +609,8 @@ def test_still_raises(ql, item):
 
 def test_named_window_store_query_raises():
     rt = TorchManager(device="cpu").create_siddhi_app_runtime(ONDEMAND)
-    with pytest.raises(CompileError, match="A11"):
+    with pytest.raises(CompileError,
+                       match="no table/window/aggregation named 'W'"):
         rt.query("from W select *")
 
 
