@@ -933,6 +933,7 @@ def main() -> None:
     records += slice12_phases(torch, np, dev)
     records += slice13_phases(torch, np, dev)
     records += slice14_phases(torch, np, dev)
+    records += slice15_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -17657,6 +17658,898 @@ _X14_WANT = [({'j': [(1600,
   [[(1000, ('a', 10.0)), (1000, ('c', 1.0))], [(1001, ('b', 4.0))]],
   [[('a', 10.0), ('b', 4.0)]])]
 X14_CASES = [spec + (want,) for spec, want in zip(_X14_SPECS, _X14_WANT)]
+
+
+# ---------------------------------------------------------------------------
+# slice 15 (phases 57-62): the dispatch layer (A12).  K29 multi_filter, the
+# stacked mode of pattern_step and K30 ring against their plain versions at
+# MD1's and FP1's shapes and on PMC's plan with PM1's trades, then MD1
+# (merged and unmerged), FP1 (fused and unfused), PM1 and PMC (fused), SV1
+# (MD1 served) and FP1 under @pipeline(depth='4') and @async through
+# SiddhiManager
+# ---------------------------------------------------------------------------
+
+MD_B = 1 << 17            # MD1's transactions a send
+# MD1's accounts: 65,536 in the configuration, cut to 4,096, the group slots a
+# top-level group by holds in both packages (no annotation raises it)
+MD_ACCTS = 1 << 12
+MD_WARM, MD_SENDS = 2, 16  # MD1's warm and timed sends
+FP_B = 1 << 17            # FP1's readings a send
+FP_DEVICES = 1 << 16      # FP1's devices
+FP_SENDS = 32             # FP1's sends: four full stacks of 8
+PM_B = 1 << 10            # PM1's trades a send
+PM_SENDS = 32             # PM1's sends: four full stacks of 8
+PM_SYMS = 64
+MD_CHECK = (MD_WARM, MD_WARM + MD_SENDS - 1)   # sends held to numpy
+
+MD_QUERIES = ("largeTxnAlert", "regionAudit", "spendTotal", "spendPeak",
+              "spendCount", "slowBurn")
+FP_QUERIES = ("fusedClean", "alerts")
+
+
+def md1_ql(extra_app=""):
+    """MD1: samples/apps/mqo_dashboard.siddhi in playback, slowBurn's time
+    window sized to hold every row of the run (its 5 minutes span the
+    whole run, so none expires)."""
+    with open("samples/apps/mqo_dashboard.siddhi") as fh:
+        ql = fh.read()
+    rows = (MD_WARM + MD_SENDS + 4) * MD_B
+    ql = ql.replace("@info(name='slowBurn')",
+                    f"@capacity(window='{rows}') @info(name='slowBurn')")
+    return "@app:playback\n" + extra_app + ql
+
+
+def fp1_ql(deco="@fuse(batches='8')"):
+    with open("samples/apps/fused_pipeline.siddhi") as fh:
+        ql = fh.read()
+    return "@app:playback\n" + ql.replace("@fuse(batches='8')", deco)
+
+
+def pm1_ql(deco="@fuse(batches='8')"):
+    with open("samples/apps/pattern_matching.siddhi") as fh:
+        ql = fh.read()
+    return "@app:playback\n" + ql.replace("@info(name='riseQuery')",
+                                          f"{deco} @info(name='riseQuery')")
+
+
+# PMC: a top-level count pattern off the block NFA (the stacked mode's path)
+PMC_QL = """@app:playback
+define stream StockStream (symbol string, price float);
+{deco} @info(name='riseQuery')
+from every e1=StockStream[price > 50.0]<2:3>
+  -> e2=StockStream[price > e1[0].price]
+  within 1 min
+select e1[0].price as p1, e1[1].price as p2, e2.price as sell
+insert into RiseStream;
+"""
+
+
+def md1_send(np, i, B=MD_B, accts=MD_ACCTS):
+    """One MD1 send: uniform accounts, log-normal amounts with about 1%
+    above 10,000, uniform regions 0-15; one ms of event time a send."""
+    rng = np.random.default_rng(1500 + i)
+    acct = rng.integers(0, accts, B).astype(np.int64)
+    # ln X ~ N(mu, 1.5) with P(X > 10000) = 1%: mu = ln 1e4 - 2.3263 * 1.5
+    amount = np.exp(rng.normal(np.log(1e4) - 2.3263 * 1.5, 1.5, B)) \
+        .astype(np.float32)
+    region = rng.integers(0, 16, B).astype(np.int32)
+    ts = np.full(B, 1_000_000 + i, np.int64)
+    return [acct, amount, region], ts
+
+
+def fp1_send(np, i, B=FP_B, devices=FP_DEVICES):
+    rng = np.random.default_rng(2500 + i)
+    dev_ids = rng.integers(0, devices, B).astype(np.int32)  # interned ids
+    reading = rng.uniform(-10.0, 100.0, B).astype(np.float32)
+    ok = rng.random(B) < 0.9
+    return [dev_ids, reading, ok], np.full(B, 1_000_000 + i, np.int64)
+
+
+def pm1_send(np, i, B=PM_B):
+    rng = np.random.default_rng(3500 + i)
+    sym = rng.integers(0, PM_SYMS, B).astype(np.int32)
+    price = np.round(rng.uniform(0.0, 100.0, B), 2).astype(np.float32)
+    return [sym, price], 1_000_000 + 15_000 * i + np.arange(B,
+                                                          dtype=np.int64)
+
+
+class Capture:
+    """Batch callbacks of an app's queries: the valid CURRENT rows of the
+    sends whose index is in `check` (as numpy), counts otherwise, and each
+    delivery's wall time by its `now`."""
+
+    def __init__(self, rt, queries, check, keep_all=()):
+        self.active = True
+        self.keep_all = set(keep_all)
+        self.rows = {q: {} for q in queries}
+        self.count = {q: 0 for q in queries}
+        self.delivered = {}
+        self.check = set(check)
+        self.now_of = {}
+        for q in queries:
+            rt.add_batch_callback(q, self._cb(q))
+
+    def _cb(self, q):
+        def cb(now, payload):
+            if not self.active:
+                return
+            self.count[q] += payload["n_current"]
+            self.delivered.setdefault(now, time.perf_counter())
+            i = self.now_of.get(now)
+            if q in self.keep_all:
+                # a downstream reader's `now` is the playback clock when
+                # its input arrived: its rows are kept in arrival order
+                i = "all"
+            if (i in self.check or i == "all") and payload["n_current"]:
+                v = payload["valid"] & (payload["kind"] == 0)
+                cols = payload["cols"]
+                self.rows[q].setdefault(i, []).append(
+                    {k: c[v] for k, c in cols.items()})
+        return cb
+
+    def get(self, q, i):
+        parts = self.rows[q].get(i, [])
+        if not parts:
+            return {}
+        return {k: __import__("numpy").concatenate([p[k] for p in parts])
+                for k in parts[0]}
+
+
+def kernel_counts():
+    """Every kernel module's launch and plain-call counters (reset and
+    read around a run)."""
+    from siddhi_tpu_torch.kernels import (block_nfa, filter_compact,
+                                          group_agg, length_window,
+                                          multi_filter, pattern_step,
+                                          post_filter, ring, time_window)
+    return {"filter_compact": filter_compact, "multi_filter": multi_filter,
+            "length_window": length_window, "group_agg": group_agg,
+            "time_window": time_window, "post_filter": post_filter,
+            "pattern_step": pattern_step, "block_nfa": block_nfa,
+            "ring": ring}
+
+
+def reset_all():
+    for m in kernel_counts().values():
+        m.reset_counts()
+
+
+def read_all():
+    mods = kernel_counts()
+    launches = {k: m.launches for k, m in mods.items()}
+    launches["pattern_step_stacked"] = mods["pattern_step"].stacked_launches
+    launches["ring_pack"] = mods["ring"].pack_launches
+    plain = {k: m.plain_calls for k, m in mods.items()}
+    plain["pattern_step_stacked"] = \
+        mods["pattern_step"].stacked_plain_calls
+    return launches, plain
+
+
+def h2d_profile(torch, run_sends, n):
+    """Host-to-device copies of `n` sends under torch.profiler: their count
+    and bytes a send (from the trace's memcpy records), the device busy
+    time and the idle share of the wall."""
+    import json as _json
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_sends()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fd, path = tempfile.mkstemp(suffix=".json", dir=".")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = _json.load(fh)
+    finally:
+        os.remove(path)
+    copies = nbytes = 0
+    busy_us = 0.0
+    for e in trace.get("traceEvents", []):
+        cat = str(e.get("cat", "")).lower()
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            busy_us += float(e.get("dur", 0))
+        if cat == "gpu_memcpy" and "HtoD" in str(e.get("name", "")):
+            copies += 1
+            nbytes += int(e.get("args", {}).get("bytes", 0) or 0)
+    if busy_us <= 0:
+        return {"h2d_copies": None, "h2d_bytes": None, "device_ms": None,
+                "idle_share": None, "wall_ms": wall_ms}
+    return {"h2d_copies": copies / n, "h2d_bytes": nbytes / n,
+            "device_ms": busy_us / 1e3, "wall_ms": wall_ms,
+            "idle_share": max(0.0, 1.0 - busy_us / 1e3 / wall_ms)}
+
+
+def drive_app(torch, np, dev, ql, queries, stream, send_fn, n_warm,
+              n_timed, check, props=None, n_prof=4, sync_each=False,
+              keep_all=(), names=0):
+    """Run one app through SiddhiManager on `dev`: `n_warm` warm sends,
+    `n_timed` timed sends (per-send producer wall, ev/s over the timed
+    sends to the final flush), then `n_prof` profiled sends.  Returns the
+    figures, the captured rows and the runtime."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.utils.config import InMemoryConfigManager
+    mgr = SiddhiManager(device=dev)
+    if props:
+        mgr.set_config_manager(InMemoryConfigManager(props))
+    # string columns are sent as interner ids: `names` strings interned
+    # first take the ids 0 .. names - 1 the senders draw
+    for k in range(names):
+        mgr.interner.intern(f"id{k}")
+    rt = mgr.create_siddhi_app_runtime(ql)
+    cap = Capture(rt, queries, check, keep_all)
+    rt.start()
+    h = rt.get_input_handler(stream)
+    sent = {}
+
+    def one(i):
+        cols, ts = send_fn(np, i)
+        cap.now_of[int(ts.max())] = i
+        tb = time.perf_counter()
+        sent[int(ts.max())] = tb
+        h.send_columns(cols, timestamps=ts)
+        return time.perf_counter() - tb
+    for i in range(n_warm):
+        one(i)
+    rt.flush()
+    reset_all()
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(n_warm, n_warm + n_timed):
+        lat.append(one(i))
+        if sync_each:
+            rt.flush()
+    rt.flush()
+    wall = time.perf_counter() - t0
+    launches, plain = read_all()
+    prof = {"h2d_copies": None, "h2d_bytes": None, "device_ms": None,
+            "idle_share": None}
+    cap.active = False            # the profiled sends are not checked
+    if dev.type == "cuda" and n_prof:
+        base = n_warm + n_timed
+
+        def more():
+            for i in range(base, base + n_prof):
+                one(i)
+            rt.flush()
+        prof = h2d_profile(torch, more, n_prof)
+    lat_ms = np.sort(np.array(lat)) * 1e3
+    e2e = [cap.delivered[k] - sent[k] for k in sent if k in cap.delivered]
+    fig = {"ev_s": n_timed * len(send_fn(np, 0)[1]) / wall,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "launches": launches, "plain": plain,
+           "launches_per_send": sum(v for k, v in launches.items()) /
+           n_timed, "e2e_p50_ms": float(np.percentile(e2e, 50)) * 1e3
+           if e2e else None, **prof}
+    rt.shutdown()
+    mgr.shutdown()
+    return fig, cap, rt
+
+
+def md1_model(np, upto, check):
+    """MD1's numpy model for the checked sends: the two filters' rows and,
+    for each row with amount > 0, its account's sum and count over the
+    last 256 such rows (the global length window), its max over every row
+    of the account so far (max does not retract in either package: an
+    EXPIRED row leaves it as it is), and the rounding bound of the card's
+    float32 running sum."""
+    accts, amts, regions = [], [], []
+    for i in range(upto + 1):
+        (a, m, r), _ = md1_send(np, i)
+        accts.append(a)
+        amts.append(m)
+        regions.append(r)
+    acct = np.concatenate(accts)
+    amt = np.concatenate(amts).astype(np.float64)
+    pos = amt > 0
+    acct_p, amt_p = acct[pos], amt[pos]
+    out = {}
+    # each account's row count and largest amount so far (the sum's bound)
+    for i in check:
+        lo, hi = i * MD_B, (i + 1) * MD_B
+        a, m, r = acct[lo:hi], amt[lo:hi], np.concatenate(regions)[lo:hi]
+        big = m > 10000.0
+        out[("largeTxnAlert", i)] = {"account": a[big], "amount": m[big]}
+        sev = r == 7
+        out[("regionAudit", i)] = {"account": a[sev], "amount": m[sev],
+                                   "region": r[sev]}
+        plo = int(pos[:lo].sum())
+        phi = plo + int(pos[lo:hi].sum())
+        idx = np.arange(plo, phi)
+        tot = amt_p[idx].copy()
+        n = np.ones(idx.shape[0], np.int64)
+        run = np.full(MD_ACCTS, -np.inf)
+        np.maximum.at(run, acct_p[:plo], amt_p[:plo])
+        peak = np.empty(idx.shape[0])
+        for r, (a_, m_) in enumerate(zip(acct_p[idx].tolist(),
+                                         amt_p[idx].tolist())):
+            run[a_] = max(run[a_], m_)
+            peak[r] = run[a_]
+        for d in range(1, 256):
+            j = idx - d
+            ok = j >= 0
+            same = np.zeros(idx.shape[0], np.bool_)
+            same[ok] = acct_p[j[ok]] == acct_p[idx[ok]]
+            if not same.any():
+                continue
+            tot[same] += amt_p[j[same]]
+            n[same] += 1
+        k = acct_p[idx]
+        seen = np.bincount(acct_p[:phi], minlength=MD_ACCTS)[k]
+        mx = np.zeros(MD_ACCTS)
+        np.maximum.at(mx, acct_p[:phi], amt_p[:phi])
+        out[("spend", i)] = {"account": k, "total": tot, "peak": peak,
+                             "n": n, "tol": 2.0 ** -22 * 2 * seen * mx[k]}
+    return out
+
+
+def check_md1(np, cap, model, check, label):
+    """The captured rows of the checked sends against the model: exact for
+    the filters, count and max, the sum within its rounding bound."""
+    for i in check:
+        for q in ("largeTxnAlert", "regionAudit"):
+            got, want = cap.get(q, i), model[(q, i)]
+            for c in want:
+                g = got.get(c, np.zeros(0))
+                if not np.array_equal(g.astype(np.float64),
+                                      want[c].astype(np.float64)):
+                    fail(f"{label} {q} send {i}: column {c} differs from "
+                         f"numpy ({g.shape[0]} rows, {want[c].shape[0]} "
+                         f"expected)")
+        sp = model[("spend", i)]
+        for q, c in (("spendTotal", "total"), ("spendPeak", "peak"),
+                     ("spendCount", "n")):
+            got = cap.get(q, i)
+            if not np.array_equal(got.get("account"), sp["account"]):
+                fail(f"{label} {q} send {i}: accounts differ from numpy")
+            g = got[c].astype(np.float64)
+            if c == "total":
+                err = np.abs(g - sp["total"])
+                if np.any(err > sp["tol"]):
+                    fail(f"{label} {q} send {i}: sum off by up to "
+                         f"{float(err.max())} (bound "
+                         f"{float(sp['tol'].max())})")
+            elif not np.array_equal(g, sp[c].astype(np.float64)):
+                fail(f"{label} {q} send {i}: {c} differs from numpy")
+
+
+def same_rows(np, a, b, queries, check, label):
+    for q in queries:
+        for i in (("all",) if q in a.keep_all else check):
+            x, y = a.get(q, i), b.get(q, i)
+            if x.keys() != y.keys() or any(
+                    not np.array_equal(x[k], y[k], equal_nan=True)
+                    if x[k].dtype.kind == "f" else
+                    not np.array_equal(x[k], y[k]) for k in x):
+                fail(f"{label}: {q} send {i} differs")
+        if a.count[q] != b.count[q]:
+            fail(f"{label}: {q} delivered {a.count[q]} vs {b.count[q]} rows")
+
+
+def fp1_model(np, i):
+    (d, r, ok), _ = fp1_send(np, i)
+    keep = ok & (r >= 0.0)
+    hot = keep & (r > 90.0)
+    return {"fusedClean": (d[keep], r[keep]), "alerts": (d[hot], r[hot])}
+
+
+def check_fp1(np, cap, check, n_sends, label):
+    """fusedClean's rows of the checked sends and alerts' rows over the
+    run against numpy."""
+    for i in check:
+        d, r = fp1_model(np, i)["fusedClean"]
+        got = cap.get("fusedClean", i)
+        if not (np.array_equal(got.get("deviceId"), d) and
+                np.array_equal(got.get("reading"), r)):
+            fail(f"{label}: fusedClean send {i} differs from numpy")
+    hot = [fp1_model(np, i)["alerts"] for i in range(n_sends)]
+    got = cap.get("alerts", "all")
+    if not (np.array_equal(got.get("deviceId"),
+                           np.concatenate([d for d, _ in hot])) and
+            np.array_equal(got.get("reading"),
+                           np.concatenate([r for _, r in hot]))):
+        fail(f"{label}: alerts differ from numpy")
+
+
+def print_fig(label, fig, card):
+    f = fig
+    prof = ("not measured" if f["idle_share"] is None else
+            f"idle share {f['idle_share']:.4f} (device busy "
+            f"{f['device_ms']:.3f} ms of {f['wall_ms']:.3f} ms wall), "
+            f"host-to-device copies a send {f['h2d_copies']:.2f} "
+            f"({f['h2d_bytes']:.0f} bytes)")
+    e2e = "" if f["e2e_p50_ms"] is None else \
+        f", send-to-callback p50 {f['e2e_p50_ms']:.3f} ms"
+    print(f"{label}: {f['ev_s']:.0f} ev/s, per-send p50 {f['p50_ms']:.3f} "
+          f"ms p99 {f['p99_ms']:.3f} ms{e2e}, launches a send "
+          f"{f['launches_per_send']:.2f} {f['launches']}, {prof} [{card}]")
+
+
+def md1_stage_inputs(torch, np, dev, rt, i):
+    """One MD1 send staged on the card as [1, B] and the merge group's
+    unit programs (filter spec, gslot, seq counter, keep_expired)."""
+    from siddhi_tpu_torch.core import event as ev
+    mg = rt.merged_groups["Txn#0"]
+    cols, ts = md1_send(np, i)
+    n = ts.shape[0]
+    staged = ev.StagedBatch(ts, np.zeros(n, np.int32), np.ones(n, np.bool_),
+                            cols, n)
+    extra = [np.stack([mg.members[idxs[0]]._group_slots(staged)])
+             for _, idxs in mg.units]
+    batch, g = ev.StackedBatch([staged]).to_device(mg.in_schema, dev, extra)
+    progs = []
+    for u, (_, idxs) in enumerate(mg.units):
+        p = mg.members[idxs[0]].planned
+        seq = p.window.arrival_seq(mg._state[u][0])
+        progs.append((p.filter_spec, g[u], None if seq is None else
+                      seq.clone(), p.window.keeps_expired))
+    return batch, progs
+
+
+def compare_multi(torch, np, k29, specs, batch, gs, seqs, kx, label):
+    """K29 against its plain version from the same counters: every row of
+    each (program, batch)'s partition and the counts; the counters."""
+    s1 = [None if s is None else s.clone() for s in seqs]
+    s2 = [None if s is None else s.clone() for s in seqs]
+    nows = [0] * batch.ts.shape[0]
+    got = k29.multi_filter(specs, batch.ts, batch.kind, batch.valid,
+                           batch.cols, gs, nows, s1, kx)
+    want = k29.plain(specs, batch.ts, batch.kind, batch.valid, batch.cols,
+                     gs, nows, s2, kx)
+    err = 0.0
+    for p, (rg, rw) in enumerate(zip(got, want)):
+        for s, ((r1, n1), (r2, n2)) in enumerate(zip(rg, rw)):
+            if int(n1) != int(n2):
+                fail(f"{label}: program {p} batch {s} count {int(n1)} vs "
+                     f"{int(n2)}")
+            for x, y, nm in zip(r1[:5] + tuple(r1.cols),
+                                r2[:5] + tuple(r2.cols),
+                                ("ts", "kind", "valid", "seq", "gslot") +
+                                tuple(f"col{j}" for j in
+                                      range(len(r1.cols)))):
+                err = max(err, float_err(torch, x, y,
+                                         f"{label} p{p} s{s} {nm}"))
+    for a, b in zip(s1, s2):
+        if a is not None and not torch.equal(a, b):
+            fail(f"{label}: seq counters differ")
+    return err
+
+
+def time_multi(torch, np, k29, specs, batch, gs, seqs, kx, label, card):
+    S, B = batch.ts.shape
+    P = len(specs)
+    args = (specs, batch.ts, batch.kind, batch.valid, batch.cols, gs,
+            [0] * S, seqs, kx)
+    r = {"ms": graph_ms(torch, lambda: k29.launch(*args[:6], *args[7:]),
+                        20),
+         "plain_ms": event_timer(torch, lambda: k29.plain(*args), 3),
+         "library_ms": None}
+    counts = [[int(n) for _, n in row] for row in
+              k29.launch(*args[:6], *args[7:])]
+    kept = sum(sum(c) for c in counts)
+    row_in = 8 + 4 + 1 + col_bytes([c[0] for c in batch.cols])
+    row_out = 8 + 4 + 1 + 8 + 4 + col_bytes([c[0] for c in batch.cols])
+    # the loaded columns and each program's group slots read once, the
+    # flags written once, the kept rows written once (the others' invalid
+    # tail is written too: counted)
+    r.update(bound(S * B * (row_in + 4 * P) + P * S * B * (1 + row_out),
+                   P * S * B * max(len(s.bytecode or ()) for s in specs)))
+    print(f"kernel multi_filter ({label}: {P} programs x {S} batches of "
+          f"{B}, {kept} kept): {r['ms']:.4f} ms (graph replay), plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+          f"{r['bound_by']} ({r['bytes']} bytes); library: none (no one "
+          f"PyTorch call filters and compacts P programs over S batches) "
+          f"[{card}]")
+    return r
+
+
+def pmc_plan(dev):
+    """PMC's query as the runtime plans it under its `@fuse`: a count
+    pattern off the block NFA, on the general mode's kernel plan, whose
+    stacks `fusion._dispatch_pattern` walks with the stacked mode."""
+    from siddhi_tpu_torch import SiddhiManager
+    rt = SiddhiManager(device=dev).create_siddhi_app_runtime(
+        PMC_QL.format(deco="@fuse(batches='8')"))
+    qr = rt.query_runtimes["riseQuery"]
+    step = qr.planned.steps["StockStream"]
+    if qr.planned.block or step.kernel_plan is None or \
+            not step.kernel_plan.general:
+        fail("PMC's plan is not the general mode's")
+    return qr, step
+
+
+def pm_stack(torch, np, dev, qr, S, first=0):
+    from siddhi_tpu_torch.core import event as ev
+    schema = qr.planned.in_schemas["StockStream"]
+    staged = []
+    nows = []
+    for i in range(first, first + S):
+        (sym, price), ts = pm1_send(np, i)
+        staged.append(ev.StagedBatch(ts, np.zeros(PM_B, np.int32),
+                                     np.ones(PM_B, np.bool_), [sym, price],
+                                     PM_B))
+        nows.append(int(ts.max()))
+    sel = np.stack([np.arange(PM_B, dtype=np.int32)[None, :]] * S)
+    batch, (sel_t,) = ev.StackedBatch(staged).to_device(schema, dev, [sel])
+    key = torch.zeros(1, dtype=torch.int32, device=dev)
+    return batch, sel_t, key, nows
+
+
+def clone_pattern_state(torch, state):
+    (b32, b64, sc), ss = state
+    return ((b32.clone(), b64.clone(), tuple(x.clone() for x in sc)),
+            [x.clone() for x in ss])
+
+
+def compare_stacked(torch, np, dev, card):
+    """The stacked mode on PMC's own plan at PM1's 8 x 1,024 trades (after
+    8 warm batches), the plan and stack its phase-60 run launches: against
+    8 sequential general-mode launches from one restored state (state,
+    headers and rows equal) and, on the stack's first 2 batches, against
+    its plain version (2 sequential plain steps: state, counts and
+    projected rows equal); its times beside the 8 launches'.  The kernel
+    record is the 2-batch stack's, the shape its plain version ran."""
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    qr, step = pmc_plan(dev)
+    kp = step.kernel_plan
+    warm, sel_w, key, nows_w = pm_stack(torch, np, dev, qr, 8, 0)
+    pk, ss = qr.state
+    pk, ss, _, _ = step.stacked(pk, ss, warm.cols, warm.ts, sel_w, key,
+                                nows_w)
+    base = clone_pattern_state(torch, (pk, ss))
+    batch, sel, key, nows = pm_stack(torch, np, dev, qr, 8, 8)
+    st_a = clone_pattern_state(torch, base)
+    pk_a, kouts = ps.launch_stacked(kp, st_a[0], batch.cols, batch.ts, sel,
+                                    key, nows)
+    st_b = clone_pattern_state(torch, base)
+    pk_b = st_b[0]
+    err = 0.0
+    for s in range(8):
+        pk_b, kout = ps.launch(kp, pk_b, tuple(c[s] for c in batch.cols),
+                               batch.ts[s], None, sel[s], key, nows[s],
+                               False)
+        a = kouts[s]
+        for x, y, nm in ((a[0], kout[0], "header"), (a[1], kout[1], "ts"),
+                         (a[2], kout[2], "kind"), (a[3], kout[3], "valid")):
+            err = max(err, float_err(torch, x, y, f"stacked s{s} {nm}"))
+        for k in a[4]:
+            v = a[3]
+            err = max(err, float_err(torch, a[4][k][v], kout[4][k][v],
+                                     f"stacked s{s} {k}"))
+    for x, y, nm in ((pk_a[0], pk_b[0], "b32"), (pk_a[1], pk_b[1], "b64")):
+        float_err(torch, x, y, f"stacked state {nm}")
+    # against the plain version (S sequential plain steps, about 4 s a
+    # batch of 1,024 events on the card) on the stack's first 2 batches
+    S2 = 2
+    b2 = type(batch)(batch.ts[:S2], batch.kind[:S2], batch.valid[:S2],
+                     tuple(c[:S2] for c in batch.cols))
+    sel2, nows2 = sel[:S2], nows[:S2]
+    st_c = clone_pattern_state(torch, base)
+    st_d = clone_pattern_state(torch, base)
+    t0 = time.perf_counter()
+    pk_c, ss_c, outs_c, _ = step.stacked(st_c[0], st_c[1], b2.cols,
+                                         b2.ts, sel2, key, nows2)
+    torch.cuda.synchronize()
+    kern_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pk_d, ss_d = st_d
+    outs_d = []
+    for s in range(S2):
+        pk_d, ss_d, out, _ = step.plain(pk_d, ss_d,
+                                        tuple(c[s] for c in batch.cols),
+                                        batch.ts[s], sel[s], key, nows[s])
+        outs_d.append(out)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for s, (a, b) in enumerate(zip(outs_c, outs_d)):
+        if int(a[0]) != int(b[0]) or int(a[1]) != int(b[1]):
+            fail(f"stacked vs plain s{s}: counts {int(a[0])}/{int(a[1])} vs "
+                 f"{int(b[0])}/{int(b[1])}")
+        va, vb = a[4], b[4]
+        for x, y, nm in ((a[2][va], b[2][vb], "ts"),) + tuple(
+                (x[va], y[vb], f"col{j}")
+                for j, (x, y) in enumerate(zip(a[5], b[5]))):
+            err = max(err, float_err(torch, x, y, f"stacked vs plain s{s} "
+                                                   f"{nm}"))
+    for x, y, nm in ((pk_c[0], pk_d[0], "b32"), (pk_c[1], pk_d[1], "b64")):
+        float_err(torch, x, y, f"stacked vs plain state {nm}")
+    saved = clone_pattern_state(torch, base)[0]
+
+    def restore():
+        for x, y in zip(saved[:2], base[0][:2]):
+            y.copy_(x)
+        for x, y in zip(saved[2], base[0][2]):
+            y.copy_(x)
+    ms8 = graph_ms(torch, lambda: ps.launch_stacked(
+        kp, base[0], batch.cols, batch.ts, sel, key, nows), 10, restore)
+    r = {"ms": graph_ms(torch, lambda: ps.launch_stacked(
+        kp, base[0], b2.cols, b2.ts, sel2, key, nows2), 10, restore)}
+
+    def eight():
+        p = base[0]
+        for s in range(8):
+            p, _ = ps.launch(kp, p, tuple(c[s] for c in batch.cols),
+                             batch.ts[s], None, sel[s], key, nows[s], False)
+    seq_ms = graph_ms(torch, eight, 10, restore)
+    r["plain_ms"] = plain_ms
+    r["library_ms"] = None
+    state_bytes = base[0][0].numel() * 4 + base[0][1].numel() * 8
+    row = 8 + 4 + 1 + sum(t.element_size() for t in kouts[0][4].values())
+    nrows = kouts[0][1].shape[0]
+    # the events (sym, price, ts, the selection) read once, the state
+    # read and written once, each batch's rows and header written once
+    r.update(bound(S2 * PM_B * (4 + 4 + 8 + 4) + 2 * state_bytes +
+                   S2 * nrows * row + S2 * 24))
+    print(f"kernel pattern_step stacked mode (PMC's plan, PM1's trades, one "
+          f"key): 8 x "
+          f"{PM_B} events {ms8:.4f} ms a launch (graph replay) against 8 "
+          f"sequential general-mode launches {seq_ms:.4f} ms; 2 x {PM_B} "
+          f"events {r['ms']:.4f} ms, plain (2 sequential plain steps) "
+          f"{plain_ms:.1f} ms once, the stacked call with projection "
+          f"{kern_wall * 1e3:.1f} ms wall; bound (2 x {PM_B}) "
+          f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} bytes); "
+          f"library: none (no PyTorch call runs an NFA) [{card}]")
+    return err, r
+
+
+def compare_ring(torch, np, dev, rt, card):
+    """K30 at MD1's five output blocks (one merged dispatch's outputs):
+    `ring_append` against per-leaf index copies into a second ring, then
+    `ring_pack` of the slots against the plain pack; their times, the
+    library's one `copy_` per leaf."""
+    from siddhi_tpu_torch.kernels import ring as k30
+    mg = rt.merged_groups["Txn#0"]
+    captured = []
+    mg._demux = lambda items, results: captured.append(results)
+    cols, ts = md1_send(np, 1)
+    rt.get_input_handler("Txn").send_columns(cols, timestamps=ts)
+    del mg._demux
+    outs = [r for r in captured[0][0] if r is not None]
+    if len(outs) != 5:
+        fail(f"MD1's merged dispatch gave {len(outs)} output blocks")
+    blocks = [(h, *o[:3], tuple(o[3])) for o, h in outs]
+    err = 0.0
+    res = {}
+    app_ms, pack_ms, app_plain, pack_plain, lib_ms = [], [], [], [], []
+    fetch_ms = []
+    nbytes_app = nbytes_pack = 0
+    for j, blk in enumerate(blocks):
+        ra, rb = k30.alloc(blk, 4), k30.alloc(blk, 4)
+        for slot in (1, 2, 3):
+            k30.append(ra, blk, slot)
+            k30.append_plain(rb, k30.block_leaves(blk), slot)
+        for x, y in zip(ra, rb):
+            float_err(torch, x, y, f"ring_append block {j}")
+        meta_a, rows_a = k30.pack_fetch(ra, 1, 3, k30.PackStaging())
+        meta_b, rows_b = k30.pack_plain(rb, 1, 3)
+        if not np.array_equal(meta_a, meta_b):
+            fail(f"ring_pack block {j}: meta differs")
+        for x, y in zip(rows_a, rows_b):
+            if x.dtype.kind == "f":
+                same = np.array_equal(x, y, equal_nan=True)
+            else:
+                same = np.array_equal(x, y)
+            if not same:
+                fail(f"ring_pack block {j}: packed rows differ")
+        leaves = k30.block_leaves(blk)
+        nb = sum(x.numel() * x.element_size() for x in leaves)
+        nbytes_app += 2 * nb
+        app_ms.append(graph_ms(torch, lambda: k30.launch_append(
+            ra, leaves, 0), 20))
+        app_plain.append(event_timer(torch, lambda: k30.append_plain(
+            rb, leaves, 0), 5))
+        lib_ms.append(event_timer(torch, lambda: [
+            d[0].copy_(s) for d, s in zip(rb, leaves)], 5))
+        st = k30.PackStaging()
+        k30.launch_pack(ra, 1, 3, st)
+        pack_ms.append(graph_ms(torch, lambda: k30.pack_kernels(
+            ra, 1, 3, st, torch.cuda.current_stream()), 20))
+        fetch_ms.append(event_timer(torch, lambda: k30.launch_pack(
+            ra, 1, 3, st), 5))
+        pack_plain.append(event_timer(torch, lambda: k30.pack_plain(
+            rb, 1, 3), 3))
+        valid = int(meta_a[:, -1].sum())
+        row = sum(t.element_size() for t in ra[2:])
+        nbytes_pack += 3 * blk[3].numel() + 2 * valid * row + \
+            meta_a.size * 8 * 2
+    res["ring_append"] = {"ms": sum(app_ms), "plain_ms": sum(app_plain),
+                          "library_ms": sum(lib_ms)}
+    res["ring_append"].update(bound(nbytes_app))
+    res["ring_pack"] = {"ms": sum(pack_ms), "plain_ms": sum(pack_plain),
+                        "library_ms": None}
+    res["ring_pack"].update(bound(nbytes_pack))
+    for k, r in res.items():
+        lib = (f"{r['library_ms']:.4f} ms (one copy_ per leaf)"
+               if r["library_ms"] is not None else
+               "none (no one PyTorch call packs the valid rows of m slots)")
+        print(f"kernel {k} (MD1's five output blocks, each once, 3 slots a "
+              f"pack; graph replay): {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']} ({r['bytes']} bytes), library {lib} [{card}]")
+    print(f"ring_pack with its two device-to-host transfers and the host's "
+          f"unpack (CUDA events): {sum(fetch_ms):.4f} ms over the five "
+          f"blocks [{card}]")
+    return err, res
+
+
+def slice15_phases(torch, np, dev):
+    """Phases 57-62 (the dispatch layer): K29, the stacked mode and K30
+    against their plain versions at full size, then MD1 merged and
+    unmerged, FP1 fused and unfused, PM1 and PMC fused, SV1, and FP1 under
+    @pipeline(depth='4') and @async.  Returns the kernel records."""
+    from siddhi_tpu_torch.kernels import multi_filter as k29
+    t0 = time.perf_counter()
+    card = card_line()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 15 {what}: {time.perf_counter() - t0:.1f} s")
+    # -- phase 57: the kernels against their plain versions ----------------
+    from siddhi_tpu_torch import SiddhiManager
+    md_rt = SiddhiManager(device=dev).create_siddhi_app_runtime(md1_ql())
+    batch, progs = md1_stage_inputs(torch, np, dev, md_rt, 0)
+    specs = [p[0] for p in progs]
+    gs = [p[1] for p in progs]
+    kx = [p[3] for p in progs]
+    err = compare_multi(torch, np, k29, specs, batch, gs,
+                        [p[2] for p in progs], kx, "K29 MD1 merged stage")
+    k29_md = time_multi(torch, np, k29, specs, batch, gs,
+                        [p[2] for p in progs], kx, "MD1's merged stage",
+                        card)
+    fp_rt = SiddhiManager(device=dev).create_siddhi_app_runtime(fp1_ql())
+    fq = fp_rt.query_runtimes["fusedClean"]
+    from siddhi_tpu_torch.core import event as ev
+    staged = []
+    for i in range(8):
+        cols, ts = fp1_send(np, i)
+        staged.append(ev.StagedBatch(ts, np.zeros(FP_B, np.int32),
+                                     np.ones(FP_B, np.bool_), cols, FP_B))
+    fbatch, (fg,) = ev.StackedBatch(staged).to_device(
+        fq.planned.in_schema, dev, [np.zeros((8, FP_B), np.int32)])
+    fseq = fq.planned.window.arrival_seq(fq.state[0])
+    fargs = ([fq.planned.filter_spec], fbatch, [fg],
+             [None if fseq is None else fseq.clone()], [False])
+    err = max(err, compare_multi(torch, np, k29, fargs[0], fargs[1],
+                                 fargs[2], fargs[3], fargs[4],
+                                 "K29 FP1 fused stage"))
+    time_multi(torch, np, k29, *fargs, "FP1's fused stage", card)
+    del fbatch, fg, staged
+    took("phase 57 K29 done")
+    s_err, stacked = compare_stacked(torch, np, dev, card)
+    took("phase 57 stacked mode done")
+    # -- phase 58: MD1 merged and unmerged ---------------------------------
+    check = MD_CHECK
+    merged, cap_m, rt_m = drive_app(torch, np, dev, md1_ql(), MD_QUERIES,
+                                    "Txn", md1_send, MD_WARM, MD_SENDS,
+                                    check)
+    if not rt_m.merged_groups:
+        fail("MD1 ran unmerged")
+    unmerged, cap_u, _ = drive_app(
+        torch, np, dev, md1_ql(), MD_QUERIES, "Txn", md1_send, MD_WARM,
+        MD_SENDS, check, props={"optimizer.merge.enabled": "false"})
+    check_launched("MD1 merged", merged["launches"], merged["plain"],
+                   ("multi_filter", "length_window", "group_agg"))
+    if merged["launches"]["filter_compact"] != \
+            MD_SENDS:      # slowBurn alone keeps K1
+        fail(f"MD1 merged: filter_compact launched "
+             f"{merged['launches']['filter_compact']} times (slowBurn's "
+             f"{MD_SENDS} expected)")
+    check_launched("MD1 unmerged", unmerged["launches"], unmerged["plain"],
+                   ("filter_compact", "length_window", "group_agg"))
+    same_rows(np, cap_m, cap_u, MD_QUERIES[:5], check, "MD1 merged vs "
+              "unmerged")
+    model = md1_model(np, max(check), check)
+    check_md1(np, cap_m, model, check, "MD1 merged")
+    print_fig("MD1 merged", merged, card)
+    print_fig("MD1 unmerged", unmerged, card)
+    launches = {"multi_filter": merged["launches"]["multi_filter"]}
+    took("phase 58 MD1 done")
+    # -- phase 59: FP1 fused and unfused -----------------------------------
+    fcheck = (0, FP_SENDS - 1)
+    fused, cap_f, _ = drive_app(torch, np, dev, fp1_ql(), FP_QUERIES,
+                                "SensorStream", fp1_send, 0, FP_SENDS,
+                                fcheck, n_prof=8, keep_all=("alerts",),
+                                names=FP_DEVICES)
+    unfused, cap_g, _ = drive_app(torch, np, dev, fp1_ql(""), FP_QUERIES,
+                                  "SensorStream", fp1_send, 0, FP_SENDS,
+                                  fcheck, n_prof=8, keep_all=("alerts",),
+                                  names=FP_DEVICES)
+    check_launched("FP1 fused", fused["launches"], fused["plain"],
+                   ("multi_filter", "filter_compact"))
+    same_rows(np, cap_f, cap_g, FP_QUERIES, fcheck, "FP1 fused vs unfused")
+    check_fp1(np, cap_f, fcheck, FP_SENDS, "FP1 fused")
+    print_fig("FP1 fused (@fuse(batches='8'); send-to-callback includes the "
+              "wait in the stack)", fused, card)
+    print_fig("FP1 unfused", unfused, card)
+    launches["multi_filter"] += fused["launches"]["multi_filter"]
+    took("phase 59 FP1 done")
+    # -- phase 60: PM1 and PMC fused ---------------------------------------
+    pcheck = tuple(range(PM_SENDS))
+    pf, cap_pf, _ = drive_app(torch, np, dev, pm1_ql(), ("riseQuery",),
+                              "StockStream", pm1_send, 0, PM_SENDS, pcheck,
+                              n_prof=0, names=PM_SYMS)
+    pu, cap_pu, _ = drive_app(torch, np, dev, pm1_ql(""), ("riseQuery",),
+                              "StockStream", pm1_send, 0, PM_SENDS, pcheck,
+                              n_prof=0, names=PM_SYMS)
+    same_rows(np, cap_pf, cap_pu, ("riseQuery",), pcheck,
+              "PM1 fused vs unfused")
+    check_launched("PM1 fused", pf["launches"], pf["plain"], ("block_nfa",))
+    print_fig("PM1 fused (a simple chain: block NFA batch after batch)", pf,
+              card)
+    cf, cap_cf, _ = drive_app(torch, np, dev, PMC_QL.format(
+        deco="@fuse(batches='8')"), ("riseQuery",), "StockStream", pm1_send,
+        0, PM_SENDS, pcheck, n_prof=0, names=PM_SYMS)
+    cu, cap_cu, _ = drive_app(torch, np, dev, PMC_QL.format(deco=""),
+                              ("riseQuery",), "StockStream", pm1_send, 0,
+                              PM_SENDS, pcheck, n_prof=0, names=PM_SYMS)
+    same_rows(np, cap_cf, cap_cu, ("riseQuery",), pcheck,
+              "PMC fused vs unfused")
+    check_launched("PMC fused", cf["launches"], cf["plain"],
+                   ("pattern_step_stacked",))
+    if cap_cf.count["riseQuery"] == 0:
+        fail("PMC delivered no match")
+    print_fig("PMC fused (count pattern: the stacked mode)", cf, card)
+    print_fig("PMC unfused", cu, card)
+    launches["pattern_step_stacked"] = \
+        cf["launches"]["pattern_step_stacked"]
+    took("phase 60 PM1 / PMC done")
+    # -- phase 61: SV1 (MD1 served) ----------------------------------------
+    from siddhi_tpu_torch.kernels import ring as k30
+    sv, cap_s, rt_s = drive_app(torch, np, dev, md1_ql("@app:serve\n"),
+                                MD_QUERIES, "Txn", md1_send, MD_WARM,
+                                MD_SENDS, check)
+    check_launched("SV1", sv["launches"], sv["plain"],
+                   ("multi_filter", "ring", "ring_pack"))
+    same_rows(np, cap_s, cap_m, MD_QUERIES[:5], check, "SV1 vs MD1")
+    sd = rt_s._serve_drainer
+    rings = [m.__dict__.get("_serve_ring")
+             for m in rt_s.query_runtimes.values()]
+    used = max(r.max_occupancy for r in rings if r is not None)
+    print_fig("SV1 (MD1 under @app:serve; per-send wall is the producer's, "
+              "which does not wait on the card)", sv, card)
+    print(f"SV1: ring slots used at most {used}, drain rounds "
+          f"{sd.drains_total}, device-to-host transfers {k30.d2h_transfers} "
+          f"(the counters since the last reset, the profiled sends "
+          f"included) [{card}]")
+    launches["ring_append"] = sv["launches"]["ring"]
+    launches["ring_pack"] = sv["launches"]["ring_pack"]
+    took("phase 61 SV1 done")
+    r_err, ring_res = compare_ring(torch, np, dev, md_rt, card)
+    err = max(err, r_err)
+    took("phase 57 K30 done")
+    # -- phase 62: FP1 under @pipeline(depth='4') and @async ---------------
+    for deco in ("@pipeline(depth='4')", "@async"):
+        fig, cap_x, _ = drive_app(
+            torch, np, dev, fp1_ql(f"@fuse(batches='8') {deco}"),
+            FP_QUERIES, "SensorStream", fp1_send, 0, FP_SENDS, fcheck,
+            n_prof=0, keep_all=("alerts",), names=FP_DEVICES)
+        same_rows(np, cap_x, cap_g, FP_QUERIES, fcheck, f"FP1 {deco}")
+        print_fig(f"FP1 {deco}", fig, card)
+    took("phase 62 done")
+    rec = []
+    for name, src, rep, r in (
+            ("multi_filter", "multi_filter", "siddhi_tpu/optimizer/mqo.py:199",
+             k29_md),
+            ("pattern_step_stacked", "pattern_step",
+             "siddhi_tpu/core/fusion.py:247", stacked),
+            ("ring_append", "ring", "siddhi_tpu/serving/ring.py:104",
+             ring_res["ring_append"]),
+            ("ring_pack", "ring", "siddhi_tpu/serving/ring.py:109",
+             ring_res["ring_pack"])):
+        rec.append({"name": name, "route": "cuda",
+                    "source": f"siddhi_tpu_torch/csrc/{src}.cu",
+                    "replaces": rep, "launches": launches[name],
+                    "max_abs_err": max(err, s_err), "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    return rec
 
 
 if __name__ == "__main__":

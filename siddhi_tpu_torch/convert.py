@@ -542,6 +542,23 @@ def query_state_from_jax(planned, jax_state, device=None):
     return port_w, selector_state_from_jax(sel_state, device)
 
 
+def merged_state_from_jax(jax_group, group, device=None) -> None:
+    """Carry a JAX merge group's state (`MergedGroupRuntime`, `siddhi_tpu/
+    optimizer/mqo.py`) into the port's group of the same app: a group's
+    state is its members' states, each member's view (`member_state`)
+    converted as `query_state_from_jax` converts a query's, a shared
+    unit's window held once (setting one member's view sets the unit's
+    window), and the members' group-slot allocators copied."""
+    by_name = {m.name: m for m in jax_group.members}
+    for m in group.members:
+        jm = by_name[m.name]
+        if m.planned.slot_allocator is not None:
+            _copy_allocator(m.planned.slot_allocator,
+                            jm.planned.slot_allocator)
+        group.set_member_state(m, query_state_from_jax(
+            m.planned, jax_group.member_state(jm), device))
+
+
 def window_state_from_jax(w, wstate, schema: ev.Schema, device=None):
     """A JAX top-level window state -> the port's state of the port's
     window `w` (of the same kind and parameters)."""

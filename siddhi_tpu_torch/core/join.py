@@ -727,16 +727,23 @@ def _header(wake, dev) -> torch.Tensor:
     return h
 
 
+def side_cols(batch, extra):
+    """The columns a side's window sees: the batch's, then the key-slot
+    column (bucket path) or the batch row index (table fast path)."""
+    return tuple(batch.cols) + ((extra,) if extra is not None else ())
+
+
 def _advance(side: JoinSide, state, batch, gslot, extra, now: int, facts,
-             in_tabs=None):
+             in_tabs=None, pre=None):
     """The side's filters and window over one batch (K1, then K5 or K2);
     the key-slot column rides the window on the bucket path, the batch
-    row index on the table fast path (`extra`)."""
-    cols = tuple(batch.cols) + ((extra,) if extra is not None else ())
+    row index on the table fast path (`extra`).  `pre` (a `Prefiltered`
+    spec) carries the batch's rows K29 already filtered."""
     rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid, seq=None,
-                gslot=gslot, cols=cols)
-    _, wout = side.window.process(state, rows, side.fspec.bind(in_tabs),
-                                  now, facts)
+                gslot=gslot, cols=side_cols(batch, extra))
+    _, wout = side.window.process(
+        state, rows, side.fspec.bind(in_tabs) if pre is None else pre, now,
+        facts)
     return wout
 
 
@@ -762,7 +769,7 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
     empty_other = _empty_other(this, other)
 
     def step(state, batch, gslot, probe, now: int, facts, table=None,
-             in_tabs=None):
+             in_tabs=None, pre=None):
         this_state = state[0 if this_is_left else 1]
         other_state = state[1 if this_is_left else 0]
         B = batch.ts.shape[0]
@@ -775,7 +782,7 @@ def _make_step(plan: PlannedJoinQuery, this: JoinSide, other: JoinSide,
                 extra = bix[(B, dev)] = torch.arange(B, dtype=torch.int32,
                                                       device=dev)
         wout = _advance(this, this_state, batch, gslot, extra, now, facts,
-                        in_tabs)
+                        in_tabs, pre)
         trig = wout.rows
         header = _header(wout.next_wakeup, dev)
         R = _reference_rows(this.window, B)
@@ -855,13 +862,13 @@ def _make_feed_only(plan: PlannedJoinQuery, side: JoinSide, is_left: bool):
     `siddhi_tpu/core/join.py:708`): K1 and K5 / K2, no probe."""
 
     def step(state, batch, gslot, probe, now: int, facts, table=None,
-             in_tabs=None):
+             in_tabs=None, pre=None):
         extra = probe
         if plan.fastpath == "table":
             extra = torch.arange(batch.ts.shape[0], dtype=torch.int32,
                                  device=batch.ts.device)
         wout = _advance(side, state[0 if is_left else 1], batch, gslot,
-                        extra, now, facts, in_tabs)
+                        extra, now, facts, in_tabs, pre)
         return None, _header(wout.next_wakeup, batch.ts.device)
 
     return step

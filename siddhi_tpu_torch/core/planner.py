@@ -122,6 +122,17 @@ def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
             "__kind__": kind}
 
 
+def header_of(out, wake) -> torch.Tensor:
+    """A plain step's header i64[4] = [n_valid, n_current, wake, missed]
+    of its output rows and its window's wake (None: no timers)."""
+    ots, okind, ovalid, _ = out
+    cur = torch.logical_and(ovalid, okind == ev.CURRENT)
+    if wake is None:
+        wake = torch.tensor([NO_WAKEUP, 0], dtype=torch.int64,
+                            device=ots.device)
+    return torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake])
+
+
 def kernel_subset_violation(in_schema: ev.Schema,
                             sel: Optional[SelectorExec] = None
                             ) -> Optional[str]:
@@ -297,12 +308,15 @@ def plan_single_query(
                            ik.keys) if post_chain else None
     wproc = window_proc
 
-    def stage_body(wstate, batch, gslot, now: int, facts, in_tabs=None):
-        """Pre-window filters + window advance."""
+    def stage_body(wstate, batch, gslot, now: int, facts, in_tabs=None,
+                   pre=None):
+        """Pre-window filters + window advance.  `pre` (a `Prefiltered`
+        spec) carries the batch's rows K29 already filtered."""
         rows = Rows(ts=batch.ts, kind=batch.kind, valid=batch.valid,
                     seq=None, gslot=gslot, cols=batch.cols)
-        wstate, wout = wproc.process(wstate, rows, fspec.bind(in_tabs), now,
-                                     facts)
+        wstate, wout = wproc.process(
+            wstate, rows, fspec.bind(in_tabs) if pre is None else pre, now,
+            facts)
         return wstate, wout.rows, wout.next_wakeup
 
     def select_body(astate, orows: Rows, now: int, in_tabs=None,
@@ -320,18 +334,12 @@ def plan_single_query(
         return sel.process(astate, orows, env)
 
     def step(state, batch, gslot, now: int, facts, in_tabs=None,
-             pslots=()):
+             pslots=(), pre=None):
         wstate, astate = state
         wstate, orows, wake = stage_body(wstate, batch, gslot, now, facts,
-                                         in_tabs)
-        astate, (ots, okind, ovalid, ocols) = select_body(
-            astate, orows, now, in_tabs, pslots)
-        cur = torch.logical_and(ovalid, okind == ev.CURRENT)
-        if wake is None:
-            wake = torch.tensor([NO_WAKEUP, 0], dtype=torch.int64,
-                                device=ots.device)
-        header = torch.cat([torch.stack([ovalid.sum(), cur.sum()]), wake])
-        return (wstate, astate), (ots, okind, ovalid, ocols), header
+                                         in_tabs, pre)
+        astate, out = select_body(astate, orows, now, in_tabs, pslots)
+        return (wstate, astate), out, header_of(out, wake)
 
     def init_state():
         return (wproc.init_state(device), sel.init_state())

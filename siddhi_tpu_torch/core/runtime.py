@@ -59,11 +59,16 @@ synchronous junctions, the three callback kinds, emission-cap growth,
 kernels K27 and K28), named windows (`NamedWindowRuntime`: a shared window
 processor whose published rows reader queries, bidirectional joins and
 stream callbacks receive; joins and on-demand reads probe its contents)
-and triggers (`TriggerRuntime`, host code on the scheduler).  Everything
-else raises `CompileError` naming its ROADMAP item.
+and triggers (`TriggerRuntime`, host code on the scheduler); the dispatch
+layer: merge groups (`optimizer/mqo.py`), `@fuse` stacks
+(`core/fusion.py`), `@serve` emission rings (`serving/`), `@pipeline`
+and `@async` (`_emit`, `_EmissionDrainer`, a stream's ingress queue),
+the manager's config properties.  Everything else raises `CompileError`
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import heapq
 import logging
@@ -94,8 +99,6 @@ _log = logging.getLogger("siddhi_tpu_torch")
 
 # annotations whose machinery is not ported yet -> ROADMAP item
 _UNPORTED_ANNOTATIONS = {
-    "async": "A12", "pipeline": "A12", "serve": "A12", "fuse": "A12",
-    "app:fuse": "A12", "app:pipeline": "A12", "app:serve": "A12",
     "app:admission": "A15", "source": "A15",
     "sink": "A15", "store": "A15", "app:statistics": "A15",
     "app:errorstore": "A15",
@@ -185,6 +188,15 @@ class PatternQueryRuntime:
 
     _EMIT_CAP_MAX = 512
 
+    # dispatch decorations, set at wiring time (A12): the @fuse stack
+    # (core/fusion.py), @async / @pipeline / @serve emission, the merge
+    # group that dispatches this query (optimizer/mqo.py)
+    _fuse = None
+    async_emit = False
+    pipeline_emit = 0
+    serve_emit = False
+    _merged = None
+
     def __init__(self, planned, app: "SiddhiAppRuntime",
                  slot_allocator=None):
         self.planned = planned
@@ -249,6 +261,10 @@ class PatternQueryRuntime:
 
     def process_staged(self, stream_id: str, staged: ev.StagedBatch,
                        now: int) -> None:
+        fb = self._fuse
+        if fb is not None and fb.offer((stream_id, staged, now), staged,
+                                       stream_id):
+            return
         p = self.planned
         dev = p.device
         B = staged.ts.shape[0]
@@ -341,26 +357,127 @@ def _target_live(qr) -> bool:
     return j is not None and bool(j.queries or j.stream_callbacks)
 
 
-def _emit_output(qr, out, now: int, wake=NO_WAKEUP) -> None:
-    """Deliver one pattern step's output: fetch the header (one device
-    sync: [n_valid, n_dropped], and the wake where the plan has absent
-    atoms), apply the wake, fan out to batch callbacks, and decode rows to
-    events only when an event consumer exists."""
-    live = bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
-    timed = qr.planned.timer_step is not None
+def _live(qr) -> bool:
+    """Anything downstream that would read this output (checked before any
+    device-to-host transfer)."""
+    return bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
+
+
+def _timed(qr) -> bool:
+    """A query whose device wake must be applied after every step (absent
+    atoms, time / cron windows): its emission never defers."""
+    p = qr.planned
+    if isinstance(qr, PatternQueryRuntime):
+        return p.timer_step is not None
+    return bool(p.needs_timer)
+
+
+def _emit(qr, out, header, now: int, deliver) -> None:
+    """Emission entry (reference `_emit_output`,
+    `siddhi_tpu/core/runtime.py:899-960`): `header` is the step's device
+    counts (i64[H]), `deliver(qr, out, header as a host list, now)` its
+    delivery.  `@serve` appends the output to the query's emission ring on
+    the card and returns (the serving drainer delivers it); `@async` hands
+    it to the app's emission drainer thread; `@pipeline(depth=k)` keeps
+    up to k deferred emissions on the producer (depth 1 delivers each
+    send's predecessor; depth k drains to k/2 in one batched fetch).
+    Timer-bearing queries never defer: a deferred wake would stall their
+    expiry.  Otherwise the header comes to the host in one transfer and
+    the delivery runs inline."""
+    timed = _timed(qr)
+    live = _live(qr)
     if not live and not timed:
         return
-    n_valid, n_dropped, ots, okind, ovalid, ocols = out
-    if timed:
-        nv, nd, w = torch.stack([n_valid, n_dropped, torch.as_tensor(
-            wake, dtype=torch.int64, device=n_valid.device)]).tolist()
+    if live and not timed and out is not None:
+        if getattr(qr, "serve_emit", False):
+            from ..serving import ring_append
+            ring_append(qr, out, header, now, deliver)
+            return
+        if getattr(qr, "async_emit", False) and \
+                qr.app._drainer is not None:
+            qr.app._drainer.enqueue(qr, out, header, now, deliver)
+            return
+        depth = int(getattr(qr, "pipeline_emit", 0) or 0)
+        if depth:
+            dq = qr.__dict__.get("_pending_emit")
+            if dq is None:
+                dq = qr._pending_emit = collections.deque()
+            dq.append((out, header, now, deliver))
+            if len(dq) > depth:
+                if depth == 1:
+                    _deliver_output(qr, *dq.popleft())
+                else:
+                    take = len(dq) - depth // 2
+                    _deliver_many(qr, [dq.popleft() for _ in range(take)])
+            return
+    _deliver_output(qr, out, header, now, deliver)
+
+
+def _deliver_output(qr, out, header, now: int, deliver) -> None:
+    """Fetch one emission's header and deliver it."""
+    deliver(qr, out, ev.device_get(header).tolist(), now)
+
+
+def fetch_headers(headers) -> List[List[int]]:
+    """Several emissions' headers in ONE device-to-host transfer."""
+    if not headers:
+        return []
+    flat = ev.device_get(torch.cat([h.reshape(-1) for h in headers]))
+    out, o = [], 0
+    for h in headers:
+        n = h.numel()
+        out.append(flat[o:o + n].tolist())
+        o += n
+    return out
+
+
+def _deliver_many(qr, items) -> None:
+    """Deliver several deferred emissions of one query with ONE batched
+    header fetch (reference `_deliver_many`, :997-1022)."""
+    hdrs = fetch_headers([h for _, h, _, _ in items])
+    for (out, _, now, deliver), hdr in zip(items, hdrs):
+        deliver(qr, out, hdr, now)
+
+
+def _drain_pending_emit(qr) -> None:
+    """Deliver a @pipeline runtime's held emissions (flush / shutdown),
+    under the query lock the producer's branch runs under."""
+    if not qr.__dict__.get("_pending_emit"):
+        return
+    with qr._qlock:
+        dq = qr.__dict__.get("_pending_emit")
+        if not dq:
+            return
+        items = list(dq)
+        dq.clear()
+        _deliver_many(qr, items)
+
+
+def _emit_output(qr, out, now: int, wake=NO_WAKEUP) -> None:
+    """Emit one pattern step's output: its header is [n_valid, n_dropped]
+    and, where the plan has absent atoms, the wake (the earliest pending
+    absent deadline)."""
+    n_valid, n_dropped = out[0], out[1]
+    parts = [n_valid, n_dropped]
+    if qr.planned.timer_step is not None:
+        parts.append(torch.as_tensor(wake, dtype=torch.int64,
+                                     device=n_valid.device))
+    _emit(qr, out, torch.stack(parts), now, _deliver_pattern)
+
+
+def _deliver_pattern(qr, out, hdr, now: int) -> None:
+    """Deliver one pattern step's output from its host header: apply the
+    wake, fan out to batch callbacks, and decode rows to events only when
+    an event consumer exists."""
+    if qr.planned.timer_step is not None:
+        nv, nd, w = hdr
         qr._apply_wake(w)
-        if not live:
+        if not _live(qr):
             return
     else:
-        nv, nd = torch.stack([n_valid, n_dropped]).tolist()
+        nv, nd = hdr[:2]
     _deliver_capped(qr, "pattern match rows", "per-key emission capacity",
-                    nv, nv, nd, (ots, okind, ovalid, ocols), now)
+                    nv, nv, nd, tuple(out[2:]), now)
 
 
 def _grown_cap(qr, what: str, n_dropped: int, need: int,
@@ -421,7 +538,7 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
             bcb(now, payload)
     if not qr.callbacks and not _target_live(qr):
         return
-    ts_np, okind_np, ovalid_np = (x.cpu().numpy() for x in
+    ts_np, okind_np, ovalid_np = (ev.device_get(x) for x in
                                   (ots, okind, ovalid))
     order = np.nonzero(ovalid_np)[0]
     if ts_order:
@@ -436,7 +553,7 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
         if qr.callbacks:
             pairs = ev.unpack(p.out_schema, ev.EventBatch(
                 ts_np[order], k, np.ones(order.shape[0], np.bool_),
-                tuple(c.cpu().numpy()[order] for c in ocols)),
+                tuple(ev.device_get(c)[order] for c in ocols)),
                 want_kinds=(ev.CURRENT, ev.EXPIRED))
             current = [e for kk, e in pairs if kk == ev.CURRENT]
             expired = [e for kk, e in pairs if kk == ev.EXPIRED]
@@ -449,9 +566,12 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
             getattr(qr, "rate_limiter", None) is None:
         _insert_into_window(qr, nw, order, ts_np, okind_np, ocols)
         return
+    if not qr.callbacks and getattr(qr, "rate_limiter", None) is None and \
+            _route_rows(qr, order, ts_np, okind_np, ocols):
+        return
     batch = ev.EventBatch(ts_np[order], okind_np[order],
                           np.ones(order.shape[0], np.bool_),
-                          tuple(c.cpu().numpy()[order] for c in ocols))
+                          tuple(ev.device_get(c)[order] for c in ocols))
     pairs = ev.unpack(p.out_schema, batch,
                       want_kinds=(ev.CURRENT, ev.EXPIRED))
     if not pairs:
@@ -465,34 +585,70 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
     _deliver_pairs(qr, pairs, now)
 
 
-def _insert_into_window(qr, nw, order, ts_np, okind_np, ocols) -> None:
-    """`insert into` a named window without decoding the rows to events:
-    the rows the output event type routes, in order, staged as the
-    window's arrivals as `_route` would stage their events (CURRENT, a
-    float column's NaN as the canonical null, padded to the staging
-    bucket size)."""
+def _routed_rows(qr, order, okind_np):
+    """The rows (of `order`) that the query's output event type routes."""
     sel = qr.planned.output_event_type
     k = okind_np[order]
     keep = (k == ev.CURRENT) if sel == "CURRENT_EVENTS" else \
         (k == ev.EXPIRED) if sel == "EXPIRED_EVENTS" else \
         (k == ev.CURRENT) | (k == ev.EXPIRED)
-    rows = order[keep]
-    n = rows.shape[0]
-    if not n:
-        return
+    return order[keep]
+
+
+def _stage_rows(ts, cols, types) -> ev.StagedBatch:
+    """Routed rows staged as `_route` would stage their events: CURRENT, a
+    float column's NaN as the canonical null, padded to the staging bucket
+    size."""
+    n = ts.shape[0]
     cap = ev.bucket_size(n)
 
     def staged(x, dtype):
         a = np.zeros(cap, dtype)
-        a[:n] = x[rows]
+        a[:n] = x
         if a.dtype.kind == "f":
             a[:n][np.isnan(a[:n])] = np.nan
         return a
-    cols = [staged(c.cpu().numpy(), ev.np_dtype(t))
-            for c, t in zip(ocols, nw.schema.types)]
-    qr.app._route_window(nw, ev.StagedBatch(
-        staged(ts_np, np.int64), np.zeros(cap, np.int32),
-        np.arange(cap) < n, cols, n), int(ts_np[rows].max()))
+    return ev.StagedBatch(
+        staged(ts, np.int64), np.zeros(cap, np.int32), np.arange(cap) < n,
+        [staged(c, ev.np_dtype(t)) for c, t in zip(cols, types)], n)
+
+
+def _insert_into_window(qr, nw, order, ts_np, okind_np, ocols) -> None:
+    """`insert into` a named window without decoding the rows to events:
+    the routed rows, in order, staged as the window's arrivals."""
+    rows = _routed_rows(qr, order, okind_np)
+    if not rows.shape[0]:
+        return
+    cols = [ev.device_get(c)[rows] for c in ocols]
+    qr.app._route_window(nw, _stage_rows(ts_np[rows], cols,
+                                         nw.schema.types),
+                         int(ts_np[rows].max()))
+
+
+def _route_rows(qr, order, ts_np, okind_np, ocols) -> bool:
+    """`insert into` a stream without decoding the rows to events (a query
+    with no event callback and no rate limiter): the routed rows, in
+    order, staged as one batch.  Returns False where the rows must go
+    through events: a target that is not a stream of the output's types,
+    or an OBJECT column.  A STRING id the interner does not hold becomes
+    the null id, as its decoding to None and re-interning would make it."""
+    p = qr.planned
+    app = qr.app
+    j = app.junctions.get(p.output_target)
+    types = [t.upper() for t in p.out_schema.types]
+    if j is None or [t.upper() for t in j.schema.types] != types or \
+            "OBJECT" in types:
+        return False
+    rows = _routed_rows(qr, order, okind_np)
+    if not rows.shape[0]:
+        return True
+    cols = [ev.device_get(c)[rows] for c in ocols]
+    known = len(app.interner)
+    cols = [np.where((c < 0) | (c >= known), ev.NULL_ID, c)
+            if t == "STRING" else c for c, t in zip(cols, types)]
+    app._route_staged(j, _stage_rows(ts_np[rows], cols, types),
+                      int(ts_np[rows].max()))
+    return True
 
 
 def _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols) -> None:
@@ -503,15 +659,18 @@ def _apply_table_op(qr, order, ts_np, okind_np, ots, okind, ocols) -> None:
     insert or an upsert also takes a host copy of the rows: the primary-key
     allocator and the append bookkeeping run on the host."""
     op, table, cond, set_fns, key = qr.table_op
-    dev = ots.device
+    # rows a serving drainer delivers are host tensors: the write runs on
+    # the table's device all the same
+    dev = table.device
     want = okind_np[order] == ev.CURRENT
-    idx = _h2d(order.astype(np.int64), dev)
-    cols = tuple(c[idx] for c in ocols)
-    batch = ev.EventBatch(ots[idx], okind[idx], _h2d(want, dev), cols)
+    idx = _h2d(order.astype(np.int64), ots.device)
+    cols = tuple(c[idx].to(dev) for c in ocols)
+    batch = ev.EventBatch(ots[idx].to(dev), okind[idx].to(dev),
+                          _h2d(want, dev), cols)
     staged = None
     if op in ("insert", "upsert"):
         staged = ev.StagedBatch(ts_np[order], okind_np[order], want,
-                                [c.cpu().numpy() for c in cols],
+                                [ev.device_get(c) for c in cols],
                                 int(want.sum()))
     if op == "insert":
         table.insert(batch, staged)
@@ -542,12 +701,13 @@ class _LazyBatchPayload(dict):
 
     def __missing__(self, k):
         if k in ("ts", "kind", "valid"):
-            dict.__setitem__(self, "ts", self._ots.cpu().numpy())
-            dict.__setitem__(self, "kind", self._okind.cpu().numpy())
-            dict.__setitem__(self, "valid", self._ovalid.cpu().numpy())
+            dict.__setitem__(self, "ts", ev.device_get(self._ots))
+            dict.__setitem__(self, "kind", ev.device_get(self._okind))
+            dict.__setitem__(self, "valid", ev.device_get(self._ovalid))
             return dict.__getitem__(self, k)
         if k == "cols":
-            v = dict(zip(self._names, (c.cpu().numpy() for c in self._ocols)))
+            v = dict(zip(self._names,
+                         (ev.device_get(c) for c in self._ocols)))
             dict.__setitem__(self, k, v)
             return v
         raise KeyError(k)
@@ -645,6 +805,15 @@ class QueryRuntime:
     the device step, wake scheduling, delivery (reference:
     `siddhi_tpu/core/runtime.py` QueryRuntime)."""
 
+    # dispatch decorations, set at wiring time (A12): the @fuse stack
+    # (core/fusion.py), @async / @pipeline / @serve emission, the merge
+    # group that dispatches this query (optimizer/mqo.py)
+    _fuse = None
+    async_emit = False
+    pipeline_emit = 0
+    serve_emit = False
+    _merged = None
+
     def __init__(self, planned, app: "SiddhiAppRuntime"):
         self.planned = planned
         self.app = app
@@ -662,6 +831,21 @@ class QueryRuntime:
     @property
     def name(self):
         return self.planned.name
+
+    @property
+    def state(self):
+        """(window state, selector state); a merge group's member reads
+        its view of the group's state (a shared unit's window once)."""
+        mg = self._merged
+        return self._state if mg is None else mg.member_state(self)
+
+    @state.setter
+    def state(self, v) -> None:
+        mg = self._merged
+        if mg is None:
+            self._state = v
+        else:
+            mg.set_member_state(self, v)
 
     def _range_keys(self, staged: ev.StagedBatch):
         """A range partition's label column and the batch with the rows
@@ -683,6 +867,9 @@ class QueryRuntime:
         return _zero_slots(staged.ts.shape[0])
 
     def process_staged(self, staged: ev.StagedBatch, now: int) -> None:
+        fb = self._fuse
+        if fb is not None and fb.offer((staged, now), staged, None):
+            return
         p = self.planned
         if p.keyed_window:
             self._process_keyed(staged, now)
@@ -771,16 +958,19 @@ _HOLDS = {"timeBatch": "time batch window's slice",
 
 
 def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
-    """Deliver one plain step's output.  The header [n_valid, n_current,
-    wake, missed] is the step's one device fetch.  A time window step whose
-    expire bound missed rows left the window and the aggregates as they
-    were and raises here.  The wake is applied before delivery, and rows
-    move to the host only for an event consumer, valid ones in row (seq)
-    order."""
-    live = bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
-    if not live and not qr.planned.needs_timer:
-        return
-    nv, ncur, wake, missed = header.tolist()
+    """Emit one plain step's output: its header is [n_valid, n_current,
+    wake, missed]."""
+    _emit(qr, out, header, now, _deliver_plain)
+
+
+def _deliver_plain(qr: QueryRuntime, out, hdr, now: int) -> None:
+    """Deliver one plain step's output from its host header.  A time
+    window step whose expire bound missed rows left the window and the
+    aggregates as they were and raises here.  The wake is applied before
+    delivery, and rows move to the host only for an event consumer, valid
+    ones in row (seq) order."""
+    live = _live(qr)
+    nv, ncur, wake, missed = hdr
     w = qr.planned.window
     if missed and w.name in _HOLDS:
         per_key = qr.planned.keyed_window and "per key" not in \
@@ -819,6 +1009,15 @@ class JoinQueryRuntime:
     at each call)."""
 
     _EMIT_CAP_MAX = 1 << 21   # 2M emitted rows per batch
+
+    # dispatch decorations, set at wiring time (A12): the @fuse stack
+    # (core/fusion.py), @async / @pipeline / @serve emission, the merge
+    # group that dispatches this query (optimizer/mqo.py)
+    _fuse = None
+    async_emit = False
+    pipeline_emit = 0
+    serve_emit = False
+    _merged = None
 
     def __init__(self, planned, app: "SiddhiAppRuntime"):
         self.planned = planned
@@ -913,6 +1112,15 @@ class JoinQueryRuntime:
     def process_staged(self, is_left: bool, staged: ev.StagedBatch,
                        now: int) -> None:
         p = self.planned
+        fb = self._fuse
+        if fb is not None and not fb.bypass:
+            if p.fastpath == "bucket":
+                # bound (and the retention mirror fed) in arrival order;
+                # the stack replays the cached probe (reference
+                # `siddhi_tpu/core/fusion.py:398-403`)
+                self._join_key_probe(is_left, staged)
+            if fb.offer((is_left, staged, now), staged, is_left):
+                return
         probe = None
         if p.fastpath == "bucket":
             probe = _h2d(self._join_key_probe(is_left, staged), p.device)
@@ -976,18 +1184,21 @@ class JoinQueryRuntime:
 
 
 def _emit_join(qr: JoinQueryRuntime, out, header, now: int) -> None:
-    """Deliver one join step's output.  The header [n_valid, n_current,
-    n_dropped, lane overflow, wake, missed] is the step's one device fetch.
-    A lane overflow (the lane table lost candidates) or a time side's short
+    """Emit one join step's output: its header is [n_valid, n_current,
+    n_dropped, lane overflow, wake, missed]."""
+    _emit(qr, out, header, now, _deliver_join)
+
+
+def _deliver_join(qr: JoinQueryRuntime, out, hdr, now: int) -> None:
+    """Deliver one join step's output from its host header.  A lane
+    overflow (the lane table lost candidates) or a time side's short
     expire bound raises; rows past an implicit emission cap grow the cap
     for the next batches, past an explicit one they are dropped with a
     warning.  Rows move to the host only for an event consumer, the valid
     ones in a stable timestamp order."""
     p = qr.planned
-    live = bool(qr.callbacks or qr.batch_callbacks or _target_live(qr))
-    if not live and not p.needs_timer:
-        return
-    nv, ncur, nd, lane_over, wake, missed = header.tolist()
+    live = _live(qr)
+    nv, ncur, nd, lane_over, wake, missed = hdr
     if nd and p.aggregates:
         raise RuntimeError(
             f"query {qr.name!r}: {nd} joined rows did not fit the emission "
@@ -1175,8 +1386,8 @@ class NamedWindowRuntime:
         """The published rows (valid ones, in the step's row order, cut to
         the output event type) to the stream callbacks, then to each
         subscriber as one staged batch."""
-        valid = o.valid.cpu().numpy()
-        kind = o.kind.cpu().numpy()
+        valid = ev.device_get(o.valid)
+        kind = ev.device_get(o.kind)
         sel = self.output_event_type
         if sel == "CURRENT_EVENTS":
             keep = kind == ev.CURRENT
@@ -1192,7 +1403,7 @@ class NamedWindowRuntime:
 
         def staged_col(x, dtype):
             a = np.zeros(cap, dtype)
-            a[:n] = x.cpu().numpy()[idx]
+            a[:n] = ev.device_get(x)[idx]
             return a
         kinds = np.zeros(cap, np.int32)
         kinds[:n] = kind[idx]
@@ -1212,6 +1423,67 @@ class NamedWindowRuntime:
                 cb(events)
         for q in self.subscribers:
             q.process_staged(staged, now)
+
+
+class _EmissionDrainer:
+    """The `@async` emission drainer (reference `_EmissionDrainer`,
+    `siddhi_tpu/core/runtime.py:2435`): a background thread that fetches
+    queued emissions' headers and delivers them, so the producer keeps
+    dispatching device work.  It drains every queued emission (up to 32)
+    with ONE header transfer.  The bounded queue backpressures the
+    producer."""
+
+    def __init__(self, capacity: int = 64):
+        import queue
+        self._q = queue.Queue(maxsize=capacity)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="siddhi-torch-drain")
+        self._started = False
+        self._start_lock = threading.Lock()
+
+    def start(self) -> None:
+        with self._start_lock:
+            if not self._started:
+                self._started = True
+                self._thread.start()
+
+    def enqueue(self, qr, out, header, now: int, deliver) -> None:
+        self.start()
+        self._q.put((qr, out, header, now, deliver))
+
+    def flush(self) -> None:
+        self._q.join()
+
+    def pending(self) -> int:
+        return self._q.unfinished_tasks
+
+    def stop(self) -> None:
+        if self._started:
+            self._q.join()
+
+    def _run(self) -> None:
+        import queue as queue_mod
+        while True:
+            items = [self._q.get()]
+            while len(items) < 32:
+                try:
+                    items.append(self._q.get_nowait())
+                except queue_mod.Empty:
+                    break
+            try:
+                hdrs = fetch_headers([it[2] for it in items])
+            except Exception:  # noqa: BLE001 — the drainer must survive
+                _log.exception("async emission fetch failed")
+                hdrs = [None] * len(items)
+            for (qr, out, _, now, deliver), hdr in zip(items, hdrs):
+                try:
+                    if hdr is not None:
+                        deliver(qr, out, hdr, now)
+                except Exception:  # noqa: BLE001 — the drainer survives
+                    _log.exception("async emission error in %s",
+                                   getattr(qr, "name", "?"))
+                finally:
+                    self._q.task_done()
 
 
 class _Scheduler:
@@ -1432,15 +1704,29 @@ class _PartitionPurger:
 
 
 class StreamJunction:
-    """Per-stream pub/sub hub (reference: CORE/stream/StreamJunction.java:61),
-    synchronous.  A subscriber's failure is logged and the batch dropped for
-    it (the reference's default @OnError action, LOG)."""
+    """Per-stream pub/sub hub (reference: CORE/stream/StreamJunction.java:61).
+    A subscriber's failure is logged and the batch dropped for it (the
+    reference's default @OnError action, LOG).
 
-    def __init__(self, schema: ev.Schema, stream_id: str = ""):
+    Synchronous unless the stream is `@async(buffer.size, workers,
+    queue.policy)` (reference `enable_async`, `siddhi_tpu/core/runtime.py
+    :1875-1990`): then sends enqueue into a bounded queue and worker
+    threads dispatch them.  `queue.policy='block'` (default) backpressures
+    the producer; 'shed' drops the send with a warning instead.  With
+    workers > 1 cross-batch order within the stream is relaxed, as the
+    reference's multi-consumer ring relaxes it."""
+
+    def __init__(self, schema: ev.Schema, stream_id: str = "", app=None):
         self.schema = schema
         self.stream_id = stream_id
+        self.app = app
         self.queries: List[_Sub] = []
         self.stream_callbacks: List[Callable] = []
+        self._async_q = None
+        self._async_policy = "block"
+        self._async_workers: List[threading.Thread] = []
+        self._serve_staging = None
+        self.shed_total = 0
 
     def subscribe_query(self, q) -> None:
         self.queries.append(q)
@@ -1448,7 +1734,102 @@ class StreamJunction:
     def subscribe_callback(self, cb: Callable) -> None:
         self.stream_callbacks.append(cb)
 
+    # -- @async ingress ---------------------------------------------------
+    def enable_async(self, buffer_size: int = 256, workers: int = 1,
+                     policy: str = "block") -> None:
+        if self._async_q is not None:
+            return
+        if policy not in ("block", "shed"):
+            raise CompileError(
+                f"@async(queue.policy={policy!r}) on {self.stream_id!r}: "
+                "policy must be 'block' or 'shed'")
+        import queue
+        self._async_policy = policy
+        self._async_q = queue.Queue(maxsize=max(1, buffer_size))
+        for i in range(max(1, workers)):
+            t = threading.Thread(
+                target=self._drain_async, daemon=True,
+                name=f"siddhi-torch-ingest-{self.stream_id}-{i}")
+            t.start()
+            self._async_workers.append(t)
+
+    def _serve_stage(self, staged: ev.StagedBatch) -> None:
+        """Double-buffered upload (serving/staging.py) at the accept edge
+        when a subscriber runs the serving loop."""
+        on = self._serve_staging
+        if on is None:
+            on = self._serve_staging = any(
+                getattr(getattr(q, "_qr", None), "serve_emit", False) or
+                any(m.serve_emit for m in getattr(getattr(q, "_qr", None),
+                                                  "members", ()))
+                for q in self.queries)
+        if on and self.app is not None:
+            self.app._serve_stager.stage(staged, self.schema,
+                                         self.app.device)
+
+    def enqueue(self, tag: str, payload, now: int) -> None:
+        if tag == "staged":
+            self._serve_stage(payload)
+        q = self._async_q
+        if q is None:           # raced with stop_async: process inline
+            self._dispatch(tag, payload, now)
+            return
+        if self._async_policy == "shed":
+            import queue
+            try:
+                q.put_nowait((tag, payload, now))
+            except queue.Full:
+                n = payload.n if tag == "staged" else len(payload)
+                self.shed_total += n
+                _log.warning("@async queue for %r full: shed %d events "
+                             "(queue.policy='shed')", self.stream_id, n)
+            return
+        q.put((tag, payload, now))
+
+    def _dispatch(self, tag: str, payload, now: int) -> None:
+        if tag == "staged":
+            self.dispatch_staged(payload, now)
+        elif tag == "published":
+            self.publish_staged(payload, now)
+        else:
+            self.publish(payload, now)
+
+    def _drain_async(self) -> None:
+        while True:
+            tag, payload, now = self._async_q.get()
+            try:
+                if tag == "stop":
+                    return
+                self._dispatch(tag, payload, now)
+            except Exception:  # noqa: BLE001 — the worker must survive
+                _log.exception("stream %s: async dispatch failed",
+                               self.stream_id)
+            finally:
+                self._async_q.task_done()
+
+    def flush_async(self) -> None:
+        if self._async_q is not None:
+            self._async_q.join()
+
+    def pending_async(self) -> int:
+        return self._async_q.unfinished_tasks if self._async_q is not None \
+            else 0
+
+    def stop_async(self) -> None:
+        """Process every accepted send, then stop the workers."""
+        q = self._async_q
+        if q is None:
+            return
+        q.join()
+        for _ in self._async_workers:
+            q.put(("stop", None, 0))
+        for t in self._async_workers:
+            t.join(timeout=2.0)
+        self._async_workers = []
+        self._async_q = None
+
     def dispatch_staged(self, staged: ev.StagedBatch, now: int) -> None:
+        self._serve_stage(staged)
         for q in self.queries:
             try:
                 q.process_staged(staged, now)
@@ -1461,6 +1842,19 @@ class StreamJunction:
             cb(events)
         if self.queries:
             self.dispatch_staged(ev.pack_np(self.schema, events), now)
+
+    def publish_staged(self, staged: ev.StagedBatch, now: int) -> None:
+        """`publish` of rows already staged: the stream callbacks get them
+        as events, the subscribers the staged batch."""
+        if self.stream_callbacks:
+            n = staged.n
+            events = [e for _, e in ev.unpack(self.schema, ev.EventBatch(
+                staged.ts[:n], staged.kind[:n], staged.valid[:n],
+                tuple(c[:n] for c in staged.cols)))]
+            for cb in self.stream_callbacks:
+                cb(events)
+        if self.queries:
+            self.dispatch_staged(staged, now)
 
 
 def _in_deps(node, seen=None) -> List[str]:
@@ -1516,6 +1910,15 @@ class SiddhiAppRuntime:
                 pb.element("increment", "1 sec")) or 1000
         self._scheduler = _Scheduler(self)
         self._timed_limiters: List = []
+        # the dispatch layer (A12): manager config, the @async emission
+        # drainer, the serving loop's drainer and staging
+        self.config_manager = manager.config_manager
+        self._drainer = _EmissionDrainer()
+        from ..serving import (DoubleBufferedStager, ServingDrainer,
+                               serving_config)
+        self._serve_drainer = ServingDrainer(
+            self, serving_config(self)["drain_interval_ms"])
+        self._serve_stager = DoubleBufferedStager()
         _check_annotations(
             [a for a in app.annotations
              if a.name.lower() not in ("app:playback",)], "the app")
@@ -1586,6 +1989,10 @@ class SiddhiAppRuntime:
                     self._add_pattern_query(element, qname)
             elif isinstance(element, Partition):
                 qi = self._add_partition(element, qi)
+        # whole-app multi-query optimizer: co-resident plain queries on one
+        # stream run as merged dispatches (reference :2849-2859)
+        from ..optimizer import apply_merge
+        apply_merge(self)
 
     # -- `x in Table` probes ---------------------------------------------------
     def in_probe_tables(self, deps) -> Dict[str, Any]:
@@ -1621,7 +2028,8 @@ class SiddhiAppRuntime:
     def _define_stream_runtime(self, sdef: StreamDefinition):
         schema = ev.Schema(sdef, self.interner)
         self.schemas[sdef.id] = schema
-        self.junctions[sdef.id] = StreamJunction(schema, stream_id=sdef.id)
+        self.junctions[sdef.id] = StreamJunction(schema, stream_id=sdef.id,
+                                                 app=self)
 
     def _query_name(self, q: Query, i: int) -> str:
         info = q.get_annotation("info")
@@ -1630,6 +2038,45 @@ class SiddhiAppRuntime:
             if n:
                 return n
         return f"query{i + 1}"
+
+    # -- dispatch decorations (A12) ------------------------------------------
+    def _serve_enabled(self, q) -> bool:
+        """@serve on the query / an input stream / @app:serve, or the
+        `serving.enabled` config property; an explicit @serve that does not
+        enable opts the query out of the config blanket (reference
+        `_serve_enabled`, `siddhi_tpu/core/runtime.py:3174`)."""
+        from ..serving import serving_config
+        from .plan_facts import serve_enabled
+        if serve_enabled(self.app, q):
+            return True
+        if q.get_annotation("serve") is not None or \
+                self.app.get_annotation("app:serve") is not None:
+            return False
+        return bool(serving_config(self)["enabled"])
+
+    def _wire_dispatch(self, runtime, q, kind: str) -> None:
+        """Stash a runtime's @async / @pipeline / @serve decisions and its
+        @fuse stack at wiring time (reference :2988-2991, `_maybe_fuse`
+        :3214)."""
+        from . import fusion
+        from .plan_facts import (async_enabled, fuse_depth, pipeline_depth,
+                                 serve_ring_capacity)
+        runtime.async_emit = async_enabled(self.app, q)
+        runtime.pipeline_emit = pipeline_depth(self.app, q)
+        runtime.serve_emit = self._serve_enabled(q)
+        if runtime.serve_emit:
+            runtime.serve_ring_capacity = serve_ring_capacity(self.app, q)
+        k = fuse_depth(self.app, q)
+        if k <= 0:
+            return
+        runtime._fuse_requested = k
+        why = fusion.ineligible_reason(runtime, kind)
+        if why is not None:
+            runtime._fuse_excluded = why
+            _log.warning("@fuse(batches=%d) ignored on query %s: %s", k,
+                         runtime.name, why)
+            return
+        runtime._fuse = fusion.FuseBuffer(runtime, k, kind)
 
     def _add_query(self, q: Query, name: str) -> None:
         """A top-level single-stream query (filters, window, group by,
@@ -1662,6 +2109,7 @@ class SiddhiAppRuntime:
                                     named_window_input=from_window, **kw)
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
+        self._wire_dispatch(runtime, q, "plain")
         if from_window:
             # a reader of a named window (reference :2993-2994)
             self.named_windows[planned.input_stream_id].subscribers.append(
@@ -1684,6 +2132,7 @@ class SiddhiAppRuntime:
                                   named_windows=self.named_windows)
         runtime = JoinQueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
+        self._wire_dispatch(runtime, q, "join")
         for side, is_left in ((planned.left, True), (planned.right, False)):
             if not side.is_table:
                 self.junctions[side.stream_id].subscribe_query(
@@ -1722,6 +2171,7 @@ class SiddhiAppRuntime:
         # the SAME closure replans on emission-cap growth
         runtime._replan = plan
         self.query_runtimes[name] = runtime
+        self._wire_dispatch(runtime, q, "pattern")
         for sid in planned.spec.stream_ids:
             self.junctions[sid].subscribe_query(_Sub(runtime, sid))
         self._wire_output(runtime, q, planned, name)
@@ -1913,6 +2363,7 @@ class SiddhiAppRuntime:
             partition_key_fn=(key_fns or {}).get(sid))
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
+        self._wire_dispatch(runtime, q, "plain")
         self.junctions[sid].subscribe_query(_QSub(runtime))
         # the reference wires a partitioned query's limiter and output
         # stream only (no table op)
@@ -2037,6 +2488,20 @@ class SiddhiAppRuntime:
                 tr.start(now)
             for lim in self._timed_limiters:
                 self._scheduler.notify_at(now + lim.interval, lim)
+            # @async(buffer.size, workers, queue.policy) streams get an
+            # ingress queue and workers; playback keeps synchronous
+            # dispatch, event time must stay ordered (reference :3490-3502)
+            if not self.playback:
+                for sid, j in self.junctions.items():
+                    sdef = self.app.stream_definition_map.get(sid)
+                    ann = sdef.get_annotation("async") \
+                        if sdef is not None else None
+                    if ann is not None:
+                        j.enable_async(
+                            int(ann.element("buffer.size", 256) or 256),
+                            int(ann.element("workers", 1) or 1),
+                            str(ann.element("queue.policy", "block")
+                                or "block").lower())
         self._started = True
         self._scheduler.start()
         if self.playback and self._playback_idle_ms and \
@@ -2072,13 +2537,53 @@ class SiddhiAppRuntime:
             if self._idle_thread is not None:
                 self._idle_thread.join(timeout=2.0)
             self._idle_thread = None
+        # accepted sends, held @fuse stacks and @pipeline emissions, the
+        # serving rings and the @async drainer deliver before teardown
+        # (reference :3535-3560)
+        for j in self.junctions.values():
+            j.stop_async()
+        from . import fusion
+        for qr in self._step_runtimes():
+            fusion.drain(qr)
+            _drain_pending_emit(qr)
+        self._serve_drainer.stop()
+        self._drainer.stop()
         self._scheduler.stop()
         self.flush()
         self._started = False
 
+    def _step_runtimes(self):
+        """Every runtime that can hold a @fuse stack or deferred
+        emissions: the per-query runtimes and the merge groups."""
+        return list(self.query_runtimes.values()) + \
+            list(getattr(self, "merged_groups", {}).values())
+
     def flush(self) -> None:
-        """Wait until the device has finished every dispatched step.  Every
-        emission is delivered inline, so nothing else is pending."""
+        """Deliver everything accepted: the @async ingress queues, the
+        partial @fuse stacks, the held @pipeline emissions, the @async
+        drainer and the serving rings, in that order, to a fixpoint (a
+        delivery may feed another stream); then wait for the device
+        (reference :3577-3600)."""
+        from . import fusion
+        for _ in range(64):
+            for j in self.junctions.values():
+                j.flush_async()
+            for qr in self._step_runtimes():
+                fusion.drain(qr)
+                _drain_pending_emit(qr)
+            self._drainer.flush()
+            self._serve_drainer.drain_all()
+            if all(j.pending_async() == 0
+                   for j in self.junctions.values()) and \
+                    not any(qr.__dict__.get("_pending_emit") or
+                            fusion.pending(qr)
+                            for qr in self._step_runtimes()) and \
+                    self._serve_drainer.pending() == 0 and \
+                    self._drainer.pending() == 0:
+                break
+        else:
+            _log.warning("flush() gave up after 64 rounds with batches "
+                         "still pending (sustained re-ingestion?)")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -2116,6 +2621,12 @@ class SiddhiAppRuntime:
         if not isinstance(q, OnDemandQuery):
             raise TypeError("query() takes a query string or an "
                             "OnDemandQuery")
+        # the reference quiesces first: batches held in @fuse stacks and
+        # @pipeline deques reach the tables before the read
+        from . import fusion
+        for qr in self._step_runtimes():
+            fusion.drain(qr)
+            _drain_pending_emit(qr)
         with self._lock:
             return execute_on_demand(self, q, memo)
 
@@ -2189,7 +2700,26 @@ class SiddhiAppRuntime:
         if self.playback:
             with self._lock:
                 self._scheduler.drain_playback(now)
+        elif junction._async_q is not None:
+            junction.enqueue("staged", staged, now)
+            return
         junction.dispatch_staged(staged, now)
+
+    def _route_staged(self, junction, staged: ev.StagedBatch,
+                      max_ts: int) -> None:
+        """A query's output rows staged into a stream (`_route_rows`), as
+        `_route` routes its events: the playback clock moves to the rows'
+        latest ts and due timers fire first; the stream callbacks receive
+        the events, the subscribers the staged batch."""
+        self._advance_playback(max_ts)
+        now = self.timestamp_millis()
+        if self.playback:
+            with self._lock:
+                self._scheduler.drain_playback(now)
+        elif junction._async_q is not None:
+            junction.enqueue("published", staged, now)
+            return
+        junction.publish_staged(staged, now)
 
     def _route_window(self, nw, staged: ev.StagedBatch,
                       max_ts: Optional[int]) -> None:
@@ -2220,6 +2750,9 @@ class SiddhiAppRuntime:
         if self.playback:
             with self._lock:
                 self._scheduler.drain_playback(now)
+        elif junction._async_q is not None:
+            junction.enqueue("events", events, now)
+            return
         junction.publish(events, now)
 
 
@@ -2268,9 +2801,19 @@ class SiddhiManager:
     """reference: CORE/SiddhiManager.java:49"""
 
     def __init__(self, device: Union[str, torch.device, None] = None):
+        from ..utils.config import InMemoryConfigManager
         self.device = resolve_device(device)
         self.interner = ev.StringInterner()
         self.runtimes: Dict[str, SiddhiAppRuntime] = {}
+        self.config_manager = InMemoryConfigManager()
+
+    def set_config_manager(self, config_manager) -> None:
+        """reference: SiddhiManager.setConfigManager (`siddhi_tpu/core/
+        runtime.py:4368`): system-wide properties such as
+        `optimizer.merge.enabled` and `serving.*`."""
+        self.config_manager = config_manager
+
+    setConfigManager = set_config_manager
 
     def create_siddhi_app_runtime(
             self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:

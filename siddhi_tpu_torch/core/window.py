@@ -130,6 +130,17 @@ class WindowProcessor:
     needs_timer = False
     # batch windows that emit RESET rows (epoch flushes)
     emits_reset = False
+    # the window takes its arrivals through `_arrivals` (kernel K1), so a
+    # fused or merged dispatch may hand it rows K29 filtered already
+    # (`kernels/multi_filter.py` `Prefiltered`); `keeps_expired` is the K1
+    # flag it passes
+    prefilters = True
+    keeps_expired = False
+
+    def arrival_seq(self, state):
+        """The seq counter `_arrivals` numbers this window's rows from
+        (a pass-through window's state), or None."""
+        return None
 
     def __init__(self, schema: ev.Schema, params: List[Constant],
                  batch_capacity: int, capacity_hint: int = 1024):
@@ -225,6 +236,9 @@ class NoWindow(WindowProcessor):
     def init_state(self, device):
         return torch.zeros(1, dtype=torch.int64, device=device)
 
+    def arrival_seq(self, state):
+        return None if self.index_seq else state
+
     def process(self, state, rows: Rows, fspec, now: int, facts):
         if self.index_seq:
             out, n = _arrivals(rows, fspec, now)
@@ -243,9 +257,13 @@ class PassAllWindow(WindowProcessor):
     counter (kernel K1 with its EXPIRED rows kept)."""
 
     name = "(named-window input)"
+    keeps_expired = True
 
     def init_state(self, device):
         return torch.zeros(1, dtype=torch.int64, device=device)
+
+    def arrival_seq(self, state):
+        return state
 
     def process(self, state, rows: Rows, fspec, now: int, facts):
         out, _ = _arrivals(rows, fspec, now, seq=state, keep_expired=True)
@@ -416,11 +434,17 @@ WINDOW_TYPES = {
 }
 
 
-def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
-                  capacity_hint: int = 2048) -> WindowProcessor:
+def window_types() -> dict:
+    """Every window kind by name (the extension kinds registered)."""
     from . import window_expr, window_ext
     window_ext.register(WINDOW_TYPES)
     window_expr.register(WINDOW_TYPES)
+    return WINDOW_TYPES
+
+
+def create_window(name: str, schema: ev.Schema, params, batch_capacity: int,
+                  capacity_hint: int = 2048) -> WindowProcessor:
+    window_types()
     if name not in WINDOW_TYPES:
         raise CompileError(f"unknown window type {name!r}; "
                            f"available: {sorted(WINDOW_TYPES)}")

@@ -326,6 +326,8 @@ class ExpressionWindow(WindowProcessor):
     beyond them expire), each eviction an EXPIRED row before the
     arrival's CURRENT row (kernel K25)."""
 
+    # its kernel evaluates the filters itself
+    prefilters = False
     name = "expression"
 
     def __init__(self, schema, params, batch_capacity, capacity_hint=1024):

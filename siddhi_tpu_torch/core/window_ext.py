@@ -360,6 +360,8 @@ class SessionWindow(WindowProcessor):
     `session(gap, key)` keeps a session per key value: the planner keys
     the window by `session_key_pos`."""
 
+    # its kernel evaluates the filters itself
+    prefilters = False
     name = "session"
     needs_timer = True
 
@@ -396,6 +398,8 @@ class SessionLatencyWindow(WindowProcessor):
     late arrivals can still join or merge them (kernel K11, latency mode;
     always per key: the planner keys the window by `session_key_pos`)."""
 
+    # its kernel evaluates the filters itself
+    prefilters = False
     name = "session"
     needs_timer = True
 

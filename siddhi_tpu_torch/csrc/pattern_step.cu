@@ -415,6 +415,7 @@ constexpr int G_SIDES = 16;   // an atom and its logical partner
 constexpr int G_COLS = 8;
 constexpr int G_EMIT = 24;
 constexpr int G_CODE = 256;
+constexpr int G_STACK = 16;   // batches one stacked launch walks
 constexpr int G_P = 32;
 
 // atom flags
@@ -469,6 +470,19 @@ struct GenPlan {
   void* out_col[G_EMIT];
   unsigned long long* header;
   InSet in_sets[MAX_IN];
+  // stacked mode (`n_stack` > 0): batch s reads its events at s * in_stride
+  // of ev_col / raw_ts, its selection at s * sel_stride of sel_idx, writes
+  // its rows at s * out_stride of the outputs and its header at
+  // header + 3 * s, with now = s_now[s]
+  int n_stack, stack_pad;
+  long long in_stride, sel_stride, out_stride;
+  long long s_now[G_STACK];
+};
+
+// One batch of a launch: the offsets of its inputs and outputs
+struct GenBatch {
+  long long now, in_off, sel_off, out_off;
+  unsigned long long* header;
 };
 
 static_assert(sizeof(GenPlan) <= 4000, "GenPlan must fit the kernel parameter space");
@@ -568,7 +582,8 @@ __device__ void gen_spawn_caps(const GKey& key, int j, int src, long long ts, co
 }
 
 // One key's E events in general mode.
-__device__ void gen_key(const GenPlan& pl, long long col, int k, unsigned& n_valid, unsigned& n_drop,
+__device__ void gen_key(const GenPlan& pl, const GenBatch& b, long long col, int k, unsigned& n_valid,
+                        unsigned& n_drop,
                         unsigned& n_fork_drop, long long& wake) {
   const GKey key{pl, col};
   const int P = pl.P, S = pl.S;
@@ -584,17 +599,17 @@ __device__ void gen_key(const GenPlan& pl, long long col, int k, unsigned& n_val
   unsigned cap[G_SIDES], skipm[G_SIDES];
   for (int e = 0; e < pl.E; ++e) {
     bool valid = false;
-    long long ts = pl.now;
+    long long ts = b.now;
     if (!pl.timer) {
-      int si = pl.sel_idx[(long long)k * pl.E + e];
+      int si = pl.sel_idx[b.sel_off + (long long)k * pl.E + e];
       valid = si >= 0;
-      int ci = si < 0 ? 0 : (si > pl.B - 1 ? pl.B - 1 : si);
+      long long ci = b.in_off + (si < 0 ? 0 : (si > pl.B - 1 ? pl.B - 1 : si));
       ts = pl.ts_wire ? pl.ts_base + (long long)pl.ts_delta[ci] : pl.raw_ts[ci];
       for (int c = 0; c < pl.ev_ncols; ++c) ev[c] = load_slot(pl.ev_col[c], ci, pl.ev_ty[c]);
     } else {
       for (int c = 0; c < pl.ev_ncols; ++c) ev[c] = 0;
     }
-    long long now_k = valid ? ts : pl.now;
+    long long now_k = valid ? ts : b.now;
     // phase 1: within expiry
     if (pl.has_within) {
       for (int p = 0; p < P; ++p)
@@ -766,7 +781,7 @@ __device__ void gen_key(const GenPlan& pl, long long col, int k, unsigned& n_val
       if (pl.compact) {
         if (!v) continue;
         if (rank < pl.R) {
-          gen_store_row(pl, (long long)rank * pl.Kb + k, true, row_ts, &key, slot, ev);
+          gen_store_row(pl, b.out_off + (long long)rank * pl.Kb + k, true, row_ts, &key, slot, ev);
           ++n_valid;
         } else {
           ++n_drop;
@@ -774,7 +789,7 @@ __device__ void gen_key(const GenPlan& pl, long long col, int k, unsigned& n_val
         ++rank;
       } else {
         long long row = ((long long)e * (P + 1) + slot) * pl.Kb + k;
-        gen_store_row(pl, row, v, row_ts, &key, slot, ev);
+        gen_store_row(pl, b.out_off + row, v, row_ts, &key, slot, ev);
         n_valid += v ? 1u : 0u;
       }
     }
@@ -837,7 +852,7 @@ __device__ void gen_key(const GenPlan& pl, long long col, int k, unsigned& n_val
   }
   if (pl.compact) {
     for (int r = rank < pl.R ? rank : pl.R; r < pl.R; ++r)
-      gen_store_row(pl, (long long)r * pl.Kb + k, false, 0, &key, 0, ev);
+      gen_store_row(pl, b.out_off + (long long)r * pl.Kb + k, false, 0, &key, 0, ev);
   }
   for (int p = 0; p < P; ++p) key.w32(pl.off_active + p) = (active >> p) & 1u;
   key.w32(pl.off_seed_on) = seed_on ? 1 : 0;
@@ -860,39 +875,52 @@ __global__ void __launch_bounds__(128)
 pattern_general_kernel(const __grid_constant__ GenPlan pl) {
   __shared__ long long warp_wake[4];
   int k = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned n_valid = 0, n_drop = 0, n_fork_drop = 0;
-  long long wake = NO_WAKE;
-  if (k < pl.Kb) {
-    long long col = pl.dense ? pl.key_lo + k : (long long)pl.key_idx[k];
-    if (col >= 0 && col < pl.K) {
-      gen_key(pl, col, k, n_valid, n_drop, n_fork_drop, wake);
-    } else {
-      // a gather-mode padding row: no state, no rows
-      long long nrows = pl.compact ? pl.R : (long long)pl.E * (pl.P + 1);
-      long long ev[G_COLS] = {0};
-      for (long long r = 0; r < nrows; ++r) gen_store_row(pl, r * pl.Kb + k, false, 0, nullptr, 0, ev);
+  // a stacked launch walks its batches in order; each key's slab rows stay
+  // with one thread from batch to batch
+  const int ns = pl.n_stack > 0 ? pl.n_stack : 1;
+  for (int s = 0; s < ns; ++s) {
+    GenBatch b;
+    b.now = pl.n_stack > 0 ? pl.s_now[s] : pl.now;
+    b.in_off = (long long)s * pl.in_stride;
+    b.sel_off = (long long)s * pl.sel_stride;
+    b.out_off = (long long)s * pl.out_stride;
+    b.header = pl.header + 3 * s;
+    unsigned n_valid = 0, n_drop = 0, n_fork_drop = 0;
+    long long wake = NO_WAKE;
+    if (k < pl.Kb) {
+      long long col = pl.dense ? pl.key_lo + k : (long long)pl.key_idx[k];
+      if (col >= 0 && col < pl.K) {
+        gen_key(pl, b, col, k, n_valid, n_drop, n_fork_drop, wake);
+      } else {
+        // a gather-mode padding row: no state, no rows
+        long long nrows = pl.compact ? pl.R : (long long)pl.E * (pl.P + 1);
+        long long ev[G_COLS] = {0};
+        for (long long r = 0; r < nrows; ++r)
+          gen_store_row(pl, b.out_off + r * pl.Kb + k, false, 0, nullptr, 0, ev);
+      }
     }
-  }
-  n_valid = __reduce_add_sync(0xffffffffu, n_valid);
-  n_drop = __reduce_add_sync(0xffffffffu, n_drop);
-  n_fork_drop = __reduce_add_sync(0xffffffffu, n_fork_drop);
-  if ((threadIdx.x & 31) == 0) {
-    if (n_valid) atomicAdd(pl.header, (unsigned long long)n_valid);
-    if (n_drop) atomicAdd(pl.header + 1, (unsigned long long)n_drop);
-    if (n_fork_drop) atomicAdd(pl.dropped, (unsigned long long)n_fork_drop);
-  }
-  if (pl.has_timers) {
-    for (int off = 16; off > 0; off >>= 1) {
-      long long o = __shfl_down_sync(0xffffffffu, wake, off);
-      if (o < wake) wake = o;
+    n_valid = __reduce_add_sync(0xffffffffu, n_valid);
+    n_drop = __reduce_add_sync(0xffffffffu, n_drop);
+    n_fork_drop = __reduce_add_sync(0xffffffffu, n_fork_drop);
+    if ((threadIdx.x & 31) == 0) {
+      if (n_valid) atomicAdd(b.header, (unsigned long long)n_valid);
+      if (n_drop) atomicAdd(b.header + 1, (unsigned long long)n_drop);
+      if (n_fork_drop) atomicAdd(pl.dropped, (unsigned long long)n_fork_drop);
     }
-    if ((threadIdx.x & 31) == 0) warp_wake[threadIdx.x >> 5] = wake;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      long long w = warp_wake[0];
-      for (int i = 1; i < (int)(blockDim.x >> 5); ++i)
-        if (warp_wake[i] < w) w = warp_wake[i];
-      if (w < NO_WAKE) atomicMin((long long*)(pl.header + 2), w);
+    if (pl.has_timers) {
+      for (int off = 16; off > 0; off >>= 1) {
+        long long o = __shfl_down_sync(0xffffffffu, wake, off);
+        if (o < wake) wake = o;
+      }
+      if ((threadIdx.x & 31) == 0) warp_wake[threadIdx.x >> 5] = wake;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        long long w = warp_wake[0];
+        for (int i = 1; i < (int)(blockDim.x >> 5); ++i)
+          if (warp_wake[i] < w) w = warp_wake[i];
+        if (w < NO_WAKE) atomicMin((long long*)(b.header + 2), w);
+      }
+      __syncthreads();   // warp_wake is written again by the next batch
     }
   }
 }

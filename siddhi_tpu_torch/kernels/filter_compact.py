@@ -107,7 +107,11 @@ def filter_compact(spec: FilterSpec, ts, kind, valid, gslot, cols,
     the pass-through window's counter: given, kept rows get
     `seq0 + rank` and the counter advances; otherwise every row's seq is
     its input index.  With `keep_expired` EXPIRED rows are kept as
-    CURRENT ones are."""
+    CURRENT ones are.  A `Prefiltered` spec (`kernels/multi_filter.py`)
+    carries rows K29 already compacted: they are returned as they are."""
+    take = getattr(spec, "take", None)
+    if take is not None:
+        return take(seq, keep_expired)
     if ts.is_cuda:
         return launch(spec, ts, kind, valid, gslot, cols, seq, keep_expired)
     return plain(spec, ts, kind, valid, gslot, cols, now, seq, keep_expired)

@@ -19,6 +19,13 @@ every (event, slot) row uncompacted, and the selector runs over the whole
 otherwise the kernel cuts to R rows itself and the projection runs on
 those.
 
+The general mode also has a stacked mode (`launch_stacked`,
+`PatternStep.stacked`: B9's `_adapt_pattern`, `siddhi_tpu/core/
+fusion.py:247`): one launch walks S stacked batches of a `@fuse` stack,
+each key's state staying with its thread from batch to batch, each batch
+with its own `now`, output block and header row; its plain version is S
+sequential plain steps.
+
 `PatternStep` is what the runtime calls for a data step, `TimerStep` for
 a timer step (a launch in timer mode over the whole slab).  Given tensors
 on the CPU it runs the plain PyTorch step (`make_step` or `tstep` in
@@ -33,7 +40,8 @@ The kernel builds from the repository's source at first use
 
 `launches` counts data-step kernel launches, `timer_launches` timer-mode
 launches (either mode), `mode_launches` the general mode's data and timer
-launches among them, and `plain_calls` calls of the plain versions;
+launches among them, `stacked_launches` the stacked mode's launches,
+`plain_calls` and `stacked_plain_calls` calls of the plain versions;
 `reset_counts()` sets them to 0.
 """
 from __future__ import annotations
@@ -55,14 +63,21 @@ timer_launches = 0
 plain_calls = 0
 # the general mode's share of the launches: [data steps, timer steps]
 mode_launches = [0, 0]
+# stacked launches of the general mode (a fused stack of batches) and calls
+# of their plain version
+stacked_launches = 0
+stacked_plain_calls = 0
 
 
 def reset_counts() -> None:
-    global launches, timer_launches, plain_calls
+    global launches, timer_launches, plain_calls, stacked_launches, \
+        stacked_plain_calls
     launches = 0
     timer_launches = 0
     plain_calls = 0
     mode_launches[:] = [0, 0]
+    stacked_launches = 0
+    stacked_plain_calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +124,9 @@ MAX_ATOMS, MAX_COLS, MAX_EMIT, MAX_CODE, MAX_P = 8, 8, 24, 192, 32
 # the general mode's limits: atoms, capture sets (atoms and their logical
 # partners), bytecode words
 G_SIDES, G_CODE = 16, 256
+# batches one stacked launch of the general mode walks (a longer stack runs
+# as several launches)
+G_STACK = 16
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _C = ctypes.c_byte
 
@@ -170,7 +188,9 @@ class GenPlan(ctypes.Structure):
          ("ev_ncols", _I), ("ev_ty", _I * MAX_COLS), ("code", _I * G_CODE),
          ("n_emit", _I), ("emit_side", _C * MAX_EMIT),
          ("emit_col", _C * MAX_EMIT), ("emit_depth", _C * MAX_EMIT)] +
-        _BUFFERS)
+        _BUFFERS +
+        [("n_stack", _I), ("stack_pad", _I), ("in_stride", _L),
+         ("sel_stride", _L), ("out_stride", _L), ("s_now", _L * G_STACK)])
 
 
 def _null_bits(attr_type: str) -> int:
@@ -605,6 +625,90 @@ def launch(kp: KernelPlan, packed, raw_cols, raw_ts, ts_wire, sel_idx,
                                  out_cols)
 
 
+def launch_stacked(kp: KernelPlan, packed, cols, ts, sel_idx, key_idx,
+                   nows, in_tabs=None):
+    """The general mode's stacked launch: one launch walks S batches of
+    one stream in order (B9's fused pattern stack).  `cols` and `ts` are
+    [S, B], `sel_idx` [S, Kb, E] and `key_idx` [Kb] (gather mode; the same
+    keys for every batch), `nows` the batches' `now`.  Each batch gets its
+    own output block and its own header row.  Returns the packed state and
+    a list of S launch outputs as `launch` gives them."""
+    global stacked_launches
+    if not kp.general:
+        raise ValueError("pattern_step: the stacked mode runs the general "
+                         "mode's plan")
+    b32, b64, scalars = packed
+    dev = b32.device
+    K = b32.shape[1]
+    _check(b32, "b32", torch.int32, 2, dev)
+    _check(b64, "b64", torch.int64, 2, dev)
+    _check(ts, "ts", torch.int64, 2, dev)
+    _check(sel_idx, "sel_idx", torch.int32, 3, dev)
+    _check(key_idx, "key_idx", torch.int32, 1, dev)
+    S, B = ts.shape
+    _, Kb, E = sel_idx.shape
+    if sel_idx.shape[0] != S or len(nows) != S or key_idx.shape[0] != Kb:
+        raise ValueError("pattern_step: the stacked inputs disagree")
+    if len(cols) != len(kp.schema.types):
+        raise ValueError("pattern_step: column count does not match the "
+                         "stream schema")
+    P = kp.P
+    EP = E * (P + 1)
+    R = min(kp.compact_rows, EP)
+    compact = R < EP and not kp.full_grid
+    nrows = (R if compact else EP) * Kb
+    ev_cols = []
+    for c, (col, d) in enumerate(zip(cols, kp.schema.dtypes)):
+        if d == torch.bool:
+            col = col.to(torch.int32)
+            d = torch.int32
+        _check(col, f"column {c}", d, 2, dev)
+        if tuple(col.shape) != (S, B):
+            raise ValueError("pattern_step: column shape differs from ts")
+        ev_cols.append(col)
+    out_ts = torch.empty((S, nrows), dtype=torch.int64, device=dev)
+    out_kind = torch.empty((S, nrows), dtype=torch.int32, device=dev)
+    out_valid = torch.empty((S, nrows), dtype=torch.bool, device=dev)
+    header = torch.full((S, 3), NO_WAKEUP, dtype=torch.int64, device=dev)
+    header[:, :2] = 0
+    out_cols = {key: torch.empty((S, nrows), dtype=dt, device=dev)
+                for key, dt in zip(kp.emit, kp.emit_dtypes)}
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    held = []
+    for lo in range(0, S, G_STACK):
+        n = min(G_STACK, S - lo)
+        pl = type(kp.template).from_buffer_copy(kp.template)
+        pl.K, pl.Kb, pl.E, pl.R, pl.compact, pl.dense = K, Kb, E, R, \
+            int(compact), 0
+        pl.B, pl.ts_wire, pl.timer = B, 0, 0
+        pl.now = int(nows[lo])
+        pl.n_stack = n
+        pl.in_stride, pl.sel_stride, pl.out_stride = B, Kb * E, nrows
+        for j in range(n):
+            pl.s_now[j] = int(nows[lo + j])
+        for c, col in enumerate(ev_cols):
+            pl.ev_col[c] = col[lo].data_ptr()
+        pl.raw_ts = ts[lo].data_ptr()
+        pl.sel_idx = sel_idx[lo].data_ptr()
+        pl.key_idx = key_idx.data_ptr()
+        pl.b32, pl.b64, pl.dropped = b32.data_ptr(), b64.data_ptr(), \
+            scalars[0].data_ptr()
+        pl.out_ts, pl.out_kind, pl.out_valid = out_ts[lo].data_ptr(), \
+            out_kind[lo].data_ptr(), out_valid[lo].data_ptr()
+        for j, key in enumerate(kp.emit):
+            pl.out_col[j] = out_cols[key][lo].data_ptr()
+        pl.header = header[lo].data_ptr()
+        held.append(fill_sets(pl.in_sets, kp.in_keys, in_tabs or {}))
+        _nvcc.check_launch(getattr(lib, kp.entry)(ctypes.byref(pl), stream),
+                           "pattern_step (stacked)")
+        stacked_launches += 1
+    del ev_cols, held
+    return packed, [(header[s], out_ts[s], out_kind[s], out_valid[s],
+                     {k: v[s] for k, v in out_cols.items()})
+                    for s in range(S)]
+
+
 def project(kp: KernelPlan, sel_state, kout, now: int, Kb: int,
             gslot=None):
     """The selector over the kernel's rows.  Compacted rows: the
@@ -696,6 +800,44 @@ class PatternStep:
                 torch.arange(Kb, dtype=torch.int32, device=sel_idx.device)
         sel_state, out = project(kp, sel_state, kout, now, Kb, gslot)
         return packed, sel_state, out, wake_of(self.kernel_plan, kout)
+
+
+    def stacked(self, packed, sel_state, cols, ts, sel_idx, key_idx, nows,
+                in_tabs=None):
+        """S batches of this stream in order (a fused stack): `cols` and
+        `ts` [S, B], `sel_idx` [S, Kb, E], `key_idx` [Kb] (gather mode),
+        `nows` the batches' `now`.  Returns (packed', sel_state', [out] *
+        S, [wake] * S).  Given CUDA tensors it makes one stacked launch of
+        the general mode and projects each batch's rows in order; given
+        CPU tensors it runs S sequential plain steps (its reference)."""
+        global stacked_plain_calls
+        if self.dense or self.wire:
+            raise ValueError("pattern_step: a stack runs the gather step "
+                             "on raw timestamps")
+        outs, wakes = [], []
+        if not packed[0].is_cuda:
+            stacked_plain_calls += 1
+            for s in range(len(nows)):
+                packed, sel_state, out, wake = self.plain(
+                    packed, sel_state, tuple(c[s] for c in cols), ts[s],
+                    sel_idx[s], key_idx, nows[s], in_tabs=in_tabs)
+                outs.append(out)
+                wakes.append(wake)
+            return packed, sel_state, outs, wakes
+        kp = self.kernel_plan
+        if kp is None:
+            raise NotImplementedError(
+                "this pattern plan has no CUDA kernel plan (planned for "
+                "another device)")
+        packed, kouts = launch_stacked(kp, packed, cols, ts, sel_idx,
+                                       key_idx, nows, in_tabs)
+        Kb = key_idx.shape[0]
+        for kout, now in zip(kouts, nows):
+            sel_state, out = project(kp, sel_state, kout, now, Kb,
+                                     key_idx if kp.full_grid else None)
+            outs.append(out)
+            wakes.append(wake_of(kp, kout))
+        return packed, sel_state, outs, wakes
 
 
 class TimerStep:

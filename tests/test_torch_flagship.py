@@ -173,8 +173,9 @@ def test_non_partitioned_simple_chain_raises():
     assert p.block
 
 
-@pytest.mark.parametrize("ann", ["@async(buffer.size='64')",
-                                 "@pipeline(depth='2')", "@fuse(batches='2')"])
+@pytest.mark.parametrize("ann", ["@sink(type='log')",
+                                 "@OnError(action='STREAM')",
+                                 "@store(type='rdbms')"])
 def test_unported_annotations_raise(ann):
     mgr = TorchManager(device="cpu")
     ql = FLAGSHIP_QL_TEMPLATE.format(async_ann="", pipe_ann=ann, n_keys=64,

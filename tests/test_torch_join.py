@@ -339,9 +339,9 @@ def test_lane_overflow_is_reported():
     ("from L#window.length(4) join R#window.frequent(2) on "
      "L.symbol == R.symbol select count() as c insert into O;",
      CompileError, "sliding"),
-    ("@fuse(batches='2') from L#window.length(4) join R#window.length(4) "
+    ("@sink(type='log') from L#window.length(4) join R#window.length(4) "
      "on L.symbol == R.symbol select L.symbol as s insert into O;",
-     CompileError, "A12"),
+     CompileError, "A15"),
     ("from L#window.length(4) join T on L.symbol == T.symbol and "
      "L.symbol in T select L.symbol as s insert into O;", CompileError,
      "B-probe"),

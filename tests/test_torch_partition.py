@@ -250,21 +250,21 @@ def test_time_window_timer_ticks_every_key():
      aggregate every sec ... min;
      partition with (k of S)
      begin from S select k, sum(v) as s insert into O; end;""", "A15"),
-    ("""@app:fuse(batches='2')
+    ("""@app:statistics(reporter='console')
      define stream S (k int, v int); from S select k insert into O;""",
-     "A12"),
-    ("""@app:pipeline(depth='2')
+     "A15"),
+    ("""@sink(type='log')
      define stream S (k int, v int); from S select k insert into O;""",
-     "A12"),
-    ("""@app:serve(ring='64')
+     "A15"),
+    ("""@OnError(action='STREAM')
      define stream S (k int, v int); from S select k insert into O;""",
-     "A12"),
+     "A15"),
     ("""@app:admission(rate='100')
      define stream S (k int, v int); from S select k insert into O;""",
      "A15"),
 ], ids=["session_in_partition", "define_window_in_partitioned_app",
-        "define_aggregation_in_partitioned_app", "app_fuse",
-        "app_pipeline", "app_serve", "app_admission"])
+        "define_aggregation_in_partitioned_app", "app_statistics",
+        "stream_sink", "onerror_stream", "app_admission"])
 def test_still_raises(ql, item):
     with pytest.raises(CompileError, match=item):
         TorchManager(device="cpu").create_siddhi_app_runtime(ql)
