@@ -934,6 +934,7 @@ def main() -> None:
     records += slice13_phases(torch, np, dev)
     records += slice14_phases(torch, np, dev)
     records += slice15_phases(torch, np, dev)
+    records += slice16_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -17047,6 +17048,15 @@ def run_nw1(torch, np, dev, sends=NW_SENDS, rooms=NW_ROOMS,
             np.array_equal(tsum, want)):
         fail(f"TR1 trigger at {T}: pairs per room {cnt[:4]}, temp sums "
              f"{tsum[:4]}, expected {per * len(alive)}, {want[:4]}")
+    # TR1's K7 launch over one trigger row: of each alive window row the
+    # probe reads its alive flag and the two columns the select takes
+    # (roomNo, temp), and it writes one pair row a match (ts, kind, valid,
+    # t, roomNo, temp)
+    nb = ticks[-1][1] * ((1 + 4 + 8) + (8 + 4 + 1 + 8 + 4 + 8))
+    kb = bound(nb)
+    print(f"TR1: K7's grid over one trigger row ({ticks[-1][1]} pairs from "
+          f"a {ticks[-1][1]}-row window): bound {kb['bound_ms']:.5f} ms by "
+          f"{kb['bound_by']} ({kb['bytes']} bytes)")
     print(f"NW1: each room's avg and count after the last send equal to the "
           f"closed form ({exp_n} rows a room, "
           f"{rt.named_windows['TempWindow'].state.C}-row ring); TR1: "
@@ -17096,8 +17106,8 @@ def time_nw1_step(torch, np, rt, j, rooms, devices, B):
     res = {"ms": event_timer(torch, step, 5, restore)}
     launches = fc.launch, tw.launch
     fc.launch = lambda spec, ts, kind, valid, gslot, cols, seq=None, \
-        keep_expired=False: fc.plain(spec, ts, kind, valid, gslot, cols, 0,
-                                     seq, keep_expired)
+        keep_expired=False, aligned=False: fc.plain(
+            spec, ts, kind, valid, gslot, cols, 0, seq, keep_expired, aligned)
     tw.launch = lambda st, arr, n_arr, now, t, b, cap_out, e_bound, *_: \
         tw.plain(st, arr, n_arr, now, t, b, cap_out, e_bound)
     try:
@@ -18286,9 +18296,13 @@ def compare_stacked(torch, np, dev, card):
     # read and written once, each batch's rows and header written once
     r.update(bound(S2 * PM_B * (4 + 4 + 8 + 4) + 2 * state_bytes +
                    S2 * nrows * row + S2 * 24))
+    b8 = bound(8 * PM_B * (4 + 4 + 8 + 4) + 2 * state_bytes +
+               8 * nrows * row + 8 * 24)
     print(f"kernel pattern_step stacked mode (PMC's plan, PM1's trades, one "
           f"key): 8 x "
-          f"{PM_B} events {ms8:.4f} ms a launch (graph replay) against 8 "
+          f"{PM_B} events {ms8:.4f} ms a launch (graph replay; bound "
+          f"{b8['bound_ms']:.5f} ms by {b8['bound_by']}, {b8['bytes']} "
+          f"bytes) against 8 "
           f"sequential general-mode launches {seq_ms:.4f} ms; 2 x {PM_B} "
           f"events {r['ms']:.4f} ms, plain (2 sequential plain steps) "
           f"{plain_ms:.1f} ms once, the stacked call with projection "
@@ -18549,6 +18563,460 @@ def slice15_phases(torch, np, dev):
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
+    return rec
+
+
+
+# ---------------------------------------------------------------------------
+# slice 16: sharding over the key axis (A14) on N logical shards of the one
+# card - kernels K31 shard_route and K32 shard_merge
+# ---------------------------------------------------------------------------
+
+S16_N = 4                 # logical shards: ShardMesh([cuda:0] * 4)
+S16_P1_SENDS = 8          # P1 sends a run (unsharded, then on the mesh)
+S16_PG1_SENDS = 40        # PG1 sends a run: past its 30 s idle period
+S16_R = 2 * P1_B          # P1's output rows a send (CURRENT + EXPIRED)
+
+# a copy of the JAX package's `MC_FLAGSHIP_QL`
+# (siddhi_tpu/analysis/corpus.py:52): the flagship with @fuse(batches='4')
+MC_FLAGSHIP_QL = """
+@app:playback
+define stream TradeStream (key long, price float, volume int);
+partition with (key of TradeStream)
+begin
+  @capacity(keys='{keys}', slots='4')
+  @emit(rows='2')
+  @fuse(batches='4')
+  @info(name='flagship')
+  from every e1=TradeStream[volume == 1]
+       -> e2=TradeStream[volume == 2 and price >= e1.price]
+       -> e3=TradeStream[volume == 3]
+       -> e4=TradeStream[volume == 4 and price >= e3.price]
+  select e1.key as k, e1.price as p1, e2.price as p2, e4.price as p4
+  insert into Matches;
+end;
+"""
+
+
+def slice16_modules():
+    from siddhi_tpu_torch.kernels import (filter_compact, group_agg,
+                                          keyed_window, pattern_step,
+                                          shard_merge, shard_route)
+    return {"pattern_step": pattern_step, "keyed_window": keyed_window,
+            "group_agg": group_agg, "filter_compact": filter_compact,
+            "shard_route": shard_route, "shard_merge": shard_merge}
+
+
+def s16_mesh(dev):
+    from siddhi_tpu_torch.sharding import ShardMesh
+    return ShardMesh([dev] * S16_N)
+
+
+def s16_same(torch, a, b, what):
+    """Exact equality of two tensors (floats by their bits)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.float64:
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    if a.shape != b.shape or not torch.equal(a, b):
+        fail(f"{what}: kernel != plain version")
+
+
+def s16_time(torch, res, name, fn, plain, library, nbytes, reps=50):
+    r = {"ms": graph_ms(torch, fn, reps),
+         "plain_ms": event_timer(torch, plain, max(5, reps // 5)),
+         "library_ms": None if library is None else
+         event_timer(torch, library, reps)}
+    r.update(bound(nbytes))
+    res[name] = r
+    return r
+
+
+def s16_kernels(torch, np, dev, card):
+    """Phase 63: K31's three modes and K32's three modes against their
+    plain versions on the card at the main path's shapes, n = 4, and their
+    CUDA-graph times beside their bounds and the one-call PyTorch time
+    where there is one.  Returns (max_abs_err, {mode: timing})."""
+    from siddhi_tpu_torch.kernels import shard_merge as k32, \
+        shard_route as k31
+    n = S16_N
+    rng = np.random.default_rng(160)
+    res = {}
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    # K31 plain: a send of 131,072 rows over PG1's 2^21 group slots
+    g = t(rng.integers(-1, PG1_KEYS_CAP, P1_B).astype(np.int32))
+    v = t(rng.random(P1_B) > 0.1)
+    for a, b in zip(k31.route_plain(g, v, n), k31.plain_route_plain(g, v, n)):
+        s16_same(torch, a, b, "K31 plain mode")
+    s16_time(torch, res, f"route plain ({P1_B} rows)",
+             lambda: k31.route_plain(g, v, n),
+             lambda: k31.plain_route_plain(g, v, n), None,
+             P1_B * (4 + 1) + n * P1_B * (1 + 4))
+    # K31 keyed: the flagship's 2^17 key rows of 2^20 keys (padding too)
+    key = np.full(BATCH, N_KEYS, np.int32)
+    live = BATCH - BATCH // 128
+    key[:live] = rng.permutation(N_KEYS)[:live]
+    key = t(key)
+    s16_same(torch, k31.route_keyed(key, n, N_KEYS),
+             k31.plain_route_keyed(key, n, N_KEYS), "K31 keyed mode")
+    s16_time(torch, res, f"route keyed ({BATCH} key rows)",
+             lambda: k31.route_keyed(key, n, N_KEYS),
+             lambda: k31.plain_route_keyed(key, n, N_KEYS), None,
+             BATCH * 4 + n * BATCH * 4)
+    # K31 place: P1's per-key-row output counts (about two rows a key row)
+    owner = rng.integers(0, n, BATCH)
+    cnt = np.zeros((n, BATCH), np.int64)
+    cnt[owner, np.arange(BATCH)] = rng.integers(1, 4, BATCH)
+    total = int(cnt.sum())
+    cnt = t(cnt)
+    s16_same(torch, k31.place(cnt, total), k31.plain_place(cnt, total),
+             "K31 place mode")
+    s16_time(torch, res, f"route place ({total} rows)",
+             lambda: k31.place(cnt, total),
+             lambda: k31.plain_place(cnt, total), None,
+             n * BATCH * 8 + total * 8, reps=10)
+    # K32 rows: P1's row-aligned outputs on 4 shards, each row owned by
+    # one shard, -0.0 / NaN / +-inf planted in an f32 and an f64 column
+    R = S16_R
+    own = rng.integers(-1, n, R)
+    valid = [t(own == d) for d in range(n)]
+    special = np.array([-0.0, np.nan, np.inf, -np.inf])
+    cols = []
+    for d in range(n):
+        f32 = rng.standard_normal(R).astype(np.float32)
+        f64 = rng.standard_normal(R)
+        f32[:4], f64[:4] = special, special
+        cols.append((t(rng.integers(0, 1 << 40, R)),           # ts
+                     t(rng.integers(0, 2, R).astype(np.int32)),  # kind
+                     t((rng.integers(0, 97, R)).astype(np.int32)),
+                     t(rng.integers(0, P1_KEYS, R)),
+                     t(f64), t(f32)))
+    ka = k32.merge_rows(cols, valid, R)
+    kb = k32.plain_merge_rows(cols, valid, R)
+    for a, b in zip(ka[0] + (ka[1],), kb[0] + (kb[1],)):
+        s16_same(torch, a, b, "K32 rows mode")
+    if bool(torch.signbit(ka[0][4][0])):
+        fail("K32 rows mode kept an owned -0.0")
+    stacked = [torch.stack([c[j] for c in cols]) for j in range(6)]
+    vs = torch.stack(valid)
+
+    def lib_rows():
+        for x in stacked:
+            torch.where(vs, x, torch.zeros((), dtype=x.dtype,
+                                           device=dev)).sum(0)
+    row_bytes = sum(x.element_size() for x in cols[0]) + 1
+    s16_time(torch, res, f"merge rows ({R} rows x 6 columns)",
+             lambda: k32.merge_rows(cols, valid, R),
+             lambda: k32.plain_merge_rows(cols, valid, R), lib_rows,
+             n * R * row_bytes + R * row_bytes)
+    # K32 placed rows: the same rows compacted per shard
+    pcols, pval, ppos = [], [], []
+    for d in range(n):
+        idx = torch.nonzero(valid[d]).flatten()
+        pcols.append(tuple(c[idx] for c in cols[d]))
+        pval.append(torch.ones(idx.shape[0], dtype=torch.bool, device=dev))
+        ppos.append(idx)
+    pa = k32.merge_rows(pcols, pval, R, pos=ppos)
+    pb = k32.plain_merge_rows(pcols, pval, R, pos=ppos)
+    for a, b in zip(pa[0] + (pa[1],), pb[0] + (pb[1],)):
+        s16_same(torch, a, b, "K32 placed rows")
+    for a, b in zip(pa[0], ka[0]):
+        s16_same(torch, a, b, "K32 placed rows against aligned rows")
+    m = sum(x.shape[0] for x in pval)
+    s16_time(torch, res, f"merge placed rows ({m} rows x 6 columns)",
+             lambda: k32.merge_rows(pcols, pval, R, pos=ppos),
+             lambda: k32.plain_merge_rows(pcols, pval, R, pos=ppos), None,
+             m * (row_bytes + 8) + R * row_bytes)
+    # K32 delta: P1's replicated selector state, one changer an element
+    from siddhi_tpu_torch import SiddhiManager
+    prt = SiddhiManager(device=dev).create_siddhi_app_runtime(P1_QL)
+    leaves = prt.query_runtimes["p1"].state[1]
+    del prt
+    err = 0.0
+    dbytes = 0
+    pairs = []
+    for leaf in leaves:
+        old = leaf.clone()
+        if old.dtype.is_floating_point:
+            old.copy_(t(rng.standard_normal(old.numel())).to(old.dtype))
+            old[:3] = torch.tensor([np.inf, np.nan, -0.0], dtype=old.dtype)
+        changer = t(rng.integers(-1, n, old.numel()))
+        news = []
+        for d in range(n):
+            x = old.clone()
+            fresh = t(rng.integers(0, 100, old.numel())).to(old.dtype)
+            news.append(torch.where(changer == d, fresh, x))
+        if old.dtype.is_floating_point:
+            news[n - 1][0] = 5.0
+        a = k32.merge_delta(old, news)
+        b = k32.plain_merge_delta(old, news)
+        s16_same(torch, a, b, "K32 delta mode")
+        if old.dtype.is_floating_point and not bool(torch.isnan(a[0])):
+            fail("K32 delta mode: +inf -> 5 did not give NaN")
+        a = k32.merge_delta(old, news, finite_old=True)
+        b = k32.plain_merge_delta(old, news, finite_old=True)
+        s16_same(torch, a, b, "K32 delta mode (finite_old)")
+        pairs.append((old, news))
+        dbytes += (n + 2) * old.numel() * old.element_size()
+
+    def run_delta(fn):
+        for old, news in pairs:
+            fn(old, news, finite_old=True)
+
+    def lib_delta():
+        for old, news in pairs:
+            st = torch.stack(news)
+            old + torch.where(st != old, st - old,
+                              torch.zeros((), dtype=st.dtype,
+                                          device=dev)).sum(0)
+    s16_time(torch, res, f"merge delta ({len(pairs)} leaves x "
+             f"{leaves[0].numel()} slots)",
+             lambda: run_delta(k32.merge_delta),
+             lambda: run_delta(k32.plain_merge_delta), lib_delta, dbytes)
+    # K32 header: the flagship's four shard headers [n_valid, n_dropped,
+    # wake]
+    hdrs = [t(np.array([int(rng.integers(0, BATCH)), 0,
+                        int(rng.integers(1, 1 << 40))], np.int64))
+            for _ in range(n)]
+    s16_same(torch, k32.merge_header(hdrs, (2,)),
+             k32.plain_merge_header(hdrs, (2,)), "K32 header mode")
+    hs = torch.stack(hdrs)
+
+    def lib_hdr():
+        hs[:, :2].sum(0)
+        torch.amin(hs[:, 2])
+    s16_time(torch, res, "merge header (4 shards x 3 words)",
+             lambda: k32.merge_header(hdrs, (2,)),
+             lambda: k32.plain_merge_header(hdrs, (2,)), lib_hdr,
+             (n + 1) * 3 * 8)
+    for k, r in res.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"kernel K3{1 if k.startswith('route') else 2} {k} (n = {n}; "
+              f"graph replay): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+              f"({r['bytes']} bytes), one-call PyTorch {lib} [{card}]")
+    return err, res
+
+
+def s16_flagship(torch, np, dev, ql, mesh, mods, label):
+    """One sweep of the flagship's sends (8 blocks of 2^17 keys x 4
+    events over 2^20 keys) through SiddhiManager, unsharded or on `mesh`.
+    Returns (match rows sorted, each send's delivered keys in row order,
+    ev/s, launches, plain calls, the runtime)."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(ql, mesh=mesh) if mesh is not None \
+        else mgr.create_siddhi_app_runtime(ql)
+    got = []
+
+    def on_batch(ts, b):
+        v = b["valid"]
+        c = b["cols"]
+        got.append(np.stack([c["k"][v].astype(np.float64), c["p1"][v],
+                             c["p2"][v], c["p4"][v]], 1))
+    rt.add_batch_callback("flagship", on_batch)
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    blocks = N_KEYS // BATCH
+    vol4 = np.tile(np.array([1, 2, 3, 4], np.int32), BATCH)
+    price4 = vol4.astype(np.float32)
+    sends = []
+    for b in range(blocks):
+        keys = np.repeat(np.arange(b * BATCH, (b + 1) * BATCH,
+                                   dtype=np.int64), 4)
+        ts = 1000 + 10 * b + np.tile(np.arange(4, dtype=np.int64), BATCH)
+        sends.append(([keys, price4, vol4], ts))
+    h.send_columns(sends[0][0], timestamps=sends[0][1])     # warm
+    rt.flush()
+    got.clear()
+    for mo in mods.values():
+        mo.reset_counts()
+    t0 = time.perf_counter()
+    for cols, ts in sends[1:]:
+        h.send_columns(cols, timestamps=ts)
+    rt.flush()
+    dt = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    rows = np.concatenate(got) if got else np.zeros((0, 4))
+    order = [g[:, 0].astype(np.int64) for g in got]
+    evs = (blocks - 1) * BATCH * 4 / dt
+    mgr.shutdown()
+    return rows[np.lexsort(rows.T[::-1])], order, evs, launches, plain, rt
+
+
+def s16_rows_run(torch, np, dev, ql, qname, stream, sends, mesh, mods):
+    """Every send's delivered rows (ts, kind, the columns; valid rows in
+    row order) of `qname`, unsharded or on `mesh`, with the kernels'
+    launches and plain calls and the wall seconds."""
+    from siddhi_tpu_torch import SiddhiManager
+    mgr = SiddhiManager(device=dev)
+    rt = mgr.create_siddhi_app_runtime(ql, mesh=mesh) if mesh is not None \
+        else mgr.create_siddhi_app_runtime(ql)
+    got = []
+
+    def on_batch(ts, b):
+        v = b["valid"]
+        got.append([b["ts"][v], b["kind"][v]] +
+                   [c[v] for c in b["cols"].values()])
+    rt.add_batch_callback(qname, on_batch)
+    rt.start()
+    h = rt.get_input_handler(stream)
+    for mo in mods.values():
+        mo.reset_counts()
+    t0 = time.perf_counter()
+    for cols, ts in sends:
+        h.send_columns(cols, timestamps=ts)
+    rt.flush()
+    dt = time.perf_counter() - t0
+    launches = {k: mo.launches for k, mo in mods.items()}
+    plain = {k: mo.plain_calls for k, mo in mods.items()}
+    alloc = rt.query_runtimes[qname].planned.slot_allocator
+    used = None if alloc is None else np.array(alloc._used, copy=True)
+    mgr.shutdown()
+    return got, launches, plain, dt, used
+
+
+def s16_same_rows(np, a, b, what):
+    if len(a) != len(b):
+        fail(f"{what}: {len(a)} batches against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, w) in enumerate(zip(x, y)):
+            if u.shape != w.shape or u.tobytes() != w.tobytes():
+                fail(f"{what}: batch {i} column {j} differs")
+
+
+def slice16_phases(torch, np, dev):
+    """Phases 63-67 (sharding over the key axis on 4 logical shards of the
+    card): K31 / K32 against their plain versions (63), the flagship at
+    2^20 keys unsharded and on the mesh (64), its @fuse variant on the
+    mesh (65), P1 (66) and PG1 (67) unsharded and on the mesh.  Returns
+    the kernel records."""
+    t0 = time.perf_counter()
+    card = card_line()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 16 {what}: {time.perf_counter() - t0:.1f} s")
+    err, res = s16_kernels(torch, np, dev, card)
+    took("phase 63 done")
+    mods = slice16_modules()
+    mesh = s16_mesh(dev)
+    main = {"shard_route": 0, "shard_merge": 0}
+    # -- phase 64: the flagship, unsharded and on the mesh -----------------
+    ql = FLAGSHIP_QL.format(n_keys=N_KEYS)
+    base, _, ev_u, l_u, p_u, _ = s16_flagship(torch, np, dev, ql, None,
+                                              mods, "unsharded")
+    rows, order, ev_m, l_m, p_m, rt = s16_flagship(torch, np, dev, ql, mesh,
+                                                   mods, "mesh")
+    sends = N_KEYS // BATCH - 1
+    if base.shape[0] != sends * BATCH:
+        fail(f"S16 flagship: {base.shape[0]} unsharded matches")
+    if rows.shape != base.shape or rows.tobytes() != base.tobytes():
+        fail("S16 flagship: the mesh's matches differ from the unsharded")
+    check_launched("S16 flagship on the mesh", l_m, p_m,
+                   ("pattern_step", "shard_merge"))
+    qr = rt.query_runtimes["flagship"]
+    alloc = qr.slot_allocator
+    kb = None
+    for keys in order:
+        shard = alloc.slots_for([keys], np.ones(keys.shape[0], bool)) % \
+            S16_N
+        if np.any(np.diff(shard) < 0):
+            fail("S16 flagship: the mesh's rows are not shard-major")
+        kb = np.bincount(shard, minlength=S16_N)
+    main["shard_merge"] += l_m["shard_merge"]
+    print(f"S16 flagship (2^20 keys, {sends} sends of {BATCH} keys x 4): "
+          f"unsharded {ev_u:.0f} ev/s, pattern_step launches "
+          f"{l_u['pattern_step'] / sends:.2f} a send; on {S16_N} logical "
+          f"shards {ev_m:.0f} ev/s, pattern_step launches "
+          f"{l_m['pattern_step'] / sends:.2f} and K32 launches "
+          f"{l_m['shard_merge'] / sends:.2f} a send; each shard's Kb "
+          f"{kb.tolist()} key rows; matches equal, rows shard-major "
+          f"[{card}]")
+    took("phase 64 done")
+    # -- phase 65: the @fuse variant on the mesh ----------------------------
+    mrows, _, ev_f, l_f, p_f, frt = s16_flagship(
+        torch, np, dev, MC_FLAGSHIP_QL.format(keys=N_KEYS), mesh, mods,
+        "fused mesh")
+    if frt.query_runtimes["flagship"]._fuse is None:
+        fail("S16 MC flagship: @fuse did not apply on the mesh")
+    if mrows.shape != base.shape or mrows.tobytes() != base.tobytes():
+        fail("S16 MC flagship: the fused mesh's matches differ")
+    check_launched("S16 MC flagship (fused, on the mesh)", l_f, p_f,
+                   ("pattern_step", "shard_merge"))
+    main["shard_merge"] += l_f["shard_merge"]
+    print(f"S16 MC flagship (@fuse(batches='4') on {S16_N} logical "
+          f"shards): {ev_f:.0f} ev/s, pattern_step launches "
+          f"{l_f['pattern_step'] / sends:.2f} a send; matches equal "
+          f"[{card}]")
+    took("phase 65 done")
+    # -- phase 66: P1 ------------------------------------------------------
+    rng = np.random.default_rng(166)
+    p1s = [p1_send(np, rng, i) for i in range(S16_P1_SENDS)]
+    gu, lu, pu, du, _ = s16_rows_run(torch, np, dev, P1_QL, "p1",
+                                     "TempStream", p1s, None, mods)
+    gm, lm, pm, dm, _ = s16_rows_run(torch, np, dev, P1_QL, "p1",
+                                     "TempStream", p1s, mesh, mods)
+    s16_same_rows(np, gm, gu, "S16 P1 mesh vs unsharded")
+    check_launched("S16 P1 on the mesh", lm, pm,
+                   ("keyed_window", "group_agg", "shard_route",
+                    "shard_merge"))
+    for k in main:
+        main[k] += lm[k]
+    n_ev = S16_P1_SENDS * P1_B
+    print(f"S16 P1 (keyed length(10), 2^20 keys, {S16_P1_SENDS} sends): "
+          f"unsharded {n_ev / du:.0f} ev/s, on {S16_N} logical shards "
+          f"{n_ev / dm:.0f} ev/s (each shard runs the whole [Kb, E] "
+          f"grouping); rows equal in order; keyed_window launches "
+          f"{lu['keyed_window']} / {lm['keyed_window']} [{card}]")
+    took("phase 66 done")
+    # -- phase 67: PG1 -----------------------------------------------------
+    rng = np.random.default_rng(167)
+    pgs = [pg1_send(np, rng, i) for i in range(S16_PG1_SENDS)]
+    gu, lu, pu, du, used_u = s16_rows_run(torch, np, dev, PG1_QL, "pg1",
+                                          "TempStream", pgs, None, mods)
+    gm, lm, pm, dm, used_m = s16_rows_run(torch, np, dev, PG1_QL, "pg1",
+                                          "TempStream", pgs, mesh, mods)
+    s16_same_rows(np, gm, gu, "S16 PG1 mesh vs unsharded")
+    if not np.array_equal(used_u, used_m):
+        fail("S16 PG1: the purger freed other keys on the mesh")
+    drawn = np.unique(np.concatenate([c[0] for c, _ in pgs])).shape[0]
+    if int(used_m.sum()) >= drawn:
+        fail("S16 PG1: the purger freed no key")
+    check_launched("S16 PG1 on the mesh", lm, pm,
+                   ("filter_compact", "group_agg", "shard_route",
+                    "shard_merge"))
+    for k in main:
+        main[k] += lm[k]
+    n_ev = S16_PG1_SENDS * PG1_B
+    print(f"S16 PG1 (no window, @purge, 2^21 group slots, "
+          f"{S16_PG1_SENDS} sends): unsharded {n_ev / du:.0f} ev/s, on "
+          f"{S16_N} logical shards {n_ev / dm:.0f} ev/s; rows equal in "
+          f"order; the allocator holds {int(used_m.sum())} keys of the "
+          f"{drawn} sent, the same slots on both [{card}]")
+    took("phase 67 done")
+    rec = []
+    for name, rep, modes in (
+            ("shard_route", "siddhi_tpu/core/planner.py:193",
+             [k for k in res if k.startswith("route")]),
+            ("shard_merge", "siddhi_tpu/core/planner.py:141",
+             [k for k in res if k.startswith("merge")])):
+        ms = sum(res[k]["ms"] for k in modes)
+        libs = [res[k]["library_ms"] for k in modes]
+        b = bound(sum(res[k]["bytes"] for k in modes))
+        rec.append({"name": name, "route": "cuda",
+                    "source": f"siddhi_tpu_torch/csrc/{name}.cu",
+                    "replaces": rep, "launches": main[name],
+                    "max_abs_err": err, "ms": ms,
+                    "plain_ms": sum(res[k]["plain_ms"] for k in modes),
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "library_ms": None if any(x is None for x in libs)
+                    else sum(libs)})
     return rec
 
 

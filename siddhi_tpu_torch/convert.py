@@ -725,3 +725,105 @@ def table_to_numpy(t) -> dict:
             "shadow": idx.shadow.copy(), "bucket_of": idx.bucket_of.copy(),
             "buckets": idx.alloc.snapshot()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharded runtimes (A14): the JAX package's global arrays in state-row order
+# against the port's per-shard states
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def sharded_state_from_jax(planned, jax_state, mesh):
+    """A meshed JAX runtime's state -> the port's per-shard state for the
+    port's sharded plan of the same query.  A JAX global array fetched to
+    the host is in state-row order, so shard d's block of a split leaf is
+    the contiguous slice [d * C / n, (d + 1) * C / n) (blobs [W, C] on
+    axis 1, selector slabs and keyed slabs on axis 0); a replicated leaf
+    (scalars, a keyed window's selector state) goes to every shard."""
+    from .sharding import ShardedState
+    n = mesh.n
+    if getattr(planned, "packer", None) is not None:          # pattern
+        (b32, b64, scalars), sel_state = jax_state
+        b32, b64 = _host(b32), _host(b64)
+        sel = [_host(s) for s in sel_state]
+        blk = b32.shape[1] // n
+        return ShardedState(
+            state_from_jax(b32[:, d * blk:(d + 1) * blk],
+                           b64[:, d * blk:(d + 1) * blk],
+                           [_host(s) for s in scalars],
+                           [s[d * blk:(d + 1) * blk] for s in sel], dev)
+            for d, dev in enumerate(mesh.devices))
+    wstate, sel_state = jax_state
+    if planned.keyed_mesh is not None:
+        slab, astate = query_state_from_jax(
+            planned, (wstate, [_host(s) for s in sel_state]))
+        blk = slab.K // n
+        return ShardedState(
+            (slab.take_rows(torch.arange(d * blk, (d + 1) * blk), dev),
+             tuple(a.to(dev) for a in astate))
+            for d, dev in enumerate(mesh.devices))
+    sel = [_host(s) for s in sel_state]
+    blk = sel[0].shape[0] // n if sel else 0
+    return ShardedState(
+        (torch.tensor([int(_host(wstate))], dtype=torch.int64, device=dev),
+         selector_state_from_jax([s[d * blk:(d + 1) * blk] for s in sel],
+                                 dev))
+        for d, dev in enumerate(mesh.devices))
+
+
+def sharded_state_to_numpy(qr) -> list:
+    """A sharded pattern or windowless group-by runtime's state as the JAX
+    package's global leaves in state-row order (numpy): the blobs and
+    split selector slabs concatenated shard by shard, the scalars and the
+    seq counter once."""
+    st = qr.state
+    if getattr(qr.planned, "packer", None) is not None:
+        (_, _, scal), _ = st[0]
+        return ([np.concatenate([p[0].cpu().numpy() for p, _ in st], 1),
+                 np.concatenate([p[1].cpu().numpy() for p, _ in st], 1)] +
+                [s.cpu().numpy() for s in scal] +
+                [np.concatenate([s[i].cpu().numpy() for _, s in st])
+                 for i in range(len(st[0][1]))])
+    return ([st[0][0].cpu().numpy().reshape(())] +
+            [np.concatenate([a[i].cpu().numpy() for _, a in st])
+             for i in range(len(st[0][1]))])
+
+
+def jax_sharded_state_to_numpy(jqr) -> list:
+    """The leaves `sharded_state_to_numpy` gives, of a meshed JAX
+    runtime."""
+    if hasattr(jqr.planned, "spec"):
+        (b32, b64, scal), sel = jqr.state
+        return [_host(b32), _host(b64)] + [_host(s) for s in scal] + \
+            [_host(s) for s in sel]
+    w, sel = jqr.state
+    return [_host(w)] + [_host(s) for s in sel]
+
+
+def carry_sharded_runtime(jrt, rt) -> None:
+    """Carry a meshed JAX app runtime's partitioned state into the port's
+    runtime of the same app on a mesh of the same size: each sharded
+    query's state (`sharded_state_from_jax`), its group-slot allocator,
+    and the partitions' key allocators (bindings in slot order, so each
+    key keeps its shard)."""
+    seen = set()
+    for name, qr in rt.query_runtimes.items():
+        jqr = jrt.query_runtimes[name]
+        p = qr.planned
+        for a, b in ((getattr(qr, "slot_allocator", None),
+                      getattr(jqr, "slot_allocator", None)),
+                     (getattr(p, "slot_allocator", None),
+                      getattr(jqr.planned, "slot_allocator", None)),
+                     (getattr(p, "window_key_allocator", None),
+                      getattr(jqr.planned, "window_key_allocator", None))):
+            if a is not None and b is not None and id(a) not in seen:
+                seen.add(id(a))
+                _copy_allocator(a, b)
+        mesh = p.mesh if p.mesh is not None else getattr(p, "keyed_mesh",
+                                                         None)
+        if mesh is None:
+            continue
+        qr.state = sharded_state_from_jax(p, jqr.state, mesh)

@@ -25,8 +25,10 @@ queries, non-partitioned pattern / sequence queries (a simple chain on
 the block NFA batch after batch, as the JAX package scans its block body;
 every other plan through one stacked launch of the general mode), join
 sides, and merge groups
-(`optimizer/mqo.py`).  Mesh-sharded patterns (`_dispatch_pattern_sharded`)
-wait for ROADMAP A14, and EXPLAIN's `eligibility` for A15.  The JAX
+(`optimizer/mqo.py`), and mesh-sharded partitioned patterns
+(`_dispatch_pattern_sharded`: each shard walks the stack's batches in
+order, a data launch a batch).  EXPLAIN's `eligibility` waits for A15.
+The JAX
 package caches one compiled scan per (kind, step body); the port has no
 compiled bodies to cache: each dispatch calls the plan's current steps.
 """
@@ -53,10 +55,18 @@ def ineligible_reason(qr, kind: str):
             return "keyed-window slab path is not fused yet"
         if p.partition_key_fn is not None:
             return "range-partition key derivation is not fused yet"
+        if p.mesh is not None:
+            return "sharded step has no fusable body"
         return None
     if kind == "pattern":
         if p.timer_step is not None:
             return "absent pattern needs timer wakeups — wake cannot lag"
+        if p.mesh is not None:
+            # sharded partitioned patterns fuse through their shard steps'
+            # fused entry (`pattern_planner.ShardedStep`)
+            if p.shard_fused_steps:
+                return None
+            return "sharded pattern step has no fusable body"
         if p.partition_positions:
             return "partitioned pattern grouping is not fused yet"
         return None
@@ -204,6 +214,8 @@ def _dispatch_plain(qr, items) -> None:
 
 def _dispatch_pattern(qr, items) -> None:
     p = qr.planned
+    if p.mesh is not None:
+        return _dispatch_pattern_sharded(qr, items)
     stream_id = items[0][0]
     B = items[0][1].ts.shape[0]
     nows = [now for _, _, now in items]
@@ -239,6 +251,39 @@ def _dispatch_pattern(qr, items) -> None:
     qr.state = (pstate, sel_state)
     from . import runtime as _rt
     results = [(out, torch.stack([out[0], out[1]])) for out in outs]
+    _deliver_fused(qr, results, nows, _rt._deliver_pattern)
+
+
+def _dispatch_pattern_sharded(qr, items) -> None:
+    """Fused dispatch of a mesh-sharded partitioned pattern (reference
+    `_dispatch_pattern_sharded`, `siddhi_tpu/core/fusion.py:352-386`):
+    each batch routes through the key-space router on the host in arrival
+    order (`_shard_prep`), the groupings pad to one common [n, Kb, E]
+    (key = the sentinel block, sel = -1), the stack goes to the card in
+    one copy, and the shard steps' fused entry runs the batches in order,
+    each merged as the reference's scan body merges it."""
+    p = qr.planned
+    stream_id = items[0][0]
+    preps = [qr._shard_prep(stream_id, staged, now)
+             for _, staged, now in items]
+    n = preps[0][0].shape[0]
+    Kb = max(ki.shape[1] for ki, _ in preps)
+    E = max(s.shape[2] for _, s in preps)
+    block = qr.shard_router.block
+    k = len(items)
+    key_k = np.full((k, n, Kb), block, np.int32)
+    sel_k = np.full((k, n, Kb, E), -1, np.int32)
+    for i, (ki, s) in enumerate(preps):
+        key_k[i, :, :ki.shape[1]] = ki
+        sel_k[i, :, :s.shape[1], :s.shape[2]] = s
+    nows = [now for _, _, now in items]
+    batch, _ = ev.StackedBatch([st for _, st, _ in items]).to_device(
+        p.in_schemas[stream_id], p.mesh.first, [])
+    qr.state, outs = p.shard_fused_steps[stream_id](
+        qr.state, batch.cols, batch.ts, sel_k, key_k, nows,
+        **qr.app.in_probe_kw(p.exec.in_deps))
+    from . import runtime as _rt
+    results = [(out, torch.stack([out[0], out[1]])) for out, _ in outs]
     _deliver_fused(qr, results, nows, _rt._deliver_pattern)
 
 

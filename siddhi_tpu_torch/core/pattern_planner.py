@@ -16,12 +16,26 @@ the CPU the steps are the plain PyTorch functions (`make_block_step`, and
 absent atoms also gets a timer step (`tstep`): one tick with no event over
 the whole slab at `now`, which fires the absent deadlines that have
 passed.
+
+On a mesh (`mesh`, a `sharding.ShardMesh`; B8, the JAX package's
+`_shard_step` / `_shard_fused_step`) a partitioned plan keeps one packed
+state per shard, `ShardedState`: shard d holds the key rows of the
+slots `s % n == d` at local row `s // n`, its own selector slabs and its
+own replica of the scalar counters.  `ShardedStep` runs the plan's gather
+step once per shard on the shard's [Kb, E] block (`ShardRouter.group`),
+then kernel K32 (`kernels/shard_merge.py`) sums the headers, takes the
+least wake and re-replicates the scalars (old + the sum of the shards'
+changes).  The rows stay per shard, concatenated shard by shard: the JAX
+package's `P('shard')` order.  `ShardedTimer` runs the timer step once per
+shard and interleaves the rows as the JAX package's timer over the whole
+[W, C] slab (state-row order) gives them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..query_api.definition import StreamDefinition
@@ -33,6 +47,7 @@ from .pattern import PatternExec, PatternSpec, PatternState, last_filled, \
     linearize, oh_take
 from .pattern_block import block_eligible, make_block_step
 from .selector import SelectorExec
+from ..sharding import ShardedState, on_device
 from .window import NO_WAKEUP, UNCAPPED_SENTINEL, Rows
 
 # test hook: force the scan path even for block-eligible specs (tests
@@ -164,6 +179,12 @@ class PlannedPatternQuery:
     timer_step: Optional[Callable] = None
     # True when the plan runs the block NFA (non-partitioned simple chain)
     block: bool = False
+    # the shard mesh of a partitioned plan deployed on one (B8): `steps`
+    # and `timer_step` are then `ShardedStep` / `ShardedTimer` over a
+    # `ShardedState`, and `shard_fused_steps` the @fuse entry (K
+    # stacked batches, each shard walking them in order)
+    mesh: Any = None
+    shard_fused_steps: Optional[Dict[str, Callable]] = None
 
 
 def plan_pattern_query(
@@ -179,6 +200,7 @@ def plan_pattern_query(
     device: Optional[torch.device] = None,
     in_col0_types: Optional[Dict[str, str]] = None,
     partition_key_fns: Optional[Dict[str, Callable]] = None,
+    mesh=None,
 ) -> PlannedPatternQuery:
     from ..kernels.pattern_step import KernelPlan, PatternStep, TimerStep
 
@@ -198,6 +220,8 @@ def plan_pattern_query(
     for sid in spec.stream_ids:
         if sid not in schemas:
             raise CompileError(f"undefined stream {sid!r} in pattern")
+    # a top-level pattern is not sharded, in either package
+    mesh = mesh if partition_positions else None
     use_block = partition_positions is None and block_eligible(spec) \
         and not _FORCE_SCAN
     pexec = PatternExec(spec, schemas, interner, slots=slots,
@@ -370,6 +394,32 @@ def plan_pattern_query(
     def init_state(K: int):
         return packer.pack(pexec.init_state(K)), sel.init_state()
 
+    shard_fused_steps = None
+    if mesh is not None:
+        if spec.has_absent and sel.bank.specs:
+            # the JAX timer step aggregates every key's timer rows into
+            # global group slot 0; per-shard timer launches would not
+            raise NotImplementedError(
+                f"query {name!r}: a pattern with absent atoms and "
+                f"aggregators on a mesh is not ported")
+        gather = steps
+        steps = {sid: ShardedStep(st, mesh) for sid, st in gather.items()}
+        shard_fused_steps = {sid: ShardedStep(st, mesh, fused=True)
+                             for sid, st in gather.items()}
+        steps_w = dense_steps = dense_steps_w = None
+        if timer_step is not None:
+            timer_step = ShardedTimer(timer_step, mesh)
+        unsharded_init = init_state
+
+        def init_state(K: int):                       # noqa: F811
+            n = mesh.n
+            if K % n:
+                raise ValueError(f"key capacity {K} is not divisible by "
+                                 f"{n} shards")
+            return ShardedState(
+                tuple(on_device(unsharded_init(K // n), d)
+                      for d in mesh.devices))
+
     return PlannedPatternQuery(
         name=name, spec=spec, exec=pexec,
         in_schemas={sid: schemas[sid] for sid in spec.stream_ids},
@@ -386,7 +436,47 @@ def plan_pattern_query(
         packer=packer, partition_positions=partition_positions,
         partition_key_fns=partition_key_fns,
         emit_explicit=emit_explicit, selector_exec=sel,
-        compact_rows=compact_rows, device=device)
+        compact_rows=compact_rows, device=device, mesh=mesh,
+        shard_fused_steps=shard_fused_steps)
+
+
+# ---------------------------------------------------------------------------
+# B8: the pattern step over a mesh of shards
+# ---------------------------------------------------------------------------
+
+def merge_pattern_out(outs, wakes, mesh, kb: int = 0):
+    """The merged output of n shards' pattern steps: the header words
+    summed and the wakes' least (K32's header mode), the rows concatenated
+    shard by shard on the first device, or, given the shards' key rows
+    `kb` (the timer step), each shard's [R, kb] rows side by side, the
+    JAX timer's state-row order over the whole [W, C] slab."""
+    from ..kernels.shard_merge import merge_header
+    dev = mesh.first
+    hdr = merge_header([torch.stack([o[0], o[1], torch.as_tensor(
+        w, dtype=torch.int64, device=o[0].device)]) for o, w in
+        zip(outs, wakes)], min_words=(2,))
+
+    def cat(xs):
+        xs = [x.to(dev) for x in xs]
+        if not kb:
+            return torch.cat(xs)
+        return torch.cat([x.reshape(-1, kb) for x in xs], 1).reshape(-1)
+
+    rows = [cat([o[j] for o in outs]) for j in (2, 3, 4)]
+    cols = tuple(cat([o[5][c] for o in outs])
+                 for c in range(len(outs[0][5])))
+    return (hdr[0], hdr[1], *rows, cols), hdr[2]
+
+
+def _merge_scalars(olds, packs, mesh):
+    """Re-replicate the scalar counters: old + the sum of the shards'
+    changes (K32's unmasked delta mode), one copy per shard."""
+    from ..kernels.shard_merge import merge_delta
+    n_scal = len(packs[0][2])
+    merged = [merge_delta(olds[i], [p[2][i] for p in packs], masked=False)
+              for i in range(n_scal)]
+    return [(b32, b64, tuple(m.to(d).clone() for m in merged))
+            for (b32, b64, _), d in zip(packs, mesh.devices)]
 
 
 def absent_wake(spec: PatternSpec, st: PatternState):
@@ -522,3 +612,85 @@ def cut_per_key(out, EP: int, K: int, compact_rows: int):
         n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
     # leading scalars: valid-row count and overflow count
     return (n_valid, n_dropped) + out
+
+
+class ShardedStep:
+    """One stream's pattern step on a mesh (B8 `_shard_step`; with `fused`,
+    `_shard_fused_step`): `(state, raw_cols, raw_ts, sel [n, Kb, E],
+    key_idx [n, Kb], now, in_tabs=None) -> (state', out, wake)`, the
+    grouping from `ShardRouter.group` (host arrays).  Each shard runs the
+    plan's gather step (the `pattern_step` kernel on a card, its plain
+    version on the CPU) on its own block; K32 combines the headers, the
+    scalar counters and the wakes.  The fused form takes K stacked
+    batches (`raw_cols` [K][B] ..., `sel` [K, n, Kb, E], `key_idx` [K, n,
+    Kb], `nows`) and returns one (out, wake) per batch: each batch merges
+    as the JAX package's scan body does."""
+
+    def __init__(self, step, mesh, fused: bool = False):
+        self.step = step
+        self.mesh = mesh
+        self.fused = fused
+
+    def __call__(self, state, raw_cols, raw_ts, sel, key_idx, now,
+                 in_tabs=None):
+        if not self.fused:
+            return self._one(state, raw_cols, raw_ts, sel, key_idx, now,
+                             in_tabs)
+        outs = []
+        for s, t in enumerate(now):
+            state, out, wake = self._one(
+                state, tuple(c[s] for c in raw_cols), raw_ts[s], sel[s],
+                key_idx[s], t, in_tabs)
+            outs.append((out, wake))
+        return state, outs
+
+    def _one(self, state, raw_cols, raw_ts, sel, key_idx, now, in_tabs):
+        mesh = self.mesh
+        # the replicated scalars before the step (the kernel moves them in
+        # place); the batch's columns copied once to each distinct device
+        olds = tuple(x.clone() for x in state[0][0][2])
+        batch_on = {}
+        packs, sels, outs, wakes = [], [], [], []
+        for d, dev in enumerate(mesh.devices):
+            packed, sel_state = state[d]
+            if dev not in batch_on:
+                batch_on[dev] = on_device((raw_cols, raw_ts), dev)
+            cols, ts = batch_on[dev]
+            sd = torch.from_numpy(np.ascontiguousarray(sel[d])).to(dev)
+            kd = torch.from_numpy(np.ascontiguousarray(key_idx[d])).to(dev)
+            packed, sel_state, out, wake = self.step(
+                packed, sel_state, cols, ts, sd, kd, now, in_tabs=in_tabs)
+            packs.append(packed)
+            sels.append(sel_state)
+            outs.append(out)
+            wakes.append(wake)
+        packs = _merge_scalars(olds, packs, mesh)
+        out, wake = merge_pattern_out(outs, wakes, mesh)
+        return ShardedState(zip(packs, sels)), out, wake
+
+
+class ShardedTimer:
+    """The timer step of a sharded plan: one timer launch per shard over
+    the shard's [W, C / n] slab; the rows interleave into the JAX timer's
+    state-row order, and K32 merges the headers, scalars and wakes."""
+
+    def __init__(self, timer, mesh):
+        self.timer = timer
+        self.mesh = mesh
+
+    def __call__(self, state, now, in_tabs=None):
+        mesh = self.mesh
+        packs, sels, outs, wakes = [], [], [], []
+        olds = tuple(x.clone() for x in state[0][0][2])
+        for d in range(mesh.n):
+            packed, sel_state = state[d]
+            packed, sel_state, out, wake = self.timer(
+                packed, sel_state, now, in_tabs=in_tabs)
+            packs.append(packed)
+            sels.append(sel_state)
+            outs.append(out)
+            wakes.append(wake)
+        packs = _merge_scalars(olds, packs, mesh)
+        out, wake = merge_pattern_out(outs, wakes, mesh,
+                                      kb=packs[0][0].shape[1])
+        return ShardedState(zip(packs, sels)), out, wake

@@ -75,6 +75,7 @@ from . import event as ev
 from .executor import CompileError, Scope, compile_expression
 from .keyslots import SlotAllocator
 from .selector import SelectorExec
+from ..sharding import ShardedState, on_device
 from .window import NO_WAKEUP, NoWindow, PassAllWindow, Rows, \
     WindowProcessor, create_window
 
@@ -115,6 +116,13 @@ class PlannedQuery:
     partition_key_fn: Optional[Callable] = None
     # distinctCount / unionSet: (pair allocator, value position) each
     pair_allocs: List[Any] = dataclasses.field(default_factory=list)
+    # the shard mesh of a windowless group-by split over it (slot s at
+    # local slot s // n of shard s % n; purge resets remap through that
+    # layout), and of a keyed window whose slab is split over it (key k at
+    # local row k // n of shard k % n; the selector state replicated): the
+    # JAX package's `mesh` / `keyed_mesh` (B10's shard steps)
+    mesh: Any = None
+    keyed_mesh: Any = None
 
 
 def _env_for(scope_key: str, cols, ts, now, kind) -> Dict[str, Any]:
@@ -167,7 +175,7 @@ def plan_single_query(
         key_capacity: int = 0,
         in_cols: Optional[Dict[str, str]] = None,
         partition_key_fn: Optional[Callable] = None,
-        named_window_input: bool = False) -> PlannedQuery:
+        named_window_input: bool = False, mesh=None) -> PlannedQuery:
     from ..kernels.filter_bytecode import AND, InKeys, compile_filter
     from ..kernels.in_probe import probe_env
     from ..kernels.filter_compact import FilterSpec
@@ -383,6 +391,50 @@ def plan_single_query(
                                        device=device)])
             return tk
 
+    plain_mesh = keyed_mesh = None
+    if keyed_window:
+        n = mesh.n if mesh is not None else 0
+        kshardable = (
+            mesh is not None and n > 1 and K % n == 0 and not pair_allocs
+            and not sel._order_by and query.selector.limit is None
+            and query.selector.offset is None
+            and not getattr(wproc, "host_scheduled", False)
+            # a RESET-emitting batch window resets every selector slot on
+            # a shard that sees the flush: many writers a slot break the
+            # replicated state's delta merge, so it stays unsharded
+            and not wproc.emits_reset)
+        if kshardable:
+            keyed_mesh = mesh
+            kstep = ShardedKeyedStep(wstep, wkw, fspec, select_body, mesh, K)
+            unsharded_kinit = init_state
+
+            def init_state():                          # noqa: F811
+                slab, astate = unsharded_kinit()
+                return ShardedState(
+                    (_shard_slab(slab, d, n, dev), on_device(astate, dev))
+                    for d, dev in enumerate(mesh.devices))
+    else:
+        shardable = (
+            mesh is not None and allocator is not None
+            and isinstance(wproc, NoWindow) and not pair_allocs
+            and not sel._order_by and query.selector.limit is None
+            and query.selector.offset is None
+            and allocator.capacity % mesh.n == 0)
+        if shardable:
+            plain_mesh = mesh
+            # the rows stay aligned to the input, so the shards' outputs
+            # merge row by row in the unsharded delivery order
+            wproc.compact = False
+            step = ShardedPlainStep(step, mesh)
+            blk = allocator.capacity // mesh.n
+
+            def init_state():                          # noqa: F811
+                return ShardedState(
+                    (wproc.init_state(dev),
+                     tuple(torch.full((blk,), s.init, dtype=s.dtype,
+                                      device=dev) for s in sel.bank.specs))
+                    for dev in mesh.devices)
+
     return PlannedQuery(
         name=name, input_stream_id=sid, in_schema=in_schema,
         out_schema=out_schema, output_target=out_target,
@@ -397,7 +449,135 @@ def plan_single_query(
         window_key_allocator=window_key_allocator,
         key_capacity=key_capacity, kstep=kstep, timer_keys=timer_keys,
         in_deps=in_deps, partition_key_fn=partition_key_fn,
-        pair_allocs=pair_allocs)
+        pair_allocs=pair_allocs, mesh=plain_mesh, keyed_mesh=keyed_mesh)
+
+
+# ---------------------------------------------------------------------------
+# B10's shard steps: a windowless group-by and a keyed window on a mesh
+# ---------------------------------------------------------------------------
+
+def _shard_slab(slab, d: int, n: int, dev):
+    """Shard d's block of a keyed slab: the key rows k % n == d, in order
+    (global state rows [d * K / n, (d + 1) * K / n) of the JAX layout)."""
+    return slab.take_rows(torch.arange(d, slab.K, n, device=slab.ts.device),
+                          dev)
+
+
+def _batch_on(batch, dev, valid=None):
+    return ev.EventBatch(batch.ts.to(dev), batch.kind.to(dev),
+                         (batch.valid if valid is None else valid).to(dev),
+                         tuple(c.to(dev) for c in batch.cols))
+
+
+class ShardedPlainStep:
+    """A windowless partitioned group-by on a mesh (JAX `_shard_plain_step`,
+    `siddhi_tpu/core/planner.py:151`): each shard holds a G / n block of
+    every selector slab; kernel K31 gives each shard the rows whose slot
+    it owns (`lvalid`) at their local slots; every shard runs the plan's
+    step (K1 in its row-aligned mode, K15, K4) on the whole batch; kernel
+    K32 merges the rows row by row, the headers, and the NoWindow seq
+    counter (old + the sum of the shards' changes)."""
+
+    def __init__(self, step, mesh):
+        self.step = step
+        self.mesh = mesh
+
+    def __call__(self, state, batch, gslot, now: int, facts, in_tabs=None,
+                 pslots=(), pre=None):
+        from ..kernels.shard_merge import (merge_delta, merge_header,
+                                           merge_rows)
+        from ..kernels.shard_route import route_plain
+        mesh = self.mesh
+        lvalid, local = route_plain(gslot, batch.valid, mesh.n)
+        old_w = state[0][0].clone()
+        states, outs, hdrs = [], [], []
+        for d, dev in enumerate(mesh.devices):
+            st, out, hdr = self.step(
+                state[d], _batch_on(batch, dev, lvalid[d]), local[d].to(dev),
+                now, facts, in_tabs=in_tabs)
+            states.append(st)
+            outs.append(out)
+            hdrs.append(hdr)
+        seq = merge_delta(old_w, [st[0] for st in states], masked=False)
+        B = batch.ts.shape[0]
+        (ots, okind, *ocols), ovalid = merge_rows(
+            [(o[0], o[1]) + tuple(o[3]) for o in outs],
+            [o[2] for o in outs], B)
+        header = merge_header(hdrs, min_words=(2,))
+        return (ShardedState((seq.to(dev).clone(), st[1]) for st, dev
+                                  in zip(states, mesh.devices)),
+                (ots, okind, ovalid, tuple(ocols)), header)
+
+
+class ShardedKeyedStep:
+    """A keyed window on a mesh (JAX `_shard_keyed_step`,
+    `siddhi_tpu/core/planner.py:223`): each shard holds the K / n window
+    key rows k % n == d and a replica of the selector state; kernel K31
+    gives each shard its local rows of the keys it owns (the others and
+    the padding rows drop); every shard runs the plan's keyed window step
+    over the whole [Kb, E] grouping and the selector over its rows; K31's
+    place mode and K32 merge the shards' key-major rows in key-row order,
+    the headers, and the selector state (`dmerge`: old + the sum of the
+    shards' changes, each element changed on one shard), which every
+    replica then holds.  Where dmerge is undefined, a changed element
+    whose old value is +-inf (a min / max accumulator's identity), the
+    element takes the changed copy: the JAX package turns it into NaN, so
+    its meshed min / max come out null after a key's first step, where
+    the unsharded run gives the extreme (a reference defect the port does
+    not copy)."""
+
+    def __init__(self, wstep, wkw, fspec, select_body, mesh, K: int):
+        self.wstep = wstep
+        self.wkw = wkw
+        self.fspec = fspec
+        self.select_body = select_body
+        self.mesh = mesh
+        self.K = K
+
+    def __call__(self, state, batch, gslot, key_idx, sel_idx, now: int,
+                 tick: bool = False, in_tabs=None):
+        from ..kernels.keyed_window import recording_key_counts
+        from ..kernels.shard_merge import (merge_delta, merge_header,
+                                           merge_rows)
+        from ..kernels.shard_route import place, route_keyed
+        mesh = self.mesh
+        key_l = route_keyed(key_idx, mesh.n, self.K)
+        old_a = tuple(x.clone() for x in state[0][1])
+        spec = self.fspec.bind(in_tabs)
+        slabs, astates, outs, hdrs, counts = [], [], [], [], []
+        for d, dev in enumerate(mesh.devices):
+            slab, astate = state[d]
+            b = _batch_on(batch, dev)
+            with recording_key_counts() as rec:
+                orows, wake = self.wstep(
+                    slab, spec, b.ts, b.kind, b.valid, gslot.to(dev), b.cols,
+                    key_l[d].to(dev), sel_idx.to(dev), now, tick=tick,
+                    **self.wkw)
+            astate, out = self.select_body(astate, orows, now, in_tabs)
+            ots, okind, ovalid, _ = out
+            cur = torch.logical_and(ovalid, okind == ev.CURRENT)
+            hdrs.append(torch.cat([torch.stack([ovalid.sum(), cur.sum()]),
+                                   wake]))
+            slabs.append(slab)
+            astates.append(astate)
+            outs.append(out)
+            counts.append(rec[-1].to(mesh.first))
+        sizes = [o[0].shape[0] for o in outs]
+        N = sum(sizes)
+        pos = list(torch.split(place(torch.stack(counts), N), sizes))
+        (ots, okind, *ocols), ovalid = merge_rows(
+            [(o[0], o[1]) + tuple(o[3]) for o in outs],
+            [o[2] for o in outs], N, pos=pos)
+        # dmerge, except that a changed min / max identity (+-inf) takes
+        # the changed copy where the JAX package's old + delta is NaN
+        merged = tuple(merge_delta(old, [a[i] for a in astates],
+                                   finite_old=True)
+                       for i, old in enumerate(old_a))
+        header = merge_header(hdrs, min_words=(2,))
+        return (ShardedState(
+            (slab, tuple(m.to(dev).clone() for m in merged))
+            for slab, dev in zip(slabs, mesh.devices)),
+            (ots, okind, ovalid, tuple(ocols)), header)
 
 
 def _keyed_step(wkw):

@@ -92,6 +92,7 @@ from . import event as ev
 from .executor import CompileError
 from .keyslots import SlotAllocator
 from .pattern_planner import plan_pattern_query
+from .. import sharding as _sharding
 from .planner import plan_single_query
 from .window import NO_WAKEUP, BatchFacts
 
@@ -219,6 +220,17 @@ class PatternQueryRuntime:
     def name(self):
         return self.planned.name
 
+    @property
+    def shard_router(self):
+        """The key-space router of a plan deployed on a mesh, else None
+        (reference `_MeshResolved.shard_router`,
+        `siddhi_tpu/core/runtime.py:324-347`); replans never change the
+        mesh or the capacity, so it is resolved once."""
+        r = self.__dict__.get("_shard_router_memo")
+        if r is None:
+            r = self._shard_router_memo = (_sharding.router_for(self),)
+        return r[0]
+
     def _grow_emission_cap(self, n_dropped: int, n_valid: int = 0) -> bool:
         """Size the implicit per-key emission cap to the observed demand
         (next power of two) in one jump.  State shapes do not depend on the
@@ -264,6 +276,9 @@ class PatternQueryRuntime:
         fb = self._fuse
         if fb is not None and fb.offer((stream_id, staged, now), staged,
                                        stream_id):
+            return
+        if self.shard_router is not None:
+            self._process_sharded(stream_id, staged, now)
             return
         p = self.planned
         dev = p.device
@@ -327,14 +342,57 @@ class PatternQueryRuntime:
         self.state = (pstate, sel_state)
         _emit_output(self, out, now, wake)
 
+    def _shard_prep(self, stream_id: str, staged: ev.StagedBatch,
+                    now: int):
+        """Staging-time routing of one batch through the key-space router
+        (reference `_shard_prep`, `siddhi_tpu/core/runtime.py:782-828`):
+        slot binding, the purger's liveness touch and the grouping
+        (key_idx [n, Kb], sel [n, Kb, E]).  The reference's dirty marking
+        for incremental snapshots waits for persistence (ROADMAP A13), its
+        per-shard routing counters and spans for the host layers (A15)."""
+        p = self.planned
+        kf = (p.partition_key_fns or {}).get(stream_id)
+        if kf is not None:
+            key_cols, kvalid = kf(staged)
+            valid = staged.valid & kvalid
+        else:
+            key_cols = [staged.cols[i]
+                        for i in p.partition_positions[stream_id]]
+            valid = staged.valid
+        slots = self.slot_allocator.slots_for(key_cols, valid)
+        if self._touch is not None:
+            self._touch(slots, now)
+        key_idx, sel, _counts = self.shard_router.group(slots, staged.valid)
+        return key_idx, sel
+
+    def _process_sharded(self, stream_id: str, staged: ev.StagedBatch,
+                         now: int) -> None:
+        """The mesh path (reference `_process_sharded`, `:830-847`): each
+        key routes to its shard (slot % n) and every shard steps its own
+        key rows (`pattern_planner.ShardedStep`)."""
+        p = self.planned
+        key_idx, sel = self._shard_prep(stream_id, staged, now)
+        dev = p.mesh.first
+        self.state, out, wake = p.steps[stream_id](
+            self.state, tuple(_h2d(c, dev) for c in staged.cols),
+            _h2d(staged.ts, dev), sel, key_idx, now,
+            **self.app.in_probe_kw(p.exec.in_deps))
+        _emit_output(self, out, now, wake)
+
     def on_timer(self, now: int) -> None:
-        """The timer step (absent deadlines) over the whole slab."""
+        """The timer step (absent deadlines) over the whole slab (on a
+        mesh, over every shard's slab)."""
         p = self.planned
         if p.timer_step is None:
             return
+        kw = self.app.in_probe_kw(p.exec.in_deps)
+        if p.mesh is not None:
+            self.state, out, wake = p.timer_step(self.state, now, **kw)
+            _emit_output(self, out, now, wake)
+            return
         pstate, sel_state = self.state
         pstate, sel_state, out, wake = p.timer_step(
-            pstate, sel_state, now, **self.app.in_probe_kw(p.exec.in_deps))
+            pstate, sel_state, now, **kw)
         self.state = (pstate, sel_state)
         _emit_output(self, out, now, wake)
 
@@ -957,6 +1015,12 @@ _HOLDS = {"timeBatch": "time batch window's slice",
           "batch": "batch window's chunk"}
 
 
+def _slab_of(qr: QueryRuntime):
+    """A keyed query's window slab (shard 0's on a mesh)."""
+    st = qr.state
+    return st[0][0] if qr.planned.keyed_mesh is not None else st[0]
+
+
 def _emit_plain(qr: QueryRuntime, out, header, now: int) -> None:
     """Emit one plain step's output: its header is [n_valid, n_current,
     wake, missed]."""
@@ -978,7 +1042,7 @@ def _deliver_plain(qr: QueryRuntime, out, hdr, now: int) -> None:
         raise RuntimeError(
             f"query {qr.name!r}: {missed} rows did not fit the "
             f"{_HOLDS[w.name]}{' (per key)' if per_key else ''} of "
-            f"{qr.state[0].C if qr.planned.keyed_window else w.capacity} "
+            f"{_slab_of(qr).C if qr.planned.keyed_window else w.capacity} "
             f"rows; raise @capacity(window=...)")
     if missed:
         raise RuntimeError(
@@ -1602,9 +1666,13 @@ class _PartitionPurger:
         for qr in runtimes:
             if isinstance(qr, PatternQueryRuntime):
                 qr._touch = self._make_touch(self._seen_shared)
-                (b32, b64, _), _ = qr.planned.init_state(1)
-                self._init_cols[id(qr)] = (b32.to(qr.planned.device),
-                                           b64.to(qr.planned.device))
+                mesh = qr.planned.mesh
+                if mesh is None:
+                    (b32, b64, _), _ = qr.planned.init_state(1)
+                else:
+                    # one key column of a shard's slab
+                    (b32, b64, _), _ = qr.planned.init_state(mesh.n)[0]
+                self._init_cols[id(qr)] = (b32[:, :1], b64[:, :1])
                 continue
             if not hasattr(qr, "_touch"):
                 continue
@@ -1683,24 +1751,44 @@ class _PartitionPurger:
         for a, spec in zip(state, specs):
             a[idx[idx < a.shape[0]]] = spec.init
 
-    def _reset_pattern_keys(self, qr, idle: np.ndarray) -> None:
-        (b32, b64, _), sel_state = qr.state
-        init32, init64 = self._init_cols[id(qr)]
-        idx = _h2d(idle.astype(np.int64), b32.device)
-        b32[:, idx] = init32
-        b64[:, idx] = init64
-        self._reset_slots(sel_state, qr.planned.selector_exec.bank.specs,
-                          idx)
-
     @staticmethod
-    def _reset_keyed_window(qr, idle: np.ndarray) -> None:
-        slab = qr.state[0]
-        slab.reset_keys(_h2d(idle.astype(np.int64), slab.head.device))
+    def _by_shard(qr, mesh, idle: np.ndarray):
+        """(shard state, local rows) of each shard holding some of the
+        `idle` slots: slot s lives at local row s // n of shard s % n (the
+        reference resets `router.state_row(s)`, `siddhi_tpu/core/
+        runtime.py:2339-2393`); unsharded, the whole state and `idle`."""
+        if mesh is None:
+            return [(qr.state, idle)]
+        n = mesh.n
+        return [(qr.state[d], idle[idle % n == d] // n) for d in range(n)
+                if np.any(idle % n == d)]
+
+    def _reset_pattern_keys(self, qr, idle: np.ndarray) -> None:
+        init32, init64 = self._init_cols[id(qr)]
+        for ((b32, b64, _), sel_state), rows in self._by_shard(
+                qr, qr.planned.mesh, idle):
+            idx = _h2d(rows.astype(np.int64), b32.device)
+            b32[:, idx] = init32.to(b32.device)
+            b64[:, idx] = init64.to(b64.device)
+            self._reset_slots(sel_state,
+                              qr.planned.selector_exec.bank.specs, idx)
+
+    def _reset_keyed_window(self, qr, idle: np.ndarray) -> None:
+        for (slab, _), rows in self._by_shard(qr, qr.planned.keyed_mesh,
+                                              idle):
+            slab.reset_keys(_h2d(rows.astype(np.int64), slab.head.device))
 
     def _reset_selector_slots(self, qr, idle: np.ndarray) -> None:
-        astate = qr.state[1]
-        self._reset_slots(astate, qr.planned.selector_exec.bank.specs,
-                          _h2d(idle.astype(np.int64), qr.planned.device))
+        specs = qr.planned.selector_exec.bank.specs
+        if qr.planned.keyed_mesh is not None:
+            # a keyed window's selector state is replicated: every replica
+            parts = [(st, idle) for st in qr.state]
+        else:
+            parts = self._by_shard(qr, qr.planned.mesh, idle)
+        for (_, astate), rows in parts:
+            if astate:
+                self._reset_slots(astate, specs, _h2d(
+                    rows.astype(np.int64), astate[0].device))
 
 
 class StreamJunction:
@@ -1885,10 +1973,15 @@ class SiddhiAppRuntime:
     """reference: CORE/SiddhiAppRuntimeImpl.java:99"""
 
     def __init__(self, app: SiddhiApp, manager: "SiddhiManager",
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, mesh=None):
         self.app = app
         self.manager = manager
-        self.device = manager.device
+        # a sharding.ShardMesh, or None (reference :2649-2652): partitioned
+        # patterns, keyed windows and windowless partition group-bys split
+        # their key state over it; everything else runs unsharded on its
+        # first device
+        self.mesh = mesh
+        self.device = mesh.first if mesh is not None else manager.device
         self.name = name or app.name or "SiddhiApp"
         self.interner = manager.interner
         self._lock = threading.RLock()
@@ -2097,11 +2190,15 @@ class SiddhiAppRuntime:
             kcap = 4096
             if cap_ann is not None and cap_ann.element("keys"):
                 kcap = int(cap_ann.element("keys"))
+            if self.mesh is not None:
+                # reference :2971-2973
+                n = self.mesh.n
+                kcap = ((kcap + n - 1) // n) * n
             kw = dict(batch_capacity=64,
                       window_capacity_hint=wch if wch_set else 128,
                       window_key_allocator=SlotAllocator(
                           kcap, name=f"{name}:sessionkey"),
-                      key_capacity=kcap)
+                      key_capacity=kcap, mesh=self.mesh)
         from_window = q.input_stream.unique_stream_id in self.named_windows
         planned = plan_single_query(q, name, self.schemas, self.interner,
                                     device=self.device,
@@ -2148,7 +2245,8 @@ class SiddhiAppRuntime:
 
     def _add_pattern_query(self, q: Query, name: str, key_capacity: int = 1,
                            slots: Optional[int] = None, positions=None,
-                           allocator=None, key_fns=None) -> None:
+                           allocator=None, key_fns=None,
+                           mesh=None) -> None:
         _check_annotations(q.annotations, f"query {name!r}")
         if slots is None:
             slots = 8
@@ -2164,7 +2262,7 @@ class SiddhiAppRuntime:
                 key_capacity=key_capacity, slots=slots,
                 partition_positions=positions, compact_rows_override=cap,
                 device=self.device, in_col0_types=in_cols,
-                partition_key_fns=key_fns)
+                partition_key_fns=key_fns, mesh=mesh)
 
         planned = plan()
         runtime = PatternQueryRuntime(planned, self, slot_allocator=allocator)
@@ -2213,6 +2311,11 @@ class SiddhiAppRuntime:
                 keys_cap = int(ann.element("keys", keys_cap))
                 nfa_slots = int(ann.element("slots", nfa_slots))
                 win_cap = int(ann.element("window", win_cap))
+        if self.mesh is not None:
+            # the key capacity rounds up to a multiple of the shards
+            # (reference :3306-3308)
+            n = self.mesh.n
+            keys_cap = ((keys_cap + n - 1) // n) * n
         shared_allocator = SlotAllocator(keys_cap, name="partition")
         part_runtimes = []
         for q in part.query_list:
@@ -2236,7 +2339,8 @@ class SiddhiAppRuntime:
                 self._add_pattern_query(q, qname, key_capacity=keys_cap,
                                         slots=nfa_slots, positions=ppos,
                                         allocator=shared_allocator,
-                                        key_fns=pfns or None)
+                                        key_fns=pfns or None,
+                                        mesh=self.mesh)
             part_runtimes.append(self.query_runtimes[qname])
         # @purge(enable, interval='1 sec', idle.period='5 min') on the
         # partition or any of its queries (reference :3439-3456)
@@ -2360,7 +2464,7 @@ class SiddhiAppRuntime:
             window_capacity_hint=win_cap, device=self.device,
             partition_positions=ppos, window_key_allocator=allocator,
             key_capacity=keys_cap, in_cols=self._in_cols(q, name),
-            partition_key_fn=(key_fns or {}).get(sid))
+            partition_key_fn=(key_fns or {}).get(sid), mesh=self.mesh)
         runtime = QueryRuntime(planned, self)
         self.query_runtimes[name] = runtime
         self._wire_dispatch(runtime, q, "plain")
@@ -2816,11 +2920,14 @@ class SiddhiManager:
     setConfigManager = set_config_manager
 
     def create_siddhi_app_runtime(
-            self, app: Union[str, SiddhiApp]) -> SiddhiAppRuntime:
+            self, app: Union[str, SiddhiApp],
+            mesh=None) -> SiddhiAppRuntime:
+        """`mesh` (a `sharding.ShardMesh`) deploys the app over its shards
+        (reference `siddhi_tpu/core/runtime.py:4455-4469`)."""
         if isinstance(app, str):
             from ..compiler import SiddhiCompiler
             app = SiddhiCompiler.parse(app)
-        runtime = SiddhiAppRuntime(app, self)
+        runtime = SiddhiAppRuntime(app, self, mesh=mesh)
         self.runtimes[runtime.name] = runtime
         return runtime
 

@@ -216,10 +216,10 @@ def one_key_row(cache: dict, ts):
 
 
 def _arrivals(rows: Rows, fspec, now: int, seq=None,
-              keep_expired: bool = False):
+              keep_expired: bool = False, aligned: bool = False):
     from ..kernels.filter_compact import filter_compact
     return filter_compact(fspec, rows.ts, rows.kind, rows.valid, rows.gslot,
-                          rows.cols, now, seq, keep_expired)
+                          rows.cols, now, seq, keep_expired, aligned)
 
 
 class NoWindow(WindowProcessor):
@@ -232,6 +232,10 @@ class NoWindow(WindowProcessor):
 
     name = "(none)"
     index_seq = False
+    # off on a mesh-sharded windowless group-by: the rows stay aligned to
+    # the input (K1's aligned mode), so the shards' outputs merge row by
+    # row (JAX `NoWindow.compact`)
+    compact = True
 
     def init_state(self, device):
         return torch.zeros(1, dtype=torch.int64, device=device)
@@ -244,7 +248,8 @@ class NoWindow(WindowProcessor):
             out, n = _arrivals(rows, fspec, now)
             state.add_(n)
         else:
-            out, _ = _arrivals(rows, fspec, now, seq=state)
+            out, _ = _arrivals(rows, fspec, now, seq=state,
+                               aligned=not self.compact)
         return state, WindowOutput(out, None)
 
 

@@ -12,7 +12,10 @@
 // seq0 + rank when a seq counter is given, then the others in input order,
 // marked invalid.  Without a counter each row's seq is its input index (a
 // caller that keys host data by input row finds it there).  The kept count
-// goes to a device scalar and the counter advances by it.
+// goes to a device scalar and the counter advances by it.  In the
+// row-aligned mode (`aligned`; a windowless group-by on a mesh, whose
+// shards' rows merge row by row: siddhi_tpu/core/window.py NoWindow with
+// `compact` off) every row stays at its input position, kept or not.
 //
 // Bound: every input row is read once (its columns, ts, kind, valid, group
 // slot) and written once to its place; the filter is a few dozen integer
@@ -35,7 +38,7 @@ constexpr int BLOCK = 256;
 
 // Mirrored field for field by kernels/filter_compact.py (ctypes.Structure).
 struct FilterPlan {
-  int B, ncols, code_len, write_seq, keep_expired, pad;
+  int B, ncols, code_len, write_seq, keep_expired, aligned;
   int col_ty[MAX_COLS];
   int code[MAX_CODE];
   const long long* ts;
@@ -89,7 +92,7 @@ __global__ void fc_scatter(const FilterPlan pl) {
   long long r = block_excl_scan<BLOCK>((long long)keep, sh, &tot) + pl.block_sums[blockIdx.x];
   if (i >= pl.B) return;
   long long total = pl.block_sums[gridDim.x];
-  long long dst = keep ? r : total + (i - r);
+  long long dst = pl.aligned ? i : (keep ? r : total + (i - r));
   pl.out_ts[dst] = pl.ts[i];
   pl.out_kind[dst] = pl.kind[i];
   pl.out_valid[dst] = (unsigned char)keep;

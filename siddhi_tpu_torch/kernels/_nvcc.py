@@ -32,7 +32,8 @@ SOURCES = ("pattern_step", "filter_compact", "time_window", "length_batch",
            "in_probe", "time_batch", "order_limit", "post_filter",
            "ext_window", "sort_window", "hop_window", "frequent",
            "keyed_ext", "keyed_freq", "expr_window", "agg_base",
-           "agg_merge", "multi_filter", "ring")
+           "agg_merge", "multi_filter", "ring", "shard_route",
+           "shard_merge")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

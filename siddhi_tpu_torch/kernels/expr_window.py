@@ -81,7 +81,7 @@ from .filter_bytecode import type_code
 from .in_probe import MAX_IN, InSet, fill_sets
 from .keyed_ext import _cat, _compact, _Keys, _store_block
 from .keyed_window import (MODE_EXPR, MODE_EXPRB, KeyedSlab, _wake, finish,
-                           no_wake, slab_dtype)
+                           no_wake, record_key_offsets, slab_dtype)
 
 launches = 0
 plain_calls = 0
@@ -654,6 +654,7 @@ def launch(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     n = int(bufs["sums"][-1]) if n_out is None else n_out
     out = alloc_out(pl, slab.types, n, dev)
     _call(pl, "write", prm.batch, dev)
+    record_key_offsets(bufs["scratch"]["ocnt"], sel.shape[0], n)
     launches += 1
     mode_launches[slab.mode] += 1
     del bufs

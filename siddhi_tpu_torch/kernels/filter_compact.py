@@ -50,7 +50,7 @@ class FilterPlan(ctypes.Structure):
     """Mirrors `struct FilterPlan` in csrc/filter_compact.cu."""
     _fields_ = (
         [("B", _I), ("ncols", _I), ("code_len", _I), ("write_seq", _I),
-         ("keep_expired", _I), ("pad", _I), ("col_ty", _I * MAX_COLS),
+         ("keep_expired", _I), ("aligned", _I), ("col_ty", _I * MAX_COLS),
          ("code", _I * MAX_CODE),
          ("ts", _P), ("kind", _P), ("valid", _P), ("gslot", _P),
          ("col", _P * MAX_COLS),
@@ -102,23 +102,28 @@ class FilterSpec:
 
 def filter_compact(spec: FilterSpec, ts, kind, valid, gslot, cols,
                    now: int, seq: Optional[torch.Tensor] = None,
-                   keep_expired: bool = False):
+                   keep_expired: bool = False, aligned: bool = False):
     """(Rows of the same capacity, kept count i64[1]).  `seq` (i64[1]) is
     the pass-through window's counter: given, kept rows get
     `seq0 + rank` and the counter advances; otherwise every row's seq is
     its input index.  With `keep_expired` EXPIRED rows are kept as
-    CURRENT ones are.  A `Prefiltered` spec (`kernels/multi_filter.py`)
-    carries rows K29 already compacted: they are returned as they are."""
+    CURRENT ones are.  `aligned` leaves every row at its input position
+    (valid where kept) instead of compacting.  A `Prefiltered` spec
+    (`kernels/multi_filter.py`) carries rows K29 already compacted: they
+    are returned as they are."""
     take = getattr(spec, "take", None)
     if take is not None:
         return take(seq, keep_expired)
     if ts.is_cuda:
-        return launch(spec, ts, kind, valid, gslot, cols, seq, keep_expired)
-    return plain(spec, ts, kind, valid, gslot, cols, now, seq, keep_expired)
+        return launch(spec, ts, kind, valid, gslot, cols, seq, keep_expired,
+                      aligned)
+    return plain(spec, ts, kind, valid, gslot, cols, now, seq, keep_expired,
+                 aligned)
 
 
 def plain(spec: FilterSpec, ts, kind, valid, gslot, cols, now: int,
-          seq: Optional[torch.Tensor] = None, keep_expired: bool = False):
+          seq: Optional[torch.Tensor] = None, keep_expired: bool = False,
+          aligned: bool = False):
     """The plain PyTorch version (the kernel's reference)."""
     global plain_calls
     plain_calls += 1
@@ -133,10 +138,15 @@ def plain(spec: FilterSpec, ts, kind, valid, gslot, cols, now: int,
     rank = torch.cumsum(keep.to(torch.int64), 0) - 1
     seq0 = seq if seq is not None else 0
     key = torch.where(keep, seq0 + rank, torch.full_like(rank, BIG_SEQ))
-    rows = sort_rows(Rows(ts=ts, kind=kind, valid=keep, seq=key,
-                          gslot=gslot, cols=tuple(cols)))
+    rows = Rows(ts=ts, kind=kind, valid=keep, seq=key, gslot=gslot,
+                cols=tuple(cols))
+    if not aligned:
+        rows = sort_rows(rows)
     if seq is not None:
         seq.add_(n)
+    elif aligned:
+        rows = rows._replace(seq=torch.arange(ts.shape[0],
+                                              device=ts.device))
     else:
         # without a counter each row's seq is its input index
         rows = rows._replace(seq=torch.argsort(key, stable=True))
@@ -153,7 +163,8 @@ def _check(x, name, dtype, n, dev):
 
 
 def launch(spec: FilterSpec, ts, kind, valid, gslot, cols,
-           seq: Optional[torch.Tensor] = None, keep_expired: bool = False):
+           seq: Optional[torch.Tensor] = None, keep_expired: bool = False,
+           aligned: bool = False):
     global launches
     if spec.bytecode is None:
         raise NotImplementedError(
@@ -201,6 +212,7 @@ def launch(spec: FilterSpec, ts, kind, valid, gslot, cols,
         _check(seq, "seq", torch.int64, 1, dev)
     pl.write_seq = int(seq is not None)
     pl.keep_expired = int(keep_expired)
+    pl.aligned = int(aligned)
     pl.ts, pl.kind, pl.valid, pl.gslot = (ts.data_ptr(), kind.data_ptr(),
                                           valid.data_ptr(), gslot.data_ptr())
     pl.out_ts, pl.out_kind, pl.out_valid = (out_ts.data_ptr(),

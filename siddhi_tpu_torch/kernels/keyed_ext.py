@@ -107,7 +107,7 @@ from .in_probe import MAX_IN, InSet, fill_sets
 from .keyed_window import (MODE_CHUNK, MODE_CRON, MODE_DELAY, MODE_EXT,
                            MODE_HOP, MODE_SORT, MODE_TLEN, MODE_XBATCH,
                            KeyedSlab, _keep, _rows, _wake, finish,
-                           slab_dtype)
+                           record_key_offsets, slab_dtype)
 from .sort_window import DEAD_FLOAT, DEAD_INT, key_type, sort_keys
 
 launches = 0
@@ -794,6 +794,7 @@ def launch(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     n = int(bufs["sums"][-1]) if n_out is None else n_out
     out = alloc_out(pl, slab.types, n, dev)
     write(pl, dev)
+    record_key_offsets(bufs["scratch"][4], sel.shape[0], n)
     launches += 1
     mode_launches[slab.mode] += 1
     tick_launches += int(tick)

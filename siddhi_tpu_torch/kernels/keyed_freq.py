@@ -53,7 +53,7 @@ from .frequent import key_words
 from .in_probe import MAX_IN, InSet, fill_sets
 from .keyed_ext import _Keys, _store_block
 from .keyed_window import (MODE_FREQ, KeyedSlab, _wake, finish, no_wake,
-                           slab_dtype)
+                           record_key_offsets, slab_dtype)
 
 launches = 0
 plain_calls = 0
@@ -312,6 +312,7 @@ def launch(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     m = int(bufs["sums"][-1]) if n_out is None else n_out
     out = alloc_out(pl, slab.types, m, dev)
     _call(pl, "write", dev)
+    record_key_offsets(bufs["scratch"][3], sel.shape[0], m)
     launches += 1
     del bufs
     return finish(out, slab.types, m), no_wake(dev)

@@ -107,7 +107,9 @@ count them (one per step), `mode_launches` the launches by mode and
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -235,18 +237,24 @@ class KeyedSlab:
             out += [self.f_counts, self.f_keys]
         return out + list(self.key_state.values())
 
-    def clone(self) -> "KeyedSlab":
+    def map(self, fn) -> "KeyedSlab":
+        """A slab of `fn` applied to each of this slab's tensors."""
         def c(x):
-            return None if x is None else x.clone()
+            return None if x is None else fn(x)
         return KeyedSlab(
-            self.mode, self.types, self.ts.clone(), self.gslot.clone(),
-            [x.clone() for x in self.cols], self.head.clone(),
-            self.count.clone(), self.seq.clone(), c(self.p_ts),
-            c(self.p_gslot),
-            None if self.p_cols is None else [x.clone() for x in self.p_cols],
-            c(self.p_count),
-            {n: x.clone() for n, x in self.key_state.items()},
+            self.mode, self.types, fn(self.ts), fn(self.gslot),
+            [fn(x) for x in self.cols], fn(self.head), fn(self.count),
+            fn(self.seq), c(self.p_ts), c(self.p_gslot),
+            None if self.p_cols is None else [fn(x) for x in self.p_cols],
+            c(self.p_count), {n: fn(x) for n, x in self.key_state.items()},
             self.key_init, c(self.f_counts), c(self.f_keys))
+
+    def clone(self) -> "KeyedSlab":
+        return self.map(lambda x: x.clone())
+
+    def take_rows(self, idx, device) -> "KeyedSlab":
+        """A slab of the key rows `idx`, on `device` (a shard's block)."""
+        return self.map(lambda x: x[idx].to(device))
 
     def reset_keys(self, idx) -> None:
         """Empty the keys at `idx` (a purged partition key's slot)."""
@@ -345,6 +353,42 @@ def _keep(spec, ts, kind, valid, cols, now):
     return keep
 
 
+_key_counts = threading.local()
+
+
+@contextlib.contextmanager
+def recording_key_counts():
+    """Inside the block, every keyed window step of this thread (K11,
+    K20-K26 and their plain versions) appends its emitted rows per key
+    row ([Kb] int64, on the step's device) to the yielded list: the
+    sharded keyed step places each shard's key-major rows in the merged
+    output by them (`kernels/shard_route.py` `place`)."""
+    prev = getattr(_key_counts, "out", None)
+    _key_counts.out = got = []
+    try:
+        yield got
+    finally:
+        _key_counts.out = prev
+
+
+def recording_counts() -> bool:
+    return getattr(_key_counts, "out", None) is not None
+
+
+def record_key_counts(counts: torch.Tensor) -> None:
+    if recording_counts():
+        _key_counts.out.append(counts)
+
+
+def record_key_offsets(offsets: torch.Tensor, Kb: int, n: int) -> None:
+    """`record_key_counts` from a launch's exclusive row offsets [Kb] and
+    its total `n`."""
+    if recording_counts():
+        off = offsets[:Kb]
+        record_key_counts(torch.diff(off, append=torch.full(
+            (1,), n, dtype=off.dtype, device=off.device)))
+
+
 def _rows(parts, Kb, dev, types):
     """Concatenate per-key row blocks [(ts, kind, valid, seq, gslot,
     cols)] along dim 1, order each key's rows by (valid first, seq) and
@@ -355,7 +399,10 @@ def _rows(parts, Kb, dev, types):
     ts, kind, valid, seq, gs = cat
     key = torch.where(valid, seq, torch.full_like(seq, BIG_SEQ))
     order = torch.argsort(key, dim=1, stable=True)
-    take = torch.gather(valid, 1, order).reshape(-1)
+    take = torch.gather(valid, 1, order)
+    if recording_counts():
+        record_key_counts(take.sum(1))
+    take = take.reshape(-1)
 
     def g(x):
         return torch.gather(x, 1, order).reshape(-1)[take]
@@ -1082,6 +1129,10 @@ def launch(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     n = int(bufs["sums"][-1]) if n_out is None else n_out
     out = alloc_out(pl, slab.types, n, dev, bufs)
     write(pl, dev)
+    if recording_counts():
+        # K11's ocnt keeps each key row's row count (the write launch
+        # rescans it for the offsets)
+        record_key_counts(bufs["scratch"][2][:sel.shape[0]].clone())
     launches += 1
     mode_launches[slab.mode] += 1
     tick_launches += int(tick)

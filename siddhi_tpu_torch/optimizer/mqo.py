@@ -32,6 +32,7 @@ import numpy as np
 
 from ..core import event as ev
 from ..core import plan_facts
+from .. import sharding as _sharding
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -278,7 +279,8 @@ def apply_merge(rt) -> None:
             rt._merge_reasons[name] = why
         return
     try:
-        plan = plan_facts.merge_plan(rt.app)
+        plan = plan_facts.merge_plan(
+            rt.app, mesh_devices=_sharding.shard_count(rt))
     except Exception as exc:  # noqa: BLE001 — the pass must not break deploy
         log.warning("multi-query merge pass skipped: %r", exc)
         return

@@ -181,6 +181,15 @@ def test_send_path_never_fetches(monkeypatch):
     h = rt.get_input_handler("S")
     for v in range(20):
         h.send([v])
+    # the drainer delivers on its own thread: wait for it (not for wall
+    # time) before the guards come off, or a loaded machine can undo them
+    # before it has delivered anything
+    import time
+    drainer = rt._serve_drainer
+    deadline = time.monotonic() + 10.0
+    while (drainer.pending() or not drainer.drains_total) and \
+            time.monotonic() < deadline:
+        time.sleep(0.002)
     monkeypatch.undo()
     rt.flush()
     assert calls["sender"] == 0 and calls["other"] > 0
