@@ -298,6 +298,21 @@ Phases (any failure exits nonzero):
      demand) and the named-window join apps against the JAX package's
      events, and a bidirectional named-window join on the card against
      its plain run.
+57-67. the dispatch layer and sharding (`slice15_phases`,
+     `slice16_phases`);
+ 68. K33 `fill_probe` against its plain version, a numpy count of the
+     state brought to the host and `count_nonzero` on the JAX layout's
+     alive masks: W1's timeBatch state, HP1's hop buffers and config 1's
+     2^24-row ring;
+ 69. config 1 at full width with `@app:statistics('BASIC')` and the
+     probe on every dispatch, against statistics alone and against both
+     off: ev/s, p50 / p99, K33 launched and its plain version never, the
+     state report's window fill equal to the ring's count, the probe
+     adding no device-to-host copy, and Prometheus / health touching the
+     device 0 times;
+ 70. the flagship at full width with the observatory on (its default)
+     and off: ev/s, the hotness feed's host ms a send, the flagship's
+     distinct keys and hot share.
 It prints one JSON line of kernel records, the card line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -935,6 +950,7 @@ def main() -> None:
     records += slice14_phases(torch, np, dev)
     records += slice15_phases(torch, np, dev)
     records += slice16_phases(torch, np, dev)
+    records += slice17_phases(torch, np, dev)
 
     kernels = {"kernels": [{
         "name": "pattern_step", "route": "cuda",
@@ -18320,7 +18336,7 @@ def compare_ring(torch, np, dev, rt, card):
     from siddhi_tpu_torch.kernels import ring as k30
     mg = rt.merged_groups["Txn#0"]
     captured = []
-    mg._demux = lambda items, results: captured.append(results)
+    mg._demux = lambda items, results, *_: captured.append(results)
     cols, ts = md1_send(np, 1)
     rt.get_input_handler("Txn").send_columns(cols, timestamps=ts)
     del mg._demux
@@ -19018,6 +19034,407 @@ def slice16_phases(torch, np, dev):
                     "library_ms": None if any(x is None for x in libs)
                     else sum(libs)})
     return rec
+
+
+
+# ---------------------------------------------------------------------------
+# slice 17: statistics and the state observatory (@app:statistics); the
+# window-fill probe K33 fill_probe
+# ---------------------------------------------------------------------------
+
+S17_TIMED = 16            # timed config 1 sends an arm (after FILL)
+S17_PROF = 4              # profiled sends an arm (device-to-host copies)
+S17_ON = {"state.obs.sample.every": "1"}
+S17_OFF = {"state.obs.enabled": "false"}
+
+
+def s17_manager(dev, conf):
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.utils.config import InMemoryConfigManager
+    mgr = SiddhiManager(device=dev)
+    mgr.set_config_manager(InMemoryConfigManager(dict(conf)))
+    return mgr
+
+
+def s17_copies(torch, run_sends, n):
+    """Device-to-host and host-to-device copies a send of `n` sends under
+    torch.profiler (the trace's memcpy records, as `h2d_profile` reads
+    them)."""
+    import json as _json
+    import os
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_sends()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json", dir=".")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = _json.load(fh)
+    finally:
+        os.remove(path)
+    d2h = h2d = device = 0
+    for e in trace.get("traceEvents", []):
+        cat = str(e.get("cat", "")).lower()
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device += 1
+        if cat == "gpu_memcpy":
+            name = str(e.get("name", ""))
+            d2h += "DtoH" in name
+            h2d += "HtoD" in name
+    return {"d2h": d2h / max(n, 1), "h2d": h2d / max(n, 1),
+            "device_events": device}
+
+
+def s17_config1_arm(torch, np, dev, stats, obs, card):
+    """Phase 69, one arm: config 1 at full width (131,072 events a send,
+    its 2^24-row window filled by 100 sends, then S17_TIMED timed sends)
+    with `@app:statistics('BASIC')` or not (`stats`), and the observatory
+    with the probe on every dispatch or off (`obs`); then S17_PROF
+    profiled sends for the copies a send.  Returns (mgr, rt, launches,
+    plain, ev/s, copies)."""
+    from siddhi_tpu_torch.kernels import fill_probe
+    mods = dict(single_modules(), fill_probe=fill_probe)
+    mgr = s17_manager(dev, S17_ON if obs else S17_OFF)
+    rt = mgr.create_siddhi_app_runtime(
+        ("@app:statistics('BASIC')\n" if stats else "") + CONFIG1_QL)
+    rng = np.random.default_rng(2)
+    sends = [(config_rows(np, rng), np.full(B1, 1000 + 10 * i, np.int64))
+             for i in range(FILL + S17_TIMED)]
+    lat, counts, launches, plain, wall = drive(
+        torch, np, rt, "q", "S", sends, FILL, mods, timed=S17_TIMED)
+    if any(c != (B1, B1) for c in counts[FILL:]):
+        fail(f"S17 config 1: steady (n_current, n_expired) {counts[FILL:]}")
+    label = ("statistics BASIC" if stats else "statistics OFF") + (
+        ", state.obs.sample.every=1" if obs else
+        ", state.obs.enabled=false")
+    lat_line(np, f"S17 config 1 ({label})", lat, wall, S17_TIMED * B1,
+             B1 * (8 + 4 + 1 + 4 + 8 + 4 + 4))
+    ev_s = S17_TIMED * B1 / wall
+    clock = [1000 + 10 * len(sends)]
+
+    def more():
+        for _ in range(S17_PROF):
+            rt.get_input_handler("S").send_columns(
+                config_rows(np, rng),
+                timestamps=np.full(B1, clock[0], np.int64))
+            clock[0] += 10
+        rt.flush()
+    copies = s17_copies(torch, more, S17_PROF)
+    print(f"S17 config 1 ({label}): {copies['d2h']:.2f} "
+          f"device-to-host and {copies['h2d']:.2f} host-to-device copies a "
+          f"send (profiler memcpy records over {S17_PROF} sends); "
+          f"fill_probe launches {launches['fill_probe']}, plain calls "
+          f"{plain['fill_probe']} [{card}]")
+    return mgr, rt, launches, plain, ev_s, copies
+
+
+def s17_scrape_silent(torch, mgr, rt):
+    """Prometheus text, health() and state_report() of a live app: no
+    device fetch (`core/event.py` device_get counted) and no device
+    activity in the profiler's trace."""
+    from siddhi_tpu_torch.core import event as tev
+    from siddhi_tpu_torch.observability import render_prometheus
+    calls = [0]
+    orig = tev.device_get
+
+    def counted(x):
+        calls[0] += 1
+        return orig(x)
+    tev.device_get = counted
+    try:
+        out = {}
+
+        def scrape():
+            out["text"] = render_prometheus(mgr.runtimes)
+            out["health"] = rt.health()
+            out["state"] = rt.state_report()
+        cp = s17_copies(torch, scrape, 1)
+    finally:
+        tev.device_get = orig
+    if calls[0] or cp["device_events"]:
+        fail(f"S17: the scrape surfaces touched the device ({calls[0]} "
+             f"fetches, {cp['device_events']} device events)")
+    if "siddhi_state_occupancy" not in out["text"] or \
+            not out["health"]["live"]:
+        fail("S17: the scrape surfaces reported nothing")
+    return out
+
+
+def s17_state_masks(torch, srcs, counts, dev):
+    """The JAX layout's alive masks of a state's fill sources: bool[cap]
+    each, its first `count` rows alive (what the reference's probe
+    reduces)."""
+    return [torch.arange(s.cap, device=dev) < int(c)
+            for s, c in zip(srcs, counts)]
+
+
+def s17_probe_states(torch, np, dev):
+    """W1's timeBatch state after its 8 filling sends and HP1's hop state
+    after its 6, each with numpy's count of its alive rows from the state
+    brought to the host (its counters; W1's also held to the state's host
+    mirror of its fills)."""
+    from siddhi_tpu_torch.kernels.time_batch import PEND, PREV
+    out = []
+    mgr = s17_manager(dev, S17_OFF)
+    rt = mgr.create_siddhi_app_runtime(W1_QL)
+    rt.start()
+    rng = np.random.default_rng(83)
+    for i in range(W1_FILL):
+        rt.get_input_handler("TempStream").send_columns(*w1_send(np, rng, i))
+    rt.flush()
+    qr = rt.query_runtimes["w1"]
+    st = qr.state[0]
+    meta = st.meta.cpu().numpy()
+    fills = [int(meta[PEND]), int(meta[PREV])]
+    if fills != [st.h_pend, st.h_prev] or not 0 < sum(fills):
+        fail(f"S17 W1: meta fills {fills} differ from the host mirror "
+             f"{st.h_pend}, {st.h_prev}")
+    out.append(("W1 timeBatch (2 x 2^21 rows)", qr.planned.window, st,
+                fills))
+    mgr2 = s17_manager(dev, S17_OFF)
+    rt2 = mgr2.create_siddhi_app_runtime(HP1_QL)
+    rt2.start()
+    rng = np.random.default_rng(165)
+    for i in range(HP1_FILL):
+        rt2.get_input_handler("SensorStream").send_columns(
+            *hp1_send(np, rng, i))
+    rt2.flush()
+    qr2 = rt2.query_runtimes["hp1"]
+    st2 = qr2.state[0]
+    n2 = int(st2.meta.cpu().numpy()[0])
+    if not 0 < n2 <= st2.b_ts[0].shape[0]:
+        fail(f"S17 HP1: {n2} rows in the hop buffer")
+    out.append(("HP1 hop buffers (2^20 rows)", qr2.planned.window, st2,
+                [n2]))
+    return out, (mgr, mgr2)
+
+
+def s17_time_probe(torch, np, dev, label, window, wstate, host_counts,
+                   card):
+    """K33 on one state: its counts equal to the plain version's and to
+    the host's count, its CUDA-graph time beside the plain version's, its
+    bound, the library call's (`count_nonzero` over the JAX layout's
+    masks) and K33 in mask mode over those masks.  Returns the record."""
+    from siddhi_tpu_torch.kernels import fill_probe as fp
+    srcs = window.fill_sources(wstate)
+    k = fp.launch(srcs)
+    p = fp.fill_counts_plain(srcs)
+    torch.cuda.synchronize()
+    kh, ph = k.cpu().tolist(), p.cpu().tolist()
+    if kh != ph:
+        fail(f"S17 {label}: K33 {kh} != plain {ph}")
+    if kh != [int(x) for x in host_counts]:
+        fail(f"S17 {label}: K33 {kh} != the host's count {host_counts}")
+    masks = s17_state_masks(torch, srcs, kh, dev)
+    msrcs = [fp.mask(m) for m in masks]
+    km = fp.launch(msrcs).cpu().tolist()
+    lib = torch.stack([m.count_nonzero() for m in masks]).cpu().tolist()
+    if km != kh or lib != kh:
+        fail(f"S17 {label}: mask mode {km}, count_nonzero {lib}, K33 {kh}")
+    n = len(srcs)
+    reads = sum(8 if s.kind == "count" else 16 for s in srcs)
+    r = {"ms": graph_ms(torch, lambda: fp.launch(srcs), 50),
+         "plain_ms": event_timer(torch, lambda: fp.fill_counts_plain(srcs),
+                                 20),
+         "library_ms": event_timer(torch, lambda: torch.stack(
+             [m.count_nonzero() for m in masks]), 20),
+         "mask_ms": graph_ms(torch, lambda: fp.launch(msrcs), 50),
+         **bound(reads + 8 * n)}
+    mb = bound(sum(s.cap for s in srcs) + 8 * n)
+    r["mask_bound_ms"] = mb["bound_ms"]
+    print(f"S17 K33 on {label}: counts {kh} (caps "
+          f"{[s.cap for s in srcs]}) == plain == host; kernel "
+          f"{r['ms']:.5f} ms (graph replay), plain {r['plain_ms']:.5f} ms, "
+          f"bound {r['bound_ms']:.7f} ms by {r['bound_by']} ({r['bytes']} "
+          f"bytes: launch-bound); over the JAX layout's masks: K33 mask "
+          f"mode {r['mask_ms']:.5f} ms, bound {mb['bound_ms']:.5f} ms "
+          f"({mb['bytes']} bytes), count_nonzero {r['library_ms']:.5f} ms "
+          f"[{card}]")
+    return r
+
+
+def s17_flagship_arm(torch, np, dev, on, card):
+    """Phase 70, one arm: the flagship at full width (2^20 keys, 131,072
+    keys x 4 events a send) with the observatory on (its default) or
+    off: a warm sweep, SWEEPS timed sweeps.  The hotness feed's host time
+    (`_stateobs_feed_group`: the per-key counts and the C feed) is summed
+    over the timed sends.  Returns (ev/s, feed ms a send,
+    hotness snapshot or None)."""
+    from siddhi_tpu_torch.core import runtime as trt
+    from siddhi_tpu_torch.kernels import pattern_step as ps
+    mgr = s17_manager(dev, {} if on else S17_OFF)
+    rt = mgr.create_siddhi_app_runtime(FLAGSHIP_QL.format(n_keys=N_KEYS))
+    matches = [0]
+    rt.add_batch_callback("flagship", lambda ts, p: matches.__setitem__(
+        0, matches[0] + p["n_current"]))
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    blocks = N_KEYS // BATCH
+    key_block = [np.repeat(np.arange(b * BATCH, (b + 1) * BATCH,
+                                     dtype=np.int64), 4)
+                 for b in range(blocks)]
+    vol4 = np.tile(np.array([1, 2, 3, 4], np.int32), BATCH)
+    price4 = vol4.astype(np.float32)
+    clock = [1000]
+
+    def send(block):
+        clock[0] += 10
+        ts = clock[0] + np.tile(np.arange(4, dtype=np.int64), BATCH)
+        h.send_columns([key_block[block], price4, vol4], timestamps=ts)
+    feed_ns = [0]
+    orig = trt._stateobs_feed_group
+
+    def timed_feed(*a):
+        t = time.perf_counter_ns()
+        orig(*a)
+        feed_ns[0] += time.perf_counter_ns() - t
+    for b in range(blocks):
+        send(b)
+    rt.flush()
+    warm = matches[0]
+    ps.reset_counts()
+    trt._stateobs_feed_group = timed_feed
+    lat = []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(SWEEPS):
+            for b in range(blocks):
+                tb = time.perf_counter()
+                send(b)
+                lat.append(time.perf_counter() - tb)
+        rt.flush()
+        wall = time.perf_counter() - t0
+    finally:
+        trt._stateobs_feed_group = orig
+    got = matches[0] - warm
+    if got != SWEEPS * N_KEYS:
+        fail(f"S17 flagship ({'on' if on else 'off'}): {got} matches, "
+             f"expected {SWEEPS * N_KEYS}")
+    check_launched(f"S17 flagship ({'on' if on else 'off'})",
+                   {"pattern_step": ps.launches},
+                   {"pattern_step": ps.plain_calls}, ("pattern_step",))
+    n_sends = SWEEPS * blocks
+    events = n_sends * BATCH * 4
+    lat_ms = np.array(lat) * 1e3
+    hot = rt.state_report()["hotness"].get("flagship")
+    feed_ms = feed_ns[0] / 1e6 / n_sends
+    print(f"S17 flagship (observatory {'on' if on else 'off'}): {events} "
+          f"events in {wall:.3f} s -> {events / wall:.0f} ev/s; per-send "
+          f"p50 {float(np.percentile(lat_ms, 50)):.3f} ms p99 "
+          f"{float(np.percentile(lat_ms, 99)):.3f} ms over {n_sends} sends; "
+          f"hotness feed {feed_ms:.3f} ms a send (host); matches {got} "
+          f"[{card}]")
+    mgr.shutdown()
+    return events / wall, feed_ms, hot
+
+
+def slice17_phases(torch, np, dev):
+    """Phases 68-70 (statistics and the state observatory): config 1's
+    two arms (69), K33 against its plain version, the host and the
+    library on W1's, HP1's and config 1's states (68, config 1's ring from
+    69's first arm), the flagship's two arms (70).  Returns the K33
+    record."""
+    from siddhi_tpu_torch.kernels import fill_probe as fp
+    t0 = time.perf_counter()
+    card = card_line()
+
+    def took(what):
+        torch.cuda.empty_cache()
+        print(f"slice 17 {what}: {time.perf_counter() - t0:.1f} s")
+    # -- phase 69: config 1, statistics and the observatory off, then
+    # statistics on with the observatory off, then both on.  Statistics on
+    # route the query's rows into its output stream to count them (as the
+    # JAX package does for an `insert into` stream no one reads), so the
+    # probe's copies are held to the arm of the same statistics level
+    arms = {}
+    for key, stats, obs in (("off", False, False), ("stats", True, False),
+                            ("on", True, True)):
+        mgr, rt, la, pa, ev_s, cp = s17_config1_arm(torch, np, dev, stats,
+                                                    obs, card)
+        arms[key] = (la, pa, ev_s, cp)
+        if key != "on":
+            mgr.shutdown()
+            if la["fill_probe"] or pa["fill_probe"]:
+                fail(f"S17 config 1 {key}: the probe ran")
+    mgr_on, rt_on = mgr, rt
+    l_on, p_on, ev_on, cp_on = arms["on"]
+    ev_off, cp_off = arms["off"][2], arms["off"][3]
+    check_launched("S17 config 1 on", l_on, p_on,
+                   ("filter_compact", "time_window", "group_agg",
+                    "fill_probe"))
+    if cp_on["d2h"] != arms["stats"][3]["d2h"] or cp_off["d2h"] != 2:
+        fail(f"S17 config 1: device-to-host copies a send: "
+             f"{cp_on['d2h']} with the probe, {arms['stats'][3]['d2h']} "
+             f"at the same statistics level without it, {cp_off['d2h']} "
+             f"with statistics off (two header fetches expected)")
+    ring = rt_on.query_runtimes["q"].state[0]
+    head, tail = (int(x) for x in ring.meta[:2].cpu().tolist())
+    scr = s17_scrape_silent(torch, mgr_on, rt_on)
+    wf = scr["state"]["structures"]["q"]["window_fill"]
+    if not (wf["occupancy"] == tail - head == FILL * B1 and
+            wf["capacity"] == WINDOW):
+        fail(f"S17 config 1: window_fill {wf}, the ring holds "
+             f"{tail - head} rows (closed form {FILL * B1})")
+    print(f"S17 config 1: state_report window_fill {wf['occupancy']} of "
+          f"{wf['capacity']} rows == the ring's count on the host == "
+          f"{FILL} x {B1}; device-to-host copies a send {cp_on['d2h']:.2f} "
+          f"with the probe, {arms['stats'][3]['d2h']:.2f} without it at the "
+          f"same statistics level, {cp_off['d2h']:.2f} with statistics off; "
+          f"Prometheus, health() and state_report() touched the device 0 "
+          f"times; ev/s statistics + probe {ev_on:.0f}, statistics alone "
+          f"{arms['stats'][2]:.0f}, both off {ev_off:.0f} ({ev_on / ev_off:.3f}x, "
+          f"the probe {ev_on / arms['stats'][2]:.3f}x) [{card}]")
+    took("phase 69 done")
+    # -- phase 68: K33 on W1's, HP1's and config 1's states -----------------
+    res = {}
+    states, mgrs = s17_probe_states(torch, np, dev)
+    states.append(("config 1 ring (2^24 rows)",
+                   rt_on.query_runtimes["q"].planned.window, ring,
+                   [tail - head]))
+    for label, window, wstate, host in states:
+        res[label] = s17_time_probe(torch, np, dev, label, window, wstate,
+                                    host, card)
+    for m in mgrs:
+        m.shutdown()
+    mgr_on.shutdown()
+    took("phase 68 done")
+    # -- phase 70: the flagship, observatory on and off, in the order on,
+    # off, off, on (a process's first runs pay warm-ups the later ones do
+    # not) ----------------------------------------------------------------
+    runs = [s17_flagship_arm(torch, np, dev, on, card)
+            for on in (True, False, False, True)]
+    ev_fon = (runs[0][0] + runs[3][0]) / 2
+    ev_foff = (runs[1][0] + runs[2][0]) / 2
+    feed_ms = (runs[0][1] + runs[3][1]) / 2
+    feed_off = (runs[1][1] + runs[2][1]) / 2
+    hot = runs[3][2]
+    if hot is None or runs[0][2] != hot or runs[1][2] is not None or \
+            runs[2][2] is not None:
+        fail(f"S17 flagship: hotness {[r[2] for r in runs]}")
+    if hot["distinct"] != N_KEYS:
+        fail(f"S17 flagship: {hot['distinct']} distinct keys, expected "
+             f"{N_KEYS}")
+    print(f"S17 flagship (means of the two runs of each arm): observatory "
+          f"on {ev_fon:.0f} ev/s, off {ev_foff:.0f} ev/s "
+          f"({ev_fon / ev_foff:.3f}x); hotness feed {feed_ms:.3f} ms a send "
+          f"({feed_off:.4f} ms off: the memoized check); hotness.flagship "
+          f"distinct {hot['distinct']}, hot_share_1pct "
+          f"{hot['hot_share_1pct']}, total {hot['total']} [{card}]")
+    took("phase 70 done")
+    main_rec = res["config 1 ring (2^24 rows)"]
+    return [{"name": "fill_probe", "route": "cuda",
+             "source": "siddhi_tpu_torch/csrc/fill_probe.cu",
+             "replaces": "siddhi_tpu/observability/stateobs.py:472",
+             "launches": l_on["fill_probe"], "max_abs_err": 0.0,
+             "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+             "bound_ms": main_rec["bound_ms"],
+             "bound_by": main_rec["bound_by"],
+             "library_ms": main_rec["library_ms"]}]
 
 
 if __name__ == "__main__":

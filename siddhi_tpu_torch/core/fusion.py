@@ -34,6 +34,7 @@ compiled bodies to cache: each dispatch calls the plan's current steps.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Tuple
 
 import numpy as np
@@ -123,9 +124,20 @@ class FuseBuffer:
             self.bypass = False
 
     def dispatch(self) -> None:
-        """Run the full stack as one fused dispatch."""
+        """Run the full stack as one fused dispatch (its latency and
+        batches-per-dispatch recorded with statistics on, reference
+        `FuseBuffer.dispatch`, `siddhi_tpu/core/fusion.py:179-196`)."""
+        from .runtime import _maybe_span
         items, self.items = self.items, []
-        _DISPATCH[self.kind](self.qr, items)
+        qr = self.qr
+        stats = qr.app.stats
+        t0 = time.perf_counter_ns() if stats.enabled else 0
+        with _maybe_span("fused_step", query=qr.name, k=len(items)):
+            _DISPATCH[self.kind](qr, items)
+        if stats.enabled:
+            n = sum(int(a[-2].n) for a in items)
+            stats.fused_dispatch(qr.name, len(items), n,
+                                 time.perf_counter_ns() - t0)
 
 
 def pending(qr) -> int:

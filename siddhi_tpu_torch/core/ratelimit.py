@@ -16,6 +16,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, List, Optional, Tuple
 
+from ..observability import tracing as _tracing
 from . import event as ev
 
 
@@ -39,6 +40,14 @@ class OutputRateLimiter:
         self.name = "output rate limiter"
 
     def process(self, pairs: List[Tuple[int, ev.Event]], now: int) -> None:
+        # a rate-limit span on a DETAIL pipeline trace (reference
+        # `process`, `siddhi_tpu/core/ratelimit.py:36-47`)
+        if _tracing.active() is not None:
+            with _tracing.span("ratelimit", limiter=type(self).__name__,
+                               pairs=len(pairs)):
+                with self._lk:
+                    self._process(pairs, now)
+            return
         with self._lk:
             self._process(pairs, now)
 

@@ -93,6 +93,9 @@ from .executor import CompileError
 from .keyslots import SlotAllocator
 from .pattern_planner import plan_pattern_query
 from .. import sharding as _sharding
+from ..observability import phases as _phases
+from ..observability import stateobs as _stateobs
+from ..observability import tracing as _tracing
 from .planner import plan_single_query
 from .window import NO_WAKEUP, BatchFacts
 
@@ -101,9 +104,151 @@ _log = logging.getLogger("siddhi_tpu_torch")
 # annotations whose machinery is not ported yet -> ROADMAP item
 _UNPORTED_ANNOTATIONS = {
     "app:admission": "A15", "source": "A15",
-    "sink": "A15", "store": "A15", "app:statistics": "A15",
-    "app:errorstore": "A15",
+    "sink": "A15", "store": "A15", "app:errorstore": "A15",
 }
+
+_NULL_CM = contextlib.nullcontext()
+
+
+def _maybe_span(stage: str, **meta):
+    """A `tracing.span` when a DETAIL pipeline trace is active on this
+    thread, else a shared no-op context (reference `_maybe_span`,
+    `siddhi_tpu/core/runtime.py:54`)."""
+    if _tracing.active() is None:
+        return _NULL_CM
+    return _tracing.span(stage, **meta)
+
+
+def _sub_name(sub, default: str) -> str:
+    """Metric name of a junction subscriber (wrappers hold the runtime in
+    `_qr`; runtimes carry `.name`)."""
+    return getattr(getattr(sub, "_qr", sub), "name", default)
+
+
+def _step_phase(qr, fn, name=None, mult=1):
+    """Run one step call, recording its wall as the `dispatch_submit`
+    phase (the kernels return at submit).  Every `profile.sample.every`
+    dispatches per query the sampled deep mode records a CUDA event on
+    the step's stream after the call and synchronizes it, recording that
+    wait as `device_compute` (the reference's `block_until_ready` fence,
+    `siddhi_tpu/core/runtime.py:69-95`); unsampled dispatches never wait.
+    `mult`: the batches one dispatch serves (a @fuse stack), each of whose
+    e2e samples contains this wall (observability/phases.py)."""
+    st = qr.app.stats
+    if not st.enabled:
+        return fn()
+    qname = name or qr.name
+    ph = st.phases
+    t0 = time.perf_counter_ns()
+    res = fn()
+    t1 = time.perf_counter_ns()
+    ph.add(qname, "dispatch_submit", (t1 - t0) * mult)
+    every = _phases.sample_every(qr.app)
+    if every and ph.should_sample(qname, every):
+        dev = qr.app.device
+        if dev.type == "cuda":
+            fence = torch.cuda.Event()
+            fence.record(torch.cuda.current_stream(dev))
+            fence.synchronize()
+        ph.add(qname, "device_compute",
+               (time.perf_counter_ns() - t1) * mult)
+    return res
+
+
+_STATEOBS_ONE = np.ones(1, np.int64)
+
+
+def _stateobs_feed_slots(qr, alloc, slots) -> None:
+    """Fold one batch's resolved key slots (per-event slot ids, -1 =
+    invalid) into the app's key-hotness tracker (reference
+    `_stateobs_feed_slots`, `siddhi_tpu/core/runtime.py:216`): host numpy
+    only; a disabled observatory costs one memoized dict read."""
+    if not _stateobs.obs_enabled(qr.app):
+        return
+    slots = np.asarray(slots)
+    live = slots[slots >= 0]
+    if live.size == 0:
+        return
+    if live.size == 1:
+        keys, counts = live, _STATEOBS_ONE
+    else:
+        keys, counts = np.unique(live, return_counts=True)
+    qr.app.stats.stateobs.feed_keys(qr.name, alloc.capacity, keys, counts)
+
+
+def _row_counts(sel) -> np.ndarray:
+    """Valid entries of each row of a [K, E] selection (native pass)."""
+    from ..native import LIB, ptr
+    sel = np.ascontiguousarray(sel, np.int32)
+    if LIB is None:
+        return np.count_nonzero(sel >= 0, axis=1)
+    import ctypes
+    out = np.empty(sel.shape[0], np.int64)
+    LIB.sg_row_counts(ptr(sel, ctypes.c_int32), sel.shape[0],
+                      sel.shape[1] if sel.ndim == 2 else 1,
+                      ptr(out, ctypes.c_int64))
+    return out
+
+
+def _stateobs_feed_group(qr, alloc, key_idx, sel, pad) -> None:
+    """Fold one grouped batch's key set into the hotness tracker: the
+    per-key row counts are the [Kb, E] selection's valid entries
+    (reference `_stateobs_feed_group`, `:234`)."""
+    if not _stateobs.obs_enabled(qr.app):
+        return
+    keys = np.asarray(key_idx)
+    live = keys < pad
+    n_live = int(np.count_nonzero(live))
+    if not n_live:
+        return
+    counts = _row_counts(sel)
+    if n_live < keys.shape[0]:
+        keys, counts = keys[live], counts[live]
+    qr.app.stats.stateobs.feed_keys(qr.name, alloc.capacity, keys, counts)
+
+
+def _row_nbytes(qr) -> int:
+    """Bytes of ONE output row from schema metadata (ts int64 + kind int32
+    + each column's element size), cached per runtime: the
+    `<q>.emitted_bytes` counter's unit (reference `_row_nbytes`,
+    `siddhi_tpu/core/runtime.py:1147`)."""
+    nb = qr.__dict__.get("_out_row_nbytes")
+    if nb is None:
+        nb = 12
+        try:
+            for t in qr.planned.out_schema.types:
+                nb += int(np.dtype(ev.np_dtype(t)).itemsize)
+        except Exception:  # noqa: BLE001 — metrics must not throw
+            pass
+        qr.__dict__["_out_row_nbytes"] = nb
+    return nb
+
+
+def _emitted(qr, rows: int) -> None:
+    """Count a delivery's output rows and bytes (statistics on)."""
+    st = qr.app.stats
+    if st.enabled and rows:
+        st.emitted(qr.name, rows, rows * _row_nbytes(qr))
+
+
+def _deferred(deliver, ingest_ns):
+    """`deliver` for a deferred path (@pipeline, @async, @serve): it runs
+    under the dispatch's handed-off pipeline trace, so its spans join the
+    originating trace on the drain track, and closes `<query>:e2e` after
+    the delivery (reference `_emit_output_sync`, :1125-1145)."""
+    trace = _tracing.handoff()
+    if ingest_ns is None and trace is None:
+        return deliver
+
+    def run(qr, out, hdr, now):
+        try:
+            with _tracing.adopt(trace):
+                deliver(qr, out, hdr, now)
+        finally:
+            st = qr.app.stats
+            if ingest_ns is not None and st.enabled:
+                st.e2e_latency(qr.name, time.perf_counter_ns() - ingest_ns)
+    return run
 
 
 def current_millis() -> int:
@@ -309,6 +454,8 @@ class PatternQueryRuntime:
                             for i in p.partition_positions[stream_id]]
                 valid = staged.valid
             key_idx_np, sel = self._grouped_slots(key_cols, valid, p)
+            _stateobs_feed_group(self, self.slot_allocator, key_idx_np, sel,
+                                 p.key_capacity)
             if self._touch is not None:
                 self._touch(key_idx_np, now)
             sel_d = _h2d(sel, dev)
@@ -336,9 +483,11 @@ class PatternQueryRuntime:
             steps = p.steps_w if ts_wire else p.steps
         pstate, sel_state = self.state
         ts_args = ts_wire if ts_wire else (raw_ts,)
-        pstate, sel_state, out, wake = steps[stream_id](
-            pstate, sel_state, raw_cols, *ts_args, sel_d, key_ref, now,
-            **self.app.in_probe_kw(p.exec.in_deps))
+        with _maybe_span("step", query=self.name, kind="pattern"):
+            pstate, sel_state, out, wake = _step_phase(
+                self, lambda: steps[stream_id](
+                    pstate, sel_state, raw_cols, *ts_args, sel_d, key_ref,
+                    now, **self.app.in_probe_kw(p.exec.in_deps)))
         self.state = (pstate, sel_state)
         _emit_output(self, out, now, wake)
 
@@ -349,7 +498,7 @@ class PatternQueryRuntime:
         slot binding, the purger's liveness touch and the grouping
         (key_idx [n, Kb], sel [n, Kb, E]).  The reference's dirty marking
         for incremental snapshots waits for persistence (ROADMAP A13), its
-        per-shard routing counters and spans for the host layers (A15)."""
+        per-shard spans for the tracer's shard view."""
         p = self.planned
         kf = (p.partition_key_fns or {}).get(stream_id)
         if kf is not None:
@@ -359,10 +508,17 @@ class PatternQueryRuntime:
             key_cols = [staged.cols[i]
                         for i in p.partition_positions[stream_id]]
             valid = staged.valid
+        t0 = time.perf_counter_ns()
         slots = self.slot_allocator.slots_for(key_cols, valid)
+        _stateobs_feed_slots(self, self.slot_allocator, slots)
         if self._touch is not None:
             self._touch(slots, now)
-        key_idx, sel, _counts = self.shard_router.group(slots, staged.valid)
+        key_idx, sel, counts = self.shard_router.group(slots, staged.valid)
+        stats = self.app.stats
+        if stats.enabled:
+            stats.shard_events(self.name, counts)
+            stats.phases.add(self.name, "stage_host",
+                             time.perf_counter_ns() - t0)
         return key_idx, sel
 
     def _process_sharded(self, stream_id: str, staged: ev.StagedBatch,
@@ -412,7 +568,8 @@ def _target_live(qr) -> bool:
     if tgt in qr.app.named_windows:
         return True
     j = qr.app.junctions.get(tgt)
-    return j is not None and bool(j.queries or j.stream_callbacks)
+    return j is not None and bool(j.queries or j.stream_callbacks or
+                                  qr.app.stats.enabled)
 
 
 def _live(qr) -> bool:
@@ -446,21 +603,27 @@ def _emit(qr, out, header, now: int, deliver) -> None:
     live = _live(qr)
     if not live and not timed:
         return
+    # the send's acceptance stamp (statistics on, inside a junction
+    # dispatch): a deferred delivery closes `<query>:e2e` itself, an
+    # inline one leaves it to the dispatcher (`_e2e_owed`)
+    ingest_ns = qr.__dict__.get("_ingest_ns")
     if live and not timed and out is not None:
         if getattr(qr, "serve_emit", False):
             from ..serving import ring_append
-            ring_append(qr, out, header, now, deliver)
+            ring_append(qr, out, header, now,
+                        _deferred(deliver, ingest_ns))
             return
         if getattr(qr, "async_emit", False) and \
                 qr.app._drainer is not None:
-            qr.app._drainer.enqueue(qr, out, header, now, deliver)
+            qr.app._drainer.enqueue(qr, out, header, now,
+                                    _deferred(deliver, ingest_ns))
             return
         depth = int(getattr(qr, "pipeline_emit", 0) or 0)
         if depth:
             dq = qr.__dict__.get("_pending_emit")
             if dq is None:
                 dq = qr._pending_emit = collections.deque()
-            dq.append((out, header, now, deliver))
+            dq.append((out, header, now, _deferred(deliver, ingest_ns)))
             if len(dq) > depth:
                 if depth == 1:
                     _deliver_output(qr, *dq.popleft())
@@ -468,12 +631,31 @@ def _emit(qr, out, header, now: int, deliver) -> None:
                     take = len(dq) - depth // 2
                     _deliver_many(qr, [dq.popleft() for _ in range(take)])
             return
+    if live and ingest_ns is not None:
+        qr.__dict__["_e2e_owed"] = True
     _deliver_output(qr, out, header, now, deliver)
 
 
 def _deliver_output(qr, out, header, now: int, deliver) -> None:
-    """Fetch one emission's header and deliver it."""
-    deliver(qr, out, ev.device_get(header).tolist(), now)
+    """Fetch one emission's header and deliver it.  A pending window-fill
+    probe (kernel K33's counts, `observability/stateobs.py`) rides the
+    same transfer: the header and the counts are joined on the device
+    and come to the host together (reference `_deliver_output`,
+    `siddhi_tpu/core/runtime.py:968-992`)."""
+    st = qr.app.stats
+    t0 = time.perf_counter_ns()
+    probe = _stateobs.take_fill_probe(qr) if _live(qr) else None
+    if probe is None:
+        hdr, fills = ev.device_get(header).tolist(), None
+    else:
+        h = header.reshape(-1)
+        flat = ev.device_get(torch.cat([h.to(torch.int64), probe])).tolist()
+        hdr, fills = flat[:h.numel()], flat[h.numel():]
+    if st.enabled:
+        st.phases.add(qr.name, "d2h_drain", time.perf_counter_ns() - t0)
+    if fills is not None:
+        _stateobs.record_fill(qr, fills)
+    deliver(qr, out, hdr, now)
 
 
 def fetch_headers(headers) -> List[List[int]]:
@@ -546,6 +728,8 @@ def _grown_cap(qr, what: str, n_dropped: int, need: int,
     new_cap = min(1 << (need - 1).bit_length(), cap_max)
     if cur is not None and new_cap <= cur:
         return None
+    if qr.app.stats.enabled:
+        qr.app.stats.counter_inc(f"{qr.name}.cap_growths")
     _log.warning(
         "%s: %d %s dropped at emission capacity%s; growing the cap to %d "
         "(set @emit(rows='N') to pre-size and silence this)", qr.name,
@@ -562,7 +746,16 @@ def _deliver_capped(qr, what: str, cap_name: str, nv: int, ncur: int,
     MatchOverflowError after this batch's rows are delivered.  Past an
     explicit cap the rows are dropped with a warning."""
     overflow_exc = None
+    p = qr.planned
+    if p.compact_rows is not None and _stateobs.obs_enabled(qr.app):
+        # emission-cap demand (nv + nd rows wanted out) is host-side off
+        # the header: the high-water the sizing ledger keeps
+        qr.app.stats.stateobs.observe(
+            qr.name, "emission_cap", nv + nd, p.compact_rows,
+            growable=not p.emit_explicit, config_key="@emit(rows='N')")
     if nd:
+        if qr.app.stats.enabled:
+            qr.app.stats.counter_inc(f"{qr.name}.dropped", nd)
         if not qr.planned.emit_explicit:
             if not qr._grow_emission_cap(nd, nv):
                 overflow_exc = MatchOverflowError(
@@ -574,6 +767,7 @@ def _deliver_capped(qr, what: str, cap_name: str, nv: int, ncur: int,
                          "dropped", qr.name, nd, what, cap_name)
     try:
         if nv:
+            _emitted(qr, nv)
             _deliver(qr, {"n_valid": nv, "n_current": ncur,
                           "n_expired": nv - ncur, "n_dropped": nd},
                      *rows, now)
@@ -587,7 +781,16 @@ def _deliver(qr, counts, ots, okind, ovalid, ocols, now: int,
     """Fan one step's rows out to the batch callbacks, and decode them to
     events only for an event consumer: the valid rows in a stable
     timestamp order (`ts_order`, for rows compacted rank-major) or in row
-    order."""
+    order.  An `emit` span on an active DETAIL trace."""
+    if _tracing.active() is None:
+        _deliver_rows(qr, counts, ots, okind, ovalid, ocols, now, ts_order)
+        return
+    with _tracing.span("emit", query=qr.name):
+        _deliver_rows(qr, counts, ots, okind, ovalid, ocols, now, ts_order)
+
+
+def _deliver_rows(qr, counts, ots, okind, ovalid, ocols, now: int,
+                  ts_order: bool) -> None:
     p = qr.planned
     if qr.batch_callbacks:
         payload = _LazyBatchPayload(p.out_schema.names, ots, okind, ovalid,
@@ -919,9 +1122,14 @@ class QueryRuntime:
         a range partition's labels lead the group key."""
         p = self.planned
         if p.slot_allocator is not None:
-            return p.slot_allocator.slots_for(
+            gslot = p.slot_allocator.slots_for(
                 list(kcols) + [staged.cols[i] for i in p.group_by_positions],
                 staged.valid)
+            if not kcols and not p.keyed_window and p.group_by_positions:
+                # the reference's `_slots_for_batch` feed: group keys of a
+                # plain step (merged and fused ones too, under this name)
+                _stateobs_feed_slots(self, p.slot_allocator, gslot)
+            return gslot
         return _zero_slots(staged.ts.shape[0])
 
     def process_staged(self, staged: ev.StagedBatch, now: int) -> None:
@@ -949,8 +1157,13 @@ class QueryRuntime:
                 _h2d(alloc.slots_for([gslot, staged.cols[pos]],
                                      staged.valid), p.device)
                 for alloc, pos in p.pair_allocs)
-        self.state, out, header = p.step(
-            self.state, batch, _h2d(gslot, p.device), now, facts, **kw)
+        with _maybe_span("step", query=self.name, kind="window"):
+            self.state, out, header = _step_phase(self, lambda: p.step(
+                self.state, batch, _h2d(gslot, p.device), now, facts,
+                **kw))
+        # sampled window-fill probe (K33): launched now, its counts ride
+        # the header fetch in _deliver_output (observability/stateobs.py)
+        _stateobs.arm_fill_probe(self)
         _emit_plain(self, out, header, now)
 
     def _process_keyed(self, staged: ev.StagedBatch, now: int,
@@ -975,6 +1188,8 @@ class QueryRuntime:
                 wkeys = [staged.cols[i] for i in p.window_key_positions]
             _, key_idx, sel = p.window_key_allocator.slots_and_group(
                 wkeys, staged.valid, pad=p.key_capacity)
+            _stateobs_feed_group(self, p.window_key_allocator, key_idx, sel,
+                                 p.key_capacity)
             if self._touch is not None:
                 self._touch(key_idx, now)
             key_idx, sel = _h2d(key_idx, p.device), _h2d(sel, p.device)
@@ -982,9 +1197,10 @@ class QueryRuntime:
             if self._touch_group is not None:
                 self._touch_group(gslot, now)
         batch = staged.to_device(p.in_schema, p.device)
-        self.state, out, header = p.kstep(
-            self.state, batch, _h2d(gslot, p.device), key_idx, sel, now,
-            all_keys, **self.app.in_probe_kw(p.in_deps))
+        with _maybe_span("step", query=self.name, kind="keyed-window"):
+            self.state, out, header = _step_phase(self, lambda: p.kstep(
+                self.state, batch, _h2d(gslot, p.device), key_idx, sel,
+                now, all_keys, **self.app.in_probe_kw(p.in_deps)))
         _emit_plain(self, out, header, now)
 
     def on_timer(self, now: int) -> None:
@@ -1057,6 +1273,7 @@ def _deliver_plain(qr: QueryRuntime, out, hdr, now: int) -> None:
         qr._apply_wake(wake)
     if not live or not nv:
         return
+    _emitted(qr, nv)
     _deliver(qr, {"n_valid": nv, "n_current": ncur, "n_expired": nv - ncur,
                   "n_dropped": 0}, *out, now, ts_order=False)
 
@@ -1141,6 +1358,12 @@ class JoinQueryRuntime:
         if need > p.lane_k:
             self._grow_lane_k(need)
         out = np.where(kvalid, slots, -1).astype(np.int32)
+        if _stateobs.obs_enabled(self.app):
+            # lane demand: the tracker's running bucket-occupancy max
+            self.app.stats.stateobs.observe(
+                self.name, "join_lane", need, self.planned.lane_k,
+                growable=True, config_key="auto (lane grows via replan)")
+            _stateobs_feed_slots(self, p.join_key_allocator, out)
         cache[key] = out
         return out
 
@@ -1149,6 +1372,8 @@ class JoinQueryRuntime:
         _log.info("%s: growing equi-join candidate lanes to %d (max same-"
                   "bucket window occupancy %d)", self.name, new_k, need)
         self.planned.lane_k = new_k
+        if self.app.stats.enabled:
+            self.app.stats.counter_inc(f"{self.name}.lane_growths")
 
     def _table_probe(self, staged: ev.StagedBatch) -> np.ndarray:
         """The table index's candidates for one trigger batch (table fast
@@ -1916,24 +2141,106 @@ class StreamJunction:
         self._async_workers = []
         self._async_q = None
 
-    def dispatch_staged(self, staged: ev.StagedBatch, now: int) -> None:
+    def _dispatch_one(self, q, staged: ev.StagedBatch, now: int, stats,
+                      n: int, traced: bool, ingest_ns=None) -> None:
+        """One subscriber's processing, with its latency sample and (at
+        DETAIL with an active trace) a per-query span (reference
+        `_dispatch_one`, `siddhi_tpu/core/runtime.py:2025-2077`).  The
+        send's acceptance stamp `ingest_ns` sits on the runtime while it
+        processes, so its emission path closes `<query>:e2e`: an inline
+        delivery here, after the step and the delivery."""
+        if stats is None:
+            q.process_staged(staged, now)
+            return
+        qname = _sub_name(q, self.stream_id)
+        tgt = getattr(q, "_qr", None) or q
+        t0 = time.perf_counter_ns()
+        try:
+            with (_tracing.span("query", query=qname) if traced
+                  else _NULL_CM):
+                tgt.__dict__["_ingest_ns"] = ingest_ns
+                try:
+                    q.process_staged(staged, now)
+                finally:
+                    tgt.__dict__["_ingest_ns"] = None
+        finally:
+            stats.query_latency(qname, n, time.perf_counter_ns() - t0)
+            if ingest_ns is not None and \
+                    tgt.__dict__.pop("_e2e_owed", False):
+                stats.e2e_latency(qname, time.perf_counter_ns() - ingest_ns)
+
+    def _stats(self):
+        st = self.app.stats if self.app is not None else None
+        return st if st is not None and st.enabled else None
+
+    def dispatch_staged(self, staged: ev.StagedBatch, now: int,
+                        stage_ns: int = 0) -> None:
+        """Run every subscriber over a staged batch.  With statistics on:
+        the stream's event count, each subscriber's latency and e2e, the
+        junction's latency, `stage_ns` of host staging charged to every
+        subscriber, and at DETAIL a pipeline trace."""
+        s0 = time.perf_counter_ns()
         self._serve_stage(staged)
+        stats = self._stats()
+        if stats is None:
+            for q in self.queries:
+                try:
+                    q.process_staged(staged, now)
+                except Exception:  # noqa: BLE001 — @OnError LOG semantics
+                    _log.exception("stream %s: processing failed; batch of "
+                                   "%d events dropped", self.stream_id,
+                                   staged.n)
+            return
+        ingest_ns = s0
+        s1 = time.perf_counter_ns()
+        ph = stats.phases
         for q in self.queries:
-            try:
-                q.process_staged(staged, now)
-            except Exception:  # noqa: BLE001 — @OnError LOG semantics
-                _log.exception("stream %s: processing failed; batch of %d "
-                               "events dropped", self.stream_id, staged.n)
+            qn = _sub_name(q, self.stream_id)
+            ph.add(qn, "stage_host", stage_ns)
+            ph.add(qn, "h2d", s1 - s0)
+        stats.stream_in(self.stream_id, staged.n)
+        tr = stats.tracer.start(self.stream_id, staged.n) \
+            if stats.detail else None
+        j0 = time.perf_counter_ns()
+        try:
+            for q in self.queries:
+                try:
+                    self._dispatch_one(q, staged, now, stats, staged.n,
+                                       tr is not None, ingest_ns)
+                except Exception:  # noqa: BLE001 — @OnError LOG semantics
+                    _log.exception("stream %s: processing failed; batch of "
+                                   "%d events dropped", self.stream_id,
+                                   staged.n)
+        finally:
+            stats.junction_latency(self.stream_id,
+                                   time.perf_counter_ns() - j0)
+            if tr is not None:
+                stats.tracer.finish(tr)
 
     def publish(self, events: List[ev.Event], now: int) -> None:
+        t0 = time.perf_counter_ns()
         for cb in self.stream_callbacks:
             cb(events)
         if self.queries:
-            self.dispatch_staged(ev.pack_np(self.schema, events), now)
+            t1 = time.perf_counter_ns()
+            staged = ev.pack_np(self.schema, events)
+            self.dispatch_staged(staged, now, time.perf_counter_ns() - t1)
+        else:
+            self._no_subscribers(len(events), t0)
+
+    def _no_subscribers(self, n: int, t0: int) -> None:
+        """Statistics of a batch no query subscribes to: its events and
+        the junction's latency, as a dispatch records them."""
+        stats = self._stats()
+        if stats is not None:
+            stats.stream_in(self.stream_id, n)
+            stats.junction_latency(self.stream_id,
+                                   time.perf_counter_ns() - t0)
 
     def publish_staged(self, staged: ev.StagedBatch, now: int) -> None:
         """`publish` of rows already staged: the stream callbacks get them
         as events, the subscribers the staged batch."""
+        t0 = time.perf_counter_ns()
         if self.stream_callbacks:
             n = staged.n
             events = [e for _, e in ev.unpack(self.schema, ev.EventBatch(
@@ -1943,6 +2250,13 @@ class StreamJunction:
                 cb(events)
         if self.queries:
             self.dispatch_staged(staged, now)
+        else:
+            self._no_subscribers(staged.n, t0)
+
+    def queue_depth(self) -> int:
+        """Sends waiting in the @async ingress queue (0 without one)."""
+        q = self._async_q
+        return q.qsize() if q is not None else 0
 
 
 def _in_deps(node, seen=None) -> List[str]:
@@ -2003,6 +2317,27 @@ class SiddhiAppRuntime:
                 pb.element("increment", "1 sec")) or 1000
         self._scheduler = _Scheduler(self)
         self._timed_limiters: List = []
+        # statistics (reference :2700-2725): @app:statistics levels OFF /
+        # BASIC / DETAIL, an include filter, a console reporter
+        from ..utils.statistics import OFF, StatisticsManager
+        st_ann = app.get_annotation("app:statistics")
+        level = OFF
+        if st_ann is not None:
+            v = st_ann.element() or st_ann.element("level") or "BASIC"
+            level = str(v).upper()
+            if level == "TRUE":
+                level = "BASIC"
+            elif level == "FALSE":
+                level = OFF
+        self.stats = StatisticsManager(
+            level, include=str(st_ann.element("include", ""))
+            if st_ann is not None else "")
+        self._stats_reporter = None
+        if st_ann is not None and \
+                str(st_ann.element("reporter", "")).lower() == "console":
+            from ..utils.statistics import ConsoleReporter
+            iv = _parse_time_ms(st_ann.element("interval", "5 sec")) or 5000
+            self._stats_reporter = ConsoleReporter(self, iv / 1000.0)
         # the dispatch layer (A12): manager config, the @async emission
         # drainer, the serving loop's drainer and staging
         self.config_manager = manager.config_manager
@@ -2616,6 +2951,8 @@ class SiddhiAppRuntime:
                 target=self._run_playback_idle, daemon=True,
                 name="siddhi-torch-playback-idle")
             self._idle_thread.start()
+        if self._stats_reporter is not None:
+            self._stats_reporter.start()
 
     def _run_playback_idle(self) -> None:
         """Quiet-input clock advance for @app:playback(idle.time,
@@ -2654,6 +2991,8 @@ class SiddhiAppRuntime:
         self._drainer.stop()
         self._scheduler.stop()
         self.flush()
+        if self._stats_reporter is not None:
+            self._stats_reporter.stop()
         self._started = False
 
     def _step_runtimes(self):
@@ -2860,6 +3199,115 @@ class SiddhiAppRuntime:
         junction.publish(events, now)
 
 
+    # -- statistics and observability (reference :3850-4024) ----------------
+    def statistics(self) -> Dict:
+        """Metric report (reference: SiddhiStatisticsManager)."""
+        return self.stats.report(self)
+
+    def buffered_emissions(self) -> int:
+        """Emissions queued in the @async emission drainer."""
+        try:
+            return self._drainer.pending()
+        except Exception:  # noqa: BLE001 — metrics must not throw
+            return 0
+
+    def buffered_ingress(self) -> Dict[str, int]:
+        """Batches pending in @async ingress queues, per stream (only
+        streams with a backlog)."""
+        out: Dict[str, int] = {}
+        for sid, j in list(self.junctions.items()):
+            try:
+                n = j.pending_async()
+            except Exception:  # noqa: BLE001 — metrics must not throw
+                n = 0
+            if n > 0:
+                out[sid] = n
+        return out
+
+    def queue_depths(self) -> Dict[str, int]:
+        """@async ingress queue depth per stream running one."""
+        return {sid: j.queue_depth() for sid, j in
+                list(self.junctions.items()) if j._async_q is not None}
+
+    def drainer_depth(self) -> int:
+        """Emissions sitting in the @async drainer's queue."""
+        try:
+            return self._drainer._q.qsize()
+        except Exception:  # noqa: BLE001 — metrics must not throw
+            return 0
+
+    def serve_rings(self) -> Dict[str, Any]:
+        """{query: EmissionRing} of every runtime that opened a serving
+        ring."""
+        out: Dict[str, Any] = {}
+        for qname, qr in list(self.query_runtimes.items()):
+            ring = qr.__dict__.get("_serve_ring")
+            if ring is not None:
+                out[qname] = ring
+        return out
+
+    def ring_occupancies(self) -> Dict[str, int]:
+        """Pending (appended, undrained) serving-ring entries per query."""
+        return {q: r.occupancy() for q, r in self.serve_rings().items()}
+
+    def serve_drainer_depth(self) -> int:
+        """Ring entries awaiting the serving drainer across all rings."""
+        try:
+            return self._serve_drainer.pending()
+        except Exception:  # noqa: BLE001 — metrics must not throw
+            return 0
+
+    def timeseries(self) -> Dict:
+        """The manager's sampler's series for this app, its tenant
+        account and SLO state (`observability/timeseries.py`; `enabled`
+        is False until the sampler has ticked)."""
+        store = self.__dict__.get("_timeseries")
+        out: Dict = {"app": self.name, "enabled": store is not None,
+                     "series": store.to_dict() if store is not None else {}}
+        acct = self.__dict__.get("_tenant_account")
+        if acct is not None:
+            out["tenant"] = acct
+        slo = self.__dict__.get("_slo_state")
+        if slo is not None:
+            out["slo"] = slo
+        return out
+
+    def trace_dump(self, query: Optional[str] = None,
+                   limit: int = 64) -> List[Dict]:
+        """Recent DETAIL-level batch traces, newest first, optionally only
+        those that touched `query` (observability/tracing.py)."""
+        return self.stats.tracer.dump(query, limit)
+
+    def phase_report(self) -> Dict:
+        """Per-query phase budget against the `<query>:e2e` histogram
+        (observability/phases.py).  Host-side reads only."""
+        from ..observability.phases import phase_report as _pr
+        return _pr(self)
+
+    def state_report(self) -> Dict:
+        """State observatory report (observability/stateobs.py):
+        occupancy, capacity and high-water of every sized structure, key
+        hotness, near-capacity verdicts, the sizing ledger.  Host-side
+        reads only."""
+        from ..observability.stateobs import state_report as _sr
+        return _sr(self)
+
+    def state_memory(self) -> Dict:
+        """{owner: {component: bytes}} of the app's device state, from
+        tensor metadata (observability/memory.py)."""
+        from ..observability.memory import component_bytes
+        return component_bytes(self)
+
+    def health(self) -> Dict:
+        """Host-side health report for this app
+        (observability/health.py)."""
+        from ..observability.health import app_health
+        return app_health(self)
+
+    def set_statistics_level(self, level: str) -> None:
+        self.stats.level = level.upper()
+
+
 def _check_upsert_arity(table, out_schema, where: str) -> None:
     """An upsert inserts the rows that matched nothing as they are, so its
     output must have the table's attributes.  (The JAX package accepts a
@@ -2910,6 +3358,7 @@ class SiddhiManager:
         self.interner = ev.StringInterner()
         self.runtimes: Dict[str, SiddhiAppRuntime] = {}
         self.config_manager = InMemoryConfigManager()
+        self._sampler = None
 
     def set_config_manager(self, config_manager) -> None:
         """reference: SiddhiManager.setConfigManager (`siddhi_tpu/core/
@@ -2931,6 +3380,28 @@ class SiddhiManager:
         self.runtimes[runtime.name] = runtime
         return runtime
 
+    def start_sampler(self, interval_s=None, window=None, rules=None,
+                      clock=None):
+        """Start (or return) the manager's time-series sampler: a daemon
+        thread snapshotting every app's host-side metrics each tick and
+        evaluating the SLO rules (observability/timeseries.py,
+        observability/slo.py; reference :4592-4616).  Idempotent; with a
+        `clock`, drive `tick()` yourself."""
+        if self._sampler is None:
+            from ..observability.timeseries import TimeSeriesSampler
+            self._sampler = TimeSeriesSampler(
+                self, interval_s=interval_s, window=window, rules=rules,
+                clock=clock)
+            if clock is None:
+                self._sampler.start()
+        return self._sampler
+
+    def stop_sampler(self) -> None:
+        s, self._sampler = self._sampler, None
+        if s is not None:
+            s.stop()
+
     def shutdown(self) -> None:
+        self.stop_sampler()
         for rt in self.runtimes.values():
             rt.shutdown()

@@ -161,6 +161,15 @@ class WindowProcessor:
         exposes no buffer."""
         return None
 
+    def fill_sources(self, state) -> list:
+        """The state's fill for the window-fill probe (kernel K33): one
+        `kernels/fill_probe.py` FillSource for each `alive` leaf the JAX
+        package's state of this window holds, in its order and with its
+        capacity (`siddhi_tpu/observability/stateobs.py`
+        `_alive_leaves`); empty where that state holds no window
+        Buffer."""
+        return []
+
 
 def table_view(ts, cols, idx):
     """(cols, ts, alive) of the rows at `idx` (a device index tensor), as
@@ -275,6 +284,16 @@ class PassAllWindow(WindowProcessor):
         return state, WindowOutput(out, None)
 
 
+def slice_fills(state, pending: bool = True) -> list:
+    """A TimeBatchState's fill sources: the pending slice's fill (where
+    the JAX state keeps a pending buffer), then the previous slice's."""
+    from ..kernels import fill_probe as fp
+    from ..kernels.time_batch import PEND, PREV
+    C = state.b_ts[0].shape[0]
+    prev = fp.count(state.meta, PREV, C)
+    return [fp.count(state.meta, PEND, C), prev] if pending else [prev]
+
+
 class LengthWindow(WindowProcessor):
     """Sliding length window (reference: LengthWindowProcessor; JAX
     `siddhi_tpu/core/window.py:228`).
@@ -290,6 +309,10 @@ class LengthWindow(WindowProcessor):
         self.length = _param_int(params, 0)
         if self.length <= 0:
             raise CompileError("length window length must be positive")
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.diff(state.meta, 1, 0, state.ts.shape[0])]
 
     def init_state(self, device):
         from ..kernels.length_window import LengthRing
@@ -322,6 +345,10 @@ class TimeWindow(WindowProcessor):
         super().__init__(schema, params, batch_capacity)
         self.time_ms = _param_int(params, 0)
         self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.diff(state.meta, 1, 0, state.ts.shape[0])]
 
     def init_state(self, device):
         from ..kernels.time_window import TimeRing
@@ -356,6 +383,11 @@ class LengthBatchWindow(WindowProcessor):
         self.length = _param_int(params, 0)
         if self.length <= 0:
             raise CompileError("lengthBatch length must be positive")
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        n = state.p_ts.shape[0]
+        return [fp.count(state.meta, 0, n), fp.count(state.meta, 1, n)]
 
     def init_state(self, device):
         from ..kernels.length_batch import BatchState
@@ -392,6 +424,9 @@ class TimeBatchWindow(WindowProcessor):
         if self.time_ms <= 0:
             raise CompileError("timeBatch period must be positive")
         self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def fill_sources(self, state):
+        return slice_fills(state)
 
     def init_state(self, device):
         from ..kernels.time_batch import TimeBatchState

@@ -341,6 +341,15 @@ class ExpressionWindow(WindowProcessor):
         from ..kernels.expr_window import ExprParams
         return ExprParams(self.program)
 
+    def fill_sources(self, state):
+        """One key row of K25 / K26's slab: the run's rows, then (an
+        expressionBatch) the previous batch's, C + 1 of them."""
+        from ..kernels import fill_probe as fp
+        out = [fp.count(state.count, 0, state.C)]
+        if state.p_count is not None:
+            out.append(fp.count(state.p_count, 0, state.p_ts.shape[1]))
+        return out
+
     def init_state(self, device):
         from ..kernels.expr_window import empty_slab
         return empty_slab(self, 1, device)

@@ -34,7 +34,8 @@ import numpy as np
 from ..query_api.expression import Constant, Variable
 from . import event as ev
 from .window import (WindowOutput, WindowProcessor, _arrivals, _param_int,
-                     one_key_row, prefix_view, slab_view, slice_view)
+                     one_key_row, prefix_view, slab_view, slice_fills,
+                     slice_view)
 
 
 def _param_var_position(params, i, schema, what="window"):
@@ -54,6 +55,10 @@ class ExternalTimeWindow(WindowProcessor):
         self.ts_pos = _param_var_position(params, 0, schema, "externalTime")
         self.time_ms = _param_int(params, 1)
         self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.count(state.meta, 0, state.ts.shape[0])]
 
     def init_state(self, device):
         from ..kernels.ext_window import MODE_EXT, ExtState
@@ -87,6 +92,9 @@ class ExternalTimeBatchWindow(WindowProcessor):
         self.start = _param_int(params, 2, default=-1) if len(params) > 2 \
             else -1
         self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def fill_sources(self, state):
+        return slice_fills(state)
 
     def init_state(self, device):
         from ..kernels.time_batch import START, TimeBatchState
@@ -123,6 +131,10 @@ class TimeLengthWindow(WindowProcessor):
         self.length = _param_int(params, 1)
         self.capacity = self.length
 
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.count(state.meta, 0, state.ts.shape[0])]
+
     def init_state(self, device):
         from ..kernels.ext_window import MODE_TLEN, ExtState
         return ExtState.empty(MODE_TLEN, self.schema, self.capacity, device)
@@ -148,6 +160,10 @@ class DelayWindow(WindowProcessor):
         super().__init__(schema, params, batch_capacity)
         self.time_ms = _param_int(params, 0)
         self.capacity = max(capacity_hint, 2 * batch_capacity)
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.count(state.meta, 0, state.ts.shape[0])]
 
     def init_state(self, device):
         from ..kernels.ext_window import MODE_DELAY, ExtState
@@ -184,6 +200,10 @@ class SortWindow(WindowProcessor):
                              "this build")
         self.capacity = self.length
 
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.count(state.meta, 0, state.ts.shape[0])]
+
     def init_state(self, device):
         from ..kernels.sort_window import SortState
         return SortState.empty(self.schema, self.capacity, device)
@@ -209,6 +229,9 @@ class ChunkBatchWindow(WindowProcessor):
     def __init__(self, schema, params, batch_capacity, capacity_hint=1024):
         super().__init__(schema, params, batch_capacity)
         self.capacity = batch_capacity
+
+    def fill_sources(self, state):
+        return slice_fills(state, pending=False)
 
     def init_state(self, device):
         from ..kernels.time_batch import TimeBatchState
@@ -253,6 +276,9 @@ class CronWindow(WindowProcessor):
     def host_next_wakeup(self, now: int) -> int:
         return self.cron.next_fire(now)
 
+    def fill_sources(self, state):
+        return slice_fills(state)
+
     def init_state(self, device):
         from ..kernels.time_batch import TimeBatchState
         return TimeBatchState.empty(self.schema, self.capacity, device)
@@ -287,6 +313,10 @@ class HoppingWindow(WindowProcessor):
         self.hop_ms = _param_int(params, 1, default=self.win_ms)
         self.capacity = max(capacity_hint, 2 * batch_capacity)
 
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.count(state.meta, 0, state.b_ts[0].shape[0])]
+
     def init_state(self, device):
         from ..kernels.hop_window import HopState
         return HopState.empty(self.schema, self.capacity, device)
@@ -319,6 +349,10 @@ class FrequentWindow(WindowProcessor):
                 for i in range(1, len(params))]
         else:
             self.key_positions = list(range(len(schema.names)))
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.mask(state.counts)]
 
     def init_state(self, device):
         from ..kernels.frequent import FreqState
@@ -374,6 +408,10 @@ class SessionWindow(WindowProcessor):
                                                        "session")
         self.capacity = max(capacity_hint, 2 * batch_capacity)
         self._sel = {}
+
+    def fill_sources(self, state):
+        from ..kernels import fill_probe as fp
+        return [fp.count(state.count, 0, state.C)]
 
     def init_state(self, device):
         from ..kernels.keyed_window import MODE_SESSION, KeyedSlab

@@ -33,7 +33,7 @@ SOURCES = ("pattern_step", "filter_compact", "time_window", "length_batch",
            "ext_window", "sort_window", "hop_window", "frequent",
            "keyed_ext", "keyed_freq", "expr_window", "agg_base",
            "agg_merge", "multi_filter", "ring", "shard_route",
-           "shard_merge")
+           "shard_merge", "fill_probe")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

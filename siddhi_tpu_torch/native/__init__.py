@@ -80,6 +80,12 @@ def _bind(lib):
     lib.sg_group_fill.argtypes = [
         i32p, u8p, c.c_int64, i32p, i32p, i32p,
         c.c_int64, c.c_int64, c.c_int64, c.c_int32, i32p, i32p]
+    lib.sg_hot_update.restype = c.c_int64
+    lib.sg_hot_update.argtypes = [
+        i64p, u8p, c.c_int64, i64p, i64p, i32p, i32p, i32p, i64p,
+        p(c.c_uint16), i64p, i64p, c.c_int64]
+    lib.sg_row_counts.restype = None
+    lib.sg_row_counts.argtypes = [i32p, c.c_int64, c.c_int64, i64p]
     return lib
 
 

@@ -225,3 +225,137 @@ int32_t sg_group_fill(const int32_t *slots, const uint8_t *valid, int64_t n,
     return (n_uniq > 0 &&
             touched[n_uniq - 1] == touched[0] + (int32_t)(n_uniq - 1)) ? 1 : 0;
 }
+
+/* Key hotness feed (port of siddhi_tpu/observability/stateobs.py
+ * KeyHotness.update): one staged batch's key set (slot ids + per-key row
+ * counts) folds into a count-min sketch (4 rows x 1024 int64 counters), an
+ * exact distinct bitmap and a space-saving top-64.  The results equal the
+ * JAX package's numpy / dict version exactly:
+ *   - a row's counter is ((k + 1) * mult) % 2^31 % 1024 in numpy's int64
+ *     arithmetic (wrapping product, floor modulo);
+ *   - keys < 0 or counts <= 0 are skipped;
+ *   - the top-64 keeps the dict's insertion order: a tracked key adds in
+ *     place, a new key appends while there is room, else it replaces the
+ *     victim `min(ss, key=ss.get)` (the FIRST entry, in insertion order,
+ *     with the least count) and takes its count plus its own, moving to
+ *     the end of the order (the dict's pop then insert).
+ * The entries sit in fixed slots (keys, counts) linked in insertion order
+ * (nxt / prv, aux HEAD / TAIL), so a replacement relinks instead of
+ * shifting.  Two caches keep a key's work O(1) in the common case, both
+ * rebuilt from the entries whenever aux[AUX_VALID] is 0 (a fresh tracker,
+ * or entries the caller rewrote):
+ *   - a counting filter over (k & 4095) of the tracked keys: a key whose
+ *     bucket is empty is untracked without scanning the entries;
+ *   - the least count MIN and a CURSOR slot: every entry before the
+ *     cursor in the order holds more than MIN, so the victim is the first
+ *     entry from the cursor on whose count is MIN; after a replacement the
+ *     next victim can only come after the victim's place, and a walk that
+ *     finds none means the least count rose: rescan from the head.
+ * Returns the rows added to the total. */
+#define HOT_DEPTH 4
+#define HOT_WIDTH 1024
+#define HOT_TOPK 64
+#define HOT_FILTER 4096
+enum { AUX_VALID, AUX_MIN, AUX_CURSOR, AUX_HEAD, AUX_TAIL, AUX_LEN };
+
+static const int64_t HOT_MULT[HOT_DEPTH] = {0x9E3779B1LL, 0x85EBCA77LL,
+                                            0xC2B2AE35LL, 0x27D4EB2FLL};
+
+static inline int64_t hot_bucket(int64_t k, int64_t mult) {
+  int64_t p = (int64_t)((uint64_t)(k + 1) * (uint64_t)mult);
+  int64_t r = p % 2147483648LL;
+  if (r < 0) r += 2147483648LL;
+  return r % HOT_WIDTH;
+}
+
+/* MIN over the entries and CURSOR at the first slot holding it. */
+static void hot_rescan(const int64_t *counts, const int32_t *nxt,
+                       int64_t *aux) {
+  int64_t mn = INT64_MAX;
+  int64_t at = -1;
+  for (int64_t j = aux[AUX_HEAD]; j >= 0; j = nxt[j])
+    if (counts[j] < mn) { mn = counts[j]; at = j; }
+  aux[AUX_MIN] = mn;
+  aux[AUX_CURSOR] = at;
+}
+
+int64_t sg_hot_update(int64_t *cms, uint8_t *seen, int64_t cap,
+                      int64_t *ss_keys, int64_t *ss_counts, int32_t *ss_n,
+                      int32_t *nxt, int32_t *prv, int64_t *aux,
+                      uint16_t *filter, const int64_t *keys,
+                      const int64_t *counts, int64_t n) {
+  int64_t added = 0;
+  int32_t m = *ss_n;
+  if (!aux[AUX_VALID]) {
+    memset(filter, 0, HOT_FILTER * sizeof(uint16_t));
+    for (int32_t j = 0; j < m; ++j) ++filter[ss_keys[j] & (HOT_FILTER - 1)];
+    hot_rescan(ss_counts, nxt, aux);
+    aux[AUX_VALID] = 1;
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t k = keys[i], c = counts[i];
+    if (k < 0 || c <= 0) continue;
+    added += c;
+    if (k < cap) seen[k] = 1;
+    for (int d = 0; d < HOT_DEPTH; ++d)
+      cms[d * HOT_WIDTH + hot_bucket(k, HOT_MULT[d])] += c;
+    const int64_t fb = k & (HOT_FILTER - 1);
+    int32_t at = -1;
+    if (filter[fb])
+      for (int32_t j = 0; j < m; ++j)
+        if (ss_keys[j] == k) { at = j; break; }
+    if (at >= 0) {
+      ss_counts[at] += c;   /* the cursor stays a lower bound */
+      continue;
+    }
+    int32_t v;
+    int64_t base = 0;
+    if (m < HOT_TOPK) {
+      v = m++;
+    } else {
+      v = -1;
+      for (int64_t j = aux[AUX_CURSOR]; j >= 0; j = nxt[j])
+        if (ss_counts[j] == aux[AUX_MIN]) { v = (int32_t)j; break; }
+      if (v < 0) {          /* the least count rose: rescan */
+        hot_rescan(ss_counts, nxt, aux);
+        v = (int32_t)aux[AUX_CURSOR];
+      }
+      base = ss_counts[v];
+      --filter[ss_keys[v] & (HOT_FILTER - 1)];
+      /* unlink v; the next victim comes after its place */
+      const int32_t a = prv[v], b = nxt[v];
+      if (a >= 0) nxt[a] = b; else aux[AUX_HEAD] = b;
+      if (b >= 0) prv[b] = a; else aux[AUX_TAIL] = a;
+      aux[AUX_CURSOR] = b >= 0 ? b : aux[AUX_HEAD];
+    }
+    ss_keys[v] = k;
+    ss_counts[v] = base + c;
+    ++filter[fb];
+    /* link v at the tail */
+    prv[v] = (int32_t)aux[AUX_TAIL];
+    nxt[v] = -1;
+    if (aux[AUX_TAIL] >= 0) nxt[aux[AUX_TAIL]] = v; else aux[AUX_HEAD] = v;
+    aux[AUX_TAIL] = v;
+    if (base == 0 && ss_counts[v] < aux[AUX_MIN]) {
+      /* an append below the least count: it is the new minimum, and no
+       * entry before it holds that little */
+      aux[AUX_MIN] = ss_counts[v];
+      aux[AUX_CURSOR] = v;
+    } else if (base == 0 && aux[AUX_CURSOR] < 0) {
+      aux[AUX_CURSOR] = v;
+    }
+  }
+  *ss_n = m;
+  return added;
+}
+
+/* Per-key row counts of a [K, E] group selection (entries < 0 are
+ * padding): the hotness feed's counts for a grouped batch. */
+void sg_row_counts(const int32_t *sel, int64_t K, int64_t E, int64_t *out) {
+  for (int64_t k = 0; k < K; ++k) {
+    const int32_t *row = sel + k * E;
+    int64_t c = 0;
+    for (int64_t e = 0; e < E; ++e) c += row[e] >= 0;
+    out[k] = c;
+  }
+}

@@ -1,0 +1,377 @@
+"""Prometheus text exposition (port of `siddhi_tpu/observability/exposition.py`).
+Renders the text format directly from host registries: shallow copies, no
+device fetch, so a scrape can never stall a step.  The metric families and
+label sets are the JAX package's; the families of modules the port does
+not have yet (sink circuits, admission) render no samples.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from .histogram import LogHistogram
+
+
+def _esc(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _labels(**kv) -> str:
+    inner = ",".join(f'{k}="{_esc(v)}"' for k, v in kv.items()
+                     if v is not None)
+    return "{" + inner + "}" if inner else ""
+
+
+def _fmt(v: float) -> str:
+    f = float(v)
+    return repr(f) if f != int(f) else str(int(f))
+
+
+class _Family:
+    def __init__(self, lines: List[str], name: str, kind: str, help_: str):
+        self.lines = lines
+        self.name = name
+        self._opened = False
+        self._kind = kind
+        self._help = help_
+
+    def _open(self) -> None:
+        if not self._opened:
+            self._opened = True
+            self.lines.append(f"# HELP {self.name} {self._help}")
+            self.lines.append(f"# TYPE {self.name} {self._kind}")
+
+    def sample(self, value, suffix: str = "", **labels) -> None:
+        self._open()
+        self.lines.append(
+            f"{self.name}{suffix}{_labels(**labels)} {_fmt(value)}")
+
+    def histogram(self, h: LogHistogram, **labels) -> None:
+        """Cumulative le-buckets + _sum + _count for one labelled series."""
+        self._open()
+        for le, cum in h.buckets_seconds():
+            self.sample(cum, "_bucket", **dict(labels, le=_fmt_le(le)))
+        self.sample(h.total, "_bucket", **dict(labels, le="+Inf"))
+        self.sample(h.sum_ns / 1e9, "_sum", **labels)
+        self.sample(h.total, "_count", **labels)
+
+    def histogram_raw(self, h: LogHistogram, **labels) -> None:
+        """Same shape as histogram() but in the histogram's RAW recorded
+        unit (count-valued series: events per shard per batch)."""
+        self._open()
+        for le, cum in h.buckets_raw():
+            self.sample(cum, "_bucket", **dict(labels, le=_fmt_le(le)))
+        self.sample(h.total, "_bucket", **dict(labels, le="+Inf"))
+        self.sample(h.sum_ns, "_sum", **labels)
+        self.sample(h.total, "_count", **labels)
+
+
+def _fmt_le(le: float) -> str:
+    return f"{le:.9g}"
+
+
+def render_prometheus(runtimes: Dict) -> str:
+    """Render every app's metrics in one exposition payload.  `runtimes`
+    maps app name -> SiddhiAppRuntime (the manager's `runtimes` dict)."""
+    lines: List[str] = []
+
+    def fam(name, kind, help_):
+        return _Family(lines, name, kind, help_)
+
+    uptime = fam("siddhi_uptime_seconds", "gauge",
+                 "Seconds since the app's statistics epoch")
+    level = fam("siddhi_statistics_level", "gauge",
+                "Statistics level (0=OFF, 1=BASIC, 2=DETAIL)")
+    s_in = fam("siddhi_stream_events_total", "counter",
+               "Events received per stream")
+    q_ev = fam("siddhi_query_events_total", "counter",
+               "Events processed per query")
+    q_lat = fam("siddhi_query_latency_seconds", "histogram",
+                "Per-query processing latency")
+    j_lat = fam("siddhi_junction_dispatch_seconds", "histogram",
+                "Per-junction-hop dispatch latency (all subscribers)")
+    k_lat = fam("siddhi_sink_flush_seconds", "histogram",
+                "Per-sink-flush publish latency")
+    recomp = fam("siddhi_query_recompiles_total", "counter",
+                 "Recompile events per query step owner (none in the port: "
+                 "see observability/recompile.py)")
+    ctr = fam("siddhi_events_dropped_total", "counter",
+              "Output rows dropped at emission capacity, per query")
+    grow = fam("siddhi_emission_cap_growths_total", "counter",
+               "Adaptive emission-cap growths (each one recompiles), "
+               "per query")
+    buf_e = fam("siddhi_buffered_emissions", "gauge",
+                "Device outputs queued in the async emission drainer")
+    buf_i = fam("siddhi_buffered_ingress_events", "gauge",
+                "Batches pending in @async ingress queues, per stream")
+    q_dep = fam("siddhi_async_queue_depth", "gauge",
+                "Batches sitting in a stream's bounded @async ingress "
+                "queue right now (pure queue-wait backlog; excludes the "
+                "batch a worker is processing)")
+    d_dep = fam("siddhi_drainer_queue_depth", "gauge",
+                "Device outputs sitting in the async emission drainer "
+                "queue right now")
+    e_rows = fam("siddhi_emitted_rows_total", "counter",
+                 "Output rows delivered per query (callbacks, downstream "
+                 "routing, sinks) — per-tenant events_out accounting")
+    e_byt = fam("siddhi_emitted_bytes_total", "counter",
+                "Output bytes delivered per query (rows x schema row "
+                "width from dtype metadata, never fetched)")
+    slo_g = fam("siddhi_slo_state", "gauge",
+                "SLO rule state per app (0=ok 1=pending 2=firing), "
+                "evaluated over the in-process time series each sampler "
+                "tick (observability/slo.py)")
+    fus_d = fam("siddhi_fused_dispatches_total", "counter",
+                "@fuse scan dispatches per query (one device step runs "
+                "K stacked batches)")
+    fus_b = fam("siddhi_fused_batches_total", "counter",
+                "Micro-batches executed through @fuse dispatches, "
+                "per query")
+    mem = fam("siddhi_state_bytes", "gauge",
+              "Device-state bytes per query component (window buffers, "
+              "pattern slot blocks, selector slabs, tables, fuse "
+              "stacks) — computed from cached shape/dtype metadata, "
+              "never fetched")
+    s_ret = fam("siddhi_sink_retries_total", "counter",
+                "Reconnect/redial attempts per sink connection "
+                "(io/resilience.py state machine)")
+    s_brk = fam("siddhi_sink_breaker_state", "gauge",
+                "Sink connection state: 0=CONNECTED 1=RETRYING "
+                "2=BROKEN (circuit open, load shed)")
+    s_drp = fam("siddhi_sink_dropped_total", "counter",
+                "Events/payloads dropped at a sink (buffer overflow, "
+                "open breaker, or terminal on.error failure)")
+    s_buf = fam("siddhi_sink_buffered_payloads", "gauge",
+                "Payloads held in a sink's in-flight retry buffer")
+    e_st = fam("siddhi_errorstore_events", "gauge",
+               "Error-store events by state (buffered=waiting for "
+               "replay; stored/dropped/replayed are lifetime totals)")
+    r_fb = fam("siddhi_restore_fallbacks_total", "counter",
+               "Snapshot revisions skipped as corrupt/unreadable "
+               "during restore_last_revision")
+    sh_ev = fam("siddhi_shard_events_total", "counter",
+                "Events routed to each mesh shard by a sharded query's "
+                "key-space router (sharding/router.py)")
+    sh_oc = fam("siddhi_shard_batch_events", "histogram",
+                "Per-batch events landing on each mesh shard (raw event "
+                "counts, not seconds) — diverging shard p50s mean "
+                "routing skew")
+    sh_mem = fam("siddhi_shard_state_bytes", "gauge",
+                 "Device-state bytes RESIDENT PER SHARD (sharded leaves "
+                 "count their 1/n slice, replicated leaves count whole) "
+                 "— layout metadata only, never fetched")
+    adm_shed = fam("siddhi_admission_shed_total", "counter",
+                   "Events shed at the external ingest edge by the "
+                   "admission rate limit, per stream "
+                   "(core/admission.py; shed/degrade overload policies)")
+    adm_blk = fam("siddhi_admission_blocked_ms_total", "counter",
+                  "Milliseconds callers spent blocked at the admission "
+                  "rate limit (overload='block' backpressure)")
+    adm_qs = fam("siddhi_admission_quota_state", "gauge",
+                 "Admission quota state per app: 0=ok 1=degraded "
+                 "(SLO ladder halved the rate) 2=shedding (state "
+                 "ceiling hit, growth denied)")
+    adm_gd = fam("siddhi_admission_growth_denials_total", "counter",
+                 "Emission-cap/state growths denied by the memory "
+                 "ceiling (the app sheds overflow instead of growing)")
+    adm_cp = fam("siddhi_admission_compile_penalties_total", "counter",
+                 "Compile-gate penalties applied to this app's traces "
+                 "for exceeding admission.max.recompiles.per.min")
+    a_shed = fam("siddhi_async_shed_total", "counter",
+                 "Events shed by a full bounded @async ingress queue "
+                 "under queue.policy='shed', per stream")
+    mrg_d = fam("siddhi_merged_dispatches_total", "counter",
+                "Merged-group device dispatches (one dispatch runs "
+                "every member query's filters and steps — "
+                "optimizer/mqo.py)")
+    mrg_b = fam("siddhi_merged_member_batches_total", "counter",
+                "Per-query batches served through merged dispatches "
+                "(members x dispatches) — divide by "
+                "siddhi_merged_dispatches_total for the amortization "
+                "factor")
+    mrg_q = fam("siddhi_merged_queries", "gauge",
+                "Member queries compiled into each merge group")
+    ring_oc = fam("siddhi_ring_occupancy", "gauge",
+                  "Emissions resident in a query's on-device serving "
+                  "ring, awaiting the async drainer "
+                  "(siddhi_tpu/serving)")
+    ring_dr = fam("siddhi_ring_drains_total", "counter",
+                  "Serving-ring emissions delivered by the async "
+                  "drainer, per query")
+    ring_gr = fam("siddhi_ring_overflow_grows_total", "counter",
+                  "Serving-ring overflow growths (full ring doubled "
+                  "via the admission-gated grow-via-replan path), "
+                  "per query")
+    srv_dep = fam("siddhi_serve_drainer_queue_depth", "gauge",
+                  "Ring entries awaiting the serving drainer across "
+                  "all of an app's rings right now")
+    ph_sec = fam("siddhi_phase_seconds_total", "counter",
+                 "Accumulated wall seconds attributed to each pipeline "
+                 "phase per query (host clocks only — see "
+                 "observability/phases.py for the latency-attribution "
+                 "semantics)")
+    ph_smp = fam("siddhi_phase_dispatches_sampled_total", "counter",
+                 "Dispatches fenced with a CUDA event sync by the "
+                 "sampled deep profiling mode (profile.sample.every=N) "
+                 "to split submit wall from device compute, per query")
+    so_occ = fam("siddhi_state_occupancy", "gauge",
+                 "Utilization (occupancy/capacity, 0-1) of each sized "
+                 "device state structure, from its host mirror "
+                 "(observability/stateobs.py — never a device fetch)")
+    so_hwm = fam("siddhi_state_high_water", "gauge",
+                 "High-water occupancy of each sized device state "
+                 "structure (rows/slots/keys) — monotone per process "
+                 "and max-merged across snapshot restores")
+    so_hot = fam("siddhi_key_hotset_share", "gauge",
+                 "Share of keyed traffic landing in the hottest 1% of "
+                 "observed keys (count-min + space-saving top-K over "
+                 "staging's per-batch key sets), per query")
+
+    from .stateobs import collect as _stateobs_collect
+    for app_name, rt in sorted(runtimes.items()):
+        st = rt.stats
+        # refresh the observatory from the host mirrors first (plain
+        # attribute reads: allocator lengths, ring counters — no device
+        # work rides the scrape)
+        _stateobs_collect(rt)
+        snap = st.exposition_snapshot()
+        uptime.sample(snap["uptime_s"], app=app_name)
+        level.sample({"OFF": 0, "BASIC": 1, "DETAIL": 2}.get(st.level, 0),
+                     app=app_name)
+        for sid, n in sorted(snap["stream_in"].items()):
+            s_in.sample(n, app=app_name, stream=sid)
+        for q, n in sorted(snap["query_events"].items()):
+            q_ev.sample(n, app=app_name, query=q)
+        for q, h in sorted(snap["query_hist"].items()):
+            q_lat.histogram(h, app=app_name, query=q)
+        for sid, h in sorted(snap["junction_hist"].items()):
+            j_lat.histogram(h, app=app_name, stream=sid)
+        for sid, h in sorted(snap["sink_hist"].items()):
+            k_lat.histogram(h, app=app_name, sink=sid)
+        for owner, info in sorted(st.recompiles(rt).items()):
+            recomp.sample(info["count"], app=app_name, query=owner)
+        for name, n in sorted(snap["counters"].items()):
+            if name.endswith(".dropped"):
+                ctr.sample(n, app=app_name, query=name[:-len(".dropped")])
+            elif name.endswith(".cap_growths"):
+                grow.sample(n, app=app_name,
+                            query=name[:-len(".cap_growths")])
+            elif name.endswith(".fused_dispatches"):
+                fus_d.sample(n, app=app_name,
+                             query=name[:-len(".fused_dispatches")])
+            elif name.endswith(".fused_batches"):
+                fus_b.sample(n, app=app_name,
+                             query=name[:-len(".fused_batches")])
+            elif name.endswith(".emitted_rows"):
+                e_rows.sample(n, app=app_name,
+                              query=name[:-len(".emitted_rows")])
+            elif name.endswith(".emitted_bytes"):
+                e_byt.sample(n, app=app_name,
+                             query=name[:-len(".emitted_bytes")])
+            elif name.startswith("async.") and name.endswith(".shed"):
+                a_shed.sample(n, app=app_name,
+                              stream=name[len("async."):-len(".shed")])
+            elif name.startswith("merged.") and \
+                    name.endswith(".dispatches"):
+                mrg_d.sample(n, app=app_name,
+                             group=name[len("merged."):
+                                        -len(".dispatches")])
+            elif name.startswith("merged.") and \
+                    name.endswith(".member_batches"):
+                mrg_b.sample(n, app=app_name,
+                             group=name[len("merged."):
+                                        -len(".member_batches")])
+            elif name.endswith(".ring_drains"):
+                ring_dr.sample(n, app=app_name,
+                               query=name[:-len(".ring_drains")])
+            elif name.endswith(".ring_grows"):
+                ring_gr.sample(n, app=app_name,
+                               query=name[:-len(".ring_grows")])
+        # phase profiler: host-clock ns accumulators, snapshot under the
+        # profiler's own lock — still zero device work on the scrape
+        ph_snap = snap.get("phases", {})
+        ph_sampled = ph_snap.get("sampled", {})
+        for q, phases in sorted(ph_snap.get("queries", {}).items()):
+            for p, v in phases.items():
+                ph_sec.sample(v["ns"] / 1e9, app=app_name, query=q,
+                              phase=p)
+            # emitted at 0 while deep mode is off so rate() works from
+            # the first scrape after profile.sample.every flips on
+            ph_smp.sample(ph_sampled.get(q, 0), app=app_name, query=q)
+        for q, n in sorted(ph_sampled.items()):
+            if q not in ph_snap.get("queries", {}):
+                ph_smp.sample(n, app=app_name, query=q)
+        # state observatory: occupancy ratio + high-water per sized
+        # structure, hot-set concentration per keyed query
+        so_snap = snap.get("stateobs", {})
+        for q, structures in sorted(so_snap.get("structures",
+                                                {}).items()):
+            for s, rec in structures.items():
+                so_occ.sample(rec["utilization"], app=app_name,
+                              query=q, structure=s)
+                so_hwm.sample(rec["high_water"], app=app_name,
+                              query=q, structure=s)
+        for q, hot in sorted(so_snap.get("hotness", {}).items()):
+            so_hot.sample(hot["hot_share_1pct"], app=app_name, query=q)
+        for gid, mg in sorted(getattr(rt, "merged_groups", {}).items()):
+            mrg_q.sample(len(getattr(mg, "members", ())), app=app_name,
+                         group=gid)
+        buf_e.sample(rt.buffered_emissions(), app=app_name)
+        for sid, n in sorted(rt.buffered_ingress().items()):
+            buf_i.sample(n, app=app_name, stream=sid)
+        # bounded-queue depth gauges (queue qsize reads — host only)
+        if hasattr(rt, "queue_depths"):
+            for sid, n in sorted(rt.queue_depths().items()):
+                q_dep.sample(n, app=app_name, stream=sid)
+        if hasattr(rt, "drainer_depth"):
+            d_dep.sample(rt.drainer_depth(), app=app_name)
+        # serving-loop gauges: ring occupancy per query + drainer
+        # backlog (host-side deque length reads — never a fetch)
+        if hasattr(rt, "ring_occupancies"):
+            for q, n in sorted(rt.ring_occupancies().items()):
+                ring_oc.sample(n, app=app_name, query=q)
+        if hasattr(rt, "serve_drainer_depth"):
+            srv_dep.sample(rt.serve_drainer_depth(), app=app_name)
+        # SLO rule states, attached to the runtime by the sampler tick
+        slo = rt.__dict__.get("_slo_state") \
+            if hasattr(rt, "__dict__") else None
+        if slo:
+            from .slo import STATE_GAUGE
+            for rname, r in sorted(slo.get("rules", {}).items()):
+                slo_g.sample(STATE_GAUGE.get(r.get("state"), 0),
+                             app=app_name, rule=rname)
+        # state-memory accounting rides the scrape under the same
+        # invariant: memory.component_bytes walks shape/dtype metadata
+        # only (observability/memory.py), so this adds zero device work
+        from .memory import component_bytes
+        for owner, comps in sorted(component_bytes(rt).items()):
+            for comp, nb in sorted(comps.items()):
+                mem.sample(nb, app=app_name, query=owner, component=comp)
+        # shard dimension: routing totals + per-batch occupancy from the
+        # stats registry, per-shard residency from sharding metadata
+        # (shard_shape arithmetic — still no device work)
+        for q, per_shard in sorted(snap.get("shard_events", {}).items()):
+            for d, c in enumerate(per_shard):
+                sh_ev.sample(c, app=app_name, query=q, shard=d)
+        for key, h in sorted(snap.get("shard_hist", {}).items()):
+            q, _, shard = key.rpartition(":shard")
+            sh_oc.histogram_raw(h, app=app_name, query=q, shard=shard)
+        from ..sharding.metrics import shard_state_bytes
+        for d, nb in sorted(shard_state_bytes(rt).items()):
+            sh_mem.sample(nb, app=app_name, shard=d)
+        # sink circuits and the error store are not ported (@sink and
+        # @app:errorstore raise): their families render no samples
+        r_fb.sample(getattr(rt, "restore_fallbacks", 0), app=app_name)
+        # the admission controller is not ported (@app:admission raises):
+        # its per-app families render no samples
+
+    # process-wide admission families: no deploy is gated and no compile
+    # queue exists in the port, so both read 0
+    fam("siddhi_admission_denied_deploys_total", "counter",
+        "App deployments denied by the admission memory gate before "
+        "any planning or compile (process-wide)").sample(0)
+    fam("siddhi_admission_compile_queue_depth", "gauge",
+        "Traces currently waiting at (or penalized before) the shared "
+        "compile-admission gate").sample(0)
+
+    return "\n".join(lines) + ("\n" if lines else "")

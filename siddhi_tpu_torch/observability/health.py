@@ -1,0 +1,329 @@
+"""Health probes (port of `siddhi_tpu/observability/health.py`): liveness,
+readiness and a per-app report of engine threads, per-stream last-event age
+and backlog, sliding-window drop / cap-growth / recompile rates, the phase
+budget, the state observatory's near-capacity verdicts and the serving
+drainer.  Host counters, thread states and queue depths only: never a
+device fetch, so a probe cannot stall a step.
+
+The JAX package's sink circuits (`io/resilience`) and admission
+controller are not ported: `@sink` and `@app:admission` raise in the
+port, so those sections report nothing.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Dict, Optional, Tuple
+
+_WINDOW_S = 60.0
+
+
+def _window_s(rt) -> float:
+    """Sliding-rate window in seconds: the `health.window.seconds` config
+    property of the owning manager (default 60).  Memoized per runtime —
+    probes run every few seconds and the property cannot change under a
+    live manager."""
+    w = rt.__dict__.get("_health_window_s")
+    if w is not None:
+        return w
+    w = _WINDOW_S
+    try:
+        cm = getattr(getattr(rt, "manager", None), "config_manager", None)
+        v = cm.extract_property("health.window.seconds") \
+            if cm is not None else None
+        if v:
+            w = float(v)
+    except Exception:  # noqa: BLE001 — probe must not throw
+        w = _WINDOW_S
+    rt.__dict__["_health_window_s"] = w
+    return w
+
+
+class SlidingRate:
+    """Rate of a cumulative counter over a trailing window: each probe
+    appends (monotonic_t, value) and evicts samples older than the
+    window; the rate is the slope across the retained span."""
+
+    __slots__ = ("window_s", "samples")
+
+    def __init__(self, window_s: float = _WINDOW_S):
+        self.window_s = window_s
+        self.samples: deque = deque(maxlen=256)
+
+    def observe(self, value: float, now: Optional[float] = None) -> float:
+        t = time.monotonic() if now is None else now
+        self.samples.append((t, float(value)))
+        while len(self.samples) > 1 and \
+                t - self.samples[0][0] > self.window_s:
+            self.samples.popleft()
+        t0, v0 = self.samples[0]
+        span = t - t0
+        if span <= 0:
+            return 0.0
+        return max(0.0, (float(value) - v0) / span)
+
+
+def _rates_of(rt) -> Dict[str, SlidingRate]:
+    return rt.__dict__.setdefault("_health_rates", {})
+
+
+def _rate(rt, key: str, value: float) -> float:
+    rates = _rates_of(rt)
+    r = rates.get(key)
+    if r is None:
+        r = rates[key] = SlidingRate(_window_s(rt))
+    return r.observe(value)
+
+
+def _counter_sums(snap_counters: Dict[str, int]) -> Tuple[int, int]:
+    drops = sum(v for k, v in snap_counters.items()
+                if k.endswith(".dropped"))
+    growths = sum(v for k, v in snap_counters.items()
+                  if k.endswith(".cap_growths"))
+    return drops, growths
+
+
+def _threads_live(rt) -> Tuple[bool, Dict[str, bool]]:
+    """Engine-thread liveness of one app.  Only meaningful once started;
+    a deployed-but-stopped app is live (nothing should be running)."""
+    detail: Dict[str, bool] = {}
+    if not getattr(rt, "_started", False):
+        return True, detail
+    sched = getattr(getattr(rt, "_scheduler", None), "_thread", None)
+    if sched is not None:
+        detail["scheduler"] = bool(sched.is_alive())
+    drainer = getattr(rt, "_drainer", None)
+    # the drainer thread starts lazily on the first async emission: an
+    # idle drainer is healthy, a started-then-dead one is not
+    if drainer is not None and getattr(drainer, "_started", False):
+        t = getattr(drainer, "_thread", None)
+        detail["emission_drainer"] = t is not None and bool(t.is_alive())
+    return all(detail.values()) if detail else True, detail
+
+
+def app_health(rt, now_ms: Optional[int] = None) -> Dict:
+    """Health report for one SiddhiAppRuntime (host-side reads only)."""
+    now_ms = int(time.time() * 1000) if now_ms is None else now_ms
+    started = bool(getattr(rt, "_started", False))
+    gate = getattr(rt, "_ingress_gate", None)
+    accepting = bool(gate.is_set()) if gate is not None else started
+    live, threads = _threads_live(rt)
+
+    st = rt.stats
+    snap = st.exposition_snapshot()
+    window_s = _window_s(rt)
+    last_ms = snap.get("stream_last_ms", {})
+    backlog = rt.buffered_ingress()
+    qdepth = rt.queue_depths() if hasattr(rt, "queue_depths") else {}
+    counters = snap.get("counters", {})
+    streams: Dict[str, Dict] = {}
+    for sid in sorted(rt.junctions):
+        if sid.startswith("!"):
+            continue
+        seen = last_ms.get(sid)
+        age_s = (now_ms - seen) / 1e3 if seen else None
+        depth = int(backlog.get(sid, 0))
+        queued = int(qdepth.get(sid, 0))
+        # @async(queue.policy='shed') losses take precedence in the
+        # classification: a shedding queue IS full, but "backlogged"
+        # would hide that accepted-load is being dropped right now.
+        # "Actively" = sheds moved within the sliding window, or sheds
+        # have happened and the queue is still backed up (the first
+        # probe has no rate span yet).
+        async_shed = int(counters.get(f"async.{sid}.shed", 0))
+        shed_rate = _rate(rt, f"async_shed.{sid}", async_shed) \
+            if async_shed else 0.0
+        if async_shed and (shed_rate > 0 or depth > 0 or queued > 0):
+            status = "shedding"            # full queue actively dropping
+        elif depth > 0 or queued > 0:
+            status = "backlogged"          # source alive, engine behind
+        elif seen is None:
+            status = "no-events" if st.enabled else "unknown"
+        elif age_s is not None and age_s > window_s:
+            status = "idle"                # engine drained, source quiet
+        else:
+            status = "ok"
+        streams[sid] = {"last_event_age_s": age_s, "backlog": depth,
+                        "queue_depth": queued, "status": status,
+                        **({"async_shed": async_shed}
+                           if async_shed else {})}
+
+    # sink circuits are not ported (@sink raises): none to report
+    sinks: Dict[str, Dict] = {}
+    degraded = False
+
+    drops, growths = _counter_sums(snap.get("counters", {}))
+    recompiles = sum(info["count"]
+                     for info in st.recompiles(rt).values())
+    # queries whose @fuse request was skipped at wiring time, with the
+    # reason the wiring stored (reference `plan_facts.fusion_exclusions`)
+    excluded = {name: qr._fuse_excluded for name, qr in
+                list(getattr(rt, "query_runtimes", {}).items())
+                if getattr(qr, "_fuse_excluded", None)}
+    # shard dimension: per-shard residency + routing balance of a meshed
+    # app (sharding/metrics.py — layout metadata + host counters only)
+    shards = None
+    try:
+        from ..sharding.metrics import shard_report
+        shards = shard_report(rt)
+    except Exception:  # noqa: BLE001 — probe must not throw
+        shards = None
+
+    # SLO verdicts (observability/slo.py): evaluated by the time-series
+    # sampler each tick and attached to the runtime; a FIRING rule flips
+    # the same `degraded` verdict a BROKEN sink does — the app still
+    # processes, but an operator-promised objective is being missed
+    slo = rt.__dict__.get("_slo_state")
+    if slo is not None and any(r.get("state") == "firing"
+                               for r in slo.get("rules", {}).values()):
+        degraded = True
+
+    # the admission controller is not ported (@app:admission raises)
+    admission = None
+
+    # serving drainer (serving/drain.py): a stalled or dead
+    # drainer flips `degraded`, NOT `live` — producers fall back to
+    # bounded ring backpressure while the app keeps processing, so the
+    # right response is alarm-and-drain, not a restart loop
+    serving = None
+    sd = getattr(rt, "_serve_drainer", None)
+    if sd is not None and getattr(sd, "_started", False):
+        try:
+            stalled = bool(sd.stalled())
+            alive = bool(sd.alive())
+            serving = {
+                "drainer_alive": alive,
+                "drainer_stalled": stalled,
+                "pending": sd.pending(),
+                "drains_total": sd.drains_total,
+                "drained_outputs_total": sd.drained_outputs_total,
+                "rings": {q: r.facts()
+                          for q, r in rt.serve_rings().items()}
+                if hasattr(rt, "serve_rings") else {},
+            }
+            if stalled or not alive:
+                degraded = True
+        except Exception:  # noqa: BLE001 — probe must not throw
+            serving = None
+
+    # phase budget (observability/phases.py): per-query share of e2e wall
+    # by pipeline phase — the profiler's counters are host-clock sums, so
+    # this keeps the probe's never-fetch invariant
+    phases = None
+    try:
+        ph = rt.phase_report()
+        if ph.get("queries"):
+            phases = ph
+    except Exception:  # noqa: BLE001 — probe must not throw
+        phases = None
+
+    # state observatory (observability/stateobs.py): per-structure
+    # utilization + high-water from the HOST mirrors, key-hotness
+    # concentration, and near-capacity verdicts.  A non-growable
+    # structure at/over the near-capacity threshold flips the same
+    # `degraded` verdict a BROKEN sink does — the app still processes,
+    # but the next key/slot past the cap raises instead of degrading
+    # gracefully, so the operator should resize BEFORE that happens
+    state = None
+    try:
+        from .stateobs import (_NEAR_CAPACITY_EXEMPT, collect,
+                               near_capacity, obs_enabled)
+        if obs_enabled(rt):
+            collect(rt)
+            so_snap = rt.stats.stateobs.snapshot()
+            near = near_capacity(rt, so_snap)
+            worst = 0.0
+            n_structs = 0
+            for q, structures in so_snap["structures"].items():
+                for s, rec in structures.items():
+                    n_structs += 1
+                    # window_fill runs 100% full at steady state by
+                    # design — not a capacity-pressure signal
+                    if not rec["growable"] and \
+                            s not in _NEAR_CAPACITY_EXEMPT:
+                        worst = max(worst, rec["utilization"])
+            state = {
+                "structures_tracked": n_structs,
+                "worst_fixed_utilization": round(worst, 4),
+                "near_capacity": near,
+                "hot_share_1pct": {
+                    q: h["hot_share_1pct"]
+                    for q, h in so_snap["hotness"].items()},
+            }
+            if near:
+                degraded = True
+    except Exception:  # noqa: BLE001 — probe must not throw
+        state = None
+
+    report = {
+        "started": started,
+        "accepting_ingress": accepting,
+        "live": live,
+        "ready": started and accepting,
+        "threads": threads,
+        "streams": streams,
+        "sinks": sinks,
+        "degraded": degraded,
+        **({"shards": shards} if shards is not None else {}),
+        **({"phases": phases} if phases is not None else {}),
+        **({"state": state} if state is not None else {}),
+        **({"serving": serving} if serving is not None else {}),
+        **({"slo": slo} if slo is not None else {}),
+        **({"admission": admission} if admission is not None else {}),
+        "buffered_emissions": rt.buffered_emissions(),
+        "drainer_queue_depth": rt.drainer_depth()
+        if hasattr(rt, "drainer_depth") else 0,
+        "rates_window_s": window_s,
+        "dropped_per_s": round(_rate(rt, "dropped", drops), 6),
+        "cap_growths_per_s": round(_rate(rt, "cap_growths", growths), 6),
+        "recompiles_per_s": round(_rate(rt, "recompiles", recompiles), 6),
+        "totals": {"dropped": drops, "cap_growths": growths,
+                   "recompiles": recompiles},
+        "fusion_exclusions": excluded,
+    }
+    return report
+
+
+def healthz(manager) -> Tuple[int, Dict]:
+    """(http_status, payload) for GET /healthz: 200 while every app's
+    engine threads live, 503 otherwise.  `ready` is reported separately —
+    route on it via /healthz/ready (503 while any app is deploying,
+    quiesced, or stopped)."""
+    apps = {}
+    live = True
+    ready = True
+    degraded = False
+    for name, rt in sorted(getattr(manager, "runtimes", {}).items()):
+        try:
+            rep = app_health(rt)
+        except Exception as exc:  # noqa: BLE001 — probe must not throw
+            rep = {"error": repr(exc), "live": False, "ready": False}
+        apps[name] = rep
+        live = live and bool(rep.get("live"))
+        ready = ready and bool(rep.get("ready"))
+        degraded = degraded or bool(rep.get("degraded"))
+    payload = {
+        "status": "degraded" if live and degraded
+        else ("ok" if live else "unhealthy"),
+        "live": live,
+        "ready": ready,
+        "degraded": degraded,
+        "apps": apps,
+    }
+    return (200 if live else 503), payload
+
+
+def readiness(manager) -> Tuple[int, Dict]:
+    """(http_status, payload) for GET /healthz/ready: 200 only when every
+    deployed app is started and accepting ingress."""
+    code, payload = healthz(manager)
+    ok = payload["ready"] and payload["live"]
+    return (200 if ok else 503), {"ready": ok,
+                                  "live": payload["live"],
+                                  "apps": payload["apps"]}
+
+
+def liveness(manager) -> Tuple[int, Dict]:
+    """(http_status, payload) for GET /healthz/live."""
+    code, payload = healthz(manager)
+    return code, {"live": payload["live"]}

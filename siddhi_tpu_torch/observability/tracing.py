@@ -1,0 +1,248 @@
+"""Per-batch pipeline tracing (port of
+`siddhi_tpu/observability/tracing.py`, host code, copied).  At DETAIL the
+junction opens one trace per batch; query dispatch, emission, rate
+limiters and the drainers attach spans to it through a thread-local
+`active()` trace, `handoff()` carries a trace to a deferred delivery and
+`adopt()` resumes it there.  Finished traces stay in a bounded ring that
+`trace_dump()` and the Chrome trace export read.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+_tls = threading.local()
+_ids = itertools.count(1)
+
+# span-meta caps: DETAIL tracing on queries with large pattern metadata
+# must not grow ring-buffer entries unboundedly — values clamp to a
+# bounded repr and a span keeps at most _MAX_META_KEYS entries
+_MAX_META_KEYS = 16
+_MAX_META_CHARS = 200
+_MAX_SPANS = 512
+
+
+def _clamp_value(v):
+    if v is None or isinstance(v, (bool, int, float)):
+        return v
+    s = v if isinstance(v, str) else repr(v)
+    if len(s) > _MAX_META_CHARS:
+        return s[:_MAX_META_CHARS] + f"...(+{len(s) - _MAX_META_CHARS})"
+    return s
+
+
+def _clamp_meta(meta: Dict) -> Dict:
+    if not meta:
+        return meta
+    out = {}
+    for i, (k, v) in enumerate(meta.items()):
+        if i >= _MAX_META_KEYS:
+            out["meta_truncated"] = len(meta) - _MAX_META_KEYS
+            break
+        out[str(k)[:64]] = _clamp_value(v)
+    return out
+
+
+class Span:
+    __slots__ = ("stage", "start_ns", "end_ns", "meta", "track")
+
+    def __init__(self, stage: str, start_ns: int, end_ns: int, meta: Dict,
+                 track: Optional[str] = None):
+        self.stage = stage
+        self.start_ns = start_ns
+        self.end_ns = end_ns
+        self.meta = meta
+        self.track = track
+
+    def to_dict(self) -> Dict:
+        d = {"stage": self.stage,
+             "duration_us": (self.end_ns - self.start_ns) / 1e3,
+             "offset_us": None}  # filled by BatchTrace.to_dict
+        if self.track is not None:
+            d["track"] = self.track
+        d.update(self.meta)
+        return d
+
+
+class BatchTrace:
+    __slots__ = ("trace_id", "stream_id", "n_events", "wall_ms",
+                 "start_ns", "end_ns", "spans", "spans_truncated",
+                 "_append_lock")
+
+    def __init__(self, stream_id: str, n_events: int):
+        self.trace_id = next(_ids)
+        self.stream_id = stream_id
+        self.n_events = n_events
+        self.wall_ms = int(time.time() * 1000)
+        self.start_ns = time.perf_counter_ns()
+        self.end_ns = self.start_ns
+        self.spans: List[Span] = []
+        self.spans_truncated = 0
+        # armed by PipelineTracer.handoff(): appends from an adopting
+        # thread serialize against the dispatch side.  None until a
+        # handoff happens, so single-thread traces never pay the lock.
+        self._append_lock = None
+
+    def arm(self) -> None:
+        if self._append_lock is None:
+            self._append_lock = threading.Lock()
+
+    def add_span(self, stage: str, start_ns: int, end_ns: int,
+                 meta: Dict, track: Optional[str] = None) -> None:
+        lk = self._append_lock
+        if lk is None:
+            self._add_span(stage, start_ns, end_ns, meta, track)
+        else:
+            with lk:
+                self._add_span(stage, start_ns, end_ns, meta, track)
+
+    def _add_span(self, stage: str, start_ns: int, end_ns: int,
+                  meta: Dict, track: Optional[str]) -> None:
+        # bounded entries: meta values clamp to a bounded repr and a
+        # runaway dispatch (re-ingestion loop) can't make one trace hold
+        # unlimited spans — drops are COUNTED and surface as
+        # `spans_truncated` in the dump, never lost silently
+        if len(self.spans) >= _MAX_SPANS:
+            self.spans_truncated += 1
+            return
+        self.spans.append(
+            Span(stage, start_ns, end_ns, _clamp_meta(meta), track))
+        # adopted spans land after finish(): keep the trace total honest
+        # so drain-side time shows in `total_us`, not past its end
+        if end_ns > self.end_ns:
+            self.end_ns = end_ns
+
+    def queries(self) -> List[str]:
+        return sorted({s.meta["query"] for s in tuple(self.spans)
+                       if "query" in s.meta})
+
+    def to_dict(self) -> Dict:
+        spans = []
+        # snapshot the list: a trace being finished on another thread
+        # must not interleave half-written span entries into the dump
+        for s in tuple(self.spans):
+            d = s.to_dict()
+            d["offset_us"] = (s.start_ns - self.start_ns) / 1e3
+            spans.append(d)
+        return {
+            "trace_id": self.trace_id,
+            "stream": self.stream_id,
+            "events": self.n_events,
+            "wall_ms": self.wall_ms,
+            "total_us": (self.end_ns - self.start_ns) / 1e3,
+            "spans": spans,
+            "spans_truncated": self.spans_truncated,
+        }
+
+
+def active() -> Optional[BatchTrace]:
+    """The thread's in-flight trace, or None.  THE hot-path guard: callers
+    must check this before building span context managers."""
+    return getattr(_tls, "trace", None)
+
+
+@contextlib.contextmanager
+def span(stage: str, **meta):
+    """Record one stage span on the active trace (no-op without one).
+    Callers on latency-sensitive paths should guard with `active()` first
+    so the generator isn't even created at OFF/BASIC."""
+    tr = getattr(_tls, "trace", None)
+    if tr is None:
+        yield
+        return
+    track = getattr(_tls, "track", None)
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        tr.add_span(stage, t0, time.perf_counter_ns(), meta, track)
+
+
+def handoff() -> Optional[BatchTrace]:
+    """Arm the active trace for cross-thread appends and return it as the
+    token to carry on the handoff queue (@async drainer items, serving-
+    ring generations).  None when no trace is active — the token rides
+    the queue either way, so the drain side needs no special case."""
+    tr = getattr(_tls, "trace", None)
+    if tr is not None:
+        tr.arm()
+    return tr
+
+
+@contextlib.contextmanager
+def adopt(token: Optional[BatchTrace], track: str = "drain"):
+    """Make a handed-off trace the thread's active trace for the scope of
+    one delivery: spans recorded inside (emit, sink, nested re-ingestion
+    dispatches) attach to the ORIGINATING trace, tagged with `track` for
+    the Chrome-trace drainer lane.  With a None token this is the plain
+    no-op path.  Nested dispatch under adoption behaves exactly like
+    same-thread nesting: PipelineTracer.start() sees the adopted trace
+    and returns None, so the inner hop's spans join the outer story
+    instead of being silently skipped."""
+    if token is None:
+        yield
+        return
+    prev_tr = getattr(_tls, "trace", None)
+    prev_track = getattr(_tls, "track", None)
+    _tls.trace = token
+    _tls.track = track
+    try:
+        yield
+    finally:
+        _tls.trace = prev_tr
+        _tls.track = prev_track
+
+
+class PipelineTracer:
+    """Owns the ring buffer and the start/finish lifecycle.  One per
+    StatisticsManager (i.e. per app runtime)."""
+
+    def __init__(self, capacity: int = 256):
+        self._ring: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def start(self, stream_id: str, n_events: int) -> Optional[BatchTrace]:
+        """Begin tracing the batch being dispatched on this thread.  Nested
+        dispatch (a query emitting into a downstream stream) keeps the
+        OUTER trace: the inner hop shows up as spans on it, which is
+        exactly the stage-by-stage story a slow batch needs."""
+        if getattr(_tls, "trace", None) is not None:
+            return None
+        tr = BatchTrace(stream_id, n_events)
+        _tls.trace = tr
+        return tr
+
+    def finish(self, tr: Optional[BatchTrace]) -> None:
+        if tr is None:      # nested dispatch: outer owner finishes it
+            return
+        _tls.trace = None
+        # max(): an adopted drain-side span may already have pushed the
+        # trace end past the dispatch side's finish instant
+        tr.end_ns = max(tr.end_ns, time.perf_counter_ns())
+        with self._lock:
+            self._ring.append(tr)
+
+    def dump(self, query: Optional[str] = None,
+             limit: int = 64) -> List[Dict]:
+        """Newest-first trace dicts, optionally only those that touched
+        `query` (matched against span `query=` metadata).  The dict
+        conversion runs under the ring lock so a dump taken under churn
+        is one consistent snapshot — concurrent finish() appends (which
+        also take the lock) can never interleave into it."""
+        out = []
+        with self._lock:
+            for tr in reversed(self._ring):
+                if query is not None and query not in tr.queries():
+                    continue
+                out.append(tr.to_dict())
+                if len(out) >= limit:
+                    break
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()

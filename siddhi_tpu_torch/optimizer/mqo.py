@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -127,6 +128,36 @@ class MergedGroupRuntime:
         astates[j] = a_new
         self._state[u] = (w_new, tuple(astates))
 
+    def member_components(self, qr) -> Dict[str, int]:
+        """A member's EXCLUSIVE state bytes: a shared unit's members
+        carry only their selector state; the shared window is reported
+        once, under the group (`shared_components`)."""
+        from ..observability.memory import tree_nbytes
+        u, j, mode = self._slots[id(qr)]
+        st = self._state[u]
+        if mode == "solo":
+            return {"window": tree_nbytes(st[0]),
+                    "selector": tree_nbytes(st[1])}
+        return {"selector": tree_nbytes(st[1][j])}
+
+    def shared_components(self) -> Dict[str, int]:
+        """{component: bytes} the group owns: shared window buffers
+        (counted once) and a pending @fuse stack."""
+        from ..observability.memory import leaf_nbytes, tree_nbytes
+        out: Dict[str, int] = {}
+        shared = sum(tree_nbytes(self._state[u][0])
+                     for u, (mode, _) in enumerate(self.units)
+                     if mode == "shared")
+        if shared:
+            out["window[shared]"] = shared
+        fb = self._fuse
+        if fb is not None and fb.items:
+            total = sum(leaf_nbytes(x) for st, _ in fb.items
+                        for x in (st.ts, st.kind, st.valid, *st.cols))
+            if total:
+                out["fuse_stack"] = total
+        return out
+
     def mode_of(self, qr) -> str:
         return "shared" if self._slots[id(qr)][2] == "shared" else "stacked"
 
@@ -145,6 +176,8 @@ class MergedGroupRuntime:
         from ..core.planner import header_of
         from ..kernels import multi_filter as k29
         members, units = self.members, self.units
+        stats = self.app.stats
+        t0 = time.perf_counter_ns() if stats.enabled else 0
         nows = [now for _, now in items]
         # host slot staging, ONCE per unit and batch (in arrival order):
         # shared units resolve group keys through the leader
@@ -228,15 +261,23 @@ class MergedGroupRuntime:
                     outs[i] = (out, header_of(out, wake))
                 self._state[u] = (wstate, tuple(new_as))
             results.append(outs)
-        self._demux(items, results)
+        if stats.enabled:
+            stats.counter_inc(f"merged.{self.group}.dispatches")
+            stats.counter_inc(f"merged.{self.group}.member_batches",
+                              len(members) * len(items))
+        self._demux(items, results, t0)
 
     # -- demux: one combined fetch, per-query delivery ------------------------
-    def _demux(self, items, results) -> None:
+    def _demux(self, items, results, t0: int = 0) -> None:
         """Deliver per-query emissions for the dispatched batches.  Sync
         mode fetches every consumed member's header across all batches in
         ONE transfer; @async / @pipeline / @serve members re-enter their
         deferred paths.  A member's delivery failure is logged (the
-        junction's LOG fault semantics) without blocking its co-members."""
+        junction's LOG fault semantics) without blocking its co-members.
+        With statistics on, each member's latency sample is an even share
+        of the dispatch plus its own delivery, and its `<query>:e2e`
+        closes against the send's stamp (reference `_demux`,
+        `siddhi_tpu/optimizer/mqo.py:283-340`)."""
         from ..core import runtime as _rt
         members = self.members
         m0 = members[0]
@@ -248,20 +289,41 @@ class MergedGroupRuntime:
             keys = [(s, i) for s in range(len(items)) for i in consumers]
             hosted = dict(zip(keys, _rt.fetch_headers(
                 [results[s][i][1] for s, i in keys])))
+        stats = self.app.stats
+        stamp = self.__dict__.get("_ingest_ns")
+        share = 0
+        if stats.enabled:
+            share = (time.perf_counter_ns() - t0) // \
+                max(1, len(members) * len(items))
+        live = set(consumers)
         for s, (staged, now) in enumerate(items):
-            for i in consumers:
-                m = members[i]
+            for i, m in enumerate(members):
+                td = time.perf_counter_ns() if stats.enabled else 0
                 out, header = results[s][i]
                 try:
-                    if deferred:
-                        _rt._emit(m, out, header, now, _rt._deliver_plain)
-                    else:
+                    if i in live and deferred:
+                        m.__dict__["_ingest_ns"] = stamp
+                        try:
+                            _rt._emit(m, out, header, now,
+                                      _rt._deliver_plain)
+                        finally:
+                            m.__dict__["_ingest_ns"] = None
+                    elif i in live:
                         _rt._deliver_plain(m, out, hosted[(s, i)], now)
                 except Exception:  # noqa: BLE001 — per-query fault
                     log.exception("stream %s: query %s failed in merge "
                                   "group %s; batch of %d events dropped for "
                                   "it", self.stream_id, m.name, self.group,
                                   staged.n)
+                finally:
+                    if stats.enabled:
+                        stats.query_latency(
+                            m.name, staged.n,
+                            share + time.perf_counter_ns() - td)
+                        if i in live and not deferred and \
+                                stamp is not None:
+                            stats.e2e_latency(
+                                m.name, time.perf_counter_ns() - stamp)
 
 
 def apply_merge(rt) -> None:

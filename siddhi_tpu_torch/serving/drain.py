@@ -22,9 +22,14 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import List
 
 log = logging.getLogger("siddhi_tpu_torch")
+
+# a drainer with work pending and no round for this many intervals is
+# stalled: health() flips `degraded` (reference `STALL_INTERVALS`)
+STALL_INTERVALS = 10.0
 
 
 class ServingDrainer:
@@ -45,6 +50,8 @@ class ServingDrainer:
         self._running = False
         self._kicked = False
         self.drains_total = 0
+        self.drained_outputs_total = 0
+        self.last_tick_ns = time.monotonic_ns()
 
     def register(self, ring) -> None:
         with self._cv:
@@ -82,6 +89,20 @@ class ServingDrainer:
         """Ring entries accepted but not yet delivered."""
         return sum(r.occupancy() for r in list(self._rings))
 
+    def alive(self) -> bool:
+        t = self._thread
+        return (not self._started) or (t is not None and t.is_alive())
+
+    def stalled(self) -> bool:
+        """Work pending but no round within the stall budget (health's
+        `degraded`; reference `stalled`, `siddhi_tpu/serving/drain.py`
+        :112-120)."""
+        if not self._started or self.pending() == 0:
+            return False
+        idle_ns = time.monotonic_ns() - self.last_tick_ns
+        budget_ns = max(self.interval_ms, 1.0) * 1e6 * STALL_INTERVALS
+        return idle_ns > budget_ns or not self.alive()
+
     def drain_all(self) -> int:
         """Synchronous full drain on the caller's thread."""
         total = 0
@@ -100,8 +121,10 @@ class ServingDrainer:
                 if items:
                     n += len(items)
                     self._deliver(ring.qr, items)
+            self.last_tick_ns = time.monotonic_ns()
             if n:
                 self.drains_total += 1
+                self.drained_outputs_total += n
             return n
 
     @staticmethod
@@ -112,6 +135,9 @@ class ServingDrainer:
             except Exception:  # noqa: BLE001 — the drainer must survive
                 log.exception("serving drain error in %s",
                               getattr(qr, "name", "?"))
+        st = qr.app.stats
+        if st.enabled:
+            st.counter_inc(f"{qr.name}.ring_drains", len(items))
 
     def _run(self) -> None:
         while True:

@@ -23,11 +23,12 @@ from __future__ import annotations
 
 import logging
 import threading
-from typing import List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from ..kernels import ring as k30
+from ..observability import stateobs as _stateobs
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -91,6 +92,7 @@ class EmissionRing:
         self._meta: List[Tuple] = []
         self._on_highwater = on_highwater
         self.grows_total = 0
+        self.appends_total = 0
         self.max_occupancy = 0
 
     # -- producer edge -------------------------------------------------------
@@ -105,9 +107,17 @@ class EmissionRing:
                 gen = self._make_room(gen, block)
             gen.append(block)
             self._meta.append((gen, now, deliver, len(out) == 6))
+            self.appends_total += 1
             occ = len(self._meta)
             self.max_occupancy = max(self.max_occupancy, occ)
             kick = occ >= self._high_water()
+        if _stateobs.obs_enabled(self.qr.app):
+            # ring depth high-water for the sizing ledger (a host counter:
+            # the producer edge stays fetch-free)
+            self.qr.app.stats.stateobs.observe(
+                self.qr.name, "serve_ring", occ, self.capacity,
+                growable=self.capacity < RING_CAP_MAX,
+                config_key="serving.ring.capacity")
         if kick and self._on_highwater is not None:
             self._on_highwater()
 
@@ -124,6 +134,8 @@ class EmissionRing:
                         "this)", self.qr.name, self.capacity, new_cap)
             self.capacity = new_cap
             self.grows_total += 1
+            if self.qr.app.stats.enabled:
+                self.qr.app.stats.counter_inc(f"{self.qr.name}.ring_grows")
             gen = _Generation(block, new_cap)
             self._gens.append(gen)
             return gen
@@ -189,3 +201,19 @@ class EmissionRing:
     # -- introspection -------------------------------------------------------
     def occupancy(self) -> int:
         return len(self._meta)
+
+    def state_leaves(self):
+        """The current generations' device buffers (metadata walks only:
+        observability/memory.py counts them under `serve_ring`)."""
+        return [g.bufs for g in self._gens]
+
+    def facts(self) -> Dict[str, Any]:
+        """The health node of this ring."""
+        from ..observability.memory import tree_nbytes
+        return {"capacity": self.capacity,
+                "occupancy": self.occupancy(),
+                "high_water": self._high_water(),
+                "appends_total": self.appends_total,
+                "overflow_grows": self.grows_total,
+                "generation": len(self._gens),
+                "nbytes": tree_nbytes(self.state_leaves())}

@@ -1,0 +1,390 @@
+"""Runtime statistics (port of `siddhi_tpu/utils/statistics.py`): a
+dependency-free registry with the reference's metric roles (throughput per
+stream, latency per query, memory, buffered events), levels OFF / BASIC /
+DETAIL switchable at run time, plus per-query / junction log2 latency
+histograms, the phase profiler, the state observatory and the DETAIL
+pipeline tracer.  Every hot-path hook is guarded by one `enabled` check.
+"""
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from typing import Dict, Optional
+
+from ..observability.histogram import LogHistogram, hist_of
+from ..observability.phases import PhaseProfiler
+from ..observability.recompile import RECOMPILES
+from ..observability.stateobs import StateObservatory
+from ..observability.tracing import PipelineTracer
+
+OFF, BASIC, DETAIL = "OFF", "BASIC", "DETAIL"
+
+
+class StatisticsManager:
+    def __init__(self, level: str = OFF, include: str = ""):
+        self.level = level
+        # @app:statistics(include='streams.*, queries.q1') — comma-
+        # separated fnmatch patterns over report paths (reference:
+        # SiddhiStatisticsManager's include filter)
+        self.include = [p.strip() for p in include.split(",") if p.strip()]
+        self._lock = threading.Lock()
+        self._stream_in: Dict[str, int] = {}
+        # wall-clock ms of the last batch seen per stream — the /healthz
+        # last-event-age probe reads this instead of touching junctions
+        self._stream_last_ms: Dict[str, int] = {}
+        self._query_events: Dict[str, int] = {}
+        self._query_hist: Dict[str, LogHistogram] = {}
+        self._junction_hist: Dict[str, LogHistogram] = {}
+        self._sink_hist: Dict[str, LogHistogram] = {}
+        self._fused_k_hist: Dict[str, LogHistogram] = {}
+        # sharded dispatch routing: per-query cumulative events per mesh
+        # shard + per-shard batch-occupancy histograms keyed
+        # "<query>:shard<d>" (recorded unit: EVENTS, not ns)
+        self._shard_events: Dict[str, list] = {}
+        self._shard_hist: Dict[str, LogHistogram] = {}
+        self._counters: Dict[str, int] = {}
+        self.tracer = PipelineTracer()
+        # always-on phase accumulator (observability/phases.py): host-
+        # clock ns per (query, phase), fed regardless of level — the
+        # per-phase budget must survive a BASIC production config
+        self.phases = PhaseProfiler()
+        # always-on state observatory (observability/stateobs.py):
+        # occupancy/high-water per sized device structure + key hotness,
+        # fed from host mirrors only — like phases, survives BASIC
+        self.stateobs = StateObservatory()
+        self._start = time.time()
+
+    def _included(self, path: str) -> bool:
+        if not self.include:
+            return True
+        from fnmatch import fnmatch
+        return any(fnmatch(path, p) for p in self.include)
+
+    # -- hook points -----------------------------------------------------------
+    @property
+    def enabled(self) -> bool:
+        return self.level != OFF
+
+    @property
+    def detail(self) -> bool:
+        return self.level == DETAIL
+
+    def stream_in(self, stream_id: str, n: int) -> None:
+        with self._lock:
+            self._stream_in[stream_id] = \
+                self._stream_in.get(stream_id, 0) + n
+            self._stream_last_ms[stream_id] = int(time.time() * 1000)
+
+    def query_latency(self, name: str, n: int, elapsed_ns: int) -> None:
+        hist_of(self._query_hist, name, self._lock).record(elapsed_ns)
+        with self._lock:
+            self._query_events[name] = self._query_events.get(name, 0) + n
+
+    def e2e_latency(self, name: str, elapsed_ns: int) -> None:
+        """Ingest->emission wall-time of one batch, recorded under
+        `<query>:e2e`: the clock starts when the send is ACCEPTED (before
+        any @async ingress queue) and stops after delivery (callbacks,
+        downstream routing, sink publish), so queue wait, @fuse stack
+        residency, and @pipeline/@async deferred fetches are all inside —
+        per batch, e2e >= the per-hop step latency by construction."""
+        hist_of(self._query_hist, name + ":e2e", self._lock) \
+            .record(elapsed_ns)
+
+    def e2e_sum_ns(self, name: str) -> int:
+        """Total `<query>:e2e` wall ns — the denominator phase_report()
+        decomposes (phases + `other` must track this sum)."""
+        with self._lock:
+            h = self._query_hist.get(name + ":e2e")
+        return int(h.sum_ns) if h is not None else 0
+
+    def emitted(self, name: str, rows: int, nbytes: int) -> None:
+        """Output rows (and their schema-derived payload bytes) a query
+        delivered — the per-tenant `events_out`/`emitted_bytes`
+        accounting substrate (observability/timeseries.py)."""
+        with self._lock:
+            self._counters[f"{name}.emitted_rows"] = \
+                self._counters.get(f"{name}.emitted_rows", 0) + rows
+            self._counters[f"{name}.emitted_bytes"] = \
+                self._counters.get(f"{name}.emitted_bytes", 0) + nbytes
+
+    def junction_latency(self, stream_id: str, elapsed_ns: int) -> None:
+        hist_of(self._junction_hist, stream_id, self._lock) \
+            .record(elapsed_ns)
+
+    def sink_latency(self, sink_id: str, elapsed_ns: int) -> None:
+        hist_of(self._sink_hist, sink_id, self._lock).record(elapsed_ns)
+
+    def counter_inc(self, name: str, n: int = 1) -> None:
+        """Generic operational counter (emission drops, cap growths)."""
+        with self._lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def fused_dispatch(self, name: str, k: int, n: int,
+                       elapsed_ns: int) -> None:
+        """One @fuse dispatch covering k micro-batches (n events):
+        latency lands in the query histogram under `<name>:fused` so a
+        fused dispatch is not misread as one slow batch, and the
+        batches-per-dispatch distribution gets its own log2 histogram
+        (quantiles in BATCHES, not ns) — partial flushes and signature
+        breaks show up as a left-shifted k distribution."""
+        hist_of(self._query_hist, name + ":fused", self._lock) \
+            .record(elapsed_ns)
+        hist_of(self._fused_k_hist, name, self._lock).record(k)
+        with self._lock:
+            self._query_events[name + ":fused"] = \
+                self._query_events.get(name + ":fused", 0) + n
+            self._counters[f"{name}.fused_dispatches"] = \
+                self._counters.get(f"{name}.fused_dispatches", 0) + 1
+            self._counters[f"{name}.fused_batches"] = \
+                self._counters.get(f"{name}.fused_batches", 0) + k
+
+    def shard_events(self, name: str, counts) -> None:
+        """Events one sharded dispatch routed to each mesh shard
+        (sharding/router.group counts): cumulative per-shard counters
+        (`siddhi_shard_events_total` in /metrics, balance verdicts in
+        /healthz) plus a per-shard occupancy histogram so routing skew
+        shows as diverging p50s, not just diverging totals."""
+        with self._lock:
+            cur = self._shard_events.get(name)
+            if cur is None or len(cur) < len(counts):
+                cur = self._shard_events[name] = \
+                    [0] * len(counts) if cur is None else \
+                    cur + [0] * (len(counts) - len(cur))
+        for d, c in enumerate(counts):
+            cur[d] += int(c)
+            hist_of(self._shard_hist, f"{name}:shard{d}",
+                    self._lock).record(int(c))
+
+    # -- recompile projection --------------------------------------------------
+    @staticmethod
+    def _owners_of(app) -> Optional[list]:
+        if app is None:
+            return None
+        owners = list(getattr(app, "query_runtimes", ()))
+        # fused scan steps carry their own recompile label so a K-change
+        # recompile is attributed instead of reading as a silent re-trace
+        # of the base step
+        owners += [f"fused:{q}" for q, qr in
+                   getattr(app, "query_runtimes", {}).items()
+                   if getattr(qr, "_fuse", None) is not None]
+        # merged-group dispatchers (optimizer/mqo.py) compile their own
+        # program: `merged:<group>` (+ `fused:merged:<group>` when the
+        # group rides a @fuse stack) so recompile blame and the compile
+        # gate attribute a merged trace to the group, not to nobody
+        for gid, mg in getattr(app, "merged_groups", {}).items():
+            owners.append(f"merged:{gid}")
+            if getattr(mg, "_fuse", None) is not None:
+                owners.append(f"fused:merged:{gid}")
+        owners += [f"table:{t}" for t in getattr(app, "tables", ())]
+        owners += [f"window:{w}" for w in getattr(app, "named_windows", ())]
+        owners += [f"agg:{a}" for a in getattr(app, "aggregations", ())]
+        return owners
+
+    def recompiles(self, app=None) -> Dict:
+        """Per-owner recompile counts + triggering shape signatures,
+        projected to the app's queries/tables/windows/aggregations (the
+        registry is process-global and nothing feeds it in the port yet:
+        see observability/recompile.py)."""
+        return RECOMPILES.snapshot(self._owners_of(app))
+
+    # -- exposition ------------------------------------------------------------
+    def exposition_snapshot(self) -> Dict:
+        """Shallow-copied registries for the Prometheus renderer — the
+        histograms are shared read-only references (no bucket copying on
+        scrape)."""
+        with self._lock:
+            return {
+                "uptime_s": max(time.time() - self._start, 1e-9),
+                "stream_in": dict(self._stream_in),
+                "stream_last_ms": dict(self._stream_last_ms),
+                "query_events": dict(self._query_events),
+                "query_hist": dict(self._query_hist),
+                "junction_hist": dict(self._junction_hist),
+                "sink_hist": dict(self._sink_hist),
+                "fused_k_hist": dict(self._fused_k_hist),
+                "shard_events": {k: list(v)
+                                 for k, v in self._shard_events.items()},
+                "shard_hist": dict(self._shard_hist),
+                "counters": dict(self._counters),
+                "phases": self.phases.snapshot(),
+                "stateobs": self.stateobs.snapshot(),
+            }
+
+    # -- reporting -------------------------------------------------------------
+    def report(self, app=None) -> Dict:
+        with self._lock:
+            elapsed = max(time.time() - self._start, 1e-9)
+            out = {
+                "level": self.level,
+                "uptime_s": elapsed,
+                "streams": {
+                    sid: {"events": n, "throughput_eps": n / elapsed}
+                    for sid, n in self._stream_in.items()
+                    if self._included(f"streams.{sid}")},
+                "queries": {},
+            }
+            def _quantiles(q, h):
+                # total/avg keys kept from the scalar era; the
+                # quantiles are the ones that matter
+                q["total_ms"] = h.sum_ns / 1e6
+                q["avg_latency_us"] = h.mean_ns / 1e3
+                q["p50_us"] = h.quantile(0.50) / 1e3
+                q["p95_us"] = h.quantile(0.95) / 1e3
+                q["p99_us"] = h.quantile(0.99) / 1e3
+                q["max_latency_ms"] = h.max_ns / 1e6
+                return q
+
+            for name, n in self._query_events.items():
+                if not self._included(f"queries.{name}"):
+                    continue
+                h = self._query_hist.get(name)
+                q = {"events": n}
+                if h is not None:
+                    _quantiles(q, h)
+                out["queries"][name] = q
+            for name, h in self._query_hist.items():
+                # histogram-only entries (`<q>:e2e` has no event counter
+                # of its own): report the sample count as `events`
+                if name in out["queries"] or \
+                        not self._included(f"queries.{name}"):
+                    continue
+                out["queries"][name] = _quantiles({"events": h.total}, h)
+            if self._junction_hist:
+                out["junctions"] = {
+                    sid: h.snapshot()
+                    for sid, h in self._junction_hist.items()
+                    if self._included(f"streams.{sid}")}
+            if self._sink_hist:
+                out["sinks"] = {sid: h.snapshot()
+                                for sid, h in self._sink_hist.items()}
+            if self._fused_k_hist:
+                # batches-per-dispatch distribution: snapshot() reports in
+                # "ns" keys but the recorded unit here is BATCHES
+                out["fused_batches_per_dispatch"] = {
+                    name: h.snapshot()
+                    for name, h in self._fused_k_hist.items()}
+            if self._shard_events:
+                # per-shard routing totals of sharded queries (the same
+                # counters /metrics exports as siddhi_shard_events_total)
+                out["shard_events"] = {
+                    name: list(v)
+                    for name, v in self._shard_events.items()}
+            if self._counters:
+                out["counters"] = dict(self._counters)
+        rec = self.recompiles(app)
+        if rec:
+            out["recompiles"] = rec
+        if app is not None:
+            # memory metric (reference: SiddhiMemoryUsageMetric's object-
+            # graph walk; here the bytes of each query's tensors)
+            mem_by_query: Dict[str, int] = {}
+            try:
+                from ..observability.memory import tree_nbytes
+                for name, qr in app.query_runtimes.items():
+                    mem_by_query[name] = tree_nbytes(qr.state)
+            except Exception:  # noqa: BLE001 — metrics must not throw
+                pass
+            out["state_bytes"] = sum(mem_by_query.values())
+            out["state_bytes_by_query"] = mem_by_query
+            # buffered-events metric (reference: SiddhiBufferedEventsMetric)
+            # via the runtime's PUBLIC accessors — a stopped/mid-teardown
+            # app reports zeros instead of raising
+            try:
+                out["buffered_emissions"] = app.buffered_emissions()
+                out["buffered_ingress"] = app.buffered_ingress()
+            except Exception:  # noqa: BLE001 — metrics must not throw
+                out.setdefault("buffered_emissions", 0)
+                out.setdefault("buffered_ingress", {})
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._stream_in.clear()
+            self._stream_last_ms.clear()
+            self._query_events.clear()
+            self._query_hist.clear()
+            self._junction_hist.clear()
+            self._sink_hist.clear()
+            self._fused_k_hist.clear()
+            self._shard_events.clear()
+            self._shard_hist.clear()
+            self._counters.clear()
+            self._start = time.time()
+        self.phases.reset()
+        self.stateobs.reset()
+
+
+class ConsoleReporter:
+    """Periodic metric reporter (reference: SiddhiStatisticsManager
+    startReporting :55 — console reporter role).  `@app:statistics(
+    reporter='console', interval='5 sec')` or start one programmatically."""
+
+    _WARN_INTERVAL_S = 30.0
+
+    def __init__(self, app, interval_s: float = 5.0, out=None):
+        self.app = app
+        self.interval_s = interval_s
+        self.out = out              # callable(line) or None -> print
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._last_warn = 0.0
+
+    def start(self) -> "ConsoleReporter":
+        if self._thread is not None and self._thread.is_alive():
+            return self                   # already running: idempotent
+        self._stop.clear()                # restartable after stop()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="siddhi-stats-report")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Idempotent; safe before start() and on repeat calls."""
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None and t.is_alive():
+            t.join(timeout=2.0)
+
+    @staticmethod
+    def _quantile_lines(rep: Dict) -> list:
+        """Compact per-query tail-latency lines for the periodic report:
+        p50/p95/p99/max from the log2 histograms (averages hide recompile
+        stalls), with the drop and cap-growth
+        counters that flag capped emissions right where the operator is
+        already looking."""
+        ctr = rep.get("counters", {})
+        lines = []
+        for name, q in sorted(rep.get("queries", {}).items()):
+            if "p50_us" not in q:
+                continue
+            lines.append(
+                f"query {name}: n={q['events']} "
+                f"p50={q['p50_us']:.0f}us p95={q['p95_us']:.0f}us "
+                f"p99={q['p99_us']:.0f}us "
+                f"max={q['max_latency_ms']:.1f}ms "
+                f"drops={ctr.get(name + '.dropped', 0)} "
+                f"cap_growths={ctr.get(name + '.cap_growths', 0)}")
+        return lines
+
+    def _run(self) -> None:
+        import json
+        while not self._stop.wait(self.interval_s):
+            try:
+                rep = self.app.statistics()
+                out = self.out if self.out is not None else \
+                    (lambda s: print(f"[siddhi-stats] {s}", flush=True))
+                # first line stays machine-readable JSON (scrapers parse
+                # it); the quantile summary lines follow for humans
+                out(json.dumps(rep, default=str))
+                for line in self._quantile_lines(rep):
+                    out(line)
+            except Exception as exc:  # noqa: BLE001 — reporter must not die
+                # rate-limited warning instead of a silent swallow: a
+                # reporter that dies quietly looks like a healthy app with
+                # frozen metrics
+                now = time.monotonic()
+                if now - self._last_warn >= self._WARN_INTERVAL_S:
+                    self._last_warn = now
+                    print(f"[siddhi-stats] report failed: {exc!r}",
+                          file=sys.stderr, flush=True)

@@ -250,9 +250,6 @@ def test_time_window_timer_ticks_every_key():
      aggregate every sec ... min;
      partition with (k of S)
      begin from S select k, sum(v) as s insert into O; end;""", "A15"),
-    ("""@app:statistics(reporter='console')
-     define stream S (k int, v int); from S select k insert into O;""",
-     "A15"),
     ("""@sink(type='log')
      define stream S (k int, v int); from S select k insert into O;""",
      "A15"),
@@ -263,8 +260,8 @@ def test_time_window_timer_ticks_every_key():
      define stream S (k int, v int); from S select k insert into O;""",
      "A15"),
 ], ids=["session_in_partition", "define_window_in_partitioned_app",
-        "define_aggregation_in_partitioned_app", "app_statistics",
-        "stream_sink", "onerror_stream", "app_admission"])
+        "define_aggregation_in_partitioned_app", "stream_sink",
+        "onerror_stream", "app_admission"])
 def test_still_raises(ql, item):
     with pytest.raises(CompileError, match=item):
         TorchManager(device="cpu").create_siddhi_app_runtime(ql)
