@@ -6543,7 +6543,6 @@ def compare_time_batch_order(torch, np, dev):
             timing["fill"] = (before, arr, n_arr, now, cap[0], 0)
         del facts
     # -- K13 on the flush's rows -----------------------------------------------
-    err13 = 0.0
     out_rows = last_flush
     nflush = out_rows.ts.shape[0]
     avg = torch.from_numpy(
@@ -6553,9 +6552,29 @@ def compare_time_batch_order(torch, np, dev):
         .to(dev)
     kinds = out_rows.kind
     valid = out_rows.valid & (kinds != ev.RESET)
+    err13 = compare_order_modes(torch, np, dev, rng, out_rows, kinds, valid,
+                                avg, room)
     cols = (avg, room, out_rows.cols[0])
-    cases = [("avgTemp desc limit 10", [(avg, True)], 0, 10),
-             ("avgTemp, roomNo desc", [(avg, False), (room, True)], 0, None)]
+    timing["order"] = ([(avg, True)], out_rows.ts, kinds, valid, cols, avg)
+    return err12, err13, timing
+
+
+def compare_order_modes(torch, np, dev, rng, out_rows, kinds, valid, avg,
+                        room):
+    """K13 against its plain version at W1's flush (2,097,153 rows), every
+    output exact, in both modes: top-k (avgTemp desc limit 10, 1 and
+    M = TOPK_MAX; the query guide's two-key order; an int64 key; -0.0,
+    NaN and int nulls; three keys in three words) and sort (limit M offset
+    1, no limit, the two-key order composed into one word, an int64 key,
+    an offset past the valid count, the nulls), limit 0, and 2^21 rows
+    whose keys are all equal with limit 10 offset 5 (rows 5-14 out).
+    Returns the max error."""
+    from siddhi_tpu_torch.kernels import order_limit as ol
+    t0 = time.perf_counter()
+    nflush = out_rows.ts.shape[0]
+    nvalid = int(valid.sum())
+    cols = (avg, room, out_rows.cols[0])
+    dev_id = out_rows.cols[0]
     spec_vals = np.array([0.0, -0.0, np.nan, 1.0, -1.0, np.inf, -np.inf],
                          np.float32)
     f_sp = torch.from_numpy(rng.choice(spec_vals, nflush)).to(dev)
@@ -6564,27 +6583,62 @@ def compare_time_batch_order(torch, np, dev):
     l_sp = torch.from_numpy(rng.choice(np.array(
         [np.iinfo(np.int64).min, 0, 5, -5], np.int64), nflush)).to(dev)
     b_sp = torch.from_numpy(rng.random(nflush) < 0.5).to(dev)
-    cases += [("-0.0 / NaN desc, int nulls", [(f_sp, True), (i_sp, False)],
-               3, 1000),
-              ("int nulls desc, long nulls, bool", [(i_sp, True),
-                                                    (l_sp, False),
-                                                    (b_sp, True)], 0, None)]
-    for label, keys, lo, lim in cases:
-        a = ol.launch(keys, lo, lim, out_rows.ts, kinds, valid, cols)
-        b = ol.plain(keys, lo, lim, out_rows.ts, kinds, valid, cols)
+    M = ol.TOPK_MAX
+    nulls = [(i_sp, True), (l_sp, False), (b_sp, True)]
+    cases = [("avgTemp desc limit 10", [(avg, True)], 0, 10),
+             ("avgTemp desc limit 1", [(avg, True)], 0, 1),
+             (f"avgTemp desc limit {M} (m = M)", [(avg, True)], 0, M),
+             (f"avgTemp desc limit {M} offset 1 (m = M + 1)", [(avg, True)],
+              1, M),
+             ("avgTemp desc (no limit)", [(avg, True)], 0, None),
+             ("avgTemp, roomNo desc", [(avg, False), (room, True)], 0, None),
+             ("avgTemp, roomNo desc limit 100 offset 7",
+              [(avg, False), (room, True)], 7, 100),
+             ("deviceID limit 10 (int64)", [(dev_id, False)], 0, 10),
+             ("deviceID desc (int64)", [(dev_id, True)], 0, None),
+             ("offset past the valid count", [(avg, True)], nvalid + 3, None),
+             ("limit 10 offset past the valid count", [(avg, True)],
+              nvalid + 3, 10),
+             ("limit 0", [(avg, True)], 0, 0),
+             ("-0.0 / NaN desc, int nulls", [(f_sp, True), (i_sp, False)],
+              3, 1000),
+             ("-0.0 / NaN desc, int nulls limit 200 offset 3",
+              [(f_sp, True), (i_sp, False)], 3, 200),
+             ("int nulls desc, long nulls, bool", nulls, 0, None),
+             ("int nulls desc, long nulls, bool limit 50", nulls, 0, 50)]
+    err13 = 0.0
+
+    def held(label, keys, lo, lim, ts, kind, vd, cs):
+        nonlocal err13
+        a = ol.launch(keys, lo, lim, ts, kind, vd, cs)
+        b = ol.plain(keys, lo, lim, ts, kind, vd, cs)
         torch.cuda.synchronize()
         for x, y, f in zip(a[:3], b[:3], ("ts", "kind", "valid")):
             err13 = max(err13, float_err(torch, x, y, f"K13 {label} {f}"))
         for j, (x, y) in enumerate(zip(a[3], b[3])):
             err13 = max(err13, float_err(torch, x, y, f"K13 {label} col {j}"))
-        print(f"compare: K13 ({label}) == plain over {nflush} rows, "
-              f"{int(a[2].sum())} kept")
+        md = ol.mode(ts.shape[0], lo, lim)[0]
+        print(f"compare: K13 ({label}, {md} mode) == plain over "
+              f"{ts.shape[0]} rows, {int(a[2].sum())} kept of "
+              f"{a[2].shape[0]}")
+        return a
+    for label, keys, lo, lim in cases:
+        held(label, keys, lo, lim, out_rows.ts, kinds, valid, cols)
+    # 2^21 rows, every key equal: ties cross every block; rows 5-14 out
+    n = 1 << 21
+    ts = torch.arange(n, dtype=torch.int64, device=dev)
+    same = torch.full((n,), 3.5, dtype=torch.float32, device=dev)
+    a = held("2^21 equal keys limit 10 offset 5", [(same, True)], 5, 10, ts,
+             torch.zeros(n, dtype=torch.int32, device=dev),
+             torch.ones(n, dtype=torch.bool, device=dev), (same,))
+    if a[0].tolist() != list(range(5, 15)):
+        fail(f"K13: equal keys, limit 10 offset 5 gave rows {a[0].tolist()}")
     empty = ol.launch([(avg[:0], True)], 0, 10, out_rows.ts[:0], kinds[:0],
                       valid[:0], tuple(c[:0] for c in cols))
     if empty[0].shape[0] != 0:
         fail("K13 on no rows")
-    timing["order"] = (cases[0][1], out_rows.ts, kinds, valid, cols, avg)
-    return err12, err13, timing
+    print(f"compare: K13's cases took {time.perf_counter() - t0:.1f} s")
+    return err13
 
 
 def w1_schema():
@@ -6631,22 +6685,36 @@ def time_time_batch_order(torch, np, dev, timing):
               f"{p_ms:.3f} ms, bound {r['bound_ms']:.5f} ms by "
               f"{r['bound_by']} ({r['bytes']} bytes)")
     keys, ts, kinds, valid, cols, avg = timing["order"]
-    k_ms = graph_ms(torch, lambda: ol.launch(keys, 0, 10, ts, kinds, valid,
-                                             cols), 10)
-    p_ms = event_timer(torch, lambda: ol.plain(keys, 0, 10, ts, kinds,
-                                               valid, cols), 3)
-    lib_ms = event_timer(torch, lambda: torch.sort(-avg, stable=True), 10)
-    n = int(valid.sum())
-    # the valid flags and each valid row's key once, the kept rows read and
-    # written (ts, kind, valid, three columns)
-    r = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-         "shape": f"W1's flush, {n} valid rows, one f32 key, limit 10"}
-    N = valid.shape[0]
-    r.update(bound(N + n * 4 + 2 * 10 * (8 + 4 + 1 + 4 + 4 + 8)))
-    res["order"] = r
-    print(f"timing K13 ({r['shape']}): {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-          f"torch.sort(stable=True) of the key {lib_ms:.4f} ms, bound "
-          f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} bytes)")
+    n, N = int(valid.sum()), valid.shape[0]
+    key = -avg                      # the order's key: avgTemp desc
+    lib_sort = event_timer(torch, lambda: torch.sort(key, stable=True), 10)
+    out_row = 8 + 4 + 1 + 4 + 4 + 8     # ts, kind, valid, the three columns
+    modes = {}
+    for md, lim in (("topk", 10), ("sort", None)):
+        k_ms = graph_ms(torch, lambda: ol.launch(keys, 0, lim, ts, kinds,
+                                                 valid, cols), 10)
+        p_ms = event_timer(torch, lambda: ol.plain(keys, 0, lim, ts, kinds,
+                                                   valid, cols), 3)
+        kept = n if lim is None else lim
+        # the valid flags and each valid row's key once, the kept rows read
+        # and written
+        r = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_sort,
+             "library": "torch.sort(stable=True) of the key",
+             "shape": f"W1's flush, {n} valid rows, one f32 key, "
+                      f"{'limit 10' if lim else 'no limit'}"}
+        r.update(bound(N + n * 4 + 2 * kept * out_row))
+        line = (f"timing K13 {md} mode ({r['shape']}): {k_ms:.4f} ms, plain "
+                f"{p_ms:.3f} ms, torch.sort(stable=True) of the key "
+                f"{lib_sort:.4f} ms")
+        if md == "topk":
+            r["library_topk_ms"] = event_timer(
+                torch, lambda: torch.topk(key, 10, largest=False), 10)
+            line += (f", torch.topk(k=10, largest=False) of the key (not "
+                     f"tie-stable) {r['library_topk_ms']:.4f} ms")
+        print(f"{line}, bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+              f"({r['bytes']} bytes)")
+        modes[md] = r
+    res["order"] = dict(modes["topk"], modes=modes)
     return res
 
 
@@ -6958,6 +7026,12 @@ def slice7_phases(torch, np, dev):
             "launches": n, "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": lib})
+        if "modes" in t:        # K13: top-k on the main path (W1), sort
+            records[-1]["modes"] = {
+                md: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms") +
+                     (("library_topk_ms",) if md == "topk" else ())}
+                for md, r in t["modes"].items()}
     print(f"J1G: K4 launches {l_j1g['group_agg']}")
     return records
 
@@ -11076,6 +11150,7 @@ KX1_T, KX1_JIT = 60_000, 500
 KX1_FILL, KX1_CHECK, KX1_TIMED = 30, 2, 16
 KXB1_FILL, KXB1_CHECK, KXB1_TIMED = 30, 2, 16
 KSO1_B, KSO1_N = 1 << 17, 10
+KSO1_HOT = 1 << 14          # the hottest symbol's trades in the hot send
 KSO1_FILL, KSO1_CHECK, KSO1_TIMED = 8, 2, 16
 KHP1_WIN, KHP1_HOP = 60_000, 10_000
 KHP1_FILL, KHP1_CHECK, KHP1_TIMED = 12, 2, 16
@@ -11758,6 +11833,7 @@ def compare_keyed_ext(torch, np, dev, keys=KX_KEYS):
                timer(kso1_send, 12, KSO1_B * keys // KX_KEYS, keys))]
     run(KSO1_QL, "kso1", kw.MODE_SORT, steps, fill=range(2, 8),
         time_at="send 9")
+    compare_sort_modes(torch, np, dev, rng, keys, run, stats, timing)
     # K23 at KHP1: 12 data sends (the first 2 compared), ticks at the next
     # boundaries, a partial send, a TIMER row, a tick 35 s on (collapsed
     # hops), then a window of 24 rows a key that misses rows
@@ -11790,6 +11866,169 @@ def compare_keyed_ext(torch, np, dev, keys=KX_KEYS):
     return err, timing, stats
 
 
+def sort_ql(n, qname):
+    return KSO1_QL.replace("sort(10,", f"sort({n},").replace("'kso1'",
+                                                           f"'{qname}'")
+
+
+def per_symbol(np, rng, i, per, nsym):
+    """`per` trades of each of `nsym` symbols (at 1,000 + i), in a random
+    order: every key row of the send holds exactly `per` arrivals (`per`
+    an int, or an array of one count a symbol)."""
+    sym = np.repeat(np.arange(nsym, dtype=np.int64), per)
+    p = rng.permutation(sym.shape[0])
+    return ([sym[p], (rng.integers(0, 1000, sym.shape[0]) / 4)
+             .astype(np.float32), rng.integers(1, 100, sym.shape[0])
+             .astype(np.int32)], np.full(sym.shape[0], 1000 + i, np.int64))
+
+
+# the extra columns of the wide KSO1 schemas, in the order they are added
+WIDE_COLS = ("bid float", "venue int", "odd bool", "ask double", "lot long",
+             "side int", "ok bool")
+
+
+def wide_ql(ncols, qname):
+    """KSO1's app over a schema of `ncols` columns (its three, then
+    WIDE_COLS), the query named `qname`."""
+    schema = ", ".join(("symbol long, price double, volume int",)
+                       + WIDE_COLS[:ncols - 3])
+    return KSO1_QL.replace("symbol long, price double, volume int",
+                           schema).replace("'kso1'", f"'{qname}'")
+
+
+def wide_send(np, rng, i, ncols, keys=KX_KEYS):
+    """KSO1's send i with the extra columns of `wide_ql(ncols)`, random by
+    type."""
+    cols, ts = kso1_send(np, rng, i, KSO1_B * keys // KX_KEYS, keys)
+    b = cols[0].shape[0]
+    mk = {"float": lambda: rng.random(b, dtype=np.float32),
+          "int": lambda: rng.integers(-9, 9, b).astype(np.int32),
+          "bool": lambda: rng.random(b) < 0.5,
+          "double": lambda: rng.random(b, dtype=np.float32) - 0.5,
+          "long": lambda: rng.integers(-2 ** 40, 2 ** 40, b)}
+    return cols + [mk[c.split()[1]]() for c in WIDE_COLS[:ncols - 3]], ts
+
+
+def kso1_hot_send(np, rng, i, keys=KX_KEYS, hot=KSO1_HOT):
+    """A KSO1 send whose symbol 7 carries `hot` of its trades (the others
+    moved off it)."""
+    cols, ts = kso1_send(np, rng, i, KSO1_B * keys // KX_KEYS, keys)
+    cols[0][cols[0] == 7] = 8
+    cols[0][:hot] = 7
+    p = rng.permutation(cols[0].shape[0])
+    return [c[p] for c in cols], ts
+
+
+def plain_by_rows(torch, planned, slab, args, rows=2048):
+    """The plain K20-K23 step over `rows` key rows at a time, for a step
+    whose [Kb, E] plain state would not fit the card at once (a step's
+    key rows are independent, and its rows come out key-major in key_idx
+    order); returns each part's (rows, wake)."""
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    ts, kind, valid, gslot, cols, key_idx, sel, now = tuple(args[:8])
+    return [ke.plain(slab, planned.filter_spec, ts, kind, valid, gslot, cols,
+                     key_idx[r0:r0 + rows].contiguous(),
+                     sel[r0:r0 + rows].contiguous(), now, kx_prm(planned))
+            for r0 in range(0, key_idx.shape[0], rows)]
+
+
+def kx_twin_rows(torch, planned, slabs, args, what, stats):
+    """kx_twin with the plain side run by `plain_by_rows`."""
+    from siddhi_tpu_torch.core.window import Rows
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    ra, wa = ke.launch(slabs[0], planned.filter_spec, *args[:8],
+                       kx_prm(planned))
+    parts = plain_by_rows(torch, planned, slabs[1], args)
+    torch.cuda.synchronize()
+
+    def cat(f):
+        xs = [getattr(r, f) for r, _ in parts]
+        return None if xs[0] is None else torch.cat(xs)
+    rb = Rows(ts=cat("ts"), kind=cat("kind"), valid=cat("valid"),
+              seq=cat("seq"), gslot=cat("gslot"),
+              cols=tuple(torch.cat([r.cols[j] for r, _ in parts])
+                         for j in range(len(parts[0][0].cols))))
+    err = rows_err(torch, ra, rb, what, full=True)
+    for _, wb in parts:
+        err = max(err, float_err(torch, wa, wb, f"{what} wake"))
+    err = max(err, slab_err(torch, slabs[0], slabs[1], what))
+    stats["steps"] += 1
+    stats["rows"] += int(ra.ts.shape[0])
+    return err
+
+
+def compare_sort_modes(torch, np, dev, rng, keys, run, stats, timing):
+    """Phase 41's K22 cases beyond KSO1's steps: a key row of C + E = 33
+    places (two candidates a lane), rows of C + E = 80 and 200 (a kept
+    mask of 3 and 7 words, narrower than the 4 and 8 a lane bucket ranks)
+    with full rows beside short ones in key_idx, rows at the warp limit
+    (C + E = SORT_LIMIT, warp mode) and one above it (block mode), KSO1
+    over schemas of 6 and 10 columns (the write's 8- and 16-column rows),
+    and a KSO1 send whose hottest symbol carries 16,384 of its 131,072
+    trades (block mode on that row, warp mode on the others; the plain
+    version run over 2,048 key rows at a time).  Every row, the slab and
+    [wake, missed] equal."""
+    from siddhi_tpu_torch.kernels import keyed_ext as ke
+    from siddhi_tpu_torch.kernels import keyed_window as kw
+    t0 = time.perf_counter()
+    lim = ke.SORT_LIMIT
+    nsym = max(keys // 8, 8)
+
+    def ps(i, per, n):
+        return lambda p: keyed_args(torch, np, dev, p,
+                                    *per_symbol(np, rng, i, per, n))
+    # sort(1) with 32 arrivals a key row: C + E = 33
+    run(sort_ql(1, "kso33"), "kso33", kw.MODE_SORT,
+        [(f"send {i}", ps(i, 32, nsym)) for i in range(3)])
+    # sort(64) and sort(184) with 16 trades of each even symbol and one of
+    # each odd one a send: full rows of C + E = 80 and 200 candidates
+    # beside rows of a few, in the slots' order of first arrival
+    two = np.where(np.arange(nsym) % 2 == 0, 16, 1)
+    for c, qname in ((64, "kso80"), (184, "kso200")):
+        n_fill = -(-c // 16)
+        run(sort_ql(c, qname), qname, kw.MODE_SORT,
+            [(f"send {i}", ps(i, two, nsym)) for i in range(n_fill + 2)],
+            fill=range(n_fill))
+    # KSO1 over 6 and 10 columns: 5 sends filling, 2 compared
+    for nc in (6, 10):
+        qname = f"ksoc{nc}"
+        run(wide_ql(nc, qname), qname, kw.MODE_SORT,
+            [(f"send {i}", lambda p, i=i, nc=nc: keyed_args(
+                torch, np, dev, p, *wide_send(np, rng, i, nc, keys)))
+             for i in range(7)], fill=range(5))
+    # sort(SORT_LIMIT - 32) and sort(SORT_LIMIT - 31) with 32 arrivals a
+    # key row: full slabs rank C + E = SORT_LIMIT (warp mode) and
+    # SORT_LIMIT + 1 (block mode) candidates
+    n_fill = (lim - 32) // 32 + 2
+    for c, qname in ((lim - 32, "ksow"), (lim - 31, "ksob")):
+        run(sort_ql(c, qname), qname, kw.MODE_SORT,
+            [(f"send {i}", ps(i, 32, nsym // 2)) for i in range(n_fill)],
+            fill=range(n_fill - 2))
+    # the hot symbol
+    plan = keyed_plan(dev, KSO1_QL.format(keys=keys), "kso1")
+    slabs = [plan.init_state()[0]]
+    for i in range(2):
+        kx_fill(torch, plan, slabs, keyed_args(
+            torch, np, dev, plan, *kso1_send(np, rng, 20 + i,
+                                             KSO1_B * keys // KX_KEYS, keys)))
+    slabs.append(slabs[0].clone())
+    args = keyed_args(torch, np, dev, plan,
+                      *kso1_hot_send(np, rng, 22, keys,
+                                     KSO1_HOT * keys // KX_KEYS))
+    timing["sort_block"] = (plan, slabs[0].clone(), tuple(args[:8]),
+                            "hot send")
+    e = kx_twin_rows(torch, plan, slabs, args, "phase 41 kso1 hot send",
+                     stats)
+    if e:
+        fail(f"phase 41: K22 on the hot send differs ({e})")
+    sp = ke.sort_plan(slabs[0].C, int(args[6].shape[1]), int(args[5].shape[0]))
+    print(f"compare: K22 hot send == plain ({int(args[6].shape[1])} events "
+          f"a key row, block mode {'on' if sp.block else 'off'}); K22's mode "
+          f"edges took {time.perf_counter() - t0:.1f} s")
+    del slabs, args
+    torch.cuda.empty_cache()
+
+
 def kx_bytes(torch, planned, before, after, args, n_out):
     """The bytes one K20-K23 step must move: each event read once (ts,
     kind, valid, slot, columns, its sel entry), each emitted row written
@@ -11810,8 +12049,7 @@ def kx_bytes(torch, planned, before, after, args, n_out):
     keep = planned.filter_spec
     from siddhi_tpu_torch.kernels import keyed_window as kw
     ok = kw._keep(keep, ts, kind, valid, cols, now)
-    n_arr = int(((sel >= 0) & ok[sel.clamp(min=0).long()]
-                 & live[:, None]).sum())
+    n_arr = int(ok[sel[(sel >= 0) & live[:, None]].long()].sum())
     leave = max(0, old + n_arr - new)
     enter = max(0, new - old + leave)
     n_read = int((sel >= 0).sum())
@@ -11823,9 +12061,11 @@ def kx_bytes(torch, planned, before, after, args, n_out):
 def time_slice11(torch, np, dev, timing):
     """Phase 42: each mode of K20-K23 per launch (CUDA-graph replays from a
     restored slab) at its phase-41 step, beside the bound of the bytes the
-    step must move and its plain version; for K22 also one batched
-    torch.topk over the step's [Kb, C + E] candidate keys (the library
-    call nearest to it: it ranks but does not evict, emit or move rows)."""
+    step must move and its plain version; for K22's warp mode (KSO1's
+    steady send) also one batched torch.topk over the step's [Kb, C + E]
+    candidate keys (the library call nearest to it: it ranks but does not
+    evict, emit or move rows), and for its block mode (the hot send) one
+    torch.sort(stable=True) of the hot key row's C + E keys."""
     from siddhi_tpu_torch.kernels import keyed_ext as ke
     from siddhi_tpu_torch.kernels import sort_window as sw
     res = {}
@@ -11842,24 +12082,39 @@ def time_slice11(torch, np, dev, timing):
         restore()
         ms = graph_ms(torch, lambda: ke.launch(slab, spec, *args, prm,
                                                n_out=n_out), 20, restore)
-        plain = event_timer(torch, lambda: ke.plain(slab, spec, *args, prm),
-                            3, restore)
+        if mode == "sort_block":
+            plain = event_timer(torch, lambda: plain_by_rows(
+                torch, plan, slab, args), 1, restore)
+        else:
+            plain = event_timer(torch, lambda: ke.plain(slab, spec, *args,
+                                                        prm), 3, restore)
         kb = int(args[5].shape[0])
         r = {"ms": ms, "plain_ms": plain, **bound(nbytes),
              "shape": f"{plan.name} {label}: {kb} key rows x E = "
                       f"{int(args[6].shape[1])}, C = {saved.C}, {n_out} rows "
                       f"out", "library_ms": None}
-        if mode == ke.MODE_SORT:
-            ki = args[5].long().clamp(0, saved.K - 1)
+        if mode in (ke.MODE_SORT, "sort_block"):
+            sel = args[6]
+            if mode == "sort_block":
+                hot = int((sel >= 0).sum(1).argmax())
+                ki, sel = args[5][hot:hot + 1].long(), sel[hot:hot + 1]
+            else:
+                ki = args[5].long().clamp(0, saved.K - 1)
             kc = torch.cat([saved.cols[prm.key_pos][ki],
-                            args[4][prm.key_pos][args[6].long().clamp(
-                                min=0)]], 1)
+                            args[4][prm.key_pos][sel.long().clamp(min=0)]], 1)
             keys = sw.sort_keys(kc, prm.desc)
-            r["library_ms"] = event_timer(
-                torch, lambda: torch.topk(keys, prm.length, dim=1,
-                                          largest=False), 20)
-            r["library"] = (f"torch.topk over [{kb}, "
-                            f"{int(keys.shape[1])}] int64 keys")
+            if mode == "sort_block":
+                keys = keys[0].contiguous()
+                r["library_ms"] = event_timer(
+                    torch, lambda: torch.sort(keys, stable=True), 20)
+                r["library"] = (f"torch.sort(stable=True) of the hot key "
+                                f"row's {int(keys.shape[0])} int64 keys")
+            else:
+                r["library_ms"] = event_timer(
+                    torch, lambda: torch.topk(keys, prm.length, dim=1,
+                                              largest=False), 20)
+                r["library"] = (f"torch.topk over [{kb}, "
+                                f"{int(keys.shape[1])}] int64 keys")
         res[mode] = r
         del slab
     return res
@@ -12055,6 +12310,17 @@ def slice11_phases(torch, np, dev):
             "launches": n[mode], "max_abs_err": err, "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if mode == ke.MODE_SORT:    # warp mode at KSO1, block mode hot
+            b = res["sort_block"]
+            print(f"kernel keyed_sort block mode: {b['ms']:.4f} ms at "
+                  f"{b['shape']} (bound {b['bound_ms']:.5f} by "
+                  f"{b['bound_by']}, {b['bytes']} bytes), plain "
+                  f"{b['plain_ms']:.4f} ms; library_ms "
+                  f"{b['library_ms']:.4f} ({b['library']})")
+            records[-1]["modes"] = {
+                md: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms")}
+                for md, r in (("warp", t), ("block", b))}
     return records
 
 

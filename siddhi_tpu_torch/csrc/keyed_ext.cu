@@ -14,33 +14,71 @@
 //   K23 keyed_hop:   HoppingWindow (:1166).
 // kernels/keyed_ext.py states each mode's rows, their order and the slab.
 //
-// Design: one block of BLOCK threads owns one key row of key_idx at a time
-// (a grid-stride loop over the rows; a padding row, key_idx == K, touches
-// nothing).  Output: "count, scan, write at offsets".  kx_count gathers the
-// row's kept arrivals (its sel entries that are valid CURRENT rows and pass
-// the filters, run as the typed postfix bytecode, one event a thread,
-// compacted in batch order by a block scan) into `arr` / `apos`, notes a
-// valid TIMER row (cron), and counts the key's output rows; a device-wide
-// scan of the counts gives each row's offset and the total (the host reads
-// it to size the output).  kx_write runs the key's step: its candidates
-// (the slab rows of the key, then its arrivals) are staged in a workspace
-// (dynamic shared memory, or a slice of a global buffer when C + 2E is
-// large, the grid then smaller), each row's place in the output found by a
-// block scan of flags (batch windows, hopping, compactions) or by counting,
-// for each candidate, the candidates that order before it (the sorted
-// emissions of externalTime, timeLength and delay, the survivors of
-// externalTime, sort's ranks over its C + E places): O((C + 2E)^2 / BLOCK)
-// comparisons a key, spread over the block.  The rows are written at the
-// row's offset; then the key's slab row is rewritten one column at a time
-// through a [C] staging array (each kept candidate to its new place,
-// synchronise, copy back), so a candidate is never overwritten before it
-// is read.  Rows beyond C are counted in the wake's second word.
+// K20, K21 and K23: one block of BLOCK threads owns one key row of key_idx
+// at a time (a grid-stride loop over the rows; a padding row, key_idx == K,
+// touches nothing).  Output: "count, scan, write at offsets".  kx_count
+// gathers the row's kept arrivals (its sel entries that are valid CURRENT
+// rows and pass the filters, run as the typed postfix bytecode, one event a
+// thread, compacted in batch order by a block scan) into `arr` / `apos`,
+// notes a valid TIMER row (cron), and counts the key's output rows; a
+// device-wide scan of the counts gives each row's offset and the total (the
+// host reads it to size the output).  kx_write runs the key's step: its
+// candidates (the slab rows of the key, then its arrivals) are staged in a
+// workspace (dynamic shared memory, or a slice of a global buffer when
+// C + 2E is large, the grid then smaller), each row's place in the output
+// found by a block scan of flags (batch windows, hopping, compactions) or by
+// counting, for each candidate, the candidates that order before it (the
+// sorted emissions of externalTime, timeLength and delay, the survivors of
+// externalTime): O((C + 2E)^2 / BLOCK) comparisons a key, spread over the
+// block.  The rows are written at the row's offset; then the key's slab row
+// is rewritten one column at a time through a [C] staging array (each kept
+// candidate to its new place, synchronise, copy back), so a candidate is
+// never overwritten before it is read.  Rows beyond C are counted in the
+// wake's second word.
+//
+// K22 (sort) has a design of its own, with the same protocol (the count
+// launch, the scan, one fetch of the total, the write launch).  A key row's
+// candidates are its n = cnt + na alive places: the slab rows at [0, cnt) and
+// the kept arrivals at C + their sel column.  Its dead places (the other
+// C + E - n) are counted, not ranked: a dead place is keyed `dead`, so it
+// ranks before an alive key above `dead` (a NaN, a long above BIG_SEQ) and,
+// at an equal key, before an alive place behind it.  Two modes, chosen per
+// key row on the device from n:
+//   * warp mode, n <= SW_LIMIT = 32 * SW_R places (SW_R = 8 places a lane):
+//     a warp owns the row.  ks_count gathers the kept arrivals with
+//     __ballot_sync / __popc (no block scan, no __syncthreads), stages the
+//     candidates' sort keys in the warp's shared slice, then each lane holds
+//     up to SW_R keys in registers and ranks them against every candidate
+//     by __shfl_sync (ties by place); a candidate is kept when its rank is
+//     below min(n, length).  The kept mask (a word per 32 candidates) goes
+//     to `kmask` beside `ocnt`; a row stores only its ceil(n / 32) words,
+//     since its span of ceil((C + E) / 32) words may be narrower than the
+//     lanes' SW_R bucket.  ks_write reads the mask and does not rank
+//     again: in rounds of 32 candidates each lane loads its candidate's ts,
+//     gslot and columns into registers, __syncwarp, then writes the arrival
+//     CURRENT (seq0 + k), an evicted candidate EXPIRED at its ballot prefix
+//     (seq0 + na + rank) and a kept one at its compacted slab place (a
+//     place is never below an unread candidate's: compaction only moves
+//     rows down).
+//   * block mode, n > SW_LIMIT (a hot key, or a window longer than the
+//     limit): ks_count queues the row in `hot`; ks_count_block (a block of
+//     SB_BLOCK threads a queued row) stores the candidates' keys in its
+//     slice of the global workspace and finds the place of rank
+//     min(n, length) - 1 by an MSD radix select over the keys' 8-bit digits
+//     (the dead places counted into their digit): 8 passes of O(n) where a
+//     counting rank is O(n^2).  The candidates below it are kept, and of
+//     those equal to it the first by place (a block scan).  ks_write_block
+//     moves the row as ks_write does, in chunks of SB_BLOCK candidates with
+//     a block scan for the ranks.
+// The host enables block mode only where C + E > SW_LIMIT, and sizes its
+// workspace (C + E keys for each of hot_grid blocks) from (C, E).
 //
 // Bound: each arrival is read once (its columns, ts, gslot, kind, valid,
 // the sel entry) and each output row written once; of the slab, the rows of
 // the keys in the batch are read and the rows kept written, plus the per-key
-// counters.  Bound by bytes; the counting rank is quadratic in a key's rows
-// and the column-at-a-time rewrite moves every kept row of a stepped key.
+// counters.  Bound by bytes.  K20, K21 and K23 keep the block-per-row
+// design: the counting rank is quadratic in a key's rows and the
+// column-at-a-time rewrite moves every kept row of a stepped key.
 #include <climits>
 
 #include "bytecode.cuh"
@@ -104,6 +142,9 @@ struct ExtPlan {
   int* out_gslot;
   void* out_col[MAX_COLS];
   long long* wake;          // [least wake, rows that did not fit]
+  unsigned* kmask;          // sort: [Kb, mwords] each row's kept candidates
+  int* hot;                 // sort: the block-mode rows' count, then the rows
+  long long mwords, hot_grid;   // hot_grid: block mode's blocks (0: off)
   InSet in_sets[MAX_IN];
 };
 
@@ -213,12 +254,11 @@ __device__ long long scan_flags(long long n, Flag flag, Fn fn, long long* sh) {
 }
 
 // rk[i] = the place of i in the stable order of key[0, n) (ties by index),
-// for every i whose key is not INV (ALL: for every i).
-template <bool ALL = false>
+// for every i whose key is not INV.
 __device__ void count_rank(const long long* key, long long* rk, long long n) {
   for (long long i = threadIdx.x; i < n; i += BLOCK) {
     long long ki = key[i];
-    if (!ALL && ki == INV) continue;
+    if (ki == INV) continue;
     long long r = 0;
     for (long long j = 0; j < n; ++j) {
       long long kj = key[j];
@@ -265,9 +305,9 @@ __device__ __forceinline__ void min_wake(const ExtPlan& pl, long long w) {
   if (w < NO_WAKEUP && threadIdx.x == 0) atomicMin(pl.wake, w);
 }
 
-// sort's key of candidate i, as an int64 in the reference's order.
-__device__ long long sort_key(const ExtPlan& pl, const Cands& c, long long i) {
-  long long raw = cand_raw(pl, c, i, pl.key_pos);
+// sort's key of a key column element (its raw bits), as an int64 in the
+// reference's order.
+__device__ long long sort_key(const ExtPlan& pl, long long raw) {
   if (pl.key_type == KT_F32) {
     float f = __int_as_float((int)raw);
     if (pl.desc) f = -f;
@@ -627,48 +667,6 @@ __device__ long long step_cron(const ExtPlan& pl, const Key& y, long long* sh) {
   return 0;
 }
 
-// ---- K22: sort --------------------------------------------------------------
-template <bool W>
-__device__ long long step_sort(const ExtPlan& pl, const Key& y, long long* ws, long long* sh) {
-  const Cands c = main_cands(pl, y);
-  const long long C = pl.C, P = C + pl.E, n = y.cnt + y.na;
-  long long* key = ws;                      // by place
-  long long* rk = ws + P;                   // by place
-  long long* dst = rk + P;                  // by candidate
-  long long* tmp = dst + n + 1;
-  // candidate i's place: slab row i at i, arrival a at C + its sel column
-  auto place = [&](long long i) { return i < y.cnt ? i : C + y.apos[i - y.cnt]; };
-  for (long long p = threadIdx.x; p < P; p += BLOCK) key[p] = pl.dead;
-  __syncthreads();
-  for (long long i = threadIdx.x; i < n; i += BLOCK) key[place(i)] = sort_key(pl, c, i);
-  __syncthreads();
-  count_rank<true>(key, rk, P);
-  const long long lim = n < pl.length ? n : pl.length;
-  auto kept = [&](long long i) { return rk[place(i)] < lim; };
-  long long nk = 0;
-  for (long long i = threadIdx.x; i < n; i += BLOCK) nk += kept(i);
-  const long long n_keep = block_sum(nk, sh), n_ev = n - n_keep;
-  if (!W) return y.na + n_ev;
-  for (long long a = threadIdx.x; a < y.na; a += BLOCK)
-    emit(pl, c, y.o + a, y.cnt + a, K_CURRENT, cand_ts(pl, c, y.cnt + a), y.seq0 + a);
-  scan_flags(
-      n, [&](long long i) { return !kept(i); },
-      [&](long long i, long long r) {
-        emit(pl, c, y.o + y.na + r, i, K_EXPIRED, cand_ts(pl, c, i), y.seq0 + y.na + r);
-      },
-      sh);
-  for (long long i = threadIdx.x; i < n; i += BLOCK) dst[i] = -1;
-  __syncthreads();
-  scan_flags(n, kept, [&](long long i, long long d) { dst[i] = d; }, sh);
-  __syncthreads();
-  rewrite(pl, c, n, dst, pl.s_ts, pl.s_gslot, pl.s_col, y.k * C, n_keep, tmp);
-  if (threadIdx.x == 0) {
-    pl.count[y.k] = (int)n_keep;
-    pl.seq[y.k] = y.seq0 + y.na + n_ev;
-  }
-  return 0;
-}
-
 // ---- K23: hopping -----------------------------------------------------------
 template <bool W>
 __device__ long long step_hop(const ExtPlan& pl, const Key& y, long long* ws, long long* sh) {
@@ -738,8 +736,8 @@ __device__ long long step_hop(const ExtPlan& pl, const Key& y, long long* ws, lo
   return 0;
 }
 
-// The modes of each kernel: K20 (F_EXT), K21 (F_BATCH), K22, K23.
-enum : int { F_EXT = 0, F_BATCH = 1, F_SORT = 2, F_HOP = 3 };
+// The modes of the block-per-row kernels: K20 (F_EXT), K21 (F_BATCH), K23.
+enum : int { F_EXT = 0, F_BATCH = 1, F_HOP = 3 };
 
 template <bool W, int F>
 __device__ long long step(const ExtPlan& pl, const Key& y, long long* ws, long long* sh) {
@@ -753,7 +751,6 @@ __device__ long long step(const ExtPlan& pl, const Key& y, long long* ws, long l
     if (pl.mode == M_CHUNK) return step_chunk<W>(pl, y, sh);
     return step_cron<W>(pl, y, sh);
   }
-  if (F == F_SORT) return step_sort<W>(pl, y, ws, sh);
   return step_hop<W>(pl, y, ws, sh);
 }
 
@@ -777,9 +774,24 @@ __device__ long long* workspace(const ExtPlan& pl) {
   return pl.ws_global ? pl.ws + (long long)blockIdx.x * pl.ws_words : dyn;
 }
 
+// Batch row i (-1: none) of a key row: `keep` a kept arrival (a valid
+// CURRENT row that passes the filters), `timer` a valid TIMER row.
+__device__ __forceinline__ void arrival_test(const ExtPlan& pl, long long i, bool& keep,
+                                             bool& timer) {
+  keep = timer = false;
+  if (i < 0) return;
+  timer = pl.valid[i] && pl.kind[i] == K_TIMER;
+  keep = pl.valid[i] && pl.kind[i] == K_CURRENT;
+  if (keep && pl.code_len > 0)
+    keep = eval_bytecode_in(
+        pl.code, pl.code_len, [&](int q) { return load_slot(pl.col[q], i, pl.col_ty[q]); },
+        [&](int, int) { return 0LL; }, pl.in_sets);
+}
+
 __global__ void kx_init(const ExtPlan pl) {
   pl.wake[0] = NO_WAKEUP;
   pl.wake[1] = 0;
+  if (pl.hot) pl.hot[0] = 0;
 }
 
 template <int F>
@@ -800,15 +812,8 @@ __global__ void __launch_bounds__(BLOCK) kx_count(const ExtPlan pl) {
     for (long long e0 = 0; e0 < pl.E; e0 += BLOCK) {
       long long e = e0 + threadIdx.x;
       long long i = e < pl.E ? pl.sel[r * pl.E + e] : -1;
-      bool keep = false, timer = false;
-      if (i >= 0) {
-        timer = pl.valid[i] && pl.kind[i] == K_TIMER;
-        keep = pl.valid[i] && pl.kind[i] == K_CURRENT;
-        if (keep && pl.code_len > 0)
-          keep = eval_bytecode_in(
-              pl.code, pl.code_len, [&](int q) { return load_slot(pl.col[q], i, pl.col_ty[q]); },
-              [&](int, int) { return 0LL; }, pl.in_sets);
-      }
+      bool keep, timer;
+      arrival_test(pl, i, keep, timer);
       tick |= __syncthreads_or(timer);
       long long tot;
       long long ex = block_excl_scan<BLOCK>((long long)keep, sh, &tot);
@@ -886,6 +891,391 @@ int write_launch(const ExtPlan* plan, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- K22: sort, warp mode and block mode ------------------------------------
+constexpr int SW_WARPS = 8;                 // warps a block (warp mode)
+constexpr int SW_R = 8;                     // candidates a lane (warp mode)
+constexpr int SW_LIMIT = 32 * SW_R;         // a warp-mode row's candidates
+constexpr int SB_BLOCK = 256;               // threads a block-mode row (= the radix)
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long SIGN = 0x8000000000000000ULL;
+
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+__device__ __forceinline__ long long slab_key(const ExtPlan& pl, long long k, long long i) {
+  return sort_key(pl, load_raw(pl.s_col[pl.key_pos], k * pl.C + i, pl.col_w[pl.key_pos]));
+}
+
+__device__ __forceinline__ long long batch_key(const ExtPlan& pl, long long i) {
+  return sort_key(pl, load_raw(pl.col[pl.key_pos], i, pl.col_w[pl.key_pos]));
+}
+
+// The dead places before candidate j's place: none before a slab row (the
+// alive rows are the slab's prefix); before arrival a = j - cnt, the slab's
+// C - cnt and the sel columns below its own that hold no kept arrival.
+__device__ __forceinline__ long long dead_before(const ExtPlan& pl, long long cnt, const int* apos,
+                                                 long long j) {
+  return j < cnt ? 0 : pl.C - cnt + apos[j - cnt] - (j - cnt);
+}
+
+// A candidate's ts, gslot and (at most NC) columns, held in registers.
+template <int NC>
+struct Row {
+  long long ts;
+  int gs;
+  long long v[NC];
+};
+
+// Candidate j of key k's row: slab row j below cnt, else arrival j - cnt.
+template <int NC>
+__device__ __forceinline__ void load_cand(const ExtPlan& pl, long long k, long long cnt,
+                                          const int* arr, long long j, Row<NC>& x) {
+  const bool s = j < cnt;
+  const long long src = s ? k * pl.C + j : (long long)arr[j - cnt];
+  x.ts = s ? pl.s_ts[src] : pl.ts[src];
+  x.gs = s ? pl.s_gslot[src] : pl.gslot[src];
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+    if (q < pl.ncols) x.v[q] = load_raw(s ? (const void*)pl.s_col[q] : pl.col[q], src, pl.col_w[q]);
+}
+
+template <int NC>
+__device__ __forceinline__ void emit_row(const ExtPlan& pl, long long o, int kind, long long seq,
+                                         const Row<NC>& x) {
+  if (o >= pl.cap) return;
+  pl.out_ts[o] = x.ts;
+  pl.out_kind[o] = kind;
+  pl.out_seq[o] = seq;
+  pl.out_gslot[o] = x.gs;
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+    if (q < pl.ncols) store_bits(pl.out_col[q], o, x.v[q], pl.col_w[q]);
+}
+
+template <int NC>
+__device__ __forceinline__ void put_row(const ExtPlan& pl, long long p, const Row<NC>& x) {
+  pl.s_ts[p] = x.ts;
+  pl.s_gslot[p] = x.gs;
+#pragma unroll
+  for (int q = 0; q < NC; ++q)
+    if (q < pl.ncols) store_bits(pl.s_col[q], p, x.v[q], pl.col_w[q]);
+}
+
+// A warp-mode row's m staged candidates: lane l holds candidates
+// j = 32 s + l (s < R) in registers and ranks each against every
+// candidate by __shfl_sync (ties by place), the dead places before it
+// counted in; a candidate is kept when its rank is below lim.  Stores the
+// kept mask; returns the kept count.
+template <int R>
+__device__ __forceinline__ long long warp_rank(const ExtPlan& pl, long long r, const long long* skey,
+                                               const int* sdead, int m, long long lim, int ndead) {
+  const int lane = threadIdx.x & 31;
+  long long key[R];
+  int rk[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int j = s * 32 + lane;
+    key[s] = j < m ? skey[j] : 0;
+    rk[s] = j >= m ? 0 : key[s] > pl.dead ? ndead : key[s] == pl.dead ? sdead[j] : 0;
+  }
+#pragma unroll
+  for (int s2 = 0; s2 < R; ++s2) {
+    const int top = m - s2 * 32 < 32 ? m - s2 * 32 : 32;
+    for (int l = 0; l < top; ++l) {
+      const long long kq = __shfl_sync(FULL, key[s2], l);
+      const int q = s2 * 32 + l;
+#pragma unroll
+      for (int s = 0; s < R; ++s) rk[s] += kq < key[s] || (kq == key[s] && q < s * 32 + lane);
+    }
+  }
+  long long kept = 0;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const unsigned b = __ballot_sync(FULL, s * 32 + lane < m && rk[s] < lim);
+    // only the row's own words: R may pass its mwords = ceil((C + E) / 32)
+    if (lane == 0 && s * 32 < m) pl.kmask[r * pl.mwords + s] = b;
+    kept += __popc(b);
+  }
+  return kept;
+}
+
+// Count launch, warp mode: a warp a key row.  Gathers the row's kept
+// arrivals, ranks a row of at most SW_LIMIT candidates and stores its kept
+// mask and output rows; queues a larger row for ks_count_block.
+__global__ void __launch_bounds__(SW_WARPS * 32) ks_count(const ExtPlan pl) {
+  __shared__ long long s_key[SW_WARPS][SW_LIMIT];
+  __shared__ int s_dead[SW_WARPS][SW_LIMIT];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  long long* skey = s_key[w];
+  int* sdead = s_dead[w];
+  const long long C = pl.C, E = pl.E;
+  const long long warps = (long long)gridDim.x * SW_WARPS;
+  for (long long r = (long long)blockIdx.x * SW_WARPS + w; r < pl.Kb; r += warps) {
+    __syncwarp();                         // the last row's staged keys are read
+    const long long k = key_of(pl, r);
+    if (k < 0) {
+      if (lane == 0) pl.ocnt[r] = pl.n_arr[r] = pl.timer[r] = 0;
+      continue;
+    }
+    const long long cnt = pl.count[k];
+    for (long long i = lane; i < cnt && i < SW_LIMIT; i += 32) {
+      skey[i] = slab_key(pl, k, i);
+      sdead[i] = 0;
+    }
+    // the kept arrivals, compacted in batch order by ballot
+    int* arr = pl.arr + r * E;
+    int* apos = pl.apos + r * E;
+    long long na = 0;
+    unsigned tick = 0;
+    for (long long e0 = 0; e0 < E; e0 += 4 * 32) {
+      int sv[4];                          // four loads in flight
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long e = e0 + u * 32 + lane;
+        sv[u] = e < E ? pl.sel[r * E + e] : -1;
+      }
+      // the AND of four ints is >= 0 when any of them is
+      if (!__any_sync(FULL, (sv[0] & sv[1] & sv[2] & sv[3]) >= 0)) continue;   // no event here
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long e = e0 + u * 32 + lane, i = sv[u];
+        bool keep, timer;
+        arrival_test(pl, i, keep, timer);
+        tick |= __ballot_sync(FULL, timer);
+        const unsigned b = __ballot_sync(FULL, keep);
+        if (keep) {
+          const long long a = na + __popc(b & lanes_below(lane));
+          arr[a] = (int)i;
+          apos[a] = (int)e;
+          if (cnt + a < SW_LIMIT) {
+            skey[cnt + a] = batch_key(pl, i);
+            sdead[cnt + a] = (int)(C - cnt + e - a);
+          }
+        }
+        na += __popc(b);
+      }
+    }
+    if (lane == 0) {
+      pl.n_arr[r] = (int)na;
+      pl.timer[r] = tick != 0;
+    }
+    const long long n = cnt + na;
+    if (n > SW_LIMIT) {
+      if (lane == 0) pl.hot[1 + atomicAdd(pl.hot, 1)] = (int)r;
+      continue;
+    }
+    __syncwarp();
+    const long long lim = n < pl.length ? n : pl.length;
+    const int m = (int)n, ndead = (int)(C + E - n);
+    long long kept;
+    if (m <= 32) kept = warp_rank<1>(pl, r, skey, sdead, m, lim, ndead);
+    else if (m <= 64) kept = warp_rank<2>(pl, r, skey, sdead, m, lim, ndead);
+    else if (m <= 128) kept = warp_rank<4>(pl, r, skey, sdead, m, lim, ndead);
+    else kept = warp_rank<SW_R>(pl, r, skey, sdead, m, lim, ndead);
+    if (lane == 0) pl.ocnt[r] = na + n - kept;
+  }
+}
+
+// Count launch, block mode: a block a queued row.  The candidates' keys as
+// order-preserving unsigned bits in the block's workspace slice; an MSD
+// radix select of the place of rank lim - 1 among all C + E places (the
+// dead ones counted into their digit); the kept mask and output rows.
+__global__ void __launch_bounds__(SB_BLOCK) ks_count_block(const ExtPlan pl) {
+  __shared__ long long sh[2 * SB_BLOCK];
+  __shared__ unsigned hist[SB_BLOCK];
+  __shared__ long long pick[2];
+  const int t = threadIdx.x;
+  unsigned long long* u = (unsigned long long*)pl.ws + (long long)blockIdx.x * pl.ws_words;
+  const unsigned long long udead = (unsigned long long)pl.dead ^ SIGN;
+  const int nhot = pl.hot[0];
+  for (int h = blockIdx.x; h < nhot; h += gridDim.x) {
+    const long long r = pl.hot[1 + h], k = key_of(pl, r);
+    const long long cnt = pl.count[k], na = pl.n_arr[r], n = cnt + na;
+    const int* arr = pl.arr + r * pl.E;
+    const int* apos = pl.apos + r * pl.E;
+    for (long long j = t; j < n; j += SB_BLOCK)
+      u[j] = (unsigned long long)(j < cnt ? slab_key(pl, k, j) : batch_key(pl, arr[j - cnt])) ^ SIGN;
+    const long long ndead = pl.C + pl.E - n;
+    const long long lim = n < pl.length ? n : pl.length;
+    unsigned long long pre = 0, msk = 0;
+    long long target = lim - 1;
+    __syncthreads();
+    for (int shift = 56; shift >= 0 && lim > 0; shift -= 8) {
+      hist[t] = 0;
+      __syncthreads();
+      for (long long j = t; j < n; j += SB_BLOCK) {
+        const unsigned long long x = u[j];
+        if ((x & msk) == pre) atomicAdd(&hist[(x >> shift) & 0xff], 1u);
+      }
+      if (t == 0 && ndead > 0 && (udead & msk) == pre)
+        atomicAdd(&hist[(udead >> shift) & 0xff], (unsigned)ndead);
+      __syncthreads();
+      if (t < 32) {                       // the digit that holds rank `target`
+        unsigned c[8];
+        long long sum = 0;
+#pragma unroll
+        for (int d = 0; d < 8; ++d) sum += c[d] = hist[8 * t + d];
+        long long inc = sum;
+        for (int off = 1; off < 32; off <<= 1) {
+          const long long y = __shfl_up_sync(FULL, inc, off);
+          if (t >= off) inc += y;
+        }
+        const int f = __ffs(__ballot_sync(FULL, inc > target)) - 1;
+        if (t == f) {
+          long long below = inc - sum;
+          int d = 0;
+#pragma unroll
+          for (int q = 0; q < 7; ++q)
+            if (d == q && below + c[q] <= target) {
+              below += c[q];
+              d = q + 1;
+            }
+          pick[0] = 8 * t + d;
+          pick[1] = target - below;
+        }
+      }
+      __syncthreads();
+      pre |= (unsigned long long)pick[0] << shift;
+      msk |= 0xffULL << shift;
+      target = pick[1];
+    }
+    // kept: below the picked key, and of those equal to it the first by place
+    const long long cless = lim - 1 - target;
+    long long tie0 = 0, nkeep = 0;
+    for (long long j0 = 0; j0 < n; j0 += SB_BLOCK) {
+      const long long j = j0 + t;
+      const bool live = j < n && lim > 0;
+      const unsigned long long x = live ? u[j] : 0;
+      const bool tie = live && x == pre;
+      long long tot;
+      const long long tr = tie0 + block_excl_scan<SB_BLOCK>((long long)tie, sh, &tot);
+      const bool kept =
+          live && (x < pre || (tie && cless + tr + (pre == udead ? dead_before(pl, cnt, apos, j) : 0) < lim));
+      const unsigned b = __ballot_sync(FULL, kept);
+      if ((t & 31) == 0 && j < n) pl.kmask[r * pl.mwords + (j >> 5)] = b;
+      nkeep += kept;
+      tie0 += tot;
+    }
+    long long tot;
+    block_excl_scan<SB_BLOCK>(nkeep, sh, &tot);
+    if (t == 0) pl.ocnt[r] = na + n - tot;
+  }
+}
+
+// Write launch, warp mode: in rounds of 32 candidates, each lane loads its
+// candidate, the warp synchronises, then the arrivals go out CURRENT, the
+// evicted EXPIRED at their ballot prefix, the kept to their compacted place
+// (a row of at most NC columns).
+template <int NC>
+__global__ void __launch_bounds__(SW_WARPS * 32) ks_write(const ExtPlan pl) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * SW_WARPS;
+  for (long long r = (long long)blockIdx.x * SW_WARPS + (threadIdx.x >> 5); r < pl.Kb; r += warps) {
+    const long long k = key_of(pl, r);
+    if (k < 0) continue;
+    const long long cnt = pl.count[k], na = pl.n_arr[r], n = cnt + na;
+    if (n > SW_LIMIT) continue;           // block mode: ks_write_block
+    const long long seq0 = pl.seq[k], o = pl.ocnt[r];
+    const int* arr = pl.arr + r * pl.E;
+    const unsigned* mk = pl.kmask + r * pl.mwords;
+    long long ev = 0, kp = 0;
+    for (long long j0 = 0; j0 < n; j0 += 32) {
+      const long long j = j0 + lane;
+      const bool live = j < n;
+      const unsigned m = mk[j0 >> 5];
+      const unsigned lv = __ballot_sync(FULL, live);
+      Row<NC> x;
+      if (live) load_cand(pl, k, cnt, arr, j, x);
+      __syncwarp();                       // the round's rows are read before any moves
+      if (live) {
+        if (j >= cnt) emit_row(pl, o + j - cnt, K_CURRENT, seq0 + j - cnt, x);
+        if ((m >> lane) & 1u) {
+          const long long d = kp + __popc(m & lanes_below(lane));
+          if (d != j || j >= cnt) put_row(pl, k * pl.C + d, x);   // else already there
+        } else {
+          const long long e = ev + __popc(~m & lv & lanes_below(lane));
+          emit_row(pl, o + na + e, K_EXPIRED, seq0 + na + e, x);
+        }
+      }
+      ev += __popc(~m & lv);
+      kp += __popc(m);
+    }
+    __syncwarp();                         // every lane has read the key's counters
+    if (lane == 0) {
+      pl.count[k] = (int)kp;
+      pl.seq[k] = seq0 + na + ev;
+    }
+  }
+}
+
+// Write launch, block mode: ks_write for a queued row, in chunks of
+// SB_BLOCK candidates ranked by one block scan (kept in the high word).
+__global__ void __launch_bounds__(SB_BLOCK) ks_write_block(const ExtPlan pl) {
+  __shared__ long long sh[2 * SB_BLOCK];
+  const int t = threadIdx.x;
+  const int nhot = pl.hot[0];
+  for (int h = blockIdx.x; h < nhot; h += gridDim.x) {
+    const long long r = pl.hot[1 + h], k = key_of(pl, r);
+    const long long cnt = pl.count[k], na = pl.n_arr[r], n = cnt + na;
+    const long long seq0 = pl.seq[k], o = pl.ocnt[r];
+    const int* arr = pl.arr + r * pl.E;
+    const unsigned* mk = pl.kmask + r * pl.mwords;
+    long long ev = 0, kp = 0;
+    for (long long j0 = 0; j0 < n; j0 += SB_BLOCK) {
+      const long long j = j0 + t;
+      const bool live = j < n;
+      const bool kept = live && ((mk[j >> 5] >> (j & 31)) & 1u);
+      Row<MAX_COLS> x;
+      if (live) load_cand(pl, k, cnt, arr, j, x);
+      long long tot;
+      // the scan's barriers: the chunk's rows are read before any moves
+      const long long ex = block_excl_scan<SB_BLOCK>(live ? (kept ? (1LL << 32) : 1LL) : 0LL, sh, &tot);
+      if (live) {
+        if (j >= cnt) emit_row(pl, o + j - cnt, K_CURRENT, seq0 + j - cnt, x);
+        if (kept) {
+          const long long d = kp + (ex >> 32);
+          if (d != j || j >= cnt) put_row(pl, k * pl.C + d, x);   // else already there
+        } else {
+          const long long e = ev + (ex & 0xffffffffLL);
+          emit_row(pl, o + na + e, K_EXPIRED, seq0 + na + e, x);
+        }
+      }
+      ev += tot & 0xffffffffLL;
+      kp += tot >> 32;
+    }
+    __syncthreads();                      // every thread has read the key's counters
+    if (t == 0) {
+      pl.count[k] = (int)kp;
+      pl.seq[k] = seq0 + na + ev;
+    }
+  }
+}
+
+inline unsigned warp_grid(const ExtPlan& pl) {
+  long long g = (pl.Kb + SW_WARPS - 1) / SW_WARPS;
+  return (unsigned)(g < 1 ? 1 : g);
+}
+
+int sort_count(const ExtPlan* plan, void* stream) {
+  const ExtPlan& pl = *plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  kx_init<<<1, 1, 0, s>>>(pl);
+  ks_count<<<warp_grid(pl), SW_WARPS * 32, 0, s>>>(pl);
+  if (pl.hot_grid > 0) ks_count_block<<<(unsigned)pl.hot_grid, SB_BLOCK, 0, s>>>(pl);
+  if (pl.Kb > 0) exclusive_scan(pl.ocnt, pl.Kb, pl.sums, s);
+  return (int)cudaGetLastError();
+}
+
+int sort_write(const ExtPlan* plan, void* stream) {
+  const ExtPlan& pl = *plan;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pl.ncols <= 4) ks_write<4><<<warp_grid(pl), SW_WARPS * 32, 0, s>>>(pl);
+  else if (pl.ncols <= 8) ks_write<8><<<warp_grid(pl), SW_WARPS * 32, 0, s>>>(pl);
+  else ks_write<MAX_COLS><<<warp_grid(pl), SW_WARPS * 32, 0, s>>>(pl);
+  if (pl.hot_grid > 0) ks_write_block<<<(unsigned)pl.hot_grid, SB_BLOCK, 0, s>>>(pl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int siddhi_keyed_ext_plan_size() { return (int)sizeof(ExtPlan); }
@@ -901,7 +1291,7 @@ extern "C" int siddhi_keyed_batch_count(const ExtPlan* p, void* s) {
 extern "C" int siddhi_keyed_batch_write(const ExtPlan* p, void* s) {
   return write_launch<F_BATCH>(p, s);
 }
-extern "C" int siddhi_keyed_sort_count(const ExtPlan* p, void* s) { return count_launch<F_SORT>(p, s); }
-extern "C" int siddhi_keyed_sort_write(const ExtPlan* p, void* s) { return write_launch<F_SORT>(p, s); }
+extern "C" int siddhi_keyed_sort_count(const ExtPlan* p, void* s) { return sort_count(p, s); }
+extern "C" int siddhi_keyed_sort_write(const ExtPlan* p, void* s) { return sort_write(p, s); }
 extern "C" int siddhi_keyed_hop_count(const ExtPlan* p, void* s) { return count_launch<F_HOP>(p, s); }
 extern "C" int siddhi_keyed_hop_write(const ExtPlan* p, void* s) { return write_launch<F_HOP>(p, s); }

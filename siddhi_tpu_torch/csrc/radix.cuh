@@ -1,6 +1,6 @@
 // A stable LSD radix sort of (key, index) pairs over 8-bit digits, shared
-// by order_limit (K13: the order-by keys) and group_agg (K4: the group
-// slots beyond MAX_SLOTS).
+// by group_agg (K4: the group slots beyond MAX_SLOTS), ext_window (K16),
+// sort_window (K17) and agg_merge (K28).
 //
 // Each pass: a digit histogram per tile of RADIX_TILE pairs, one scan of
 // the (digit, tile) counts in digit-major order, and a stable scatter in

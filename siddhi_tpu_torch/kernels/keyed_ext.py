@@ -85,6 +85,11 @@ the pending block in the slab's main columns and the previous one in the
 `p_*` columns; externalTimeBatch's per-key `start` and hopping's `next`
 are in `key_state`.
 
+K22's kernel ranks a key row's alive candidates on a warp when they are
+at most SORT_LIMIT (warp mode) and on a block of its own otherwise (block
+mode, enabled where C + E can pass the limit: `sort_plan`); both keep the
+K20-K23 protocol below.
+
 `keyed_ext_step` is what the keyed planner calls: CPU tensors run
 `plain`, CUDA tensors launch the family's kernel; both return the rows
 and i64[2] [least wake, rows missed].  `launches` / `plain_calls` count
@@ -123,6 +128,12 @@ FAMILY = {MODE_EXT: "keyed_ext", MODE_TLEN: "keyed_ext",
 MAX_COLS, MAX_CODE = 16, 256
 # threads a key row's block runs; the shared memory a block may take
 BLOCK, SMEM_MAX = 128, 96 * 1024
+# K22: SORT_R candidates a lane, so a warp ranks a key row of at most
+# SORT_LIMIT candidates (warp mode); a larger row takes a block of its own
+# (block mode), at most SORT_HOT_GRID blocks
+SORT_R = 8
+SORT_LIMIT = 32 * SORT_R
+SORT_HOT_GRID = 1024
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
 
@@ -629,6 +640,7 @@ class ExtPlan(ctypes.Structure):
          ("ocnt", _P), ("sums", _P), ("ws", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
          ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("wake", _P),
+         ("kmask", _P), ("hot", _P), ("mwords", _L), ("hot_grid", _L),
          ("in_sets", InSet * MAX_IN)])
 
 
@@ -641,11 +653,34 @@ def _check(x, name, dtype, shape, dev):
 
 
 def workspace_words(mode: int, C: int, E: int) -> int:
-    """The int64 words of a key row's workspace: the ranking keys, ranks,
-    maps and the [C] staging array (none for the batch family)."""
+    """The int64 words of a K20 / K21 / K23 key row's workspace: the
+    ranking keys, ranks, maps and the [C] staging array (none for the
+    batch family)."""
     if mode in (MODE_XBATCH, MODE_CHUNK, MODE_CRON):
         return 1
     return 6 * (C + E) + 6 + C
+
+
+@dataclasses.dataclass(frozen=True)
+class SortPlan:
+    """K22's host-side choices for a step of capacity C and E events a
+    key row: `block` whether block mode can run (a row's candidates
+    C + E may pass SORT_LIMIT; each row then takes warp or block mode on
+    the device by its own count), `hot_grid` its blocks, `ws_words` the
+    int64 keys of each block's workspace slice, `mwords` the kept-mask
+    words of a key row."""
+
+    block: bool
+    hot_grid: int
+    ws_words: int
+    mwords: int
+
+
+def sort_plan(C: int, E: int, Kb: int) -> SortPlan:
+    block = C + E > SORT_LIMIT
+    grid = min(max(Kb, 1), SORT_HOT_GRID) if block else 0
+    return SortPlan(block, grid, C + E if block else 0,
+                    (C + E + 31) // 32)
 
 
 def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
@@ -726,21 +761,32 @@ def prepare(slab: KeyedSlab, spec, ts, kind, valid, gslot, cols, key_idx,
     sums = torch.zeros((Kb + 1023) // 1024 + 1, dtype=torch.int64,
                        device=dev)
     wake = torch.empty(2, dtype=torch.int64, device=dev)
-    words = workspace_words(slab.mode, C, E)
-    pl.ws_words = words
-    ws = None
-    if words * 8 > SMEM_MAX:
-        # a key row's workspace past the shared memory: a global slice for
-        # each of at most 1,024 blocks
-        pl.ws_global = 1
-        ws = e(min(max(Kb, 1), 1024) * words, torch.int64)
-        pl.ws = ws.data_ptr()
+    ws = kmask = hot = None
+    if slab.mode == MODE_SORT:
+        sp = sort_plan(C, E, Kb)
+        kmask = e(Kb * sp.mwords)
+        pl.kmask, pl.mwords = kmask.data_ptr(), sp.mwords
+        if sp.block:
+            hot = e(Kb + 1)
+            ws = e(sp.hot_grid * sp.ws_words, torch.int64)
+            pl.hot, pl.hot_grid, pl.ws = hot.data_ptr(), sp.hot_grid, \
+                ws.data_ptr()
+            pl.ws_words = sp.ws_words
+    else:
+        words = workspace_words(slab.mode, C, E)
+        pl.ws_words = words
+        if words * 8 > SMEM_MAX:
+            # a key row's workspace past the shared memory: a global slice
+            # for each of at most 1,024 blocks
+            pl.ws_global = 1
+            ws = e(min(max(Kb, 1), 1024) * words, torch.int64)
+            pl.ws = ws.data_ptr()
     pl.arr, pl.apos, pl.n_arr, pl.timer = (arr.data_ptr(), apos.data_ptr(),
                                            n_arr.data_ptr(), timer.data_ptr())
     pl.ocnt, pl.sums, pl.wake = ocnt.data_ptr(), sums.data_ptr(), \
         wake.data_ptr()
     bufs = {"cols": keep, "sums": sums, "wake": wake,
-            "scratch": (arr, apos, n_arr, timer, ocnt, ws),
+            "scratch": (arr, apos, n_arr, timer, ocnt, ws, kmask, hot),
             "inputs": (ts, kind, valid, gslot, key_idx, sel),
             "sets": fill_sets(pl.in_sets, spec.in_keys, spec.in_tabs)}
     return pl, bufs

@@ -294,6 +294,120 @@ def test_step_equals_the_jax_step(win):
     assert rows > 0
 
 
+def _sort_steps(rng, n_steps, counts, drops):
+    """Keyed steps of K22's shapes: key row j holds counts[j] events of
+    key j (a random key order), so E = max(counts) every step; v in
+    quarters with NaN, -0, +inf and -inf (each ties the dead places under
+    one order); w = -1 (the filter drops the event, a place left dead
+    between arrivals) at the rate `drops`."""
+    steps = []
+    E = max(counts)
+    for i in range(n_steps):
+        now = 1000 + 90 * i
+        order = rng.permutation(len(counts))
+        keys = np.concatenate([np.full(c, order[j]) for j, c in
+                               enumerate(counts)])
+        B = keys.shape[0]
+        perm = rng.permutation(B)
+        keys = keys[perm]
+        v = (rng.integers(-8, 8, B) / 4).astype(np.float32)
+        m = rng.random(B)
+        v[m < 0.05] = np.nan
+        v[(m >= 0.05) & (m < 0.1)] = -0.0
+        v[(m >= 0.1) & (m < 0.15)] = np.inf
+        v[(m >= 0.15) & (m < 0.2)] = -np.inf
+        w = np.where(rng.random(B) < drops, -1, rng.integers(0, 9, B))
+        ts = np.full(B, now, np.int64)
+        cols = [keys.astype(np.int64), ts.copy(), v, w.astype(np.int32),
+                rng.random(B) < 0.5]
+        sel = np.full((len(counts), E), -1, np.int32)
+        for j, k in enumerate(order):
+            r = np.nonzero(keys == k)[0]
+            sel[j, :len(r)] = r
+        steps.append((ts, np.full(B, ev.CURRENT, np.int32),
+                      np.ones(B, np.bool_), cols, (keys % 5).astype(np.int32),
+                      order.astype(np.int32), sel, now))
+    return steps
+
+
+SORT_EDGES = [
+    ("C + E = 32", "sort(16, v)", [16, 16, 9, 16, 3, 16], 5, 0.1),
+    ("C + E = 33", "sort(1, v, 'desc')", [32, 30, 32, 7], 3, 0.1),
+    ("C + E = 80, full rows beside short ones", "sort(64, v)",
+     [16, 1, 16, 1, 16], 8, 0.1),
+    ("C + E = 200, full rows beside short ones", "sort(184, v, 'desc')",
+     [16, 16, 16, 1], 18, 0.1),
+    ("just above the warp limit", f"sort({ke.SORT_LIMIT - 31}, v)",
+     [32, 32], 9, 0.0),
+    ("a hot key row", "sort(3, v, 'desc')", [300, 2, 5, 1, 3], 3, 0.1),
+]
+
+
+@pytest.mark.parametrize("win,counts,n_steps,drops",
+                         [c[1:] for c in SORT_EDGES],
+                         ids=[c[0] for c in SORT_EDGES])
+def test_sort_step_at_the_mode_edges(win, counts, n_steps, drops):
+    """The plain sort step (K22's reference) against the JAX kstep's
+    window half at the edges of the kernel's modes: C + E = 32 and 33
+    places (one and two candidates a lane), 80 and 200 places (a kept mask
+    narrower than the lanes' bucket) with short rows beside full ones, a
+    full slab of SORT_LIMIT - 31
+    rows with 32 arrivals (SORT_LIMIT + 1 candidates: block mode), and a
+    hot key row of 300 events among small ones.  Every row, the wake and
+    every key's alive rows equal, from an empty state on."""
+    jp, tp, (jslab, _) = _plans(win)
+    _, _, wkw, key_init = _keyed_shape(tp.window, "q")
+    slab = convert.keyed_slab_from_jax(jslab, kw.MODE_SORT,
+                                       tp.in_schema.types, key_init=key_init)
+    rng = np.random.default_rng(len(win) + sum(counts))
+    rows = 0
+    for i, (ts, kind, valid, cols, gslot, key_idx, sel, now) in \
+            enumerate(_sort_steps(rng, n_steps, counts, drops)):
+        jslab, (jts, jkind, jseq, jgs, jcols), jwake = _jax_window_half(
+            jp.window, jslab, ts, kind, valid, gslot, cols, key_idx, sel,
+            now)
+        out, wake = ke.plain(
+            slab, tp.filter_spec, torch.from_numpy(ts),
+            torch.from_numpy(kind), torch.from_numpy(valid),
+            torch.from_numpy(gslot), [torch.from_numpy(c) for c in cols],
+            torch.from_numpy(key_idx), torch.from_numpy(sel), now,
+            wkw["prm"])
+        assert out.ts.tolist() == jts.tolist(), i
+        assert out.kind.tolist() == jkind.tolist(), i
+        assert out.seq.tolist() == jseq.tolist(), i
+        assert out.gslot.tolist() == jgs.tolist(), i
+        for x, y in zip(out.cols, jcols):
+            x = x.numpy()
+            if x.dtype.kind == "f":
+                x, y = x.view(np.int32), y.view(np.int32)
+            assert np.array_equal(x, y), i
+        assert int(wake[0]) == jwake and int(wake[1]) == 0, i
+        _same_state(jslab, slab, kw.MODE_SORT)
+        rows += len(jts)
+    assert rows > 0 and int(slab.count.max()) == slab.C
+
+
+@pytest.mark.parametrize("C,E,Kb,want", [
+    (10, 16, 65536, (False, 0, 0, 1)),
+    (1, 32, 100, (False, 0, 0, 2)),
+    (64, 16, 100, (False, 0, 0, 3)),
+    (184, 16, 100, (False, 0, 0, 7)),
+    (ke.SORT_LIMIT - 32, 32, 100, (False, 0, 0, ke.SORT_LIMIT // 32)),
+    (ke.SORT_LIMIT - 31, 32, 100,
+     (True, 100, ke.SORT_LIMIT + 1, ke.SORT_LIMIT // 32 + 1)),
+    (10, 16384, 65536, (True, ke.SORT_HOT_GRID, 16394, 513)),
+])
+def test_sort_plan_from_capacity_and_width(C, E, Kb, want):
+    """K22's host-side choices: block mode only where a key row's C + E
+    candidates can pass the warp limit (32 lanes x SORT_R), its blocks
+    and their workspace of C + E keys, and the kept-mask words a row:
+    ceil((C + E) / 32), which may be fewer than the lanes' bucket of 4 or
+    8 words (C + E = 80, 200), so a row stores only its own words."""
+    assert ke.SORT_LIMIT == 32 * ke.SORT_R
+    sp = ke.sort_plan(C, E, Kb)
+    assert (sp.block, sp.hot_grid, sp.ws_words, sp.mwords) == want
+
+
 @pytest.mark.parametrize("win", ["externalTime(et, 300)",
                                  "externalTimeBatch(et, 300, 950)",
                                  "sort(3, v, 'desc')", "hopping(400, 150)"])

@@ -186,3 +186,165 @@ def test_plain_against_numpy_model(seed):
     m = want.shape[0]
     assert np.array_equal(out[0][:m].numpy(), ts[want])
     assert out[2][:m].all() and not out[2][m:].any()
+
+
+# -- the kernel's two modes: their edges through both packages ---------------
+
+EDGE = """
+@app:playback
+define stream S (k string, i int, f float, l long, b bool, e float);
+@info(name='q') from S#window.lengthBatch({n})
+select k, i, f, l, b {clause} insert all events into Out;
+"""
+
+
+def _edge_sends(n, batches, seed=11):
+    """`batches` sends of n rows: ties in every key, NaN, -0.0, int and
+    long nulls; `e` the same in every row."""
+    rng = np.random.default_rng(seed)
+    sends = []
+    for s in range(batches):
+        f = (rng.integers(-20, 20, n) / 4).astype(np.float32)
+        f[rng.random(n) < 0.05] = np.nan
+        f[rng.random(n) < 0.05] = -0.0
+        i = rng.integers(-5, 5, n).astype(np.int32)
+        i[rng.random(n) < 0.05] = np.iinfo(np.int32).min
+        lv = rng.integers(-3, 3, n).astype(np.int64) * (1 << 40)
+        lv[rng.random(n) < 0.05] = np.iinfo(np.int64).min
+
+        def data(m, _f=f, _i=i, _l=lv, _s=s):
+            return [np.array([m.interner.intern(f"k{x % 7}")
+                              for x in range(n)], np.int32), _i, _f, _l,
+                    (np.arange(n) + _s) % 3 == 0,
+                    np.full(n, 2.5, np.float32)]
+        sends.append((data, 1000 + s + np.arange(n, dtype=np.int64) // n))
+    return sends
+
+
+M = order_limit.TOPK_MAX
+MODE_EDGES = [
+    ("order by f limit 1", "m = 1"),
+    (f"order by f desc limit {M}", "m = M (top-k)"),
+    (f"order by f desc limit {M} offset 1", "m = M + 1 (sort)"),
+    ("order by i offset 700", "offset past the valid count"),
+    ("order by i limit 20 offset 600", "top-k offset past the valid count"),
+    ("order by i limit 0", "limit 0"),
+    ("order by f, i desc limit 30 offset 2", "two keys, one word"),
+    ("order by l desc, i, b limit 40", "three keys, two words"),
+    ("order by l desc, f desc, i", "three keys, sort"),
+    ("order by l limit 10", "an int64 key"),
+]
+
+
+@pytest.mark.parametrize("clause", [c for c, _ in MODE_EDGES],
+                         ids=[w for _, w in MODE_EDGES])
+def test_mode_edges_through_both_packages(clause):
+    """The plain version at K13's mode edges against the JAX package:
+    two flushes of 300 rows (the second also emits the first as EXPIRED
+    rows, 600 ordered in all)."""
+    got = both(EDGE.format(n=300, clause=clause), _edge_sends(300, 2),
+               cols=True)
+    empty = "limit 0" in clause or "offset 6" in clause or \
+        "offset 7" in clause
+    assert (sum(len(i) + len(o) for i, o in got) == 0) == empty
+
+
+def test_every_key_equal_over_thousands_of_rows():
+    """3,000 rows whose order key is one value: the offset and limit cut
+    the rows in arrival order (rows 5-14)."""
+    ql = EDGE.format(n=3000, clause="order by e limit 10 offset 5") \
+        .replace("select k, i, f, l, b", "select k, i, f, l, b, e")
+    got = both(ql, _edge_sends(3000, 1), cols=True)
+    ks = [r[0] for i, _ in got for r in i]
+    assert ks == [f"k{x % 7}" for x in range(5, 15)]
+
+
+@pytest.mark.parametrize("n,lo,limit,want", [
+    (2_097_153, 0, 10, ("topk", 16)),
+    (1000, 0, 1, ("topk", 1)),
+    (1000, 0, M, ("topk", M)),
+    (1000, 1, M, ("sort", 0)),
+    (1000, M, None, ("sort", 0)),
+    (1000, 5, 0, ("none", 0)),
+    (0, 0, 10, ("none", 0)),
+    (1000, 700, 20, ("sort", 0)),
+])
+def test_mode_from_rows_offset_and_limit(n, lo, limit, want):
+    """The wrapper's choice: top-k when a limit is given and offset +
+    limit <= TOPK_MAX (K the power of two at or above it), sort
+    otherwise, nothing for an empty output."""
+    assert order_limit.mode(n, lo, limit) == want
+
+
+def test_keys_composed_into_words_and_passes():
+    """Consecutive keys share a 64-bit word while their widths fit (the
+    first key most significant); sort mode's passes run the last word
+    first, 8 bits a pass; top-k's blocks and the level after them."""
+    f32, i32, i64, b = torch.float32, torch.int32, torch.int64, torch.bool
+    assert order_limit.compose([f32, i32]) == ([(0, 32), (0, 0)], [64])
+    assert order_limit.compose([i64, i32, b]) == \
+        ([(0, 0), (1, 1), (1, 0)], [64, 33])
+    assert order_limit.compose([b, b, f32]) == \
+        ([(0, 33), (0, 32), (0, 0)], [34])
+    assert order_limit.passes([64, 33]) == \
+        [(1, 0), (1, 8), (1, 16), (1, 24), (1, 32)] + \
+        [(0, 8 * k) for k in range(8)]
+    assert order_limit.topk_grids(2_097_153, 16) == (256, 1)
+    assert order_limit.topk_grids(2_097_153, 256) == (256, 4)
+    assert order_limit.topk_grids(100, 16) == (1, 1)
+
+
+@pytest.mark.parametrize("keys", [
+    [(torch.float32, True)], [(torch.float32, False), (torch.int32, True)],
+    [(torch.int64, True), (torch.int32, False), (torch.bool, True)],
+])
+def test_composed_words_order_as_the_reference_loop(keys):
+    """The lexicographic order of the composed words (each key's
+    order-preserving bits, as the kernel makes them), then the row index,
+    is the order of the reference's chain of stable argsorts (the plain
+    version's)."""
+    rng = np.random.default_rng(len(keys))
+    N = 400
+    cols = []
+    for dt, _ in keys:
+        if dt == torch.float32:
+            c = rng.choice(np.array([0.0, -0.0, np.nan, 1.5, -2.0, np.inf,
+                                     -np.inf], np.float32), N)
+        elif dt == torch.bool:
+            c = rng.random(N) < 0.5
+        else:
+            info = np.iinfo(np.int64 if dt == torch.int64 else np.int32)
+            c = rng.choice(np.array([info.min, -1, 0, 3, info.max],
+                                    info.dtype), N)
+        cols.append(torch.from_numpy(c))
+    valid = torch.ones(N, dtype=torch.bool)
+    ts = torch.arange(N, dtype=torch.int64)
+    kk = [(c, d) for c, (_, d) in zip(cols, keys)]
+    want = order_limit.plain(kk, 0, None, ts, torch.zeros(N, dtype=torch.int32),
+                             valid, ())[0].tolist()
+
+    def bits(c, desc):
+        x = c.numpy()
+        if x.dtype == np.bool_:
+            v = x.astype(np.uint64)
+            return 1 - v if desc else v
+        if x.dtype == np.float32:
+            f = -x if desc else x
+            f = np.where(f == 0, np.float32(0), f)
+            u = np.where(np.isnan(f), np.uint32(0x7fc00000),
+                         f.view(np.uint32)).astype(np.uint32)
+            return np.where(u >> 31, ~u, u | np.uint32(1 << 31)) \
+                .astype(np.uint64)
+        sign = 1 << (8 * x.dtype.itemsize - 1)
+        v = (0 - x) if desc else x
+        return (v.view(np.uint64 if x.dtype == np.int64 else np.uint32)
+                ^ np.array(sign, v.view(np.uint64 if x.dtype == np.int64
+                                        else np.uint32).dtype)) \
+            .astype(np.uint64)
+    where, widths = order_limit.compose([dt for dt, _ in keys])
+    words = [np.zeros(N, np.uint64) for _ in widths]
+    for (w, sh), (c, d) in zip(where, kk):
+        words[w] |= bits(c, d) << np.uint64(sh)
+    order = sorted(range(N), key=lambda r: tuple(int(w[r]) for w in words)
+                   + (r,))
+    assert order == want
