@@ -73,7 +73,10 @@ Phases (any failure exits nonzero):
      config_sequence_within, 2,048 events), S1-wide's (131,072 events,
      1,024 chunks), the pattern sample's (16,384 events), a sequence
      without `every`, a two-slot slab that overflows at chunk boundaries,
-     batches with invalid rows, ts-delta and raw-ts wires; then K8 per
+     batches with invalid rows, ts-delta and raw-ts wires, and the edge
+     cases of K8_EDGE_CASES at 8,192 events (first matches past event 96
+     of a chunk, seeds that never match on falling prices, `within` cuts
+     inside a chunk, runs of over 32 invalid rows in a sequence); then K8 per
      launch at S1's and S1-wide's shapes (CUDA-graph replays) beside its
      plain version and its bound;
  15. pattern_step with an absent atom against its plain version (wakes
@@ -219,7 +222,10 @@ Phases (any failure exits nonzero):
      HP1's (the window filling past 700,000 rows, a hop at a TIMER step,
      hops collapsed, a small window whose kept rows overflow), FQ1's
      (1,000 counters; 20,000 counters in device memory; float keys of two
-     columns with -0.0 and NaN payloads) and SL1's (2^20 keys x 2 x 128
+     columns with -0.0 and NaN payloads; FQ_EDGE_CASES: a full miss
+     mid-group, repeated new keys in a group, a full miss evicting every
+     counter, keys colliding in the walk's hash, a batch of only hits)
+     and SL1's (2^20 keys x 2 x 128
      rows: late clicks into both sessions, merges, a tick over every key,
      a hot key above capacity written out of ts order);
  38. their times (CUDA-graph replays) beside their plain versions and
@@ -2609,14 +2615,15 @@ def s2_send(np, rng, i, B, sym_ids):
 
 
 def block_inputs(torch, np, dev, cols, ts, invalid=0.0, rng=None,
-                 wire=True):
+                 wire=True, sel=None):
     """Device arguments of one block step: the columns, the ts (as the
     ts-delta wire or the raw column), the [1, E] selection (a share of
-    invalid rows), key_ref and now."""
+    invalid rows, or `sel` as given), key_ref and now."""
     B = ts.shape[0]
-    sel = np.arange(B, dtype=np.int32)
-    if invalid:
-        sel[rng.random(B) < invalid] = -1
+    if sel is None:
+        sel = np.arange(B, dtype=np.int32)
+        if invalid:
+            sel[rng.random(B) < invalid] = -1
     dcols = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
                   for c in cols)
     if wire:
@@ -2666,7 +2673,10 @@ def compare_block_kernel(torch, np, dev):
     """K8 against its plain version stage by stage: S1's and S1-wide's
     shapes, S2's, a sequence without `every`, a slab of two slots that
     overflows at chunk boundaries, batches with invalid rows, raw-ts and
-    ts-delta wires.  Returns (max err, steps compared, timing inputs)."""
+    ts-delta wires, and K8_EDGE_CASES (first matches past event 96 of a
+    chunk, seeds that never match on falling prices, `within` cuts inside
+    a chunk, runs of over 32 invalid rows in a sequence) at K8_EDGE_E
+    events.  Returns (max err, steps compared, timing inputs)."""
     from siddhi_tpu_torch import SiddhiManager
     rng = np.random.default_rng(41)
     max_err, n = 0.0, 0
@@ -2680,8 +2690,9 @@ def compare_block_kernel(torch, np, dev):
         if not planned.block:
             fail(f"{label}: not planned onto the block NFA")
         state = planned.init_state(1)[0]
-        for i, (cols, ts) in enumerate(sends):
-            args = block_inputs(torch, np, dev, cols, ts, invalid, rng, wire)
+        for i, (cols, ts, *sel) in enumerate(sends):
+            args = block_inputs(torch, np, dev, cols, ts, invalid, rng, wire,
+                                *sel)
             before = clone_state(state)
             state, err, hdr = block_compare(
                 torch, planned, sid, state, args, wire,
@@ -2718,6 +2729,10 @@ def compare_block_kernel(torch, np, dev):
     run(S1_QL.format(rows=4096), "q", "S",
         [s1_send(np, rng, i, S1_B) for i in range(2)], "invalid rows",
         invalid=0.1)
+    for name, ql in K8_EDGE_CASES.items():
+        for wire in (True, False):
+            run(ql, "q", "S", [k8_edge_send(np, rng, name, K8_EDGE_E, i)
+                               for i in range(2)], name, wire=wire)
     print(f"compare: K8 == plain over {n} block steps, max_abs_err "
           f"{max_err}")
     return max_err, n, timing
@@ -3212,7 +3227,10 @@ def pattern_phases(torch, np, dev):
           f"{tb['S1']['bound_ms']:.5f}), S1-wide's {tb['S1-wide']['ms']:.4f}"
           f" ms (bound {tb['S1-wide']['bound_ms']:.5f}), launches on the "
           f"main paths {launches}; library_ms null: no torch call runs an "
-          f"NFA over a stream")
+          f"NFA over a stream (the earlier design, a thread scanning its "
+          f"row's events one by one, took S1 0.158-0.172 ms and S1-wide "
+          f"9.13-9.35 ms on an H100 80GB HBM3 at 700 W; "
+          f"scripts/time_k19_k8.py times both designs in one call)")
     print(f"kernel pattern_step timer mode: {ta['timer']['ms']:.4f} ms over "
           f"the 2^20-key slab (bound {ta['timer']['bound_ms']:.5f}); A1's "
           f"data step {ta['data']['ms']:.4f} ms (bound "
@@ -4908,6 +4926,68 @@ from every e1=S[volume == 1] -> e2=S[volume == 2 and price > e1.price]
 select e1.price as p1, e2.price as p2, e3.volume as v3
 insert into M;
 """
+
+# K8's edge cases (phase 14 and tests/test_torch_pattern_block.py): where a
+# row's first match lies past event 96 of its chunk, where most seeds never
+# match, where `within` cuts inside a chunk, and a sequence over runs of
+# more than 32 invalid rows
+_K8_HEAD = """
+@app:playback
+define stream S (symbol long, price float, volume int);
+@capacity(slots='8')
+@info(name='q')
+"""
+K8_EDGE_CASES = {
+    "late first match": _K8_HEAD + """
+from every e1=S[volume == 1] -> e2=S[volume == 3 and price >= e1.price]
+select e1.price as p1, e2.price as p2 insert into M;""",
+    "falling prices": _K8_HEAD + """
+from every e1=S[volume == 1] -> e2=S[price > e1.price] within 10 sec
+select e1.price as p1, e2.price as p2 insert into M;""",
+    "within inside a chunk": _K8_HEAD + """
+from every e1=S[volume == 1] -> e2=S[volume == 2 and price > e1.price]
+     -> e3=S[volume == 3] within 20 milliseconds
+select e1.price as p1, e2.price as p2, e3.price as p3 insert into M;""",
+    "invalid runs": _K8_HEAD + """
+from every e1=S[volume == 1], e2=S[volume == 2 and price > e1.price]
+  within 1 sec
+select e1.price as p1, e2.price as p2 insert into M;""",
+}
+
+
+K8_EDGE_E = 8192
+
+
+def k8_edge_send(np, rng, case, E, i):
+    """Send i of a K8 edge case: (columns, ts, selection i32[E], -1 for an
+    invalid row).  "late first match": in each 128-event chunk, events 0-15
+    seed (volume 1), 16-99 never match (volume 2), 100-127 may (volume 3).
+    "falling prices": prices falling over the send, 1% of them risen at
+    random, half the events seeds.  "within inside a chunk": 1 ms an event,
+    volume 2 rare, so most pairs lie past the 20 ms cut.  "invalid runs":
+    S1's alternating volumes with a run of 33-70 invalid rows in each
+    chunk."""
+    pos = np.arange(E) % 128
+    price = rng.random(E, np.float32)
+    ts = 1000 + 2 * E * i + np.arange(E, dtype=np.int64)
+    sel = np.arange(E, dtype=np.int32)
+    if case == "late first match":
+        vol = np.where(pos < 16, 1, np.where(pos < 100, 2, 3))
+    elif case == "falling prices":
+        price = np.linspace(1.0, 0.0, E, dtype=np.float32)
+        up = rng.random(E) < 0.01
+        price[up] = rng.random(int(up.sum()), np.float32)
+        vol = rng.integers(1, 3, E)
+    elif case == "within inside a chunk":
+        vol = rng.choice([1, 2, 3], E, p=[0.3, 0.05, 0.65])
+    else:
+        vol = np.tile(np.array([1, 2]), E // 2 + 1)[:E]
+        for c0 in range(0, E, 128):
+            n = int(rng.integers(33, 71))
+            a = c0 + int(rng.integers(0, 128 - n // 2))
+            sel[a:a + n] = -1
+    return ([np.zeros(E, np.int64), price, vol.astype(np.int32)], ts, sel)
+
 
 # tests/test_correctness_fixes.py ABSENT_QL with `every`, at 2^20 keys
 A1_QL = """
@@ -10345,12 +10425,52 @@ def compare_hop(torch, np, dev):
     return max(tw.err, small.err), timing
 
 
+# K19's edge cases (phase 37c and tests/test_torch_frequent.py): the
+# window and what each send's keys exercise in the kernel's walk
+FQ_EDGE_CASES = (
+    ("full miss mid-group", "frequent(8, cardNo)"),
+    ("repeated new keys in a group", "frequent(16, cardNo)"),
+    ("full miss evicting every counter", "frequent(8, cardNo)"),
+    ("keys colliding in the hash", "frequent(64, cardNo)"),
+    ("only hits", "frequent(16, cardNo)"),
+)
+
+
+def fq_edge_keys(np, rng, case, A, i):
+    """Send i's A keys (int64) of a K19 edge case.  "full miss mid-group":
+    every key new, so the first group of 32 finds 8 free counters and its
+    lane 8 is a full miss (which frees them all); "repeated new keys in a
+    group": 12 new keys a send, each repeated in most groups; "full miss
+    evicting every counter": blocks of 9 new keys, the 9th missing the 8
+    counters that all hold count 1; "keys colliding in the hash": 300 keys
+    whose first slot in the walk's hash of 64 counters is one (`key_slot`
+    of the port's kernels/frequent.py); "only hits": 10
+    keys in 16 counters, so every send after the first is all hits."""
+    if case == "full miss mid-group":
+        return (i * A + np.arange(A)).astype(np.int64)
+    if case == "repeated new keys in a group":
+        return (i * 1000 + rng.integers(0, 12, A)).astype(np.int64)
+    if case == "full miss evicting every counter":
+        g = i * A + np.arange(A)
+        return (g // 9 * 100 + g % 9).astype(np.int64)
+    if case == "keys colliding in the hash":
+        from siddhi_tpu_torch.kernels.frequent import key_slot
+        cand = np.arange(1 << 18, dtype=np.int64)
+        h = key_slot(cand[:, None], 64)
+        keys = cand[h == h[0]][:300]
+        return keys[rng.integers(0, keys.shape[0], A)]
+    return rng.integers(0, 10, A).astype(np.int64)
+
+
 def compare_frequent(torch, np, dev):
     """Phase 37c: K19 against its plain version: FQ1's purchases (1,000
     counters in shared memory, three sends), 20,000 counters (beyond
-    shared memory: the counters in device memory) over a small send, and
-    float keys (-0.0, +0.0, NaNs of two payloads) over two columns.
-    Returns (max error, timing inputs)."""
+    shared memory: the counters in device memory) over a small send,
+    float keys (-0.0, +0.0, NaNs of two payloads) over two columns, and
+    the walk's edge cases (FQ_EDGE_CASES: a full miss mid-group, repeated
+    new keys in a group, a full miss evicting every counter, keys
+    colliding in the hash, a batch of only hits).  Returns (max error,
+    timing inputs)."""
     from siddhi_tpu_torch.kernels import frequent as fq
     rng = np.random.default_rng(157)
     err, timing, rows = 0.0, None, 0
@@ -10365,6 +10485,13 @@ def compare_frequent(torch, np, dev):
                   [([rng.integers(0, 6, 4096).astype(np.int64),
                      fl[rng.integers(0, 6, 4096)]],
                     np.full(4096, 7 + i, np.int64)) for i in range(2)]))
+    for name, win in FQ_EDGE_CASES:
+        ql = FQ1_QL.replace("lossyFrequent(0.001, 0.0001, cardNo)",
+                            win).replace("[price >= 30]", "")
+        cases.append((ql, [([fq_edge_keys(np, rng, name, 4096, i),
+                             rng.integers(0, 60, 4096).astype(np.float32)],
+                            np.full(4096, 9 + i, np.int64))
+                           for i in range(3)]))
     for c, (ql, sends) in enumerate(cases):
         plan = window_plan(dev, ql, "fq1")
         kp = plan.window.key_positions
@@ -10378,7 +10505,8 @@ def compare_frequent(torch, np, dev):
                     f"K19 case {c} send {i}")
         err, rows = max(err, tw.err), rows + tw.rows
     print(f"phase 37c K19: {rows} rows equal over FQ1's sends, 20,000 "
-          f"counters in device memory and float keys")
+          f"counters in device memory, float keys and the edge cases "
+          f"({', '.join(n for n, _ in FQ_EDGE_CASES)})")
     return err, timing
 
 
@@ -10693,6 +10821,11 @@ def slice10_phases(torch, np, dev):
                ("time_batch", "hop_window", "frequent", "keyed_window"))
     took("phase 40 done")
     no_lib = "no single PyTorch call computes this window step"
+    earlier = {"frequent": " (the earlier design, one warp scanning the "
+                           "counters an arrival, took 274.8-277.7 ms an FQ1 "
+                           "send on an H100 80GB HBM3 at 700 W; "
+                           "scripts/time_k19_k8.py times both designs in "
+                           "one call)"}
     records = []
     for name, key, src, rep, err in (
             ("time_batch_chunk", "time_batch_chunk", "time_batch.cu",
@@ -10709,7 +10842,8 @@ def slice10_phases(torch, np, dev):
         print(f"kernel {name}: {t['ms']:.4f} ms at {t['shape']} (bound "
               f"{t['bound_ms']:.5f} by {t['bound_by']}, {t['bytes']} bytes"
               f"{rewrite_note(t)}), plain {t['plain_ms']:.4f} ms, launches "
-              f"on the main path {n[name]}; library_ms null: {no_lib}")
+              f"on the main path {n[name]}; library_ms null: {no_lib}"
+              f"{earlier.get(name, '')}")
         records.append({
             "name": name, "route": "cuda",
             "source": f"siddhi_tpu_torch/csrc/{src}", "replaces": rep,

@@ -12,6 +12,17 @@ arrival order (event index, then thread); the selector's projection and the
 valid-first cut to the emission cap run after it as torch ops, as they do
 after the reference's sort.  The state blobs are updated in place.
 
+The kernel runs the chunks of W = 128 events in order in one block of 512
+threads (the carry between chunks is serial, and chunk boundaries are
+part of the reference's semantics): 128 stager threads copy the next
+chunk's events into shared memory by cp.async, convert them and evaluate
+atom 0 on each while the rows run this chunk; each row (a slab slot or a
+seed) runs its stages in its own thread, a SEQUENCE row's next valid
+event comes from the valid mask's ballot words, and a PATTERN row still
+scanning after 8 events is finished by a warp, 32 events a ballot.  One
+SM works; its chain of filter evaluations and block barriers a chunk
+bounds it, not the bytes.
+
 The kernel builds from the repository's source at first use
 (`kernels/_nvcc.py`).  `launches` counts kernel launches and `plain_calls`
 calls of the plain version; `reset_counts()` sets both to 0.
@@ -70,11 +81,15 @@ class BlockNfaPlan(ctypes.Structure):
          ("in_sets", InSet * MAX_IN)])
 
 
+NT = 512                     # the kernel's block (csrc/block_nfa.cu NT)
+
+
 def smem_bytes(P: int, W: int, ncols: int, ncap: int) -> int:
-    """The kernel's dynamic shared memory (its layout in block_nfa.cu)."""
+    """The kernel's dynamic shared memory (its layout in block_nfa.cu):
+    the staged and the converted events, the rows' captures and fields."""
     T = P + W
-    return 8 * (ncols * W + W + ncap * T + 3 * T) + \
-        4 * (2 * W + 3 * T + MAX_P + 8)
+    return 8 * (4 * ncols * W + 4 * W + ncap * T + 4 * T) + \
+        4 * (6 * W + 5 * T + MAX_P + 2 * (NT // 32) + 8)
 
 
 class BlockPlan:

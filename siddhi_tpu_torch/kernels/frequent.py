@@ -29,9 +29,21 @@ State (`FreqState`): counts i64[n], keys i64[n, K], the stored events'
 ts i64[n], group slot i32[n] and columns, and `meta` = [seq].  Only the
 counters with count > 0 are defined.
 
+The kernel keeps the arrivals' order but resolves 32 at a time: one warp
+of one block walks them against the counters in shared memory (device
+memory when they do not fit), a hit found through an open-addressing hash
+of the live keys, equal keys within a group matched by a warp vote, new
+keys given the lowest free counters by rank, a full miss ending the group
+there; producer warps stage the next tile's key words and hashes.  The
+walk writes a small record an arrival; a grid over every SM then writes
+the rows at the walk's offsets, and a last launch the stored events.  The
+walk's chain of groups (about 2,200 at an FQ1 send) bounds it, not the
+bytes.
+
 `frequent_step` is what `FrequentWindow.process` calls: CPU tensors run
 `plain`, CUDA tensors launch the kernel.  `launches` / `plain_calls` count
-them; `reset_counts()` sets them to 0.
+them (one launch counts the kernel's three); `reset_counts()` sets them
+to 0.
 """
 from __future__ import annotations
 
@@ -49,8 +61,10 @@ launches = 0
 plain_calls = 0
 
 MAX_COLS = 16
-# counters whose counts and keys fit here live in shared memory
-SHARED_BYTES = 200 * 1024
+# the walk's staged tile of arrivals (csrc/frequent.cu TILE) and the
+# block's dynamic shared memory at most (the H100's less the static)
+TILE = 512
+SMEM_MAX = 232448 - 1024
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # the kernel's column type codes
 _TY = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3,
@@ -217,7 +231,8 @@ class FreqPlan(ctypes.Structure):
     """Mirrors `struct FreqPlan` in csrc/frequent.cu."""
     _fields_ = (
         [(n, _L) for n in ("n", "B", "cap")] +
-        [("ncols", _I), ("nkeys", _I), ("shared", _I), ("pad", _I),
+        [("ncols", _I), ("nkeys", _I), ("shared", _I), ("hbits", _I),
+         ("smem", _I), ("pad", _I),
          ("col_bytes", _I * MAX_COLS), ("key_col", _I * MAX_COLS),
          ("key_ty", _I * MAX_COLS),
          ("counts", _P), ("keys", _P), ("s_ts", _P), ("s_gslot", _P),
@@ -225,22 +240,46 @@ class FreqPlan(ctypes.Structure):
          ("a_ts", _P), ("a_gslot", _P), ("a_col", _P * MAX_COLS),
          ("a_row", _P), ("n_arr", _P),
          ("out_ts", _P), ("out_kind", _P), ("out_seq", _P),
-         ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("n_out", _P)])
+         ("out_gslot", _P), ("out_col", _P * MAX_COLS), ("n_out", _P),
+         ("g_tab", _P), ("g_src", _P), ("g_free", _P), ("rec", _P),
+         ("evl", _P), ("n_ev", _P)])
 
 
-def shared_bytes(n: int, nkeys: int) -> int:
-    """The dynamic shared memory the kernel takes for n counters: their
-    counts and keys, or 0 when they do not fit (it then works on them in
-    device memory)."""
-    b = n * 8 * (1 + nkeys)
-    return b if b <= SHARED_BYTES else 0
+def hash_bits(n: int) -> int:
+    """log2 of the hash's slots: the least power of two >= 4n (at least
+    64)."""
+    return max(6, (4 * n - 1).bit_length())
+
+
+def walk_smem(n: int, nkeys: int):
+    """(counters in shared memory?, the walk's dynamic shared memory in
+    bytes): the staged tiles' key words and hashes always; the counts,
+    keys, hash, sources and free queue too when all fit."""
+    stage = 2 * TILE * (8 * nkeys + 4)
+    counters = 8 * n * (1 + nkeys) + 8 * (1 << hash_bits(n)) + 12 * n
+    if stage + counters <= SMEM_MAX:
+        return True, stage + counters
+    return False, stage
+
+
+def key_slot(words, n: int) -> np.ndarray:
+    """Each key's first slot in the kernel's hash of n counters (`mix` /
+    `fold` in csrc/frequent.cu) over i64 words [A, K]: for building keys
+    that collide."""
+    w = np.asarray(words, np.int64).view(np.uint64)
+    h = np.full(w.shape[0], 0x9e3779b97f4a7c15, np.uint64)
+    for k in range(w.shape[1]):
+        h = (h ^ w[:, k]) * np.uint64(0xff51afd7ed558ccd)
+        h ^= h >> np.uint64(33)
+    h = (h ^ (h >> np.uint64(32))) & np.uint64(0xffffffff)
+    return (h & np.uint64((1 << hash_bits(n)) - 1)).astype(np.int64)
 
 
 def launch(st: FreqState, arr: Rows, n_arr, key_pos, n_out: int = None):
-    """One launch (a warp walks the arrivals), one fetch of the row count
-    (`n_out`, when the caller knows it, skips the fetch: CUDA-graph
-    timing).  The output is sized by the bound 3A + n (A the batch's
-    capacity, at least its arrivals)."""
+    """Three launches (the walk, the rows, the stored events), one fetch
+    of the row count (`n_out`, when the caller knows it, skips the fetch:
+    CUDA-graph timing).  The output is sized by the bound 3A + n (A the
+    batch's capacity, at least its arrivals)."""
     global launches
     dev = st.counts.device
     A = int(arr.ts.shape[0])
@@ -259,7 +298,8 @@ def launch(st: FreqState, arr: Rows, n_arr, key_pos, n_out: int = None):
     pl = FreqPlan()
     pl.n, pl.B, pl.cap = n, A, rows
     pl.ncols, pl.nkeys = len(st.cols), len(key_pos)
-    pl.shared = shared_bytes(n, len(key_pos))
+    shared, pl.smem = walk_smem(n, len(key_pos))
+    pl.shared, pl.hbits = int(shared), hash_bits(n)
 
     def e(d, m=max(rows, 1)):
         return torch.empty(m, dtype=d, device=dev)
@@ -284,6 +324,17 @@ def launch(st: FreqState, arr: Rows, n_arr, key_pos, n_out: int = None):
     pl.out_ts, pl.out_kind = out.ts.data_ptr(), out.kind.data_ptr()
     pl.out_seq, pl.out_gslot = out.seq.data_ptr(), out.gslot.data_ptr()
     pl.n_out = count.data_ptr()
+    # the walk's scratch: the hash and free queue (used when the counters
+    # are in device memory), the sources, the records, the evictions
+    i32 = torch.int32
+    g_tab = e(torch.int64, 1 << pl.hbits) if not shared else None
+    g_free = e(i32, 2 * n) if not shared else None
+    g_src, rec = e(i32, n), e(i32, 3 * max(A, 1))
+    evl, n_ev = e(i32, 4 * (n + A)), e(i32, 1)
+    if g_tab is not None:
+        pl.g_tab, pl.g_free = g_tab.data_ptr(), g_free.data_ptr()
+    pl.g_src, pl.rec = g_src.data_ptr(), rec.data_ptr()
+    pl.evl, pl.n_ev = evl.data_ptr(), n_ev.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _nvcc.launch_plan("frequent", "siddhi_frequent", "siddhi_freq_plan_size",
                       pl, stream)

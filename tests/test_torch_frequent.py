@@ -10,7 +10,8 @@ rows in seq order and the counters (counts, the keys and stored events of
 those in use, the seq counter) equal to the JAX step's, exact, over random
 batches with padding rows, rows the filter drops, float keys with -0.0,
 +0.0 and NaNs of two payloads, keys of two columns, and a full miss that
-evicts a cascade of counters.  Then chip_smoke's FQ1 model at a small
+evicts a cascade of counters, and the K19 edge cases of
+`chip_smoke.FQ_EDGE_CASES`.  Then chip_smoke's FQ1 model at a small
 size, the output bound, the parameter lists that raise, and the keyed
 forms (kernel K24) against the JAX package's events.
 """
@@ -74,9 +75,13 @@ def plans():
     return get
 
 
-def _batch(rng, B, n_keys):
+def _batch(rng, B, n_keys, edge=None, i=0):
+    """A batch of B rows with padding and rows the filter drops; the keys
+    uniform over n_keys, or step i's of a K19 edge case."""
     valid = np.arange(B) < rng.integers(B // 2, B + 1)
-    cols = [rng.integers(0, n_keys, B).astype(np.int64),
+    keys = rng.integers(0, n_keys, B).astype(np.int64) if edge is None else \
+        chip_smoke.fq_edge_keys(np, rng, edge, B, i)
+    cols = [keys,
             _FLOATS[rng.integers(0, _FLOATS.shape[0], B)],
             rng.integers(-1, 3, B).astype(np.int32), rng.random(B) < 0.5]
     return np.arange(1000, 1000 + B, dtype=np.int64), valid, cols
@@ -92,7 +97,8 @@ def _counters(st):
     return out
 
 
-def _run_steps(plans, win, n_steps, n_keys, B=24, warm=2, seed=0):
+def _run_steps(plans, win, n_steps, n_keys, B=24, warm=2, seed=0,
+               edge=None):
     """`warm` steps through the JAX window alone, its state carried over,
     then `n_steps` through both, each step's rows and the counters
     compared.  Returns the rows compared."""
@@ -101,7 +107,7 @@ def _run_steps(plans, win, n_steps, n_keys, B=24, warm=2, seed=0):
     tw = tp.window
     st, rows = None, 0
     for i in range(warm + n_steps):
-        ts, valid, cols = _batch(rng, B, n_keys)
+        ts, valid, cols = _batch(rng, B, n_keys, edge, i)
         if i == warm:
             st = convert.query_state_from_jax(tp, (jw_state, ()))[0]
         kind = np.full(B, ev.CURRENT, np.int32)
@@ -141,17 +147,27 @@ def _run_steps(plans, win, n_steps, n_keys, B=24, warm=2, seed=0):
     return rows
 
 
-@pytest.mark.parametrize("win,n_keys", [
-    ("frequent(4, k)", 6),          # hits, inserts and full misses
-    ("frequent(3, v)", 8),          # float keys: -0.0 != +0.0, NaN payloads
-    ("frequent(5, k, v)", 3),       # a key of two columns
-    ("frequent(2)", 2),             # every column is the key
-    ("lossyFrequent(0.25, 0.01, k)", 40),   # n = 4; many full misses
-], ids=["int", "float", "two-columns", "every-column", "lossy"])
-def test_step_from_a_converted_state(plans, win, n_keys):
+_EDGES = [(w.replace("cardNo", "k"), 0, name)
+          for name, w in chip_smoke.FQ_EDGE_CASES]
+
+
+@pytest.mark.parametrize("win,n_keys,edge", [
+    ("frequent(4, k)", 6, None),    # hits, inserts and full misses
+    ("frequent(3, v)", 8, None),    # float keys: -0.0 != +0.0, NaN payloads
+    ("frequent(5, k, v)", 3, None),     # a key of two columns
+    ("frequent(2)", 2, None),       # every column is the key
+    ("lossyFrequent(0.25, 0.01, k)", 40, None),  # n = 4; many full misses
+] + _EDGES, ids=["int", "float", "two-columns", "every-column", "lossy"] +
+    [name.replace(" ", "-") for _, _, name in _EDGES])
+def test_step_from_a_converted_state(plans, win, n_keys, edge):
     """The port's step (plain K19) from the JAX window's converted state
-    gives the JAX step's rows and counters, step after step."""
-    assert _run_steps(plans, win, 6, n_keys) > 0
+    gives the JAX step's rows and counters, step after step; the K19 edge
+    cases (chip_smoke.FQ_EDGE_CASES: a full miss mid-group, repeated new
+    keys in a group, a full miss evicting every counter, keys colliding in
+    the kernel's hash, a batch of only hits) take batches of 64 rows, two
+    of the kernel's groups of 32 arrivals."""
+    assert _run_steps(plans, win, 6, n_keys, B=24 if edge is None else 64,
+                      edge=edge) > 0
 
 
 def test_full_miss_evicts_a_cascade(plans):

@@ -11,6 +11,9 @@ order (valid or not) must be equal.  Tolerance: exact, floats bit for bit
 (NaN equal to NaN by bits, since the reference's one-hot sums keep a NaN's
 bits and turn -0.0 into +0.0, as the port does).
 
+The cases include the kernel's edge cases (`chip_smoke.K8_EDGE_CASES`:
+first matches past event 96 of a chunk, seeds that never match, `within`
+cuts inside a chunk, runs of more than 32 invalid rows in a sequence).
 Then whole apps through both managers: bench.py's sequence configuration
 (SEQUENCE_QL) and the pattern sample, events equal in order.
 """
@@ -82,6 +85,16 @@ CASES = {
         -> e2=S[volume == 2]
         select e1.price as a, e2.price as b insert into M;"""), 300),
 }
+
+
+# K8's edge cases (chip_smoke.K8_EDGE_CASES, as phase 14 runs them on the
+# card): first matches past event 96 of a chunk, seeds that never match on
+# falling prices, `within` cuts inside a chunk, a sequence over runs of
+# more than 32 invalid rows; two chunks a send
+EDGE = {"edge_" + name.replace(" ", "_"): name
+        for name in chip_smoke.K8_EDGE_CASES}
+CASES.update({case: (chip_smoke.K8_EDGE_CASES[name], 256)
+              for case, name in EDGE.items()})
 
 
 def sends_for(rng, E, n, streams=("S",)):
@@ -174,6 +187,11 @@ def test_block_step_matches_reference(case):
     rng = np.random.default_rng(sorted(CASES).index(case))
     streams = ("S", "U", "S") if "second_stream" in case else ("S",)
     sends = sends_for(rng, E, 6, streams)
+    if case in EDGE:
+        sends = [("S", cols, ts, sel[None, :], i % 3 != 2)
+                 for i, (cols, ts, sel) in enumerate(
+                     chip_smoke.k8_edge_send(np, rng, EDGE[case], E, i)
+                     for i in range(6))]
     if case == "second_stream_sequence":
         # strict continuity across streams: a seed survives its S batch
         # only as its last valid event, its U match only as the U batch's
